@@ -1,0 +1,8 @@
+"""PyTorch/CUDA port of the Multi-Modal Discussion Transformer.
+
+A package of its own beside the JAX package ``multimodaldiscussiontransformer_tpu``,
+with the same layout and names. It imports neither JAX nor the JAX package.
+Its graph attention runs a hand-written Hopper kernel
+(``csrc/tree_attention_fwd.cu``) on CUDA tensors and a plain PyTorch version
+on CPU tensors.
+"""

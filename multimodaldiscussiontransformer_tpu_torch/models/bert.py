@@ -1,0 +1,182 @@
+"""BERT tower modules, and the dense and layer-norm layers every tower uses.
+
+Module and parameter names mirror the JAX package's Flax modules
+(``query``, ``attention_output_dense``, ``layer_0`` ...), so that
+``utils/flax_import.py`` maps weights by path.
+
+Precision follows Flax's ``dtype`` semantics: parameters are stored in
+float32, every matmul runs in the compute dtype, layer-norm statistics and
+every softmax run in float32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from multimodaldiscussiontransformer_tpu_torch.core.config import BertTowerConfig
+
+# Large negative bias for masked attention logits: finite, so that a fully
+# masked row degrades to uniform attention instead of NaN.
+MASK_BIAS = -1e9
+
+
+def act_fn(name: str):
+    """Activation by HF name: exact gelu, tanh-approximated gelu_new, or
+    CLIP's QuickGELU."""
+    if name == "gelu":
+        return F.gelu
+    if name == "gelu_new":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "quick_gelu":
+        return lambda x: x * torch.sigmoid(1.702 * x)
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def attention_mask_bias(attention_mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(..., S) {0,1} mask -> (..., 1, 1, S) additive bias."""
+    m = attention_mask[..., None, None, :].float()
+    return ((1.0 - m) * MASK_BIAS).to(dtype)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with float32 parameters that computes in ``dtype``
+    (Flax ``nn.Dense(dtype=...)``)."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computed in float32, returned in ``dtype``."""
+
+    def __init__(self, dim: int, eps: float, dtype: torch.dtype):
+        super().__init__(dim, eps=eps)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+class SelfAttention(nn.Module):
+    """HF-style encoder self-attention shared by BERT and ViT: plain matmuls
+    in the compute dtype and a float32 softmax."""
+
+    def __init__(self, hidden_size: int, num_heads: int, dtype: torch.dtype):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_heads = num_heads
+        self.query = Dense(hidden_size, hidden_size, dtype)
+        self.key = Dense(hidden_size, hidden_size, dtype)
+        self.value = Dense(hidden_size, hidden_size, dtype)
+
+    def forward(self, hidden: torch.Tensor, attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, s, _ = hidden.shape
+        h = self.num_heads
+        dh = self.hidden_size // h
+
+        def heads(x):  # (B, S, D) -> (B, H, S, dh)
+            return x.view(b, s, h, dh).transpose(1, 2)
+
+        q, k, v = heads(self.query(hidden)), heads(self.key(hidden)), heads(self.value(hidden))
+        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)
+        if attn_bias is not None:
+            scores = scores + attn_bias
+        probs = torch.softmax(scores.float(), dim=-1).to(hidden.dtype)
+        ctx = torch.matmul(probs, v)
+        return ctx.transpose(1, 2).reshape(b, s, self.hidden_size)
+
+
+class BertLayer(nn.Module):
+    """One post-LN BERT encoder layer: self-attention -> dense + LN(residual)
+    -> intermediate activation -> dense + LN(residual)."""
+
+    def __init__(self, config: BertTowerConfig, dtype: torch.dtype):
+        super().__init__()
+        c, d = config, dtype
+        self.act = act_fn(c.hidden_act)
+        self.attention = SelfAttention(c.hidden_size, c.num_attention_heads, d)
+        self.attention_output_dense = Dense(c.hidden_size, c.hidden_size, d)
+        self.attention_output_layernorm = LayerNorm(c.hidden_size, c.layer_norm_eps, d)
+        self.intermediate_dense = Dense(c.hidden_size, c.intermediate_size, d)
+        self.output_dense = Dense(c.intermediate_size, c.hidden_size, d)
+        self.output_layernorm = LayerNorm(c.hidden_size, c.layer_norm_eps, d)
+
+    def forward(self, hidden: torch.Tensor, attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        attn = self.attention_output_dense(self.attention(hidden, attn_bias))
+        hidden = self.attention_output_layernorm(attn + hidden)
+        out = self.output_dense(self.act(self.intermediate_dense(hidden)))
+        return self.output_layernorm(out + hidden)
+
+
+class BertEmbeddings(nn.Module):
+    """Word + position + token-type embeddings, then layer norm."""
+
+    def __init__(self, config: BertTowerConfig, dtype: torch.dtype):
+        super().__init__()
+        c = config
+        self.config = c
+        self.dtype = dtype
+        self.word_embeddings = nn.Embedding(c.vocab_size, c.hidden_size)
+        self.position_embeddings = nn.Embedding(c.max_position_embeddings, c.hidden_size)
+        self.token_type_embeddings = nn.Embedding(c.type_vocab_size, c.hidden_size)
+        self.layernorm = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
+
+    def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor) -> torch.Tensor:
+        c = self.config
+        s = input_ids.shape[-1]
+        if c.position_offset:
+            # RoBERTa position ids: running count of non-pad tokens, shifted
+            # past padding_idx
+            mask = (input_ids != c.pad_token_id).long()
+            positions = torch.cumsum(mask, dim=-1) * mask + (c.position_offset - 1)
+        else:
+            positions = torch.arange(s, device=input_ids.device)[None, :]
+        emb = self.word_embeddings(input_ids) + self.position_embeddings(positions)
+        if c.use_token_type:
+            emb = emb + self.token_type_embeddings(token_type_ids)
+        return self.layernorm(emb.to(self.dtype))
+
+
+class BertPooler(nn.Module):
+    """Dense + tanh on token 0: the text pooler, and the graph-path pooler
+    of the output head."""
+
+    def __init__(self, hidden_size: int, dtype: torch.dtype):
+        super().__init__()
+        self.dense = Dense(hidden_size, hidden_size, dtype)
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.dense(hidden[:, 0]))
+
+
+class BertBottomTower(nn.Module):
+    """Embeddings + the bottom ``num_layers`` BERT layers (the top layers are
+    split off into fusion stacks; BERT has no final layer norm)."""
+
+    def __init__(self, config: BertTowerConfig, num_layers: int, dtype: torch.dtype):
+        super().__init__()
+        self.embeddings = BertEmbeddings(config, dtype)
+        self.layers = []
+        for i in range(num_layers):
+            lyr = BertLayer(config, dtype)
+            self.add_module(f"layer_{i}", lyr)
+            self.layers.append(lyr)
+
+    def forward(self, input_ids, token_type_ids, attention_mask) -> torch.Tensor:
+        hidden = self.embeddings(input_ids, token_type_ids)
+        bias = attention_mask_bias(attention_mask, hidden.dtype)
+        for lyr in self.layers:
+            hidden = lyr(hidden, bias)
+        return hidden

@@ -1,0 +1,222 @@
+"""Graphormer-style graph transformer blocks.
+
+- ``padding_idx=0`` embeddings become masked lookups (``masked_embed``): id 0
+  contributes an exact zero vector, which is how the +1-shifted collator
+  encodes padding;
+- softmax runs in float32 whatever the compute dtype;
+- with ``use_pallas_attention`` the graph attention takes the compact
+  (template, ids, lut) bias and runs the tree-attention kernel
+  (``ops/tree_attention.py``); otherwise the dense (B, H, S, S) bias is
+  assembled and attention is plain PyTorch.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from multimodaldiscussiontransformer_tpu_torch.core.config import ModelConfig
+from multimodaldiscussiontransformer_tpu_torch.models.bert import (
+    MASK_BIAS,
+    Dense,
+    LayerNorm,
+)
+from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
+
+CompactBias = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def graph_activation_fn(name: str):
+    """The fairseq activations the reference exposes on ``--activation-fn``;
+    ``gelu`` is the exact erf variant, ``gelu_fast``/``gelu_accurate`` the
+    tanh approximation."""
+    table = {
+        "gelu": F.gelu,
+        "gelu_fast": lambda x: F.gelu(x, approximate="tanh"),
+        "gelu_accurate": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu,
+        "relu_squared": lambda x: torch.square(F.relu(x)),
+        "tanh": torch.tanh,
+        "linear": lambda x: x,
+    }
+    if name not in table:
+        raise ValueError(f"unknown activation_fn {name!r}; supported: {sorted(table)}")
+    return table[name]
+
+
+def masked_embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Embedding lookup where id 0 gives an exact zero vector and ids
+    saturate at the last row: a degree or bucket past the table reads the
+    final embedding. The clamp comes before the lookup, so no id outside the
+    table ever reaches the index (which would assert on CUDA)."""
+    ids = ids.clamp(0, table.shape[0] - 1)
+    out = table[ids]
+    return torch.where((ids == 0)[..., None], 0.0, out)
+
+
+def _normal_param(*shape: int) -> nn.Parameter:
+    """A parameter to be filled by ``models/mdt.py::init_weights``."""
+    return nn.Parameter(torch.empty(*shape))
+
+
+class GraphNodeFeature(nn.Module):
+    """Node features: node states + in/out-degree embeddings, with a learned
+    graph token prepended."""
+
+    def __init__(self, config: ModelConfig, dtype: torch.dtype):
+        super().__init__()
+        c = config
+        d = c.encoder_embed_dim
+        self.dtype = dtype
+        self.in_degree_encoder = _normal_param(c.num_in_degree, d)
+        self.out_degree_encoder = _normal_param(c.num_out_degree, d)
+        self.graph_token = _normal_param(1, d)
+
+    def forward(self, x, in_degree, out_degree) -> torch.Tensor:
+        dt = self.dtype
+        feats = (
+            x
+            + masked_embed(self.in_degree_encoder.to(dt), in_degree)
+            + masked_embed(self.out_degree_encoder.to(dt), out_degree)
+        )
+        tok = self.graph_token.to(dt)[None].expand(x.shape[0], 1, x.shape[-1])
+        return torch.cat([tok, feats], dim=1)
+
+
+class GraphAttnBias(nn.Module):
+    """Per-head attention bias: spatial-bucket embeddings over node pairs plus
+    a learned virtual distance for the graph-token row and column. Keeps the
+    reference's double addition of the base template when
+    ``config.double_add_attn_bias``."""
+
+    def __init__(self, config: ModelConfig, dtype: torch.dtype):
+        super().__init__()
+        c = config
+        self.config = c
+        self.dtype = dtype
+        h = c.encoder_attention_heads
+        self.spatial_pos_encoder = _normal_param(c.num_spatial, h)
+        self.graph_token_virtual_distance = _normal_param(1, h)
+
+    def forward(self, attn_bias: torch.Tensor, spatial_pos: torch.Tensor) -> torch.Tensor:
+        """Dense (B, H, N+1, N+1) bias from the (B, N+1, N+1) template and
+        the (B, N, N) +1-shifted bucket ids."""
+        dt = self.dtype
+        h = self.config.encoder_attention_heads
+        template = attn_bias.to(dt)[:, None]
+        g = template.expand(-1, h, -1, -1).clone()
+        sp = masked_embed(self.spatial_pos_encoder.to(dt), spatial_pos).permute(0, 3, 1, 2)
+        g[:, :, 1:, 1:] += sp
+        t = self.graph_token_virtual_distance.to(dt).view(1, h, 1)
+        g[:, :, 1:, 0] += t
+        g[:, :, 0, :] += t
+        if self.config.double_add_attn_bias:
+            g = g + template
+        return g
+
+    def compact_inputs(self, attn_bias: torch.Tensor, spatial_pos: torch.Tensor) -> CompactBias:
+        """(template, ids, lut) for the tree-attention kernel, which builds
+        the bias on the fly instead of reading a (B, H, S, S) tensor."""
+        return ta.build_compact_bias_inputs(
+            attn_bias, spatial_pos,
+            self.spatial_pos_encoder.float(), self.graph_token_virtual_distance.float(),
+        )
+
+
+class BiasedMultiheadAttention(nn.Module):
+    """Self-attention with an additive per-head bias and key-padding
+    masking, batch-first."""
+
+    def __init__(self, config: ModelConfig, dtype: torch.dtype):
+        super().__init__()
+        c = config
+        d = c.encoder_embed_dim
+        self.config = c
+        self.q_proj = Dense(d, d, dtype)
+        self.k_proj = Dense(d, d, dtype)
+        self.v_proj = Dense(d, d, dtype)
+        self.out_proj = Dense(d, d, dtype)
+
+    def forward(
+        self,
+        x: torch.Tensor,  # (B, S, D)
+        attn_bias: Union[torch.Tensor, CompactBias, None],
+        key_padding_mask: Optional[torch.Tensor],  # (B, S) bool, True = pad
+    ) -> torch.Tensor:
+        c = self.config
+        b, s, d = x.shape
+        h = c.encoder_attention_heads
+        dh = d // h
+        scaling = dh ** -0.5
+
+        def heads(y):  # (B, S, D) -> (B, H, S, dh)
+            return y.view(b, s, h, dh).transpose(1, 2)
+
+        q, k, v = heads(self.q_proj(x)), heads(self.k_proj(x)), heads(self.v_proj(x))
+        if isinstance(attn_bias, tuple):
+            # the template already encodes key padding
+            template, ids, lut = attn_bias
+            ctx = ta.tree_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), template, ids, lut,
+                scale=scaling, double_add=c.double_add_attn_bias,
+            )
+        else:
+            scores = torch.matmul(q * scaling, k.transpose(-1, -2))
+            if attn_bias is not None:
+                scores = scores + attn_bias
+            if key_padding_mask is not None:
+                scores = scores.masked_fill(key_padding_mask[:, None, None, :], MASK_BIAS)
+            probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+            ctx = torch.matmul(probs, v)
+        return self.out_proj(ctx.transpose(1, 2).reshape(b, s, d))
+
+
+class GraphormerGraphEncoderLayer(nn.Module):
+    """Post-LN (default) or pre-LN transformer block with biased attention;
+    layer norms use eps 1e-5."""
+
+    def __init__(self, config: ModelConfig, dtype: torch.dtype):
+        super().__init__()
+        c = config
+        self.pre = c.pre_layernorm
+        self.act = graph_activation_fn(c.activation_fn)
+        self.self_attn = BiasedMultiheadAttention(c, dtype)
+        self.self_attn_layer_norm = LayerNorm(c.encoder_embed_dim, 1e-5, dtype)
+        self.fc1 = Dense(c.encoder_embed_dim, c.encoder_ffn_embed_dim, dtype)
+        self.fc2 = Dense(c.encoder_ffn_embed_dim, c.encoder_embed_dim, dtype)
+        self.final_layer_norm = LayerNorm(c.encoder_embed_dim, 1e-5, dtype)
+
+    def forward(self, x, attn_bias, key_padding_mask) -> torch.Tensor:
+        residual = x
+        if self.pre:
+            x = self.self_attn_layer_norm(x)
+        x = residual + self.self_attn(x, attn_bias, key_padding_mask)
+        if not self.pre:
+            x = self.self_attn_layer_norm(x)
+        residual = x
+        if self.pre:
+            x = self.final_layer_norm(x)
+        x = residual + self.fc2(self.act(self.fc1(x)))
+        if not self.pre:
+            x = self.final_layer_norm(x)
+        return x
+
+
+class GraphEncoderStack(nn.Module):
+    """``num_layers`` chained graph encoder layers."""
+
+    def __init__(self, config: ModelConfig, num_layers: int, dtype: torch.dtype):
+        super().__init__()
+        self.layers = []
+        for i in range(num_layers):
+            lyr = GraphormerGraphEncoderLayer(config, dtype)
+            self.add_module(f"layer_{i}", lyr)
+            self.layers.append(lyr)
+
+    def forward(self, x, attn_bias, key_padding_mask) -> torch.Tensor:
+        for lyr in self.layers:
+            x = lyr(x, attn_bias, key_padding_mask)
+        return x

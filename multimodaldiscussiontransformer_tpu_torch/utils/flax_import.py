@@ -1,0 +1,94 @@
+"""Carry weights from the JAX package's Flax params into the port's model.
+
+The port's modules are named like the Flax ones, so a Flax path maps to a
+state_dict key component by component; only the leaf name and layout
+change:
+
+- Dense ``kernel`` (in, out) -> ``weight`` (out, in), transposed;
+- Conv ``kernel`` HWIO -> ``weight`` OIHW;
+- LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
+- ``bias`` and raw parameters (``bottle_neck``, ``graph_token``, the degree
+  tables, ``spatial_pos_encoder``, ``graph_token_virtual_distance``,
+  ``cls_token``, ``position_embeddings``) are copied as they are.
+
+Leaves are numpy arrays (``jax.device_get`` of the params). Nothing here
+imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+# names the scan layout gives to stacked layer groups
+_SCAN_NAMES = ("scan_pairs", "scan_layers")
+
+
+def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
+    out = {}
+    for k, v in tree.items():
+        path = prefix + (str(k),)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _convert(path: Tuple[str, ...], leaf) -> Tuple[str, np.ndarray]:
+    arr = np.asarray(leaf, dtype=np.float32)
+    name = path[-1]
+    module = ".".join(path[:-1])
+    if name == "kernel":
+        if arr.ndim == 2:
+            arr = arr.T
+        elif arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        else:
+            raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
+        name = "weight"
+    elif name in ("scale", "embedding"):
+        name = "weight"
+    return f"{module}.{name}" if module else name, arr
+
+
+def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for a JAX ``MDTModel`` params tree (with or
+    without the top-level ``"params"`` collection). Each leaf becomes
+    exactly one tensor; a scan-layout tree raises ``ValueError``."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(params).items():
+        scanned = [p for p in path if p in _SCAN_NAMES]
+        if scanned:
+            raise ValueError(
+                f"{'/'.join(path)} is in the scan layout ({scanned[0]}): the port "
+                "takes unrolled params; convert with the JAX package's "
+                "utils/scan_params.py::to_unrolled first"
+            )
+        key, arr = _convert(path, leaf)
+        if key in out:
+            raise ValueError(f"two Flax leaves map to {key}")
+        out[key] = torch.tensor(arr)
+    return out
+
+
+def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
+    """Fill every parameter of ``model`` from the Flax params tree. Raises
+    if a port tensor is left unfilled, a Flax leaf has no port tensor, or a
+    shape disagrees."""
+    sd = flax_to_state_dict(params)
+    own = model.state_dict()
+    missing = sorted(set(own) - set(sd))
+    unexpected = sorted(set(sd) - set(own))
+    if missing or unexpected:
+        raise ValueError(f"Flax params do not fit the model: missing {missing}, unexpected {unexpected}")
+    bad = {k: (tuple(sd[k].shape), tuple(v.shape)) for k, v in own.items() if sd[k].shape != v.shape}
+    if bad:
+        raise ValueError(f"shape mismatch (flax, port): {bad}")
+    model.load_state_dict(sd, strict=True)
+    return model
