@@ -1,0 +1,87 @@
+// Shared pieces of the compact-bias tree-attention kernels
+// (tree_attention_fwd.cu, tree_attention_bwd.cu): tiling constants, type
+// conversion, the bias assembled on the fly, and the dropout bits.
+//
+// Dropout bits: Philox4x32-10 (Salmon et al., "Parallel random numbers: as
+// easy as 1, 2, 3", SC 2011), keyed by the 64-bit seed, with the counter
+// (j / 4, i, h, b); word j % 4 is the bits of key j in row i of head h of
+// graph b. The bits are a pure function of (seed, b, h, i, j), whatever
+// the tiling, so the forward and both backward kernels see one mask, and
+// the plain PyTorch version (ops/tree_attention.py) computes the same one.
+// A key is kept where its bits are >= thr = min(floor(rate * 2^32), 2^32-1).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace tree_attention {
+
+constexpr int kTile = 64;                      // rows per block, keys per tile
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerWarp = kTile / kWarps;   // 8
+constexpr int kStride = kTile + 1;             // padded row of a transposed tile
+constexpr int kLutSize = 32;
+constexpr float kMaskBias = -1e9f;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// c * max(tpl, -1e9) + lut[id], where ids 0 and ids outside [0, 32) add
+// nothing from the LUT (lut_s holds this head's column, lut_s[0] = 0)
+__device__ __forceinline__ float bias_of(float tpl, int id, const float* lut_s, float tpl_coef) {
+  const float spatial = (id > 0 && id < kLutSize) ? lut_s[id] : 0.f;
+  return tpl_coef * fmaxf(tpl, kMaskBias) + spatial;
+}
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const unsigned lo0 = 0xD2511F53u * c.x;
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x);
+    const unsigned lo1 = 0xCD9E8D57u * c.z;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+__device__ __forceinline__ unsigned word_of(const uint4& w, int i) {
+  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+}
+
+// Keep flags of keys k0 + lane and k0 + lane + 32 in row `row` (k0 is a
+// multiple of kTile; all 32 lanes must call it). Lane l draws the four
+// words of key group k0/4 + (l % 16); two shuffles hand each lane its own.
+__device__ __forceinline__ void keep_pair(uint2 key, unsigned thr, int b, int h, int row, int k0,
+                                          int lane, bool& keep0, bool& keep1) {
+  if (thr == 0u) {
+    keep0 = keep1 = true;
+    return;
+  }
+  const uint4 w = philox4x32_10(
+      make_uint4((unsigned)(k0 >> 2) + (unsigned)(lane & 15), (unsigned)row, (unsigned)h,
+                 (unsigned)b),
+      key);
+  const unsigned nib = (w.x >= thr ? 1u : 0u) | (w.y >= thr ? 2u : 0u) | (w.z >= thr ? 4u : 0u) |
+                       (w.w >= thr ? 8u : 0u);
+  const unsigned n0 = __shfl_sync(kFull, nib, lane >> 2);
+  const unsigned n1 = __shfl_sync(kFull, nib, 8 + (lane >> 2));
+  keep0 = (n0 >> (lane & 3)) & 1u;
+  keep1 = (n1 >> (lane & 3)) & 1u;
+}
+
+}  // namespace tree_attention

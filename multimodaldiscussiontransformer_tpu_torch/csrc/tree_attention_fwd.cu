@@ -1,23 +1,29 @@
 // Compact-bias tree attention, forward, for Hopper (sm_90a).
 //
-// Replaces three Pallas kernels of the JAX package that compute the same
+// Replaces five Pallas kernels of the JAX package that compute the same
 // function (multimodaldiscussiontransformer_tpu/ops/tree_attention.py):
-//   _make_kernel_batched  (G graphs x all heads per step, padded S <= 128),
-//   _make_kernel          (one (b, h) per step, 128 < padded S < 513),
-//   _make_kernel_flash    with rate 0 and no LSE page (padded S >= 513).
+//   _make_kernel_batched              (rate 0, padded S <= 128),
+//   _make_kernel                      (rate 0, 128 < padded S < 513),
+//   _make_kernel_flash                with rate 0 and no LSE page (padded S >= 513),
+//   _make_dropout_fwd_kernel_batched  (dropout, padded S <= 128),
+//   _make_dropout_fwd_kernel          (dropout, 128 < padded S < 513).
 //
 // Function, for each (b, h, i):
 //   s_ij  = scale * q_i . k_j + c * max(tpl[b,i,j], -1e9) + lut[ids[b,i,j], h]
 //           (c = 2 with the reference's double-added bias, else 1; ids 0 and
 //            ids outside [0, 32) add nothing)
-//   m_i   = max(-1e9, max_j s_ij)
-//   out_i = sum_j exp(s_ij - m_i) v_j / max(sum_j exp(s_ij - m_i), 1e-30)
+//   m_i   = max(-1e9, max_j s_ij),  e_ij = exp(s_ij - m_i)
+//   l_i   = max(sum_j e_ij, 1e-30)                  (the UNDROPPED sum)
+//   out_i = sum_j keep_ij e_ij v_j / ((1 - rate) l_i)
+//   lse_i = m_i + log(l_i)                          (optional, for the backward)
+// keep_ij comes from tree_attention_common.cuh (Philox; all true at rate 0).
 // q/k/v are (B, H, S, DH) in bf16 or f32; tpl (B, S, S) f32; ids (B, S, S)
-// int32; lut (32, H) f32. All arithmetic is f32; out is stored in q's type.
+// int32; lut (32, H) f32; lse (B, H, S) f32 or null. All arithmetic is f32;
+// out is stored in q's type.
 //
-// What bounds it: at the serving shapes (S = 33 at B <= 16, H = 12, DH = 64)
-// the call moves ~3.4 MB (q, k, v, out and the head-shared tpl/ids) for
-// ~54 MFLOP, i.e. about 1 us of HBM time against 0.05 us of tensor-core
+// What bounds it: at the canonical shapes (S = 33 at B = 12..16, H = 12,
+// DH = 64) the call moves ~3 MB (q, k, v, out and the head-shared tpl/ids)
+// for ~50 MFLOP, i.e. about 1 us of HBM time against 0.05 us of tensor-core
 // time: it is bound by memory and launch overhead, not arithmetic.
 //
 // Design: one block per (64-row q tile, head, graph), 8 warps of 8 rows each.
@@ -26,47 +32,30 @@
 // per-lane key reads are free of bank conflicts). Each lane scores 2 keys of
 // the tile for one query row at a time, and the row keeps an online softmax
 // (running max, running sum and the DH-wide accumulator) in registers, so the
-// (S, S) score matrix never exists. tpl/ids rows are read straight from
-// global memory, 64 consecutive entries per row and tile (coalesced); the
-// H blocks of a graph read the same rows, which L2 serves. The ragged edge is
-// masked in the kernel (keys >= S score -inf, rows >= S are not stored), so
-// nothing is padded. The kernel allocates nothing; the caller passes `out`.
+// (S, S) score matrix never exists. Dropout multiplies only the p.v
+// accumulation; the running sum takes the undropped terms, as the Pallas
+// kernels do. tpl/ids rows are read straight from global memory, 64
+// consecutive entries per row and tile (coalesced); the H blocks of a graph
+// read the same rows, which L2 serves. The ragged edge is masked in the
+// kernel (keys >= S score -inf, rows >= S are not stored), so nothing is
+// padded. The kernel allocates nothing; the caller passes `out` and `lse`.
 // Tensor cores, TMA and several heads per block are left for a later change.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "tree_attention_common.cuh"
 
 namespace {
 
-constexpr int kTile = 64;                      // q rows per block, keys per tile
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = kTile / kWarps;   // 8
-constexpr int kLutSize = 32;
-constexpr float kMaskBias = -1e9f;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using namespace tree_attention;
 
 __device__ __forceinline__ float biased(float qk, int key, int S, const float* tpl_row,
                                         const int* ids_row, const float* lut_s, float tpl_coef) {
   if (key >= S) return -INFINITY;
-  const int id = ids_row[key];
-  const float spatial = (id > 0 && id < kLutSize) ? lut_s[id] : 0.f;
-  return qk + (tpl_coef * fmaxf(tpl_row[key], kMaskBias) + spatial);
+  return qk + bias_of(tpl_row[key], ids_row[key], lut_s, tpl_coef);
 }
 
 template <int DH>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(kTile * DH + DH * (kTile + 1) + kTile * DH);
+  return sizeof(float) * (size_t)(kTile * DH + DH * kStride + kTile * DH);
 }
 
 template <typename T, int DH>
@@ -74,9 +63,10 @@ __global__ void __launch_bounds__(kThreads)
 tree_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const float* __restrict__ tpl,
                           const int* __restrict__ ids, const float* __restrict__ lut,
-                          T* __restrict__ out, int H, int S, float scale, float tpl_coef) {
+                          T* __restrict__ out, float* __restrict__ lse, int H, int S,
+                          float scale, float tpl_coef, uint2 seed, unsigned thr,
+                          float keep_scale) {
   constexpr int kDimsPerLane = (DH + 31) / 32;
-  constexpr int kStride = kTile + 1;  // padded row of the transposed K tile
   extern __shared__ float smem[];
   float* q_s = smem;                   // [kTile][DH], pre-scaled
   float* kt_s = q_s + kTile * DH;      // [DH][kStride]
@@ -157,12 +147,17 @@ tree_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[r] = l[r] * alpha + p_sum;
       m[r] = m_new;
 
+      bool keep0, keep1;
+      keep_pair(seed, thr, b, h, row, k0, lane, keep0, keep1);
+      const float pk0 = keep0 ? p0 : 0.f;
+      const float pk1 = keep1 ? p1 : 0.f;
+
 #pragma unroll
       for (int dd = 0; dd < kDimsPerLane; ++dd) acc[r][dd] *= alpha;
 #pragma unroll 8
       for (int jj = 0; jj < 32; ++jj) {
-        const float pa = __shfl_sync(kFull, p0, jj);
-        const float pb = __shfl_sync(kFull, p1, jj);
+        const float pa = __shfl_sync(kFull, pk0, jj);
+        const float pb = __shfl_sync(kFull, pk1, jj);
 #pragma unroll
         for (int dd = 0; dd < kDimsPerLane; ++dd) {
           const int d = lane + 32 * dd;
@@ -183,15 +178,18 @@ tree_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int dd = 0; dd < kDimsPerLane; ++dd) {
       const int d = lane + 32 * dd;
-      if (DH % 32 == 0 || d < DH) ob[(long long)row * DH + d] = from_f32<T>(acc[r][dd] / denom);
+      if (DH % 32 == 0 || d < DH)
+        ob[(long long)row * DH + d] = from_f32<T>(acc[r][dd] / denom * keep_scale);
     }
+    if (lse != nullptr && lane == 0) lse[bh * S + row] = m[r] + logf(denom);
   }
 }
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* tpl,
-                   const void* ids, const void* lut, void* out, int B, int H, int S,
-                   float scale, float tpl_coef, cudaStream_t stream) {
+                   const void* ids, const void* lut, void* out, void* lse, int B, int H, int S,
+                   float scale, float tpl_coef, uint2 seed, unsigned thr, float keep_scale,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(tree_attention_fwd_kernel<T, DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -201,37 +199,45 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* tpl,
   tree_attention_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(tpl), static_cast<const int*>(ids),
-      static_cast<const float*>(lut), static_cast<T*>(out), H, S, scale, tpl_coef);
+      static_cast<const float*>(lut), static_cast<T*>(out), static_cast<float*>(lse), H, S,
+      scale, tpl_coef, seed, thr, keep_scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_dim(const void* q, const void* k, const void* v, const void* tpl,
-                         const void* ids, const void* lut, void* out, int B, int H, int S,
-                         int DH, float scale, float tpl_coef, cudaStream_t stream) {
+                         const void* ids, const void* lut, void* out, void* lse, int B, int H,
+                         int S, int DH, float scale, float tpl_coef, uint2 seed, unsigned thr,
+                         float keep_scale, cudaStream_t stream) {
   switch (DH) {
-    case 16: return launch<T, 16>(q, k, v, tpl, ids, lut, out, B, H, S, scale, tpl_coef, stream);
-    case 32: return launch<T, 32>(q, k, v, tpl, ids, lut, out, B, H, S, scale, tpl_coef, stream);
-    case 64: return launch<T, 64>(q, k, v, tpl, ids, lut, out, B, H, S, scale, tpl_coef, stream);
-    case 128: return launch<T, 128>(q, k, v, tpl, ids, lut, out, B, H, S, scale, tpl_coef, stream);
+    case 16: return launch<T, 16>(q, k, v, tpl, ids, lut, out, lse, B, H, S, scale, tpl_coef, seed, thr, keep_scale, stream);
+    case 32: return launch<T, 32>(q, k, v, tpl, ids, lut, out, lse, B, H, S, scale, tpl_coef, seed, thr, keep_scale, stream);
+    case 64: return launch<T, 64>(q, k, v, tpl, ids, lut, out, lse, B, H, S, scale, tpl_coef, seed, thr, keep_scale, stream);
+    case 128: return launch<T, 128>(q, k, v, tpl, ids, lut, out, lse, B, H, S, scale, tpl_coef, seed, thr, keep_scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. lse may be null. The dropout mask is
+// keyed by (seed_hi << 32 | seed_lo); thr = 0 keeps every key, and
+// keep_scale is 1 / (1 - rate). Returns a cudaError_t (0 on success).
 extern "C" int tree_attention_fwd(const void* q, const void* k, const void* v,
                                   const void* tpl, const void* ids, const void* lut,
-                                  void* out, int B, int H, int S, int DH, float scale,
-                                  float tpl_coef, int dtype, void* stream) {
+                                  void* out, void* lse, int B, int H, int S, int DH,
+                                  float scale, float tpl_coef, unsigned seed_lo,
+                                  unsigned seed_hi, unsigned thr, float keep_scale, int dtype,
+                                  void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint2 seed = make_uint2(seed_lo, seed_hi);
   if (dtype == 0)
-    return dispatch_dim<float>(q, k, v, tpl, ids, lut, out, B, H, S, DH, scale, tpl_coef, st);
+    return dispatch_dim<float>(q, k, v, tpl, ids, lut, out, lse, B, H, S, DH, scale, tpl_coef,
+                               seed, thr, keep_scale, st);
   if (dtype == 1)
-    return dispatch_dim<__nv_bfloat16>(q, k, v, tpl, ids, lut, out, B, H, S, DH, scale,
-                                       tpl_coef, st);
+    return dispatch_dim<__nv_bfloat16>(q, k, v, tpl, ids, lut, out, lse, B, H, S, DH, scale,
+                                       tpl_coef, seed, thr, keep_scale, st);
   return cudaErrorInvalidValue;
 }
 

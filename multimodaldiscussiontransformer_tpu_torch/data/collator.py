@@ -1,7 +1,9 @@
 """Static-shape bucketed collator (numpy), the port's copy of the JAX
-package's ``data/collator.py::collate`` for node-task items. The contrastive
-task, text-length trimming and shard multiples of the capacities come with
-the slices that need them.
+package's ``data/collator.py`` for node-task items: ``collate``, and the
+``pad_batch_to_shapes`` / ``all_pad_like`` pair that the scan-accumulated
+train step uses to give a group of microbatches one shape. The contrastive
+task and shard multiples of the capacities come with the slices that need
+them.
 
 Every per-graph tensor is padded to a node-count bucket ``Nmax``; all real
 nodes of the batch are gathered into a flat text-tower buffer of capacity
@@ -18,8 +20,9 @@ real-row -> pad-col is ``-inf``; pad-row -> real-col is 0.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, fields
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -85,11 +88,12 @@ class Batch:
         return int(self.input_ids.shape[0])
 
 
-def to_tensors(batch: Batch, device) -> Dict[str, torch.Tensor]:
-    """The batch as tensors on ``device``: integer arrays as int64 (index
-    dtype), floats as float32, masks as bool."""
+def to_tensors(batch: Union[Batch, Mapping[str, np.ndarray]], device) -> Dict[str, torch.Tensor]:
+    """The batch (a ``Batch`` or its dict) as tensors on ``device``: integer
+    arrays as int64 (index dtype), floats as float32, masks as bool."""
     out = {}
-    for k, v in batch.asdict().items():
+    arrays = batch.asdict() if isinstance(batch, Batch) else batch
+    for k, v in arrays.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
         if t.dtype in (torch.int32, torch.int64):
             t = t.long()
@@ -106,20 +110,47 @@ def collate(
     label_capacity_buckets: Sequence[int] = (8, 16, 32, 64, 128),
     image_shape: Tuple[int, int, int] = (3, 224, 224),
     pad_to_graphs: Optional[int] = None,
+    text_len_buckets: Optional[Sequence[int]] = None,
+    text_len: Optional[int] = None,
 ) -> Batch:
     """Collate preprocessed node-task GraphItems into one static-shape Batch.
 
     ``pad_to_graphs``: pad the graph axis up to this count with inert
     zero-node graphs (``grid_mask`` all False, ``idx`` -1). A pad graph
     takes no flat text/image/label capacity and ``nsamples`` counts only
-    real graphs."""
-    if not items:
-        raise ValueError("collate needs at least one item")
+    real graphs.
+
+    ``text_len_buckets``: trim the token axis to the smallest bucket that
+    covers the batch's longest attended token (the removed columns are
+    masked in every consumer).
+
+    ``items`` may be empty when ``pad_to_graphs`` and ``text_len`` are given:
+    the result is an all-pad batch."""
     b = len(items)
-    t = items[0].input_ids.shape[1]
+    if not items:
+        if pad_to_graphs is None or text_len is None:
+            raise ValueError("collate([]) needs pad_to_graphs and text_len to emit an all-pad batch")
+        t = text_len
+    else:
+        t = items[0].input_ids.shape[1]
+    if text_len_buckets and items:
+        longest = max(
+            (int(np.max(np.where(it.attention_mask.any(axis=0))[0], initial=0)) + 1 if it.attention_mask.any() else 1)
+            for it in items
+        )
+        t = min(_bucket(longest, text_len_buckets), t)
+        items = [
+            dataclasses.replace(
+                it,
+                input_ids=it.input_ids[:, :t],
+                token_type_ids=it.token_type_ids[:, :t],
+                attention_mask=it.attention_mask[:, :t],
+            )
+            for it in items
+        ]
     n_per_graph = [it.num_nodes for it in items]
     total_nodes = sum(n_per_graph)
-    nmax = _bucket(max(n_per_graph), node_buckets)
+    nmax = _bucket(max(n_per_graph, default=1), node_buckets)
     cap = _bucket(total_nodes, node_capacity_buckets)
     n_images = sum(int(it.x_image_index.sum()) for it in items)
     icap = _bucket(n_images, image_capacity_buckets)
@@ -194,7 +225,7 @@ def collate(
 
         node_off += n
 
-    flat_y = np.concatenate(y_vals)
+    flat_y = np.concatenate(y_vals) if y_vals else np.zeros(0, dtype=np.int64)
     n_labels = len(flat_y)
     lcap = _bucket(n_labels, label_capacity_buckets)
     y = np.zeros(lcap, dtype=np.int32)
@@ -226,3 +257,67 @@ def collate(
         idx=idxs,
         nsamples=np.asarray(b, dtype=np.int32),
     )
+
+
+def pad_batch_to_shapes(batch: Dict[str, np.ndarray], shapes: Dict[str, Tuple[int, ...]]) -> Dict[str, np.ndarray]:
+    """Grow a collated batch's capacity axes (text length, C, I, L, Nmax and
+    the bias's S) to ``shapes`` with inert padding: what ``collate`` would
+    have produced with the larger buckets. The graph count must match. Pad
+    sentinels that encode the old capacity (``image_node``/``y_node`` -> C)
+    are re-pointed at the new one."""
+    b = batch["idx"].shape[0]
+    if shapes["idx"][0] != b:
+        raise ValueError(
+            f"pad_batch_to_shapes cannot grow the graph axis ({b} -> {shapes['idx'][0]}); "
+            "accumulation groups must share a batch size"
+        )
+    new_cap = shapes["input_ids"][0]
+    out: Dict[str, np.ndarray] = {}
+    for k, v in batch.items():
+        tgt = shapes[k]
+        if v.shape == tgt:
+            out[k] = v
+            continue
+        grown = np.zeros(tgt, dtype=v.dtype)
+        if k == "attn_bias":
+            # rows past the old S follow collate's pad-row recipe: columns
+            # [0, n_g] are 0, the rest -inf
+            n_g = batch["grid_mask"].sum(axis=1)
+            old_s, new_s = v.shape[1], tgt[1]
+            cols = np.arange(new_s)
+            grown[:] = NEG_INF
+            grown[:, old_s:, :] = np.where((cols[None, :] <= n_g[:, None])[:, None, :], 0.0, NEG_INF)
+            grown[:, :old_s, :old_s] = v
+        elif k == "node_graph":
+            grown[:] = b
+            grown[: v.shape[0]] = v
+        elif k in ("image_node", "y_node"):
+            mask = batch["image_mask" if k == "image_node" else "y_slot_mask"]
+            grown[:] = new_cap
+            grown[: v.shape[0]] = np.where(mask, v, new_cap)
+        else:
+            # ids, masks, degrees and spatial buckets all pad with 0
+            grown[tuple(slice(0, d) for d in v.shape)] = v
+        out[k] = grown
+    return out
+
+
+def all_pad_like(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """An all-pad microbatch with the shapes and dtypes of ``batch``, made
+    by ``collate`` itself on zero items with single-entry ladders read off
+    the template: it adds exactly zero loss, gradient, sample size and
+    metric counts."""
+    out = collate(
+        [],
+        node_buckets=[batch["in_degree"].shape[1]],
+        node_capacity_buckets=[batch["input_ids"].shape[0]],
+        image_capacity_buckets=[batch["images"].shape[0]],
+        label_capacity_buckets=[batch["y"].shape[0]],
+        image_shape=tuple(batch["images"].shape[1:]),
+        pad_to_graphs=batch["idx"].shape[0],
+        text_len=batch["input_ids"].shape[1],
+    ).asdict()
+    mismatched = {k: (v.shape, batch[k].shape) for k, v in out.items() if v.shape != batch[k].shape}
+    if mismatched:
+        raise ValueError(f"all_pad_like shape mismatch: {mismatched}")
+    return out

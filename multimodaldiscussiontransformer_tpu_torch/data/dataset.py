@@ -1,0 +1,129 @@
+"""Dataset wrapper, epoch shuffling and batch iteration: the port's copy of
+the JAX package's ``data/dataset.py`` (node task). For the same dataset,
+seed and epoch both packages yield bit-equal batches.
+
+- split modes: a random 80/10/10 split, or explicit index arrays with a
+  seeded shuffle of the training indices;
+- the per-epoch order is ``RandomState(seed + epoch - 1).permutation``;
+- batches are collated into static-capacity buffers by ``data/collator.py``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator, Optional, Sequence
+
+import numpy as np
+
+from multimodaldiscussiontransformer_tpu_torch.core.config import DataConfig, TaskConfig
+from multimodaldiscussiontransformer_tpu_torch.data.collator import Batch, collate
+from multimodaldiscussiontransformer_tpu_torch.data.preprocess import GraphItem
+
+
+@dataclass
+class DiscussionDataset:
+    """Preprocessed discussion graphs (or callables returning them) with
+    train/valid/test splits."""
+
+    items: Sequence
+    train_idx: np.ndarray
+    valid_idx: np.ndarray
+    test_idx: np.ndarray
+
+    def get(self, i: int) -> GraphItem:
+        it = self.items[i]
+        return it() if callable(it) else it
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def text_length(self, i: int) -> int:
+        """Max attended token length across the graph's nodes (cached; used
+        by length-grouped batching)."""
+        cache = self.__dict__.setdefault("_len_cache", {})
+        if i not in cache:
+            am = self.get(i).attention_mask
+            cache[i] = int(np.max(np.where(am.any(axis=0))[0], initial=0)) + 1 if am.any() else 1
+        return cache[i]
+
+    @classmethod
+    def from_splits(
+        cls, items: Sequence, train_idx=None, valid_idx=None, test_idx=None,
+        seed: int = 0, train_frac: float = 0.8, valid_frac: float = 0.1,
+    ) -> "DiscussionDataset":
+        """Explicit index arrays (training indices shuffled with ``seed``) or
+        a random 80/10/10 split."""
+        n = len(items)
+        rng = np.random.RandomState(seed)
+        if train_idx is None:
+            perm = rng.permutation(n)
+            n_train = int(n * train_frac)
+            n_valid = int(n * valid_frac)
+            train_idx = perm[:n_train]
+            valid_idx = perm[n_train : n_train + n_valid]
+            test_idx = perm[n_train + n_valid :]
+        else:
+            train_idx = np.asarray(train_idx)
+            rng.shuffle(train_idx)
+            valid_idx = np.asarray(valid_idx if valid_idx is not None else test_idx)
+            test_idx = np.asarray(test_idx)
+        return cls(items, train_idx, valid_idx, test_idx)
+
+
+def epoch_permutation(n: int, seed: int, epoch: int) -> np.ndarray:
+    """The epoch's order: ``RandomState(seed + epoch - 1).permutation(n)``."""
+    return np.random.RandomState((seed + epoch - 1) % (2**32)).permutation(n)
+
+
+def iterate_batches(
+    dataset: DiscussionDataset,
+    indices: np.ndarray,
+    data_cfg: DataConfig,
+    task_cfg: TaskConfig,
+    epoch: int = 1,
+    shuffle: bool = False,
+    image_shape=(3, 224, 224),
+    drop_last: Optional[bool] = None,
+    batch_size: Optional[int] = None,
+    pad_tail_to_batch: bool = False,
+) -> Iterator[Batch]:
+    """Yield collated static-shape batches for one epoch. With
+    ``pad_tail_to_batch`` a ragged final batch (``drop_last=False``) is
+    padded to the full batch size with inert zero-node graphs."""
+    order = np.asarray(indices)
+    if shuffle:
+        order = order[epoch_permutation(len(order), task_cfg.seed, epoch)]
+    bs = batch_size if batch_size is not None else data_cfg.batch_size
+    drop = data_cfg.drop_last if drop_last is None else drop_last
+    if shuffle and data_cfg.length_grouped:
+        # sort the shuffled order by text length so a batch holds similar
+        # lengths, then shuffle the batch order with the same epoch seed
+        lengths = np.asarray([dataset.text_length(int(i)) for i in order])
+        order = order[np.argsort(lengths, kind="stable")]
+        n_chunks = len(order) // bs
+        chunk_perm = epoch_permutation(n_chunks, task_cfg.seed + 1, epoch)
+        head = order[: n_chunks * bs].reshape(n_chunks, bs)[chunk_perm]
+        order = np.concatenate([head.reshape(-1), order[n_chunks * bs :]])
+    end = (len(order) // bs) * bs if drop else len(order)
+    for s in range(0, end, bs):
+        chunk = order[s : s + bs]
+        if len(chunk) == 0:
+            continue
+        items = [dataset.get(int(i)) for i in chunk]
+        over = [(int(i), it.num_nodes) for i, it in zip(chunk, items) if it.num_nodes > task_cfg.max_nodes]
+        if over:
+            raise ValueError(
+                f"graph(s) exceed task.max_nodes={task_cfg.max_nodes} (idx, nodes): {over[:5]}; "
+                "raise --max-nodes or prune the trees"
+            )
+        yield collate(
+            items,
+            pad_to_graphs=bs if pad_tail_to_batch else None,
+            spatial_pos_max=task_cfg.spatial_pos_max,
+            node_buckets=data_cfg.node_buckets,
+            node_capacity_buckets=data_cfg.node_capacity_buckets,
+            image_capacity_buckets=data_cfg.image_capacity_buckets,
+            label_capacity_buckets=data_cfg.label_capacity_buckets,
+            image_shape=image_shape,
+            text_len_buckets=data_cfg.text_len_buckets,
+        )

@@ -105,3 +105,21 @@ def synthetic_batch_items(
         )
         for i in range(batch_size)
     ]
+
+
+def synthetic_dataset(num_graphs: int = 64, seed: int = 0, **kw):
+    """The registered ``"synthetic"`` dataset: ``num_graphs`` synthetic
+    discussions in a random 80/10/10 split."""
+    from multimodaldiscussiontransformer_tpu_torch.data.dataset import DiscussionDataset
+
+    return DiscussionDataset.from_splits(synthetic_batch_items(num_graphs, seed=seed, **kw), seed=seed)
+
+
+def _register() -> None:
+    from multimodaldiscussiontransformer_tpu_torch.core.registry import DATASETS
+
+    if "synthetic" not in DATASETS:
+        DATASETS.register("synthetic")(synthetic_dataset)
+
+
+_register()

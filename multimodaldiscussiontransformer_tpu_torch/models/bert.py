@@ -7,6 +7,10 @@ Module and parameter names mirror the JAX package's Flax modules
 Precision follows Flax's ``dtype`` semantics: parameters are stored in
 float32, every matmul runs in the compute dtype, layer-norm statistics and
 every softmax run in float32.
+
+Dropout sits where the JAX modules have it (attention probabilities, after
+both dense outputs of a layer, after the embedding layer norm) and runs only
+when ``deterministic=False`` (``models/fast_dropout.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodaldiscussiontransformer_tpu_torch.core.config import BertTowerConfig
+from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import FastDropout
 
 # Large negative bias for masked attention logits: finite, so that a fully
 # masked row degrades to uniform attention instead of NaN.
@@ -73,15 +78,18 @@ class SelfAttention(nn.Module):
     """HF-style encoder self-attention shared by BERT and ViT: plain matmuls
     in the compute dtype and a float32 softmax."""
 
-    def __init__(self, hidden_size: int, num_heads: int, dtype: torch.dtype):
+    def __init__(self, hidden_size: int, num_heads: int, dtype: torch.dtype, dropout_rate: float = 0.0):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_heads = num_heads
         self.query = Dense(hidden_size, hidden_size, dtype)
         self.key = Dense(hidden_size, hidden_size, dtype)
         self.value = Dense(hidden_size, hidden_size, dtype)
+        self.attn_dropout = FastDropout(dropout_rate)
 
-    def forward(self, hidden: torch.Tensor, attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(
+        self, hidden: torch.Tensor, attn_bias: Optional[torch.Tensor] = None, deterministic: bool = True
+    ) -> torch.Tensor:
         b, s, _ = hidden.shape
         h = self.num_heads
         dh = self.hidden_size // h
@@ -94,6 +102,7 @@ class SelfAttention(nn.Module):
         if attn_bias is not None:
             scores = scores + attn_bias
         probs = torch.softmax(scores.float(), dim=-1).to(hidden.dtype)
+        probs = self.attn_dropout(probs, deterministic)
         ctx = torch.matmul(probs, v)
         return ctx.transpose(1, 2).reshape(b, s, self.hidden_size)
 
@@ -106,17 +115,22 @@ class BertLayer(nn.Module):
         super().__init__()
         c, d = config, dtype
         self.act = act_fn(c.hidden_act)
-        self.attention = SelfAttention(c.hidden_size, c.num_attention_heads, d)
+        self.attention = SelfAttention(c.hidden_size, c.num_attention_heads, d, c.attention_probs_dropout_prob)
         self.attention_output_dense = Dense(c.hidden_size, c.hidden_size, d)
         self.attention_output_layernorm = LayerNorm(c.hidden_size, c.layer_norm_eps, d)
         self.intermediate_dense = Dense(c.hidden_size, c.intermediate_size, d)
         self.output_dense = Dense(c.intermediate_size, c.hidden_size, d)
         self.output_layernorm = LayerNorm(c.hidden_size, c.layer_norm_eps, d)
+        self.hidden_dropout = FastDropout(c.hidden_dropout_prob)
 
-    def forward(self, hidden: torch.Tensor, attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        attn = self.attention_output_dense(self.attention(hidden, attn_bias))
+    def forward(
+        self, hidden: torch.Tensor, attn_bias: Optional[torch.Tensor] = None, deterministic: bool = True
+    ) -> torch.Tensor:
+        attn = self.attention_output_dense(self.attention(hidden, attn_bias, deterministic))
+        attn = self.hidden_dropout(attn, deterministic)
         hidden = self.attention_output_layernorm(attn + hidden)
         out = self.output_dense(self.act(self.intermediate_dense(hidden)))
+        out = self.hidden_dropout(out, deterministic)
         return self.output_layernorm(out + hidden)
 
 
@@ -132,8 +146,11 @@ class BertEmbeddings(nn.Module):
         self.position_embeddings = nn.Embedding(c.max_position_embeddings, c.hidden_size)
         self.token_type_embeddings = nn.Embedding(c.type_vocab_size, c.hidden_size)
         self.layernorm = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
+        self.dropout = FastDropout(c.hidden_dropout_prob)
 
-    def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, input_ids: torch.Tensor, token_type_ids: torch.Tensor, deterministic: bool = True
+    ) -> torch.Tensor:
         c = self.config
         s = input_ids.shape[-1]
         if c.position_offset:
@@ -146,7 +163,7 @@ class BertEmbeddings(nn.Module):
         emb = self.word_embeddings(input_ids) + self.position_embeddings(positions)
         if c.use_token_type:
             emb = emb + self.token_type_embeddings(token_type_ids)
-        return self.layernorm(emb.to(self.dtype))
+        return self.dropout(self.layernorm(emb.to(self.dtype)), deterministic)
 
 
 class BertPooler(nn.Module):
@@ -174,9 +191,9 @@ class BertBottomTower(nn.Module):
             self.add_module(f"layer_{i}", lyr)
             self.layers.append(lyr)
 
-    def forward(self, input_ids, token_type_ids, attention_mask) -> torch.Tensor:
-        hidden = self.embeddings(input_ids, token_type_ids)
+    def forward(self, input_ids, token_type_ids, attention_mask, deterministic: bool = True) -> torch.Tensor:
+        hidden = self.embeddings(input_ids, token_type_ids, deterministic)
         bias = attention_mask_bias(attention_mask, hidden.dtype)
         for lyr in self.layers:
-            hidden = lyr(hidden, bias)
+            hidden = lyr(hidden, bias, deterministic)
         return hidden

@@ -63,15 +63,16 @@ class GraphFusionLayer(nn.Module):
         bottle_neck: torch.Tensor,  # (C, nbn, D)
         bert_mask_bias: torch.Tensor,  # (C, 1, 1, nbn+T) additive
         image_node: Optional[torch.Tensor],  # (I,) -> [0, C); pad -> C
+        deterministic: bool = True,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
         nbn = self.config.num_bottleneck_tokens
-        bert_out = self.bert_encoder(torch.cat([bottle_neck, bert_hidden], dim=1), bert_mask_bias)
+        bert_out = self.bert_encoder(torch.cat([bottle_neck, bert_hidden], dim=1), bert_mask_bias, deterministic)
         bert_hidden_out, bn_out = bert_out[:, nbn:], bert_out[:, :nbn]
 
         if vit_hidden is None or not self.config.use_image_tower:
             return bert_hidden_out, vit_hidden, bn_out
         bn_img = gather_fill(bottle_neck, image_node)
-        vit_out = self.vit_encoder(torch.cat([bn_img, vit_hidden], dim=1))
+        vit_out = self.vit_encoder(torch.cat([bn_img, vit_hidden], dim=1), deterministic)
         vit_hidden_out, vit_bn = vit_out[:, nbn:], vit_out[:, :nbn]
         # modality average at image nodes; a node has at most one image, so
         # the scatter writes each row once
@@ -91,9 +92,9 @@ class GraphFusionStack(nn.Module):
             self.add_module(f"fusion_{i}", f)
             self.fusion_layers.append(f)
 
-    def forward(self, bert_hidden, vit_hidden, bottle_neck, bert_mask_bias, image_node):
+    def forward(self, bert_hidden, vit_hidden, bottle_neck, bert_mask_bias, image_node, deterministic: bool = True):
         for f in self.fusion_layers:
             bert_hidden, vit_hidden, bottle_neck = f(
-                bert_hidden, vit_hidden, bottle_neck, bert_mask_bias, image_node
+                bert_hidden, vit_hidden, bottle_neck, bert_mask_bias, image_node, deterministic
             )
         return bert_hidden, vit_hidden, bottle_neck

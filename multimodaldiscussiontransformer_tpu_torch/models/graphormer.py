@@ -7,7 +7,11 @@
 - with ``use_pallas_attention`` the graph attention takes the compact
   (template, ids, lut) bias and runs the tree-attention kernel
   (``ops/tree_attention.py``); otherwise the dense (B, H, S, S) bias is
-  assembled and attention is plain PyTorch.
+  assembled and attention is plain PyTorch;
+- with ``deterministic=False`` attention dropout on the compact path is the
+  kernel's own (rate ``attention_dropout``, one fresh seed per call from the
+  host generator), on the dense path ``FastDropout`` on the probabilities;
+  ``dropout``/``act_dropout`` sit where the JAX layer has them.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from multimodaldiscussiontransformer_tpu_torch.models.bert import (
     Dense,
     LayerNorm,
 )
+from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import FastDropout, draw_seed
 from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
 
 CompactBias = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -139,12 +144,14 @@ class BiasedMultiheadAttention(nn.Module):
         self.k_proj = Dense(d, d, dtype)
         self.v_proj = Dense(d, d, dtype)
         self.out_proj = Dense(d, d, dtype)
+        self.dropout = FastDropout(c.attention_dropout)
 
     def forward(
         self,
         x: torch.Tensor,  # (B, S, D)
         attn_bias: Union[torch.Tensor, CompactBias, None],
         key_padding_mask: Optional[torch.Tensor],  # (B, S) bool, True = pad
+        deterministic: bool = True,
     ) -> torch.Tensor:
         c = self.config
         b, s, d = x.shape
@@ -159,9 +166,11 @@ class BiasedMultiheadAttention(nn.Module):
         if isinstance(attn_bias, tuple):
             # the template already encodes key padding
             template, ids, lut = attn_bias
+            rate = 0.0 if deterministic else c.attention_dropout
             ctx = ta.tree_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), template, ids, lut,
                 scale=scaling, double_add=c.double_add_attn_bias,
+                rate=rate, seed=draw_seed() if rate > 0.0 else None,
             )
         else:
             scores = torch.matmul(q * scaling, k.transpose(-1, -2))
@@ -170,7 +179,7 @@ class BiasedMultiheadAttention(nn.Module):
             if key_padding_mask is not None:
                 scores = scores.masked_fill(key_padding_mask[:, None, None, :], MASK_BIAS)
             probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
-            ctx = torch.matmul(probs, v)
+            ctx = torch.matmul(self.dropout(probs, deterministic), v)
         return self.out_proj(ctx.transpose(1, 2).reshape(b, s, d))
 
 
@@ -188,18 +197,22 @@ class GraphormerGraphEncoderLayer(nn.Module):
         self.fc1 = Dense(c.encoder_embed_dim, c.encoder_ffn_embed_dim, dtype)
         self.fc2 = Dense(c.encoder_ffn_embed_dim, c.encoder_embed_dim, dtype)
         self.final_layer_norm = LayerNorm(c.encoder_embed_dim, 1e-5, dtype)
+        self.dropout = FastDropout(c.dropout)
+        self.activation_dropout = FastDropout(c.act_dropout)
 
-    def forward(self, x, attn_bias, key_padding_mask) -> torch.Tensor:
+    def forward(self, x, attn_bias, key_padding_mask, deterministic: bool = True) -> torch.Tensor:
         residual = x
         if self.pre:
             x = self.self_attn_layer_norm(x)
-        x = residual + self.self_attn(x, attn_bias, key_padding_mask)
+        x = self.self_attn(x, attn_bias, key_padding_mask, deterministic)
+        x = residual + self.dropout(x, deterministic)
         if not self.pre:
             x = self.self_attn_layer_norm(x)
         residual = x
         if self.pre:
             x = self.final_layer_norm(x)
-        x = residual + self.fc2(self.act(self.fc1(x)))
+        x = self.activation_dropout(self.act(self.fc1(x)), deterministic)
+        x = residual + self.dropout(self.fc2(x), deterministic)
         if not self.pre:
             x = self.final_layer_norm(x)
         return x
@@ -216,7 +229,7 @@ class GraphEncoderStack(nn.Module):
             self.add_module(f"layer_{i}", lyr)
             self.layers.append(lyr)
 
-    def forward(self, x, attn_bias, key_padding_mask) -> torch.Tensor:
+    def forward(self, x, attn_bias, key_padding_mask, deterministic: bool = True) -> torch.Tensor:
         for lyr in self.layers:
-            x = lyr(x, attn_bias, key_padding_mask)
+            x = lyr(x, attn_bias, key_padding_mask, deterministic)
         return x

@@ -13,18 +13,27 @@
 - the head applies the shared [text_pooler -> node_classifier] stack to the
   text CLS path and to the bottleneck token-0 path and averages the logits.
 
-This is the inference forward (the JAX model's ``deterministic=True``):
-there is no dropout.
+``forward(batch, deterministic=True)`` is the inference forward; with
+``deterministic=False`` (training) every dropout site of the JAX model is
+live, the frozen towers' included, and the forward runs inside
+``models/fast_dropout.py::dropout_rngs``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
 
-from multimodaldiscussiontransformer_tpu_torch.core.config import ModelConfig
+from multimodaldiscussiontransformer_tpu_torch.core.config import (
+    ModelConfig,
+    clip_vit_tower_config,
+    roberta_tower_config,
+)
+from multimodaldiscussiontransformer_tpu_torch.core.registry import register_model_architecture
+from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import FastDropout
 from multimodaldiscussiontransformer_tpu_torch.models.bert import (
     BertBottomTower,
     BertPooler,
@@ -38,6 +47,7 @@ from multimodaldiscussiontransformer_tpu_torch.models.fusion import (
     scatter_drop,
 )
 from multimodaldiscussiontransformer_tpu_torch.models.graphormer import (
+    BiasedMultiheadAttention,
     GraphAttnBias,
     GraphEncoderStack,
     GraphNodeFeature,
@@ -47,6 +57,8 @@ from multimodaldiscussiontransformer_tpu_torch.models.vit import ViTBottomTower
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # init std of raw (non-Linear, non-LayerNorm) parameters; the rest get 0.02
 _RAW_INIT_STD = {"bottle_neck": 1.0, "cls_token": 0.0}
+# std of a unit normal truncated to (-2, 2), as Flax's variance scaling uses
+_TRUNCATED_STD = 0.87962566103423978
 
 
 class EncoderOutput(NamedTuple):
@@ -116,8 +128,9 @@ class MultiGraphormerGraphEncoder(nn.Module):
         self.bottle_neck = nn.Parameter(torch.empty(c.num_bottleneck_tokens, c.encoder_embed_dim))
         if c.encoder_normalize_before:
             self.emb_layer_norm = LayerNorm(c.encoder_embed_dim, 1e-5, dtype)
+        self.emb_dropout = FastDropout(c.dropout)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> EncoderOutput:
+    def forward(self, batch: Dict[str, torch.Tensor], deterministic: bool = True) -> EncoderOutput:
         c = self.config
         d = c.encoder_embed_dim
         nbn = c.num_bottleneck_tokens
@@ -126,17 +139,18 @@ class MultiGraphormerGraphEncoder(nn.Module):
         bsz, nmax = batch["in_degree"].shape
 
         # bottom towers
-        bert = self.text_model(batch["input_ids"], batch["token_type_ids"], attention_mask)
+        det = deterministic
+        bert = self.text_model(batch["input_ids"], batch["token_type_ids"], attention_mask, det)
         vit, image_node = None, None
         if c.use_image_tower:
-            vit = self.vit_model(batch["images"])
+            vit = self.vit_model(batch["images"], det)
             image_node = batch["image_node"]
 
         # bottleneck init + the fusion mask (bottleneck columns visible)
         bn = self.bottle_neck.to(self.dtype)[None].expand(cap, nbn, d)
         fusion_mask = torch.cat([attention_mask.new_ones(cap, nbn), attention_mask], dim=1)
         mask_bias = attention_mask_bias(fusion_mask, self.dtype)
-        bert, vit, bn = self.fusion_stacks[0](bert, vit, bn, mask_bias, image_node)
+        bert, vit, bn = self.fusion_stacks[0](bert, vit, bn, mask_bias, image_node, det)
 
         # bottleneck token 0 -> the (B, Nmax) grid; padded slots are dropped
         flat_idx = batch["node_graph"] * nmax + batch["node_pos"]
@@ -151,19 +165,20 @@ class MultiGraphormerGraphEncoder(nn.Module):
             attn_bias = self.graph_attn_bias(batch["attn_bias"], batch["spatial_pos"])
         if c.encoder_normalize_before:
             x = self.emb_layer_norm(x)
+        x = self.emb_dropout(x, det)
 
         # interleave: zip(graph stacks, fusion stacks[1:])
         for i in range(len(self.fusion_stacks) - 1):
-            x = self.graph_stacks[i](x, attn_bias, key_padding_mask)
+            x = self.graph_stacks[i](x, attn_bias, key_padding_mask, det)
             node_states = gather_fill(x[:, 1:].reshape(bsz * nmax, d), flat_idx)
             bn = torch.cat([node_states[:, None], bn[:, 1:]], dim=1)
-            bert, vit, bn = self.fusion_stacks[i + 1](bert, vit, bn, mask_bias, image_node)
+            bert, vit, bn = self.fusion_stacks[i + 1](bert, vit, bn, mask_bias, image_node, det)
             tail = scatter_drop(x[:, 1:].reshape(bsz * nmax, d), flat_idx, bn[:, 0])
             x = torch.cat([x[:, :1], tail.view(bsz, nmax, d)], dim=1)
 
         if not c.reproduce_dead_graph_stack:
-            x = self.graph_stacks[-2](x, attn_bias, key_padding_mask)
-        x = self.graph_stacks[-1](x, attn_bias, key_padding_mask)
+            x = self.graph_stacks[-2](x, attn_bias, key_padding_mask, det)
+        x = self.graph_stacks[-1](x, attn_bias, key_padding_mask, det)
         return EncoderOutput(text_states=bert, bottleneck=bn, global_embedding=x[:, 0])
 
 
@@ -182,13 +197,18 @@ class MDTModel(nn.Module):
         self.dtype = dt
         self.graph_encoder = MultiGraphormerGraphEncoder(c, dt)
         self.text_pooler = BertPooler(c.text_tower.hidden_size, dt)
+        self.text_dropout = FastDropout(c.text_tower.hidden_dropout_prob)
         self.node_classifier = Dense(c.text_tower.hidden_size, c.num_classes, dt)
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> MDTOutput:
-        enc = self.graph_encoder(batch)
-        text_logits = self.node_classifier(self.text_pooler(enc.text_states))
-        graph_logits = self.node_classifier(self.text_pooler(enc.bottleneck))
+    def forward(self, batch: Dict[str, torch.Tensor], deterministic: bool = True) -> MDTOutput:
+        enc = self.graph_encoder(batch, deterministic)
+
+        def head(states):
+            return self.node_classifier(self.text_dropout(self.text_pooler(states), deterministic))
+
+        text_logits = head(enc.text_states)
+        graph_logits = head(enc.bottleneck)
         return MDTOutput(
             logits=(text_logits + graph_logits) / 2,
             global_embedding=enc.global_embedding,
@@ -197,24 +217,51 @@ class MDTModel(nn.Module):
         )
 
 
+def _lecun_normal(w: torch.Tensor, generator: torch.Generator) -> None:
+    """Flax's default Dense/Conv kernel init: variance_scaling(1, fan_in,
+    truncated_normal), i.e. a normal truncated to two of its std, scaled so
+    that the std is 1/sqrt(fan_in)."""
+    std = w[0].numel() ** -0.5 / _TRUNCATED_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def _fan_avg_uniform(w: torch.Tensor, scale: float, generator: torch.Generator) -> None:
+    """variance_scaling(scale, fan_avg, uniform) of a (out, in) weight."""
+    fan_out, fan_in = w.shape
+    limit = math.sqrt(3.0 * scale / ((fan_in + fan_out) / 2))
+    nn.init.uniform_(w, -limit, limit, generator=generator)
+
+
 @torch.no_grad()
 def init_weights(model: MDTModel, generator: torch.Generator) -> None:
-    """Random init from ``generator``: Linear and Conv weights
-    lecun-normal (normal(0, 0.02) for Linear under
-    ``apply_graphormer_init``), biases 0, LayerNorm 1/0, embedding tables
-    normal(0, 0.02), raw parameters by ``_RAW_INIT_STD`` (default 0.02)."""
+    """Random init from ``generator``, with the JAX modules' initializers:
+    - Linear and Conv weights lecun-normal (truncated), biases 0;
+    - graph attention q/k/v_proj variance_scaling(0.5, fan_avg, uniform)
+      and out_proj xavier_uniform (fairseq's scaled xavier init);
+    - embedding tables normal(0, 1/sqrt(dim)) (Flax ``nn.Embed``);
+    - LayerNorm 1/0; raw parameters by ``_RAW_INIT_STD`` (default 0.02);
+    - with ``apply_graphormer_init``: every Linear weight and embedding table
+      normal(0, 0.02) instead (Conv untouched), as the reference's
+      ``init_graphormer_params``."""
     graphormer_init = model.config.apply_graphormer_init
+    fan_avg_scale = {}
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)):
-            std = 0.02 if graphormer_init and isinstance(mod, nn.Linear) else mod.weight[0].numel() ** -0.5
-            mod.weight.normal_(0.0, std, generator=generator)
-            if mod.bias is not None:
-                mod.bias.zero_()
+        if isinstance(mod, BiasedMultiheadAttention):
+            fan_avg_scale.update({id(mod.q_proj): 0.5, id(mod.k_proj): 0.5, id(mod.v_proj): 0.5, id(mod.out_proj): 1.0})
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear) and graphormer_init:
+            mod.weight.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(mod, nn.Linear) and id(mod) in fan_avg_scale:
+            _fan_avg_uniform(mod.weight, fan_avg_scale[id(mod)], generator)
+        elif isinstance(mod, (nn.Linear, nn.Conv2d)):
+            _lecun_normal(mod.weight, generator)
         elif isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
-            mod.weight.normal_(0.0, 0.02, generator=generator)
+            mod.weight.normal_(0.0, 0.02 if graphormer_init else mod.weight.shape[1] ** -0.5, generator=generator)
+        if isinstance(mod, (nn.Linear, nn.Conv2d)) and mod.bias is not None:
+            mod.bias.zero_()
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf not in ("weight", "bias"):
@@ -223,3 +270,39 @@ def init_weights(model: MDTModel, generator: torch.Generator) -> None:
                 p.normal_(0.0, std, generator=generator)
             else:
                 p.zero_()
+
+
+@register_model_architecture("multi_graphormer")
+def multi_graphormer(cfg: Optional[ModelConfig] = None, **overrides) -> ModelConfig:
+    """The reference's ``base_architecture`` defaults."""
+    base = cfg if cfg is not None else ModelConfig(
+        dropout=0.1, attention_dropout=0.1, act_dropout=0.0, encoder_ffn_embed_dim=4096,
+        encoder_attention_heads=8, encoder_embed_dim=1024, num_bottleneck_tokens=4,
+        num_fusion_layers=4, num_graph_stack=1, num_fusion_stack=1,
+    )
+    return base.replace(**overrides) if overrides else base
+
+
+@register_model_architecture("multi_graphormer_base")
+def multi_graphormer_base(cfg: Optional[ModelConfig] = None, **overrides) -> ModelConfig:
+    """``graphormer_base_architecture`` with the canonical launch overrides
+    (the ``ModelConfig()`` defaults)."""
+    base = cfg if cfg is not None else ModelConfig()
+    return base.replace(**overrides) if overrides else base
+
+
+@register_model_architecture("multi_graphormer_graph_only")
+def multi_graphormer_graph_only(**overrides) -> ModelConfig:
+    """Graph-only ablation: no image tower."""
+    base = ModelConfig(use_image_tower=False)
+    return base.replace(**overrides) if overrides else base
+
+
+@register_model_architecture("multi_graphormer_roberta_clip")
+def multi_graphormer_roberta_clip(**overrides) -> ModelConfig:
+    """Encoder-swap ablation: RoBERTa text tower + CLIP-ViT image tower."""
+    base = ModelConfig(
+        text_tower=roberta_tower_config(), image_tower=clip_vit_tower_config(),
+        text_encoder_name="roberta-base", image_encoder_name="openai/clip-vit-base-patch32",
+    )
+    return base.replace(**overrides) if overrides else base

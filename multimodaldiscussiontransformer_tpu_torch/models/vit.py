@@ -6,7 +6,9 @@ truncates the encoder but keeps calling the whole model, so that layer norm
 runs right after the bottom layers, before fusion.
 
 ViT layers are pre-LN (LN -> attention -> +residual; LN -> MLP ->
-+residual) with no attention mask. Images arrive channels-first,
++residual) with no attention mask. Dropout (``deterministic=False``) sits
+where the JAX modules have it: attention probabilities, both residual
+branches, and the embeddings. Images arrive channels-first,
 (I, 3, H, W); I may be 0.
 """
 
@@ -23,6 +25,7 @@ from multimodaldiscussiontransformer_tpu_torch.models.bert import (
     SelfAttention,
     act_fn,
 )
+from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import FastDropout
 
 
 class ViTLayer(nn.Module):
@@ -33,17 +36,18 @@ class ViTLayer(nn.Module):
         c, d = config, dtype
         self.act = act_fn(c.hidden_act)
         self.layernorm_before = LayerNorm(c.hidden_size, c.layer_norm_eps, d)
-        self.attention = SelfAttention(c.hidden_size, c.num_attention_heads, d)
+        self.attention = SelfAttention(c.hidden_size, c.num_attention_heads, d, c.attention_probs_dropout_prob)
         self.attention_output_dense = Dense(c.hidden_size, c.hidden_size, d)
         self.layernorm_after = LayerNorm(c.hidden_size, c.layer_norm_eps, d)
         self.intermediate_dense = Dense(c.hidden_size, c.intermediate_size, d)
         self.output_dense = Dense(c.intermediate_size, c.hidden_size, d)
+        self.hidden_dropout = FastDropout(c.hidden_dropout_prob)
 
-    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
-        attn = self.attention_output_dense(self.attention(self.layernorm_before(hidden)))
-        hidden = hidden + attn
+    def forward(self, hidden: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+        attn = self.attention_output_dense(self.attention(self.layernorm_before(hidden), None, deterministic))
+        hidden = hidden + self.hidden_dropout(attn, deterministic)
         mlp = self.act(self.intermediate_dense(self.layernorm_after(hidden)))
-        return hidden + self.output_dense(mlp)
+        return hidden + self.hidden_dropout(self.output_dense(mlp), deterministic)
 
 
 class ViTEmbeddings(nn.Module):
@@ -63,8 +67,9 @@ class ViTEmbeddings(nn.Module):
             self.pre_layernorm = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
         self.cls_token = nn.Parameter(torch.empty(1, 1, c.hidden_size))
         self.position_embeddings = nn.Parameter(torch.empty(1, c.seq_len, c.hidden_size))
+        self.dropout = FastDropout(c.hidden_dropout_prob)
 
-    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+    def forward(self, pixel_values: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         dt = self.dtype
         conv = self.patch_embeddings
         bias = None if conv.bias is None else conv.bias.to(dt)
@@ -74,7 +79,7 @@ class ViTEmbeddings(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.position_embeddings.to(dt)
         if self.config.embeddings_layernorm:
             x = self.pre_layernorm(x)
-        return x
+        return self.dropout(x, deterministic)
 
 
 class ViTPooler(nn.Module):
@@ -104,8 +109,8 @@ class ViTBottomTower(nn.Module):
             self.layers.append(lyr)
         self.layernorm = LayerNorm(config.hidden_size, config.layer_norm_eps, dtype)
 
-    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
-        hidden = self.embeddings(pixel_values)
+    def forward(self, pixel_values: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+        hidden = self.embeddings(pixel_values, deterministic)
         for lyr in self.layers:
-            hidden = lyr(hidden)
+            hidden = lyr(hidden, deterministic)
         return self.layernorm(hidden)

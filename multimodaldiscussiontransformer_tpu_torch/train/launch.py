@@ -1,0 +1,338 @@
+"""Training CLI of the port, with the JAX package's flag names
+(``MIGRATION.md``; the reference ``fairseq-train`` surface).
+
+The canonical run (``bash run_train.sh 8 4 5 2 2 0``) on synthetic
+discussions, on the card:
+
+    python -m multimodaldiscussiontransformer_tpu_torch.train.launch --synthetic \\
+        --num-fusion-layers 8 --num-bottleneck-tokens 4 --spatial-pos-max 5 \\
+        --num-graph-stack 2 --num-fusion-stack 2 --batch-size 12 --update-freq 3 \\
+        --positive-weight 1.5 --freeze-initial-encoders --max-updates 20 --no-save
+
+Quick run on the CPU:
+
+    python -m multimodaldiscussiontransformer_tpu_torch.train.launch --synthetic \\
+        --tiny --max-updates 2 --no-save --device cpu
+
+Flags whose machinery belongs to a later slice of the port exit with code 2
+and a message naming that slice (``UNPORTED``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+# flag -> (is it set?, what brings it)
+UNPORTED = {
+    "--restore-file": (lambda a: a.restore_file is not None, "checkpoints (ROADMAP Queue 1)"),
+    "--eval-only": (lambda a: a.eval_only, "checkpoints (ROADMAP Queue 1)"),
+    "--average-last": (lambda a: a.average_last is not None, "checkpoints (ROADMAP Queue 1)"),
+    "--predict-output": (lambda a: a.predict_output is not None, "prediction export, with checkpoints (ROADMAP Queue 1)"),
+    "--hf-init": (lambda a: a.hf_init, "the HF tower import (ROADMAP Queue 1 item 9), once such weights are in the repository"),
+    "--distributed-world-size > 1": (lambda a: a.distributed_world_size > 1, "the parallel slice (ROADMAP Queue 1 item 8)"),
+    "--dp-size/--tp-size/--sp-size/--num-slices/--fsdp": (
+        lambda a: a.dp_size not in (-1, 1) or a.tp_size != 1 or a.sp_size != 1 or a.num_slices != 1 or a.fsdp,
+        "the parallel slice (ROADMAP Queue 1 item 8)",
+    ),
+    "--profile-trace": (lambda a: a.profile_trace is not None, "torch.profiler tracing (ROADMAP Queue 1 item 9)"),
+    "--wandb-project": (lambda a: bool(a.wandb_project), "the wandb/tensorboard sinks (ROADMAP Queue 1)"),
+    "--tensorboard-logdir": (lambda a: a.tensorboard_logdir is not None, "the wandb/tensorboard sinks (ROADMAP Queue 1)"),
+    "--num-workers > 0": (lambda a: a.num_workers > 0, "worker-process loading (ROADMAP Queue 1 item 9)"),
+    "saving checkpoints (pass --no-save)": (lambda a: not a.no_save, "checkpoints (ROADMAP Queue 1)"),
+    "--no-scan-microbatches": (lambda a: a.no_scan_microbatches and a.update_freq > 1, "MultiSteps accumulation (ROADMAP Queue 1)"),
+    "--bf16-adam-state": (lambda a: a.bf16_adam_state, "bf16 Adam state (ROADMAP Queue 1)"),
+    "--remat/--scan-layers": (lambda a: a.remat or a.scan_layers, "remat and scan layouts (ROADMAP Queue 1)"),
+    "--task contrastive_learning": (lambda a: a.task != "node_prediction", "the contrastive slice (ROADMAP Queue 1 item 7)"),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--device", default="cuda", help="torch device to train on (default cuda; cpu for a quick run)")
+    # task / criterion / arch
+    p.add_argument("--task", default="node_prediction", choices=["node_prediction", "contrastive_learning"])
+    p.add_argument("--criterion", default="node_cross_entropy")
+    p.add_argument("--arch", default="multi_graphormer_base")
+    p.add_argument("--user-data-dir", default="")
+    p.add_argument("--dataset-name", default="hateful_discussions")
+    p.add_argument("--num-classes", type=int, default=2)
+    p.add_argument("--seed", type=int, default=1)
+    # model geometry (the reference's underscore spellings are aliases)
+    p.add_argument("--num-fusion-layers", "--num_fusion_layers", type=int, default=8)
+    p.add_argument("--num-bottleneck-tokens", "--num_bottleneck_tokens", type=int, default=4)
+    p.add_argument("--num-graph-stack", "--num_graph_stack", type=int, default=2)
+    p.add_argument("--num-fusion-stack", "--num_fusion_stack", type=int, default=2)
+    p.add_argument("--spatial-pos-max", type=int, default=5)
+    p.add_argument("--max-nodes", type=int, default=10000)
+    p.add_argument("--encoder-embed-dim", type=int, default=768)
+    p.add_argument("--encoder-ffn-embed-dim", type=int, default=768)
+    p.add_argument("--encoder-attention-heads", type=int, default=12)
+    p.add_argument("--activation-fn", default=None)
+    p.add_argument("--pre-layernorm", action="store_true", default=None)
+    p.add_argument("--encoder-normalize-before", action="store_true", default=None)
+    p.add_argument("--apply-graphormer-init", action="store_true", default=None)
+    # regularization: unset flags resolve to the reference recipe (0.4 /
+    # 0.3 / 0.3) for real archs and to the preset's values under --tiny
+    p.add_argument("--dropout", type=float, default=None)
+    p.add_argument("--attention-dropout", type=float, default=None)
+    p.add_argument("--act-dropout", type=float, default=None)
+    # optimization
+    p.add_argument("--optimizer", default="adam", choices=["adam"])
+    p.add_argument("--lr-scheduler", default="polynomial_decay", choices=["polynomial_decay"])
+    p.add_argument("--lr", type=float, default=3e-5)
+    p.add_argument("--end-learning-rate", type=float, default=3e-7)
+    p.add_argument("--power", type=float, default=1.0)
+    p.add_argument("--warmup-updates", type=int, default=3246)
+    p.add_argument("--total-num-update", type=int, default=10820)
+    p.add_argument("--adam-eps", type=float, default=1e-8)
+    p.add_argument("--adam-betas", default="(0.9, 0.999)")
+    p.add_argument("--weight-decay", type=float, default=0.01)
+    p.add_argument("--clip-norm", type=float, default=0.0)
+    p.add_argument("--batch-size", type=int, default=12)
+    p.add_argument("--required-batch-size-multiple", type=int, default=1)
+    p.add_argument("--update-freq", type=int, default=3)
+    p.add_argument("--no-scan-microbatches", action="store_true", default=False)
+    p.add_argument("--bf16-adam-state", action="store_true", default=False)
+    p.add_argument("--max-epoch", type=int, default=37)
+    p.add_argument("--max-updates", type=int, default=None)
+    p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--fp16", action="store_true", default=False, help="the reference's --fp16, mapped to bfloat16")
+    # criterion weights
+    p.add_argument("--positive-weight", type=float, default=1.5)
+    p.add_argument("--negative-weight", type=float, default=1.0)
+    p.add_argument("--freeze-initial-encoders", "--freeze_initial_encoders", action="store_true", default=False)
+    # checkpointing and logging
+    p.add_argument("--save-dir", default="checkpoints")
+    p.add_argument("--restore-file", default=None)
+    p.add_argument("--validate-interval-updates", type=int, default=300)
+    p.add_argument("--no-save", action="store_true", default=False)
+    p.add_argument("--log-interval", type=int, default=50)
+    p.add_argument("--wandb-project", default=os.environ.get("WANDB_PROJECT"))
+    p.add_argument("--tensorboard-logdir", default=None)
+    p.add_argument("--profile-trace", default=None)
+    # parallelism
+    p.add_argument("--dp-size", type=int, default=-1)
+    p.add_argument("--tp-size", type=int, default=1)
+    p.add_argument("--sp-size", type=int, default=1)
+    p.add_argument("--fsdp", action="store_true", default=False)
+    p.add_argument("--distributed-world-size", type=int, default=1)
+    p.add_argument("--num-slices", type=int, default=1)
+    p.add_argument("--hf-init", action="store_true", default=False)
+    p.add_argument("--text-encoder", default="bert-base-uncased")
+    p.add_argument("--image-encoder", default="google/vit-base-patch16-224")
+    # data loading and batching
+    p.add_argument("--num-workers", type=int, default=0)
+    p.add_argument("--length-grouped", action="store_true", default=False)
+    p.add_argument("--node-buckets", default=None)
+    p.add_argument("--node-capacity-buckets", default=None)
+    p.add_argument("--image-capacity-buckets", default=None)
+    p.add_argument("--label-capacity-buckets", default=None)
+    p.add_argument("--text-len-buckets", default=None)
+    # compute policy
+    p.add_argument("--remat", action="store_true", default=False)
+    p.add_argument("--scan-layers", action="store_true", default=False)
+    p.add_argument("--use-pallas-attention", action=argparse.BooleanOptionalAction, default=True,
+                   help="graph attention through the compact bias and the tree-attention kernels")
+    # evaluation only
+    p.add_argument("--eval-only", action="store_true", default=False)
+    p.add_argument("--average-last", type=int, default=None)
+    p.add_argument("--predict-output", default=None)
+    # smoke-run conveniences
+    p.add_argument("--synthetic", action="store_true", default=False)
+    p.add_argument("--synthetic-graphs", type=int, default=None)
+    p.add_argument("--tiny", action="store_true", default=False)
+    return p
+
+
+def reject_unported(args, parser: argparse.ArgumentParser) -> None:
+    """Exit 2 for a flag whose machinery the port does not have yet."""
+    for flag, (is_set, slice_) in UNPORTED.items():
+        if is_set(args):
+            parser.error(f"{flag} is not ported yet: it comes with {slice_}")
+
+
+def config_from_args(args):
+    """The TrainConfig of the parsed flags, resolved as the JAX launcher
+    resolves them."""
+    from multimodaldiscussiontransformer_tpu_torch.core import registry
+    from multimodaldiscussiontransformer_tpu_torch.core.config import (
+        DataConfig,
+        ModelConfig,
+        OptimConfig,
+        TaskConfig,
+        TrainConfig,
+        tiny_model_config,
+    )
+
+    if args.fp16:
+        args.dtype = "bfloat16"
+    if args.tiny:
+        model = tiny_model_config(freeze_initial_encoders=args.freeze_initial_encoders, dtype="float32")
+        for name in ("dropout", "act_dropout", "attention_dropout"):
+            if getattr(args, name) is not None:
+                model = model.replace(**{name: getattr(args, name)})
+        tower_kw = {}
+        if args.act_dropout is not None:
+            tower_kw["hidden_dropout_prob"] = args.act_dropout
+        if args.attention_dropout is not None:
+            tower_kw["attention_probs_dropout_prob"] = args.attention_dropout
+        if tower_kw:
+            model = model.replace(
+                text_tower=dataclasses.replace(model.text_tower, **tower_kw),
+                image_tower=dataclasses.replace(model.image_tower, **tower_kw),
+            )
+    else:
+        registry.populate()
+        arch = registry.ARCHITECTURES
+        model = arch.get(args.arch)() if args.arch in arch else ModelConfig()
+        # the reference rebuilds the towers with the model-level dropout
+        # flags; unset flags take the recipe's values
+        args.dropout = 0.4 if args.dropout is None else args.dropout
+        args.attention_dropout = 0.3 if args.attention_dropout is None else args.attention_dropout
+        args.act_dropout = 0.3 if args.act_dropout is None else args.act_dropout
+        tower_kw = dict(hidden_dropout_prob=args.act_dropout, attention_probs_dropout_prob=args.attention_dropout)
+        model = model.replace(
+            num_bottleneck_tokens=args.num_bottleneck_tokens,
+            num_fusion_layers=args.num_fusion_layers,
+            num_fusion_stack=args.num_fusion_stack,
+            num_graph_stack=args.num_graph_stack,
+            encoder_embed_dim=args.encoder_embed_dim,
+            encoder_ffn_embed_dim=args.encoder_ffn_embed_dim,
+            encoder_attention_heads=args.encoder_attention_heads,
+            dropout=args.dropout,
+            attention_dropout=args.attention_dropout,
+            act_dropout=args.act_dropout,
+            freeze_initial_encoders=args.freeze_initial_encoders,
+            num_classes=args.num_classes if args.num_classes > 1 else 2,
+            dtype=args.dtype,
+            use_pallas_attention=args.use_pallas_attention,
+            text_encoder_name=args.text_encoder,
+            image_encoder_name=args.image_encoder,
+            text_tower=dataclasses.replace(model.text_tower, **tower_kw),
+            image_tower=dataclasses.replace(model.image_tower, **tower_kw),
+        )
+    for name in ("activation_fn", "pre_layernorm", "encoder_normalize_before", "apply_graphormer_init"):
+        if getattr(args, name) is not None:
+            model = model.replace(**{name: getattr(args, name)})
+
+    def ladder(spec, default):
+        return default if spec is None else tuple(int(x) for x in str(spec).split(",") if x.strip())
+
+    if args.tiny:
+        data = DataConfig(
+            batch_size=args.batch_size, length_grouped=args.length_grouped, num_workers=args.num_workers,
+            max_text_len=16,
+            node_buckets=ladder(args.node_buckets, (8, 16)),
+            node_capacity_buckets=ladder(args.node_capacity_buckets, (32, 64, 128)),
+            image_capacity_buckets=ladder(args.image_capacity_buckets, (0, 8, 16)),
+            label_capacity_buckets=ladder(args.label_capacity_buckets, (8, 16, 32, 64)),
+        )
+    else:
+        data = DataConfig(
+            batch_size=args.batch_size, length_grouped=args.length_grouped, num_workers=args.num_workers,
+            node_buckets=ladder(args.node_buckets, DataConfig.node_buckets),
+            node_capacity_buckets=ladder(args.node_capacity_buckets, DataConfig.node_capacity_buckets),
+            image_capacity_buckets=ladder(args.image_capacity_buckets, DataConfig.image_capacity_buckets),
+            label_capacity_buckets=ladder(args.label_capacity_buckets, DataConfig.label_capacity_buckets),
+            text_len_buckets=ladder(args.text_len_buckets, DataConfig.text_len_buckets),
+        )
+    return TrainConfig(
+        criterion=args.criterion,
+        task=args.task,
+        arch=args.arch,
+        max_epoch=args.max_epoch,
+        validate_interval_updates=args.validate_interval_updates,
+        save_dir=args.save_dir,
+        seed=args.seed,
+        log_interval=args.log_interval,
+        positive_weight=args.positive_weight,
+        negative_weight=args.negative_weight,
+        optim=OptimConfig(
+            lr=args.lr,
+            end_learning_rate=args.end_learning_rate,
+            warmup_updates=args.warmup_updates,
+            total_num_update=args.total_num_update,
+            adam_eps=args.adam_eps,
+            adam_betas=tuple(float(x) for x in args.adam_betas.strip("()[] ").split(",")),
+            weight_decay=args.weight_decay,
+            update_freq=args.update_freq,
+            scan_microbatches=not args.no_scan_microbatches,
+            bf16_adam_state=args.bf16_adam_state,
+            clip_norm=args.clip_norm,
+            power=args.power,
+        ),
+        model=model,
+        data=data,
+        task_cfg=TaskConfig(
+            dataset_name="synthetic" if args.synthetic else args.dataset_name,
+            num_classes=args.num_classes,
+            spatial_pos_max=args.spatial_pos_max,
+            max_nodes=args.max_nodes,
+            seed=args.seed,
+            user_data_dir=args.user_data_dir,
+        ),
+    )
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    reject_unported(args, parser)
+    if args.required_batch_size_multiple > 1 and args.batch_size % args.required_batch_size_multiple:
+        print(
+            f"error: --batch-size {args.batch_size} is not a multiple of "
+            f"--required-batch-size-multiple {args.required_batch_size_multiple}",
+            file=sys.stderr,
+        )
+        return 2
+    cfg = config_from_args(args)
+
+    from multimodaldiscussiontransformer_tpu_torch.core import registry
+    from multimodaldiscussiontransformer_tpu_torch.train.metrics import MetricsWriter
+
+    registry.populate()
+    task = registry.TASKS.get(cfg.task)(cfg)
+    cfg = task.cfg
+    if args.synthetic:
+        img = (3, 32, 32) if args.tiny else (3, 224, 224)
+        factory_kwargs = dict(
+            num_graphs=args.synthetic_graphs if args.synthetic_graphs is not None else max(4 * cfg.data.batch_size, 32),
+            seed=cfg.seed,
+            seq_len=cfg.data.max_text_len,
+            vocab_size=cfg.model.text_tower.vocab_size,
+            image_shape=img,
+            max_nodes=8 if args.tiny else 24,
+        )
+    else:
+        img = (3, cfg.model.image_tower.image_size, cfg.model.image_tower.image_size)
+        factory_kwargs = {"seed": cfg.seed}
+    dataset = task.load_dataset(**factory_kwargs)
+    print(
+        f"dataset: {len(dataset)} graphs (train {len(dataset.train_idx)} / valid {len(dataset.valid_idx)} "
+        f"/ test {len(dataset.test_idx)})"
+    )
+    trainer = task.build_trainer(image_shape=img, device=args.device)
+    if next(iter(trainer.train_batches(dataset, epoch=1)), None) is None:
+        print(
+            f"error: the train split yields no batches: {len(dataset.train_idx)} train graphs < batch "
+            f"{trainer.global_batch_size} with drop_last; lower --batch-size or provide more data",
+            file=sys.stderr,
+        )
+        return 1
+    state = trainer.init_state()
+    writer = MetricsWriter(cfg.save_dir)
+    state = trainer.fit(dataset, state=state, max_updates=args.max_updates, writer=writer)
+    if len(dataset.test_idx):
+        test_metrics = trainer.evaluate(state, dataset, "test")
+        writer.write("test", state.num_updates, test_metrics)
+        print("test:", json.dumps(test_metrics))
+    writer.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,80 @@
+"""Metric aggregation with the reference's summable-logging contract, and
+the JSONL metrics sink: the port's copy of the JAX package's
+``train/metrics.py``.
+
+Per-step logging outputs are sums (counts, summed loss); the accumulator
+adds them across steps and ``reduce_metrics`` derives accuracy, F1 and the
+normalized loss. ``update`` only queues the step's device values (stacked
+into one small tensor, no synchronisation); ``reduce`` brings the whole
+window to the host with one copy.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+
+class MetricAccumulator:
+    """Sums logging outputs across steps; reduces on demand."""
+
+    MAX_PENDING = 4096  # past this many steps the window folds early
+
+    def __init__(self, reduce_fn: Callable[[Dict[str, Any]], Dict[str, float]]):
+        self._reduce_fn = reduce_fn
+        self._pending: List[tuple] = []
+        self._sums: Dict[str, float] = {}
+        self._n_steps = 0
+
+    def update(self, logging_output: Dict[str, Any]) -> None:
+        values = [v if isinstance(v, torch.Tensor) else torch.tensor(float(v)) for v in logging_output.values()]
+        dev = values[0].device
+        vec = torch.stack([v.detach().to(dev, torch.float64).reshape(()) for v in values])
+        self._pending.append((tuple(logging_output), vec))
+        self._n_steps += 1
+        if len(self._pending) >= self.MAX_PENDING:
+            self._fold()
+
+    def _fold(self) -> None:
+        if not self._pending:
+            return
+        host = torch.stack([vec.to(self._pending[0][1].device) for _, vec in self._pending]).cpu().tolist()
+        for (keys, _), row in zip(self._pending, host):
+            for k, v in zip(keys, row):
+                self._sums[k] = self._sums.get(k, 0.0) + v
+        self._pending = []
+
+    def reduce(self) -> Dict[str, float]:
+        if not self._pending and not self._sums:
+            return {}
+        self._fold()
+        out = self._reduce_fn(self._sums)
+        out["steps_in_window"] = self._n_steps
+        return out
+
+    def reset(self) -> None:
+        self._pending = []
+        self._sums = {}
+        self._n_steps = 0
+
+
+class MetricsWriter:
+    """Appends ``{"split", "step", **metrics}`` records to
+    ``save_dir/metrics.jsonl``. W&B and TensorBoard sinks are not ported;
+    asking for them raises."""
+
+    def __init__(self, save_dir: str, wandb_project: Optional[str] = None, tensorboard_logdir: Optional[str] = None):
+        if wandb_project or tensorboard_logdir:
+            raise NotImplementedError("the port writes metrics.jsonl only; wandb and tensorboard sinks come later")
+        os.makedirs(save_dir, exist_ok=True)
+        self.path = os.path.join(save_dir, "metrics.jsonl")
+
+    def write(self, split: str, step: int, metrics: Dict[str, float]) -> None:
+        with open(self.path, "a") as f:
+            f.write(json.dumps({"split": split, "step": step, **metrics}) + "\n")
+
+    def close(self) -> None:
+        pass

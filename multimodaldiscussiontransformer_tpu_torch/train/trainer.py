@@ -1,0 +1,262 @@
+"""The training loop: the port's copy of the JAX package's
+``train/trainer.py`` on one device.
+
+One update takes the ``update_freq`` microbatches of a group (stacked on a
+leading k axis by ``data/loader.py::stack_microbatches``) with the JAX
+package's scan-step semantics (FairSeq's update-freq math):
+- each microbatch's forward runs with dropout (``deterministic=False``) and
+  its SUMMED, unnormalized loss is back-propagated into the accumulated
+  ``.grad`` of the trainable parameters;
+- the accumulated gradients are divided once by max(total sample size, 1);
+- one AdamW update follows, with the lr the schedule gives this update;
+- ``gnorm`` is the norm of the normalized trainable gradients.
+Frozen towers get no gradient and no update. Trainable parameters that got
+no gradient in an update (e.g. the ViT halves of the fusion layers when no
+microbatch holds an image) get a zero gradient, so that AdamW still decays
+them and advances their moments, as optax does for every trainable leaf.
+
+There is no mesh: one process drives one device. Checkpoints, resume and
+profiling are not ported yet; settings that need them raise.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from multimodaldiscussiontransformer_tpu_torch.core.config import TrainConfig
+from multimodaldiscussiontransformer_tpu_torch.core.registry import CRITERIONS, populate
+from multimodaldiscussiontransformer_tpu_torch.data.collator import to_tensors
+from multimodaldiscussiontransformer_tpu_torch.data.dataset import DiscussionDataset, iterate_batches
+from multimodaldiscussiontransformer_tpu_torch.data.loader import stack_microbatches
+from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import dropout_rngs
+from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
+from multimodaldiscussiontransformer_tpu_torch.serve.incremental import resolve_device
+from multimodaldiscussiontransformer_tpu_torch.train.metrics import MetricAccumulator, MetricsWriter
+from multimodaldiscussiontransformer_tpu_torch.train.optimizer import (
+    apply_freeze,
+    clip_by_global_norm_,
+    make_optimizer,
+    polynomial_decay_schedule,
+    trainable_gnorm,
+)
+
+
+@dataclass
+class TrainState:
+    """What a run carries between updates."""
+
+    model: MDTModel
+    optimizer: torch.optim.AdamW
+    trainable: List[torch.nn.Parameter]
+    host_rng: torch.Generator  # CPU: one attention-dropout seed per call site
+    device_rng: torch.Generator  # on the device: FastDropout masks
+    step: int = 0  # microbatches consumed (pads included)
+    num_updates: int = 0
+    epoch: int = 0  # completed epochs
+
+
+def check_supported(cfg: TrainConfig) -> None:
+    """Raise ``NotImplementedError`` for settings the port's trainer lacks."""
+    if cfg.dp_size not in (-1, 1) or cfg.tp_size != 1 or cfg.sp_size != 1 or cfg.num_slices != 1 or cfg.fsdp:
+        raise NotImplementedError("the port trains on one device: dp_size in (-1, 1), tp = sp = slices = 1, no fsdp")
+    if cfg.optim.update_freq > 1 and not cfg.optim.scan_microbatches:
+        raise NotImplementedError("update_freq > 1 without scan_microbatches (MultiSteps averaging) is not ported")
+    if cfg.data.num_workers > 0:
+        raise NotImplementedError("data.num_workers > 0: worker-process loading is not ported")
+    if cfg.profile_trace_dir is not None:
+        raise NotImplementedError("profile traces are not ported")
+    if cfg.task != "node_prediction":
+        raise NotImplementedError(f"task {cfg.task!r}: the port trains the node_prediction task")
+
+
+class Trainer:
+    """The training loop for the node task on one device (``"cuda"`` unless
+    the caller passes another).
+
+    ``TrainConfig.fast_dropout_rng`` picks a JAX PRNG implementation and has
+    no meaning here: the port's dropout bits come from ``torch.Generator``s
+    and the kernels' Philox."""
+
+    def __init__(
+        self,
+        cfg: TrainConfig,
+        model: Optional[MDTModel] = None,
+        criterion: Optional[Callable] = None,
+        image_shape=(3, 224, 224),
+        device=None,
+    ):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = model
+        if criterion is None:
+            populate()
+            criterion = CRITERIONS.get(cfg.criterion)(
+                positive_weight=cfg.positive_weight, negative_weight=cfg.negative_weight
+            )
+        self.criterion = criterion
+        self.image_shape = image_shape
+        self.global_batch_size = cfg.data.batch_size
+
+    # -- state ---------------------------------------------------------------
+
+    def init_state(self, seed: Optional[int] = None) -> TrainState:
+        """A fresh model (random init from a CPU generator seeded with
+        ``seed``, default ``cfg.seed``; or the model given to the trainer),
+        freeze, AdamW, and the dropout generators."""
+        seed = self.cfg.seed if seed is None else seed
+        host = torch.Generator().manual_seed(seed)
+        model = self.model if self.model is not None else MDTModel(self.cfg.model, generator=host)
+        model = model.to(self.device)
+        trainable = apply_freeze(model, self.cfg.model.freeze_initial_encoders)
+        return TrainState(
+            model=model,
+            optimizer=make_optimizer(self.cfg.optim, trainable),
+            trainable=trainable,
+            host_rng=host,
+            device_rng=torch.Generator(device=self.device).manual_seed(seed),
+        )
+
+    def load_params(self, state: TrainState, state_dict: Dict[str, torch.Tensor]) -> TrainState:
+        """Swap in other weights and start the optimizer afresh (the JAX
+        ``load_params``, i.e. ``--reset-optimizer``)."""
+        state.model.load_state_dict(state_dict, strict=True)
+        state.optimizer = make_optimizer(self.cfg.optim, state.trainable)
+        return state
+
+    # -- steps ---------------------------------------------------------------
+
+    def train_step(self, state: TrainState, group: Dict[str, np.ndarray], return_grads: bool = False) -> Dict[str, torch.Tensor]:
+        """One update from a (k, ...)-stacked host group; the summed logging
+        outputs of its microbatches plus ``gnorm`` (and, with
+        ``return_grads``, ``grads``: the normalized gradients by parameter
+        name)."""
+        model, opt = state.model, state.optimizer
+        k = int(group["idx"].shape[0])
+        opt.zero_grad(set_to_none=True)
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        sums: Dict[str, torch.Tensor] = {}
+        with dropout_rngs(state.host_rng, state.device_rng):
+            for i in range(k):
+                batch = to_tensors({key: v[i] for key, v in group.items()}, self.device)
+                loss, ssz, logs = self.criterion(model(batch, deterministic=False), batch)
+                loss.backward()
+                total = total + ssz.float()
+                for key, v in logs.items():
+                    sums[key] = sums[key] + v if key in sums else v
+        denom = total.clamp_min(1.0)
+        for p in state.trainable:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            else:
+                p.grad.div_(denom.to(p.grad.dtype))
+        sums["gnorm"] = trainable_gnorm(state.trainable)
+        if return_grads:
+            names = {id(p): n for n, p in model.named_parameters()}
+            sums["grads"] = {names[id(p)]: p.grad.detach().clone() for p in state.trainable}
+        if self.cfg.optim.clip_norm and self.cfg.optim.clip_norm > 0:
+            clip_by_global_norm_(state.trainable, self.cfg.optim.clip_norm)
+        lr = self.lr_schedule()(state.num_updates)
+        for group_ in opt.param_groups:
+            group_["lr"] = lr
+        opt.step()
+        state.step += k
+        state.num_updates += 1
+        return sums
+
+    def lr_schedule(self) -> Callable[[int], float]:
+        o = self.cfg.optim
+        return polynomial_decay_schedule(o.lr, o.end_learning_rate, o.warmup_updates, o.total_num_update, o.power)
+
+    # -- batches -------------------------------------------------------------
+
+    def train_batches(self, dataset: DiscussionDataset, epoch: int) -> Iterator:
+        return iterate_batches(
+            dataset, dataset.train_idx, self.cfg.data, self.cfg.task_cfg, epoch=epoch,
+            shuffle=self.cfg.task_cfg.train_epoch_shuffle, image_shape=self.image_shape,
+            batch_size=self.global_batch_size,
+        )
+
+    def eval_batches(self, dataset: DiscussionDataset, split: str = "valid") -> Iterator:
+        idx = dataset.valid_idx if split == "valid" else dataset.test_idx
+        return iterate_batches(
+            dataset, idx, self.cfg.data, self.cfg.task_cfg, epoch=1, shuffle=False,
+            image_shape=self.image_shape, drop_last=False, batch_size=self.global_batch_size,
+            pad_tail_to_batch=True,
+        )
+
+    def evaluate(self, state: TrainState, dataset: DiscussionDataset, split: str = "valid") -> Dict[str, float]:
+        """The deterministic forward over a split; the reduced metrics."""
+        acc = MetricAccumulator(self.criterion.reduce_metrics)
+        with torch.no_grad():
+            for b in self.eval_batches(dataset, split):
+                batch = to_tensors(b, self.device)
+                _, _, logs = self.criterion(state.model(batch, deterministic=True), batch)
+                acc.update(logs)
+        return acc.reduce()
+
+    # -- the loop ------------------------------------------------------------
+
+    def fit(
+        self,
+        dataset: DiscussionDataset,
+        state: Optional[TrainState] = None,
+        max_epoch: Optional[int] = None,
+        max_updates: Optional[int] = None,
+        writer: Optional[MetricsWriter] = None,
+        log_fn: Callable[[str], None] = print,
+    ) -> TrainState:
+        """Train until ``max_epoch`` epochs or ``max_updates`` updates, with
+        a log line every ``log_interval`` updates (reduced metrics, lr,
+        updates/s, discussions/s) and validation every
+        ``validate_interval_updates``."""
+        cfg = self.cfg
+        max_epoch = cfg.max_epoch if max_epoch is None else max_epoch
+        if state is None:
+            if next(iter(self.train_batches(dataset, epoch=1)), None) is None:
+                raise ValueError(
+                    f"training split yields ZERO batches: {len(dataset.train_idx)} train items < batch "
+                    f"{self.global_batch_size} with drop_last; shrink the batch or grow the dataset"
+                )
+            state = self.init_state()
+        writer = writer if writer is not None else MetricsWriter(cfg.save_dir)
+        k = max(cfg.optim.update_freq, 1)
+        acc = MetricAccumulator(self.criterion.reduce_metrics)
+        lr_fn = self.lr_schedule()
+        last_logged = last_validated = state.num_updates
+        window_t0, window_graphs = time.perf_counter(), 0
+        for epoch in range(state.epoch + 1, max_epoch + 1):
+            for group in stack_microbatches(self.train_batches(dataset, epoch), k, pad_tail=True):
+                logs = self.train_step(state, group)
+                acc.update(logs)
+                window_graphs += int((group["idx"] >= 0).sum())
+                n = state.num_updates
+                if n - last_logged >= cfg.log_interval:
+                    last_logged = n
+                    m = acc.reduce()  # copies the window to the host: a sync
+                    acc.reset()
+                    dt = time.perf_counter() - window_t0
+                    m["lr"] = lr_fn(max(n - 1, 0))
+                    m["ups"] = round(cfg.log_interval / dt, 3)
+                    m["discussions_per_sec"] = round(window_graphs / dt, 2)
+                    window_t0, window_graphs = time.perf_counter(), 0
+                    writer.write("train", n, m)
+                    log_fn(f"epoch {epoch} update {n}: {m}")
+                if (
+                    cfg.validate_interval_updates
+                    and n - last_validated >= cfg.validate_interval_updates
+                    and len(dataset.valid_idx) > 0
+                ):
+                    last_validated = n
+                    vm = self.evaluate(state, dataset, "valid")
+                    writer.write("valid", n, vm)
+                    log_fn(f"valid @ {n}: {vm}")
+                if max_updates is not None and n >= max_updates:
+                    return state
+            state.epoch = epoch
+        return state

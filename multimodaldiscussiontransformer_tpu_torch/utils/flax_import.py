@@ -92,3 +92,31 @@ def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
         raise ValueError(f"shape mismatch (flax, port): {bad}")
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def to_flax_params(model: nn.Module, tensors: Mapping[str, torch.Tensor] = None) -> Dict[str, Any]:
+    """The inverse mapping: ``{"params": nested dict of numpy}`` in the Flax
+    layout for the model's parameters, or for ``tensors`` keyed by the
+    model's parameter names (e.g. their gradients)."""
+    kinds = {}
+    for mod_name, mod in model.named_modules():
+        for leaf, _ in mod.named_parameters(recurse=False):
+            kinds[f"{mod_name}.{leaf}" if mod_name else leaf] = (type(mod), leaf)
+    tensors = dict(model.named_parameters()) if tensors is None else tensors
+    tree: Dict[str, Any] = {}
+    for key, t in tensors.items():
+        arr = t.detach().float().cpu().numpy()
+        cls, leaf = kinds[key]
+        if leaf == "weight" and issubclass(cls, nn.Linear):
+            arr, leaf = arr.T, "kernel"
+        elif leaf == "weight" and issubclass(cls, nn.Conv2d):
+            arr, leaf = arr.transpose(2, 3, 1, 0), "kernel"
+        elif leaf == "weight" and issubclass(cls, nn.LayerNorm):
+            leaf = "scale"
+        elif leaf == "weight" and issubclass(cls, nn.Embedding):
+            leaf = "embedding"
+        node = tree
+        for part in key.split(".")[:-1]:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return {"params": tree}

@@ -77,3 +77,69 @@ def test_bucket_ladder_past_the_end():
     for value, ladder in ((600, (8, 16, 256)), (33, (8, 32)), (5, (8,))):
         assert collator._bucket(value, ladder) == jcollator._bucket(value, ladder)
     assert collator._bucket(600, (8, 16, 32, 64, 128, 256)) == 600
+
+
+def _datasets(seed, n=30):
+    kw = dict(seq_len=24, vocab_size=100, image_shape=IMG, image_prob=0.3, max_nodes=12)
+    from multimodaldiscussiontransformer_tpu.data.synthetic import synthetic_dataset as jds
+    from multimodaldiscussiontransformer_tpu_torch.data.synthetic import synthetic_dataset as pds
+
+    a, b = pds(n, seed=seed, **kw), jds(n, seed=seed, **kw)
+    for split in ("train_idx", "valid_idx", "test_idx"):
+        np.testing.assert_array_equal(getattr(a, split), getattr(b, split))
+    return a, b
+
+
+def _assert_batches_equal(got, want):
+    got, want = list(got), list(want)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        g = g.asdict() if hasattr(g, "asdict") else g
+        w = w.asdict() if hasattr(w, "asdict") else w
+        assert set(g) == set(w)
+        for k, v in w.items():
+            assert g[k].dtype == v.dtype, k
+            np.testing.assert_array_equal(g[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize(
+    "data_kw, it_kw",
+    [
+        ({}, dict(epoch=2, shuffle=True)),
+        ({"length_grouped": True, "text_len_buckets": (8, 16, 24)}, dict(epoch=3, shuffle=True)),
+        ({"node_buckets": (4, 8, 16)}, dict(drop_last=False, pad_tail_to_batch=True)),
+    ],
+)
+def test_iterate_batches_bit_equal(data_kw, it_kw):
+    from multimodaldiscussiontransformer_tpu.core.config import DataConfig as JDataConfig, TaskConfig as JTaskConfig
+    from multimodaldiscussiontransformer_tpu.data.dataset import iterate_batches as jiter
+    from multimodaldiscussiontransformer_tpu_torch.core.config import DataConfig, TaskConfig
+    from multimodaldiscussiontransformer_tpu_torch.data.dataset import iterate_batches
+
+    pds, jds = _datasets(5)
+    common = dict(batch_size=4, node_capacity_buckets=(16, 32, 64), image_capacity_buckets=(0, 4, 8),
+                  label_capacity_buckets=(4, 8, 16), **data_kw)
+    got = iterate_batches(pds, pds.train_idx, DataConfig(**common), TaskConfig(seed=3), image_shape=IMG, **it_kw)
+    want = jiter(jds, jds.train_idx, JDataConfig(**common), JTaskConfig(seed=3), image_shape=IMG, **it_kw)
+    _assert_batches_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_stack_microbatches_bit_equal(k):
+    """Mixed bucket shapes grown inertly, and a ragged tail padded with
+    all-pad microbatches, as the JAX copy does."""
+    from multimodaldiscussiontransformer_tpu.core.config import DataConfig as JDataConfig, TaskConfig as JTaskConfig
+    from multimodaldiscussiontransformer_tpu.data.dataset import iterate_batches as jiter
+    from multimodaldiscussiontransformer_tpu.data.loader import stack_microbatches as jstack
+    from multimodaldiscussiontransformer_tpu_torch.core.config import DataConfig, TaskConfig
+    from multimodaldiscussiontransformer_tpu_torch.data.dataset import iterate_batches
+    from multimodaldiscussiontransformer_tpu_torch.data.loader import stack_microbatches
+
+    pds, jds = _datasets(6, n=36)
+    common = dict(batch_size=3, node_buckets=(4, 8, 16), node_capacity_buckets=(8, 16, 32, 64),
+                  image_capacity_buckets=(0, 4, 8, 16), label_capacity_buckets=(2, 4, 8, 16), text_len_buckets=(8, 16, 24))
+    pb = list(iterate_batches(pds, pds.train_idx, DataConfig(**common), TaskConfig(seed=4), shuffle=True, image_shape=IMG))
+    jb = list(jiter(jds, jds.train_idx, JDataConfig(**common), JTaskConfig(seed=4), shuffle=True, image_shape=IMG))
+    assert len({b.input_ids.shape for b in pb}) > 1 and len(pb) % k != 0
+    _assert_batches_equal(stack_microbatches(iter(pb), k, pad_tail=True), jstack(iter(jb), k, pad_tail=True))
+    _assert_batches_equal(stack_microbatches(iter(pb), k), jstack(iter(jb), k))
