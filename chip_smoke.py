@@ -5,50 +5,80 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-1. build: compile the tree-attention kernels from ``csrc/`` with nvcc
-   (sm_90a; one nvcc per source, in parallel), and print the card's name
+1. build: compile every kernel library from ``csrc/`` with nvcc (sm_90a;
+   one nvcc per source, all in parallel: the tree-attention forward and
+   backward, the masked (tower) attention forward and backward), report
+   each library's registers and any ptxas spill, and print the card's name
    and power limit as nvidia-smi reports them.
-2. kernel_vs_plain: the forward kernel at rate 0 against its plain PyTorch
-   version on the card, at H=12, dh=64, double_add, with templates/ids
-   collated from synthetic trees: S=33 (B=16), S=129 and S=257 (B=2), S=601
-   (B=1); in float32 (TF32 off) and in bfloat16. Each shape also gets times
-   for the kernel, the plain version and one library call on the assembled
-   dense bias (``F.scaled_dot_product_attention``, a yardstick the port
-   never calls), beside the least time the card could take.
-3. kernel_vs_plain_train: the forward kernel at rate 0.3 with the LSE
-   output and the two backward kernels against the plain version's forward
-   and autograd gradients at S=33 (B=12), 129 (B=4), 257 (B=2), in float32
-   and bfloat16; the adjoint identity in v; times of each kernel, the plain
-   version and SDPA (forward, and forward + backward at rate 0). Then
-   dropout_mask: the forward kernel's mask read back equals the plain
-   Philox, and its kept fraction.
-4. scoring: the canonical ``ModelConfig()`` at full width with random
+2. kernel_vs_plain: the tree-attention forward kernel at rate 0 against its
+   plain PyTorch version on the card, at H=12, dh=64, double_add, with
+   templates/ids collated from synthetic trees: S=33 (B=16), S=129 and
+   S=257 (B=2), S=601 (B=1); in float32 (TF32 off) and in bfloat16. Each
+   shape also gets times for the kernel, the plain version and one library
+   call on the assembled dense bias (``F.scaled_dot_product_attention``, a
+   yardstick the port never calls), beside the least time the card could
+   take.
+3. kernel_vs_plain_train: the tree-attention forward kernel with dropout
+   and the LSE output and the two backward kernels against the plain
+   version's forward and autograd gradients at S=33 (B=12), 129 (B=4), 257
+   (B=2) and the streaming sizes S=601 and 1025 (B=1), at rate 0.3 and 0,
+   in float32 and bfloat16; the adjoint identity in v; times of each
+   kernel, the plain version and SDPA. Then dropout_mask: the forward
+   kernel's mask read back equals the plain Philox, and its kept fraction.
+4. masked_vs_plain: the tower (masked) attention forward and backward
+   kernels against their plain version at the tower shapes (text bottom
+   B=256 S=100, text fusion B=256 S=104, ViT fusion B=64 S=201 without a
+   key bias, and a small ragged case B=4 S=36), rate 0.3 and 0, float32
+   and bfloat16; the mask read back (q = k = 0, v = I) against the plain
+   Philox and its kept fraction; the adjoint identity; times of each
+   kernel, the plain version, the towers' unfused path (matmul + f32
+   softmax + FastDropout + matmul) and SDPA with the key-padding mask.
+5. scoring: the canonical ``ModelConfig()`` at full width with random
    weights from a seeded ``torch.Generator``, scored through
    ``BatchingScorer`` from 4 threads (discussions of ~20, ~100 and 600
    nodes, 100-token text, some nodes with a 3x224x224 image). Checks finite
-   probabilities that sum to 1, exactly 10 forward launches per forward and
-   no backward launch, and agreement with the same model on the CPU
-   (float32) on one small discussion.
-5. latency: per-request-batch scoring latency at batch 1, 4 and 16, and
+   probabilities that sum to 1, exactly 10 tree-attention launches per
+   forward and no backward launch, and agreement with the same model on the
+   CPU (float32) on one small discussion.
+6. scoring_fused: the same weights with both towers fused
+   (``use_pallas_attention`` in the tower configs) score the same
+   discussions through ``DiscussionScorer``: finite probabilities summing
+   to 1, equal to the unfused scorer's (bfloat16 tolerance), exact
+   masked-attention launches per forward, no backward launch; in float32
+   on one small discussion equal to the unfused CPU scores within 1e-4.
+7. latency: per-request-batch scoring latency at batch 1, 4 and 16, and
    the device time of a batch-4 forward (``torch.profiler``) against its
    wall time, beside the host's time to collate that batch and copy it to
    the card.
-6. train: the canonical run (``launch`` flag resolution, batch 12 x
-   update_freq 3, dropout 0.4/0.3/0.3, frozen towers) at full width through
-   ``NodePredictionTask(cfg).build_trainer()`` and ``Trainer.fit`` on
-   synthetic discussions of 8-32 nodes with 100-token text and 3x224x224
-   images on 25% of nodes: one untimed update, then 5 timed ones. Checks a
-   finite, changing loss, exactly 30/24/24 launches of the forward, dq and
-   dkv kernels per update (10 graph layers x 3 microbatches forward; the
-   last graph stack's 2 layers feed only the global embedding, so their
-   backward never runs), frozen towers unchanged and every tensor with a
-   nonzero gradient changed; prints ms per update, discussions/s, MFU against 989 TFLOP/s,
-   peak memory, and (train_trace) one profiled update's device time.
-7. train_cpu_agreement: one scan update of the tiny config with every
-   dropout at 0 in float32, on the card and on the CPU: gradients and
-   updated parameters agree.
-8. launch: ``train.launch.main`` with ``--synthetic --max-updates 2`` on the
-   card returns 0.
+8. train, train_fused, train_big: training runs through the launcher's
+   flag resolution, ``NodePredictionTask(cfg).build_trainer()`` and
+   ``Trainer.fit`` at full width:
+   - train: the canonical run (batch 12 x update_freq 3, dropout
+     0.4/0.3/0.3, frozen towers) on synthetic discussions of 8-32 nodes
+     with 100-token text and 3x224x224 images on 25% of nodes: 1 untimed
+     and 5 timed updates, then one profiled update (train_trace);
+   - train_fused: the same run with both towers fused, on the same
+     batches: 1 untimed and 5 timed updates, so that each update's peak
+     memory compares with train's;
+   - train_big: big discussions, both towers fused, ``--batch-size 1`` x
+     update_freq 3 on discussions of 520-1000 nodes (padded S 521-1001,
+     text capacity 1024) with images on 5% of nodes: 1 untimed and 3 timed
+     updates, then one profiled update (train_big_trace).
+   Each checks a finite, changing loss, the exact launches of every kernel
+   in every update (tree attention: 10 graph layers forward and 8 backward
+   per microbatch, the last graph stack feeding only the global embedding;
+   masked attention: every tower layer forward, the 9 trainable fusion
+   layers of each tower backward, the ViT only where the microbatch has
+   image slots), frozen towers unchanged and every tensor with a nonzero
+   gradient changed; prints ms per update, discussions/s, MFU against 989
+   TFLOP/s, each update's peak memory (statistics reset before every
+   update) and the S values seen.
+9. train_cpu_agreement, train_cpu_agreement_fused: one scan update of the
+   tiny config with every dropout at 0 in float32, on the card and on the
+   CPU, without and with fused towers: gradients and updated parameters
+   agree.
+10. launch: ``train.launch.main`` with ``--synthetic --max-updates 2`` on
+    the card returns 0.
 
 The last two lines are the kernels' summary and
 ``{"ok": true, "device": {...}}``.
@@ -57,8 +87,11 @@ The last two lines are the kernels' summary and
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -78,13 +111,24 @@ BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
 # full model, GPU float32 (TF32 off) vs CPU float32: ~20 layers of f32
 # matmuls summed in another order; per-node probabilities
 MODEL_ATOL = 1e-4
+# fused vs unfused towers in bfloat16, per-node probabilities: the unfused
+# path rounds the scores, the probabilities and the product to bf16 (8
+# bits) in each of 24 tower layers and the fused kernels round only the
+# output, so the two differ by bf16 noise carried through the model;
+# 0.02 is a few bf16 steps of a probability near 1
+FUSED_BF16_ATOL = 0.02
 
 # the canonical model runs 5 graph stacks of 2 layers per forward
 LAUNCHES_PER_FORWARD = 10
 IMAGE_SHAPE = (3, 224, 224)
 
-KERNEL_SOURCE = "multimodaldiscussiontransformer_tpu_torch/csrc/tree_attention_fwd.cu"
+PKG = "multimodaldiscussiontransformer_tpu_torch"
+KERNEL_SOURCE = f"{PKG}/csrc/tree_attention_fwd.cu"
+BWD_SOURCE = f"{PKG}/csrc/tree_attention_bwd.cu"
+MASKED_FWD_SOURCE = f"{PKG}/csrc/masked_attention_fwd.cu"
+MASKED_BWD_SOURCE = f"{PKG}/csrc/masked_attention_bwd.cu"
 TPU_KERNELS = "multimodaldiscussiontransformer_tpu/ops/tree_attention.py"
+TPU_MASKED = "multimodaldiscussiontransformer_tpu/ops/masked_attention.py"
 
 
 def emit(obj) -> None:
@@ -125,6 +169,12 @@ def device_ms(fn, iters: int = 20):
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
+def timed_ms(fn, iters: int = 20) -> float:
+    """Device ms per call where the profiler gives it, else CUDA-event ms."""
+    dev = device_ms(fn, iters)
+    return dev if dev is not None else time_cuda(fn, iters)
+
+
 def bound(b: int, h: int, s: int, dh: int, dtype_name: str):
     """(ms, "bytes"|"operations"): each input read once, the output written
     once, over the HBM rate; 4*B*H*S^2*dh operations over the peak rate of
@@ -137,24 +187,77 @@ def bound(b: int, h: int, s: int, dh: int, dtype_name: str):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def fused_towers(model_cfg):
+    """``model_cfg`` with the fused tower attention on in both towers."""
+    return model_cfg.replace(
+        text_tower=dataclasses.replace(model_cfg.text_tower, use_pallas_attention=True),
+        image_tower=dataclasses.replace(model_cfg.image_tower, use_pallas_attention=True),
+    )
+
+
+def _short_kernel_name(mangled: str) -> str:
+    m = re.search(r"([a-z_]+_kernel)I(?:\d+)?(\w+?)Li(\d+)E", mangled)
+    return f"{m.group(1)}<{m.group(2)},{m.group(3)}>" if m else mangled[:80]
+
+
+def ptxas_report(libs):
+    """Per library: the kernels ptxas compiled, the most registers one uses,
+    and every kernel that spills (bytes of spill stores and loads)."""
+    report = {}
+    for lib in libs.values():
+        fn, kernels, regs, spills = None, 0, 0, []
+        for ln in lib.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"Function properties for (\S+)", ln)
+            if m:
+                fn, kernels = m.group(1), kernels + 1
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m and (int(m.group(1)) or int(m.group(2))):
+                spills.append({"kernel": _short_kernel_name(fn or ""), "stores": int(m.group(1)), "loads": int(m.group(2))})
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                regs = max(regs, int(m.group(1)))
+        report[lib.name] = {"kernels": kernels, "max_registers": regs, "spills": spills}
+    return report
+
+
 def phase_build():
-    from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
+    from multimodaldiscussiontransformer_tpu_torch.ops import cuda_lib
 
     t0 = time.perf_counter()
-    libs = ta.build()  # one nvcc per source, in parallel
+    libs = cuda_lib.build()  # one nvcc per source, in parallel
     seconds = time.perf_counter() - t0
-    ta.load_library()
-    ptxas = [
-        ln.strip() for lib in libs.values() for ln in lib.with_suffix(".log").read_text().splitlines()
-        if "registers" in ln or "spill" in ln
-    ]
+    cuda_lib.load_library()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    emit({"phase": "build", "seconds": round(seconds, 3), "libraries": [p.name for p in libs.values()], "ptxas": ptxas})
+    emit({"phase": "build", "seconds": round(seconds, 3), "libraries": [p.name for p in libs.values()],
+          "ptxas": ptxas_report(libs)})
     print(card, flush=True)
     return card
+
+
+def _all_kernels():
+    from multimodaldiscussiontransformer_tpu_torch.ops import masked_attention as ma
+    from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
+
+    return ta.KERNELS + ma.KERNELS
+
+
+KERNEL_NAMES = (
+    "tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv",
+    "masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv",
+)
+
+
+def _counts():
+    return [fn.launches for fn in _all_kernels()]
+
+
+def _zero_counts() -> None:
+    for fn in _all_kernels():
+        fn.launches = 0
 
 
 def compact_inputs(s: int, b: int, h: int, seed: int):
@@ -250,13 +353,23 @@ def make_discussion(rng, n: int, image_prob: float, seq_len: int = 100, vocab: i
     return d
 
 
+def tower_launches(mc):
+    """Masked-attention launches per microbatch or forward: (text forward,
+    ViT forward, text backward, ViT backward). Every tower layer runs the
+    fused forward (the ViT's only where the batch has image slots); the
+    backward runs in the fusion layers, the bottom towers being frozen."""
+    fusion = mc.num_fusion_layers + 1
+    text_bwd = fusion + (0 if mc.freeze_initial_encoders else mc.num_bottom_text_layers)
+    vit_bwd = fusion + (0 if mc.freeze_initial_encoders else mc.num_bottom_image_layers)
+    return mc.num_bottom_text_layers + fusion, mc.num_bottom_image_layers + fusion, text_bwd, vit_bwd
+
+
 def phase_scoring(seed: int):
     import numpy as np
     import torch
 
     from multimodaldiscussiontransformer_tpu_torch.core.config import ModelConfig
     from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
-    from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
     from multimodaldiscussiontransformer_tpu_torch.serve.incremental import DiscussionScorer
     from multimodaldiscussiontransformer_tpu_torch.serve.server import BatchingScorer
 
@@ -302,16 +415,16 @@ def phase_scoring(seed: int):
         except BaseException as e:  # reported below
             errors.append(f"{name}: {type(e).__name__}: {e}")
 
-    for fn in ta.KERNELS:
-        fn.launches = 0
+    _zero_counts()
     threads = [threading.Thread(target=worker, args=(name,)) for name in requests]
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=600)
-    launches = ta.tree_attention_fwd.launches
-    if ta.tree_attention_bwd_dq.launches or ta.tree_attention_bwd_dkv.launches:
-        raise AssertionError("the scoring path launched a backward kernel")
+    counts = dict(zip(KERNEL_NAMES, _counts()))
+    launches = counts["tree_attention_fwd"]
+    if any(n for name, n in counts.items() if name != "tree_attention_fwd"):
+        raise AssertionError(f"the scoring path launched a backward or a tower kernel: {counts}")
     batching.close()
     scorer.score_items = inner
     if errors or any(t.is_alive() for t in threads):
@@ -347,7 +460,72 @@ def phase_scoring(seed: int):
           "cpu_seconds": probs["cpu_seconds"]})
     if not err <= MODEL_ATOL:
         raise AssertionError(f"GPU float32 scores differ from the CPU's by {err}")
-    return scorer, launches, rng
+    unfused = {"state": state, "requests": requests, "results": results, "small": small,
+               "small_cpu_f32": probs["cpu"], "small_bf16": bf16}
+    return scorer, launches, rng, unfused
+
+
+def phase_scoring_fused(unfused):
+    """Both towers fused, the scoring phase's weights and discussions, one
+    forward per discussion through ``DiscussionScorer``."""
+    import numpy as np
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.core.config import ModelConfig
+    from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
+    from multimodaldiscussiontransformer_tpu_torch.serve.incremental import DiscussionScorer
+
+    cfg = fused_towers(ModelConfig())
+    model = MDTModel(cfg)
+    model.load_state_dict(unfused["state"])
+    scorer = DiscussionScorer(model, device="cuda", image_shape=IMAGE_SHAPE)
+    text_fwd, vit_fwd, _, _ = tower_launches(cfg)
+    scorer.score(unfused["requests"]["small_images"][0])  # warm-up, outside the counted run
+    torch.cuda.synchronize()
+
+    _zero_counts()
+    want_masked, errs, forwards, seconds = 0, {}, 0, []
+    for name, ds in unfused["requests"].items():
+        errs[name] = []
+        for d, ref in zip(ds, unfused["results"][name]):
+            t = time.perf_counter()
+            p = scorer.score(d)
+            seconds.append(time.perf_counter() - t)
+            forwards += 1
+            want_masked += text_fwd + (vit_fwd if len(d.images) else 0)
+            if p.shape != ref.shape or not np.isfinite(p).all() or np.abs(p.sum(-1) - 1.0).max() > 1e-5:
+                raise AssertionError(f"{name}: bad fused probabilities {p.shape}")
+            errs[name].append(float(np.abs(p - ref).max()))
+    counts = dict(zip(KERNEL_NAMES, _counts()))
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["tree_attention_fwd"] = LAUNCHES_PER_FORWARD * forwards
+    want["masked_attention_fwd"] = want_masked
+    worst = max(max(e) for e in errs.values())
+
+    # float32: the fused model on the card (TF32 off) against the unfused
+    # CPU scores of the scoring phase
+    m32 = MDTModel(cfg.replace(dtype="float32"))
+    m32.load_state_dict(unfused["state"])
+    small = unfused["small"]
+    p32 = DiscussionScorer(m32, device="cuda", image_shape=IMAGE_SHAPE).score(small)
+    err32 = float(np.abs(p32 - unfused["small_cpu_f32"]).max())
+    err_bf16_small = float(np.abs(scorer.score(small) - unfused["small_cpu_f32"]).max())
+    emit({"phase": "scoring_fused", "config": "ModelConfig() with both towers fused, bfloat16 compute",
+          "forwards": forwards, "launches": counts, "expected_launches": want,
+          "masked_launches_per_forward": {"text": text_fwd, "vit_when_images": vit_fwd},
+          "max_abs_err_vs_unfused_bf16": errs, "bf16_atol": FUSED_BF16_ATOL,
+          "max_abs_err_f32_vs_unfused_cpu": err32, "f32_atol": MODEL_ATOL,
+          "small_bf16_vs_cpu_f32": {"fused": err_bf16_small,
+                                    "unfused": float(np.abs(unfused["small_bf16"] - unfused["small_cpu_f32"]).max())},
+          "forward_seconds": seconds})
+    if counts != want:
+        raise AssertionError(f"fused scoring launches {counts}, expected {want}")
+    if not worst <= FUSED_BF16_ATOL:
+        raise AssertionError(f"fused bf16 scores differ from the unfused ones by {worst}")
+    if not err32 <= MODEL_ATOL:
+        raise AssertionError(f"fused float32 scores differ from the unfused CPU ones by {err32}")
+    del scorer, model, m32
+    return counts
 
 
 def phase_latency(scorer, rng):
@@ -416,8 +594,10 @@ def phase_latency(scorer, rng):
 
 
 # training kernels: the canonical node buckets 32, 128, 256 (S = 33, 129,
-# 257) at the batch sizes whose tensors a 12-discussion microbatch gives
-TRAIN_SHAPES = ((33, 12), (129, 4), (257, 2))
+# 257) at the batch sizes whose tensors a 12-discussion microbatch gives,
+# and the streaming sizes a big discussion gives (S = 601, 1025 at one
+# discussion per microbatch)
+TRAIN_SHAPES = ((33, 12), (129, 4), (257, 2), (601, 1), (1025, 1))
 TRAIN_RATE = 0.3
 # kernels vs plain version, relative to the largest |ref| of each output:
 # float32 (TF32 off) differs by sum order and, for dlut, by the atomics'
@@ -426,9 +606,12 @@ TRAIN_RATE = 0.3
 TRAIN_F32_REL = 1e-4
 TRAIN_BF16_REL = 1e-2
 ADJOINT_REL = 1e-4
-# the train phase: 1 untimed update, then this many timed ones
+# train and train_fused: 1 untimed update, then this many timed ones on the
+# same batches; train_big takes BIG_TIMED_UPDATES
 TIMED_UPDATES = 5
+BIG_TIMED_UPDATES = 3
 TRAIN_GRAPHS = 240  # 192 train graphs: 16 microbatches of 12, 6 updates an epoch
+BIG_GRAPHS = 20  # 16 train graphs of 520-1000 nodes: 5 updates of 3 an epoch
 # train_cpu_agreement: tiny config, float32, card (TF32 off) vs CPU:
 # gradients within rtol 2e-4 + atol 1e-6 (sum order); parameters after
 # AdamW within rtol 2e-4 + atol 2e-5 where |grad| > 1e-4, and within
@@ -437,23 +620,25 @@ AGREE_GRAD_RTOL, AGREE_GRAD_ATOL = 2e-4, 1e-6
 AGREE_PARAM_RTOL, AGREE_PARAM_ATOL = 2e-4, 2e-5
 H100_BF16_PEAK = 989e12
 
-BWD_SOURCE = "multimodaldiscussiontransformer_tpu_torch/csrc/tree_attention_bwd.cu"
 
-
-def train_bounds(b: int, h: int, s: int, dh: int, dtype_name: str):
-    """{kernel: (ms, "bytes"|"operations")} for the three training kernels:
-    each input read once and each output written once over the HBM rate,
-    and the operations of each kernel's function over the peak of its type
-    (fwd 4, dq 6, dkv 8 x B*H*S^2*dh: scores, g.v, and the products each
-    writes)."""
+def work_bounds(b: int, h: int, s: int, dh: int, dtype_name: str, shared_bytes: int, stat_planes: int = 1):
+    """{kernel: (ms, "bytes"|"operations")} for an attention forward (with
+    its softmax statistics) and its two backward kernels: each input read
+    once and each output written once over the HBM rate, against the
+    operations of each kernel's function over the peak of its type (fwd 4,
+    dq 6, dkv 8 x B*H*S^2*dh: scores, g.v, and the products each writes).
+    ``shared_bytes`` is what every kernel reads besides q, k, v, g, out and
+    the per-row vectors (the tree template, ids and LUT; the towers' key
+    bias); ``stat_planes`` f32 values per row hold the statistics (the tree
+    kernels' LSE: 1; the tower kernels' row max and log sum: 2)."""
     item = 2 if dtype_name == "bfloat16" else 4
     qkv = b * h * s * dh * item
-    shared = 2 * b * s * s * 4 + 32 * h * 4  # tpl, ids, lut
-    row = b * h * s * 4  # lse or delta
+    row = b * h * s * 4  # one f32 per row: delta, or one plane of the statistics
+    stats = stat_planes * row
     work = {
-        "fwd": (4 * qkv + shared + row, 4),  # q k v in, out and lse out
-        "dq": (6 * qkv + shared + 2 * row + 32 * h * 4, 6),  # q k v out g in, dq delta dlut out
-        "dkv": (6 * qkv + shared + 2 * row, 8),  # q k v g lse delta in, dk dv out
+        "fwd": (4 * qkv + shared_bytes + stats, 4),  # q k v in, out and stats out
+        "dq": (6 * qkv + shared_bytes + stats + row, 6),  # q k v out g stats in, dq delta out
+        "dkv": (6 * qkv + shared_bytes + stats + row, 8),  # q k v g stats delta in, dk dv out
     }
     out = {}
     for name, (nbytes, per) in work.items():
@@ -470,10 +655,24 @@ def _fwd_and_grads(fn, q, k, v, template, ids, lut, g, **kw):
     return [out.detach()] + [x.grad for x in leaves]
 
 
+def _check_errors(got, want, names, tol, what):
+    """{name: max abs error, max |ref|}; raise unless finite and within
+    tol x max |ref|."""
+    import torch
+
+    errs = {}
+    for name, a, w in zip(names, got, want):
+        abs_err = (a.float() - w.float()).abs().max().item()
+        errs[name] = {"max_abs_err": abs_err, "max_abs_ref": w.float().abs().max().item()}
+        if not (torch.isfinite(a).all() and abs_err <= tol * errs[name]["max_abs_ref"]):
+            raise AssertionError(f"{what} {name}: {errs[name]} (rel tol {tol})")
+    return errs
+
+
 def phase_kernel_train(seed: int):
-    """K1 (rate 0.3, LSE) + K2 + K3 against the plain version's forward and
-    autograd gradients; the adjoint identity in v; the kernel's mask read
-    back against the plain Philox; times."""
+    """K1 (dropout, LSE) + K2 + K3 against the plain version's forward and
+    autograd gradients at rate 0.3 and 0; the adjoint identity in v; the
+    kernel's mask read back against the plain Philox; times."""
     import torch
     import torch.nn.functional as F
 
@@ -487,20 +686,16 @@ def phase_kernel_train(seed: int):
         gen = torch.Generator(device="cuda").manual_seed(seed + s)
         q, k, v, g = (torch.randn(b, h, s, dh, device="cuda", generator=gen) for _ in range(4))
         dseed = seed * 1000003 + s
-        row = {"S": s, "B": b, "H": h, "dh": dh, "rate": TRAIN_RATE, "errors": {}}
-        for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            qq, kk, vv, gg = (x.to(dt).contiguous() for x in (q, k, v, g))
-            got = _fwd_and_grads(ta.tree_attention, qq, kk, vv, template, ids, lut, gg, rate=TRAIN_RATE, seed=dseed)
-            want = _fwd_and_grads(ta.tree_attention_dropout_reference, qq, kk, vv, template, ids, lut, gg, rate=TRAIN_RATE, seed=dseed)
-            torch.cuda.synchronize()
-            tol = TRAIN_F32_REL if name == "float32" else TRAIN_BF16_REL
-            errs = {}
-            for out_name, a, w in zip(("out", "dq", "dk", "dv", "dlut"), got, want):
-                abs_err = (a.float() - w.float()).abs().max().item()
-                errs[out_name] = {"max_abs_err": abs_err, "max_abs_ref": w.float().abs().max().item()}
-                if not (torch.isfinite(a).all() and abs_err <= tol * errs[out_name]["max_abs_ref"]):
-                    raise AssertionError(f"training kernels disagree at S={s} {name} {out_name}: {errs[out_name]} (rel tol {tol})")
-            row["errors"][name] = errs
+        row = {"S": s, "B": b, "H": h, "dh": dh, "rate": TRAIN_RATE, "errors": {}, "errors_rate0": {}}
+        for rate, key in ((TRAIN_RATE, "errors"), (0.0, "errors_rate0")):
+            for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                qq, kk, vv, gg = (x.to(dt).contiguous() for x in (q, k, v, g))
+                got = _fwd_and_grads(ta.tree_attention, qq, kk, vv, template, ids, lut, gg, rate=rate, seed=dseed)
+                want = _fwd_and_grads(ta.tree_attention_dropout_reference, qq, kk, vv, template, ids, lut, gg, rate=rate, seed=dseed)
+                torch.cuda.synchronize()
+                tol = TRAIN_F32_REL if name == "float32" else TRAIN_BF16_REL
+                row[key][name] = _check_errors(got, want, ("out", "dq", "dk", "dv", "dlut"), tol,
+                                               f"training kernels disagree at S={s} rate {rate} {name}")
         # the adjoint identity in v: exact only if the backward regenerates
         # the forward's mask
         v2 = torch.randn(b, h, s, dh, device="cuda", generator=gen)
@@ -537,12 +732,9 @@ def phase_kernel_train(seed: int):
             "library_fwd": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=dense, dropout_p=TRAIN_RATE, scale=scale),
             "library_fwd_bwd": sdpa_fwd_bwd,
         }
-        row["ms"] = {}
-        for name, fn in calls.items():
-            dev = device_ms(fn)
-            row["ms"][name] = dev if dev is not None else time_cuda(fn, 100)
+        row["ms"] = {name: timed_ms(fn) for name, fn in calls.items()}
         row["ms"]["plain_bwd"] = row["ms"]["plain_fwd_bwd"] - row["ms"]["plain_fwd"]
-        row["bound"] = train_bounds(b, h, s, dh, "bfloat16")
+        row["bound"] = work_bounds(b, h, s, dh, "bfloat16", 2 * b * s * s * 4 + 32 * h * 4)
         emit({"phase": "kernel_vs_plain_train", **row})
         rows.append(row)
 
@@ -565,6 +757,151 @@ def phase_kernel_train(seed: int):
     return rows
 
 
+# the tower shapes: (label, B, S, key bias) at H = 12, dh = 64. Text rows
+# carry 100 tokens (bottom) and 4 bottleneck tokens more (fusion) at the
+# canonical text capacity of 256; the ViT carries 196 patches, its CLS
+# token and 4 bottleneck tokens at an image capacity of 64, without a bias
+MASKED_SHAPES = (("text_bottom", 256, 100, True), ("text_fusion", 256, 104, True),
+                 ("vit_fusion", 64, 201, False), ("ragged", 4, 36, True))
+MASKED_RATE = 0.3
+
+
+def tower_key_bias(b: int, s: int, bottleneck: int, gen):
+    """(B, S) f32 key bias as the towers build it: each row attends to its
+    bottleneck columns and its first 5..S-bottleneck tokens; the last eighth
+    of the rows is capacity padding, every key masked, where the row has no
+    bottleneck columns."""
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.ops.masked_attention import MASK_BIAS
+
+    tokens = s - bottleneck
+    lengths = torch.randint(min(5, tokens), tokens + 1, (b, 1), generator=gen, device="cuda")
+    open_ = torch.arange(tokens, device="cuda")[None] < lengths
+    if bottleneck:
+        open_ = torch.cat([torch.ones(b, bottleneck, dtype=torch.bool, device="cuda"), open_], dim=1)
+    else:
+        open_[b - b // 8:] = False
+    return torch.where(open_, 0.0, MASK_BIAS).float().contiguous()
+
+
+def read_back_mask(ma, b, h, s, dh, rate, seed):
+    """The forward kernel's keep mask: with q = k = 0 and no bias, every row
+    weighs its keys equally, so with v holding one-hot columns for keys
+    c*dh .. c*dh+dh-1, out = keep / (S (1 - rate)) there."""
+    import torch
+
+    zeros = torch.zeros(b, h, s, dh, device="cuda")
+    chunks = []
+    for c in range(-(-s // dh)):
+        v = torch.zeros(s + dh, dh, device="cuda")
+        v[c * dh: (c + 1) * dh] = torch.eye(dh, device="cuda")
+        out = ma.masked_attention(zeros, zeros, v[:s].expand(b, h, s, dh).contiguous(), None, seed=seed, rate=rate)
+        chunks.append((out * s * (1 - rate)).round() > 0.5)
+    return torch.cat(chunks, dim=-1)[..., :s]
+
+
+def phase_masked(seed: int):
+    """The tower kernels against their plain version; the mask read back;
+    the adjoint identity; times beside the unfused path and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import fast_dropout
+    from multimodaldiscussiontransformer_tpu_torch.ops import masked_attention as ma
+    from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
+
+    h, dh = 12, 64
+    scale = dh ** -0.5
+    rows = []
+    for label, b, s, with_bias in MASKED_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(seed + 31 * s + b)
+        q, k, v, g = (torch.randn(b, h, s, dh, device="cuda", generator=gen) for _ in range(4))
+        bias = tower_key_bias(b, s, 4 if "fusion" in label else 0, gen) if with_bias else None
+        dseed = seed * 1000003 + 7 * s + b
+        row = {"shape": label, "B": b, "S": s, "H": h, "dh": dh, "key_bias": with_bias,
+               "fully_masked_rows": 0 if bias is None else int((bias <= ma.MASK_BIAS).all(dim=1).sum()),
+               "rate": MASKED_RATE, "errors": {}, "errors_rate0": {}}
+        for rate, key in ((MASKED_RATE, "errors"), (0.0, "errors_rate0")):
+            for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                qq, kk, vv, gg = (x.to(dt).contiguous() for x in (q, k, v, g))
+
+                def fwd_bwd(fn):
+                    leaves = [x.detach().clone().requires_grad_(True) for x in (qq, kk, vv)]
+                    o = fn(*leaves, bias, seed=dseed, rate=rate)
+                    o.backward(gg)
+                    return [o.detach()] + [x.grad for x in leaves]
+
+                got = fwd_bwd(ma.masked_attention)
+                want = fwd_bwd(ma.masked_attention_dropout_reference)
+                torch.cuda.synchronize()
+                tol = TRAIN_F32_REL if name == "float32" else TRAIN_BF16_REL
+                row[key][name] = _check_errors(got, want, ("out", "dq", "dk", "dv"), tol,
+                                               f"masked kernels disagree at {label} rate {rate} {name}")
+        if label == "text_fusion":
+            # the adjoint identity in v, float32, on 16 of the rows
+            q16, k16, v16, g16 = (x[:16].contiguous() for x in (q, k, v, g))
+            v2 = torch.randn(q16.shape, device="cuda", generator=gen)
+            vv = v16.clone().requires_grad_(True)
+            ma.masked_attention(q16, k16, vv, bias[:16], seed=dseed, rate=MASKED_RATE).backward(g16)
+            lhs = (g16.double() * ma.masked_attention(q16, k16, v2, bias[:16], seed=dseed, rate=MASKED_RATE).double()).sum().item()
+            rhs = (vv.grad.double() * v2.double()).sum().item()
+            row["adjoint"] = {"lhs": lhs, "rhs": rhs, "rel_err": abs(lhs - rhs) / max(abs(lhs), 1.0), "rel_tol": ADJOINT_REL}
+            if not abs(lhs - rhs) <= ADJOINT_REL * max(abs(lhs), 1.0):
+                raise AssertionError(f"masked adjoint identity fails: {row['adjoint']}")
+
+        # times in the main path's type
+        qq, kk, vv, gg = (x.to(torch.bfloat16).contiguous() for x in (q, k, v, g))
+        out, stats = ma.masked_attention_fwd(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True)
+        _, delta = ma.masked_attention_bwd_dq(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed)
+        bias4 = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
+        drop_gen = torch.Generator(device="cuda").manual_seed(seed)
+
+        def unfused(q_, k_, v_):
+            # the towers' unfused path (models/bert.py SelfAttention)
+            scores = torch.matmul(q_, k_.transpose(-1, -2)) / math.sqrt(dh)
+            if bias4 is not None:
+                scores = scores + bias4
+            probs = torch.softmax(scores.float(), dim=-1).to(q_.dtype)
+            return torch.matmul(fast_dropout(probs, MASKED_RATE, drop_gen), v_)
+
+        def with_grad(fn):
+            def run():
+                leaves = [x.detach().requires_grad_(True) for x in (qq, kk, vv)]
+                fn(*leaves).backward(gg)
+            return run
+
+        calls = {
+            "fwd": lambda: ma.masked_attention_fwd(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True),
+            "fwd_rate0": lambda: ma.masked_attention_fwd(qq, kk, vv, bias, scale),
+            "dq": lambda: ma.masked_attention_bwd_dq(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed),
+            "dkv": lambda: ma.masked_attention_bwd_dkv(qq, kk, vv, gg, bias, stats, delta, scale, MASKED_RATE, dseed),
+            "plain_fwd": lambda: ma.masked_attention_dropout_reference(qq, kk, vv, bias, dseed, MASKED_RATE, scale),
+            "plain_fwd_bwd": with_grad(lambda q_, k_, v_: ma.masked_attention_dropout_reference(q_, k_, v_, bias, dseed, MASKED_RATE, scale)),
+            "unfused_fwd": lambda: unfused(qq, kk, vv),
+            "unfused_fwd_bwd": with_grad(unfused),
+            "library_fwd": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bias4, dropout_p=MASKED_RATE, scale=scale),
+            "library_fwd_bwd": with_grad(lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=bias4, scale=scale)),
+        }
+        row["ms"] = {name: timed_ms(fn) for name, fn in calls.items()}
+        row["ms"]["plain_bwd"] = row["ms"]["plain_fwd_bwd"] - row["ms"]["plain_fwd"]
+        row["bound"] = work_bounds(b, h, s, dh, "bfloat16", 0 if bias is None else b * s * 4, stat_planes=2)
+        emit({"phase": "masked_vs_plain", **row})
+        rows.append(row)
+
+    # the forward kernel's mask read back against the plain Philox
+    masks = {}
+    for s, b in ((104, 8), (201, 2)):
+        mask = read_back_mask(ma, b, h, s, dh, MASKED_RATE, seed + 101)
+        masks[str(s)] = {"B": b, "equals_plain_philox": bool(torch.equal(mask, ta.dropout_keep_mask(seed + 101, b, h, s, MASKED_RATE, "cuda"))),
+                         "kept_fraction": mask.float().mean().item()}
+    emit({"phase": "masked_dropout_mask", "H": h, "rate": MASKED_RATE, "by_S": masks})
+    for m in masks.values():
+        if not m["equals_plain_philox"] or abs(m["kept_fraction"] - (1 - MASKED_RATE)) > 0.02:
+            raise AssertionError(f"masked kernel mask: {masks}")
+    return rows
+
+
 def graph_layers(mc):
     """(graph layers a forward runs, graph layers whose backward a node
     loss reaches). The final graph stack feeds only the global embedding,
@@ -574,15 +911,24 @@ def graph_layers(mc):
     return fwd, mc.num_graph_stack * (mc.num_fusion_stacks - 1)
 
 
-def _counts():
-    from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
+def expected_launches(mc, fused: bool, k: int, images: bool):
+    """Launches of every kernel (KERNEL_NAMES order) in one update of k
+    microbatches, from the config."""
+    fwd, bwd = graph_layers(mc)
+    tree = [k * fwd, k * bwd, k * bwd]
+    if not fused:
+        return tree + [0, 0, 0]
+    text_fwd, vit_fwd, text_bwd, vit_bwd = tower_launches(mc)
+    m_fwd = k * (text_fwd + (vit_fwd if images else 0))
+    m_bwd = k * (text_bwd + (vit_bwd if images else 0))
+    return tree + [m_fwd, m_bwd, m_bwd]
 
-    return [fn.launches for fn in ta.KERNELS]
 
-
-def phase_train(seed: int):
-    """The canonical run through the port's entry points: launch's flag
-    resolution, NodePredictionTask.build_trainer, Trainer.fit."""
+def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw: dict, timed_updates: int,
+              trace: bool):
+    """A training run through the port's entry points: launch's flag
+    resolution, NodePredictionTask.build_trainer, Trainer.fit. One untimed
+    update, then ``timed_updates`` with every kernel's launches checked."""
     import tempfile
 
     import numpy as np
@@ -590,33 +936,31 @@ def phase_train(seed: int):
     from torch.profiler import ProfilerActivity, profile
 
     from multimodaldiscussiontransformer_tpu_torch.data.loader import stack_microbatches
-    from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
     from multimodaldiscussiontransformer_tpu_torch.tasks.node_prediction import NodePredictionTask
     from multimodaldiscussiontransformer_tpu_torch.train.launch import build_parser, config_from_args
     from multimodaldiscussiontransformer_tpu_torch.utils.flops import train_step_flops
 
     tmp = tempfile.TemporaryDirectory()
     args = build_parser().parse_args([
-        "--synthetic", "--freeze-initial-encoders", "--no-save", "--batch-size", "12", "--update-freq", "3",
+        "--synthetic", "--freeze-initial-encoders", "--no-save", "--batch-size", str(batch_size), "--update-freq", "3",
         "--positive-weight", "1.5", "--seed", str(seed + 1), "--validate-interval-updates", "0",
         "--log-interval", "1", "--save-dir", tmp.name,
     ])
     cfg = config_from_args(args)
+    if fused:  # no launcher flag turns the tower kernels on, as in the JAX package
+        cfg = dataclasses.replace(cfg, model=fused_towers(cfg.model))
     task = NodePredictionTask(cfg)
     t0 = time.perf_counter()
-    ds = task.load_dataset(
-        num_graphs=TRAIN_GRAPHS, seed=seed + 1, min_nodes=8, max_nodes=32, image_prob=0.25, seq_len=100,
-        vocab_size=cfg.model.text_tower.vocab_size, image_shape=IMAGE_SHAPE,
-    )
+    ds = task.load_dataset(seed=seed + 1, seq_len=100, vocab_size=cfg.model.text_tower.vocab_size,
+                           image_shape=IMAGE_SHAPE, **dataset_kw)
     data_s = time.perf_counter() - t0
     trainer = task.build_trainer(image_shape=IMAGE_SHAPE, device="cuda")
     t0 = time.perf_counter()
     state = trainer.init_state()
     init_s = time.perf_counter() - t0
     mc = cfg.model
-    per_forward, per_backward = graph_layers(mc)
-    if per_forward != LAUNCHES_PER_FORWARD:
-        raise AssertionError(f"the config runs {per_forward} graph layers, expected {LAUNCHES_PER_FORWARD}")
+    if graph_layers(mc)[0] != LAUNCHES_PER_FORWARD:
+        raise AssertionError(f"the config runs {graph_layers(mc)[0]} graph layers, expected {LAUNCHES_PER_FORWARD}")
     before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
 
     records = []
@@ -624,18 +968,20 @@ def phase_train(seed: int):
 
     def timed(state_, group, **kw):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         c0, start = _counts(), time.perf_counter()
         logs = inner(state_, group, **kw)
         torch.cuda.synchronize()
         end = time.perf_counter()
-        flops = sum(
-            train_step_flops(mc, batch=group["idx"].shape[1], node_capacity=group["input_ids"].shape[1],
-                             image_capacity=group["images"].shape[1], seq_len=group["input_ids"].shape[2],
-                             max_nodes=group["in_degree"].shape[2])["train_total"]
-            for _ in range(group["idx"].shape[0])
-        )
+        k = group["idx"].shape[0]
+        flops = k * train_step_flops(
+            mc, batch=group["idx"].shape[1], node_capacity=group["input_ids"].shape[1],
+            image_capacity=group["images"].shape[1], seq_len=group["input_ids"].shape[2],
+            max_nodes=group["in_degree"].shape[2])["train_total"]
         records.append({
             "start": start, "end": end, "launches": [a - b for a, b in zip(_counts(), c0)],
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "want": expected_launches(mc, fused, k, group["images"].shape[1] > 0),
             "loss": float(logs["loss"]) / max(float(logs["sample_size"]), 1.0), "gnorm": float(logs["gnorm"]),
             "graphs": int((group["idx"] >= 0).sum()), "flops": flops,
             "shapes": {"S": int(group["in_degree"].shape[2]) + 1, "C": int(group["input_ids"].shape[1]),
@@ -648,26 +994,24 @@ def phase_train(seed: int):
     quiet = lambda msg: None  # noqa: E731
     state = trainer.fit(ds, state=state, max_updates=1, log_fn=quiet)  # untimed: warm-up
     warm = records.pop()
-    for fn in ta.KERNELS:
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
     t0 = time.perf_counter()
-    state = trainer.fit(ds, state=state, max_updates=1 + TIMED_UPDATES, log_fn=quiet)
+    state = trainer.fit(ds, state=state, max_updates=1 + timed_updates, log_fn=quiet)
     fit_s = time.perf_counter() - t0
     launches = _counts()
-    peak_bytes = torch.cuda.max_memory_allocated()
     trainer.train_step = inner
 
-    if len(records) != TIMED_UPDATES:
-        raise AssertionError(f"{len(records)} timed updates, expected {TIMED_UPDATES}")
-    k = cfg.optim.update_freq
-    want = [k * per_forward, k * per_backward, k * per_backward]  # 30, 24, 24
-    bad = [r["launches"] for r in records if r["launches"] != want]
-    if bad or launches != [w * TIMED_UPDATES for w in want]:
-        raise AssertionError(f"kernel launches per update {bad or launches}, expected {want} each")
+    if len(records) != timed_updates:
+        raise AssertionError(f"{phase}: {len(records)} timed updates, expected {timed_updates}")
+    bad = [(r["launches"], r["want"]) for r in records if r["launches"] != r["want"]]
+    total_want = [sum(col) for col in zip(*(r["want"] for r in records))]
+    if bad or launches != total_want:
+        raise AssertionError(f"{phase}: kernel launches per update (got, expected) {bad}; run {launches} vs {total_want}")
+    if fused and not all(launches[3:]):
+        raise AssertionError(f"{phase}: a masked-attention kernel never launched: {launches}")
     losses = [r["loss"] for r in records]
     if not all(np.isfinite(losses)) or len(set(losses)) < 2:
-        raise AssertionError(f"loss series not finite or constant: {losses}")
+        raise AssertionError(f"{phase}: loss series not finite or constant: {losses}")
 
     frozen_prefixes = ("graph_encoder.text_model.", "graph_encoder.vit_model.")
     after = state.model.state_dict()
@@ -680,66 +1024,76 @@ def phase_train(seed: int):
     zero_grad = [k for k in trainable if not grads[k].any()]
     trainable_still = [k for k in trainable if k not in zero_grad and torch.equal(before[k], after[k])]
     if frozen_moved or trainable_still:
-        raise AssertionError(f"frozen tensors changed: {frozen_moved[:5]}; trainable tensors unchanged: {trainable_still[:5]}")
+        raise AssertionError(f"{phase}: frozen tensors changed: {frozen_moved[:5]}; trainable tensors unchanged: {trainable_still[:5]}")
 
     step_ms = [(r["end"] - r["start"]) * 1e3 for r in records]
     gaps_ms = [(b["start"] - a["end"]) * 1e3 for a, b in zip(records, records[1:])]
     mfu = [r["flops"] / (r["end"] - r["start"]) / H100_BF16_PEAK for r in records]
     graphs = sum(r["graphs"] for r in records)
-
-    # where an update's device time goes: one more update under the profiler
-    group = next(iter(stack_microbatches(trainer.train_batches(ds, 2), 3, pad_tail=True)))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        trainer.train_step(state, group)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t) * 1e3
-    events = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
-    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-
-    def cat_ms(*keys):
-        return sum(e.self_device_time_total for e in events if any(k in e.key for k in keys)) / 1e3
-
     emit({
-        "phase": "train", "config": "ModelConfig() canonical (launch flags: --freeze-initial-encoders, batch 12 x "
-                                    "update_freq 3, dropout 0.4/0.3/0.3), bfloat16 compute, float32 params",
-        "data_seconds": data_s, "init_seconds": init_s, "warmup_update_ms": (warm["end"] - warm["start"]) * 1e3,
-        "timed_updates": TIMED_UPDATES, "update_ms_median": float(np.median(step_ms)), "update_ms": step_ms,
+        "phase": phase, "config": f"ModelConfig(){' with both towers fused' if fused else ''} (launch flags: "
+                                  f"--freeze-initial-encoders, batch {batch_size} x update_freq 3, dropout 0.4/0.3/0.3), "
+                                  "bfloat16 compute, float32 params",
+        "dataset": dataset_kw, "data_seconds": data_s, "init_seconds": init_s,
+        "warmup_update_ms": (warm["end"] - warm["start"]) * 1e3,
+        "timed_updates": timed_updates, "update_ms_median": float(np.median(step_ms)), "update_ms": step_ms,
         "host_batch_ms_median": float(np.median(gaps_ms)) if gaps_ms else None,
         "fit_seconds": fit_s, "discussions_per_sec": graphs / fit_s,
         "discussions_per_sec_device_loop": graphs / (sum(step_ms) / 1e3),
         "mfu_median": float(np.median(mfu)), "peak_flops_assumed": H100_BF16_PEAK,
         "flops_per_update": [r["flops"] for r in records],
         "loss": losses, "gnorm": [r["gnorm"] for r in records], "shapes": [r["shapes"] for r in records],
-        "launches_per_update": dict(zip(("tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv"), want)),
-        "max_memory_allocated_gb": peak_bytes / 2**30,
+        "S_seen": sorted({r["shapes"]["S"] for r in records}),
+        "launches_per_update": [dict(zip(KERNEL_NAMES, r["launches"])) for r in records],
+        "launches": dict(zip(KERNEL_NAMES, launches)),
+        # the statistics are reset before each update: the run's peak is
+        # the largest update's
+        "max_memory_allocated_gb": max(r["peak_gb"] for r in records),
+        "max_memory_allocated_gb_per_update": [r["peak_gb"] for r in records],
         "frozen_tensors_unchanged": sum(k.startswith(frozen_prefixes) for k in before),
         "trainable_tensors_changed": len(trainable) - len(zero_grad),
         "trainable_tensors_with_zero_grad": sorted({k.rsplit(".layer_", 1)[0] for k in zero_grad}),
     })
-    top = [{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in events[:15]]
-    emit({
-        "phase": "train_trace", "wall_ms": prof_wall_ms, "device_ms": dev_ms, "device_busy_share": dev_ms / prof_wall_ms,
-        "tree_attention_ms": cat_ms("tree_attention"),
-        "gemm_ms": cat_ms("gemm", "nvjet", "cutlass", "sm90_xmma", "cublas"),
-        "adamw_ms": cat_ms("multi_tensor_apply", "adam"),
-        "dropout_rng_ms": cat_ms("distribution_elementwise"),
-        "cast_and_layout_copy_ms": cat_ms("copy_kernel"),
-        "host_to_device_ms": cat_ms("Memcpy HtoD"),
-        "device_ops": sum(e.count for e in events), "top_kernels": top,
-    })
-    del state, trainer, before, after
+
+    if trace:
+        # where an update's device time goes: one more update under the profiler
+        group = next(iter(stack_microbatches(trainer.train_batches(ds, 2), 3, pad_tail=True)))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            trainer.train_step(state, group)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t) * 1e3
+        events = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+        dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+
+        def cat_ms(*keys):
+            return sum(e.self_device_time_total for e in events if any(k in e.key for k in keys)) / 1e3
+
+        top = [{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in events[:15]]
+        emit({
+            "phase": phase + "_trace", "S": int(group["in_degree"].shape[2]) + 1, "C": int(group["input_ids"].shape[1]),
+            "I": int(group["images"].shape[1]),
+            "wall_ms": prof_wall_ms, "device_ms": dev_ms, "device_busy_share": dev_ms / prof_wall_ms,
+            "tree_attention_ms": cat_ms("tree_attention"),
+            "masked_attention_ms": cat_ms("masked_attention"),
+            "gemm_ms": cat_ms("gemm", "nvjet", "cutlass", "sm90_xmma", "cublas"),
+            "softmax_ms": cat_ms("softmax"),
+            "adamw_ms": cat_ms("multi_tensor_apply", "adam"),
+            "dropout_rng_ms": cat_ms("distribution_elementwise"),
+            "cast_and_layout_copy_ms": cat_ms("copy_kernel"),
+            "host_to_device_ms": cat_ms("Memcpy HtoD"),
+            "device_ops": sum(e.count for e in events), "top_kernels": top,
+        })
+    del state, trainer, before, after, grads, ds
     tmp.cleanup()
-    return launches
+    torch.cuda.empty_cache()
+    return dict(zip(KERNEL_NAMES, launches))
 
 
-def phase_train_cpu_agreement(seed: int):
+def phase_train_cpu_agreement(seed: int, fused: bool):
     """One scan update of the tiny config with every dropout at 0, in
     float32, on the card and on the CPU from the same weights and batches."""
-    import dataclasses
-
-    import numpy as np
     import torch
 
     from multimodaldiscussiontransformer_tpu_torch.core.config import (
@@ -753,6 +1107,8 @@ def phase_train_cpu_agreement(seed: int):
     no_drop = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
     m = m.replace(text_tower=dataclasses.replace(m.text_tower, **no_drop),
                   image_tower=dataclasses.replace(m.image_tower, **no_drop))
+    if fused:
+        m = fused_towers(m)
     cfg = TrainConfig(
         model=m, seed=seed,
         data=DataConfig(batch_size=4, max_text_len=16, node_buckets=(8,), node_capacity_buckets=(64,),
@@ -776,9 +1132,9 @@ def phase_train_cpu_agreement(seed: int):
             "loss": float(logs["loss"]),
         }
         lr0 = trainer.lr_schedule()(0)
-    fwd, bwd = graph_layers(m)
-    if out["cuda"]["launches"] != [3 * fwd, 3 * bwd, 3 * bwd]:
-        raise AssertionError(f"card update launched {out['cuda']['launches']}")
+    want = expected_launches(m, fused, 3, group["images"].shape[1] > 0)
+    if out["cuda"]["launches"] != want or any(out["cpu"]["launches"]):
+        raise AssertionError(f"card update launched {out['cuda']['launches']}, expected {want}; cpu {out['cpu']['launches']}")
     grad_err, param_err, small_err, bad = 0.0, 0.0, 0.0, []
     for k, gc in out["cpu"]["grads"].items():
         gg = out["cuda"]["grads"][k]
@@ -797,10 +1153,11 @@ def phase_train_cpu_agreement(seed: int):
             small_err = max(small_err, pe[~big].max().item())
             if not (pe[~big] <= 2.05 * lr0 + 1e-7).all():
                 bad.append(("param_small_grad", k, pe[~big].max().item()))
-    emit({"phase": "train_cpu_agreement", "config": "tiny, every dropout 0, float32, one scan update of 3 x 4",
+    emit({"phase": "train_cpu_agreement_fused" if fused else "train_cpu_agreement",
+          "config": f"tiny{', both towers fused' if fused else ''}, every dropout 0, float32, one scan update of 3 x 4",
           "tensors": len(out["cpu"]["grads"]), "max_abs_err_grad": grad_err, "max_abs_err_param": param_err,
           "max_abs_err_param_small_grad": small_err, "loss_cuda": out["cuda"]["loss"], "loss_cpu": out["cpu"]["loss"],
-          "card_launches": out["cuda"]["launches"],
+          "card_launches": dict(zip(KERNEL_NAMES, out["cuda"]["launches"])),
           "tolerance": {"grad_rtol": AGREE_GRAD_RTOL, "grad_atol": AGREE_GRAD_ATOL, "param_rtol": AGREE_PARAM_RTOL,
                         "param_atol": AGREE_PARAM_ATOL, "param_small_grad_atol": 2.05 * lr0}})
     if bad:
@@ -837,6 +1194,12 @@ def _kernel_entry(name, source, replaces, also, launches, row, dtype_err, ms_key
     }
 
 
+def _worst(rows, outputs):
+    """The largest bf16 max-abs error of ``outputs`` over every row, both
+    rates."""
+    return max(r[k]["bfloat16"][o]["max_abs_err"] for r in rows for k in ("errors", "errors_rate0") for o in outputs)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -853,40 +1216,82 @@ def main(argv=None) -> int:
     card = phase_build()
     rows = phase_kernel(args.seed)
     train_rows = phase_kernel_train(args.seed)
-    scorer, scoring_launches, rng = phase_scoring(args.seed)
+    masked_rows = phase_masked(args.seed)
+    scorer, scoring_launches, rng, unfused = phase_scoring(args.seed)
+    scoring_fused = phase_scoring_fused(unfused)
     phase_latency(scorer, rng)
-    del scorer
+    del scorer, unfused
     torch.cuda.empty_cache()
-    train_launches = phase_train(args.seed)
-    torch.cuda.empty_cache()
-    phase_train_cpu_agreement(args.seed)
+    train = run_train(args.seed, "train", batch_size=12, fused=False, timed_updates=TIMED_UPDATES, trace=True,
+                      dataset_kw=dict(num_graphs=TRAIN_GRAPHS, min_nodes=8, max_nodes=32, image_prob=0.25))
+    train_fused = run_train(args.seed, "train_fused", batch_size=12, fused=True, timed_updates=TIMED_UPDATES,
+                            trace=False, dataset_kw=dict(num_graphs=TRAIN_GRAPHS, min_nodes=8, max_nodes=32, image_prob=0.25))
+    train_big = run_train(args.seed, "train_big", batch_size=1, fused=True, timed_updates=BIG_TIMED_UPDATES, trace=True,
+                          dataset_kw=dict(num_graphs=BIG_GRAPHS, min_nodes=520, max_nodes=1000, image_prob=0.05))
+    phase_train_cpu_agreement(args.seed, fused=False)
+    phase_train_cpu_agreement(args.seed, fused=True)
     phase_launch()
 
     serve_row = rows[0]  # S=33, B=16: the canonical serving shape
     train_row = train_rows[0]  # S=33, B=12: the canonical training shape
+    big_rows = [r for r in train_rows if r["S"] >= 513]
     bf16 = train_row["errors"]["bfloat16"]
     ms = train_row["ms"]
+    by_path = {"train": train, "train_fused": train_fused, "train_big": train_big,
+               "scoring_fused": scoring_fused}
+
+    def paths(name, extra=None):
+        out = {path: counts[name] for path, counts in by_path.items()}
+        return {**out, **(extra or {})}
+
+    streaming = [{k: r[k] for k in ("S", "B", "ms", "bound")} for r in big_rows]
+    fusion_row = next(r for r in masked_rows if r["shape"] == "text_fusion")
+    mms = fusion_row["ms"]
     print(card, flush=True)
     emit({"kernels": [
         {**_kernel_entry(
             "tree_attention_fwd", KERNEL_SOURCE, f"{TPU_KERNELS}:1096",
-            [f"{TPU_KERNELS}:973", f"{TPU_KERNELS}:103", f"{TPU_KERNELS}:66", f"{TPU_KERNELS}:228"],
-            train_launches[0], train_row, bf16["out"]["max_abs_err"], "fwd", ms["plain_fwd"], ms["library_fwd"], "fwd"),
-         "launches_by_path": {"train": train_launches[0], "scoring": scoring_launches},
+            [f"{TPU_KERNELS}:973", f"{TPU_KERNELS}:103", f"{TPU_KERNELS}:66", f"{TPU_KERNELS}:228",
+             f"{TPU_KERNELS}:418 (the LSE the forward saves)"],
+            train["tree_attention_fwd"], train_row, _worst(train_rows, ("out",)), "fwd", ms["plain_fwd"],
+            ms["library_fwd"], "fwd"),
+         "launches_by_path": paths("tree_attention_fwd", {"scoring": scoring_launches}),
          "serving_rate0": {k: serve_row[k] for k in ("S", "B", "ms", "plain_ms", "library_ms", "bound_ms",
                                                       "max_abs_err_bfloat16")},
-         "shapes": train_rows},
+         "streaming": streaming, "shapes": train_rows},
         {**_kernel_entry(
-            "tree_attention_bwd_dq", BWD_SOURCE, f"{TPU_KERNELS}:1148", [f"{TPU_KERNELS}:1007"],
-            train_launches[1], train_row, max(bf16["dq"]["max_abs_err"], bf16["dlut"]["max_abs_err"]), "dq",
+            "tree_attention_bwd_dq", BWD_SOURCE, f"{TPU_KERNELS}:1148", [f"{TPU_KERNELS}:1007", f"{TPU_KERNELS}:468"],
+            train["tree_attention_bwd_dq"], train_row, _worst(train_rows, ("dq", "dlut")), "dq",
             ms["plain_bwd"], ms["library_fwd_bwd"], "dq"),
+         "launches_by_path": paths("tree_attention_bwd_dq"),
          "note": "plain_ms is the plain version's whole autograd backward (dq, dk, dv, dlut); "
-                 "library_ms is SDPA forward + backward at rate 0 on the dense bias"},
+                 "library_ms is SDPA forward + backward at rate 0 on the dense bias; max_abs_err is the worst "
+                 "bf16 error over every shape and both rates"},
         {**_kernel_entry(
-            "tree_attention_bwd_dkv", BWD_SOURCE, f"{TPU_KERNELS}:1148", [f"{TPU_KERNELS}:1007"],
-            train_launches[2], train_row, max(bf16["dk"]["max_abs_err"], bf16["dv"]["max_abs_err"]), "dkv",
+            "tree_attention_bwd_dkv", BWD_SOURCE, f"{TPU_KERNELS}:1148", [f"{TPU_KERNELS}:1007", f"{TPU_KERNELS}:558"],
+            train["tree_attention_bwd_dkv"], train_row, _worst(train_rows, ("dk", "dv")), "dkv",
             ms["plain_bwd"], ms["library_fwd_bwd"], "dkv"),
+         "launches_by_path": paths("tree_attention_bwd_dkv"),
          "note": "plain_ms and library_ms as for tree_attention_bwd_dq"},
+        {**_kernel_entry(
+            "masked_attention_fwd", MASKED_FWD_SOURCE, f"{TPU_MASKED}:86", [], train_big["masked_attention_fwd"],
+            fusion_row, _worst(masked_rows, ("out",)), "fwd", mms["plain_fwd"], mms["library_fwd"], "fwd"),
+         "launches_by_path": paths("masked_attention_fwd"),
+         "note": "launches: train_big; times at the text-fusion shape (B=256, S=104), rate 0.3 with the row statistics; "
+                 "library_ms is SDPA with the key-padding bias and dropout 0.3",
+         "shapes": masked_rows},
+        {**_kernel_entry(
+            "masked_attention_bwd_dq", MASKED_BWD_SOURCE, f"{TPU_MASKED}:134", [], train_big["masked_attention_bwd_dq"],
+            fusion_row, _worst(masked_rows, ("dq",)), "dq", mms["plain_bwd"], mms["library_fwd_bwd"], "dq"),
+         "launches_by_path": paths("masked_attention_bwd_dq"),
+         "note": "plain_ms is the plain version's whole autograd backward (dq, dk, dv); library_ms is SDPA "
+                 "forward + backward at rate 0 with the key-padding bias"},
+        {**_kernel_entry(
+            "masked_attention_bwd_dkv", MASKED_BWD_SOURCE, f"{TPU_MASKED}:134", [], train_big["masked_attention_bwd_dkv"],
+            fusion_row, _worst(masked_rows, ("dk", "dv")), "dkv", mms["plain_bwd"], mms["library_fwd_bwd"],
+            "dkv"),
+         "launches_by_path": paths("masked_attention_bwd_dkv"),
+         "note": "plain_ms and library_ms as for masked_attention_bwd_dq"},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

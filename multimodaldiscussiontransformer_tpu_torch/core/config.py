@@ -36,7 +36,7 @@ class BertTowerConfig:
     hidden_act: str = "gelu"  # gelu | gelu_new | quick_gelu
     position_offset: int = 0  # RoBERTa: padding_idx + 1 = 2
     use_token_type: bool = True
-    # fused tower attention kernel; not ported yet (raises at model build)
+    # fused tower attention: the masked-attention kernels (ops/masked_attention.py)
     use_pallas_attention: bool = False
 
     @property
@@ -63,7 +63,7 @@ class ViTTowerConfig:
     hidden_act: str = "gelu"  # gelu | quick_gelu
     embeddings_layernorm: bool = False
     patch_bias: bool = True
-    # fused tower attention kernel; not ported yet (raises at model build)
+    # fused tower attention: the masked-attention kernels (ops/masked_attention.py)
     use_pallas_attention: bool = False
 
     @property

@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodaldiscussiontransformer_tpu_torch.core.config import BertTowerConfig
-from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import FastDropout
+from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import FastDropout, draw_seed
+from multimodaldiscussiontransformer_tpu_torch.ops.masked_attention import masked_attention
 
 # Large negative bias for masked attention logits: finite, so that a fully
 # masked row degrades to uniform attention instead of NaN.
@@ -76,12 +77,24 @@ class LayerNorm(nn.LayerNorm):
 
 class SelfAttention(nn.Module):
     """HF-style encoder self-attention shared by BERT and ViT: plain matmuls
-    in the compute dtype and a float32 softmax."""
+    in the compute dtype and a float32 softmax.
 
-    def __init__(self, hidden_size: int, num_heads: int, dtype: torch.dtype, dropout_rate: float = 0.0):
+    With ``use_pallas`` (tower config ``use_pallas_attention``) and a
+    key-only bias ((B, 1, 1, S) or None, which is what the towers pass), the
+    softmax, dropout and value contraction run through the fused tower op
+    (``ops/masked_attention.py``): the CUDA kernels on the card, their plain
+    version on the CPU. In training it takes a fresh seed per call from the
+    host generator and drops at ``dropout_rate`` inside the op, so the
+    (B, H, S, S) probabilities are never stored for the backward."""
+
+    def __init__(
+        self, hidden_size: int, num_heads: int, dtype: torch.dtype, dropout_rate: float = 0.0, use_pallas: bool = False
+    ):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
+        self.use_pallas = use_pallas
         self.query = Dense(hidden_size, hidden_size, dtype)
         self.key = Dense(hidden_size, hidden_size, dtype)
         self.value = Dense(hidden_size, hidden_size, dtype)
@@ -98,12 +111,20 @@ class SelfAttention(nn.Module):
             return x.view(b, s, h, dh).transpose(1, 2)
 
         q, k, v = heads(self.query(hidden)), heads(self.key(hidden)), heads(self.value(hidden))
-        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)
-        if attn_bias is not None:
-            scores = scores + attn_bias
-        probs = torch.softmax(scores.float(), dim=-1).to(hidden.dtype)
-        probs = self.attn_dropout(probs, deterministic)
-        ctx = torch.matmul(probs, v)
+        key_only = attn_bias is None or (attn_bias.dim() == 4 and attn_bias.shape[1] == attn_bias.shape[2] == 1)
+        if self.use_pallas and key_only and b > 0:
+            rate = 0.0 if deterministic else self.dropout_rate
+            ctx = masked_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                None if attn_bias is None else attn_bias[:, 0, 0, :].float().contiguous(),
+                seed=draw_seed() if rate > 0.0 else None, rate=rate, scale=dh ** -0.5,
+            )
+        else:
+            scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)
+            if attn_bias is not None:
+                scores = scores + attn_bias
+            probs = torch.softmax(scores.float(), dim=-1).to(hidden.dtype)
+            ctx = torch.matmul(self.attn_dropout(probs, deterministic), v)
         return ctx.transpose(1, 2).reshape(b, s, self.hidden_size)
 
 
@@ -115,7 +136,9 @@ class BertLayer(nn.Module):
         super().__init__()
         c, d = config, dtype
         self.act = act_fn(c.hidden_act)
-        self.attention = SelfAttention(c.hidden_size, c.num_attention_heads, d, c.attention_probs_dropout_prob)
+        self.attention = SelfAttention(
+            c.hidden_size, c.num_attention_heads, d, c.attention_probs_dropout_prob, c.use_pallas_attention
+        )
         self.attention_output_dense = Dense(c.hidden_size, c.hidden_size, d)
         self.attention_output_layernorm = LayerNorm(c.hidden_size, c.layer_norm_eps, d)
         self.intermediate_dense = Dense(c.hidden_size, c.intermediate_size, d)

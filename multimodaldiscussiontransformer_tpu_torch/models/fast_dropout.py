@@ -13,8 +13,9 @@ which names two generators, as Flax's ``rngs={"dropout": ...}`` does:
 - ``device``: a ``torch.Generator`` on the compute device, for the
   ``FastDropout`` masks;
 - ``host``: a ``torch.Generator`` on the CPU that draws one integer seed per
-  call of the tree attention (``draw_seed``); the attention kernels derive
-  their mask from it (``ops/tree_attention.py``).
+  call of the tree attention and of the fused tower attention
+  (``draw_seed``); the attention kernels derive their mask from it
+  (``ops/tree_attention.py``, ``ops/masked_attention.py``).
 The same generator states reproduce a step exactly.
 """
 

@@ -86,8 +86,6 @@ def check_supported(cfg: ModelConfig) -> None:
         "scan_layers": cfg.scan_layers,
         "sequence_parallel": cfg.sequence_parallel,
         "remat": cfg.remat,
-        "text_tower.use_pallas_attention": cfg.text_tower.use_pallas_attention,
-        "image_tower.use_pallas_attention": cfg.image_tower.use_pallas_attention,
     }
     on = [name for name, value in unsupported.items() if value]
     if on:

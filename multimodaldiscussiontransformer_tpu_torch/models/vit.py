@@ -36,7 +36,9 @@ class ViTLayer(nn.Module):
         c, d = config, dtype
         self.act = act_fn(c.hidden_act)
         self.layernorm_before = LayerNorm(c.hidden_size, c.layer_norm_eps, d)
-        self.attention = SelfAttention(c.hidden_size, c.num_attention_heads, d, c.attention_probs_dropout_prob)
+        self.attention = SelfAttention(
+            c.hidden_size, c.num_attention_heads, d, c.attention_probs_dropout_prob, c.use_pallas_attention
+        )
         self.attention_output_dense = Dense(c.hidden_size, c.hidden_size, d)
         self.layernorm_after = LayerNorm(c.hidden_size, c.layer_norm_eps, d)
         self.intermediate_dense = Dense(c.hidden_size, c.intermediate_size, d)

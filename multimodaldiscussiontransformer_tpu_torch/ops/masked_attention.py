@@ -1,0 +1,211 @@
+"""Tower attention with a per-key bias, forward and backward, with in-kernel
+dropout: the port's counterpart of the JAX package's
+``ops/masked_attention.py``.
+
+The BERT and ViT tower layers compute ``softmax(q k^T * scale + key_bias)
+@ v``, where the (B, S) key bias is 0 for real tokens and -1e9 for padding
+(ViT has none). Training drops out the normalized probabilities with the
+Philox keep mask of ``ops/tree_attention.py`` (counter (key // 4, row,
+head, batch row), so ``tree_attention.dropout_keep_mask`` is the plain
+mask of both); the denominator sums the undropped terms and kept terms are
+divided by 1 - rate. The backward regenerates the mask; it is never stored.
+
+``masked_attention`` is the one entry point. On CPU tensors it runs the
+plain PyTorch version ``masked_attention_dropout_reference`` (differentiable
+by autograd). On CUDA tensors it runs ``MaskedAttention``, an autograd
+Function whose forward launches ``csrc/masked_attention_fwd.cu`` (saving
+the output and the per-row softmax statistics, the row max and the log of
+the row sum, only when an input wants a gradient, so the frozen bottom
+towers save nothing) and whose backward launches the
+two kernels of ``csrc/masked_attention_bwd.cu``: dq, then dk and dv. The
+kernels are built and bound by ``ops/cuda_lib.py``; on a CUDA tensor the
+wrapper launches them or raises.
+
+A row whose every key is masked (a capacity-padding text row in the bottom
+tower) gets equal weights over its S keys, on both paths.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from multimodaldiscussiontransformer_tpu_torch.ops import cuda_lib
+from multimodaldiscussiontransformer_tpu_torch.ops.tree_attention import (
+    DTYPE_CODES,
+    MASK_BIAS,
+    check_kernel_inputs,
+    check_rate,
+    count_launch,
+    dropout_args,
+    dropped_softmax_attention,
+)
+
+
+def _key_bias_4d(key_mask_bias: Optional[torch.Tensor]):
+    """(B, S) additive key bias -> (B, 1, 1, S) f32 clamped at MASK_BIAS, or
+    0 without one."""
+    if key_mask_bias is None:
+        return 0.0
+    return key_mask_bias.float().clamp_min(MASK_BIAS)[:, None, None, :]
+
+
+def masked_attention_dropout_reference(
+    q, k, v, key_mask_bias: Optional[torch.Tensor] = None, seed: int = 0, rate: float = 0.0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernels' function, in f32, differentiable
+    by autograd: q is scaled in f32, the key bias clamped at MASK_BIAS, the
+    row max clamped at MASK_BIAS, the (undropped) denominator at 1e-30;
+    kept terms are divided by 1 - rate; the result is cast to q's dtype."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return dropped_softmax_attention(q, k, v, _key_bias_4d(key_mask_bias), seed, rate, scale)
+
+
+def masked_attention_reference(
+    q, k, v, key_mask_bias: Optional[torch.Tensor] = None, scale: Optional[float] = None
+) -> torch.Tensor:
+    """The plain version at rate 0."""
+    return masked_attention_dropout_reference(q, k, v, key_mask_bias, 0, 0.0, scale)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda_inputs(q, k, v, key_bias, **extra) -> None:
+    """What the kernels take: f32 or bf16 q/k/v (and g/out) of one (B, H, S,
+    DH) shape with DH in (16, 32, 64, 128), an f32 (B, S) key bias or None,
+    f32 (2, B, H, S) stats and (B, H, S) delta; all contiguous and on one
+    device."""
+    if key_bias is not None and q.dim() == 4:
+        b, _, s, _ = q.shape
+        if key_bias.shape != (b, s) or key_bias.dtype != torch.float32:
+            raise ValueError(f"key bias must be float32 {(b, s)}, got {key_bias.dtype} {tuple(key_bias.shape)}")
+    rows = q.shape[:3]
+    shapes = {"stats": (2, *rows), "delta": rows}
+    check_kernel_inputs(
+        "masked_attention", q,
+        {"k": k, "v": v, **{n: t for n, t in extra.items() if n in ("g", "out")}},
+        {n: (t, shapes[n]) for n, t in extra.items() if n in shapes},
+        {} if key_bias is None else {"key_bias": key_bias},
+    )
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def masked_attention_fwd(
+    q, k, v, key_bias, scale: float, rate: float = 0.0, seed: int = 0, with_stats: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the forward kernel: (out, stats or None), stats f32 (2, B, H,
+    S) holding each row's max and the log of its (undropped) sum, for the
+    backward. ``launches`` counts launches."""
+    _check_cuda_inputs(q, k, v, key_bias)
+    b, h, s, dh = q.shape
+    out = torch.empty_like(q)
+    stats = torch.empty(2, b, h, s, dtype=torch.float32, device=q.device) if with_stats else None
+    if out.numel() == 0:
+        return out, stats
+    cuda_lib.launch(
+        "masked_fwd", "masked_attention_fwd", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_bias), out.data_ptr(), _ptr(stats),
+        b, h, s, dh, float(scale), *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
+    )
+    count_launch(masked_attention_fwd)
+    return out, stats
+
+
+def masked_attention_bwd_dq(
+    q, k, v, out, g, key_bias, stats, scale: float, rate: float = 0.0, seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the q-major backward kernel: (dq, delta f32 (B, H, S), the
+    per-row g . out that ``masked_attention_bwd_dkv`` takes)."""
+    _check_cuda_inputs(q, k, v, key_bias, out=out, g=g, stats=stats)
+    b, h, s, dh = q.shape
+    dq = torch.empty_like(q)
+    delta = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    if dq.numel() == 0:
+        return dq, delta
+    cuda_lib.launch(
+        "masked_bwd", "masked_attention_bwd_dq", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(), _ptr(key_bias),
+        stats.data_ptr(), dq.data_ptr(), delta.data_ptr(),
+        b, h, s, dh, float(scale), *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
+    )
+    count_launch(masked_attention_bwd_dq)
+    return dq, delta
+
+
+def masked_attention_bwd_dkv(
+    q, k, v, g, key_bias, stats, delta, scale: float, rate: float = 0.0, seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the k-major backward kernel: (dk, dv)."""
+    _check_cuda_inputs(q, k, v, key_bias, g=g, stats=stats, delta=delta)
+    b, h, s, dh = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    cuda_lib.launch(
+        "masked_bwd", "masked_attention_bwd_dkv", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _ptr(key_bias), stats.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, s, dh, float(scale), *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
+    )
+    count_launch(masked_attention_bwd_dkv)
+    return dk, dv
+
+
+for _fn in (masked_attention_fwd, masked_attention_bwd_dq, masked_attention_bwd_dkv):
+    _fn.launches = 0
+KERNELS = (masked_attention_fwd, masked_attention_bwd_dq, masked_attention_bwd_dkv)
+
+
+class MaskedAttention(torch.autograd.Function):
+    """The kernels as one differentiable op. The forward saves its inputs,
+    the output and the per-row softmax statistics only when q, k or v wants
+    a gradient; the backward regenerates the dropout mask from the seed. The
+    key bias gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, seed: int, rate: float, scale: float):
+        need = any(ctx.needs_input_grad[:3])
+        out, stats = masked_attention_fwd(q, k, v, key_bias, scale, rate, seed, with_stats=need)
+        if need:
+            ctx.save_for_backward(q, k, v, key_bias, out, stats)
+            ctx.args = (scale, rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_bias, out, stats = ctx.saved_tensors
+        scale, rate, seed = ctx.args
+        g = g.contiguous()
+        dq, delta = masked_attention_bwd_dq(q, k, v, out, g, key_bias, stats, scale, rate, seed)
+        dk, dv = masked_attention_bwd_dkv(q, k, v, g, key_bias, stats, delta, scale, rate, seed)
+        return dq, dk, dv, None, None, None, None
+
+
+def masked_attention(
+    q: torch.Tensor,  # (B, H, S, DH)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask_bias: Optional[torch.Tensor] = None,  # (B, S) additive f32
+    seed: Optional[int] = None,
+    rate: float = 0.0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Tower attention with attention dropout at ``rate`` (the mask keyed by
+    ``seed``, an integer in [0, 2^64)): the CUDA kernels on CUDA tensors,
+    the plain version on CPU tensors; other devices raise."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"masked_attention runs on cpu or cuda, not {q.device}")
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    check_rate(rate, seed)
+    seed = 0 if seed is None else int(seed)
+    if q.device.type == "cpu":
+        return masked_attention_dropout_reference(q, k, v, key_mask_bias, seed, rate, scale)
+    return MaskedAttention.apply(q, k, v, key_mask_bias, seed, float(rate), float(scale))

@@ -24,40 +24,25 @@ whose forward launches the hand-written kernel ``csrc/tree_attention_fwd.cu``
 (saving the per-row log-sum-exp) and whose backward launches the two kernels
 of ``csrc/tree_attention_bwd.cu``: dq with the LUT gradient, then dk and dv.
 It does so for rate 0 too, so evaluation and training share one path. The
-kernels are built with ``nvcc`` at their first use, into ``_build/`` next to
-the package, and bound with ``ctypes``; on a CUDA tensor the wrapper
-launches them or raises.
+kernels are built and bound by ``ops/cuda_lib.py`` at their first use; on a
+CUDA tensor the wrapper launches them or raises.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from multimodaldiscussiontransformer_tpu_torch.ops import cuda_lib
 
 MASK_BIAS = -1e9
 LUT_SIZE = 32  # >= 1 (pad) + 21 cantor buckets + 1 graph-token id
 GRAPH_TOKEN_ID = LUT_SIZE - 1  # id of the virtual-distance entry
 
-_PACKAGE = Path(__file__).resolve().parents[1]
-CSRC = _PACKAGE / "csrc"
-# one shared library per source, built in parallel
-SOURCES = {"fwd": CSRC / "tree_attention_fwd.cu", "bwd": CSRC / "tree_attention_bwd.cu"}
-HEADERS = (CSRC / "tree_attention_common.cuh",)
-BUILD_DIR = _PACKAGE / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
 _HEAD_DIMS = (16, 32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Philox4x32-10 constants (Random123)
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -160,6 +145,14 @@ def tree_attention_dropout_reference(
     gives zeros, as the kernels do."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     bias = assemble_bias(template, ids, lut, double_add)
+    return dropped_softmax_attention(q, k, v, bias, seed, rate, scale)
+
+
+def dropped_softmax_attention(q, k, v, bias, seed: int, rate: float, scale: float) -> torch.Tensor:
+    """``softmax(scale q k^T + bias)`` with the Philox keep mask of ``seed``
+    on the probabilities (kept terms over 1 - rate), times v: the arithmetic
+    every attention kernel of the port shares, in f32, returned in q's
+    dtype. ``bias`` broadcasts to (B, H, S, S)."""
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float()) + bias
     # the max cancels in the quotient; detaching it keeps ties out of autograd
     m = scores.detach().amax(dim=-1, keepdim=True).clamp_min(MASK_BIAS)
@@ -184,102 +177,31 @@ def tree_attention_reference(
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
-_libs: Optional[Dict[str, ctypes.CDLL]] = None
-_lib_lock = threading.Lock()
 _count_lock = threading.Lock()
 
 
-def library_paths() -> Dict[str, Path]:
-    """Where each kernel library lives: named by a hash of its source, the
-    shared header and the flags (a changed source rebuilds)."""
-    shared = b"".join(p.read_bytes() for p in HEADERS) + " ".join(NVCC_FLAGS).encode()
-    return {
-        name: BUILD_DIR / f"tree_attention_{name}-{hashlib.sha256(src.read_bytes() + shared).hexdigest()[:16]}.so"
-        for name, src in SOURCES.items()
-    }
-
-
-def build() -> Dict[str, Path]:
-    """Compile the kernel libraries under BUILD_DIR, one ``nvcc`` per source,
-    all started together. The compiler is ``$NVCC``, else ``nvcc`` on PATH,
-    else /usr/local/cuda/bin/nvcc. ptxas' resource report is kept beside
-    each library as ``.log``."""
-    paths = library_paths()
-    todo = {name: p for name, p in paths.items() if not p.exists()}
-    if not todo:
-        return paths
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = os.environ.get("NVCC") or shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    procs = {}
-    try:
-        for name, path in todo.items():
-            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            procs[name] = (proc, tmp, cmd)
-        for name, (proc, tmp, cmd) in procs.items():
-            stdout, stderr = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed with code {proc.returncode}: {' '.join(cmd)}\n{stderr}")
-            todo[name].with_suffix(".log").write_text(stdout + stderr)
-            os.replace(tmp, todo[name])
-    finally:
-        for proc, _, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    return paths
-
-
-def load_library() -> Dict[str, ctypes.CDLL]:
-    """Build (if needed) and bind the kernel libraries, once per process."""
-    global _libs
-    with _lib_lock:
-        if _libs is None:
-            paths = build()
-            fwd, bwd = ctypes.CDLL(str(paths["fwd"])), ctypes.CDLL(str(paths["bwd"]))
-            tail = [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_uint] * 3 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-            ]
-            for fn, n_ptrs in ((fwd.tree_attention_fwd, 8), (bwd.tree_attention_bwd_dq, 12),
-                               (bwd.tree_attention_bwd_dkv, 11)):
-                fn.argtypes = [ctypes.c_void_p] * n_ptrs + tail
-                fn.restype = ctypes.c_int
-            for fn in (fwd.tree_attention_error_string, bwd.tree_attention_bwd_error_string):
-                fn.argtypes = [ctypes.c_int]
-                fn.restype = ctypes.c_char_p
-            _libs = {"fwd": fwd, "bwd": bwd}
-        return _libs
-
-
-def _check_cuda_inputs(q, k, v, template, ids, lut, **extra) -> None:
-    """What the kernels take: f32 or bf16 q/k/v (and g/out) of one (B, H, S,
-    DH) shape with DH in (16, 32, 64, 128), f32 template and int32 ids of
-    (B, S, S), an f32 (32, H) LUT, f32 (B, H, S) lse/delta; all contiguous
-    and on one device."""
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"tree_attention kernel takes float32 or bfloat16, got {q.dtype}")
+def check_kernel_inputs(kernel: str, q, like_q: dict, per_row: dict, others: dict) -> None:
+    """What every attention kernel of the port takes: f32 or bf16 q and
+    ``like_q`` (k, v, g, out) of one (B, H, S, DH) shape with DH in
+    _HEAD_DIMS; f32 per-row tensors ``per_row`` {name: (tensor, shape)}; all
+    of them and ``others`` contiguous and on q's device; B and H within the
+    grid's limits."""
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"{kernel} kernel takes float32 or bfloat16, got {q.dtype}")
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, S, DH), got {tuple(q.shape)}")
     b, h, s, dh = q.shape
     if dh not in _HEAD_DIMS:
         raise ValueError(f"head dim {dh} not in {_HEAD_DIMS}")
-    if template.shape != (b, s, s) or template.dtype != torch.float32:
-        raise ValueError(f"template must be float32 {(b, s, s)}, got {template.dtype} {tuple(template.shape)}")
-    if ids.shape != (b, s, s) or ids.dtype != torch.int32:
-        raise ValueError(f"ids must be int32 {(b, s, s)}, got {ids.dtype} {tuple(ids.shape)}")
-    if lut.shape != (LUT_SIZE, h) or lut.dtype != torch.float32:
-        raise ValueError(f"lut must be float32 {(LUT_SIZE, h)}, got {lut.dtype} {tuple(lut.shape)}")
-    like_q = {"k": k, "v": v, **{n: t for n, t in extra.items() if n in ("g", "out")}}
     for name, t in like_q.items():
         if t.shape != q.shape:
             raise ValueError(f"{name} must share q's shape {tuple(q.shape)}, got {tuple(t.shape)}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} must share q's dtype {q.dtype}, got {t.dtype}")
-    for name in ("lse", "delta"):
-        if name in extra and (extra[name].shape != (b, h, s) or extra[name].dtype != torch.float32):
-            raise ValueError(f"{name} must be float32 {(b, h, s)}")
-    tensors = {"q": q, "template": template, "ids": ids, "lut": lut, **like_q, **extra}
+    for name, (t, shape) in per_row.items():
+        if t.shape != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {shape}")
+    tensors = {"q": q, **like_q, **{n: t for n, (t, _) in per_row.items()}, **others}
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -289,7 +211,28 @@ def _check_cuda_inputs(q, k, v, template, ids, lut, **extra) -> None:
         raise ValueError(f"grid too large: B={b}, H={h}")
 
 
-def _check_rate(rate: float, seed) -> None:
+def _check_cuda_inputs(q, k, v, template, ids, lut, **extra) -> None:
+    """What the kernels take: f32 or bf16 q/k/v (and g/out) of one (B, H, S,
+    DH) shape with DH in (16, 32, 64, 128), f32 template and int32 ids of
+    (B, S, S), an f32 (32, H) LUT, f32 (B, H, S) lse/delta; all contiguous
+    and on one device."""
+    if q.dim() == 4:
+        b, h, s, _ = q.shape
+        if template.shape != (b, s, s) or template.dtype != torch.float32:
+            raise ValueError(f"template must be float32 {(b, s, s)}, got {template.dtype} {tuple(template.shape)}")
+        if ids.shape != (b, s, s) or ids.dtype != torch.int32:
+            raise ValueError(f"ids must be int32 {(b, s, s)}, got {ids.dtype} {tuple(ids.shape)}")
+        if lut.shape != (LUT_SIZE, h) or lut.dtype != torch.float32:
+            raise ValueError(f"lut must be float32 {(LUT_SIZE, h)}, got {lut.dtype} {tuple(lut.shape)}")
+    check_kernel_inputs(
+        "tree_attention", q,
+        {"k": k, "v": v, **{n: t for n, t in extra.items() if n in ("g", "out")}},
+        {n: (t, q.shape[:3]) for n, t in extra.items() if n in ("lse", "delta")},
+        {"template": template, "ids": ids, "lut": lut},
+    )
+
+
+def check_rate(rate: float, seed) -> None:
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
     if rate > 0.0 and seed is None:
@@ -298,17 +241,13 @@ def _check_rate(rate: float, seed) -> None:
         raise ValueError(f"seed must be in [0, 2^64), got {seed}")
 
 
-def _dropout_args(seed: int, rate: float):
+def dropout_args(seed: int, rate: float):
     seed = int(seed)
     return seed & _MASK32, (seed >> 32) & _MASK32, keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
-def _raise_on(err: int, error_string, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: {error_string(err).decode()} ({err})")
-
-
-def _count(fn) -> None:
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches`` (wrappers call it right after a launch)."""
     with _count_lock:
         fn.launches += 1
 
@@ -325,16 +264,13 @@ def tree_attention_fwd(
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel() == 0:
         return out, lse
-    lib = load_library()["fwd"]
-    with torch.cuda.device(q.device):
-        err = lib.tree_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), template.data_ptr(), ids.data_ptr(),
-            lut.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-            b, h, s, dh, float(scale), 2.0 if double_add else 1.0, *_dropout_args(seed, rate),
-            _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(err, lib.tree_attention_error_string, "tree_attention_fwd")
-    _count(tree_attention_fwd)
+    cuda_lib.launch(
+        "tree_fwd", "tree_attention_fwd", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), template.data_ptr(), ids.data_ptr(),
+        lut.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+        b, h, s, dh, float(scale), 2.0 if double_add else 1.0, *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
+    )
+    count_launch(tree_attention_fwd)
     return out, lse
 
 
@@ -351,17 +287,14 @@ def tree_attention_bwd_dq(
     delta = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq, dlut, delta
-    lib = load_library()["bwd"]
-    with torch.cuda.device(q.device):
-        err = lib.tree_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
-            template.data_ptr(), ids.data_ptr(), lut.data_ptr(), lse.data_ptr(),
-            dq.data_ptr(), dlut.data_ptr(), delta.data_ptr(),
-            b, h, s, dh, float(scale), 2.0 if double_add else 1.0, *_dropout_args(seed, rate),
-            _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(err, lib.tree_attention_bwd_error_string, "tree_attention_bwd_dq")
-    _count(tree_attention_bwd_dq)
+    cuda_lib.launch(
+        "tree_bwd", "tree_attention_bwd_dq", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+        template.data_ptr(), ids.data_ptr(), lut.data_ptr(), lse.data_ptr(),
+        dq.data_ptr(), dlut.data_ptr(), delta.data_ptr(),
+        b, h, s, dh, float(scale), 2.0 if double_add else 1.0, *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
+    )
+    count_launch(tree_attention_bwd_dq)
     return dq, dlut, delta
 
 
@@ -375,17 +308,14 @@ def tree_attention_bwd_dkv(
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
-    lib = load_library()["bwd"]
-    with torch.cuda.device(q.device):
-        err = lib.tree_attention_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), template.data_ptr(),
-            ids.data_ptr(), lut.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(),
-            b, h, s, dh, float(scale), 2.0 if double_add else 1.0, *_dropout_args(seed, rate),
-            _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(err, lib.tree_attention_bwd_error_string, "tree_attention_bwd_dkv")
-    _count(tree_attention_bwd_dkv)
+    cuda_lib.launch(
+        "tree_bwd", "tree_attention_bwd_dkv", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), template.data_ptr(),
+        ids.data_ptr(), lut.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        b, h, s, dh, float(scale), 2.0 if double_add else 1.0, *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
+    )
+    count_launch(tree_attention_bwd_dkv)
     return dk, dv
 
 
@@ -436,7 +366,7 @@ def tree_attention(
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"tree_attention runs on cpu or cuda, not {q.device}")
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    _check_rate(rate, seed)
+    check_rate(rate, seed)
     seed = 0 if seed is None else int(seed)
     if q.device.type == "cpu":
         return tree_attention_dropout_reference(q, k, v, template, ids, lut, seed, rate, scale, double_add)

@@ -143,3 +143,34 @@ def test_stack_microbatches_bit_equal(k):
     assert len({b.input_ids.shape for b in pb}) > 1 and len(pb) % k != 0
     _assert_batches_equal(stack_microbatches(iter(pb), k, pad_tail=True), jstack(iter(jb), k, pad_tail=True))
     _assert_batches_equal(stack_microbatches(iter(pb), k), jstack(iter(jb), k))
+
+
+def test_big_discussions_collate_and_stack_equal():
+    """Discussions of 520-700 nodes, one per microbatch, on the canonical
+    ladders: past the node ladder Nmax is the node count itself (padded S
+    >= 513), the text capacity takes the 1024 bucket and the label capacity
+    its own count; stacking an update's microbatches grows them all to the
+    largest S. Every array equals the JAX copy's."""
+    from multimodaldiscussiontransformer_tpu.core.config import DataConfig as JDataConfig, TaskConfig as JTaskConfig
+    from multimodaldiscussiontransformer_tpu.data.dataset import iterate_batches as jiter
+    from multimodaldiscussiontransformer_tpu.data.loader import stack_microbatches as jstack
+    from multimodaldiscussiontransformer_tpu.data.synthetic import synthetic_dataset as jds
+    from multimodaldiscussiontransformer_tpu_torch.core.config import DataConfig, TaskConfig
+    from multimodaldiscussiontransformer_tpu_torch.data.dataset import iterate_batches
+    from multimodaldiscussiontransformer_tpu_torch.data.loader import stack_microbatches
+    from multimodaldiscussiontransformer_tpu_torch.data.synthetic import synthetic_dataset as pds
+
+    kw = dict(seq_len=8, vocab_size=100, image_shape=IMG, image_prob=0.05, min_nodes=520, max_nodes=700)
+    p, j = pds(10, seed=7, **kw), jds(10, seed=7, **kw)
+    pb = list(iterate_batches(p, p.train_idx, DataConfig(batch_size=1, max_text_len=8), TaskConfig(seed=2),
+                              shuffle=True, image_shape=IMG))
+    jb = list(jiter(j, j.train_idx, JDataConfig(batch_size=1, max_text_len=8), JTaskConfig(seed=2),
+                    shuffle=True, image_shape=IMG))
+    _assert_batches_equal(pb, jb)
+    for b in pb:
+        n = int(b.node_mask.sum())
+        assert b.max_nodes == n and b.attn_bias.shape == (1, n + 1, n + 1) and n + 1 >= 513
+        assert b.node_capacity == 1024 and b.y.shape[0] == max(int(b.y_slot_mask.sum()), 128)
+    groups = list(stack_microbatches(iter(pb), 3, pad_tail=True))
+    _assert_batches_equal(groups, jstack(iter(jb), 3, pad_tail=True))
+    assert groups[0]["attn_bias"].shape[-1] == max(b.max_nodes for b in pb[:3]) + 1

@@ -1,0 +1,214 @@
+"""The tower attention (``ops/masked_attention.py``): the wrapper's contract,
+and the CUDA forward and backward kernels against the plain version on the
+card.
+
+This file imports neither JAX nor the JAX package, so that it runs on a
+machine with a card and no JAX:
+
+    python -m pytest --noconftest -q -m gpu tests/test_torch_masked_attention_card.py
+
+Without a card the tests marked ``gpu`` skip. The comparisons with the JAX
+package are in ``test_torch_masked_attention.py``.
+
+Tolerances on the card, as for the tree-attention kernels: float32 with
+TF32 off, 1e-4 x max|ref| (sums in other orders); bfloat16, 1e-2 x max|ref|
+(the kernels round out and g to bf16 before forming g . out, and every
+output is rounded to bf16).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from multimodaldiscussiontransformer_tpu_torch.ops import cuda_lib
+from multimodaldiscussiontransformer_tpu_torch.ops import masked_attention as ma
+from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
+
+torch.set_num_threads(2)
+
+F32_RTOL_OF_MAX = 1e-4
+BF16_RTOL_OF_MAX = 1e-2
+
+
+def _inputs(seed, b, h, s, dh, masked=True):
+    """numpy (q, k, v, key bias or None): about 30% of the keys of each row
+    padded with MASK_BIAS, key 0 never."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, h, s, dh)).astype(np.float32) for _ in range(3))
+    bias = None
+    if masked:
+        bias = np.where(rng.random((b, s)) < 0.3, ta.MASK_BIAS, 0.0).astype(np.float32)
+        bias[:, 0] = 0.0
+    return q, k, v, bias
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def forward_and_grads(fn, q, k, v, bias, g, **kw):
+    """fn's output and its gradients (dq, dk, dv) for the cotangent g."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out = fn(*leaves, bias, **kw)
+    out.backward(g)
+    return [out.detach()] + [x.grad for x in leaves]
+
+
+def read_back_mask(fn, b, h, s, rate, seed, device, dh=16):
+    """The keep mask ``fn`` applies, read back: with q = k = 0 and no bias
+    every row weighs its keys equally, so with v holding one-hot columns for
+    keys c*dh .. c*dh+dh-1, out = keep / (S (1 - rate)) there."""
+    zeros = torch.zeros(b, h, s, dh, device=device)
+    chunks = []
+    for c in range(-(-s // dh)):
+        v = torch.zeros(s + dh, dh, device=device)
+        v[c * dh : (c + 1) * dh] = torch.eye(dh, device=device)
+        out = fn(zeros, zeros, v[:s].expand(b, h, s, dh).contiguous(), None, seed=seed, rate=rate)
+        chunks.append((out * s * (1 - rate)).round() > 0.5)
+    return torch.cat(chunks, dim=-1)[..., :s]
+
+
+def max_err_of_max(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def test_build_failure_raises(monkeypatch, tmp_path):
+    """A compiler that fails makes the build raise; nothing falls back."""
+    monkeypatch.setenv("NVCC", "/bin/false")
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cuda_lib.build()
+
+
+def test_cpu_path_never_builds_or_counts(monkeypatch):
+    def no_build():
+        raise AssertionError("the CPU path must not build the kernels")
+
+    monkeypatch.setattr(cuda_lib, "build", no_build)
+    before = [fn.launches for fn in ma.KERNELS]
+    q, k, v, bias = (torch.from_numpy(x).requires_grad_(x.ndim == 4) for x in _inputs(1, 2, 2, 9, 8))
+    ma.masked_attention(q, k, v, bias, seed=3, rate=0.2).sum().backward()
+    assert [fn.launches for fn in ma.KERNELS] == before
+
+
+def test_other_devices_raise():
+    q = torch.empty(1, 2, 9, 8, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ma.masked_attention(q, q, q)
+
+
+@pytest.mark.parametrize("rate, seed, fault", [(1.0, 3, "rate"), (0.3, None, "seed")])
+def test_rate_and_seed_checks(rate, seed, fault):
+    q, k, v, bias = (torch.from_numpy(x) for x in _inputs(2, 1, 2, 9, 16))
+    with pytest.raises(ValueError, match=fault):
+        ma.masked_attention(q, k, v, bias, rate=rate, seed=seed)
+
+
+@pytest.mark.parametrize("fault", ["dtype", "head_dim", "bias_shape", "bias_dtype", "layout", "stats"])
+def test_kernel_input_checks(fault):
+    """What the CUDA path refuses, checked on CPU tensors."""
+    q, k, v, bias = (torch.from_numpy(x) for x in _inputs(3, 2, 2, 9, 64))
+    extra, expected = {}, ValueError
+    if fault == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+        expected = TypeError
+    elif fault == "head_dim":
+        q, k, v = (x[..., :48].contiguous() for x in (q, k, v))
+    elif fault == "bias_shape":
+        bias = bias[:, :8].contiguous()
+    elif fault == "bias_dtype":
+        bias = bias.double()
+    elif fault == "layout":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif fault == "stats":
+        extra["stats"] = torch.zeros(2, 2, 9)  # (B, H, S): the row sums' plane is missing
+    with pytest.raises(expected):
+        ma._check_cuda_inputs(q, k, v, bias, **extra)
+    ma._check_cuda_inputs(*(torch.from_numpy(x) for x in _inputs(3, 2, 2, 9, 64)))
+
+
+def test_function_saves_only_when_a_gradient_is_wanted(monkeypatch):
+    """``MaskedAttention`` asks its forward kernel for the row statistics,
+    and saves tensors, only when q, k or v wants a gradient (the frozen
+    bottom towers save nothing). The kernel is stood in for by the plain
+    version."""
+    asked = []
+
+    def fake_fwd(q, k, v, key_bias, scale, rate, seed, with_stats):
+        asked.append(with_stats)
+        out = ma.masked_attention_dropout_reference(q, k, v, key_bias, seed, rate, scale)
+        return out, torch.zeros((2,) + q.shape[:3]) if with_stats else None
+
+    monkeypatch.setattr(ma, "masked_attention_fwd", fake_fwd)
+    q, k, v, bias = (torch.from_numpy(x) for x in _inputs(4, 2, 2, 9, 8))
+    frozen = ma.MaskedAttention.apply(q, k, v, bias, 0, 0.0, 0.35)
+    assert frozen.grad_fn is None
+    live = ma.MaskedAttention.apply(q.requires_grad_(True), k, v, bias, 0, 0.0, 0.35)
+    assert asked == [False, True]
+    assert len(live.grad_fn.saved_tensors) == 6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("s, b, masked", [(36, 4, True), (104, 8, True), (201, 2, False)])
+def test_kernels_match_plain_on_card(dtype, rate, s, b, masked):
+    dev = _card()
+    dt = getattr(torch, dtype)
+    q, k, v, bias = (None if x is None else torch.from_numpy(x).to(dev) for x in _inputs(s, b, 12, s, 64, masked))
+    if masked:
+        bias[-1] = ta.MASK_BIAS  # a capacity-padding row: every key masked
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    g = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(s), device=dev).to(dt)
+    before = [fn.launches for fn in ma.KERNELS]
+    got = forward_and_grads(ma.masked_attention, q, k, v, bias, g, rate=rate, seed=1234)
+    assert [fn.launches for fn in ma.KERNELS] == [n + 1 for n in before]
+    want = forward_and_grads(ma.masked_attention_dropout_reference, q, k, v, bias, g, rate=rate, seed=1234)
+    tol = F32_RTOL_OF_MAX if dtype == "float32" else BF16_RTOL_OF_MAX
+    for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
+        assert a.dtype == w.dtype, name
+        assert torch.isfinite(a).all(), name
+        assert max_err_of_max(a, w) <= tol, (name, max_err_of_max(a, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [36, 104])
+def test_kernel_mask_is_the_plain_philox(s):
+    dev = _card()
+    mask = read_back_mask(ma.masked_attention, 2, 3, s, 0.3, seed=99, device=dev)
+    assert torch.equal(mask, ta.dropout_keep_mask(99, 2, 3, s, 0.3, dev))
+    assert abs(mask.float().mean().item() - 0.7) < 0.05
+
+
+@pytest.mark.gpu
+def test_adjoint_identity_in_v():
+    """<g, f(v2)> = <vjp_v(g), v2> holds only if the backward regenerates
+    the forward's mask (float32, relative 1e-4)."""
+    dev = _card()
+    q, k, v, bias = (torch.from_numpy(x).to(dev) for x in _inputs(5, 4, 12, 104, 64))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g, v2 = (torch.randn(q.shape, generator=gen, device=dev) for _ in range(2))
+    vv = v.clone().requires_grad_(True)
+    ma.masked_attention(q, k, vv, bias, rate=0.3, seed=77).backward(g)
+    lhs = (g.double() * ma.masked_attention(q, k, v2, bias, rate=0.3, seed=77).double()).sum().item()
+    rhs = (vv.grad.double() * v2.double()).sum().item()
+    assert abs(lhs - rhs) <= 1e-4 * max(abs(lhs), 1.0), (lhs, rhs)
+
+
+@pytest.mark.gpu
+def test_cuda_path_never_calls_the_plain_version(monkeypatch):
+    dev = _card()
+
+    def no_plain(*a, **kw):
+        raise AssertionError("the CUDA path must not call the plain version")
+
+    for name in ("masked_attention_dropout_reference", "masked_attention_reference", "dropped_softmax_attention"):
+        monkeypatch.setattr(ma, name, no_plain)
+    monkeypatch.setattr(ta, "dropout_keep_mask", no_plain)
+    q, k, v, bias = (torch.from_numpy(x).to(dev) for x in _inputs(7, 4, 12, 36, 64))
+    got = forward_and_grads(ma.masked_attention, q, k, v, bias, torch.ones_like(q), rate=0.3, seed=5)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x).all() for x in got)

@@ -326,7 +326,7 @@ def test_init_is_seeded():
         {"sequence_parallel": True},
         {"remat": True},
         {"param_dtype": "bfloat16"},
-        {"text_tower": tiny_model_config().text_tower.__class__(use_pallas_attention=True)},
+        {"dtype": "float16"},
     ],
 )
 def test_unsupported_settings_raise(override):

@@ -140,12 +140,18 @@ def test_scan_step_matches_jax():
     compares them (Adam's first step is lr * g / (|g| + eps): where |g| is
     at the noise floor the sign may flip, so there the gap is only bounded
     by 2 lr)."""
-    jtrainer = JaxTrainer(train_cfg(jconfig, fast_dropout_rng=False), mesh=make_mesh(1, 1), image_shape=IMG)
+    assert_scan_step_matches_jax(train_cfg(jconfig, fast_dropout_rng=False), train_cfg(pconfig))
+
+
+def assert_scan_step_matches_jax(jcfg, pcfg):
+    """The body of ``test_scan_step_matches_jax`` for any pair of equal
+    TrainConfigs (both with every dropout at 0)."""
+    jtrainer = JaxTrainer(jcfg, mesh=make_mesh(1, 1), image_shape=IMG)
     jbatches = list(jtrainer.train_batches(jax_synthetic_dataset(num_graphs=40, seed=0, **SYN), epoch=1))[:3]
     jstate = jtrainer.init_state(jbatches[0].asdict())
     params = jax.device_get(jstate.params)
 
-    ptrainer = Trainer(train_cfg(pconfig), image_shape=IMG, device="cpu")
+    ptrainer = Trainer(pcfg, image_shape=IMG, device="cpu")
     pstate = ptrainer.load_params(ptrainer.init_state(), flax_to_state_dict(params))
     pbatches = list(ptrainer.train_batches(synthetic_dataset(num_graphs=40, seed=0, **SYN), epoch=1))[:3]
     for a, b in zip(pbatches, jbatches):

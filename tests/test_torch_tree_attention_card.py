@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from multimodaldiscussiontransformer_tpu_torch.ops import cuda_lib
 from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
 
 torch.set_num_threads(2)
@@ -50,7 +51,7 @@ def test_cpu_path_never_builds_or_counts(monkeypatch):
     def no_build():
         raise AssertionError("the CPU path must not build the kernel")
 
-    monkeypatch.setattr(ta, "build", no_build)
+    monkeypatch.setattr(cuda_lib, "build", no_build)
     before = [fn.launches for fn in ta.KERNELS]
     _port(_inputs(15, 1, 2, 9, 8))
     assert [fn.launches for fn in ta.KERNELS] == before
@@ -59,9 +60,9 @@ def test_cpu_path_never_builds_or_counts(monkeypatch):
 def test_build_failure_raises(monkeypatch, tmp_path):
     """A compiler that cannot run fails the build loudly."""
     monkeypatch.setenv("NVCC", str(tmp_path / "no-such-nvcc"))
-    monkeypatch.setattr(ta, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(OSError):
-        ta.build()
+        cuda_lib.build()
 
 
 def test_other_devices_raise():

@@ -88,7 +88,7 @@ def test_backward_inputs_checked(name):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
-@pytest.mark.parametrize("s, b", [(33, 4), (129, 2), (257, 1)])
+@pytest.mark.parametrize("s, b", [(33, 4), (129, 2), (257, 1), (601, 1)])  # 601: the streaming sizes
 def test_kernels_match_plain_on_card(dtype, rate, s, b):
     dev = _card()
     dt = getattr(torch, dtype)
@@ -126,7 +126,7 @@ def test_kernel_mask_is_the_plain_philox(s):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s, b", [(33, 4), (257, 1)])
+@pytest.mark.parametrize("s, b", [(33, 4), (257, 1), (601, 1)])
 def test_adjoint_identity_in_v(s, b):
     """<g, f(v2)> = <vjp_v(g), v2> holds only if the backward regenerates
     the forward's mask (float32, relative 1e-4)."""
