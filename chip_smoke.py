@@ -6,10 +6,11 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: compile every kernel library from ``csrc/`` with nvcc (sm_90a;
-   one nvcc per source, all in parallel: the tree-attention forward and
-   backward, the masked (tower) attention forward and backward), report
-   each library's registers and any ptxas spill, and print the card's name
-   and power limit as nvidia-smi reports them.
+   one nvcc per source, all five in parallel: the tree-attention forward
+   and backward, the masked (tower) attention forward and backward, the
+   dense-bias attention forward), report each library's registers and any
+   ptxas spill, and print the card's name and power limit as nvidia-smi
+   reports them.
 2. kernel_vs_plain: the tree-attention forward kernel at rate 0 against its
    plain PyTorch version on the card, at H=12, dh=64, double_add, with
    templates/ids collated from synthetic trees: S=33 (B=16), S=129 and
@@ -33,24 +34,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
    Philox and its kept fraction; the adjoint identity; times of each
    kernel, the plain version, the towers' unfused path (matmul + f32
    softmax + FastDropout + matmul) and SDPA with the key-padding mask.
-5. scoring: the canonical ``ModelConfig()`` at full width with random
+5. biased_vs_plain: the dense-bias attention forward kernel and the
+   Function's gradients (dq, dk, dv, dbias) against the plain version at
+   H=12, dh=64: S=33 (B=16, 12), 129 (B=12), 257 (B=4), 601 and 1025 (B=1),
+   with biases from the port's ``GraphAttnBias.forward`` on collated trees
+   (-inf entries), per-head, head-shared and none, with the key-padding
+   mask, float32 and bfloat16; times of the kernel, the plain version, the
+   graph layer's unfused dense branch and SDPA on the combined bias,
+   beside the least time the card could take.
+6. scoring: the canonical ``ModelConfig()`` at full width with random
    weights from a seeded ``torch.Generator``, scored through
    ``BatchingScorer`` from 4 threads (discussions of ~20, ~100 and 600
    nodes, 100-token text, some nodes with a 3x224x224 image). Checks finite
    probabilities that sum to 1, exactly 10 tree-attention launches per
    forward and no backward launch, and agreement with the same model on the
    CPU (float32) on one small discussion.
-6. scoring_fused: the same weights with both towers fused
+7. scoring_fused: the same weights with both towers fused
    (``use_pallas_attention`` in the tower configs) score the same
    discussions through ``DiscussionScorer``: finite probabilities summing
    to 1, equal to the unfused scorer's (bfloat16 tolerance), exact
    masked-attention launches per forward, no backward launch; in float32
    on one small discussion equal to the unfused CPU scores within 1e-4.
-7. latency: per-request-batch scoring latency at batch 1, 4 and 16, and
+8. latency: per-request-batch scoring latency at batch 1, 4 and 16, and
    the device time of a batch-4 forward (``torch.profiler``) against its
    wall time, beside the host's time to collate that batch and copy it to
    the card.
-8. train, train_fused, train_big: training runs through the launcher's
+9. train, train_fused, train_big: training runs through the launcher's
    flag resolution, ``NodePredictionTask(cfg).build_trainer()`` and
    ``Trainer.fit`` at full width:
    - train: the canonical run (batch 12 x update_freq 3, dropout
@@ -73,11 +82,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
    gradient changed; prints ms per update, discussions/s, MFU against 989
    TFLOP/s, each update's peak memory (statistics reset before every
    update) and the S values seen.
-9. train_cpu_agreement, train_cpu_agreement_fused: one scan update of the
+10. train_cpu_agreement, train_cpu_agreement_fused: one scan update of the
    tiny config with every dropout at 0 in float32, on the card and on the
    CPU, without and with fused towers: gradients and updated parameters
    agree.
-10. launch: ``train.launch.main`` with ``--synthetic --max-updates 2`` on
+11. dense_graph: the dense-bias slice at ``ModelConfig()`` width
+    (GraphNodeFeature -> dense GraphAttnBias -> 5 graph stacks of 2
+    layers, ``use_pallas_attention``, bf16 compute): scoring forwards at
+    S=33 B=16 and one 900-node discussion with exactly 10 dense-bias
+    launches each and no other kernel, finite, near the unfused branch in
+    bf16 and equal to the CPU in float32; AdamW training steps (attention
+    dropout 0, dropout 0.4 / 0.3) at S=33 B=12 and the 900-node discussion
+    with ms per step, peak memory and gradients reaching the bias tables
+    through dbias; one tiny float32 step, card against CPU.
+12. launch: ``train.launch.main`` with ``--synthetic --max-updates 2`` on
     the card returns 0.
 
 The last two lines are the kernels' summary and
@@ -127,8 +145,10 @@ KERNEL_SOURCE = f"{PKG}/csrc/tree_attention_fwd.cu"
 BWD_SOURCE = f"{PKG}/csrc/tree_attention_bwd.cu"
 MASKED_FWD_SOURCE = f"{PKG}/csrc/masked_attention_fwd.cu"
 MASKED_BWD_SOURCE = f"{PKG}/csrc/masked_attention_bwd.cu"
+BIASED_FWD_SOURCE = f"{PKG}/csrc/biased_attention_fwd.cu"
 TPU_KERNELS = "multimodaldiscussiontransformer_tpu/ops/tree_attention.py"
 TPU_MASKED = "multimodaldiscussiontransformer_tpu/ops/masked_attention.py"
+TPU_BIASED = "multimodaldiscussiontransformer_tpu/ops/biased_attention.py"
 
 
 def emit(obj) -> None:
@@ -175,12 +195,14 @@ def timed_ms(fn, iters: int = 20) -> float:
     return dev if dev is not None else time_cuda(fn, iters)
 
 
-def bound(b: int, h: int, s: int, dh: int, dtype_name: str):
-    """(ms, "bytes"|"operations"): each input read once, the output written
-    once, over the HBM rate; 4*B*H*S^2*dh operations over the peak rate of
-    the input type."""
+def bound(b: int, h: int, s: int, dh: int, dtype_name: str, bias_bytes: int):
+    """(ms, "bytes"|"operations") of an attention forward: q, k, v, the
+    output and ``bias_bytes`` (what the kernel reads of the bias: the tree
+    template, ids and LUT; the dense bias and the pad mask), each read or
+    written once, over the HBM rate; 4*B*H*S^2*dh operations over the peak
+    rate of the input type."""
     item = 2 if dtype_name == "bfloat16" else 4
-    nbytes = 4 * b * h * s * dh * item + 2 * b * s * s * 4 + 32 * h * 4
+    nbytes = 4 * b * h * s * dh * item + bias_bytes
     flops = 4 * b * h * s * s * dh
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
@@ -241,13 +263,15 @@ def phase_build():
 def _all_kernels():
     from multimodaldiscussiontransformer_tpu_torch.ops import masked_attention as ma
     from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
+    from multimodaldiscussiontransformer_tpu_torch.ops.biased_attention import KERNELS as biased_kernels
 
-    return ta.KERNELS + ma.KERNELS
+    return ta.KERNELS + ma.KERNELS + biased_kernels
 
 
 KERNEL_NAMES = (
     "tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv",
     "masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv",
+    "biased_attention_fwd",
 )
 
 
@@ -260,15 +284,14 @@ def _zero_counts() -> None:
         fn.launches = 0
 
 
-def compact_inputs(s: int, b: int, h: int, seed: int):
-    """Collated template/ids/lut for ``b`` synthetic trees whose node
-    bucket is s-1."""
+def graph_batch(s: int, b: int, seed: int):
+    """A collated batch of ``b`` synthetic trees whose node bucket is s-1
+    (the first tree fills it; beyond the node ladder the bucket is the
+    largest tree)."""
     import numpy as np
-    import torch
 
     from multimodaldiscussiontransformer_tpu_torch.data.collator import collate
     from multimodaldiscussiontransformer_tpu_torch.data.synthetic import synthetic_item
-    from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
 
     rng = np.random.default_rng(seed)
     n = s - 1
@@ -279,6 +302,17 @@ def compact_inputs(s: int, b: int, h: int, seed: int):
     ]
     batch = collate(items, image_capacity_buckets=(0,))
     assert batch.attn_bias.shape == (b, s, s), batch.attn_bias.shape
+    return batch
+
+
+def compact_inputs(s: int, b: int, h: int, seed: int):
+    """Collated template/ids/lut for ``b`` synthetic trees whose node
+    bucket is s-1."""
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
+
+    batch = graph_batch(s, b, seed)
     g = torch.Generator().manual_seed(seed)
     table = torch.randn(512, h, generator=g)
     virtual = torch.randn(1, h, generator=g)
@@ -316,10 +350,15 @@ def phase_kernel(seed: int):
         # times in the main path's type
         qq, kk, vv = (x.to(torch.bfloat16).contiguous() for x in (q, k, v))
         dense = ta.assemble_bias(template, ids, lut, True).to(torch.bfloat16)
+        dense_c = dense.contiguous()
         calls = {
             "": lambda: ta.tree_attention(qq, kk, vv, template, ids, lut),
             "plain_": lambda: ta.tree_attention_reference(qq, kk, vv, template, ids, lut),
             "library_": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=dense, scale=dh ** -0.5),
+            # assemble_bias returns the (B, H, S, S) bias in a (B, S, S, H)
+            # memory layout; SDPA on a contiguous copy of it
+            "library_contiguous_": lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=dense_c, scale=dh ** -0.5),
         }
         for prefix, fn in calls.items():
             # per call as a caller sees it (host launch work included), and
@@ -328,7 +367,7 @@ def phase_kernel(seed: int):
             row[prefix + "call_ms"] = time_cuda(fn, 200 if s <= 257 else 50)
             row[prefix + "device_ms"] = device_ms(fn)
             row[prefix + "ms"] = row[prefix + "device_ms"] or row[prefix + "call_ms"]
-        row["bound_ms"], row["bound_by"] = bound(b, h, s, dh, "bfloat16")
+        row["bound_ms"], row["bound_by"] = bound(b, h, s, dh, "bfloat16", 2 * b * s * s * 4 + 32 * h * 4)
         row["tolerance"] = {"float32_atol": F32_ATOL, "bfloat16_rtol": BF16_RTOL, "bfloat16_atol": BF16_ATOL}
         emit({"phase": "kernel_vs_plain", **row})
         rows.append(row)
@@ -462,7 +501,7 @@ def phase_scoring(seed: int):
         raise AssertionError(f"GPU float32 scores differ from the CPU's by {err}")
     unfused = {"state": state, "requests": requests, "results": results, "small": small,
                "small_cpu_f32": probs["cpu"], "small_bf16": bf16}
-    return scorer, launches, rng, unfused
+    return scorer, counts, rng, unfused
 
 
 def phase_scoring_fused(unfused):
@@ -902,6 +941,377 @@ def phase_masked(seed: int):
     return rows
 
 
+# the dense-bias kernel: the canonical node buckets at the batch sizes a
+# scoring (16) and a training (12) batch give, and single big discussions
+BIASED_SHAPES = ((33, 16), (33, 12), (129, 12), (257, 4), (601, 1), (1025, 1))
+
+
+def key_padding_mask(batch):
+    """(B, S) bool, True = pad: the graph token's key is always open."""
+    import torch
+
+    grid = batch["grid_mask"]
+    return torch.cat([grid.new_zeros(grid.shape[0], 1), ~grid], dim=1)
+
+
+def dense_biases(batch, dt, seed: int):
+    """{"head": (B, H, S, S), "shared": (B, 1, S, S), "none": None} in ``dt``
+    from the port's ``GraphAttnBias.forward`` on the collated template (its
+    -inf entries included), with N(0, 1) bucket and virtual-distance tables;
+    the shared bias is head 0's plane."""
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.core.config import ModelConfig
+    from multimodaldiscussiontransformer_tpu_torch.models.graphormer import GraphAttnBias
+
+    mod = GraphAttnBias(ModelConfig(), dt).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.normal_(generator=gen)
+        dense = mod(batch["attn_bias"], batch["spatial_pos"])
+    return {"head": dense, "shared": dense[:, :1].contiguous(), "none": None}
+
+
+def phase_biased(seed: int):
+    """The dense-bias forward kernel and the Function's gradients against
+    the plain version; times beside the unfused dense branch and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodaldiscussiontransformer_tpu_torch.data.collator import to_tensors
+    from multimodaldiscussiontransformer_tpu_torch.ops.biased_attention import (
+        MASK_BIAS, biased_attention, biased_attention_fwd, biased_attention_reference, combined_bias,
+    )
+
+    h, dh = 12, 64
+    scale = dh ** -0.5
+    rows = []
+
+    def fwd_and_grads(fn, q, k, v, bias, kpm, g):
+        leaves = [None if x is None else x.detach().clone().requires_grad_(True) for x in (q, k, v, bias)]
+        out = fn(*leaves, kpm)
+        out.backward(g)
+        return [out.detach()] + [None if x is None else x.grad for x in leaves]
+
+    for s, b in BIASED_SHAPES:
+        batch = to_tensors(graph_batch(s, b, seed + 3 * s + b), "cuda")
+        kpm = key_padding_mask(batch)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 5 * s + b)
+        q, k, v, g = (torch.randn(b, h, s, dh, device="cuda", generator=gen) for _ in range(4))
+        row = {"S": s, "B": b, "H": h, "dh": dh, "padded_keys": int(kpm.sum()), "errors": {}}
+        for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            biases = dense_biases(batch, dt, seed + s)
+            qq, kk, vv, gg = (x.to(dt).contiguous() for x in (q, k, v, g))
+            row["errors"][name] = {}
+            for kind, bias in biases.items():
+                got = fwd_and_grads(biased_attention, qq, kk, vv, bias, kpm, gg)
+                want = fwd_and_grads(biased_attention_reference, qq, kk, vv, bias, kpm, gg)
+                torch.cuda.synchronize()
+                err = (got[0].float() - want[0].float()).abs()
+                if name == "float32":
+                    ok = bool((err <= F32_ATOL).all())
+                else:
+                    ok = bool((err <= BF16_ATOL + BF16_RTOL * want[0].float().abs()).all())
+                what = f"dense-bias kernel disagrees at S={s} B={b} {kind} bias {name}"
+                if not (ok and torch.isfinite(got[0]).all()):
+                    raise AssertionError(f"{what}: max err {err.max().item()}")
+                pairs = [(n, a, w) for n, a, w in zip(("dq", "dk", "dv", "dbias"), got[1:], want[1:]) if w is not None]
+                errs = _check_errors([a for _, a, _ in pairs], [w for _, _, w in pairs], [n for n, _, _ in pairs],
+                                     TRAIN_F32_REL if name == "float32" else TRAIN_BF16_REL, what)
+                row["errors"][name][kind] = {"out": err.max().item(), **errs}
+
+        # times in the main path's type, with the per-head bias the graph
+        # layers give
+        biases = dense_biases(batch, torch.bfloat16, seed + s)
+        bias, shared = biases["head"], biases["shared"]
+        qq, kk, vv, gg = (x.to(torch.bfloat16).contiguous() for x in (q, k, v, g))
+        combined = combined_bias(qq, bias, kpm).to(torch.bfloat16)
+
+        def unfused(q_, k_, v_, b_):
+            # the graph layer's plain dense branch (models/graphormer.py)
+            scores = torch.matmul(q_ * scale, k_.transpose(-1, -2)) + b_
+            scores = scores.masked_fill(kpm[:, None, None, :], MASK_BIAS)
+            return torch.matmul(torch.softmax(scores.float(), dim=-1).to(q_.dtype), v_)
+
+        def with_grad(fn, inputs):
+            def run():
+                leaves = [x.detach().requires_grad_(True) for x in inputs]
+                fn(*leaves).backward(gg)
+            return run
+
+        calls = {
+            "fwd": lambda: biased_attention_fwd(qq, kk, vv, bias, kpm, scale),
+            "fwd_shared": lambda: biased_attention_fwd(qq, kk, vv, shared, kpm, scale),
+            "fwd_no_bias": lambda: biased_attention_fwd(qq, kk, vv, None, kpm, scale),
+            "plain_fwd": lambda: biased_attention_reference(qq, kk, vv, bias, kpm, scale),
+            "unfused_fwd": lambda: unfused(qq, kk, vv, bias),
+            "library_fwd": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=combined, scale=scale),
+            "fwd_bwd": with_grad(lambda q_, k_, v_, b_: biased_attention(q_, k_, v_, b_, kpm, scale),
+                                 (qq, kk, vv, bias)),
+            "unfused_fwd_bwd": with_grad(unfused, (qq, kk, vv, bias)),
+            "library_fwd_bwd": with_grad(lambda q_, k_, v_: F.scaled_dot_product_attention(
+                q_, k_, v_, attn_mask=combined, scale=scale), (qq, kk, vv)),
+        }
+        row["ms"] = {name: timed_ms(fn) for name, fn in calls.items()}
+        # the bf16 bias (per head, or shared) and the (B, S) bool pad mask
+        row["bound_ms"], row["bound_by"] = bound(b, h, s, dh, "bfloat16", b * h * s * s * 2 + b * s)
+        row["bound_shared_ms"] = bound(b, h, s, dh, "bfloat16", b * s * s * 2 + b * s)[0]
+        row["tolerance"] = {"float32_atol": F32_ATOL, "bfloat16_rtol": BF16_RTOL, "bfloat16_atol": BF16_ATOL,
+                            "grad_rel_float32": TRAIN_F32_REL, "grad_rel_bfloat16": TRAIN_BF16_REL}
+        emit({"phase": "biased_vs_plain", **row})
+        rows.append(row)
+    return rows
+
+
+def dense_graph_path(cfg, generator=None):
+    """The slice's path from the port's graph modules: ``GraphNodeFeature``
+    -> dense ``GraphAttnBias`` -> the config's live graph stacks (5 of 2
+    layers for ``ModelConfig()``), with ``init_weights`` from ``generator``
+    (float32 parameters, compute in ``cfg.dtype``)."""
+    import torch
+    from torch import nn
+
+    from multimodaldiscussiontransformer_tpu_torch.models.graphormer import (
+        GraphAttnBias, GraphEncoderStack, GraphNodeFeature,
+    )
+    from multimodaldiscussiontransformer_tpu_torch.models.mdt import init_weights
+
+    class DenseGraphPath(nn.Module):
+        def __init__(self):
+            super().__init__()
+            dt = getattr(torch, cfg.dtype)
+            self.config = cfg
+            self.graph_node_feature = GraphNodeFeature(cfg, dt)
+            self.graph_attn_bias = GraphAttnBias(cfg, dt)
+            n_stacks = graph_layers(cfg)[0] // cfg.num_graph_stack
+            self.stacks = nn.ModuleList(GraphEncoderStack(cfg, cfg.num_graph_stack, dt) for _ in range(n_stacks))
+
+        def forward(self, batch, x, deterministic: bool = True):
+            h = self.graph_node_feature(x, batch["in_degree"], batch["out_degree"])
+            bias = self.graph_attn_bias(batch["attn_bias"], batch["spatial_pos"])
+            kpm = key_padding_mask(batch)
+            for stack in self.stacks:
+                h = stack(h, bias, kpm, deterministic)
+            return h
+
+    path = DenseGraphPath()
+    init_weights(path, generator if generator is not None else torch.Generator().manual_seed(0))
+    return path
+
+
+# dense_graph: the fused path against the unfused one in bfloat16, on the
+# layer-normed node states (|x| up to ~4) of 10 post-LN layers. The unfused
+# branch rounds the scores, the probabilities and the product to bf16 in
+# every layer and the fused op rounds only its output, so the two differ by
+# bf16 noise (2^-8 relative per rounding) carried through the stack: a few
+# hundredths; 0.25 is some 16 bf16 steps of a state of 4
+DENSE_BF16_ATOL = 0.25
+DENSE_TRAIN_STEPS = 3
+
+
+def profile_step(fn):
+    """Where one call's device time goes: wall ms (synced), device ms,
+    busy share, the dense-bias kernel's ms and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    events = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "device_busy_share": dev_ms / wall_ms,
+            "biased_attention_ms": sum(e.self_device_time_total for e in events if "biased_attention" in e.key) / 1e3,
+            "device_ops": sum(e.count for e in events),
+            "top_kernels": [{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3, "count": e.count}
+                            for e in events[:8]]}
+
+
+def phase_dense_graph(seed: int):
+    """GraphNodeFeature -> dense GraphAttnBias -> 5 graph stacks of 2 layers
+    at ``ModelConfig()`` width with the fused dense-bias branch: scoring
+    (deterministic) and training (attention dropout 0, dropout 0.4 / 0.3,
+    AdamW) on S = 33 batches and one ~900-node discussion."""
+    import numpy as np
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.core.config import ModelConfig, OptimConfig, tiny_model_config
+    from multimodaldiscussiontransformer_tpu_torch.data.collator import to_tensors
+    from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import dropout_rngs
+    from multimodaldiscussiontransformer_tpu_torch.train.optimizer import make_optimizer
+
+    cfg = ModelConfig()
+    per_forward = graph_layers(cfg)[0]
+    if per_forward != LAUNCHES_PER_FORWARD:
+        raise AssertionError(f"the path runs {per_forward} graph layers, expected {LAUNCHES_PER_FORWARD}")
+    path = dense_graph_path(cfg, torch.Generator().manual_seed(seed)).cuda().eval()
+    state = {k: v.clone() for k, v in path.state_dict().items()}
+
+    def inputs(s, b, salt):
+        batch = to_tensors(graph_batch(s, b, seed + salt), "cuda")
+        gen = torch.Generator().manual_seed(seed + salt)
+        x = torch.randn(b, s - 1, cfg.encoder_embed_dim, generator=gen).cuda().to(torch.bfloat16)
+        return batch, x
+
+    scoring = {"S33_B16": inputs(33, 16, 1), "S901_B1": inputs(901, 1, 2)}
+    with torch.no_grad():
+        for batch, x in scoring.values():  # warm-up, outside the counted run
+            path(batch, x)
+        torch.cuda.synchronize()
+        _zero_counts()
+        outs = {name: path(batch, x) for name, (batch, x) in scoring.items()}
+        torch.cuda.synchronize()
+        counts = dict(zip(KERNEL_NAMES, _counts()))
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["biased_attention_fwd"] = per_forward * len(scoring)
+    if counts != want:
+        raise AssertionError(f"dense-graph scoring launches {counts}, expected {want}")
+
+    unfused = dense_graph_path(cfg.replace(use_pallas_attention=False)).cuda().eval()
+    unfused.load_state_dict(state)
+    score_rows = {}
+    with torch.no_grad():
+        for name, (batch, x) in scoring.items():
+            out = outs[name]
+            if out.shape != (x.shape[0], x.shape[1] + 1, cfg.encoder_embed_dim) or not torch.isfinite(out).all():
+                raise AssertionError(f"dense-graph scoring {name}: bad output {tuple(out.shape)}")
+            ref = unfused(batch, x)
+            err = (out.float() - ref.float()).abs().max().item()
+            score_rows[name] = {
+                "S": x.shape[1] + 1, "B": x.shape[0], "max_abs_err_vs_unfused_bf16": err,
+                "max_abs_unfused": ref.float().abs().max().item(),
+                "forward_ms": time_cuda(lambda: path(batch, x), 10),
+                "unfused_forward_ms": time_cuda(lambda: unfused(batch, x), 10),
+            }
+            if not err <= DENSE_BF16_ATOL:
+                raise AssertionError(f"dense-graph fused bf16 states differ from the unfused ones by {err}")
+
+        # float32: the fused path on the card (TF32 off) against the CPU
+        batch, _ = scoring["S33_B16"]
+        x32 = torch.randn(16, 32, cfg.encoder_embed_dim, generator=torch.Generator().manual_seed(seed))
+        out32 = {}
+        for dev in ("cuda", "cpu"):
+            p32 = dense_graph_path(cfg.replace(dtype="float32")).to(dev).eval()
+            p32.load_state_dict(state)
+            out32[dev] = p32({k: v.to(dev) for k, v in batch.items()}, x32.to(dev)).cpu()
+            del p32
+    err32 = (out32["cuda"] - out32["cpu"]).abs().max().item()
+    del unfused
+    if not err32 <= MODEL_ATOL:
+        raise AssertionError(f"dense-graph float32 card states differ from the CPU's by {err32}")
+
+    # training: attention dropout 0 (the fused branch), dropout 0.4 / 0.3,
+    # a fixed random cotangent as the loss, AdamW from train/optimizer.py
+    tcfg = cfg.replace(attention_dropout=0.0)
+    tpath = dense_graph_path(tcfg).cuda().train()
+    tpath.load_state_dict(state)
+    params = list(tpath.parameters())
+    opt = make_optimizer(OptimConfig(), params)
+    host, device = torch.Generator().manual_seed(seed), torch.Generator(device="cuda").manual_seed(seed)
+    training = {"S33_B12": inputs(33, 12, 3), "S901_B1": inputs(901, 1, 4)}
+    cots = {name: torch.randn(x.shape[0], x.shape[1] + 1, cfg.encoder_embed_dim, device="cuda", generator=device)
+            for name, (_, x) in training.items()}
+    bias_table_names = ("graph_attn_bias.spatial_pos_encoder", "graph_attn_bias.graph_token_virtual_distance")
+
+    def step(name):
+        batch, x = training[name]
+        opt.zero_grad(set_to_none=True)
+        with dropout_rngs(host, device):
+            out = tpath(batch, x, deterministic=False)
+        loss = (out.float() * cots[name]).sum()
+        loss.backward()
+        opt.step()
+        return loss.item()
+
+    for name in training:  # warm-up, outside the counted run
+        step(name)
+    before = {k: v.detach().clone() for k, v in tpath.state_dict().items()}
+    train_rows = {name: {"S": x.shape[1] + 1, "B": x.shape[0], "step_ms": [], "peak_gb": [], "loss": []}
+                  for name, (_, x) in training.items()}
+    torch.cuda.synchronize()
+    _zero_counts()
+    for name in training:
+        for _ in range(DENSE_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            loss = step(name)
+            torch.cuda.synchronize()
+            train_rows[name]["step_ms"].append((time.perf_counter() - t) * 1e3)
+            train_rows[name]["peak_gb"].append(torch.cuda.max_memory_allocated() / 2**30)
+            train_rows[name]["loss"].append(loss)
+        grads = dict(tpath.named_parameters())
+        train_rows[name]["bias_table_grad_max"] = {n: grads[n].grad.abs().max().item() for n in bias_table_names}
+        for n in bias_table_names:
+            gr = grads[n].grad
+            if gr is None or not torch.isfinite(gr).all() or not gr.any():
+                raise AssertionError(f"dense-graph training {name}: no finite nonzero gradient reaches {n}")
+    train_counts = dict(zip(KERNEL_NAMES, _counts()))
+    steps = DENSE_TRAIN_STEPS * len(training)
+    trace = {name: profile_step(lambda: step(name)) for name in training}
+    want_train = dict.fromkeys(KERNEL_NAMES, 0)
+    want_train["biased_attention_fwd"] = per_forward * steps
+    if train_counts != want_train:
+        raise AssertionError(f"dense-graph training launches {train_counts}, expected {want_train}")
+    # a tensor whose gradient is 0 (k_proj's bias: softmax ignores a
+    # constant added to a row's scores) moves only by weight decay
+    after = tpath.state_dict()
+    unchanged = [k for k in before if torch.equal(before[k], after[k]) and grads[k].grad.any()]
+    losses = [x for r in train_rows.values() for x in r["loss"]]
+    if unchanged or not np.isfinite(losses).all():
+        raise AssertionError(f"dense-graph training: unchanged {unchanged[:5]}, losses {losses}")
+    del tpath, opt, before, after, grads
+    torch.cuda.empty_cache()
+
+    # one tiny float32 step with every dropout at 0 (deterministic=False,
+    # attention dropout 0: the fused branch), card against CPU
+    tiny = tiny_model_config(dropout=0.0, attention_dropout=0.0, act_dropout=0.0)
+    tiny_state = dense_graph_path(tiny, torch.Generator().manual_seed(seed + 5)).state_dict()
+    tb = to_tensors(graph_batch(9, 4, seed + 6), "cpu")
+    tx = torch.randn(4, 8, tiny.encoder_embed_dim, generator=torch.Generator().manual_seed(seed + 7))
+    tcot = torch.randn(4, 9, tiny.encoder_embed_dim, generator=torch.Generator().manual_seed(seed + 8))
+    # the loss is a mean, as the node loss is, so that the gradients have
+    # the scale train_cpu_agreement's tolerance was set for
+    tiny_grads, tiny_launches = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = dense_graph_path(tiny).to(dev).train()
+        p.load_state_dict(tiny_state)
+        c0 = _counts()
+        with dropout_rngs(torch.Generator().manual_seed(0), torch.Generator(device=dev).manual_seed(0)):
+            out = p({k: v.to(dev) for k, v in tb.items()}, tx.to(dev), deterministic=False)
+        (out * tcot.to(dev)).mean().backward()
+        tiny_launches[dev] = [a - b for a, b in zip(_counts(), c0)]
+        tiny_grads[dev] = {n: q.grad.cpu() for n, q in p.named_parameters()}
+    bad, tiny_err = [], 0.0
+    for n, gc in tiny_grads["cpu"].items():
+        e = (tiny_grads["cuda"][n] - gc).abs()
+        tiny_err = max(tiny_err, e.max().item())
+        if not (e <= AGREE_GRAD_ATOL + AGREE_GRAD_RTOL * gc.abs()).all():
+            bad.append((n, e.max().item()))
+    tiny_layers = graph_layers(tiny)[0]
+    emit({"phase": "dense_graph",
+          "config": "ModelConfig() graph path (GraphNodeFeature -> dense GraphAttnBias -> 5 graph stacks of 2 "
+                    "layers), d=768, 12 heads, bfloat16 compute over float32 params, use_pallas_attention",
+          "scoring": score_rows, "scoring_launches": counts, "launches_per_forward": per_forward,
+          "bf16_atol_vs_unfused": DENSE_BF16_ATOL, "max_abs_err_f32_vs_cpu": err32, "f32_atol": MODEL_ATOL,
+          "training": {name: {**r, "step_ms_median": float(np.median(r["step_ms"]))} for name, r in train_rows.items()},
+          "training_config": "attention_dropout 0, dropout 0.4, act_dropout 0.3, OptimConfig() AdamW, "
+                             "loss = sum(out * fixed random cotangent)",
+          "training_launches": train_counts,
+          "trace": trace,
+          "tiny_f32_step": {"max_abs_err_grad": tiny_err, "grad_rtol": AGREE_GRAD_RTOL, "grad_atol": AGREE_GRAD_ATOL,
+                            "max_abs_grad": max(g.abs().max().item() for g in tiny_grads["cpu"].values()),
+                            "card_launches": dict(zip(KERNEL_NAMES, tiny_launches["cuda"])),
+                            "cpu_launches": sum(tiny_launches["cpu"])}})
+    if bad or tiny_launches["cuda"][-1] != tiny_layers or any(tiny_launches["cpu"]):
+        raise AssertionError(f"tiny dense-graph step: card and CPU gradients disagree {bad[:5]}; launches {tiny_launches}")
+    return {"scoring": counts, "training": train_counts}
+
+
 def graph_layers(mc):
     """(graph layers a forward runs, graph layers whose backward a node
     loss reaches). The final graph stack feeds only the global embedding,
@@ -917,11 +1327,11 @@ def expected_launches(mc, fused: bool, k: int, images: bool):
     fwd, bwd = graph_layers(mc)
     tree = [k * fwd, k * bwd, k * bwd]
     if not fused:
-        return tree + [0, 0, 0]
+        return tree + [0, 0, 0, 0]
     text_fwd, vit_fwd, text_bwd, vit_bwd = tower_launches(mc)
     m_fwd = k * (text_fwd + (vit_fwd if images else 0))
     m_bwd = k * (text_bwd + (vit_bwd if images else 0))
-    return tree + [m_fwd, m_bwd, m_bwd]
+    return tree + [m_fwd, m_bwd, m_bwd, 0]  # MDTModel never takes the dense-bias branch
 
 
 def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw: dict, timed_updates: int,
@@ -1007,7 +1417,7 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
     total_want = [sum(col) for col in zip(*(r["want"] for r in records))]
     if bad or launches != total_want:
         raise AssertionError(f"{phase}: kernel launches per update (got, expected) {bad}; run {launches} vs {total_want}")
-    if fused and not all(launches[3:]):
+    if fused and not all(launches[3:6]):
         raise AssertionError(f"{phase}: a masked-attention kernel never launched: {launches}")
     losses = [r["loss"] for r in records]
     if not all(np.isfinite(losses)) or len(set(losses)) < 2:
@@ -1217,7 +1627,8 @@ def main(argv=None) -> int:
     rows = phase_kernel(args.seed)
     train_rows = phase_kernel_train(args.seed)
     masked_rows = phase_masked(args.seed)
-    scorer, scoring_launches, rng, unfused = phase_scoring(args.seed)
+    biased_rows = phase_biased(args.seed)
+    scorer, scoring, rng, unfused = phase_scoring(args.seed)
     scoring_fused = phase_scoring_fused(unfused)
     phase_latency(scorer, rng)
     del scorer, unfused
@@ -1230,6 +1641,7 @@ def main(argv=None) -> int:
                           dataset_kw=dict(num_graphs=BIG_GRAPHS, min_nodes=520, max_nodes=1000, image_prob=0.05))
     phase_train_cpu_agreement(args.seed, fused=False)
     phase_train_cpu_agreement(args.seed, fused=True)
+    dense = phase_dense_graph(args.seed)
     phase_launch()
 
     serve_row = rows[0]  # S=33, B=16: the canonical serving shape
@@ -1237,8 +1649,8 @@ def main(argv=None) -> int:
     big_rows = [r for r in train_rows if r["S"] >= 513]
     bf16 = train_row["errors"]["bfloat16"]
     ms = train_row["ms"]
-    by_path = {"train": train, "train_fused": train_fused, "train_big": train_big,
-               "scoring_fused": scoring_fused}
+    by_path = {"scoring": scoring, "train": train, "train_fused": train_fused, "train_big": train_big,
+               "scoring_fused": scoring_fused, "dense_graph": dense["scoring"], "dense_graph_train": dense["training"]}
 
     def paths(name, extra=None):
         out = {path: counts[name] for path, counts in by_path.items()}
@@ -1247,6 +1659,8 @@ def main(argv=None) -> int:
     streaming = [{k: r[k] for k in ("S", "B", "ms", "bound")} for r in big_rows]
     fusion_row = next(r for r in masked_rows if r["shape"] == "text_fusion")
     mms = fusion_row["ms"]
+    serve_biased = biased_rows[0]  # S=33, B=16: the dense graph path's scoring shape
+    bms = serve_biased["ms"]
     print(card, flush=True)
     emit({"kernels": [
         {**_kernel_entry(
@@ -1255,7 +1669,7 @@ def main(argv=None) -> int:
              f"{TPU_KERNELS}:418 (the LSE the forward saves)"],
             train["tree_attention_fwd"], train_row, _worst(train_rows, ("out",)), "fwd", ms["plain_fwd"],
             ms["library_fwd"], "fwd"),
-         "launches_by_path": paths("tree_attention_fwd", {"scoring": scoring_launches}),
+         "launches_by_path": paths("tree_attention_fwd"),
          "serving_rate0": {k: serve_row[k] for k in ("S", "B", "ms", "plain_ms", "library_ms", "bound_ms",
                                                       "max_abs_err_bfloat16")},
          "streaming": streaming, "shapes": train_rows},
@@ -1292,6 +1706,17 @@ def main(argv=None) -> int:
             "dkv"),
          "launches_by_path": paths("masked_attention_bwd_dkv"),
          "note": "plain_ms and library_ms as for masked_attention_bwd_dq"},
+        {"name": "biased_attention_fwd", "route": "cuda", "source": BIASED_FWD_SOURCE, "replaces": f"{TPU_BIASED}:61",
+         "also_replaces": [], "launches": dense["scoring"]["biased_attention_fwd"],
+         "max_abs_err": max(e["out"] for r in biased_rows for e in r["errors"]["bfloat16"].values()),
+         "ms": bms["fwd"], "plain_ms": bms["plain_fwd"], "bound_ms": serve_biased["bound_ms"],
+         "bound_by": serve_biased["bound_by"], "library_ms": bms["library_fwd"],
+         "launches_by_path": paths("biased_attention_fwd"),
+         "note": "launches: the dense_graph scoring run (2 forwards of 10 graph layers); times at S=33, B=16, "
+                 "bf16, per-head (B, H, S, S) bias from GraphAttnBias with the key-padding mask; library_ms is SDPA "
+                 "with the combined bias as a float mask; max_abs_err is the worst bf16 forward error over every "
+                 "shape and bias kind",
+         "shapes": biased_rows},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

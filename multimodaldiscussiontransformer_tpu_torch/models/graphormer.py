@@ -4,14 +4,20 @@
   contributes an exact zero vector, which is how the +1-shifted collator
   encodes padding;
 - softmax runs in float32 whatever the compute dtype;
-- with ``use_pallas_attention`` the graph attention takes the compact
-  (template, ids, lut) bias and runs the tree-attention kernel
-  (``ops/tree_attention.py``); otherwise the dense (B, H, S, S) bias is
-  assembled and attention is plain PyTorch;
-- with ``deterministic=False`` attention dropout on the compact path is the
-  kernel's own (rate ``attention_dropout``, one fresh seed per call from the
-  host generator), on the dense path ``FastDropout`` on the probabilities;
-  ``dropout``/``act_dropout`` sit where the JAX layer has them.
+- the graph attention takes one of three branches, where the JAX layer
+  takes them:
+  - a compact (template, ids, lut) bias (``MDTModel`` with
+    ``use_pallas_attention``) runs the tree-attention kernel
+    (``ops/tree_attention.py``), whose attention dropout is its own (rate
+    ``attention_dropout``, one fresh seed per call from the host
+    generator);
+  - a dense (B, H|1, S, S) bias or none, with ``use_pallas_attention`` and
+    either ``deterministic`` or ``attention_dropout == 0``, runs the fused
+    dense-bias op (``ops/biased_attention.py``, a hand-written kernel on
+    the card);
+  - otherwise attention is plain PyTorch (matmul, f32 softmax, matmul)
+    with ``FastDropout`` on the probabilities;
+- ``dropout``/``act_dropout`` sit where the JAX layer has them.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from multimodaldiscussiontransformer_tpu_torch.models.bert import (
 )
 from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import FastDropout, draw_seed
 from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
+from multimodaldiscussiontransformer_tpu_torch.ops.biased_attention import biased_attention
 
 CompactBias = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -171,6 +178,12 @@ class BiasedMultiheadAttention(nn.Module):
                 q.contiguous(), k.contiguous(), v.contiguous(), template, ids, lut,
                 scale=scaling, double_add=c.double_add_attn_bias,
                 rate=rate, seed=draw_seed() if rate > 0.0 else None,
+            )
+        elif c.use_pallas_attention and (deterministic or c.attention_dropout == 0.0):
+            ctx = biased_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                bias=None if attn_bias is None else attn_bias.contiguous(),
+                key_padding_mask=key_padding_mask, scale=scaling,
             )
         else:
             scores = torch.matmul(q * scaling, k.transpose(-1, -2))

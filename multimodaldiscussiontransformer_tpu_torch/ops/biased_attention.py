@@ -1,0 +1,166 @@
+"""Attention with a dense additive bias, the port's counterpart of the JAX
+package's ``ops/biased_attention.py``.
+
+The graph layer's dense-bias branch computes, per (batch row, head),
+
+    combined = max(f32(bias) + (-1e9 where the key is padded), -1e9)
+    s        = (f32(q) * scale) @ f32(k)^T + combined
+    m        = max(rowmax(s), -1e9),   p = exp(s - m)
+    out      = (p @ f32(v)) / max(sum(p), 1e-30), cast to q's dtype
+
+where ``bias`` is a dense (B, H, S, S) or head-shared (B, 1, S, S) tensor
+in float32 or bfloat16 that may hold -inf (the collator's template), or
+None, and the key-padding mask is (B, S) bool with True = pad. That is the
+Pallas kernel's function (``_fused_kernel`` with ``_combine_bias``).
+
+``biased_attention`` is the one entry point. It runs ``BiasedAttention``,
+an autograd Function whose forward launches ``csrc/biased_attention_fwd.cu``
+on CUDA tensors and runs the plain version ``biased_attention_reference``
+on CPU tensors. The kernel reads the bias in its own dtype (head stride 0
+when shared) and the pad mask, and folds them in registers: the combined
+bias is never materialized. Its backward is the port of JAX's XLA backward
+(``_bwd``): the probabilities are recomputed from the clamped combined bias
+in float32 with torch ops, giving dq, dk, dv and a dbias of the bias's
+shape and dtype (summed over heads for a shared bias); the pad mask gets no
+gradient. CPU and card share that backward. On a CUDA tensor the wrapper
+launches the kernel or raises.
+
+A row whose every key is masked gets equal weights over its S keys, on both
+paths. The kernel takes every S (JAX routes S > 2048 to its XLA reference).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from multimodaldiscussiontransformer_tpu_torch.ops import cuda_lib
+from multimodaldiscussiontransformer_tpu_torch.ops.tree_attention import (
+    DTYPE_CODES,
+    MASK_BIAS,
+    check_kernel_inputs,
+    count_launch,
+    dropped_softmax_attention,
+)
+
+
+def combined_bias(q: torch.Tensor, bias: Optional[torch.Tensor], key_padding_mask: Optional[torch.Tensor]):
+    """The clamped f32 bias the kernel forms in registers: f32(bias) plus
+    -1e9 on padded keys, clamped at MASK_BIAS; broadcastable to (B, H, S,
+    S)."""
+    comb = q.new_zeros((), dtype=torch.float32) if bias is None else bias.float()
+    if key_padding_mask is not None:
+        comb = comb + torch.where(key_padding_mask[:, None, None, :], MASK_BIAS, 0.0)
+    return comb.clamp_min(MASK_BIAS)
+
+
+def biased_attention_reference(
+    q, k, v, bias: Optional[torch.Tensor] = None, key_padding_mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's function, step by step in f32,
+    differentiable by autograd (into q, k, v and bias); the result is cast
+    to q's dtype."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return dropped_softmax_attention(q, k, v, combined_bias(q, bias, key_padding_mask), 0, 0.0, scale)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda_inputs(q, k, v, bias, key_padding_mask) -> None:
+    """What the kernel takes: f32 or bf16 q/k/v of one (B, H, S, DH) shape
+    with DH in (16, 32, 64, 128); a bias of (B, H, S, S) or (B, 1, S, S) in
+    f32 or bf16, or None; a (B, S) bool pad mask or None; all contiguous and
+    on one device."""
+    others = {}
+    if q.dim() == 4:
+        b, h, s, _ = q.shape
+        if bias is not None:
+            if bias.shape not in ((b, h, s, s), (b, 1, s, s)):
+                raise ValueError(f"bias must be {(b, h, s, s)} or {(b, 1, s, s)}, got {tuple(bias.shape)}")
+            if bias.dtype not in DTYPE_CODES:
+                raise TypeError(f"bias must be float32 or bfloat16, got {bias.dtype}")
+            others["bias"] = bias
+        if key_padding_mask is not None:
+            if key_padding_mask.shape != (b, s) or key_padding_mask.dtype != torch.bool:
+                raise ValueError(f"key_padding_mask must be bool {(b, s)}, got {key_padding_mask.dtype} "
+                                 f"{tuple(key_padding_mask.shape)}")
+            others["key_padding_mask"] = key_padding_mask
+    check_kernel_inputs("biased_attention", q, {"k": k, "v": v}, {}, others)
+
+
+def biased_attention_fwd(q, k, v, bias, key_padding_mask, scale: float) -> torch.Tensor:
+    """Launch the forward kernel. ``launches`` counts launches."""
+    _check_cuda_inputs(q, k, v, bias, key_padding_mask)
+    b, h, s, dh = q.shape
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    cuda_lib.launch(
+        "biased_fwd", "biased_attention_fwd", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if key_padding_mask is None else key_padding_mask.data_ptr(),
+        out.data_ptr(), b, h, s, dh, 0 if bias is None else bias.shape[1], float(scale),
+        DTYPE_CODES[q.dtype], DTYPE_CODES[torch.float32 if bias is None else bias.dtype],
+    )
+    count_launch(biased_attention_fwd)
+    return out
+
+
+biased_attention_fwd.launches = 0
+KERNELS = (biased_attention_fwd,)
+
+
+class BiasedAttention(torch.autograd.Function):
+    """The forward kernel (the plain version on CPU tensors) with JAX's
+    rematerialized backward: probabilities recomputed in f32 from the
+    clamped combined bias."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, key_padding_mask, scale: float):
+        if q.device.type == "cuda":
+            out = biased_attention_fwd(q, k, v, bias, key_padding_mask, scale)
+        else:
+            out = biased_attention_reference(q, k, v, bias, key_padding_mask, scale)
+        if any(ctx.needs_input_grad[:4]):
+            ctx.save_for_backward(q, k, v, bias, key_padding_mask)
+            ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, key_padding_mask = ctx.saved_tensors
+        scale = ctx.scale
+        qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+        scores = torch.matmul(qf * scale, kf.transpose(-1, -2)) + combined_bias(q, bias, key_padding_mask)
+        p = torch.softmax(scores, dim=-1)
+        dv = torch.matmul(p.transpose(-1, -2), gf)
+        dp = torch.matmul(gf, vf.transpose(-1, -2))
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        dq = torch.matmul(ds, kf) * scale
+        dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+        dbias = None
+        if bias is not None and ctx.needs_input_grad[3]:
+            dbias = (ds.sum(dim=1, keepdim=True) if bias.shape[1] == 1 else ds).to(bias.dtype)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias, None, None
+
+
+def biased_attention(
+    q: torch.Tensor,  # (B, H, S, DH)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,  # (B, H|1, S, S) additive, may hold -inf
+    key_padding_mask: Optional[torch.Tensor] = None,  # (B, S) bool, True = pad
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Biased attention: the CUDA kernel on CUDA tensors, the plain version
+    on CPU tensors, one backward for both; other devices raise."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"biased_attention runs on cpu or cuda, not {q.device}")
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return BiasedAttention.apply(q, k, v, bias, key_padding_mask, float(scale))
