@@ -6,11 +6,12 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: compile every kernel library from ``csrc/`` with nvcc (sm_90a;
-   one nvcc per source, all five in parallel: the tree-attention forward
-   and backward, the masked (tower) attention forward and backward, the
-   dense-bias attention forward), report each library's registers and any
-   ptxas spill, and print the card's name and power limit as nvidia-smi
-   reports them.
+   one nvcc per source, all six in parallel: the tree-attention forward
+   and backward, the masked (tower) attention forward, its CUDA-core
+   backward pair and its one-pass tensor-core backward, the dense-bias
+   attention forward), report each library's registers and any ptxas
+   spill, and print the card's name and power limit as nvidia-smi reports
+   them.
 2. kernel_vs_plain: the tree-attention forward kernel at rate 0 against its
    plain PyTorch version on the card, at H=12, dh=64, double_add, with
    templates/ids collated from synthetic trees: S=33 (B=16), S=129 and
@@ -24,16 +25,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    version's forward and autograd gradients at S=33 (B=12), 129 (B=4), 257
    (B=2) and the streaming sizes S=601 and 1025 (B=1), at rate 0.3 and 0,
    in float32 and bfloat16; the adjoint identity in v; times of each
-   kernel, the plain version and SDPA. Then dropout_mask: the forward
-   kernel's mask read back equals the plain Philox, and its kept fraction.
+   kernel, the plain version and SDPA (on the permuted bias and on a
+   contiguous copy). Then dropout_mask: the forward kernel's mask read
+   back equals the plain Philox, and its kept fraction.
 4. masked_vs_plain: the tower (masked) attention forward and backward
    kernels against their plain version at the tower shapes (text bottom
    B=256 S=100, text fusion B=256 S=104, ViT fusion B=64 S=201 without a
-   key bias, and a small ragged case B=4 S=36), rate 0.3 and 0, float32
-   and bfloat16; the mask read back (q = k = 0, v = I) against the plain
-   Philox and its kept fraction; the adjoint identity; times of each
-   kernel, the plain version, the towers' unfused path (matmul + f32
-   softmax + FastDropout + matmul) and SDPA with the key-padding mask.
+   key bias) and at ragged S = 1 .. 256 (B=8), with capacity-padding rows
+   (every key masked) in the key bias, rate 0.3 and 0, float32 (the
+   backward's CUDA-core pair) and bfloat16 (its one-pass tensor-core
+   kernel), plus the pair's bf16 errors at the tower shapes; the forward's
+   mask read back (q = k = 0, v = I) and the fused backward's (through dv)
+   against the plain Philox; the adjoint identity; times of each kernel
+   (the fused backward beside the pair), the plain version, the towers'
+   unfused path (matmul + f32 softmax + FastDropout + matmul) and SDPA
+   with the key-padding mask, forward + backward at rate 0 and 0.3.
 5. biased_vs_plain: the dense-bias attention forward kernel and the
    Function's gradients (dq, dk, dv, dbias) against the plain version at
    H=12, dh=64: S=33 (B=16, 12), 129 (B=12), 257 (B=4), 601 and 1025 (B=1),
@@ -77,15 +83,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    in every update (tree attention: 10 graph layers forward and 8 backward
    per microbatch, the last graph stack feeding only the global embedding;
    masked attention: every tower layer forward, the 9 trainable fusion
-   layers of each tower backward, the ViT only where the microbatch has
-   image slots), frozen towers unchanged and every tensor with a nonzero
+   layers of each tower backward through the fused tensor-core kernel in
+   bf16 (the pair at 0), the ViT only where the microbatch has image
+   slots), frozen towers unchanged and every tensor with a nonzero
    gradient changed; prints ms per update, discussions/s, MFU against 989
    TFLOP/s, each update's peak memory (statistics reset before every
    update) and the S values seen.
 10. train_cpu_agreement, train_cpu_agreement_fused: one scan update of the
    tiny config with every dropout at 0 in float32, on the card and on the
    CPU, without and with fused towers: gradients and updated parameters
-   agree.
+   agree (the fused towers' float32 backward runs the pair).
 11. dense_graph: the dense-bias slice at ``ModelConfig()`` width
     (GraphNodeFeature -> dense GraphAttnBias -> 5 graph stacks of 2
     layers, ``use_pallas_attention``, bf16 compute): scoring forwards at
@@ -98,7 +105,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 12. launch: ``train.launch.main`` with ``--synthetic --max-updates 2`` on
     the card returns 0.
 
-The last two lines are the kernels' summary and
+The last two lines are the kernels' summary (eight kernels) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -145,6 +152,7 @@ KERNEL_SOURCE = f"{PKG}/csrc/tree_attention_fwd.cu"
 BWD_SOURCE = f"{PKG}/csrc/tree_attention_bwd.cu"
 MASKED_FWD_SOURCE = f"{PKG}/csrc/masked_attention_fwd.cu"
 MASKED_BWD_SOURCE = f"{PKG}/csrc/masked_attention_bwd.cu"
+MASKED_BWD_MMA_SOURCE = f"{PKG}/csrc/masked_attention_bwd_mma.cu"
 BIASED_FWD_SOURCE = f"{PKG}/csrc/biased_attention_fwd.cu"
 TPU_KERNELS = "multimodaldiscussiontransformer_tpu/ops/tree_attention.py"
 TPU_MASKED = "multimodaldiscussiontransformer_tpu/ops/masked_attention.py"
@@ -270,7 +278,7 @@ def _all_kernels():
 
 KERNEL_NAMES = (
     "tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv",
-    "masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv",
+    "masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv", "masked_attention_bwd_fused",
     "biased_attention_fwd",
 )
 
@@ -662,10 +670,11 @@ H100_BF16_PEAK = 989e12
 
 def work_bounds(b: int, h: int, s: int, dh: int, dtype_name: str, shared_bytes: int, stat_planes: int = 1):
     """{kernel: (ms, "bytes"|"operations")} for an attention forward (with
-    its softmax statistics) and its two backward kernels: each input read
-    once and each output written once over the HBM rate, against the
-    operations of each kernel's function over the peak of its type (fwd 4,
-    dq 6, dkv 8 x B*H*S^2*dh: scores, g.v, and the products each writes).
+    its softmax statistics), its two backward kernels and the one-pass
+    backward: each input read once and each output written once over the
+    HBM rate, against the operations of each kernel's function over the
+    peak of its type (fwd 4, dq 6, dkv 8, one pass 10 x B*H*S^2*dh: scores,
+    g.v, and the products each writes).
     ``shared_bytes`` is what every kernel reads besides q, k, v, g, out and
     the per-row vectors (the tree template, ids and LUT; the towers' key
     bias); ``stat_planes`` f32 values per row hold the statistics (the tree
@@ -678,6 +687,7 @@ def work_bounds(b: int, h: int, s: int, dh: int, dtype_name: str, shared_bytes: 
         "fwd": (4 * qkv + shared_bytes + stats, 4),  # q k v in, out and stats out
         "dq": (6 * qkv + shared_bytes + stats + row, 6),  # q k v out g stats in, dq delta out
         "dkv": (6 * qkv + shared_bytes + stats + row, 8),  # q k v g stats delta in, dk dv out
+        "bwd_fused": (8 * qkv + shared_bytes + stats, 10),  # q k v out g stats in, dq dk dv out
     }
     out = {}
     for name, (nbytes, per) in work.items():
@@ -694,16 +704,16 @@ def _fwd_and_grads(fn, q, k, v, template, ids, lut, g, **kw):
     return [out.detach()] + [x.grad for x in leaves]
 
 
-def _check_errors(got, want, names, tol, what):
+def _check_errors(got, want, names, tol, what, floor: float = 0.0):
     """{name: max abs error, max |ref|}; raise unless finite and within
-    tol x max |ref|."""
+    tol x max(max |ref|, floor)."""
     import torch
 
     errs = {}
     for name, a, w in zip(names, got, want):
         abs_err = (a.float() - w.float()).abs().max().item()
         errs[name] = {"max_abs_err": abs_err, "max_abs_ref": w.float().abs().max().item()}
-        if not (torch.isfinite(a).all() and abs_err <= tol * errs[name]["max_abs_ref"]):
+        if not (torch.isfinite(a).all() and abs_err <= tol * max(errs[name]["max_abs_ref"], floor)):
             raise AssertionError(f"{what} {name}: {errs[name]} (rel tol {tol})")
     return errs
 
@@ -751,16 +761,18 @@ def phase_kernel_train(seed: int):
         out, lse = ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
         _, _, delta = ta.tree_attention_bwd_dq(qq, kk, vv, out, gg, template, ids, lut, lse, scale, True, TRAIN_RATE, dseed)
         dense = ta.assemble_bias(template, ids, lut, True).to(torch.bfloat16)
-        lib_leaves = [x.detach().clone().requires_grad_(True) for x in (qq, kk, vv, dense)]
+        dense_c = dense.contiguous()  # assemble_bias's layout is (B, S, S, H)
 
         def plain_bwd():
             leaves = [x.detach().requires_grad_(True) for x in (qq, kk, vv, lut)]
             o = ta.tree_attention_dropout_reference(leaves[0], leaves[1], leaves[2], template, ids, leaves[3], dseed, TRAIN_RATE, scale)
             o.backward(gg)
 
-        def sdpa_fwd_bwd():
-            o = F.scaled_dot_product_attention(*lib_leaves[:3], attn_mask=lib_leaves[3], scale=scale)
-            o.backward(gg)
+        def sdpa_fwd_bwd(bias):
+            def run():
+                leaves = [x.detach().requires_grad_(True) for x in (qq, kk, vv, bias)]
+                F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=scale).backward(gg)
+            return run
 
         calls = {
             "fwd": lambda: ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed, True),
@@ -769,7 +781,10 @@ def phase_kernel_train(seed: int):
             "plain_fwd": lambda: ta.tree_attention_dropout_reference(qq, kk, vv, template, ids, lut, dseed, TRAIN_RATE, scale),
             "plain_fwd_bwd": plain_bwd,
             "library_fwd": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=dense, dropout_p=TRAIN_RATE, scale=scale),
-            "library_fwd_bwd": sdpa_fwd_bwd,
+            "library_fwd_bwd": sdpa_fwd_bwd(dense),
+            "library_contiguous_fwd": lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=dense_c, dropout_p=TRAIN_RATE, scale=scale),
+            "library_contiguous_fwd_bwd": sdpa_fwd_bwd(dense_c),
         }
         row["ms"] = {name: timed_ms(fn) for name, fn in calls.items()}
         row["ms"]["plain_bwd"] = row["ms"]["plain_fwd_bwd"] - row["ms"]["plain_fwd"]
@@ -801,7 +816,12 @@ def phase_kernel_train(seed: int):
 # canonical text capacity of 256; the ViT carries 196 patches, its CLS
 # token and 4 bottleneck tokens at an image capacity of 64, without a bias
 MASKED_SHAPES = (("text_bottom", 256, 100, True), ("text_fusion", 256, 104, True),
-                 ("vit_fusion", 64, 201, False), ("ragged", 4, 36, True))
+                 ("vit_fusion", 64, 201, False))
+# ragged lengths for the one-pass backward (B = 8, one capacity-padding
+# row): the ends of its range and the edges of its 16-key steps, 64-row
+# tiles and 8-/16-warp blocks
+RAGGED_S = (1, 16, 17, 36, 100, 104, 127, 128, 129, 197, 201, 256)
+RAGGED_B = 8
 MASKED_RATE = 0.3
 
 
@@ -840,8 +860,35 @@ def read_back_mask(ma, b, h, s, dh, rate, seed):
     return torch.cat(chunks, dim=-1)[..., :s]
 
 
+def read_back_bwd_mask(ma, b, h, s, dh, rate, seed):
+    """The one-pass backward's keep mask, read through dv (bf16): with q = k
+    = 0 and no bias every weight is 1/S, so with g one-hot in rows c*dh ..
+    c*dh+dh-1, dv[j, d] = keep[c*dh + d, j] / (S (1 - rate))."""
+    import torch
+
+    zeros = torch.zeros(b, h, s, dh, device="cuda", dtype=torch.bfloat16)
+    chunks = []
+    for c in range(-(-s // dh)):
+        g = torch.zeros(s + dh, dh, device="cuda")
+        g[c * dh: (c + 1) * dh] = torch.eye(dh, device="cuda")
+        v = zeros.clone().requires_grad_(True)
+        ma.masked_attention(zeros, zeros, v, None, seed=seed, rate=rate).backward(
+            g[:s].to(torch.bfloat16).expand(b, h, s, dh).contiguous())
+        chunks.append(v.grad.float().transpose(-1, -2) != 0)
+    return torch.cat(chunks, dim=-2)[..., :s, :]
+
+
+def pair_outputs(ma, q, k, v, bias, g, scale, rate, seed):
+    """out, dq, dk, dv from the forward kernel and the CUDA-core backward
+    pair, called directly (the route sends bf16 elsewhere)."""
+    out, stats = ma.masked_attention_fwd(q, k, v, bias, scale, rate, seed, with_stats=True)
+    dq, delta = ma.masked_attention_bwd_dq(q, k, v, out, g, bias, stats, scale, rate, seed)
+    dk, dv = ma.masked_attention_bwd_dkv(q, k, v, g, bias, stats, delta, scale, rate, seed)
+    return [out, dq, dk, dv]
+
+
 def phase_masked(seed: int):
-    """The tower kernels against their plain version; the mask read back;
+    """The tower kernels against their plain version; the masks read back;
     the adjoint identity; times beside the unfused path and SDPA."""
     import torch
     import torch.nn.functional as F
@@ -853,14 +900,17 @@ def phase_masked(seed: int):
     h, dh = 12, 64
     scale = dh ** -0.5
     rows = []
-    for label, b, s, with_bias in MASKED_SHAPES:
+    shapes = [(*shape, True) for shape in MASKED_SHAPES] + [(f"ragged_{s}", RAGGED_B, s, True, False) for s in RAGGED_S]
+    for label, b, s, with_bias, tower in shapes:
         gen = torch.Generator(device="cuda").manual_seed(seed + 31 * s + b)
         q, k, v, g = (torch.randn(b, h, s, dh, device="cuda", generator=gen) for _ in range(4))
         bias = tower_key_bias(b, s, 4 if "fusion" in label else 0, gen) if with_bias else None
         dseed = seed * 1000003 + 7 * s + b
         row = {"shape": label, "B": b, "S": s, "H": h, "dh": dh, "key_bias": with_bias,
                "fully_masked_rows": 0 if bias is None else int((bias <= ma.MASK_BIAS).all(dim=1).sum()),
-               "rate": MASKED_RATE, "errors": {}, "errors_rate0": {}}
+               "rate": MASKED_RATE, "backward_route": {n: ma.backward_route(getattr(torch, n), dh, s)
+                                                       for n in ("float32", "bfloat16")},
+               "errors": {}, "errors_rate0": {}}
         for rate, key in ((MASKED_RATE, "errors"), (0.0, "errors_rate0")):
             for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
                 qq, kk, vv, gg = (x.to(dt).contiguous() for x in (q, k, v, g))
@@ -875,8 +925,19 @@ def phase_masked(seed: int):
                 want = fwd_bwd(ma.masked_attention_dropout_reference)
                 torch.cuda.synchronize()
                 tol = TRAIN_F32_REL if name == "float32" else TRAIN_BF16_REL
+                # at S = 1 dq and dk are 0 in exact arithmetic (softmax over
+                # one key has no gradient): what remains is the rounding of
+                # g . v / (1 - rate) - g . out, terms of the size of dv
+                floor = want[3].float().abs().max().item() if s == 1 else 0.0
                 row[key][name] = _check_errors(got, want, ("out", "dq", "dk", "dv"), tol,
-                                               f"masked kernels disagree at {label} rate {rate} {name}")
+                                               f"masked kernels disagree at {label} rate {rate} {name}", floor)
+                if tower and name == "bfloat16":
+                    # the pair in bf16 on the same inputs: what the fused
+                    # kernel's bf16 P and dS cost beside the pair's f32
+                    pair = pair_outputs(ma, qq, kk, vv, bias, gg, scale, rate, dseed)
+                    torch.cuda.synchronize()
+                    row[key]["bfloat16_pair"] = _check_errors(pair, want, ("out", "dq", "dk", "dv"), tol,
+                                                              f"masked pair disagrees at {label} rate {rate} bf16")
         if label == "text_fusion":
             # the adjoint identity in v, float32, on 16 of the rows
             q16, k16, v16, g16 = (x[:16].contiguous() for x in (q, k, v, g))
@@ -910,33 +971,49 @@ def phase_masked(seed: int):
                 fn(*leaves).backward(gg)
             return run
 
+        def pair():
+            _, delta_ = ma.masked_attention_bwd_dq(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed)
+            ma.masked_attention_bwd_dkv(qq, kk, vv, gg, bias, stats, delta_, scale, MASKED_RATE, dseed)
+
         calls = {
-            "fwd": lambda: ma.masked_attention_fwd(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True),
-            "fwd_rate0": lambda: ma.masked_attention_fwd(qq, kk, vv, bias, scale),
-            "dq": lambda: ma.masked_attention_bwd_dq(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed),
-            "dkv": lambda: ma.masked_attention_bwd_dkv(qq, kk, vv, gg, bias, stats, delta, scale, MASKED_RATE, dseed),
+            "bwd_fused": lambda: ma.masked_attention_bwd_fused(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed),
+            "pair": pair,
             "plain_fwd": lambda: ma.masked_attention_dropout_reference(qq, kk, vv, bias, dseed, MASKED_RATE, scale),
             "plain_fwd_bwd": with_grad(lambda q_, k_, v_: ma.masked_attention_dropout_reference(q_, k_, v_, bias, dseed, MASKED_RATE, scale)),
-            "unfused_fwd": lambda: unfused(qq, kk, vv),
-            "unfused_fwd_bwd": with_grad(unfused),
-            "library_fwd": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bias4, dropout_p=MASKED_RATE, scale=scale),
-            "library_fwd_bwd": with_grad(lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=bias4, scale=scale)),
+            "library_fwd_bwd_rate": with_grad(lambda q_, k_, v_: F.scaled_dot_product_attention(
+                q_, k_, v_, attn_mask=bias4, dropout_p=MASKED_RATE, scale=scale)),
         }
+        if tower:
+            calls.update({
+                "fwd": lambda: ma.masked_attention_fwd(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True),
+                "fwd_rate0": lambda: ma.masked_attention_fwd(qq, kk, vv, bias, scale),
+                "dq": lambda: ma.masked_attention_bwd_dq(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed),
+                "dkv": lambda: ma.masked_attention_bwd_dkv(qq, kk, vv, gg, bias, stats, delta, scale, MASKED_RATE, dseed),
+                "unfused_fwd": lambda: unfused(qq, kk, vv),
+                "unfused_fwd_bwd": with_grad(unfused),
+                "library_fwd": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bias4, dropout_p=MASKED_RATE, scale=scale),
+                "library_fwd_bwd": with_grad(lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=bias4, scale=scale)),
+            })
         row["ms"] = {name: timed_ms(fn) for name, fn in calls.items()}
         row["ms"]["plain_bwd"] = row["ms"]["plain_fwd_bwd"] - row["ms"]["plain_fwd"]
         row["bound"] = work_bounds(b, h, s, dh, "bfloat16", 0 if bias is None else b * s * 4, stat_planes=2)
+        row["fused_vs_pair"] = row["ms"]["pair"] / row["ms"]["bwd_fused"]
         emit({"phase": "masked_vs_plain", **row})
         rows.append(row)
 
-    # the forward kernel's mask read back against the plain Philox
+    # the forward kernel's mask, and the fused backward's, read back
+    # against the plain Philox
     masks = {}
     for s, b in ((104, 8), (201, 2)):
+        plain = ta.dropout_keep_mask(seed + 101, b, h, s, MASKED_RATE, "cuda")
         mask = read_back_mask(ma, b, h, s, dh, MASKED_RATE, seed + 101)
-        masks[str(s)] = {"B": b, "equals_plain_philox": bool(torch.equal(mask, ta.dropout_keep_mask(seed + 101, b, h, s, MASKED_RATE, "cuda"))),
+        bwd_mask = read_back_bwd_mask(ma, b, h, s, dh, MASKED_RATE, seed + 101)
+        masks[str(s)] = {"B": b, "equals_plain_philox": bool(torch.equal(mask, plain)),
+                         "bwd_fused_equals_plain_philox": bool(torch.equal(bwd_mask, plain)),
                          "kept_fraction": mask.float().mean().item()}
     emit({"phase": "masked_dropout_mask", "H": h, "rate": MASKED_RATE, "by_S": masks})
     for m in masks.values():
-        if not m["equals_plain_philox"] or abs(m["kept_fraction"] - (1 - MASKED_RATE)) > 0.02:
+        if not (m["equals_plain_philox"] and m["bwd_fused_equals_plain_philox"]) or abs(m["kept_fraction"] - (1 - MASKED_RATE)) > 0.02:
             raise AssertionError(f"masked kernel mask: {masks}")
     return rows
 
@@ -1321,17 +1398,31 @@ def graph_layers(mc):
     return fwd, mc.num_graph_stack * (mc.num_fusion_stacks - 1)
 
 
-def expected_launches(mc, fused: bool, k: int, images: bool):
+def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int):
     """Launches of every kernel (KERNEL_NAMES order) in one update of k
-    microbatches, from the config."""
+    microbatches of ``text_len``-token text, from the config. Each tower's
+    backward takes the one-pass kernel or the pair, as
+    ``backward_route`` says for the compute dtype, the tower's head dim and
+    its fusion-layer length (tokens + bottleneck)."""
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.ops.masked_attention import backward_route
+
     fwd, bwd = graph_layers(mc)
     tree = [k * fwd, k * bwd, k * bwd]
     if not fused:
-        return tree + [0, 0, 0, 0]
+        return tree + [0, 0, 0, 0, 0]
     text_fwd, vit_fwd, text_bwd, vit_bwd = tower_launches(mc)
     m_fwd = k * (text_fwd + (vit_fwd if images else 0))
-    m_bwd = k * (text_bwd + (vit_bwd if images else 0))
-    return tree + [m_fwd, m_bwd, m_bwd, 0]  # MDTModel never takes the dense-bias branch
+    pair = fused_bwd = 0
+    extra = mc.num_bottleneck_tokens
+    for n, tower, s in ((text_bwd, mc.text_tower, text_len + extra),
+                        (vit_bwd if images else 0, mc.image_tower, mc.image_tower.seq_len + extra)):
+        if backward_route(getattr(torch, mc.dtype), tower.head_dim, s) == "fused":
+            fused_bwd += k * n
+        else:
+            pair += k * n
+    return tree + [m_fwd, pair, pair, fused_bwd, 0]  # MDTModel never takes the dense-bias branch
 
 
 def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw: dict, timed_updates: int,
@@ -1391,7 +1482,7 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
         records.append({
             "start": start, "end": end, "launches": [a - b for a, b in zip(_counts(), c0)],
             "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
-            "want": expected_launches(mc, fused, k, group["images"].shape[1] > 0),
+            "want": expected_launches(mc, fused, k, group["images"].shape[1] > 0, group["input_ids"].shape[2]),
             "loss": float(logs["loss"]) / max(float(logs["sample_size"]), 1.0), "gnorm": float(logs["gnorm"]),
             "graphs": int((group["idx"] >= 0).sum()), "flops": flops,
             "shapes": {"S": int(group["in_degree"].shape[2]) + 1, "C": int(group["input_ids"].shape[1]),
@@ -1417,8 +1508,9 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
     total_want = [sum(col) for col in zip(*(r["want"] for r in records))]
     if bad or launches != total_want:
         raise AssertionError(f"{phase}: kernel launches per update (got, expected) {bad}; run {launches} vs {total_want}")
-    if fused and not all(launches[3:6]):
-        raise AssertionError(f"{phase}: a masked-attention kernel never launched: {launches}")
+    by_name = dict(zip(KERNEL_NAMES, launches))
+    if fused and not (by_name["masked_attention_fwd"] and by_name["masked_attention_bwd_fused"]):
+        raise AssertionError(f"{phase}: a masked-attention kernel never launched: {by_name}")
     losses = [r["loss"] for r in records]
     if not all(np.isfinite(losses)) or len(set(losses)) < 2:
         raise AssertionError(f"{phase}: loss series not finite or constant: {losses}")
@@ -1533,16 +1625,16 @@ def phase_train_cpu_agreement(seed: int, fused: bool):
         trainer = Trainer(cfg, image_shape=img, device=dev)
         state = trainer.init_state()
         group = next(iter(stack_microbatches(trainer.train_batches(ds, 1), 3)))
-        c0 = _counts()
+        _zero_counts()
         logs = trainer.train_step(state, group, return_grads=True)
         out[dev] = {
             "grads": {k: v.cpu() for k, v in logs["grads"].items()},
             "params": {k: v.detach().cpu() for k, v in state.model.named_parameters()},
-            "launches": [a - b for a, b in zip(_counts(), c0)],
+            "launches": _counts(),
             "loss": float(logs["loss"]),
         }
         lr0 = trainer.lr_schedule()(0)
-    want = expected_launches(m, fused, 3, group["images"].shape[1] > 0)
+    want = expected_launches(m, fused, 3, group["images"].shape[1] > 0, group["input_ids"].shape[2])
     if out["cuda"]["launches"] != want or any(out["cpu"]["launches"]):
         raise AssertionError(f"card update launched {out['cuda']['launches']}, expected {want}; cpu {out['cpu']['launches']}")
     grad_err, param_err, small_err, bad = 0.0, 0.0, 0.0, []
@@ -1572,6 +1664,7 @@ def phase_train_cpu_agreement(seed: int, fused: bool):
                         "param_atol": AGREE_PARAM_ATOL, "param_small_grad_atol": 2.05 * lr0}})
     if bad:
         raise AssertionError(f"card and CPU updates disagree: {bad[:5]}")
+    return dict(zip(KERNEL_NAMES, out["cuda"]["launches"]))
 
 
 def phase_launch():
@@ -1610,6 +1703,14 @@ def _worst(rows, outputs):
     return max(r[k]["bfloat16"][o]["max_abs_err"] for r in rows for k in ("errors", "errors_rate0") for o in outputs)
 
 
+def _worst_pair(rows, outputs):
+    """The CUDA-core pair's largest max-abs error of ``outputs``: its
+    float32 checks at every shape and its bf16 checks at the tower shapes,
+    both rates."""
+    return max(r[k][name][o]["max_abs_err"] for r in rows for k in ("errors", "errors_rate0")
+               for name in ("float32", "bfloat16_pair") if name in r[k] for o in outputs)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1640,7 +1741,7 @@ def main(argv=None) -> int:
     train_big = run_train(args.seed, "train_big", batch_size=1, fused=True, timed_updates=BIG_TIMED_UPDATES, trace=True,
                           dataset_kw=dict(num_graphs=BIG_GRAPHS, min_nodes=520, max_nodes=1000, image_prob=0.05))
     phase_train_cpu_agreement(args.seed, fused=False)
-    phase_train_cpu_agreement(args.seed, fused=True)
+    agree_fused = phase_train_cpu_agreement(args.seed, fused=True)  # float32: the pair's path
     dense = phase_dense_graph(args.seed)
     phase_launch()
 
@@ -1650,7 +1751,8 @@ def main(argv=None) -> int:
     bf16 = train_row["errors"]["bfloat16"]
     ms = train_row["ms"]
     by_path = {"scoring": scoring, "train": train, "train_fused": train_fused, "train_big": train_big,
-               "scoring_fused": scoring_fused, "dense_graph": dense["scoring"], "dense_graph_train": dense["training"]}
+               "scoring_fused": scoring_fused, "train_cpu_agreement_fused": agree_fused,
+               "dense_graph": dense["scoring"], "dense_graph_train": dense["training"]}
 
     def paths(name, extra=None):
         out = {path: counts[name] for path, counts in by_path.items()}
@@ -1658,6 +1760,7 @@ def main(argv=None) -> int:
 
     streaming = [{k: r[k] for k in ("S", "B", "ms", "bound")} for r in big_rows]
     fusion_row = next(r for r in masked_rows if r["shape"] == "text_fusion")
+    vit_row = next(r for r in masked_rows if r["shape"] == "vit_fusion")
     mms = fusion_row["ms"]
     serve_biased = biased_rows[0]  # S=33, B=16: the dense graph path's scoring shape
     bms = serve_biased["ms"]
@@ -1668,7 +1771,7 @@ def main(argv=None) -> int:
             [f"{TPU_KERNELS}:973", f"{TPU_KERNELS}:103", f"{TPU_KERNELS}:66", f"{TPU_KERNELS}:228",
              f"{TPU_KERNELS}:418 (the LSE the forward saves)"],
             train["tree_attention_fwd"], train_row, _worst(train_rows, ("out",)), "fwd", ms["plain_fwd"],
-            ms["library_fwd"], "fwd"),
+            ms["library_contiguous_fwd"], "fwd"),
          "launches_by_path": paths("tree_attention_fwd"),
          "serving_rate0": {k: serve_row[k] for k in ("S", "B", "ms", "plain_ms", "library_ms", "bound_ms",
                                                       "max_abs_err_bfloat16")},
@@ -1676,15 +1779,15 @@ def main(argv=None) -> int:
         {**_kernel_entry(
             "tree_attention_bwd_dq", BWD_SOURCE, f"{TPU_KERNELS}:1148", [f"{TPU_KERNELS}:1007", f"{TPU_KERNELS}:468"],
             train["tree_attention_bwd_dq"], train_row, _worst(train_rows, ("dq", "dlut")), "dq",
-            ms["plain_bwd"], ms["library_fwd_bwd"], "dq"),
+            ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dq"),
          "launches_by_path": paths("tree_attention_bwd_dq"),
          "note": "plain_ms is the plain version's whole autograd backward (dq, dk, dv, dlut); "
-                 "library_ms is SDPA forward + backward at rate 0 on the dense bias; max_abs_err is the worst "
-                 "bf16 error over every shape and both rates"},
+                 "library_ms is SDPA forward + backward at rate 0 on a contiguous copy of the dense bias; "
+                 "max_abs_err is the worst bf16 error over every shape and both rates"},
         {**_kernel_entry(
             "tree_attention_bwd_dkv", BWD_SOURCE, f"{TPU_KERNELS}:1148", [f"{TPU_KERNELS}:1007", f"{TPU_KERNELS}:558"],
             train["tree_attention_bwd_dkv"], train_row, _worst(train_rows, ("dk", "dv")), "dkv",
-            ms["plain_bwd"], ms["library_fwd_bwd"], "dkv"),
+            ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dkv"),
          "launches_by_path": paths("tree_attention_bwd_dkv"),
          "note": "plain_ms and library_ms as for tree_attention_bwd_dq"},
         {**_kernel_entry(
@@ -1695,17 +1798,30 @@ def main(argv=None) -> int:
                  "library_ms is SDPA with the key-padding bias and dropout 0.3",
          "shapes": masked_rows},
         {**_kernel_entry(
-            "masked_attention_bwd_dq", MASKED_BWD_SOURCE, f"{TPU_MASKED}:134", [], train_big["masked_attention_bwd_dq"],
-            fusion_row, _worst(masked_rows, ("dq",)), "dq", mms["plain_bwd"], mms["library_fwd_bwd"], "dq"),
+            "masked_attention_bwd_dq", MASKED_BWD_SOURCE, f"{TPU_MASKED}:134", [], agree_fused["masked_attention_bwd_dq"],
+            fusion_row, _worst_pair(masked_rows, ("dq",)), "dq", mms["plain_bwd"], mms["library_fwd_bwd"], "dq"),
          "launches_by_path": paths("masked_attention_bwd_dq"),
-         "note": "plain_ms is the plain version's whole autograd backward (dq, dk, dv); library_ms is SDPA "
-                 "forward + backward at rate 0 with the key-padding bias"},
+         "note": "the float32 route (and other DH, S > 256): launches from train_cpu_agreement_fused, 0 on the bf16 "
+                 "paths; times on bf16 inputs at the text-fusion shape; plain_ms is the plain version's whole "
+                 "autograd backward (dq, dk, dv); library_ms is SDPA forward + backward at rate 0 with the "
+                 "key-padding bias; max_abs_err over its float32 checks and its bf16 checks at the tower shapes"},
         {**_kernel_entry(
-            "masked_attention_bwd_dkv", MASKED_BWD_SOURCE, f"{TPU_MASKED}:134", [], train_big["masked_attention_bwd_dkv"],
-            fusion_row, _worst(masked_rows, ("dk", "dv")), "dkv", mms["plain_bwd"], mms["library_fwd_bwd"],
+            "masked_attention_bwd_dkv", MASKED_BWD_SOURCE, f"{TPU_MASKED}:134", [], agree_fused["masked_attention_bwd_dkv"],
+            fusion_row, _worst_pair(masked_rows, ("dk", "dv")), "dkv", mms["plain_bwd"], mms["library_fwd_bwd"],
             "dkv"),
          "launches_by_path": paths("masked_attention_bwd_dkv"),
-         "note": "plain_ms and library_ms as for masked_attention_bwd_dq"},
+         "note": "as for masked_attention_bwd_dq"},
+        {**_kernel_entry(
+            "masked_attention_bwd_fused", MASKED_BWD_MMA_SOURCE, f"{TPU_MASKED}:134", [],
+            train_big["masked_attention_bwd_fused"], fusion_row, _worst(masked_rows, ("dq", "dk", "dv")), "bwd_fused",
+            mms["plain_bwd"], mms["library_fwd_bwd_rate"], "bwd_fused"),
+         "launches_by_path": paths("masked_attention_bwd_fused"),
+         "pair_ms": mms["pair"],
+         "vit_fusion": {k: vit_row[k] for k in ("B", "S", "ms", "bound")},
+         "note": "the bf16 route (DH 64, S <= 256): launches from train_big; times at the text-fusion shape "
+                 "(B=256, S=104), rate 0.3; pair_ms is the CUDA-core pair (dq + dk/dv) on the same inputs; "
+                 "library_ms is SDPA forward + backward at rate 0.3 with the key-padding bias; max_abs_err is the "
+                 "worst bf16 error of dq, dk, dv over every shape and both rates"},
         {"name": "biased_attention_fwd", "route": "cuda", "source": BIASED_FWD_SOURCE, "replaces": f"{TPU_BIASED}:61",
          "also_replaces": [], "launches": dense["scoring"]["biased_attention_fwd"],
          "max_abs_err": max(e["out"] for r in biased_rows for e in r["errors"]["bfloat16"].values()),

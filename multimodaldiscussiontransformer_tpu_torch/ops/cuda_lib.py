@@ -32,6 +32,7 @@ SOURCES = {
     "tree_bwd": CSRC / "tree_attention_bwd.cu",
     "masked_fwd": CSRC / "masked_attention_fwd.cu",
     "masked_bwd": CSRC / "masked_attention_bwd.cu",
+    "masked_bwd_mma": CSRC / "masked_attention_bwd_mma.cu",
     "biased_fwd": CSRC / "biased_attention_fwd.cu",
 }
 HEADERS = (CSRC / "tree_attention_common.cuh",)
@@ -52,6 +53,7 @@ ENTRY_POINTS = {
     "tree_bwd": {"tree_attention_bwd_dq": [_P] * 12 + _TREE_TAIL, "tree_attention_bwd_dkv": [_P] * 11 + _TREE_TAIL},
     "masked_fwd": {"masked_attention_fwd": [_P] * 6 + _MASKED_TAIL},
     "masked_bwd": {"masked_attention_bwd_dq": [_P] * 9 + _MASKED_TAIL, "masked_attention_bwd_dkv": [_P] * 9 + _MASKED_TAIL},
+    "masked_bwd_mma": {"masked_attention_bwd_mma": [_P] * 10 + _MASKED_TAIL},
     # (q, k, v, bias, pad, out, B, H, S, DH, bias_heads, scale, dtype, bias_dtype, stream)
     "biased_fwd": {"biased_attention_fwd": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P]},
 }
@@ -60,6 +62,7 @@ ERROR_STRINGS = {
     "tree_bwd": "tree_attention_bwd_error_string",
     "masked_fwd": "masked_attention_fwd_error_string",
     "masked_bwd": "masked_attention_bwd_error_string",
+    "masked_bwd_mma": "masked_attention_bwd_mma_error_string",
     "biased_fwd": "biased_attention_fwd_error_string",
 }
 

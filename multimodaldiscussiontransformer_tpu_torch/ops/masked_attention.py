@@ -16,10 +16,14 @@ by autograd). On CUDA tensors it runs ``MaskedAttention``, an autograd
 Function whose forward launches ``csrc/masked_attention_fwd.cu`` (saving
 the output and the per-row softmax statistics, the row max and the log of
 the row sum, only when an input wants a gradient, so the frozen bottom
-towers save nothing) and whose backward launches the
-two kernels of ``csrc/masked_attention_bwd.cu``: dq, then dk and dv. The
-kernels are built and bound by ``ops/cuda_lib.py``; on a CUDA tensor the
-wrapper launches them or raises.
+towers save nothing) and whose backward takes one of two kernels, by dtype
+and shape (``backward_route``): bf16 at DH = 64 and S <= 256, every tower
+shape of the model, goes to ``csrc/masked_attention_bwd_mma.cu`` (dq, dk
+and dv in one tensor-core pass); float32, other DH and longer S go to the
+two CUDA-core kernels of ``csrc/masked_attention_bwd.cu`` (dq, then dk and
+dv), whose f32 products hold the float32 tolerances that bf16 rounding of
+p and ds would break. The kernels are built and bound by
+``ops/cuda_lib.py``; on a CUDA tensor the wrapper launches them or raises.
 
 A row whose every key is masked (a capacity-padding text row in the bottom
 tower) gets equal weights over its S keys, on both paths.
@@ -159,16 +163,61 @@ def masked_attention_bwd_dkv(
     return dk, dv
 
 
-for _fn in (masked_attention_fwd, masked_attention_bwd_dq, masked_attention_bwd_dkv):
+# the one-pass tensor-core backward takes these; see ``backward_route``
+FUSED_BWD_DTYPE = torch.bfloat16
+FUSED_BWD_HEAD_DIM = 64
+FUSED_BWD_MAX_S = 256
+
+
+def backward_route(dtype: torch.dtype, head_dim: int, s: int) -> str:
+    """Which backward the CUDA path launches for q of this dtype, head dim
+    and length: "fused" (``masked_attention_bwd_fused``, one tensor-core
+    pass) for bf16 at DH = 64 and S <= 256, else "pair"
+    (``masked_attention_bwd_dq`` then ``masked_attention_bwd_dkv``, f32 on
+    CUDA cores). A choice between two kernels, not a fallback: either
+    raises if it fails."""
+    fused = dtype == FUSED_BWD_DTYPE and head_dim == FUSED_BWD_HEAD_DIM and 1 <= s <= FUSED_BWD_MAX_S
+    return "fused" if fused else "pair"
+
+
+def masked_attention_bwd_fused(
+    q, k, v, out, g, key_bias, stats, scale: float, rate: float = 0.0, seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the one-pass tensor-core backward kernel: (dq, dk, dv). Takes
+    CUDA tensors that ``backward_route`` sends to "fused" only."""
+    _check_cuda_inputs(q, k, v, key_bias, out=out, g=g, stats=stats)
+    b, h, s, dh = q.shape
+    if backward_route(q.dtype, dh, s) != "fused":
+        raise ValueError(
+            f"the fused backward takes {FUSED_BWD_DTYPE} at DH={FUSED_BWD_HEAD_DIM} and S <= {FUSED_BWD_MAX_S}, "
+            f"got {q.dtype} DH={dh} S={s}"
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"the fused backward runs on cuda, not {q.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    cuda_lib.launch(
+        "masked_bwd_mma", "masked_attention_bwd_mma", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(), _ptr(key_bias),
+        stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, s, dh, float(scale), *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
+    )
+    count_launch(masked_attention_bwd_fused)
+    return dq, dk, dv
+
+
+KERNELS = (masked_attention_fwd, masked_attention_bwd_dq, masked_attention_bwd_dkv, masked_attention_bwd_fused)
+for _fn in KERNELS:
     _fn.launches = 0
-KERNELS = (masked_attention_fwd, masked_attention_bwd_dq, masked_attention_bwd_dkv)
 
 
 class MaskedAttention(torch.autograd.Function):
     """The kernels as one differentiable op. The forward saves its inputs,
     the output and the per-row softmax statistics only when q, k or v wants
-    a gradient; the backward regenerates the dropout mask from the seed. The
-    key bias gets no gradient."""
+    a gradient; the backward takes the kernel(s) ``backward_route`` names
+    and regenerates the dropout mask from the seed. The key bias gets no
+    gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, seed: int, rate: float, scale: float):
@@ -184,8 +233,11 @@ class MaskedAttention(torch.autograd.Function):
         q, k, v, key_bias, out, stats = ctx.saved_tensors
         scale, rate, seed = ctx.args
         g = g.contiguous()
-        dq, delta = masked_attention_bwd_dq(q, k, v, out, g, key_bias, stats, scale, rate, seed)
-        dk, dv = masked_attention_bwd_dkv(q, k, v, g, key_bias, stats, delta, scale, rate, seed)
+        if backward_route(q.dtype, q.shape[-1], q.shape[2]) == "fused":
+            dq, dk, dv = masked_attention_bwd_fused(q, k, v, out, g, key_bias, stats, scale, rate, seed)
+        else:
+            dq, delta = masked_attention_bwd_dq(q, k, v, out, g, key_bias, stats, scale, rate, seed)
+            dk, dv = masked_attention_bwd_dkv(q, k, v, g, key_bias, stats, delta, scale, rate, seed)
         return dq, dk, dv, None, None, None, None
 
 

@@ -12,7 +12,8 @@ package are in ``test_torch_masked_attention.py``.
 
 Tolerances on the card, as for the tree-attention kernels: float32 with
 TF32 off, 1e-4 x max|ref| (sums in other orders); bfloat16, 1e-2 x max|ref|
-(the kernels round out and g to bf16 before forming g . out, and every
+(the kernels round out and g to bf16 before forming g . out, the one-pass
+backward rounds p and ds to bf16 before its second products, and every
 output is rounded to bf16).
 """
 
@@ -71,8 +72,16 @@ def read_back_mask(fn, b, h, s, rate, seed, device, dh=16):
     return torch.cat(chunks, dim=-1)[..., :s]
 
 
-def max_err_of_max(got, want):
-    return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30)).item()
+def max_err_of_max(got, want, floor=1e-30):
+    """max |got - want| over max(max |want|, floor)."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(floor)).item()
+
+
+def expected_launches(dtype, s, dh=64):
+    """Launches of ma.KERNELS (fwd, dq, dkv, fused) for one forward and
+    backward, by the backward's route."""
+    fused = ma.backward_route(dtype, dh, s) == "fused"
+    return [1, 0, 0, 1] if fused else [1, 1, 1, 0]
 
 
 def test_build_failure_raises(monkeypatch, tmp_path):
@@ -130,6 +139,99 @@ def test_kernel_input_checks(fault):
     ma._check_cuda_inputs(*(torch.from_numpy(x) for x in _inputs(3, 2, 2, 9, 64)))
 
 
+@pytest.mark.parametrize(
+    "dtype, dh, s, route",
+    [
+        (torch.bfloat16, 64, 100, "fused"),  # text bottom
+        (torch.bfloat16, 64, 104, "fused"),  # text fusion
+        (torch.bfloat16, 64, 201, "fused"),  # ViT fusion
+        (torch.bfloat16, 64, 1, "fused"),
+        (torch.bfloat16, 64, 256, "fused"),
+        (torch.bfloat16, 64, 257, "pair"),  # longer S
+        (torch.bfloat16, 32, 104, "pair"),  # other DH
+        (torch.bfloat16, 128, 104, "pair"),
+        (torch.float32, 64, 104, "pair"),  # f32: the card-vs-CPU steps' tolerances
+    ],
+)
+def test_backward_route(dtype, dh, s, route):
+    assert ma.backward_route(dtype, dh, s) == route
+
+
+@pytest.mark.parametrize("dtype, dh, s", [(torch.bfloat16, 64, 104), (torch.float32, 64, 104), (torch.bfloat16, 32, 40)])
+def test_backward_launches_the_routed_kernels(monkeypatch, dtype, dh, s):
+    """``MaskedAttention.backward`` calls the fused kernel or the pair as
+    ``backward_route`` says, with the forward's saved tensors. The kernels
+    are stood in for on CPU tensors."""
+    calls = []
+
+    def fake_fwd(q, k, v, key_bias, scale, rate, seed, with_stats):
+        return ma.masked_attention_dropout_reference(q, k, v, key_bias, seed, rate, scale), torch.zeros((2,) + q.shape[:3])
+
+    def fake_fused(q, k, v, out, g, key_bias, stats, scale, rate, seed):
+        calls.append("fused")
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+
+    def fake_dq(q, k, v, out, g, key_bias, stats, scale, rate, seed):
+        calls.append("dq")
+        return torch.zeros_like(q), torch.zeros(q.shape[:3])
+
+    def fake_dkv(q, k, v, g, key_bias, stats, delta, scale, rate, seed):
+        calls.append("dkv")
+        return torch.zeros_like(k), torch.zeros_like(v)
+
+    for name, fn in (("masked_attention_fwd", fake_fwd), ("masked_attention_bwd_fused", fake_fused),
+                     ("masked_attention_bwd_dq", fake_dq), ("masked_attention_bwd_dkv", fake_dkv)):
+        monkeypatch.setattr(ma, name, fn)
+    q, k, v, bias = (torch.from_numpy(x) for x in _inputs(6, 2, 2, s, dh))
+    q, k, v = (x.to(dtype).requires_grad_(True) for x in (q, k, v))
+    ma.MaskedAttention.apply(q, k, v, bias, 3, 0.2, dh ** -0.5).float().sum().backward()
+    assert calls == (["fused"] if ma.backward_route(dtype, dh, s) == "fused" else ["dq", "dkv"])
+    assert q.grad.dtype == dtype and k.grad.shape == k.shape
+
+
+@pytest.mark.parametrize("fault", ["float32", "head_dim", "long_s", "stats", "bias_shape", "cpu"])
+def test_fused_backward_input_checks(monkeypatch, fault):
+    """What ``masked_attention_bwd_fused`` refuses: anything but bf16 at DH
+    64 and S <= 256, malformed stats or bias, and tensors off the card. It
+    raises before any build."""
+
+    def no_build():
+        raise AssertionError("an input check must raise before the build")
+
+    monkeypatch.setattr(cuda_lib, "build", no_build)
+    b, h, s, dh = 2, 2, 9, 64
+    if fault == "head_dim":
+        dh = 32
+    elif fault == "long_s":
+        s = 257
+    q, k, v, bias = (torch.from_numpy(x) for x in _inputs(8, b, h, s, dh))
+    dt = torch.float32 if fault == "float32" else torch.bfloat16
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    stats = torch.zeros(2, b, h, s)
+    if fault == "stats":
+        stats = torch.zeros(b, h, s)
+    elif fault == "bias_shape":
+        bias = bias[:, :-1].contiguous()
+    with pytest.raises(ValueError):
+        ma.masked_attention_bwd_fused(q, k, v, q, q, bias, stats, dh ** -0.5, 0.3, 1)
+
+
+def test_cpu_path_never_builds_the_fused_backward(monkeypatch):
+    """bf16 at DH = 64 on the CPU: the plain version and autograd, no build
+    and no launch, although the card would take the fused backward."""
+
+    def no_build():
+        raise AssertionError("the CPU path must not build the kernels")
+
+    monkeypatch.setattr(cuda_lib, "build", no_build)
+    before = [fn.launches for fn in ma.KERNELS]
+    q, k, v, bias = (torch.from_numpy(x) for x in _inputs(9, 2, 2, 20, 64))
+    q, k, v = (x.to(torch.bfloat16).requires_grad_(True) for x in (q, k, v))
+    ma.masked_attention(q, k, v, bias, seed=3, rate=0.2).float().sum().backward()
+    assert torch.isfinite(q.grad.float()).all()
+    assert [fn.launches for fn in ma.KERNELS] == before
+
+
 def test_function_saves_only_when_a_gradient_is_wanted(monkeypatch):
     """``MaskedAttention`` asks its forward kernel for the row statistics,
     and saves tensors, only when q, k or v wants a gradient (the frozen
@@ -165,7 +267,7 @@ def test_kernels_match_plain_on_card(dtype, rate, s, b, masked):
     g = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(s), device=dev).to(dt)
     before = [fn.launches for fn in ma.KERNELS]
     got = forward_and_grads(ma.masked_attention, q, k, v, bias, g, rate=rate, seed=1234)
-    assert [fn.launches for fn in ma.KERNELS] == [n + 1 for n in before]
+    assert [fn.launches - n for fn, n in zip(ma.KERNELS, before)] == expected_launches(dt, s)
     want = forward_and_grads(ma.masked_attention_dropout_reference, q, k, v, bias, g, rate=rate, seed=1234)
     tol = F32_RTOL_OF_MAX if dtype == "float32" else BF16_RTOL_OF_MAX
     for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
@@ -212,3 +314,65 @@ def test_cuda_path_never_calls_the_plain_version(monkeypatch):
     got = forward_and_grads(ma.masked_attention, q, k, v, bias, torch.ones_like(q), rate=0.3, seed=5)
     torch.cuda.synchronize()
     assert all(torch.isfinite(x).all() for x in got)
+
+
+# the fused backward's S list: tower lengths (text 100 / 104, ViT 197 /
+# 201), the ends of its range and the edges of its 16-key steps, 64-row
+# tiles and 8-/16-warp blocks
+FUSED_S = (1, 16, 17, 36, 100, 104, 127, 128, 129, 197, 201, 256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("s", FUSED_S)
+def test_fused_backward_matches_plain_on_card(rate, s):
+    """bf16 through the one-pass backward against the plain version, with
+    about 30% of the keys padded and the last row of each batch fully
+    masked (a capacity-padding row)."""
+    dev = _card()
+    b = 3
+    q, k, v, bias = (torch.from_numpy(x).to(dev) for x in _inputs(s + 1000, b, 12, s, 64))
+    bias[-1] = ta.MASK_BIAS
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    g = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(s), device=dev).to(torch.bfloat16)
+    before = [fn.launches for fn in ma.KERNELS]
+    got = forward_and_grads(ma.masked_attention, q, k, v, bias, g, rate=rate, seed=4321 + s)
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(ma.KERNELS, before)] == [1, 0, 0, 1]
+    want = forward_and_grads(ma.masked_attention_dropout_reference, q, k, v, bias, g, rate=rate, seed=4321 + s)
+    for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        # at S = 1 dq and dk are 0 in exact arithmetic (softmax over one key
+        # has no gradient): what remains is the rounding of g . v / (1 - rate)
+        # - g . out (out in bf16), terms of the size of dv
+        err = max_err_of_max(a, w, floor=want[3].float().abs().max().item() if s == 1 else 1e-30)
+        assert err <= BF16_RTOL_OF_MAX, (name, err)
+    # the fully masked rows: dq as the plain version's (equal weights 1/S)
+    floor = want[3][-1].float().abs().max().item() if s == 1 else 1e-30
+    assert max_err_of_max(got[1][-1], want[1][-1], floor=floor) <= BF16_RTOL_OF_MAX
+    if rate == 0.0:  # and the forward's equal weights: out = mean of v
+        mean_v = v[-1].float().mean(dim=-2, keepdim=True).expand(12, s, 64)
+        assert max_err_of_max(got[0][-1], mean_v) <= BF16_RTOL_OF_MAX
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [104, 201])
+def test_fused_backward_mask_is_the_plain_philox(s):
+    """The backward's keep mask, read back through dv: with q = k = 0 and no
+    bias every weight is 1/S, so with g one-hot in rows c*64 .. c*64+63,
+    dv[j, d] = keep[c*64 + d, j] / (S (1 - rate))."""
+    dev = _card()
+    b, h, dh, rate, seed = 2, 3, 64, 0.3, 555
+    zeros = torch.zeros(b, h, s, dh, device=dev, dtype=torch.bfloat16)
+    chunks = []
+    for c in range(-(-s // dh)):
+        g = torch.zeros(s + dh, dh, device=dev)
+        g[c * dh: (c + 1) * dh] = torch.eye(dh, device=dev)
+        g = g[:s].to(torch.bfloat16).expand(b, h, s, dh).contiguous()
+        v = zeros.clone().requires_grad_(True)
+        before = ma.masked_attention_bwd_fused.launches
+        ma.masked_attention(zeros, zeros, v, None, seed=seed, rate=rate).backward(g)
+        assert ma.masked_attention_bwd_fused.launches == before + 1
+        chunks.append(v.grad.float().transpose(-1, -2) != 0)  # [d, j]: row c*64 + d
+    mask = torch.cat(chunks, dim=-2)[..., :s, :]
+    assert torch.equal(mask, ta.dropout_keep_mask(seed, b, h, s, rate, dev))
