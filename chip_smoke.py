@@ -6,12 +6,12 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: compile every kernel library from ``csrc/`` with nvcc (sm_90a;
-   one nvcc per source, all six in parallel: the tree-attention forward
-   and backward, the masked (tower) attention forward, its CUDA-core
-   backward pair and its one-pass tensor-core backward, the dense-bias
-   attention forward), report each library's registers and any ptxas
-   spill, and print the card's name and power limit as nvidia-smi reports
-   them.
+   one nvcc per source, all seven in parallel: the tree-attention forward
+   and backward, the masked (tower) attention's two forwards (CUDA-core
+   and tensor-core), its CUDA-core backward pair and its one-pass
+   tensor-core backward, the dense-bias attention forward), report each
+   library's registers and any ptxas spill, and print the card's name and
+   power limit as nvidia-smi reports them.
 2. kernel_vs_plain: the tree-attention forward kernel at rate 0 against its
    plain PyTorch version on the card, at H=12, dh=64, double_add, with
    templates/ids collated from synthetic trees: S=33 (B=16), S=129 and
@@ -33,13 +33,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    B=256 S=100, text fusion B=256 S=104, ViT fusion B=64 S=201 without a
    key bias) and at ragged S = 1 .. 256 (B=8), with capacity-padding rows
    (every key masked) in the key bias, rate 0.3 and 0, float32 (the
-   backward's CUDA-core pair) and bfloat16 (its one-pass tensor-core
-   kernel), plus the pair's bf16 errors at the tower shapes; the forward's
-   mask read back (q = k = 0, v = I) and the fused backward's (through dv)
-   against the plain Philox; the adjoint identity; times of each kernel
-   (the fused backward beside the pair), the plain version, the towers'
-   unfused path (matmul + f32 softmax + FastDropout + matmul) and SDPA
-   with the key-padding mask, forward + backward at rate 0 and 0.3.
+   "cuda_core" route: the CUDA-core forward and backward pair) and
+   bfloat16 (the "tensor_core" route: the tensor-core forward and the
+   one-pass backward), plus the CUDA-core kernels' bf16 errors at the
+   tower shapes; the masks read back (q = k = 0, v = I) against the plain
+   Philox: the CUDA-core forward's in float32, the tensor-core forward's
+   in bf16 at dh=64 and the one-pass backward's (through dv); the adjoint
+   identity; times of each kernel (the tensor-core forward beside the
+   CUDA-core one, the one-pass backward beside the pair), the plain
+   version, the towers' unfused path (matmul + f32 softmax + FastDropout +
+   matmul) and SDPA with the key-padding mask (forward at dropout 0.3;
+   forward + backward at rate 0 and 0.3).
 5. biased_vs_plain: the dense-bias attention forward kernel and the
    Function's gradients (dq, dk, dv, dbias) against the plain version at
    H=12, dh=64: S=33 (B=16, 12), 129 (B=12), 257 (B=4), 601 and 1025 (B=1),
@@ -59,8 +63,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (``use_pallas_attention`` in the tower configs) score the same
    discussions through ``DiscussionScorer``: finite probabilities summing
    to 1, equal to the unfused scorer's (bfloat16 tolerance), exact
-   masked-attention launches per forward, no backward launch; in float32
-   on one small discussion equal to the unfused CPU scores within 1e-4.
+   masked-attention launches per forward (every tower layer through the
+   tensor-core forward, the CUDA-core forward at 0), no backward launch;
+   in float32 on one small discussion equal to the unfused CPU scores
+   within 1e-4.
 8. latency: per-request-batch scoring latency at batch 1, 4 and 16, and
    the device time of a batch-4 forward (``torch.profiler``) against its
    wall time, beside the host's time to collate that batch and copy it to
@@ -82,17 +88,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
    Each checks a finite, changing loss, the exact launches of every kernel
    in every update (tree attention: 10 graph layers forward and 8 backward
    per microbatch, the last graph stack feeding only the global embedding;
-   masked attention: every tower layer forward, the 9 trainable fusion
-   layers of each tower backward through the fused tensor-core kernel in
-   bf16 (the pair at 0), the ViT only where the microbatch has image
-   slots), frozen towers unchanged and every tensor with a nonzero
+   masked attention: every tower layer forward through the tensor-core
+   forward and the 9 trainable fusion layers of each tower backward
+   through the one-pass kernel in bf16 (the CUDA-core forward and the pair
+   at 0), the ViT only where the microbatch has image slots), frozen
+   towers unchanged and every tensor with a nonzero
    gradient changed; prints ms per update, discussions/s, MFU against 989
    TFLOP/s, each update's peak memory (statistics reset before every
-   update) and the S values seen.
+   update) and the S values seen; the profiled updates add device time by
+   kernel group, the tower forward and backward apart.
 10. train_cpu_agreement, train_cpu_agreement_fused: one scan update of the
    tiny config with every dropout at 0 in float32, on the card and on the
    CPU, without and with fused towers: gradients and updated parameters
-   agree (the fused towers' float32 backward runs the pair).
+   agree (the fused towers' float32 route runs the CUDA-core forward and
+   the pair).
 11. dense_graph: the dense-bias slice at ``ModelConfig()`` width
     (GraphNodeFeature -> dense GraphAttnBias -> 5 graph stacks of 2
     layers, ``use_pallas_attention``, bf16 compute): scoring forwards at
@@ -105,7 +114,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 12. launch: ``train.launch.main`` with ``--synthetic --max-updates 2`` on
     the card returns 0.
 
-The last two lines are the kernels' summary (eight kernels) and
+The last two lines are the kernels' summary (nine kernels) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -151,6 +160,7 @@ PKG = "multimodaldiscussiontransformer_tpu_torch"
 KERNEL_SOURCE = f"{PKG}/csrc/tree_attention_fwd.cu"
 BWD_SOURCE = f"{PKG}/csrc/tree_attention_bwd.cu"
 MASKED_FWD_SOURCE = f"{PKG}/csrc/masked_attention_fwd.cu"
+MASKED_FWD_MMA_SOURCE = f"{PKG}/csrc/masked_attention_fwd_mma.cu"
 MASKED_BWD_SOURCE = f"{PKG}/csrc/masked_attention_bwd.cu"
 MASKED_BWD_MMA_SOURCE = f"{PKG}/csrc/masked_attention_bwd_mma.cu"
 BIASED_FWD_SOURCE = f"{PKG}/csrc/biased_attention_fwd.cu"
@@ -279,7 +289,7 @@ def _all_kernels():
 KERNEL_NAMES = (
     "tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv",
     "masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv", "masked_attention_bwd_fused",
-    "biased_attention_fwd",
+    "masked_attention_fwd_fused", "biased_attention_fwd",
 )
 
 
@@ -382,7 +392,10 @@ def phase_kernel(seed: int):
     return rows
 
 
-def make_discussion(rng, n: int, image_prob: float, seq_len: int = 100, vocab: int = 30522):
+TEXT_LEN = 100  # tokens of every synthetic comment: the text tower's length
+
+
+def make_discussion(rng, n: int, image_prob: float, seq_len: int = TEXT_LEN, vocab: int = 30522):
     import numpy as np
 
     from multimodaldiscussiontransformer_tpu_torch.data.synthetic import random_tree_parents
@@ -398,6 +411,29 @@ def make_discussion(rng, n: int, image_prob: float, seq_len: int = 100, vocab: i
             image = rng.standard_normal(IMAGE_SHAPE).astype(np.float32)
         d.add_node(int(p), ids, image=image)
     return d
+
+
+def tower_forward_routes(mc, text_len: int, images: bool):
+    """Masked-attention forward launches of one forward by kernel:
+    (CUDA-core, tensor-core). Each tower layer takes the kernel
+    ``kernel_route`` names for the compute dtype, the tower's head dim and
+    the layer's length (bottom layers: the tokens; fusion layers: the
+    tokens and the bottleneck tokens); the ViT runs only where the batch
+    has image slots."""
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.ops.masked_attention import kernel_route
+
+    dtype = getattr(torch, mc.dtype)
+    fusion = mc.num_fusion_layers + 1
+    towers = [(mc.text_tower, text_len, mc.num_bottom_text_layers)]
+    if images:
+        towers.append((mc.image_tower, mc.image_tower.seq_len, mc.num_bottom_image_layers))
+    n = {"cuda_core": 0, "tensor_core": 0}
+    for tower, s, bottom in towers:
+        n[kernel_route(dtype, tower.head_dim, s)] += bottom
+        n[kernel_route(dtype, tower.head_dim, s + mc.num_bottleneck_tokens)] += fusion
+    return n["cuda_core"], n["tensor_core"]
 
 
 def tower_launches(mc):
@@ -531,7 +567,7 @@ def phase_scoring_fused(unfused):
     torch.cuda.synchronize()
 
     _zero_counts()
-    want_masked, errs, forwards, seconds = 0, {}, 0, []
+    want_cuda_core, want_tensor_core, errs, forwards, seconds = 0, 0, {}, 0, []
     for name, ds in unfused["requests"].items():
         errs[name] = []
         for d, ref in zip(ds, unfused["results"][name]):
@@ -539,14 +575,17 @@ def phase_scoring_fused(unfused):
             p = scorer.score(d)
             seconds.append(time.perf_counter() - t)
             forwards += 1
-            want_masked += text_fwd + (vit_fwd if len(d.images) else 0)
+            cuda_core, tensor_core = tower_forward_routes(cfg, TEXT_LEN, len(d.images) > 0)
+            want_cuda_core += cuda_core
+            want_tensor_core += tensor_core
             if p.shape != ref.shape or not np.isfinite(p).all() or np.abs(p.sum(-1) - 1.0).max() > 1e-5:
                 raise AssertionError(f"{name}: bad fused probabilities {p.shape}")
             errs[name].append(float(np.abs(p - ref).max()))
     counts = dict(zip(KERNEL_NAMES, _counts()))
     want = dict.fromkeys(KERNEL_NAMES, 0)
     want["tree_attention_fwd"] = LAUNCHES_PER_FORWARD * forwards
-    want["masked_attention_fwd"] = want_masked
+    want["masked_attention_fwd"] = want_cuda_core
+    want["masked_attention_fwd_fused"] = want_tensor_core
     worst = max(max(e) for e in errs.values())
 
     # float32: the fused model on the card (TF32 off) against the unfused
@@ -567,6 +606,8 @@ def phase_scoring_fused(unfused):
           "forward_seconds": seconds})
     if counts != want:
         raise AssertionError(f"fused scoring launches {counts}, expected {want}")
+    if counts["masked_attention_fwd"] or not counts["masked_attention_fwd_fused"]:
+        raise AssertionError(f"bf16 fused scoring must take the tensor-core forward only: {counts}")
     if not worst <= FUSED_BF16_ATOL:
         raise AssertionError(f"fused bf16 scores differ from the unfused ones by {worst}")
     if not err32 <= MODEL_ATOL:
@@ -844,19 +885,22 @@ def tower_key_bias(b: int, s: int, bottleneck: int, gen):
     return torch.where(open_, 0.0, MASK_BIAS).float().contiguous()
 
 
-def read_back_mask(ma, b, h, s, dh, rate, seed):
-    """The forward kernel's keep mask: with q = k = 0 and no bias, every row
-    weighs its keys equally, so with v holding one-hot columns for keys
-    c*dh .. c*dh+dh-1, out = keep / (S (1 - rate)) there."""
+def read_back_mask(ma, b, h, s, dh, rate, seed, dtype):
+    """The keep mask of the forward kernel that ``dtype`` routes to: with q
+    = k = 0 and no bias, every row weighs its keys equally, so with v
+    holding one-hot columns for keys c*dh .. c*dh+dh-1, out = keep / (S (1 -
+    rate)) there (within a bf16 step in bf16, far from the 0.5 the rounding
+    cuts at)."""
     import torch
 
-    zeros = torch.zeros(b, h, s, dh, device="cuda")
+    zeros = torch.zeros(b, h, s, dh, device="cuda", dtype=dtype)
     chunks = []
     for c in range(-(-s // dh)):
         v = torch.zeros(s + dh, dh, device="cuda")
         v[c * dh: (c + 1) * dh] = torch.eye(dh, device="cuda")
-        out = ma.masked_attention(zeros, zeros, v[:s].expand(b, h, s, dh).contiguous(), None, seed=seed, rate=rate)
-        chunks.append((out * s * (1 - rate)).round() > 0.5)
+        out = ma.masked_attention(zeros, zeros, v[:s].to(dtype).expand(b, h, s, dh).contiguous(), None,
+                                  seed=seed, rate=rate)
+        chunks.append((out.float() * s * (1 - rate)).round() > 0.5)
     return torch.cat(chunks, dim=-1)[..., :s]
 
 
@@ -879,8 +923,8 @@ def read_back_bwd_mask(ma, b, h, s, dh, rate, seed):
 
 
 def pair_outputs(ma, q, k, v, bias, g, scale, rate, seed):
-    """out, dq, dk, dv from the forward kernel and the CUDA-core backward
-    pair, called directly (the route sends bf16 elsewhere)."""
+    """out, dq, dk, dv from the CUDA-core forward and backward pair, called
+    directly (the route sends bf16 to the tensor-core kernels)."""
     out, stats = ma.masked_attention_fwd(q, k, v, bias, scale, rate, seed, with_stats=True)
     dq, delta = ma.masked_attention_bwd_dq(q, k, v, out, g, bias, stats, scale, rate, seed)
     dk, dv = ma.masked_attention_bwd_dkv(q, k, v, g, bias, stats, delta, scale, rate, seed)
@@ -908,8 +952,8 @@ def phase_masked(seed: int):
         dseed = seed * 1000003 + 7 * s + b
         row = {"shape": label, "B": b, "S": s, "H": h, "dh": dh, "key_bias": with_bias,
                "fully_masked_rows": 0 if bias is None else int((bias <= ma.MASK_BIAS).all(dim=1).sum()),
-               "rate": MASKED_RATE, "backward_route": {n: ma.backward_route(getattr(torch, n), dh, s)
-                                                       for n in ("float32", "bfloat16")},
+               "rate": MASKED_RATE, "kernel_route": {n: ma.kernel_route(getattr(torch, n), dh, s)
+                                                     for n in ("float32", "bfloat16")},
                "errors": {}, "errors_rate0": {}}
         for rate, key in ((MASKED_RATE, "errors"), (0.0, "errors_rate0")):
             for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -932,8 +976,9 @@ def phase_masked(seed: int):
                 row[key][name] = _check_errors(got, want, ("out", "dq", "dk", "dv"), tol,
                                                f"masked kernels disagree at {label} rate {rate} {name}", floor)
                 if tower and name == "bfloat16":
-                    # the pair in bf16 on the same inputs: what the fused
-                    # kernel's bf16 P and dS cost beside the pair's f32
+                    # the CUDA-core kernels in bf16 on the same inputs: what
+                    # the tensor-core kernels' bf16 P and dS cost beside
+                    # their f32
                     pair = pair_outputs(ma, qq, kk, vv, bias, gg, scale, rate, dseed)
                     torch.cuda.synchronize()
                     row[key]["bfloat16_pair"] = _check_errors(pair, want, ("out", "dq", "dk", "dv"), tol,
@@ -952,7 +997,7 @@ def phase_masked(seed: int):
 
         # times in the main path's type
         qq, kk, vv, gg = (x.to(torch.bfloat16).contiguous() for x in (q, k, v, g))
-        out, stats = ma.masked_attention_fwd(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True)
+        out, stats = ma.masked_attention_fwd_fused(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True)
         _, delta = ma.masked_attention_bwd_dq(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed)
         bias4 = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
         drop_gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -976,44 +1021,62 @@ def phase_masked(seed: int):
             ma.masked_attention_bwd_dkv(qq, kk, vv, gg, bias, stats, delta_, scale, MASKED_RATE, dseed)
 
         calls = {
+            "fwd_fused": lambda: ma.masked_attention_fwd_fused(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True),
+            "fwd_fused_rate0": lambda: ma.masked_attention_fwd_fused(qq, kk, vv, bias, scale),
+            "fwd": lambda: ma.masked_attention_fwd(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True),
             "bwd_fused": lambda: ma.masked_attention_bwd_fused(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed),
             "pair": pair,
             "plain_fwd": lambda: ma.masked_attention_dropout_reference(qq, kk, vv, bias, dseed, MASKED_RATE, scale),
+            "library_fwd": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bias4, dropout_p=MASKED_RATE, scale=scale),
             "plain_fwd_bwd": with_grad(lambda q_, k_, v_: ma.masked_attention_dropout_reference(q_, k_, v_, bias, dseed, MASKED_RATE, scale)),
             "library_fwd_bwd_rate": with_grad(lambda q_, k_, v_: F.scaled_dot_product_attention(
                 q_, k_, v_, attn_mask=bias4, dropout_p=MASKED_RATE, scale=scale)),
         }
         if tower:
             calls.update({
-                "fwd": lambda: ma.masked_attention_fwd(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True),
                 "fwd_rate0": lambda: ma.masked_attention_fwd(qq, kk, vv, bias, scale),
                 "dq": lambda: ma.masked_attention_bwd_dq(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed),
                 "dkv": lambda: ma.masked_attention_bwd_dkv(qq, kk, vv, gg, bias, stats, delta, scale, MASKED_RATE, dseed),
                 "unfused_fwd": lambda: unfused(qq, kk, vv),
                 "unfused_fwd_bwd": with_grad(unfused),
-                "library_fwd": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bias4, dropout_p=MASKED_RATE, scale=scale),
                 "library_fwd_bwd": with_grad(lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=bias4, scale=scale)),
             })
         row["ms"] = {name: timed_ms(fn) for name, fn in calls.items()}
         row["ms"]["plain_bwd"] = row["ms"]["plain_fwd_bwd"] - row["ms"]["plain_fwd"]
         row["bound"] = work_bounds(b, h, s, dh, "bfloat16", 0 if bias is None else b * s * 4, stat_planes=2)
         row["fused_vs_pair"] = row["ms"]["pair"] / row["ms"]["bwd_fused"]
+        row["fwd_fused_vs_cuda_core"] = row["ms"]["fwd"] / row["ms"]["fwd_fused"]
+        row["fwd_fused_vs_library"] = row["ms"]["fwd_fused"] / row["ms"]["library_fwd"]
         emit({"phase": "masked_vs_plain", **row})
         rows.append(row)
 
-    # the forward kernel's mask, and the fused backward's, read back
-    # against the plain Philox
+    # each forward kernel's mask, and the one-pass backward's, read back
+    # against the plain Philox: float32 routes to the CUDA-core forward,
+    # bf16 at dh=64 to the tensor-core one (the launch counts show which ran)
     masks = {}
     for s, b in ((104, 8), (201, 2)):
         plain = ta.dropout_keep_mask(seed + 101, b, h, s, MASKED_RATE, "cuda")
-        mask = read_back_mask(ma, b, h, s, dh, MASKED_RATE, seed + 101)
+        c0 = _counts()
+        mask = read_back_mask(ma, b, h, s, dh, MASKED_RATE, seed + 101, torch.float32)
+        c1 = _counts()
+        fwd_fused_mask = read_back_mask(ma, b, h, s, dh, MASKED_RATE, seed + 101, torch.bfloat16)
+        c2 = _counts()
         bwd_mask = read_back_bwd_mask(ma, b, h, s, dh, MASKED_RATE, seed + 101)
         masks[str(s)] = {"B": b, "equals_plain_philox": bool(torch.equal(mask, plain)),
+                         "fwd_fused_equals_plain_philox": bool(torch.equal(fwd_fused_mask, plain)),
                          "bwd_fused_equals_plain_philox": bool(torch.equal(bwd_mask, plain)),
+                         "launches_float32": dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, c1)))),
+                         "launches_bfloat16": dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c1, c2)))),
                          "kept_fraction": mask.float().mean().item()}
     emit({"phase": "masked_dropout_mask", "H": h, "rate": MASKED_RATE, "by_S": masks})
-    for m in masks.values():
-        if not (m["equals_plain_philox"] and m["bwd_fused_equals_plain_philox"]) or abs(m["kept_fraction"] - (1 - MASKED_RATE)) > 0.02:
+    chunks = {str(s): -(-s // dh) for s in (104, 201)}
+    for s, m in masks.items():
+        read = (m["launches_float32"]["masked_attention_fwd"], m["launches_float32"]["masked_attention_fwd_fused"],
+                m["launches_bfloat16"]["masked_attention_fwd"], m["launches_bfloat16"]["masked_attention_fwd_fused"])
+        if read != (chunks[s], 0, 0, chunks[s]):
+            raise AssertionError(f"masked mask read-back took the wrong forward kernel: {masks}")
+        if not (m["equals_plain_philox"] and m["fwd_fused_equals_plain_philox"] and m["bwd_fused_equals_plain_philox"]) \
+                or abs(m["kept_fraction"] - (1 - MASKED_RATE)) > 0.02:
             raise AssertionError(f"masked kernel mask: {masks}")
     return rows
 
@@ -1400,29 +1463,31 @@ def graph_layers(mc):
 
 def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int):
     """Launches of every kernel (KERNEL_NAMES order) in one update of k
-    microbatches of ``text_len``-token text, from the config. Each tower's
-    backward takes the one-pass kernel or the pair, as
-    ``backward_route`` says for the compute dtype, the tower's head dim and
-    its fusion-layer length (tokens + bottleneck)."""
+    microbatches of ``text_len``-token text, from the config. Each tower
+    layer's forward takes the tensor-core or the CUDA-core kernel, and each
+    tower's backward the one-pass kernel or the pair, as ``kernel_route``
+    says for the compute dtype, the tower's head dim and the layer's length
+    (the backward runs in the fusion layers: tokens + bottleneck)."""
     import torch
 
-    from multimodaldiscussiontransformer_tpu_torch.ops.masked_attention import backward_route
+    from multimodaldiscussiontransformer_tpu_torch.ops.masked_attention import kernel_route
 
     fwd, bwd = graph_layers(mc)
     tree = [k * fwd, k * bwd, k * bwd]
     if not fused:
-        return tree + [0, 0, 0, 0, 0]
-    text_fwd, vit_fwd, text_bwd, vit_bwd = tower_launches(mc)
-    m_fwd = k * (text_fwd + (vit_fwd if images else 0))
-    pair = fused_bwd = 0
+        return tree + [0, 0, 0, 0, 0, 0]
+    _, _, text_bwd, vit_bwd = tower_launches(mc)
+    cuda_core_fwd, tensor_core_fwd = (k * n for n in tower_forward_routes(mc, text_len, images))
+    pair = one_pass = 0
     extra = mc.num_bottleneck_tokens
     for n, tower, s in ((text_bwd, mc.text_tower, text_len + extra),
                         (vit_bwd if images else 0, mc.image_tower, mc.image_tower.seq_len + extra)):
-        if backward_route(getattr(torch, mc.dtype), tower.head_dim, s) == "fused":
-            fused_bwd += k * n
+        if kernel_route(getattr(torch, mc.dtype), tower.head_dim, s) == "tensor_core":
+            one_pass += k * n
         else:
             pair += k * n
-    return tree + [m_fwd, pair, pair, fused_bwd, 0]  # MDTModel never takes the dense-bias branch
+    # MDTModel never takes the dense-bias branch
+    return tree + [cuda_core_fwd, pair, pair, one_pass, tensor_core_fwd, 0]
 
 
 def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw: dict, timed_updates: int,
@@ -1509,8 +1574,11 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
     if bad or launches != total_want:
         raise AssertionError(f"{phase}: kernel launches per update (got, expected) {bad}; run {launches} vs {total_want}")
     by_name = dict(zip(KERNEL_NAMES, launches))
-    if fused and not (by_name["masked_attention_fwd"] and by_name["masked_attention_bwd_fused"]):
-        raise AssertionError(f"{phase}: a masked-attention kernel never launched: {by_name}")
+    if fused and not (by_name["masked_attention_fwd_fused"] and by_name["masked_attention_bwd_fused"]):
+        raise AssertionError(f"{phase}: a tensor-core tower kernel never launched: {by_name}")
+    cuda_core = {n: by_name[n] for n in ("masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv")}
+    if any(cuda_core.values()):  # bf16 at the tower shapes: the "tensor_core" route only
+        raise AssertionError(f"{phase}: a CUDA-core tower kernel launched in bf16: {cuda_core}")
     losses = [r["loss"] for r in records]
     if not all(np.isfinite(losses)) or len(set(losses)) < 2:
         raise AssertionError(f"{phase}: loss series not finite or constant: {losses}")
@@ -1579,6 +1647,8 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
             "wall_ms": prof_wall_ms, "device_ms": dev_ms, "device_busy_share": dev_ms / prof_wall_ms,
             "tree_attention_ms": cat_ms("tree_attention"),
             "masked_attention_ms": cat_ms("masked_attention"),
+            "masked_attention_fwd_ms": cat_ms("masked_attention_fwd"),
+            "masked_attention_bwd_ms": cat_ms("masked_attention_bwd"),
             "gemm_ms": cat_ms("gemm", "nvjet", "cutlass", "sm90_xmma", "cublas"),
             "softmax_ms": cat_ms("softmax"),
             "adamw_ms": cat_ms("multi_tensor_apply", "adam"),
@@ -1791,11 +1861,28 @@ def main(argv=None) -> int:
          "launches_by_path": paths("tree_attention_bwd_dkv"),
          "note": "plain_ms and library_ms as for tree_attention_bwd_dq"},
         {**_kernel_entry(
-            "masked_attention_fwd", MASKED_FWD_SOURCE, f"{TPU_MASKED}:86", [], train_big["masked_attention_fwd"],
-            fusion_row, _worst(masked_rows, ("out",)), "fwd", mms["plain_fwd"], mms["library_fwd"], "fwd"),
+            "masked_attention_fwd", MASKED_FWD_SOURCE, f"{TPU_MASKED}:86", [], agree_fused["masked_attention_fwd"],
+            fusion_row, _worst_pair(masked_rows, ("out",)), "fwd", mms["plain_fwd"], mms["library_fwd"], "fwd"),
          "launches_by_path": paths("masked_attention_fwd"),
-         "note": "launches: train_big; times at the text-fusion shape (B=256, S=104), rate 0.3 with the row statistics; "
-                 "library_ms is SDPA with the key-padding bias and dropout 0.3",
+         "note": "the float32 route (and other DH, S > 256): launches from train_cpu_agreement_fused, 0 on the bf16 "
+                 "paths; times on bf16 inputs at the text-fusion shape (B=256, S=104), rate 0.3 with the row "
+                 "statistics; library_ms is SDPA with the key-padding bias and dropout 0.3; max_abs_err over its "
+                 "float32 checks and its bf16 checks at the tower shapes"},
+        {**_kernel_entry(
+            "masked_attention_fwd_fused", MASKED_FWD_MMA_SOURCE, f"{TPU_MASKED}:86", [],
+            train_big["masked_attention_fwd_fused"], fusion_row, _worst(masked_rows, ("out",)), "fwd_fused",
+            mms["plain_fwd"], mms["library_fwd"], "fwd"),
+         "launches_by_path": paths("masked_attention_fwd_fused"),
+         "cuda_core_ms": mms["fwd"],
+         "tower_shapes": {r["shape"]: {"B": r["B"], "S": r["S"], "ms": r["ms"]["fwd_fused"],
+                                       "ms_rate0": r["ms"]["fwd_fused_rate0"], "cuda_core_ms": r["ms"]["fwd"],
+                                       "plain_ms": r["ms"]["plain_fwd"], "library_ms": r["ms"]["library_fwd"],
+                                       "bound_ms": r["bound"]["fwd"][0]}
+                          for r in masked_rows if r["shape"] in {m[0] for m in MASKED_SHAPES}},
+         "note": "the bf16 route (DH 64, S <= 256): launches from train_big; times at the text-fusion shape "
+                 "(B=256, S=104), rate 0.3 with the row statistics; cuda_core_ms is the CUDA-core forward on the "
+                 "same inputs; library_ms is SDPA with the key-padding bias and dropout 0.3; max_abs_err is the "
+                 "worst bf16 error of out over every shape and both rates",
          "shapes": masked_rows},
         {**_kernel_entry(
             "masked_attention_bwd_dq", MASKED_BWD_SOURCE, f"{TPU_MASKED}:134", [], agree_fused["masked_attention_bwd_dq"],

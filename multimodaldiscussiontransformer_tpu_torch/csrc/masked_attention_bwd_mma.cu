@@ -64,70 +64,16 @@
 // against 0.0156 / 0.031 / 0.0156; at ViT fusion dq 0.0156 against
 // 0.0078 (max |dq| 2.34). The tolerance, 1e-2 of max |ref|, holds.
 
+#include "mma_common.cuh"
 #include "tree_attention_common.cuh"
 
 namespace {
 
 using namespace tree_attention;
-using bf16 = __nv_bfloat16;
+using namespace tower_mma;
 
-constexpr int kDh = 64;          // head dim this kernel takes
 constexpr int kRows = 64;        // q rows per tile
 constexpr int kTileElems = kRows * kDh;
-
-// element offset of (row, col) in a [rows][64] bf16 tile whose 16-byte
-// chunks are XOR-swizzled by row % 8
-__device__ __forceinline__ int swz(int row, int col) {
-  return row * kDh + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled where !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(const bf16* p, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(const bf16* p, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a b for one m16n8k16 tile: bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<const unsigned*>(&v);
-}
 
 __device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
   const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
@@ -141,12 +87,6 @@ __device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
     s = fmaf(fx.y, fy.y, s);
   }
   return s;
-}
-
-// keep bits of the 4 keys of one Philox block: bit w is word w >= thr
-__device__ __forceinline__ unsigned keep_nibble(const uint4& w, unsigned thr) {
-  return (w.x >= thr ? 1u : 0u) | (w.y >= thr ? 2u : 0u) | (w.z >= thr ? 4u : 0u) |
-         (w.w >= thr ? 8u : 0u);
 }
 
 __host__ __device__ constexpr size_t smem_bytes(int kp) {

@@ -4,7 +4,7 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for sm_90a into its own
 shared library with a plain C interface, at first use, into ``_build/`` next
 to the package (ignored by git); all missing libraries are compiled at once,
 one ``nvcc`` per source. A library's name carries a hash of its source, the
-shared header and the flags, so a changed source rebuilds. The libraries are
+shared headers and the flags, so a changed source rebuilds. The libraries are
 loaded with ``ctypes``; ``ENTRY_POINTS`` gives each C function's argument
 types. Nothing here runs on the CPU path: the ops modules call
 ``load_library`` only to launch a kernel on a CUDA tensor, and a failed
@@ -31,11 +31,12 @@ SOURCES = {
     "tree_fwd": CSRC / "tree_attention_fwd.cu",
     "tree_bwd": CSRC / "tree_attention_bwd.cu",
     "masked_fwd": CSRC / "masked_attention_fwd.cu",
+    "masked_fwd_mma": CSRC / "masked_attention_fwd_mma.cu",
     "masked_bwd": CSRC / "masked_attention_bwd.cu",
     "masked_bwd_mma": CSRC / "masked_attention_bwd_mma.cu",
     "biased_fwd": CSRC / "biased_attention_fwd.cu",
 }
-HEADERS = (CSRC / "tree_attention_common.cuh",)
+HEADERS = (CSRC / "tree_attention_common.cuh", CSRC / "mma_common.cuh")
 BUILD_DIR = _PACKAGE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,6 +53,7 @@ ENTRY_POINTS = {
     "tree_fwd": {"tree_attention_fwd": [_P] * 8 + _TREE_TAIL},
     "tree_bwd": {"tree_attention_bwd_dq": [_P] * 12 + _TREE_TAIL, "tree_attention_bwd_dkv": [_P] * 11 + _TREE_TAIL},
     "masked_fwd": {"masked_attention_fwd": [_P] * 6 + _MASKED_TAIL},
+    "masked_fwd_mma": {"masked_attention_fwd_mma": [_P] * 6 + _MASKED_TAIL},
     "masked_bwd": {"masked_attention_bwd_dq": [_P] * 9 + _MASKED_TAIL, "masked_attention_bwd_dkv": [_P] * 9 + _MASKED_TAIL},
     "masked_bwd_mma": {"masked_attention_bwd_mma": [_P] * 10 + _MASKED_TAIL},
     # (q, k, v, bias, pad, out, B, H, S, DH, bias_heads, scale, dtype, bias_dtype, stream)
@@ -61,6 +63,7 @@ ERROR_STRINGS = {
     "tree_fwd": "tree_attention_error_string",
     "tree_bwd": "tree_attention_bwd_error_string",
     "masked_fwd": "masked_attention_fwd_error_string",
+    "masked_fwd_mma": "masked_attention_fwd_mma_error_string",
     "masked_bwd": "masked_attention_bwd_error_string",
     "masked_bwd_mma": "masked_attention_bwd_mma_error_string",
     "biased_fwd": "biased_attention_fwd_error_string",
@@ -72,7 +75,7 @@ _lib_lock = threading.Lock()
 
 def library_paths() -> Dict[str, Path]:
     """Where each kernel library lives: named by its source and a hash of
-    the source, the shared header and the flags."""
+    the source, the shared headers and the flags."""
     shared = b"".join(p.read_bytes() for p in HEADERS) + " ".join(NVCC_FLAGS).encode()
     return {
         name: BUILD_DIR / f"{src.stem}-{hashlib.sha256(src.read_bytes() + shared).hexdigest()[:16]}.so"

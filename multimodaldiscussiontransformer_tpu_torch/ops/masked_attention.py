@@ -13,17 +13,23 @@ divided by 1 - rate. The backward regenerates the mask; it is never stored.
 ``masked_attention`` is the one entry point. On CPU tensors it runs the
 plain PyTorch version ``masked_attention_dropout_reference`` (differentiable
 by autograd). On CUDA tensors it runs ``MaskedAttention``, an autograd
-Function whose forward launches ``csrc/masked_attention_fwd.cu`` (saving
-the output and the per-row softmax statistics, the row max and the log of
-the row sum, only when an input wants a gradient, so the frozen bottom
-towers save nothing) and whose backward takes one of two kernels, by dtype
-and shape (``backward_route``): bf16 at DH = 64 and S <= 256, every tower
-shape of the model, goes to ``csrc/masked_attention_bwd_mma.cu`` (dq, dk
-and dv in one tensor-core pass); float32, other DH and longer S go to the
-two CUDA-core kernels of ``csrc/masked_attention_bwd.cu`` (dq, then dk and
-dv), whose f32 products hold the float32 tolerances that bf16 rounding of
-p and ds would break. The kernels are built and bound by
-``ops/cuda_lib.py``; on a CUDA tensor the wrapper launches them or raises.
+Function whose forward saves the output and the per-row softmax statistics
+(the row max and the log of the row sum) only when an input wants a
+gradient, so the frozen bottom towers save nothing. One predicate,
+``kernel_route``, picks the kernels of both directions by dtype and shape,
+so that the forward that writes the statistics and the backward that reads
+them cannot drift apart:
+- "tensor_core": bf16 at DH = 64 and S <= 256, every tower shape of the
+  model. The forward is ``csrc/masked_attention_fwd_mma.cu`` and the
+  backward ``csrc/masked_attention_bwd_mma.cu`` (dq, dk and dv in one
+  pass), both on mma.sync with bf16 operands;
+- "cuda_core": float32, other DH and longer S. The forward is
+  ``csrc/masked_attention_fwd.cu`` and the backward the two kernels of
+  ``csrc/masked_attention_bwd.cu`` (dq, then dk and dv), whose f32
+  products hold the float32 tolerances that bf16 rounding of p and ds
+  would break.
+The kernels are built and bound by ``ops/cuda_lib.py``; on a CUDA tensor
+the wrapper launches them or raises.
 
 A row whose every key is masked (a capacity-padding text row in the bottom
 tower) gets equal weights over its S keys, on both paths.
@@ -98,6 +104,41 @@ def _check_cuda_inputs(q, k, v, key_bias, **extra) -> None:
     )
 
 
+# the tensor-core kernels (forward and one-pass backward) take these; see
+# ``kernel_route``
+TENSOR_CORE_DTYPE = torch.bfloat16
+TENSOR_CORE_HEAD_DIM = 64
+TENSOR_CORE_MAX_S = 256
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int, s: int) -> str:
+    """Which kernels the CUDA path launches, in both directions, for q of
+    this dtype, head dim and length: "tensor_core" for bf16 at DH = 64 and
+    S <= 256 (``masked_attention_fwd_fused``, then
+    ``masked_attention_bwd_fused``), else "cuda_core"
+    (``masked_attention_fwd``, then ``masked_attention_bwd_dq`` and
+    ``masked_attention_bwd_dkv``, f32 arithmetic on CUDA cores). A choice
+    between kernels, not a fallback: each raises if it fails."""
+    tensor_core = dtype == TENSOR_CORE_DTYPE and head_dim == TENSOR_CORE_HEAD_DIM and 1 <= s <= TENSOR_CORE_MAX_S
+    return "tensor_core" if tensor_core else "cuda_core"
+
+
+def _check_tensor_core_inputs(kernel: str, q, *tensors) -> None:
+    """What the tensor-core kernels take besides ``_check_cuda_inputs``:
+    the "tensor_core" route's dtype and shape, CUDA tensors, and q, k, v
+    (and g, out) 16-byte aligned for their 16-byte copies."""
+    _, _, s, dh = q.shape
+    if kernel_route(q.dtype, dh, s) != "tensor_core":
+        raise ValueError(
+            f"the {kernel} takes {TENSOR_CORE_DTYPE} at DH={TENSOR_CORE_HEAD_DIM} and S <= {TENSOR_CORE_MAX_S}, "
+            f"got {q.dtype} DH={dh} S={s}"
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"the {kernel} runs on cuda, not {q.device}")
+    if any(t.data_ptr() % 16 for t in (q, *tensors)):
+        raise ValueError(f"the {kernel} takes 16-byte aligned q, k, v, g and out")
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -105,9 +146,10 @@ def _ptr(t: Optional[torch.Tensor]):
 def masked_attention_fwd(
     q, k, v, key_bias, scale: float, rate: float = 0.0, seed: int = 0, with_stats: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch the forward kernel: (out, stats or None), stats f32 (2, B, H,
-    S) holding each row's max and the log of its (undropped) sum, for the
-    backward. ``launches`` counts launches."""
+    """Launch the CUDA-core forward kernel, the "cuda_core" route's (it takes
+    bf16 too): (out, stats or None), stats f32 (2, B, H, S) holding each
+    row's max and the log of its (undropped) sum, for the backward.
+    ``launches`` counts launches."""
     _check_cuda_inputs(q, k, v, key_bias)
     b, h, s, dh = q.shape
     out = torch.empty_like(q)
@@ -120,6 +162,28 @@ def masked_attention_fwd(
         b, h, s, dh, float(scale), *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
     )
     count_launch(masked_attention_fwd)
+    return out, stats
+
+
+def masked_attention_fwd_fused(
+    q, k, v, key_bias, scale: float, rate: float = 0.0, seed: int = 0, with_stats: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the tensor-core forward kernel: (out, stats or None), as
+    ``masked_attention_fwd`` returns them. Takes CUDA tensors that
+    ``kernel_route`` sends to "tensor_core" only."""
+    _check_cuda_inputs(q, k, v, key_bias)
+    _check_tensor_core_inputs("tensor-core forward", q, k, v)
+    b, h, s, dh = q.shape
+    out = torch.empty_like(q)
+    stats = torch.empty(2, b, h, s, dtype=torch.float32, device=q.device) if with_stats else None
+    if out.numel() == 0:
+        return out, stats
+    cuda_lib.launch(
+        "masked_fwd_mma", "masked_attention_fwd_mma", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_bias), out.data_ptr(), _ptr(stats),
+        b, h, s, dh, float(scale), *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
+    )
+    count_launch(masked_attention_fwd_fused)
     return out, stats
 
 
@@ -163,37 +227,14 @@ def masked_attention_bwd_dkv(
     return dk, dv
 
 
-# the one-pass tensor-core backward takes these; see ``backward_route``
-FUSED_BWD_DTYPE = torch.bfloat16
-FUSED_BWD_HEAD_DIM = 64
-FUSED_BWD_MAX_S = 256
-
-
-def backward_route(dtype: torch.dtype, head_dim: int, s: int) -> str:
-    """Which backward the CUDA path launches for q of this dtype, head dim
-    and length: "fused" (``masked_attention_bwd_fused``, one tensor-core
-    pass) for bf16 at DH = 64 and S <= 256, else "pair"
-    (``masked_attention_bwd_dq`` then ``masked_attention_bwd_dkv``, f32 on
-    CUDA cores). A choice between two kernels, not a fallback: either
-    raises if it fails."""
-    fused = dtype == FUSED_BWD_DTYPE and head_dim == FUSED_BWD_HEAD_DIM and 1 <= s <= FUSED_BWD_MAX_S
-    return "fused" if fused else "pair"
-
-
 def masked_attention_bwd_fused(
     q, k, v, out, g, key_bias, stats, scale: float, rate: float = 0.0, seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the one-pass tensor-core backward kernel: (dq, dk, dv). Takes
-    CUDA tensors that ``backward_route`` sends to "fused" only."""
+    CUDA tensors that ``kernel_route`` sends to "tensor_core" only."""
     _check_cuda_inputs(q, k, v, key_bias, out=out, g=g, stats=stats)
+    _check_tensor_core_inputs("tensor-core backward", q, k, v, out, g)
     b, h, s, dh = q.shape
-    if backward_route(q.dtype, dh, s) != "fused":
-        raise ValueError(
-            f"the fused backward takes {FUSED_BWD_DTYPE} at DH={FUSED_BWD_HEAD_DIM} and S <= {FUSED_BWD_MAX_S}, "
-            f"got {q.dtype} DH={dh} S={s}"
-        )
-    if q.device.type != "cuda":
-        raise ValueError(f"the fused backward runs on cuda, not {q.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0:
         return dq, dk, dv
@@ -207,22 +248,27 @@ def masked_attention_bwd_fused(
     return dq, dk, dv
 
 
-KERNELS = (masked_attention_fwd, masked_attention_bwd_dq, masked_attention_bwd_dkv, masked_attention_bwd_fused)
+KERNELS = (
+    masked_attention_fwd, masked_attention_bwd_dq, masked_attention_bwd_dkv, masked_attention_bwd_fused,
+    masked_attention_fwd_fused,
+)
 for _fn in KERNELS:
     _fn.launches = 0
 
 
 class MaskedAttention(torch.autograd.Function):
-    """The kernels as one differentiable op. The forward saves its inputs,
-    the output and the per-row softmax statistics only when q, k or v wants
-    a gradient; the backward takes the kernel(s) ``backward_route`` names
-    and regenerates the dropout mask from the seed. The key bias gets no
-    gradient."""
+    """The kernels as one differentiable op. Both directions take the
+    kernels ``kernel_route`` names. The forward asks for the per-row softmax
+    statistics, and saves its inputs, the output and the statistics, only
+    when q, k or v wants a gradient; the backward regenerates the dropout
+    mask from the seed. The key bias gets no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, seed: int, rate: float, scale: float):
         need = any(ctx.needs_input_grad[:3])
-        out, stats = masked_attention_fwd(q, k, v, key_bias, scale, rate, seed, with_stats=need)
+        tensor_core = kernel_route(q.dtype, q.shape[-1], q.shape[2]) == "tensor_core"
+        fwd = masked_attention_fwd_fused if tensor_core else masked_attention_fwd
+        out, stats = fwd(q, k, v, key_bias, scale, rate, seed, with_stats=need)
         if need:
             ctx.save_for_backward(q, k, v, key_bias, out, stats)
             ctx.args = (scale, rate, seed)
@@ -233,7 +279,7 @@ class MaskedAttention(torch.autograd.Function):
         q, k, v, key_bias, out, stats = ctx.saved_tensors
         scale, rate, seed = ctx.args
         g = g.contiguous()
-        if backward_route(q.dtype, q.shape[-1], q.shape[2]) == "fused":
+        if kernel_route(q.dtype, q.shape[-1], q.shape[2]) == "tensor_core":
             dq, dk, dv = masked_attention_bwd_fused(q, k, v, out, g, key_bias, stats, scale, rate, seed)
         else:
             dq, delta = masked_attention_bwd_dq(q, k, v, out, g, key_bias, stats, scale, rate, seed)

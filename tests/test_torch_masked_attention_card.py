@@ -12,9 +12,10 @@ package are in ``test_torch_masked_attention.py``.
 
 Tolerances on the card, as for the tree-attention kernels: float32 with
 TF32 off, 1e-4 x max|ref| (sums in other orders); bfloat16, 1e-2 x max|ref|
-(the kernels round out and g to bf16 before forming g . out, the one-pass
-backward rounds p and ds to bf16 before its second products, and every
-output is rounded to bf16).
+(the kernels round out and g to bf16 before forming g . out, the
+tensor-core forward rounds p to bf16 before P V, the one-pass backward
+rounds p and ds to bf16 before its second products, and every output is
+rounded to bf16).
 """
 
 import numpy as np
@@ -58,17 +59,18 @@ def forward_and_grads(fn, q, k, v, bias, g, **kw):
     return [out.detach()] + [x.grad for x in leaves]
 
 
-def read_back_mask(fn, b, h, s, rate, seed, device, dh=16):
+def read_back_mask(fn, b, h, s, rate, seed, device, dh=16, dtype=torch.float32):
     """The keep mask ``fn`` applies, read back: with q = k = 0 and no bias
     every row weighs its keys equally, so with v holding one-hot columns for
-    keys c*dh .. c*dh+dh-1, out = keep / (S (1 - rate)) there."""
-    zeros = torch.zeros(b, h, s, dh, device=device)
+    keys c*dh .. c*dh+dh-1, out = keep / (S (1 - rate)) there (within a
+    bf16 step in bf16, far from the 0.5 the rounding cuts at)."""
+    zeros = torch.zeros(b, h, s, dh, device=device, dtype=dtype)
     chunks = []
     for c in range(-(-s // dh)):
         v = torch.zeros(s + dh, dh, device=device)
         v[c * dh : (c + 1) * dh] = torch.eye(dh, device=device)
-        out = fn(zeros, zeros, v[:s].expand(b, h, s, dh).contiguous(), None, seed=seed, rate=rate)
-        chunks.append((out * s * (1 - rate)).round() > 0.5)
+        out = fn(zeros, zeros, v[:s].to(dtype).expand(b, h, s, dh).contiguous(), None, seed=seed, rate=rate)
+        chunks.append((out.float() * s * (1 - rate)).round() > 0.5)
     return torch.cat(chunks, dim=-1)[..., :s]
 
 
@@ -77,11 +79,24 @@ def max_err_of_max(got, want, floor=1e-30):
     return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(floor)).item()
 
 
+# launches of ma.KERNELS (CUDA-core fwd, dq, dkv, one-pass bwd, tensor-core
+# fwd) for one forward and backward, by route
+ROUTE_LAUNCHES = {"tensor_core": [0, 0, 0, 1, 1], "cuda_core": [1, 1, 1, 0, 0]}
+
+
 def expected_launches(dtype, s, dh=64):
-    """Launches of ma.KERNELS (fwd, dq, dkv, fused) for one forward and
-    backward, by the backward's route."""
-    fused = ma.backward_route(dtype, dh, s) == "fused"
-    return [1, 0, 0, 1] if fused else [1, 1, 1, 0]
+    """Launches of ma.KERNELS for one forward and backward, by the route."""
+    return ROUTE_LAUNCHES[ma.kernel_route(dtype, dh, s)]
+
+
+def plain_stats(q, k, bias, scale):
+    """(row max clamped at -1e9, log of the clamped undropped row sum), f32
+    (2, B, H, S), as the kernels store them."""
+    s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
+    if bias is not None:
+        s = s + bias.float().clamp_min(ta.MASK_BIAS)[:, None, None, :]
+    m = s.amax(-1).clamp_min(ta.MASK_BIAS)
+    return torch.stack([m, torch.exp(s - m[..., None]).sum(-1).clamp_min(1e-30).log()])
 
 
 def test_build_failure_raises(monkeypatch, tmp_path):
@@ -90,6 +105,20 @@ def test_build_failure_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc failed"):
         cuda_lib.build()
+
+
+def test_build_tables_cover_every_source_and_header():
+    """Every kernel source is built, bound and named in ``cuda_lib``'s
+    tables, and every header a source includes is in ``HEADERS``, which the
+    libraries' build hash reads."""
+    import re
+
+    assert set(cuda_lib.SOURCES) == set(cuda_lib.ENTRY_POINTS) == set(cuda_lib.ERROR_STRINGS)
+    assert sorted(cuda_lib.SOURCES.values()) == sorted(cuda_lib.CSRC.glob("*.cu"))
+    included = {name for src in cuda_lib.CSRC.glob("*.cu*")
+                for name in re.findall(r'#include "([^"]+)"', src.read_text())}
+    assert included == {p.name for p in cuda_lib.HEADERS} == {p.name for p in cuda_lib.CSRC.glob("*.cuh")}
+    assert "masked_attention_fwd_mma" in cuda_lib.ENTRY_POINTS["masked_fwd_mma"]
 
 
 def test_cpu_path_never_builds_or_counts(monkeypatch):
@@ -139,33 +168,39 @@ def test_kernel_input_checks(fault):
     ma._check_cuda_inputs(*(torch.from_numpy(x) for x in _inputs(3, 2, 2, 9, 64)))
 
 
-@pytest.mark.parametrize(
-    "dtype, dh, s, route",
-    [
-        (torch.bfloat16, 64, 100, "fused"),  # text bottom
-        (torch.bfloat16, 64, 104, "fused"),  # text fusion
-        (torch.bfloat16, 64, 201, "fused"),  # ViT fusion
-        (torch.bfloat16, 64, 1, "fused"),
-        (torch.bfloat16, 64, 256, "fused"),
-        (torch.bfloat16, 64, 257, "pair"),  # longer S
-        (torch.bfloat16, 32, 104, "pair"),  # other DH
-        (torch.bfloat16, 128, 104, "pair"),
-        (torch.float32, 64, 104, "pair"),  # f32: the card-vs-CPU steps' tolerances
-    ],
-)
+ROUTE_CASES = [
+    (torch.bfloat16, 64, 100, "tensor_core"),  # text bottom
+    (torch.bfloat16, 64, 104, "tensor_core"),  # text fusion
+    (torch.bfloat16, 64, 201, "tensor_core"),  # ViT fusion
+    (torch.bfloat16, 64, 1, "tensor_core"),
+    (torch.bfloat16, 64, 256, "tensor_core"),
+    (torch.bfloat16, 64, 257, "cuda_core"),  # longer S
+    (torch.bfloat16, 32, 104, "cuda_core"),  # other DH
+    (torch.bfloat16, 128, 104, "cuda_core"),
+    (torch.float32, 64, 104, "cuda_core"),  # f32: the card-vs-CPU steps' tolerances
+]
+
+
+@pytest.mark.parametrize("dtype, dh, s, route", ROUTE_CASES)
 def test_backward_route(dtype, dh, s, route):
-    assert ma.backward_route(dtype, dh, s) == route
+    """One predicate routes both directions: the forward that writes the
+    statistics and the backward that reads them."""
+    assert ma.kernel_route(dtype, dh, s) == route
 
 
-@pytest.mark.parametrize("dtype, dh, s", [(torch.bfloat16, 64, 104), (torch.float32, 64, 104), (torch.bfloat16, 32, 40)])
-def test_backward_launches_the_routed_kernels(monkeypatch, dtype, dh, s):
-    """``MaskedAttention.backward`` calls the fused kernel or the pair as
-    ``backward_route`` says, with the forward's saved tensors. The kernels
-    are stood in for on CPU tensors."""
-    calls = []
+def _stub_kernels(monkeypatch, calls, asked=None):
+    """Stand-ins on CPU tensors for every kernel wrapper of ``ma``: each
+    records its name in ``calls``; the forwards return the plain version's
+    output and (when asked, recorded in ``asked``) zero statistics."""
 
-    def fake_fwd(q, k, v, key_bias, scale, rate, seed, with_stats):
-        return ma.masked_attention_dropout_reference(q, k, v, key_bias, seed, rate, scale), torch.zeros((2,) + q.shape[:3])
+    def fwd(name):
+        def run(q, k, v, key_bias, scale, rate, seed, with_stats):
+            calls.append(name)
+            if asked is not None:
+                asked.append(with_stats)
+            out = ma.masked_attention_dropout_reference(q, k, v, key_bias, seed, rate, scale)
+            return out, torch.zeros((2,) + q.shape[:3]) if with_stats else None
+        return run
 
     def fake_fused(q, k, v, out, g, key_bias, stats, scale, rate, seed):
         calls.append("fused")
@@ -179,13 +214,58 @@ def test_backward_launches_the_routed_kernels(monkeypatch, dtype, dh, s):
         calls.append("dkv")
         return torch.zeros_like(k), torch.zeros_like(v)
 
-    for name, fn in (("masked_attention_fwd", fake_fwd), ("masked_attention_bwd_fused", fake_fused),
-                     ("masked_attention_bwd_dq", fake_dq), ("masked_attention_bwd_dkv", fake_dkv)):
+    for name, fn in (("masked_attention_fwd", fwd("fwd")), ("masked_attention_fwd_fused", fwd("fwd_fused")),
+                     ("masked_attention_bwd_fused", fake_fused), ("masked_attention_bwd_dq", fake_dq),
+                     ("masked_attention_bwd_dkv", fake_dkv)):
         monkeypatch.setattr(ma, name, fn)
+
+
+@pytest.mark.parametrize("with_grad", [False, True])
+@pytest.mark.parametrize("dtype, dh, s, route", ROUTE_CASES)
+def test_forward_launches_the_routed_kernel(monkeypatch, dtype, dh, s, route, with_grad):
+    """``MaskedAttention.forward`` calls the forward kernel ``kernel_route``
+    names, asking for the statistics only when an input wants a gradient.
+    The kernels are stood in for on CPU tensors."""
+    calls, asked = [], []
+    _stub_kernels(monkeypatch, calls, asked)
+    q, k, v, bias = (torch.from_numpy(x) for x in _inputs(11, 1, 2, s, dh))
+    q, k, v = (x.to(dtype).requires_grad_(with_grad) for x in (q, k, v))
+    ma.MaskedAttention.apply(q, k, v, bias, 3, 0.2, dh ** -0.5)
+    assert calls == ["fwd_fused" if route == "tensor_core" else "fwd"]
+    assert asked == [with_grad]
+
+
+def test_every_tower_shape_routes_to_tensor_cores():
+    """``ModelConfig()`` in bf16: the text tower at its collated length
+    (bottom) and with the bottleneck tokens (fusion), the ViT over its
+    patches and CLS token and with the bottleneck tokens, all take the
+    tensor-core kernels."""
+    from multimodaldiscussiontransformer_tpu_torch.core.config import DataConfig, ModelConfig
+
+    mc = ModelConfig()
+    dtype = getattr(torch, mc.dtype)
+    assert dtype == torch.bfloat16
+    text, vit = DataConfig().max_text_len, mc.image_tower.seq_len
+    shapes = {"text_bottom": (mc.text_tower.head_dim, text), "text_fusion": (mc.text_tower.head_dim, text + mc.num_bottleneck_tokens),
+              "vit_bottom": (mc.image_tower.head_dim, vit), "vit_fusion": (mc.image_tower.head_dim, vit + mc.num_bottleneck_tokens)}
+    assert {name: (dh, s) for name, (dh, s) in shapes.items()} == {
+        "text_bottom": (64, 100), "text_fusion": (64, 104), "vit_bottom": (64, 197), "vit_fusion": (64, 201)}
+    assert {name: ma.kernel_route(dtype, dh, s) for name, (dh, s) in shapes.items()} == dict.fromkeys(shapes, "tensor_core")
+
+
+@pytest.mark.parametrize("dtype, dh, s", [(torch.bfloat16, 64, 104), (torch.float32, 64, 104), (torch.bfloat16, 32, 40)])
+def test_backward_launches_the_routed_kernels(monkeypatch, dtype, dh, s):
+    """``MaskedAttention`` calls the tensor-core forward and the one-pass
+    backward, or the CUDA-core forward and the pair, as ``kernel_route``
+    says, the backward with the forward's saved tensors. The kernels are
+    stood in for on CPU tensors."""
+    calls = []
+    _stub_kernels(monkeypatch, calls)
     q, k, v, bias = (torch.from_numpy(x) for x in _inputs(6, 2, 2, s, dh))
     q, k, v = (x.to(dtype).requires_grad_(True) for x in (q, k, v))
     ma.MaskedAttention.apply(q, k, v, bias, 3, 0.2, dh ** -0.5).float().sum().backward()
-    assert calls == (["fused"] if ma.backward_route(dtype, dh, s) == "fused" else ["dq", "dkv"])
+    tensor_core = ma.kernel_route(dtype, dh, s) == "tensor_core"
+    assert calls == (["fwd_fused", "fused"] if tensor_core else ["fwd", "dq", "dkv"])
     assert q.grad.dtype == dtype and k.grad.shape == k.shape
 
 
@@ -216,9 +296,36 @@ def test_fused_backward_input_checks(monkeypatch, fault):
         ma.masked_attention_bwd_fused(q, k, v, q, q, bias, stats, dh ** -0.5, 0.3, 1)
 
 
+@pytest.mark.parametrize("fault", ["float32", "head_dim", "long_s", "bias_shape", "k_shape", "cpu"])
+def test_fused_forward_input_checks(monkeypatch, fault):
+    """What ``masked_attention_fwd_fused`` refuses: anything but bf16 at DH
+    64 and S <= 256, a malformed bias or k, and tensors off the card. It
+    raises before any build."""
+
+    def no_build():
+        raise AssertionError("an input check must raise before the build")
+
+    monkeypatch.setattr(cuda_lib, "build", no_build)
+    b, h, s, dh = 2, 2, 9, 64
+    if fault == "head_dim":
+        dh = 32
+    elif fault == "long_s":
+        s = 257
+    q, k, v, bias = (torch.from_numpy(x) for x in _inputs(12, b, h, s, dh))
+    dt = torch.float32 if fault == "float32" else torch.bfloat16
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    if fault == "bias_shape":
+        bias = bias[:, :-1].contiguous()
+    elif fault == "k_shape":
+        k = k[:, :, :-1].contiguous()
+    with pytest.raises(ValueError):
+        ma.masked_attention_fwd_fused(q, k, v, bias, dh ** -0.5, 0.3, 1, with_stats=True)
+
+
 def test_cpu_path_never_builds_the_fused_backward(monkeypatch):
     """bf16 at DH = 64 on the CPU: the plain version and autograd, no build
-    and no launch, although the card would take the fused backward."""
+    and no launch (the tensor-core forward's count included), although the
+    card would take the tensor-core forward and the one-pass backward."""
 
     def no_build():
         raise AssertionError("the CPU path must not build the kernels")
@@ -235,16 +342,10 @@ def test_cpu_path_never_builds_the_fused_backward(monkeypatch):
 def test_function_saves_only_when_a_gradient_is_wanted(monkeypatch):
     """``MaskedAttention`` asks its forward kernel for the row statistics,
     and saves tensors, only when q, k or v wants a gradient (the frozen
-    bottom towers save nothing). The kernel is stood in for by the plain
+    bottom towers save nothing). The kernels are stood in for by the plain
     version."""
-    asked = []
-
-    def fake_fwd(q, k, v, key_bias, scale, rate, seed, with_stats):
-        asked.append(with_stats)
-        out = ma.masked_attention_dropout_reference(q, k, v, key_bias, seed, rate, scale)
-        return out, torch.zeros((2,) + q.shape[:3]) if with_stats else None
-
-    monkeypatch.setattr(ma, "masked_attention_fwd", fake_fwd)
+    calls, asked = [], []
+    _stub_kernels(monkeypatch, calls, asked)
     q, k, v, bias = (torch.from_numpy(x) for x in _inputs(4, 2, 2, 9, 8))
     frozen = ma.MaskedAttention.apply(q, k, v, bias, 0, 0.0, 0.35)
     assert frozen.grad_fn is None
@@ -338,7 +439,7 @@ def test_fused_backward_matches_plain_on_card(rate, s):
     before = [fn.launches for fn in ma.KERNELS]
     got = forward_and_grads(ma.masked_attention, q, k, v, bias, g, rate=rate, seed=4321 + s)
     torch.cuda.synchronize()
-    assert [fn.launches - n for fn, n in zip(ma.KERNELS, before)] == [1, 0, 0, 1]
+    assert [fn.launches - n for fn, n in zip(ma.KERNELS, before)] == ROUTE_LAUNCHES["tensor_core"]
     want = forward_and_grads(ma.masked_attention_dropout_reference, q, k, v, bias, g, rate=rate, seed=4321 + s)
     for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
         assert torch.isfinite(a).all(), name
@@ -376,3 +477,73 @@ def test_fused_backward_mask_is_the_plain_philox(s):
         chunks.append(v.grad.float().transpose(-1, -2) != 0)  # [d, j]: row c*64 + d
     mask = torch.cat(chunks, dim=-2)[..., :s, :]
     assert torch.equal(mask, ta.dropout_keep_mask(seed, b, h, s, rate, dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("s", FUSED_S)
+def test_fused_forward_matches_plain_on_card(rate, s):
+    """The tensor-core forward alone against the plain version, bf16, with
+    about 30% of the keys padded and the last row of the batch fully masked:
+    out within 1e-2 of max |ref|, the row statistics (f32 sums over bf16
+    inputs) within 1e-4 of the plain ones, and the fully masked row's
+    weights equal, 1/S, at rate 0."""
+    dev = _card()
+    b, h, dh = 3, 12, 64
+    q, k, v, bias = (torch.from_numpy(x).to(dev) for x in _inputs(s + 2000, b, h, s, dh))
+    bias[-1] = ta.MASK_BIAS
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    before = [fn.launches for fn in ma.KERNELS]
+    out, stats = ma.masked_attention_fwd_fused(q, k, v, bias, dh ** -0.5, rate, 99 + s, with_stats=True)
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(ma.KERNELS, before)] == [0, 0, 0, 0, 1]
+    want = ma.masked_attention_dropout_reference(q, k, v, bias, 99 + s, rate, dh ** -0.5)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    assert max_err_of_max(out, want) <= BF16_RTOL_OF_MAX, max_err_of_max(out, want)
+    m, log_l = plain_stats(q, k, bias, dh ** -0.5)
+    # the fully masked row's max is -1e9 exactly (the bias swamps q . k in
+    # f32), where a relative tolerance would say nothing: it is held apart
+    assert torch.allclose(stats[0, :-1], m[:-1], rtol=1e-4, atol=1e-4)
+    assert torch.equal(stats[0, -1], torch.full_like(stats[0, -1], ta.MASK_BIAS))
+    assert torch.allclose(stats[1], log_l, rtol=1e-4, atol=1e-4)
+    if rate == 0.0:
+        mean_v = v[-1].float().mean(dim=-2, keepdim=True).expand(h, s, dh)
+        assert max_err_of_max(out[-1], mean_v) <= BF16_RTOL_OF_MAX
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [36, 104, 201])
+def test_fused_forward_mask_is_the_plain_philox(s):
+    """The tensor-core forward's keep mask, read back in bf16 at DH = 64."""
+    dev = _card()
+    before = ma.masked_attention_fwd_fused.launches
+    mask = read_back_mask(ma.masked_attention, 2, 3, s, 0.3, seed=98, device=dev, dh=64, dtype=torch.bfloat16)
+    assert ma.masked_attention_fwd_fused.launches == before + -(-s // 64)
+    assert torch.equal(mask, ta.dropout_keep_mask(98, 2, 3, s, 0.3, dev))
+    assert abs(mask.float().mean().item() - 0.7) < 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [36, 104, 201])
+def test_fused_forward_stats_drive_both_backwards(s):
+    """The tensor-core forward's output and statistics fed to the one-pass
+    backward and to the CUDA-core pair, both called directly on bf16
+    inputs: each gives the plain version's gradients within 1e-2 of
+    max |ref| (rate 0.3, a fully masked last row)."""
+    dev = _card()
+    b, h, dh, rate, seed = 3, 12, 64, 0.3, 4000 + s
+    scale = dh ** -0.5
+    q, k, v, bias = (torch.from_numpy(x).to(dev) for x in _inputs(s + 3000, b, h, s, dh))
+    bias[-1] = ta.MASK_BIAS
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    g = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(s), device=dev).to(torch.bfloat16)
+    out, stats = ma.masked_attention_fwd_fused(q, k, v, bias, scale, rate, seed, with_stats=True)
+    one_pass = ma.masked_attention_bwd_fused(q, k, v, out, g, bias, stats, scale, rate, seed)
+    dq, delta = ma.masked_attention_bwd_dq(q, k, v, out, g, bias, stats, scale, rate, seed)
+    pair = (dq, *ma.masked_attention_bwd_dkv(q, k, v, g, bias, stats, delta, scale, rate, seed))
+    torch.cuda.synchronize()
+    want = forward_and_grads(ma.masked_attention_dropout_reference, q, k, v, bias, g, rate=rate, seed=seed)[1:]
+    for route, got in (("one_pass", one_pass), ("pair", pair)):
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            assert torch.isfinite(a.float()).all(), (route, name)
+            assert max_err_of_max(a, w) <= BF16_RTOL_OF_MAX, (route, name, max_err_of_max(a, w))
