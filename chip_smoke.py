@@ -6,28 +6,34 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: compile every kernel library from ``csrc/`` with nvcc (sm_90a;
-   one nvcc per source, all seven in parallel: the tree-attention forward
-   and backward, the masked (tower) attention's two forwards (CUDA-core
-   and tensor-core), its CUDA-core backward pair and its one-pass
-   tensor-core backward, the dense-bias attention forward), report each
-   library's registers and any ptxas spill, and print the card's name and
-   power limit as nvidia-smi reports them.
-2. kernel_vs_plain: the tree-attention forward kernel at rate 0 against its
+   one nvcc per source, all eight in parallel: the tree-attention forwards
+   (CUDA-core and tensor-core) and backward, the masked (tower) attention's
+   two forwards (CUDA-core and tensor-core), its CUDA-core backward pair
+   and its one-pass tensor-core backward, the dense-bias attention
+   forward), report each library's registers and any ptxas spill, and
+   print the card's name and power limit as nvidia-smi reports them.
+2. kernel_vs_plain: the tree-attention forwards at rate 0 against their
    plain PyTorch version on the card, at H=12, dh=64, double_add, with
    templates/ids collated from synthetic trees: S=33 (B=16), S=129 and
-   S=257 (B=2), S=601 (B=1); in float32 (TF32 off) and in bfloat16. Each
-   shape also gets times for the kernel, the plain version and one library
-   call on the assembled dense bias (``F.scaled_dot_product_attention``, a
-   yardstick the port never calls), beside the least time the card could
-   take.
-3. kernel_vs_plain_train: the tree-attention forward kernel with dropout
-   and the LSE output and the two backward kernels against the plain
-   version's forward and autograd gradients at S=33 (B=12), 129 (B=4), 257
-   (B=2) and the streaming sizes S=601 and 1025 (B=1), at rate 0.3 and 0,
-   in float32 and bfloat16; the adjoint identity in v; times of each
-   kernel, the plain version and SDPA (on the permuted bias and on a
-   contiguous copy). Then dropout_mask: the forward kernel's mask read
-   back equals the plain Philox, and its kept fraction.
+   S=257 (B=2), S=601 (B=1): float32 (TF32 off) through the route (the
+   CUDA-core forward), bfloat16 through the route (the tensor-core
+   forward, within 1e-2 of max |ref|) and through the CUDA-core forward's
+   own wrapper (within one bf16 step elementwise). Each shape also gets
+   times for both forwards on the same bf16 inputs, the plain version and
+   one library call on the assembled dense bias
+   (``F.scaled_dot_product_attention``, a yardstick the port never calls),
+   beside the least time the card could take.
+3. kernel_vs_plain_train: the tree-attention forward with dropout and the
+   LSE output and the two backward kernels against the plain version's
+   forward and autograd gradients at S=33 (B=12), 129 (B=4), 257 (B=2) and
+   the streaming sizes S=601 and 1025 (B=1), at rate 0.3 and 0, in float32
+   (the CUDA-core forward) and bfloat16 (the tensor-core forward; the
+   CUDA-core forward's bf16 output beside it); the adjoint identity in v;
+   times of each kernel (both forwards on the same bf16 inputs), the plain
+   version and SDPA (on the permuted bias and on a contiguous copy). Then
+   dropout_mask: the CUDA-core forward's mask read back in float32 at
+   S=33 and the tensor-core forward's in bf16 at S=601 (ten key tiles)
+   equal the plain Philox, and their kept fractions.
 4. masked_vs_plain: the tower (masked) attention forward and backward
    kernels against their plain version at the tower shapes (text bottom
    B=256 S=100, text fusion B=256 S=104, ViT fusion B=64 S=201 without a
@@ -56,9 +62,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    weights from a seeded ``torch.Generator``, scored through
    ``BatchingScorer`` from 4 threads (discussions of ~20, ~100 and 600
    nodes, 100-token text, some nodes with a 3x224x224 image). Checks finite
-   probabilities that sum to 1, exactly 10 tree-attention launches per
-   forward and no backward launch, and agreement with the same model on the
-   CPU (float32) on one small discussion.
+   probabilities that sum to 1, exactly 10 launches of the tensor-core
+   tree forward per forward (the CUDA-core forward at 0) and no backward
+   launch, and agreement with the same model on the CPU (float32) on one
+   small discussion.
 7. scoring_fused: the same weights with both towers fused
    (``use_pallas_attention`` in the tower configs) score the same
    discussions through ``DiscussionScorer``: finite probabilities summing
@@ -86,8 +93,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
      text capacity 1024) with images on 5% of nodes: 1 untimed and 3 timed
      updates, then one profiled update (train_big_trace).
    Each checks a finite, changing loss, the exact launches of every kernel
-   in every update (tree attention: 10 graph layers forward and 8 backward
-   per microbatch, the last graph stack feeding only the global embedding;
+   in every update (tree attention: 10 graph layers forward through the
+   tensor-core forward, the CUDA-core one at 0, and 8 backward per
+   microbatch, the last graph stack feeding only the global embedding;
    masked attention: every tower layer forward through the tensor-core
    forward and the 9 trainable fusion layers of each tower backward
    through the one-pass kernel in bf16 (the CUDA-core forward and the pair
@@ -96,12 +104,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    gradient changed; prints ms per update, discussions/s, MFU against 989
    TFLOP/s, each update's peak memory (statistics reset before every
    update) and the S values seen; the profiled updates add device time by
-   kernel group, the tower forward and backward apart.
+   kernel group, the tree and the tower attention's forward and backward
+   apart.
 10. train_cpu_agreement, train_cpu_agreement_fused: one scan update of the
    tiny config with every dropout at 0 in float32, on the card and on the
    CPU, without and with fused towers: gradients and updated parameters
-   agree (the fused towers' float32 route runs the CUDA-core forward and
-   the pair).
+   agree (float32 runs the CUDA-core tree forward, and the fused towers'
+   CUDA-core forward and pair).
 11. dense_graph: the dense-bias slice at ``ModelConfig()`` width
     (GraphNodeFeature -> dense GraphAttnBias -> 5 graph stacks of 2
     layers, ``use_pallas_attention``, bf16 compute): scoring forwards at
@@ -114,7 +123,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 12. launch: ``train.launch.main`` with ``--synthetic --max-updates 2`` on
     the card returns 0.
 
-The last two lines are the kernels' summary (nine kernels) and
+The last two lines are the kernels' summary (ten kernels) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -158,6 +167,7 @@ IMAGE_SHAPE = (3, 224, 224)
 
 PKG = "multimodaldiscussiontransformer_tpu_torch"
 KERNEL_SOURCE = f"{PKG}/csrc/tree_attention_fwd.cu"
+KERNEL_MMA_SOURCE = f"{PKG}/csrc/tree_attention_fwd_mma.cu"
 BWD_SOURCE = f"{PKG}/csrc/tree_attention_bwd.cu"
 MASKED_FWD_SOURCE = f"{PKG}/csrc/masked_attention_fwd.cu"
 MASKED_FWD_MMA_SOURCE = f"{PKG}/csrc/masked_attention_fwd_mma.cu"
@@ -287,7 +297,7 @@ def _all_kernels():
 
 
 KERNEL_NAMES = (
-    "tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv",
+    "tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv", "tree_attention_fwd_fused",
     "masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv", "masked_attention_bwd_fused",
     "masked_attention_fwd_fused", "biased_attention_fwd",
 )
@@ -354,23 +364,38 @@ def phase_kernel(seed: int):
         row = {"S": s, "B": b, "H": h, "dh": dh}
         for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             qq, kk, vv = (x.to(dt).contiguous() for x in (q, k, v))
-            got = ta.tree_attention(qq, kk, vv, template, ids, lut)
-            want = ta.tree_attention_reference(qq, kk, vv, template, ids, lut)
+            want = ta.tree_attention_reference(qq, kk, vv, template, ids, lut).float()
+            c0 = _counts()
+            got = ta.tree_attention(qq, kk, vv, template, ids, lut)  # the route's forward
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs()
-            if name == "float32":
+            launched = dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, _counts()))))
+            fused = ta.kernel_route(dt, dh) == "tensor_core"
+            if (launched["tree_attention_fwd"], launched["tree_attention_fwd_fused"]) != ((0, 1) if fused else (1, 0)):
+                raise AssertionError(f"{name} at S={s} took the wrong forward: {launched}")
+            err = (got.float() - want).abs()
+            if name == "float32":  # the CUDA-core forward
                 ok = bool((err <= F32_ATOL).all())
-            else:
-                ok = bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
+            else:  # the tensor-core forward, its bf16 P included
+                ok = err.max().item() <= TRAIN_BF16_REL * want.abs().max().item()
             if not (ok and torch.isfinite(got).all()):
                 raise AssertionError(f"kernel disagrees with plain version at S={s} B={b} {name}: max err {err.max().item()}")
             row[f"max_abs_err_{name}"] = err.max().item()
+            if name == "bfloat16":
+                # the CUDA-core forward in bf16 through its own wrapper: f32
+                # arithmetic, so within one bf16 step elementwise
+                got = ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, dh ** -0.5)[0]
+                torch.cuda.synchronize()
+                err = (got.float() - want).abs()
+                if not (bool((err <= BF16_ATOL + BF16_RTOL * want.abs()).all()) and torch.isfinite(got).all()):
+                    raise AssertionError(f"CUDA-core forward disagrees at S={s} B={b} bf16: max err {err.max().item()}")
+                row["max_abs_err_bfloat16_cuda_core"] = err.max().item()
         # times in the main path's type
         qq, kk, vv = (x.to(torch.bfloat16).contiguous() for x in (q, k, v))
         dense = ta.assemble_bias(template, ids, lut, True).to(torch.bfloat16)
         dense_c = dense.contiguous()
         calls = {
-            "": lambda: ta.tree_attention(qq, kk, vv, template, ids, lut),
+            "": lambda: ta.tree_attention(qq, kk, vv, template, ids, lut),  # the tensor-core forward
+            "cuda_core_": lambda: ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, dh ** -0.5),
             "plain_": lambda: ta.tree_attention_reference(qq, kk, vv, template, ids, lut),
             "library_": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=dense, scale=dh ** -0.5),
             # assemble_bias returns the (B, H, S, S) bias in a (B, S, S, H)
@@ -386,7 +411,8 @@ def phase_kernel(seed: int):
             row[prefix + "device_ms"] = device_ms(fn)
             row[prefix + "ms"] = row[prefix + "device_ms"] or row[prefix + "call_ms"]
         row["bound_ms"], row["bound_by"] = bound(b, h, s, dh, "bfloat16", 2 * b * s * s * 4 + 32 * h * 4)
-        row["tolerance"] = {"float32_atol": F32_ATOL, "bfloat16_rtol": BF16_RTOL, "bfloat16_atol": BF16_ATOL}
+        row["tolerance"] = {"float32_atol": F32_ATOL, "bfloat16_rel_of_max": TRAIN_BF16_REL,
+                            "bfloat16_cuda_core_rtol": BF16_RTOL, "bfloat16_cuda_core_atol": BF16_ATOL}
         emit({"phase": "kernel_vs_plain", **row})
         rows.append(row)
     return rows
@@ -505,9 +531,9 @@ def phase_scoring(seed: int):
     for t in threads:
         t.join(timeout=600)
     counts = dict(zip(KERNEL_NAMES, _counts()))
-    launches = counts["tree_attention_fwd"]
-    if any(n for name, n in counts.items() if name != "tree_attention_fwd"):
-        raise AssertionError(f"the scoring path launched a backward or a tower kernel: {counts}")
+    launches = counts["tree_attention_fwd_fused"]  # bf16 at dh 64: the tensor-core forward
+    if any(n for name, n in counts.items() if name != "tree_attention_fwd_fused"):
+        raise AssertionError(f"the scoring path launched a backward, a tower or the CUDA-core tree kernel: {counts}")
     batching.close()
     scorer.score_items = inner
     if errors or any(t.is_alive() for t in threads):
@@ -583,7 +609,7 @@ def phase_scoring_fused(unfused):
             errs[name].append(float(np.abs(p - ref).max()))
     counts = dict(zip(KERNEL_NAMES, _counts()))
     want = dict.fromkeys(KERNEL_NAMES, 0)
-    want["tree_attention_fwd"] = LAUNCHES_PER_FORWARD * forwards
+    want["tree_attention_fwd_fused"] = LAUNCHES_PER_FORWARD * forwards
     want["masked_attention_fwd"] = want_cuda_core
     want["masked_attention_fwd_fused"] = want_tensor_core
     worst = max(max(e) for e in errs.values())
@@ -656,6 +682,7 @@ def phase_latency(scorer, rng):
     )
     device_ms = sum(e.self_device_time_total for e in events) / reps / 1e3
     tree_ms = sum(e.self_device_time_total for e in events if "tree_attention" in e.key) / reps / 1e3
+    tree_fwd_ms = sum(e.self_device_time_total for e in events if "tree_attention_fwd" in e.key) / reps / 1e3
     top = [
         {"kernel": e.key[:80], "ms": e.self_device_time_total / reps / 1e3, "count": e.count // reps}
         for e in events[:12]
@@ -675,7 +702,8 @@ def phase_latency(scorer, rng):
         copy_ms.append((time.perf_counter() - t1) * 1e3)
     emit({"phase": "trace", "request_batch": 4, "wall_ms": wall_ms, "device_ms": device_ms,
           "device_busy_share": device_ms / wall_ms if wall_ms else None,
-          "tree_attention_ms": tree_ms, "device_ops_per_forward": sum(e.count for e in events) // reps,
+          "tree_attention_ms": tree_ms, "tree_attention_fwd_ms": tree_fwd_ms,
+          "tree_attention_bwd_ms": tree_ms - tree_fwd_ms, "device_ops_per_forward": sum(e.count for e in events) // reps,
           "host_collate_ms": float(np.median(collate_ms)), "host_to_device_ms": float(np.median(copy_ms)),
           "batch_bytes": sum(v.nbytes for v in batch.asdict().values()),
           "top_kernels": top})
@@ -760,9 +788,11 @@ def _check_errors(got, want, names, tol, what, floor: float = 0.0):
 
 
 def phase_kernel_train(seed: int):
-    """K1 (dropout, LSE) + K2 + K3 against the plain version's forward and
-    autograd gradients at rate 0.3 and 0; the adjoint identity in v; the
-    kernel's mask read back against the plain Philox; times."""
+    """The routed forward (dropout, LSE: the CUDA-core K1 in float32, the
+    tensor-core forward in bf16) + K2 + K3 against the plain version's
+    forward and autograd gradients at rate 0.3 and 0, K1's bf16 output
+    beside them; the adjoint identity in v; both forwards' masks read back
+    against the plain Philox; times."""
     import torch
     import torch.nn.functional as F
 
@@ -786,6 +816,12 @@ def phase_kernel_train(seed: int):
                 tol = TRAIN_F32_REL if name == "float32" else TRAIN_BF16_REL
                 row[key][name] = _check_errors(got, want, ("out", "dq", "dk", "dv", "dlut"), tol,
                                                f"training kernels disagree at S={s} rate {rate} {name}")
+                if name == "bfloat16":
+                    # K1 on the same bf16 inputs, through its own wrapper
+                    k1 = ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, rate, dseed)[0]
+                    torch.cuda.synchronize()
+                    row[key]["bfloat16_cuda_core"] = _check_errors(
+                        [k1], want[:1], ("out",), tol, f"the CUDA-core forward disagrees at S={s} rate {rate} bf16")
         # the adjoint identity in v: exact only if the backward regenerates
         # the forward's mask
         v2 = torch.randn(b, h, s, dh, device="cuda", generator=gen)
@@ -799,7 +835,7 @@ def phase_kernel_train(seed: int):
 
         # times in the main path's type
         qq, kk, vv, gg = (x.to(torch.bfloat16).contiguous() for x in (q, k, v, g))
-        out, lse = ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
+        out, lse = ta.tree_attention_fwd_fused(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
         _, _, delta = ta.tree_attention_bwd_dq(qq, kk, vv, out, gg, template, ids, lut, lse, scale, True, TRAIN_RATE, dseed)
         dense = ta.assemble_bias(template, ids, lut, True).to(torch.bfloat16)
         dense_c = dense.contiguous()  # assemble_bias's layout is (B, S, S, H)
@@ -816,7 +852,9 @@ def phase_kernel_train(seed: int):
             return run
 
         calls = {
-            "fwd": lambda: ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed, True),
+            "fwd": lambda: ta.tree_attention_fwd_fused(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed, True),
+            "fwd_cuda_core": lambda: ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed,
+                                                           True),
             "dq": lambda: ta.tree_attention_bwd_dq(qq, kk, vv, out, gg, template, ids, lut, lse, scale, True, TRAIN_RATE, dseed),
             "dkv": lambda: ta.tree_attention_bwd_dkv(qq, kk, vv, gg, template, ids, lut, lse, delta, scale, True, TRAIN_RATE, dseed),
             "plain_fwd": lambda: ta.tree_attention_dropout_reference(qq, kk, vv, template, ids, lut, dseed, TRAIN_RATE, scale),
@@ -830,6 +868,8 @@ def phase_kernel_train(seed: int):
         row["ms"] = {name: timed_ms(fn) for name, fn in calls.items()}
         row["ms"]["plain_bwd"] = row["ms"]["plain_fwd_bwd"] - row["ms"]["plain_fwd"]
         row["bound"] = work_bounds(b, h, s, dh, "bfloat16", 2 * b * s * s * 4 + 32 * h * 4)
+        row["fwd_vs_cuda_core"] = row["ms"]["fwd_cuda_core"] / row["ms"]["fwd"]
+        row["fwd_vs_library_contiguous"] = row["ms"]["fwd"] / row["ms"]["library_contiguous_fwd"]
         emit({"phase": "kernel_vs_plain_train", **row})
         rows.append(row)
 
@@ -845,10 +885,35 @@ def phase_kernel_train(seed: int):
     mask = (out[..., :s] * s * (1 - TRAIN_RATE)).round() > 0.5
     same = bool(torch.equal(mask, ta.dropout_keep_mask(seed + 99, b, h, s, TRAIN_RATE, "cuda")))
     kept = mask.float().mean().item()
+    # the tensor-core forward's mask in bf16 over ten key tiles: v one-hot
+    # in keys c*dh .. c*dh+dh-1 reads keep / (S (1 - rate)) there, within a
+    # bf16 step of it
+    s_mma, b_mma = 601, 1
+    zeros = torch.zeros(b_mma, h, s_mma, dh, device="cuda", dtype=torch.bfloat16)
+    c0, chunks = _counts(), []
+    for c in range(-(-s_mma // dh)):
+        v1 = torch.zeros(s_mma + dh, dh, device="cuda")
+        v1[c * dh: (c + 1) * dh] = torch.eye(dh, device="cuda")
+        out = ta.tree_attention(
+            zeros, zeros, v1[:s_mma].to(torch.bfloat16).expand(b_mma, h, s_mma, dh).contiguous(),
+            torch.zeros(b_mma, s_mma, s_mma, device="cuda"),
+            torch.zeros(b_mma, s_mma, s_mma, dtype=torch.int32, device="cuda"),
+            torch.zeros(ta.LUT_SIZE, h, device="cuda"), rate=TRAIN_RATE, seed=seed + 98,
+        )
+        chunks.append((out.float() * s_mma * (1 - TRAIN_RATE)).round() > 0.5)
+    launched = dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, _counts()))))
+    mask_mma = torch.cat(chunks, dim=-1)[..., :s_mma]
+    same_mma = bool(torch.equal(mask_mma, ta.dropout_keep_mask(seed + 98, b_mma, h, s_mma, TRAIN_RATE, "cuda")))
+    kept_mma = mask_mma.float().mean().item()
     emit({"phase": "dropout_mask", "S": s, "B": b, "H": h, "rate": TRAIN_RATE, "kept_fraction": kept,
-          "equals_plain_philox": same})
+          "equals_plain_philox": same,
+          "tensor_core_bf16": {"S": s_mma, "B": b_mma, "kept_fraction": kept_mma, "equals_plain_philox": same_mma,
+                               "launches": launched}})
     if not same or abs(kept - (1 - TRAIN_RATE)) > 0.02:
         raise AssertionError(f"kernel mask: equals plain {same}, kept fraction {kept}")
+    if not same_mma or abs(kept_mma - (1 - TRAIN_RATE)) > 0.02 or launched["tree_attention_fwd_fused"] != len(chunks) \
+            or launched["tree_attention_fwd"]:
+        raise AssertionError(f"tensor-core forward mask: equals plain {same_mma}, kept fraction {kept_mma}, {launched}")
     return rows
 
 
@@ -1467,13 +1532,18 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int):
     layer's forward takes the tensor-core or the CUDA-core kernel, and each
     tower's backward the one-pass kernel or the pair, as ``kernel_route``
     says for the compute dtype, the tower's head dim and the layer's length
-    (the backward runs in the fusion layers: tokens + bottleneck)."""
+    (the backward runs in the fusion layers: tokens + bottleneck). The
+    graph layers' forward takes the tensor-core or the CUDA-core tree
+    forward as the tree attention's ``kernel_route`` says for the compute
+    dtype and the graph head dim."""
     import torch
 
+    from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
     from multimodaldiscussiontransformer_tpu_torch.ops.masked_attention import kernel_route
 
     fwd, bwd = graph_layers(mc)
-    tree = [k * fwd, k * bwd, k * bwd]
+    tensor_core = ta.kernel_route(getattr(torch, mc.dtype), mc.encoder_embed_dim // mc.encoder_attention_heads) == "tensor_core"
+    tree = [0 if tensor_core else k * fwd, k * bwd, k * bwd, k * fwd if tensor_core else 0]
     if not fused:
         return tree + [0, 0, 0, 0, 0, 0]
     _, _, text_bwd, vit_bwd = tower_launches(mc)
@@ -1574,6 +1644,8 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
     if bad or launches != total_want:
         raise AssertionError(f"{phase}: kernel launches per update (got, expected) {bad}; run {launches} vs {total_want}")
     by_name = dict(zip(KERNEL_NAMES, launches))
+    if by_name["tree_attention_fwd"] or not by_name["tree_attention_fwd_fused"]:
+        raise AssertionError(f"{phase}: bf16 graph layers must take the tensor-core tree forward only: {by_name}")
     if fused and not (by_name["masked_attention_fwd_fused"] and by_name["masked_attention_bwd_fused"]):
         raise AssertionError(f"{phase}: a tensor-core tower kernel never launched: {by_name}")
     cuda_core = {n: by_name[n] for n in ("masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv")}
@@ -1646,6 +1718,8 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
             "I": int(group["images"].shape[1]),
             "wall_ms": prof_wall_ms, "device_ms": dev_ms, "device_busy_share": dev_ms / prof_wall_ms,
             "tree_attention_ms": cat_ms("tree_attention"),
+            "tree_attention_fwd_ms": cat_ms("tree_attention_fwd"),
+            "tree_attention_bwd_ms": cat_ms("tree_attention_bwd"),
             "masked_attention_ms": cat_ms("masked_attention"),
             "masked_attention_fwd_ms": cat_ms("masked_attention_fwd"),
             "masked_attention_bwd_ms": cat_ms("masked_attention_bwd"),
@@ -1810,7 +1884,7 @@ def main(argv=None) -> int:
                             trace=False, dataset_kw=dict(num_graphs=TRAIN_GRAPHS, min_nodes=8, max_nodes=32, image_prob=0.25))
     train_big = run_train(args.seed, "train_big", batch_size=1, fused=True, timed_updates=BIG_TIMED_UPDATES, trace=True,
                           dataset_kw=dict(num_graphs=BIG_GRAPHS, min_nodes=520, max_nodes=1000, image_prob=0.05))
-    phase_train_cpu_agreement(args.seed, fused=False)
+    agree = phase_train_cpu_agreement(args.seed, fused=False)  # float32: the CUDA-core tree forward's path
     agree_fused = phase_train_cpu_agreement(args.seed, fused=True)  # float32: the pair's path
     dense = phase_dense_graph(args.seed)
     phase_launch()
@@ -1821,7 +1895,7 @@ def main(argv=None) -> int:
     bf16 = train_row["errors"]["bfloat16"]
     ms = train_row["ms"]
     by_path = {"scoring": scoring, "train": train, "train_fused": train_fused, "train_big": train_big,
-               "scoring_fused": scoring_fused, "train_cpu_agreement_fused": agree_fused,
+               "scoring_fused": scoring_fused, "train_cpu_agreement": agree, "train_cpu_agreement_fused": agree_fused,
                "dense_graph": dense["scoring"], "dense_graph_train": dense["training"]}
 
     def paths(name, extra=None):
@@ -1829,23 +1903,45 @@ def main(argv=None) -> int:
         return {**out, **(extra or {})}
 
     streaming = [{k: r[k] for k in ("S", "B", "ms", "bound")} for r in big_rows]
+    k1_worst = max(r[k][name]["out"]["max_abs_err"] for r in train_rows for k in ("errors", "errors_rate0")
+                   for name in ("float32", "bfloat16_cuda_core"))
     fusion_row = next(r for r in masked_rows if r["shape"] == "text_fusion")
     vit_row = next(r for r in masked_rows if r["shape"] == "vit_fusion")
     mms = fusion_row["ms"]
     serve_biased = biased_rows[0]  # S=33, B=16: the dense graph path's scoring shape
     bms = serve_biased["ms"]
     print(card, flush=True)
+    tree_fwd_replaces = [f"{TPU_KERNELS}:973", f"{TPU_KERNELS}:103", f"{TPU_KERNELS}:66", f"{TPU_KERNELS}:228",
+                         f"{TPU_KERNELS}:418 (the LSE the forward saves)"]
     emit({"kernels": [
         {**_kernel_entry(
-            "tree_attention_fwd", KERNEL_SOURCE, f"{TPU_KERNELS}:1096",
-            [f"{TPU_KERNELS}:973", f"{TPU_KERNELS}:103", f"{TPU_KERNELS}:66", f"{TPU_KERNELS}:228",
-             f"{TPU_KERNELS}:418 (the LSE the forward saves)"],
-            train["tree_attention_fwd"], train_row, _worst(train_rows, ("out",)), "fwd", ms["plain_fwd"],
+            "tree_attention_fwd", KERNEL_SOURCE, f"{TPU_KERNELS}:1096", tree_fwd_replaces,
+            agree["tree_attention_fwd"], train_row, k1_worst, "fwd_cuda_core", ms["plain_fwd"],
             ms["library_contiguous_fwd"], "fwd"),
          "launches_by_path": paths("tree_attention_fwd"),
-         "serving_rate0": {k: serve_row[k] for k in ("S", "B", "ms", "plain_ms", "library_ms", "bound_ms",
-                                                      "max_abs_err_bfloat16")},
-         "streaming": streaming, "shapes": train_rows},
+         "serving_rate0": {"S": serve_row["S"], "B": serve_row["B"], "ms": serve_row["cuda_core_ms"],
+                           "plain_ms": serve_row["plain_ms"], "library_ms": serve_row["library_contiguous_ms"],
+                           "bound_ms": serve_row["bound_ms"],
+                           "max_abs_err_bfloat16": serve_row["max_abs_err_bfloat16_cuda_core"]},
+         "note": "the float32 route (and DH 16, 32, 128): launches from train_cpu_agreement, 0 on the bf16 paths; "
+                 "times on bf16 inputs at S=33, B=12, rate 0.3 with the LSE; library_ms is SDPA at dropout 0.3 on a "
+                 "contiguous copy of the dense bias; max_abs_err over its float32 checks and its bf16 outputs "
+                 "at every training shape and both rates"},
+        {**_kernel_entry(
+            "tree_attention_fwd_fused", KERNEL_MMA_SOURCE, f"{TPU_KERNELS}:1096", tree_fwd_replaces,
+            train["tree_attention_fwd_fused"], train_row, _worst(train_rows, ("out",)), "fwd", ms["plain_fwd"],
+            ms["library_contiguous_fwd"], "fwd"),
+         "launches_by_path": paths("tree_attention_fwd_fused"),
+         "cuda_core_ms": ms["fwd_cuda_core"],
+         "serving_rate0": {"S": serve_row["S"], "B": serve_row["B"], "ms": serve_row["ms"],
+                           "cuda_core_ms": serve_row["cuda_core_ms"], "plain_ms": serve_row["plain_ms"],
+                           "library_ms": serve_row["library_contiguous_ms"], "bound_ms": serve_row["bound_ms"],
+                           "max_abs_err_bfloat16": serve_row["max_abs_err_bfloat16"]},
+         "streaming": streaming, "scoring_shapes": rows, "shapes": train_rows,
+         "note": "the bf16 route (DH 64, any S): launches from the canonical train run; times at S=33, B=12, rate "
+                 "0.3 with the LSE; cuda_core_ms is the CUDA-core forward on the same inputs; library_ms is SDPA at "
+                 "dropout 0.3 on a contiguous copy of the dense bias; max_abs_err is the worst bf16 error of out "
+                 "over every training shape and both rates"},
         {**_kernel_entry(
             "tree_attention_bwd_dq", BWD_SOURCE, f"{TPU_KERNELS}:1148", [f"{TPU_KERNELS}:1007", f"{TPU_KERNELS}:468"],
             train["tree_attention_bwd_dq"], train_row, _worst(train_rows, ("dq", "dlut")), "dq",

@@ -39,7 +39,8 @@
 //   keep bits, then O += P V with P rounded to bf16 and taken from the
 //   accumulator fragments as the A operand, V by ldmatrix.trans. The
 //   (S, S) probabilities never leave registers.
-// - Dropout: one Philox4x32-10 draw per (row, 4-key group). An 8-key
+// - Dropout (chunk_keep_bits of mma_common.cuh, shared with the tensor-core
+//   tree forward): one Philox4x32-10 draw per (row, 4-key group). An 8-key
 //   n-tile of 16 rows needs 32 draws, one per lane: lane 4g + u draws row
 //   g + 8 (u & 1) of group u / 2, and the two lanes of each row group swap
 //   them with two shuffles. A warp draws a whole tile's bits (one 32-bit
@@ -75,49 +76,9 @@ namespace {
 using namespace tree_attention;
 using namespace tower_mma;
 
-constexpr int kChunk = 64;  // keys per online-softmax step
-
 __host__ __device__ constexpr size_t smem_bytes(int kp) {
   // K, V, Q (kp rows each) and the clamped key biases
   return sizeof(bf16) * (size_t)(3 * kp * kDh) + sizeof(float) * (size_t)kp;
-}
-
-// This lane's keep bits of the 64-key chunk at k0 of the 16-row tile at
-// r0: bit 4 nt + c is the flag of C element c of n-tile nt (rows grp,
-// grp + 8; keys 2tq, 2tq + 1 of the n-tile). One Philox draw per (row,
-// 4-key group): lane 4g + u draws row g + 8 (u & 1), group u / 2 of each
-// n-tile; this lane's two keys are words 2 (tq & 1) and 2 (tq & 1) + 1 of
-// group tq / 2, drawn by lane 4 grp + (tq & 2) for row grp and by the next
-// lane for row grp + 8. The 8 draws are independent, so they interleave.
-__device__ __forceinline__ unsigned chunk_keep_bits(int r0, int k0, int h, int b, uint2 seed,
-                                                    unsigned thr, int lane) {
-  const int grp = lane >> 2;
-  const int tq = lane & 3;
-  const unsigned row_d = (unsigned)(r0 + grp + 8 * (tq & 1));
-  unsigned nib[8];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const unsigned grp_d = (unsigned)((k0 + 8 * nt) >> 2) + (unsigned)(tq >> 1);
-    nib[nt] = keep_nibble(philox4x32_10(make_uint4(grp_d, row_d, (unsigned)h, (unsigned)b), seed), thr);
-  }
-  const int src = (lane & ~3) | (tq & 2);
-  const int sh = 2 * (tq & 1);
-  unsigned bits = 0u;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const unsigned lo = (__shfl_sync(kFull, nib[nt], src) >> sh) & 3u;
-    const unsigned hi = (__shfl_sync(kFull, nib[nt], src | 1) >> sh) & 3u;
-    bits |= (lo | (hi << 2)) << (4 * nt);
-  }
-  return bits;
-}
-
-// the keep bits of every chunk of the 16-row tile at r0 (all set at rate 0)
-__device__ __forceinline__ void tile_keep_bits(unsigned (&kf)[4], int r0, int kp, int h, int b,
-                                               uint2 seed, unsigned thr, int lane) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    kf[c] = thr != 0u && c * kChunk < kp ? chunk_keep_bits(r0, c * kChunk, h, b, seed, thr, lane) : ~0u;
 }
 
 template <int NW>
@@ -183,9 +144,9 @@ masked_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restri
 #pragma unroll
       for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
 
-    for (int k0 = 0; k0 < kp; k0 += kChunk) {
-      const int pairs = min(kChunk, kp - k0) >> 4;  // 16-key pairs in the chunk, warp-uniform
-      const int ch = k0 / kChunk;
+    for (int k0 = 0; k0 < kp; k0 += kKeyChunk) {
+      const int pairs = min(kKeyChunk, kp - k0) >> 4;  // 16-key pairs in the chunk, warp-uniform
+      const int ch = k0 / kKeyChunk;
       const unsigned keep = ch == 0 ? kf[0] : ch == 1 ? kf[1] : ch == 2 ? kf[2] : kf[3];
 
       // S = Q K^T: 16 rows x 64 keys, k = 64 dims

@@ -1,8 +1,9 @@
-// PTX helpers shared by the tensor-core tower kernels
-// (masked_attention_fwd_mma.cu, masked_attention_bwd_mma.cu): the swizzled
+// PTX helpers shared by the tensor-core kernels (masked_attention_fwd_mma.cu,
+// masked_attention_bwd_mma.cu, tree_attention_fwd_mma.cu): the swizzled
 // shared-memory layout of a [rows][64] bf16 tile, 16- and 4-byte cp.async
-// copies, ldmatrix (plain and transposed) and mma.sync.m16n8k16 with bf16
-// operands and f32 accumulators.
+// copies, ldmatrix (plain and transposed), mma.sync.m16n8k16 with bf16
+// operands and f32 accumulators, and the forwards' dropout keep bits in the
+// C-fragment layout (one definition for both tensor-core forwards).
 //
 // Fragment layouts of mma.sync.m16n8k16 (grp = lane / 4, tq = lane % 4):
 //   A (16 x 16, row):  a0 (grp, 2tq..+1), a1 (grp + 8, 2tq..+1),
@@ -17,11 +18,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "tree_attention_common.cuh"
+
 namespace tower_mma {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kDh = 64;  // head dim of the tensor-core kernels: 128-byte rows
+constexpr int kDh = 64;        // head dim of the tensor-core kernels: 128-byte rows
+constexpr int kKeyChunk = 64;  // keys per online-softmax step of the forwards
 
 // element offset of (row, col) in a [rows][64] bf16 tile whose 16-byte
 // chunks are XOR-swizzled by row % 8, so that ldmatrix and the fragment
@@ -82,6 +86,52 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 __device__ __forceinline__ unsigned keep_nibble(const uint4& w, unsigned thr) {
   return (w.x >= thr ? 1u : 0u) | (w.y >= thr ? 2u : 0u) | (w.z >= thr ? 4u : 0u) |
          (w.w >= thr ? 8u : 0u);
+}
+
+// This lane's keep bits of the NT 8-key n-tiles at key k0 (64 keys by
+// default) of the 16-row tile at r0 (global row and key indices): bit
+// 4 nt + c is the flag of C element c of n-tile nt (rows grp, grp + 8; keys
+// 2tq, 2tq + 1 of the n-tile). One Philox draw per (row, 4-key group): lane
+// 4g + u draws row g + 8 (u & 1), group u / 2 of each n-tile; this lane's
+// two keys are words 2 (tq & 1) and 2 (tq & 1) + 1 of group tq / 2, drawn
+// by lane 4 grp + (tq & 2) for row grp and by the next lane for row grp +
+// 8. The NT draws are independent, so they interleave. All 32 lanes must
+// call it.
+template <int NT = 8>
+__device__ __forceinline__ unsigned chunk_keep_bits(int r0, int k0, int h, int b, uint2 seed,
+                                                    unsigned thr, int lane) {
+  using tree_attention::kFull;
+  const int grp = lane >> 2;
+  const int tq = lane & 3;
+  const unsigned row_d = (unsigned)(r0 + grp + 8 * (tq & 1));
+  unsigned nib[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const unsigned grp_d = (unsigned)((k0 + 8 * nt) >> 2) + (unsigned)(tq >> 1);
+    nib[nt] = keep_nibble(
+        tree_attention::philox4x32_10(make_uint4(grp_d, row_d, (unsigned)h, (unsigned)b), seed), thr);
+  }
+  const int src = (lane & ~3) | (tq & 2);
+  const int sh = 2 * (tq & 1);
+  unsigned bits = 0u;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const unsigned lo = (__shfl_sync(kFull, nib[nt], src) >> sh) & 3u;
+    const unsigned hi = (__shfl_sync(kFull, nib[nt], src | 1) >> sh) & 3u;
+    bits |= (lo | (hi << 2)) << (4 * nt);
+  }
+  return bits;
+}
+
+// the keep bits of the first N chunks of the 16-row tile at r0, for keys
+// below kp (all set at rate 0, and past kp)
+template <int N>
+__device__ __forceinline__ void tile_keep_bits(unsigned (&kf)[N], int r0, int kp, int h, int b,
+                                               uint2 seed, unsigned thr, int lane) {
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+    kf[c] = thr != 0u && c * kKeyChunk < kp ? chunk_keep_bits(r0, c * kKeyChunk, h, b, seed, thr, lane)
+                                            : ~0u;
 }
 
 }  // namespace tower_mma

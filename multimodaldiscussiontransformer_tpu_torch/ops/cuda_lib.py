@@ -29,6 +29,7 @@ CSRC = _PACKAGE / "csrc"
 # one shared library per source, built in parallel
 SOURCES = {
     "tree_fwd": CSRC / "tree_attention_fwd.cu",
+    "tree_fwd_mma": CSRC / "tree_attention_fwd_mma.cu",
     "tree_bwd": CSRC / "tree_attention_bwd.cu",
     "masked_fwd": CSRC / "masked_attention_fwd.cu",
     "masked_fwd_mma": CSRC / "masked_attention_fwd_mma.cu",
@@ -51,6 +52,7 @@ _MASKED_TAIL = [_I] * 4 + [_F] + [_U] * 3 + [_F, _I, _P]
 # cudaError_t as int, and each library has one "<...>_error_string"
 ENTRY_POINTS = {
     "tree_fwd": {"tree_attention_fwd": [_P] * 8 + _TREE_TAIL},
+    "tree_fwd_mma": {"tree_attention_fwd_mma": [_P] * 8 + _TREE_TAIL},
     "tree_bwd": {"tree_attention_bwd_dq": [_P] * 12 + _TREE_TAIL, "tree_attention_bwd_dkv": [_P] * 11 + _TREE_TAIL},
     "masked_fwd": {"masked_attention_fwd": [_P] * 6 + _MASKED_TAIL},
     "masked_fwd_mma": {"masked_attention_fwd_mma": [_P] * 6 + _MASKED_TAIL},
@@ -61,6 +63,7 @@ ENTRY_POINTS = {
 }
 ERROR_STRINGS = {
     "tree_fwd": "tree_attention_error_string",
+    "tree_fwd_mma": "tree_attention_fwd_mma_error_string",
     "tree_bwd": "tree_attention_bwd_error_string",
     "masked_fwd": "masked_attention_fwd_error_string",
     "masked_fwd_mma": "masked_attention_fwd_mma_error_string",

@@ -20,12 +20,21 @@ the undropped terms. The backward regenerates the mask; it is never stored.
 ``tree_attention`` is the one entry point. On CPU tensors it runs the plain
 PyTorch version ``tree_attention_dropout_reference`` (differentiable by
 autograd). On CUDA tensors it runs ``TreeAttention``, an autograd Function
-whose forward launches the hand-written kernel ``csrc/tree_attention_fwd.cu``
-(saving the per-row log-sum-exp) and whose backward launches the two kernels
-of ``csrc/tree_attention_bwd.cu``: dq with the LUT gradient, then dk and dv.
-It does so for rate 0 too, so evaluation and training share one path. The
-kernels are built and bound by ``ops/cuda_lib.py`` at their first use; on a
-CUDA tensor the wrapper launches them or raises.
+whose forward launches one of two hand-written forward kernels (saving the
+per-row log-sum-exp) and whose backward launches the two kernels of
+``csrc/tree_attention_bwd.cu``: dq with the LUT gradient, then dk and dv.
+It does so for rate 0 too, so evaluation and training share one path.
+``kernel_route`` picks the forward by dtype and head dim:
+- "tensor_core": bf16 at DH = 64, every graph layer of the model, at any S.
+  The forward is ``csrc/tree_attention_fwd_mma.cu`` (mma.sync with bf16
+  operands, K and V streamed in 64-key tiles);
+- "cuda_core": float32 and DH 16, 32 and 128. The forward is
+  ``csrc/tree_attention_fwd.cu`` (f32 arithmetic on CUDA cores), which
+  holds the float32 tolerances that bf16 rounding of p would break.
+Both forwards compute one function, draw one dropout mask and write one
+LSE, so one backward serves both. The kernels are built and bound by
+``ops/cuda_lib.py`` at their first use; on a CUDA tensor the wrapper
+launches them or raises.
 """
 
 from __future__ import annotations
@@ -256,22 +265,69 @@ def tree_attention_fwd(
     q, k, v, template, ids, lut, scale: float, double_add: bool = True,
     rate: float = 0.0, seed: int = 0, with_lse: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch the forward kernel: (out, lse or None). ``launches`` counts
-    launches."""
+    """Launch the CUDA-core forward kernel, the "cuda_core" route's (it takes
+    bf16 and every DH of _HEAD_DIMS too): (out, lse or None).
+    ``launches`` counts launches."""
     _check_cuda_inputs(q, k, v, template, ids, lut)
+    return _launch_forward(tree_attention_fwd, ("tree_fwd", "tree_attention_fwd"), q, k, v, template, ids, lut, scale,
+                           double_add, rate, seed, with_lse)
+
+
+def _launch_forward(wrapper, entry: Tuple[str, str], q, k, v, template, ids, lut, scale, double_add, rate, seed,
+                    with_lse):
+    """Allocate out (and the LSE), launch the forward ``entry`` (library, C
+    function; both forwards take one signature) and count the launch on
+    ``wrapper``."""
     b, h, s, dh = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel() == 0:
         return out, lse
     cuda_lib.launch(
-        "tree_fwd", "tree_attention_fwd", q.device,
+        *entry, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), template.data_ptr(), ids.data_ptr(),
         lut.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
         b, h, s, dh, float(scale), 2.0 if double_add else 1.0, *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
     )
-    count_launch(tree_attention_fwd)
+    count_launch(wrapper)
     return out, lse
+
+
+# the tensor-core forward takes these; see ``kernel_route``
+TENSOR_CORE_DTYPE = torch.bfloat16
+TENSOR_CORE_HEAD_DIM = 64
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which forward kernel the CUDA path launches for q of this dtype and
+    head dim: "tensor_core" for bf16 at DH = 64 (``tree_attention_fwd_fused``,
+    any S), else "cuda_core" (``tree_attention_fwd``, f32 arithmetic on CUDA
+    cores). A choice between kernels, not a fallback: each raises if it
+    fails. Both feed the same backward kernels."""
+    tensor_core = dtype == TENSOR_CORE_DTYPE and head_dim == TENSOR_CORE_HEAD_DIM
+    return "tensor_core" if tensor_core else "cuda_core"
+
+
+def tree_attention_fwd_fused(
+    q, k, v, template, ids, lut, scale: float, double_add: bool = True,
+    rate: float = 0.0, seed: int = 0, with_lse: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the tensor-core forward kernel: (out, lse or None), as
+    ``tree_attention_fwd`` returns them. Takes CUDA tensors that
+    ``kernel_route`` sends to "tensor_core" only, with q, k and v 16-byte
+    aligned for the kernel's 16-byte copies."""
+    _check_cuda_inputs(q, k, v, template, ids, lut)
+    dh = q.shape[-1]
+    if kernel_route(q.dtype, dh) != "tensor_core":
+        raise ValueError(
+            f"the tensor-core tree forward takes {TENSOR_CORE_DTYPE} at DH={TENSOR_CORE_HEAD_DIM}, got {q.dtype} DH={dh}"
+        )
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the tensor-core tree forward takes 16-byte aligned q, k and v")
+    if q.device.type != "cuda":
+        raise ValueError(f"the tensor-core tree forward runs on cuda, not {q.device}")
+    return _launch_forward(tree_attention_fwd_fused, ("tree_fwd_mma", "tree_attention_fwd_mma"), q, k, v, template, ids,
+                           lut, scale, double_add, rate, seed, with_lse)
 
 
 def tree_attention_bwd_dq(
@@ -319,20 +375,23 @@ def tree_attention_bwd_dkv(
     return dk, dv
 
 
-for _fn in (tree_attention_fwd, tree_attention_bwd_dq, tree_attention_bwd_dkv):
+KERNELS = (tree_attention_fwd, tree_attention_bwd_dq, tree_attention_bwd_dkv, tree_attention_fwd_fused)
+for _fn in KERNELS:
     _fn.launches = 0
-KERNELS = (tree_attention_fwd, tree_attention_bwd_dq, tree_attention_bwd_dkv)
 
 
 class TreeAttention(torch.autograd.Function):
-    """The kernels as one differentiable op. The forward saves the output
-    and the per-row log-sum-exp when a gradient is wanted; the backward
-    regenerates the dropout mask from the seed."""
+    """The kernels as one differentiable op. The forward takes the kernel
+    ``kernel_route`` names and saves the output and the per-row
+    log-sum-exp when a gradient is wanted; the backward regenerates the
+    dropout mask from the seed."""
 
     @staticmethod
     def forward(ctx, q, k, v, template, ids, lut, seed: int, rate: float, scale: float, double_add: bool):
         need = any(ctx.needs_input_grad[i] for i in (0, 1, 2, 5))
-        out, lse = tree_attention_fwd(q, k, v, template, ids, lut, scale, double_add, rate, seed, with_lse=need)
+        tensor_core = kernel_route(q.dtype, q.shape[-1]) == "tensor_core"
+        fwd = tree_attention_fwd_fused if tensor_core else tree_attention_fwd
+        out, lse = fwd(q, k, v, template, ids, lut, scale, double_add, rate, seed, with_lse=need)
         if need:
             ctx.save_for_backward(q, k, v, template, ids, lut, out, lse)
             ctx.args = (scale, double_add, rate, seed)

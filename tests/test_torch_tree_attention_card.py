@@ -99,8 +99,10 @@ def test_kernel_input_checks(fault):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("s, b", [(33, 4), (129, 2), (601, 1)])
 def test_kernel_matches_plain_on_card(dtype, s, b):
-    """The CUDA kernel against its plain version on the card (float32 with
-    TF32 off at atol 1e-4; bfloat16 within one bf16 rounding step)."""
+    """The CUDA-core kernel against its plain version on the card (float32
+    with TF32 off at atol 1e-4, through the route; bfloat16, which the route
+    sends to the tensor-core forward, through its own wrapper, within one
+    bf16 rounding step)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -108,7 +110,10 @@ def test_kernel_matches_plain_on_card(dtype, s, b):
     q, k, v, template, ids, lut = (torch.from_numpy(a).cuda() for a in _inputs(17, b, 12, s, 64))
     q, k, v = q.to(dt), k.to(dt), v.to(dt)
     before = ta.tree_attention_fwd.launches
-    got = ta.tree_attention(q, k, v, template, ids, lut).float()
+    if dtype == "float32":
+        got = ta.tree_attention(q, k, v, template, ids, lut).float()
+    else:
+        got = ta.tree_attention_fwd(q, k, v, template, ids, lut, 64 ** -0.5)[0].float()
     assert ta.tree_attention_fwd.launches == before + 1
     want = ta.tree_attention_reference(q, k, v, template, ids, lut).float()
     if dtype == "float32":
