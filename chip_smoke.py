@@ -6,8 +6,9 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: compile every kernel library from ``csrc/`` with nvcc (sm_90a;
-   one nvcc per source, all eight in parallel: the tree-attention forwards
-   (CUDA-core and tensor-core) and backward, the masked (tower) attention's
+   one nvcc per source, all nine in parallel: the tree-attention forwards
+   (CUDA-core and tensor-core) and backward pairs (CUDA-core K2/K3 and
+   tensor-core), the masked (tower) attention's
    two forwards (CUDA-core and tensor-core), its CUDA-core backward pair
    and its one-pass tensor-core backward, the dense-bias attention
    forward), report each library's registers and any ptxas spill, and
@@ -24,16 +25,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (``F.scaled_dot_product_attention``, a yardstick the port never calls),
    beside the least time the card could take.
 3. kernel_vs_plain_train: the tree-attention forward with dropout and the
-   LSE output and the two backward kernels against the plain version's
-   forward and autograd gradients at S=33 (B=12), 129 (B=4), 257 (B=2) and
-   the streaming sizes S=601 and 1025 (B=1), at rate 0.3 and 0, in float32
-   (the CUDA-core forward) and bfloat16 (the tensor-core forward; the
-   CUDA-core forward's bf16 output beside it); the adjoint identity in v;
-   times of each kernel (both forwards on the same bf16 inputs), the plain
-   version and SDPA (on the permuted bias and on a contiguous copy). Then
-   dropout_mask: the CUDA-core forward's mask read back in float32 at
-   S=33 and the tensor-core forward's in bf16 at S=601 (ten key tiles)
-   equal the plain Philox, and their kept fractions.
+   LSE output and the backward pair against the plain version's forward
+   and autograd gradients at S=33 (B=12), 129 (B=4), 257 (B=2) and the
+   streaming sizes S=601 and 1025 (B=1), at rate 0.3 and 0, in float32
+   (the "cuda_core" route: K1, K2, K3) and bfloat16 (the "tensor_core"
+   route: the tensor-core forward and pair; K1's bf16 output and K2/K3's
+   bf16 gradients beside them); the adjoint identity in v on both routes;
+   times of each kernel (both forwards and both pairs on the same bf16
+   inputs), the plain version and SDPA (on the permuted bias and on a
+   contiguous copy). Then dropout_mask: the CUDA-core forward's mask read
+   back in float32 at S=33, the tensor-core forward's and both kernels of
+   the tensor-core pair's in bf16 at S=601 (ten tiles) equal the plain
+   Philox, and their kept fractions.
 4. masked_vs_plain: the tower (masked) attention forward and backward
    kernels against their plain version at the tower shapes (text bottom
    B=256 S=100, text fusion B=256 S=104, ViT fusion B=64 S=201 without a
@@ -94,8 +97,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
      updates, then one profiled update (train_big_trace).
    Each checks a finite, changing loss, the exact launches of every kernel
    in every update (tree attention: 10 graph layers forward through the
-   tensor-core forward, the CUDA-core one at 0, and 8 backward per
-   microbatch, the last graph stack feeding only the global embedding;
+   tensor-core forward and 8 backward through the tensor-core pair per
+   microbatch, the CUDA-core kernels at 0, the last graph stack feeding
+   only the global embedding;
    masked attention: every tower layer forward through the tensor-core
    forward and the 9 trainable fusion layers of each tower backward
    through the one-pass kernel in bf16 (the CUDA-core forward and the pair
@@ -109,8 +113,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 10. train_cpu_agreement, train_cpu_agreement_fused: one scan update of the
    tiny config with every dropout at 0 in float32, on the card and on the
    CPU, without and with fused towers: gradients and updated parameters
-   agree (float32 runs the CUDA-core tree forward, and the fused towers'
-   CUDA-core forward and pair).
+   agree (float32 runs the CUDA-core tree forward and pair K2/K3, and the
+   fused towers' CUDA-core forward and pair).
 11. dense_graph: the dense-bias slice at ``ModelConfig()`` width
     (GraphNodeFeature -> dense GraphAttnBias -> 5 graph stacks of 2
     layers, ``use_pallas_attention``, bf16 compute): scoring forwards at
@@ -123,7 +127,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 12. launch: ``train.launch.main`` with ``--synthetic --max-updates 2`` on
     the card returns 0.
 
-The last two lines are the kernels' summary (ten kernels) and
+The last two lines are the kernels' summary (twelve kernels) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -169,6 +173,7 @@ PKG = "multimodaldiscussiontransformer_tpu_torch"
 KERNEL_SOURCE = f"{PKG}/csrc/tree_attention_fwd.cu"
 KERNEL_MMA_SOURCE = f"{PKG}/csrc/tree_attention_fwd_mma.cu"
 BWD_SOURCE = f"{PKG}/csrc/tree_attention_bwd.cu"
+BWD_MMA_SOURCE = f"{PKG}/csrc/tree_attention_bwd_mma.cu"
 MASKED_FWD_SOURCE = f"{PKG}/csrc/masked_attention_fwd.cu"
 MASKED_FWD_MMA_SOURCE = f"{PKG}/csrc/masked_attention_fwd_mma.cu"
 MASKED_BWD_SOURCE = f"{PKG}/csrc/masked_attention_bwd.cu"
@@ -298,6 +303,7 @@ def _all_kernels():
 
 KERNEL_NAMES = (
     "tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv", "tree_attention_fwd_fused",
+    "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused",
     "masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv", "masked_attention_bwd_fused",
     "masked_attention_fwd_fused", "biased_attention_fwd",
 )
@@ -722,6 +728,12 @@ TRAIN_RATE = 0.3
 TRAIN_F32_REL = 1e-4
 TRAIN_BF16_REL = 1e-2
 ADJOINT_REL = 1e-4
+# the adjoint identity through the bf16 kernels, with g = f(v2) so that the
+# left side is ||f(v2)||^2 > 0: each side rounds its output (out, dv) to
+# bf16 (2^-9 of each element) and the forward rounds P where the backward
+# rounds P / (1 - rate); those add up to ~1e-4 of the sum, while a wrong
+# mask at rate 0.3 moves it by tens of percent
+BF16_ADJOINT_REL = 1e-3
 # train and train_fused: 1 untimed update, then this many timed ones on the
 # same batches; train_big takes BIG_TIMED_UPDATES
 TIMED_UPDATES = 5
@@ -788,10 +800,11 @@ def _check_errors(got, want, names, tol, what, floor: float = 0.0):
 
 
 def phase_kernel_train(seed: int):
-    """The routed forward (dropout, LSE: the CUDA-core K1 in float32, the
-    tensor-core forward in bf16) + K2 + K3 against the plain version's
-    forward and autograd gradients at rate 0.3 and 0, K1's bf16 output
-    beside them; the adjoint identity in v; both forwards' masks read back
+    """The routed kernels (float32: the CUDA-core K1, K2 and K3; bf16: the
+    tensor-core forward and backward pair) against the plain version's
+    forward and autograd gradients at rate 0.3 and 0, K1's bf16 output and
+    K2/K3's bf16 gradients beside them; the adjoint identity in v on both
+    routes; the forwards' and the tensor-core pair's masks read back
     against the plain Philox; times."""
     import torch
     import torch.nn.functional as F
@@ -819,9 +832,13 @@ def phase_kernel_train(seed: int):
                 if name == "bfloat16":
                     # K1 on the same bf16 inputs, through its own wrapper
                     k1 = ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, rate, dseed)[0]
+                    # and K2/K3 from the tensor-core forward's LSE
+                    k23 = cuda_core_pair(ta, qq, kk, vv, template, ids, lut, gg, scale, rate, dseed)
                     torch.cuda.synchronize()
                     row[key]["bfloat16_cuda_core"] = _check_errors(
                         [k1], want[:1], ("out",), tol, f"the CUDA-core forward disagrees at S={s} rate {rate} bf16")
+                    row[key]["bfloat16_cuda_core_pair"] = _check_errors(
+                        k23, want[1:], ("dq", "dk", "dv", "dlut"), tol, f"K2/K3 disagree at S={s} rate {rate} bf16")
         # the adjoint identity in v: exact only if the backward regenerates
         # the forward's mask
         v2 = torch.randn(b, h, s, dh, device="cuda", generator=gen)
@@ -832,11 +849,23 @@ def phase_kernel_train(seed: int):
         row["adjoint"] = {"lhs": lhs, "rhs": rhs, "rel_err": abs(lhs - rhs) / max(abs(lhs), 1.0), "rel_tol": ADJOINT_REL}
         if not abs(lhs - rhs) <= ADJOINT_REL * max(abs(lhs), 1.0):
             raise AssertionError(f"adjoint identity fails at S={s}: {row['adjoint']}")
+        # and in bf16 through the tensor-core forward and pair, g = f(v2)
+        qq, kk, vv2 = (x.to(torch.bfloat16).contiguous() for x in (q, k, v2))
+        fv2 = ta.tree_attention(qq, kk, vv2, template, ids, lut, rate=TRAIN_RATE, seed=dseed)
+        vv = v.to(torch.bfloat16).requires_grad_(True)
+        ta.tree_attention(qq, kk, vv, template, ids, lut, rate=TRAIN_RATE, seed=dseed).backward(fv2)
+        lhs = (fv2.double() * fv2.double()).sum().item()
+        rhs = (vv.grad.double() * vv2.double()).sum().item()
+        row["adjoint_bfloat16"] = {"lhs": lhs, "rhs": rhs, "rel_err": abs(lhs - rhs) / abs(lhs),
+                                   "rel_tol": BF16_ADJOINT_REL}
+        if not abs(lhs - rhs) <= BF16_ADJOINT_REL * abs(lhs):
+            raise AssertionError(f"bf16 adjoint identity fails at S={s}: {row['adjoint_bfloat16']}")
 
         # times in the main path's type
         qq, kk, vv, gg = (x.to(torch.bfloat16).contiguous() for x in (q, k, v, g))
         out, lse = ta.tree_attention_fwd_fused(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
-        _, _, delta = ta.tree_attention_bwd_dq(qq, kk, vv, out, gg, template, ids, lut, lse, scale, True, TRAIN_RATE, dseed)
+        _, _, delta = ta.tree_attention_bwd_dq_fused(qq, kk, vv, out, gg, template, ids, lut, lse, scale, True, TRAIN_RATE,
+                                                     dseed)
         dense = ta.assemble_bias(template, ids, lut, True).to(torch.bfloat16)
         dense_c = dense.contiguous()  # assemble_bias's layout is (B, S, S, H)
 
@@ -855,8 +884,14 @@ def phase_kernel_train(seed: int):
             "fwd": lambda: ta.tree_attention_fwd_fused(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed, True),
             "fwd_cuda_core": lambda: ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed,
                                                            True),
-            "dq": lambda: ta.tree_attention_bwd_dq(qq, kk, vv, out, gg, template, ids, lut, lse, scale, True, TRAIN_RATE, dseed),
-            "dkv": lambda: ta.tree_attention_bwd_dkv(qq, kk, vv, gg, template, ids, lut, lse, delta, scale, True, TRAIN_RATE, dseed),
+            "dq": lambda: ta.tree_attention_bwd_dq_fused(qq, kk, vv, out, gg, template, ids, lut, lse, scale, True, TRAIN_RATE,
+                                                         dseed),
+            "dkv": lambda: ta.tree_attention_bwd_dkv_fused(qq, kk, vv, gg, template, ids, lut, lse, delta, scale, True,
+                                                           TRAIN_RATE, dseed),
+            "dq_cuda_core": lambda: ta.tree_attention_bwd_dq(qq, kk, vv, out, gg, template, ids, lut, lse, scale, True,
+                                                             TRAIN_RATE, dseed),
+            "dkv_cuda_core": lambda: ta.tree_attention_bwd_dkv(qq, kk, vv, gg, template, ids, lut, lse, delta, scale, True,
+                                                               TRAIN_RATE, dseed),
             "plain_fwd": lambda: ta.tree_attention_dropout_reference(qq, kk, vv, template, ids, lut, dseed, TRAIN_RATE, scale),
             "plain_fwd_bwd": plain_bwd,
             "library_fwd": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=dense, dropout_p=TRAIN_RATE, scale=scale),
@@ -869,6 +904,10 @@ def phase_kernel_train(seed: int):
         row["ms"]["plain_bwd"] = row["ms"]["plain_fwd_bwd"] - row["ms"]["plain_fwd"]
         row["bound"] = work_bounds(b, h, s, dh, "bfloat16", 2 * b * s * s * 4 + 32 * h * 4)
         row["fwd_vs_cuda_core"] = row["ms"]["fwd_cuda_core"] / row["ms"]["fwd"]
+        row["ms"]["pair"] = row["ms"]["dq"] + row["ms"]["dkv"]
+        row["ms"]["pair_cuda_core"] = row["ms"]["dq_cuda_core"] + row["ms"]["dkv_cuda_core"]
+        row["pair_vs_cuda_core"] = row["ms"]["pair_cuda_core"] / row["ms"]["pair"]
+        row["pair_vs_library_contiguous_fwd_bwd"] = row["ms"]["pair"] / row["ms"]["library_contiguous_fwd_bwd"]
         row["fwd_vs_library_contiguous"] = row["ms"]["fwd"] / row["ms"]["library_contiguous_fwd"]
         emit({"phase": "kernel_vs_plain_train", **row})
         rows.append(row)
@@ -905,16 +944,74 @@ def phase_kernel_train(seed: int):
     mask_mma = torch.cat(chunks, dim=-1)[..., :s_mma]
     same_mma = bool(torch.equal(mask_mma, ta.dropout_keep_mask(seed + 98, b_mma, h, s_mma, TRAIN_RATE, "cuda")))
     kept_mma = mask_mma.float().mean().item()
+    # the tensor-core backward pair's masks, both kernels, over ten 64-row
+    # and 64-key chunks
+    c0 = _counts()
+    by_dv, by_dq = read_back_tree_bwd_masks(ta, b_mma, h, s_mma, TRAIN_RATE, seed + 97)
+    launched_bwd = dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, _counts()))))
+    want_bwd = ta.dropout_keep_mask(seed + 97, b_mma, h, s_mma, TRAIN_RATE, "cuda")
+    same_bwd = {"dkv_kernel": bool(torch.equal(by_dv, want_bwd)), "dq_kernel": bool(torch.equal(by_dq, want_bwd))}
+    kept_bwd = by_dv.float().mean().item()
     emit({"phase": "dropout_mask", "S": s, "B": b, "H": h, "rate": TRAIN_RATE, "kept_fraction": kept,
           "equals_plain_philox": same,
           "tensor_core_bf16": {"S": s_mma, "B": b_mma, "kept_fraction": kept_mma, "equals_plain_philox": same_mma,
-                               "launches": launched}})
+                               "launches": launched},
+          "tensor_core_bwd_bf16": {"S": s_mma, "B": b_mma, "kept_fraction": kept_bwd, "equals_plain_philox": same_bwd,
+                                   "launches": launched_bwd}})
     if not same or abs(kept - (1 - TRAIN_RATE)) > 0.02:
         raise AssertionError(f"kernel mask: equals plain {same}, kept fraction {kept}")
     if not same_mma or abs(kept_mma - (1 - TRAIN_RATE)) > 0.02 or launched["tree_attention_fwd_fused"] != len(chunks) \
             or launched["tree_attention_fwd"]:
         raise AssertionError(f"tensor-core forward mask: equals plain {same_mma}, kept fraction {kept_mma}, {launched}")
+    n_bwd = 2 * -(-s_mma // dh)  # two backward calls a chunk
+    if not all(same_bwd.values()) or abs(kept_bwd - (1 - TRAIN_RATE)) > 0.02 \
+            or (launched_bwd["tree_attention_bwd_dq_fused"], launched_bwd["tree_attention_bwd_dkv_fused"]) != (n_bwd, n_bwd) \
+            or launched_bwd["tree_attention_bwd_dq"] or launched_bwd["tree_attention_bwd_dkv"]:
+        raise AssertionError(f"tensor-core backward masks: equal plain {same_bwd}, kept fraction {kept_bwd}, {launched_bwd}")
     return rows
+
+
+def cuda_core_pair(ta, q, k, v, template, ids, lut, g, scale, rate, seed):
+    """dq, dk, dv, dlut of K2/K3 called directly on bf16 inputs (the route
+    sends bf16 to the tensor-core pair), from the tensor-core forward's
+    LSE."""
+    out, lse = ta.tree_attention_fwd_fused(q, k, v, template, ids, lut, scale, True, rate, seed, with_lse=True)
+    dq, dlut, delta = ta.tree_attention_bwd_dq(q, k, v, out, g, template, ids, lut, lse, scale, True, rate, seed)
+    dk, dv = ta.tree_attention_bwd_dkv(q, k, v, g, template, ids, lut, lse, delta, scale, True, rate, seed)
+    return [dq, dk, dv, dlut]
+
+
+def read_back_tree_bwd_masks(ta, b, h, s, rate, seed):
+    """The tensor-core backward pair's keep masks, read back in bf16 with q
+    = 0 and no bias (every weight 1/S), one 64-row or 64-key chunk c at a
+    time:
+    - the dk/dv kernel's, through dv: with g one-hot in rows c*64 ..
+      c*64+63, dv[j, d] = keep[c*64 + d, j] / (S (1 - rate));
+    - the dq kernel's, through dq: with v and g = e_0 on every row, ds_ij =
+      (keep_ij / (1 - rate) - D_i) / S where D_i, the kept share over 1 -
+      rate, is below 1 / (1 - rate), so ds > 0 exactly where kept; with k
+      one-hot in keys c*64 .. c*64+63, dq[i, d] = ds[i, c*64 + d] / 8."""
+    import torch
+
+    dh = 64
+    zeros = torch.zeros(b, h, s, dh, device="cuda", dtype=torch.bfloat16)
+    template = torch.zeros(b, s, s, device="cuda")
+    ids = torch.zeros(b, s, s, dtype=torch.int32, device="cuda")
+    lut = torch.zeros(ta.LUT_SIZE, h, device="cuda")
+    e0 = zeros.clone()
+    e0[..., 0] = 1.0
+    by_dv, by_dq = [], []
+    for c in range(-(-s // dh)):
+        onehot = torch.zeros(s + dh, dh, device="cuda")
+        onehot[c * dh: (c + 1) * dh] = torch.eye(dh, device="cuda")
+        onehot = onehot[:s].to(torch.bfloat16).expand(b, h, s, dh).contiguous()
+        v = zeros.clone().requires_grad_(True)
+        ta.tree_attention(zeros, zeros, v, template, ids, lut, rate=rate, seed=seed).backward(onehot)
+        by_dv.append(v.grad.float().transpose(-1, -2) != 0)
+        q = zeros.clone().requires_grad_(True)
+        ta.tree_attention(q, onehot, e0, template, ids, lut, rate=rate, seed=seed).backward(e0)
+        by_dq.append(q.grad.float() > 0)
+    return torch.cat(by_dv, dim=-2)[..., :s, :], torch.cat(by_dq, dim=-1)[..., :s]
 
 
 # the tower shapes: (label, B, S, key bias) at H = 12, dh = 64. Text rows
@@ -1533,9 +1630,9 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int):
     tower's backward the one-pass kernel or the pair, as ``kernel_route``
     says for the compute dtype, the tower's head dim and the layer's length
     (the backward runs in the fusion layers: tokens + bottleneck). The
-    graph layers' forward takes the tensor-core or the CUDA-core tree
-    forward as the tree attention's ``kernel_route`` says for the compute
-    dtype and the graph head dim."""
+    graph layers take the tensor-core or the CUDA-core tree forward and
+    backward pair as the tree attention's ``kernel_route`` says for the
+    compute dtype and the graph head dim."""
     import torch
 
     from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
@@ -1543,7 +1640,8 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int):
 
     fwd, bwd = graph_layers(mc)
     tensor_core = ta.kernel_route(getattr(torch, mc.dtype), mc.encoder_embed_dim // mc.encoder_attention_heads) == "tensor_core"
-    tree = [0 if tensor_core else k * fwd, k * bwd, k * bwd, k * fwd if tensor_core else 0]
+    route = [k * fwd, k * bwd, k * bwd]  # forward, dq, dk/dv of the route
+    tree = [0, 0, 0] + route if tensor_core else route + [0, 0, 0]
     if not fused:
         return tree + [0, 0, 0, 0, 0, 0]
     _, _, text_bwd, vit_bwd = tower_launches(mc)
@@ -1644,8 +1742,10 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
     if bad or launches != total_want:
         raise AssertionError(f"{phase}: kernel launches per update (got, expected) {bad}; run {launches} vs {total_want}")
     by_name = dict(zip(KERNEL_NAMES, launches))
-    if by_name["tree_attention_fwd"] or not by_name["tree_attention_fwd_fused"]:
-        raise AssertionError(f"{phase}: bf16 graph layers must take the tensor-core tree forward only: {by_name}")
+    tree_cuda_core = ("tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv")
+    tree_tensor_core = ("tree_attention_fwd_fused", "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused")
+    if any(by_name[n] for n in tree_cuda_core) or not all(by_name[n] for n in tree_tensor_core):
+        raise AssertionError(f"{phase}: bf16 graph layers must take the tensor-core tree kernels only: {by_name}")
     if fused and not (by_name["masked_attention_fwd_fused"] and by_name["masked_attention_bwd_fused"]):
         raise AssertionError(f"{phase}: a tensor-core tower kernel never launched: {by_name}")
     cuda_core = {n: by_name[n] for n in ("masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv")}
@@ -1720,6 +1820,7 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
             "tree_attention_ms": cat_ms("tree_attention"),
             "tree_attention_fwd_ms": cat_ms("tree_attention_fwd"),
             "tree_attention_bwd_ms": cat_ms("tree_attention_bwd"),
+            "tree_attention_bwd_tensor_core_ms": cat_ms("tree_attention_bwd_dq_mma", "tree_attention_bwd_dkv_mma"),
             "masked_attention_ms": cat_ms("masked_attention"),
             "masked_attention_fwd_ms": cat_ms("masked_attention_fwd"),
             "masked_attention_bwd_ms": cat_ms("masked_attention_bwd"),
@@ -1911,6 +2012,15 @@ def main(argv=None) -> int:
     serve_biased = biased_rows[0]  # S=33, B=16: the dense graph path's scoring shape
     bms = serve_biased["ms"]
     print(card, flush=True)
+    tree_bwd_dq_replaces = [f"{TPU_KERNELS}:1007", f"{TPU_KERNELS}:468"]
+    tree_bwd_dkv_replaces = [f"{TPU_KERNELS}:1007", f"{TPU_KERNELS}:558"]
+
+    def k23_worst(outputs):
+        """K2/K3's largest max-abs error of ``outputs``: their float32
+        checks and their bf16 checks, every training shape, both rates."""
+        return max(r[k][name][o]["max_abs_err"] for r in train_rows for k in ("errors", "errors_rate0")
+                   for name in ("float32", "bfloat16_cuda_core_pair") for o in outputs)
+
     tree_fwd_replaces = [f"{TPU_KERNELS}:973", f"{TPU_KERNELS}:103", f"{TPU_KERNELS}:66", f"{TPU_KERNELS}:228",
                          f"{TPU_KERNELS}:418 (the LSE the forward saves)"]
     emit({"kernels": [
@@ -1943,19 +2053,42 @@ def main(argv=None) -> int:
                  "dropout 0.3 on a contiguous copy of the dense bias; max_abs_err is the worst bf16 error of out "
                  "over every training shape and both rates"},
         {**_kernel_entry(
-            "tree_attention_bwd_dq", BWD_SOURCE, f"{TPU_KERNELS}:1148", [f"{TPU_KERNELS}:1007", f"{TPU_KERNELS}:468"],
-            train["tree_attention_bwd_dq"], train_row, _worst(train_rows, ("dq", "dlut")), "dq",
+            "tree_attention_bwd_dq", BWD_SOURCE, f"{TPU_KERNELS}:1148", tree_bwd_dq_replaces,
+            agree["tree_attention_bwd_dq"], train_row, k23_worst(("dq", "dlut")), "dq_cuda_core",
             ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dq"),
          "launches_by_path": paths("tree_attention_bwd_dq"),
-         "note": "plain_ms is the plain version's whole autograd backward (dq, dk, dv, dlut); "
-                 "library_ms is SDPA forward + backward at rate 0 on a contiguous copy of the dense bias; "
-                 "max_abs_err is the worst bf16 error over every shape and both rates"},
+         "note": "K2, the float32 route (and DH 16, 32, 128): launches from train_cpu_agreement, 0 on the bf16 "
+                 "paths; times on bf16 inputs at S=33, B=12, rate 0.3; plain_ms is the plain version's whole "
+                 "autograd backward (dq, dk, dv, dlut); library_ms is SDPA forward + backward at rate 0 on a "
+                 "contiguous copy of the dense bias; max_abs_err over its float32 checks and its bf16 checks "
+                 "(called directly) at every training shape and both rates"},
         {**_kernel_entry(
-            "tree_attention_bwd_dkv", BWD_SOURCE, f"{TPU_KERNELS}:1148", [f"{TPU_KERNELS}:1007", f"{TPU_KERNELS}:558"],
-            train["tree_attention_bwd_dkv"], train_row, _worst(train_rows, ("dk", "dv")), "dkv",
+            "tree_attention_bwd_dkv", BWD_SOURCE, f"{TPU_KERNELS}:1148", tree_bwd_dkv_replaces,
+            agree["tree_attention_bwd_dkv"], train_row, k23_worst(("dk", "dv")), "dkv_cuda_core",
             ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dkv"),
          "launches_by_path": paths("tree_attention_bwd_dkv"),
-         "note": "plain_ms and library_ms as for tree_attention_bwd_dq"},
+         "note": "K3; launches, times, plain_ms, library_ms and max_abs_err as for tree_attention_bwd_dq"},
+        {**_kernel_entry(
+            "tree_attention_bwd_dq_fused", BWD_MMA_SOURCE, f"{TPU_KERNELS}:1148", tree_bwd_dq_replaces,
+            train_big["tree_attention_bwd_dq_fused"], train_row, _worst(train_rows, ("dq", "dlut")), "dq",
+            ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dq"),
+         "launches_by_path": paths("tree_attention_bwd_dq_fused"),
+         "cuda_core_ms": ms["dq_cuda_core"],
+         "streaming": [{"S": r["S"], "B": r["B"], "pair_ms": r["ms"]["pair"], "cuda_core_ms": r["ms"]["pair_cuda_core"],
+                        "library_ms": r["ms"]["library_contiguous_fwd_bwd"],
+                        "bound_ms": r["bound"]["dq"][0] + r["bound"]["dkv"][0]} for r in big_rows],
+         "note": "the bf16 route (DH 64, any S): launches from train_big; times at S=33, B=12, rate 0.3; "
+                 "cuda_core_ms is K2 on the same inputs; plain_ms is the plain version's whole autograd backward; "
+                 "library_ms is SDPA forward + backward at rate 0 on a contiguous copy of the dense bias; "
+                 "max_abs_err is the worst bf16 error of dq and dlut over every training shape and both rates"},
+        {**_kernel_entry(
+            "tree_attention_bwd_dkv_fused", BWD_MMA_SOURCE, f"{TPU_KERNELS}:1148", tree_bwd_dkv_replaces,
+            train_big["tree_attention_bwd_dkv_fused"], train_row, _worst(train_rows, ("dk", "dv")), "dkv",
+            ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dkv"),
+         "launches_by_path": paths("tree_attention_bwd_dkv_fused"),
+         "cuda_core_ms": ms["dkv_cuda_core"],
+         "note": "the bf16 route: launches from train_big; cuda_core_ms is K3 on the same inputs; times, plain_ms, "
+                 "library_ms and max_abs_err as for tree_attention_bwd_dq_fused (dk and dv)"},
         {**_kernel_entry(
             "masked_attention_fwd", MASKED_FWD_SOURCE, f"{TPU_MASKED}:86", [], agree_fused["masked_attention_fwd"],
             fusion_row, _worst_pair(masked_rows, ("out",)), "fwd", mms["plain_fwd"], mms["library_fwd"], "fwd"),

@@ -75,20 +75,6 @@ using namespace tower_mma;
 constexpr int kRows = 64;        // q rows per tile
 constexpr int kTileElems = kRows * kDh;
 
-__device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
-  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
-  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 fx = __bfloat1622float2(x[i]);
-    const float2 fy = __bfloat1622float2(y[i]);
-    s = fmaf(fx.x, fy.x, s);
-    s = fmaf(fx.y, fy.y, s);
-  }
-  return s;
-}
-
 __host__ __device__ constexpr size_t smem_bytes(int kp) {
   // K, V, dS^T (kp rows each), two buffers of Q, G, out, of m and log l, and D
   return sizeof(bf16) * (size_t)(3 * kp * kDh + 2 * 3 * kTileElems) +
@@ -241,27 +227,10 @@ masked_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restri
           mma(pacc[1], av, bg[2], bg[3]);
         }
 
-        // keep bits: this lane holds keys grp and grp + 8 of the warp (4-key
-        // groups a and a + 2) in rows 8j + 2tq + {0, 1}. The 4 lanes of one
-        // (a, tq) share those rows and groups; lane u of them draws row u's
-        // two Philox blocks, and each takes its own bit from all four.
-        unsigned keep_lo = 0xFu, keep_hi = 0xFu;  // bit rr = 2j + (row & 1)
-        if (thr != 0u) {
-          const int a = grp >> 2;
-          const int u = grp & 3;
-          const unsigned row_u = (unsigned)(q0 + r0 + ((u >> 1) << 3) + 2 * tq + (u & 1));
-          const unsigned c0 = (unsigned)((key0 >> 2) + a);
-          const uint4 wl = philox4x32_10(make_uint4(c0, row_u, (unsigned)h, (unsigned)b), seed);
-          const uint4 wh = philox4x32_10(make_uint4(c0 + 2u, row_u, (unsigned)h, (unsigned)b), seed);
-          const unsigned bits = keep_nibble(wl, thr) | (keep_nibble(wh, thr) << 4);
-          keep_lo = keep_hi = 0u;
-#pragma unroll
-          for (int rr = 0; rr < 4; ++rr) {
-            const unsigned w = __shfl_sync(kFull, bits, (a << 4) + (rr << 2) + tq);
-            keep_lo |= ((w >> u) & 1u) << rr;
-            keep_hi |= ((w >> (4 + u)) & 1u) << rr;
-          }
-        }
+        // keep bits: this lane holds keys grp and grp + 8 of the warp in rows
+        // 8j + 2tq + {0, 1}; bit rr = 2j + (row & 1)
+        unsigned keep_lo = 0xFu, keep_hi = 0xFu;
+        if (thr != 0u) key_major_keep_bits(key0, q0 + r0, h, b, seed, thr, lane, keep_lo, keep_hi);
 
         // p, pd, ds in registers; their fragments become A operands
         unsigned apd[4], ads[4];

@@ -1,9 +1,12 @@
 // PTX helpers shared by the tensor-core kernels (masked_attention_fwd_mma.cu,
-// masked_attention_bwd_mma.cu, tree_attention_fwd_mma.cu): the swizzled
-// shared-memory layout of a [rows][64] bf16 tile, 16- and 4-byte cp.async
-// copies, ldmatrix (plain and transposed), mma.sync.m16n8k16 with bf16
-// operands and f32 accumulators, and the forwards' dropout keep bits in the
-// C-fragment layout (one definition for both tensor-core forwards).
+// masked_attention_bwd_mma.cu, tree_attention_fwd_mma.cu,
+// tree_attention_bwd_mma.cu): the swizzled shared-memory layout of a
+// [rows][64] bf16 tile, 16- and 4-byte cp.async copies, ldmatrix (plain and
+// transposed), mma.sync.m16n8k16 with bf16 operands and f32 accumulators, a
+// dot product of 8 bf16 pairs, and the dropout keep bits in the C-fragment
+// layouts: row-major (S = Q K^T, one definition for the forwards and the
+// tree's dq kernel) and key-major (S^T = K Q^T, for the backwards that
+// accumulate dK and dV).
 //
 // Fragment layouts of mma.sync.m16n8k16 (grp = lane / 4, tq = lane % 4):
 //   A (16 x 16, row):  a0 (grp, 2tq..+1), a1 (grp + 8, 2tq..+1),
@@ -77,6 +80,21 @@ __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsig
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// sum of the 8 products of two 16-byte chunks of bf16, in f32
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fx = __bfloat1622float2(x[i]);
+    const float2 fy = __bfloat1622float2(y[i]);
+    s = fmaf(fx.x, fy.x, s);
+    s = fmaf(fx.y, fy.y, s);
+  }
+  return s;
+}
+
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<const unsigned*>(&v);
@@ -121,6 +139,37 @@ __device__ __forceinline__ unsigned chunk_keep_bits(int r0, int k0, int h, int b
     bits |= (lo | (hi << 2)) << (4 * nt);
   }
   return bits;
+}
+
+// This lane's keep bits of one 16-key x 16-row tile in the key-major
+// C-fragment layout of S^T = K Q^T (keys key0 .. key0 + 15, key0 a multiple
+// of 4; rows row0 .. row0 + 15; global indices): C element c of n-tile j
+// sits at key key0 + grp + 8 (c >> 1) and row row0 + 8 j + 2 tq + (c & 1),
+// and its flag is bit 2 j + (c & 1) of keep_lo (c < 2) or keep_hi. The
+// lane holds keys of the 4-key groups a = grp / 4 and a + 2. The 4 lanes
+// of one (a, tq) share those rows and groups: lane u = grp % 4 of them
+// draws row u's two Philox blocks, and each takes its own bit from all
+// four by 4 shuffles. All 32 lanes must call it.
+__device__ __forceinline__ void key_major_keep_bits(int key0, int row0, int h, int b, uint2 seed,
+                                                    unsigned thr, int lane, unsigned& keep_lo,
+                                                    unsigned& keep_hi) {
+  using tree_attention::kFull;
+  const int grp = lane >> 2;
+  const int tq = lane & 3;
+  const int a = grp >> 2;
+  const int u = grp & 3;
+  const unsigned row_u = (unsigned)(row0 + ((u >> 1) << 3) + 2 * tq + (u & 1));
+  const unsigned c0 = (unsigned)((key0 >> 2) + a);
+  const uint4 wl = tree_attention::philox4x32_10(make_uint4(c0, row_u, (unsigned)h, (unsigned)b), seed);
+  const uint4 wh = tree_attention::philox4x32_10(make_uint4(c0 + 2u, row_u, (unsigned)h, (unsigned)b), seed);
+  const unsigned bits = keep_nibble(wl, thr) | (keep_nibble(wh, thr) << 4);
+  keep_lo = keep_hi = 0u;
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    const unsigned w = __shfl_sync(kFull, bits, (a << 4) + (rr << 2) + tq);
+    keep_lo |= ((w >> u) & 1u) << rr;
+    keep_hi |= ((w >> (4 + u)) & 1u) << rr;
+  }
 }
 
 // the keep bits of the first N chunks of the 16-row tile at r0, for keys

@@ -20,21 +20,24 @@ the undropped terms. The backward regenerates the mask; it is never stored.
 ``tree_attention`` is the one entry point. On CPU tensors it runs the plain
 PyTorch version ``tree_attention_dropout_reference`` (differentiable by
 autograd). On CUDA tensors it runs ``TreeAttention``, an autograd Function
-whose forward launches one of two hand-written forward kernels (saving the
-per-row log-sum-exp) and whose backward launches the two kernels of
-``csrc/tree_attention_bwd.cu``: dq with the LUT gradient, then dk and dv.
-It does so for rate 0 too, so evaluation and training share one path.
-``kernel_route`` picks the forward by dtype and head dim:
+whose forward launches a hand-written forward kernel (saving the per-row
+log-sum-exp) and whose backward launches a pair of hand-written backward
+kernels: dq with the LUT gradient (and the per-row g . out), then dk and
+dv. It does so for rate 0 too, so evaluation and training share one path.
+One predicate, ``kernel_route``, picks the kernels of both directions by
+dtype and head dim:
 - "tensor_core": bf16 at DH = 64, every graph layer of the model, at any S.
-  The forward is ``csrc/tree_attention_fwd_mma.cu`` (mma.sync with bf16
-  operands, K and V streamed in 64-key tiles);
+  The forward is ``csrc/tree_attention_fwd_mma.cu`` and the backward pair
+  ``csrc/tree_attention_bwd_mma.cu``, all on mma.sync with bf16 operands,
+  streaming over S in tiles;
 - "cuda_core": float32 and DH 16, 32 and 128. The forward is
-  ``csrc/tree_attention_fwd.cu`` (f32 arithmetic on CUDA cores), which
-  holds the float32 tolerances that bf16 rounding of p would break.
+  ``csrc/tree_attention_fwd.cu`` and the backward pair
+  ``csrc/tree_attention_bwd.cu`` (f32 arithmetic on CUDA cores), which hold
+  the float32 tolerances that bf16 rounding of p and ds would break.
 Both forwards compute one function, draw one dropout mask and write one
-LSE, so one backward serves both. The kernels are built and bound by
-``ops/cuda_lib.py`` at their first use; on a CUDA tensor the wrapper
-launches them or raises.
+LSE, and both backward pairs read it, so either forward feeds either pair.
+The kernels are built and bound by ``ops/cuda_lib.py`` at their first use;
+on a CUDA tensor the wrapper launches them or raises.
 """
 
 from __future__ import annotations
@@ -293,19 +296,36 @@ def _launch_forward(wrapper, entry: Tuple[str, str], q, k, v, template, ids, lut
     return out, lse
 
 
-# the tensor-core forward takes these; see ``kernel_route``
+# the tensor-core kernels take these; see ``kernel_route``
 TENSOR_CORE_DTYPE = torch.bfloat16
 TENSOR_CORE_HEAD_DIM = 64
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which forward kernel the CUDA path launches for q of this dtype and
-    head dim: "tensor_core" for bf16 at DH = 64 (``tree_attention_fwd_fused``,
-    any S), else "cuda_core" (``tree_attention_fwd``, f32 arithmetic on CUDA
-    cores). A choice between kernels, not a fallback: each raises if it
-    fails. Both feed the same backward kernels."""
+    """Which kernels the CUDA path launches, in both directions, for q of
+    this dtype and head dim: "tensor_core" for bf16 at DH = 64
+    (``tree_attention_fwd_fused``, then ``tree_attention_bwd_dq_fused`` and
+    ``tree_attention_bwd_dkv_fused``, any S), else "cuda_core"
+    (``tree_attention_fwd``, then ``tree_attention_bwd_dq`` and
+    ``tree_attention_bwd_dkv``, f32 arithmetic on CUDA cores). A choice
+    between kernels, not a fallback: each raises if it fails."""
     tensor_core = dtype == TENSOR_CORE_DTYPE and head_dim == TENSOR_CORE_HEAD_DIM
     return "tensor_core" if tensor_core else "cuda_core"
+
+
+def _check_tensor_core_inputs(kernel: str, q, *tensors) -> None:
+    """What the tensor-core kernels take besides ``_check_cuda_inputs``: the
+    "tensor_core" route's dtype and head dim, q and ``tensors`` (k, v and g,
+    out) 16-byte aligned for their 16-byte copies, and CUDA tensors."""
+    dh = q.shape[-1]
+    if kernel_route(q.dtype, dh) != "tensor_core":
+        raise ValueError(
+            f"the tensor-core tree {kernel} takes {TENSOR_CORE_DTYPE} at DH={TENSOR_CORE_HEAD_DIM}, got {q.dtype} DH={dh}"
+        )
+    if any(t.data_ptr() % 16 for t in (q, *tensors)):
+        raise ValueError(f"the tensor-core tree {kernel} takes 16-byte aligned q, k, v (and g, out)")
+    if q.device.type != "cuda":
+        raise ValueError(f"the tensor-core tree {kernel} runs on cuda, not {q.device}")
 
 
 def tree_attention_fwd_fused(
@@ -317,26 +337,16 @@ def tree_attention_fwd_fused(
     ``kernel_route`` sends to "tensor_core" only, with q, k and v 16-byte
     aligned for the kernel's 16-byte copies."""
     _check_cuda_inputs(q, k, v, template, ids, lut)
-    dh = q.shape[-1]
-    if kernel_route(q.dtype, dh) != "tensor_core":
-        raise ValueError(
-            f"the tensor-core tree forward takes {TENSOR_CORE_DTYPE} at DH={TENSOR_CORE_HEAD_DIM}, got {q.dtype} DH={dh}"
-        )
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the tensor-core tree forward takes 16-byte aligned q, k and v")
-    if q.device.type != "cuda":
-        raise ValueError(f"the tensor-core tree forward runs on cuda, not {q.device}")
+    _check_tensor_core_inputs("forward", q, k, v)
     return _launch_forward(tree_attention_fwd_fused, ("tree_fwd_mma", "tree_attention_fwd_mma"), q, k, v, template, ids,
                            lut, scale, double_add, rate, seed, with_lse)
 
 
-def tree_attention_bwd_dq(
-    q, k, v, out, g, template, ids, lut, lse, scale: float, double_add: bool = True,
-    rate: float = 0.0, seed: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the q-major backward kernel: (dq, dlut f32 (32, H), delta f32
-    (B, H, S), the per-row g . out that ``tree_attention_bwd_dkv`` takes)."""
-    _check_cuda_inputs(q, k, v, template, ids, lut, out=out, g=g, lse=lse)
+def _launch_dq(wrapper, entry: Tuple[str, str], q, k, v, out, g, template, ids, lut, lse, scale, double_add, rate,
+               seed):
+    """Allocate dq, dlut and delta, launch the dq kernel ``entry`` (library,
+    C function; both pairs take one signature) and count the launch on
+    ``wrapper``."""
     b, h, s, dh = q.shape
     dq = torch.empty_like(q)
     dlut = torch.zeros(LUT_SIZE, h, dtype=torch.float32, device=q.device)
@@ -344,47 +354,96 @@ def tree_attention_bwd_dq(
     if dq.numel() == 0:
         return dq, dlut, delta
     cuda_lib.launch(
-        "tree_bwd", "tree_attention_bwd_dq", q.device,
+        *entry, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
         template.data_ptr(), ids.data_ptr(), lut.data_ptr(), lse.data_ptr(),
         dq.data_ptr(), dlut.data_ptr(), delta.data_ptr(),
         b, h, s, dh, float(scale), 2.0 if double_add else 1.0, *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
     )
-    count_launch(tree_attention_bwd_dq)
+    count_launch(wrapper)
     return dq, dlut, delta
+
+
+def _launch_dkv(wrapper, entry: Tuple[str, str], q, k, v, g, template, ids, lut, lse, delta, scale, double_add, rate,
+                seed):
+    """Allocate dk and dv, launch the dk/dv kernel ``entry`` and count the
+    launch on ``wrapper``."""
+    b, h, s, dh = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    cuda_lib.launch(
+        *entry, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), template.data_ptr(),
+        ids.data_ptr(), lut.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        b, h, s, dh, float(scale), 2.0 if double_add else 1.0, *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
+    )
+    count_launch(wrapper)
+    return dk, dv
+
+
+def tree_attention_bwd_dq(
+    q, k, v, out, g, template, ids, lut, lse, scale: float, double_add: bool = True,
+    rate: float = 0.0, seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the CUDA-core q-major backward kernel, the "cuda_core" route's
+    (it takes bf16 and every DH of _HEAD_DIMS too): (dq, dlut f32 (32, H),
+    delta f32 (B, H, S), the per-row g . out that ``tree_attention_bwd_dkv``
+    takes). It reads the LSE of either forward."""
+    _check_cuda_inputs(q, k, v, template, ids, lut, out=out, g=g, lse=lse)
+    return _launch_dq(tree_attention_bwd_dq, ("tree_bwd", "tree_attention_bwd_dq"), q, k, v, out, g, template, ids, lut,
+                      lse, scale, double_add, rate, seed)
 
 
 def tree_attention_bwd_dkv(
     q, k, v, g, template, ids, lut, lse, delta, scale: float, double_add: bool = True,
     rate: float = 0.0, seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the k-major backward kernel: (dk, dv)."""
+    """Launch the CUDA-core k-major backward kernel: (dk, dv)."""
     _check_cuda_inputs(q, k, v, template, ids, lut, g=g, lse=lse, delta=delta)
-    b, h, s, dh = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if dk.numel() == 0:
-        return dk, dv
-    cuda_lib.launch(
-        "tree_bwd", "tree_attention_bwd_dkv", q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), template.data_ptr(),
-        ids.data_ptr(), lut.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(),
-        b, h, s, dh, float(scale), 2.0 if double_add else 1.0, *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
-    )
-    count_launch(tree_attention_bwd_dkv)
-    return dk, dv
+    return _launch_dkv(tree_attention_bwd_dkv, ("tree_bwd", "tree_attention_bwd_dkv"), q, k, v, g, template, ids, lut,
+                       lse, delta, scale, double_add, rate, seed)
 
 
-KERNELS = (tree_attention_fwd, tree_attention_bwd_dq, tree_attention_bwd_dkv, tree_attention_fwd_fused)
+def tree_attention_bwd_dq_fused(
+    q, k, v, out, g, template, ids, lut, lse, scale: float, double_add: bool = True,
+    rate: float = 0.0, seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the tensor-core q-major backward kernel: (dq, dlut, delta), as
+    ``tree_attention_bwd_dq`` returns them, from the LSE of either forward.
+    Takes CUDA tensors that ``kernel_route`` sends to "tensor_core" only,
+    with q, k, v, g and out 16-byte aligned."""
+    _check_cuda_inputs(q, k, v, template, ids, lut, out=out, g=g, lse=lse)
+    _check_tensor_core_inputs("backward", q, k, v, g, out)
+    return _launch_dq(tree_attention_bwd_dq_fused, ("tree_bwd_mma", "tree_attention_bwd_dq_mma"), q, k, v, out, g,
+                      template, ids, lut, lse, scale, double_add, rate, seed)
+
+
+def tree_attention_bwd_dkv_fused(
+    q, k, v, g, template, ids, lut, lse, delta, scale: float, double_add: bool = True,
+    rate: float = 0.0, seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the tensor-core k-major backward kernel: (dk, dv), from the
+    ``delta`` of either dq kernel. The input rules of
+    ``tree_attention_bwd_dq_fused`` (q, k, v and g 16-byte aligned)."""
+    _check_cuda_inputs(q, k, v, template, ids, lut, g=g, lse=lse, delta=delta)
+    _check_tensor_core_inputs("backward", q, k, v, g)
+    return _launch_dkv(tree_attention_bwd_dkv_fused, ("tree_bwd_mma", "tree_attention_bwd_dkv_mma"), q, k, v, g,
+                       template, ids, lut, lse, delta, scale, double_add, rate, seed)
+
+
+KERNELS = (tree_attention_fwd, tree_attention_bwd_dq, tree_attention_bwd_dkv, tree_attention_fwd_fused,
+           tree_attention_bwd_dq_fused, tree_attention_bwd_dkv_fused)
 for _fn in KERNELS:
     _fn.launches = 0
 
 
 class TreeAttention(torch.autograd.Function):
-    """The kernels as one differentiable op. The forward takes the kernel
-    ``kernel_route`` names and saves the output and the per-row
-    log-sum-exp when a gradient is wanted; the backward regenerates the
-    dropout mask from the seed."""
+    """The kernels as one differentiable op. Both directions take the
+    kernels ``kernel_route`` names. The forward saves the output and the
+    per-row log-sum-exp when a gradient is wanted; the backward regenerates
+    the dropout mask from the seed."""
 
     @staticmethod
     def forward(ctx, q, k, v, template, ids, lut, seed: int, rate: float, scale: float, double_add: bool):
@@ -402,8 +461,14 @@ class TreeAttention(torch.autograd.Function):
         q, k, v, template, ids, lut, out, lse = ctx.saved_tensors
         scale, double_add, rate, seed = ctx.args
         g = g.contiguous()
-        dq, dlut, delta = tree_attention_bwd_dq(q, k, v, out, g, template, ids, lut, lse, scale, double_add, rate, seed)
-        dk, dv = tree_attention_bwd_dkv(q, k, v, g, template, ids, lut, lse, delta, scale, double_add, rate, seed)
+        if kernel_route(q.dtype, q.shape[-1]) == "tensor_core":
+            if g.data_ptr() % 16:  # a view off a 16-byte boundary: the kernels copy g in 16-byte pieces
+                g = g.clone()
+            bwd_dq, bwd_dkv = tree_attention_bwd_dq_fused, tree_attention_bwd_dkv_fused
+        else:
+            bwd_dq, bwd_dkv = tree_attention_bwd_dq, tree_attention_bwd_dkv
+        dq, dlut, delta = bwd_dq(q, k, v, out, g, template, ids, lut, lse, scale, double_add, rate, seed)
+        dk, dv = bwd_dkv(q, k, v, g, template, ids, lut, lse, delta, scale, double_add, rate, seed)
         return dq, dk, dv, None, None, dlut if ctx.needs_input_grad[5] else None, None, None, None, None
 
 

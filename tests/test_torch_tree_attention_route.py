@@ -83,9 +83,9 @@ def forward_and_grads(fn, q, k, v, template, ids, lut, g, **kw):
     return [out.detach()] + [x.grad for x in leaves]
 
 
-# launches of ta.KERNELS (CUDA-core fwd, dq, dkv, tensor-core fwd) for one
-# forward and backward, by route
-ROUTE_LAUNCHES = {"tensor_core": [0, 1, 1, 1], "cuda_core": [1, 1, 1, 0]}
+# launches of ta.KERNELS (CUDA-core fwd, dq, dkv; tensor-core fwd, dq, dkv)
+# for one forward and backward, by route
+ROUTE_LAUNCHES = {"tensor_core": [0, 0, 0, 1, 1, 1], "cuda_core": [1, 1, 1, 0, 0, 0]}
 
 ROUTE_CASES = [
     (torch.bfloat16, 64, "tensor_core"),  # every graph layer of the model
@@ -138,18 +138,24 @@ def _stub_kernels(monkeypatch, calls, asked=None):
             return out, torch.full(q.shape[:3], marker) if with_lse else None
         return run
 
-    def fake_dq(q, k, v, out, g, template, ids, lut, lse, scale, double_add, rate, seed):
-        calls.append("dq")
-        assert bool((lse == marker).all())
-        return torch.zeros_like(q), torch.zeros_like(lut), torch.zeros(q.shape[:3])
+    def fake_dq(name):
+        def run(q, k, v, out, g, template, ids, lut, lse, scale, double_add, rate, seed):
+            calls.append(name)
+            assert bool((lse == marker).all())
+            return torch.zeros_like(q), torch.zeros_like(lut), torch.zeros(q.shape[:3])
+        return run
 
-    def fake_dkv(q, k, v, g, template, ids, lut, lse, delta, scale, double_add, rate, seed):
-        calls.append("dkv")
-        assert bool((lse == marker).all())
-        return torch.zeros_like(k), torch.zeros_like(v)
+    def fake_dkv(name):
+        def run(q, k, v, g, template, ids, lut, lse, delta, scale, double_add, rate, seed):
+            calls.append(name)
+            assert bool((lse == marker).all())
+            return torch.zeros_like(k), torch.zeros_like(v)
+        return run
 
     for name, fn in (("tree_attention_fwd", fwd("fwd")), ("tree_attention_fwd_fused", fwd("fwd_fused")),
-                     ("tree_attention_bwd_dq", fake_dq), ("tree_attention_bwd_dkv", fake_dkv)):
+                     ("tree_attention_bwd_dq", fake_dq("dq")), ("tree_attention_bwd_dkv", fake_dkv("dkv")),
+                     ("tree_attention_bwd_dq_fused", fake_dq("dq_fused")),
+                     ("tree_attention_bwd_dkv_fused", fake_dkv("dkv_fused"))):
         monkeypatch.setattr(ta, name, fn)
 
 
@@ -170,14 +176,16 @@ def test_forward_launches_the_routed_kernel(monkeypatch, dtype, dh, route, with_
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_both_forwards_feed_one_backward(monkeypatch, dtype):
-    """Either forward's LSE goes to the same dq and dk/dv kernels."""
+    """Each forward's LSE goes to the backward pair of its route: the
+    tensor-core forward's to the tensor-core dq and dk/dv kernels, the
+    CUDA-core forward's to the CUDA-core pair."""
     calls = []
     _stub_kernels(monkeypatch, calls)
     q, k, v, template, ids, lut = (torch.from_numpy(a) for a in _inputs(4, 2, 2, 9, 64))
     q, k, v = (x.to(dtype).requires_grad_(True) for x in (q, k, v))
     ta.TreeAttention.apply(q, k, v, template, ids, lut, 5, 0.2, 0.125, True).float().sum().backward()
-    first = "fwd_fused" if dtype == torch.bfloat16 else "fwd"
-    assert calls == [first, "dq", "dkv"]
+    want = ["fwd_fused", "dq_fused", "dkv_fused"] if dtype == torch.bfloat16 else ["fwd", "dq", "dkv"]
+    assert calls == want
     assert q.grad.dtype == dtype and k.grad.shape == k.shape
 
 
@@ -249,7 +257,7 @@ def test_fused_forward_matches_plain_on_card(rate, s):
     q, k, v, template, ids, lut = _card_inputs(s, b, 12, s)
     before = [fn.launches for fn in ta.KERNELS]
     out, lse = ta.tree_attention_fwd_fused(q, k, v, template, ids, lut, 0.125, True, rate, 4321, with_lse=True)
-    assert [fn.launches for fn in ta.KERNELS] == [n + d for n, d in zip(before, [0, 0, 0, 1])]
+    assert [fn.launches for fn in ta.KERNELS] == [n + d for n, d in zip(before, [0, 0, 0, 1, 0, 0])]
     want = ta.tree_attention_dropout_reference(q, k, v, template, ids, lut, 4321, rate, 0.125)
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
     assert max_err_of_max(out, want) <= BF16_RTOL_OF_MAX, max_err_of_max(out, want)
