@@ -6,13 +6,14 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: compile every kernel library from ``csrc/`` with nvcc (sm_90a;
-   one nvcc per source, all nine in parallel: the tree-attention forwards
+   one nvcc per source, all ten in parallel: the tree-attention forwards
    (CUDA-core and tensor-core) and backward pairs (CUDA-core K2/K3 and
    tensor-core), the masked (tower) attention's
    two forwards (CUDA-core and tensor-core), its CUDA-core backward pair
-   and its one-pass tensor-core backward, the dense-bias attention
-   forward), report each library's registers and any ptxas spill, and
-   print the card's name and power limit as nvidia-smi reports them.
+   and its one-pass tensor-core backward, the dense-bias attention's two
+   forwards (CUDA-core and tensor-core)), report each library's registers
+   and any ptxas spill, and print the card's name and power limit as
+   nvidia-smi reports them.
 2. kernel_vs_plain: the tree-attention forwards at rate 0 against their
    plain PyTorch version on the card, at H=12, dh=64, double_add, with
    templates/ids collated from synthetic trees: S=33 (B=16), S=129 and
@@ -23,7 +24,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    times for both forwards on the same bf16 inputs, the plain version and
    one library call on the assembled dense bias
    (``F.scaled_dot_product_attention``, a yardstick the port never calls),
-   beside the least time the card could take.
+   beside the least time the card could take; and the float32 route's
+   time (the CUDA-core forward) on float32 inputs beside SDPA on the same
+   inputs and the float32 bound.
 3. kernel_vs_plain_train: the tree-attention forward with dropout and the
    LSE output and the backward pair against the plain version's forward
    and autograd gradients at S=33 (B=12), 129 (B=4), 257 (B=2) and the
@@ -33,7 +36,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    bf16 gradients beside them); the adjoint identity in v on both routes;
    times of each kernel (both forwards and both pairs on the same bf16
    inputs), the plain version and SDPA (on the permuted bias and on a
-   contiguous copy). Then dropout_mask: the CUDA-core forward's mask read
+   contiguous copy); K1 and K2/K3 again on float32 inputs beside SDPA in
+   float32 and the float32 bounds. Then dropout_mask: the CUDA-core forward's mask read
    back in float32 at S=33, the tensor-core forward's and both kernels of
    the tensor-core pair's in bf16 at S=601 (ten tiles) equal the plain
    Philox, and their kept fractions.
@@ -52,15 +56,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    CUDA-core one, the one-pass backward beside the pair), the plain
    version, the towers' unfused path (matmul + f32 softmax + FastDropout +
    matmul) and SDPA with the key-padding mask (forward at dropout 0.3;
-   forward + backward at rate 0 and 0.3).
-5. biased_vs_plain: the dense-bias attention forward kernel and the
-   Function's gradients (dq, dk, dv, dbias) against the plain version at
-   H=12, dh=64: S=33 (B=16, 12), 129 (B=12), 257 (B=4), 601 and 1025 (B=1),
-   with biases from the port's ``GraphAttnBias.forward`` on collated trees
-   (-inf entries), per-head, head-shared and none, with the key-padding
-   mask, float32 and bfloat16; times of the kernel, the plain version, the
+   forward + backward at rate 0 and 0.3); at the tower shapes the
+   CUDA-core forward and pair again on float32 inputs beside SDPA in
+   float32 and the float32 bounds.
+5. biased_vs_plain: the dense-bias attention's routed forward kernel and
+   the Function's gradients (dq, dk, dv, dbias) against the plain version
+   at H=12, dh=64: S=33 (B=16, 12), 129 (B=12), 257 (B=4), 601 and 1025
+   (B=1), with biases from the port's ``GraphAttnBias.forward`` on
+   collated trees (-inf entries), per-head, head-shared and none, with the
+   key-padding mask: float32 through the CUDA-core forward (within 1e-4),
+   bfloat16 through the tensor-core forward (within 1e-2 of max |ref|,
+   also with the per-head bias in float32) and the CUDA-core forward's own
+   wrapper on the same bf16 inputs (within one bf16 step elementwise);
+   times of both kernels on the same bf16 inputs, the plain version, the
    graph layer's unfused dense branch and SDPA on the combined bias,
-   beside the least time the card could take.
+   beside the least time the card could take; the CUDA-core kernel and
+   SDPA again on float32 inputs beside the float32 bound.
 6. scoring: the canonical ``ModelConfig()`` at full width with random
    weights from a seeded ``torch.Generator``, scored through
    ``BatchingScorer`` from 4 threads (discussions of ~20, ~100 and 600
@@ -118,16 +129,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
 11. dense_graph: the dense-bias slice at ``ModelConfig()`` width
     (GraphNodeFeature -> dense GraphAttnBias -> 5 graph stacks of 2
     layers, ``use_pallas_attention``, bf16 compute): scoring forwards at
-    S=33 B=16 and one 900-node discussion with exactly 10 dense-bias
-    launches each and no other kernel, finite, near the unfused branch in
+    S=33 B=16 and one 900-node discussion with exactly 10 launches each of
+    the tensor-core dense-bias forward and no other kernel, finite, near the unfused branch in
     bf16 and equal to the CPU in float32; AdamW training steps (attention
     dropout 0, dropout 0.4 / 0.3) at S=33 B=12 and the 900-node discussion
     with ms per step, peak memory and gradients reaching the bias tables
-    through dbias; one tiny float32 step, card against CPU.
+    through dbias; one tiny float32 step, card (the CUDA-core dense-bias
+    forward) against CPU.
 12. launch: ``train.launch.main`` with ``--synthetic --max-updates 2`` on
     the card returns 0.
 
-The last two lines are the kernels' summary (twelve kernels) and
+The last two lines are the kernels' summary (thirteen kernels) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -179,6 +191,7 @@ MASKED_FWD_MMA_SOURCE = f"{PKG}/csrc/masked_attention_fwd_mma.cu"
 MASKED_BWD_SOURCE = f"{PKG}/csrc/masked_attention_bwd.cu"
 MASKED_BWD_MMA_SOURCE = f"{PKG}/csrc/masked_attention_bwd_mma.cu"
 BIASED_FWD_SOURCE = f"{PKG}/csrc/biased_attention_fwd.cu"
+BIASED_FWD_MMA_SOURCE = f"{PKG}/csrc/biased_attention_fwd_mma.cu"
 TPU_KERNELS = "multimodaldiscussiontransformer_tpu/ops/tree_attention.py"
 TPU_MASKED = "multimodaldiscussiontransformer_tpu/ops/masked_attention.py"
 TPU_BIASED = "multimodaldiscussiontransformer_tpu/ops/biased_attention.py"
@@ -305,7 +318,7 @@ KERNEL_NAMES = (
     "tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv", "tree_attention_fwd_fused",
     "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused",
     "masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv", "masked_attention_bwd_fused",
-    "masked_attention_fwd_fused", "biased_attention_fwd",
+    "masked_attention_fwd_fused", "biased_attention_fwd", "biased_attention_fwd_fused",
 )
 
 
@@ -417,6 +430,16 @@ def phase_kernel(seed: int):
             row[prefix + "device_ms"] = device_ms(fn)
             row[prefix + "ms"] = row[prefix + "device_ms"] or row[prefix + "call_ms"]
         row["bound_ms"], row["bound_by"] = bound(b, h, s, dh, "bfloat16", 2 * b * s * s * 4 + 32 * h * 4)
+        # the float32 route (the CUDA-core forward) on float32 inputs, SDPA
+        # on the same inputs with a contiguous float32 bias, and the float32
+        # bound
+        dense32 = ta.assemble_bias(template, ids, lut, True).contiguous()
+        row["float32"] = {
+            "cuda_core_ms": timed_ms(lambda: ta.tree_attention_fwd(q, k, v, template, ids, lut, dh ** -0.5)),
+            "library_contiguous_ms": timed_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=dense32, scale=dh ** -0.5)),
+        }
+        row["float32"]["bound_ms"], row["float32"]["bound_by"] = bound(b, h, s, dh, "float32", 2 * b * s * s * 4 + 32 * h * 4)
         row["tolerance"] = {"float32_atol": F32_ATOL, "bfloat16_rel_of_max": TRAIN_BF16_REL,
                             "bfloat16_cuda_core_rtol": BF16_RTOL, "bfloat16_cuda_core_atol": BF16_ATOL}
         emit({"phase": "kernel_vs_plain", **row})
@@ -874,10 +897,10 @@ def phase_kernel_train(seed: int):
             o = ta.tree_attention_dropout_reference(leaves[0], leaves[1], leaves[2], template, ids, leaves[3], dseed, TRAIN_RATE, scale)
             o.backward(gg)
 
-        def sdpa_fwd_bwd(bias):
+        def sdpa_fwd_bwd(bias, q_=qq, k_=kk, v_=vv, g_=gg):
             def run():
-                leaves = [x.detach().requires_grad_(True) for x in (qq, kk, vv, bias)]
-                F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=scale).backward(gg)
+                leaves = [x.detach().requires_grad_(True) for x in (q_, k_, v_, bias)]
+                F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=scale).backward(g_)
             return run
 
         calls = {
@@ -909,6 +932,25 @@ def phase_kernel_train(seed: int):
         row["pair_vs_cuda_core"] = row["ms"]["pair_cuda_core"] / row["ms"]["pair"]
         row["pair_vs_library_contiguous_fwd_bwd"] = row["ms"]["pair"] / row["ms"]["library_contiguous_fwd_bwd"]
         row["fwd_vs_library_contiguous"] = row["ms"]["fwd"] / row["ms"]["library_contiguous_fwd"]
+        # the float32 route (K1, K2, K3) on float32 inputs, SDPA on the same
+        # inputs with a contiguous float32 bias, and the float32 bounds
+        out32, lse32 = ta.tree_attention_fwd(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
+        _, _, delta32 = ta.tree_attention_bwd_dq(q, k, v, out32, g, template, ids, lut, lse32, scale, True, TRAIN_RATE,
+                                                 dseed)
+        dense32 = ta.assemble_bias(template, ids, lut, True).contiguous()
+        calls32 = {
+            "fwd_cuda_core": lambda: ta.tree_attention_fwd(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed,
+                                                           True),
+            "dq_cuda_core": lambda: ta.tree_attention_bwd_dq(q, k, v, out32, g, template, ids, lut, lse32, scale, True,
+                                                             TRAIN_RATE, dseed),
+            "dkv_cuda_core": lambda: ta.tree_attention_bwd_dkv(q, k, v, g, template, ids, lut, lse32, delta32, scale, True,
+                                                               TRAIN_RATE, dseed),
+            "library_contiguous_fwd": lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=dense32, dropout_p=TRAIN_RATE, scale=scale),
+            "library_contiguous_fwd_bwd": sdpa_fwd_bwd(dense32, q, k, v, g),
+        }
+        row["float32"] = {"ms": {name: timed_ms(fn) for name, fn in calls32.items()},
+                          "bound": work_bounds(b, h, s, dh, "float32", 2 * b * s * s * 4 + 32 * h * 4)}
         emit({"phase": "kernel_vs_plain_train", **row})
         rows.append(row)
 
@@ -1209,6 +1251,30 @@ def phase_masked(seed: int):
         row["fused_vs_pair"] = row["ms"]["pair"] / row["ms"]["bwd_fused"]
         row["fwd_fused_vs_cuda_core"] = row["ms"]["fwd"] / row["ms"]["fwd_fused"]
         row["fwd_fused_vs_library"] = row["ms"]["fwd_fused"] / row["ms"]["library_fwd"]
+        if tower:
+            # the float32 route (the CUDA-core forward and pair) on float32
+            # inputs, SDPA on the same inputs, and the float32 bounds
+            out32, stats32 = ma.masked_attention_fwd(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True)
+            _, delta32 = ma.masked_attention_bwd_dq(q, k, v, out32, g, bias, stats32, scale, MASKED_RATE, dseed)
+            bias4_32 = None if bias is None else bias[:, None, None, :]
+
+            def sdpa32(rate):
+                def run():
+                    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+                    F.scaled_dot_product_attention(*leaves, attn_mask=bias4_32, dropout_p=rate, scale=scale).backward(g)
+                return run
+
+            calls32 = {
+                "fwd": lambda: ma.masked_attention_fwd(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True),
+                "dq": lambda: ma.masked_attention_bwd_dq(q, k, v, out32, g, bias, stats32, scale, MASKED_RATE, dseed),
+                "dkv": lambda: ma.masked_attention_bwd_dkv(q, k, v, g, bias, stats32, delta32, scale, MASKED_RATE, dseed),
+                "library_fwd": lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias4_32, dropout_p=MASKED_RATE, scale=scale),
+                "library_fwd_bwd": sdpa32(0.0),
+                "library_fwd_bwd_rate": sdpa32(MASKED_RATE),
+            }
+            row["float32"] = {"ms": {name: timed_ms(fn) for name, fn in calls32.items()},
+                              "bound": work_bounds(b, h, s, dh, "float32", 0 if bias is None else b * s * 4, stat_planes=2)}
         emit({"phase": "masked_vs_plain", **row})
         rows.append(row)
 
@@ -1276,14 +1342,17 @@ def dense_biases(batch, dt, seed: int):
 
 
 def phase_biased(seed: int):
-    """The dense-bias forward kernel and the Function's gradients against
-    the plain version; times beside the unfused dense branch and SDPA."""
+    """The routed dense-bias forward kernels and the Function's gradients
+    against the plain version, the CUDA-core kernel's bf16 output beside
+    the tensor-core one's; times of both kernels beside the unfused dense
+    branch and SDPA, in bf16 and (the CUDA-core kernel) in float32."""
     import torch
     import torch.nn.functional as F
 
     from multimodaldiscussiontransformer_tpu_torch.data.collator import to_tensors
     from multimodaldiscussiontransformer_tpu_torch.ops.biased_attention import (
-        MASK_BIAS, biased_attention, biased_attention_fwd, biased_attention_reference, combined_bias,
+        MASK_BIAS, biased_attention, biased_attention_fwd, biased_attention_fwd_fused, biased_attention_reference,
+        combined_bias, kernel_route,
     )
 
     h, dh = 12, 64
@@ -1301,32 +1370,54 @@ def phase_biased(seed: int):
         kpm = key_padding_mask(batch)
         gen = torch.Generator(device="cuda").manual_seed(seed + 5 * s + b)
         q, k, v, g = (torch.randn(b, h, s, dh, device="cuda", generator=gen) for _ in range(4))
-        row = {"S": s, "B": b, "H": h, "dh": dh, "padded_keys": int(kpm.sum()), "errors": {}}
+        row = {"S": s, "B": b, "H": h, "dh": dh, "padded_keys": int(kpm.sum()),
+               "kernel_route": {n: kernel_route(getattr(torch, n), dh) for n in ("float32", "bfloat16")},
+               "errors": {"float32": {}, "bfloat16": {}, "bfloat16_cuda_core": {}}}
         for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             biases = dense_biases(batch, dt, seed + s)
+            if name == "bfloat16":  # the tensor-core kernel reads a float32 bias too
+                biases["head_float32_bias"] = biases["head"].float()
             qq, kk, vv, gg = (x.to(dt).contiguous() for x in (q, k, v, g))
-            row["errors"][name] = {}
+            routed = "biased_attention_fwd_fused" if row["kernel_route"][name] == "tensor_core" else "biased_attention_fwd"
             for kind, bias in biases.items():
+                c0 = _counts()
                 got = fwd_and_grads(biased_attention, qq, kk, vv, bias, kpm, gg)
+                launched = {n: y - x for n, x, y in zip(KERNEL_NAMES, c0, _counts()) if y != x}
                 want = fwd_and_grads(biased_attention_reference, qq, kk, vv, bias, kpm, gg)
                 torch.cuda.synchronize()
-                err = (got[0].float() - want[0].float()).abs()
-                if name == "float32":
-                    ok = bool((err <= F32_ATOL).all())
-                else:
-                    ok = bool((err <= BF16_ATOL + BF16_RTOL * want[0].float().abs()).all())
                 what = f"dense-bias kernel disagrees at S={s} B={b} {kind} bias {name}"
+                if launched != {routed: 1}:
+                    raise AssertionError(f"{what}: launched {launched}, expected one {routed}")
+                err = (got[0].float() - want[0].float()).abs()
+                ref_max = want[0].float().abs().max().item()
+                if name == "float32":  # the CUDA-core kernel
+                    ok = bool((err <= F32_ATOL).all())
+                else:  # the tensor-core kernel, its bf16 P included
+                    ok = err.max().item() <= TRAIN_BF16_REL * ref_max
                 if not (ok and torch.isfinite(got[0]).all()):
-                    raise AssertionError(f"{what}: max err {err.max().item()}")
+                    raise AssertionError(f"{what}: max err {err.max().item()} (max |ref| {ref_max})")
                 pairs = [(n, a, w) for n, a, w in zip(("dq", "dk", "dv", "dbias"), got[1:], want[1:]) if w is not None]
                 errs = _check_errors([a for _, a, _ in pairs], [w for _, _, w in pairs], [n for n, _, _ in pairs],
                                      TRAIN_F32_REL if name == "float32" else TRAIN_BF16_REL, what)
-                row["errors"][name][kind] = {"out": err.max().item(), **errs}
+                row["errors"][name][kind] = {"out": err.max().item(), "out_max_abs_ref": ref_max, **errs}
+                if name == "bfloat16":
+                    # the CUDA-core kernel on the same bf16 inputs, through
+                    # its own wrapper: f32 arithmetic, so within one bf16
+                    # step elementwise
+                    cuda_core = biased_attention_fwd(qq, kk, vv, bias, kpm, scale)
+                    torch.cuda.synchronize()
+                    err = (cuda_core.float() - want[0].float()).abs()
+                    if not (bool((err <= BF16_ATOL + BF16_RTOL * want[0].float().abs()).all())
+                            and torch.isfinite(cuda_core).all()):
+                        raise AssertionError(f"CUDA-core dense-bias kernel disagrees at S={s} B={b} {kind} bias bf16: "
+                                             f"max err {err.max().item()}")
+                    row["errors"]["bfloat16_cuda_core"][kind] = {"out": err.max().item()}
 
         # times in the main path's type, with the per-head bias the graph
         # layers give
         biases = dense_biases(batch, torch.bfloat16, seed + s)
         bias, shared = biases["head"], biases["shared"]
+        bias32 = bias.float()
         qq, kk, vv, gg = (x.to(torch.bfloat16).contiguous() for x in (q, k, v, g))
         combined = combined_bias(qq, bias, kpm).to(torch.bfloat16)
 
@@ -1336,16 +1427,20 @@ def phase_biased(seed: int):
             scores = scores.masked_fill(kpm[:, None, None, :], MASK_BIAS)
             return torch.matmul(torch.softmax(scores.float(), dim=-1).to(q_.dtype), v_)
 
-        def with_grad(fn, inputs):
+        def with_grad(fn, inputs, g_=gg):
             def run():
                 leaves = [x.detach().requires_grad_(True) for x in inputs]
-                fn(*leaves).backward(gg)
+                fn(*leaves).backward(g_)
             return run
 
         calls = {
-            "fwd": lambda: biased_attention_fwd(qq, kk, vv, bias, kpm, scale),
-            "fwd_shared": lambda: biased_attention_fwd(qq, kk, vv, shared, kpm, scale),
-            "fwd_no_bias": lambda: biased_attention_fwd(qq, kk, vv, None, kpm, scale),
+            "fwd": lambda: biased_attention_fwd_fused(qq, kk, vv, bias, kpm, scale),
+            "fwd_cuda_core": lambda: biased_attention_fwd(qq, kk, vv, bias, kpm, scale),
+            "fwd_shared": lambda: biased_attention_fwd_fused(qq, kk, vv, shared, kpm, scale),
+            "fwd_shared_cuda_core": lambda: biased_attention_fwd(qq, kk, vv, shared, kpm, scale),
+            "fwd_no_bias": lambda: biased_attention_fwd_fused(qq, kk, vv, None, kpm, scale),
+            "fwd_no_bias_cuda_core": lambda: biased_attention_fwd(qq, kk, vv, None, kpm, scale),
+            "fwd_float32_bias": lambda: biased_attention_fwd_fused(qq, kk, vv, bias32, kpm, scale),
             "plain_fwd": lambda: biased_attention_reference(qq, kk, vv, bias, kpm, scale),
             "unfused_fwd": lambda: unfused(qq, kk, vv, bias),
             "library_fwd": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=combined, scale=scale),
@@ -1359,7 +1454,20 @@ def phase_biased(seed: int):
         # the bf16 bias (per head, or shared) and the (B, S) bool pad mask
         row["bound_ms"], row["bound_by"] = bound(b, h, s, dh, "bfloat16", b * h * s * s * 2 + b * s)
         row["bound_shared_ms"] = bound(b, h, s, dh, "bfloat16", b * s * s * 2 + b * s)[0]
-        row["tolerance"] = {"float32_atol": F32_ATOL, "bfloat16_rtol": BF16_RTOL, "bfloat16_atol": BF16_ATOL,
+        row["fwd_vs_cuda_core"] = row["ms"]["fwd_cuda_core"] / row["ms"]["fwd"]
+        row["fwd_vs_library"] = row["ms"]["fwd"] / row["ms"]["library_fwd"]
+        # the float32 route (the CUDA-core kernel) on float32 inputs with the
+        # float32 per-head bias, SDPA on the same inputs and the float32
+        # bound
+        combined32 = combined_bias(q, bias32, kpm)
+        row["float32"] = {"ms": {
+            "fwd_cuda_core": timed_ms(lambda: biased_attention_fwd(q, k, v, bias32, kpm, scale)),
+            "plain_fwd": timed_ms(lambda: biased_attention_reference(q, k, v, bias32, kpm, scale)),
+            "library_fwd": timed_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=combined32, scale=scale)),
+        }}
+        row["float32"]["bound"] = {"fwd": bound(b, h, s, dh, "float32", b * h * s * s * 4 + b * s)}
+        row["tolerance"] = {"float32_atol": F32_ATOL, "bfloat16_rel_of_max": TRAIN_BF16_REL,
+                            "bfloat16_cuda_core_rtol": BF16_RTOL, "bfloat16_cuda_core_atol": BF16_ATOL,
                             "grad_rel_float32": TRAIN_F32_REL, "grad_rel_bfloat16": TRAIN_BF16_REL}
         emit({"phase": "biased_vs_plain", **row})
         rows.append(row)
@@ -1469,7 +1577,7 @@ def phase_dense_graph(seed: int):
         torch.cuda.synchronize()
         counts = dict(zip(KERNEL_NAMES, _counts()))
     want = dict.fromkeys(KERNEL_NAMES, 0)
-    want["biased_attention_fwd"] = per_forward * len(scoring)
+    want["biased_attention_fwd_fused"] = per_forward * len(scoring)  # bf16: the tensor-core forward
     if counts != want:
         raise AssertionError(f"dense-graph scoring launches {counts}, expected {want}")
 
@@ -1556,7 +1664,7 @@ def phase_dense_graph(seed: int):
     steps = DENSE_TRAIN_STEPS * len(training)
     trace = {name: profile_step(lambda: step(name)) for name in training}
     want_train = dict.fromkeys(KERNEL_NAMES, 0)
-    want_train["biased_attention_fwd"] = per_forward * steps
+    want_train["biased_attention_fwd_fused"] = per_forward * steps
     if train_counts != want_train:
         raise AssertionError(f"dense-graph training launches {train_counts}, expected {want_train}")
     # a tensor whose gradient is 0 (k_proj's bias: softmax ignores a
@@ -1582,11 +1690,13 @@ def phase_dense_graph(seed: int):
     for dev in ("cpu", "cuda"):
         p = dense_graph_path(tiny).to(dev).train()
         p.load_state_dict(tiny_state)
-        c0 = _counts()
+        torch.cuda.synchronize()
+        _zero_counts()
         with dropout_rngs(torch.Generator().manual_seed(0), torch.Generator(device=dev).manual_seed(0)):
             out = p({k: v.to(dev) for k, v in tb.items()}, tx.to(dev), deterministic=False)
         (out * tcot.to(dev)).mean().backward()
-        tiny_launches[dev] = [a - b for a, b in zip(_counts(), c0)]
+        torch.cuda.synchronize()
+        tiny_launches[dev] = dict(zip(KERNEL_NAMES, _counts()))
         tiny_grads[dev] = {n: q.grad.cpu() for n, q in p.named_parameters()}
     bad, tiny_err = [], 0.0
     for n, gc in tiny_grads["cpu"].items():
@@ -1607,11 +1717,13 @@ def phase_dense_graph(seed: int):
           "trace": trace,
           "tiny_f32_step": {"max_abs_err_grad": tiny_err, "grad_rtol": AGREE_GRAD_RTOL, "grad_atol": AGREE_GRAD_ATOL,
                             "max_abs_grad": max(g.abs().max().item() for g in tiny_grads["cpu"].values()),
-                            "card_launches": dict(zip(KERNEL_NAMES, tiny_launches["cuda"])),
-                            "cpu_launches": sum(tiny_launches["cpu"])}})
-    if bad or tiny_launches["cuda"][-1] != tiny_layers or any(tiny_launches["cpu"]):
+                            "card_launches": tiny_launches["cuda"],
+                            "cpu_launches": sum(tiny_launches["cpu"].values())}})
+    # float32: the CUDA-core forward in every graph layer, nothing else
+    want_tiny = {**dict.fromkeys(KERNEL_NAMES, 0), "biased_attention_fwd": tiny_layers}
+    if bad or tiny_launches["cuda"] != want_tiny or any(tiny_launches["cpu"].values()):
         raise AssertionError(f"tiny dense-graph step: card and CPU gradients disagree {bad[:5]}; launches {tiny_launches}")
-    return {"scoring": counts, "training": train_counts}
+    return {"scoring": counts, "training": train_counts, "float32_step": tiny_launches["cuda"]}
 
 
 def graph_layers(mc):
@@ -1643,7 +1755,7 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int):
     route = [k * fwd, k * bwd, k * bwd]  # forward, dq, dk/dv of the route
     tree = [0, 0, 0] + route if tensor_core else route + [0, 0, 0]
     if not fused:
-        return tree + [0, 0, 0, 0, 0, 0]
+        return tree + [0, 0, 0, 0, 0, 0, 0]
     _, _, text_bwd, vit_bwd = tower_launches(mc)
     cuda_core_fwd, tensor_core_fwd = (k * n for n in tower_forward_routes(mc, text_len, images))
     pair = one_pass = 0
@@ -1655,7 +1767,7 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int):
         else:
             pair += k * n
     # MDTModel never takes the dense-bias branch
-    return tree + [cuda_core_fwd, pair, pair, one_pass, tensor_core_fwd, 0]
+    return tree + [cuda_core_fwd, pair, pair, one_pass, tensor_core_fwd, 0, 0]
 
 
 def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw: dict, timed_updates: int,
@@ -1942,6 +2054,14 @@ def _kernel_entry(name, source, replaces, also, launches, row, dtype_err, ms_key
     }
 
 
+def _float32_numbers(row, ms_key, library_key, bound_key):
+    """A float32-route kernel's numbers on float32 inputs: its ms, SDPA's
+    on the same inputs and the float32 bound."""
+    f = row["float32"]
+    return {"ms": f["ms"][ms_key], "library_ms": f["ms"][library_key], "bound_ms": f["bound"][bound_key][0],
+            "bound_by": f["bound"][bound_key][1]}
+
+
 def _worst(rows, outputs):
     """The largest bf16 max-abs error of ``outputs`` over every row, both
     rates."""
@@ -1997,7 +2117,8 @@ def main(argv=None) -> int:
     ms = train_row["ms"]
     by_path = {"scoring": scoring, "train": train, "train_fused": train_fused, "train_big": train_big,
                "scoring_fused": scoring_fused, "train_cpu_agreement": agree, "train_cpu_agreement_fused": agree_fused,
-               "dense_graph": dense["scoring"], "dense_graph_train": dense["training"]}
+               "dense_graph": dense["scoring"], "dense_graph_train": dense["training"],
+               "dense_graph_float32_step": dense["float32_step"]}
 
     def paths(name, extra=None):
         out = {path: counts[name] for path, counts in by_path.items()}
@@ -2033,8 +2154,10 @@ def main(argv=None) -> int:
                            "plain_ms": serve_row["plain_ms"], "library_ms": serve_row["library_contiguous_ms"],
                            "bound_ms": serve_row["bound_ms"],
                            "max_abs_err_bfloat16": serve_row["max_abs_err_bfloat16_cuda_core"]},
+         "float32": _float32_numbers(train_row, "fwd_cuda_core", "library_contiguous_fwd", "fwd"),
          "note": "the float32 route (and DH 16, 32, 128): launches from train_cpu_agreement, 0 on the bf16 paths; "
-                 "times on bf16 inputs at S=33, B=12, rate 0.3 with the LSE; library_ms is SDPA at dropout 0.3 on a "
+                 "times on bf16 inputs at S=33, B=12, rate 0.3 with the LSE (float32: the same on float32 inputs, "
+                 "beside SDPA in float32 and the float32 bound); library_ms is SDPA at dropout 0.3 on a "
                  "contiguous copy of the dense bias; max_abs_err over its float32 checks and its bf16 outputs "
                  "at every training shape and both rates"},
         {**_kernel_entry(
@@ -2057,6 +2180,7 @@ def main(argv=None) -> int:
             agree["tree_attention_bwd_dq"], train_row, k23_worst(("dq", "dlut")), "dq_cuda_core",
             ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dq"),
          "launches_by_path": paths("tree_attention_bwd_dq"),
+         "float32": _float32_numbers(train_row, "dq_cuda_core", "library_contiguous_fwd_bwd", "dq"),
          "note": "K2, the float32 route (and DH 16, 32, 128): launches from train_cpu_agreement, 0 on the bf16 "
                  "paths; times on bf16 inputs at S=33, B=12, rate 0.3; plain_ms is the plain version's whole "
                  "autograd backward (dq, dk, dv, dlut); library_ms is SDPA forward + backward at rate 0 on a "
@@ -2067,6 +2191,7 @@ def main(argv=None) -> int:
             agree["tree_attention_bwd_dkv"], train_row, k23_worst(("dk", "dv")), "dkv_cuda_core",
             ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dkv"),
          "launches_by_path": paths("tree_attention_bwd_dkv"),
+         "float32": _float32_numbers(train_row, "dkv_cuda_core", "library_contiguous_fwd_bwd", "dkv"),
          "note": "K3; launches, times, plain_ms, library_ms and max_abs_err as for tree_attention_bwd_dq"},
         {**_kernel_entry(
             "tree_attention_bwd_dq_fused", BWD_MMA_SOURCE, f"{TPU_KERNELS}:1148", tree_bwd_dq_replaces,
@@ -2093,6 +2218,7 @@ def main(argv=None) -> int:
             "masked_attention_fwd", MASKED_FWD_SOURCE, f"{TPU_MASKED}:86", [], agree_fused["masked_attention_fwd"],
             fusion_row, _worst_pair(masked_rows, ("out",)), "fwd", mms["plain_fwd"], mms["library_fwd"], "fwd"),
          "launches_by_path": paths("masked_attention_fwd"),
+         "float32": _float32_numbers(fusion_row, "fwd", "library_fwd", "fwd"),
          "note": "the float32 route (and other DH, S > 256): launches from train_cpu_agreement_fused, 0 on the bf16 "
                  "paths; times on bf16 inputs at the text-fusion shape (B=256, S=104), rate 0.3 with the row "
                  "statistics; library_ms is SDPA with the key-padding bias and dropout 0.3; max_abs_err over its "
@@ -2117,6 +2243,7 @@ def main(argv=None) -> int:
             "masked_attention_bwd_dq", MASKED_BWD_SOURCE, f"{TPU_MASKED}:134", [], agree_fused["masked_attention_bwd_dq"],
             fusion_row, _worst_pair(masked_rows, ("dq",)), "dq", mms["plain_bwd"], mms["library_fwd_bwd"], "dq"),
          "launches_by_path": paths("masked_attention_bwd_dq"),
+         "float32": _float32_numbers(fusion_row, "dq", "library_fwd_bwd", "dq"),
          "note": "the float32 route (and other DH, S > 256): launches from train_cpu_agreement_fused, 0 on the bf16 "
                  "paths; times on bf16 inputs at the text-fusion shape; plain_ms is the plain version's whole "
                  "autograd backward (dq, dk, dv); library_ms is SDPA forward + backward at rate 0 with the "
@@ -2126,6 +2253,7 @@ def main(argv=None) -> int:
             fusion_row, _worst_pair(masked_rows, ("dk", "dv")), "dkv", mms["plain_bwd"], mms["library_fwd_bwd"],
             "dkv"),
          "launches_by_path": paths("masked_attention_bwd_dkv"),
+         "float32": _float32_numbers(fusion_row, "dkv", "library_fwd_bwd", "dkv"),
          "note": "as for masked_attention_bwd_dq"},
         {**_kernel_entry(
             "masked_attention_bwd_fused", MASKED_BWD_MMA_SOURCE, f"{TPU_MASKED}:134", [],
@@ -2139,15 +2267,34 @@ def main(argv=None) -> int:
                  "library_ms is SDPA forward + backward at rate 0.3 with the key-padding bias; max_abs_err is the "
                  "worst bf16 error of dq, dk, dv over every shape and both rates"},
         {"name": "biased_attention_fwd", "route": "cuda", "source": BIASED_FWD_SOURCE, "replaces": f"{TPU_BIASED}:61",
-         "also_replaces": [], "launches": dense["scoring"]["biased_attention_fwd"],
+         "also_replaces": [], "launches": dense["float32_step"]["biased_attention_fwd"],
+         "max_abs_err": max(e["out"] for r in biased_rows for n in ("float32", "bfloat16_cuda_core")
+                            for e in r["errors"][n].values()),
+         "ms": bms["fwd_cuda_core"], "plain_ms": bms["plain_fwd"], "bound_ms": serve_biased["bound_ms"],
+         "bound_by": serve_biased["bound_by"], "library_ms": bms["library_fwd"],
+         "launches_by_path": paths("biased_attention_fwd"),
+         "float32": {**_float32_numbers(serve_biased, "fwd_cuda_core", "library_fwd", "fwd"),
+                     "plain_ms": serve_biased["float32"]["ms"]["plain_fwd"]},
+         "note": "the float32 route (and DH 16, 32, 128): launches from the dense_graph float32 card step (its 2 "
+                 "graph layers), 0 on the bf16 paths; times on bf16 inputs at S=33, B=16, per-head (B, H, S, S) "
+                 "bias from GraphAttnBias with the key-padding mask, beside the tensor-core kernel on the same "
+                 "inputs (float32: the same on float32 inputs and a float32 bias, beside SDPA in float32 and the "
+                 "float32 bound); library_ms is SDPA with the combined bias as a float mask; max_abs_err is the "
+                 "worst forward error of its float32 checks and its bf16 checks over every shape and bias kind"},
+        {"name": "biased_attention_fwd_fused", "route": "cuda", "source": BIASED_FWD_MMA_SOURCE,
+         "replaces": f"{TPU_BIASED}:61", "also_replaces": [], "launches": dense["scoring"]["biased_attention_fwd_fused"],
          "max_abs_err": max(e["out"] for r in biased_rows for e in r["errors"]["bfloat16"].values()),
          "ms": bms["fwd"], "plain_ms": bms["plain_fwd"], "bound_ms": serve_biased["bound_ms"],
          "bound_by": serve_biased["bound_by"], "library_ms": bms["library_fwd"],
-         "launches_by_path": paths("biased_attention_fwd"),
-         "note": "launches: the dense_graph scoring run (2 forwards of 10 graph layers); times at S=33, B=16, "
-                 "bf16, per-head (B, H, S, S) bias from GraphAttnBias with the key-padding mask; library_ms is SDPA "
-                 "with the combined bias as a float mask; max_abs_err is the worst bf16 forward error over every "
-                 "shape and bias kind",
+         "launches_by_path": paths("biased_attention_fwd_fused"),
+         "cuda_core_ms": bms["fwd_cuda_core"],
+         "by_shape": [{"S": r["S"], "B": r["B"], "ms": r["ms"]["fwd"], "cuda_core_ms": r["ms"]["fwd_cuda_core"],
+                       "library_ms": r["ms"]["library_fwd"], "bound_ms": r["bound_ms"]} for r in biased_rows],
+         "note": "the bf16 route (DH 64, any S, either bias dtype): launches from the dense_graph scoring run (2 "
+                 "forwards of 10 graph layers); times at S=33, B=16, bf16, per-head (B, H, S, S) bias from "
+                 "GraphAttnBias with the key-padding mask; cuda_core_ms is the CUDA-core kernel on the same inputs; "
+                 "library_ms is SDPA with the combined bias as a float mask; max_abs_err is the worst bf16 forward "
+                 "error over every shape and bias kind",
          "shapes": biased_rows},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

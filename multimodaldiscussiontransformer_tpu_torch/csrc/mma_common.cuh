@@ -1,6 +1,6 @@
 // PTX helpers shared by the tensor-core kernels (masked_attention_fwd_mma.cu,
 // masked_attention_bwd_mma.cu, tree_attention_fwd_mma.cu,
-// tree_attention_bwd_mma.cu): the swizzled shared-memory layout of a
+// tree_attention_bwd_mma.cu, biased_attention_fwd_mma.cu): the swizzled shared-memory layout of a
 // [rows][64] bf16 tile, 16- and 4-byte cp.async copies, ldmatrix (plain and
 // transposed), mma.sync.m16n8k16 with bf16 operands and f32 accumulators, a
 // dot product of 8 bf16 pairs, and the dropout keep bits in the C-fragment

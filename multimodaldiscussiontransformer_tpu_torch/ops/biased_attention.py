@@ -14,11 +14,18 @@ None, and the key-padding mask is (B, S) bool with True = pad. That is the
 Pallas kernel's function (``_fused_kernel`` with ``_combine_bias``).
 
 ``biased_attention`` is the one entry point. It runs ``BiasedAttention``,
-an autograd Function whose forward launches ``csrc/biased_attention_fwd.cu``
-on CUDA tensors and runs the plain version ``biased_attention_reference``
-on CPU tensors. The kernel reads the bias in its own dtype (head stride 0
-when shared) and the pad mask, and folds them in registers: the combined
-bias is never materialized. Its backward is the port of JAX's XLA backward
+an autograd Function whose forward runs the plain version
+``biased_attention_reference`` on CPU tensors and launches one of two
+kernels on CUDA tensors, chosen by ``kernel_route``:
+- "tensor_core": bf16 at DH = 64, any S (every graph layer of the model),
+  ``csrc/biased_attention_fwd_mma.cu`` on mma.sync with bf16 operands
+  (``biased_attention_fwd_fused``), which rounds P to bf16 before P V;
+- "cuda_core": float32 and DH 16, 32 and 128, ``csrc/biased_attention_fwd.cu``
+  in f32 arithmetic (``biased_attention_fwd``).
+A choice between kernels, not a fallback: each raises if it fails. Both
+read the bias in its own dtype (head stride 0 when shared) and the pad
+mask, and fold them in registers: the combined bias is never materialized.
+The Function's backward is the port of JAX's XLA backward
 (``_bwd``): the probabilities are recomputed from the clamped combined bias
 in float32 with torch ops, giving dq, dk, dv and a dbias of the bias's
 shape and dtype (summed over heads for a shared bias); the pad mask gets no
@@ -93,38 +100,91 @@ def _check_cuda_inputs(q, k, v, bias, key_padding_mask) -> None:
     check_kernel_inputs("biased_attention", q, {"k": k, "v": v}, {}, others)
 
 
-def biased_attention_fwd(q, k, v, bias, key_padding_mask, scale: float) -> torch.Tensor:
-    """Launch the forward kernel. ``launches`` counts launches."""
-    _check_cuda_inputs(q, k, v, bias, key_padding_mask)
+def _launch(wrapper, library: str, function: str, q, k, v, bias, key_padding_mask, scale: float) -> torch.Tensor:
+    """Allocate out, launch ``function`` of ``library`` (both forwards take
+    one signature) and count the launch on ``wrapper``."""
     b, h, s, dh = q.shape
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     cuda_lib.launch(
-        "biased_fwd", "biased_attention_fwd", q.device,
+        library, function, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if key_padding_mask is None else key_padding_mask.data_ptr(),
         out.data_ptr(), b, h, s, dh, 0 if bias is None else bias.shape[1], float(scale),
         DTYPE_CODES[q.dtype], DTYPE_CODES[torch.float32 if bias is None else bias.dtype],
     )
-    count_launch(biased_attention_fwd)
+    count_launch(wrapper)
     return out
 
 
+def biased_attention_fwd(q, k, v, bias, key_padding_mask, scale: float) -> torch.Tensor:
+    """Launch the CUDA-core forward kernel, the "cuda_core" route's (it
+    takes bf16 and every DH of _HEAD_DIMS too). ``launches`` counts
+    launches."""
+    _check_cuda_inputs(q, k, v, bias, key_padding_mask)
+    return _launch(biased_attention_fwd, "biased_fwd", "biased_attention_fwd", q, k, v, bias, key_padding_mask,
+                   scale)
+
+
+# the tensor-core kernel takes these; see ``kernel_route``
+TENSOR_CORE_DTYPE = torch.bfloat16
+TENSOR_CORE_HEAD_DIM = 64
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which forward kernel the CUDA path launches for q of this dtype and
+    head dim: "tensor_core" for bf16 at DH = 64 (``biased_attention_fwd_fused``,
+    any S, either bias dtype), else "cuda_core" (``biased_attention_fwd``,
+    f32 arithmetic on CUDA cores). A choice between kernels, not a fallback:
+    each raises if it fails."""
+    tensor_core = dtype == TENSOR_CORE_DTYPE and head_dim == TENSOR_CORE_HEAD_DIM
+    return "tensor_core" if tensor_core else "cuda_core"
+
+
+def _check_tensor_core_inputs(q, k, v, bias, key_padding_mask) -> None:
+    """What the tensor-core kernel takes besides ``_check_cuda_inputs``: the
+    "tensor_core" route's dtype and head dim, q, k, v, the bias and the pad
+    mask 16-byte aligned for its 16-byte copies, and CUDA tensors."""
+    dh = q.shape[-1]
+    if kernel_route(q.dtype, dh) != "tensor_core":
+        raise ValueError(
+            f"the tensor-core dense-bias forward takes {TENSOR_CORE_DTYPE} at DH={TENSOR_CORE_HEAD_DIM}, "
+            f"got {q.dtype} DH={dh}"
+        )
+    if any(t is not None and t.data_ptr() % 16 for t in (q, k, v, bias, key_padding_mask)):
+        raise ValueError("the tensor-core dense-bias forward takes 16-byte aligned q, k, v, bias and key_padding_mask")
+    if q.device.type != "cuda":
+        raise ValueError(f"the tensor-core dense-bias forward runs on cuda, not {q.device}")
+
+
+def biased_attention_fwd_fused(q, k, v, bias, key_padding_mask, scale: float) -> torch.Tensor:
+    """Launch the tensor-core forward kernel: out, as ``biased_attention_fwd``
+    returns it. Takes CUDA tensors that ``kernel_route`` sends to
+    "tensor_core" only, all five 16-byte aligned."""
+    _check_cuda_inputs(q, k, v, bias, key_padding_mask)
+    _check_tensor_core_inputs(q, k, v, bias, key_padding_mask)
+    return _launch(biased_attention_fwd_fused, "biased_fwd_mma", "biased_attention_fwd_mma", q, k, v, bias,
+                   key_padding_mask, scale)
+
+
 biased_attention_fwd.launches = 0
-KERNELS = (biased_attention_fwd,)
+biased_attention_fwd_fused.launches = 0
+KERNELS = (biased_attention_fwd, biased_attention_fwd_fused)
 
 
 class BiasedAttention(torch.autograd.Function):
-    """The forward kernel (the plain version on CPU tensors) with JAX's
-    rematerialized backward: probabilities recomputed in f32 from the
+    """The routed forward kernel (the plain version on CPU tensors) with
+    JAX's rematerialized backward: probabilities recomputed in f32 from the
     clamped combined bias."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, key_padding_mask, scale: float):
         if q.device.type == "cuda":
-            out = biased_attention_fwd(q, k, v, bias, key_padding_mask, scale)
+            tensor_core = kernel_route(q.dtype, q.shape[-1]) == "tensor_core"
+            fwd = biased_attention_fwd_fused if tensor_core else biased_attention_fwd
+            out = fwd(q, k, v, bias, key_padding_mask, scale)
         else:
             out = biased_attention_reference(q, k, v, bias, key_padding_mask, scale)
         if any(ctx.needs_input_grad[:4]):
@@ -158,8 +218,8 @@ def biased_attention(
     key_padding_mask: Optional[torch.Tensor] = None,  # (B, S) bool, True = pad
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Biased attention: the CUDA kernel on CUDA tensors, the plain version
-    on CPU tensors, one backward for both; other devices raise."""
+    """Biased attention: the routed CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors, one backward for both; other devices raise."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"biased_attention runs on cpu or cuda, not {q.device}")
     scale = q.shape[-1] ** -0.5 if scale is None else scale

@@ -37,6 +37,7 @@ SOURCES = {
     "masked_bwd": CSRC / "masked_attention_bwd.cu",
     "masked_bwd_mma": CSRC / "masked_attention_bwd_mma.cu",
     "biased_fwd": CSRC / "biased_attention_fwd.cu",
+    "biased_fwd_mma": CSRC / "biased_attention_fwd_mma.cu",
 }
 HEADERS = (CSRC / "tree_attention_common.cuh", CSRC / "mma_common.cuh")
 BUILD_DIR = _PACKAGE / "_build"
@@ -63,6 +64,7 @@ ENTRY_POINTS = {
     "masked_bwd_mma": {"masked_attention_bwd_mma": [_P] * 10 + _MASKED_TAIL},
     # (q, k, v, bias, pad, out, B, H, S, DH, bias_heads, scale, dtype, bias_dtype, stream)
     "biased_fwd": {"biased_attention_fwd": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P]},
+    "biased_fwd_mma": {"biased_attention_fwd_mma": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P]},
 }
 ERROR_STRINGS = {
     "tree_fwd": "tree_attention_error_string",
@@ -74,6 +76,7 @@ ERROR_STRINGS = {
     "masked_bwd": "masked_attention_bwd_error_string",
     "masked_bwd_mma": "masked_attention_bwd_mma_error_string",
     "biased_fwd": "biased_attention_fwd_error_string",
+    "biased_fwd_mma": "biased_attention_fwd_mma_error_string",
 }
 
 _libs: Optional[Dict[str, ctypes.CDLL]] = None

@@ -1,6 +1,6 @@
 """The dense-bias attention (``ops/biased_attention.py``): the wrapper's
-contract and its backward on the CPU, and the CUDA forward kernel with the
-Function's gradients against the plain version on the card.
+contract and its backward on the CPU, and the routed CUDA forward kernel
+with the Function's gradients against the plain version on the card.
 
 This file imports neither JAX nor the JAX package, so that it runs on a
 machine with a card and no JAX:
@@ -12,11 +12,14 @@ package are in ``test_torch_biased_attention.py``.
 
 Tolerances: on the CPU, the Function's backward against autograd of the
 plain version within 1e-5 x max|ref| (float32, sums in other orders). On
-the card, the forward in float32 (TF32 off) within 1e-4 absolute (sums over
-dh and S in other orders, ~1e-6 here), in bfloat16 within one bf16 step of
-the value (2^-7 relative, atol 1e-5: both compute in f32 from the same bf16
-inputs and round once); gradients within 1e-4 x max|ref| in float32 and
-1e-2 x max|ref| in bfloat16 (both round every gradient to bf16).
+the card, the forward in float32 (TF32 off, the CUDA-core kernel) within
+1e-4 absolute (sums over dh and S in other orders, ~1e-6 here); in bfloat16
+the routed tensor-core kernel within 1e-2 x max|ref| (it rounds P to bf16
+before P V, about one more bf16 step) and the CUDA-core kernel, called
+directly on the same inputs, within one bf16 step of the value (2^-7
+relative, atol 1e-5: both compute in f32 from the same bf16 inputs and round
+once); gradients within 1e-4 x max|ref| in float32 and 1e-2 x max|ref| in
+bfloat16 (both round every gradient to bf16).
 """
 
 import importlib
@@ -34,6 +37,7 @@ torch.set_num_threads(2)
 
 F32_ATOL = 1e-4
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
+BF16_RTOL_OF_MAX = 1e-2
 GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 CPU_GRAD_REL = 1e-5
 BIAS_KINDS = ("head", "shared", "none")
@@ -167,7 +171,8 @@ def test_kernel_and_gradients_match_plain_on_card(dtype, kind, s, b):
     g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(s), device="cuda").to(dt)
     before = [fn.launches for fn in ba.KERNELS]
     got = forward_and_grads(ba.biased_attention, q, k, v, bias, mask, g)
-    assert [fn.launches for fn in ba.KERNELS] == [n + 1 for n in before]
+    routed = ba.biased_attention_fwd_fused if ba.kernel_route(dt, 64) == "tensor_core" else ba.biased_attention_fwd
+    assert [fn.launches for fn in ba.KERNELS] == [n + (fn is routed) for n, fn in zip(before, ba.KERNELS)]
     want = forward_and_grads(ba.biased_attention_reference, q, k, v, bias, mask, g)
     torch.cuda.synchronize()
     err = (got[0].float() - want[0].float()).abs()
@@ -175,6 +180,9 @@ def test_kernel_and_gradients_match_plain_on_card(dtype, kind, s, b):
     if dt == torch.float32:
         assert err.max().item() <= F32_ATOL, err.max().item()
     else:
+        assert max_err_of_max(got[0], want[0]) <= BF16_RTOL_OF_MAX, max_err_of_max(got[0], want[0])
+        cuda_core = ba.biased_attention_fwd(q, k, v, bias, mask, 64 ** -0.5)
+        err = (cuda_core.float() - want[0].float()).abs()
         assert (err <= BF16_ATOL + BF16_RTOL * want[0].float().abs()).all(), err.max().item()
     for name, a, w in zip(("dq", "dk", "dv", "dbias"), got[1:], want[1:]):
         if w is None:
