@@ -138,6 +138,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
     forward) against CPU.
 12. launch: ``train.launch.main`` with ``--synthetic --max-updates 2`` on
     the card returns 0.
+13. checkpoint: the train phase's discussions written by the port's ingest
+    writers as a ``hateful_discussions`` directory (192 train, 48 test; a
+    few graphs as stubs naming a shared tree file). The canonical flags
+    (bf16, frozen towers, batch 12 x update_freq 3) run 4 updates through
+    ``train.launch.main`` in this process with saves at 2 and 4; beside
+    it, the same command in a process of its own gets SIGTERM once its log
+    shows update 2, must exit 0 with "preempted: checkpoint saved at step
+    2", and its relaunch (in this process) must auto-resume and run to 4.
+    At step 4 the two runs' generator states are byte-equal, their losses
+    of updates 3-4 within 1e-2 relative and every parameter within 1e-2 of
+    the largest change the 4 updates made; every update launches only the
+    tensor-core tree kernels, as many as the config gives. The
+    uninterrupted run's step 4, restored into a new state, saves and loads
+    back byte-exact (bytes on disk against f32 params + two AdamW moments
+    of the trainable elements); ``--eval-only --load-best`` and
+    ``--eval-only --average-last 2 --predict-output`` run, with one row
+    per real test node; ``DiscussionScorer.from_checkpoint`` and the
+    ``serve.server`` CLI (another process, one POST) score a request batch
+    bit-equal to the model that wrote the checkpoint. Prints save, restore
+    and ``from_checkpoint`` ms, bytes per checkpoint and the resumed run's
+    ms per update.
 
 The last two lines are the kernels' summary (thirteen kernels) and
 ``{"ok": true, "device": {...}}``.
@@ -2046,6 +2067,411 @@ def phase_launch():
         raise AssertionError(f"launch.main returned {rc} with metrics {splits}")
 
 
+# checkpoint: the resumed run against the uninterrupted one. Losses of
+# updates 3-4 within 1e-2 relative, parameters within 1e-2 of the largest
+# change any parameter made in the 4 updates: the card's dLUT and
+# index-backward atomics sum in another order in each run, so the two
+# differ by rounding, not bit for bit (the CPU test holds bit-equality)
+RESUME_LOSS_RTOL = 1e-2
+RESUME_PARAM_FRACTION = 1e-2
+CKPT_SHARED_TREES = 6  # graphs 0..5 in the stub + shared-<tree>.npz layout
+
+
+def _bytes_equal(a, b) -> bool:
+    """Equal dtype, shape and bytes (NaNs included)."""
+    import torch
+
+    if not isinstance(a, torch.Tensor) or not isinstance(b, torch.Tensor):
+        return a == b
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.detach().cpu().reshape(-1).view(torch.uint8), b.detach().cpu().reshape(-1).view(torch.uint8))
+
+
+def _bytes_differences(a, b, path="") -> list:
+    """The paths where two stored states differ (tensors by bytes)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{path}: keys {sorted(set(a) ^ set(b))[:5]}"]
+        return [d for k in a for d in _bytes_differences(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path}: lengths {len(a)} vs {len(b)}"]
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in _bytes_differences(x, y, f"{path}/{i}")]
+    return [] if _bytes_equal(a, b) else [path]
+
+
+def write_hateful_discussions(root: str, seed: int) -> dict:
+    """A ``hateful_discussions`` directory written by the port's ingest
+    writers: the train phase's discussions as ``graph-<k>.npz`` (the first
+    few as stubs naming a ``shared-<tree>.npz``), ``train-idx-many.txt`` and
+    ``test-idx-many.txt``. Compression runs on a thread pool (zlib releases
+    the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from multimodaldiscussiontransformer_tpu_torch.data.synthetic import synthetic_batch_items
+    from multimodaldiscussiontransformer_tpu_torch.experiments.hateful_discussions import ingest
+
+    t0 = time.perf_counter()
+    items = synthetic_batch_items(TRAIN_GRAPHS, seed=seed, min_nodes=8, max_nodes=32, image_prob=0.25,
+                                  seq_len=TEXT_LEN, vocab_size=30522, image_shape=IMAGE_SHAPE)
+    made_s = time.perf_counter() - t0
+    os.makedirs(root, exist_ok=True)
+
+    def write(k):
+        path = os.path.join(root, f"graph-{k}.npz")
+        if k < CKPT_SHARED_TREES:
+            ingest.save_shared_npz(os.path.join(root, f"shared-{k}.npz"), items[k])
+            ingest.save_copy_npz(path, items[k], f"shared-{k}.npz")
+        else:
+            ingest.save_graph_npz(path, items[k])
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        list(pool.map(write, range(len(items))))  # reads every result: a writer's error raises here
+    n_train = TRAIN_GRAPHS * 4 // 5
+    for name, idx in (("train-idx-many.txt", range(n_train)), ("test-idx-many.txt", range(n_train, len(items)))):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("".join(f"{i}\n" for i in idx))
+    return {"graphs": len(items), "train": n_train, "test": len(items) - n_train,
+            "test_nodes": sum(it.num_nodes for it in items[n_train:]),
+            "images": int(sum(it.x_images.shape[0] for it in items)), "make_seconds": made_s,
+            "write_seconds": time.perf_counter() - t0,
+            "bytes": sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root))}
+
+
+class _RecordedUpdates:
+    """Patches ``Trainer.train_step`` (every trainer in this process) to
+    record each update's wall time (synchronised), kernel launches, the
+    launches the config expects, and, on the first update, the trainable
+    parameters before it and the bytes a checkpoint of the state takes
+    (f32 params and buffers at their dtypes, plus AdamW's two f32 moments
+    per trainable element)."""
+
+    def __init__(self, mc):
+        self.mc, self.records, self.before, self.expected_bytes = mc, [], None, None
+
+    def __enter__(self):
+        import torch
+
+        from multimodaldiscussiontransformer_tpu_torch.train.trainer import Trainer
+
+        self._orig = Trainer.train_step
+        orig, rec = self._orig, self
+
+        def train_step(trainer, state, group, **kw):
+            if rec.before is None:
+                names = {id(p): n for n, p in state.model.named_parameters()}
+                rec.before = {names[id(p)]: p.detach().float().cpu().clone() for p in state.trainable}
+                rec.expected_bytes = sum(v.numel() * v.element_size() for v in state.model.state_dict().values()) \
+                    + 2 * 4 * sum(p.numel() for p in state.trainable)
+            torch.cuda.synchronize()
+            c0, t = _counts(), time.perf_counter()
+            logs = orig(trainer, state, group, **kw)
+            torch.cuda.synchronize()
+            k = group["idx"].shape[0]
+            rec.records.append({
+                "ms": (time.perf_counter() - t) * 1e3, "launches": [a - b for a, b in zip(_counts(), c0)],
+                "want": expected_launches(rec.mc, False, k, group["images"].shape[1] > 0, group["input_ids"].shape[2]),
+                "update": state.num_updates,
+            })
+            return logs
+
+        Trainer.train_step = train_step
+        return self
+
+    def __exit__(self, *exc):
+        from multimodaldiscussiontransformer_tpu_torch.train.trainer import Trainer
+
+        Trainer.train_step = self._orig
+        return False
+
+
+def _main_quiet(argv):
+    """``train.launch.main(argv)`` in this process; (rc, its stdout)."""
+    import contextlib
+    import io
+
+    from multimodaldiscussiontransformer_tpu_torch.train import launch
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = launch.main(argv)
+    return rc, buf.getvalue()
+
+
+def _train_losses(save_dir: str) -> dict:
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        return {r["step"]: r["loss"] for r in map(json.loads, f) if r["split"] == "train"}
+
+
+def phase_checkpoint(seed: int):
+    """Save, preempt, resume, evaluate, predict and serve from checkpoints at
+    full width, through the launcher, on a ``hateful_discussions``
+    directory."""
+    import shutil
+    import signal
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.serve.incremental import DiscussionScorer
+    from multimodaldiscussiontransformer_tpu_torch.tasks.node_prediction import NodePredictionTask
+    from multimodaldiscussiontransformer_tpu_torch.train.launch import build_parser, config_from_args
+    from multimodaldiscussiontransformer_tpu_torch.utils import checkpoints as ckpt
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="mdt_checkpoint_")
+    procs = []
+    try:
+        data = os.path.join(root, "data")
+        dataset = write_hateful_discussions(data, seed + 1)
+        dirs = {name: os.path.join(root, name) for name in ("whole", "preempted", "copy", "pred")}
+        # the canonical run_train.sh 8 4 5 2 2 0 flags, bf16, 4 updates
+        flags = ["--num-fusion-layers", "8", "--num-bottleneck-tokens", "4", "--spatial-pos-max", "5",
+                 "--num-graph-stack", "2", "--num-fusion-stack", "2", "--freeze-initial-encoders",
+                 "--batch-size", "12", "--update-freq", "3", "--positive-weight", "1.5", "--seed", str(seed + 1),
+                 "--data-root", data, "--max-updates", "4", "--log-interval", "1"]
+        saves = ["--save-interval-updates", "2", "--validate-interval-updates", "2"]
+        cfg = config_from_args(build_parser().parse_args(flags))
+        mc = cfg.model
+        torch.cuda.empty_cache()
+        seconds, last = {}, [t_phase]
+
+        def mark(step):
+            """Time since the previous mark, as the phase's ``step``."""
+            now = time.perf_counter()
+            seconds[step], last[0] = now - last[0], now
+
+        mark("data")
+
+        # the preempted run: a process of its own, with no interval or
+        # validation saves, so that only the stop request can save; SIGTERM
+        # once its log shows update 1, so it lands during update 2 (a
+        # canonical update takes ~0.6 s); it runs beside the uninterrupted run
+        log_path = os.path.join(root, "preempted.log")
+        env = {**os.environ, "PYTHONUNBUFFERED": "1", "PYTHONFAULTHANDLER": "1"}
+        cmd = [sys.executable, "-m", "multimodaldiscussiontransformer_tpu_torch.train.launch", *flags,
+               "--validate-interval-updates", "0", "--save-dir", dirs["preempted"]]
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT)
+        procs.append(proc)
+        sent = {}
+
+        def watch():
+            t0 = time.perf_counter()
+            while proc.poll() is None:
+                with open(log_path) as f:
+                    if re.search(r"update 1: ", f.read()):
+                        proc.send_signal(signal.SIGTERM)
+                        sent["after_s"] = time.perf_counter() - t0
+                        return
+                time.sleep(0.01)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+
+        _zero_counts()
+        with _RecordedUpdates(mc) as whole:
+            rc, out_whole = _main_quiet(flags + saves + ["--save-dir", dirs["whole"]])
+        whole_launches = dict(zip(KERNEL_NAMES, _counts()))
+        if rc != 0:
+            raise AssertionError(f"checkpoint: the uninterrupted run returned {rc}:\n{out_whole[-2000:]}")
+        mark("uninterrupted")
+        rc = proc.wait(timeout=600)
+        watcher.join(timeout=10)
+        mark("preempted_after_uninterrupted")
+        with open(log_path) as f:
+            log_text = f.read()
+        stopped = re.search(r"stop requested at update (\d+)", log_text)
+        stop_at = int(stopped.group(1)) if stopped else None
+        # the stop branch's save is the only one this run makes
+        if rc != 0 or "after_s" not in sent or stop_at != 2 \
+                or f"preempted: checkpoint saved at step {stop_at}" not in log_text \
+                or ckpt.Checkpointer(dirs["preempted"]).all_steps() != [stop_at]:
+            raise AssertionError(f"checkpoint: the preempted run (rc {rc}, stop at {stop_at}) did not save at its "
+                                 f"stop:\n{log_text[-3000:]}")
+
+        # the relaunch: auto-resume from the stop, run to 4
+        _zero_counts()
+        with _RecordedUpdates(mc) as resumed:
+            rc, out_resumed = _main_quiet(flags + saves + ["--save-dir", dirs["preempted"]])
+        resumed_launches = dict(zip(KERNEL_NAMES, _counts()))
+        if rc != 0 or f"auto-resumed from step {stop_at}" not in out_resumed:
+            raise AssertionError(f"checkpoint: the relaunch returned {rc} without resuming:\n{out_resumed[-2000:]}")
+        mark("relaunch")
+        resumed_updates = list(range(stop_at + 1, 5))
+        if [r["update"] for r in whole.records] != [1, 2, 3, 4] or [r["update"] for r in resumed.records] != resumed_updates:
+            raise AssertionError(f"checkpoint: updates run {[r['update'] for r in whole.records]}, "
+                                 f"resumed {[r['update'] for r in resumed.records]}")
+        for name, run, launches in (("uninterrupted", whole, whole_launches), ("resumed", resumed, resumed_launches)):
+            bad = [(r["launches"], r["want"]) for r in run.records if r["launches"] != r["want"]]
+            cuda_core = [launches[n] for n in ("tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv")]
+            tensor_core = [launches[n] for n in ("tree_attention_fwd_fused", "tree_attention_bwd_dq_fused",
+                                                 "tree_attention_bwd_dkv_fused")]
+            if bad or any(cuda_core) or not all(tensor_core):
+                raise AssertionError(f"checkpoint: the {name} run's tree launches (got, expected) {bad}; {launches}")
+
+        # the preempted + resumed run against the uninterrupted one, at step 4
+        a = ckpt.Checkpointer(dirs["whole"]).restore(step=4)
+        b = ckpt.Checkpointer(dirs["preempted"]).restore(step=4)
+        rng_equal = {k: _bytes_equal(a[k], b[k]) for k in ("host_rng", "device_rng")}
+        la, lb = _train_losses(dirs["whole"]), _train_losses(dirs["preempted"])
+        loss_rel = {n: abs(lb[n] - la[n]) / abs(la[n]) for n in resumed_updates}
+        moved = max(float((a["params"][k].float() - v).abs().max()) for k, v in whole.before.items())
+        diffs = sorted(((float((b["params"][k].float() - a["params"][k].float()).abs().max()), k)
+                        for k in whole.before), reverse=True)
+        differing = sum(int((b["params"][k] != a["params"][k]).sum()) for k in whole.before)
+        if not all(rng_equal.values()) or max(loss_rel.values()) > RESUME_LOSS_RTOL \
+                or diffs[0][0] > RESUME_PARAM_FRACTION * moved:
+            raise AssertionError(f"checkpoint: resumed vs uninterrupted: generators equal {rng_equal}, loss rel "
+                                 f"{loss_rel}, largest param diffs {diffs[:5]} against the 4 updates' {moved}")
+        del b
+        mark("compare")
+
+        # the round trip: the uninterrupted run's step 4 in memory, saved, loaded
+        task = NodePredictionTask(cfg)
+        trainer = task.build_trainer(image_shape=IMAGE_SHAPE, device="cuda")
+        state = ckpt.restore_params_into_state(trainer, trainer.init_state(params=a["params"]), a, reset_optimizer=False)
+        del a
+        before = ckpt.state_dict_of(state)
+        saver = ckpt.Checkpointer(dirs["copy"], keep=2)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        saver.save(state, state.num_updates)
+        save_ms = (time.perf_counter() - t) * 1e3
+        path = os.path.join(dirs["copy"], str(state.num_updates), ckpt.STATE_FILE)
+        ckpt_bytes = os.path.getsize(path)
+        # serve the copy from another process while this one checks it
+        with open(os.path.join(root, "server.log"), "w") as log:
+            server = subprocess.Popen(
+                [sys.executable, "-m", "multimodaldiscussiontransformer_tpu_torch.serve.server", "--checkpoint",
+                 dirs["copy"], "--host", "127.0.0.1", "--port", "0"],
+                cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT)
+        procs.append(server)
+        t = time.perf_counter()
+        restored = saver.restore(state)
+        ckpt.restore_params_into_state(trainer, state, restored, reset_optimizer=False)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t) * 1e3
+        mismatched = _bytes_differences(restored, before) + _bytes_differences(ckpt.state_dict_of(state), before)
+        if mismatched:
+            raise AssertionError(f"checkpoint: the save/load round trip changed {mismatched[:8]}")
+        if not whole.expected_bytes <= ckpt_bytes <= whole.expected_bytes * 1.01 + 2**20:
+            raise AssertionError(f"checkpoint: {ckpt_bytes} bytes on disk, {whole.expected_bytes} expected")
+        del before, restored
+        mark("round_trip")
+
+        # scoring from the checkpoint against the model that wrote it
+        rng = np.random.default_rng(seed + 7)
+        discussions = [make_discussion(rng, int(rng.integers(8, 33)), 0.25) for _ in range(4)]
+        items = [d.to_item(i) for i, d in enumerate(discussions)]
+        want = DiscussionScorer(state.model, device="cuda", image_shape=IMAGE_SHAPE).score_items(items)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        scorer = DiscussionScorer.from_checkpoint(dirs["copy"])
+        torch.cuda.synchronize()
+        from_ckpt_ms = (time.perf_counter() - t) * 1e3
+        got = scorer.score_items(items)
+        if scorer.device.type != "cuda" or not all(np.array_equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"checkpoint: from_checkpoint on {scorer.device} scores "
+                                 f"{max(float(np.abs(x - y).max()) for x, y in zip(got, want))} off the model")
+        del scorer, trainer, state, task
+        torch.cuda.empty_cache()
+        mark("from_checkpoint")
+
+        # the other entry points: --eval-only with the best step, and with the
+        # average of the last 2 plus per-node predictions
+        _zero_counts()
+        eval_flags = flags + ["--save-dir", dirs["whole"], "--eval-only", "--valid-subset", "test"]
+        t = time.perf_counter()
+        rc_best, out_best = _main_quiet(eval_flags + ["--load-best"])
+        rc_avg, out_avg = _main_quiet(eval_flags + ["--average-last", "2", "--predict-output", dirs["pred"]])
+        eval_s = time.perf_counter() - t
+        m = re.search(r"wrote (\d+) per-node rows -> (\S+)", out_avg)
+        if rc_best != 0 or rc_avg != 0 or "evaluating best checkpoint" not in out_best or not m:
+            raise AssertionError(f"checkpoint: --eval-only returned {rc_best} / {rc_avg}:\n{out_best[-1500:]}\n"
+                                 f"{out_avg[-1500:]}")
+        pred_path = m.group(2)
+        if pred_path.endswith(".csv"):
+            with open(pred_path) as f:
+                file_rows = sum(1 for _ in f) - 1
+        else:
+            import pandas as pd
+
+            file_rows = len(pd.read_parquet(pred_path))
+        if int(m.group(1)) != dataset["test_nodes"] or file_rows != dataset["test_nodes"]:
+            raise AssertionError(f"checkpoint: {m.group(1)} prediction rows ({file_rows} in {pred_path}), "
+                                 f"{dataset['test_nodes']} real test nodes")
+        eval_launches = dict(zip(KERNEL_NAMES, _counts()))
+        if eval_launches["tree_attention_fwd"] or not eval_launches["tree_attention_fwd_fused"]:
+            raise AssertionError(f"checkpoint: --eval-only tree launches {eval_launches}")
+
+        mark("eval_only")
+
+        # the server CLI: one POST with the same discussions
+        deadline = time.time() + 300
+        while True:
+            with open(os.path.join(root, "server.log")) as f:
+                text = f.read()
+            port = re.search(r"on http://127\.0\.0\.1:(\d+)", text)
+            if port or server.poll() is not None or time.time() > deadline:
+                break
+            time.sleep(0.1)
+        if not port:
+            raise AssertionError(f"checkpoint: the server did not start (rc {server.poll()}):\n{text[-2000:]}")
+        body = json.dumps({"discussions": [
+            {"parents": d.parents, "input_ids": np.stack(d.input_ids).tolist(),
+             "images": {str(k): v.tolist() for k, v in d.images.items()}} for d in discussions]}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port.group(1)}/v1/score", data=body,
+                                     headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            served = [np.asarray(p, np.float32) for p in json.loads(resp.read())["probs"]]
+        post_ms = (time.perf_counter() - t) * 1e3
+        server.send_signal(signal.SIGINT)
+        server_rc = server.wait(timeout=60)
+        if server_rc != 0 or not all(np.array_equal(x, y) for x, y in zip(served, want)):
+            with open(os.path.join(root, "server.log")) as f:
+                text = f.read()
+            raise AssertionError(f"checkpoint: the server (rc {server_rc}) answered "
+                                 f"{max(float(np.abs(x - y).max()) for x, y in zip(served, want))} off the model:\n"
+                                 f"{text[-4000:]}")
+        mark("server")
+
+        resumed_ms = [r["ms"] for r in resumed.records]
+        row = {
+            "phase": "checkpoint",
+            "config": "ModelConfig() (launch flags: run_train.sh 8 4 5 2 2 0, --freeze-initial-encoders, batch 12 x "
+                      "update_freq 3), bfloat16 compute, float32 params, 4 updates",
+            "dataset": dataset, "preempt_signal_after_s": sent["after_s"], "preempted_stop_at_update": stop_at,
+            "checkpoint_bytes": ckpt_bytes, "expected_bytes": whole.expected_bytes,
+            "save_ms": save_ms, "restore_ms": restore_ms, "from_checkpoint_ms": from_ckpt_ms,
+            "resumed_update_ms": resumed_ms, "resumed_update_ms_median": float(np.median(resumed_ms)),
+            "uninterrupted_update_ms_beside_the_preempted_run": [r["ms"] for r in whole.records],
+            "loss": {"uninterrupted": la, "resumed": lb}, "loss_rel_diff": loss_rel,
+            "generators_byte_equal": rng_equal, "param_max_change_4_updates": moved,
+            "param_largest_diffs": diffs[:5], "param_elements_differing": differing,
+            "param_elements": sum(v.numel() for v in whole.before.values()),
+            "round_trip_byte_exact": True, "from_checkpoint_bit_equal": True, "server_bit_equal": True,
+            "server_post_ms": post_ms, "eval_only_seconds": eval_s, "prediction_rows": int(m.group(1)),
+            "prediction_file": os.path.basename(pred_path),
+            "launches_uninterrupted": whole_launches, "launches_resumed": resumed_launches,
+            "launches_eval_only": eval_launches, "seconds_by_step": seconds, "seconds": time.perf_counter() - t_phase,
+        }
+        emit(row)
+        return row
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _kernel_entry(name, source, replaces, also, launches, row, dtype_err, ms_key, plain_ms, library_ms, bound_key):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "also_replaces": also,
@@ -2109,6 +2535,7 @@ def main(argv=None) -> int:
     agree_fused = phase_train_cpu_agreement(args.seed, fused=True)  # float32: the pair's path
     dense = phase_dense_graph(args.seed)
     phase_launch()
+    phase_checkpoint(args.seed)
 
     serve_row = rows[0]  # S=33, B=16: the canonical serving shape
     train_row = train_rows[0]  # S=33, B=12: the canonical training shape

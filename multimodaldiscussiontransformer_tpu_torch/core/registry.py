@@ -1,7 +1,8 @@
 """Named registries for architectures, tasks, criterions and datasets: the
 port's copy of the JAX package's ``core/registry.py``, with the names the
 reference's launch configs use (``multi_graphormer_base``,
-``node_prediction``, ``node_cross_entropy``, ``synthetic``). The port
+``node_prediction``, ``node_cross_entropy``, ``synthetic``,
+``hateful_discussions``). The port
 registers what it has; other names raise ``KeyError`` listing what exists.
 """
 
@@ -55,5 +56,6 @@ def populate() -> None:
         "multimodaldiscussiontransformer_tpu_torch.losses.node_cross_entropy",
         "multimodaldiscussiontransformer_tpu_torch.tasks.node_prediction",
         "multimodaldiscussiontransformer_tpu_torch.data.synthetic",
+        "multimodaldiscussiontransformer_tpu_torch.experiments.hateful_discussions.dataset",
     ):
         importlib.import_module(mod)

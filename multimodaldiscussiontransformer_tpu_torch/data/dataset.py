@@ -39,11 +39,16 @@ class DiscussionDataset:
 
     def text_length(self, i: int) -> int:
         """Max attended token length across the graph's nodes (cached; used
-        by length-grouped batching)."""
+        by length-grouped batching). A lazy item with a ``text_length``
+        probe (``NpzItemLoader``) answers without loading its arrays."""
         cache = self.__dict__.setdefault("_len_cache", {})
         if i not in cache:
-            am = self.get(i).attention_mask
-            cache[i] = int(np.max(np.where(am.any(axis=0))[0], initial=0)) + 1 if am.any() else 1
+            probe = getattr(self.items[i], "text_length", None)
+            if callable(probe):
+                cache[i] = int(probe())
+            else:
+                am = self.get(i).attention_mask
+                cache[i] = int(np.max(np.where(am.any(axis=0))[0], initial=0)) + 1 if am.any() else 1
         return cache[i]
 
     @classmethod

@@ -15,7 +15,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from multimodaldiscussiontransformer_tpu_torch.core.config import DataConfig, TaskConfig
+from multimodaldiscussiontransformer_tpu_torch.core.config import DataConfig, ModelConfig, TaskConfig
 from multimodaldiscussiontransformer_tpu_torch.data.collator import Batch, collate, to_tensors
 from multimodaldiscussiontransformer_tpu_torch.data.preprocess import GraphItem, preprocess_item
 from multimodaldiscussiontransformer_tpu_torch.data.trees import tree_distance_pairs
@@ -139,6 +139,41 @@ class DiscussionScorer:
         self.task_cfg = task_cfg or TaskConfig()
         self.image_shape = image_shape
         self.batch_buckets = batch_buckets
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        save_dir: str,
+        model_cfg: Optional[ModelConfig] = None,
+        step: Optional[int] = None,
+        best: bool = True,
+        device=None,
+        **kw,
+    ) -> "DiscussionScorer":
+        """A scorer for the params of a training checkpoint directory
+        (``utils/checkpoints.py``): the best step by default (the latest
+        without one, or with ``best=False``); an explicit ``step`` of the
+        rolling store wins. The model is rebuilt from ``model_cfg``
+        (``ModelConfig()`` by default) on ``device`` (the card unless
+        ``"cpu"`` is asked for)."""
+        from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
+        from multimodaldiscussiontransformer_tpu_torch.utils.checkpoints import Checkpointer
+
+        device = resolve_device(device)
+        restored = Checkpointer(save_dir).restore(step=step, best=best and step is None)
+        if restored is None:
+            raise FileNotFoundError(f"no checkpoints under {save_dir}")
+        params = restored["params"]
+        scanned = [key for key in params if any(f".{name}." in f".{key}" for name in ("scan_pairs", "scan_layers"))]
+        if scanned:
+            raise ValueError(
+                f"{scanned[0]} is in the scan layout: the port serves unrolled params; unstacking scan-layout "
+                "params is ROADMAP Queue 1 item 6"
+            )
+        with torch.device("meta"):  # no random init: every tensor comes from the checkpoint
+            model = MDTModel(model_cfg or ModelConfig())
+        model.load_state_dict(params, strict=True, assign=True)
+        return cls(model, device=device, **kw)
 
     def collate(self, items: Sequence[GraphItem]) -> Batch:
         """The host batch for ``items``, padded up the batch-size ladder."""

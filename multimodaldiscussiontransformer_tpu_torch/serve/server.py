@@ -16,6 +16,11 @@ Request schema (POST /v1/score):
     ]}
 Response: {"probs": [[[p_norm, p_hate], ...], ...]}: per discussion, per
 node, class probabilities in node order.
+
+Serve a training checkpoint directory (``main``):
+
+    python -m multimodaldiscussiontransformer_tpu_torch.serve.server \\
+        --checkpoint ckpts/run0 --port 8000 [--device cpu]
 """
 
 from __future__ import annotations
@@ -150,6 +155,7 @@ def _parse_discussion(obj: dict) -> Discussion:
 
 class _Handler(BaseHTTPRequestHandler):
     server: "ScoreServer"
+    timeout = 120  # seconds a socket read or write may block: bounds how long close() waits
 
     def _reply(self, code: int, payload: dict) -> None:
         body = json.dumps(payload).encode()
@@ -195,7 +201,9 @@ class ScoreServer(ThreadingHTTPServer):
     Requests from the thread-per-connection handlers coalesce inside the
     BatchingScorer into shared device batches."""
 
-    daemon_threads = True
+    # close() joins the handler threads: a daemon thread still closing its
+    # socket while the interpreter shuts down can abort the process
+    daemon_threads = False
 
     def __init__(self, addr, scorer, batching: bool = True, verbose: bool = False, **batch_kw):
         self.scorer = (
@@ -211,3 +219,50 @@ class ScoreServer(ThreadingHTTPServer):
         self.server_close()
         if isinstance(self.scorer, BatchingScorer):
             self.scorer.close()
+
+
+def main(argv=None) -> int:
+    """Serve a trained checkpoint until interrupted."""
+    import argparse
+
+    p = argparse.ArgumentParser(description="Serve a trained mDT checkpoint over HTTP")
+    p.add_argument("--checkpoint", required=True, help="save dir of a trained run")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000, help="0 picks a free port")
+    p.add_argument("--max-batch", type=int, default=16)
+    p.add_argument("--max-wait-ms", type=float, default=5.0)
+    p.add_argument("--latest", action="store_true", default=False,
+                   help="serve the latest checkpoint instead of the best")
+    p.add_argument("--batch-buckets", default="pow2",
+                   help="request-batch size ladder: 'pow2' (default), a comma list like '4,8,16', "
+                        "or 'none' to disable batch padding")
+    p.add_argument("--device", default="cuda", help="torch device to score on (default cuda; cpu to run on the CPU)")
+    p.add_argument("--verbose", action="store_true", default=False)
+    args = p.parse_args(argv)
+
+    buckets = (
+        None if args.batch_buckets == "none"
+        else "pow2" if args.batch_buckets == "pow2"
+        else tuple(int(x) for x in args.batch_buckets.split(","))
+    )
+    scorer = DiscussionScorer.from_checkpoint(
+        args.checkpoint, best=not args.latest, device=args.device, batch_buckets=buckets
+    )
+    server = ScoreServer(
+        (args.host, args.port), scorer, verbose=args.verbose, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms
+    )
+    host, port = server.server_address[:2]
+    print(f"serving {args.checkpoint} on http://{host}:{port} (POST /v1/score, GET /healthz)", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

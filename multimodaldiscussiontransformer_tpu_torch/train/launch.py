@@ -14,6 +14,14 @@ Quick run on the CPU:
     python -m multimodaldiscussiontransformer_tpu_torch.train.launch --synthetic \\
         --tiny --max-updates 2 --no-save --device cpu
 
+Checkpoints go to ``--save-dir`` (``utils/checkpoints.py``) unless
+``--no-save``; a relaunch with the same ``--save-dir`` resumes from its
+latest step, and SIGTERM saves at the next update boundary and exits 0.
+``--eval-only`` scores a checkpoint (best, latest or the average of the
+last K) and ``--predict-output`` writes its per-node predictions. Without
+``--synthetic`` the data is the ``hateful_discussions`` directory of
+``--data-root``.
+
 Flags whose machinery belongs to a later slice of the port exit with code 2
 and a message naming that slice (``UNPORTED``).
 """
@@ -24,14 +32,11 @@ import argparse
 import dataclasses
 import json
 import os
+import signal
 import sys
 
 # flag -> (is it set?, what brings it)
 UNPORTED = {
-    "--restore-file": (lambda a: a.restore_file is not None, "checkpoints (ROADMAP Queue 1)"),
-    "--eval-only": (lambda a: a.eval_only, "checkpoints (ROADMAP Queue 1)"),
-    "--average-last": (lambda a: a.average_last is not None, "checkpoints (ROADMAP Queue 1)"),
-    "--predict-output": (lambda a: a.predict_output is not None, "prediction export, with checkpoints (ROADMAP Queue 1)"),
     "--hf-init": (lambda a: a.hf_init, "the HF tower import (ROADMAP Queue 1 item 9), once such weights are in the repository"),
     "--distributed-world-size > 1": (lambda a: a.distributed_world_size > 1, "the parallel slice (ROADMAP Queue 1 item 8)"),
     "--dp-size/--tp-size/--sp-size/--num-slices/--fsdp": (
@@ -42,7 +47,6 @@ UNPORTED = {
     "--wandb-project": (lambda a: bool(a.wandb_project), "the wandb/tensorboard sinks (ROADMAP Queue 1)"),
     "--tensorboard-logdir": (lambda a: a.tensorboard_logdir is not None, "the wandb/tensorboard sinks (ROADMAP Queue 1)"),
     "--num-workers > 0": (lambda a: a.num_workers > 0, "worker-process loading (ROADMAP Queue 1 item 9)"),
-    "saving checkpoints (pass --no-save)": (lambda a: not a.no_save, "checkpoints (ROADMAP Queue 1)"),
     "--no-scan-microbatches": (lambda a: a.no_scan_microbatches and a.update_freq > 1, "MultiSteps accumulation (ROADMAP Queue 1)"),
     "--bf16-adam-state": (lambda a: a.bf16_adam_state, "bf16 Adam state (ROADMAP Queue 1)"),
     "--remat/--scan-layers": (lambda a: a.remat or a.scan_layers, "remat and scan layouts (ROADMAP Queue 1)"),
@@ -59,7 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--arch", default="multi_graphormer_base")
     p.add_argument("--user-data-dir", default="")
     p.add_argument("--dataset-name", default="hateful_discussions")
+    p.add_argument("--data-root", default=None, help="processed dataset root (default $MDT_DATA_ROOT)")
     p.add_argument("--num-classes", type=int, default=2)
+    p.add_argument("--split", type=int, default=0)
     p.add_argument("--seed", type=int, default=1)
     # model geometry (the reference's underscore spellings are aliases)
     p.add_argument("--num-fusion-layers", "--num_fusion_layers", type=int, default=8)
@@ -108,8 +114,12 @@ def build_parser() -> argparse.ArgumentParser:
     # checkpointing and logging
     p.add_argument("--save-dir", default="checkpoints")
     p.add_argument("--restore-file", default=None)
+    p.add_argument("--reset-optimizer", action="store_true", default=False)
     p.add_argument("--validate-interval-updates", type=int, default=300)
-    p.add_argument("--no-save", action="store_true", default=False)
+    p.add_argument("--save-interval", type=int, default=1)
+    p.add_argument("--save-interval-updates", type=int, default=0)
+    p.add_argument("--no-save", action="store_true", default=False,
+                   help="never write checkpoints (also disables auto-resume)")
     p.add_argument("--log-interval", type=int, default=50)
     p.add_argument("--wandb-project", default=os.environ.get("WANDB_PROJECT"))
     p.add_argument("--tensorboard-logdir", default=None)
@@ -138,9 +148,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use-pallas-attention", action=argparse.BooleanOptionalAction, default=True,
                    help="graph attention through the compact bias and the tree-attention kernels")
     # evaluation only
-    p.add_argument("--eval-only", action="store_true", default=False)
-    p.add_argument("--average-last", type=int, default=None)
-    p.add_argument("--predict-output", default=None)
+    p.add_argument("--eval-only", action="store_true", default=False,
+                   help="no training: restore (--restore-file, else --save-dir) and evaluate --valid-subset")
+    p.add_argument("--valid-subset", default="valid,test", help="comma-separated splits to score with --eval-only")
+    p.add_argument("--load-best", action="store_true", default=False,
+                   help="evaluate the best checkpoint instead of the latest")
+    p.add_argument("--predict-output", default=None, metavar="DIR",
+                   help="with --eval-only: also write per-node predictions-<split>.parquet under DIR")
+    p.add_argument("--average-last", type=int, default=None,
+                   help="evaluate the average of the newest K checkpoints")
     # smoke-run conveniences
     p.add_argument("--synthetic", action="store_true", default=False)
     p.add_argument("--synthetic-graphs", type=int, default=None)
@@ -247,6 +263,10 @@ def config_from_args(args):
         max_epoch=args.max_epoch,
         validate_interval_updates=args.validate_interval_updates,
         save_dir=args.save_dir,
+        save_interval=args.save_interval,
+        save_interval_updates=args.save_interval_updates,
+        restore_file=args.restore_file,
+        reset_optimizer=args.reset_optimizer,
         seed=args.seed,
         log_interval=args.log_interval,
         positive_weight=args.positive_weight,
@@ -293,6 +313,7 @@ def main(argv=None) -> int:
 
     from multimodaldiscussiontransformer_tpu_torch.core import registry
     from multimodaldiscussiontransformer_tpu_torch.train.metrics import MetricsWriter
+    from multimodaldiscussiontransformer_tpu_torch.utils.checkpoints import Checkpointer, restore_params_into_state
 
     registry.populate()
     task = registry.TASKS.get(cfg.task)(cfg)
@@ -309,7 +330,9 @@ def main(argv=None) -> int:
         )
     else:
         img = (3, cfg.model.image_tower.image_size, cfg.model.image_tower.image_size)
-        factory_kwargs = {"seed": cfg.seed}
+        factory_kwargs = {"split": args.split, "seed": cfg.seed}
+        if args.data_root:
+            factory_kwargs["root"] = args.data_root
     dataset = task.load_dataset(**factory_kwargs)
     print(
         f"dataset: {len(dataset)} graphs (train {len(dataset.train_idx)} / valid {len(dataset.valid_idx)} "
@@ -323,15 +346,92 @@ def main(argv=None) -> int:
             file=sys.stderr,
         )
         return 1
-    state = trainer.init_state()
+    if args.eval_only:
+        return evaluate_checkpoint(args, cfg, trainer, dataset)
+
+    ckpt = None if args.no_save else Checkpointer(cfg.save_dir)
+    if cfg.restore_file:
+        state = trainer.init_state()
+        restored = Checkpointer(cfg.restore_file).restore(state)
+        if restored is not None:
+            if cfg.reset_optimizer:  # a transfer: the head starts afresh
+                restored = {**restored, "params": task.transfer_from_contrastive(restored["params"], seed=cfg.seed)}
+            state = restore_params_into_state(trainer, state, restored, cfg.reset_optimizer)
+            print(f"restored from {cfg.restore_file}")
+    elif ckpt is not None and ckpt.latest_step() is not None:
+        restored = ckpt.restore()
+        state = restore_params_into_state(trainer, trainer.init_state(params=restored["params"]), restored, False)
+        print(f"auto-resumed from step {ckpt.latest_step()}")
+    else:
+        state = trainer.init_state()
+
     writer = MetricsWriter(cfg.save_dir)
-    state = trainer.fit(dataset, state=state, max_updates=args.max_updates, writer=writer)
+    # preemption: the handler only sets a flag; fit saves at the next update
+    # boundary and returns, and a relaunch auto-resumes from that step
+    stop = {"requested": False}
+
+    def request_stop(signum, frame):
+        stop["requested"] = True
+        # os.write, not print: the signal may land inside another print
+        os.write(2, f"signal {signum}: finishing current update, then checkpoint + exit\n".encode())
+
+    prev_term = signal.signal(signal.SIGTERM, request_stop)
+    try:
+        state = trainer.fit(
+            dataset, state=state, max_updates=args.max_updates, writer=writer, checkpointer=ckpt,
+            should_stop=lambda: stop["requested"],
+        )
+    finally:
+        signal.signal(signal.SIGTERM, prev_term)
+    if stop["requested"]:
+        saved = "checkpoint saved" if ckpt is not None else "no-save"
+        print(f"preempted: {saved} at step {state.num_updates}", flush=True)
+        writer.close()
+        return 0
     if len(dataset.test_idx):
         test_metrics = trainer.evaluate(state, dataset, "test")
         writer.write("test", state.num_updates, test_metrics)
         print("test:", json.dumps(test_metrics))
     writer.close()
     return 0
+
+
+def evaluate_checkpoint(args, cfg, trainer, dataset) -> int:
+    """``--eval-only``: load the average of the last ``--average-last``
+    steps, or the best (``--load-best``) or latest checkpoint, of
+    ``--restore-file`` (else ``--save-dir``), then score each split of
+    ``--valid-subset`` and, with ``--predict-output``, write its per-node
+    predictions."""
+    from multimodaldiscussiontransformer_tpu_torch.train.trainer import write_predictions
+    from multimodaldiscussiontransformer_tpu_torch.utils.checkpoints import Checkpointer, average_checkpoints
+
+    src = cfg.restore_file or cfg.save_dir
+    if args.average_last is not None:
+        state = trainer.init_state(params=average_checkpoints(src, last_k=args.average_last))
+        print(f"evaluating average of last {args.average_last} checkpoints from {src}")
+    else:
+        restored = Checkpointer(src).restore(best=args.load_best)
+        if restored is None:
+            print(f"error: no checkpoint under {src}", file=sys.stderr)
+            return 1
+        state = trainer.init_state(params=restored["params"])
+        print(f"evaluating {'best' if args.load_best else 'latest'} checkpoint from {src}")
+    results = {}
+    for split in args.valid_subset.split(","):
+        split = split.strip()
+        if split not in ("valid", "test"):
+            print(f"error: unknown split {split!r} (valid,test)", file=sys.stderr)
+            return 1
+        if not len(getattr(dataset, f"{split}_idx")):
+            continue
+        results[split] = trainer.evaluate(state, dataset, split)
+        print(f"{split}:", json.dumps(results[split]))
+        if args.predict_output:
+            os.makedirs(args.predict_output, exist_ok=True)
+            cols = trainer.predict(state, dataset, split)
+            out_path = write_predictions(os.path.join(args.predict_output, f"predictions-{split}.parquet"), cols)
+            print(f"wrote {len(cols['graph_idx'])} per-node rows -> {out_path}")
+    return 0 if results else 1
 
 
 if __name__ == "__main__":

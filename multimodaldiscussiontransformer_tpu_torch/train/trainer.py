@@ -15,15 +15,20 @@ no gradient in an update (e.g. the ViT halves of the fusion layers when no
 microbatch holds an image) get a zero gradient, so that AdamW still decays
 them and advances their moments, as optax does for every trainable leaf.
 
-There is no mesh: one process drives one device. Checkpoints, resume and
-profiling are not ported yet; settings that need them raise.
+There is no mesh: one process drives one device. ``fit`` saves through a
+``utils/checkpoints.py::Checkpointer`` and resumes mid-epoch from a
+restored state (``resume_position``); profiling is not ported yet, and
+settings that need it raise.
 """
 
 from __future__ import annotations
 
+import csv
+import os
+import sys
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +63,24 @@ class TrainState:
     step: int = 0  # microbatches consumed (pads included)
     num_updates: int = 0
     epoch: int = 0  # completed epochs
+
+
+def resume_position(step: int, epoch: int, micro_per_epoch: int, k: int) -> Tuple[int, int]:
+    """(first epoch to run, accumulation groups of it to skip) for a state
+    that has consumed ``step`` microbatches and completed ``epoch`` epochs
+    of ``micro_per_epoch`` microbatches each (0: unknown, no skipping).
+
+    The JAX trainer's mid-epoch resume (``train/trainer.py:700-720``): the
+    per-epoch order is deterministic, so skipping what the epoch already
+    consumed replays nothing. One difference: a state saved after the last
+    group of an epoch, before the epoch was counted (``max_updates`` or a
+    stop request there), starts at the next epoch here; the JAX trainer
+    runs that epoch again."""
+    start = epoch + 1
+    done = step - epoch * micro_per_epoch
+    if micro_per_epoch <= 0 or done <= 0:
+        return start, 0
+    return start + done // micro_per_epoch, (done % micro_per_epoch) // k
 
 
 def check_supported(cfg: TrainConfig) -> None:
@@ -105,13 +128,20 @@ class Trainer:
 
     # -- state ---------------------------------------------------------------
 
-    def init_state(self, seed: Optional[int] = None) -> TrainState:
+    def init_state(self, seed: Optional[int] = None, params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
         """A fresh model (random init from a CPU generator seeded with
         ``seed``, default ``cfg.seed``; or the model given to the trainer),
-        freeze, AdamW, and the dropout generators."""
+        freeze, AdamW, and the dropout generators. With ``params`` (a full
+        state_dict) a new model is built on the meta device and takes them:
+        no random init, and the host generator is not advanced by one."""
         seed = self.cfg.seed if seed is None else seed
         host = torch.Generator().manual_seed(seed)
-        model = self.model if self.model is not None else MDTModel(self.cfg.model, generator=host)
+        if params is not None:
+            with torch.device("meta"):
+                model = MDTModel(self.cfg.model)
+            model.load_state_dict(params, strict=True, assign=True)
+        else:
+            model = self.model if self.model is not None else MDTModel(self.cfg.model, generator=host)
         model = model.to(self.device)
         trainable = apply_freeze(model, self.cfg.model.freeze_initial_encoders)
         return TrainState(
@@ -200,7 +230,56 @@ class Trainer:
                 acc.update(logs)
         return acc.reduce()
 
+    def predict(self, state: TrainState, dataset: DiscussionDataset, split: str = "valid") -> Dict[str, np.ndarray]:
+        """Per-node rows for every real node of ``split`` (the JAX
+        ``Trainer.predict`` on one process): equal-length numpy columns
+        ``graph_idx`` (dataset index), ``node`` (position in its graph),
+        ``logit_<k>`` and ``prob_<k>`` per class, ``pred`` (argmax),
+        ``label`` (-1: unlabelled) and ``labeled``. Write them with
+        ``write_predictions``."""
+        parts: Dict[str, list] = {}
+        num_classes: Optional[int] = None
+        with torch.no_grad():
+            for b in self.eval_batches(dataset, split):
+                host = b.asdict()
+                logits = state.model(to_tensors(host, self.device), deterministic=True).logits.float().cpu().numpy()
+                if num_classes is None:
+                    num_classes = logits.shape[1]
+                    parts = {
+                        key: []
+                        for key in ["graph_idx", "node", "label", "labeled", "pred"]
+                        + [f"logit_{k}" for k in range(num_classes)]
+                        + [f"prob_{k}" for k in range(num_classes)]
+                    }
+                slots = np.nonzero(host["node_mask"].astype(bool))[0]
+                label_full = np.full(logits.shape[0], -1, dtype=np.int64)
+                lmask = host["y_slot_mask"].astype(bool)
+                label_full[host["y_node"][lmask]] = host["y"][lmask]
+                lg = logits[slots]
+                z = lg - lg.max(axis=1, keepdims=True)
+                prob = np.exp(z)
+                prob /= prob.sum(axis=1, keepdims=True)
+                parts["graph_idx"].append(host["idx"][host["node_graph"][slots]])
+                parts["node"].append(host["node_pos"][slots])
+                parts["label"].append(label_full[slots])
+                parts["labeled"].append(label_full[slots] >= 0)
+                parts["pred"].append(lg.argmax(axis=1))
+                for k in range(num_classes):
+                    parts[f"logit_{k}"].append(lg[:, k])
+                    parts[f"prob_{k}"].append(prob[:, k])
+        if num_classes is None:  # empty split
+            return {key: np.asarray([]) for key in ("graph_idx", "node", "label", "labeled", "pred")}
+        return {key: np.concatenate(v) for key, v in parts.items()}
+
     # -- the loop ------------------------------------------------------------
+
+    def micro_per_epoch(self, dataset: DiscussionDataset) -> int:
+        """Microbatches an epoch consumes: its full batches (0 without
+        ``drop_last``, where resume does not skip), padded up to whole
+        groups of ``update_freq``."""
+        k = max(self.cfg.optim.update_freq, 1)
+        bpe = len(dataset.train_idx) // max(self.global_batch_size, 1) if self.cfg.data.drop_last else 0
+        return -(-bpe // k) * k
 
     def fit(
         self,
@@ -209,12 +288,26 @@ class Trainer:
         max_epoch: Optional[int] = None,
         max_updates: Optional[int] = None,
         writer: Optional[MetricsWriter] = None,
+        checkpointer=None,
         log_fn: Callable[[str], None] = print,
+        should_stop: Optional[Callable[[], bool]] = None,
     ) -> TrainState:
         """Train until ``max_epoch`` epochs or ``max_updates`` updates, with
         a log line every ``log_interval`` updates (reduced metrics, lr,
         updates/s, discussions/s) and validation every
-        ``validate_interval_updates``."""
+        ``validate_interval_updates``.
+
+        A restored ``state`` resumes where it stopped, skipping the groups
+        its epoch already consumed (``resume_position``). With a
+        ``checkpointer`` (the JAX ``Trainer.fit``'s saves):
+        - each validation that improves ``f1`` (else lowers ``loss``) saves
+          the best step;
+        - every ``save_interval_updates`` updates, at ``max_updates``, and at
+          every ``save_interval``-th epoch end and the last one, a save;
+        - when ``should_stop()`` turns true (SIGTERM), a save at the update
+          boundary, then return.
+        A save at the same update and epoch as the previous one is skipped:
+        the state has not changed."""
         cfg = self.cfg
         max_epoch = cfg.max_epoch if max_epoch is None else max_epoch
         if state is None:
@@ -228,10 +321,26 @@ class Trainer:
         k = max(cfg.optim.update_freq, 1)
         acc = MetricAccumulator(self.criterion.reduce_metrics)
         lr_fn = self.lr_schedule()
-        last_logged = last_validated = state.num_updates
+        last_logged = last_validated = last_saved = state.num_updates
+        best_metric = None
+        saved_at = None
         window_t0, window_graphs = time.perf_counter(), 0
-        for epoch in range(state.epoch + 1, max_epoch + 1):
-            for group in stack_microbatches(self.train_batches(dataset, epoch), k, pad_tail=True):
+
+        def save(best: bool = False) -> None:
+            nonlocal saved_at
+            at = (state.num_updates, state.epoch)
+            if checkpointer is None or (at == saved_at and not best):
+                return
+            checkpointer.save(state, state.num_updates, best=best)
+            saved_at = at
+
+        start_epoch, skip_groups = resume_position(state.step, state.epoch, self.micro_per_epoch(dataset), k)
+        state.epoch = start_epoch - 1  # an epoch consumed but not yet counted counts now
+        for epoch in range(start_epoch, max_epoch + 1):
+            groups = stack_microbatches(self.train_batches(dataset, epoch), k, pad_tail=True)
+            for index, group in enumerate(groups):
+                if epoch == start_epoch and index < skip_groups:
+                    continue
                 logs = self.train_step(state, group)
                 acc.update(logs)
                 window_graphs += int((group["idx"] >= 0).sum())
@@ -256,7 +365,43 @@ class Trainer:
                     vm = self.evaluate(state, dataset, "valid")
                     writer.write("valid", n, vm)
                     log_fn(f"valid @ {n}: {vm}")
+                    key = "f1" if "f1" in vm else "loss"
+                    if best_metric is None or (vm[key] > best_metric if key == "f1" else vm[key] < best_metric):
+                        best_metric = vm[key]
+                        save(best=True)
+                if cfg.save_interval_updates and n - last_saved >= cfg.save_interval_updates:
+                    last_saved = n
+                    save()
                 if max_updates is not None and n >= max_updates:
+                    save()
+                    return state
+                if should_stop is not None and should_stop():
+                    log_fn(f"stop requested at update {n}: checkpointing and exiting")
+                    save()
                     return state
             state.epoch = epoch
+            if epoch % max(cfg.save_interval, 1) == 0 or epoch == max_epoch:
+                save()
         return state
+
+
+def write_predictions(path: str, columns: Dict[str, np.ndarray]) -> str:
+    """Write ``Trainer.predict`` columns as a table: parquet through pandas,
+    or CSV (the ``csv`` module) for a ``.csv`` path. Without pandas or a
+    parquet engine, CSV next to the path asked for, with a warning. Returns
+    the path written."""
+    if not path.endswith(".csv"):
+        try:
+            import pandas as pd
+
+            pd.DataFrame(columns).to_parquet(path)
+            return path
+        except (ImportError, ValueError) as e:
+            alt = os.path.splitext(path)[0] + ".csv"
+            print(f"warning: parquet engine unavailable ({e!r}); wrote {alt}", file=sys.stderr)
+            path = alt
+    with open(path, "w", newline="") as f:
+        out = csv.writer(f)
+        out.writerow(list(columns))
+        out.writerows(zip(*(np.asarray(v).tolist() for v in columns.values())))
+    return path

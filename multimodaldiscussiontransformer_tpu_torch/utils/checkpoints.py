@@ -1,0 +1,255 @@
+"""Checkpoints of the port: save, resume and checkpoint transforms, with the
+surface of the JAX package's ``utils/checkpoints.py`` in torch.
+
+Replaces the reference's FairSeq checkpoint surface: ``--save-dir`` /
+``--restore-file`` / ``--reset-optimizer`` (run_train.sh:57-63) and the
+contrastive -> node-prediction head reset (node_prediction.py:44-54).
+
+Layout, as the JAX store's: ``save_dir/<step>/state.pt`` for the rolling
+saves (keep the newest ``keep``), ``save_dir/best/<step>/state.pt`` for
+the best one, and ``save_dir/best_step.txt``. A step's file is written by
+``torch.save`` into a temporary directory that ``os.replace`` then moves to
+``<step>``, so a run killed mid-save leaves no step that ``latest_step``
+would pick. The port's format is its own: it does not read the JAX
+package's Orbax checkpoints.
+
+A saved state is a dict of tensors, ints, floats, strings, lists and
+dicts, read back with ``torch.load(..., weights_only=True)``:
+- ``params``: the model's whole ``state_dict`` (frozen towers included) on
+  the CPU;
+- ``optimizer``: the AdamW ``state_dict`` on the CPU;
+- ``step`` (microbatches), ``num_updates`` and ``epoch`` (completed);
+- ``host_rng`` and ``device_rng``: the two dropout generators' states
+  (CPU byte tensors, a CUDA generator's included).
+A params-only checkpoint (``save_params``) holds ``params`` alone.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from multimodaldiscussiontransformer_tpu_torch.models.mdt import _lecun_normal
+
+STATE_FILE = "state.pt"
+
+
+def _to_cpu(obj: Any) -> Any:
+    """``obj`` with every tensor detached onto the CPU (containers rebuilt)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def state_dict_of(state) -> Dict[str, Any]:
+    """What a checkpoint stores of a ``TrainState``, on the CPU."""
+    return {
+        "params": _to_cpu(state.model.state_dict()),
+        "optimizer": _to_cpu(state.optimizer.state_dict()),
+        "step": int(state.step),
+        "num_updates": int(state.num_updates),
+        "epoch": int(state.epoch),
+        "host_rng": state.host_rng.get_state(),
+        "device_rng": state.device_rng.get_state(),
+    }
+
+
+def _steps(directory: str) -> List[int]:
+    """The complete steps under ``directory``: numeric names holding a
+    state file (a temporary directory, or a step dir without its file, is
+    never one)."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(
+        int(name) for name in os.listdir(directory)
+        if name.isdigit() and os.path.isfile(os.path.join(directory, name, STATE_FILE))
+    )
+
+
+def _write_step(directory: str, step: int, payload: Optional[Dict[str, Any]] = None, link_from: Optional[str] = None) -> str:
+    """Write ``directory/<step>/state.pt`` atomically: into a temporary
+    directory first (``torch.save`` of ``payload``, or a hard link to the
+    file ``link_from``), then ``os.replace`` into place. An existing step is
+    overwritten. Returns the step file's path."""
+    os.makedirs(directory, exist_ok=True)
+    tmp = os.path.join(directory, f".tmp-{step}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    path = os.path.join(tmp, STATE_FILE)
+    if link_from is None:
+        torch.save(payload, path)
+    else:
+        try:
+            os.link(link_from, path)
+        except OSError:  # no hard links here: copy the bytes
+            shutil.copyfile(link_from, path)
+    final = os.path.join(directory, str(step))
+    if os.path.exists(final):
+        # a directory is only replaced when empty: move the old step aside
+        # first, so a kill in between loses the step rather than leaving
+        # half of one
+        old = os.path.join(directory, f".old-{step}")
+        shutil.rmtree(old, ignore_errors=True)
+        os.replace(final, old)
+        os.replace(tmp, final)
+        shutil.rmtree(old, ignore_errors=True)
+    else:
+        os.replace(tmp, final)
+    return os.path.join(final, STATE_FILE)
+
+
+def _prune(directory: str, keep: int) -> None:
+    for step in _steps(directory)[:-keep] if keep > 0 else []:
+        shutil.rmtree(os.path.join(directory, str(step)), ignore_errors=True)
+
+
+def _load(directory: str, step: int) -> Dict[str, Any]:
+    return torch.load(os.path.join(directory, str(step), STATE_FILE), map_location="cpu", weights_only=True)
+
+
+class Checkpointer:
+    """Save and restore with keep-last-``keep`` retention of the rolling
+    saves and a separate best store (keep 1), so that retention never
+    deletes the best step. Saves are synchronous: a single-process torch
+    save has no cross-process barrier to wait on."""
+
+    def __init__(self, save_dir: str, keep: int = 3):
+        self.save_dir = os.path.abspath(save_dir)
+        os.makedirs(self.save_dir, exist_ok=True)
+        self._keep = keep
+        self._best_dir = os.path.join(self.save_dir, "best")
+
+    def save(self, state, step: int, best: bool = False) -> None:
+        """Save ``state`` (a ``TrainState``, or a dict in the stored format)
+        as ``step``; with ``best`` also as the best step. Saving a step that
+        exists overwrites it."""
+        payload = state if isinstance(state, dict) else state_dict_of(state)
+        path = _write_step(self.save_dir, step, payload)
+        _prune(self.save_dir, self._keep)
+        if best:
+            # the same bytes: a hard link, not a second write
+            _write_step(self._best_dir, step, link_from=path)
+            _prune(self._best_dir, 1)
+            with open(os.path.join(self.save_dir, "best_step.txt"), "w") as f:
+                f.write(str(step))
+
+    def all_steps(self) -> List[int]:
+        return _steps(self.save_dir)
+
+    def latest_step(self) -> Optional[int]:
+        steps = _steps(self.save_dir)
+        return steps[-1] if steps else None
+
+    def best_step(self) -> Optional[int]:
+        """The best step, else the latest."""
+        steps = _steps(self._best_dir)
+        return steps[-1] if steps else self.latest_step()
+
+    def restore(self, state=None, step: Optional[int] = None, best: bool = False) -> Optional[Dict[str, Any]]:
+        """The stored dict of ``step`` (default: the latest) from the
+        rolling store, or with ``best`` from the best store, falling back
+        to the rolling store's latest when there is no best step. None when
+        there is no checkpoint. With ``state`` (a ``TrainState``) the
+        checkpoint's params must carry the same names as its model's."""
+        directory = self._best_dir if best else self.save_dir
+        steps = _steps(directory)
+        if step is None:
+            if not steps:
+                return self.restore(state, None, False) if best else None
+            step = steps[-1]
+        elif step not in steps:
+            raise FileNotFoundError(f"step {step} is not under {directory} (steps: {steps})")
+        restored = _load(directory, step)
+        if state is not None:
+            want, got = set(state.model.state_dict()), set(restored["params"])
+            if want != got:
+                raise ValueError(
+                    f"checkpoint step {step} under {directory} does not fit the model: missing "
+                    f"{sorted(want - got)[:5]}, unexpected {sorted(got - want)[:5]}"
+                )
+        return restored
+
+
+def restore_params_into_state(trainer, state, restored: Optional[Dict[str, Any]], reset_optimizer: bool):
+    """Apply a restored checkpoint to ``state``: the whole state (resume),
+    or with ``reset_optimizer`` the params alone with a fresh optimizer (the
+    ``--reset-optimizer`` fine-tune path, run_train.sh:63)."""
+    if restored is None:
+        return state
+    if reset_optimizer:
+        return trainer.load_params(state, restored["params"])
+    if "optimizer" not in restored:
+        raise ValueError("a params-only checkpoint cannot resume a run: restore it with reset_optimizer")
+    state.model.load_state_dict(restored["params"], strict=True)
+    state.optimizer.load_state_dict(restored["optimizer"])
+    state.step = int(restored["step"])
+    state.num_updates = int(restored["num_updates"])
+    state.epoch = int(restored.get("epoch", 0))
+    state.host_rng.set_state(restored["host_rng"])
+    state.device_rng.set_state(restored["device_rng"])
+    return state
+
+
+def reset_classifier_head(state_dict: Dict[str, torch.Tensor], generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """A new state_dict whose ``node_classifier`` weight is drawn afresh
+    (LeCun normal, truncated, from the CPU ``generator``) and whose bias is
+    0: the intended transfer-time head reset (node_prediction.py:47-54).
+    The input dict and its tensors are untouched."""
+    out = dict(state_dict)
+    for key, value in state_dict.items():
+        module, _, leaf = key.rpartition(".")
+        if module.rsplit(".", 1)[-1] != "node_classifier":
+            continue
+        if leaf == "weight":
+            w = torch.empty(value.shape, dtype=torch.float32)
+            _lecun_normal(w, generator)
+            out[key] = w.to(value.device, value.dtype)
+        elif leaf == "bias":
+            out[key] = torch.zeros_like(value)
+    return out
+
+
+def average_checkpoints(save_dir: str, steps: Optional[List[int]] = None, last_k: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The mean ``params`` of several steps of one save dir (FairSeq's
+    ``scripts/average_checkpoints.py``): ``steps`` names them, ``last_k``
+    takes the newest K, and by default every retained step. Float tensors
+    are averaged in float64 and cast back to their dtype; other tensors
+    come from the newest chosen step."""
+    avail = _steps(save_dir)
+    if not avail:
+        raise FileNotFoundError(f"no checkpoints under {save_dir}")
+    if steps is not None:
+        missing = [s for s in steps if s not in avail]
+        if missing:
+            raise ValueError(f"steps {missing} not in {save_dir} (available: {avail})")
+        chosen = sorted(int(s) for s in steps)
+    elif last_k is not None:
+        if int(last_k) <= 0:
+            raise ValueError(f"last_k must be positive, got {last_k}")
+        chosen = avail[-int(last_k):]
+    else:
+        chosen = avail
+    acc: Dict[str, torch.Tensor] = {}
+    for s in chosen:
+        for key, value in _load(save_dir, s)["params"].items():
+            if value.is_floating_point():
+                acc[key] = acc[key] + value.double() if key in acc else value.double()
+    newest = _load(save_dir, chosen[-1])["params"]
+    n = float(len(chosen))
+    return {
+        key: (acc[key] / n).to(value.dtype) if value.is_floating_point() else value
+        for key, value in newest.items()
+    }
+
+
+def save_params(save_dir: str, params: Dict[str, torch.Tensor], step: int = 0) -> None:
+    """A params-only checkpoint, loadable by ``DiscussionScorer.from_checkpoint``
+    and by ``--restore-file`` with ``--reset-optimizer``."""
+    Checkpointer(save_dir).save({"params": _to_cpu(params)}, step)

@@ -1,7 +1,7 @@
 """The port imports neither JAX nor anything of the JAX package.
 
-A fresh interpreter blocks ``jax``, ``flax``, ``optax`` and the JAX package
-with a meta-path finder, imports the port and every one of its submodules
+A fresh interpreter blocks ``jax``, ``flax``, ``optax``, ``orbax`` and the
+JAX package with a meta-path finder, imports the port and every one of its submodules
 (and ``chip_smoke.py``), and then checks ``sys.modules``. Names are compared
 exactly or by ``name + "."``: the port's own name begins with the JAX
 package's.
@@ -18,7 +18,7 @@ SCRIPT = textwrap.dedent(
     """
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "multimodaldiscussiontransformer_tpu")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "multimodaldiscussiontransformer_tpu")
 
     def blocked(name):
         return any(name == b or name.startswith(b + ".") for b in BLOCKED)
@@ -37,6 +37,7 @@ SCRIPT = textwrap.dedent(
     import chip_smoke  # noqa: F401
     leaked = sorted(n for n in sys.modules if blocked(n))
     print("IMPORTED", len(names))
+    print("NAMES", " ".join(names))
     print("LEAKED", leaked)
     """
 )
@@ -48,6 +49,9 @@ def test_port_imports_nothing_of_jax():
         [sys.executable, "-c", SCRIPT], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0, proc.stderr
-    lines = dict(ln.split(" ", 1) for ln in proc.stdout.splitlines() if ln.startswith(("IMPORTED", "LEAKED")))
+    lines = dict(ln.split(" ", 1) for ln in proc.stdout.splitlines() if ln.startswith(("IMPORTED", "LEAKED", "NAMES")))
     assert int(lines["IMPORTED"]) >= 15, proc.stdout
+    for module in ("experiments.hateful_discussions.dataset", "experiments.hateful_discussions.ingest",
+                   "utils.checkpoints", "utils.average_checkpoints"):
+        assert f"multimodaldiscussiontransformer_tpu_torch.{module}" in lines["NAMES"].split(), module
     assert lines["LEAKED"] == "[]", proc.stdout

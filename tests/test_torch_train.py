@@ -252,12 +252,12 @@ def test_launch_main_tiny_on_cpu(tmp_path):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--restore-file", "ck"], ["--eval-only"], ["--hf-init"], ["--predict-output", "p"],
+    [["--bf16-adam-state"], ["--remat"], ["--hf-init"], ["--task", "contrastive_learning"],
      ["--distributed-world-size", "2"], ["--profile-trace", "t"], ["--wandb-project", "w"],
-     ["--tensorboard-logdir", "t"], ["--num-workers", "2"], []],
+     ["--tensorboard-logdir", "t"], ["--num-workers", "2"], ["--no-scan-microbatches", "--update-freq", "2"]],
 )
 def test_launch_rejects_unported_flags(flags, capsys):
-    argv = ["--synthetic", "--tiny", "--device", "cpu"] + flags + ([] if flags == [] else ["--no-save"])
+    argv = ["--synthetic", "--tiny", "--device", "cpu", "--no-save"] + flags
     with pytest.raises(SystemExit) as e:
         launch.main(argv)
     assert e.value.code == 2
