@@ -160,6 +160,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
     and ``from_checkpoint`` ms, bytes per checkpoint and the resumed run's
     ms per update.
 
+14. train_cpu_agreement_contrastive, _multisteps, _bf16_adam: as 10 (float32,
+    tiny, the CUDA-core tree kernels), for one scan update of the
+    contrastive task (every graph layer's backward runs), one MultiSteps
+    update (three ``train_microstep`` calls; the mean each ``.grad`` holds
+    after the third) and one scan update with bf16 Adam moments.
+15. contrastive: the reference's first training stage and the settings of
+    the same slice at full width, through ``train.launch.main``:
+    - contrastive pre-training (``--task contrastive_learning``, the
+      canonical flags) on a ``hateful_discussions`` directory of 240
+      contrastive discussions of 8-32 nodes (``hard_y`` written by the
+      port's ingest writers): 4 updates, a save at 4, the test evaluation;
+      exactly 30 / 30 / 30 launches of the tensor-core tree forward / dq /
+      dk-dv per update (the loss reads the last graph stack's global
+      embedding, so every graph layer's backward runs);
+    - the transfer: the node task with ``--restore-file <that save dir>
+      --reset-optimizer``, 2 updates and the test evaluation; before its
+      first update every tensor on the card but ``node_classifier.weight``
+      equals the checkpoint's (the bias is reset to 0, as it was);
+    - ``--no-scan-microbatches``: 6 microbatches, 2 MultiSteps updates;
+    - ``--bf16-adam-state``: 2 updates and a save, its bytes against the
+      params plus two bf16 moments per trainable element;
+    - ``param_dtype="bfloat16"`` through the Python API: 2 updates.
+    Prints ms per update (median and last), discussions/s, peak memory
+    and the losses of each run, the tree launches per update, and the
+    AdamW step alone (device ms and span) on the same params with float32
+    moments, bf16 moments and bf16 params.
+
 The last two lines are the kernels' summary (thirteen kernels) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1747,18 +1774,21 @@ def phase_dense_graph(seed: int):
     return {"scoring": counts, "training": train_counts, "float32_step": tiny_launches["cuda"]}
 
 
-def graph_layers(mc):
-    """(graph layers a forward runs, graph layers whose backward a node
-    loss reaches). The final graph stack feeds only the global embedding,
-    which the node loss does not read, so autograd never runs its backward
-    (nor that of the stack the reference skips, where it is run)."""
+def graph_layers(mc, contrastive: bool = False):
+    """(graph layers a forward runs, graph layers whose backward the loss
+    reaches). The final graph stack feeds only the global embedding, which
+    the node loss does not read, so under the node loss autograd never runs
+    its backward (nor that of the stack the reference skips, where it is
+    run); the contrastive loss reads only the global embedding, so every
+    graph layer a forward runs has its backward."""
     fwd = mc.num_graph_stack * (mc.num_fusion_stacks + (0 if mc.reproduce_dead_graph_stack else 1))
-    return fwd, mc.num_graph_stack * (mc.num_fusion_stacks - 1)
+    return fwd, fwd if contrastive else mc.num_graph_stack * (mc.num_fusion_stacks - 1)
 
 
-def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int):
+def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int, contrastive: bool = False):
     """Launches of every kernel (KERNEL_NAMES order) in one update of k
-    microbatches of ``text_len``-token text, from the config. Each tower
+    microbatches of ``text_len``-token text, from the config (the
+    contrastive loss's backward reaches every graph layer). Each tower
     layer's forward takes the tensor-core or the CUDA-core kernel, and each
     tower's backward the one-pass kernel or the pair, as ``kernel_route``
     says for the compute dtype, the tower's head dim and the layer's length
@@ -1771,7 +1801,7 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int):
     from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
     from multimodaldiscussiontransformer_tpu_torch.ops.masked_attention import kernel_route
 
-    fwd, bwd = graph_layers(mc)
+    fwd, bwd = graph_layers(mc, contrastive)
     tensor_core = ta.kernel_route(getattr(torch, mc.dtype), mc.encoder_embed_dim // mc.encoder_attention_heads) == "tensor_core"
     route = [k * fwd, k * bwd, k * bwd]  # forward, dq, dk/dv of the route
     tree = [0, 0, 0] + route if tensor_core else route + [0, 0, 0]
@@ -1971,9 +2001,19 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
     return dict(zip(KERNEL_NAMES, launches))
 
 
-def phase_train_cpu_agreement(seed: int, fused: bool):
-    """One scan update of the tiny config with every dropout at 0, in
-    float32, on the card and on the CPU from the same weights and batches."""
+AGREE_VARIANTS = {
+    "node": "one scan update of 3 x 4",
+    "contrastive": "one scan update of the contrastive task, 3 x 4",
+    "multisteps": "one MultiSteps update (scan_microbatches off): 3 microbatches of 4",
+    "bf16_adam": "one scan update of 3 x 4 with bf16 Adam moments",
+}
+
+
+def phase_train_cpu_agreement(seed: int, fused: bool, variant: str = "node"):
+    """One update of the tiny config with every dropout at 0, in float32,
+    on the card and on the CPU from the same weights and batches: the scan
+    update of the node task, or (``variant``) of the contrastive task, a
+    MultiSteps update, or a scan update with bf16 Adam moments."""
     import torch
 
     from multimodaldiscussiontransformer_tpu_torch.core.config import (
@@ -1989,30 +2029,47 @@ def phase_train_cpu_agreement(seed: int, fused: bool):
                   image_tower=dataclasses.replace(m.image_tower, **no_drop))
     if fused:
         m = fused_towers(m)
+    contrastive = variant == "contrastive"
+    task = dict(task="contrastive_learning", criterion="contrastive_loss") if contrastive else {}
     cfg = TrainConfig(
-        model=m, seed=seed,
+        model=m, seed=seed, **task,
         data=DataConfig(batch_size=4, max_text_len=16, node_buckets=(8,), node_capacity_buckets=(64,),
                         image_capacity_buckets=(16,), label_capacity_buckets=(32,)),
-        optim=OptimConfig(lr=1e-3, warmup_updates=2, total_num_update=20, update_freq=3),
+        optim=OptimConfig(lr=1e-3, warmup_updates=2, total_num_update=20, update_freq=3,
+                          scan_microbatches=variant != "multisteps", bf16_adam_state=variant == "bf16_adam"),
         task_cfg=TaskConfig(dataset_name="synthetic", seed=seed),
     )
     img = (3, 32, 32)
-    ds = synthetic_dataset(num_graphs=40, seed=seed, seq_len=16, vocab_size=128, image_shape=img, max_nodes=8)
+    ds = synthetic_dataset(num_graphs=40, seed=seed, seq_len=16, vocab_size=128, image_shape=img, max_nodes=8,
+                           contrastive=contrastive)
     out = {}
     for dev in ("cpu", "cuda"):
         trainer = Trainer(cfg, image_shape=img, device=dev)
         state = trainer.init_state()
         group = next(iter(stack_microbatches(trainer.train_batches(ds, 1), 3)))
         _zero_counts()
-        logs = trainer.train_step(state, group, return_grads=True)
+        if variant == "multisteps":
+            batches = [{k: v[i] for k, v in group.items()} for i in range(3)]
+            logs = [trainer.train_microstep(state, b) for b in batches][-1]
+            # after the third microbatch each .grad holds the mean AdamW took
+            grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters() if p.requires_grad}
+            if state.num_updates != 1 or state.mini_step != 0:
+                raise AssertionError(f"MultiSteps: {state.num_updates} updates after 3 microbatches")
+        else:
+            logs = trainer.train_step(state, group, return_grads=True)
+            grads = logs["grads"]
         out[dev] = {
-            "grads": {k: v.cpu() for k, v in logs["grads"].items()},
+            "grads": {k: v.cpu() for k, v in grads.items()},
             "params": {k: v.detach().cpu() for k, v in state.model.named_parameters()},
             "launches": _counts(),
             "loss": float(logs["loss"]),
         }
+        if variant == "bf16_adam":
+            dtypes = {st[key].dtype for st in state.optimizer.state.values() for key in ("exp_avg", "exp_avg_sq")}
+            if dtypes != {torch.bfloat16}:
+                raise AssertionError(f"bf16 Adam state on {dev} holds {dtypes}")
         lr0 = trainer.lr_schedule()(0)
-    want = expected_launches(m, fused, 3, group["images"].shape[1] > 0, group["input_ids"].shape[2])
+    want = expected_launches(m, fused, 3, group["images"].shape[1] > 0, group["input_ids"].shape[2], contrastive)
     if out["cuda"]["launches"] != want or any(out["cpu"]["launches"]):
         raise AssertionError(f"card update launched {out['cuda']['launches']}, expected {want}; cpu {out['cpu']['launches']}")
     grad_err, param_err, small_err, bad = 0.0, 0.0, 0.0, []
@@ -2033,15 +2090,16 @@ def phase_train_cpu_agreement(seed: int, fused: bool):
             small_err = max(small_err, pe[~big].max().item())
             if not (pe[~big] <= 2.05 * lr0 + 1e-7).all():
                 bad.append(("param_small_grad", k, pe[~big].max().item()))
-    emit({"phase": "train_cpu_agreement_fused" if fused else "train_cpu_agreement",
-          "config": f"tiny{', both towers fused' if fused else ''}, every dropout 0, float32, one scan update of 3 x 4",
+    name = "train_cpu_agreement" + ("_fused" if fused else "") + ("" if variant == "node" else f"_{variant}")
+    emit({"phase": name,
+          "config": f"tiny{', both towers fused' if fused else ''}, every dropout 0, float32, {AGREE_VARIANTS[variant]}",
           "tensors": len(out["cpu"]["grads"]), "max_abs_err_grad": grad_err, "max_abs_err_param": param_err,
           "max_abs_err_param_small_grad": small_err, "loss_cuda": out["cuda"]["loss"], "loss_cpu": out["cpu"]["loss"],
           "card_launches": dict(zip(KERNEL_NAMES, out["cuda"]["launches"])),
           "tolerance": {"grad_rtol": AGREE_GRAD_RTOL, "grad_atol": AGREE_GRAD_ATOL, "param_rtol": AGREE_PARAM_RTOL,
                         "param_atol": AGREE_PARAM_ATOL, "param_small_grad_atol": 2.05 * lr0}})
     if bad:
-        raise AssertionError(f"card and CPU updates disagree: {bad[:5]}")
+        raise AssertionError(f"{name}: card and CPU updates disagree: {bad[:5]}")
     return dict(zip(KERNEL_NAMES, out["cuda"]["launches"]))
 
 
@@ -2101,12 +2159,13 @@ def _bytes_differences(a, b, path="") -> list:
     return [] if _bytes_equal(a, b) else [path]
 
 
-def write_hateful_discussions(root: str, seed: int) -> dict:
+def write_hateful_discussions(root: str, seed: int, contrastive: bool = False) -> dict:
     """A ``hateful_discussions`` directory written by the port's ingest
     writers: the train phase's discussions as ``graph-<k>.npz`` (the first
     few as stubs naming a ``shared-<tree>.npz``), ``train-idx-many.txt`` and
-    ``test-idx-many.txt``. Compression runs on a thread pool (zlib releases
-    the interpreter lock)."""
+    ``test-idx-many.txt``; with ``contrastive`` each carries a community and
+    a hard community (``hard_y``) instead of node labels. Compression runs
+    on a thread pool (zlib releases the interpreter lock)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from multimodaldiscussiontransformer_tpu_torch.data.synthetic import synthetic_batch_items
@@ -2114,7 +2173,7 @@ def write_hateful_discussions(root: str, seed: int) -> dict:
 
     t0 = time.perf_counter()
     items = synthetic_batch_items(TRAIN_GRAPHS, seed=seed, min_nodes=8, max_nodes=32, image_prob=0.25,
-                                  seq_len=TEXT_LEN, vocab_size=30522, image_shape=IMAGE_SHAPE)
+                                  seq_len=TEXT_LEN, vocab_size=30522, image_shape=IMAGE_SHAPE, contrastive=contrastive)
     made_s = time.perf_counter() - t0
     os.makedirs(root, exist_ok=True)
 
@@ -2141,50 +2200,115 @@ def write_hateful_discussions(root: str, seed: int) -> dict:
 
 
 class _RecordedUpdates:
-    """Patches ``Trainer.train_step`` (every trainer in this process) to
-    record each update's wall time (synchronised), kernel launches, the
-    launches the config expects, and, on the first update, the trainable
-    parameters before it and the bytes a checkpoint of the state takes
-    (f32 params and buffers at their dtypes, plus AdamW's two f32 moments
-    per trainable element)."""
+    """Patches ``Trainer.train_step`` and ``Trainer.train_microstep`` (every
+    trainer in this process) to record each step's wall time (synchronised),
+    peak memory (statistics reset before it), kernel launches, the launches
+    the config expects (``contrastive``: the backward reaches every graph
+    layer), and, on the first step, the trainable parameters before it, the
+    bytes a checkpoint of the state takes (params and buffers at their
+    dtypes, plus AdamW's two moments of ``moment_bytes`` per trainable
+    element) and, with ``snapshot``, the whole state_dict on the card."""
 
-    def __init__(self, mc):
-        self.mc, self.records, self.before, self.expected_bytes = mc, [], None, None
+    def __init__(self, mc, contrastive: bool = False, moment_bytes: int = 4, snapshot: bool = False):
+        self.mc, self.contrastive, self.moment_bytes, self.snapshot = mc, contrastive, moment_bytes, snapshot
+        self.records, self.before, self.expected_bytes, self.first_state = [], None, None, None
 
-    def __enter__(self):
+    def _first(self, state):
+        names = {id(p): n for n, p in state.model.named_parameters()}
+        self.before = {names[id(p)]: p.detach().float().cpu().clone() for p in state.trainable}
+        self.expected_bytes = sum(v.numel() * v.element_size() for v in state.model.state_dict().values()) \
+            + 2 * self.moment_bytes * sum(p.numel() for p in state.trainable)
+        if self.snapshot:
+            self.first_state = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+
+    def _wrap(self, orig, micro: bool):
         import torch
 
-        from multimodaldiscussiontransformer_tpu_torch.train.trainer import Trainer
+        rec = self
 
-        self._orig = Trainer.train_step
-        orig, rec = self._orig, self
-
-        def train_step(trainer, state, group, **kw):
+        def step(trainer, state, group, **kw):
             if rec.before is None:
-                names = {id(p): n for n, p in state.model.named_parameters()}
-                rec.before = {names[id(p)]: p.detach().float().cpu().clone() for p in state.trainable}
-                rec.expected_bytes = sum(v.numel() * v.element_size() for v in state.model.state_dict().values()) \
-                    + 2 * 4 * sum(p.numel() for p in state.trainable)
+                rec._first(state)
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             c0, t = _counts(), time.perf_counter()
             logs = orig(trainer, state, group, **kw)
             torch.cuda.synchronize()
-            k = group["idx"].shape[0]
+            k, lead = (1, 0) if micro else (group["idx"].shape[0], 1)
             rec.records.append({
                 "ms": (time.perf_counter() - t) * 1e3, "launches": [a - b for a, b in zip(_counts(), c0)],
-                "want": expected_launches(rec.mc, False, k, group["images"].shape[1] > 0, group["input_ids"].shape[2]),
-                "update": state.num_updates,
+                "want": expected_launches(rec.mc, False, k, group["images"].shape[lead] > 0,
+                                          group["input_ids"].shape[lead + 1], rec.contrastive),
+                "update": state.num_updates, "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+                "graphs": int((group["idx"] >= 0).sum()),
+                "loss": float(logs["loss"]) / max(float(logs["sample_size"]), 1.0),
             })
             return logs
 
-        Trainer.train_step = train_step
+        return step
+
+    def __enter__(self):
+        from multimodaldiscussiontransformer_tpu_torch.train.trainer import Trainer
+
+        self._orig = (Trainer.train_step, Trainer.train_microstep)
+        Trainer.train_step = self._wrap(self._orig[0], micro=False)
+        Trainer.train_microstep = self._wrap(self._orig[1], micro=True)
         return self
 
     def __exit__(self, *exc):
         from multimodaldiscussiontransformer_tpu_torch.train.trainer import Trainer
 
-        Trainer.train_step = self._orig
+        Trainer.train_step, Trainer.train_microstep = self._orig
         return False
+
+    def check_launches(self, what: str, launches: dict) -> None:
+        """Every step launched what the config expects, and the graph
+        layers only the tensor-core tree kernels."""
+        bad = [(r["launches"], r["want"]) for r in self.records if r["launches"] != r["want"]]
+        cuda_core = [launches[n] for n in ("tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv")]
+        tensor_core = [launches[n] for n in ("tree_attention_fwd_fused", "tree_attention_bwd_dq_fused",
+                                             "tree_attention_bwd_dkv_fused")]
+        if not self.records or bad or any(cuda_core) or not all(tensor_core):
+            raise AssertionError(f"{what}: tree launches per step (got, expected) {bad[:3]}; run {launches}")
+
+
+def optimizer_step_ms(cfg, params) -> dict:
+    """The AdamW step of a ``Trainer`` built from ``cfg`` on the card,
+    holding ``params``, with N(0, 1e-6) gradients: device ms of its kernels
+    (``torch.profiler``) and the span on the card's clock (CUDA events,
+    host dispatch gaps included; median of 5), after 2 warm-up steps."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodaldiscussiontransformer_tpu_torch.train.trainer import Trainer
+
+    state = Trainer(cfg, image_shape=IMAGE_SHAPE, device="cuda").init_state(params=params)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for p in state.trainable:
+        p.grad = torch.randn(p.shape, generator=gen, device="cuda").mul_(1e-3).to(p.dtype)
+    opt = state.optimizer
+    for _ in range(2):
+        opt.step()
+    spans = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt.step()
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        opt.step()
+        torch.cuda.synchronize()
+    moments = {st["exp_avg"].dtype for st in opt.state.values()}
+    out = {"optimizer": type(opt).__name__, "moments": str(moments.pop()).replace("torch.", ""),
+           "params": str(state.trainable[0].dtype).replace("torch.", ""),
+           "device_ms": sum(e.self_device_time_total for e in prof.key_averages()) / 1e3,
+           "span_ms_median": float(np.median(spans))}
+    del state, opt
+    torch.cuda.empty_cache()
+    return out
 
 
 def _main_quiet(argv):
@@ -2308,12 +2432,7 @@ def phase_checkpoint(seed: int):
             raise AssertionError(f"checkpoint: updates run {[r['update'] for r in whole.records]}, "
                                  f"resumed {[r['update'] for r in resumed.records]}")
         for name, run, launches in (("uninterrupted", whole, whole_launches), ("resumed", resumed, resumed_launches)):
-            bad = [(r["launches"], r["want"]) for r in run.records if r["launches"] != r["want"]]
-            cuda_core = [launches[n] for n in ("tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv")]
-            tensor_core = [launches[n] for n in ("tree_attention_fwd_fused", "tree_attention_bwd_dq_fused",
-                                                 "tree_attention_bwd_dkv_fused")]
-            if bad or any(cuda_core) or not all(tensor_core):
-                raise AssertionError(f"checkpoint: the {name} run's tree launches (got, expected) {bad}; {launches}")
+            run.check_launches(f"checkpoint: the {name} run", launches)
 
         # the preempted + resumed run against the uninterrupted one, at step 4
         a = ckpt.Checkpointer(dirs["whole"]).restore(step=4)
@@ -2472,6 +2591,190 @@ def phase_checkpoint(seed: int):
         shutil.rmtree(root, ignore_errors=True)
 
 
+CONTRASTIVE_UPDATES = 4
+# the canonical run_train.sh 8 4 5 2 2 0 flags (bf16, frozen towers, dropout
+# 0.4 / 0.3 / 0.3 from the launcher's defaults)
+CANONICAL_FLAGS = ["--num-fusion-layers", "8", "--num-bottleneck-tokens", "4", "--spatial-pos-max", "5",
+                   "--num-graph-stack", "2", "--num-fusion-stack", "2", "--freeze-initial-encoders",
+                   "--batch-size", "12", "--update-freq", "3", "--positive-weight", "1.5", "--log-interval", "1",
+                   "--validate-interval-updates", "0"]
+
+
+def _test_metrics(out: str) -> dict:
+    """The launcher's final ``test: {...}`` evaluation."""
+    m = re.search(r"^test: (\{.*\})$", out, re.M)
+    if not m:
+        raise AssertionError(f"no test evaluation in the launcher's output:\n{out[-1500:]}")
+    return json.loads(m.group(1))
+
+
+def phase_contrastive(seed: int):
+    """The reference's two stages and the optimizer settings, at full width
+    through the launcher: contrastive pre-training on a
+    ``hateful_discussions`` directory of contrastive discussions (4
+    updates, a save at 4, the test evaluation), the node task restored from
+    that checkpoint with ``--reset-optimizer`` (2 updates, evaluation),
+    then MultiSteps (``--no-scan-microbatches``), ``--bf16-adam-state``
+    (with a save) and ``param_dtype="bfloat16"`` (the Python API) for 2
+    updates each."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.tasks.node_prediction import NodePredictionTask
+    from multimodaldiscussiontransformer_tpu_torch.train.launch import build_parser, config_from_args
+    from multimodaldiscussiontransformer_tpu_torch.utils import checkpoints as ckpt
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="mdt_contrastive_")
+    seconds, last = {}, [t_phase]
+
+    def mark(step):
+        now = time.perf_counter()
+        seconds[step], last[0] = now - last[0], now
+
+    def run(argv, **recorder):
+        """``launch.main(argv)`` with its steps recorded; (output,
+        recorder, launches)."""
+        cfg = config_from_args(build_parser().parse_args(argv))
+        torch.cuda.empty_cache()
+        _zero_counts()
+        with _RecordedUpdates(cfg.model, **recorder) as rec:
+            rc, out = _main_quiet(argv)
+        launches = dict(zip(KERNEL_NAMES, _counts()))
+        if rc != 0:
+            raise AssertionError(f"contrastive: launch.main({argv[-6:]}) returned {rc}:\n{out[-3000:]}")
+        return out, rec, launches
+
+    def updates(rec):
+        ms = [r["ms"] for r in rec.records]
+        return {"update_ms": ms, "update_ms_median": float(np.median(ms)), "update_ms_last": ms[-1],
+                "discussions_per_sec": sum(r["graphs"] for r in rec.records) / (sum(ms) / 1e3),
+                "max_memory_allocated_gb": max(r["peak_gb"] for r in rec.records),
+                "loss": [r["loss"] for r in rec.records]}
+
+    def moving(what, losses):
+        if not all(np.isfinite(losses)) or len(set(losses)) < 2:
+            raise AssertionError(f"{what}: loss series not finite or constant: {losses}")
+
+    row = {"phase": "contrastive",
+           "config": "ModelConfig() (launch flags: run_train.sh 8 4 5 2 2 0, --freeze-initial-encoders, batch 12 x "
+                     "update_freq 3, dropout 0.4/0.3/0.3), bfloat16 compute"}
+    try:
+        # 1. contrastive pre-training: the backward now reaches every graph layer
+        data = os.path.join(root, "data")
+        row["dataset"] = write_hateful_discussions(data, seed + 2, contrastive=True)
+        pre = os.path.join(root, "pre")
+        mark("data")
+        out, rec, launches = run(CANONICAL_FLAGS + [
+            "--task", "contrastive_learning", "--data-root", data, "--max-updates", str(CONTRASTIVE_UPDATES),
+            "--seed", str(seed + 2), "--save-dir", pre], contrastive=True)
+        rec.check_launches("contrastive pre-training", launches)
+        per_update = [dict(zip(KERNEL_NAMES, r["launches"])) for r in rec.records]
+        tree = [[u[n] for n in ("tree_attention_fwd_fused", "tree_attention_bwd_dq_fused",
+                                 "tree_attention_bwd_dkv_fused")] for u in per_update]
+        if [r["update"] for r in rec.records] != list(range(1, CONTRASTIVE_UPDATES + 1)) \
+                or any(t != [30, 30, 30] for t in tree):
+            raise AssertionError(f"contrastive: updates {[r['update'] for r in rec.records]}, tree launches {tree}, "
+                                 "expected 30 / 30 / 30 per update")
+        test = _test_metrics(out)
+        if not np.isfinite(test["loss"]) or not {"accuracy", "precision", "recall"} <= set(test):
+            raise AssertionError(f"contrastive: test metrics {test}")
+        moving("contrastive", [r["loss"] for r in rec.records])
+        steps = ckpt.Checkpointer(pre).all_steps()
+        if steps != [CONTRASTIVE_UPDATES]:
+            raise AssertionError(f"contrastive: saved steps {steps}")
+        row["pretrain"] = {**updates(rec), "tree_launches_per_update": tree, "test": test,
+                           "launches": launches,
+                           "eval_tree_fwd_launches": launches["tree_attention_fwd_fused"] - sum(t[0] for t in tree)}
+        mark("pretrain")
+
+        # 2. the transfer: the node task from the contrastive checkpoint, a new head
+        node = CANONICAL_FLAGS + ["--synthetic", "--max-updates", "2", "--seed", str(seed + 3)]
+        out, rec, launches = run(node + ["--restore-file", pre, "--reset-optimizer",
+                                            "--save-dir", os.path.join(root, "node")], snapshot=True)
+        rec.check_launches("transfer", launches)
+        saved = ckpt.Checkpointer(pre).restore()["params"]
+        differ = sorted(k for k, v in saved.items() if not torch.equal(rec.first_state[k], v.to(rec.first_state[k].device)))
+        if f"restored from {pre}" not in out or differ != ["node_classifier.weight"] \
+                or rec.first_state["node_classifier.bias"].any():
+            raise AssertionError(f"transfer: tensors that differ from the checkpoint before update 1: {differ[:8]}")
+        moving("transfer", [r["loss"] for r in rec.records])
+        row["transfer"] = {**updates(rec), "differ_from_checkpoint": differ, "test": _test_metrics(out),
+                           "launches": launches}
+        del saved, rec
+        mark("transfer")
+
+        # 3. MultiSteps: one microbatch per step, the mean applied every 3rd
+        out, rec, launches = run(node + ["--no-scan-microbatches", "--no-save", "--save-dir",
+                                            os.path.join(root, "multisteps")])
+        rec.check_launches("multisteps", launches)
+        if len(rec.records) != 6 or [r["update"] for r in rec.records] != [0, 0, 1, 1, 1, 2]:
+            raise AssertionError(f"multisteps: microbatches ended at updates {[r['update'] for r in rec.records]}")
+        moving("multisteps", [r["loss"] for r in rec.records])
+        row["multisteps"] = {**updates(rec), "launches": launches}
+        mark("multisteps")
+
+        # 4. bf16 Adam moments, with a save
+        bf16_dir = os.path.join(root, "bf16_adam")
+        out, rec, launches = run(node + ["--bf16-adam-state", "--save-dir", bf16_dir], moment_bytes=2)
+        rec.check_launches("bf16_adam", launches)
+        moving("bf16_adam", [r["loss"] for r in rec.records])
+        path = os.path.join(bf16_dir, "2", ckpt.STATE_FILE)
+        ckpt_bytes = os.path.getsize(path)
+        saved = ckpt.Checkpointer(bf16_dir).restore()
+        moments = {v.dtype for st in saved["optimizer"]["state"].values() for key, v in st.items() if key != "step"}
+        if moments != {torch.bfloat16} or not rec.expected_bytes <= ckpt_bytes <= rec.expected_bytes * 1.01 + 2**20:
+            raise AssertionError(f"bf16_adam: moments {moments}, {ckpt_bytes} bytes, {rec.expected_bytes} expected")
+        row["bf16_adam"] = {**updates(rec), "checkpoint_bytes": ckpt_bytes, "expected_bytes": rec.expected_bytes,
+                            "launches": launches}
+        mark("bf16_adam")
+        # the AdamW step alone on the same params: float32 moments, bf16
+        # moments, bf16 params
+        cfg = config_from_args(build_parser().parse_args(node + ["--no-save"]))
+        bf16 = cfg.model.replace(param_dtype="bfloat16")
+        row["adamw_step"] = [
+            optimizer_step_ms(cfg, saved["params"]),
+            optimizer_step_ms(cfg.replace(optim=dataclasses.replace(cfg.optim, bf16_adam_state=True)), saved["params"]),
+            optimizer_step_ms(cfg.replace(model=bf16), {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                                                         for k, v in saved["params"].items()}),
+        ]
+        del saved
+        mark("adamw_step")
+
+        # 5. bf16 params (no launcher flag, as in the JAX package)
+        cfg = config_from_args(build_parser().parse_args(node + ["--no-save", "--save-dir", os.path.join(root, "p")]))
+        cfg = cfg.replace(model=cfg.model.replace(param_dtype="bfloat16"))
+        task = NodePredictionTask(cfg)
+        ds = task.load_dataset(num_graphs=48, seed=seed + 3, seq_len=100, vocab_size=cfg.model.text_tower.vocab_size,
+                               image_shape=IMAGE_SHAPE, max_nodes=24)
+        torch.cuda.empty_cache()
+        _zero_counts()
+        with _RecordedUpdates(cfg.model, moment_bytes=2) as rec:
+            trainer = task.build_trainer(image_shape=IMAGE_SHAPE, device="cuda")
+            state = trainer.init_state()
+            dtypes = {p.dtype for p in state.model.parameters()}
+            trainer.fit(ds, state=state, max_updates=2, log_fn=lambda msg: None)
+        launches = dict(zip(KERNEL_NAMES, _counts()))
+        rec.check_launches("bf16_params", launches)
+        moving("bf16_params", [r["loss"] for r in rec.records])
+        if dtypes != {torch.bfloat16}:
+            raise AssertionError(f"bf16_params: parameters in {dtypes}")
+        row["bf16_params"] = {**updates(rec), "launches": launches,
+                              "param_bytes": sum(p.numel() * p.element_size() for p in state.model.parameters())}
+        del state, trainer, task, ds
+        mark("bf16_params")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    row["seconds_by_step"] = seconds
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return row
+
+
 def _kernel_entry(name, source, replaces, also, launches, row, dtype_err, ms_key, plain_ms, library_ms, bound_key):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "also_replaces": also,
@@ -2533,9 +2836,12 @@ def main(argv=None) -> int:
                           dataset_kw=dict(num_graphs=BIG_GRAPHS, min_nodes=520, max_nodes=1000, image_prob=0.05))
     agree = phase_train_cpu_agreement(args.seed, fused=False)  # float32: the CUDA-core tree forward's path
     agree_fused = phase_train_cpu_agreement(args.seed, fused=True)  # float32: the pair's path
+    agree_variants = {v: phase_train_cpu_agreement(args.seed, fused=False, variant=v)
+                      for v in ("contrastive", "multisteps", "bf16_adam")}
     dense = phase_dense_graph(args.seed)
     phase_launch()
     phase_checkpoint(args.seed)
+    contrastive = phase_contrastive(args.seed)
 
     serve_row = rows[0]  # S=33, B=16: the canonical serving shape
     train_row = train_rows[0]  # S=33, B=12: the canonical training shape
@@ -2545,7 +2851,10 @@ def main(argv=None) -> int:
     by_path = {"scoring": scoring, "train": train, "train_fused": train_fused, "train_big": train_big,
                "scoring_fused": scoring_fused, "train_cpu_agreement": agree, "train_cpu_agreement_fused": agree_fused,
                "dense_graph": dense["scoring"], "dense_graph_train": dense["training"],
-               "dense_graph_float32_step": dense["float32_step"]}
+               "dense_graph_float32_step": dense["float32_step"],
+               **{f"train_cpu_agreement_{v}": counts for v, counts in agree_variants.items()},
+               **{f"contrastive_{part}": contrastive[part]["launches"]
+                  for part in ("pretrain", "transfer", "multisteps", "bf16_adam", "bf16_params")}}
 
     def paths(name, extra=None):
         out = {path: counts[name] for path, counts in by_path.items()}

@@ -1,8 +1,8 @@
 """Named registries for architectures, tasks, criterions and datasets: the
 port's copy of the JAX package's ``core/registry.py``, with the names the
 reference's launch configs use (``multi_graphormer_base``,
-``node_prediction``, ``node_cross_entropy``, ``synthetic``,
-``hateful_discussions``). The port
+``node_prediction``, ``contrastive_learning``, ``node_cross_entropy``,
+``contrastive_loss``, ``synthetic``, ``hateful_discussions``). The port
 registers what it has; other names raise ``KeyError`` listing what exists.
 """
 
@@ -54,7 +54,9 @@ def populate() -> None:
     for mod in (
         "multimodaldiscussiontransformer_tpu_torch.models.mdt",
         "multimodaldiscussiontransformer_tpu_torch.losses.node_cross_entropy",
+        "multimodaldiscussiontransformer_tpu_torch.losses.contrastive_loss",
         "multimodaldiscussiontransformer_tpu_torch.tasks.node_prediction",
+        "multimodaldiscussiontransformer_tpu_torch.tasks.contrastive",
         "multimodaldiscussiontransformer_tpu_torch.data.synthetic",
         "multimodaldiscussiontransformer_tpu_torch.experiments.hateful_discussions.dataset",
     ):

@@ -1,15 +1,17 @@
 """Static-shape bucketed collator (numpy), the port's copy of the JAX
-package's ``data/collator.py`` for node-task items: ``collate``, and the
-``pad_batch_to_shapes`` / ``all_pad_like`` pair that the scan-accumulated
-train step uses to give a group of microbatches one shape. The contrastive
-task and shard multiples of the capacities come with the slices that need
-them.
+package's ``data/collator.py``: ``collate`` for node-task and (with
+``contrastive``) contrastive items, and the ``pad_batch_to_shapes`` /
+``all_pad_like`` pair that the scan-accumulated train step uses to give a
+group of microbatches one shape. Shard multiples of the capacities come
+with the parallel slice.
 
 Every per-graph tensor is padded to a node-count bucket ``Nmax``; all real
 nodes of the batch are gathered into a flat text-tower buffer of capacity
 ``C``; image-bearing nodes into a ViT buffer of capacity ``I`` with an
 ``image_node -> C`` index; labelled nodes into a loss buffer of capacity
-``L``. Padded index slots point one past the end of their target (``C``, or
+``L`` (node task), or one community ``y`` and one polar-opposite community
+``hard_y`` per graph (contrastive task, with empty ``y_node`` and
+``y_slot_mask``). Padded index slots point one past the end of their target (``C``, or
 graph id ``B``) and the model drops or zero-fills them.
 
 Attention-bias padding follows the reference collator: spatial_pos and
@@ -64,10 +66,10 @@ class Batch:
     out_degree: np.ndarray  # (B, Nmax) int32 (== in_degree, undirected)
     grid_mask: np.ndarray  # (B, Nmax) bool, real grid slots
 
-    y: np.ndarray  # (L,) int32
-    y_node: np.ndarray  # (L,) int32 node slot in C; padded -> C
-    y_slot_mask: np.ndarray  # (L,) bool
-    hard_y: np.ndarray  # (B,) float32 zeros (the contrastive task's field)
+    y: np.ndarray  # node task: (L,) int32; contrastive: (B,) float32
+    y_node: np.ndarray  # (L,) int32 node slot in C; padded -> C (contrastive: empty)
+    y_slot_mask: np.ndarray  # (L,) bool (contrastive: empty)
+    hard_y: np.ndarray  # (B,) float32 (contrastive) or zeros
 
     idx: np.ndarray  # (B,) int32
     nsamples: np.ndarray  # () int32, number of real graphs
@@ -112,8 +114,11 @@ def collate(
     pad_to_graphs: Optional[int] = None,
     text_len_buckets: Optional[Sequence[int]] = None,
     text_len: Optional[int] = None,
+    contrastive: bool = False,
 ) -> Batch:
-    """Collate preprocessed node-task GraphItems into one static-shape Batch.
+    """Collate preprocessed GraphItems into one static-shape Batch: node-task
+    items, or with ``contrastive`` items carrying a community ``y`` and
+    (optionally) ``hard_y``.
 
     ``pad_to_graphs``: pad the graph axis up to this count with inert
     zero-node graphs (``grid_mask`` all False, ``idx`` -1). A pad graph
@@ -174,6 +179,7 @@ def collate(
 
     y_vals: List[np.ndarray] = []
     y_nodes: List[int] = []
+    contr_y = np.zeros(ball, dtype=np.float32)
     hard_y = np.zeros(ball, dtype=np.float32)
     idxs = np.full(ball, -1, dtype=np.int32)
 
@@ -217,23 +223,33 @@ def collate(
             image_node[img_off : img_off + k] = node_off + img_nodes
             img_off += k
 
-        if it.y_mask is None:
-            raise ValueError("node task items need y_mask")
-        lab_nodes = np.flatnonzero(it.y_mask)
-        y_vals.append(np.asarray(it.y).reshape(-1))
-        y_nodes.extend((node_off + lab_nodes).tolist())
+        if contrastive:
+            contr_y[g] = float(np.asarray(it.y).reshape(-1)[0])
+            if it.hard_y is not None:
+                hard_y[g] = float(np.asarray(it.hard_y).reshape(-1)[0])
+        else:
+            if it.y_mask is None:
+                raise ValueError("node task items need y_mask")
+            lab_nodes = np.flatnonzero(it.y_mask)
+            y_vals.append(np.asarray(it.y).reshape(-1))
+            y_nodes.extend((node_off + lab_nodes).tolist())
 
         node_off += n
 
-    flat_y = np.concatenate(y_vals) if y_vals else np.zeros(0, dtype=np.int64)
-    n_labels = len(flat_y)
-    lcap = _bucket(n_labels, label_capacity_buckets)
-    y = np.zeros(lcap, dtype=np.int32)
-    y[:n_labels] = flat_y.astype(np.int32)
-    y_node = np.full(lcap, cap, dtype=np.int32)
-    y_node[:n_labels] = np.asarray(y_nodes, dtype=np.int32)
-    y_slot_mask = np.zeros(lcap, dtype=bool)
-    y_slot_mask[:n_labels] = True
+    if contrastive:
+        y = contr_y
+        y_node = np.zeros(0, dtype=np.int32)
+        y_slot_mask = np.zeros(0, dtype=bool)
+    else:
+        flat_y = np.concatenate(y_vals) if y_vals else np.zeros(0, dtype=np.int64)
+        n_labels = len(flat_y)
+        lcap = _bucket(n_labels, label_capacity_buckets)
+        y = np.zeros(lcap, dtype=np.int32)
+        y[:n_labels] = flat_y.astype(np.int32)
+        y_node = np.full(lcap, cap, dtype=np.int32)
+        y_node[:n_labels] = np.asarray(y_nodes, dtype=np.int32)
+        y_slot_mask = np.zeros(lcap, dtype=bool)
+        y_slot_mask[:n_labels] = True
 
     return Batch(
         input_ids=input_ids,
@@ -305,8 +321,8 @@ def pad_batch_to_shapes(batch: Dict[str, np.ndarray], shapes: Dict[str, Tuple[in
 def all_pad_like(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """An all-pad microbatch with the shapes and dtypes of ``batch``, made
     by ``collate`` itself on zero items with single-entry ladders read off
-    the template: it adds exactly zero loss, gradient, sample size and
-    metric counts."""
+    the template (a contrastive template has an empty ``y_node``): it adds
+    exactly zero loss, gradient, sample size and metric counts."""
     out = collate(
         [],
         node_buckets=[batch["in_degree"].shape[1]],
@@ -316,6 +332,7 @@ def all_pad_like(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         image_shape=tuple(batch["images"].shape[1:]),
         pad_to_graphs=batch["idx"].shape[0],
         text_len=batch["input_ids"].shape[1],
+        contrastive=batch["y_node"].shape[0] == 0,
     ).asdict()
     mismatched = {k: (v.shape, batch[k].shape) for k, v in out.items() if v.shape != batch[k].shape}
     if mismatched:

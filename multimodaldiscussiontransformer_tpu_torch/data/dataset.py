@@ -1,5 +1,5 @@
 """Dataset wrapper, epoch shuffling and batch iteration: the port's copy of
-the JAX package's ``data/dataset.py`` (node task). For the same dataset,
+the JAX package's ``data/dataset.py`` (node and contrastive tasks). For the same dataset,
 seed and epoch both packages yield bit-equal batches.
 
 - split modes: a random 80/10/10 split, or explicit index arrays with a
@@ -91,10 +91,12 @@ def iterate_batches(
     drop_last: Optional[bool] = None,
     batch_size: Optional[int] = None,
     pad_tail_to_batch: bool = False,
+    contrastive: bool = False,
 ) -> Iterator[Batch]:
-    """Yield collated static-shape batches for one epoch. With
-    ``pad_tail_to_batch`` a ragged final batch (``drop_last=False``) is
-    padded to the full batch size with inert zero-node graphs."""
+    """Yield collated static-shape batches for one epoch (per-graph targets
+    with ``contrastive``). With ``pad_tail_to_batch`` a ragged final batch
+    (``drop_last=False``) is padded to the full batch size with inert
+    zero-node graphs."""
     order = np.asarray(indices)
     if shuffle:
         order = order[epoch_permutation(len(order), task_cfg.seed, epoch)]
@@ -131,4 +133,5 @@ def iterate_batches(
             label_capacity_buckets=data_cfg.label_capacity_buckets,
             image_shape=image_shape,
             text_len_buckets=data_cfg.text_len_buckets,
+            contrastive=contrastive,
         )

@@ -81,8 +81,9 @@ class GraphItem:
     in_degree: np.ndarray  # (N,) int64, UNSHIFTED degrees
     x_images: np.ndarray  # (K, 3, H, W) float32 (K may be 0)
     x_image_index: np.ndarray  # (N,) bool, which nodes carry an image
-    y: np.ndarray  # (L,) labels of the labelled nodes
-    y_mask: Optional[np.ndarray] = None  # (N,) bool, which nodes are labelled
+    y: np.ndarray  # node task: (L,) labels of the labelled nodes; contrastive: (1,) community
+    y_mask: Optional[np.ndarray] = None  # (N,) bool, which nodes are labelled (node task only)
+    hard_y: Optional[np.ndarray] = None  # (1,) polar-opposite community (contrastive task only)
 
     @property
     def num_nodes(self) -> int:
@@ -98,6 +99,7 @@ def preprocess_item(
     x_image_index: np.ndarray,
     y: np.ndarray,
     y_mask: Optional[np.ndarray] = None,
+    hard_y: Optional[np.ndarray] = None,
 ) -> GraphItem:
     """Build a GraphItem from raw per-graph arrays: adjacency -> degrees,
     (up, down) pairs -> spatial buckets + hop distance."""
@@ -125,4 +127,5 @@ def preprocess_item(
         x_image_index=np.asarray(x_image_index, dtype=bool),
         y=np.asarray(y),
         y_mask=None if y_mask is None else np.asarray(y_mask, dtype=bool),
+        hard_y=None if hard_y is None else np.asarray(hard_y),
     )

@@ -1,8 +1,10 @@
 """Synthetic discussion trees for tests and the chip smoke run.
 
-Random trees with token-id text, optional images and sparse node labels, in
-the shapes the HatefulDiscussions ingestion produces (node task only). For the same seed they
-equal the JAX package's ``data/synthetic.py`` items."""
+Random trees with token-id text, optional images and sparse node labels
+(or, with ``contrastive``, one community and one polar-opposite community
+per discussion), in the shapes the HatefulDiscussions ingestion produces.
+For the same seed they equal the JAX package's ``data/synthetic.py`` items:
+the draws come in the same order."""
 
 from __future__ import annotations
 
@@ -49,6 +51,8 @@ def synthetic_item(
     label_prob: float = 0.3,
     num_classes: int = 2,
     image_shape: Tuple[int, int, int] = (3, 224, 224),
+    contrastive: bool = False,
+    num_communities: int = 4,
 ) -> GraphItem:
     n = num_nodes
     parents = random_tree_parents(n, rng)
@@ -67,10 +71,16 @@ def synthetic_item(
     k = int(has_image.sum())
     x_images = rng.standard_normal((k,) + image_shape).astype(np.float32)
 
-    y_mask = rng.random(n) < label_prob
-    if not y_mask.any():
-        y_mask[rng.integers(0, n)] = True
-    y = rng.integers(0, num_classes, size=int(y_mask.sum())).astype(np.int64)
+    if contrastive:
+        y = np.asarray([rng.integers(0, num_communities)], dtype=np.int64)
+        hard_y = np.asarray([rng.integers(0, num_communities)], dtype=np.int64)
+        y_mask = None
+    else:
+        y_mask = rng.random(n) < label_prob
+        if not y_mask.any():
+            y_mask[rng.integers(0, n)] = True
+        y = rng.integers(0, num_classes, size=int(y_mask.sum())).astype(np.int64)
+        hard_y = None
 
     return preprocess_item(
         idx=idx,
@@ -85,6 +95,7 @@ def synthetic_item(
         x_image_index=has_image,
         y=y,
         y_mask=y_mask,
+        hard_y=hard_y,
     )
 
 
@@ -93,6 +104,7 @@ def synthetic_batch_items(
     seed: int = 0,
     min_nodes: int = 3,
     max_nodes: int = 24,
+    contrastive: bool = False,
     **kw,
 ):
     rng = np.random.default_rng(seed)
@@ -101,18 +113,21 @@ def synthetic_batch_items(
             idx=i,
             num_nodes=int(rng.integers(min_nodes, max_nodes + 1)),
             rng=rng,
+            contrastive=contrastive,
             **kw,
         )
         for i in range(batch_size)
     ]
 
 
-def synthetic_dataset(num_graphs: int = 64, seed: int = 0, **kw):
+def synthetic_dataset(num_graphs: int = 64, seed: int = 0, contrastive: bool = False, **kw):
     """The registered ``"synthetic"`` dataset: ``num_graphs`` synthetic
-    discussions in a random 80/10/10 split."""
+    discussions (contrastive items with ``contrastive``) in a random
+    80/10/10 split."""
     from multimodaldiscussiontransformer_tpu_torch.data.dataset import DiscussionDataset
 
-    return DiscussionDataset.from_splits(synthetic_batch_items(num_graphs, seed=seed, **kw), seed=seed)
+    items = synthetic_batch_items(num_graphs, seed=seed, contrastive=contrastive, **kw)
+    return DiscussionDataset.from_splits(items, seed=seed)
 
 
 def _register() -> None:

@@ -53,8 +53,8 @@ def load_graph_npz(path: str) -> GraphItem:
     """One processed graph, from the self-contained layout
     (``save_graph_npz``) or from a stub (``save_copy_npz``) and the
     ``shared-<tree>.npz`` it names, resolved against the stub's directory.
-    The contrastive ``hard_y`` field, where present, is not read: the port
-    has only the node task."""
+    ``y_mask`` (node task) and ``hard_y`` (contrastive task) are read where
+    the file has them."""
     with np.load(path, allow_pickle=False) as z:
         tree = (
             _load_shared(os.path.join(os.path.dirname(path), str(z["shared_ref"])))
@@ -66,6 +66,7 @@ def load_graph_npz(path: str) -> GraphItem:
             **{f: tree[f] for f in _TREE_FIELDS},
             y=z["y"],
             y_mask=z["y_mask"] if "y_mask" in z else None,
+            hard_y=z["hard_y"] if "hard_y" in z else None,
         )
 
 

@@ -29,7 +29,14 @@ def _text_len(item: GraphItem) -> int:
 
 
 def _label_arrays(item: GraphItem) -> dict:
-    return {"y": item.y} if item.y_mask is None else {"y": item.y, "y_mask": item.y_mask}
+    """``y``, with ``y_mask`` (node task) and ``hard_y`` (contrastive task)
+    where the item has them."""
+    out = {"y": item.y}
+    if item.y_mask is not None:
+        out["y_mask"] = item.y_mask
+    if item.hard_y is not None:
+        out["hard_y"] = item.hard_y
+    return out
 
 
 def save_shared_npz(path: str, item: GraphItem) -> None:

@@ -1,0 +1,123 @@
+"""Contrastive loss over the global discussion embeddings: the port's copy of
+the JAX package's ``losses/contrastive_loss.py`` (the reference's
+``GraphContrastiveLoss``).
+
+BCE with logits on a scaled cosine-similarity matrix of the per-discussion
+graph-token states:
+- same-community pairs are positives;
+- pairs whose ``hard_y[i] == y[j]`` (polar-opposite communities) are hard
+  negatives;
+- the remaining pairs are soft negatives, weighted per row by
+  ``num_hard / max(soft, 1) * 2`` (adaptive) or by a fixed weight;
+- the diagonal weighs 0, and ``valid`` masks pad graphs out of every pair
+  term and every summed metric.
+The loss is summed; ``sample_size`` is the number of valid pairs.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from multimodaldiscussiontransformer_tpu_torch.core.registry import register_criterion
+
+
+def contrastive_loss(
+    embeddings: torch.Tensor,  # (B, D) global discussion embeddings
+    y: torch.Tensor,  # (B,) community labels
+    hard_y: torch.Tensor,  # (B,) polar-opposite community labels
+    soft_negative_weight: float = 0.0,
+    adaptive_soft_negative_weight: bool = True,
+    multiplication_scale: float = 20.0,
+    valid: Optional[torch.Tensor] = None,  # (B,) bool, False for pad graphs
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """(summed loss, sample_size, summable logging output)."""
+    emb = embeddings.float()
+    normed = emb / torch.linalg.vector_norm(emb, dim=1, keepdim=True).clamp_min(1e-12)
+    sim = normed @ normed.T * multiplication_scale  # (B, B)
+
+    y = y.float()
+    hard_y = hard_y.float()
+    b = sim.shape[0]
+    if valid is None:
+        valid = torch.ones(b, dtype=torch.bool, device=sim.device)
+    pair_valid = valid[:, None] & valid[None, :]
+    target = ((y[:, None] == y[None, :]) & pair_valid).float()
+    hard_target = ((hard_y[:, None] == y[None, :]) & pair_valid).float()
+
+    soft_labels = (target == 0) & (hard_target == 0) & pair_valid
+    if adaptive_soft_negative_weight:
+        num_hard = ((target == 1) | (hard_target == 1)).float().sum(dim=1)
+        soft_count = soft_labels.float().sum(dim=1).clamp_min(1.0)
+        extra_weight = (num_hard / soft_count * 2.0)[:, None]
+    else:
+        extra_weight = torch.tensor(soft_negative_weight, dtype=torch.float32, device=sim.device)
+
+    one = torch.ones((), dtype=torch.float32, device=sim.device)
+    zero = torch.zeros((), dtype=torch.float32, device=sim.device)
+    weight = torch.where(soft_labels, extra_weight, one)
+    weight = torch.where(pair_valid, weight, zero)
+    weight = torch.where(torch.eye(b, dtype=torch.bool, device=sim.device), zero, weight)
+
+    per_pair = sim.clamp_min(0.0) - sim * target + torch.log1p(torch.exp(-sim.abs()))
+    loss = (per_pair * weight).sum()
+
+    n_valid = valid.long().sum()
+    sim_count = n_valid * n_valid
+
+    # the reference compares the (B, B) prediction matrix with the (B,) label
+    # vector by broadcasting; kept verbatim, restricted to valid pairs
+    pred = torch.round(torch.sigmoid(sim.detach()))
+    hit = (pred == y[None, :]) & pair_valid
+    logging_output = {
+        "loss": loss.detach(),
+        "sample_size": sim_count,
+        "nsentences": sim_count,
+        "ncorrect": hit.sum(),
+        "positive_correct": (hit & (pred == 1)).sum(),
+        "total_positive": ((y == 1) & valid).sum(),
+        "pred_positive": ((pred == 1) & pair_valid).sum(),
+    }
+    return loss, sim_count, logging_output
+
+
+def reduce_contrastive_metrics(agg: Dict[str, Any]) -> Dict[str, float]:
+    """Percent-scaled accuracy, precision and recall from summed counts."""
+    sample_size = max(float(agg["sample_size"]), 1.0)
+    out = {"loss": float(agg["loss"]) / sample_size}
+    out["accuracy"] = 100.0 * float(agg["ncorrect"]) / sample_size
+    pred_pos = float(agg["pred_positive"])
+    total_pos = float(agg["total_positive"])
+    tp = float(agg["positive_correct"])
+    out["precision"] = 100.0 * tp / pred_pos if pred_pos else 0.0
+    out["recall"] = 100.0 * tp / total_pos if total_pos else 0.0
+    return out
+
+
+@register_criterion("contrastive_loss")
+class ContrastiveCriterion:
+    """The criterion under the reference's name."""
+
+    def __init__(
+        self,
+        soft_negative_weight: float = 0.0,
+        adaptive_soft_negative_weight: bool = True,
+        multiplication_scale: float = 20.0,
+    ):
+        if adaptive_soft_negative_weight and soft_negative_weight != 0:
+            raise ValueError("adaptive_soft_negative_weight and soft_negative_weight are mutually exclusive")
+        self.soft_negative_weight = soft_negative_weight
+        self.adaptive_soft_negative_weight = adaptive_soft_negative_weight
+        self.multiplication_scale = multiplication_scale
+
+    def __call__(self, output, batch):
+        # pad graphs (the collator's pad_to_graphs) have no real node rows
+        grid_mask = batch.get("grid_mask")
+        return contrastive_loss(
+            output.global_embedding, batch["y"], batch["hard_y"],
+            self.soft_negative_weight, self.adaptive_soft_negative_weight, self.multiplication_scale,
+            valid=None if grid_mask is None else grid_mask.any(-1),
+        )
+
+    reduce_metrics = staticmethod(reduce_contrastive_metrics)

@@ -50,8 +50,8 @@ def attention_mask_bias(attention_mask: torch.Tensor, dtype: torch.dtype) -> tor
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` with float32 parameters that computes in ``dtype``
-    (Flax ``nn.Dense(dtype=...)``)."""
+    """``nn.Linear`` whose parameters (float32 unless the model casts them)
+    compute in ``dtype`` (Flax ``nn.Dense(dtype=...)``)."""
 
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype, bias: bool = True):
         super().__init__(in_features, out_features, bias=bias)
@@ -71,7 +71,7 @@ class LayerNorm(nn.LayerNorm):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(), self.bias.float(), self.eps)
         return y.to(self.compute_dtype)
 
 

@@ -90,10 +90,9 @@ def check_supported(cfg: ModelConfig) -> None:
     on = [name for name, value in unsupported.items() if value]
     if on:
         raise NotImplementedError(f"the PyTorch port does not support {', '.join(on)}=True")
-    if cfg.param_dtype != "float32":
-        raise NotImplementedError(f"param_dtype {cfg.param_dtype!r}: the port keeps float32 params")
-    if cfg.dtype not in _DTYPES:
-        raise NotImplementedError(f"compute dtype {cfg.dtype!r} not in {sorted(_DTYPES)}")
+    for what, name in (("compute dtype", cfg.dtype), ("param_dtype", cfg.param_dtype)):
+        if name not in _DTYPES:
+            raise NotImplementedError(f"{what} {name!r} not in {sorted(_DTYPES)}")
 
 
 class MultiGraphormerGraphEncoder(nn.Module):
@@ -181,10 +180,10 @@ class MultiGraphormerGraphEncoder(nn.Module):
 
 
 class MDTModel(nn.Module):
-    """Encoder + output head. Parameters are float32 and drawn from
-    ``generator`` (a seeded ``torch.Generator`` on the CPU); the model is
-    built on the CPU and moved with ``.to(device)``; matmuls run in
-    ``config.dtype``."""
+    """Encoder + output head. Parameters are drawn in float32 from
+    ``generator`` (a seeded ``torch.Generator`` on the CPU) and stored in
+    ``config.param_dtype``; the model is built on the CPU and moved with
+    ``.to(device)``; matmuls run in ``config.dtype``."""
 
     def __init__(self, config: ModelConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -198,6 +197,8 @@ class MDTModel(nn.Module):
         self.text_dropout = FastDropout(c.text_tower.hidden_dropout_prob)
         self.node_classifier = Dense(c.text_tower.hidden_size, c.num_classes, dt)
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
+        if c.param_dtype != "float32":
+            self.to(_DTYPES[c.param_dtype])
 
     def forward(self, batch: Dict[str, torch.Tensor], deterministic: bool = True) -> MDTOutput:
         enc = self.graph_encoder(batch, deterministic)

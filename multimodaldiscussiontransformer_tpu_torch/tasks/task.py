@@ -1,5 +1,6 @@
-"""Task base: the registered dataset factory and the trainer, as in the JAX
-package's ``tasks/task.py``."""
+"""Task base: the registered dataset factory, the criterion and the trainer,
+as in the JAX package's ``tasks/task.py`` (the criterion as the JAX
+``Trainer._build_criterion`` builds it)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import os
 import sys
 
 from multimodaldiscussiontransformer_tpu_torch.core.config import TrainConfig
-from multimodaldiscussiontransformer_tpu_torch.core.registry import DATASETS, populate
+from multimodaldiscussiontransformer_tpu_torch.core.registry import CRITERIONS, DATASETS, populate
 from multimodaldiscussiontransformer_tpu_torch.data.dataset import DiscussionDataset
 
 
@@ -26,6 +27,23 @@ def import_user_datasets(user_data_dir: str) -> None:
         module = importlib.util.module_from_spec(spec)
         sys.modules[spec.name] = module
         spec.loader.exec_module(module)
+
+
+def build_criterion(cfg: TrainConfig):
+    """The criterion ``cfg.criterion`` names, with the config's weights:
+    the class weights for ``node_cross_entropy``, the soft-negative weight
+    and scale for ``contrastive_loss``."""
+    populate()
+    cls = CRITERIONS.get(cfg.criterion)
+    if cfg.criterion == "node_cross_entropy":
+        return cls(positive_weight=cfg.positive_weight, negative_weight=cfg.negative_weight)
+    if cfg.criterion == "contrastive_loss":
+        return cls(
+            soft_negative_weight=cfg.soft_negative_weight,
+            adaptive_soft_negative_weight=cfg.adaptive_soft_negative_weight,
+            multiplication_scale=cfg.multiplication_scale,
+        )
+    return cls()
 
 
 class Task:

@@ -14,6 +14,10 @@ Quick run on the CPU:
     python -m multimodaldiscussiontransformer_tpu_torch.train.launch --synthetic \\
         --tiny --max-updates 2 --no-save --device cpu
 
+The reference's two stages: contrastive pre-training (``--task
+contrastive_learning``), then the node task from its checkpoint with a new
+head (``--restore-file <save dir> --reset-optimizer``).
+
 Checkpoints go to ``--save-dir`` (``utils/checkpoints.py``) unless
 ``--no-save``; a relaunch with the same ``--save-dir`` resumes from its
 latest step, and SIGTERM saves at the next update boundary and exits 0.
@@ -43,14 +47,11 @@ UNPORTED = {
         lambda a: a.dp_size not in (-1, 1) or a.tp_size != 1 or a.sp_size != 1 or a.num_slices != 1 or a.fsdp,
         "the parallel slice (ROADMAP Queue 1 item 8)",
     ),
-    "--profile-trace": (lambda a: a.profile_trace is not None, "torch.profiler tracing (ROADMAP Queue 1 item 9)"),
-    "--wandb-project": (lambda a: bool(a.wandb_project), "the wandb/tensorboard sinks (ROADMAP Queue 1)"),
-    "--tensorboard-logdir": (lambda a: a.tensorboard_logdir is not None, "the wandb/tensorboard sinks (ROADMAP Queue 1)"),
-    "--num-workers > 0": (lambda a: a.num_workers > 0, "worker-process loading (ROADMAP Queue 1 item 9)"),
-    "--no-scan-microbatches": (lambda a: a.no_scan_microbatches and a.update_freq > 1, "MultiSteps accumulation (ROADMAP Queue 1)"),
-    "--bf16-adam-state": (lambda a: a.bf16_adam_state, "bf16 Adam state (ROADMAP Queue 1)"),
-    "--remat/--scan-layers": (lambda a: a.remat or a.scan_layers, "remat and scan layouts (ROADMAP Queue 1)"),
-    "--task contrastive_learning": (lambda a: a.task != "node_prediction", "the contrastive slice (ROADMAP Queue 1 item 7)"),
+    "--profile-trace": (lambda a: a.profile_trace is not None, "torch.profiler tracing (ROADMAP Queue 1 item 4)"),
+    "--wandb-project": (lambda a: bool(a.wandb_project), "the wandb/tensorboard sinks (ROADMAP Queue 1 item 4)"),
+    "--tensorboard-logdir": (lambda a: a.tensorboard_logdir is not None, "the wandb/tensorboard sinks (ROADMAP Queue 1 item 4)"),
+    "--num-workers > 0": (lambda a: a.num_workers > 0, "worker-process loading (ROADMAP Queue 1 item 4)"),
+    "--remat/--scan-layers": (lambda a: a.remat or a.scan_layers, "remat and scan layouts (ROADMAP Queue 1 item 4)"),
 }
 
 
@@ -110,6 +111,8 @@ def build_parser() -> argparse.ArgumentParser:
     # criterion weights
     p.add_argument("--positive-weight", type=float, default=1.5)
     p.add_argument("--negative-weight", type=float, default=1.0)
+    p.add_argument("--soft-negative-weight", type=float, default=0.0)
+    p.add_argument("--multiplication-scale", type=float, default=20.0)
     p.add_argument("--freeze-initial-encoders", "--freeze_initial_encoders", action="store_true", default=False)
     # checkpointing and logging
     p.add_argument("--save-dir", default="checkpoints")
@@ -271,6 +274,8 @@ def config_from_args(args):
         log_interval=args.log_interval,
         positive_weight=args.positive_weight,
         negative_weight=args.negative_weight,
+        soft_negative_weight=args.soft_negative_weight,
+        multiplication_scale=args.multiplication_scale,
         optim=OptimConfig(
             lr=args.lr,
             end_learning_rate=args.end_learning_rate,
@@ -323,6 +328,7 @@ def main(argv=None) -> int:
         factory_kwargs = dict(
             num_graphs=args.synthetic_graphs if args.synthetic_graphs is not None else max(4 * cfg.data.batch_size, 32),
             seed=cfg.seed,
+            contrastive=task.contrastive,
             seq_len=cfg.data.max_text_len,
             vocab_size=cfg.model.text_tower.vocab_size,
             image_shape=img,
@@ -354,7 +360,7 @@ def main(argv=None) -> int:
         state = trainer.init_state()
         restored = Checkpointer(cfg.restore_file).restore(state)
         if restored is not None:
-            if cfg.reset_optimizer:  # a transfer: the head starts afresh
+            if cfg.task == "node_prediction" and cfg.reset_optimizer:  # a transfer: the head starts afresh
                 restored = {**restored, "params": task.transfer_from_contrastive(restored["params"], seed=cfg.seed)}
             state = restore_params_into_state(trainer, state, restored, cfg.reset_optimizer)
             print(f"restored from {cfg.restore_file}")
@@ -427,6 +433,9 @@ def evaluate_checkpoint(args, cfg, trainer, dataset) -> int:
         results[split] = trainer.evaluate(state, dataset, split)
         print(f"{split}:", json.dumps(results[split]))
         if args.predict_output:
+            if trainer.contrastive:
+                print("error: --predict-output needs the node task (contrastive targets are per-graph)", file=sys.stderr)
+                return 1
             os.makedirs(args.predict_output, exist_ok=True)
             cols = trainer.predict(state, dataset, split)
             out_path = write_predictions(os.path.join(args.predict_output, f"predictions-{split}.parquet"), cols)

@@ -8,9 +8,13 @@
 - AdamW with decoupled weight decay on EVERY trainable parameter (optax's
   ``adamw`` has no decay mask, so biases and layer norms decay too).
   ``torch.optim.AdamW`` computes optax's update,
-  ``p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)`` with the old ``p``;
-  the trainer sets the lr of each update from the schedule before
-  ``step()`` (a torch LR scheduler counts steps differently);
+  ``p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)`` with the old ``p``,
+  for float32 params and moments; ``OptaxAdamW`` computes it in optax's
+  order for the two other settings: bf16 moments over float32 math
+  (``bf16_adam_state``, JAX ``scale_by_adam_bf16_state``) and bf16 params
+  (``param_dtype="bfloat16"``: moments and arithmetic in bf16, as optax
+  keeps them). The trainer sets the lr of each update from the schedule
+  before ``step()`` (a torch LR scheduler counts steps differently);
 - ``--freeze-initial-encoders`` freezes the bottom towers
   (``FROZEN_PREFIXES``): their parameters get ``requires_grad_(False)``, so
   autograd neither computes their gradients nor runs below the lowest
@@ -19,8 +23,9 @@
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -84,11 +89,86 @@ def clip_by_global_norm_(params: List[nn.Parameter], max_norm: float) -> None:
             p.grad.mul_(scale.to(p.grad.dtype))
 
 
-def make_optimizer(cfg: OptimConfig, params: List[nn.Parameter]) -> torch.optim.AdamW:
+class OptaxAdamW(torch.optim.Optimizer):
+    """optax's AdamW step, op for op:
+
+        m = (1 - b1) g + b1 m;  v = (1 - b2) g^2 + b2 v
+        u = (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)
+        p = p + (-lr) (u + wd p)
+
+    With ``state_dtype`` (bf16) the moments are stored in it and the
+    arithmetic runs in float32 (JAX ``scale_by_adam_bf16_state``: upcast,
+    f32 recurrences, one downcast of the new moments); without it, moments
+    and arithmetic take the params' dtype (optax's ``adamw`` on bf16
+    leaves). Each constant is rounded to the arithmetic's dtype first, as a
+    Python float meets a bf16 array in JAX; the bias corrections are
+    computed in float32 and then rounded. The state (``step``,
+    ``exp_avg``, ``exp_avg_sq``) keeps ``torch.optim.AdamW``'s names."""
+
+    def __init__(self, params, lr: float, betas, eps: float, weight_decay: float,
+                 state_dtype: Optional[torch.dtype] = None):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay))
+        self.state_dtype = state_dtype
+
+    def load_state_dict(self, state_dict) -> None:
+        # torch casts loaded moments to the params' dtype; give them back
+        # their own (bf16 -> f32 -> bf16 is exact)
+        super().load_state_dict(state_dict)
+        for p, st in self.state.items():
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key in st:
+                    st[key] = st[key].to(self.state_dtype or p.dtype)
+
+    @torch.no_grad()
+    def step(self, closure=None) -> None:
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            mt = torch.float32 if self.state_dtype is not None else params[0].dtype
+
+            def c(x: float) -> float:  # a constant as a Python float meets an mt array
+                return float(torch.tensor(x, dtype=torch.float32).to(mt))
+
+            states = [self.state[p] for p in params]
+            for p, st in zip(params, states):
+                if not st:
+                    st["step"] = 0
+                    st["exp_avg"] = torch.zeros_like(p, dtype=self.state_dtype or p.dtype)
+                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=self.state_dtype or p.dtype)
+                st["step"] += 1
+            t = np.float32(states[0]["step"])
+            bc1 = c(float(np.float32(1) - np.float32(b1) ** t))
+            bc2 = c(float(np.float32(1) - np.float32(b2) ** t))
+
+            # every tensor of the group as one flat vector: a few kernels
+            # over all elements instead of several per tensor
+            def flat(tensors):
+                return torch.cat([x.reshape(-1) for x in tensors]).to(mt)
+
+            def unflat(vector, like):
+                return [x.view(y.shape) for x, y in zip(vector.split([y.numel() for y in like]), like)]
+
+            g = flat([p.grad for p in params])
+            m = flat([st["exp_avg"] for st in states]).mul_(c(b1)).add_(g * c(1 - b1))
+            v = flat([st["exp_avg_sq"] for st in states]).mul_(c(b2)).add_((g * g).mul_(c(1 - b2)))
+            del g
+            u = (m / bc1).div_((v / bc2).sqrt_().add_(c(group["eps"])))
+            u.add_(flat(params).mul_(c(group["weight_decay"]))).mul_(c(-group["lr"]))
+            torch._foreach_add_(params, unflat(u.to(params[0].dtype), params))
+            torch._foreach_copy_([st["exp_avg"] for st in states], unflat(m, params))
+            torch._foreach_copy_([st["exp_avg_sq"] for st in states], unflat(v, params))
+
+
+def make_optimizer(cfg: OptimConfig, params: List[nn.Parameter]) -> torch.optim.Optimizer:
     """AdamW over ``params`` with the config's betas, eps and decay; the lr
-    is set per update by the trainer."""
+    is set per update by the trainer. float32 params with float32 moments
+    take ``torch.optim.AdamW``; ``bf16_adam_state`` (bf16 moments, float32
+    math) and bf16 params take ``OptaxAdamW``."""
+    kw = dict(lr=cfg.lr, betas=tuple(cfg.adam_betas), eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
     if cfg.bf16_adam_state:
-        raise NotImplementedError("bf16_adam_state: the port keeps float32 Adam moments for now")
-    return torch.optim.AdamW(
-        params, lr=cfg.lr, betas=tuple(cfg.adam_betas), eps=cfg.adam_eps, weight_decay=cfg.weight_decay
-    )
+        return OptaxAdamW(params, state_dtype=torch.bfloat16, **kw)
+    if any(p.dtype != torch.float32 for p in params):
+        return OptaxAdamW(params, **kw)
+    return torch.optim.AdamW(params, **kw)

@@ -1,9 +1,11 @@
 """The training loop: the port's copy of the JAX package's
-``train/trainer.py`` on one device.
+``train/trainer.py`` on one device, for the node task and the contrastive
+task (the criterion the task names).
 
-One update takes the ``update_freq`` microbatches of a group (stacked on a
-leading k axis by ``data/loader.py::stack_microbatches``) with the JAX
-package's scan-step semantics (FairSeq's update-freq math):
+By default (``scan_microbatches``) one update takes the ``update_freq``
+microbatches of a group (stacked on a leading k axis by
+``data/loader.py::stack_microbatches``) with the JAX package's scan-step
+semantics (FairSeq's update-freq math):
 - each microbatch's forward runs with dropout (``deterministic=False``) and
   its SUMMED, unnormalized loss is back-propagated into the accumulated
   ``.grad`` of the trainable parameters;
@@ -12,8 +14,17 @@ package's scan-step semantics (FairSeq's update-freq math):
 - ``gnorm`` is the norm of the normalized trainable gradients.
 Frozen towers get no gradient and no update. Trainable parameters that got
 no gradient in an update (e.g. the ViT halves of the fusion layers when no
-microbatch holds an image) get a zero gradient, so that AdamW still decays
-them and advances their moments, as optax does for every trainable leaf.
+microbatch holds an image, or the heads under the contrastive loss) get a
+zero gradient, so that AdamW still decays them and advances their moments,
+as optax does for every trainable leaf.
+
+With ``update_freq > 1`` and ``scan_microbatches`` off, the loop steps one
+microbatch at a time with optax ``MultiSteps`` semantics
+(``train_microstep``): each microbatch's gradient is divided by its own
+sample size and folded into a running mean (``acc + (g - acc) / (n + 1)``);
+every k-th microbatch, clipping and AdamW act on that mean and the mean
+restarts at zero. No pad microbatch completes a short epoch: the partial
+mean carries into the next epoch, and a checkpoint taken mid-way holds it.
 
 There is no mesh: one process drives one device. ``fit`` saves through a
 ``utils/checkpoints.py::Checkpointer`` and resumes mid-epoch from a
@@ -34,13 +45,13 @@ import numpy as np
 import torch
 
 from multimodaldiscussiontransformer_tpu_torch.core.config import TrainConfig
-from multimodaldiscussiontransformer_tpu_torch.core.registry import CRITERIONS, populate
 from multimodaldiscussiontransformer_tpu_torch.data.collator import to_tensors
 from multimodaldiscussiontransformer_tpu_torch.data.dataset import DiscussionDataset, iterate_batches
 from multimodaldiscussiontransformer_tpu_torch.data.loader import stack_microbatches
 from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import dropout_rngs
 from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
 from multimodaldiscussiontransformer_tpu_torch.serve.incremental import resolve_device
+from multimodaldiscussiontransformer_tpu_torch.tasks.task import build_criterion
 from multimodaldiscussiontransformer_tpu_torch.train.metrics import MetricAccumulator, MetricsWriter
 from multimodaldiscussiontransformer_tpu_torch.train.optimizer import (
     apply_freeze,
@@ -56,13 +67,17 @@ class TrainState:
     """What a run carries between updates."""
 
     model: MDTModel
-    optimizer: torch.optim.AdamW
+    optimizer: torch.optim.Optimizer
     trainable: List[torch.nn.Parameter]
     host_rng: torch.Generator  # CPU: one attention-dropout seed per call site
     device_rng: torch.Generator  # on the device: FastDropout masks
     step: int = 0  # microbatches consumed (pads included)
     num_updates: int = 0
     epoch: int = 0  # completed epochs
+    # MultiSteps only: the running mean of this update's microbatch
+    # gradients (one per trainable parameter) and how many it holds
+    acc_grads: Optional[List[torch.Tensor]] = None
+    mini_step: int = 0
 
 
 def resume_position(step: int, epoch: int, micro_per_epoch: int, k: int) -> Tuple[int, int]:
@@ -87,19 +102,15 @@ def check_supported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for settings the port's trainer lacks."""
     if cfg.dp_size not in (-1, 1) or cfg.tp_size != 1 or cfg.sp_size != 1 or cfg.num_slices != 1 or cfg.fsdp:
         raise NotImplementedError("the port trains on one device: dp_size in (-1, 1), tp = sp = slices = 1, no fsdp")
-    if cfg.optim.update_freq > 1 and not cfg.optim.scan_microbatches:
-        raise NotImplementedError("update_freq > 1 without scan_microbatches (MultiSteps averaging) is not ported")
     if cfg.data.num_workers > 0:
         raise NotImplementedError("data.num_workers > 0: worker-process loading is not ported")
     if cfg.profile_trace_dir is not None:
         raise NotImplementedError("profile traces are not ported")
-    if cfg.task != "node_prediction":
-        raise NotImplementedError(f"task {cfg.task!r}: the port trains the node_prediction task")
 
 
 class Trainer:
-    """The training loop for the node task on one device (``"cuda"`` unless
-    the caller passes another).
+    """The training loop on one device (``"cuda"`` unless the caller passes
+    another), for the task ``cfg.task`` names.
 
     ``TrainConfig.fast_dropout_rng`` picks a JAX PRNG implementation and has
     no meaning here: the port's dropout bits come from ``torch.Generator``s
@@ -117,14 +128,12 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model
-        if criterion is None:
-            populate()
-            criterion = CRITERIONS.get(cfg.criterion)(
-                positive_weight=cfg.positive_weight, negative_weight=cfg.negative_weight
-            )
-        self.criterion = criterion
+        self.criterion = criterion if criterion is not None else build_criterion(cfg)
         self.image_shape = image_shape
         self.global_batch_size = cfg.data.batch_size
+        self.contrastive = cfg.task == "contrastive_learning"
+        # optax MultiSteps semantics: one microbatch per step
+        self.multi_steps = cfg.optim.update_freq > 1 and not cfg.optim.scan_microbatches
 
     # -- state ---------------------------------------------------------------
 
@@ -150,13 +159,19 @@ class Trainer:
             trainable=trainable,
             host_rng=host,
             device_rng=torch.Generator(device=self.device).manual_seed(seed),
+            acc_grads=self._fresh_accumulator(trainable),
         )
 
+    def _fresh_accumulator(self, trainable: List[torch.nn.Parameter]) -> Optional[List[torch.Tensor]]:
+        return [torch.zeros_like(p) for p in trainable] if self.multi_steps else None
+
     def load_params(self, state: TrainState, state_dict: Dict[str, torch.Tensor]) -> TrainState:
-        """Swap in other weights and start the optimizer afresh (the JAX
-        ``load_params``, i.e. ``--reset-optimizer``)."""
+        """Swap in other weights and start the optimizer (and a MultiSteps
+        accumulation) afresh (the JAX ``load_params``, i.e.
+        ``--reset-optimizer``)."""
         state.model.load_state_dict(state_dict, strict=True)
         state.optimizer = make_optimizer(self.cfg.optim, state.trainable)
+        state.acc_grads, state.mini_step = self._fresh_accumulator(state.trainable), 0
         return state
 
     # -- steps ---------------------------------------------------------------
@@ -189,15 +204,50 @@ class Trainer:
         if return_grads:
             names = {id(p): n for n, p in model.named_parameters()}
             sums["grads"] = {names[id(p)]: p.grad.detach().clone() for p in state.trainable}
+        self._apply_update(state)
+        state.step += k
+        return sums
+
+    def _apply_update(self, state: TrainState) -> None:
+        """Clip (``clip_norm > 0``) and one AdamW step on the trainable
+        ``.grad``s, with the lr the schedule gives this update."""
         if self.cfg.optim.clip_norm and self.cfg.optim.clip_norm > 0:
             clip_by_global_norm_(state.trainable, self.cfg.optim.clip_norm)
         lr = self.lr_schedule()(state.num_updates)
-        for group_ in opt.param_groups:
-            group_["lr"] = lr
-        opt.step()
-        state.step += k
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
         state.num_updates += 1
-        return sums
+
+    def train_microstep(self, state: TrainState, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """One microbatch with optax ``MultiSteps`` semantics (JAX
+        ``_make_train_step`` under ``MultiSteps``): the gradient of the loss
+        divided by this microbatch's own sample size joins the running mean
+        ``acc + (g - acc) / (n + 1)``; on the k-th microbatch clipping and
+        AdamW act on the mean and it restarts at zero. Returns the
+        microbatch's logging outputs and ``gnorm``, the norm of its own
+        normalized gradient."""
+        model, k = state.model, self.cfg.optim.update_freq
+        state.optimizer.zero_grad(set_to_none=True)
+        with dropout_rngs(state.host_rng, state.device_rng):
+            b = to_tensors(batch, self.device)
+            loss, ssz, logs = self.criterion(model(b, deterministic=False), b)
+            (loss / ssz.float().clamp_min(1.0)).backward()
+        logs = dict(logs, gnorm=trainable_gnorm(state.trainable))
+        n = state.mini_step
+        for acc, p in zip(state.acc_grads, state.trainable):
+            g = torch.zeros_like(p) if p.grad is None else p.grad
+            acc.add_((g - acc) / (n + 1))
+        state.step += 1
+        if n == k - 1:
+            for p, acc in zip(state.trainable, state.acc_grads):
+                p.grad = acc.clone()
+                acc.zero_()
+            self._apply_update(state)
+            state.mini_step = 0
+        else:
+            state.mini_step = n + 1
+        return logs
 
     def lr_schedule(self) -> Callable[[int], float]:
         o = self.cfg.optim
@@ -209,7 +259,7 @@ class Trainer:
         return iterate_batches(
             dataset, dataset.train_idx, self.cfg.data, self.cfg.task_cfg, epoch=epoch,
             shuffle=self.cfg.task_cfg.train_epoch_shuffle, image_shape=self.image_shape,
-            batch_size=self.global_batch_size,
+            batch_size=self.global_batch_size, contrastive=self.contrastive,
         )
 
     def eval_batches(self, dataset: DiscussionDataset, split: str = "valid") -> Iterator:
@@ -217,11 +267,13 @@ class Trainer:
         return iterate_batches(
             dataset, idx, self.cfg.data, self.cfg.task_cfg, epoch=1, shuffle=False,
             image_shape=self.image_shape, drop_last=False, batch_size=self.global_batch_size,
-            pad_tail_to_batch=True,
+            pad_tail_to_batch=True, contrastive=self.contrastive,
         )
 
     def evaluate(self, state: TrainState, dataset: DiscussionDataset, split: str = "valid") -> Dict[str, float]:
-        """The deterministic forward over a split; the reduced metrics."""
+        """The deterministic forward over a split; the reduced metrics. The
+        pad graphs of a ragged last batch count nowhere (the contrastive
+        criterion masks them by ``grid_mask``)."""
         acc = MetricAccumulator(self.criterion.reduce_metrics)
         with torch.no_grad():
             for b in self.eval_batches(dataset, split):
@@ -236,7 +288,11 @@ class Trainer:
         ``graph_idx`` (dataset index), ``node`` (position in its graph),
         ``logit_<k>`` and ``prob_<k>`` per class, ``pred`` (argmax),
         ``label`` (-1: unlabelled) and ``labeled``. Write them with
-        ``write_predictions``."""
+        ``write_predictions``. The contrastive task has per-graph targets
+        and raises ``ValueError``."""
+        if self.contrastive:
+            raise ValueError("predict() exports per-node rows; the contrastive task has per-graph targets — "
+                             "use evaluate() for its metrics")
         parts: Dict[str, list] = {}
         num_classes: Optional[int] = None
         with torch.no_grad():
@@ -276,10 +332,25 @@ class Trainer:
     def micro_per_epoch(self, dataset: DiscussionDataset) -> int:
         """Microbatches an epoch consumes: its full batches (0 without
         ``drop_last``, where resume does not skip), padded up to whole
-        groups of ``update_freq``."""
-        k = max(self.cfg.optim.update_freq, 1)
+        groups of ``update_freq`` in scan mode (MultiSteps adds no pad)."""
+        k = 1 if self.multi_steps else max(self.cfg.optim.update_freq, 1)
         bpe = len(dataset.train_idx) // max(self.global_batch_size, 1) if self.cfg.data.drop_last else 0
         return -(-bpe // k) * k
+
+    def _epoch_steps(self, state: TrainState, dataset: DiscussionDataset, epoch: int, skip: int) -> Iterator:
+        """(logging outputs, graphs) of each step of ``epoch`` after the
+        first ``skip``: one scan update per group of ``update_freq`` (a
+        ragged tail padded with all-pad microbatches), or one MultiSteps
+        microbatch per batch."""
+        if self.multi_steps:
+            for index, batch in enumerate(self.train_batches(dataset, epoch)):
+                if index >= skip:
+                    yield self.train_microstep(state, batch.asdict()), batch.num_graphs
+            return
+        k = max(self.cfg.optim.update_freq, 1)
+        for index, group in enumerate(stack_microbatches(self.train_batches(dataset, epoch), k, pad_tail=True)):
+            if index >= skip:
+                yield self.train_step(state, group), int((group["idx"] >= 0).sum())
 
     def fit(
         self,
@@ -306,8 +377,10 @@ class Trainer:
           every ``save_interval``-th epoch end and the last one, a save;
         - when ``should_stop()`` turns true (SIGTERM), a save at the update
           boundary, then return.
-        A save at the same update and epoch as the previous one is skipped:
-        the state has not changed."""
+        A save at the same microbatch and epoch as the previous one is
+        skipped: the state has not changed. Under MultiSteps every check
+        follows each microbatch, as in the JAX loop, so an epoch-end or
+        stop save may hold a partial accumulation."""
         cfg = self.cfg
         max_epoch = cfg.max_epoch if max_epoch is None else max_epoch
         if state is None:
@@ -318,7 +391,7 @@ class Trainer:
                 )
             state = self.init_state()
         writer = writer if writer is not None else MetricsWriter(cfg.save_dir)
-        k = max(cfg.optim.update_freq, 1)
+        k = 1 if self.multi_steps else max(cfg.optim.update_freq, 1)
         acc = MetricAccumulator(self.criterion.reduce_metrics)
         lr_fn = self.lr_schedule()
         last_logged = last_validated = last_saved = state.num_updates
@@ -328,7 +401,7 @@ class Trainer:
 
         def save(best: bool = False) -> None:
             nonlocal saved_at
-            at = (state.num_updates, state.epoch)
+            at = (state.step, state.epoch)
             if checkpointer is None or (at == saved_at and not best):
                 return
             checkpointer.save(state, state.num_updates, best=best)
@@ -337,13 +410,9 @@ class Trainer:
         start_epoch, skip_groups = resume_position(state.step, state.epoch, self.micro_per_epoch(dataset), k)
         state.epoch = start_epoch - 1  # an epoch consumed but not yet counted counts now
         for epoch in range(start_epoch, max_epoch + 1):
-            groups = stack_microbatches(self.train_batches(dataset, epoch), k, pad_tail=True)
-            for index, group in enumerate(groups):
-                if epoch == start_epoch and index < skip_groups:
-                    continue
-                logs = self.train_step(state, group)
+            for logs, graphs in self._epoch_steps(state, dataset, epoch, skip_groups if epoch == start_epoch else 0):
                 acc.update(logs)
-                window_graphs += int((group["idx"] >= 0).sum())
+                window_graphs += graphs
                 n = state.num_updates
                 if n - last_logged >= cfg.log_interval:
                     last_logged = n
@@ -385,10 +454,24 @@ class Trainer:
         return state
 
 
+def _csv_fields(column) -> np.ndarray:
+    """A column's CSV fields as pandas' ``to_csv`` writes them: numpy's
+    ``str`` of each value (the dtype's shortest repr for floats, so a
+    float32 0.7 is ``0.7``; ``inf``, ``-inf``, ``True``, ``False``) and an
+    empty field for NaN (pandas' ``na_rep``)."""
+    values = np.asarray(column)
+    fields = values.astype(str).astype(object)
+    if values.dtype.kind == "f":
+        fields[np.isnan(values)] = ""
+    return fields
+
+
 def write_predictions(path: str, columns: Dict[str, np.ndarray]) -> str:
     """Write ``Trainer.predict`` columns as a table: parquet through pandas,
-    or CSV (the ``csv`` module) for a ``.csv`` path. Without pandas or a
-    parquet engine, CSV next to the path asked for, with a warning. Returns
+    or CSV for a ``.csv`` path. Without pandas or a parquet engine, CSV next
+    to the path asked for, with a warning. The CSV holds the bytes of the
+    JAX package's ``pd.DataFrame(columns).to_csv(path, index=False)``
+    (``_csv_fields``, ``\\n`` line ends) without needing pandas. Returns
     the path written."""
     if not path.endswith(".csv"):
         try:
@@ -401,7 +484,7 @@ def write_predictions(path: str, columns: Dict[str, np.ndarray]) -> str:
             print(f"warning: parquet engine unavailable ({e!r}); wrote {alt}", file=sys.stderr)
             path = alt
     with open(path, "w", newline="") as f:
-        out = csv.writer(f)
+        out = csv.writer(f, lineterminator="\n")
         out.writerow(list(columns))
-        out.writerows(zip(*(np.asarray(v).tolist() for v in columns.values())))
+        out.writerows(zip(*(_csv_fields(v) for v in columns.values())))
     return path

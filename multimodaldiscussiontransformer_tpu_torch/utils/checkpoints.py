@@ -17,10 +17,16 @@ A saved state is a dict of tensors, ints, floats, strings, lists and
 dicts, read back with ``torch.load(..., weights_only=True)``:
 - ``params``: the model's whole ``state_dict`` (frozen towers included) on
   the CPU;
-- ``optimizer``: the AdamW ``state_dict`` on the CPU;
+- ``optimizer``: the AdamW ``state_dict`` on the CPU (bf16 moments stay
+  bf16 under ``bf16_adam_state`` and bf16 params);
 - ``step`` (microbatches), ``num_updates`` and ``epoch`` (completed);
 - ``host_rng`` and ``device_rng``: the two dropout generators' states
-  (CPU byte tensors, a CUDA generator's included).
+  (CPU byte tensors, a CUDA generator's included);
+- under MultiSteps (``scan_microbatches`` off) ``acc_grads``, the running
+  mean of the current update's microbatch gradients, and ``mini_step``,
+  how many it holds: as the JAX state keeps them in its optimizer state,
+  so that a save between two microbatches of one update resumes into the
+  uninterrupted run.
 A params-only checkpoint (``save_params``) holds ``params`` alone.
 """
 
@@ -50,7 +56,7 @@ def _to_cpu(obj: Any) -> Any:
 
 def state_dict_of(state) -> Dict[str, Any]:
     """What a checkpoint stores of a ``TrainState``, on the CPU."""
-    return {
+    out = {
         "params": _to_cpu(state.model.state_dict()),
         "optimizer": _to_cpu(state.optimizer.state_dict()),
         "step": int(state.step),
@@ -59,6 +65,10 @@ def state_dict_of(state) -> Dict[str, Any]:
         "host_rng": state.host_rng.get_state(),
         "device_rng": state.device_rng.get_state(),
     }
+    if state.acc_grads is not None:
+        out["acc_grads"] = _to_cpu(state.acc_grads)
+        out["mini_step"] = int(state.mini_step)
+    return out
 
 
 def _steps(directory: str) -> List[int]:
@@ -194,6 +204,10 @@ def restore_params_into_state(trainer, state, restored: Optional[Dict[str, Any]]
     state.epoch = int(restored.get("epoch", 0))
     state.host_rng.set_state(restored["host_rng"])
     state.device_rng.set_state(restored["device_rng"])
+    if state.acc_grads is not None and "acc_grads" in restored:
+        for acc, saved in zip(state.acc_grads, restored["acc_grads"]):
+            acc.copy_(saved)
+        state.mini_step = int(restored["mini_step"])
     return state
 
 

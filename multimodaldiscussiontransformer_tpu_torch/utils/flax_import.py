@@ -11,8 +11,10 @@ change:
   tables, ``spatial_pos_encoder``, ``graph_token_virtual_distance``,
   ``cls_token``, ``position_embeddings``) are copied as they are.
 
-Leaves are numpy arrays (``jax.device_get`` of the params). Nothing here
-imports JAX.
+Leaves are numpy arrays (``jax.device_get`` of the params). A bfloat16 leaf
+(``param_dtype="bfloat16"``) stays bfloat16, bit for bit, both ways; every
+other leaf becomes float32. Nothing here imports JAX; ``to_flax_params``
+imports ``ml_dtypes`` (numpy's bfloat16) only when it meets a bf16 tensor.
 """
 
 from __future__ import annotations
@@ -38,8 +40,20 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tupl
     return out
 
 
+def _is_bf16(arr: np.ndarray) -> bool:
+    return arr.dtype.name == "bfloat16"
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A tensor with ``arr``'s values: bf16 bits reinterpreted, else float32."""
+    if _is_bf16(arr):
+        return torch.tensor(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return torch.tensor(arr)
+
+
 def _convert(path: Tuple[str, ...], leaf) -> Tuple[str, np.ndarray]:
-    arr = np.asarray(leaf, dtype=np.float32)
+    arr = np.asarray(leaf)
+    arr = arr if _is_bf16(arr) else arr.astype(np.float32)
     name = path[-1]
     module = ".".join(path[:-1])
     if name == "kernel":
@@ -73,7 +87,7 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         key, arr = _convert(path, leaf)
         if key in out:
             raise ValueError(f"two Flax leaves map to {key}")
-        out[key] = torch.tensor(arr)
+        out[key] = _tensor(np.ascontiguousarray(arr))
     return out
 
 
@@ -105,7 +119,13 @@ def to_flax_params(model: nn.Module, tensors: Mapping[str, torch.Tensor] = None)
     tensors = dict(model.named_parameters()) if tensors is None else tensors
     tree: Dict[str, Any] = {}
     for key, t in tensors.items():
-        arr = t.detach().float().cpu().numpy()
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            arr = t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        else:
+            arr = t.float().numpy()
         cls, leaf = kinds[key]
         if leaf == "weight" and issubclass(cls, nn.Linear):
             arr, leaf = arr.T, "kernel"

@@ -8,8 +8,8 @@ has the same function:
 - averaging against the JAX ``average_checkpoints`` of Orbax stores of the
   same params; the head reset; ``Checkpointer``'s retention, best store
   and atomic saves;
-- ``Trainer.predict`` against the JAX ``Trainer.predict``, and the CSV
-  written without pandas;
+- ``Trainer.predict`` against the JAX ``Trainer.predict``, the CSV
+  written without pandas, and its bytes against the JAX pandas writer;
 - ``DiscussionScorer.from_checkpoint`` against the in-memory model and the
   JAX ``DiscussionScorer``, and ``serve.server.main`` answering a POST;
 - the launcher: SIGTERM, save and auto-resume in a subprocess, and the
@@ -449,6 +449,40 @@ def test_write_predictions_without_pandas(tmp_path, monkeypatch, capsys):
     assert rows == [["graph_idx", "node", "labeled", "prob_0"], ["3", "0", "True", "0.25"], ["3", "1", "False", "0.5"],
                     ["7", "0", "True", "0.125"]]
     assert write_predictions(str(tmp_path / "p.csv"), cols) == str(tmp_path / "p.csv")
+
+
+@pytest.mark.parametrize("route", ["csv_path", "parquet_fails"])
+def test_prediction_csv_is_byte_equal_to_jax(tmp_path, monkeypatch, capsys, route):
+    """The CSV holds the bytes of the JAX package's pandas writer: float32
+    columns in their shortest repr (0.7, -1.3, a tiny exponent), NaN as an
+    empty field, inf and -inf, ints and bools, ``\\n`` line ends; for a
+    ``.csv`` path and for the fallback when parquet fails."""
+    import pandas as pd
+
+    from multimodaldiscussiontransformer_tpu.train.trainer import write_predictions as jax_write_predictions
+
+    cols = {"graph_idx": np.array([3, 3, 7, 9, 11], np.int64), "node": np.array([0, 1, 0, 2, 4], np.int32),
+            "labeled": np.array([True, False, True, True, False]),
+            "logit_0": np.array([0.7, -1.3, np.nan, np.inf, -np.inf], np.float32),
+            "prob_0": np.array([1e-40, 0.1, 3e38, -0.0, 0.5], np.float32),
+            "pred": np.array([1, 0, 1, 1, 0], np.int64)}
+    if route == "parquet_fails":
+        def refuse(*a, **k):
+            raise ValueError("no parquet engine")
+
+        monkeypatch.setattr(pd.DataFrame, "to_parquet", refuse)
+        names = ("p.parquet", "j.parquet")
+    else:
+        names = ("p.csv", "j.csv")
+    got = write_predictions(str(tmp_path / names[0]), cols)
+    want = jax_write_predictions(str(tmp_path / names[1]), cols)
+    assert got.endswith(".csv") and want.endswith(".csv")
+    if route == "parquet_fails":
+        assert capsys.readouterr().err.count("warning: parquet engine unavailable") == 2
+    with open(got, "rb") as f, open(want, "rb") as g:
+        data = f.read()
+        assert data == g.read()
+    assert b"0.7," in data and b"-1.3," in data and b"\r" not in data and b",inf," in data and b"1e-40" in data
 
 
 def _discussions(rng, n):

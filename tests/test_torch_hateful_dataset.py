@@ -89,13 +89,23 @@ def test_stub_files_hold_only_the_labels(tmp_path):
 
 
 def test_contrastive_files_load_without_hard_y(tmp_path):
-    """A graph the JAX ingest wrote for the contrastive task carries
-    ``hard_y``: the port's node-task loader reads the rest and skips it."""
-    item = _items(jsyn, n=1, contrastive=True)[0]
-    assert item.hard_y is not None
-    path = str(tmp_path / "graph-0.npz")
-    jingest.save_graph_npz(path, item)
-    _assert_items_equal(phd.load_graph_npz(path), item)
+    """Graphs written for the contrastive task carry ``hard_y`` (and no
+    ``y_mask``), by either package's writers in either layout: the port's
+    loader reads it, as the JAX loader does. (The name is older than the
+    port's contrastive task, when the loader skipped the field.)"""
+    for writer in ("jax", "port"):
+        items = _items(jsyn if writer == "jax" else psyn, n=4, contrastive=True)
+        assert all(it.hard_y is not None and it.y_mask is None for it in items)
+        for stub_every in (1, len(items) + 1):  # stub + shared, self-contained
+            root = tmp_path / f"{writer}-{stub_every}"
+            _write(jingest if writer == "jax" else pingest, items, str(root), stub_every=stub_every)
+            for k, item in enumerate(items):
+                path = str(root / f"graph-{k}.npz")
+                got, want = phd.load_graph_npz(path), jhd.load_graph_npz(path)
+                for other in (want, item):
+                    _assert_items_equal(got, other)
+                    assert got.hard_y.dtype == other.hard_y.dtype
+                    np.testing.assert_array_equal(got.hard_y, other.hard_y)
 
 
 def test_text_length_without_the_probe(tmp_path):

@@ -325,7 +325,6 @@ def test_init_is_seeded():
         {"scan_layers": True},
         {"sequence_parallel": True},
         {"remat": True},
-        {"param_dtype": "bfloat16"},
         {"dtype": "float16"},
     ],
 )

@@ -228,19 +228,12 @@ def test_fit_and_evaluate(tmp_path):
 
 @pytest.mark.parametrize(
     "override",
-    [dict(dp_size=2), dict(tp_size=2), dict(fsdp=True), dict(task="contrastive_learning"),
-     dict(optim=pconfig.OptimConfig(update_freq=3, scan_microbatches=False)),
+    [dict(dp_size=2), dict(tp_size=2), dict(fsdp=True),
      dict(data=pconfig.DataConfig(num_workers=2)), dict(profile_trace_dir="trace")],
 )
 def test_unsupported_trainer_settings_raise(override):
     with pytest.raises(NotImplementedError):
         Trainer(train_cfg(pconfig, **override), image_shape=IMG, device="cpu")
-
-
-def test_bf16_adam_state_raises():
-    trainer = Trainer(train_cfg(pconfig, optim=pconfig.OptimConfig(bf16_adam_state=True)), image_shape=IMG, device="cpu")
-    with pytest.raises(NotImplementedError):
-        trainer.init_state()
 
 
 def test_launch_main_tiny_on_cpu(tmp_path):
@@ -252,9 +245,9 @@ def test_launch_main_tiny_on_cpu(tmp_path):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--bf16-adam-state"], ["--remat"], ["--hf-init"], ["--task", "contrastive_learning"],
+    [["--remat"], ["--hf-init"],
      ["--distributed-world-size", "2"], ["--profile-trace", "t"], ["--wandb-project", "w"],
-     ["--tensorboard-logdir", "t"], ["--num-workers", "2"], ["--no-scan-microbatches", "--update-freq", "2"]],
+     ["--tensorboard-logdir", "t"], ["--num-workers", "2"]],
 )
 def test_launch_rejects_unported_flags(flags, capsys):
     argv = ["--synthetic", "--tiny", "--device", "cpu", "--no-save"] + flags
@@ -265,17 +258,25 @@ def test_launch_rejects_unported_flags(flags, capsys):
 
 
 def test_launch_config_matches_jax():
-    """The canonical flags resolve to the same TrainConfig in both
-    launchers (the port drops the flags it rejects)."""
+    """The canonical flags, and the contrastive stage's and the optimizer
+    settings' flags, resolve to the same TrainConfig in both launchers (the
+    port drops the flags it rejects)."""
     from multimodaldiscussiontransformer_tpu.train import launch as jlaunch
 
-    argv = ["--synthetic", "--freeze-initial-encoders", "--batch-size", "12", "--update-freq", "3", "--no-save"]
-    want = dataclasses.asdict(jlaunch.config_from_args(jlaunch.build_parser().parse_args(argv)))
-    got = dataclasses.asdict(launch.config_from_args(launch.build_parser().parse_args(argv)))
-    for section in ("model", "data", "optim", "task_cfg"):
-        assert got[section] == want[section], section
-    for key in ("criterion", "task", "seed", "positive_weight", "negative_weight", "log_interval"):
-        assert got[key] == want[key], key
+    canonical = ["--synthetic", "--freeze-initial-encoders", "--batch-size", "12", "--update-freq", "3", "--no-save"]
+    for argv in (
+        canonical,
+        canonical + ["--task", "contrastive_learning", "--criterion", "contrastive_loss",
+                     "--soft-negative-weight", "0.25", "--multiplication-scale", "10"],
+        canonical + ["--no-scan-microbatches", "--bf16-adam-state"],
+    ):
+        want = dataclasses.asdict(jlaunch.config_from_args(jlaunch.build_parser().parse_args(argv)))
+        got = dataclasses.asdict(launch.config_from_args(launch.build_parser().parse_args(argv)))
+        for section in ("model", "data", "optim", "task_cfg"):
+            assert got[section] == want[section], (argv, section)
+        for key in ("criterion", "task", "seed", "positive_weight", "negative_weight", "log_interval",
+                    "soft_negative_weight", "adaptive_soft_negative_weight", "multiplication_scale"):
+            assert got[key] == want[key], (argv, key)
 
 
 @pytest.mark.parametrize("tiny", [False, True])
