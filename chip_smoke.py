@@ -98,14 +98,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    - train: the canonical run (batch 12 x update_freq 3, dropout
      0.4/0.3/0.3, frozen towers) on synthetic discussions of 8-32 nodes
      with 100-token text and 3x224x224 images on 25% of nodes: 1 untimed
-     and 5 timed updates, then one profiled update (train_trace);
+     and 5 timed updates, then 2 profiled updates (train_trace) through
+     ``Trainer.fit``'s profile window, after one more;
    - train_fused: the same run with both towers fused, on the same
      batches: 1 untimed and 5 timed updates, so that each update's peak
      memory compares with train's;
    - train_big: big discussions, both towers fused, ``--batch-size 1`` x
      update_freq 3 on discussions of 520-1000 nodes (padded S 521-1001,
      text capacity 1024) with images on 5% of nodes: 1 untimed and 3 timed
-     updates, then one profiled update (train_big_trace).
+     updates, then 2 profiled updates (train_big_trace), as train's.
    Each checks a finite, changing loss, the exact launches of every kernel
    in every update (tree attention: 10 graph layers forward through the
    tensor-core forward and 8 backward through the tensor-core pair per
@@ -118,9 +119,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    towers unchanged and every tensor with a nonzero
    gradient changed; prints ms per update, discussions/s, MFU against 989
    TFLOP/s, each update's peak memory (statistics reset before every
-   update) and the S values seen; the profiled updates add device time by
-   kernel group, the tree and the tower attention's forward and backward
-   apart.
+   update), the S values seen, the ms the training thread waited for each
+   update's input (the prefetch thread stages it) and the bytes sent to the
+   card per update; the profiled updates add, per update, device time by
+   kernel group (the tree and the tower attention's forward and backward
+   apart) and the busy share of the window.
 10. train_cpu_agreement, train_cpu_agreement_fused: one scan update of the
    tiny config with every dropout at 0 in float32, on the card and on the
    CPU, without and with fused towers: gradients and updated parameters
@@ -143,12 +146,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
     few graphs as stubs naming a shared tree file). The canonical flags
     (bf16, frozen towers, batch 12 x update_freq 3) run 4 updates through
     ``train.launch.main`` in this process with saves at 2 and 4; beside
-    it, the same command in a process of its own gets SIGTERM once its log
-    shows update 2, must exit 0 with "preempted: checkpoint saved at step
-    2", and its relaunch (in this process) must auto-resume and run to 4.
-    At step 4 the two runs' generator states are byte-equal, their losses
-    of updates 3-4 within 1e-2 relative and every parameter within 1e-2 of
-    the largest change the 4 updates made; every update launches only the
+    it, the same command runs twice more, each in a process of its own
+    that gets SIGTERM once its log shows update 1: one saving after every
+    update (the signal lands while the asynchronous save of step 1 is
+    still being written: its file is newer than the signal; it must stop
+    at update 1 or 2), one with no interval save (it must stop at update 2,
+    and the stop branch's own save must be its only step). Each must exit 0
+    with "preempted: checkpoint saved at step <it>", and its relaunch (in
+    this process) must auto-resume and run to 4.
+    At step 4 each resumed run's generator states are byte-equal to the
+    uninterrupted run's, its losses after the stop within 1e-2 relative
+    and every parameter within 1e-2 of the largest change the 4 updates
+    made; every update launches only the
     tensor-core tree kernels, as many as the config gives. The
     uninterrupted run's step 4, restored into a new state, saves and loads
     back byte-exact (bytes on disk against f32 params + two AdamW moments
@@ -156,9 +165,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
     ``--eval-only --average-last 2 --predict-output`` run, with one row
     per real test node; ``DiscussionScorer.from_checkpoint`` and the
     ``serve.server`` CLI (another process, one POST) score a request batch
-    bit-equal to the model that wrote the checkpoint. Prints save, restore
-    and ``from_checkpoint`` ms, bytes per checkpoint and the resumed run's
-    ms per update.
+    bit-equal to the model that wrote the checkpoint, and so does a
+    params-only checkpoint of the same weights in the scan layout. Prints
+    the ms an asynchronous save stalls the caller and the ms until it is
+    on disk, a synchronous save's ms and bytes beside it, restore and
+    ``from_checkpoint`` ms, bytes per checkpoint and the resumed run's ms
+    per update.
 
 14. train_cpu_agreement_contrastive, _multisteps, _bf16_adam: as 10 (float32,
     tiny, the CUDA-core tree kernels), for one scan update of the
@@ -186,6 +198,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
     and the losses of each run, the tree launches per update, and the
     AdamW step alone (device ms and span) on the same params with float32
     moments, bf16 moments and bf16 params.
+
+16. input_ab: the canonical node run (the train phase's discussions) and
+    contrastive pre-training (a ``hateful_discussions`` directory of
+    contrastive discussions), each through ``Trainer.fit`` for 4 updates
+    from one position on each input path, twice in mirrored order: the
+    prefetch thread (the default), the synchronous path before it
+    (collation on the training thread, pageable per-microbatch copies,
+    float32 images) and the prefetcher's staging without its thread: ms per
+    update, ms per cycle (update end to update end) and the training
+    thread's ms on each update's input.
+17. runtime_workers: the canonical run with ``--num-workers 4`` (collation
+    in 4 spawned processes), 4 updates: ms per update, the groups' ``idx``
+    equal to the in-process iterator's, the launches the config gives.
+18. runtime_remat: ``train_big``'s discussions (both towers fused, batch 1
+    x 3) without remat and under each ``--remat-policy``, 2 updates each
+    from one state (weights, moments, generators): peak memory, ms per
+    update, launches per update with the recompute counted (exactly as
+    the config gives), the first update's loss within 1e-6 and the
+    gradient norms within 5e-3 of no remat; then
+    train_cpu_agreement_fused_remat_<policy>: as 10, fused, under each
+    policy.
+19. runtime_profile: ``--profile-trace`` through ``train.launch.main`` on
+    the canonical synthetic run, updates 3-4 traced: one trace file, its
+    size, exactly 2 x 78 tree-kernel events and the trainer's named ranges
+    (2 x 3 ``microbatch``, 2 ``optimizer``).
+Every runtime line carries the card's name and power limit (``card``).
 
 The last two lines are the kernels' summary (thirteen kernels) and
 ``{"ok": true, "device": {...}}``.
@@ -1795,7 +1833,9 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int, cont
     (the backward runs in the fusion layers: tokens + bottleneck). The
     graph layers take the tensor-core or the CUDA-core tree forward and
     backward pair as the tree attention's ``kernel_route`` says for the
-    compute dtype and the graph head dim."""
+    compute dtype and the graph head dim. Under ``mc.remat`` the backward
+    reruns the forward of every graph layer whose backward runs and of
+    every fusion layer's towers (the bottom towers stay outside remat)."""
     import torch
 
     from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
@@ -1803,12 +1843,19 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int, cont
 
     fwd, bwd = graph_layers(mc, contrastive)
     tensor_core = ta.kernel_route(getattr(torch, mc.dtype), mc.encoder_embed_dim // mc.encoder_attention_heads) == "tensor_core"
-    route = [k * fwd, k * bwd, k * bwd]  # forward, dq, dk/dv of the route
+    recompute = bwd if mc.remat else 0
+    route = [k * (fwd + recompute), k * bwd, k * bwd]  # forward, dq, dk/dv of the route
     tree = [0, 0, 0] + route if tensor_core else route + [0, 0, 0]
     if not fused:
         return tree + [0, 0, 0, 0, 0, 0, 0]
     _, _, text_bwd, vit_bwd = tower_launches(mc)
     cuda_core_fwd, tensor_core_fwd = (k * n for n in tower_forward_routes(mc, text_len, images))
+    if mc.remat:
+        for tower, s in ((mc.text_tower, text_len), (mc.image_tower, mc.image_tower.seq_len))[:2 if images else 1]:
+            if kernel_route(getattr(torch, mc.dtype), tower.head_dim, s + mc.num_bottleneck_tokens) == "tensor_core":
+                tensor_core_fwd += k * (mc.num_fusion_layers + 1)
+            else:
+                cuda_core_fwd += k * (mc.num_fusion_layers + 1)
     pair = one_pass = 0
     extra = mc.num_bottleneck_tokens
     for n, tower, s in ((text_bwd, mc.text_tower, text_len + extra),
@@ -1821,8 +1868,46 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int, cont
     return tree + [cuda_core_fwd, pair, pair, one_pass, tensor_core_fwd, 0, 0]
 
 
+TRACE_UPDATES = 2
+
+
+class _ProfileWindow:
+    """Inside the block, the profile window of ``Trainer.fit`` (its
+    ``profiling.start_trace`` / ``stop_trace`` calls) runs a
+    ``torch.profiler`` session of the card's activity, kept in
+    ``session`` and written nowhere, and measures the window's wall time up
+    to the end of the traced work (``wall_ms``)."""
+
+    def __enter__(self):
+        import torch
+
+        from multimodaldiscussiontransformer_tpu_torch.utils import profiling
+
+        self._module, self._orig = profiling, (profiling.start_trace, profiling.stop_trace)
+
+        def start(log_dir):
+            # the card's activity only: tracing the host too would slow the
+            # host and so lower the busy share it measures
+            self.session = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+            self.session.start()
+            self._t0 = time.perf_counter()
+            return self.session
+
+        def stop(session):
+            torch.cuda.synchronize()
+            self.wall_ms = (time.perf_counter() - self._t0) * 1e3
+            session.stop()
+
+        profiling.start_trace, profiling.stop_trace = start, stop
+        return self
+
+    def __exit__(self, *exc):
+        self._module.start_trace, self._module.stop_trace = self._orig
+        return False
+
+
 def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw: dict, timed_updates: int,
-              trace: bool):
+              trace: bool, card: str = ""):
     """A training run through the port's entry points: launch's flag
     resolution, NodePredictionTask.build_trainer, Trainer.fit. One untimed
     update, then ``timed_updates`` with every kernel's launches checked."""
@@ -1830,9 +1915,8 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
 
-    from multimodaldiscussiontransformer_tpu_torch.data.loader import stack_microbatches
     from multimodaldiscussiontransformer_tpu_torch.tasks.node_prediction import NodePredictionTask
     from multimodaldiscussiontransformer_tpu_torch.train.launch import build_parser, config_from_args
     from multimodaldiscussiontransformer_tpu_torch.utils.flops import train_step_flops
@@ -1881,6 +1965,8 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
             "want": expected_launches(mc, fused, k, group["images"].shape[1] > 0, group["input_ids"].shape[2]),
             "loss": float(logs["loss"]) / max(float(logs["sample_size"]), 1.0), "gnorm": float(logs["gnorm"]),
             "graphs": int((group["idx"] >= 0).sum()), "flops": flops,
+            # what the prefetch thread sent to the card for this update
+            "h2d_bytes": sum(v.numel() * v.element_size() for v in group.values()),
             "shapes": {"S": int(group["in_degree"].shape[2]) + 1, "C": int(group["input_ids"].shape[1]),
                        "T": int(group["input_ids"].shape[2]), "I": int(group["images"].shape[1]),
                        "L": int(group["y"].shape[1])},
@@ -1897,6 +1983,7 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
     fit_s = time.perf_counter() - t0
     launches = _counts()
     trainer.train_step = inner
+    input_wait_ms = [w * 1e3 for w in trainer.input_waits]
 
     if len(records) != timed_updates:
         raise AssertionError(f"{phase}: {len(records)} timed updates, expected {timed_updates}")
@@ -1936,13 +2023,16 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
     mfu = [r["flops"] / (r["end"] - r["start"]) / H100_BF16_PEAK for r in records]
     graphs = sum(r["graphs"] for r in records)
     emit({
-        "phase": phase, "config": f"ModelConfig(){' with both towers fused' if fused else ''} (launch flags: "
+        "phase": phase, "card": card,
+        "config": f"ModelConfig(){' with both towers fused' if fused else ''} (launch flags: "
                                   f"--freeze-initial-encoders, batch {batch_size} x update_freq 3, dropout 0.4/0.3/0.3), "
                                   "bfloat16 compute, float32 params",
         "dataset": dataset_kw, "data_seconds": data_s, "init_seconds": init_s,
         "warmup_update_ms": (warm["end"] - warm["start"]) * 1e3,
         "timed_updates": timed_updates, "update_ms_median": float(np.median(step_ms)), "update_ms": step_ms,
         "host_batch_ms_median": float(np.median(gaps_ms)) if gaps_ms else None,
+        "input_wait_ms": input_wait_ms, "input_wait_ms_median": float(np.median(input_wait_ms)),
+        "h2d_bytes_per_update": [r["h2d_bytes"] for r in records],
         "fit_seconds": fit_s, "discussions_per_sec": graphs / fit_s,
         "discussions_per_sec_device_loop": graphs / (sum(step_ms) / 1e3),
         "mfu_median": float(np.median(mfu)), "peak_flops_assumed": H100_BF16_PEAK,
@@ -1961,25 +2051,32 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
     })
 
     if trace:
-        # where an update's device time goes: one more update under the profiler
-        group = next(iter(stack_microbatches(trainer.train_batches(ds, 2), 3, pad_tail=True)))
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            trainer.train_step(state, group)
-            torch.cuda.synchronize()
-            prof_wall_ms = (time.perf_counter() - t) * 1e3
-        events = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
-        dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+        # where an update's device time goes on the default path: fit's own
+        # profile window over TRACE_UPDATES updates, after one more update
+        # that lets the prefetch thread stage ahead
+        n0 = state.num_updates
+        trainer.cfg = dataclasses.replace(cfg, profile_trace_dir=os.path.join(tmp.name, "trace"),
+                                          profile_trace_start=n0 + 1, profile_trace_steps=TRACE_UPDATES)
+        with _ProfileWindow() as window:
+            state = trainer.fit(ds, state=state, max_updates=n0 + 1 + TRACE_UPDATES, log_fn=quiet)
+        trainer.cfg = cfg
+        prof, prof_wall_ms = window.session, window.wall_ms / TRACE_UPDATES
+        # the window traces the host too: keep the device's own events (the
+        # host ops' rows repeat their kernels' time)
+        events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                        key=lambda e: -e.self_device_time_total)
+        dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / TRACE_UPDATES
 
         def cat_ms(*keys):
-            return sum(e.self_device_time_total for e in events if any(k in e.key for k in keys)) / 1e3
+            return sum(e.self_device_time_total for e in events if any(k in e.key for k in keys)) / 1e3 / TRACE_UPDATES
 
-        top = [{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in events[:15]]
+        top = [{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3 / TRACE_UPDATES,
+                "count": e.count / TRACE_UPDATES} for e in events[:15]]
         emit({
-            "phase": phase + "_trace", "S": int(group["in_degree"].shape[2]) + 1, "C": int(group["input_ids"].shape[1]),
-            "I": int(group["images"].shape[1]),
+            "phase": phase + "_trace", "card": card,
+            "updates_traced": TRACE_UPDATES, "through": "Trainer.fit's profile window (prefetch on); per update",
             "wall_ms": prof_wall_ms, "device_ms": dev_ms, "device_busy_share": dev_ms / prof_wall_ms,
+            "device_busy_share_without_h2d": (dev_ms - cat_ms("Memcpy HtoD")) / prof_wall_ms,
             "tree_attention_ms": cat_ms("tree_attention"),
             "tree_attention_fwd_ms": cat_ms("tree_attention_fwd"),
             "tree_attention_bwd_ms": cat_ms("tree_attention_bwd"),
@@ -1993,7 +2090,7 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
             "dropout_rng_ms": cat_ms("distribution_elementwise"),
             "cast_and_layout_copy_ms": cat_ms("copy_kernel"),
             "host_to_device_ms": cat_ms("Memcpy HtoD"),
-            "device_ops": sum(e.count for e in events), "top_kernels": top,
+            "device_ops": sum(e.count for e in events) / TRACE_UPDATES, "top_kernels": top,
         })
     del state, trainer, before, after, grads, ds
     tmp.cleanup()
@@ -2001,15 +2098,372 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
     return dict(zip(KERNEL_NAMES, launches))
 
 
+WORKER_UPDATES = 4
+
+
+def phase_workers(seed: int, card: str):
+    """The canonical run with ``--num-workers 4`` on the train phase's
+    discussions as a ``hateful_discussions`` directory (lazy npz items, as
+    the reference's loader workers read them): 4 updates through
+    ``Trainer.fit`` with the graphs loaded and collated in 4 spawned
+    processes; the groups' ``idx`` against the in-process iterator's, the
+    launches against the config's, ms per update."""
+    import tempfile
+    from itertools import islice
+
+    import numpy as np
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.data.loader import stack_microbatches
+    from multimodaldiscussiontransformer_tpu_torch.tasks.node_prediction import NodePredictionTask
+    from multimodaldiscussiontransformer_tpu_torch.train.launch import build_parser, config_from_args
+    from multimodaldiscussiontransformer_tpu_torch.train.trainer import Trainer
+
+    tmp = tempfile.TemporaryDirectory()
+    data = os.path.join(tmp.name, "data")
+    written = write_hateful_discussions(data, seed + 1)
+    cfg = config_from_args(build_parser().parse_args(
+        [*CANONICAL_FLAGS, "--seed", str(seed + 1), "--data-root", data, "--no-save", "--save-dir", tmp.name,
+         "--num-workers", "4"]))
+    task = NodePredictionTask(cfg)
+    ds = task.load_dataset(root=data, split=0, seed=cfg.seed)
+    trainer = task.build_trainer(image_shape=IMAGE_SHAPE, device="cuda")
+    state = trainer.init_state()
+    records, inner = [], trainer.train_step
+
+    def timed(state_, group, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logs = inner(state_, group, **kw)
+        torch.cuda.synchronize()
+        records.append({"ms": (time.perf_counter() - t) * 1e3, "idx": group["idx"].cpu().numpy(),
+                        "want": expected_launches(cfg.model, False, group["idx"].shape[0], group["images"].shape[1] > 0,
+                                                  group["input_ids"].shape[2])})
+        return logs
+
+    trainer.train_step = timed
+    _zero_counts()
+    t0 = time.perf_counter()
+    state = trainer.fit(ds, state=state, max_updates=WORKER_UPDATES, log_fn=lambda m: None)
+    fit_s = time.perf_counter() - t0
+    launches = dict(zip(KERNEL_NAMES, _counts()))
+    waits_ms = [w * 1e3 for w in trainer.input_waits]
+    in_process = Trainer(dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, num_workers=0)),
+                         image_shape=IMAGE_SHAPE, device="cpu")
+    want_idx = [g["idx"] for g in islice(stack_microbatches(in_process.train_batches(ds, 1), 3, pad_tail=True),
+                                         WORKER_UPDATES)]
+    same = len(records) == WORKER_UPDATES and all(np.array_equal(r["idx"], w) for r, w in zip(records, want_idx))
+    total_want = dict(zip(KERNEL_NAMES, [sum(col) for col in zip(*(r["want"] for r in records))]))
+    ms = [r["ms"] for r in records]
+    emit({"phase": "runtime_workers", "card": card,
+          "config": "ModelConfig() (canonical launch flags, --num-workers 4: spawned loading and collation workers) "
+                    "on a hateful_discussions directory of the train phase's discussions",
+          "dataset": written,
+          "updates": len(records), "update_ms": ms, "update_ms_median": float(np.median(ms)),
+          "input_wait_ms": waits_ms, "fit_seconds": fit_s, "fit_ms_per_update": fit_s * 1e3 / max(len(records), 1),
+          "idx_equal_in_process": same, "launches": launches})
+    if not same or launches != total_want:
+        raise AssertionError(f"runtime_workers: groups equal {same}; launches {launches} vs {total_want}")
+    del state, trainer
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return launches
+
+
+INPUT_AB_UPDATES = 4
+# each input path twice, in mirrored order, from one position on the same
+# batches: prefetch (the default), sync (the path before the prefetcher:
+# collation on the training thread, each microbatch copied from pageable
+# memory, float32 images) and sync_staged (collation and the pinned, bf16
+# staging on the training thread: the prefetcher's work without its thread)
+INPUT_AB_ORDER = ("prefetch", "sync", "sync_staged", "sync_staged", "sync", "prefetch")
+
+
+class _InlineInput:
+    """What ``Trainer.prefetch`` returns, run on the training thread: each
+    item is produced and ``put`` when the loop asks for it; ``waits`` holds
+    the seconds that took."""
+
+    def __init__(self, items, put):
+        self._items, self._put, self.waits = iter(items), put, []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        close = getattr(self._items, "close", None)
+        if close is not None:
+            close()
+        return False
+
+    def __iter__(self):
+        while True:
+            t = time.perf_counter()
+            try:
+                host = next(self._items)
+            except StopIteration:
+                return
+            item = self._put(host)
+            self.waits.append(time.perf_counter() - t)
+            yield item
+
+
+class _Pageable:
+    """A host group handed to ``train_step`` as it is: each microbatch is
+    copied from pageable memory when the step reaches it."""
+
+    def __init__(self, host):
+        self.host = host
+
+    def ready(self):
+        return self.host
+
+
+def input_ab(trainer, state, ds, what: str, card: str) -> dict:
+    """``Trainer.fit`` over the same ``INPUT_AB_UPDATES`` updates on each
+    input path of ``INPUT_AB_ORDER``, every run from the same position
+    (step, epoch, update): ms per update (``profiling.StepTimer`` around a
+    synchronised ``train_step``), ms from one update's end to the next's
+    (the cycle: the update plus the input work between updates), and the ms
+    the training thread spent on each update's input (blocked on the
+    prefetch thread, or collating and copying itself)."""
+    import numpy as np
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.utils.profiling import StepTimer
+
+    quiet = lambda msg: None  # noqa: E731
+    state = trainer.fit(ds, state=state, max_updates=state.num_updates + 1, log_fn=quiet)  # warm-up
+    pos = (state.step, state.epoch, state.num_updates, state.mini_step)
+    inner = trainer.train_step
+    runs = []
+    for variant in INPUT_AB_ORDER:
+        timer, ends = StepTimer(warmup=0), []
+
+        def timed(state_, group, **kw):
+            torch.cuda.synchronize()
+            with timer.step(items=int((group["idx"] >= 0).sum())):
+                logs = inner(state_, group, **kw)
+                torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            return logs
+
+        trainer.train_step = timed
+        if variant != "prefetch":
+            trainer.prefetch = _InlineInput
+        if variant == "sync":
+            trainer.stage = _Pageable
+        state.step, state.epoch, state.num_updates, state.mini_step = pos
+        t0 = time.perf_counter()
+        try:
+            state = trainer.fit(ds, state=state, max_updates=pos[2] + INPUT_AB_UPDATES, log_fn=quiet)
+        finally:
+            for name in ("train_step", "prefetch", "stage"):
+                trainer.__dict__.pop(name, None)
+        fit_ms = (time.perf_counter() - t0) * 1e3
+        if len(timer.times) != INPUT_AB_UPDATES:
+            raise AssertionError(f"input_ab {what}: {variant} ran {len(timer.times)} updates")
+        runs.append({"variant": variant, "update_ms": [t * 1e3 for t in timer.times],
+                     "cycle_ms": [(b - a) * 1e3 for a, b in zip(ends, ends[1:])],
+                     "input_ms": [w * 1e3 for w in trainer.input_waits],
+                     "fit_ms_per_update": fit_ms / INPUT_AB_UPDATES, "step_timer": timer.summary()})
+    by_variant = {}
+    for variant in dict.fromkeys(INPUT_AB_ORDER):
+        mine = [r for r in runs if r["variant"] == variant]
+        pooled = lambda key, first=0: [x for r in mine for x in r[key][first:]]  # noqa: E731
+        by_variant[variant] = {
+            "update_ms_median": float(np.median(pooled("update_ms"))),
+            "cycle_ms_median": float(np.median(pooled("cycle_ms"))),
+            # the first update's input also holds the skipped groups' collation
+            "input_ms_median_after_first": float(np.median(pooled("input_ms", 1))),
+            "fit_ms_per_update": [r["fit_ms_per_update"] for r in mine]}
+    row = {"phase": "input_ab", "card": card, "what": what, "updates_per_run": INPUT_AB_UPDATES,
+           "order": list(INPUT_AB_ORDER), "by_variant": by_variant, "runs": runs}
+    emit(row)
+    return row
+
+
+def phase_input_ab(seed: int, card: str):
+    """``input_ab`` on the canonical node run (the ``train`` phase's
+    config and discussions) and on contrastive pre-training (the
+    ``contrastive`` phase's config, on a ``hateful_discussions`` directory
+    of contrastive discussions)."""
+    import tempfile
+
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.core import registry
+    from multimodaldiscussiontransformer_tpu_torch.train.launch import build_parser, config_from_args
+
+    registry.populate()
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        write_hateful_discussions(data, seed + 2, contrastive=True)
+        for what, extra, load in (
+                ("canonical", ["--synthetic"], dict(seed=seed + 1, seq_len=TEXT_LEN, num_graphs=TRAIN_GRAPHS,
+                                                    min_nodes=8, max_nodes=32, image_prob=0.25,
+                                                    image_shape=IMAGE_SHAPE)),
+                ("contrastive", ["--task", "contrastive_learning", "--data-root", data],
+                 dict(root=data, split=0, seed=seed + 2))):
+            cfg = config_from_args(build_parser().parse_args(
+                [*CANONICAL_FLAGS, *extra, "--seed", str(load["seed"]), "--no-save", "--save-dir", tmp]))
+            task = registry.TASKS.get(cfg.task)(cfg)
+            if what == "canonical":
+                load["vocab_size"] = cfg.model.text_tower.vocab_size
+            ds = task.load_dataset(**load)
+            trainer = task.build_trainer(image_shape=IMAGE_SHAPE, device="cuda")
+            rows[what] = input_ab(trainer, trainer.init_state(), ds, what, card)
+            del trainer, ds, task
+            torch.cuda.empty_cache()
+    return rows
+
+
+REMAT_UPDATES = 2
+REMAT_LOSS_RTOL = 1e-6  # the first update's loss: remat changes no forward value
+REMAT_RTOL = 5e-3  # its gradient norm and the second update's loss: the backward's atomics sum in another order
+
+
+def phase_remat(seed: int, card: str):
+    """``train_big``'s discussions (S 521-1001, both towers fused, batch 1
+    x update_freq 3) without remat and under each remat policy: 2 updates
+    each from one state (weights, AdamW moments, both generators); peak
+    memory, ms per update, the launches per update with the recompute
+    counted, the loss and the gradient norm against no remat."""
+    from itertools import islice
+
+    import numpy as np
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.data.loader import stack_microbatches
+    from multimodaldiscussiontransformer_tpu_torch.tasks.node_prediction import NodePredictionTask
+    from multimodaldiscussiontransformer_tpu_torch.train.launch import build_parser, config_from_args
+    from multimodaldiscussiontransformer_tpu_torch.train.trainer import Trainer
+    from multimodaldiscussiontransformer_tpu_torch.utils import checkpoints as ckpt
+    from multimodaldiscussiontransformer_tpu_torch.utils import profiling
+
+    cfg = config_from_args(build_parser().parse_args(
+        ["--synthetic", *CANONICAL_FLAGS, "--batch-size", "1", "--seed", str(seed + 1), "--no-save"]))
+    cfg = dataclasses.replace(cfg, model=fused_towers(cfg.model))
+    task = NodePredictionTask(cfg)
+    ds = task.load_dataset(seed=seed + 1, seq_len=TEXT_LEN, vocab_size=cfg.model.text_tower.vocab_size,
+                           image_shape=IMAGE_SHAPE, num_graphs=BIG_GRAPHS, min_nodes=520, max_nodes=1000, image_prob=0.05)
+    trainer = task.build_trainer(image_shape=IMAGE_SHAPE, device="cuda")
+    groups = list(islice(stack_microbatches(trainer.train_batches(ds, 1), 3, pad_tail=True), REMAT_UPDATES))
+    state = trainer.init_state()
+    saved = ckpt.state_dict_of(state)
+    trainer.train_step(state, groups[0])  # untimed: the first update's one-off costs
+    del state
+    torch.cuda.empty_cache()
+    rows, by_policy = {}, {}
+    for policy in ("none",) + REMAT_POLICIES:
+        mc = cfg.model.replace(remat=policy != "none", remat_policy="full" if policy == "none" else policy)
+        trainer = Trainer(dataclasses.replace(cfg, model=mc), image_shape=IMAGE_SHAPE, device="cuda")
+        state = ckpt.restore_params_into_state(trainer, trainer.init_state(params=saved["params"]), saved, False)
+        updates = []
+        _zero_counts()
+        for group in groups:
+            batch = trainer.stage(group).ready()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            c0, t = _counts(), time.perf_counter()
+            logs = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            got = [a - b for a, b in zip(_counts(), c0)]
+            want = expected_launches(mc, True, group["idx"].shape[0], group["images"].shape[1] > 0,
+                                     group["input_ids"].shape[2])
+            updates.append({"ms": ms, "peak_gb": profiling.memory_stats()["allocated_bytes.all.peak"] / 2**30,
+                            "loss": float(logs["loss"]) / max(float(logs["sample_size"]), 1.0),
+                            "gnorm": float(logs["gnorm"]), "launches": dict(zip(KERNEL_NAMES, got)),
+                            "launches_ok": got == want, "S": int(group["in_degree"].shape[2]) + 1})
+        by_policy[policy] = dict(zip(KERNEL_NAMES, _counts()))
+        rows[policy] = updates
+        del state, trainer, batch
+        torch.cuda.empty_cache()
+    ref = rows["none"]
+    bad = []
+    for policy, updates in rows.items():
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+        for i, (u, r) in enumerate(zip(updates, ref)):
+            u["loss_rel_vs_none"], u["gnorm_rel_vs_none"] = rel(u["loss"], r["loss"]), rel(u["gnorm"], r["gnorm"])
+            tol = REMAT_LOSS_RTOL if i == 0 else REMAT_RTOL
+            if not u["launches_ok"] or u["loss_rel_vs_none"] > tol or u["gnorm_rel_vs_none"] > REMAT_RTOL:
+                bad.append((policy, i, u["launches_ok"], u["loss_rel_vs_none"], u["gnorm_rel_vs_none"]))
+    emit({"phase": "runtime_remat", "card": card,
+          "config": "ModelConfig() with both towers fused, --freeze-initial-encoders, batch 1 x update_freq 3 on "
+                    f"discussions of 520-1000 nodes; {REMAT_UPDATES} updates per policy from one state",
+          "tolerance": {"first_update_loss_rtol": REMAT_LOSS_RTOL, "rtol": REMAT_RTOL},
+          "peak_gb": {p: max(u["peak_gb"] for u in us) for p, us in rows.items()},
+          "update_ms": {p: [u["ms"] for u in us] for p, us in rows.items()},
+          "tree_fwd_launches_per_update": {p: [u["launches"]["tree_attention_fwd_fused"] for u in us] for p, us in rows.items()},
+          "tower_fwd_launches_per_update": {p: [u["launches"]["masked_attention_fwd_fused"] for u in us]
+                                            for p, us in rows.items()},
+          "updates": rows})
+    if bad:
+        raise AssertionError(f"runtime_remat: (policy, update, launches ok, loss rel, gnorm rel) {bad}")
+    return by_policy
+
+
+PROFILE_UPDATES = 2
+
+
+def phase_profile(seed: int, card: str):
+    """``--profile-trace`` on the canonical synthetic run through
+    ``train.launch.main``: the trace of updates 3-4 (after 2, as the JAX
+    launcher starts), its size, and its tree and tower kernel events
+    against the launches those updates make."""
+    import tempfile
+
+    from multimodaldiscussiontransformer_tpu_torch.train.launch import build_parser, config_from_args
+
+    mc = config_from_args(build_parser().parse_args(["--synthetic", *CANONICAL_FLAGS])).model
+    # every canonical update launches the same tree kernels (k = 3, the tail padded)
+    per_update = sum(expected_launches(mc, False, 3, False, TEXT_LEN)[:6])
+    with tempfile.TemporaryDirectory() as d:
+        trace_dir = os.path.join(d, "trace")
+        _zero_counts()
+        t = time.perf_counter()
+        rc, out = _main_quiet(["--synthetic", *CANONICAL_FLAGS, "--seed", str(seed + 1), "--no-save",
+                               "--save-dir", os.path.join(d, "run"), "--max-updates", str(2 + PROFILE_UPDATES),
+                               "--profile-trace", trace_dir, "--profile-steps", str(PROFILE_UPDATES)])
+        seconds = time.perf_counter() - t
+        launches = dict(zip(KERNEL_NAMES, _counts()))
+        files = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else []
+        events = []
+        if files:
+            with open(os.path.join(trace_dir, files[0])) as f:
+                events = json.load(f)["traceEvents"]
+        size = os.path.getsize(os.path.join(trace_dir, files[0])) if files else 0
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    tree = sum("tree_attention" in k for k in kernels)
+    tower = sum("masked_attention" in k for k in kernels)
+    # the trainer's named ranges: 3 microbatches and one optimizer step per update
+    ranges = [e.get("name", "") for e in events if e.get("cat") == "user_annotation"]
+    named = {n: ranges.count(n) for n in ("microbatch", "optimizer")}
+    emit({"phase": "runtime_profile", "card": card, "rc": rc, "seconds": seconds, "trace_files": files,
+          "trace_bytes": size, "trace_events": len(events), "kernel_events": len(kernels),
+          "tree_attention_kernel_events": tree, "masked_attention_kernel_events": tower,
+          "tree_launches_per_update": per_update, "updates_traced": PROFILE_UPDATES, "named_ranges": named,
+          "logged": "profile trace written to" in out})
+    if rc != 0 or len(files) != 1 or tree != PROFILE_UPDATES * per_update or "profile trace written to" not in out \
+            or named != {"microbatch": 3 * PROFILE_UPDATES, "optimizer": PROFILE_UPDATES}:
+        raise AssertionError(f"runtime_profile: rc {rc}, files {files}, tree kernel events {tree} for "
+                             f"{PROFILE_UPDATES} x {per_update} launches, named ranges {named}:\n{out[-2000:]}")
+    return launches
+
+
+REMAT_POLICIES = ("full", "dots", "dots_saveable", "names", "names_heavy")
 AGREE_VARIANTS = {
     "node": "one scan update of 3 x 4",
     "contrastive": "one scan update of the contrastive task, 3 x 4",
     "multisteps": "one MultiSteps update (scan_microbatches off): 3 microbatches of 4",
     "bf16_adam": "one scan update of 3 x 4 with bf16 Adam moments",
+    **{f"remat_{p}": f"one scan update of 3 x 4 under --remat --remat-policy {p}" for p in REMAT_POLICIES},
 }
 
 
-def phase_train_cpu_agreement(seed: int, fused: bool, variant: str = "node"):
+def phase_train_cpu_agreement(seed: int, fused: bool, variant: str = "node", card: str = ""):
     """One update of the tiny config with every dropout at 0, in float32,
     on the card and on the CPU from the same weights and batches: the scan
     update of the node task, or (``variant``) of the contrastive task, a
@@ -2029,6 +2483,8 @@ def phase_train_cpu_agreement(seed: int, fused: bool, variant: str = "node"):
                   image_tower=dataclasses.replace(m.image_tower, **no_drop))
     if fused:
         m = fused_towers(m)
+    if variant.startswith("remat_"):
+        m = m.replace(remat=True, remat_policy=variant[len("remat_"):])
     contrastive = variant == "contrastive"
     task = dict(task="contrastive_learning", criterion="contrastive_loss") if contrastive else {}
     cfg = TrainConfig(
@@ -2091,7 +2547,7 @@ def phase_train_cpu_agreement(seed: int, fused: bool, variant: str = "node"):
             if not (pe[~big] <= 2.05 * lr0 + 1e-7).all():
                 bad.append(("param_small_grad", k, pe[~big].max().item()))
     name = "train_cpu_agreement" + ("_fused" if fused else "") + ("" if variant == "node" else f"_{variant}")
-    emit({"phase": name,
+    emit({"phase": name, "card": card,
           "config": f"tiny{', both towers fused' if fused else ''}, every dropout 0, float32, {AGREE_VARIANTS[variant]}",
           "tensors": len(out["cpu"]["grads"]), "max_abs_err_grad": grad_err, "max_abs_err_param": param_err,
           "max_abs_err_param_small_grad": small_err, "loss_cuda": out["cuda"]["loss"], "loss_cpu": out["cpu"]["loss"],
@@ -2329,7 +2785,7 @@ def _train_losses(save_dir: str) -> dict:
         return {r["step"]: r["loss"] for r in map(json.loads, f) if r["split"] == "train"}
 
 
-def phase_checkpoint(seed: int):
+def phase_checkpoint(seed: int, card: str = ""):
     """Save, preempt, resume, evaluate, predict and serve from checkpoints at
     full width, through the launcher, on a ``hateful_discussions``
     directory."""
@@ -2346,6 +2802,8 @@ def phase_checkpoint(seed: int):
     from multimodaldiscussiontransformer_tpu_torch.train.launch import build_parser, config_from_args
     from multimodaldiscussiontransformer_tpu_torch.utils import checkpoints as ckpt
 
+    from multimodaldiscussiontransformer_tpu_torch.utils.scan_params import scanned_state_dict
+
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     root = tempfile.mkdtemp(prefix="mdt_checkpoint_")
@@ -2353,7 +2811,8 @@ def phase_checkpoint(seed: int):
     try:
         data = os.path.join(root, "data")
         dataset = write_hateful_discussions(data, seed + 1)
-        dirs = {name: os.path.join(root, name) for name in ("whole", "preempted", "copy", "pred")}
+        dirs = {name: os.path.join(root, name)
+                for name in ("whole", "in_flight", "stop_save", "copy", "sync", "scan", "pred")}
         # the canonical run_train.sh 8 4 5 2 2 0 flags, bf16, 4 updates
         flags = ["--num-fusion-layers", "8", "--num-bottleneck-tokens", "4", "--spatial-pos-max", "5",
                  "--num-graph-stack", "2", "--num-fusion-stack", "2", "--freeze-initial-encoders",
@@ -2372,31 +2831,45 @@ def phase_checkpoint(seed: int):
 
         mark("data")
 
-        # the preempted run: a process of its own, with no interval or
-        # validation saves, so that only the stop request can save; SIGTERM
-        # once its log shows update 1, so it lands during update 2 (a
-        # canonical update takes ~0.6 s); it runs beside the uninterrupted run
-        log_path = os.path.join(root, "preempted.log")
+        # two preempted runs, each a process of its own, each sent SIGTERM
+        # once its log shows update 1:
+        # - "in_flight" saves after every update, so the signal lands while
+        #   the asynchronous save of step 1 is still being written (~2-4 s):
+        #   its file is newer than the signal; the stop comes at update 1
+        #   (the signal came during that save's snapshot) or 2; it runs
+        #   beside the uninterrupted run;
+        # - "stop_save" makes no interval or validation save, so only the
+        #   stop branch can save: the stop comes at update 2 (an update
+        #   takes ~0.6 s) and its asynchronous save, waited for before the
+        #   process exits, is the run's only step on disk; it runs beside
+        #   the first one's relaunch (two trainings on the card at a time)
         env = {**os.environ, "PYTHONUNBUFFERED": "1", "PYTHONFAULTHANDLER": "1"}
-        cmd = [sys.executable, "-m", "multimodaldiscussiontransformer_tpu_torch.train.launch", *flags,
-               "--validate-interval-updates", "0", "--save-dir", dirs["preempted"]]
-        with open(log_path, "w") as log:
-            proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT)
-        procs.append(proc)
-        sent = {}
+        preempted = {"in_flight": ["--save-interval-updates", "1"], "stop_save": []}
 
-        def watch():
-            t0 = time.perf_counter()
-            while proc.poll() is None:
-                with open(log_path) as f:
-                    if re.search(r"update 1: ", f.read()):
-                        proc.send_signal(signal.SIGTERM)
-                        sent["after_s"] = time.perf_counter() - t0
-                        return
-                time.sleep(0.01)
+        def start_preempted(name):
+            log_path = os.path.join(root, f"{name}.log")
+            cmd = [sys.executable, "-m", "multimodaldiscussiontransformer_tpu_torch.train.launch", *flags,
+                   "--validate-interval-updates", "0", *preempted[name], "--save-dir", dirs[name]]
+            with open(log_path, "w") as log:
+                proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT)
+            procs.append(proc)
+            sent = {}
 
-        watcher = threading.Thread(target=watch, daemon=True)
-        watcher.start()
+            def watch():
+                t0 = time.perf_counter()
+                while proc.poll() is None:
+                    with open(log_path) as f:
+                        if re.search(r"update 1: ", f.read()):
+                            proc.send_signal(signal.SIGTERM)
+                            sent["after_s"], sent["wall"] = time.perf_counter() - t0, time.time()
+                            return
+                    time.sleep(0.01)
+
+            watcher = threading.Thread(target=watch, daemon=True)
+            watcher.start()
+            return {"proc": proc, "log": log_path, "sent": sent, "watcher": watcher}
+
+        runs = {"in_flight": start_preempted("in_flight")}
 
         _zero_counts()
         with _RecordedUpdates(mc) as whole:
@@ -2404,52 +2877,74 @@ def phase_checkpoint(seed: int):
         whole_launches = dict(zip(KERNEL_NAMES, _counts()))
         if rc != 0:
             raise AssertionError(f"checkpoint: the uninterrupted run returned {rc}:\n{out_whole[-2000:]}")
+        if [r["update"] for r in whole.records] != [1, 2, 3, 4]:
+            raise AssertionError(f"checkpoint: uninterrupted updates {[r['update'] for r in whole.records]}")
+        whole.check_launches("checkpoint: the uninterrupted run", whole_launches)
         mark("uninterrupted")
-        rc = proc.wait(timeout=600)
-        watcher.join(timeout=10)
-        mark("preempted_after_uninterrupted")
-        with open(log_path) as f:
-            log_text = f.read()
-        stopped = re.search(r"stop requested at update (\d+)", log_text)
-        stop_at = int(stopped.group(1)) if stopped else None
-        # the stop branch's save is the only one this run makes
-        if rc != 0 or "after_s" not in sent or stop_at != 2 \
-                or f"preempted: checkpoint saved at step {stop_at}" not in log_text \
-                or ckpt.Checkpointer(dirs["preempted"]).all_steps() != [stop_at]:
-            raise AssertionError(f"checkpoint: the preempted run (rc {rc}, stop at {stop_at}) did not save at its "
-                                 f"stop:\n{log_text[-3000:]}")
-
-        # the relaunch: auto-resume from the stop, run to 4
-        _zero_counts()
-        with _RecordedUpdates(mc) as resumed:
-            rc, out_resumed = _main_quiet(flags + saves + ["--save-dir", dirs["preempted"]])
-        resumed_launches = dict(zip(KERNEL_NAMES, _counts()))
-        if rc != 0 or f"auto-resumed from step {stop_at}" not in out_resumed:
-            raise AssertionError(f"checkpoint: the relaunch returned {rc} without resuming:\n{out_resumed[-2000:]}")
-        mark("relaunch")
-        resumed_updates = list(range(stop_at + 1, 5))
-        if [r["update"] for r in whole.records] != [1, 2, 3, 4] or [r["update"] for r in resumed.records] != resumed_updates:
-            raise AssertionError(f"checkpoint: updates run {[r['update'] for r in whole.records]}, "
-                                 f"resumed {[r['update'] for r in resumed.records]}")
-        for name, run, launches in (("uninterrupted", whole, whole_launches), ("resumed", resumed, resumed_launches)):
-            run.check_launches(f"checkpoint: the {name} run", launches)
-
-        # the preempted + resumed run against the uninterrupted one, at step 4
         a = ckpt.Checkpointer(dirs["whole"]).restore(step=4)
-        b = ckpt.Checkpointer(dirs["preempted"]).restore(step=4)
-        rng_equal = {k: _bytes_equal(a[k], b[k]) for k in ("host_rng", "device_rng")}
-        la, lb = _train_losses(dirs["whole"]), _train_losses(dirs["preempted"])
-        loss_rel = {n: abs(lb[n] - la[n]) / abs(la[n]) for n in resumed_updates}
+        la = _train_losses(dirs["whole"])
         moved = max(float((a["params"][k].float() - v).abs().max()) for k, v in whole.before.items())
-        diffs = sorted(((float((b["params"][k].float() - a["params"][k].float()).abs().max()), k)
-                        for k in whole.before), reverse=True)
-        differing = sum(int((b["params"][k] != a["params"][k]).sum()) for k in whole.before)
-        if not all(rng_equal.values()) or max(loss_rel.values()) > RESUME_LOSS_RTOL \
-                or diffs[0][0] > RESUME_PARAM_FRACTION * moved:
-            raise AssertionError(f"checkpoint: resumed vs uninterrupted: generators equal {rng_equal}, loss rel "
-                                 f"{loss_rel}, largest param diffs {diffs[:5]} against the 4 updates' {moved}")
-        del b
-        mark("compare")
+        preempt_rows = {}
+        for name in preempted:
+            run = runs[name]
+            rc = run["proc"].wait(timeout=600)
+            run["watcher"].join(timeout=10)
+            if name == "in_flight":
+                runs["stop_save"] = start_preempted("stop_save")
+            sent = run["sent"]
+            with open(run["log"]) as f:
+                log_text = f.read()
+            stopped = re.search(r"stop requested at update (\d+)", log_text)
+            stop_at = int(stopped.group(1)) if stopped else None
+            steps = ckpt.Checkpointer(dirs[name]).all_steps()
+            step1 = os.path.join(dirs[name], "1", ckpt.STATE_FILE)
+            in_flight = os.path.exists(step1) and "wall" in sent and os.path.getmtime(step1) > sent["wall"]
+            if name == "in_flight":
+                ok = stop_at in (1, 2) and in_flight and steps == sorted({1, stop_at})
+            else:  # the stop branch's own save is the one step on disk
+                ok = stop_at == 2 and steps == [2]
+            if rc != 0 or "after_s" not in sent or not ok \
+                    or f"preempted: checkpoint saved at step {stop_at}" not in log_text:
+                raise AssertionError(f"checkpoint: the {name} preempted run (rc {rc}, stop at {stop_at}, steps "
+                                     f"{steps}, step 1 in flight at the signal {in_flight}) did not save at its "
+                                     f"stop:\n{log_text[-3000:]}")
+
+            # the relaunch: auto-resume from the stop, run to 4
+            _zero_counts()
+            with _RecordedUpdates(mc) as resumed:
+                rc, out_resumed = _main_quiet(flags + saves + ["--save-dir", dirs[name]])
+            resumed_launches = dict(zip(KERNEL_NAMES, _counts()))
+            if rc != 0 or f"auto-resumed from step {stop_at}" not in out_resumed:
+                raise AssertionError(f"checkpoint: the {name} relaunch returned {rc} without resuming:\n"
+                                     f"{out_resumed[-2000:]}")
+            resumed_updates = list(range(stop_at + 1, 5))
+            if [r["update"] for r in resumed.records] != resumed_updates:
+                raise AssertionError(f"checkpoint: the {name} relaunch ran {[r['update'] for r in resumed.records]}")
+            resumed.check_launches(f"checkpoint: the {name} resumed run", resumed_launches)
+
+            # the preempted + resumed run against the uninterrupted one, at step 4
+            b = ckpt.Checkpointer(dirs[name]).restore(step=4)
+            rng_equal = {k: _bytes_equal(a[k], b[k]) for k in ("host_rng", "device_rng")}
+            lb = _train_losses(dirs[name])
+            loss_rel = {n: abs(lb[n] - la[n]) / abs(la[n]) for n in resumed_updates}
+            diffs = sorted(((float((b["params"][k].float() - a["params"][k].float()).abs().max()), k)
+                            for k in whole.before), reverse=True)
+            differing = sum(int((b["params"][k] != a["params"][k]).sum()) for k in whole.before)
+            if not all(rng_equal.values()) or max(loss_rel.values()) > RESUME_LOSS_RTOL \
+                    or diffs[0][0] > RESUME_PARAM_FRACTION * moved:
+                raise AssertionError(f"checkpoint: {name} resumed vs uninterrupted: generators equal {rng_equal}, "
+                                     f"loss rel {loss_rel}, largest param diffs {diffs[:5]} against the 4 updates' "
+                                     f"{moved}")
+            resumed_ms = [r["ms"] for r in resumed.records]
+            preempt_rows[name] = {
+                "signal_after_s": sent["after_s"], "stop_at_update": stop_at, "steps_on_disk": steps,
+                "step1_written_after_the_signal": in_flight, "resumed_updates": resumed_updates,
+                "resumed_update_ms": resumed_ms, "resumed_update_ms_median": float(np.median(resumed_ms)),
+                "loss_resumed": lb, "loss_rel_diff": loss_rel, "generators_byte_equal": rng_equal,
+                "param_largest_diffs": diffs[:5], "param_elements_differing": differing,
+                "launches_resumed": resumed_launches}
+            del b
+            mark(f"{name}_relaunch_and_compare")
 
         # the round trip: the uninterrupted run's step 4 in memory, saved, loaded
         task = NodePredictionTask(cfg)
@@ -2457,13 +2952,23 @@ def phase_checkpoint(seed: int):
         state = ckpt.restore_params_into_state(trainer, trainer.init_state(params=a["params"]), a, reset_optimizer=False)
         del a
         before = ckpt.state_dict_of(state)
+        # an async save: the training thread stalls for the snapshot only;
+        # the step is durable once wait returns. A synchronous save of the
+        # same state beside it
         saver = ckpt.Checkpointer(dirs["copy"], keep=2)
         torch.cuda.synchronize()
         t = time.perf_counter()
         saver.save(state, state.num_updates)
         save_ms = (time.perf_counter() - t) * 1e3
+        saver.wait()
+        durable_ms = (time.perf_counter() - t) * 1e3
         path = os.path.join(dirs["copy"], str(state.num_updates), ckpt.STATE_FILE)
         ckpt_bytes = os.path.getsize(path)
+        t = time.perf_counter()
+        ckpt.Checkpointer(dirs["sync"], async_save=False).save(state, state.num_updates)
+        sync_save_ms = (time.perf_counter() - t) * 1e3
+        sync_bytes = os.path.getsize(os.path.join(dirs["sync"], str(state.num_updates), ckpt.STATE_FILE))
+        shutil.rmtree(dirs["sync"])
         # serve the copy from another process while this one checks it
         with open(os.path.join(root, "server.log"), "w") as log:
             server = subprocess.Popen(
@@ -2498,6 +3003,17 @@ def phase_checkpoint(seed: int):
         if scorer.device.type != "cuda" or not all(np.array_equal(x, y) for x, y in zip(got, want)):
             raise AssertionError(f"checkpoint: from_checkpoint on {scorer.device} scores "
                                  f"{max(float(np.abs(x - y).max()) for x, y in zip(got, want))} off the model")
+        # the same params in the scan layout (what --scan-layers saves), served
+        stacked = scanned_state_dict(state.model.state_dict(), mc)
+        ckpt.save_params(dirs["scan"], stacked)
+        scan_scorer = DiscussionScorer.from_checkpoint(dirs["scan"])
+        got_scan = scan_scorer.score_items(items)
+        scan_equal = all(np.array_equal(x, y) for x, y in zip(got_scan, got))
+        scan_tensors = sum(".scan_pairs." in k or ".scan_layers." in k for k in stacked)
+        del scan_scorer, stacked
+        if not scan_equal or not scan_tensors:
+            raise AssertionError(f"checkpoint: the scan-layout checkpoint ({scan_tensors} stacked tensors) scores "
+                                 f"{max(float(np.abs(x - y).max()) for x, y in zip(got_scan, got))} off the unrolled one")
         del scorer, trainer, state, task
         torch.cuda.empty_cache()
         mark("from_checkpoint")
@@ -2561,25 +3077,24 @@ def phase_checkpoint(seed: int):
                                  f"{text[-4000:]}")
         mark("server")
 
-        resumed_ms = [r["ms"] for r in resumed.records]
         row = {
-            "phase": "checkpoint",
+            "phase": "checkpoint", "card": card,
             "config": "ModelConfig() (launch flags: run_train.sh 8 4 5 2 2 0, --freeze-initial-encoders, batch 12 x "
                       "update_freq 3), bfloat16 compute, float32 params, 4 updates",
-            "dataset": dataset, "preempt_signal_after_s": sent["after_s"], "preempted_stop_at_update": stop_at,
-            "checkpoint_bytes": ckpt_bytes, "expected_bytes": whole.expected_bytes,
-            "save_ms": save_ms, "restore_ms": restore_ms, "from_checkpoint_ms": from_ckpt_ms,
-            "resumed_update_ms": resumed_ms, "resumed_update_ms_median": float(np.median(resumed_ms)),
-            "uninterrupted_update_ms_beside_the_preempted_run": [r["ms"] for r in whole.records],
-            "loss": {"uninterrupted": la, "resumed": lb}, "loss_rel_diff": loss_rel,
-            "generators_byte_equal": rng_equal, "param_max_change_4_updates": moved,
-            "param_largest_diffs": diffs[:5], "param_elements_differing": differing,
+            "dataset": dataset, "preempted": preempt_rows,
+            "checkpoint_bytes": ckpt_bytes, "expected_bytes": whole.expected_bytes, "sync_checkpoint_bytes": sync_bytes,
+            "save_stall_ms": save_ms, "save_durable_ms": durable_ms, "sync_save_ms": sync_save_ms,
+            "restore_ms": restore_ms, "from_checkpoint_ms": from_ckpt_ms,
+            "update_ms_after_a_save": [r["ms"] for r in whole.records if r["update"] == 3],
+            "scan_layout_bit_equal": scan_equal, "scan_layout_stacked_tensors": scan_tensors,
+            "uninterrupted_update_ms_beside_the_preempted_runs": [r["ms"] for r in whole.records],
+            "loss_uninterrupted": la, "param_max_change_4_updates": moved,
             "param_elements": sum(v.numel() for v in whole.before.values()),
             "round_trip_byte_exact": True, "from_checkpoint_bit_equal": True, "server_bit_equal": True,
             "server_post_ms": post_ms, "eval_only_seconds": eval_s, "prediction_rows": int(m.group(1)),
             "prediction_file": os.path.basename(pred_path),
-            "launches_uninterrupted": whole_launches, "launches_resumed": resumed_launches,
-            "launches_eval_only": eval_launches, "seconds_by_step": seconds, "seconds": time.perf_counter() - t_phase,
+            "launches_uninterrupted": whole_launches, "launches_eval_only": eval_launches,
+            "seconds_by_step": seconds, "seconds": time.perf_counter() - t_phase,
         }
         emit(row)
         return row
@@ -2829,18 +3344,26 @@ def main(argv=None) -> int:
     del scorer, unfused
     torch.cuda.empty_cache()
     train = run_train(args.seed, "train", batch_size=12, fused=False, timed_updates=TIMED_UPDATES, trace=True,
-                      dataset_kw=dict(num_graphs=TRAIN_GRAPHS, min_nodes=8, max_nodes=32, image_prob=0.25))
+                      dataset_kw=dict(num_graphs=TRAIN_GRAPHS, min_nodes=8, max_nodes=32, image_prob=0.25), card=card)
     train_fused = run_train(args.seed, "train_fused", batch_size=12, fused=True, timed_updates=TIMED_UPDATES,
-                            trace=False, dataset_kw=dict(num_graphs=TRAIN_GRAPHS, min_nodes=8, max_nodes=32, image_prob=0.25))
+                            trace=False, dataset_kw=dict(num_graphs=TRAIN_GRAPHS, min_nodes=8, max_nodes=32, image_prob=0.25),
+                            card=card)
     train_big = run_train(args.seed, "train_big", batch_size=1, fused=True, timed_updates=BIG_TIMED_UPDATES, trace=True,
-                          dataset_kw=dict(num_graphs=BIG_GRAPHS, min_nodes=520, max_nodes=1000, image_prob=0.05))
+                          dataset_kw=dict(num_graphs=BIG_GRAPHS, min_nodes=520, max_nodes=1000, image_prob=0.05),
+                          card=card)
+    phase_input_ab(args.seed, card)
+    workers = phase_workers(args.seed, card)
+    remat = phase_remat(args.seed, card)
+    agree_remat = {p: phase_train_cpu_agreement(args.seed, fused=True, variant=f"remat_{p}", card=card)
+                   for p in REMAT_POLICIES}
     agree = phase_train_cpu_agreement(args.seed, fused=False)  # float32: the CUDA-core tree forward's path
     agree_fused = phase_train_cpu_agreement(args.seed, fused=True)  # float32: the pair's path
     agree_variants = {v: phase_train_cpu_agreement(args.seed, fused=False, variant=v)
                       for v in ("contrastive", "multisteps", "bf16_adam")}
     dense = phase_dense_graph(args.seed)
     phase_launch()
-    phase_checkpoint(args.seed)
+    profile = phase_profile(args.seed, card)
+    phase_checkpoint(args.seed, card)
     contrastive = phase_contrastive(args.seed)
 
     serve_row = rows[0]  # S=33, B=16: the canonical serving shape
@@ -2853,6 +3376,9 @@ def main(argv=None) -> int:
                "dense_graph": dense["scoring"], "dense_graph_train": dense["training"],
                "dense_graph_float32_step": dense["float32_step"],
                **{f"train_cpu_agreement_{v}": counts for v, counts in agree_variants.items()},
+               "runtime_workers": workers, "runtime_profile": profile,
+               **{f"runtime_remat_{p}": counts for p, counts in remat.items()},
+               **{f"train_cpu_agreement_fused_remat_{p}": counts for p, counts in agree_remat.items()},
                **{f"contrastive_{part}": contrastive[part]["launches"]
                   for part in ("pretrain", "transfer", "multisteps", "bf16_adam", "bf16_params")}}
 

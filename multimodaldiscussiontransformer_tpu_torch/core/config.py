@@ -141,10 +141,12 @@ class ModelConfig:
     # hand-written tree-attention kernel; False assembles the dense
     # (B, H, S, S) bias and runs plain attention
     use_pallas_attention: bool = True
-    # not ported yet (raise at model build)
+    # not ported yet (raises at model build)
     sequence_parallel: bool = False
+    # rematerialise the fusion and graph stacks (models/remat.py)
     remat: bool = False
     remat_policy: str = "full"
+    # the scan param layout (utils/scan_params.py); the modules run unrolled
     scan_layers: bool = False
 
     @property

@@ -91,12 +91,13 @@ class Batch:
 
 
 def to_tensors(batch: Union[Batch, Mapping[str, np.ndarray]], device) -> Dict[str, torch.Tensor]:
-    """The batch (a ``Batch`` or its dict) as tensors on ``device``: integer
-    arrays as int64 (index dtype), floats as float32, masks as bool."""
+    """The batch (a ``Batch`` or its dict of arrays or tensors) as tensors
+    on ``device``: integers as int64 (index dtype), floats and masks as
+    they are (a tensor already there is not copied)."""
     out = {}
     arrays = batch.asdict() if isinstance(batch, Batch) else batch
     for k, v in arrays.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
         if t.dtype in (torch.int32, torch.int64):
             t = t.long()
         out[k] = t.to(device)

@@ -5,13 +5,16 @@ seed and epoch both packages yield bit-equal batches.
 - split modes: a random 80/10/10 split, or explicit index arrays with a
   seeded shuffle of the training indices;
 - the per-epoch order is ``RandomState(seed + epoch - 1).permutation``;
-- batches are collated into static-capacity buffers by ``data/collator.py``.
+- the epoch's batch order is a list of index chunks (``batch_index_chunks``);
+  ``ChunkCollator`` loads each chunk's graphs and collates them into
+  static-capacity buffers (``data/collator.py``), in this process
+  (``iterate_batches``) or in worker processes (``data/worker_loader.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -80,23 +83,18 @@ def epoch_permutation(n: int, seed: int, epoch: int) -> np.ndarray:
     return np.random.RandomState((seed + epoch - 1) % (2**32)).permutation(n)
 
 
-def iterate_batches(
+def batch_index_chunks(
     dataset: DiscussionDataset,
     indices: np.ndarray,
     data_cfg: DataConfig,
     task_cfg: TaskConfig,
     epoch: int = 1,
     shuffle: bool = False,
-    image_shape=(3, 224, 224),
     drop_last: Optional[bool] = None,
     batch_size: Optional[int] = None,
-    pad_tail_to_batch: bool = False,
-    contrastive: bool = False,
-) -> Iterator[Batch]:
-    """Yield collated static-shape batches for one epoch (per-graph targets
-    with ``contrastive``). With ``pad_tail_to_batch`` a ragged final batch
-    (``drop_last=False``) is padded to the full batch size with inert
-    zero-node graphs."""
+) -> List[np.ndarray]:
+    """The epoch's batch order as index chunks: the seeded epoch shuffle,
+    optional length grouping, and drop-last or a ragged tail."""
     order = np.asarray(indices)
     if shuffle:
         order = order[epoch_permutation(len(order), task_cfg.seed, epoch)]
@@ -112,26 +110,73 @@ def iterate_batches(
         head = order[: n_chunks * bs].reshape(n_chunks, bs)[chunk_perm]
         order = np.concatenate([head.reshape(-1), order[n_chunks * bs :]])
     end = (len(order) // bs) * bs if drop else len(order)
-    for s in range(0, end, bs):
-        chunk = order[s : s + bs]
-        if len(chunk) == 0:
-            continue
-        items = [dataset.get(int(i)) for i in chunk]
-        over = [(int(i), it.num_nodes) for i, it in zip(chunk, items) if it.num_nodes > task_cfg.max_nodes]
+    return [order[s : s + bs] for s in range(0, end, bs) if len(order[s : s + bs])]
+
+
+@dataclass
+class ChunkCollator:
+    """Loads the graphs of one index chunk and collates them. Picklable, so
+    worker processes run it too (``data/worker_loader.py``)."""
+
+    dataset: DiscussionDataset
+    data_cfg: DataConfig
+    task_cfg: TaskConfig
+    image_shape: tuple = (3, 224, 224)
+    pad_to_graphs: Optional[int] = None
+    contrastive: bool = False
+
+    def __call__(self, chunk: np.ndarray) -> Batch:
+        cfg, task = self.data_cfg, self.task_cfg
+        items = [self.dataset.get(int(i)) for i in chunk]
+        over = [(int(i), it.num_nodes) for i, it in zip(chunk, items) if it.num_nodes > task.max_nodes]
         if over:
             raise ValueError(
-                f"graph(s) exceed task.max_nodes={task_cfg.max_nodes} (idx, nodes): {over[:5]}; "
+                f"graph(s) exceed task.max_nodes={task.max_nodes} (idx, nodes): {over[:5]}; "
                 "raise --max-nodes or prune the trees"
             )
-        yield collate(
+        return collate(
             items,
-            pad_to_graphs=bs if pad_tail_to_batch else None,
-            spatial_pos_max=task_cfg.spatial_pos_max,
-            node_buckets=data_cfg.node_buckets,
-            node_capacity_buckets=data_cfg.node_capacity_buckets,
-            image_capacity_buckets=data_cfg.image_capacity_buckets,
-            label_capacity_buckets=data_cfg.label_capacity_buckets,
-            image_shape=image_shape,
-            text_len_buckets=data_cfg.text_len_buckets,
-            contrastive=contrastive,
+            pad_to_graphs=self.pad_to_graphs,
+            spatial_pos_max=task.spatial_pos_max,
+            node_buckets=cfg.node_buckets,
+            node_capacity_buckets=cfg.node_capacity_buckets,
+            image_capacity_buckets=cfg.image_capacity_buckets,
+            label_capacity_buckets=cfg.label_capacity_buckets,
+            image_shape=self.image_shape,
+            text_len_buckets=cfg.text_len_buckets,
+            contrastive=self.contrastive,
         )
+
+
+def epoch_chunks(
+    dataset: DiscussionDataset,
+    indices: np.ndarray,
+    data_cfg: DataConfig,
+    task_cfg: TaskConfig,
+    epoch: int = 1,
+    shuffle: bool = False,
+    image_shape=(3, 224, 224),
+    drop_last: Optional[bool] = None,
+    batch_size: Optional[int] = None,
+    pad_tail_to_batch: bool = False,
+    contrastive: bool = False,
+) -> Tuple[List[np.ndarray], ChunkCollator]:
+    """The epoch's index chunks and the collator that turns each into a
+    batch: what ``iterate_batches`` runs in this process and
+    ``worker_batches`` in worker processes."""
+    bs = batch_size if batch_size is not None else data_cfg.batch_size
+    chunks = batch_index_chunks(dataset, indices, data_cfg, task_cfg, epoch=epoch, shuffle=shuffle,
+                                drop_last=drop_last, batch_size=bs)
+    return chunks, ChunkCollator(dataset, data_cfg, task_cfg, tuple(image_shape),
+                                 bs if pad_tail_to_batch else None, contrastive)
+
+
+def iterate_batches(dataset: DiscussionDataset, indices: np.ndarray, data_cfg: DataConfig, task_cfg: TaskConfig,
+                    **kw) -> Iterator[Batch]:
+    """Yield collated static-shape batches for one epoch (per-graph targets
+    with ``contrastive``); ``kw`` as ``epoch_chunks``. With
+    ``pad_tail_to_batch`` a ragged final batch (``drop_last=False``) is
+    padded to the full batch size with inert zero-node graphs."""
+    chunks, collate_chunk = epoch_chunks(dataset, indices, data_cfg, task_cfg, **kw)
+    for chunk in chunks:
+        yield collate_chunk(chunk)

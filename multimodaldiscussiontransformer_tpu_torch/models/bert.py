@@ -24,6 +24,7 @@ from torch import nn
 
 from multimodaldiscussiontransformer_tpu_torch.core.config import BertTowerConfig
 from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import FastDropout, draw_seed
+from multimodaldiscussiontransformer_tpu_torch.models.remat import checkpoint_name
 from multimodaldiscussiontransformer_tpu_torch.ops.masked_attention import masked_attention
 
 # Large negative bias for masked attention logits: finite, so that a fully
@@ -150,11 +151,12 @@ class BertLayer(nn.Module):
         self, hidden: torch.Tensor, attn_bias: Optional[torch.Tensor] = None, deterministic: bool = True
     ) -> torch.Tensor:
         attn = self.attention_output_dense(self.attention(hidden, attn_bias, deterministic))
-        attn = self.hidden_dropout(attn, deterministic)
-        hidden = self.attention_output_layernorm(attn + hidden)
-        out = self.output_dense(self.act(self.intermediate_dense(hidden)))
+        attn = self.hidden_dropout(checkpoint_name(attn, "attn_proj"), deterministic)
+        # the remat policies' saveables (models/remat.py): identities outside remat
+        hidden = checkpoint_name(self.attention_output_layernorm(attn + hidden), "attn_out")
+        out = self.output_dense(checkpoint_name(self.act(self.intermediate_dense(hidden)), "ffn_mid"))
         out = self.hidden_dropout(out, deterministic)
-        return self.output_layernorm(out + hidden)
+        return checkpoint_name(self.output_layernorm(out + hidden), "ffn_out")
 
 
 class BertEmbeddings(nn.Module):

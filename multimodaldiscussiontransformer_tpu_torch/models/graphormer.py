@@ -35,6 +35,7 @@ from multimodaldiscussiontransformer_tpu_torch.models.bert import (
     LayerNorm,
 )
 from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import FastDropout, draw_seed
+from multimodaldiscussiontransformer_tpu_torch.models.remat import checkpoint_name
 from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
 from multimodaldiscussiontransformer_tpu_torch.ops.biased_attention import biased_attention
 
@@ -217,18 +218,20 @@ class GraphormerGraphEncoderLayer(nn.Module):
         residual = x
         if self.pre:
             x = self.self_attn_layer_norm(x)
-        x = self.self_attn(x, attn_bias, key_padding_mask, deterministic)
+        x = checkpoint_name(self.self_attn(x, attn_bias, key_padding_mask, deterministic), "attn_proj")
         x = residual + self.dropout(x, deterministic)
         if not self.pre:
             x = self.self_attn_layer_norm(x)
+        # the remat policies' saveables (models/remat.py): identities outside remat
+        x = checkpoint_name(x, "attn_out")
         residual = x
         if self.pre:
             x = self.final_layer_norm(x)
-        x = self.activation_dropout(self.act(self.fc1(x)), deterministic)
+        x = self.activation_dropout(checkpoint_name(self.act(self.fc1(x)), "ffn_mid"), deterministic)
         x = residual + self.dropout(self.fc2(x), deterministic)
         if not self.pre:
             x = self.final_layer_norm(x)
-        return x
+        return checkpoint_name(x, "ffn_out")
 
 
 class GraphEncoderStack(nn.Module):

@@ -16,7 +16,14 @@
 ``forward(batch, deterministic=True)`` is the inference forward; with
 ``deterministic=False`` (training) every dropout site of the JAX model is
 live, the frozen towers' included, and the forward runs inside
-``models/fast_dropout.py::dropout_rngs``.
+``models/fast_dropout.py::dropout_rngs``. A training forward under
+``config.remat`` runs each fusion and graph stack as one rematerialised
+segment with ``config.remat_policy`` (``models/remat.py``), as the JAX
+model wraps ``run_fusion`` and ``run_graph`` in ``jax.checkpoint``; the
+bottom towers stay outside.
+
+``config.scan_layers`` is a parameter layout (``utils/scan_params.py``):
+the modules run unrolled either way.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from multimodaldiscussiontransformer_tpu_torch.models.graphormer import (
     GraphEncoderStack,
     GraphNodeFeature,
 )
+from multimodaldiscussiontransformer_tpu_torch.models.remat import POLICIES, remat_segment
 from multimodaldiscussiontransformer_tpu_torch.models.vit import ViTBottomTower
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -81,15 +89,12 @@ def _stack_sizes(total: int, chunk: int) -> list:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for settings the port does not have."""
-    unsupported = {
-        "scan_layers": cfg.scan_layers,
-        "sequence_parallel": cfg.sequence_parallel,
-        "remat": cfg.remat,
-    }
-    on = [name for name, value in unsupported.items() if value]
-    if on:
-        raise NotImplementedError(f"the PyTorch port does not support {', '.join(on)}=True")
+    """Raise ``NotImplementedError`` for settings the port does not have,
+    ``ValueError`` for an unknown remat policy."""
+    if cfg.sequence_parallel:
+        raise NotImplementedError("the PyTorch port does not support sequence_parallel=True")
+    if cfg.remat and cfg.remat_policy not in POLICIES:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r} not in {POLICIES}")
     for what, name in (("compute dtype", cfg.dtype), ("param_dtype", cfg.param_dtype)):
         if name not in _DTYPES:
             raise NotImplementedError(f"{what} {name!r} not in {sorted(_DTYPES)}")
@@ -135,8 +140,15 @@ class MultiGraphormerGraphEncoder(nn.Module):
         cap = attention_mask.shape[0]
         bsz, nmax = batch["in_degree"].shape
 
-        # bottom towers
         det = deterministic
+        if c.remat and not det:
+            def run(stack, *args):
+                return remat_segment(stack, *args, policy=c.remat_policy)
+        else:
+            def run(stack, *args):
+                return stack(*args)
+
+        # bottom towers
         bert = self.text_model(batch["input_ids"], batch["token_type_ids"], attention_mask, det)
         vit, image_node = None, None
         if c.use_image_tower:
@@ -147,7 +159,7 @@ class MultiGraphormerGraphEncoder(nn.Module):
         bn = self.bottle_neck.to(self.dtype)[None].expand(cap, nbn, d)
         fusion_mask = torch.cat([attention_mask.new_ones(cap, nbn), attention_mask], dim=1)
         mask_bias = attention_mask_bias(fusion_mask, self.dtype)
-        bert, vit, bn = self.fusion_stacks[0](bert, vit, bn, mask_bias, image_node, det)
+        bert, vit, bn = run(self.fusion_stacks[0], bert, vit, bn, mask_bias, image_node, det)
 
         # bottleneck token 0 -> the (B, Nmax) grid; padded slots are dropped
         flat_idx = batch["node_graph"] * nmax + batch["node_pos"]
@@ -166,16 +178,16 @@ class MultiGraphormerGraphEncoder(nn.Module):
 
         # interleave: zip(graph stacks, fusion stacks[1:])
         for i in range(len(self.fusion_stacks) - 1):
-            x = self.graph_stacks[i](x, attn_bias, key_padding_mask, det)
+            x = run(self.graph_stacks[i], x, attn_bias, key_padding_mask, det)
             node_states = gather_fill(x[:, 1:].reshape(bsz * nmax, d), flat_idx)
             bn = torch.cat([node_states[:, None], bn[:, 1:]], dim=1)
-            bert, vit, bn = self.fusion_stacks[i + 1](bert, vit, bn, mask_bias, image_node, det)
+            bert, vit, bn = run(self.fusion_stacks[i + 1], bert, vit, bn, mask_bias, image_node, det)
             tail = scatter_drop(x[:, 1:].reshape(bsz * nmax, d), flat_idx, bn[:, 0])
             x = torch.cat([x[:, :1], tail.view(bsz, nmax, d)], dim=1)
 
         if not c.reproduce_dead_graph_stack:
-            x = self.graph_stacks[-2](x, attn_bias, key_padding_mask, det)
-        x = self.graph_stacks[-1](x, attn_bias, key_padding_mask, det)
+            x = run(self.graph_stacks[-2], x, attn_bias, key_padding_mask, det)
+        x = run(self.graph_stacks[-1], x, attn_bias, key_padding_mask, det)
         return EncoderOutput(text_states=bert, bottleneck=bn, global_embedding=x[:, 0])
 
 

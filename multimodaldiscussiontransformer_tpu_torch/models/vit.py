@@ -26,6 +26,7 @@ from multimodaldiscussiontransformer_tpu_torch.models.bert import (
     act_fn,
 )
 from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import FastDropout
+from multimodaldiscussiontransformer_tpu_torch.models.remat import checkpoint_name
 
 
 class ViTLayer(nn.Module):
@@ -47,9 +48,10 @@ class ViTLayer(nn.Module):
 
     def forward(self, hidden: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         attn = self.attention_output_dense(self.attention(self.layernorm_before(hidden), None, deterministic))
-        hidden = hidden + self.hidden_dropout(attn, deterministic)
-        mlp = self.act(self.intermediate_dense(self.layernorm_after(hidden)))
-        return hidden + self.hidden_dropout(self.output_dense(mlp), deterministic)
+        # the remat policies' saveables (models/remat.py): identities outside remat
+        hidden = checkpoint_name(hidden + self.hidden_dropout(checkpoint_name(attn, "attn_proj"), deterministic), "attn_out")
+        mlp = checkpoint_name(self.act(self.intermediate_dense(self.layernorm_after(hidden))), "ffn_mid")
+        return checkpoint_name(hidden + self.hidden_dropout(self.output_dense(mlp), deterministic), "ffn_out")
 
 
 class ViTEmbeddings(nn.Module):

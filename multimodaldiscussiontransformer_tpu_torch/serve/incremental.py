@@ -153,25 +153,25 @@ class DiscussionScorer:
         """A scorer for the params of a training checkpoint directory
         (``utils/checkpoints.py``): the best step by default (the latest
         without one, or with ``best=False``); an explicit ``step`` of the
-        rolling store wins. The model is rebuilt from ``model_cfg``
-        (``ModelConfig()`` by default) on ``device`` (the card unless
-        ``"cpu"`` is asked for)."""
+        rolling store wins. Params in the scan layout are unstacked. The
+        model is rebuilt from ``model_cfg`` (``ModelConfig()`` by default)
+        on ``device`` (the card unless ``"cpu"`` is asked for)."""
         from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
         from multimodaldiscussiontransformer_tpu_torch.utils.checkpoints import Checkpointer
+        from multimodaldiscussiontransformer_tpu_torch.utils.scan_params import unrolled_state_dict
 
         device = resolve_device(device)
         restored = Checkpointer(save_dir).restore(step=step, best=best and step is None)
         if restored is None:
             raise FileNotFoundError(f"no checkpoints under {save_dir}")
-        params = restored["params"]
-        scanned = [key for key in params if any(f".{name}." in f".{key}" for name in ("scan_pairs", "scan_layers"))]
-        if scanned:
-            raise ValueError(
-                f"{scanned[0]} is in the scan layout: the port serves unrolled params; unstacking scan-layout "
-                "params is ROADMAP Queue 1 item 6"
-            )
+        model_cfg = model_cfg or ModelConfig()
+        params = unrolled_state_dict(restored["params"], model_cfg)  # a scan-layout checkpoint is unstacked
         with torch.device("meta"):  # no random init: every tensor comes from the checkpoint
-            model = MDTModel(model_cfg or ModelConfig())
+            model = MDTModel(model_cfg)
+        want, got = set(model.state_dict()), set(params)
+        if want != got:
+            raise ValueError(f"the checkpoint under {save_dir} does not fit the model: missing "
+                             f"{sorted(want - got)[:5]}, unexpected {sorted(got - want)[:5]}")
         model.load_state_dict(params, strict=True, assign=True)
         return cls(model, device=device, **kw)
 

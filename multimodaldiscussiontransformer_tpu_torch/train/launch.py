@@ -26,6 +26,13 @@ last K) and ``--predict-output`` writes its per-node predictions. Without
 ``--synthetic`` the data is the ``hateful_discussions`` directory of
 ``--data-root``.
 
+The training runtime: ``--num-workers N`` collates in N worker processes;
+``--remat --remat-policy P`` rematerialises the fusion and graph stacks;
+``--scan-layers`` stores params in the scan layout; ``--profile-trace DIR
+--profile-steps N`` traces N updates after the first 2 into DIR;
+``--tensorboard-logdir DIR`` and ``--wandb-project NAME`` (default
+``$WANDB_PROJECT``) add metric sinks beside ``metrics.jsonl``.
+
 Flags whose machinery belongs to a later slice of the port exit with code 2
 and a message naming that slice (``UNPORTED``).
 """
@@ -47,11 +54,6 @@ UNPORTED = {
         lambda a: a.dp_size not in (-1, 1) or a.tp_size != 1 or a.sp_size != 1 or a.num_slices != 1 or a.fsdp,
         "the parallel slice (ROADMAP Queue 1 item 8)",
     ),
-    "--profile-trace": (lambda a: a.profile_trace is not None, "torch.profiler tracing (ROADMAP Queue 1 item 4)"),
-    "--wandb-project": (lambda a: bool(a.wandb_project), "the wandb/tensorboard sinks (ROADMAP Queue 1 item 4)"),
-    "--tensorboard-logdir": (lambda a: a.tensorboard_logdir is not None, "the wandb/tensorboard sinks (ROADMAP Queue 1 item 4)"),
-    "--num-workers > 0": (lambda a: a.num_workers > 0, "worker-process loading (ROADMAP Queue 1 item 4)"),
-    "--remat/--scan-layers": (lambda a: a.remat or a.scan_layers, "remat and scan layouts (ROADMAP Queue 1 item 4)"),
 }
 
 
@@ -126,7 +128,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-interval", type=int, default=50)
     p.add_argument("--wandb-project", default=os.environ.get("WANDB_PROJECT"))
     p.add_argument("--tensorboard-logdir", default=None)
-    p.add_argument("--profile-trace", default=None)
+    p.add_argument("--profile-trace", default=None,
+                   help="directory for a torch.profiler trace (Chrome/TensorBoard JSON) of steady-state updates")
+    p.add_argument("--profile-steps", type=int, default=5)
     # parallelism
     p.add_argument("--dp-size", type=int, default=-1)
     p.add_argument("--tp-size", type=int, default=1)
@@ -146,8 +150,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--label-capacity-buckets", default=None)
     p.add_argument("--text-len-buckets", default=None)
     # compute policy
-    p.add_argument("--remat", action="store_true", default=False)
-    p.add_argument("--scan-layers", action="store_true", default=False)
+    p.add_argument("--remat", action="store_true", default=False,
+                   help="rematerialise the fusion and graph stacks in the backward (less memory, more compute)")
+    p.add_argument("--remat-policy", default="full",
+                   choices=("full", "dots", "dots_saveable", "names", "names_heavy"),
+                   help="what remat saves: full = block inputs only; dots / dots_saveable = also the matmul outputs "
+                        "without / with batch dims; names = the layers' attention and FFN outputs; names_heavy = "
+                        "also the attention projection and the FFN intermediate")
+    p.add_argument("--scan-layers", action="store_true", default=False,
+                   help="store params in the scan layout (uniform layers stacked on a leading axis); "
+                        "the modules and the numbers are the same")
     p.add_argument("--use-pallas-attention", action=argparse.BooleanOptionalAction, default=True,
                    help="graph attention through the compact bias and the tree-attention kernels")
     # evaluation only
@@ -237,6 +249,12 @@ def config_from_args(args):
     for name in ("activation_fn", "pre_layernorm", "encoder_normalize_before", "apply_graphormer_init"):
         if getattr(args, name) is not None:
             model = model.replace(**{name: getattr(args, name)})
+    if args.scan_layers:
+        model = model.replace(scan_layers=True)
+    if args.remat and not model.remat:
+        model = model.replace(remat=True)
+    if args.remat and model.remat_policy != args.remat_policy:
+        model = model.replace(remat_policy=args.remat_policy)
 
     def ladder(spec, default):
         return default if spec is None else tuple(int(x) for x in str(spec).split(",") if x.strip())
@@ -268,6 +286,8 @@ def config_from_args(args):
         save_dir=args.save_dir,
         save_interval=args.save_interval,
         save_interval_updates=args.save_interval_updates,
+        profile_trace_dir=args.profile_trace,
+        profile_trace_steps=args.profile_steps,
         restore_file=args.restore_file,
         reset_optimizer=args.reset_optimizer,
         seed=args.seed,
@@ -345,7 +365,7 @@ def main(argv=None) -> int:
         f"/ test {len(dataset.test_idx)})"
     )
     trainer = task.build_trainer(image_shape=img, device=args.device)
-    if next(iter(trainer.train_batches(dataset, epoch=1)), None) is None:
+    if not trainer.has_train_batches(dataset):
         print(
             f"error: the train split yields no batches: {len(dataset.train_idx)} train graphs < batch "
             f"{trainer.global_batch_size} with drop_last; lower --batch-size or provide more data",
@@ -371,7 +391,8 @@ def main(argv=None) -> int:
     else:
         state = trainer.init_state()
 
-    writer = MetricsWriter(cfg.save_dir)
+    writer = MetricsWriter(cfg.save_dir, wandb_project=args.wandb_project, config=dataclasses.asdict(cfg),
+                           tensorboard_logdir=args.tensorboard_logdir)
     # preemption: the handler only sets a flag; fit saves at the next update
     # boundary and returns, and a relaunch auto-resumes from that step
     stop = {"requested": False}
@@ -389,6 +410,8 @@ def main(argv=None) -> int:
         )
     finally:
         signal.signal(signal.SIGTERM, prev_term)
+        if ckpt is not None:
+            ckpt.close()
     if stop["requested"]:
         saved = "checkpoint saved" if ckpt is not None else "no-save"
         print(f"preempted: {saved} at step {state.num_updates}", flush=True)

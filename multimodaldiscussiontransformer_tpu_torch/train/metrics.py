@@ -1,6 +1,6 @@
 """Metric aggregation with the reference's summable-logging contract, and
-the JSONL metrics sink: the port's copy of the JAX package's
-``train/metrics.py``.
+the metrics sinks (JSONL, W&B, TensorBoard): the port's copy of the JAX
+package's ``train/metrics.py``.
 
 Per-step logging outputs are sums (counts, summed loss); the accumulator
 adds them across steps and ``reduce_metrics`` derives accuracy, F1 and the
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -63,18 +64,52 @@ class MetricAccumulator:
 
 class MetricsWriter:
     """Appends ``{"split", "step", **metrics}`` records to
-    ``save_dir/metrics.jsonl``. W&B and TensorBoard sinks are not ported;
-    asking for them raises."""
+    ``save_dir/metrics.jsonl``, and logs each metric as ``<split>/<name>``
+    to W&B (``wandb_project``, with ``config``) and TensorBoard
+    (``tensorboard_logdir``, through ``torch.utils.tensorboard``) when asked
+    for. A sink whose package is missing, or that fails to start, is
+    dropped with one warning line, as the JAX package drops it; the JSONL
+    file is always written."""
 
-    def __init__(self, save_dir: str, wandb_project: Optional[str] = None, tensorboard_logdir: Optional[str] = None):
-        if wandb_project or tensorboard_logdir:
-            raise NotImplementedError("the port writes metrics.jsonl only; wandb and tensorboard sinks come later")
+    def __init__(self, save_dir: str, wandb_project: Optional[str] = None, config: Optional[dict] = None,
+                 tensorboard_logdir: Optional[str] = None):
         os.makedirs(save_dir, exist_ok=True)
         self.path = os.path.join(save_dir, "metrics.jsonl")
+        self._wandb = None
+        if wandb_project:
+            try:
+                import wandb
+
+                self._wandb = wandb.init(project=wandb_project, config=config or {})
+            except Exception as e:  # noqa: BLE001 - any failure drops the sink
+                _drop_sink("wandb", e)
+        self._tb = None
+        if tensorboard_logdir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(log_dir=tensorboard_logdir)
+            except Exception as e:  # noqa: BLE001
+                _drop_sink("tensorboard", e)
 
     def write(self, split: str, step: int, metrics: Dict[str, float]) -> None:
         with open(self.path, "a") as f:
             f.write(json.dumps({"split": split, "step": step, **metrics}) + "\n")
+        if self._wandb is not None:
+            self._wandb.log({f"{split}/{k}": v for k, v in metrics.items()}, step=step)
+        if self._tb is not None:
+            for k, v in metrics.items():
+                try:
+                    self._tb.add_scalar(f"{split}/{k}", float(v), step)
+                except (TypeError, ValueError):
+                    pass  # non-scalar extras stay JSONL-only
 
     def close(self) -> None:
-        pass
+        if self._wandb is not None:
+            self._wandb.finish()
+        if self._tb is not None:
+            self._tb.close()
+
+
+def _drop_sink(name: str, error: Exception) -> None:
+    print(f"warning: the {name} metrics sink is off ({error!r}); metrics.jsonl only", file=sys.stderr)

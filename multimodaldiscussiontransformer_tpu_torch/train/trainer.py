@@ -26,20 +26,29 @@ every k-th microbatch, clipping and AdamW act on that mean and the mean
 restarts at zero. No pad microbatch completes a short epoch: the partial
 mean carries into the next epoch, and a checkpoint taken mid-way holds it.
 
-There is no mesh: one process drives one device. ``fit`` saves through a
-``utils/checkpoints.py::Checkpointer`` and resumes mid-epoch from a
-restored state (``resume_position``); profiling is not ported yet, and
-settings that need it raise.
+There is no mesh: one process drives one device. ``fit``, ``evaluate`` and
+``predict`` take their batches through ``data/loader.py::ThreadedPrefetcher``:
+a background thread collates (or, with ``data.num_workers > 0``, takes from
+worker processes, ``data/worker_loader.py``), stacks and stages the next
+groups on the device while the current update runs. ``fit`` saves through a
+``utils/checkpoints.py::Checkpointer`` (asynchronous saves; it waits for
+the last one before it returns), resumes mid-epoch from a restored state
+(``resume_position``) and, with ``profile_trace_dir``, traces
+``profile_trace_steps`` updates after the first ``profile_trace_start``
+(``utils/profiling.py``), where each microbatch's forward and backward,
+each optimizer step and each checkpoint save is a named range
+(``microbatch``, ``optimizer``, ``checkpoint_save``).
 """
 
 from __future__ import annotations
 
 import csv
+import itertools
 import os
 import sys
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +56,8 @@ import torch
 from multimodaldiscussiontransformer_tpu_torch.core.config import TrainConfig
 from multimodaldiscussiontransformer_tpu_torch.data.collator import to_tensors
 from multimodaldiscussiontransformer_tpu_torch.data.dataset import DiscussionDataset, iterate_batches
-from multimodaldiscussiontransformer_tpu_torch.data.loader import stack_microbatches
+from multimodaldiscussiontransformer_tpu_torch.data.loader import ThreadedPrefetcher, Staged, stack_microbatches, stage
+from multimodaldiscussiontransformer_tpu_torch.data.worker_loader import worker_batches
 from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import dropout_rngs
 from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
 from multimodaldiscussiontransformer_tpu_torch.serve.incremental import resolve_device
@@ -60,6 +70,8 @@ from multimodaldiscussiontransformer_tpu_torch.train.optimizer import (
     polynomial_decay_schedule,
     trainable_gnorm,
 )
+from multimodaldiscussiontransformer_tpu_torch.utils import profiling
+from multimodaldiscussiontransformer_tpu_torch.utils.scan_params import unrolled_state_dict
 
 
 @dataclass
@@ -102,10 +114,6 @@ def check_supported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for settings the port's trainer lacks."""
     if cfg.dp_size not in (-1, 1) or cfg.tp_size != 1 or cfg.sp_size != 1 or cfg.num_slices != 1 or cfg.fsdp:
         raise NotImplementedError("the port trains on one device: dp_size in (-1, 1), tp = sp = slices = 1, no fsdp")
-    if cfg.data.num_workers > 0:
-        raise NotImplementedError("data.num_workers > 0: worker-process loading is not ported")
-    if cfg.profile_trace_dir is not None:
-        raise NotImplementedError("profile traces are not ported")
 
 
 class Trainer:
@@ -134,6 +142,11 @@ class Trainer:
         self.contrastive = cfg.task == "contrastive_learning"
         # optax MultiSteps semantics: one microbatch per step
         self.multi_steps = cfg.optim.update_freq > 1 and not cfg.optim.scan_microbatches
+        # the images cross to the card in the compute dtype when it is bf16
+        self.image_dtype = torch.bfloat16 if cfg.model.dtype == "bfloat16" else None
+        self._copy_stream = None
+        # seconds fit waited for each step's input (the prefetcher's waits)
+        self.input_waits: List[float] = []
 
     # -- state ---------------------------------------------------------------
 
@@ -148,7 +161,7 @@ class Trainer:
         if params is not None:
             with torch.device("meta"):
                 model = MDTModel(self.cfg.model)
-            model.load_state_dict(params, strict=True, assign=True)
+            model.load_state_dict(unrolled_state_dict(params, self.cfg.model), strict=True, assign=True)
         else:
             model = self.model if self.model is not None else MDTModel(self.cfg.model, generator=host)
         model = model.to(self.device)
@@ -166,21 +179,21 @@ class Trainer:
         return [torch.zeros_like(p) for p in trainable] if self.multi_steps else None
 
     def load_params(self, state: TrainState, state_dict: Dict[str, torch.Tensor]) -> TrainState:
-        """Swap in other weights and start the optimizer (and a MultiSteps
-        accumulation) afresh (the JAX ``load_params``, i.e.
-        ``--reset-optimizer``)."""
-        state.model.load_state_dict(state_dict, strict=True)
+        """Swap in other weights (in either param layout) and start the
+        optimizer (and a MultiSteps accumulation) afresh (the JAX
+        ``load_params``, i.e. ``--reset-optimizer``)."""
+        state.model.load_state_dict(unrolled_state_dict(state_dict, self.cfg.model), strict=True)
         state.optimizer = make_optimizer(self.cfg.optim, state.trainable)
         state.acc_grads, state.mini_step = self._fresh_accumulator(state.trainable), 0
         return state
 
     # -- steps ---------------------------------------------------------------
 
-    def train_step(self, state: TrainState, group: Dict[str, np.ndarray], return_grads: bool = False) -> Dict[str, torch.Tensor]:
-        """One update from a (k, ...)-stacked host group; the summed logging
-        outputs of its microbatches plus ``gnorm`` (and, with
-        ``return_grads``, ``grads``: the normalized gradients by parameter
-        name)."""
+    def train_step(self, state: TrainState, group: Dict[str, Any], return_grads: bool = False) -> Dict[str, torch.Tensor]:
+        """One update from a (k, ...)-stacked group (numpy arrays, or
+        tensors already on the device); the summed logging outputs of its
+        microbatches plus ``gnorm`` (and, with ``return_grads``, ``grads``:
+        the normalized gradients by parameter name)."""
         model, opt = state.model, state.optimizer
         k = int(group["idx"].shape[0])
         opt.zero_grad(set_to_none=True)
@@ -188,9 +201,10 @@ class Trainer:
         sums: Dict[str, torch.Tensor] = {}
         with dropout_rngs(state.host_rng, state.device_rng):
             for i in range(k):
-                batch = to_tensors({key: v[i] for key, v in group.items()}, self.device)
-                loss, ssz, logs = self.criterion(model(batch, deterministic=False), batch)
-                loss.backward()
+                with profiling.named_scope("microbatch"):
+                    batch = to_tensors({key: v[i] for key, v in group.items()}, self.device)
+                    loss, ssz, logs = self.criterion(model(batch, deterministic=False), batch)
+                    loss.backward()
                 total = total + ssz.float()
                 for key, v in logs.items():
                     sums[key] = sums[key] + v if key in sums else v
@@ -211,15 +225,16 @@ class Trainer:
     def _apply_update(self, state: TrainState) -> None:
         """Clip (``clip_norm > 0``) and one AdamW step on the trainable
         ``.grad``s, with the lr the schedule gives this update."""
-        if self.cfg.optim.clip_norm and self.cfg.optim.clip_norm > 0:
-            clip_by_global_norm_(state.trainable, self.cfg.optim.clip_norm)
-        lr = self.lr_schedule()(state.num_updates)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
+        with profiling.named_scope("optimizer"):
+            if self.cfg.optim.clip_norm and self.cfg.optim.clip_norm > 0:
+                clip_by_global_norm_(state.trainable, self.cfg.optim.clip_norm)
+            lr = self.lr_schedule()(state.num_updates)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            state.optimizer.step()
         state.num_updates += 1
 
-    def train_microstep(self, state: TrainState, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    def train_microstep(self, state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One microbatch with optax ``MultiSteps`` semantics (JAX
         ``_make_train_step`` under ``MultiSteps``): the gradient of the loss
         divided by this microbatch's own sample size joins the running mean
@@ -229,7 +244,7 @@ class Trainer:
         normalized gradient."""
         model, k = state.model, self.cfg.optim.update_freq
         state.optimizer.zero_grad(set_to_none=True)
-        with dropout_rngs(state.host_rng, state.device_rng):
+        with dropout_rngs(state.host_rng, state.device_rng), profiling.named_scope("microbatch"):
             b = to_tensors(batch, self.device)
             loss, ssz, logs = self.criterion(model(b, deterministic=False), b)
             (loss / ssz.float().clamp_min(1.0)).backward()
@@ -255,29 +270,39 @@ class Trainer:
 
     # -- batches -------------------------------------------------------------
 
+    def _batches(self, dataset: DiscussionDataset, idx, **kw) -> Iterator:
+        """The in-process iterator, or worker processes when
+        ``data.num_workers > 0``: the same batches in the same order."""
+        make = worker_batches if self.cfg.data.num_workers > 0 else iterate_batches
+        return make(dataset, idx, self.cfg.data, self.cfg.task_cfg, image_shape=self.image_shape,
+                    batch_size=self.global_batch_size, contrastive=self.contrastive, **kw)
+
     def train_batches(self, dataset: DiscussionDataset, epoch: int) -> Iterator:
-        return iterate_batches(
-            dataset, dataset.train_idx, self.cfg.data, self.cfg.task_cfg, epoch=epoch,
-            shuffle=self.cfg.task_cfg.train_epoch_shuffle, image_shape=self.image_shape,
-            batch_size=self.global_batch_size, contrastive=self.contrastive,
-        )
+        return self._batches(dataset, dataset.train_idx, epoch=epoch, shuffle=self.cfg.task_cfg.train_epoch_shuffle)
 
     def eval_batches(self, dataset: DiscussionDataset, split: str = "valid") -> Iterator:
         idx = dataset.valid_idx if split == "valid" else dataset.test_idx
-        return iterate_batches(
-            dataset, idx, self.cfg.data, self.cfg.task_cfg, epoch=1, shuffle=False,
-            image_shape=self.image_shape, drop_last=False, batch_size=self.global_batch_size,
-            pad_tail_to_batch=True, contrastive=self.contrastive,
-        )
+        return self._batches(dataset, idx, epoch=1, shuffle=False, drop_last=False, pad_tail_to_batch=True)
+
+    def stage(self, host: Dict[str, Any]) -> Staged:
+        """A host batch or group on the device (on the card: pinned memory,
+        a side stream, images in the compute dtype when it is bf16)."""
+        if self.device.type == "cuda" and self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        return stage(host, self.device, self.image_dtype, self._copy_stream)
+
+    def prefetch(self, items: Iterable, put: Callable[[Any], Any]) -> ThreadedPrefetcher:
+        """``put`` over ``items`` on a background thread, two items ahead."""
+        return ThreadedPrefetcher(items, put, depth=2, device=self.device)
 
     def evaluate(self, state: TrainState, dataset: DiscussionDataset, split: str = "valid") -> Dict[str, float]:
         """The deterministic forward over a split; the reduced metrics. The
         pad graphs of a ragged last batch count nowhere (the contrastive
         criterion masks them by ``grid_mask``)."""
         acc = MetricAccumulator(self.criterion.reduce_metrics)
-        with torch.no_grad():
-            for b in self.eval_batches(dataset, split):
-                batch = to_tensors(b, self.device)
+        with torch.no_grad(), self.prefetch(self.eval_batches(dataset, split), lambda b: self.stage(b.asdict())) as staged:
+            for item in staged:
+                batch = item.ready()
                 _, _, logs = self.criterion(state.model(batch, deterministic=True), batch)
                 acc.update(logs)
         return acc.reduce()
@@ -295,10 +320,13 @@ class Trainer:
                              "use evaluate() for its metrics")
         parts: Dict[str, list] = {}
         num_classes: Optional[int] = None
-        with torch.no_grad():
-            for b in self.eval_batches(dataset, split):
-                host = b.asdict()
-                logits = state.model(to_tensors(host, self.device), deterministic=True).logits.float().cpu().numpy()
+        def put(b):
+            host = b.asdict()
+            return host, self.stage(host)
+
+        with torch.no_grad(), self.prefetch(self.eval_batches(dataset, split), put) as staged:
+            for host, item in staged:
+                logits = state.model(item.ready(), deterministic=True).logits.float().cpu().numpy()
                 if num_classes is None:
                     num_classes = logits.shape[1]
                     parts = {
@@ -329,6 +357,11 @@ class Trainer:
 
     # -- the loop ------------------------------------------------------------
 
+    def has_train_batches(self, dataset: DiscussionDataset) -> bool:
+        """Whether an epoch yields a batch (``drop_last`` drops a short one)."""
+        n = len(dataset.train_idx)
+        return n >= max(self.global_batch_size, 1) if self.cfg.data.drop_last else n > 0
+
     def micro_per_epoch(self, dataset: DiscussionDataset) -> int:
         """Microbatches an epoch consumes: its full batches (0 without
         ``drop_last``, where resume does not skip), padded up to whole
@@ -341,16 +374,20 @@ class Trainer:
         """(logging outputs, graphs) of each step of ``epoch`` after the
         first ``skip``: one scan update per group of ``update_freq`` (a
         ragged tail padded with all-pad microbatches), or one MultiSteps
-        microbatch per batch."""
+        microbatch per batch. The prefetch thread collates, stacks and
+        stages the steps' inputs (the skipped ones are collated, never
+        staged); closing this generator closes it."""
         if self.multi_steps:
-            for index, batch in enumerate(self.train_batches(dataset, epoch)):
-                if index >= skip:
-                    yield self.train_microstep(state, batch.asdict()), batch.num_graphs
-            return
-        k = max(self.cfg.optim.update_freq, 1)
-        for index, group in enumerate(stack_microbatches(self.train_batches(dataset, epoch), k, pad_tail=True)):
-            if index >= skip:
-                yield self.train_step(state, group), int((group["idx"] >= 0).sum())
+            items = (b.asdict() for b in self.train_batches(dataset, epoch))
+            step, graphs = self.train_microstep, lambda host: int(host["idx"].shape[0])
+        else:
+            items = stack_microbatches(self.train_batches(dataset, epoch), max(self.cfg.optim.update_freq, 1),
+                                       pad_tail=True)
+            step, graphs = self.train_step, lambda host: int((host["idx"] >= 0).sum())
+        with self.prefetch(itertools.islice(items, skip, None), lambda h: (self.stage(h), graphs(h))) as staged:
+            for item, n in staged:
+                self.input_waits.append(staged.waits[-1])
+                yield step(state, item.ready()), n
 
     def fit(
         self,
@@ -380,11 +417,16 @@ class Trainer:
         A save at the same microbatch and epoch as the previous one is
         skipped: the state has not changed. Under MultiSteps every check
         follows each microbatch, as in the JAX loop, so an epoch-end or
-        stop save may hold a partial accumulation."""
+        stop save may hold a partial accumulation. ``fit`` waits for the
+        last save to be on disk before it returns.
+
+        With ``profile_trace_dir``, a trace starts once ``profile_trace_start``
+        updates are done and stops ``profile_trace_steps`` updates later (or
+        when ``fit`` returns), logging "profile trace written to <dir>"."""
         cfg = self.cfg
         max_epoch = cfg.max_epoch if max_epoch is None else max_epoch
         if state is None:
-            if next(iter(self.train_batches(dataset, epoch=1)), None) is None:
+            if not self.has_train_batches(dataset):
                 raise ValueError(
                     f"training split yields ZERO batches: {len(dataset.train_idx)} train items < batch "
                     f"{self.global_batch_size} with drop_last; shrink the batch or grow the dataset"
@@ -398,60 +440,92 @@ class Trainer:
         best_metric = None
         saved_at = None
         window_t0, window_graphs = time.perf_counter(), 0
+        self.input_waits = []
+        prof = {"session": None, "start": 0, "done": cfg.profile_trace_dir is None}
+
+        def profile_window(n: int) -> None:
+            if prof["done"]:
+                return
+            if prof["session"] is None:
+                if n >= cfg.profile_trace_start:
+                    prof["session"], prof["start"] = profiling.start_trace(cfg.profile_trace_dir), n
+            elif n >= prof["start"] + cfg.profile_trace_steps:
+                finish_profile()
+
+        def finish_profile() -> None:
+            if prof["session"] is not None:
+                profiling.stop_trace(prof["session"])
+                log_fn(f"profile trace written to {cfg.profile_trace_dir}")
+            prof["session"], prof["done"] = None, True
+
+        def finish() -> TrainState:
+            finish_profile()
+            if checkpointer is not None:
+                checkpointer.wait()
+            return state
 
         def save(best: bool = False) -> None:
             nonlocal saved_at
             at = (state.step, state.epoch)
             if checkpointer is None or (at == saved_at and not best):
                 return
-            checkpointer.save(state, state.num_updates, best=best)
+            with profiling.named_scope("checkpoint_save"):
+                checkpointer.save(state, state.num_updates, best=best)
             saved_at = at
 
         start_epoch, skip_groups = resume_position(state.step, state.epoch, self.micro_per_epoch(dataset), k)
         state.epoch = start_epoch - 1  # an epoch consumed but not yet counted counts now
-        for epoch in range(start_epoch, max_epoch + 1):
-            for logs, graphs in self._epoch_steps(state, dataset, epoch, skip_groups if epoch == start_epoch else 0):
-                acc.update(logs)
-                window_graphs += graphs
-                n = state.num_updates
-                if n - last_logged >= cfg.log_interval:
-                    last_logged = n
-                    m = acc.reduce()  # copies the window to the host: a sync
-                    acc.reset()
-                    dt = time.perf_counter() - window_t0
-                    m["lr"] = lr_fn(max(n - 1, 0))
-                    m["ups"] = round(cfg.log_interval / dt, 3)
-                    m["discussions_per_sec"] = round(window_graphs / dt, 2)
-                    window_t0, window_graphs = time.perf_counter(), 0
-                    writer.write("train", n, m)
-                    log_fn(f"epoch {epoch} update {n}: {m}")
-                if (
-                    cfg.validate_interval_updates
-                    and n - last_validated >= cfg.validate_interval_updates
-                    and len(dataset.valid_idx) > 0
-                ):
-                    last_validated = n
-                    vm = self.evaluate(state, dataset, "valid")
-                    writer.write("valid", n, vm)
-                    log_fn(f"valid @ {n}: {vm}")
-                    key = "f1" if "f1" in vm else "loss"
-                    if best_metric is None or (vm[key] > best_metric if key == "f1" else vm[key] < best_metric):
-                        best_metric = vm[key]
-                        save(best=True)
-                if cfg.save_interval_updates and n - last_saved >= cfg.save_interval_updates:
-                    last_saved = n
+        try:
+            for epoch in range(start_epoch, max_epoch + 1):
+                steps = self._epoch_steps(state, dataset, epoch, skip_groups if epoch == start_epoch else 0)
+                try:
+                    for logs, graphs in steps:
+                        acc.update(logs)
+                        window_graphs += graphs
+                        n = state.num_updates
+                        profile_window(n)
+                        if n - last_logged >= cfg.log_interval:
+                            last_logged = n
+                            m = acc.reduce()  # copies the window to the host: a sync
+                            acc.reset()
+                            dt = time.perf_counter() - window_t0
+                            m["lr"] = lr_fn(max(n - 1, 0))
+                            m["ups"] = round(cfg.log_interval / dt, 3)
+                            m["discussions_per_sec"] = round(window_graphs / dt, 2)
+                            window_t0, window_graphs = time.perf_counter(), 0
+                            writer.write("train", n, m)
+                            log_fn(f"epoch {epoch} update {n}: {m}")
+                        if (
+                            cfg.validate_interval_updates
+                            and n - last_validated >= cfg.validate_interval_updates
+                            and len(dataset.valid_idx) > 0
+                        ):
+                            last_validated = n
+                            vm = self.evaluate(state, dataset, "valid")
+                            writer.write("valid", n, vm)
+                            log_fn(f"valid @ {n}: {vm}")
+                            key = "f1" if "f1" in vm else "loss"
+                            if best_metric is None or (vm[key] > best_metric if key == "f1" else vm[key] < best_metric):
+                                best_metric = vm[key]
+                                save(best=True)
+                        if cfg.save_interval_updates and n - last_saved >= cfg.save_interval_updates:
+                            last_saved = n
+                            save()
+                        if max_updates is not None and n >= max_updates:
+                            save()
+                            return finish()
+                        if should_stop is not None and should_stop():
+                            log_fn(f"stop requested at update {n}: checkpointing and exiting")
+                            save()
+                            return finish()
+                finally:
+                    steps.close()  # stops the prefetch thread of an epoch left early
+                state.epoch = epoch
+                if epoch % max(cfg.save_interval, 1) == 0 or epoch == max_epoch:
                     save()
-                if max_updates is not None and n >= max_updates:
-                    save()
-                    return state
-                if should_stop is not None and should_stop():
-                    log_fn(f"stop requested at update {n}: checkpointing and exiting")
-                    save()
-                    return state
-            state.epoch = epoch
-            if epoch % max(cfg.save_interval, 1) == 0 or epoch == max_epoch:
-                save()
-        return state
+        finally:
+            finish_profile()  # also when an update raises
+        return finish()
 
 
 def _csv_fields(column) -> np.ndarray:

@@ -27,18 +27,36 @@ dicts, read back with ``torch.load(..., weights_only=True)``:
   how many it holds: as the JAX state keeps them in its optimizer state,
   so that a save between two microbatches of one update resumes into the
   uninterrupted run.
-A params-only checkpoint (``save_params``) holds ``params`` alone.
+A params-only checkpoint (``save_params``) holds ``params`` alone. Under
+``ModelConfig.scan_layers`` the params are stored in the scan layout
+(``utils/scan_params.py``); every loader here unstacks either layout.
+
+Saves are asynchronous by default, as the JAX store's Orbax saves are:
+``save`` snapshots the state into host memory (pinned, through a side CUDA
+stream, for tensors on the card; a copy for tensors on the CPU) at the
+moment it is called and returns; a writer thread then waits for the copy
+and writes the step. The compute stream waits for the snapshot's copies, so
+the next update cannot overwrite a tensor before it is copied. A save waits
+for the one before it; ``wait``/``close`` wait for the last one, and a
+writer's exception is raised on the caller's thread at the next ``save``,
+``wait`` or ``close``. A watchdog (``async_timeout_sec``) bounds each wait:
+a write that has not finished by then is abandoned with a warning, its step
+is listed in ``suspect_steps.txt``, and the run continues with synchronous
+saves (the JAX ``Checkpointer``'s ``_timed`` / ``_downgrade_to_sync``).
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import Any, Dict, List, Optional
+import sys
+import threading
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from multimodaldiscussiontransformer_tpu_torch.models.mdt import _lecun_normal
+from multimodaldiscussiontransformer_tpu_torch.utils.scan_params import scanned_state_dict, unrolled_state_dict
 
 STATE_FILE = "state.pt"
 
@@ -54,11 +72,32 @@ def _to_cpu(obj: Any) -> Any:
     return obj
 
 
-def state_dict_of(state) -> Dict[str, Any]:
-    """What a checkpoint stores of a ``TrainState``, on the CPU."""
+def _host_copy(obj: Any, non_blocking: bool = True) -> Any:
+    """``obj`` with every tensor copied into host memory: a tensor on the
+    card into pinned memory on the current stream (``non_blocking``: the
+    host does not wait for it), a CPU tensor by a clone (containers
+    rebuilt)."""
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach()
+        if t.device.type == "cpu":
+            return t.clone()
+        dst = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        dst.copy_(t, non_blocking=non_blocking)
+        return dst
+    if isinstance(obj, dict):
+        return {k: _host_copy(v, non_blocking) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v, non_blocking) for v in obj)
+    return obj
+
+
+def _state_tensors(state) -> Dict[str, Any]:
+    """What a checkpoint stores of a ``TrainState``, where it lives."""
+    params = state.model.state_dict()
+    config = state.model.config
     out = {
-        "params": _to_cpu(state.model.state_dict()),
-        "optimizer": _to_cpu(state.optimizer.state_dict()),
+        "params": scanned_state_dict(params, config) if config.scan_layers else params,
+        "optimizer": state.optimizer.state_dict(),
         "step": int(state.step),
         "num_updates": int(state.num_updates),
         "epoch": int(state.epoch),
@@ -66,9 +105,35 @@ def state_dict_of(state) -> Dict[str, Any]:
         "device_rng": state.device_rng.get_state(),
     }
     if state.acc_grads is not None:
-        out["acc_grads"] = _to_cpu(state.acc_grads)
+        out["acc_grads"] = state.acc_grads
         out["mini_step"] = int(state.mini_step)
     return out
+
+
+def state_dict_of(state) -> Dict[str, Any]:
+    """What a checkpoint stores of a ``TrainState``, on the CPU."""
+    return _to_cpu(_state_tensors(state))
+
+
+def _snapshot(state) -> Tuple[Dict[str, Any], Optional[torch.cuda.Event]]:
+    """(what a checkpoint stores of ``state`` in host memory, the event its
+    copies complete at). Tensors on the card are copied into pinned memory
+    on a side stream that first waits for the compute stream; the compute
+    stream then waits for the copies, so that no later update overwrites a
+    tensor before it is copied. The host does not wait: read the payload
+    only after the event (None when every tensor is on the CPU)."""
+    device = next(state.model.parameters()).device
+    if device.type != "cuda":
+        return _host_copy(_state_tensors(state)), None
+    compute = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(compute)
+    with torch.cuda.stream(side):
+        payload = _host_copy(_state_tensors(state))
+        copied = torch.cuda.Event()
+        copied.record(side)
+    compute.wait_stream(side)
+    return payload, copied
 
 
 def _steps(directory: str) -> List[int]:
@@ -127,20 +192,52 @@ def _load(directory: str, step: int) -> Dict[str, Any]:
 class Checkpointer:
     """Save and restore with keep-last-``keep`` retention of the rolling
     saves and a separate best store (keep 1), so that retention never
-    deletes the best step. Saves are synchronous: a single-process torch
-    save has no cross-process barrier to wait on."""
+    deletes the best step. Saves are asynchronous unless ``async_save`` is
+    off (see the module docstring); ``async_timeout_sec`` bounds the wait
+    for a write before the watchdog downgrades to synchronous saves."""
 
-    def __init__(self, save_dir: str, keep: int = 3):
+    def __init__(self, save_dir: str, keep: int = 3, async_save: bool = True, async_timeout_sec: float = 600.0):
         self.save_dir = os.path.abspath(save_dir)
         os.makedirs(self.save_dir, exist_ok=True)
         self._keep = keep
         self._best_dir = os.path.join(self.save_dir, "best")
+        self._async = bool(async_save)
+        self._async_timeout = float(async_timeout_sec)
+        self._pending: Optional[Tuple[threading.Thread, dict, int]] = None
 
     def save(self, state, step: int, best: bool = False) -> None:
         """Save ``state`` (a ``TrainState``, or a dict in the stored format)
         as ``step``; with ``best`` also as the best step. Saving a step that
-        exists overwrites it."""
-        payload = state if isinstance(state, dict) else state_dict_of(state)
+        exists overwrites it. Returns once the state is snapshotted (the
+        write itself runs on a writer thread unless saves are synchronous)."""
+        self._finish_pending()
+        if isinstance(state, dict):
+            payload, copied = _host_copy(state, non_blocking=False), None
+        else:
+            payload, copied = _snapshot(state)
+
+        def write():
+            if copied is not None:
+                copied.synchronize()
+            self._write(payload, step, best)
+
+        if not self._async:
+            write()
+            return
+        box: dict = {}
+
+        def run():
+            try:
+                write()
+            except BaseException as e:  # raised on the training thread at the next save / wait / close
+                box["err"] = e
+
+        # not a daemon: the interpreter waits for a write in flight at exit
+        thread = threading.Thread(target=run, name=f"ckpt-save-{step}")
+        self._pending = (thread, box, step)
+        thread.start()
+
+    def _write(self, payload: Dict[str, Any], step: int, best: bool) -> None:
         path = _write_step(self.save_dir, step, payload)
         _prune(self.save_dir, self._keep)
         if best:
@@ -150,15 +247,47 @@ class Checkpointer:
             with open(os.path.join(self.save_dir, "best_step.txt"), "w") as f:
                 f.write(str(step))
 
+    def _finish_pending(self) -> None:
+        """Wait for the write in flight, at most ``async_timeout_sec``; raise
+        its exception. On timeout, warn, list its step in
+        ``suspect_steps.txt`` (the abandoned thread may still write it) and
+        make every later save synchronous."""
+        if self._pending is None:
+            return
+        thread, box, step = self._pending
+        thread.join(self._async_timeout)
+        self._pending = None
+        if thread.is_alive():
+            print(
+                f"WARNING: async checkpoint save of step {step} did not finish within {self._async_timeout:.0f}s "
+                "— abandoning it and downgrading to synchronous saves for the rest of the run",
+                file=sys.stderr, flush=True,
+            )
+            self._async = False
+            with open(os.path.join(self.save_dir, "suspect_steps.txt"), "a") as f:
+                f.write(f"{step}\n")
+            return
+        if "err" in box:
+            raise box["err"]
+
+    def wait(self) -> None:
+        """Block until the last save is on disk (or the watchdog gives up)."""
+        self._finish_pending()
+
+    def close(self) -> None:
+        self._finish_pending()
+
     def all_steps(self) -> List[int]:
+        self._finish_pending()
         return _steps(self.save_dir)
 
     def latest_step(self) -> Optional[int]:
-        steps = _steps(self.save_dir)
+        steps = self.all_steps()
         return steps[-1] if steps else None
 
     def best_step(self) -> Optional[int]:
         """The best step, else the latest."""
+        self._finish_pending()
         steps = _steps(self._best_dir)
         return steps[-1] if steps else self.latest_step()
 
@@ -168,6 +297,7 @@ class Checkpointer:
         to the rolling store's latest when there is no best step. None when
         there is no checkpoint. With ``state`` (a ``TrainState``) the
         checkpoint's params must carry the same names as its model's."""
+        self._finish_pending()
         directory = self._best_dir if best else self.save_dir
         steps = _steps(directory)
         if step is None:
@@ -178,7 +308,8 @@ class Checkpointer:
             raise FileNotFoundError(f"step {step} is not under {directory} (steps: {steps})")
         restored = _load(directory, step)
         if state is not None:
-            want, got = set(state.model.state_dict()), set(restored["params"])
+            want = set(state.model.state_dict())
+            got = set(unrolled_state_dict(restored["params"], state.model.config))
             if want != got:
                 raise ValueError(
                     f"checkpoint step {step} under {directory} does not fit the model: missing "
@@ -197,7 +328,7 @@ def restore_params_into_state(trainer, state, restored: Optional[Dict[str, Any]]
         return trainer.load_params(state, restored["params"])
     if "optimizer" not in restored:
         raise ValueError("a params-only checkpoint cannot resume a run: restore it with reset_optimizer")
-    state.model.load_state_dict(restored["params"], strict=True)
+    state.model.load_state_dict(unrolled_state_dict(restored["params"], state.model.config), strict=True)
     state.optimizer.load_state_dict(restored["optimizer"])
     state.step = int(restored["step"])
     state.num_updates = int(restored["num_updates"])
@@ -266,4 +397,4 @@ def average_checkpoints(save_dir: str, steps: Optional[List[int]] = None, last_k
 def save_params(save_dir: str, params: Dict[str, torch.Tensor], step: int = 0) -> None:
     """A params-only checkpoint, loadable by ``DiscussionScorer.from_checkpoint``
     and by ``--restore-file`` with ``--reset-optimizer``."""
-    Checkpointer(save_dir).save({"params": _to_cpu(params)}, step)
+    Checkpointer(save_dir, async_save=False).save({"params": _to_cpu(params)}, step)

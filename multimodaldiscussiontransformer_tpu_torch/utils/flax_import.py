@@ -11,6 +11,11 @@ change:
   tables, ``spatial_pos_encoder``, ``graph_token_virtual_distance``,
   ``cls_token``, ``position_embeddings``) are copied as they are.
 
+A tree in the scan layout (``ModelConfig.scan_layers``: ``scan_pairs`` and
+each tower's ``scan_layers`` stacked on a leading axis) is unstacked first
+(``utils/scan_params.py::to_unrolled``); ``to_flax_params`` emits the scan
+layout for a model whose config sets ``scan_layers``.
+
 Leaves are numpy arrays (``jax.device_get`` of the params). A bfloat16 leaf
 (``param_dtype="bfloat16"``) stays bfloat16, bit for bit, both ways; every
 other leaf becomes float32. Nothing here imports JAX; ``to_flax_params``
@@ -25,8 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-# names the scan layout gives to stacked layer groups
-_SCAN_NAMES = ("scan_pairs", "scan_layers")
+from multimodaldiscussiontransformer_tpu_torch.utils.scan_params import to_scanned, to_unrolled
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
@@ -71,19 +75,12 @@ def _convert(path: Tuple[str, ...], leaf) -> Tuple[str, np.ndarray]:
 
 def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The port's state_dict for a JAX ``MDTModel`` params tree (with or
-    without the top-level ``"params"`` collection). Each leaf becomes
-    exactly one tensor; a scan-layout tree raises ``ValueError``."""
+    without the top-level ``"params"`` collection), in either layout. Each
+    unrolled leaf becomes exactly one tensor."""
     if set(params) == {"params"}:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
-    for path, leaf in _flatten(params).items():
-        scanned = [p for p in path if p in _SCAN_NAMES]
-        if scanned:
-            raise ValueError(
-                f"{'/'.join(path)} is in the scan layout ({scanned[0]}): the port "
-                "takes unrolled params; convert with the JAX package's "
-                "utils/scan_params.py::to_unrolled first"
-            )
+    for path, leaf in _flatten(to_unrolled(params)).items():
         key, arr = _convert(path, leaf)
         if key in out:
             raise ValueError(f"two Flax leaves map to {key}")
@@ -111,7 +108,8 @@ def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
 def to_flax_params(model: nn.Module, tensors: Mapping[str, torch.Tensor] = None) -> Dict[str, Any]:
     """The inverse mapping: ``{"params": nested dict of numpy}`` in the Flax
     layout for the model's parameters, or for ``tensors`` keyed by the
-    model's parameter names (e.g. their gradients)."""
+    model's parameter names (e.g. their gradients); in the scan layout when
+    the model's config sets ``scan_layers``."""
     kinds = {}
     for mod_name, mod in model.named_modules():
         for leaf, _ in mod.named_parameters(recurse=False):
@@ -139,4 +137,7 @@ def to_flax_params(model: nn.Module, tensors: Mapping[str, torch.Tensor] = None)
         for part in key.split(".")[:-1]:
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(arr)
+    config = getattr(model, "config", None)
+    if config is not None and config.scan_layers:
+        tree = to_scanned(tree, config)
     return {"params": tree}

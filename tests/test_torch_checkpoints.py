@@ -267,6 +267,7 @@ def test_checkpointer_keeps_the_last_k_and_the_best(tmp_path):
     with pytest.raises(FileNotFoundError):
         c.restore(step=1)
     c.save({"params": _params(4)}, 4, best=True)
+    c.wait()  # saves are asynchronous: the files are there once wait returns
     assert os.listdir(tmp_path / "best") == ["4"] and c.best_step() == 4
 
 
@@ -507,6 +508,7 @@ def test_from_checkpoint_scores_like_the_model_and_jax(tmp_path, jax_model):
     c.save(state, 2, best=True)
     other = trainer.init_state(seed=8)
     c.save(other, 3)
+    c.wait()
     cfg = pconfig.tiny_model_config()
     items = [d.to_item(i) for i, d in enumerate(_discussions(np.random.default_rng(0), 3))]
     want = DiscussionScorer(state.model, device="cpu", **SERVE_KW).score_items(items)
@@ -530,7 +532,7 @@ def test_from_checkpoint_refuses_what_it_cannot_serve(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError):
         DiscussionScorer.from_checkpoint(str(tmp_path / "none"), model_cfg=pconfig.tiny_model_config(), device="cpu")
     ckpt.save_params(str(tmp_path / "scan"), {"graph_encoder.scan_pairs.layer.weight": torch.zeros(2)})
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="does not fit the model"):
         DiscussionScorer.from_checkpoint(str(tmp_path / "scan"), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -542,7 +544,9 @@ def test_server_main_answers_a_post(tmp_path, jax_model, monkeypatch):
     tiny model config and image shape reach ``from_checkpoint`` through a
     wrapper (the CLI builds ``ModelConfig()``, as the JAX CLI does)."""
     _, _, _, _, state = jax_model
-    ckpt.Checkpointer(str(tmp_path)).save(state, 1)
+    c = ckpt.Checkpointer(str(tmp_path))
+    c.save(state, 1)
+    c.wait()
     orig = DiscussionScorer.from_checkpoint.__func__
     seen = {}
     monkeypatch.setattr(DiscussionScorer, "from_checkpoint", classmethod(

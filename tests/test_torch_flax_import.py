@@ -13,7 +13,6 @@ from multimodaldiscussiontransformer_tpu.core.config import tiny_model_config as
 from multimodaldiscussiontransformer_tpu.data.collator import collate as jax_collate
 from multimodaldiscussiontransformer_tpu.data.synthetic import synthetic_batch_items as jax_items
 from multimodaldiscussiontransformer_tpu.models.mdt import MDTModel as JaxMDTModel
-from multimodaldiscussiontransformer_tpu.utils.scan_params import to_scanned
 from multimodaldiscussiontransformer_tpu_torch.core.config import tiny_model_config
 from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
 from multimodaldiscussiontransformer_tpu_torch.utils.flax_import import (
@@ -82,12 +81,6 @@ def test_dead_graph_stack_on_neither_side(params):
     assert "graph_stack_2" not in params["params"]["graph_encoder"]
     assert "graph_stack_3" in params["params"]["graph_encoder"]
     assert not any(".graph_stack_2." in k for k in MDTModel(tiny_model_config()).state_dict())
-
-
-def test_scan_layout_raises(params):
-    scanned = to_scanned(params, jax_tiny_config(scan_layers=True))
-    with pytest.raises(ValueError, match="scan layout"):
-        flax_to_state_dict(scanned)
 
 
 @pytest.mark.parametrize("fault", ["extra", "missing", "shape"])

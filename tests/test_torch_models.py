@@ -322,9 +322,7 @@ def test_init_is_seeded():
 @pytest.mark.parametrize(
     "override",
     [
-        {"scan_layers": True},
         {"sequence_parallel": True},
-        {"remat": True},
         {"dtype": "float16"},
     ],
 )

@@ -228,8 +228,7 @@ def test_fit_and_evaluate(tmp_path):
 
 @pytest.mark.parametrize(
     "override",
-    [dict(dp_size=2), dict(tp_size=2), dict(fsdp=True),
-     dict(data=pconfig.DataConfig(num_workers=2)), dict(profile_trace_dir="trace")],
+    [dict(dp_size=2), dict(tp_size=2), dict(fsdp=True)],
 )
 def test_unsupported_trainer_settings_raise(override):
     with pytest.raises(NotImplementedError):
@@ -245,9 +244,7 @@ def test_launch_main_tiny_on_cpu(tmp_path):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--remat"], ["--hf-init"],
-     ["--distributed-world-size", "2"], ["--profile-trace", "t"], ["--wandb-project", "w"],
-     ["--tensorboard-logdir", "t"], ["--num-workers", "2"]],
+    [["--hf-init"], ["--distributed-world-size", "2"]],
 )
 def test_launch_rejects_unported_flags(flags, capsys):
     argv = ["--synthetic", "--tiny", "--device", "cpu", "--no-save"] + flags
@@ -258,9 +255,9 @@ def test_launch_rejects_unported_flags(flags, capsys):
 
 
 def test_launch_config_matches_jax():
-    """The canonical flags, and the contrastive stage's and the optimizer
-    settings' flags, resolve to the same TrainConfig in both launchers (the
-    port drops the flags it rejects)."""
+    """The canonical flags, the contrastive stage's, the optimizer
+    settings' and the training runtime's flags resolve to the same
+    TrainConfig in both launchers."""
     from multimodaldiscussiontransformer_tpu.train import launch as jlaunch
 
     canonical = ["--synthetic", "--freeze-initial-encoders", "--batch-size", "12", "--update-freq", "3", "--no-save"]
@@ -269,13 +266,17 @@ def test_launch_config_matches_jax():
         canonical + ["--task", "contrastive_learning", "--criterion", "contrastive_loss",
                      "--soft-negative-weight", "0.25", "--multiplication-scale", "10"],
         canonical + ["--no-scan-microbatches", "--bf16-adam-state"],
+        canonical + ["--remat", "--remat-policy", "names_heavy", "--scan-layers", "--num-workers", "4",
+                     "--profile-trace", "t", "--profile-steps", "3", "--tensorboard-logdir", "tb"],
+        ["--synthetic", "--tiny", "--remat", "--remat-policy", "dots"],
     ):
         want = dataclasses.asdict(jlaunch.config_from_args(jlaunch.build_parser().parse_args(argv)))
         got = dataclasses.asdict(launch.config_from_args(launch.build_parser().parse_args(argv)))
         for section in ("model", "data", "optim", "task_cfg"):
             assert got[section] == want[section], (argv, section)
         for key in ("criterion", "task", "seed", "positive_weight", "negative_weight", "log_interval",
-                    "soft_negative_weight", "adaptive_soft_negative_weight", "multiplication_scale"):
+                    "soft_negative_weight", "adaptive_soft_negative_weight", "multiplication_scale",
+                    "profile_trace_dir", "profile_trace_steps", "profile_trace_start"):
             assert got[key] == want[key], (argv, key)
 
 
