@@ -223,6 +223,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
     the canonical synthetic run, updates 3-4 traced: one trace file, its
     size, exactly 2 x 78 tree-kernel events and the trainer's named ranges
     (2 x 3 ``microbatch``, 2 ``optimizer``).
+20. ingest: raw discussion JSON to the card. A seeded
+    ``pruned-with-images.json`` corpus in the reference's schema (~240
+    discussions of 8-32 comments and 4 of 520-600, URLs, "[deleted]"
+    bodies, bot text, 224x224 uint8 images on a quarter of the comments,
+    a few missing) and a WordPiece vocab built from it; ``data_prep.run
+    splits`` and the ingest CLI (``--workers 4``) in processes of their
+    own, once with the C++ host helper and once with
+    ``MDT_TPU_NO_NATIVE=1``: equal npz arrays and index files, seconds per
+    100 discussions of each; the helper against numpy on one 600-node tree
+    (distances + spatial buckets) and on the scorer's host path
+    (``Discussion.to_item`` + ``DiscussionScorer.collate``, batch 4 and 600
+    nodes); 4 canonical updates from that ``--data-root`` through
+    ``train.launch.main`` (30 / 24 / 24 tree launches per update, a finite
+    changing loss), then ``--eval-only --predict-output`` with one row per
+    test node.
+21. weights_in: outside weights into ``ModelConfig()`` on the card. The
+    seeded model exported as a reference (FairSeq) state dict with one
+    layer's q/k/v fused into the legacy ``in_proj_weight``, imported into a
+    model of no weights: scores of the scoring phase's first request batch
+    bit-equal to the source's; HF-named BERT-base and ViT-base state dicts
+    at their published shapes imported (every mapped tensor equal to its
+    source, every other one kept) and scored; the ingest run's checkpoint
+    (update 4) written again in ``tools/orbax_to_npz.py``'s layout (params,
+    AdamW moments, counters), restored with ``--restore-file X.npz`` into a
+    run to update 6: moments equal to the checkpoint's, and its first
+    update against the same update from the port's checkpoint with the
+    same dropout bits (rtol 2e-4 + atol 1e-6);
+    ``find_nonfinite`` over the trained state finds nothing.
 Every runtime line carries the card's name and power limit (``card``).
 
 The last two lines are the kernels' summary (thirteen kernels) and
@@ -237,8 +265,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -3290,6 +3320,403 @@ def phase_contrastive(seed: int):
     return row
 
 
+# ingest and weights_in: data and weights from outside the port, at full width
+INGEST_UPDATES = 4
+# the update after a restore, from the converted JAX layout against the
+# port's own checkpoint (both on the card, the same dropout bits): as
+# train_cpu_agreement's parameters
+RESTORE_RTOL, RESTORE_ATOL = 2e-4, 1e-6
+
+
+def _median_ms(fn, reps: int = 5) -> float:
+    import numpy as np
+
+    out = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(out))
+
+
+def _npz_files_equal(a: str, b: str) -> int:
+    """Both directories hold the same ``.npz`` files with equal arrays
+    (dtype, shape and bytes); returns how many files."""
+    import numpy as np
+
+    files = sorted(os.listdir(a))
+    if files != sorted(os.listdir(b)):
+        raise AssertionError(f"ingest: the two runs wrote other files ({len(files)} vs {len(os.listdir(b))})")
+    for f in files:
+        with np.load(os.path.join(a, f)) as x, np.load(os.path.join(b, f)) as y:
+            if sorted(x.files) != sorted(y.files) or any(
+                    x[k].dtype != y[k].dtype or x[k].shape != y[k].shape or x[k].tobytes() != y[k].tobytes()
+                    for k in x.files):
+                raise AssertionError(f"ingest: {f} differs between the native and the numpy run")
+    return len(files)
+
+
+def phase_ingest(seed: int, card: str, root: str) -> dict:
+    """Raw discussion JSON -> the card: a seeded ``pruned-with-images.json``
+    corpus in the reference's schema and a WordPiece vocab built from it,
+    ``data_prep.run splits`` and the ingest CLI (``--workers 4``, the C++
+    helper; again with ``MDT_TPU_NO_NATIVE=1``), then 4 canonical updates
+    from that ``--data-root`` through ``train.launch.main`` and
+    ``--eval-only --predict-output`` on the result."""
+    import numpy as np
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.data import preprocess, trees
+    from multimodaldiscussiontransformer_tpu_torch.data_prep.synthetic import build_vocab, synthetic_raw_corpus
+    from multimodaldiscussiontransformer_tpu_torch.experiments.hateful_discussions import ingest
+    from multimodaldiscussiontransformer_tpu_torch.experiments.hateful_discussions.dataset import create_hatespeech_dataset
+    from multimodaldiscussiontransformer_tpu_torch.native import loader
+    from multimodaldiscussiontransformer_tpu_torch.serve.incremental import DiscussionScorer, Discussion
+    from multimodaldiscussiontransformer_tpu_torch.train.launch import build_parser, config_from_args
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    raw, vocab = os.path.join(root, "pruned-with-images.json"), os.path.join(root, "vocab.txt")
+    made = synthetic_raw_corpus(raw, root, seed=seed + 5)
+    row = {"phase": "ingest", "card": card, "corpus": made, "vocab_size": build_vocab(raw, vocab),
+           "corpus_seconds": time.perf_counter() - t_phase}
+    env = {**os.environ, "MDT_BERT_VOCAB": vocab}
+    env.pop("MDT_TPU_NO_NATIVE", None)
+
+    def cli(module, args, extra_env=None):
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"{PKG}.{module}", *args], cwd=here, env={**env, **(extra_env or {})},
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"ingest: {module} {args[:2]} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        return proc.stdout, time.perf_counter() - t
+
+    splits = os.path.join(root, "splits")
+    out, row["splits_seconds"] = cli("data_prep.run", ["splits", raw, splits, "--test-frac", "0.05"])
+    row["splits"] = out.strip().splitlines()[-1]
+    runs = {}
+    for name, extra in (("native", None), ("numpy", {"MDT_TPU_NO_NATIVE": "1"})):
+        data = os.path.join(root, "data" if name == "native" else "data_numpy")
+        out, seconds = cli("experiments.hateful_discussions.ingest",
+                           [raw, data, "--train-idx", os.path.join(splits, "train-idx.txt"), "--test-idx",
+                            os.path.join(splits, "test-idx.txt"), "--image-root", root, "--workers", "4"], extra)
+        path = re.search(r"^tree distances: (.*)$", out, re.M)
+        copies = re.search(r"^FINAL K (\d+)$", out, re.M)
+        runs[name] = {"seconds": seconds, "seconds_per_100_trees": seconds * 100 / made["trees"],
+                      "graph_copies": int(copies.group(1)) if copies else None,
+                      "tree_distances": path.group(1) if path else None,
+                      "summary": [ln for ln in out.splitlines() if ln.startswith(("trees=", "images:", "phase"))]}
+    if runs["native"]["tree_distances"] != "the C++ host helper" or runs["numpy"]["tree_distances"] != "numpy":
+        raise AssertionError(f"ingest: distance paths {runs['native']['tree_distances']!r} / {runs['numpy']['tree_distances']!r}")
+    data = os.path.join(root, "data")
+    row["npz_files_equal"] = _npz_files_equal(os.path.join(data, "processed"), os.path.join(root, "data_numpy", "processed"))
+    for name in ("train-idx-many.txt", "test-idx-many.txt", "tree-map.txt"):
+        with open(os.path.join(data, name), "rb") as a, open(os.path.join(root, "data_numpy", name), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"ingest: {name} differs between the native and the numpy run")
+    row["ingest"] = runs
+
+    # the host helper against numpy on one 600-node tree, and on the
+    # scorer's host path (Discussion.to_item: distances and buckets; collate)
+    if loader.try_load() is None:
+        raise AssertionError("ingest: the C++ host helper did not build on this machine")
+    with open(raw) as f:
+        lines = f.readlines()
+    parents = max((ingest.collapse_tree(json.loads(ln))[2] for ln in lines[-8:]), key=len)
+    rng = np.random.default_rng(seed)
+    batch4 = [make_discussion(rng, int(rng.integers(16, 25)), 0.2) for _ in range(4)]
+    big = Discussion()
+    for p in parents:
+        big.add_node(int(p), np.ones(TEXT_LEN, np.int32))
+    scorer = DiscussionScorer(torch.nn.Identity(), device="cuda", image_shape=IMAGE_SHAPE)
+    timings = {}
+    for name, disable in (("native", None), ("numpy", "1")):
+        if disable:
+            os.environ["MDT_TPU_NO_NATIVE"] = disable
+        try:
+            calls = loader.CALLS["tree_distance_pairs"]
+            timings[name] = {
+                "tree_distance_pairs_plus_spatial_buckets_ms": _median_ms(
+                    lambda: preprocess.spatial_buckets(trees.tree_distance_pairs(parents))),
+                "collate_batch4_ms": _median_ms(lambda: scorer.collate([d.to_item(i) for i, d in enumerate(batch4)])),
+                "collate_600_nodes_ms": _median_ms(lambda: scorer.collate([big.to_item()])),
+            }
+            if (loader.CALLS["tree_distance_pairs"] > calls) != (name == "native"):
+                raise AssertionError(f"ingest: the {name} timing did not take the {name} path")
+        finally:
+            os.environ.pop("MDT_TPU_NO_NATIVE", None)
+    row["host_path"] = {"nodes": len(parents), **timings}
+
+    # 4 canonical updates from the ingested --data-root, then the evaluation
+    ds = create_hatespeech_dataset(root=data)
+    save_dir = os.path.join(root, "run")
+    flags = CANONICAL_FLAGS + ["--data-root", data, "--max-updates", str(INGEST_UPDATES), "--seed", str(seed + 5),
+                               "--save-dir", save_dir]
+    cfg = config_from_args(build_parser().parse_args(flags))
+    torch.cuda.empty_cache()
+    _zero_counts()
+    with _RecordedUpdates(cfg.model) as rec:
+        rc, out = _main_quiet(flags)
+    launches = dict(zip(KERNEL_NAMES, _counts()))
+    if rc != 0:
+        raise AssertionError(f"ingest: training from the ingested data returned {rc}:\n{out[-3000:]}")
+    rec.check_launches("ingest training", launches)
+    per_update = [dict(zip(KERNEL_NAMES, r["launches"])) for r in rec.records]
+    tree = [[u[n] for n in ("tree_attention_fwd_fused", "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused")]
+            for u in per_update]
+    losses = [r["loss"] for r in rec.records]
+    if len(rec.records) != INGEST_UPDATES or any(t != [30, 24, 24] for t in tree):
+        raise AssertionError(f"ingest: tree launches per update {tree}, expected 30 / 24 / 24 each")
+    if not all(np.isfinite(losses)) or len(set(losses)) < 2:
+        raise AssertionError(f"ingest: loss series not finite or constant: {losses}")
+    ms = [r["ms"] for r in rec.records]
+    row["train"] = {"graphs": len(ds), "train": len(ds.train_idx), "test": len(ds.test_idx), "loss": losses,
+                    "update_ms": ms, "update_ms_median": float(np.median(ms)),
+                    "max_memory_allocated_gb": max(r["peak_gb"] for r in rec.records),
+                    "tree_launches_per_update": tree, "test": _test_metrics(out)}
+    pred = os.path.join(root, "pred")
+    t = time.perf_counter()
+    rc, out = _main_quiet(flags + ["--eval-only", "--valid-subset", "test", "--predict-output", pred])
+    written = re.search(r"wrote (\d+) per-node rows", out)
+    test_nodes = sum(ds.get(int(i)).num_nodes for i in ds.test_idx)
+    if rc != 0 or not written or int(written.group(1)) != test_nodes:
+        raise AssertionError(f"ingest: --eval-only --predict-output returned {rc}, wrote "
+                             f"{written and written.group(1)} rows for {test_nodes} test nodes:\n{out[-2000:]}")
+    row["eval"] = {"seconds": time.perf_counter() - t, "rows": test_nodes, "test": _test_metrics(out)}
+    row["launches"] = launches
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return {"launches": launches, "data": data, "flags": flags, "save_dir": save_dir}
+
+
+def hf_published_state_dicts(cfg, seed: int):
+    """HF-named ``bert-base-uncased`` (``BertForSequenceClassification``)
+    and ``google/vit-base-patch16-224`` (``ViTModel``, keys under ``vit.``)
+    state dicts at their published shapes, random from ``seed``; and each
+    mapped HF tensor's port name under the reference's layer split (the top
+    ``num_fusion_layers + 1`` layers feed the fusion stacks)."""
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.utils import hf_import as hfi
+    from multimodaldiscussiontransformer_tpu_torch.utils.scan_params import _stack_sizes
+
+    t, v = cfg.text_tower, cfg.image_tower
+    d, gen = t.hidden_size, torch.Generator().manual_seed(seed)
+    layer_shapes = {"attention.query": (d, d), "attention.key": (d, d), "attention.value": (d, d),
+                    "attention_output_dense": (d, d), "intermediate_dense": (t.intermediate_size, d),
+                    "output_dense": (d, t.intermediate_size), "dense": (d, d)}  # else a layer norm's (d,)
+    sds, names = ({}, {}), {}
+
+    def put(which, hf_key, port_key, shape):
+        sds[which][hf_key] = torch.randn(shape, generator=gen) * 0.02
+        if port_key is not None:
+            names[(which, hf_key)] = port_key
+
+    def modules(which, hf_prefix, port_prefix, pairs):
+        for src, dst in pairs:
+            shape = layer_shapes.get(dst)
+            put(which, f"{hf_prefix}.{src}.weight", port_prefix and f"{port_prefix}.{dst}.weight", shape or (d,))
+            put(which, f"{hf_prefix}.{src}.bias", port_prefix and f"{port_prefix}.{dst}.bias", (shape or (d,))[:1])
+
+    split = cfg.num_fusion_layers + 1
+    fusion = [(i, j) for i, size in enumerate(_stack_sizes(split, cfg.num_fusion_stack)) for j in range(size)]
+    e = "graph_encoder.text_model.embeddings"
+    put(0, "bert.embeddings.word_embeddings.weight", f"{e}.word_embeddings.weight", (t.vocab_size, d))
+    put(0, "bert.embeddings.position_embeddings.weight", f"{e}.position_embeddings.weight", (t.max_position_embeddings, d))
+    put(0, "bert.embeddings.token_type_embeddings.weight", f"{e}.token_type_embeddings.weight", (t.type_vocab_size, d))
+    modules(0, "bert.embeddings", e, (("LayerNorm", "layernorm"),))
+    for i in range(t.num_hidden_layers):
+        k = i - (t.num_hidden_layers - split)
+        port = (f"graph_encoder.text_model.layer_{i}" if k < 0 else
+                f"graph_encoder.fusion_stack_{fusion[k][0]}.fusion_{fusion[k][1]}.bert_encoder")
+        modules(0, f"bert.encoder.layer.{i}", port, hfi.BERT_LAYER)
+    modules(0, "bert", "text_pooler", (("pooler.dense", "dense"),))
+    put(0, "classifier.weight", "node_classifier.weight", (cfg.num_classes, d))
+    put(0, "classifier.bias", "node_classifier.bias", (cfg.num_classes,))
+    e = "graph_encoder.vit_model.embeddings"
+    patches = (v.image_size // v.patch_size) ** 2
+    put(1, "vit.embeddings.cls_token", f"{e}.cls_token", (1, 1, d))
+    put(1, "vit.embeddings.position_embeddings", f"{e}.position_embeddings", (1, patches + 1, d))
+    put(1, "vit.embeddings.patch_embeddings.projection.weight", f"{e}.patch_embeddings.weight",
+        (d, v.num_channels, v.patch_size, v.patch_size))
+    put(1, "vit.embeddings.patch_embeddings.projection.bias", f"{e}.patch_embeddings.bias", (d,))
+    for i in range(v.num_hidden_layers):
+        k = i - (v.num_hidden_layers - split)
+        port = (f"graph_encoder.vit_model.layer_{i}" if k < 0 else
+                f"graph_encoder.fusion_stack_{fusion[k][0]}.fusion_{fusion[k][1]}.vit_encoder")
+        modules(1, f"vit.encoder.layer.{i}", port, hfi.VIT_LAYER)
+    modules(1, "vit", "graph_encoder.vit_model", (("layernorm", "layernorm"),))
+    modules(1, "vit", None, (("pooler.dense", "dense"),))  # ViTModel's pooler: the port has none
+    return sds[0], sds[1], names
+
+
+def phase_weights_in(seed: int, card: str, root: str, ingest_run: dict) -> dict:
+    """Weights from outside the port into the canonical model on the card:
+    the reference's (FairSeq) state dict with one legacy fused qkv, HF
+    BERT-base and ViT-base state dicts, and a JAX Orbax step in the layout
+    ``tools/orbax_to_npz.py`` writes, restored with ``--restore-file``."""
+    import numpy as np
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.core.config import ModelConfig
+    from multimodaldiscussiontransformer_tpu_torch.experiments.hateful_discussions.dataset import create_hatespeech_dataset
+    from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
+    from multimodaldiscussiontransformer_tpu_torch.serve.incremental import DiscussionScorer
+    from multimodaldiscussiontransformer_tpu_torch.tasks.node_prediction import NodePredictionTask
+    from multimodaldiscussiontransformer_tpu_torch.train.launch import build_parser, config_from_args
+    from multimodaldiscussiontransformer_tpu_torch.train.trainer import Trainer
+    from multimodaldiscussiontransformer_tpu_torch.utils import checkpoints as ckpt
+    from multimodaldiscussiontransformer_tpu_torch.utils import hf_import as hfi
+    from multimodaldiscussiontransformer_tpu_torch.utils import reference_import as ri
+    from multimodaldiscussiontransformer_tpu_torch.utils.debugging import find_nonfinite
+
+    t_phase = time.perf_counter()
+    seconds, last = {}, [t_phase]
+
+    def mark(step):
+        now = time.perf_counter()
+        seconds[step], last[0] = now - last[0], now
+
+    cfg = ModelConfig()
+    src = MDTModel(cfg, generator=torch.Generator().manual_seed(seed)).state_dict()
+    rng = np.random.default_rng(seed)
+    batch = [make_discussion(rng, int(rng.integers(16, 25)), 0.2) for _ in range(3)]  # the scoring phase's first batch
+
+    def score(state_dict):
+        """(probabilities of each discussion of the batch, tree launches)."""
+        with torch.device("meta"):
+            model = MDTModel(cfg)
+        model.load_state_dict(state_dict, strict=True, assign=True)
+        scorer = DiscussionScorer(model, device="cuda", image_shape=IMAGE_SHAPE)
+        _zero_counts()
+        probs = [scorer.score(d) for d in batch]
+        launches = dict(zip(KERNEL_NAMES, _counts()))
+        del scorer, model
+        torch.cuda.empty_cache()
+        if launches["tree_attention_fwd_fused"] != LAUNCHES_PER_FORWARD * len(batch) or any(
+                n for k, n in launches.items() if k != "tree_attention_fwd_fused"):
+            raise AssertionError(f"weights_in: scoring launched {launches}")
+        if not all(np.isfinite(p).all() and np.abs(p.sum(-1) - 1).max() <= 1e-5 for p in probs):
+            raise AssertionError("weights_in: bad probabilities")
+        return probs
+
+    want = score(src)
+    mark("source")
+
+    # the reference route: export, fuse one layer's q/k/v into the legacy
+    # in_proj_weight / in_proj_bias, import into a model of no weights
+    ref = ri.export_reference_state_dict(src, cfg)
+    base = "encoder.graph_encoder.layers.3.layers.1.self_attn."
+    for leaf in ("weight", "bias"):
+        ref[f"{base}in_proj_{leaf}"] = np.concatenate([ref.pop(f"{base}{p}_proj.{leaf}") for p in "qkv"])
+    with torch.device("meta"):
+        empty = MDTModel(cfg).state_dict()
+    imported = ri.import_reference_checkpoint(empty, cfg, {"model": ref})
+    differ = sorted(k for k, v in src.items() if not torch.equal(imported[k], v))
+    got = score(imported)
+    if differ or not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"weights_in: the reference route changed {differ[:5]} or the scores")
+    reference = {"tensors": len(ref), "legacy_qkv": base + "in_proj_weight", "scores_bit_equal": True}
+    del ref, imported
+    mark("reference")
+
+    # the HF route: BERT-base and ViT-base at their published shapes
+    bert_sd, vit_sd, names = hf_published_state_dicts(cfg, seed + 6)
+    imported = hfi.import_towers(src, cfg, bert_sd, vit_sd)
+    bad = [(w, k) for (w, k), port in names.items() if not torch.equal(imported[port], (bert_sd, vit_sd)[w][k])]
+    mapped = set(names.values())
+    kept = [k for k in src if k not in mapped and not torch.equal(imported[k], src[k])]
+    if bad or kept:
+        raise AssertionError(f"weights_in: HF tensors not carried {bad[:4]}, others changed {kept[:4]}")
+    hf_probs = score(imported)
+    hf = {"bert_tensors": len(bert_sd), "vit_tensors": len(vit_sd), "mapped": len(names), "transposed": 0,
+          "probabilities_finite": True, "differ_from_source": not all(np.array_equal(a, b) for a, b in zip(hf_probs, want))}
+    del bert_sd, vit_sd, imported
+    mark("hf")
+
+    # the Orbax route: the ingest run's own checkpoint (update 4) restored
+    # and written again in the converter's layout, then restored with
+    # --restore-file into a run to update 6; its first update against the
+    # same update from the port's checkpoint, with the same dropout bits
+    flags, own_dir, step = ingest_run["flags"][:-2], ingest_run["save_dir"], INGEST_UPDATES
+    npz = os.path.join(root, f"jax-step-{step}.npz")
+    pcfg = config_from_args(build_parser().parse_args(flags))
+    ds = create_hatespeech_dataset(root=ingest_run["data"])
+    trainer = NodePredictionTask(pcfg).build_trainer(image_shape=IMAGE_SHAPE, device="cuda")
+    restored = ckpt.Checkpointer(own_dir).restore(step=step)
+    state = ckpt.restore_params_into_state(trainer, trainer.init_state(params=restored["params"]), restored,
+                                           reset_optimizer=False)
+    del restored
+    counters = (state.step, state.num_updates, state.epoch)
+    t = time.perf_counter()
+    ckpt.save_flax_npz(npz, state)
+    npz_s = time.perf_counter() - t
+    mark("own_and_npz")
+
+    first = {}  # of the restored run's first update: generators, counters and moments before it, params after
+
+    def capture(orig):
+        def step_(trainer, state, group, **kw):
+            if not first:
+                first["rngs"] = (state.host_rng.get_state(), state.device_rng.get_state())
+                first["counters"] = (state.step, state.num_updates, state.epoch)
+                opt = state.optimizer.state
+                first["adam"] = [(int(opt[p]["step"]), opt[p]["exp_avg"].clone(), opt[p]["exp_avg_sq"].clone())
+                                 for p in state.trainable]
+            logs = orig(trainer, state, group, **kw)
+            if "params" not in first:
+                by_id = {id(p): n for n, p in state.model.named_parameters()}
+                first["params"] = {by_id[id(p)]: p.detach().clone() for p in state.trainable}
+            return logs
+        return step_
+
+    orig = Trainer.train_step
+    Trainer.train_step = capture(orig)
+    _zero_counts()
+    try:
+        rc, out = _main_quiet(flags + ["--restore-file", npz, "--max-updates", str(step + 2), "--no-save",
+                                       "--save-dir", os.path.join(root, "from_npz")])
+    finally:
+        Trainer.train_step = orig
+    launches = dict(zip(KERNEL_NAMES, _counts()))
+    if rc != 0 or f"restored from {npz}" not in out or first.get("counters") != counters:
+        raise AssertionError(f"weights_in: --restore-file {npz} returned {rc}, counters {first.get('counters')} "
+                             f"(the checkpoint's {counters}):\n{out[-2000:]}")
+    mark("restore_run")
+
+    # the same update from the port's own checkpoint, with the restored run's generators
+    opt = state.optimizer.state
+    if any(count != step or not torch.equal(opt[p]["exp_avg"], m) or not torch.equal(opt[p]["exp_avg_sq"], v)
+           for p, (count, m, v) in zip(state.trainable, first.pop("adam"))):
+        raise AssertionError("weights_in: the moments restored from the npz differ from the port checkpoint's")
+    order = {id(p): n for n, p in state.model.named_parameters()}
+    trainable = [order[id(p)] for p in state.trainable]
+    state.host_rng.set_state(first["rngs"][0])
+    state.device_rng.set_state(first["rngs"][1])
+    state = trainer.fit(ds, state=state, max_updates=step + 1, log_fn=lambda m: None)
+    worst = 0.0
+    for name, p in zip(trainable, state.trainable):
+        a, b = p.detach().float(), first["params"][name].float()
+        err = float(((a - b).abs() - RESTORE_RTOL * b.abs()).max())
+        worst = max(worst, float((a - b).abs().max()))
+        if err > RESTORE_ATOL:
+            raise AssertionError(f"weights_in: {name} after the restored update differs by {worst}")
+    nonfinite = find_nonfinite({"params": state.model.state_dict(), "optimizer": state.optimizer.state_dict()})
+    if nonfinite:
+        raise AssertionError(f"weights_in: non-finite tensors in the trained state: {nonfinite[:5]}")
+    orbax = {"npz_bytes": os.path.getsize(npz), "npz_write_seconds": npz_s, "moments_bit_equal": True,
+             "restored_counters": first["counters"], "first_update_max_abs_diff": worst,
+             "rtol": RESTORE_RTOL, "atol": RESTORE_ATOL, "nonfinite": nonfinite}
+    del state, trainer, first
+    torch.cuda.empty_cache()
+    mark("compare")
+    row = {"phase": "weights_in", "card": card, "config": "ModelConfig(), bfloat16 compute over float32 params",
+           "reference": reference, "hf": hf, "orbax": orbax, "launches": launches,
+           "seconds_by_step": seconds, "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    return launches
+
+
 def _kernel_entry(name, source, replaces, also, launches, row, dtype_err, ms_key, plain_ms, library_ms, bound_key):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "also_replaces": also,
@@ -3365,6 +3792,12 @@ def main(argv=None) -> int:
     profile = phase_profile(args.seed, card)
     phase_checkpoint(args.seed, card)
     contrastive = phase_contrastive(args.seed)
+    outside = tempfile.mkdtemp(prefix="mdt_outside_")
+    try:
+        ingest = phase_ingest(args.seed, card, outside)
+        weights_in = phase_weights_in(args.seed, card, outside, ingest)
+    finally:
+        shutil.rmtree(outside, ignore_errors=True)
 
     serve_row = rows[0]  # S=33, B=16: the canonical serving shape
     train_row = train_rows[0]  # S=33, B=12: the canonical training shape
@@ -3380,7 +3813,8 @@ def main(argv=None) -> int:
                **{f"runtime_remat_{p}": counts for p, counts in remat.items()},
                **{f"train_cpu_agreement_fused_remat_{p}": counts for p, counts in agree_remat.items()},
                **{f"contrastive_{part}": contrastive[part]["launches"]
-                  for part in ("pretrain", "transfer", "multisteps", "bf16_adam", "bf16_params")}}
+                  for part in ("pretrain", "transfer", "multisteps", "bf16_adam", "bf16_params")},
+               "ingest": ingest["launches"], "weights_in_orbax_restore": weights_in}
 
     def paths(name, extra=None):
         out = {path: counts[name] for path, counts in by_path.items()}

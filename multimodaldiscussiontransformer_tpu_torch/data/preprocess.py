@@ -20,6 +20,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from multimodaldiscussiontransformer_tpu_torch.native import loader as _native
+
 CLIP = 5  # per-component clip of (up, down)
 
 
@@ -59,8 +61,16 @@ _TABLE = spatial_bucket_table()
 
 def spatial_buckets(pairs: np.ndarray) -> np.ndarray:
     """Map (..., 2) (up, down) pairs to bucket ids; pairs with either
-    component above CLIP map to the (CLIP, CLIP) bucket."""
+    component above CLIP map to the (CLIP, CLIP) bucket. An (N, N, 2) array
+    goes through the C++ host helper where it builds."""
     pairs = np.asarray(pairs, dtype=np.int64)
+    lib = _native.try_load()
+    if lib is not None and pairs.ndim == 3 and pairs.shape[0] == pairs.shape[1]:
+        return _native.spatial_buckets(lib, pairs, _TABLE, CLIP)
+    return _spatial_buckets_numpy(pairs)
+
+
+def _spatial_buckets_numpy(pairs: np.ndarray) -> np.ndarray:
     up, down = pairs[..., 0], pairs[..., 1]
     oob = (up > CLIP) | (down > CLIP)
     u = np.where(oob, CLIP, up)

@@ -153,15 +153,20 @@ class DiscussionScorer:
         """A scorer for the params of a training checkpoint directory
         (``utils/checkpoints.py``): the best step by default (the latest
         without one, or with ``best=False``); an explicit ``step`` of the
-        rolling store wins. Params in the scan layout are unstacked. The
+        rolling store wins. ``save_dir`` may also name a JAX step converted
+        by ``tools/orbax_to_npz.py`` (an ``.npz``). Params in the scan
+        layout are unstacked. The
         model is rebuilt from ``model_cfg`` (``ModelConfig()`` by default)
         on ``device`` (the card unless ``"cpu"`` is asked for)."""
         from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
-        from multimodaldiscussiontransformer_tpu_torch.utils.checkpoints import Checkpointer
+        from multimodaldiscussiontransformer_tpu_torch.utils.checkpoints import Checkpointer, is_flax_npz, load_flax_npz
         from multimodaldiscussiontransformer_tpu_torch.utils.scan_params import unrolled_state_dict
 
         device = resolve_device(device)
-        restored = Checkpointer(save_dir).restore(step=step, best=best and step is None)
+        if is_flax_npz(save_dir):
+            restored = load_flax_npz(save_dir)
+        else:
+            restored = Checkpointer(save_dir).restore(step=step, best=best and step is None)
         if restored is None:
             raise FileNotFoundError(f"no checkpoints under {save_dir}")
         model_cfg = model_cfg or ModelConfig()

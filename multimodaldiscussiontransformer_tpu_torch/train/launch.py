@@ -48,7 +48,11 @@ import sys
 
 # flag -> (is it set?, what brings it)
 UNPORTED = {
-    "--hf-init": (lambda a: a.hf_init, "the HF tower import (ROADMAP Queue 1 item 9), once such weights are in the repository"),
+    "--hf-init": (
+        lambda a: a.hf_init,
+        "the pretrained BERT/ViT weights, once they are in the repository (ROADMAP Queue 1 item 4); "
+        "the state-dict mapping they go through exists (utils/hf_import.py)",
+    ),
     "--distributed-world-size > 1": (lambda a: a.distributed_world_size > 1, "the parallel slice (ROADMAP Queue 1 item 8)"),
     "--dp-size/--tp-size/--sp-size/--num-slices/--fsdp": (
         lambda a: a.dp_size not in (-1, 1) or a.tp_size != 1 or a.sp_size != 1 or a.num_slices != 1 or a.fsdp,
@@ -338,7 +342,11 @@ def main(argv=None) -> int:
 
     from multimodaldiscussiontransformer_tpu_torch.core import registry
     from multimodaldiscussiontransformer_tpu_torch.train.metrics import MetricsWriter
-    from multimodaldiscussiontransformer_tpu_torch.utils.checkpoints import Checkpointer, restore_params_into_state
+    from multimodaldiscussiontransformer_tpu_torch.utils.checkpoints import (
+        Checkpointer,
+        restore_file,
+        restore_params_into_state,
+    )
 
     registry.populate()
     task = registry.TASKS.get(cfg.task)(cfg)
@@ -378,7 +386,7 @@ def main(argv=None) -> int:
     ckpt = None if args.no_save else Checkpointer(cfg.save_dir)
     if cfg.restore_file:
         state = trainer.init_state()
-        restored = Checkpointer(cfg.restore_file).restore(state)
+        restored = restore_file(cfg.restore_file, state)
         if restored is not None:
             if cfg.task == "node_prediction" and cfg.reset_optimizer:  # a transfer: the head starts afresh
                 restored = {**restored, "params": task.transfer_from_contrastive(restored["params"], seed=cfg.seed)}
@@ -432,14 +440,14 @@ def evaluate_checkpoint(args, cfg, trainer, dataset) -> int:
     ``--valid-subset`` and, with ``--predict-output``, write its per-node
     predictions."""
     from multimodaldiscussiontransformer_tpu_torch.train.trainer import write_predictions
-    from multimodaldiscussiontransformer_tpu_torch.utils.checkpoints import Checkpointer, average_checkpoints
+    from multimodaldiscussiontransformer_tpu_torch.utils.checkpoints import average_checkpoints, restore_file
 
     src = cfg.restore_file or cfg.save_dir
     if args.average_last is not None:
         state = trainer.init_state(params=average_checkpoints(src, last_k=args.average_last))
         print(f"evaluating average of last {args.average_last} checkpoints from {src}")
     else:
-        restored = Checkpointer(src).restore(best=args.load_best)
+        restored = restore_file(src, best=args.load_best)
         if restored is None:
             print(f"error: no checkpoint under {src}", file=sys.stderr)
             return 1

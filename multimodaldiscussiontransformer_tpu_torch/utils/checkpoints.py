@@ -10,8 +10,19 @@ saves (keep the newest ``keep``), ``save_dir/best/<step>/state.pt`` for
 the best one, and ``save_dir/best_step.txt``. A step's file is written by
 ``torch.save`` into a temporary directory that ``os.replace`` then moves to
 ``<step>``, so a run killed mid-save leaves no step that ``latest_step``
-would pick. The port's format is its own: it does not read the JAX
-package's Orbax checkpoints.
+would pick. The port's format is its own. The JAX package's Orbax
+checkpoints come in through ``tools/orbax_to_npz.py``, which runs where JAX
+runs and writes one step as an ``.npz`` that ``load_flax_npz`` reads
+(``restore_file``: ``--restore-file X.npz`` and
+``DiscussionScorer.from_checkpoint("X.npz")``); its layout:
+- ``params/<Flax path>``: the params (either param layout), mapped through
+  ``utils/flax_import.py``;
+- ``opt/mu/<Flax path>``, ``opt/nu/<Flax path>`` and ``opt/count``: optax's
+  AdamW moments of the trainable params and its count;
+- ``step`` (microbatches), ``num_updates``, ``epoch`` and, where the run
+  had one, ``best_step``;
+- ``__bf16__``: the names of the bfloat16 leaves, stored as their uint16
+  bits (so numpy reads them without ``ml_dtypes``).
 
 A saved state is a dict of tensors, ints, floats, strings, lists and
 dicts, read back with ``torch.load(..., weights_only=True)``:
@@ -53,10 +64,11 @@ import sys
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from multimodaldiscussiontransformer_tpu_torch.models.mdt import _lecun_normal
-from multimodaldiscussiontransformer_tpu_torch.utils.scan_params import scanned_state_dict, unrolled_state_dict
+from multimodaldiscussiontransformer_tpu_torch.utils.scan_params import _nest, scanned_state_dict, unrolled_state_dict
 
 STATE_FILE = "state.pt"
 
@@ -318,21 +330,140 @@ class Checkpointer:
         return restored
 
 
+FLAX_NPZ_BF16 = "__bf16__"
+
+
+def is_flax_npz(path: str) -> bool:
+    """Whether ``path`` names a converted JAX step (an ``.npz`` file) rather
+    than a checkpoint directory."""
+    return str(path).endswith(".npz") and os.path.isfile(path)
+
+
+def _npz_tree(arrays: Dict[str, np.ndarray], prefix: str) -> Dict[str, Any]:
+    """The entries under ``prefix`` as a nested dict, split at "/" (no
+    Flax name holds a ".")."""
+    return _nest({k[len(prefix):].replace("/", "."): v for k, v in arrays.items() if k.startswith(prefix)})
+
+
+def load_flax_npz(path: str) -> Dict[str, Any]:
+    """A converted JAX step (module docstring) as a restored dict:
+    ``params`` (the port's state_dict, unrolled), ``adam`` (``count`` and
+    the moments ``exp_avg`` / ``exp_avg_sq`` by parameter name) where the
+    file has them, and the counters."""
+    from multimodaldiscussiontransformer_tpu_torch.utils.flax_import import flax_to_state_dict
+
+    with np.load(path, allow_pickle=False) as z:
+        bf16 = set(z[FLAX_NPZ_BF16].tolist()) if FLAX_NPZ_BF16 in z.files else set()
+        arrays = {k: z[k] for k in z.files if k != FLAX_NPZ_BF16}
+    for key in bf16:  # uint16 bits: flax_import reads them as bf16
+        arrays[key] = arrays[key].view(np.uint16)
+    out: Dict[str, Any] = {"params": flax_to_state_dict(_npz_tree(arrays, "params/"))}
+    if "opt/count" in arrays:
+        out["adam"] = {
+            "count": int(arrays["opt/count"]),
+            "exp_avg": flax_to_state_dict(_npz_tree(arrays, "opt/mu/")),
+            "exp_avg_sq": flax_to_state_dict(_npz_tree(arrays, "opt/nu/")),
+        }
+    for key in ("step", "num_updates", "epoch", "best_step"):
+        if key in arrays:
+            out[key] = int(arrays[key])
+    return out
+
+
+def save_flax_npz(path: str, state) -> None:
+    """Write ``state`` (a ``TrainState`` whose optimizer has taken a step or
+    none) in the layout ``tools/orbax_to_npz.py`` writes from a JAX step:
+    the port's side of that file, for round trips where JAX cannot run."""
+    from multimodaldiscussiontransformer_tpu_torch.utils.flax_import import _flatten, to_flax_params
+
+    model = state.model
+    names = {id(p): n for n, p in model.named_parameters()}
+    arrays: Dict[str, np.ndarray] = {}
+    bf16: List[str] = []
+
+    def put(prefix: str, tensors: Dict[str, torch.Tensor]) -> None:
+        as_bf16 = any(t.dtype == torch.bfloat16 for t in tensors.values())
+        tree = to_flax_params(model, {k: t.detach().float() for k, t in tensors.items()})["params"]
+        for path, leaf in _flatten(tree).items():
+            key = prefix + "/".join(path)
+            if as_bf16:  # float32 copies of bf16 values: their top 16 bits are the bf16 bits
+                leaf = (np.ascontiguousarray(leaf, np.float32).view(np.uint32) >> 16).astype(np.uint16)
+                bf16.append(key)
+            arrays[key] = leaf
+
+    put("params/", dict(model.named_parameters()))
+    opt = state.optimizer
+    # before the first step the moments are optax's initial zeros
+    dtype = getattr(opt, "state_dtype", None)
+    moments = {
+        names[id(p)]: opt.state[p] if opt.state.get(p) else
+        {"step": 0, "exp_avg": torch.zeros_like(p, dtype=dtype or p.dtype),
+         "exp_avg_sq": torch.zeros_like(p, dtype=dtype or p.dtype)}
+        for p in state.trainable
+    }
+    put("opt/mu/", {n: st["exp_avg"] for n, st in moments.items()})
+    put("opt/nu/", {n: st["exp_avg_sq"] for n, st in moments.items()})
+    count = int(next(iter(moments.values()))["step"]) if moments else 0
+    arrays.update({"opt/count": np.asarray(count, np.int32), "step": np.asarray(state.step, np.int32),
+                   "num_updates": np.asarray(count, np.int32), "epoch": np.asarray(state.epoch, np.int32)})
+    arrays[FLAX_NPZ_BF16] = np.asarray(sorted(bf16), dtype=str)
+    np.savez(path, **arrays)
+
+
+def restore_file(path: str, state=None, best: bool = False) -> Optional[Dict[str, Any]]:
+    """``--restore-file``: a converted JAX step (``.npz``) or the port's
+    checkpoint directory (its best step with ``best``, else its latest)."""
+    if is_flax_npz(path):
+        return load_flax_npz(path)
+    return Checkpointer(path).restore(state, best=best)
+
+
+def _load_adam_moments(state, adam: Dict[str, Any]) -> None:
+    """Give ``state.optimizer`` optax's AdamW moments and count (a converted
+    JAX step's ``adam``), one entry per trainable parameter."""
+    opt = state.optimizer
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    trainable = [names[id(p)] for p in state.trainable]
+    if set(trainable) != set(adam["exp_avg"]):
+        raise ValueError(
+            f"the AdamW moments do not fit the trainable parameters: missing "
+            f"{sorted(set(trainable) - set(adam['exp_avg']))[:5]}, unexpected {sorted(set(adam['exp_avg']) - set(trainable))[:5]}"
+        )
+
+    def count():
+        # torch.optim.AdamW keeps one float32 tensor per parameter (advanced
+        # in place), OptaxAdamW an int
+        if hasattr(opt, "state_dtype"):
+            return int(adam["count"])
+        return torch.tensor(float(adam["count"]), dtype=torch.float32)
+
+    per_param = {
+        i: {"step": count(), "exp_avg": adam["exp_avg"][n], "exp_avg_sq": adam["exp_avg_sq"][n]}
+        for i, n in enumerate(trainable)
+    }
+    opt.load_state_dict({"state": per_param, "param_groups": opt.state_dict()["param_groups"]})
+
+
 def restore_params_into_state(trainer, state, restored: Optional[Dict[str, Any]], reset_optimizer: bool):
     """Apply a restored checkpoint to ``state``: the whole state (resume),
     or with ``reset_optimizer`` the params alone with a fresh optimizer (the
-    ``--reset-optimizer`` fine-tune path, run_train.sh:63)."""
+    ``--reset-optimizer`` fine-tune path, run_train.sh:63). A converted JAX
+    step resumes with its AdamW moments and counters; its run's dropout
+    generators are JAX's, so ``state`` keeps its own."""
     if restored is None:
         return state
     if reset_optimizer:
         return trainer.load_params(state, restored["params"])
-    if "optimizer" not in restored:
+    if "optimizer" not in restored and "adam" not in restored:
         raise ValueError("a params-only checkpoint cannot resume a run: restore it with reset_optimizer")
     state.model.load_state_dict(unrolled_state_dict(restored["params"], state.model.config), strict=True)
-    state.optimizer.load_state_dict(restored["optimizer"])
     state.step = int(restored["step"])
     state.num_updates = int(restored["num_updates"])
     state.epoch = int(restored.get("epoch", 0))
+    if "adam" in restored:
+        _load_adam_moments(state, restored["adam"])
+        return state
+    state.optimizer.load_state_dict(restored["optimizer"])
     state.host_rng.set_state(restored["host_rng"])
     state.device_rng.set_state(restored["device_rng"])
     if state.acc_grads is not None and "acc_grads" in restored:

@@ -17,7 +17,9 @@ each tower's ``scan_layers`` stacked on a leading axis) is unstacked first
 layout for a model whose config sets ``scan_layers``.
 
 Leaves are numpy arrays (``jax.device_get`` of the params). A bfloat16 leaf
-(``param_dtype="bfloat16"``) stays bfloat16, bit for bit, both ways; every
+(``param_dtype="bfloat16"``) stays bfloat16, bit for bit, both ways; so does
+a uint16 leaf, read as bfloat16 bits (the ``.npz`` layout of
+``tools/orbax_to_npz.py``, which numpy reads without ``ml_dtypes``); every
 other leaf becomes float32. Nothing here imports JAX; ``to_flax_params``
 imports ``ml_dtypes`` (numpy's bfloat16) only when it meets a bf16 tensor.
 """
@@ -45,7 +47,8 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tupl
 
 
 def _is_bf16(arr: np.ndarray) -> bool:
-    return arr.dtype.name == "bfloat16"
+    """A bfloat16 array, or a uint16 array of bfloat16 bits."""
+    return arr.dtype.name in ("bfloat16", "uint16")
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
