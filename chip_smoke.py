@@ -251,6 +251,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
     update against the same update from the port's checkpoint with the
     same dropout bits (rtol 2e-4 + atol 1e-6);
     ``find_nonfinite`` over the trained state finds nothing.
+22. parallel: training across ranks through ``train.launch.main``, one
+    process per rank (``chip_smoke.py --parallel-rank R``), on the canonical
+    setting at full width: the tree and tower kernels at H = 6 (a tp=2
+    rank's heads) against their plain versions; the one-process run every
+    parallel run is held against; NCCL at world size 1 (dp, fsdp, tp); then,
+    with one card, 2 ranks on card 0 over gloo (dp=2, tp=2, ``--eval-only
+    --predict-output``, tiny float32 node and contrastive updates, a SIGTERM
+    to rank 1 alone), and with N >= 2 cards NCCL with one rank per card
+    (dp, fsdp, tp=2 x dp, ``--num-slices 2 --fsdp``): ms per update,
+    discussions/s, scaling against one card, peak memory per rank, the
+    launches of every rank. ``--only parallel`` runs the build and this
+    phase alone.
 Every runtime line carries the card's name and power limit (``card``).
 
 The last two lines are the kernels' summary (thirteen kernels) and
@@ -3717,6 +3729,625 @@ def phase_weights_in(seed: int, card: str, root: str, ingest_run: dict) -> dict:
     return launches
 
 
+# parallel: training across ranks through the launcher (one process per
+# rank, FairSeq's flags). The canonical bf16 runs (3 updates at lr 1e-4 from
+# the first update: every step far above a float32 ulp) are held to the
+# one-process run: losses and gradient norms of every update within
+# RESUME_LOSS_RTOL, and the direction of the params' change: AdamW's step is
+# about +-lr per element, its sign noise where the gradient is, and bf16
+# rounds the two layouts' gradients differently, so the sign of each element
+# that moved by at least half the largest change agrees in
+# PARALLEL_SIGN_AGREEMENT of them (a rank that stepped on its own slice's
+# gradient agrees in far fewer). Beside them, and not held, a second
+# one-process run over the same discussions in one rank's microbatches
+# (batch 12 / ranks, update-freq 3 x ranks): how far bf16 rounding alone
+# moves this trajectory. The tiny float32 runs (2 updates, a save after
+# each) as train_cpu_agreement: the loss and gradient norm of both updates
+# within rtol 2e-4, the params after the first update in its two-tier check.
+# The gradient norm is what sees the scale of a reduction (a mean where a sum
+# belongs): AdamW's first step is about lr * sign(g) whatever that scale.
+PARALLEL_UPDATES = 3
+PARALLEL_SIGN_AGREEMENT = 0.95
+PARALLEL_LR = ["--lr", "1e-4", "--warmup-updates", "1"]
+TINY_UPDATES = 2
+PARALLEL_GRAPHS = 240  # 192 train graphs: 16 global batches of 12
+PARALLEL_RANK_TIMEOUT = 420  # seconds for one rank's whole plan
+NO_DROPOUT = ["--dropout", "0", "--attention-dropout", "0", "--act-dropout", "0"]
+TINY_FLAGS = ["--synthetic", "--tiny", "--lr", "1e-3", "--warmup-updates", "2", "--total-num-update", "20", "--update-freq", "3",
+              "--node-capacity-buckets", "128", "--image-capacity-buckets", "32", "--label-capacity-buckets", "64",
+              "--log-interval", "1", "--validate-interval-updates", "0", "--synthetic-graphs", "40", *NO_DROPOUT]
+H6 = 6  # the heads of one rank under tp=2 at ModelConfig() width
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_rank_worker(plan_path: str, rank: int, out_path: str) -> int:
+    """One rank of a parallel plan: ``train.launch.main`` of each entry's
+    argv (``{rank}`` filled in) in turn, in this process, with the kernel
+    counts zeroed before and read after each run, its seconds, its stdout
+    and this rank's peak memory; the results go to ``out_path`` after each
+    run."""
+    import contextlib
+    import faulthandler
+    import io
+    import signal
+
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.train import launch
+
+    faulthandler.register(signal.SIGUSR1, all_threads=True)  # run_ranks asks for the stacks of a rank that hangs
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main sets them: the float32 runs are compared
+    torch.backends.cudnn.allow_tf32 = False
+    with open(plan_path) as f:
+        plan = json.load(f)
+    results = []
+    for item in plan:
+        argv = [a.replace("{rank}", str(rank)) for a in item["argv"]]
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = launch.main(argv)
+        seconds = time.perf_counter() - t
+        counts = dict(zip(KERNEL_NAMES, _counts()))
+        results.append({"name": item["name"], "rc": rc, "seconds": seconds, "counts": counts,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 2**30, "stdout": buf.getvalue()[-4000:]})
+        with open(out_path + ".tmp", "w") as f:
+            json.dump(results, f)
+        os.replace(out_path + ".tmp", out_path)
+        if rc != 0:
+            return rc
+    return 0
+
+
+def run_ranks(plan, n: int, root: str, stop=None):
+    """Run ``plan`` on ``n`` rank processes (``chip_smoke.py
+    --parallel-rank``); ``stop`` = (entry name, save dir, update): SIGTERM
+    to rank 1 alone once rank 0's metrics show that update of that entry.
+    Returns each rank's results; raises if a rank fails or outlives
+    ``PARALLEL_RANK_TIMEOUT``."""
+    import signal
+
+    plan_path = os.path.join(root, f"plan-{len(os.listdir(root))}.json")
+    with open(plan_path, "w") as f:
+        json.dump(plan, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONUNBUFFERED": "1", "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 2) // n))}
+    outs = [f"{plan_path}.rank{r}.json" for r in range(n)]
+    logs = [open(f"{plan_path}.rank{r}.log", "w") for r in range(n)]
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"), "--parallel-rank", str(r),
+                               "--parallel-plan", plan_path, "--parallel-out", outs[r]],
+                              cwd=here, env=env, stdout=logs[r], stderr=subprocess.STDOUT) for r in range(n)]
+    sent = {}
+    t0 = time.perf_counter()
+
+    def tails():
+        out = []
+        for r in range(n):
+            with open(f"{plan_path}.rank{r}.log") as f:
+                out.append(f"--- rank {r} (rc {procs[r].poll()}):\n{f.read()[-3000:]}")
+        return "\n".join(out)
+
+    try:
+        while any(p.poll() is None for p in procs):
+            # a rank that failed leaves the others waiting in a collective
+            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed:
+                raise AssertionError(f"parallel rank(s) {failed} failed:\n{tails()}")
+            if time.perf_counter() - t0 > PARALLEL_RANK_TIMEOUT:
+                for p in procs:  # each rank's stacks into its log (faulthandler)
+                    p.send_signal(signal.SIGUSR1)
+                time.sleep(3)
+                raise AssertionError(f"parallel ranks still running after {PARALLEL_RANK_TIMEOUT} s:\n{tails()}")
+            if stop is not None and not sent and os.path.exists(os.path.join(stop[1], "metrics.jsonl")):
+                with open(os.path.join(stop[1], "metrics.jsonl")) as f:  # whole lines only: rank 0 is writing
+                    steps = [json.loads(ln)["step"] for ln in f if '"train"' in ln and ln.endswith("\n")]
+                if steps and max(steps) >= stop[2]:
+                    procs[1].send_signal(signal.SIGTERM)
+                    sent["at_update"] = max(steps)
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    results = []
+    for r, p in enumerate(procs):
+        if p.returncode != 0 or not os.path.exists(outs[r]):
+            raise AssertionError(f"parallel rank {r} exited {p.returncode}:\n{tails()}")
+        with open(outs[r]) as f:
+            results.append(json.load(f))
+    if stop is not None and not sent:
+        raise AssertionError("the stop request was never sent")
+    return results, sent
+
+
+def _launch_in_process(argv):
+    """``train.launch.main`` here, kernel counts zeroed before and read
+    after: (rc, stdout, seconds, counts, peak GB)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t = time.perf_counter()
+    rc, out = _main_quiet(argv)
+    return rc, out, time.perf_counter() - t, dict(zip(KERNEL_NAMES, _counts())), \
+        torch.cuda.max_memory_allocated() / 2**30
+
+
+def _ms_per_update(save_dir: str) -> float:
+    """Median ms per update after the first, from rank 0's metrics (log
+    interval 1: ``ups`` is one update's rate)."""
+    import numpy as np
+
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        ups = [r["ups"] for r in map(json.loads, f) if r["split"] == "train" and r["step"] > 1]
+    return float(np.median([1e3 / u for u in ups]))
+
+
+def _trainable_state(save_dir: str, step: int):
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.train.optimizer import FROZEN_PREFIXES
+
+    st = torch.load(os.path.join(save_dir, str(step), "state.pt"), map_location="cpu", weights_only=True)
+    return {k: v for k, v in st["params"].items() if not any(p in k for p in FROZEN_PREFIXES)}, st
+
+
+def _train_records(save_dir: str) -> dict:
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        return {r["step"]: r for r in map(json.loads, f) if r["split"] == "train"}
+
+
+def _agreement(got_dir, want_dir, init, step: int, float32: bool, lr0: float = 0.0, param_step=None) -> dict:
+    """Two runs' logged loss and gradient norm at every update and their
+    trainable params: bf16 (``float32`` False) losses and norms within
+    RESUME_LOSS_RTOL and the sign of the change since ``init`` to ``step``
+    of the elements that moved most agreeing in PARALLEL_SIGN_AGREEMENT of
+    them; float32 losses and norms within AGREE_GRAD_RTOL and the params at
+    ``param_step`` (default ``step``) within the AGREE tolerances (a param
+    whose update was noise-sized within 2.05 lr0). The numbers, with
+    ``failed``: what disagreed, or None."""
+    import torch
+
+    rg, rw = _train_records(got_dir), _train_records(want_dir)
+    if sorted(rg) != sorted(rw):
+        return {"failed": f"updates logged {sorted(rg)} against {sorted(rw)}"}
+
+    def rel(key):
+        return max(abs(rg[s][key] - rw[s][key]) / max(abs(rw[s][key]), 1e-12) for s in rw)
+
+    loss_rel, gnorm_rel = rel("loss"), rel("gnorm")
+    out = {"updates": len(rw), "loss_rel": loss_rel, "gnorm_rel": gnorm_rel,
+           "losses": [rg[s]["loss"] for s in sorted(rg)], "losses_one_process": [rw[s]["loss"] for s in sorted(rw)],
+           "gnorms": [rg[s]["gnorm"] for s in sorted(rg)], "gnorms_one_process": [rw[s]["gnorm"] for s in sorted(rw)],
+           "failed": None}
+    if float32:
+        at = step if param_step is None else param_step
+        got, _ = _trainable_state(got_dir, at)
+        want, _ = _trainable_state(want_dir, at)
+        bad, err = [], 0.0
+        for k, w in want.items():
+            g, s = got[k].float(), init[k].float()
+            moved = (w - s).abs() > 0.5 * lr0
+            e = (g - w).abs()
+            err = max(err, e.max().item())
+            if not ((e[moved] <= AGREE_PARAM_ATOL + AGREE_PARAM_RTOL * w[moved].abs()).all()
+                    and (e <= 2.05 * lr0 + 1e-7).all()):
+                bad.append(k)
+        out.update(params_at_update=at, max_abs_err_param=err,
+                   tolerance={"loss_rtol": AGREE_GRAD_RTOL, "gnorm_rtol": AGREE_GRAD_RTOL,
+                              "param_rtol": AGREE_PARAM_RTOL, "param_atol": AGREE_PARAM_ATOL, "noise_atol": 2.05 * lr0})
+        if loss_rel > AGREE_GRAD_RTOL or gnorm_rel > AGREE_GRAD_RTOL or bad:
+            out["failed"] = f"float32: loss rel {loss_rel}, gnorm rel {gnorm_rel}, params {bad[:5]}"
+        return out
+    got, _ = _trainable_state(got_dir, step)
+    want, _ = _trainable_state(want_dir, step)
+    dg = {k: got[k].float() - init[k].float() for k in want}
+    dw = {k: want[k].float() - init[k].float() for k in want}
+    change = max(d.abs().max().item() for d in dw.values())
+    same = moved = 0
+    diff_sq = ref_sq = 0.0
+    for k in want:
+        big = dw[k].abs() >= 0.5 * change
+        moved += int(big.sum())
+        same += int((torch.sign(dg[k][big]) == torch.sign(dw[k][big])).sum())
+        diff_sq += float((dg[k] - dw[k]).double().square().sum())
+        ref_sq += float(dw[k].double().square().sum())
+    agreement = same / max(moved, 1)
+    out.update(max_change=change, elements_moved=moved, sign_agreement=agreement,
+               rel_l2_change_diff=math.sqrt(diff_sq / max(ref_sq, 1e-30)),
+               tolerance={"loss_rtol": RESUME_LOSS_RTOL, "gnorm_rtol": RESUME_LOSS_RTOL,
+                          "sign_agreement": PARALLEL_SIGN_AGREEMENT})
+    if loss_rel > RESUME_LOSS_RTOL or gnorm_rel > RESUME_LOSS_RTOL or agreement < PARALLEL_SIGN_AGREEMENT or moved == 0:
+        out["failed"] = f"bf16: loss rel {loss_rel}, gnorm rel {gnorm_rel}, sign agreement {agreement} over {moved}"
+    return out
+
+
+def _hold(checks: dict) -> dict:
+    """``checks``, or AssertionError naming every one whose ``failed`` is set."""
+    bad = {name: c["failed"] for name, c in checks.items() if c.get("failed")}
+    if bad:
+        raise AssertionError(f"runs disagree with one process: {bad}")
+    return checks
+
+
+def _init_trainable(argv):
+    """The trainable params a launcher run starts from (its seeded init)."""
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
+    from multimodaldiscussiontransformer_tpu_torch.train.launch import build_parser, config_from_args
+    from multimodaldiscussiontransformer_tpu_torch.train.optimizer import FROZEN_PREFIXES
+
+    cfg = config_from_args(build_parser().parse_args(argv))
+    model = MDTModel(cfg.model, generator=torch.Generator().manual_seed(cfg.seed))
+    return {k: v for k, v in model.state_dict().items() if not any(p in k for p in FROZEN_PREFIXES)}
+
+
+def parallel_h6_kernels(seed: int) -> dict:
+    """The tree kernels (bf16 forward and backward pair) at the canonical
+    graph shape and the tower kernels (bf16 forward and one-pass backward)
+    at the text-fusion shape, with the H = 6 heads a rank runs under tp=2,
+    rate 0.3: against their plain versions on the same inputs (within 1e-2
+    of max |ref|, as kernel_vs_plain_train), timed beside the plain version,
+    SDPA and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodaldiscussiontransformer_tpu_torch.ops import masked_attention as ma
+    from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    # tree: S = 33, B = 12
+    s, b, dh = 33, 12, 64
+    template, ids, lut = (t.cuda() for t in compact_inputs(s, b, H6, seed))
+    q, k, v, g = (torch.randn(b, H6, s, dh, generator=gen, device="cuda").bfloat16() for _ in range(4))
+    kw = dict(rate=TRAIN_RATE, seed=seed + 6, scale=dh ** -0.5, double_add=True)
+    if ta.kernel_route(q.dtype, dh) != "tensor_core":
+        raise AssertionError("the H=6 tree check must take the tensor-core route")
+    _zero_counts()
+    got = _fwd_and_grads(ta.tree_attention, q, k, v, template, ids, lut, g, **kw)
+    launched = dict(zip(KERNEL_NAMES, _counts()))
+    want = _fwd_and_grads(lambda *a, **x: ta.tree_attention_dropout_reference(*a, **x), q, k, v, template, ids, lut, g,
+                          **kw)
+    tree_err = _check_errors(got, want, ("out", "dq", "dk", "dv", "dlut"), TRAIN_BF16_REL, "tree H=6")
+    bias = ta.assemble_bias(template, ids, lut, True)
+    shared = template.numel() * 4 + ids.numel() * 4 + lut.numel() * 4
+    tree_bounds = work_bounds(b, H6, s, dh, "bfloat16", shared)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+
+    def fwd_bwd():
+        o = ta.tree_attention(*leaves, template, ids, lut, **kw)
+        o.backward(g)
+
+    def plain_fwd_bwd():
+        o = ta.tree_attention_dropout_reference(*leaves, template, ids, lut, **kw)
+        o.backward(g)
+
+    bias_bf = bias.bfloat16().contiguous()
+
+    def library_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=bias_bf, dropout_p=TRAIN_RATE, scale=dh ** -0.5)
+        o.backward(g)
+
+    out["tree"] = {
+        "B": b, "H": H6, "S": s, "dh": dh, "rate": TRAIN_RATE, "launches_check": launched, "errors": tree_err,
+        "ms": {"fwd": time_cuda(lambda: ta.tree_attention(q, k, v, template, ids, lut, **kw), 20),
+               "fwd_bwd": time_cuda(fwd_bwd, 20),
+               "plain_fwd": time_cuda(lambda: ta.tree_attention_dropout_reference(q, k, v, template, ids, lut, **kw), 20),
+               "plain_fwd_bwd": time_cuda(plain_fwd_bwd, 10),
+               "library_fwd": time_cuda(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias_bf,
+                                                                              dropout_p=TRAIN_RATE, scale=dh ** -0.5), 20),
+               "library_fwd_bwd": time_cuda(library_fwd_bwd, 20)},
+        "bound": tree_bounds,
+    }
+    # towers: text fusion, B = 256, S = 104, the 4 bottleneck columns open
+    b, s = 256, 104
+    key_bias = tower_key_bias(b, s, 4, torch.Generator(device="cuda").manual_seed(seed))
+    q, k, v, g = (torch.randn(b, H6, s, dh, generator=gen, device="cuda").bfloat16() for _ in range(4))
+    if ma.kernel_route(q.dtype, dh, s) != "tensor_core":
+        raise AssertionError("the H=6 tower check must take the tensor-core route")
+
+    def tower(fn, q_, k_, v_):
+        leaves_ = [x.detach().clone().requires_grad_(True) for x in (q_, k_, v_)]
+        o = fn(*leaves_, key_bias, seed=seed + 7, rate=MASKED_RATE, scale=dh ** -0.5)
+        o.backward(g)
+        return [o.detach()] + [x.grad for x in leaves_]
+
+    _zero_counts()
+    got = tower(ma.masked_attention, q, k, v)
+    tlaunched = dict(zip(KERNEL_NAMES, _counts()))
+    want = tower(ma.masked_attention_dropout_reference, q, k, v)
+    tower_err = _check_errors(got, want, ("out", "dq", "dk", "dv"), TRAIN_BF16_REL, "tower H=6")
+    mask4 = key_bias[:, None, None, :].bfloat16()
+    out["tower"] = {
+        "B": b, "H": H6, "S": s, "dh": dh, "rate": MASKED_RATE, "launches_check": tlaunched, "errors": tower_err,
+        "ms": {"fwd": time_cuda(lambda: ma.masked_attention(q, k, v, key_bias, seed=1, rate=MASKED_RATE), 20),
+               "fwd_bwd": time_cuda(lambda: tower(ma.masked_attention, q, k, v), 10),
+               "plain_fwd": time_cuda(lambda: ma.masked_attention_dropout_reference(q, k, v, key_bias, 1, MASKED_RATE),
+                                      10),
+               "plain_fwd_bwd": time_cuda(lambda: tower(ma.masked_attention_dropout_reference, q, k, v), 5),
+               "library_fwd": time_cuda(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4,
+                                                                              dropout_p=MASKED_RATE), 20)},
+        "bound": work_bounds(b, H6, s, dh, "bfloat16", b * s * 4, stat_planes=2),
+    }
+    return out
+
+
+def phase_parallel(seed: int, card: str = ""):
+    """Training across ranks through the launcher, at ``ModelConfig()``
+    width on the canonical setting (frozen towers, global batch 12 x 3):
+    - the kernels at H = 6 (a tp=2 rank's heads) against their plain versions;
+    - the one-process runs every parallel run is held against, in this
+      process: canonical bf16 with dropout 0 (3 updates, a save), the tiny
+      float32 node and contrastive runs (2 updates, a save after each);
+      and the bf16 noise witness: the canonical run in one rank's
+      microbatches, reported beside the checks;
+    - NCCL at world size 1 (this process): dp, fsdp and tp, each the tiny
+      float32 run against the unwrapped one;
+    - with one card, 2 ranks on card 0 over gloo: dp=2 and tp=2 canonical
+      against the one-process run, ``--eval-only --predict-output`` at
+      dp=2 against one process, the tiny float32 node and contrastive runs
+      at dp=2, and a SIGTERM to rank 1 alone during a dp=2 run with
+      dropout as in the recipe (both ranks save at the same update and
+      exit 0; its ms per update);
+    - with N = 2 or 4 cards (4 of more), NCCL with one rank per card: dp=N,
+      fsdp=N, tp=2 x dp=N/2 and --num-slices 2 --fsdp, each canonical
+      against the one-process run (ms per update, discussions/s, the
+      scaling against one card and each rank's peak memory) and as the
+      tiny float32 run.
+    Which branch runs follows the card count, decided before any run. Every
+    check is made before any failure is raised: the failure names each run
+    that disagreed."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    branch = "nccl_one_rank_per_card" if cards >= 2 else "gloo_two_ranks_on_card_0"
+    n = 4 if cards >= 4 else 2  # ranks: both divide the global batches 12 and 8
+    print(json.dumps({"phase": "parallel_branch", "cards": cards, "branch": branch, "ranks": n}), flush=True)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="mdt_parallel_")
+    result = {"phase": "parallel", "card": card, "cards": cards, "branch": branch}
+    steps = {}
+    t_step = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_step
+        steps[name] = time.perf_counter() - t_step
+        t_step = time.perf_counter()
+
+    try:
+        result["h6_kernels"] = parallel_h6_kernels(seed)
+        lap("h6_kernels")
+        # the image ladder tops out at 128 so that a rank's slice of a
+        # global batch fits its share (128 / ranks): 3 of these discussions
+        # hold up to 18 images, over the 64 / 4 that the default ladder gives
+        canon = ["--synthetic", "--synthetic-graphs", str(PARALLEL_GRAPHS), "--seed", str(seed + 1), *CANONICAL_FLAGS,
+                 "--image-capacity-buckets", "0,8,16,32,64,128",
+                 "--max-updates", str(PARALLEL_UPDATES), "--max-epoch", "1"]
+        agree = NO_DROPOUT + PARALLEL_LR
+        d = {name: os.path.join(root, name) for name in
+             ("one", "witness", "one_tiny", "one_contrastive", "dp", "tp", "tiny_dp", "contrastive_dp", "stop", "fsdp",
+              "slices", "tiny_fsdp", "tiny_tp", "tiny_slices", "pred_one", "pred_dp", "ws1_dp", "ws1_fsdp", "ws1_tp")}
+        # one process: the runs every parallel run is held against
+        one_argv = canon + agree + ["--save-dir", d["one"]]
+        rc, out, seconds, counts, peak = _launch_in_process(one_argv)
+        if rc != 0:
+            raise AssertionError(f"one-process canonical run exited {rc}:\n{out[-2000:]}")
+        one = {"seconds": seconds, "ms_per_update": _ms_per_update(d["one"]), "peak_gb": peak, "launches": counts}
+        init = _init_trainable(one_argv)
+        witness_argv = one_argv + ["--batch-size", str(12 // n), "--update-freq", str(3 * n),
+                                   "--save-dir", d["witness"]]
+        rc, out, _, _, _ = _launch_in_process(witness_argv)
+        if rc != 0:
+            raise AssertionError(f"one-process witness run exited {rc}:\n{out[-2000:]}")
+        tiny_node = TINY_FLAGS + ["--max-updates", str(TINY_UPDATES), "--max-epoch", "1",
+                                  "--save-interval-updates", "1"]
+        tiny_contrastive = tiny_node + ["--task", "contrastive_learning", "--criterion", "contrastive_loss"]
+        for name, argv in (("one_tiny", tiny_node), ("one_contrastive", tiny_contrastive)):
+            rc, out, _, _, _ = _launch_in_process(argv + ["--batch-size", "8", "--save-dir", d[name]])
+            if rc != 0:
+                raise AssertionError(f"{name} exited {rc}:\n{out[-2000:]}")
+        tiny_init = _init_trainable(tiny_node)
+        tiny_lr0 = 1e-3 / 2
+        lap("one_process")
+        # NCCL at world size 1, in this process: each mode against the unwrapped update
+        ws1 = {}
+        for mode, extra in (("dp", []), ("fsdp", ["--fsdp"]), ("tp", ["--tp-size", "1"])):
+            name = f"ws1_{mode}"
+            rc, out, _, counts, _ = _launch_in_process(
+                tiny_node + extra + ["--batch-size", "8", "--save-dir", d[name], "--distributed-world-size", "1",
+                                     "--distributed-init-method", f"tcp://127.0.0.1:{_free_port()}"])
+            if rc != 0 or "(nccl)" not in out:
+                raise AssertionError(f"{name} exited {rc}:\n{out[-2000:]}")
+            ws1[mode] = _agreement(d[name], d["one_tiny"], tiny_init, TINY_UPDATES, True, tiny_lr0, 1)
+        result["nccl_world_size_1"] = _hold(ws1)
+        lap("nccl_world_size_1")
+        rank_flags = ["--distributed-rank", "{rank}"]
+        if cards < 2:
+            gloo = ["--distributed-world-size", "2", "--distributed-backend", "gloo"] + rank_flags
+
+            def entry(name, argv):
+                return {"name": name, "argv": argv + gloo + ["--distributed-init-method",
+                                                            f"tcp://127.0.0.1:{_free_port()}"]}
+
+            half = ["--batch-size", "6"]
+            plan = [
+                entry("dp", canon + agree + half + ["--dp-size", "2", "--save-dir", d["dp"]]),
+                entry("tp", canon + agree + ["--tp-size", "2", "--batch-size", "12", "--save-dir", d["tp"]]),
+                entry("predict_dp", canon + half + ["--eval-only", "--restore-file", d["one"], "--save-dir", d["one"],
+                                                    "--predict-output", d["pred_dp"]]),
+                entry("tiny_dp", tiny_node + ["--batch-size", "4", "--save-dir", d["tiny_dp"]]),
+                entry("contrastive_dp", tiny_contrastive + ["--batch-size", "4", "--save-dir", d["contrastive_dp"]]),
+                entry("stop", canon[:-4] + half + ["--max-updates", "12", "--max-epoch", "3", "--save-dir", d["stop"]]),
+            ]
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            ranks, sent = run_ranks(plan, n, root, stop=("stop", d["stop"], 2))
+            result["ranks_seconds"] = time.perf_counter() - t
+            lap("ranks")
+            runs = {item["name"]: [r[i] for r in ranks] for i, item in enumerate(plan)}
+            timing = {"dp": _ms_per_update(d["dp"]), "tp": _ms_per_update(d["tp"]),
+                      "stop_dropout": _ms_per_update(d["stop"])}
+
+            def run_checks():
+                checks = {
+                    "dp": _agreement(d["dp"], d["one"], init, PARALLEL_UPDATES, False),
+                    "tp": _agreement(d["tp"], d["one"], init, PARALLEL_UPDATES, False),
+                    "tiny_dp": _agreement(d["tiny_dp"], d["one_tiny"], tiny_init, TINY_UPDATES, True, tiny_lr0, 1),
+                    "contrastive_dp": _agreement(d["contrastive_dp"], d["one_contrastive"],
+                                                 _init_trainable(tiny_contrastive), TINY_UPDATES, True, tiny_lr0, 1),
+                }
+                # --eval-only --predict-output at dp=2 against one process on the same checkpoint
+                rc, out, _, _, _ = _launch_in_process(canon + ["--eval-only", "--restore-file", d["one"], "--save-dir",
+                                                               d["one"], "--predict-output", d["pred_one"]])
+                if rc != 0:
+                    raise AssertionError(f"one-process --eval-only exited {rc}:\n{out[-2000:]}")
+                checks["predict"] = _compare_predictions(d["pred_dp"], d["pred_one"])
+                stops = [re.search(r"preempted: checkpoint saved at step (\d+)", r["stdout"]) for r in runs["stop"]]
+                if not all(stops) or len({int(m.group(1)) for m in stops}) != 1:
+                    raise AssertionError(f"stop: ranks' messages {[r['stdout'][-500:] for r in runs['stop']]}")
+                stop_step = int(stops[0].group(1))
+                if _latest_step(d["stop"]) != stop_step:
+                    raise AssertionError(f"stop: latest step {_latest_step(d['stop'])}, ranks saved {stop_step}")
+                checks["stop"] = {"sigterm_to_rank_1_after_update": sent["at_update"], "both_saved_at": stop_step}
+                return checks
+        else:
+            nccl = ["--distributed-world-size", str(n)] + rank_flags
+
+            def entry(name, argv):
+                return {"name": name, "argv": argv + nccl + ["--distributed-init-method",
+                                                            f"tcp://127.0.0.1:{_free_port()}"]}
+
+            layouts = {"dp": [], "fsdp": ["--fsdp"], "tp": ["--tp-size", "2"],
+                       "slices": ["--num-slices", "2", "--fsdp"]}
+
+            def per(name, global_batch):  # a tp group's ranks share one slice
+                return ["--batch-size", str(global_batch // (n // 2 if name == "tp" else n))]
+
+            # a tiny rank's single-entry ladders are the global ones over the
+            # ranks: the tiny ladders widened so that 2 discussions fit a quarter
+            tiny_wide = ["--node-capacity-buckets", "256", "--image-capacity-buckets", "128",
+                         "--label-capacity-buckets", "128"]
+            plan = [entry(name, canon + agree + per(name, 12) + flags + ["--save-dir", d[name]])
+                    for name, flags in layouts.items()]
+            plan += [entry(f"tiny_{name}", tiny_node + tiny_wide + per(name, 8) + flags
+                           + ["--save-dir", d[f"tiny_{name}"]]) for name, flags in layouts.items()]
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            # one set of rank processes per run: one launch per process, as
+            # torchrun starts them
+            per_run = [run_ranks([item], n, root)[0] for item in plan]
+            ranks = [[runs_[r][0] for runs_ in per_run] for r in range(n)]
+            result["ranks_seconds"] = time.perf_counter() - t
+            lap("ranks")
+            runs = {item["name"]: [r[i] for r in ranks] for i, item in enumerate(plan)}
+            timing = {name: _ms_per_update(d[name]) for name in layouts}
+
+            def run_checks():
+                checks = {name: _agreement(d[name], d["one"], init, PARALLEL_UPDATES, False) for name in layouts}
+                checks.update({f"tiny_{name}": _agreement(d[f"tiny_{name}"], d["one_tiny"], tiny_init, TINY_UPDATES,
+                                                          True, tiny_lr0, 1) for name in layouts})
+                return checks
+        for name, per_rank in runs.items():
+            if any(r["rc"] != 0 for r in per_rank):
+                raise AssertionError(f"parallel run {name}: rcs {[r['rc'] for r in per_rank]}")
+        graphs = 12 * 3
+        result.update(
+            ranks=n, one_process=one,
+            runs={name: {"ms_per_update": timing.get(name), "discussions_per_s":
+                         graphs / timing[name] * 1e3 if name in timing else None,
+                         "scaling_vs_one_card": one["ms_per_update"] / timing[name] if name in timing else None,
+                         "peak_gb_per_rank": [r["peak_gb"] for r in per_rank],
+                         "seconds": max(r["seconds"] for r in per_rank),
+                         "launches_per_rank": [r["counts"] for r in per_rank]}
+                  for name, per_rank in runs.items()},
+        )
+        if "stop_dropout" in timing:
+            result["runs"]["stop"]["ms_per_update"] = timing["stop_dropout"]
+        # not held: the canonical run in one rank's microbatches against the
+        # one-process run, the distance bf16 rounding alone puts between them
+        result["noise_witness"] = _agreement(d["witness"], d["one"], init, PARALLEL_UPDATES, False)
+        try:
+            result["checks"] = run_checks()
+            _hold(result["checks"])
+        except AssertionError as e:  # what ran, with the check that failed, then the failure
+            result["failed_check"] = str(e)
+            emit(result)
+            raise
+        # the main path went through the kernels: every tree kernel of the
+        # bf16 route on every rank of the training runs
+        for name in ("dp", "tp") + (("fsdp", "slices") if cards >= 2 else ()):
+            for r in runs[name]:
+                if min(r["counts"][k] for k in ("tree_attention_fwd_fused", "tree_attention_bwd_dq_fused",
+                                                "tree_attention_bwd_dkv_fused")) == 0:
+                    raise AssertionError(f"parallel run {name}: a tree kernel never launched: {r['counts']}")
+        result["launches"] = {k: sum(r["counts"][k] for per_rank in runs.values() for r in per_rank)
+                              for k in KERNEL_NAMES}
+        result["launches_tp_h6"] = {k: sum(r["counts"][k] for r in runs["tp"]) for k in KERNEL_NAMES}
+        result["step_seconds"] = steps
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t_phase
+    emit(result)
+    return result
+
+
+def _latest_step(save_dir: str):
+    from multimodaldiscussiontransformer_tpu_torch.utils.checkpoints import Checkpointer
+
+    return Checkpointer(save_dir).latest_step()
+
+
+def _compare_predictions(got_dir: str, want_dir: str) -> dict:
+    """Two prediction directories: every split's rows in the same order
+    with the same keys, labels and predictions' logits within the bf16
+    tolerance of the scoring phase; whether the bytes are equal."""
+    import numpy as np
+
+    def table(path):
+        if path.endswith(".parquet"):
+            import pandas as pd
+
+            frame = pd.read_parquet(path)
+            return {k: frame[k].to_numpy() for k in frame.columns}
+        rows = np.genfromtxt(path, delimiter=",", names=True)
+        return {k: rows[k] for k in rows.dtype.names}
+
+    out = {}
+    for name in sorted(os.listdir(want_dir)):
+        with open(os.path.join(got_dir, name), "rb") as a, open(os.path.join(want_dir, name), "rb") as b:
+            ga, wb = a.read(), b.read()
+        g, w = table(os.path.join(got_dir, name)), table(os.path.join(want_dir, name))
+        for key in ("graph_idx", "node", "label"):
+            if not np.array_equal(g[key], w[key]):
+                raise AssertionError(f"{name}: column {key} differs")
+        logits = [k for k in w if k.startswith("logit_")]
+        logit = max(float(np.abs(g[k].astype(np.float64) - w[k]).max()) for k in logits)
+        scale = max(float(np.abs(w[k]).max()) for k in logits)
+        if logit > TRAIN_BF16_REL * max(scale, 1.0):
+            raise AssertionError(f"{name}: logits differ by {logit} (max |logit| {scale})")
+        out[name] = {"rows": int(len(w["node"])), "bytes_equal": ga == wb, "max_abs_err_logit": logit,
+                     "pred_agreement": float((g["pred"] == w["pred"]).mean())}
+    if not out:
+        raise AssertionError("no predictions written")
+    return out
+
+
 def _kernel_entry(name, source, replaces, also, launches, row, dtype_err, ms_key, plain_ms, library_ms, bound_key):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "also_replaces": also,
@@ -3750,6 +4381,11 @@ def _worst_pair(rows, outputs):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--only", choices=("parallel",), default=None,
+                   help="build, then only this phase (for iterating on it; the kernels' summary is not printed)")
+    p.add_argument("--parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--parallel-plan", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--parallel-out", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
     import torch
@@ -3757,10 +4393,17 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.parallel_rank is not None:  # one rank of phase_parallel's runs
+        return parallel_rank_worker(args.parallel_plan, args.parallel_rank, args.parallel_out)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     card = phase_build()
+    if args.only == "parallel":
+        phase_parallel(args.seed, card)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     rows = phase_kernel(args.seed)
     train_rows = phase_kernel_train(args.seed)
     masked_rows = phase_masked(args.seed)
@@ -3798,6 +4441,7 @@ def main(argv=None) -> int:
         weights_in = phase_weights_in(args.seed, card, outside, ingest)
     finally:
         shutil.rmtree(outside, ignore_errors=True)
+    parallel = phase_parallel(args.seed, card)
 
     serve_row = rows[0]  # S=33, B=16: the canonical serving shape
     train_row = train_rows[0]  # S=33, B=12: the canonical training shape
@@ -3814,7 +4458,8 @@ def main(argv=None) -> int:
                **{f"train_cpu_agreement_fused_remat_{p}": counts for p, counts in agree_remat.items()},
                **{f"contrastive_{part}": contrastive[part]["launches"]
                   for part in ("pretrain", "transfer", "multisteps", "bf16_adam", "bf16_params")},
-               "ingest": ingest["launches"], "weights_in_orbax_restore": weights_in}
+               "ingest": ingest["launches"], "weights_in_orbax_restore": weights_in,
+               "parallel": parallel["launches"], "parallel_tp_h6": parallel["launches_tp_h6"]}
 
     def paths(name, extra=None):
         out = {path: counts[name] for path, counts in by_path.items()}
@@ -3837,6 +4482,15 @@ def main(argv=None) -> int:
         checks and their bf16 checks, every training shape, both rates."""
         return max(r[k][name][o]["max_abs_err"] for r in train_rows for k in ("errors", "errors_rate0")
                    for name in ("float32", "bfloat16_cuda_core_pair") for o in outputs)
+
+    def h6(op, ms_key, bound_key, errs):
+        """A kernel's numbers at H = 6 (a tp=2 rank's heads) from
+        phase_parallel: ms, plain, SDPA, bound, its launches on the tp run."""
+        row = parallel["h6_kernels"][op]
+        return {"B": row["B"], "H": row["H"], "S": row["S"], "ms": row["ms"][ms_key],
+                "plain_ms": row["ms"][f"plain_{ms_key}"], "library_ms": row["ms"].get(f"library_{ms_key}"),
+                "bound_ms": row["bound"][bound_key][0], "bound_by": row["bound"][bound_key][1],
+                "max_abs_err": max(row["errors"][e]["max_abs_err"] for e in errs)}
 
     tree_fwd_replaces = [f"{TPU_KERNELS}:973", f"{TPU_KERNELS}:103", f"{TPU_KERNELS}:66", f"{TPU_KERNELS}:228",
                          f"{TPU_KERNELS}:418 (the LSE the forward saves)"]
@@ -3861,6 +4515,7 @@ def main(argv=None) -> int:
             train["tree_attention_fwd_fused"], train_row, _worst(train_rows, ("out",)), "fwd", ms["plain_fwd"],
             ms["library_contiguous_fwd"], "fwd"),
          "launches_by_path": paths("tree_attention_fwd_fused"),
+         "tp_h6": h6("tree", "fwd", "fwd", ("out",)),
          "cuda_core_ms": ms["fwd_cuda_core"],
          "serving_rate0": {"S": serve_row["S"], "B": serve_row["B"], "ms": serve_row["ms"],
                            "cuda_core_ms": serve_row["cuda_core_ms"], "plain_ms": serve_row["plain_ms"],
@@ -3894,6 +4549,8 @@ def main(argv=None) -> int:
             train_big["tree_attention_bwd_dq_fused"], train_row, _worst(train_rows, ("dq", "dlut")), "dq",
             ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dq"),
          "launches_by_path": paths("tree_attention_bwd_dq_fused"),
+         "tp_h6": {**h6("tree", "fwd_bwd", "dq", ("dq", "dlut")),
+                   "note": "ms, plain_ms and library_ms: forward + backward at H = 6; bound_ms: dq's"},
          "cuda_core_ms": ms["dq_cuda_core"],
          "streaming": [{"S": r["S"], "B": r["B"], "pair_ms": r["ms"]["pair"], "cuda_core_ms": r["ms"]["pair_cuda_core"],
                         "library_ms": r["ms"]["library_contiguous_fwd_bwd"],
@@ -3907,6 +4564,8 @@ def main(argv=None) -> int:
             train_big["tree_attention_bwd_dkv_fused"], train_row, _worst(train_rows, ("dk", "dv")), "dkv",
             ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dkv"),
          "launches_by_path": paths("tree_attention_bwd_dkv_fused"),
+         "tp_h6": {**h6("tree", "fwd_bwd", "dkv", ("dk", "dv")),
+                   "note": "ms, plain_ms and library_ms: forward + backward at H = 6; bound_ms: dk/dv's"},
          "cuda_core_ms": ms["dkv_cuda_core"],
          "note": "the bf16 route: launches from train_big; cuda_core_ms is K3 on the same inputs; times, plain_ms, "
                  "library_ms and max_abs_err as for tree_attention_bwd_dq_fused (dk and dv)"},
@@ -3924,6 +4583,7 @@ def main(argv=None) -> int:
             train_big["masked_attention_fwd_fused"], fusion_row, _worst(masked_rows, ("out",)), "fwd_fused",
             mms["plain_fwd"], mms["library_fwd"], "fwd"),
          "launches_by_path": paths("masked_attention_fwd_fused"),
+         "tp_h6": h6("tower", "fwd", "fwd", ("out",)),
          "cuda_core_ms": mms["fwd"],
          "tower_shapes": {r["shape"]: {"B": r["B"], "S": r["S"], "ms": r["ms"]["fwd_fused"],
                                        "ms_rate0": r["ms"]["fwd_fused_rate0"], "cuda_core_ms": r["ms"]["fwd"],
@@ -3956,6 +4616,8 @@ def main(argv=None) -> int:
             train_big["masked_attention_bwd_fused"], fusion_row, _worst(masked_rows, ("dq", "dk", "dv")), "bwd_fused",
             mms["plain_bwd"], mms["library_fwd_bwd_rate"], "bwd_fused"),
          "launches_by_path": paths("masked_attention_bwd_fused"),
+         "tp_h6": {**h6("tower", "fwd_bwd", "bwd_fused", ("dq", "dk", "dv")),
+                   "note": "ms and plain_ms: forward + backward at H = 6; bound_ms: the one-pass backward's"},
          "pair_ms": mms["pair"],
          "vit_fusion": {k: vit_row[k] for k in ("B", "S", "ms", "bound")},
          "note": "the bf16 route (DH 64, S <= 256): launches from train_big; times at the text-fusion shape "

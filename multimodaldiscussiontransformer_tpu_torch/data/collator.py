@@ -34,12 +34,14 @@ from multimodaldiscussiontransformer_tpu_torch.data.preprocess import GraphItem
 NEG_INF = float("-inf")
 
 
-def _bucket(value: int, ladder: Sequence[int]) -> int:
-    """Smallest ladder entry >= value; beyond the ladder, value itself."""
+def _bucket(value: int, ladder: Sequence[int], multiple: int = 1) -> int:
+    """Smallest ladder entry >= value that is a multiple of ``multiple``;
+    beyond the ladder, value rounded up to ``multiple``."""
+    m = max(multiple, 1)
     for b in ladder:
-        if b >= value:
+        if b >= value and b % m == 0:
             return b
-    return value
+    return -(-value // m) * m
 
 
 @dataclass
@@ -116,6 +118,7 @@ def collate(
     text_len_buckets: Optional[Sequence[int]] = None,
     text_len: Optional[int] = None,
     contrastive: bool = False,
+    shard_multiple: int = 1,
 ) -> Batch:
     """Collate preprocessed GraphItems into one static-shape Batch: node-task
     items, or with ``contrastive`` items carrying a community ``y`` and
@@ -130,8 +133,12 @@ def collate(
     covers the batch's longest attended token (the removed columns are
     masked in every consumer).
 
+    ``shard_multiple``: the node, image and label capacities are multiples
+    of it (the data-parallel degree, as the JAX collator rounds them).
+
     ``items`` may be empty when ``pad_to_graphs`` and ``text_len`` are given:
-    the result is an all-pad batch."""
+    the result is an all-pad batch (a rank whose slice of a ragged
+    evaluation tail is empty)."""
     b = len(items)
     if not items:
         if pad_to_graphs is None or text_len is None:
@@ -157,9 +164,9 @@ def collate(
     n_per_graph = [it.num_nodes for it in items]
     total_nodes = sum(n_per_graph)
     nmax = _bucket(max(n_per_graph, default=1), node_buckets)
-    cap = _bucket(total_nodes, node_capacity_buckets)
+    cap = _bucket(total_nodes, node_capacity_buckets, shard_multiple)
     n_images = sum(int(it.x_image_index.sum()) for it in items)
-    icap = _bucket(n_images, image_capacity_buckets)
+    icap = _bucket(n_images, image_capacity_buckets, shard_multiple)
 
     input_ids = np.zeros((cap, t), dtype=np.int32)
     token_type_ids = np.zeros((cap, t), dtype=np.int32)
@@ -244,7 +251,7 @@ def collate(
     else:
         flat_y = np.concatenate(y_vals) if y_vals else np.zeros(0, dtype=np.int64)
         n_labels = len(flat_y)
-        lcap = _bucket(n_labels, label_capacity_buckets)
+        lcap = _bucket(n_labels, label_capacity_buckets, shard_multiple)
         y = np.zeros(lcap, dtype=np.int32)
         y[:n_labels] = flat_y.astype(np.int32)
         y_node = np.full(lcap, cap, dtype=np.int32)

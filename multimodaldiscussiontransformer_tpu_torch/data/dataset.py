@@ -13,6 +13,7 @@ seed and epoch both packages yield bit-equal batches.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence, Tuple
 
@@ -21,6 +22,7 @@ import numpy as np
 from multimodaldiscussiontransformer_tpu_torch.core.config import DataConfig, TaskConfig
 from multimodaldiscussiontransformer_tpu_torch.data.collator import Batch, collate
 from multimodaldiscussiontransformer_tpu_torch.data.preprocess import GraphItem
+from multimodaldiscussiontransformer_tpu_torch.parallel.input import check_host_shapes, host_data_config, host_graph_slice
 
 
 @dataclass
@@ -116,7 +118,18 @@ def batch_index_chunks(
 @dataclass
 class ChunkCollator:
     """Loads the graphs of one index chunk and collates them. Picklable, so
-    worker processes run it too (``data/worker_loader.py``)."""
+    worker processes run it too (``data/worker_loader.py``).
+
+    With ``host_count > 1`` (the JAX ``grain_loader._CollateChunk``) a chunk
+    is a global batch of ``global_batch`` rows and the collator keeps
+    data-parallel rank ``host_index``'s contiguous slice of it
+    (``parallel/input.py::host_graph_slice``), collated on the per-rank
+    single-entry ladders that ``data_cfg`` then holds; a ragged chunk
+    raises unless the tail is padded (``pad_to_graphs``: every rank then
+    steps equally often, a rank whose slice of the tail is empty with an
+    all-pad batch); ``nsamples`` is the global count of real graphs; and a
+    batch that overflows its per-rank capacity raises
+    (``check_host_shapes``)."""
 
     dataset: DiscussionDataset
     data_cfg: DataConfig
@@ -124,9 +137,23 @@ class ChunkCollator:
     image_shape: tuple = (3, 224, 224)
     pad_to_graphs: Optional[int] = None
     contrastive: bool = False
+    shard_multiple: int = 1
+    host_index: int = 0
+    host_count: int = 1
+    global_batch: int = 0
 
     def __call__(self, chunk: np.ndarray) -> Batch:
         cfg, task = self.data_cfg, self.task_cfg
+        global_real = len(chunk)
+        pad_to = self.pad_to_graphs
+        if self.host_count > 1:
+            if len(chunk) != self.global_batch and pad_to is None:
+                raise ValueError(
+                    f"multi-rank loading got a ragged chunk of {len(chunk)} rows (global batch {self.global_batch}); "
+                    "use drop_last=True for training or pad_tail_to_batch=True for eval so every chunk is rank-sliceable"
+                )
+            chunk = chunk[host_graph_slice(self.host_index, self.host_count, self.global_batch)]
+            pad_to = None if pad_to is None else pad_to // self.host_count
         items = [self.dataset.get(int(i)) for i in chunk]
         over = [(int(i), it.num_nodes) for i, it in zip(chunk, items) if it.num_nodes > task.max_nodes]
         if over:
@@ -134,9 +161,9 @@ class ChunkCollator:
                 f"graph(s) exceed task.max_nodes={task.max_nodes} (idx, nodes): {over[:5]}; "
                 "raise --max-nodes or prune the trees"
             )
-        return collate(
+        out = collate(
             items,
-            pad_to_graphs=self.pad_to_graphs,
+            pad_to_graphs=pad_to,
             spatial_pos_max=task.spatial_pos_max,
             node_buckets=cfg.node_buckets,
             node_capacity_buckets=cfg.node_capacity_buckets,
@@ -144,8 +171,14 @@ class ChunkCollator:
             label_capacity_buckets=cfg.label_capacity_buckets,
             image_shape=self.image_shape,
             text_len_buckets=cfg.text_len_buckets,
+            text_len=cfg.max_text_len,
             contrastive=self.contrastive,
+            shard_multiple=self.shard_multiple,
         )
+        if self.host_count > 1:
+            check_host_shapes(out.asdict(), cfg)
+            out = dataclasses.replace(out, nsamples=np.asarray(global_real, out.nsamples.dtype))
+        return out
 
 
 def epoch_chunks(
@@ -160,15 +193,21 @@ def epoch_chunks(
     batch_size: Optional[int] = None,
     pad_tail_to_batch: bool = False,
     contrastive: bool = False,
+    shard_multiple: int = 1,
+    host_index: int = 0,
+    host_count: int = 1,
 ) -> Tuple[List[np.ndarray], ChunkCollator]:
     """The epoch's index chunks and the collator that turns each into a
     batch: what ``iterate_batches`` runs in this process and
-    ``worker_batches`` in worker processes."""
+    ``worker_batches`` in worker processes. With ``host_count > 1`` the
+    chunks are the global batches and the collator yields data-parallel
+    rank ``host_index``'s slice of each (``ChunkCollator``)."""
     bs = batch_size if batch_size is not None else data_cfg.batch_size
     chunks = batch_index_chunks(dataset, indices, data_cfg, task_cfg, epoch=epoch, shuffle=shuffle,
                                 drop_last=drop_last, batch_size=bs)
-    return chunks, ChunkCollator(dataset, data_cfg, task_cfg, tuple(image_shape),
-                                 bs if pad_tail_to_batch else None, contrastive)
+    cfg = data_cfg if host_count == 1 else host_data_config(data_cfg, host_count)
+    return chunks, ChunkCollator(dataset, cfg, task_cfg, tuple(image_shape), bs if pad_tail_to_batch else None,
+                                 contrastive, shard_multiple, host_index, host_count, bs)
 
 
 def iterate_batches(dataset: DiscussionDataset, indices: np.ndarray, data_cfg: DataConfig, task_cfg: TaskConfig,

@@ -6,8 +6,8 @@ The epoch's index chunks and the collator come from
 ``data/dataset.py::epoch_chunks``, as for ``iterate_batches``; the workers
 only run the collator on each chunk, and the loader yields the batches in
 chunk order. So ``worker_batches`` yields the batches of
-``iterate_batches``, bit for bit. One process, one host: the multi-host
-slices come with the parallel slice.
+``iterate_batches``, bit for bit, a data-parallel rank's slices
+(``host_index``/``host_count``) included.
 
 The workers are started with ``spawn``: the parent may hold a CUDA context
 and a live prefetch thread, which a forked child must not inherit. The

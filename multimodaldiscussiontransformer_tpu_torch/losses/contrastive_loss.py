@@ -12,6 +12,12 @@ graph-token states:
 - the diagonal weighs 0, and ``valid`` masks pad graphs out of every pair
   term and every summed metric.
 The loss is summed; ``sample_size`` is the number of valid pairs.
+
+Across data-parallel ranks the matrix is the GLOBAL batch's, as in the JAX
+package (where B is global under dp): each rank computes its own rows
+against every rank's embeddings (``columns``, gathered with a
+differentiable all-reduce), so that the rank's loss, sample size and counts
+sum over the ranks to the global ones.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from multimodaldiscussiontransformer_tpu_torch.core.registry import register_criterion
+from multimodaldiscussiontransformer_tpu_torch.parallel.comm import gather_dim, gather_rows
 
 
 def contrastive_loss(
@@ -31,20 +38,32 @@ def contrastive_loss(
     adaptive_soft_negative_weight: bool = True,
     multiplication_scale: float = 20.0,
     valid: Optional[torch.Tensor] = None,  # (B,) bool, False for pad graphs
+    columns: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    row_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
-    """(summed loss, sample_size, summable logging output)."""
+    """(summed loss, sample_size, summable logging output) of the rows
+    ``embeddings`` (with ``y``, ``hard_y``, ``valid``) against the columns
+    ``columns`` = (embeddings, y, valid) of the whole batch, the rows
+    being columns ``row_offset ..``; without ``columns`` the rows are the
+    whole batch."""
     emb = embeddings.float()
     normed = emb / torch.linalg.vector_norm(emb, dim=1, keepdim=True).clamp_min(1e-12)
-    sim = normed @ normed.T * multiplication_scale  # (B, B)
 
     y = y.float()
     hard_y = hard_y.float()
-    b = sim.shape[0]
+    b = emb.shape[0]
     if valid is None:
-        valid = torch.ones(b, dtype=torch.bool, device=sim.device)
-    pair_valid = valid[:, None] & valid[None, :]
-    target = ((y[:, None] == y[None, :]) & pair_valid).float()
-    hard_target = ((hard_y[:, None] == y[None, :]) & pair_valid).float()
+        valid = torch.ones(b, dtype=torch.bool, device=emb.device)
+    if columns is None:
+        normed_cols, y_cols, valid_cols = normed, y, valid
+    else:
+        cols = columns[0].float()
+        normed_cols = cols / torch.linalg.vector_norm(cols, dim=1, keepdim=True).clamp_min(1e-12)
+        y_cols, valid_cols = columns[1].float(), columns[2].bool()
+    sim = normed @ normed_cols.T * multiplication_scale  # (B, B), or this rank's rows
+    pair_valid = valid[:, None] & valid_cols[None, :]
+    target = ((y[:, None] == y_cols[None, :]) & pair_valid).float()
+    hard_target = ((hard_y[:, None] == y_cols[None, :]) & pair_valid).float()
 
     soft_labels = (target == 0) & (hard_target == 0) & pair_valid
     if adaptive_soft_negative_weight:
@@ -58,18 +77,18 @@ def contrastive_loss(
     zero = torch.zeros((), dtype=torch.float32, device=sim.device)
     weight = torch.where(soft_labels, extra_weight, one)
     weight = torch.where(pair_valid, weight, zero)
-    weight = torch.where(torch.eye(b, dtype=torch.bool, device=sim.device), zero, weight)
+    diagonal = torch.arange(b, device=sim.device)[:, None] + row_offset == torch.arange(sim.shape[1], device=sim.device)[None, :]
+    weight = torch.where(diagonal, zero, weight)
 
     per_pair = sim.clamp_min(0.0) - sim * target + torch.log1p(torch.exp(-sim.abs()))
     loss = (per_pair * weight).sum()
 
-    n_valid = valid.long().sum()
-    sim_count = n_valid * n_valid
+    sim_count = valid.long().sum() * valid_cols.long().sum()
 
     # the reference compares the (B, B) prediction matrix with the (B,) label
     # vector by broadcasting; kept verbatim, restricted to valid pairs
     pred = torch.round(torch.sigmoid(sim.detach()))
-    hit = (pred == y[None, :]) & pair_valid
+    hit = (pred == y_cols[None, :]) & pair_valid
     logging_output = {
         "loss": loss.detach(),
         "sample_size": sim_count,
@@ -110,14 +129,26 @@ class ContrastiveCriterion:
         self.soft_negative_weight = soft_negative_weight
         self.adaptive_soft_negative_weight = adaptive_soft_negative_weight
         self.multiplication_scale = multiplication_scale
+        # across data-parallel ranks (set by the trainer): the group whose
+        # batches make up the global matrix
+        self.data_group = None
 
     def __call__(self, output, batch):
         # pad graphs (the collator's pad_to_graphs) have no real node rows
         grid_mask = batch.get("grid_mask")
+        emb, y = output.global_embedding, batch["y"]
+        valid = torch.ones(emb.shape[0], dtype=torch.bool, device=emb.device) if grid_mask is None else grid_mask.any(-1)
+        columns, offset = None, 0
+        if self.data_group is not None:
+            import torch.distributed as dist
+
+            columns = (gather_rows(emb.float(), self.data_group), gather_dim(y.float(), 0, self.data_group),
+                       gather_dim(valid.float(), 0, self.data_group))
+            offset = dist.get_rank(self.data_group) * emb.shape[0]
         return contrastive_loss(
-            output.global_embedding, batch["y"], batch["hard_y"],
+            emb, y, batch["hard_y"],
             self.soft_negative_weight, self.adaptive_soft_negative_weight, self.multiplication_scale,
-            valid=None if grid_mask is None else grid_mask.any(-1),
+            valid=valid, columns=columns, row_offset=offset,
         )
 
     reduce_metrics = staticmethod(reduce_contrastive_metrics)

@@ -11,6 +11,13 @@ every softmax run in float32.
 Dropout sits where the JAX modules have it (attention probabilities, after
 both dense outputs of a layer, after the embedding layer norm) and runs only
 when ``deterministic=False`` (``models/fast_dropout.py``).
+
+Under tensor parallelism (``parallel/mesh.py::apply_tensor_parallel``) a
+``Dense`` holds its rank's block (``tp_mode`` "col" or "row"; a row-parallel
+output is summed over the tp group before its bias), the attention runs the
+rank's H/tp heads, and the input of each column-parallel projection passes
+``copy_to_group`` (the backward sums its gradient over tp). Without it
+(``tp`` None) every module is the one-device module.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from multimodaldiscussiontransformer_tpu_torch.core.config import BertTowerConfi
 from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import FastDropout, draw_seed
 from multimodaldiscussiontransformer_tpu_torch.models.remat import checkpoint_name
 from multimodaldiscussiontransformer_tpu_torch.ops.masked_attention import masked_attention
+from multimodaldiscussiontransformer_tpu_torch.parallel.comm import copy_to_group, reduce_from_group
 
 # Large negative bias for masked attention logits: finite, so that a fully
 # masked row degrades to uniform attention instead of NaN.
@@ -52,7 +60,12 @@ def attention_mask_bias(attention_mask: torch.Tensor, dtype: torch.dtype) -> tor
 
 class Dense(nn.Linear):
     """``nn.Linear`` whose parameters (float32 unless the model casts them)
-    compute in ``dtype`` (Flax ``nn.Dense(dtype=...)``)."""
+    compute in ``dtype`` (Flax ``nn.Dense(dtype=...)``). A row-parallel
+    block (``tp_mode == "row"``) sums its partial product over the tp group
+    in float32, then adds the bias."""
+
+    tp = None  # parallel/mesh.py::TPInfo under tensor parallelism
+    tp_mode = None  # "col" or "row"
 
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype, bias: bool = True):
         super().__init__(in_features, out_features, bias=bias)
@@ -61,7 +74,16 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
+        if self.tp_mode == "row":
+            y = reduce_from_group(F.linear(x.to(dt), self.weight.to(dt)).float(), self.tp.group).to(dt)
+            return y if bias is None else y + bias
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def tp_input(x: torch.Tensor, tp) -> torch.Tensor:
+    """The input of column-parallel projections: its gradient is summed over
+    the tp group (identity without tensor parallelism)."""
+    return x if tp is None else copy_to_group(x, tp.group)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -86,7 +108,14 @@ class SelfAttention(nn.Module):
     (``ops/masked_attention.py``): the CUDA kernels on the card, their plain
     version on the CPU. In training it takes a fresh seed per call from the
     host generator and drops at ``dropout_rate`` inside the op, so the
-    (B, H, S, S) probabilities are never stored for the backward."""
+    (B, H, S, S) probabilities are never stored for the backward.
+
+    Under tensor parallelism (``tp``) the rank runs heads ``tp.span(H)``;
+    the fused op's dropout seed is folded with the tp rank (its Philox
+    counter holds the local head index), and ``attn_dropout`` draws the
+    whole (B, H, S, S) mask and keeps the rank's heads."""
+
+    tp = None
 
     def __init__(
         self, hidden_size: int, num_heads: int, dtype: torch.dtype, dropout_rate: float = 0.0, use_pallas: bool = False
@@ -105,8 +134,10 @@ class SelfAttention(nn.Module):
         self, hidden: torch.Tensor, attn_bias: Optional[torch.Tensor] = None, deterministic: bool = True
     ) -> torch.Tensor:
         b, s, _ = hidden.shape
-        h = self.num_heads
-        dh = self.hidden_size // h
+        tp = self.tp
+        dh = self.hidden_size // self.num_heads
+        h = self.num_heads if tp is None else self.num_heads // tp.size
+        hidden = tp_input(hidden, tp)
 
         def heads(x):  # (B, S, D) -> (B, H, S, dh)
             return x.view(b, s, h, dh).transpose(1, 2)
@@ -118,7 +149,7 @@ class SelfAttention(nn.Module):
             ctx = masked_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(),
                 None if attn_bias is None else attn_bias[:, 0, 0, :].float().contiguous(),
-                seed=draw_seed() if rate > 0.0 else None, rate=rate, scale=dh ** -0.5,
+                seed=draw_seed(0 if tp is None else tp.rank) if rate > 0.0 else None, rate=rate, scale=dh ** -0.5,
             )
         else:
             scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)
@@ -126,12 +157,14 @@ class SelfAttention(nn.Module):
                 scores = scores + attn_bias
             probs = torch.softmax(scores.float(), dim=-1).to(hidden.dtype)
             ctx = torch.matmul(self.attn_dropout(probs, deterministic), v)
-        return ctx.transpose(1, 2).reshape(b, s, self.hidden_size)
+        return ctx.transpose(1, 2).reshape(b, s, h * dh)
 
 
 class BertLayer(nn.Module):
     """One post-LN BERT encoder layer: self-attention -> dense + LN(residual)
     -> intermediate activation -> dense + LN(residual)."""
+
+    tp_ffn = None  # the FFN pair's tp group when it is sharded
 
     def __init__(self, config: BertTowerConfig, dtype: torch.dtype):
         super().__init__()
@@ -154,7 +187,7 @@ class BertLayer(nn.Module):
         attn = self.hidden_dropout(checkpoint_name(attn, "attn_proj"), deterministic)
         # the remat policies' saveables (models/remat.py): identities outside remat
         hidden = checkpoint_name(self.attention_output_layernorm(attn + hidden), "attn_out")
-        out = self.output_dense(checkpoint_name(self.act(self.intermediate_dense(hidden)), "ffn_mid"))
+        out = self.output_dense(checkpoint_name(self.act(self.intermediate_dense(tp_input(hidden, self.tp_ffn))), "ffn_mid"))
         out = self.hidden_dropout(out, deterministic)
         return checkpoint_name(self.output_layernorm(out + hidden), "ffn_out")
 

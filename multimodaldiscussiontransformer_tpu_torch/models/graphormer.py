@@ -18,6 +18,13 @@
   - otherwise attention is plain PyTorch (matmul, f32 softmax, matmul)
     with ``FastDropout`` on the probabilities;
 - ``dropout``/``act_dropout`` sit where the JAX layer has them.
+
+Under tensor parallelism (``parallel/mesh.py``) the attention runs the
+rank's H/tp heads: ``GraphAttnBias`` takes the rank's columns of the
+per-head parameters (the spatial table, the virtual distance) through
+``copy_to_group``, so that those replicated parameters get every head's
+gradient; the tree kernel's seed is folded with the tp rank; fc1/fc2 are a
+column/row-parallel pair.
 """
 
 from __future__ import annotations
@@ -33,11 +40,13 @@ from multimodaldiscussiontransformer_tpu_torch.models.bert import (
     MASK_BIAS,
     Dense,
     LayerNorm,
+    tp_input,
 )
 from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import FastDropout, draw_seed
 from multimodaldiscussiontransformer_tpu_torch.models.remat import checkpoint_name
 from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
 from multimodaldiscussiontransformer_tpu_torch.ops.biased_attention import biased_attention
+from multimodaldiscussiontransformer_tpu_torch.parallel.comm import copy_to_group
 
 CompactBias = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -103,7 +112,10 @@ class GraphAttnBias(nn.Module):
     """Per-head attention bias: spatial-bucket embeddings over node pairs plus
     a learned virtual distance for the graph-token row and column. Keeps the
     reference's double addition of the base template when
-    ``config.double_add_attn_bias``."""
+    ``config.double_add_attn_bias``. Under tensor parallelism (``tp``) the
+    bias holds the rank's heads only."""
+
+    tp = None
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype):
         super().__init__()
@@ -114,16 +126,25 @@ class GraphAttnBias(nn.Module):
         self.spatial_pos_encoder = _normal_param(c.num_spatial, h)
         self.graph_token_virtual_distance = _normal_param(1, h)
 
+    def head_params(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(spatial table, virtual distance) of this rank's heads."""
+        table, virtual = self.spatial_pos_encoder, self.graph_token_virtual_distance
+        if self.tp is None:
+            return table, virtual
+        heads = self.tp.span(self.config.encoder_attention_heads)
+        return copy_to_group(table, self.tp.group)[:, heads], copy_to_group(virtual, self.tp.group)[:, heads]
+
     def forward(self, attn_bias: torch.Tensor, spatial_pos: torch.Tensor) -> torch.Tensor:
         """Dense (B, H, N+1, N+1) bias from the (B, N+1, N+1) template and
         the (B, N, N) +1-shifted bucket ids."""
         dt = self.dtype
-        h = self.config.encoder_attention_heads
+        table, virtual = self.head_params()
+        h = table.shape[1]
         template = attn_bias.to(dt)[:, None]
         g = template.expand(-1, h, -1, -1).clone()
-        sp = masked_embed(self.spatial_pos_encoder.to(dt), spatial_pos).permute(0, 3, 1, 2)
+        sp = masked_embed(table.to(dt), spatial_pos).permute(0, 3, 1, 2)
         g[:, :, 1:, 1:] += sp
-        t = self.graph_token_virtual_distance.to(dt).view(1, h, 1)
+        t = virtual.to(dt).view(1, h, 1)
         g[:, :, 1:, 0] += t
         g[:, :, 0, :] += t
         if self.config.double_add_attn_bias:
@@ -133,15 +154,15 @@ class GraphAttnBias(nn.Module):
     def compact_inputs(self, attn_bias: torch.Tensor, spatial_pos: torch.Tensor) -> CompactBias:
         """(template, ids, lut) for the tree-attention kernel, which builds
         the bias on the fly instead of reading a (B, H, S, S) tensor."""
-        return ta.build_compact_bias_inputs(
-            attn_bias, spatial_pos,
-            self.spatial_pos_encoder.float(), self.graph_token_virtual_distance.float(),
-        )
+        table, virtual = self.head_params()
+        return ta.build_compact_bias_inputs(attn_bias, spatial_pos, table.float(), virtual.float())
 
 
 class BiasedMultiheadAttention(nn.Module):
     """Self-attention with an additive per-head bias and key-padding
-    masking, batch-first."""
+    masking, batch-first; the rank's heads under tensor parallelism."""
+
+    tp = None
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype):
         super().__init__()
@@ -163,9 +184,11 @@ class BiasedMultiheadAttention(nn.Module):
     ) -> torch.Tensor:
         c = self.config
         b, s, d = x.shape
-        h = c.encoder_attention_heads
-        dh = d // h
+        tp = self.tp
+        dh = d // c.encoder_attention_heads
+        h = c.encoder_attention_heads if tp is None else c.encoder_attention_heads // tp.size
         scaling = dh ** -0.5
+        x = tp_input(x, tp)
 
         def heads(y):  # (B, S, D) -> (B, H, S, dh)
             return y.view(b, s, h, dh).transpose(1, 2)
@@ -178,7 +201,7 @@ class BiasedMultiheadAttention(nn.Module):
             ctx = ta.tree_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), template, ids, lut,
                 scale=scaling, double_add=c.double_add_attn_bias,
-                rate=rate, seed=draw_seed() if rate > 0.0 else None,
+                rate=rate, seed=draw_seed(0 if tp is None else tp.rank) if rate > 0.0 else None,
             )
         elif c.use_pallas_attention and (deterministic or c.attention_dropout == 0.0):
             ctx = biased_attention(
@@ -194,12 +217,14 @@ class BiasedMultiheadAttention(nn.Module):
                 scores = scores.masked_fill(key_padding_mask[:, None, None, :], MASK_BIAS)
             probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
             ctx = torch.matmul(self.dropout(probs, deterministic), v)
-        return self.out_proj(ctx.transpose(1, 2).reshape(b, s, d))
+        return self.out_proj(ctx.transpose(1, 2).reshape(b, s, h * dh))
 
 
 class GraphormerGraphEncoderLayer(nn.Module):
     """Post-LN (default) or pre-LN transformer block with biased attention;
     layer norms use eps 1e-5."""
+
+    tp_ffn = None  # the FFN pair's tp group when it is sharded
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype):
         super().__init__()
@@ -227,7 +252,7 @@ class GraphormerGraphEncoderLayer(nn.Module):
         residual = x
         if self.pre:
             x = self.final_layer_norm(x)
-        x = self.activation_dropout(checkpoint_name(self.act(self.fc1(x)), "ffn_mid"), deterministic)
+        x = self.activation_dropout(checkpoint_name(self.act(self.fc1(tp_input(x, self.tp_ffn))), "ffn_mid"), deterministic)
         x = residual + self.dropout(self.fc2(x), deterministic)
         if not self.pre:
             x = self.final_layer_norm(x)

@@ -92,7 +92,7 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for settings the port does not have,
     ``ValueError`` for an unknown remat policy."""
     if cfg.sequence_parallel:
-        raise NotImplementedError("the PyTorch port does not support sequence_parallel=True")
+        raise NotImplementedError("sequence_parallel=True (ring attention) comes with ROADMAP Queue 1 item 8b")
     if cfg.remat and cfg.remat_policy not in POLICIES:
         raise ValueError(f"remat_policy {cfg.remat_policy!r} not in {POLICIES}")
     for what, name in (("compute dtype", cfg.dtype), ("param_dtype", cfg.param_dtype)):

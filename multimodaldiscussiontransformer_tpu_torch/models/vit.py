@@ -24,6 +24,7 @@ from multimodaldiscussiontransformer_tpu_torch.models.bert import (
     LayerNorm,
     SelfAttention,
     act_fn,
+    tp_input,
 )
 from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import FastDropout
 from multimodaldiscussiontransformer_tpu_torch.models.remat import checkpoint_name
@@ -31,6 +32,8 @@ from multimodaldiscussiontransformer_tpu_torch.models.remat import checkpoint_na
 
 class ViTLayer(nn.Module):
     """One pre-LN ViT encoder layer."""
+
+    tp_ffn = None  # the FFN pair's tp group when it is sharded
 
     def __init__(self, config: ViTTowerConfig, dtype: torch.dtype):
         super().__init__()
@@ -50,7 +53,7 @@ class ViTLayer(nn.Module):
         attn = self.attention_output_dense(self.attention(self.layernorm_before(hidden), None, deterministic))
         # the remat policies' saveables (models/remat.py): identities outside remat
         hidden = checkpoint_name(hidden + self.hidden_dropout(checkpoint_name(attn, "attn_proj"), deterministic), "attn_out")
-        mlp = checkpoint_name(self.act(self.intermediate_dense(self.layernorm_after(hidden))), "ffn_mid")
+        mlp = checkpoint_name(self.act(self.intermediate_dense(tp_input(self.layernorm_after(hidden), self.tp_ffn))), "ffn_mid")
         return checkpoint_name(hidden + self.hidden_dropout(self.output_dense(mlp), deterministic), "ffn_out")
 
 

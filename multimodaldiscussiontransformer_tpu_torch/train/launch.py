@@ -33,6 +33,21 @@ The training runtime: ``--num-workers N`` collates in N worker processes;
 ``--tensorboard-logdir DIR`` and ``--wandb-project NAME`` (default
 ``$WANDB_PROJECT``) add metric sinks beside ``metrics.jsonl``.
 
+Across ranks, one process per card (FairSeq's layout; in the JAX launcher
+``--distributed-world-size`` counts hosts instead):
+
+    torchrun --nproc-per-node 4 -m multimodaldiscussiontransformer_tpu_torch.train.launch --synthetic ...
+    python -m multimodaldiscussiontransformer_tpu_torch.train.launch --distributed-world-size 4 \
+        --distributed-rank R --distributed-init-method tcp://HOST:PORT --synthetic ...   # once per rank
+
+``--batch-size`` is per data-parallel replica (the global batch is
+batch-size x dp); ``--dp-size``, ``--tp-size``, ``--num-slices`` and
+``--fsdp`` lay the ranks out (``parallel/mesh.py``). NCCL carries a
+``--device cuda`` run, gloo a ``--device cpu`` one; ranks that share one
+card pass ``--distributed-backend gloo``. Rank 0 logs, writes the metrics,
+the checkpoints and the predictions; a SIGTERM to any rank stops every rank
+at the same update, after a save.
+
 Flags whose machinery belongs to a later slice of the port exit with code 2
 and a message naming that slice (``UNPORTED``).
 """
@@ -53,10 +68,9 @@ UNPORTED = {
         "the pretrained BERT/ViT weights, once they are in the repository (ROADMAP Queue 1 item 4); "
         "the state-dict mapping they go through exists (utils/hf_import.py)",
     ),
-    "--distributed-world-size > 1": (lambda a: a.distributed_world_size > 1, "the parallel slice (ROADMAP Queue 1 item 8)"),
-    "--dp-size/--tp-size/--sp-size/--num-slices/--fsdp": (
-        lambda a: a.dp_size not in (-1, 1) or a.tp_size != 1 or a.sp_size != 1 or a.num_slices != 1 or a.fsdp,
-        "the parallel slice (ROADMAP Queue 1 item 8)",
+    "--sp-size > 1": (
+        lambda a: a.sp_size > 1,
+        "sequence parallelism: the ring attention as a custom autograd P2P op (ROADMAP Queue 1 item 8b)",
     ),
 }
 
@@ -136,12 +150,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="directory for a torch.profiler trace (Chrome/TensorBoard JSON) of steady-state updates")
     p.add_argument("--profile-steps", type=int, default=5)
     # parallelism
-    p.add_argument("--dp-size", type=int, default=-1)
-    p.add_argument("--tp-size", type=int, default=1)
-    p.add_argument("--sp-size", type=int, default=1)
-    p.add_argument("--fsdp", action="store_true", default=False)
-    p.add_argument("--distributed-world-size", type=int, default=1)
-    p.add_argument("--num-slices", type=int, default=1)
+    p.add_argument("--dp-size", type=int, default=-1, help="data-parallel ranks (per slice); -1: the ranks left over")
+    p.add_argument("--tp-size", type=int, default=1, help="tensor-parallel ranks (attention heads and FFN split)")
+    p.add_argument("--sp-size", type=int, default=1, help="sequence-parallel ranks (not ported yet)")
+    p.add_argument("--fsdp", action="store_true", default=False,
+                   help="shard params, gradients and optimizer state over dp (FSDP2; HSDP with --num-slices)")
+    p.add_argument("--distributed-world-size", type=int, default=1,
+                   help="number of RANKS, one process per card (FairSeq's meaning; the JAX launcher counts hosts)")
+    p.add_argument("--distributed-rank", type=int, default=0, help="this process's rank in [0, world-size)")
+    p.add_argument("--distributed-init-method", default=None,
+                   help="rendezvous, tcp://HOST:PORT or HOST:PORT (torchrun's environment needs none)")
+    p.add_argument("--distributed-backend", default=None, choices=("nccl", "gloo"),
+                   help="default: nccl for --device cuda, gloo for cpu; gloo for ranks that share one card")
+    p.add_argument("--num-slices", type=int, default=1,
+                   help="outermost dcn axis: data parallel across slices, fsdp/tp within one")
     p.add_argument("--hf-init", action="store_true", default=False)
     p.add_argument("--text-encoder", default="bert-base-uncased")
     p.add_argument("--image-encoder", default="google/vit-base-patch16-224")
@@ -253,6 +275,8 @@ def config_from_args(args):
     for name in ("activation_fn", "pre_layernorm", "encoder_normalize_before", "apply_graphormer_init"):
         if getattr(args, name) is not None:
             model = model.replace(**{name: getattr(args, name)})
+    if args.sp_size > 1:  # the JAX launcher turns the ring on with an sp axis
+        model = model.replace(sequence_parallel=True)
     if args.scan_layers:
         model = model.replace(scan_layers=True)
     if args.remat and not model.remat:
@@ -300,6 +324,11 @@ def config_from_args(args):
         negative_weight=args.negative_weight,
         soft_negative_weight=args.soft_negative_weight,
         multiplication_scale=args.multiplication_scale,
+        dp_size=args.dp_size,
+        tp_size=args.tp_size,
+        sp_size=args.sp_size,
+        num_slices=args.num_slices,
+        fsdp=args.fsdp,
         optim=OptimConfig(
             lr=args.lr,
             end_learning_rate=args.end_learning_rate,
@@ -331,6 +360,26 @@ def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     reject_unported(args, parser)
+    from multimodaldiscussiontransformer_tpu_torch.parallel import distributed
+
+    # the process group (and the rank's card) before anything touches a card
+    layout = distributed.rank_layout(args.distributed_world_size, args.distributed_rank,
+                                     args.distributed_init_method)
+    device = distributed.initialize(layout, args.device, args.distributed_backend)
+    if layout.world_size > 1 or layout.init_method is not None:
+        print(f"distributed: rank {layout.rank}/{layout.world_size} on {device} "
+              f"({distributed.choose_backend(args.device, args.distributed_backend)})", flush=True)
+    try:
+        rc = _run(args, device, layout.rank == 0)
+    except BaseException:
+        distributed.abandon()  # no barrier: the other ranks may be inside a collective
+        raise
+    distributed.shutdown()
+    return rc
+
+
+def _run(args, device, is_main: bool) -> int:
+    say = print if is_main else (lambda *a, **k: None)
     if args.required_batch_size_multiple > 1 and args.batch_size % args.required_batch_size_multiple:
         print(
             f"error: --batch-size {args.batch_size} is not a multiple of "
@@ -368,12 +417,12 @@ def main(argv=None) -> int:
         if args.data_root:
             factory_kwargs["root"] = args.data_root
     dataset = task.load_dataset(**factory_kwargs)
-    print(
+    say(
         f"dataset: {len(dataset)} graphs (train {len(dataset.train_idx)} / valid {len(dataset.valid_idx)} "
         f"/ test {len(dataset.test_idx)})"
     )
-    trainer = task.build_trainer(image_shape=img, device=args.device)
-    if not trainer.has_train_batches(dataset):
+    trainer = task.build_trainer(image_shape=img, device=device)
+    if not trainer.has_train_batches(dataset):  # the same answer on every rank
         print(
             f"error: the train split yields no batches: {len(dataset.train_idx)} train graphs < batch "
             f"{trainer.global_batch_size} with drop_last; lower --batch-size or provide more data",
@@ -381,9 +430,9 @@ def main(argv=None) -> int:
         )
         return 1
     if args.eval_only:
-        return evaluate_checkpoint(args, cfg, trainer, dataset)
+        return evaluate_checkpoint(args, cfg, trainer, dataset, say, is_main)
 
-    ckpt = None if args.no_save else Checkpointer(cfg.save_dir)
+    ckpt = None if args.no_save else Checkpointer(cfg.save_dir, writer=is_main)
     if cfg.restore_file:
         state = trainer.init_state()
         restored = restore_file(cfg.restore_file, state)
@@ -391,16 +440,16 @@ def main(argv=None) -> int:
             if cfg.task == "node_prediction" and cfg.reset_optimizer:  # a transfer: the head starts afresh
                 restored = {**restored, "params": task.transfer_from_contrastive(restored["params"], seed=cfg.seed)}
             state = restore_params_into_state(trainer, state, restored, cfg.reset_optimizer)
-            print(f"restored from {cfg.restore_file}")
+            say(f"restored from {cfg.restore_file}")
     elif ckpt is not None and ckpt.latest_step() is not None:
         restored = ckpt.restore()
         state = restore_params_into_state(trainer, trainer.init_state(params=restored["params"]), restored, False)
-        print(f"auto-resumed from step {ckpt.latest_step()}")
+        say(f"auto-resumed from step {ckpt.latest_step()}")
     else:
         state = trainer.init_state()
 
     writer = MetricsWriter(cfg.save_dir, wandb_project=args.wandb_project, config=dataclasses.asdict(cfg),
-                           tensorboard_logdir=args.tensorboard_logdir)
+                           tensorboard_logdir=args.tensorboard_logdir) if is_main else None
     # preemption: the handler only sets a flag; fit saves at the next update
     # boundary and returns, and a relaunch auto-resumes from that step
     stop = {"requested": False}
@@ -420,39 +469,42 @@ def main(argv=None) -> int:
         signal.signal(signal.SIGTERM, prev_term)
         if ckpt is not None:
             ckpt.close()
-    if stop["requested"]:
+    if trainer.stopped:  # requested here or on another rank: every rank stopped at this update
         saved = "checkpoint saved" if ckpt is not None else "no-save"
         print(f"preempted: {saved} at step {state.num_updates}", flush=True)
-        writer.close()
+        if writer is not None:
+            writer.close()
         return 0
     if len(dataset.test_idx):
         test_metrics = trainer.evaluate(state, dataset, "test")
-        writer.write("test", state.num_updates, test_metrics)
-        print("test:", json.dumps(test_metrics))
-    writer.close()
+        if writer is not None:
+            writer.write("test", state.num_updates, test_metrics)
+        say("test:", json.dumps(test_metrics))
+    if writer is not None:
+        writer.close()
     return 0
 
 
-def evaluate_checkpoint(args, cfg, trainer, dataset) -> int:
+def evaluate_checkpoint(args, cfg, trainer, dataset, say=print, is_main: bool = True) -> int:
     """``--eval-only``: load the average of the last ``--average-last``
     steps, or the best (``--load-best``) or latest checkpoint, of
     ``--restore-file`` (else ``--save-dir``), then score each split of
     ``--valid-subset`` and, with ``--predict-output``, write its per-node
-    predictions."""
+    predictions. Every rank runs it; rank 0 prints and writes."""
     from multimodaldiscussiontransformer_tpu_torch.train.trainer import write_predictions
     from multimodaldiscussiontransformer_tpu_torch.utils.checkpoints import average_checkpoints, restore_file
 
     src = cfg.restore_file or cfg.save_dir
     if args.average_last is not None:
         state = trainer.init_state(params=average_checkpoints(src, last_k=args.average_last))
-        print(f"evaluating average of last {args.average_last} checkpoints from {src}")
+        say(f"evaluating average of last {args.average_last} checkpoints from {src}")
     else:
         restored = restore_file(src, best=args.load_best)
         if restored is None:
             print(f"error: no checkpoint under {src}", file=sys.stderr)
             return 1
         state = trainer.init_state(params=restored["params"])
-        print(f"evaluating {'best' if args.load_best else 'latest'} checkpoint from {src}")
+        say(f"evaluating {'best' if args.load_best else 'latest'} checkpoint from {src}")
     results = {}
     for split in args.valid_subset.split(","):
         split = split.strip()
@@ -462,15 +514,16 @@ def evaluate_checkpoint(args, cfg, trainer, dataset) -> int:
         if not len(getattr(dataset, f"{split}_idx")):
             continue
         results[split] = trainer.evaluate(state, dataset, split)
-        print(f"{split}:", json.dumps(results[split]))
+        say(f"{split}:", json.dumps(results[split]))
         if args.predict_output:
             if trainer.contrastive:
                 print("error: --predict-output needs the node task (contrastive targets are per-graph)", file=sys.stderr)
                 return 1
-            os.makedirs(args.predict_output, exist_ok=True)
             cols = trainer.predict(state, dataset, split)
-            out_path = write_predictions(os.path.join(args.predict_output, f"predictions-{split}.parquet"), cols)
-            print(f"wrote {len(cols['graph_idx'])} per-node rows -> {out_path}")
+            if is_main:
+                os.makedirs(args.predict_output, exist_ok=True)
+                out_path = write_predictions(os.path.join(args.predict_output, f"predictions-{split}.parquet"), cols)
+                print(f"wrote {len(cols['graph_idx'])} per-node rows -> {out_path}")
     return 0 if results else 1
 
 

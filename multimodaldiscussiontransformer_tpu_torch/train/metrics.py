@@ -48,11 +48,25 @@ class MetricAccumulator:
                 self._sums[k] = self._sums.get(k, 0.0) + v
         self._pending = []
 
+    def sum_over(self, group, device) -> None:
+        """Replace the sums by their sums over the ranks of ``group`` (one
+        all-reduce of a float64 vector on ``device``; every rank holds the
+        same keys)."""
+        import torch.distributed as dist
+
+        self._fold()
+        keys = sorted(self._sums)
+        vec = torch.tensor([self._sums[k] for k in keys], dtype=torch.float64, device=device)
+        dist.all_reduce(vec, group=group)
+        self._sums = dict(zip(keys, vec.cpu().tolist()))
+
     def reduce(self) -> Dict[str, float]:
         if not self._pending and not self._sums:
             return {}
         self._fold()
         out = self._reduce_fn(self._sums)
+        if "gnorm" in self._sums:  # the window's mean gradient norm, as FairSeq's train log shows it
+            out["gnorm"] = self._sums["gnorm"] / self._n_steps
         out["steps_in_window"] = self._n_steps
         return out
 

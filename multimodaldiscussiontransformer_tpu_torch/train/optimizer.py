@@ -79,10 +79,11 @@ def trainable_gnorm(params: List[nn.Parameter]) -> torch.Tensor:
     return torch.stack(sq).sum().sqrt() if sq else torch.zeros(())
 
 
-def clip_by_global_norm_(params: List[nn.Parameter], max_norm: float) -> None:
+def clip_by_global_norm_(params: List[nn.Parameter], max_norm: float, norm: Optional[torch.Tensor] = None) -> None:
     """optax ``clip_by_global_norm``: scale every gradient by
-    max_norm / norm where the global norm reaches max_norm."""
-    norm = trainable_gnorm(params)
+    max_norm / norm where the global norm (``norm``, else the norm of these
+    gradients) reaches max_norm."""
+    norm = trainable_gnorm(params) if norm is None else norm
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for p in params:
         if p.grad is not None:

@@ -26,9 +26,33 @@ every k-th microbatch, clipping and AdamW act on that mean and the mean
 restarts at zero. No pad microbatch completes a short epoch: the partial
 mean carries into the next epoch, and a checkpoint taken mid-way holds it.
 
-There is no mesh: one process drives one device. ``fit``, ``evaluate`` and
-``predict`` take their batches through ``data/loader.py::ThreadedPrefetcher``:
-a background thread collates (or, with ``data.num_workers > 0``, takes from
+Across ranks (a started process group, ``parallel/distributed.py``; one
+process per device) the trainer lays the model out on a
+``parallel/mesh.py`` mesh of ``cfg.dp_size/tp_size/num_slices`` and gives
+the update JAX computes over the global batch of ``batch_size`` x dp:
+- each data-parallel rank collates its slice of every global batch
+  (``parallel/input.py``); tp ranks of one slice collate the same slice;
+- each microbatch's summed loss is back-propagated locally; the gradients
+  are summed over the data axes (one bucketed all-reduce per update, or
+  FSDP2's reduce-scatter on the last microbatch under ``fsdp``) and divided
+  by the global sample size, which is all-reduced with the logging outputs;
+- under MultiSteps each microbatch's global sample size is all-reduced
+  before its backward and its gradient is summed at once, so that the
+  running mean and the logged ``gnorm`` are the global ones;
+- ``gnorm`` and clipping use the global norm over shards
+  (``Layout.grad_norm``);
+- the contrastive loss is the (B, B) matrix over the GLOBAL batch: each
+  rank's rows against every rank's embeddings (a differentiable gather);
+- ``evaluate`` sums the logging outputs over the data axes, ``predict``
+  gathers the rows in the global batch order, and ``fit`` logs, writes
+  metrics and traces on rank 0 only and agrees on a stop request (one MAX
+  all-reduce per update), so that every rank saves at the same update;
+- dropout masks differ across data-parallel ranks (the generators are
+  seeded from (seed, data rank)).
+Without a process group there is no mesh: one process drives one device.
+
+``fit``, ``evaluate`` and ``predict`` take their batches through
+``data/loader.py::ThreadedPrefetcher``: a background thread collates (or, with ``data.num_workers > 0``, takes from
 worker processes, ``data/worker_loader.py``), stacks and stages the next
 groups on the device while the current update runs. ``fit`` saves through a
 ``utils/checkpoints.py::Checkpointer`` (asynchronous saves; it waits for
@@ -52,14 +76,17 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tupl
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodaldiscussiontransformer_tpu_torch.core.config import TrainConfig
 from multimodaldiscussiontransformer_tpu_torch.data.collator import to_tensors
 from multimodaldiscussiontransformer_tpu_torch.data.dataset import DiscussionDataset, iterate_batches
 from multimodaldiscussiontransformer_tpu_torch.data.loader import ThreadedPrefetcher, Staged, stack_microbatches, stage
 from multimodaldiscussiontransformer_tpu_torch.data.worker_loader import worker_batches
-from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import dropout_rngs
+from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import dropout_rngs, fold_seed
 from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
+from multimodaldiscussiontransformer_tpu_torch.parallel.comm import all_reduce_, any_rank
+from multimodaldiscussiontransformer_tpu_torch.parallel.mesh import Layout, apply_fsdp, apply_tensor_parallel, make_mesh
 from multimodaldiscussiontransformer_tpu_torch.serve.incremental import resolve_device
 from multimodaldiscussiontransformer_tpu_torch.tasks.task import build_criterion
 from multimodaldiscussiontransformer_tpu_torch.train.metrics import MetricAccumulator, MetricsWriter
@@ -90,6 +117,8 @@ class TrainState:
     # gradients (one per trainable parameter) and how many it holds
     acc_grads: Optional[List[torch.Tensor]] = None
     mini_step: int = 0
+    # across ranks: the model's layout on the mesh (None on one device)
+    layout: Optional[Layout] = None
 
 
 def resume_position(step: int, epoch: int, micro_per_epoch: int, k: int) -> Tuple[int, int]:
@@ -111,14 +140,30 @@ def resume_position(step: int, epoch: int, micro_per_epoch: int, k: int) -> Tupl
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for settings the port's trainer lacks."""
-    if cfg.dp_size not in (-1, 1) or cfg.tp_size != 1 or cfg.sp_size != 1 or cfg.num_slices != 1 or cfg.fsdp:
-        raise NotImplementedError("the port trains on one device: dp_size in (-1, 1), tp = sp = slices = 1, no fsdp")
+    """Raise ``NotImplementedError`` for settings the port's trainer lacks:
+    sequence parallelism."""
+    if cfg.sp_size > 1:
+        raise NotImplementedError("sequence parallelism (sp_size > 1) comes with ROADMAP Queue 1 item 8b")
+
+
+def _null_log(message: str) -> None:
+    pass
+
+
+class _NullWriter:
+    """The metric sink of every rank but rank 0."""
+
+    def write(self, split: str, step: int, metrics: Dict[str, float]) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 class Trainer:
     """The training loop on one device (``"cuda"`` unless the caller passes
-    another), for the task ``cfg.task`` names.
+    another), or on this rank's device of the mesh the config lays out
+    when a process group is started, for the task ``cfg.task`` names.
 
     ``TrainConfig.fast_dropout_rng`` picks a JAX PRNG implementation and has
     no meaning here: the port's dropout bits come from ``torch.Generator``s
@@ -135,10 +180,26 @@ class Trainer:
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        mesh = None
+        if dist.is_initialized() or cfg.dp_size not in (-1, 1) or cfg.tp_size > 1 or cfg.num_slices > 1 or cfg.fsdp:
+            if cfg.fsdp and not dist.is_initialized():
+                raise ValueError("fsdp needs a started process group (parallel/distributed.py::initialize)")
+            mesh = make_mesh(cfg.dp_size, cfg.tp_size, cfg.sp_size, cfg.num_slices, self.device.type)
+        self.mesh = mesh
+        self.dp = mesh.data_size if mesh is not None else 1
+        self.is_main = not dist.is_initialized() or dist.get_rank() == 0
         self.model = model
         self.criterion = criterion if criterion is not None else build_criterion(cfg)
+        if mesh is not None and self.dp > 1 and hasattr(self.criterion, "data_group"):
+            self.criterion.data_group = mesh.data_group  # the contrastive matrix over the global batch
         self.image_shape = image_shape
-        self.global_batch_size = cfg.data.batch_size
+        # --batch-size is per data-parallel replica (JAX train/trainer.py:84-98)
+        if cfg.data.batch_size_is_per_replica:
+            self.global_batch_size = cfg.data.batch_size * self.dp
+        elif cfg.data.batch_size % self.dp:
+            raise ValueError(f"global batch_size {cfg.data.batch_size} is not divisible by dp={self.dp}")
+        else:
+            self.global_batch_size = cfg.data.batch_size
         self.contrastive = cfg.task == "contrastive_learning"
         # optax MultiSteps semantics: one microbatch per step
         self.multi_steps = cfg.optim.update_freq > 1 and not cfg.optim.scan_microbatches
@@ -147,6 +208,8 @@ class Trainer:
         self._copy_stream = None
         # seconds fit waited for each step's input (the prefetcher's waits)
         self.input_waits: List[float] = []
+        # set by fit: whether it returned on an (agreed) stop request
+        self.stopped = False
 
     # -- state ---------------------------------------------------------------
 
@@ -166,13 +229,25 @@ class Trainer:
             model = self.model if self.model is not None else MDTModel(self.cfg.model, generator=host)
         model = model.to(self.device)
         trainable = apply_freeze(model, self.cfg.model.freeze_initial_encoders)
+        layout = None
+        if self.mesh is not None:
+            layout = Layout(self.mesh, apply_tensor_parallel(model, self.mesh), self.cfg.fsdp)
+            if self.cfg.fsdp:
+                apply_fsdp(model, self.mesh)
+            trainable = [p for p in model.parameters() if p.requires_grad]
+        # dropout streams differ across data-parallel ranks (rank 0 keeps
+        # the one-device stream)
+        rank = self.mesh.data_rank if self.mesh is not None else 0
+        if rank:
+            host.manual_seed(fold_seed(seed, rank))
         return TrainState(
             model=model,
             optimizer=make_optimizer(self.cfg.optim, trainable),
             trainable=trainable,
             host_rng=host,
-            device_rng=torch.Generator(device=self.device).manual_seed(seed),
+            device_rng=torch.Generator(device=self.device).manual_seed(fold_seed(seed, rank)),
             acc_grads=self._fresh_accumulator(trainable),
+            layout=layout,
         )
 
     def _fresh_accumulator(self, trainable: List[torch.nn.Parameter]) -> Optional[List[torch.Tensor]]:
@@ -182,7 +257,7 @@ class Trainer:
         """Swap in other weights (in either param layout) and start the
         optimizer (and a MultiSteps accumulation) afresh (the JAX
         ``load_params``, i.e. ``--reset-optimizer``)."""
-        state.model.load_state_dict(unrolled_state_dict(state_dict, self.cfg.model), strict=True)
+        load_model_state(state, unrolled_state_dict(state_dict, self.cfg.model))
         state.optimizer = make_optimizer(self.cfg.optim, state.trainable)
         state.acc_grads, state.mini_step = self._fresh_accumulator(state.trainable), 0
         return state
@@ -194,13 +269,15 @@ class Trainer:
         tensors already on the device); the summed logging outputs of its
         microbatches plus ``gnorm`` (and, with ``return_grads``, ``grads``:
         the normalized gradients by parameter name)."""
-        model, opt = state.model, state.optimizer
+        model, opt, layout = state.model, state.optimizer, state.layout
         k = int(group["idx"].shape[0])
         opt.zero_grad(set_to_none=True)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         sums: Dict[str, torch.Tensor] = {}
         with dropout_rngs(state.host_rng, state.device_rng):
             for i in range(k):
+                if layout is not None and layout.fsdp:  # reduce-scatter once, on the last microbatch
+                    model.set_requires_gradient_sync(i == k - 1)
                 with profiling.named_scope("microbatch"):
                     batch = to_tensors({key: v[i] for key, v in group.items()}, self.device)
                     loss, ssz, logs = self.criterion(model(batch, deterministic=False), batch)
@@ -208,16 +285,19 @@ class Trainer:
                 total = total + ssz.float()
                 for key, v in logs.items():
                     sums[key] = sums[key] + v if key in sums else v
+        if layout is not None:
+            total, sums = self._sum_over_data(total, sums)
+            if not layout.fsdp:
+                layout.all_reduce_grads(state.trainable)
         denom = total.clamp_min(1.0)
         for p in state.trainable:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             else:
                 p.grad.div_(denom.to(p.grad.dtype))
-        sums["gnorm"] = trainable_gnorm(state.trainable)
+        sums["gnorm"] = self.grad_norm(state)
         if return_grads:
-            names = {id(p): n for n, p in model.named_parameters()}
-            sums["grads"] = {names[id(p)]: p.grad.detach().clone() for p in state.trainable}
+            sums["grads"] = {n: self._full(state, n, p.grad) for n, p in zip(trainable_names(state), state.trainable)}
         self._apply_update(state)
         state.step += k
         return sums
@@ -227,7 +307,7 @@ class Trainer:
         ``.grad``s, with the lr the schedule gives this update."""
         with profiling.named_scope("optimizer"):
             if self.cfg.optim.clip_norm and self.cfg.optim.clip_norm > 0:
-                clip_by_global_norm_(state.trainable, self.cfg.optim.clip_norm)
+                clip_by_global_norm_(state.trainable, self.cfg.optim.clip_norm, self.grad_norm(state))
             lr = self.lr_schedule()(state.num_updates)
             for group in state.optimizer.param_groups:
                 group["lr"] = lr
@@ -242,13 +322,18 @@ class Trainer:
         AdamW act on the mean and it restarts at zero. Returns the
         microbatch's logging outputs and ``gnorm``, the norm of its own
         normalized gradient."""
-        model, k = state.model, self.cfg.optim.update_freq
+        model, k, layout = state.model, self.cfg.optim.update_freq, state.layout
         state.optimizer.zero_grad(set_to_none=True)
         with dropout_rngs(state.host_rng, state.device_rng), profiling.named_scope("microbatch"):
             b = to_tensors(batch, self.device)
             loss, ssz, logs = self.criterion(model(b, deterministic=False), b)
-            (loss / ssz.float().clamp_min(1.0)).backward()
-        logs = dict(logs, gnorm=trainable_gnorm(state.trainable))
+            ssz = ssz.float()
+            if layout is not None:  # the global sample size, before the backward
+                ssz, logs = self._sum_over_data(ssz, logs)
+            (loss / ssz.clamp_min(1.0)).backward()
+        if layout is not None and not layout.fsdp:
+            layout.all_reduce_grads(state.trainable)
+        logs = dict(logs, gnorm=self.grad_norm(state))
         n = state.mini_step
         for acc, p in zip(state.acc_grads, state.trainable):
             g = torch.zeros_like(p) if p.grad is None else p.grad
@@ -264,6 +349,29 @@ class Trainer:
             state.mini_step = n + 1
         return logs
 
+    # -- across ranks ------------------------------------------------------
+
+    def _sum_over_data(self, total: torch.Tensor, sums: Dict[str, torch.Tensor]):
+        """(total, sums) summed over the data axes: one all-reduce."""
+        keys = list(sums)
+        vec = torch.stack([total.double()] + [sums[k].double().reshape(()) for k in keys])
+        all_reduce_(vec, self.mesh.data_group)
+        return vec[0].to(total.dtype), {k: vec[i + 1].to(sums[k].dtype) for i, k in enumerate(keys)}
+
+    def grad_norm(self, state: TrainState) -> torch.Tensor:
+        """The global L2 norm of the trainable gradients (over shards)."""
+        if state.layout is None:
+            return trainable_gnorm(state.trainable)
+        return state.layout.grad_norm(state.trainable, trainable_names(state)).to(self.device)
+
+    def _full(self, state: TrainState, name: str, t: torch.Tensor) -> torch.Tensor:
+        return t.detach().clone() if state.layout is None else state.layout.full(name, t)
+
+    def _comm_device(self) -> torch.device:
+        """Where a scalar collective's tensor lives: the card under NCCL,
+        the CPU under gloo."""
+        return self.device if dist.get_backend() == "nccl" else torch.device("cpu")
+
     def lr_schedule(self) -> Callable[[int], float]:
         o = self.cfg.optim
         return polynomial_decay_schedule(o.lr, o.end_learning_rate, o.warmup_updates, o.total_num_update, o.power)
@@ -274,6 +382,8 @@ class Trainer:
         """The in-process iterator, or worker processes when
         ``data.num_workers > 0``: the same batches in the same order."""
         make = worker_batches if self.cfg.data.num_workers > 0 else iterate_batches
+        if self.dp > 1:  # this data-parallel rank's slice of every global batch
+            kw.update(shard_multiple=self.dp, host_index=self.mesh.data_rank, host_count=self.dp)
         return make(dataset, idx, self.cfg.data, self.cfg.task_cfg, image_shape=self.image_shape,
                     batch_size=self.global_batch_size, contrastive=self.contrastive, **kw)
 
@@ -296,15 +406,18 @@ class Trainer:
         return ThreadedPrefetcher(items, put, depth=2, device=self.device)
 
     def evaluate(self, state: TrainState, dataset: DiscussionDataset, split: str = "valid") -> Dict[str, float]:
-        """The deterministic forward over a split; the reduced metrics. The
-        pad graphs of a ragged last batch count nowhere (the contrastive
-        criterion masks them by ``grid_mask``)."""
+        """The deterministic forward over a split; the reduced metrics (the
+        logging outputs summed over the data axes first). The pad graphs of
+        a ragged last batch count nowhere (the contrastive criterion masks
+        them by ``grid_mask``)."""
         acc = MetricAccumulator(self.criterion.reduce_metrics)
         with torch.no_grad(), self.prefetch(self.eval_batches(dataset, split), lambda b: self.stage(b.asdict())) as staged:
             for item in staged:
                 batch = item.ready()
                 _, _, logs = self.criterion(state.model(batch, deterministic=True), batch)
                 acc.update(logs)
+        if self.mesh is not None:
+            acc.sum_over(self.mesh.data_group, self._comm_device())
         return acc.reduce()
 
     def predict(self, state: TrainState, dataset: DiscussionDataset, split: str = "valid") -> Dict[str, np.ndarray]:
@@ -314,12 +427,15 @@ class Trainer:
         ``logit_<k>`` and ``prob_<k>`` per class, ``pred`` (argmax),
         ``label`` (-1: unlabelled) and ``labeled``. Write them with
         ``write_predictions``. The contrastive task has per-graph targets
-        and raises ``ValueError``."""
+        and raises ``ValueError``. Across ranks every rank returns the
+        whole table, in the one-device row order: each global batch's rows
+        rank by rank (the JAX ``_allgather_columns`` orders them by host)."""
         if self.contrastive:
             raise ValueError("predict() exports per-node rows; the contrastive task has per-graph targets — "
                              "use evaluate() for its metrics")
         parts: Dict[str, list] = {}
         num_classes: Optional[int] = None
+
         def put(b):
             host = b.asdict()
             return host, self.stage(host)
@@ -353,6 +469,8 @@ class Trainer:
                     parts[f"prob_{k}"].append(prob[:, k])
         if num_classes is None:  # empty split
             return {key: np.asarray([]) for key in ("graph_idx", "node", "label", "labeled", "pred")}
+        if self.dp > 1:
+            parts = _gather_batches(parts, self.mesh.data_group)
         return {key: np.concatenate(v) for key, v in parts.items()}
 
     # -- the loop ------------------------------------------------------------
@@ -379,11 +497,15 @@ class Trainer:
         staged); closing this generator closes it."""
         if self.multi_steps:
             items = (b.asdict() for b in self.train_batches(dataset, epoch))
-            step, graphs = self.train_microstep, lambda host: int(host["idx"].shape[0])
+            step = self.train_microstep
         else:
             items = stack_microbatches(self.train_batches(dataset, epoch), max(self.cfg.optim.update_freq, 1),
                                        pad_tail=True)
-            step, graphs = self.train_step, lambda host: int((host["idx"] >= 0).sum())
+            step = self.train_step
+
+        def graphs(host) -> int:  # the global batch's real graphs
+            return int(np.asarray(host["nsamples"]).sum())
+
         with self.prefetch(itertools.islice(items, skip, None), lambda h: (self.stage(h), graphs(h))) as staged:
             for item, n in staged:
                 self.input_waits.append(staged.waits[-1])
@@ -414,9 +536,12 @@ class Trainer:
           every ``save_interval``-th epoch end and the last one, a save;
         - when ``should_stop()`` turns true (SIGTERM), a save at the update
           boundary, then return.
-        A save at the same microbatch and epoch as the previous one is
-        skipped: the state has not changed. Under MultiSteps every check
-        follows each microbatch, as in the JAX loop, so an epoch-end or
+        Across ranks every rank runs ``fit`` (evaluations and saves are
+        collective); logging, the metric writer and the trace are rank 0's,
+        and a stop request on any rank stops every rank at the same update
+        boundary (``self.stopped``). A save at the same microbatch and epoch
+        as the previous one is skipped: the state has not changed. Under
+        MultiSteps every check follows each microbatch, as in the JAX loop, so an epoch-end or
         stop save may hold a partial accumulation. ``fit`` waits for the
         last save to be on disk before it returns.
 
@@ -432,7 +557,10 @@ class Trainer:
                     f"{self.global_batch_size} with drop_last; shrink the batch or grow the dataset"
                 )
             state = self.init_state()
+        if not self.is_main:
+            writer, log_fn = _NullWriter(), _null_log
         writer = writer if writer is not None else MetricsWriter(cfg.save_dir)
+        self.stopped = False
         k = 1 if self.multi_steps else max(cfg.optim.update_freq, 1)
         acc = MetricAccumulator(self.criterion.reduce_metrics)
         lr_fn = self.lr_schedule()
@@ -441,7 +569,7 @@ class Trainer:
         saved_at = None
         window_t0, window_graphs = time.perf_counter(), 0
         self.input_waits = []
-        prof = {"session": None, "start": 0, "done": cfg.profile_trace_dir is None}
+        prof = {"session": None, "start": 0, "done": cfg.profile_trace_dir is None or not self.is_main}
 
         def profile_window(n: int) -> None:
             if prof["done"]:
@@ -514,7 +642,8 @@ class Trainer:
                         if max_updates is not None and n >= max_updates:
                             save()
                             return finish()
-                        if should_stop is not None and should_stop():
+                        if self._stop_agreed(should_stop):
+                            self.stopped = True
                             log_fn(f"stop requested at update {n}: checkpointing and exiting")
                             save()
                             return finish()
@@ -526,6 +655,36 @@ class Trainer:
         finally:
             finish_profile()  # also when an update raises
         return finish()
+
+    def _stop_agreed(self, should_stop: Optional[Callable[[], bool]]) -> bool:
+        """Whether a stop was requested, on any rank (one MAX all-reduce per
+        update across ranks)."""
+        local = should_stop is not None and should_stop()
+        if not dist.is_initialized():
+            return local
+        return any_rank(local, None, self._comm_device())
+
+
+def trainable_names(state: TrainState) -> List[str]:
+    """The names of ``state.trainable``, in order."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [names[id(p)] for p in state.trainable]
+
+
+def load_model_state(state: TrainState, full: Dict[str, torch.Tensor]) -> None:
+    """Whole tensors into ``state.model`` (its local parts across ranks)."""
+    if state.layout is None:
+        state.model.load_state_dict(full, strict=True)
+    else:
+        state.layout.load_full_state_dict(state.model, full)
+
+
+def _gather_batches(parts: Dict[str, list], group) -> Dict[str, list]:
+    """Every rank's per-batch column lists merged batch by batch, rank by
+    rank: the row order of one device over the global batches."""
+    ranks: List[Optional[Dict[str, list]]] = [None] * dist.get_world_size(group)
+    dist.all_gather_object(ranks, parts, group=group)
+    return {key: [r[key][i] for i in range(len(parts[key])) for r in ranks] for key in parts}
 
 
 def _csv_fields(column) -> np.ndarray:

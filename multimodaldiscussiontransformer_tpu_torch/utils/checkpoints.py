@@ -54,6 +54,16 @@ writer's exception is raised on the caller's thread at the next ``save``,
 a write that has not finished by then is abandoned with a warning, its step
 is listed in ``suspect_steps.txt``, and the run continues with synchronous
 saves (the JAX ``Checkpointer``'s ``_timed`` / ``_downgrade_to_sync``).
+
+Across ranks the format stays this one file of whole tensors, so that a
+checkpoint of any world size and layout restores into any other, and into
+``DiscussionScorer.from_checkpoint``: every rank gathers the whole params,
+AdamW moments and MultiSteps accumulator (``parallel/mesh.py::Layout``,
+collectively), and only rank 0's ``Checkpointer`` (``writer``) writes them,
+on its writer thread. ``data_rank_rngs`` holds every data-parallel rank's
+dropout generators; a rank that finds no entry of its own (another world
+size) derives its streams from rank 0's. Every rank restores; averaging,
+keep-K and the best store are rank 0's.
 """
 
 from __future__ import annotations
@@ -68,6 +78,7 @@ import numpy as np
 import torch
 
 from multimodaldiscussiontransformer_tpu_torch.models.mdt import _lecun_normal
+from multimodaldiscussiontransformer_tpu_torch.train.trainer import load_model_state, trainable_names
 from multimodaldiscussiontransformer_tpu_torch.utils.scan_params import _nest, scanned_state_dict, unrolled_state_dict
 
 STATE_FILE = "state.pt"
@@ -103,21 +114,58 @@ def _host_copy(obj: Any, non_blocking: bool = True) -> Any:
     return obj
 
 
+def _full_optimizer_state(state) -> Dict[str, Any]:
+    """The optimizer's state_dict with whole moments (collective across
+    ranks; the optimizer's own without a layout)."""
+    sd = state.optimizer.state_dict()
+    if state.layout is None:
+        return sd
+    names = trainable_names(state)
+    return {
+        "state": {
+            i: {k: state.layout.full(names[i], v) if isinstance(v, torch.Tensor) and v.dim() > 0 else v
+                for k, v in st.items()}
+            for i, st in sd["state"].items()
+        },
+        "param_groups": sd["param_groups"],
+    }
+
+
+def _rank_rngs(state) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Every data-parallel rank's (host, device) generator states, in data
+    rank order (collective over every rank)."""
+    import torch.distributed as dist
+
+    mesh = state.layout.mesh
+    every: List[Any] = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (mesh.data_rank, mesh.tp_rank, state.host_rng.get_state(), state.device_rng.get_state()))
+    return [(host, dev) for _, tp, host, dev in sorted(every, key=lambda e: e[0]) if tp == 0]
+
+
 def _state_tensors(state) -> Dict[str, Any]:
-    """What a checkpoint stores of a ``TrainState``, where it lives."""
-    params = state.model.state_dict()
+    """What a checkpoint stores of a ``TrainState``, where it lives (whole
+    tensors across ranks: collective)."""
+    layout = state.layout
+    params = state.model.state_dict() if layout is None else layout.full_state_dict(state.model)
     config = state.model.config
     out = {
         "params": scanned_state_dict(params, config) if config.scan_layers else params,
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": _full_optimizer_state(state),
         "step": int(state.step),
         "num_updates": int(state.num_updates),
         "epoch": int(state.epoch),
         "host_rng": state.host_rng.get_state(),
         "device_rng": state.device_rng.get_state(),
     }
+    if layout is not None:
+        rngs = _rank_rngs(state)
+        out["host_rng"], out["device_rng"] = rngs[0]
+        out["data_rank_rngs"] = [list(r) for r in rngs]
     if state.acc_grads is not None:
-        out["acc_grads"] = state.acc_grads
+        if layout is None:
+            out["acc_grads"] = state.acc_grads
+        else:
+            out["acc_grads"] = [layout.full(n, a) for n, a in zip(trainable_names(state), state.acc_grads)]
         out["mini_step"] = int(state.mini_step)
     return out
 
@@ -208,9 +256,13 @@ class Checkpointer:
     off (see the module docstring); ``async_timeout_sec`` bounds the wait
     for a write before the watchdog downgrades to synchronous saves."""
 
-    def __init__(self, save_dir: str, keep: int = 3, async_save: bool = True, async_timeout_sec: float = 600.0):
+    def __init__(self, save_dir: str, keep: int = 3, async_save: bool = True, async_timeout_sec: float = 600.0,
+                 writer: bool = True):
         self.save_dir = os.path.abspath(save_dir)
-        os.makedirs(self.save_dir, exist_ok=True)
+        # across ranks only rank 0 writes; the others take part in the gather
+        self._writer = bool(writer)
+        if self._writer:
+            os.makedirs(self.save_dir, exist_ok=True)
         self._keep = keep
         self._best_dir = os.path.join(self.save_dir, "best")
         self._async = bool(async_save)
@@ -221,8 +273,14 @@ class Checkpointer:
         """Save ``state`` (a ``TrainState``, or a dict in the stored format)
         as ``step``; with ``best`` also as the best step. Saving a step that
         exists overwrites it. Returns once the state is snapshotted (the
-        write itself runs on a writer thread unless saves are synchronous)."""
+        write itself runs on a writer thread unless saves are synchronous).
+        Across ranks every rank calls it (the whole tensors are gathered
+        collectively); a non-writer then drops them."""
         self._finish_pending()
+        if not self._writer:
+            if not isinstance(state, dict):
+                _state_tensors(state)
+            return
         if isinstance(state, dict):
             payload, copied = _host_copy(state, non_blocking=False), None
         else:
@@ -441,7 +499,7 @@ def _load_adam_moments(state, adam: Dict[str, Any]) -> None:
         i: {"step": count(), "exp_avg": adam["exp_avg"][n], "exp_avg_sq": adam["exp_avg_sq"][n]}
         for i, n in enumerate(trainable)
     }
-    opt.load_state_dict({"state": per_param, "param_groups": opt.state_dict()["param_groups"]})
+    opt.load_state_dict(_local_optimizer_state(state, {"state": per_param, "param_groups": opt.state_dict()["param_groups"]}))
 
 
 def restore_params_into_state(trainer, state, restored: Optional[Dict[str, Any]], reset_optimizer: bool):
@@ -456,21 +514,65 @@ def restore_params_into_state(trainer, state, restored: Optional[Dict[str, Any]]
         return trainer.load_params(state, restored["params"])
     if "optimizer" not in restored and "adam" not in restored:
         raise ValueError("a params-only checkpoint cannot resume a run: restore it with reset_optimizer")
-    state.model.load_state_dict(unrolled_state_dict(restored["params"], state.model.config), strict=True)
+    load_model_state(state, unrolled_state_dict(restored["params"], state.model.config))
     state.step = int(restored["step"])
     state.num_updates = int(restored["num_updates"])
     state.epoch = int(restored.get("epoch", 0))
     if "adam" in restored:
         _load_adam_moments(state, restored["adam"])
         return state
-    state.optimizer.load_state_dict(restored["optimizer"])
-    state.host_rng.set_state(restored["host_rng"])
-    state.device_rng.set_state(restored["device_rng"])
+    state.optimizer.load_state_dict(_local_optimizer_state(state, restored["optimizer"]))
+    _restore_rngs(state, restored)
     if state.acc_grads is not None and "acc_grads" in restored:
-        for acc, saved in zip(state.acc_grads, restored["acc_grads"]):
-            acc.copy_(saved)
+        for n, acc, saved in zip(trainable_names(state), state.acc_grads, restored["acc_grads"]):
+            _copy_local(acc, saved if state.layout is None else state.layout.local(n, saved, acc))
         state.mini_step = int(restored["mini_step"])
     return state
+
+
+def _copy_local(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``, on the local parts of FSDP's ``DTensor``s."""
+    from torch.distributed.tensor import DTensor
+
+    with torch.no_grad():
+        (dst.to_local() if isinstance(dst, DTensor) else dst).copy_(src.to_local() if isinstance(src, DTensor) else src)
+
+
+def _local_optimizer_state(state, sd: Dict[str, Any]) -> Dict[str, Any]:
+    """A saved optimizer state_dict laid out as this rank's parameters."""
+    if state.layout is None:
+        return sd
+    names = trainable_names(state)
+    return {
+        "state": {
+            i: {k: state.layout.local(names[i], v, state.trainable[i]).to(v.dtype)
+                if isinstance(v, torch.Tensor) and v.dim() > 0 else v for k, v in st.items()}
+            for i, st in sd["state"].items()
+        },
+        "param_groups": sd["param_groups"],
+    }
+
+
+def _restore_rngs(state, restored: Dict[str, Any]) -> None:
+    """This rank's dropout generators: its own saved entry, else (another
+    data-parallel degree, or a one-device checkpoint on a data rank > 0)
+    rank 0's states, from which a data rank > 0 draws a seed folded with
+    its rank."""
+    from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import fold_seed
+
+    mesh = state.layout.mesh if state.layout is not None else None
+    rank, size = (mesh.data_rank, mesh.data_size) if mesh is not None else (0, 1)
+    saved = restored.get("data_rank_rngs")
+    if saved is not None and len(saved) == size:
+        state.host_rng.set_state(saved[rank][0])
+        state.device_rng.set_state(saved[rank][1])
+        return
+    state.host_rng.set_state(restored["host_rng"])
+    state.device_rng.set_state(restored["device_rng"])
+    if rank:
+        seed = fold_seed(int(torch.randint(0, 2**62, (), generator=state.host_rng)), rank)
+        state.host_rng.manual_seed(seed)
+        state.device_rng.manual_seed(seed)
 
 
 def reset_classifier_head(state_dict: Dict[str, torch.Tensor], generator: torch.Generator) -> Dict[str, torch.Tensor]:

@@ -185,6 +185,23 @@ def assert_scan_step_matches_jax(jcfg, pcfg):
         assert (np.abs(p[~big] - jparams[k][~big]) <= 2.05 * lr0 + 1e-7).all(), k
 
 
+def test_train_record_logs_each_updates_gradient_norm(tmp_path):
+    """With log_interval 1 each train record of metrics.jsonl carries its
+    update's gnorm, as FairSeq's train log does: the first equals
+    ``train_step``'s on the same first group from the same init."""
+    import json
+
+    cfg = train_cfg(pconfig, save_dir=str(tmp_path), log_interval=1)
+    ds = synthetic_dataset(num_graphs=40, seed=4, **SYN)
+    Trainer(cfg, image_shape=IMG, device="cpu").fit(ds, max_updates=2, log_fn=lambda s: None)
+    records = [json.loads(ln) for ln in (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    gnorms = [r["gnorm"] for r in records if r["split"] == "train"]
+    trainer = Trainer(cfg, image_shape=IMG, device="cpu")
+    logs = trainer.train_step(trainer.init_state(), next(iter(stack_microbatches(trainer.train_batches(ds, 1), 3))))
+    assert len(gnorms) == 2 and all(np.isfinite(gnorms))
+    assert gnorms[0] == float(logs["gnorm"])
+
+
 def test_pad_tail_group_gives_the_short_groups_update():
     """All-pad microbatches add exactly nothing: the update of a ragged
     group padded to k equals the short group's, bit for bit."""
@@ -228,9 +245,11 @@ def test_fit_and_evaluate(tmp_path):
 
 @pytest.mark.parametrize(
     "override",
-    [dict(dp_size=2), dict(tp_size=2), dict(fsdp=True)],
+    [dict(sp_size=2), dict(sp_size=2, dp_size=2), dict(sp_size=4, fsdp=True)],
 )
 def test_unsupported_trainer_settings_raise(override):
+    """Sequence parallelism is the one setting the trainer lacks (dp, tp
+    and fsdp run across ranks: tests/test_torch_parallel_*.py)."""
     with pytest.raises(NotImplementedError):
         Trainer(train_cfg(pconfig, **override), image_shape=IMG, device="cpu")
 
@@ -244,7 +263,7 @@ def test_launch_main_tiny_on_cpu(tmp_path):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--hf-init"], ["--distributed-world-size", "2"]],
+    [["--hf-init"], ["--sp-size", "2"]],
 )
 def test_launch_rejects_unported_flags(flags, capsys):
     argv = ["--synthetic", "--tiny", "--device", "cpu", "--no-save"] + flags
