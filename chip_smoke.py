@@ -98,10 +98,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    - train: the canonical run (batch 12 x update_freq 3, dropout
      0.4/0.3/0.3, frozen towers) on synthetic discussions of 8-32 nodes
      with 100-token text and 3x224x224 images on 25% of nodes: 1 untimed
-     and 5 timed updates, then 2 profiled updates (train_trace) through
+     and 4 timed updates, then 2 profiled updates (train_trace) through
      ``Trainer.fit``'s profile window, after one more;
    - train_fused: the same run with both towers fused, on the same
-     batches: 1 untimed and 5 timed updates, so that each update's peak
+     batches: 1 untimed and 4 timed updates, so that each update's peak
      memory compares with train's;
    - train_big: big discussions, both towers fused, ``--batch-size 1`` x
      update_freq 3 on discussions of 520-1000 nodes (padded S 521-1001,
@@ -201,7 +201,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 16. input_ab: the canonical node run (the train phase's discussions) and
     contrastive pre-training (a ``hateful_discussions`` directory of
-    contrastive discussions), each through ``Trainer.fit`` for 4 updates
+    contrastive discussions), each through ``Trainer.fit`` for 2 updates
     from one position on each input path, twice in mirrored order: the
     prefetch thread (the default), the synchronous path before it
     (collation on the training thread, pageable per-microbatch copies,
@@ -886,8 +886,9 @@ ADJOINT_REL = 1e-4
 # mask at rate 0.3 moves it by tens of percent
 BF16_ADJOINT_REL = 1e-3
 # train and train_fused: 1 untimed update, then this many timed ones on the
-# same batches; train_big takes BIG_TIMED_UPDATES
-TIMED_UPDATES = 5
+# same batches; train_big takes BIG_TIMED_UPDATES (train and train_fused
+# took 5 before sequence_parallel; 4 keep the whole run near 1,050 s)
+TIMED_UPDATES = 4
 BIG_TIMED_UPDATES = 3
 TRAIN_GRAPHS = 240  # 192 train graphs: 16 microbatches of 12, 6 updates an epoch
 BIG_GRAPHS = 20  # 16 train graphs of 520-1000 nodes: 5 updates of 3 an epoch
@@ -939,14 +940,25 @@ def _fwd_and_grads(fn, q, k, v, template, ids, lut, g, **kw):
 def _check_errors(got, want, names, tol, what, floor: float = 0.0):
     """{name: max abs error, max |ref|}; raise unless finite and within
     tol x max(max |ref|, floor)."""
+    errs = _errors(got, want, names, tol, floor)
+    if errs.pop("failed"):
+        raise AssertionError(f"{what}: {errs} (rel tol {tol}, floor {floor})")
+    return errs
+
+
+def _errors(got, want, names, tol, floor: float = 0.0) -> dict:
+    """{name: max abs error, max |ref|} and ``failed``: the outputs not
+    finite or off by more than tol x max(max |ref|, floor) (None when all
+    agree)."""
     import torch
 
-    errs = {}
+    errs, bad = {}, []
     for name, a, w in zip(names, got, want):
-        abs_err = (a.float() - w.float()).abs().max().item()
-        errs[name] = {"max_abs_err": abs_err, "max_abs_ref": w.float().abs().max().item()}
-        if not (torch.isfinite(a).all() and abs_err <= tol * max(errs[name]["max_abs_ref"], floor)):
-            raise AssertionError(f"{what} {name}: {errs[name]} (rel tol {tol})")
+        e = (a.float() - w.float()).abs().max().item()
+        errs[name] = {"max_abs_err": e, "max_abs_ref": w.float().abs().max().item()}
+        if not (torch.isfinite(a).all() and e <= tol * max(errs[name]["max_abs_ref"], floor)):
+            bad.append(name)
+    errs["failed"] = f"{bad} beyond {tol} of max |ref|" if bad else None
     return errs
 
 
@@ -2212,7 +2224,7 @@ def phase_workers(seed: int, card: str):
     return launches
 
 
-INPUT_AB_UPDATES = 4
+INPUT_AB_UPDATES = 2  # fewer than the 4 it took before sequence_parallel: the whole run stays near 1,050 s
 # each input path twice, in mirrored order, from one position on the same
 # batches: prefetch (the default), sync (the path before the prefetcher:
 # collation on the training thread, each microbatch copied from pageable
@@ -2657,21 +2669,25 @@ def _bytes_differences(a, b, path="") -> list:
     return [] if _bytes_equal(a, b) else [path]
 
 
-def write_hateful_discussions(root: str, seed: int, contrastive: bool = False) -> dict:
+def write_hateful_discussions(root: str, seed: int, contrastive: bool = False, graphs: int = TRAIN_GRAPHS,
+                              min_nodes: int = 8, max_nodes: int = 32, image_prob: float = 0.25,
+                              seq_len: int = TEXT_LEN) -> dict:
     """A ``hateful_discussions`` directory written by the port's ingest
-    writers: the train phase's discussions as ``graph-<k>.npz`` (the first
+    writers: the train phase's discussions (by default; else ``graphs`` of
+    ``min_nodes`` .. ``max_nodes`` nodes) as ``graph-<k>.npz`` (the first
     few as stubs naming a ``shared-<tree>.npz``), ``train-idx-many.txt`` and
-    ``test-idx-many.txt``; with ``contrastive`` each carries a community and
-    a hard community (``hard_y``) instead of node labels. Compression runs
-    on a thread pool (zlib releases the interpreter lock)."""
+    ``test-idx-many.txt`` (the first 4/5 train); with ``contrastive`` each
+    carries a community and a hard community (``hard_y``) instead of node
+    labels. Compression runs on a thread pool (zlib releases the
+    interpreter lock)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from multimodaldiscussiontransformer_tpu_torch.data.synthetic import synthetic_batch_items
     from multimodaldiscussiontransformer_tpu_torch.experiments.hateful_discussions import ingest
 
     t0 = time.perf_counter()
-    items = synthetic_batch_items(TRAIN_GRAPHS, seed=seed, min_nodes=8, max_nodes=32, image_prob=0.25,
-                                  seq_len=TEXT_LEN, vocab_size=30522, image_shape=IMAGE_SHAPE, contrastive=contrastive)
+    items = synthetic_batch_items(graphs, seed=seed, min_nodes=min_nodes, max_nodes=max_nodes, image_prob=image_prob,
+                                  seq_len=seq_len, vocab_size=30522, image_shape=IMAGE_SHAPE, contrastive=contrastive)
     made_s = time.perf_counter() - t0
     os.makedirs(root, exist_ok=True)
 
@@ -2686,7 +2702,7 @@ def write_hateful_discussions(root: str, seed: int, contrastive: bool = False) -
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
         list(pool.map(write, range(len(items))))  # reads every result: a writer's error raises here
-    n_train = TRAIN_GRAPHS * 4 // 5
+    n_train = graphs * 4 // 5
     for name, idx in (("train-idx-many.txt", range(n_train)), ("test-idx-many.txt", range(n_train, len(items)))):
         with open(os.path.join(root, name), "w") as f:
             f.write("".join(f"{i}\n" for i in idx))
@@ -3769,10 +3785,11 @@ def _free_port() -> int:
 
 def parallel_rank_worker(plan_path: str, rank: int, out_path: str) -> int:
     """One rank of a parallel plan: ``train.launch.main`` of each entry's
-    argv (``{rank}`` filled in) in turn, in this process, with the kernel
-    counts zeroed before and read after each run, its seconds, its stdout
-    and this rank's peak memory; the results go to ``out_path`` after each
-    run."""
+    argv (``{rank}`` filled in), or the function ``SP_RANK_CALLS[call]``
+    of an entry with a ``call`` (its ``result`` kept), in turn, in this
+    process, with the kernel counts zeroed before and read after each run,
+    its seconds, its stdout and this rank's peak memory; the results go to
+    ``out_path`` after each run."""
     import contextlib
     import faulthandler
     import io
@@ -3789,17 +3806,21 @@ def parallel_rank_worker(plan_path: str, rank: int, out_path: str) -> int:
         plan = json.load(f)
     results = []
     for item in plan:
-        argv = [a.replace("{rank}", str(rank)) for a in item["argv"]]
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
         buf = io.StringIO()
         t = time.perf_counter()
+        result = None
         with contextlib.redirect_stdout(buf):
-            rc = launch.main(argv)
+            if "call" in item:  # a function of this script over a group of its own
+                rc, result = 0, SP_RANK_CALLS[item["call"]](rank, **item["kwargs"])
+            else:
+                rc = launch.main([a.replace("{rank}", str(rank)) for a in item["argv"]])
         seconds = time.perf_counter() - t
         counts = dict(zip(KERNEL_NAMES, _counts()))
         results.append({"name": item["name"], "rc": rc, "seconds": seconds, "counts": counts,
-                        "peak_gb": torch.cuda.max_memory_allocated() / 2**30, "stdout": buf.getvalue()[-4000:]})
+                        "peak_gb": torch.cuda.max_memory_allocated() / 2**30, "stdout": buf.getvalue()[-4000:],
+                        "result": result})
         with open(out_path + ".tmp", "w") as f:
             json.dump(results, f)
         os.replace(out_path + ".tmp", out_path)
@@ -4307,27 +4328,396 @@ def phase_parallel(seed: int, card: str = ""):
     return result
 
 
+# ---------------------------------------------------------------------------
+# sequence parallelism
+# ---------------------------------------------------------------------------
+
+SP_RING_S = 2048  # the node ladder's top S here (trees of up to 2047 nodes): a multiple of 2 and 4
+SP_MIN_NODES, SP_MAX_NODES = 1500, 1800  # the discussions sp trains and scores
+SP_GRAPHS = 23  # 18 train: 9 microbatches of 2, 3 updates of 3
+SP_TEXT_LEN = 32  # tokens per comment (the collator's smallest text bucket)
+SP_IMAGE_PROB = 0.01
+SP_UPDATES = 3
+SP_DATA_FLAGS = ["--node-buckets", str(SP_RING_S - 1), "--node-capacity-buckets", "2048,4096",
+                 "--image-capacity-buckets", "0,32,64,128", "--label-capacity-buckets", "2048,4096"]
+
+
+def _sp_init(rank: int, world: int, init_method: str, backend: str):
+    """This rank's process group and card for a ``call`` entry: NCCL one
+    rank per card, gloo every rank on card 0."""
+    import torch
+    import torch.distributed as dist
+
+    card = rank if backend == "nccl" else 0
+    torch.cuda.set_device(card)
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
+    return torch.device("cuda", card)
+
+
+def sp_ring_op(rank: int, world: int, init_method: str, backend: str, seed: int) -> dict:
+    """The ring alone over ``world`` ranks on one tree of S = SP_RING_S (B=1,
+    H=12, dh=64, bf16, the template and ids collated from a synthetic tree),
+    rates 0 and 0.3, launched through the tensor-core tree kernels: this
+    rank's strip of out, dq, dk, dv and the group's dLUT against the plain
+    ring (the same per-tile masks) and, at rate 0, against the one-process
+    kernels at the whole S (within 1e-2 of max |ref|); the launches of the
+    kernel ring; its forward and forward + backward ms per rank (every rank
+    of the group running), and the one-process kernels' at the whole S,
+    timed on rank 0 while the others wait."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodaldiscussiontransformer_tpu_torch.ops import ring_attention as ra
+    from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
+
+    dev = _sp_init(rank, world, init_method, backend)
+    try:
+        b, h, s, dh = 1, 12, SP_RING_S, 64
+        template, ids, lut = (t.to(dev) for t in compact_inputs(s, b, h, seed))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        q, k, v, cot = (torch.randn(b, h, s, dh, generator=gen, device=dev).bfloat16() for _ in range(4))
+        c = s // world
+        rows = slice(rank * c, (rank + 1) * c)
+        names = ("out", "dq", "dk", "dv", "dlut")
+        out = {"B": b, "H": h, "S": s, "dh": dh, "ranks": world, "tile": c}
+
+        def ring(rate, seed_):
+            leaves = [x[:, :, rows].clone().requires_grad_(True) for x in (q, k, v)]
+            lut_leaf = lut.clone().requires_grad_(True)
+            o = ra.ring_tree_attention_local(*leaves, template[:, rows], ids[:, rows], lut_leaf, None, rate=rate,
+                                             seed=seed_)
+            o.backward(cot[:, :, rows])
+            return o, leaves, lut_leaf
+
+        for rate in (0.0, TRAIN_RATE):
+            seed_ = seed + 5 if rate else None
+            _zero_counts()
+            o, leaves, lut_leaf = ring(rate, seed_)
+            torch.cuda.synchronize()
+            launched = dict(zip(KERNEL_NAMES, _counts()))
+            dlut = lut_leaf.grad.clone()
+            dist.all_reduce(dlut)  # every rank's tiles
+            got = [o.detach()] + [x.grad for x in leaves] + [dlut]
+            plain = [x.detach().clone().requires_grad_(True) for x in (q, k, v, lut)]
+            ref = ra.ring_tree_attention_reference(plain[0], plain[1], plain[2], template, ids, plain[3], world,
+                                                   seed=seed_ or 0, rate=rate)
+            ref.backward(cot)
+            want = [ref[:, :, rows].detach()] + [x.grad[:, :, rows] for x in plain[:3]] + [plain[3].grad]
+            row = {"launches": launched, "errors_vs_plain_ring": _errors(got, want, names, TRAIN_BF16_REL)}
+            del plain, ref, want
+            if rate == 0.0:
+                one = [x.detach().clone().requires_grad_(True) for x in (q, k, v, lut)]
+                o1 = ta.tree_attention(one[0], one[1], one[2], template, ids, one[3])
+                o1.backward(cot)
+                want = [o1[:, :, rows].detach()] + [x.grad[:, :, rows] for x in one[:3]] + [one[3].grad]
+                row["errors_vs_one_process"] = _errors(got, want, names, TRAIN_BF16_REL)
+                del one, o1, want
+            out[f"rate{rate}"] = row
+            torch.cuda.empty_cache()
+        qs, ks, vs = (x[:, :, rows].contiguous() for x in (q, k, v))
+
+        def fwd():
+            with torch.no_grad():
+                ra.ring_tree_attention_local(qs, ks, vs, template[:, rows], ids[:, rows], lut, None)
+
+        def fwd_bwd():
+            ring(0.0, None)
+
+        out["ms"] = {"ring_fwd": time_cuda(fwd, 10), "ring_fwd_bwd": time_cuda(fwd_bwd, 5)}
+        dist.barrier()
+        if rank == 0:
+            one = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+
+            def one_fwd_bwd():
+                ta.tree_attention(*one, template, ids, lut).backward(cot)
+
+            out["ms"]["one_process_fwd"] = time_cuda(lambda: ta.tree_attention(q, k, v, template, ids, lut), 10)
+            out["ms"]["one_process_fwd_bwd"] = time_cuda(one_fwd_bwd, 5)
+        dist.barrier()
+        shared = template.numel() * 4 + ids.numel() * 4 + lut.numel() * 4
+        tile = work_bounds(b, h, c, dh, "bfloat16", shared // (world * world))
+        out["bound_ms"] = {"ring_fwd": world * tile["fwd"][0], "ring_fwd_bwd": world * sum(
+            tile[k_][0] for k_ in ("fwd", "dq", "dkv")), "one_process": work_bounds(b, h, s, dh, "bfloat16", shared)}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _sp_items(seed: int, count: int = 2):
+    """``count`` discussions of SP_MIN_NODES .. SP_MAX_NODES nodes (the
+    scoring check's)."""
+    from multimodaldiscussiontransformer_tpu_torch.data.synthetic import synthetic_batch_items
+
+    return synthetic_batch_items(count, seed=seed, min_nodes=SP_MIN_NODES, max_nodes=SP_MAX_NODES,
+                                 image_prob=SP_IMAGE_PROB, seq_len=SP_TEXT_LEN, vocab_size=30522,
+                                 image_shape=IMAGE_SHAPE)
+
+
+def _sp_scorer(seed: int, device, mesh=None):
+    """``DiscussionScorer`` of the seeded ``ModelConfig()`` (with
+    ``sequence_parallel``) on ``device``, over ``mesh``; its ladders take
+    two SP discussions."""
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.core.config import DataConfig, ModelConfig
+    from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
+    from multimodaldiscussiontransformer_tpu_torch.serve.incremental import DiscussionScorer
+
+    model = MDTModel(ModelConfig(sequence_parallel=True), generator=torch.Generator().manual_seed(seed))
+    data = DataConfig(batch_size=1, node_buckets=(SP_RING_S - 1,), node_capacity_buckets=(2048, 4096),
+                      image_capacity_buckets=(0, 32, 64, 128), label_capacity_buckets=(4096,))
+    return DiscussionScorer(model, device=device, data_cfg=data, image_shape=IMAGE_SHAPE, mesh=mesh)
+
+
+def sp_score(rank: int, world: int, init_method: str, backend: str, seed: int, tp: int = 1) -> dict:
+    """Scoring over an sp (x tp) mesh of ``world`` ranks: every rank scores
+    the same two discussions; the probabilities it returns, its tree-kernel
+    launches and the median ms of a request."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from multimodaldiscussiontransformer_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _sp_init(rank, world, init_method, backend)
+    try:
+        mesh = make_mesh(tp_size=tp, sp_size=world // tp, device_type="cuda")
+        scorer = _sp_scorer(seed, dev, mesh)
+        items = _sp_items(seed + 1)
+        _zero_counts()
+        probs = scorer.score_items(items)
+        torch.cuda.synchronize()
+        launched = dict(zip(KERNEL_NAMES, _counts()))
+        ms = []
+        for _ in range(3):
+            t = time.perf_counter()
+            scorer.score_items(items)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return {"probs": [p.tolist() for p in probs], "launches": launched, "ms_median": float(np.median(ms)),
+                "nodes": [it.num_nodes for it in items]}
+    finally:
+        dist.destroy_process_group()
+
+
+SP_RANK_CALLS = {"ring_op": sp_ring_op, "score": sp_score}
+
+
+def _prediction_table(path: str) -> dict:
+    """A prediction file's columns (parquet where pandas wrote it, else CSV)."""
+    import numpy as np
+
+    if path.endswith(".parquet"):
+        import pandas as pd
+
+        frame = pd.read_parquet(path)
+        return {k: frame[k].to_numpy() for k in frame.columns}
+    rows = np.genfromtxt(path, delimiter=",", names=True)
+    return {k: rows[k] for k in rows.dtype.names}
+
+
+def phase_sequence_parallel(seed: int, card: str = ""):
+    """Sequence parallelism at ``ModelConfig()`` width (8 fusion layers,
+    frozen towers, bf16 compute, H 12, dh 64) on discussions of
+    SP_MIN_NODES .. SP_MAX_NODES nodes (S = SP_RING_S, the largest one
+    process trains here: 2 per microbatch x 3), each rank holding a strip
+    of the node axis and the graph attention a ring over the sp group
+    through the tensor-core tree kernels:
+    - in this process: the one-process runs every sp run is held against
+      (the big discussions through the launcher, 3 updates at lr 1e-4 with
+      dropout 0; the bf16 noise witness, the same run one discussion per
+      microbatch; the tiny float32 run, 2 updates, and its
+      ``--eval-only --predict-output``; the one-process scorer);
+    - with one card, 2 ranks on card 0 over gloo, sp=2: the ring alone
+      (``sp_ring_op``), ``DiscussionScorer(mesh=...)`` (``sp_score``), the
+      big run through the launcher with ``--sp-size 2`` (ms per update,
+      each rank's peak memory, the tree-kernel launches per rank per
+      update), the tiny float32 run and its predictions;
+    - with N = 2 or 4 cards (4 of more), NCCL with one rank per card: the
+      ring, the scorer and the big run at sp=N, with 4 cards also dp=2 x
+      sp=2; the tiny float32 run at sp=N, and with 4 cards at dp=2 x sp=2
+      and tp=2 x sp=2.
+    Every check is made before any failure is raised: the failure names
+    each run that disagreed."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    nccl = cards >= 2
+    n = 4 if cards >= 4 else 2
+    branch = "nccl_one_rank_per_card" if nccl else "gloo_two_ranks_on_card_0"
+    print(json.dumps({"phase": "sequence_parallel_branch", "cards": cards, "branch": branch, "ranks": n}), flush=True)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="mdt_sp_")
+    result = {"phase": "sequence_parallel", "card": card, "cards": cards, "branch": branch, "ranks": n}
+    steps = {}
+    t_step = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_step
+        steps[name] = time.perf_counter() - t_step
+        t_step = time.perf_counter()
+
+    try:
+        d = {name: os.path.join(root, name) for name in
+             ("data", "one", "witness", "one_tiny", "pred_one_tiny", "sp", "dp2_sp2", "tiny_sp", "tiny_dp2_sp2",
+              "tiny_tp2_sp2", "pred_tiny_sp")}
+        result["dataset"] = write_hateful_discussions(d["data"], seed + 3, graphs=SP_GRAPHS, min_nodes=SP_MIN_NODES,
+                                                      max_nodes=SP_MAX_NODES, image_prob=SP_IMAGE_PROB,
+                                                      seq_len=SP_TEXT_LEN)
+        lap("data")
+        big = ["--data-root", d["data"], "--seed", str(seed + 1), *CANONICAL_FLAGS, *SP_DATA_FLAGS,
+               "--batch-size", "2", "--max-updates", str(SP_UPDATES), "--max-epoch", "1", *NO_DROPOUT, *PARALLEL_LR]
+        rc, out, seconds, counts, peak = _launch_in_process(big + ["--save-dir", d["one"]])
+        if rc != 0:
+            raise AssertionError(f"one-process big run exited {rc}:\n{out[-2000:]}")
+        one = {"seconds": seconds, "ms_per_update": _ms_per_update(d["one"]), "peak_gb": peak, "launches": counts}
+        init = _init_trainable(big + ["--save-dir", d["one"]])
+        rc, out, _, _, _ = _launch_in_process(big + ["--batch-size", "1", "--update-freq", "6",
+                                                     "--save-dir", d["witness"]])
+        if rc != 0:
+            raise AssertionError(f"one-process witness run exited {rc}:\n{out[-2000:]}")
+        tiny = TINY_FLAGS + ["--max-updates", str(TINY_UPDATES), "--max-epoch", "1", "--save-interval-updates", "1",
+                             "--batch-size", "8"]
+        rc, out, _, _, _ = _launch_in_process(tiny + ["--save-dir", d["one_tiny"]])
+        if rc != 0:
+            raise AssertionError(f"one-process tiny run exited {rc}:\n{out[-2000:]}")
+        predict_tiny = tiny + ["--eval-only", "--restore-file", d["one_tiny"], "--save-dir", d["one_tiny"]]
+        rc, out, _, _, _ = _launch_in_process(predict_tiny + ["--predict-output", d["pred_one_tiny"]])
+        if rc != 0:
+            raise AssertionError(f"one-process tiny --eval-only exited {rc}:\n{out[-2000:]}")
+        tiny_init = _init_trainable(tiny)
+        scorer = _sp_scorer(seed, torch.device("cuda"))
+        want_probs = scorer.score_items(_sp_items(seed + 1))
+        del scorer
+        torch.cuda.empty_cache()
+        lap("one_process")
+
+        def call(name, fn, world, **kw):
+            return {"name": name, "call": fn, "world": world, "kwargs": dict(
+                world=world, init_method=f"tcp://127.0.0.1:{_free_port()}", backend="nccl" if nccl else "gloo",
+                seed=seed, **kw)}
+
+        def launch(name, argv, world):
+            flags = ["--distributed-world-size", str(world), "--distributed-rank", "{rank}",
+                     "--distributed-init-method", f"tcp://127.0.0.1:{_free_port()}"]
+            return {"name": name, "world": world, "argv": argv + flags + ([] if nccl else ["--distributed-backend",
+                                                                                          "gloo"])}
+
+        plan = [call("ring_op", "ring_op", n), call("score", "score", n),
+                launch("sp", big + ["--sp-size", str(n), "--save-dir", d["sp"]], n),
+                launch("tiny_sp", tiny + ["--sp-size", str(n), "--save-dir", d["tiny_sp"]], n),
+                launch("predict_tiny_sp", predict_tiny + ["--sp-size", str(n), "--predict-output", d["pred_tiny_sp"]],
+                       n)]
+        if n == 4:
+            plan += [launch("dp2_sp2", big + ["--sp-size", "2", "--dp-size", "2", "--batch-size", "1",
+                                              "--save-dir", d["dp2_sp2"]], 4),
+                     launch("tiny_dp2_sp2", tiny + ["--sp-size", "2", "--dp-size", "2", "--batch-size", "4",
+                                                    "--save-dir", d["tiny_dp2_sp2"]], 4),
+                     launch("tiny_tp2_sp2", tiny + ["--sp-size", "2", "--tp-size", "2", "--save-dir",
+                                                    d["tiny_tp2_sp2"]], 4)]
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        # NCCL: one set of rank processes per run (one launch per process,
+        # as torchrun starts them); gloo on one card: one set for the plan
+        sets = [[item] for item in plan] if nccl else [plan]
+        runs = {}
+        for items in sets:
+            ranks, _ = run_ranks(items, n, root)
+            for i, item in enumerate(items):
+                runs[item["name"]] = [r[i] for r in ranks]
+        result["ranks_seconds"] = time.perf_counter() - t
+        lap("ranks")
+        for name, per_rank in runs.items():
+            if any(r["rc"] != 0 for r in per_rank):
+                raise AssertionError(f"sequence-parallel run {name}: rcs {[r['rc'] for r in per_rank]}")
+        checks = {}
+        ring = [r["result"] for r in runs["ring_op"]]
+        for rate in ("rate0.0", f"rate{TRAIN_RATE}"):
+            for kind in ("errors_vs_plain_ring", "errors_vs_one_process"):
+                failed = [f"rank {i}: {x[rate][kind]['failed']}" for i, x in enumerate(ring)
+                          if kind in x[rate] and x[rate][kind]["failed"]]
+                checks[f"ring_{rate}_{kind}"] = {"failed": "; ".join(failed) or None}
+            want = {"tree_attention_fwd_fused": n, "tree_attention_bwd_dq_fused": n,
+                    "tree_attention_bwd_dkv_fused": n}
+            launched = [{k: x[rate]["launches"][k] for k in want} for x in ring]
+            checks[f"ring_{rate}_launches"] = {"per_rank": launched, "failed": None if all(
+                lr == want for lr in launched) else f"tile launches per rank {launched}, want {want}"}
+        scores = [r["result"] for r in runs["score"]]
+        err = max(float(np.abs(np.asarray(p) - w).max()) for sc in scores for p, w in zip(sc["probs"], want_probs))
+        checks["score"] = {"max_abs_err_prob": err, "tolerance": TRAIN_BF16_REL,
+                           "failed": None if err <= TRAIN_BF16_REL else f"probabilities differ by {err}"}
+        per_forward = [sc["launches"]["tree_attention_fwd_fused"] for sc in scores]
+        if per_forward != [LAUNCHES_PER_FORWARD * n] * n:
+            checks["score"]["failed"] = f"tree forward launches per rank {per_forward}, want {LAUNCHES_PER_FORWARD * n}"
+        big_runs = ["sp"] + (["dp2_sp2"] if n == 4 else [])
+        for name in big_runs:
+            checks[name] = _agreement(d[name], d["one"], init, SP_UPDATES, False)
+            sp_size = n if name == "sp" else 2
+            k = 3  # microbatches an update on each rank
+            want = {"tree_attention_bwd_dq_fused": 8 * sp_size * k * SP_UPDATES,
+                    "tree_attention_bwd_dkv_fused": 8 * sp_size * k * SP_UPDATES}
+            got = [{key: r["counts"][key] for key in want} for r in runs[name]]
+            if any(g != want for g in got) or min(r["counts"]["tree_attention_fwd_fused"] for r in runs[name]) < \
+                    10 * sp_size * k * SP_UPDATES:
+                checks[name]["failed"] = (checks[name]["failed"] or "") + f"; tree launches per rank {got}, want {want}"
+        tiny_runs = ["tiny_sp"] + (["tiny_dp2_sp2", "tiny_tp2_sp2"] if n == 4 else [])
+        for name in tiny_runs:
+            checks[name] = _agreement(d[name], d["one_tiny"], tiny_init, TINY_UPDATES, True, 1e-3 / 2, 1)
+        try:
+            checks["predict_tiny_sp"] = {**_compare_predictions(d["pred_tiny_sp"], d["pred_one_tiny"], 1e-5),
+                                         "failed": None}
+        except AssertionError as e:
+            checks["predict_tiny_sp"] = {"failed": str(e)}
+        result.update(
+            one_process=one,
+            ring_op={"per_rank": ring},
+            score={"ms_median_per_rank": [sc["ms_median"] for sc in scores], "nodes": scores[0]["nodes"]},
+            runs={name: {"ms_per_update": _ms_per_update(d[name]), "peak_gb_per_rank": [r["peak_gb"] for r in per_rank],
+                         "seconds": max(r["seconds"] for r in per_rank),
+                         "launches_per_rank": [r["counts"] for r in per_rank],
+                         "tree_launches_per_rank_per_update": [
+                             {key: r["counts"][key] / SP_UPDATES for key in ("tree_attention_bwd_dq_fused",
+                                                                             "tree_attention_bwd_dkv_fused")}
+                             for r in per_rank]}
+                  for name, per_rank in runs.items() if name in big_runs},
+            peak_gb_one_process=one["peak_gb"],
+            noise_witness=_agreement(d["witness"], d["one"], init, SP_UPDATES, False),
+            checks=checks, step_seconds=steps,
+        )
+        result["launches"] = {key: sum(r["counts"][key] for per_rank in runs.values() for r in per_rank)
+                              for key in KERNEL_NAMES}
+        result["launches_ring_tiles"] = {key: sum(x[rate]["launches"][key] for x in ring for rate in
+                                                  ("rate0.0", f"rate{TRAIN_RATE}")) for key in KERNEL_NAMES}
+        try:
+            _hold(checks)
+        except AssertionError as e:  # what ran, with the checks that failed, then the failure
+            result["failed_check"] = str(e)
+            emit(result)
+            raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t_phase
+    emit(result)
+    return result
+
+
 def _latest_step(save_dir: str):
     from multimodaldiscussiontransformer_tpu_torch.utils.checkpoints import Checkpointer
 
     return Checkpointer(save_dir).latest_step()
 
 
-def _compare_predictions(got_dir: str, want_dir: str) -> dict:
+def _compare_predictions(got_dir: str, want_dir: str, prob_atol=None) -> dict:
     """Two prediction directories: every split's rows in the same order
     with the same keys, labels and predictions' logits within the bf16
-    tolerance of the scoring phase; whether the bytes are equal."""
+    tolerance of the scoring phase (with ``prob_atol``, a float32 run's:
+    the same predictions and every probability within it); whether the
+    bytes are equal."""
     import numpy as np
 
-    def table(path):
-        if path.endswith(".parquet"):
-            import pandas as pd
-
-            frame = pd.read_parquet(path)
-            return {k: frame[k].to_numpy() for k in frame.columns}
-        rows = np.genfromtxt(path, delimiter=",", names=True)
-        return {k: rows[k] for k in rows.dtype.names}
-
+    table = _prediction_table
     out = {}
     for name in sorted(os.listdir(want_dir)):
         with open(os.path.join(got_dir, name), "rb") as a, open(os.path.join(want_dir, name), "rb") as b:
@@ -4343,6 +4733,11 @@ def _compare_predictions(got_dir: str, want_dir: str) -> dict:
             raise AssertionError(f"{name}: logits differ by {logit} (max |logit| {scale})")
         out[name] = {"rows": int(len(w["node"])), "bytes_equal": ga == wb, "max_abs_err_logit": logit,
                      "pred_agreement": float((g["pred"] == w["pred"]).mean())}
+        if prob_atol is not None:
+            prob = max(float(np.abs(g[k] - w[k]).max()) for k in w if k.startswith("prob_"))
+            out[name]["max_abs_err_prob"] = prob
+            if prob > prob_atol or not np.array_equal(g["pred"], w["pred"]):
+                raise AssertionError(f"{name}: probabilities differ by {prob} (atol {prob_atol}) or predictions differ")
     if not out:
         raise AssertionError("no predictions written")
     return out
@@ -4381,7 +4776,7 @@ def _worst_pair(rows, outputs):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--only", choices=("parallel",), default=None,
+    p.add_argument("--only", choices=("parallel", "sequence_parallel"), default=None,
                    help="build, then only this phase (for iterating on it; the kernels' summary is not printed)")
     p.add_argument("--parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--parallel-plan", default=None, help=argparse.SUPPRESS)
@@ -4399,8 +4794,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     card = phase_build()
-    if args.only == "parallel":
-        phase_parallel(args.seed, card)
+    if args.only is not None:
+        {"parallel": phase_parallel, "sequence_parallel": phase_sequence_parallel}[args.only](args.seed, card)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
@@ -4442,6 +4837,7 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(outside, ignore_errors=True)
     parallel = phase_parallel(args.seed, card)
+    sequence_parallel = phase_sequence_parallel(args.seed, card)
 
     serve_row = rows[0]  # S=33, B=16: the canonical serving shape
     train_row = train_rows[0]  # S=33, B=12: the canonical training shape
@@ -4459,7 +4855,9 @@ def main(argv=None) -> int:
                **{f"contrastive_{part}": contrastive[part]["launches"]
                   for part in ("pretrain", "transfer", "multisteps", "bf16_adam", "bf16_params")},
                "ingest": ingest["launches"], "weights_in_orbax_restore": weights_in,
-               "parallel": parallel["launches"], "parallel_tp_h6": parallel["launches_tp_h6"]}
+               "parallel": parallel["launches"], "parallel_tp_h6": parallel["launches_tp_h6"],
+               "sequence_parallel": sequence_parallel["launches"],
+               "sequence_parallel_ring_tiles": sequence_parallel["launches_ring_tiles"]}
 
     def paths(name, extra=None):
         out = {path: counts[name] for path, counts in by_path.items()}

@@ -141,7 +141,8 @@ class ModelConfig:
     # hand-written tree-attention kernel; False assembles the dense
     # (B, H, S, S) bias and runs plain attention
     use_pallas_attention: bool = True
-    # not ported yet (raises at model build)
+    # the graph attention as a ring over an sp group, once the model is laid
+    # out on one (parallel/mesh.py::apply_sequence_parallel); one device otherwise
     sequence_parallel: bool = False
     # rematerialise the fusion and graph stacks (models/remat.py)
     remat: bool = False

@@ -18,6 +18,15 @@ package (where B is global under dp): each rank computes its own rows
 against every rank's embeddings (``columns``, gathered with a
 differentiable all-reduce), so that the rank's loss, sample size and counts
 sum over the ranks to the global ones.
+
+Under sequence parallelism every rank of an sp group holds the same
+broadcast embeddings (``models/mdt.py``) and computes the same rows: the
+trainer marks the ranks other than sp rank 0 as ``replica``, whose loss,
+sample size and counts are multiplied by 0 (the loss stays in the graph, so
+that every rank runs the same backward collectives), and the rows are
+gathered over the data axes only (``data_group`` is the mesh's
+``batch_group``). A pad graph is read off ``graph_mask`` where the batch
+carries one (an sp share, whose ``grid_mask`` is a strip).
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from multimodaldiscussiontransformer_tpu_torch.core.registry import register_criterion
-from multimodaldiscussiontransformer_tpu_torch.parallel.comm import gather_dim, gather_rows
+from multimodaldiscussiontransformer_tpu_torch.parallel.comm import all_gather_dim, gather_dim
 
 
 def contrastive_loss(
@@ -132,23 +141,32 @@ class ContrastiveCriterion:
         # across data-parallel ranks (set by the trainer): the group whose
         # batches make up the global matrix
         self.data_group = None
+        # an sp rank other than 0 (set by the trainer): its rows repeat rank 0's
+        self.replica = False
 
     def __call__(self, output, batch):
         # pad graphs (the collator's pad_to_graphs) have no real node rows
-        grid_mask = batch.get("grid_mask")
         emb, y = output.global_embedding, batch["y"]
-        valid = torch.ones(emb.shape[0], dtype=torch.bool, device=emb.device) if grid_mask is None else grid_mask.any(-1)
+        if "graph_mask" in batch:
+            valid = batch["graph_mask"].bool()
+        elif "grid_mask" in batch:
+            valid = batch["grid_mask"].any(-1)
+        else:
+            valid = torch.ones(emb.shape[0], dtype=torch.bool, device=emb.device)
         columns, offset = None, 0
         if self.data_group is not None:
             import torch.distributed as dist
 
-            columns = (gather_rows(emb.float(), self.data_group), gather_dim(y.float(), 0, self.data_group),
+            columns = (all_gather_dim(emb.float(), 0, self.data_group), gather_dim(y.float(), 0, self.data_group),
                        gather_dim(valid.float(), 0, self.data_group))
             offset = dist.get_rank(self.data_group) * emb.shape[0]
-        return contrastive_loss(
+        loss, ssz, logs = contrastive_loss(
             emb, y, batch["hard_y"],
             self.soft_negative_weight, self.adaptive_soft_negative_weight, self.multiplication_scale,
             valid=valid, columns=columns, row_offset=offset,
         )
+        if self.replica:
+            loss, ssz, logs = loss * 0.0, ssz * 0, {k: v * 0 for k, v in logs.items()}
+        return loss, ssz, logs
 
     reduce_metrics = staticmethod(reduce_contrastive_metrics)

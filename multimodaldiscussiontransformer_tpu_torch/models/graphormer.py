@@ -19,6 +19,14 @@
     with ``FastDropout`` on the probabilities;
 - ``dropout``/``act_dropout`` sit where the JAX layer has them.
 
+Under sequence parallelism (``parallel/mesh.py::apply_sequence_parallel``)
+the layers hold a strip of the graph grid's node axis and the compact-bias
+attention runs as a ring over the sp group
+(``ops/ring_attention.py::ring_tree_attention_local``), as the JAX layer
+routes it through ``ring_tree_attention_dispatch``; the ring's seed is one
+fresh draw per call, folded per tile with the data shard, the strip and the
+block.
+
 Under tensor parallelism (``parallel/mesh.py``) the attention runs the
 rank's H/tp heads: ``GraphAttnBias`` takes the rank's columns of the
 per-head parameters (the spatial table, the virtual distance) through
@@ -46,6 +54,7 @@ from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import FastDr
 from multimodaldiscussiontransformer_tpu_torch.models.remat import checkpoint_name
 from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
 from multimodaldiscussiontransformer_tpu_torch.ops.biased_attention import biased_attention
+from multimodaldiscussiontransformer_tpu_torch.ops.ring_attention import ring_tree_attention_local
 from multimodaldiscussiontransformer_tpu_torch.parallel.comm import copy_to_group
 
 CompactBias = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -107,6 +116,24 @@ class GraphNodeFeature(nn.Module):
         tok = self.graph_token.to(dt)[None].expand(x.shape[0], 1, x.shape[-1])
         return torch.cat([tok, feats], dim=1)
 
+    def strip(self, x, in_degree, out_degree, has_token: bool) -> torch.Tensor:
+        """The features of a strip of the token-prefixed grid (sequence
+        parallelism): ``x``, ``in_degree``, ``out_degree`` (B, c[, D]) with
+        the token's row first in strip 0 (``has_token``), where the graph
+        token replaces it. The other strips add 0 x the token, so that every
+        rank of the group holds a gradient for it (zeros there): the
+        gradient sum over the group and FSDP's reduce-scatter take the same
+        tensors on every rank."""
+        dt = self.dtype
+        feats = (
+            x
+            + masked_embed(self.in_degree_encoder.to(dt), in_degree)
+            + masked_embed(self.out_degree_encoder.to(dt), out_degree)
+        )
+        tok = self.graph_token.to(dt)[None].expand(x.shape[0], 1, x.shape[-1])
+        first = tok if has_token else feats[:, :1] + 0.0 * tok
+        return torch.cat([first, feats[:, 1:]], dim=1)
+
 
 class GraphAttnBias(nn.Module):
     """Per-head attention bias: spatial-bucket embeddings over node pairs plus
@@ -157,12 +184,28 @@ class GraphAttnBias(nn.Module):
         table, virtual = self.head_params()
         return ta.build_compact_bias_inputs(attn_bias, spatial_pos, table.float(), virtual.float())
 
+    def compact_strip(self, attn_bias: torch.Tensor, spatial_pos: torch.Tensor, has_token: bool) -> CompactBias:
+        """(template, ids, lut) of a q-row strip (sequence parallelism):
+        ``attn_bias`` the (B, c, S') template strip, ``spatial_pos`` the
+        (B, c, S') strip of bucket ids on the token-prefixed axis
+        (``parallel/input.py::sp_share``); the graph token's column, and in
+        strip 0 (``has_token``) its row, take GRAPH_TOKEN_ID, as
+        ``build_compact_bias_inputs`` gives the whole grid."""
+        table, virtual = self.head_params()
+        ids = spatial_pos.to(torch.int32)
+        ids[:, :, 0] = ta.GRAPH_TOKEN_ID
+        if has_token:
+            ids[:, 0, :] = ta.GRAPH_TOKEN_ID
+        return attn_bias.float().contiguous(), ids.contiguous(), ta.compact_lut(table.float(), virtual.float())
+
 
 class BiasedMultiheadAttention(nn.Module):
     """Self-attention with an additive per-head bias and key-padding
-    masking, batch-first; the rank's heads under tensor parallelism."""
+    masking, batch-first; the rank's heads under tensor parallelism, the
+    rank's strip of the node axis under sequence parallelism."""
 
     tp = None
+    sp = None
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype):
         super().__init__()
@@ -198,10 +241,16 @@ class BiasedMultiheadAttention(nn.Module):
             # the template already encodes key padding
             template, ids, lut = attn_bias
             rate = 0.0 if deterministic else c.attention_dropout
+            seed = draw_seed(0 if tp is None else tp.rank) if rate > 0.0 else None
+            if self.sp is not None:
+                ctx = ring_tree_attention_local(
+                    q.contiguous(), k.contiguous(), v.contiguous(), template, ids, lut, self.sp.group,
+                    scale=scaling, double_add=c.double_add_attn_bias, rate=rate, seed=seed, shard=self.sp.shard,
+                )
+                return self.out_proj(ctx.transpose(1, 2).reshape(b, s, h * dh))
             ctx = ta.tree_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), template, ids, lut,
-                scale=scaling, double_add=c.double_add_attn_bias,
-                rate=rate, seed=draw_seed(0 if tp is None else tp.rank) if rate > 0.0 else None,
+                scale=scaling, double_add=c.double_add_attn_bias, rate=rate, seed=seed,
             )
         elif c.use_pallas_attention and (deterministic or c.attention_dropout == 0.0):
             ctx = biased_attention(

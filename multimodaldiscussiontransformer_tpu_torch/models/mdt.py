@@ -24,6 +24,25 @@ bottom towers stay outside.
 
 ``config.scan_layers`` is a parameter layout (``utils/scan_params.py``):
 the modules run unrolled either way.
+
+Sequence parallelism (``sp`` set by ``parallel/mesh.py::
+apply_sequence_parallel``; ``config.sequence_parallel`` without an sp group
+is the one-device model, as in JAX without an sp axis): the rank's batch is
+its share (``parallel/input.py::sp_share``): its block of the flat node
+slots and a strip of c rows of the token-prefixed grid, S = Nmax + 1 padded
+to S' = c n. The graph layers run on the strip (B, c, D), the attention as
+a ring over the group. The transitions between the flat slots and the grid
+cross ranks, since a rank's slots may belong to any strip:
+- slots -> grid (``scatter_drop``): each rank scatters its slots into a
+  zero (B, S', D) grid (and a 0/1 column marking the rows it writes); the
+  sum over the group, of which each rank keeps its strip
+  (``reduce_scatter_dim``), is the one-device grid (each row is written
+  by one rank);
+- grid -> slots (``gather_fill``): the strips gathered over the group
+  (``all_gather_dim``), read at the rank's slots;
+the gradients of both are summed back across the group. The graph token
+(row 0) lives in strip 0; the global embedding is broadcast from there to
+the group (``broadcast_from``), and its gradient returns there.
 """
 
 from __future__ import annotations
@@ -61,6 +80,7 @@ from multimodaldiscussiontransformer_tpu_torch.models.graphormer import (
 )
 from multimodaldiscussiontransformer_tpu_torch.models.remat import POLICIES, remat_segment
 from multimodaldiscussiontransformer_tpu_torch.models.vit import ViTBottomTower
+from multimodaldiscussiontransformer_tpu_torch.parallel.comm import all_gather_dim, broadcast_from, reduce_scatter_dim
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # init std of raw (non-Linear, non-LayerNorm) parameters; the rest get 0.02
@@ -91,8 +111,6 @@ def _stack_sizes(total: int, chunk: int) -> list:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for settings the port does not have,
     ``ValueError`` for an unknown remat policy."""
-    if cfg.sequence_parallel:
-        raise NotImplementedError("sequence_parallel=True (ring attention) comes with ROADMAP Queue 1 item 8b")
     if cfg.remat and cfg.remat_policy not in POLICIES:
         raise ValueError(f"remat_policy {cfg.remat_policy!r} not in {POLICIES}")
     for what, name in (("compute dtype", cfg.dtype), ("param_dtype", cfg.param_dtype)):
@@ -101,7 +119,10 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class MultiGraphormerGraphEncoder(nn.Module):
-    """The core interleaved text/image/graph encoder."""
+    """The core interleaved text/image/graph encoder; under sequence
+    parallelism (``sp``) on the rank's share of the batch."""
+
+    sp = None
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype):
         super().__init__()
@@ -138,7 +159,11 @@ class MultiGraphormerGraphEncoder(nn.Module):
         nbn = c.num_bottleneck_tokens
         attention_mask = batch["attention_mask"]
         cap = attention_mask.shape[0]
-        bsz, nmax = batch["in_degree"].shape
+        sp = self.sp
+        if sp is None:
+            bsz, nmax = batch["in_degree"].shape
+        else:  # a strip of the token-prefixed grid; nodes at rows 1 .. S' - 1
+            bsz, nmax = batch["in_degree"].shape[0], batch["in_degree"].shape[1] * sp.size - 1
 
         det = deterministic
         if c.remat and not det:
@@ -161,17 +186,24 @@ class MultiGraphormerGraphEncoder(nn.Module):
         mask_bias = attention_mask_bias(fusion_mask, self.dtype)
         bert, vit, bn = run(self.fusion_stacks[0], bert, vit, bn, mask_bias, image_node, det)
 
-        # bottleneck token 0 -> the (B, Nmax) grid; padded slots are dropped
         flat_idx = batch["node_graph"] * nmax + batch["node_pos"]
-        grid = scatter_drop(bert.new_zeros(bsz * nmax, d), flat_idx, bn[:, 0]).view(bsz, nmax, d)
-        key_padding_mask = torch.cat(
-            [batch["grid_mask"].new_zeros(bsz, 1), ~batch["grid_mask"]], dim=1
-        )
-        x = self.graph_node_feature(grid, batch["in_degree"], batch["out_degree"])
-        if c.use_pallas_attention:
-            attn_bias = self.graph_attn_bias.compact_inputs(batch["attn_bias"], batch["spatial_pos"])
+        if sp is None:
+            # bottleneck token 0 -> the (B, Nmax) grid; padded slots are dropped
+            grid = scatter_drop(bert.new_zeros(bsz * nmax, d), flat_idx, bn[:, 0]).view(bsz, nmax, d)
+            key_padding_mask = torch.cat(
+                [batch["grid_mask"].new_zeros(bsz, 1), ~batch["grid_mask"]], dim=1
+            )
+            x = self.graph_node_feature(grid, batch["in_degree"], batch["out_degree"])
+            if c.use_pallas_attention:
+                attn_bias = self.graph_attn_bias.compact_inputs(batch["attn_bias"], batch["spatial_pos"])
+            else:
+                attn_bias = self.graph_attn_bias(batch["attn_bias"], batch["spatial_pos"])
         else:
-            attn_bias = self.graph_attn_bias(batch["attn_bias"], batch["spatial_pos"])
+            has_token = sp.rank == 0
+            x = self.graph_node_feature.strip(self._slots_to_strip(bn[:, 0], flat_idx, bsz, nmax)[..., :d],
+                                              batch["in_degree"], batch["out_degree"], has_token)
+            key_padding_mask = None  # the template strip encodes key padding
+            attn_bias = self.graph_attn_bias.compact_strip(batch["attn_bias"], batch["spatial_pos"], has_token)
         if c.encoder_normalize_before:
             x = self.emb_layer_norm(x)
         x = self.emb_dropout(x, det)
@@ -179,16 +211,33 @@ class MultiGraphormerGraphEncoder(nn.Module):
         # interleave: zip(graph stacks, fusion stacks[1:])
         for i in range(len(self.fusion_stacks) - 1):
             x = run(self.graph_stacks[i], x, attn_bias, key_padding_mask, det)
-            node_states = gather_fill(x[:, 1:].reshape(bsz * nmax, d), flat_idx)
+            grid_x = x if sp is None else all_gather_dim(x, 1, sp.group)
+            node_states = gather_fill(grid_x[:, 1:].reshape(bsz * nmax, d), flat_idx)
             bn = torch.cat([node_states[:, None], bn[:, 1:]], dim=1)
             bert, vit, bn = run(self.fusion_stacks[i + 1], bert, vit, bn, mask_bias, image_node, det)
-            tail = scatter_drop(x[:, 1:].reshape(bsz * nmax, d), flat_idx, bn[:, 0])
-            x = torch.cat([x[:, :1], tail.view(bsz, nmax, d)], dim=1)
+            if sp is None:
+                tail = scatter_drop(x[:, 1:].reshape(bsz * nmax, d), flat_idx, bn[:, 0])
+                x = torch.cat([x[:, :1], tail.view(bsz, nmax, d)], dim=1)
+            else:  # the rows some rank's slots write take the slots' states
+                written = self._slots_to_strip(bn[:, 0], flat_idx, bsz, nmax)
+                x = torch.where(written[..., d:] > 0, written[..., :d], x)
 
         if not c.reproduce_dead_graph_stack:
             x = run(self.graph_stacks[-2], x, attn_bias, key_padding_mask, det)
         x = run(self.graph_stacks[-1], x, attn_bias, key_padding_mask, det)
-        return EncoderOutput(text_states=bert, bottleneck=bn, global_embedding=x[:, 0])
+        glob = x[:, 0] if sp is None else broadcast_from(x[:, 0], 0, sp.group)
+        return EncoderOutput(text_states=bert, bottleneck=bn, global_embedding=glob)
+
+    def _slots_to_strip(self, values: torch.Tensor, flat_idx: torch.Tensor, bsz: int, nmax: int) -> torch.Tensor:
+        """(B, c, D + 1): the rank's strip of the token-prefixed grid that
+        every rank's slots write (``values`` (C/n, D) at ``flat_idx`` in
+        the (B, Nmax') node grid), summed over the sp group, with a last
+        column of 1 on the rows that some slot writes."""
+        d = values.shape[-1]
+        marked = torch.cat([values, values.new_ones(values.shape[0], 1)], dim=1)
+        grid = scatter_drop(values.new_zeros(bsz * nmax, d + 1), flat_idx, marked).view(bsz, nmax, d + 1)
+        grid = torch.cat([grid.new_zeros(bsz, 1, d + 1), grid], dim=1)
+        return reduce_scatter_dim(grid, 1, self.sp.group)
 
 
 class MDTModel(nn.Module):

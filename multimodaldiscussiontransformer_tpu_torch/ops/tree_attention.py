@@ -78,10 +78,16 @@ def build_compact_bias_inputs(
     dev = spatial_pos.device
     ids = torch.full((b, s, s), GRAPH_TOKEN_ID, dtype=torch.int32, device=dev)
     ids[:, 1:, 1:] = spatial_pos.to(torch.int32)
-    lut = torch.zeros(LUT_SIZE, spatial_table.shape[1], dtype=torch.float32, device=dev)
+    return attn_bias_template.float().contiguous(), ids, compact_lut(spatial_table, virtual_t)
+
+
+def compact_lut(spatial_table: torch.Tensor, virtual_t: torch.Tensor) -> torch.Tensor:
+    """The f32 (LUT_SIZE, H) LUT: row 0 zero (padding), rows 1 .. 30 the
+    spatial table's, row GRAPH_TOKEN_ID the virtual distance."""
+    lut = torch.zeros(LUT_SIZE, spatial_table.shape[1], dtype=torch.float32, device=spatial_table.device)
     lut[1 : LUT_SIZE - 1] = spatial_table[1 : LUT_SIZE - 1].float()
     lut[GRAPH_TOKEN_ID] = virtual_t[0].float()
-    return attn_bias_template.float().contiguous(), ids, lut
+    return lut
 
 
 def assemble_bias(template, ids, lut, double_add: bool) -> torch.Tensor:

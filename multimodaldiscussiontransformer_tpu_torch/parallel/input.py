@@ -127,3 +127,126 @@ def local_batch_with_global_indices(local: Dict[str, np.ndarray], host_index: in
             local["y_slot_mask"], local["y_node"] + host_index * cap_local, cap_local * host_count
         ).astype(local["y_node"].dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: one sp rank's share of a data rank's batch (JAX
+# ``parallel/mesh.py::batch_sharding`` with an sp axis, for a port whose
+# ranks hold their own arrays)
+# ---------------------------------------------------------------------------
+
+# the flat node capacity, cut into n contiguous blocks (the graph grid's
+# fields, attn_bias, spatial_pos, in_degree, out_degree and grid_mask, into
+# q-row strips of the padded S)
+SP_FLAT_FIELDS = ("input_ids", "token_type_ids", "attention_mask", "node_mask", "node_graph", "node_pos")
+
+
+def _padded(s: int, n: int) -> int:
+    return -(-s // n) * n
+
+
+def _sp_capacity(counts: Sequence[int], total: int, n: int) -> int:
+    """Per-rank capacity of a buffer of ``total`` slots whose entries go to
+    the rank holding their node (``counts`` per rank, over every batch of a
+    group): a multiple of the even share total/n that fits the fullest
+    rank, at least one share."""
+    if total % n:
+        raise ValueError(f"capacity {total} is not a multiple of sp={n}")
+    share = total // n
+    if share == 0:
+        return 0
+    return max(-(-max(counts, default=0) // share), 1) * share
+
+
+def _token_grid(a: np.ndarray, s_pad: int, fill) -> np.ndarray:
+    """(B, N[, N]) node-grid field -> (B, S'[, S']) on the token-prefixed,
+    padded axis: index 0 the graph token, 1 .. N the nodes, ``fill``
+    elsewhere."""
+    b, nmax = a.shape[0], a.shape[1]
+    shape = (b,) + (s_pad,) * (a.ndim - 1)
+    out = np.full(shape, fill, dtype=a.dtype)
+    out[(slice(None),) + (slice(1, nmax + 1),) * (a.ndim - 1)] = a
+    return out
+
+
+def sp_share(batch: Dict[str, np.ndarray], rank: int, size: int, stacked: bool = False) -> Dict[str, np.ndarray]:
+    """Sequence-parallel rank ``rank`` of ``size``'s share of one data
+    rank's collated batch (or, with ``stacked``, of a (k, ...)-stacked
+    group, every microbatch cut alike):
+    - the graph grid: S = Nmax + 1 (the graph token first) padded to S', a
+      multiple of ``size``; the rank keeps rows [rank c, (rank + 1) c) of
+      c = S'/size: ``attn_bias`` the (B, c, S') template strip (padded rows
+      and columns -inf: padded keys add nothing, padded rows are all
+      masked), ``spatial_pos`` the (B, c, S') strip of +1-shifted bucket ids
+      on the token-prefixed axis (0 on the token's row and column and on
+      padding), ``in_degree``, ``out_degree``, ``grid_mask`` (B, c) strips
+      of the token-prefixed axis (0 / False at the token);
+    - the flat node capacity C: block [rank C/size, (rank + 1) C/size);
+    - images and labels: those whose node is in the rank's block, in order,
+      with ``image_node`` / ``y_node`` re-indexed into the block (pads at
+      C/size). Their capacity is a multiple of the even share that fits the
+      fullest rank (the same on every rank of the group, which holds the
+      same batch);
+    - ``graph_mask`` (B,): which graphs are real (the whole grid_mask's
+      rows), added; per-graph fields as they are.
+    ``model(batch)`` on each rank's share, with the model laid out by
+    ``parallel/mesh.py::apply_sequence_parallel``, gives the rank's rows of
+    the one-process logits."""
+    if not stacked:
+        return {k: v[0] for k, v in sp_share({k: np.asarray(v)[None] for k, v in batch.items()}, rank, size, True).items()}
+    cap = batch["input_ids"].shape[1]
+    if cap % size:
+        raise ValueError(f"node capacity {cap} is not a multiple of sp={size}; collate with shard_multiple=sp")
+    block = cap // size
+    lo, hi = rank * block, (rank + 1) * block
+
+    def owner(node, mask):  # the sp rank of each entry's node (size for pads)
+        return np.where(mask, np.minimum(node // block, size), size)
+
+    img_owner = owner(batch["image_node"], batch["image_mask"])
+    icap = _sp_capacity([int((img_owner[i] == r).sum()) for i in range(len(img_owner)) for r in range(size)],
+                        batch["images"].shape[1], size)
+    node_task = batch["y_node"].shape[1] > 0
+    if node_task:
+        lab_owner = owner(batch["y_node"], batch["y_slot_mask"])
+        lcap = _sp_capacity([int((lab_owner[i] == r).sum()) for i in range(len(lab_owner)) for r in range(size)],
+                            batch["y"].shape[1], size)
+    s = batch["attn_bias"].shape[-1]
+    s_pad = _padded(s, size)
+    c = s_pad // size
+    rows = slice(rank * c, (rank + 1) * c)
+    out: Dict[str, np.ndarray] = {}
+    micro: List[Dict[str, np.ndarray]] = []
+    for i in range(batch["input_ids"].shape[0]):
+        mb = {k: v[i] for k, v in batch.items()}
+        own = {}
+        tpl = np.full((mb["attn_bias"].shape[0], s_pad, s_pad), -np.inf, dtype=mb["attn_bias"].dtype)
+        tpl[:, :s, :s] = mb["attn_bias"]
+        own["attn_bias"] = tpl[:, rows]
+        own["spatial_pos"] = _token_grid(mb["spatial_pos"], s_pad, 0)[:, rows]
+        for k in ("in_degree", "out_degree", "grid_mask"):
+            own[k] = _token_grid(mb[k], s_pad, 0 if k != "grid_mask" else False)[:, rows]
+        own["graph_mask"] = mb["grid_mask"].any(axis=1)
+        for k in SP_FLAT_FIELDS:
+            own[k] = mb[k][lo:hi]
+        keep = np.flatnonzero(img_owner[i] == rank)
+        images = np.zeros((icap,) + mb["images"].shape[1:], dtype=mb["images"].dtype)
+        images[: len(keep)] = mb["images"][keep]
+        own["images"] = images
+        own["image_mask"] = np.arange(icap) < len(keep)
+        image_node = np.full(icap, block, dtype=mb["image_node"].dtype)
+        image_node[: len(keep)] = mb["image_node"][keep] - lo
+        own["image_node"] = image_node
+        if node_task:
+            keep = np.flatnonzero(lab_owner[i] == rank)
+            y = np.zeros(lcap, dtype=mb["y"].dtype)
+            y[: len(keep)] = mb["y"][keep]
+            y_node = np.full(lcap, block, dtype=mb["y_node"].dtype)
+            y_node[: len(keep)] = mb["y_node"][keep] - lo
+            own.update(y=y, y_node=y_node, y_slot_mask=np.arange(lcap) < len(keep))
+        for k, v in mb.items():
+            own.setdefault(k, v)
+        micro.append(own)
+    for k in micro[0]:
+        out[k] = np.stack([m[k] for m in micro])
+    return out

@@ -1,12 +1,25 @@
 """The mesh of a run across ranks and the model's layout on it: the port's
 counterpart of the JAX package's ``parallel/mesh.py``.
 
-``make_mesh`` lays the ranks out as a ``([dcn,] dp, tp)`` device mesh
+``make_mesh`` lays the ranks out as a ``([dcn,] dp, tp[, sp])`` device mesh
 (``torch.distributed.device_mesh.init_device_mesh``), with JAX's size rules
 (``dp_size=-1`` takes the ranks left over; ``num_slices > 1`` adds the
-outermost ``dcn`` axis, dp then counts per slice). The batch shards over
-the data axes ``([dcn,] dp)`` (``data_axes``, ``data_parallel_size``).
-Sequence parallelism (an ``sp`` axis) is not ported yet.
+outermost ``dcn`` axis, dp then counts per slice; ``sp_size > 1`` adds the
+innermost ``sp`` axis). The batch shards over the data axes ``([dcn,] dp)``
+(``data_axes``, ``data_parallel_size``).
+
+Sequence parallelism (``sp``): the ranks of an sp group hold one data
+rank's batch, each its strip of the graph grid's node axis and its share of
+the flat node, image and label capacity (``parallel/input.py::sp_share``);
+the graph attention runs as a ring over the group (``ops/ring_attention.py``,
+``apply_sequence_parallel``). Parameters are replicated over sp, so the
+gradients, the sample size and the logging outputs are summed over the
+data axes and sp together (``data_group``: every rank of this rank's tp
+index), with one division by the global sample size. ``batch_group`` (the
+data axes alone, at this rank's tp and sp index) is the group that gathers
+per-graph rows (the contrastive embeddings). With fsdp, sp is a replicate
+dimension beside the dp shard dimension (HSDP's form). Under tp x sp the
+ring takes the rank's H/tp heads as it is.
 
 The layout reads JAX's ``param_sharding`` rules as they stand:
 - **tp** (``_TP_RULES``, over the port's parameter names, which are
@@ -56,6 +69,18 @@ GRAD_BUCKET = 16 * 1024 * 1024
 
 
 @dataclass(frozen=True)
+class SPInfo:
+    """A module's sequence-parallel group: this rank's strip ``rank`` of
+    ``size``, and ``shard``, its data-parallel shard (folded into the ring's
+    dropout seeds)."""
+
+    group: object
+    rank: int
+    size: int
+    shard: int = 0
+
+
+@dataclass(frozen=True)
 class TPInfo:
     """A module's tensor-parallel group: this rank's index among ``size``."""
 
@@ -74,7 +99,10 @@ class Mesh:
     """The ranks laid out on named axes: ``shape`` (axis -> size, outermost
     first), this rank's ``coords``, the torch ``DeviceMesh``, the groups the
     trainer reduces over (``data_group``: every rank of this rank's tp
-    index, across dcn and dp; ``tp_group``) and the mesh FSDP shards over."""
+    index, across dcn, dp and sp; ``tp_group``), the mesh FSDP shards over
+    (with sp: a function that builds it, on every rank), the ``sp_group``
+    (None without sp) and ``batch_group`` (the data axes at this rank's tp
+    and sp index: ``data_group`` without sp)."""
 
     shape: Dict[str, int]
     coords: Dict[str, int]
@@ -82,6 +110,8 @@ class Mesh:
     data_group: object
     tp_group: object
     fsdp_mesh: object
+    sp_group: object = None
+    batch_group: object = None
 
     @property
     def data_rank(self) -> int:
@@ -99,32 +129,52 @@ class Mesh:
     def tp_size(self) -> int:
         return self.shape[TP_AXIS]
 
+    @property
+    def sp_rank(self) -> int:
+        return self.coords.get(SP_AXIS, 0)
+
+    @property
+    def sp_size(self) -> int:
+        return self.shape.get(SP_AXIS, 1)
+
+    @property
+    def stream_rank(self) -> int:
+        """The index of this rank's dropout streams: (data rank, sp rank)
+        in row-major order (the data rank without sp)."""
+        return self.data_rank * self.sp_size + self.sp_rank
+
+    @property
+    def stream_size(self) -> int:
+        return self.data_size * self.sp_size
+
 
 def make_mesh(dp_size: int = -1, tp_size: int = 1, sp_size: int = 1, num_slices: int = 1,
               device_type: str = "cpu") -> Mesh:
-    """A ``([dcn,] dp, tp)`` mesh over the ranks of the default process
-    group (one rank, unstarted, when there is none), ranks in row-major
-    order. ``dp_size=-1`` uses the ranks left over (per slice when
-    ``num_slices > 1``). The mesh must use every rank."""
-    if sp_size > 1:
-        raise NotImplementedError("sequence parallelism (--sp-size > 1) comes with ROADMAP Queue 1 item 8b")
+    """A ``([dcn,] dp, tp[, sp])`` mesh over the ranks of the default
+    process group (one rank, unstarted, when there is none), ranks in
+    row-major order, sp innermost (JAX ``make_mesh``). ``dp_size=-1`` uses
+    the ranks left over (per slice when ``num_slices > 1``). The mesh must
+    use every rank."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if num_slices > 1 and world % num_slices:
         raise ValueError(f"{world} devices not divisible by num_slices={num_slices}")
     per_slice = world // max(num_slices, 1)
     if dp_size == -1:
-        if per_slice % tp_size:
+        if per_slice % (tp_size * sp_size):
             raise ValueError(f"{per_slice} devices not divisible by tp={tp_size} x sp={sp_size}")
-        dp_size = per_slice // tp_size
-    if dp_size * tp_size > per_slice:
-        raise ValueError(f"mesh {dp_size}x{tp_size}x{sp_size} needs {dp_size * tp_size} devices, have {per_slice}")
-    if dp_size * tp_size * max(num_slices, 1) != world:
+        dp_size = per_slice // (tp_size * sp_size)
+    need = dp_size * tp_size * sp_size
+    if need > per_slice:
+        raise ValueError(f"mesh {dp_size}x{tp_size}x{sp_size} needs {need} devices, have {per_slice}")
+    if need * max(num_slices, 1) != world:
         raise ValueError(
-            f"mesh {'%dx' % num_slices if num_slices > 1 else ''}{dp_size}x{tp_size} uses "
-            f"{dp_size * tp_size * max(num_slices, 1)} ranks; the process group has {world}"
+            f"mesh {'%dx' % num_slices if num_slices > 1 else ''}{dp_size}x{tp_size}x{sp_size} uses "
+            f"{need * max(num_slices, 1)} ranks; the process group has {world}"
         )
     shape = {DCN_AXIS: num_slices} if num_slices > 1 else {}
     shape.update({DP_AXIS: dp_size, TP_AXIS: tp_size})
+    if sp_size > 1:
+        shape[SP_AXIS] = sp_size
     rank = dist.get_rank() if dist.is_initialized() else 0
     coords, rest = {}, rank
     for axis in reversed(list(shape)):
@@ -133,14 +183,35 @@ def make_mesh(dp_size: int = -1, tp_size: int = 1, sp_size: int = 1, num_slices:
     coords = {axis: coords[axis] for axis in shape}
     if not dist.is_initialized():
         return Mesh(shape, coords, None, None, None, None)
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
     dm = init_device_mesh(device_type, tuple(shape.values()), mesh_dim_names=tuple(shape))
-    # the joint data group: every rank with this rank's tp index
-    groups = [[r for r in range(world) if r % tp_size == t] for t in range(tp_size)]
-    data_group = dm.get_group(DP_AXIS) if num_slices <= 1 else dist.new_subgroups_by_enumeration(groups)[0]
-    fsdp_mesh = dm[(DCN_AXIS, DP_AXIS)] if num_slices > 1 else dm[DP_AXIS]
-    return Mesh(shape, coords, dm, data_group, dm.get_group(TP_AXIS), fsdp_mesh)
+    if sp_size == 1:
+        # the joint data group: every rank with this rank's tp index
+        groups = [[r for r in range(world) if r % tp_size == t] for t in range(tp_size)]
+        data_group = dm.get_group(DP_AXIS) if num_slices <= 1 else dist.new_subgroups_by_enumeration(groups)[0]
+        fsdp_mesh = dm[(DCN_AXIS, DP_AXIS)] if num_slices > 1 else dm[DP_AXIS]
+        return Mesh(shape, coords, dm, data_group, dm.get_group(TP_AXIS), fsdp_mesh, None, data_group)
+    grid = torch.arange(world).view(tuple(shape.values()))
+    dims = list(shape)
+    tp_last = grid.movedim(dims.index(TP_AXIS), -1)  # (..., tp)
+    # every rank of one tp index, in rank order (dcn, dp, sp): gradients and logs
+    data_group = dist.new_subgroups_by_enumeration(
+        [tp_last[..., t].flatten().tolist() for t in range(tp_size)])[0]
+    # every rank of one (tp, sp) index, in rank order (dcn, dp): per-graph rows
+    by_tp_sp = grid.movedim((dims.index(TP_AXIS), dims.index(SP_AXIS)), (-2, -1))
+    batch_group = dist.new_subgroups_by_enumeration(
+        [by_tp_sp[..., t, r].flatten().tolist() for t in range(tp_size) for r in range(sp_size)])[0]
+    # FSDP's (replicate, shard) mesh: (dcn x sp) replicate, dp shards, one
+    # per tp index; built when apply_fsdp asks for it (on every rank)
+    fsdp_grid = grid.permute(*[dims.index(a) for a in (TP_AXIS,) + ((DCN_AXIS,) if num_slices > 1 else ())
+                               + (SP_AXIS, DP_AXIS)]).reshape(tp_size, -1, dp_size)
+
+    def fsdp_mesh():
+        meshes = [DeviceMesh(device_type, fsdp_grid[t], mesh_dim_names=("replicate", "shard")) for t in range(tp_size)]
+        return meshes[coords[TP_AXIS]]
+
+    return Mesh(shape, coords, dm, data_group, dm.get_group(TP_AXIS), fsdp_mesh, dm.get_group(SP_AXIS), batch_group)
 
 
 def data_axes(mesh: Mesh) -> tuple:
@@ -258,9 +329,31 @@ def apply_tensor_parallel(model: nn.Module, mesh: Mesh) -> Dict[str, int]:
     return plan
 
 
+def apply_sequence_parallel(model: nn.Module, mesh: Mesh) -> None:
+    """Lay ``model`` out on ``mesh``'s sp axis in place: the encoder holds
+    strips of the graph grid and every graph attention runs as a ring over
+    the sp group. The model must be built with ``sequence_parallel`` and the
+    compact bias (``use_pallas_attention``): the ring takes the compact bias
+    only, as JAX's does."""
+    from multimodaldiscussiontransformer_tpu_torch.models.graphormer import BiasedMultiheadAttention
+    from multimodaldiscussiontransformer_tpu_torch.models.mdt import MultiGraphormerGraphEncoder
+
+    if mesh.sp_size <= 1:
+        return
+    cfg = model.config
+    if not (cfg.sequence_parallel and cfg.use_pallas_attention):
+        raise ValueError("an sp axis needs a model with sequence_parallel=True and use_pallas_attention=True "
+                         "(the ring runs on the compact bias); the launcher's --sp-size sets the first")
+    info = SPInfo(mesh.sp_group, mesh.sp_rank, mesh.sp_size, mesh.data_rank)
+    for mod in model.modules():
+        if isinstance(mod, (MultiGraphormerGraphEncoder, BiasedMultiheadAttention)):
+            mod.sp = info
+
+
 def apply_fsdp(model: nn.Module, mesh: Mesh) -> nn.Module:
     """FSDP2 ``fully_shard`` of each transformer layer and of the root over
-    ``mesh.fsdp_mesh`` (dp, or (dcn, dp): HSDP), gradients summed."""
+    ``mesh.fsdp_mesh`` (dp; (dcn, dp) or (dcn x sp, dp): HSDP), gradients
+    summed."""
     from torch.distributed.fsdp import FSDPModule, fully_shard
 
     from multimodaldiscussiontransformer_tpu_torch.models.bert import BertLayer
@@ -268,6 +361,8 @@ def apply_fsdp(model: nn.Module, mesh: Mesh) -> nn.Module:
     from multimodaldiscussiontransformer_tpu_torch.models.vit import ViTLayer
 
     layers = [m for m in model.modules() if isinstance(m, (BertLayer, ViTLayer, GraphormerGraphEncoderLayer))]
+    if callable(mesh.fsdp_mesh):  # built on first use (an sp mesh's)
+        mesh.fsdp_mesh = mesh.fsdp_mesh()
     for layer in layers:
         fully_shard(layer, mesh=mesh.fsdp_mesh)
     fully_shard(model, mesh=mesh.fsdp_mesh)
@@ -362,7 +457,7 @@ class Layout:
         return total.sqrt() if total is not None else torch.zeros(())
 
     def all_reduce_grads(self, params: Iterable[torch.Tensor]) -> None:
-        """Sum the gradients over the data axes (dp without fsdp): flat
+        """Sum the gradients over the data axes and sp (without fsdp): flat
         buckets of ``GRAD_BUCKET`` elements per dtype, one all_reduce each."""
         grads = [p.grad for p in params if p.grad is not None]
         by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}

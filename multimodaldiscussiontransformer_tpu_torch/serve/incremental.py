@@ -118,11 +118,20 @@ def resolve_device(device) -> torch.device:
 
 
 class DiscussionScorer:
-    """Scores (and re-scores) discussions with an mDT model on one device.
+    """Scores (and re-scores) discussions with an mDT model on one device,
+    or across the ranks of a ``mesh``.
 
     Request batches are padded up the ``batch_buckets`` ladder (``"pow2"``,
     an ascending tuple, or ``None``) with the collator's inert zero-node pad
-    graphs; real items' probabilities do not change."""
+    graphs; real items' probabilities do not change.
+
+    ``mesh`` (``parallel/mesh.py::make_mesh``, JAX's ``mesh`` argument):
+    every rank calls ``score_items`` with the same items. With an sp axis
+    and a model built with ``sequence_parallel`` the node axis of each
+    request and its O(S^2) bias are cut over the sp group (the graph
+    attention a ring, ``ops/ring_attention.py``), so a discussion past one
+    card's memory scores through the same call; with a tp axis each rank
+    runs its heads. Every rank returns the whole probabilities."""
 
     def __init__(
         self,
@@ -132,9 +141,19 @@ class DiscussionScorer:
         task_cfg: Optional[TaskConfig] = None,
         image_shape=(3, 224, 224),
         batch_buckets="pow2",
+        mesh=None,
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.mesh = mesh
+        if mesh is not None:
+            from multimodaldiscussiontransformer_tpu_torch.parallel.mesh import (
+                apply_sequence_parallel,
+                apply_tensor_parallel,
+            )
+
+            apply_tensor_parallel(self.model, mesh)
+            apply_sequence_parallel(self.model, mesh)
         self.data_cfg = data_cfg or DataConfig(batch_size=1)
         self.task_cfg = task_cfg or TaskConfig()
         self.image_shape = image_shape
@@ -157,7 +176,8 @@ class DiscussionScorer:
         by ``tools/orbax_to_npz.py`` (an ``.npz``). Params in the scan
         layout are unstacked. The
         model is rebuilt from ``model_cfg`` (``ModelConfig()`` by default)
-        on ``device`` (the card unless ``"cpu"`` is asked for)."""
+        on ``device`` (the card unless ``"cpu"`` is asked for); ``kw`` as the
+        constructor's (``mesh`` included)."""
         from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
         from multimodaldiscussiontransformer_tpu_torch.utils.checkpoints import Checkpointer, is_flax_npz, load_flax_npz
         from multimodaldiscussiontransformer_tpu_torch.utils.scan_params import unrolled_state_dict
@@ -191,14 +211,27 @@ class DiscussionScorer:
             image_capacity_buckets=self.data_cfg.image_capacity_buckets,
             label_capacity_buckets=self.data_cfg.label_capacity_buckets,
             image_shape=self.image_shape,
+            shard_multiple=self._sp_size(),
         )
+
+    def _sp_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.sp_size
 
     def score_items(self, items: Sequence[GraphItem]) -> List[np.ndarray]:
         """Per-node class probabilities for each discussion item."""
         items = list(items)
-        batch = self.collate(items)
+        host = self.collate(items).asdict()
+        sp = self._sp_size()
+        if sp > 1:  # this rank's share; its logits are its block of the node slots
+            from multimodaldiscussiontransformer_tpu_torch.parallel.input import sp_share
+
+            host = sp_share(host, self.mesh.sp_rank, sp)
         with torch.no_grad():
-            logits = self.model(to_tensors(batch, self.device)).logits
+            logits = self.model(to_tensors(host, self.device)).logits
+            if sp > 1:
+                from multimodaldiscussiontransformer_tpu_torch.parallel.comm import gather_dim
+
+                logits = gather_dim(logits.float().contiguous(), 0, self.mesh.sp_group)
         logits = logits.float().cpu().numpy()
         probs = np.exp(logits - logits.max(-1, keepdims=True))
         probs /= probs.sum(-1, keepdims=True)

@@ -41,8 +41,13 @@ Across ranks, one process per card (FairSeq's layout; in the JAX launcher
         --distributed-rank R --distributed-init-method tcp://HOST:PORT --synthetic ...   # once per rank
 
 ``--batch-size`` is per data-parallel replica (the global batch is
-batch-size x dp); ``--dp-size``, ``--tp-size``, ``--num-slices`` and
-``--fsdp`` lay the ranks out (``parallel/mesh.py``). NCCL carries a
+batch-size x dp); ``--dp-size``, ``--tp-size``, ``--sp-size``,
+``--num-slices`` and ``--fsdp`` lay the ranks out (``parallel/mesh.py``).
+``--sp-size N`` (which turns ``sequence_parallel`` on, as the JAX launcher
+does) cuts every discussion's node axis into N strips, one per rank of an
+sp group, with the graph attention a ring over the group: on the CPU, e.g.
+``--device cpu --distributed-backend gloo --distributed-world-size 2
+--sp-size 2`` once per rank. NCCL carries a
 ``--device cuda`` run, gloo a ``--device cpu`` one; ranks that share one
 card pass ``--distributed-backend gloo``. Rank 0 logs, writes the metrics,
 the checkpoints and the predictions; a SIGTERM to any rank stops every rank
@@ -67,10 +72,6 @@ UNPORTED = {
         lambda a: a.hf_init,
         "the pretrained BERT/ViT weights, once they are in the repository (ROADMAP Queue 1 item 4); "
         "the state-dict mapping they go through exists (utils/hf_import.py)",
-    ),
-    "--sp-size > 1": (
-        lambda a: a.sp_size > 1,
-        "sequence parallelism: the ring attention as a custom autograd P2P op (ROADMAP Queue 1 item 8b)",
     ),
 }
 
@@ -152,7 +153,8 @@ def build_parser() -> argparse.ArgumentParser:
     # parallelism
     p.add_argument("--dp-size", type=int, default=-1, help="data-parallel ranks (per slice); -1: the ranks left over")
     p.add_argument("--tp-size", type=int, default=1, help="tensor-parallel ranks (attention heads and FFN split)")
-    p.add_argument("--sp-size", type=int, default=1, help="sequence-parallel ranks (not ported yet)")
+    p.add_argument("--sp-size", type=int, default=1,
+                   help="sequence-parallel ranks: the graph grid's node axis cut into strips, ring attention")
     p.add_argument("--fsdp", action="store_true", default=False,
                    help="shard params, gradients and optimizer state over dp (FSDP2; HSDP with --num-slices)")
     p.add_argument("--distributed-world-size", type=int, default=1,

@@ -49,6 +49,17 @@ the update JAX computes over the global batch of ``batch_size`` x dp:
   all-reduce per update), so that every rank saves at the same update;
 - dropout masks differ across data-parallel ranks (the generators are
   seeded from (seed, data rank)).
+Under sequence parallelism (``cfg.sp_size > 1``, a model with
+``sequence_parallel``) the ranks of an sp group take one data rank's batch:
+each stages its share (``parallel/input.py::sp_share``: its strip of the
+graph grid, its block of the node slots, the images and labels of its
+nodes; ``local``), the model runs the graph attention as a ring over the
+group (``parallel/mesh.py::apply_sequence_parallel``), the gradients and
+the logging outputs are summed over the data axes and sp, and the
+contrastive rows count on sp rank 0 only. Dropout generators are seeded
+from (seed, data rank, sp rank) (``Mesh.stream_rank``), the prediction rows
+are gathered over the data axes and sp (the one-device order), and params
+being replicated over sp, checkpoints hold them once.
 Without a process group there is no mesh: one process drives one device.
 
 ``fit``, ``evaluate`` and ``predict`` take their batches through
@@ -86,7 +97,14 @@ from multimodaldiscussiontransformer_tpu_torch.data.worker_loader import worker_
 from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import dropout_rngs, fold_seed
 from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
 from multimodaldiscussiontransformer_tpu_torch.parallel.comm import all_reduce_, any_rank
-from multimodaldiscussiontransformer_tpu_torch.parallel.mesh import Layout, apply_fsdp, apply_tensor_parallel, make_mesh
+from multimodaldiscussiontransformer_tpu_torch.parallel.input import sp_share
+from multimodaldiscussiontransformer_tpu_torch.parallel.mesh import (
+    Layout,
+    apply_fsdp,
+    apply_sequence_parallel,
+    apply_tensor_parallel,
+    make_mesh,
+)
 from multimodaldiscussiontransformer_tpu_torch.serve.incremental import resolve_device
 from multimodaldiscussiontransformer_tpu_torch.tasks.task import build_criterion
 from multimodaldiscussiontransformer_tpu_torch.train.metrics import MetricAccumulator, MetricsWriter
@@ -140,10 +158,11 @@ def resume_position(step: int, epoch: int, micro_per_epoch: int, k: int) -> Tupl
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for settings the port's trainer lacks:
-    sequence parallelism."""
-    if cfg.sp_size > 1:
-        raise NotImplementedError("sequence parallelism (sp_size > 1) comes with ROADMAP Queue 1 item 8b")
+    """Raise ``ValueError`` for an sp axis without a sequence-parallel model
+    on the compact bias (the ring runs on it, as JAX's does)."""
+    if cfg.sp_size > 1 and not (cfg.model.sequence_parallel and cfg.model.use_pallas_attention):
+        raise ValueError("sp_size > 1 needs a model with sequence_parallel=True and use_pallas_attention=True "
+                         "(the launcher's --sp-size sets the first)")
 
 
 def _null_log(message: str) -> None:
@@ -181,17 +200,21 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         mesh = None
-        if dist.is_initialized() or cfg.dp_size not in (-1, 1) or cfg.tp_size > 1 or cfg.num_slices > 1 or cfg.fsdp:
+        if (dist.is_initialized() or cfg.dp_size not in (-1, 1) or cfg.tp_size > 1 or cfg.sp_size > 1
+                or cfg.num_slices > 1 or cfg.fsdp):
             if cfg.fsdp and not dist.is_initialized():
                 raise ValueError("fsdp needs a started process group (parallel/distributed.py::initialize)")
             mesh = make_mesh(cfg.dp_size, cfg.tp_size, cfg.sp_size, cfg.num_slices, self.device.type)
         self.mesh = mesh
         self.dp = mesh.data_size if mesh is not None else 1
+        self.sp = mesh.sp_size if mesh is not None else 1
         self.is_main = not dist.is_initialized() or dist.get_rank() == 0
         self.model = model
         self.criterion = criterion if criterion is not None else build_criterion(cfg)
         if mesh is not None and self.dp > 1 and hasattr(self.criterion, "data_group"):
-            self.criterion.data_group = mesh.data_group  # the contrastive matrix over the global batch
+            self.criterion.data_group = mesh.batch_group  # the contrastive matrix over the global batch
+        if self.sp > 1 and hasattr(self.criterion, "replica"):
+            self.criterion.replica = mesh.sp_rank != 0  # per-graph rows count on sp rank 0
         self.image_shape = image_shape
         # --batch-size is per data-parallel replica (JAX train/trainer.py:84-98)
         if cfg.data.batch_size_is_per_replica:
@@ -232,12 +255,13 @@ class Trainer:
         layout = None
         if self.mesh is not None:
             layout = Layout(self.mesh, apply_tensor_parallel(model, self.mesh), self.cfg.fsdp)
+            apply_sequence_parallel(model, self.mesh)
             if self.cfg.fsdp:
                 apply_fsdp(model, self.mesh)
             trainable = [p for p in model.parameters() if p.requires_grad]
-        # dropout streams differ across data-parallel ranks (rank 0 keeps
-        # the one-device stream)
-        rank = self.mesh.data_rank if self.mesh is not None else 0
+        # dropout streams differ across data-parallel and sp ranks (rank 0
+        # keeps the one-device stream)
+        rank = self.mesh.stream_rank if self.mesh is not None else 0
         if rank:
             host.manual_seed(fold_seed(seed, rank))
         return TrainState(
@@ -268,8 +292,10 @@ class Trainer:
         """One update from a (k, ...)-stacked group (numpy arrays, or
         tensors already on the device); the summed logging outputs of its
         microbatches plus ``gnorm`` (and, with ``return_grads``, ``grads``:
-        the normalized gradients by parameter name)."""
+        the normalized gradients by parameter name). Under sp a numpy group
+        is the data rank's, of which the rank takes its share."""
         model, opt, layout = state.model, state.optimizer, state.layout
+        group = self.local(group, stacked=True)
         k = int(group["idx"].shape[0])
         opt.zero_grad(set_to_none=True)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -323,6 +349,7 @@ class Trainer:
         microbatch's logging outputs and ``gnorm``, the norm of its own
         normalized gradient."""
         model, k, layout = state.model, self.cfg.optim.update_freq, state.layout
+        batch = self.local(batch)
         state.optimizer.zero_grad(set_to_none=True)
         with dropout_rngs(state.host_rng, state.device_rng), profiling.named_scope("microbatch"):
             b = to_tensors(batch, self.device)
@@ -350,6 +377,15 @@ class Trainer:
         return logs
 
     # -- across ranks ------------------------------------------------------
+
+    def local(self, host: Dict[str, Any], stacked: bool = False) -> Dict[str, Any]:
+        """This rank's part of a data rank's host batch (or, ``stacked``,
+        group): its sp share (``parallel/input.py::sp_share``) under
+        sequence parallelism; without sp, or for tensors already staged,
+        ``host`` itself."""
+        if self.sp <= 1 or not isinstance(host.get("idx"), np.ndarray):
+            return host
+        return sp_share(host, self.mesh.sp_rank, self.sp, stacked)
 
     def _sum_over_data(self, total: torch.Tensor, sums: Dict[str, torch.Tensor]):
         """(total, sums) summed over the data axes: one all-reduce."""
@@ -383,7 +419,9 @@ class Trainer:
         ``data.num_workers > 0``: the same batches in the same order."""
         make = worker_batches if self.cfg.data.num_workers > 0 else iterate_batches
         if self.dp > 1:  # this data-parallel rank's slice of every global batch
-            kw.update(shard_multiple=self.dp, host_index=self.mesh.data_rank, host_count=self.dp)
+            kw.update(host_index=self.mesh.data_rank, host_count=self.dp)
+        if self.dp > 1 or self.sp > 1:  # capacities that every data and sp rank's share divides
+            kw.update(shard_multiple=self.dp * self.sp)
         return make(dataset, idx, self.cfg.data, self.cfg.task_cfg, image_shape=self.image_shape,
                     batch_size=self.global_batch_size, contrastive=self.contrastive, **kw)
 
@@ -411,7 +449,8 @@ class Trainer:
         a ragged last batch count nowhere (the contrastive criterion masks
         them by ``grid_mask``)."""
         acc = MetricAccumulator(self.criterion.reduce_metrics)
-        with torch.no_grad(), self.prefetch(self.eval_batches(dataset, split), lambda b: self.stage(b.asdict())) as staged:
+        with torch.no_grad(), self.prefetch(self.eval_batches(dataset, split),
+                                            lambda b: self.stage(self.local(b.asdict()))) as staged:
             for item in staged:
                 batch = item.ready()
                 _, _, logs = self.criterion(state.model(batch, deterministic=True), batch)
@@ -437,7 +476,7 @@ class Trainer:
         num_classes: Optional[int] = None
 
         def put(b):
-            host = b.asdict()
+            host = self.local(b.asdict())
             return host, self.stage(host)
 
         with torch.no_grad(), self.prefetch(self.eval_batches(dataset, split), put) as staged:
@@ -469,7 +508,7 @@ class Trainer:
                     parts[f"prob_{k}"].append(prob[:, k])
         if num_classes is None:  # empty split
             return {key: np.asarray([]) for key in ("graph_idx", "node", "label", "labeled", "pred")}
-        if self.dp > 1:
+        if self.dp > 1 or self.sp > 1:  # rank by rank: data ranks, then sp ranks within each
             parts = _gather_batches(parts, self.mesh.data_group)
         return {key: np.concatenate(v) for key, v in parts.items()}
 
@@ -506,7 +545,8 @@ class Trainer:
         def graphs(host) -> int:  # the global batch's real graphs
             return int(np.asarray(host["nsamples"]).sum())
 
-        with self.prefetch(itertools.islice(items, skip, None), lambda h: (self.stage(h), graphs(h))) as staged:
+        with self.prefetch(itertools.islice(items, skip, None),
+                           lambda h: (self.stage(self.local(h, stacked=not self.multi_steps)), graphs(h))) as staged:
             for item, n in staged:
                 self.input_waits.append(staged.waits[-1])
                 yield step(state, item.ready()), n

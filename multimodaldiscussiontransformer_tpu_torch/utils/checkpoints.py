@@ -60,9 +60,10 @@ checkpoint of any world size and layout restores into any other, and into
 ``DiscussionScorer.from_checkpoint``: every rank gathers the whole params,
 AdamW moments and MultiSteps accumulator (``parallel/mesh.py::Layout``,
 collectively), and only rank 0's ``Checkpointer`` (``writer``) writes them,
-on its writer thread. ``data_rank_rngs`` holds every data-parallel rank's
-dropout generators; a rank that finds no entry of its own (another world
-size) derives its streams from rank 0's. Every rank restores; averaging,
+on its writer thread. ``data_rank_rngs`` holds every data-parallel (and
+sp) rank's dropout generators; a rank that finds no entry of its own
+(another world size) derives its streams from rank 0's. Params are
+replicated over sp, so an sp run's checkpoint is one process's. Every rank restores; averaging,
 keep-K and the best store are rank 0's.
 """
 
@@ -132,13 +133,13 @@ def _full_optimizer_state(state) -> Dict[str, Any]:
 
 
 def _rank_rngs(state) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Every data-parallel rank's (host, device) generator states, in data
-    rank order (collective over every rank)."""
+    """Every data-parallel (and sp) rank's (host, device) generator states,
+    in ``Mesh.stream_rank`` order (collective over every rank)."""
     import torch.distributed as dist
 
     mesh = state.layout.mesh
     every: List[Any] = [None] * dist.get_world_size()
-    dist.all_gather_object(every, (mesh.data_rank, mesh.tp_rank, state.host_rng.get_state(), state.device_rng.get_state()))
+    dist.all_gather_object(every, (mesh.stream_rank, mesh.tp_rank, state.host_rng.get_state(), state.device_rng.get_state()))
     return [(host, dev) for _, tp, host, dev in sorted(every, key=lambda e: e[0]) if tp == 0]
 
 
@@ -555,13 +556,13 @@ def _local_optimizer_state(state, sd: Dict[str, Any]) -> Dict[str, Any]:
 
 def _restore_rngs(state, restored: Dict[str, Any]) -> None:
     """This rank's dropout generators: its own saved entry, else (another
-    data-parallel degree, or a one-device checkpoint on a data rank > 0)
-    rank 0's states, from which a data rank > 0 draws a seed folded with
+    data-parallel or sp degree, or a one-device checkpoint on a rank > 0)
+    rank 0's states, from which a stream rank > 0 draws a seed folded with
     its rank."""
     from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import fold_seed
 
     mesh = state.layout.mesh if state.layout is not None else None
-    rank, size = (mesh.data_rank, mesh.data_size) if mesh is not None else (0, 1)
+    rank, size = (mesh.stream_rank, mesh.stream_size) if mesh is not None else (0, 1)
     saved = restored.get("data_rank_rngs")
     if saved is not None and len(saved) == size:
         state.host_rng.set_state(saved[rank][0])

@@ -322,13 +322,28 @@ def test_init_is_seeded():
 @pytest.mark.parametrize(
     "override",
     [
-        {"sequence_parallel": True},
+        {"param_dtype": "float16"},
         {"dtype": "float16"},
     ],
 )
 def test_unsupported_settings_raise(override):
+    """Dtypes the port lacks raise; ``sequence_parallel`` builds (its ring
+    runs once the model is laid out on an sp group:
+    ``test_sequence_parallel_without_an_sp_group_is_the_one_device_model``)."""
     with pytest.raises(NotImplementedError):
         MDTModel(tiny_model_config(**override))
+
+
+def test_sequence_parallel_without_an_sp_group_is_the_one_device_model(models):
+    """``sequence_parallel=True`` on a model that no sp group lays out runs
+    the one-device path (JAX without an sp axis): the same logits and
+    global embedding, bit for bit."""
+    _, port = models
+    sp = MDTModel(tiny_model_config(sequence_parallel=True))
+    sp.load_state_dict(port.state_dict())
+    _, pb = batch_pair(3, num_graphs=2, image_prob=0.5)
+    a, b = _port_forward(port, pb), _port_forward(sp.eval(), pb)
+    assert torch.equal(a.logits, b.logits) and torch.equal(a.global_embedding, b.global_embedding)
 
 
 def test_config_copy_matches_jax():

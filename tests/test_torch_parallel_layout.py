@@ -149,8 +149,19 @@ def test_mesh_size_errors(fake_group, kw):
 
 
 def test_sequence_parallel_mesh_is_not_ported(fake_group):
-    with pytest.raises(NotImplementedError, match="8b"):
-        pmesh.make_mesh(tp_size=2, sp_size=2)
+    """The sp axis is ported: on 8 ranks ``make_mesh(tp_size=2,
+    sp_size=2)`` is JAX's (dp 2, tp 2, sp 2) with sp innermost, its sp,
+    data (dp x sp at one tp index) and batch (dp at one tp and sp index)
+    groups of the right sizes; a layout JAX refuses raises ValueError."""
+    mesh = pmesh.make_mesh(tp_size=2, sp_size=2)
+    jm = jmesh.make_mesh(tp_size=2, sp_size=2, devices=jax.devices()[:8])
+    assert mesh.shape == dict(jm.shape) == {"dp": 2, "tp": 2, "sp": 2}
+    rank = dist.get_rank()
+    assert mesh.coords == {"dp": rank // 4, "tp": rank // 2 % 2, "sp": rank % 2}
+    assert dist.get_world_size(mesh.sp_group) == 2 and dist.get_world_size(mesh.data_group) == 4
+    assert dist.get_world_size(mesh.batch_group) == 2 and mesh.stream_rank == mesh.data_rank * 2 + mesh.sp_rank
+    with pytest.raises(ValueError):
+        pmesh.make_mesh(tp_size=2, sp_size=3)
 
 
 def _jax_tp_dims(model, scan: bool):

@@ -248,10 +248,16 @@ def test_fit_and_evaluate(tmp_path):
     [dict(sp_size=2), dict(sp_size=2, dp_size=2), dict(sp_size=4, fsdp=True)],
 )
 def test_unsupported_trainer_settings_raise(override):
-    """Sequence parallelism is the one setting the trainer lacks (dp, tp
-    and fsdp run across ranks: tests/test_torch_parallel_*.py)."""
-    with pytest.raises(NotImplementedError):
-        Trainer(train_cfg(pconfig, **override), image_shape=IMG, device="cpu")
+    """Sequence parallelism runs across ranks
+    (tests/test_torch_sequence_parallel.py); one process with sp_size > 1
+    raises ValueError, for too few ranks (fsdp: for no process group), and
+    so does an sp axis without a sequence-parallel model."""
+    cfg = train_cfg(pconfig, **override)
+    with pytest.raises(ValueError, match="sequence_parallel=True"):
+        Trainer(cfg, image_shape=IMG, device="cpu")
+    cfg = cfg.replace(model=cfg.model.replace(sequence_parallel=True))
+    with pytest.raises(ValueError, match="needs|not divisible|process group"):
+        Trainer(cfg, image_shape=IMG, device="cpu")
 
 
 def test_launch_main_tiny_on_cpu(tmp_path):
@@ -266,7 +272,13 @@ def test_launch_main_tiny_on_cpu(tmp_path):
     [["--hf-init"], ["--sp-size", "2"]],
 )
 def test_launch_rejects_unported_flags(flags, capsys):
+    """``--hf-init`` exits 2 (not ported yet); ``--sp-size 2`` is ported,
+    and one process is too few ranks for it (ValueError)."""
     argv = ["--synthetic", "--tiny", "--device", "cpu", "--no-save"] + flags
+    if flags[0] == "--sp-size":
+        with pytest.raises(ValueError, match="not divisible by tp=1 x sp=2"):
+            launch.main(argv)
+        return
     with pytest.raises(SystemExit) as e:
         launch.main(argv)
     assert e.value.code == 2

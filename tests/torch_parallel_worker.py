@@ -1,10 +1,12 @@
-"""One rank of the gloo groups behind ``tests/test_torch_parallel_train.py``
-and ``tests/test_torch_parallel_four.py``.
+"""One rank of the gloo groups behind ``tests/test_torch_parallel_train.py``,
+``tests/test_torch_parallel_four.py`` and
+``tests/test_torch_sequence_parallel.py``.
 
-Run as ``python tests/torch_parallel_worker.py RANK WORLD PORT OUT_DIR``:
-starts a gloo process group on 127.0.0.1:PORT, runs every scenario of
-``SCENARIOS`` (WORLD 2) or every layout of ``FOUR_RANK_LAYOUTS`` (WORLD 4)
-in order (each over a mesh of its own) and writes what each
+Run as ``python tests/torch_parallel_worker.py RANK WORLD PORT OUT_DIR
+[SUITE]``: starts a gloo process group on 127.0.0.1:PORT, runs every
+scenario of ``SCENARIOS`` (WORLD 2), of ``SP_SCENARIOS`` (WORLD 2, SUITE
+``sp``) or every layout of ``FOUR_RANK_LAYOUTS`` and the 4-rank ring
+(WORLD 4) in order (each over a mesh of its own) and writes what each
 returned (or the error it raised) to ``OUT_DIR/rank<RANK>.pt``. The test
 process compares those results with one-process runs and with the JAX
 package. Imports torch and the port only.
@@ -35,9 +37,12 @@ from multimodaldiscussiontransformer_tpu_torch.models.fast_dropout import (  # n
     dropout_rngs,
     fast_dropout,
 )
+from multimodaldiscussiontransformer_tpu_torch.ops import ring_attention as ra  # noqa: E402
 from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta  # noqa: E402
-from multimodaldiscussiontransformer_tpu_torch.parallel.comm import gather_dim  # noqa: E402
+from multimodaldiscussiontransformer_tpu_torch.parallel import comm  # noqa: E402
+from multimodaldiscussiontransformer_tpu_torch.parallel.comm import gather_dim, ring_shift  # noqa: E402
 from multimodaldiscussiontransformer_tpu_torch.parallel.mesh import TPInfo, make_mesh  # noqa: E402
+from multimodaldiscussiontransformer_tpu_torch.serve.incremental import DiscussionScorer  # noqa: E402
 from multimodaldiscussiontransformer_tpu_torch.train.trainer import Trainer, write_predictions  # noqa: E402
 from multimodaldiscussiontransformer_tpu_torch.utils.checkpoints import (  # noqa: E402
     Checkpointer,
@@ -69,6 +74,12 @@ def train_cfg(mod, batch_size: int = 4, **kw):
     )
     base.update(kw)
     return mod.TrainConfig(**base)
+
+
+def sp_cfg(cfg):
+    """``cfg`` with the model's ``sequence_parallel`` on (what ``--sp-size``
+    does in the launcher)."""
+    return cfg.replace(model=cfg.model.replace(sequence_parallel=True))
 
 
 def contrastive_cfg(mod, batch_size: int = 4, **kw):
@@ -210,6 +221,137 @@ def scenario_dropout(out):
     return res
 
 
+# -- sequence parallelism (2 ranks, one sp group) ------------------------------
+
+
+def ring_inputs(s: int = 13, b: int = 2, h: int = 3, dh: int = 8):
+    """Seeded compact-bias inputs of one (B, H, S, dh) attention, a
+    cotangent, and S's padded size for 2 and 4 ranks: real keys up to
+    column 10 (column 0 open), one fully masked row."""
+    g = torch.Generator().manual_seed(5)
+    q, k, v, cot = (torch.randn(b, h, s, dh, generator=g) for _ in range(4))
+    template = torch.zeros(b, s, s)
+    template[:, :, 10:] = float("-inf")
+    template[1, 4, :] = float("-inf")
+    ids = torch.randint(0, ta.LUT_SIZE, (b, s, s), generator=g, dtype=torch.int32)
+    lut = torch.randn(ta.LUT_SIZE, h, generator=g)
+    return q, k, v, template, ids, lut, cot
+
+
+def distributed_ring(group=None, rate: float = 0.0):
+    """This rank's strip of the ring over ``group`` on ``ring_inputs``
+    padded to a multiple of the group size: the output and the gradients of
+    q, k, v (its strip) and of the LUT (its tiles' sum), and the whole
+    output of ``ring_tree_attention_dispatch``."""
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    q, k, v, template, ids, lut, cot = ring_inputs()
+    qp, kp, vp, tpl, idp = ra.pad_compact(q, k, v, template, ids, n)
+    cp = torch.nn.functional.pad(cot, (0, 0, 0, qp.shape[2] - q.shape[2]))
+    c = qp.shape[2] // n
+    rows = slice(rank * c, (rank + 1) * c)
+    leaves = [x[:, :, rows].clone().requires_grad_(True) for x in (qp, kp, vp)]
+    lut_leaf = lut.clone().requires_grad_(True)
+    seed = 77 if rate else None
+    out = ra.ring_tree_attention_local(*leaves, tpl[:, rows], idp[:, rows], lut_leaf, group, rate=rate, seed=seed,
+                                       shard=1)
+    out.backward(cp[:, :, rows])
+    whole = ra.ring_tree_attention_dispatch(q, k, v, template, ids, lut, group, rate=rate, seed=seed, shard=1)
+    return {"out": out.detach(), "dq": leaves[0].grad, "dk": leaves[1].grad, "dv": leaves[2].grad,
+            "dlut": lut_leaf.grad, "whole": whole}
+
+
+def scenario_sp_ring(out):
+    res = {f"rate{r}": distributed_ring(rate=r) for r in (0.0, 0.3)}
+    # both forms of the shift: the point-to-point pair and the all-reduce
+    # (gloo's form for CUDA tensors)
+    t = torch.full((2, 3), float(dist.get_rank()))
+    res["shift"] = ring_shift(t, None)
+    p2p, comm.shift_by_all_reduce = comm.shift_by_all_reduce, lambda group, t: True
+    try:
+        res["shift_all_reduce"] = ring_shift(t, None)
+    finally:
+        comm.shift_by_all_reduce = p2p
+    return res
+
+
+def sp_train_cfg(batch_size: int = 8, **kw):
+    return sp_cfg(train_cfg(pconfig, batch_size, sp_size=2, **kw))
+
+
+def scenario_sp_forward(out):
+    """The tiny model's deterministic forward on the first batch at sp=2:
+    this rank's logits (its block of the node slots) and the global
+    embedding; the ring's calls."""
+    trainer = Trainer(sp_train_cfg(), image_shape=IMG, device="cpu")
+    state = trainer.init_state()
+    host = next(iter(trainer.train_batches(dataset(), epoch=1))).asdict()
+    before = ra.ring_tree_attention_local.calls
+    with torch.no_grad():
+        from multimodaldiscussiontransformer_tpu_torch.data.collator import to_tensors
+
+        o = state.model(to_tensors(trainer.local(host), "cpu"), deterministic=True)
+    return {"logits": o.logits, "global_embedding": o.global_embedding,
+            "ring_calls": ra.ring_tree_attention_local.calls - before, "mesh": dict(trainer.mesh.shape)}
+
+
+def scenario_sp_update(out):
+    res = one_update(sp_train_cfg())
+    res["ring_calls"] = ra.ring_tree_attention_local.calls
+    return res
+
+
+def scenario_sp_fit(out):
+    """``Trainer.fit`` for 2 updates at sp=2 (the prefetch thread stages
+    each rank's share)."""
+    trainer = Trainer(sp_train_cfg(), image_shape=IMG, device="cpu")
+    state = trainer.fit(dataset(), max_updates=2, log_fn=lambda s: None,
+                        writer=type("W", (), {"write": lambda *a: None, "close": lambda *a: None})())
+    return {"params": full_params(state), "num_updates": state.num_updates}
+
+
+def scenario_sp_remat(out):
+    """One update at sp=2 with every stack rematerialised (the ring's
+    collectives rerun in the backward)."""
+    cfg = sp_train_cfg()
+    return one_update(cfg.replace(model=cfg.model.replace(remat=True, remat_policy="full")))
+
+
+def scenario_sp_contrastive(out):
+    return one_update(sp_cfg(contrastive_cfg(pconfig, batch_size=8, sp_size=2)), k=2, contrastive=True)
+
+
+def scenario_sp_eval(out):
+    trainer = Trainer(sp_train_cfg(), image_shape=IMG, device="cpu")
+    state = trainer.init_state()
+    ds = dataset()
+    res = {split: trainer.evaluate(state, ds, split) for split in ("valid", "test")}
+    cols = trainer.predict(state, ds, "test")
+    if dist.get_rank() == 0:
+        write_predictions(os.path.join(out, "pred_sp2.csv"), cols)
+    ctrainer = Trainer(sp_cfg(contrastive_cfg(pconfig, batch_size=8, sp_size=2)), image_shape=IMG, device="cpu")
+    res["contrastive_valid"] = ctrainer.evaluate(ctrainer.init_state(), dataset(True), "valid")
+    return res
+
+
+def scenario_sp_scorer(out):
+    """The scorer over an sp=2 mesh on the one-process init's weights: the
+    probabilities of 3 test discussions, on every rank."""
+    from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
+
+    cfg = sp_train_cfg()
+    model = MDTModel(cfg.model, generator=torch.Generator().manual_seed(cfg.seed))
+    scorer = DiscussionScorer(model, device="cpu", data_cfg=cfg.data, task_cfg=cfg.task_cfg, image_shape=IMG,
+                              mesh=make_mesh(sp_size=2))
+    ds = dataset()
+    return {"probs": scorer.score_items([ds.get(int(i)) for i in ds.test_idx[:3]])}
+
+
+SP_SCENARIOS = [
+    ("ring", scenario_sp_ring), ("forward", scenario_sp_forward), ("update", scenario_sp_update),
+    ("fit", scenario_sp_fit), ("remat", scenario_sp_remat), ("contrastive", scenario_sp_contrastive),
+    ("eval", scenario_sp_eval), ("scorer", scenario_sp_scorer),
+]
+
 SCENARIOS = [
     ("dp", scenario_dp), ("fsdp", scenario_fsdp), ("tp", scenario_tp), ("slices", scenario_slices),
     ("multisteps", scenario_multisteps), ("contrastive", scenario_contrastive), ("eval", scenario_eval),
@@ -222,16 +364,20 @@ FOUR_RANK_LAYOUTS = {
     "dp4": dict(batch_size=2, dp_size=4), "fsdp4": dict(batch_size=2, dp_size=4, fsdp=True),
     "tp2_dp2": dict(batch_size=4, dp_size=2, tp_size=2), "slices2_dp2": dict(batch_size=2, num_slices=2, fsdp=True),
     "slices2_tp2": dict(batch_size=4, num_slices=2, dp_size=1, tp_size=2, fsdp=True),
+    "dp2_sp2": dict(batch_size=4, dp_size=2, sp_size=2), "tp2_sp2": dict(batch_size=8, tp_size=2, sp_size=2),
+    "fsdp2_sp2": dict(batch_size=4, dp_size=2, sp_size=2, fsdp=True),
 }
 FOUR_RANK_LADDERS = dict(node_capacity_buckets=(256,), image_capacity_buckets=(128,), label_capacity_buckets=(128,))
 
 
 def four_rank_cfg(batch_size: int = 8, **kw):
     cfg = train_cfg(pconfig, batch_size, **kw)
+    if cfg.sp_size > 1:
+        cfg = sp_cfg(cfg)
     return cfg.replace(data=dataclasses.replace(cfg.data, **FOUR_RANK_LADDERS))
 
 
-def spawn(world: int, out: str, timeout: float = 120.0) -> list:
+def spawn(world: int, out: str, timeout: float = 120.0, suite: str = "") -> list:
     """Run ``world`` ranks of this script on a free port and return each
     rank's results. A rank that fails, exits non-zero or outlives
     ``timeout`` seconds (a deadlock) raises ``AssertionError``; every rank
@@ -240,7 +386,8 @@ def spawn(world: int, out: str, timeout: float = 120.0) -> list:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(world), str(port), out], env=env,
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(world), str(port), out, suite],
+                              env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
     logs = []
     deadline = time.monotonic() + timeout  # one limit for the whole group
@@ -261,12 +408,18 @@ def spawn(world: int, out: str, timeout: float = 120.0) -> list:
     return ranks
 
 
-def main(rank: int, world: int, port: int, out: str) -> None:
+def main(rank: int, world: int, port: int, out: str, suite: str = "") -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world)
     results = {}
-    scenarios = SCENARIOS if world == 2 else [
-        (name, lambda out, kw=kw: one_update(four_rank_cfg(**kw))) for name, kw in FOUR_RANK_LAYOUTS.items()]
+    if suite == "sp":
+        scenarios = SP_SCENARIOS
+    elif world == 2:
+        scenarios = SCENARIOS
+    else:
+        scenarios = [(name, lambda out, kw=kw: one_update(four_rank_cfg(**kw)))
+                     for name, kw in FOUR_RANK_LAYOUTS.items()]
+        scenarios.append(("ring4", lambda out: {f"rate{r}": distributed_ring(rate=r) for r in (0.0, 0.3)}))
     for name, fn in scenarios:
         try:
             results[name] = fn(out)
@@ -279,4 +432,4 @@ def main(rank: int, world: int, port: int, out: str) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5] if len(sys.argv) > 5 else "")
