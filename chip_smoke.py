@@ -56,7 +56,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    CUDA-core one, the one-pass backward beside the pair), the plain
    version, the towers' unfused path (matmul + f32 softmax + FastDropout +
    matmul) and SDPA with the key-padding mask (forward at dropout 0.3;
-   forward + backward at rate 0 and 0.3); at the tower shapes the
+   forward + backward at rate 0 and 0.3), at a ragged S only the
+   tensor-core forward and one-pass backward; at the tower shapes the
    CUDA-core forward and pair again on float32 inputs beside SDPA in
    float32 and the float32 bounds.
 5. biased_vs_plain: the dense-bias attention's routed forward kernel and
@@ -146,8 +147,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
     few graphs as stubs naming a shared tree file). The canonical flags
     (bf16, frozen towers, batch 12 x update_freq 3) run 4 updates through
     ``train.launch.main`` in this process with saves at 2 and 4; beside
-    it, the same command runs twice more, each in a process of its own
-    that gets SIGTERM once its log shows update 1: one saving after every
+    it, the same command runs twice more, together, each in a process of
+    its own that gets SIGTERM once its log shows update 1: one saving after every
     update (the signal lands while the asynchronous save of step 1 is
     still being written: its file is newer than the signal; it must stop
     at update 1 or 2), one with no interval save (it must stop at update 2,
@@ -199,15 +200,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
     AdamW step alone (device ms and span) on the same params with float32
     moments, bf16 moments and bf16 params.
 
-16. input_ab: the canonical node run (the train phase's discussions) and
-    contrastive pre-training (a ``hateful_discussions`` directory of
-    contrastive discussions), each through ``Trainer.fit`` for 2 updates
+16. input_ab: contrastive pre-training (a ``hateful_discussions``
+    directory of contrastive discussions: lazy npz items) through
+    ``Trainer.fit`` for 2 updates
     from one position on each input path, twice in mirrored order: the
-    prefetch thread (the default), the synchronous path before it
-    (collation on the training thread, pageable per-microbatch copies,
-    float32 images) and the prefetcher's staging without its thread: ms per
-    update, ms per cycle (update end to update end) and the training
-    thread's ms on each update's input.
+    prefetch thread (the default) and the prefetcher's staging without its
+    thread: ms per update, ms per cycle (update end to update end) and the
+    training thread's ms on each update's input.
 17. runtime_workers: the canonical run with ``--num-workers 4`` (collation
     in 4 spawned processes), 4 updates: ms per update, the groups' ``idx``
     equal to the in-process iterator's, the launches the config gives.
@@ -224,8 +223,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
     size, exactly 2 x 78 tree-kernel events and the trainer's named ranges
     (2 x 3 ``microbatch``, 2 ``optimizer``).
 20. ingest: raw discussion JSON to the card. A seeded
-    ``pruned-with-images.json`` corpus in the reference's schema (~240
-    discussions of 8-32 comments and 4 of 520-600, URLs, "[deleted]"
+    ``pruned-with-images.json`` corpus in the reference's schema (60
+    discussions of 8-32 comments and 2 of 520-600, URLs, "[deleted]"
     bodies, bot text, 224x224 uint8 images on a quarter of the comments,
     a few missing) and a WordPiece vocab built from it; ``data_prep.run
     splits`` and the ingest CLI (``--workers 4``) in processes of their
@@ -263,9 +262,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
     discussions/s, scaling against one card, peak memory per rank, the
     launches of every rank. ``--only parallel`` runs the build and this
     phase alone.
+23. sequence_parallel: see ``phase_sequence_parallel``.
+24. workflows: the last workflows of the port on one card
+    (``phase_workflows``): ``two_stage.run`` (its TEST line, ms per update
+    of each stage, the CUDA-core tree kernels of its hidden-64 model),
+    ``context_ablation.run`` at 300 trees, WF_ABLATION_UPDATES per arm
+    (the full and the context-blind F1), ``readiness.main --full-model`` on stand-in assets with
+    ``transformers`` unimportable ("optional, absent"),
+    ``sample_run.sh`` through bash at ``ModelConfig()`` width on an
+    ingested mini corpus (2 contrastive updates, then 2 node updates
+    restored with ``--reset-optimizer``; the launcher argv the script
+    builds for each runs in this process) and
+    ``text_bert.train`` at BERT-base width (20 steps, one evaluation: ms per
+    step, peak memory; then a 2-layer dropout-free run held against the
+    same run on the CPU). ``--only workflows`` runs the build and this phase.
 Every runtime line carries the card's name and power limit (``card``).
+The phases whose default discussions match (runtime_workers and
+checkpoint; input_ab and contrastive) read one directory, written once.
 
-The last two lines are the kernels' summary (thirteen kernels) and
+After the phases, ``seconds_by_phase`` (each phase's wall seconds, also
+printed when a phase fails) and the card's name and power limit; the last
+two lines are the kernels' summary (thirteen kernels) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1366,55 +1383,58 @@ def phase_masked(seed: int):
 
         calls = {
             "fwd_fused": lambda: ma.masked_attention_fwd_fused(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True),
+            "bwd_fused": lambda: ma.masked_attention_bwd_fused(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed),
+        }
+        if not tower:  # a ragged shape: checked above; timed only in the main path's two kernels
+            row["ms"] = {name: timed_ms(fn) for name, fn in calls.items()}
+            emit({"phase": "masked_vs_plain", **row})
+            rows.append(row)
+            continue
+        calls.update({
             "fwd_fused_rate0": lambda: ma.masked_attention_fwd_fused(qq, kk, vv, bias, scale),
             "fwd": lambda: ma.masked_attention_fwd(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True),
-            "bwd_fused": lambda: ma.masked_attention_bwd_fused(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed),
             "pair": pair,
             "plain_fwd": lambda: ma.masked_attention_dropout_reference(qq, kk, vv, bias, dseed, MASKED_RATE, scale),
             "library_fwd": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bias4, dropout_p=MASKED_RATE, scale=scale),
             "plain_fwd_bwd": with_grad(lambda q_, k_, v_: ma.masked_attention_dropout_reference(q_, k_, v_, bias, dseed, MASKED_RATE, scale)),
             "library_fwd_bwd_rate": with_grad(lambda q_, k_, v_: F.scaled_dot_product_attention(
                 q_, k_, v_, attn_mask=bias4, dropout_p=MASKED_RATE, scale=scale)),
-        }
-        if tower:
-            calls.update({
-                "fwd_rate0": lambda: ma.masked_attention_fwd(qq, kk, vv, bias, scale),
-                "dq": lambda: ma.masked_attention_bwd_dq(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed),
-                "dkv": lambda: ma.masked_attention_bwd_dkv(qq, kk, vv, gg, bias, stats, delta, scale, MASKED_RATE, dseed),
-                "unfused_fwd": lambda: unfused(qq, kk, vv),
-                "unfused_fwd_bwd": with_grad(unfused),
-                "library_fwd_bwd": with_grad(lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=bias4, scale=scale)),
-            })
+            "fwd_rate0": lambda: ma.masked_attention_fwd(qq, kk, vv, bias, scale),
+            "dq": lambda: ma.masked_attention_bwd_dq(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed),
+            "dkv": lambda: ma.masked_attention_bwd_dkv(qq, kk, vv, gg, bias, stats, delta, scale, MASKED_RATE, dseed),
+            "unfused_fwd": lambda: unfused(qq, kk, vv),
+            "unfused_fwd_bwd": with_grad(unfused),
+            "library_fwd_bwd": with_grad(lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=bias4, scale=scale)),
+        })
         row["ms"] = {name: timed_ms(fn) for name, fn in calls.items()}
         row["ms"]["plain_bwd"] = row["ms"]["plain_fwd_bwd"] - row["ms"]["plain_fwd"]
         row["bound"] = work_bounds(b, h, s, dh, "bfloat16", 0 if bias is None else b * s * 4, stat_planes=2)
         row["fused_vs_pair"] = row["ms"]["pair"] / row["ms"]["bwd_fused"]
         row["fwd_fused_vs_cuda_core"] = row["ms"]["fwd"] / row["ms"]["fwd_fused"]
         row["fwd_fused_vs_library"] = row["ms"]["fwd_fused"] / row["ms"]["library_fwd"]
-        if tower:
-            # the float32 route (the CUDA-core forward and pair) on float32
-            # inputs, SDPA on the same inputs, and the float32 bounds
-            out32, stats32 = ma.masked_attention_fwd(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True)
-            _, delta32 = ma.masked_attention_bwd_dq(q, k, v, out32, g, bias, stats32, scale, MASKED_RATE, dseed)
-            bias4_32 = None if bias is None else bias[:, None, None, :]
+        # the float32 route (the CUDA-core forward and pair) on float32
+        # inputs, SDPA on the same inputs, and the float32 bounds
+        out32, stats32 = ma.masked_attention_fwd(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True)
+        _, delta32 = ma.masked_attention_bwd_dq(q, k, v, out32, g, bias, stats32, scale, MASKED_RATE, dseed)
+        bias4_32 = None if bias is None else bias[:, None, None, :]
 
-            def sdpa32(rate):
-                def run():
-                    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-                    F.scaled_dot_product_attention(*leaves, attn_mask=bias4_32, dropout_p=rate, scale=scale).backward(g)
-                return run
+        def sdpa32(rate):
+            def run():
+                leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+                F.scaled_dot_product_attention(*leaves, attn_mask=bias4_32, dropout_p=rate, scale=scale).backward(g)
+            return run
 
-            calls32 = {
-                "fwd": lambda: ma.masked_attention_fwd(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True),
-                "dq": lambda: ma.masked_attention_bwd_dq(q, k, v, out32, g, bias, stats32, scale, MASKED_RATE, dseed),
-                "dkv": lambda: ma.masked_attention_bwd_dkv(q, k, v, g, bias, stats32, delta32, scale, MASKED_RATE, dseed),
-                "library_fwd": lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=bias4_32, dropout_p=MASKED_RATE, scale=scale),
-                "library_fwd_bwd": sdpa32(0.0),
-                "library_fwd_bwd_rate": sdpa32(MASKED_RATE),
-            }
-            row["float32"] = {"ms": {name: timed_ms(fn) for name, fn in calls32.items()},
-                              "bound": work_bounds(b, h, s, dh, "float32", 0 if bias is None else b * s * 4, stat_planes=2)}
+        calls32 = {
+            "fwd": lambda: ma.masked_attention_fwd(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True),
+            "dq": lambda: ma.masked_attention_bwd_dq(q, k, v, out32, g, bias, stats32, scale, MASKED_RATE, dseed),
+            "dkv": lambda: ma.masked_attention_bwd_dkv(q, k, v, g, bias, stats32, delta32, scale, MASKED_RATE, dseed),
+            "library_fwd": lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias4_32, dropout_p=MASKED_RATE, scale=scale),
+            "library_fwd_bwd": sdpa32(0.0),
+            "library_fwd_bwd_rate": sdpa32(MASKED_RATE),
+        }
+        row["float32"] = {"ms": {name: timed_ms(fn) for name, fn in calls32.items()},
+                          "bound": work_bounds(b, h, s, dh, "float32", 0 if bias is None else b * s * 4, stat_planes=2)}
         emit({"phase": "masked_vs_plain", **row})
         rows.append(row)
 
@@ -2174,8 +2194,7 @@ def phase_workers(seed: int, card: str):
     from multimodaldiscussiontransformer_tpu_torch.train.trainer import Trainer
 
     tmp = tempfile.TemporaryDirectory()
-    data = os.path.join(tmp.name, "data")
-    written = write_hateful_discussions(data, seed + 1)
+    data, written = shared_discussions(seed + 1)
     cfg = config_from_args(build_parser().parse_args(
         [*CANONICAL_FLAGS, "--seed", str(seed + 1), "--data-root", data, "--no-save", "--save-dir", tmp.name,
          "--num-workers", "4"]))
@@ -2224,13 +2243,12 @@ def phase_workers(seed: int, card: str):
     return launches
 
 
-INPUT_AB_UPDATES = 2  # fewer than the 4 it took before sequence_parallel: the whole run stays near 1,050 s
+INPUT_AB_UPDATES = 2  # fewer than the 4 it took before sequence_parallel, to keep the whole run short
 # each input path twice, in mirrored order, from one position on the same
-# batches: prefetch (the default), sync (the path before the prefetcher:
-# collation on the training thread, each microbatch copied from pageable
-# memory, float32 images) and sync_staged (collation and the pinned, bf16
-# staging on the training thread: the prefetcher's work without its thread)
-INPUT_AB_ORDER = ("prefetch", "sync", "sync_staged", "sync_staged", "sync", "prefetch")
+# batches: prefetch (the default) and sync_staged (collation and the
+# pinned, bf16 staging on the training thread: the prefetcher's work
+# without its thread)
+INPUT_AB_ORDER = ("prefetch", "sync_staged", "sync_staged", "prefetch")
 
 
 class _InlineInput:
@@ -2260,17 +2278,6 @@ class _InlineInput:
             item = self._put(host)
             self.waits.append(time.perf_counter() - t)
             yield item
-
-
-class _Pageable:
-    """A host group handed to ``train_step`` as it is: each microbatch is
-    copied from pageable memory when the step reaches it."""
-
-    def __init__(self, host):
-        self.host = host
-
-    def ready(self):
-        return self.host
 
 
 def input_ab(trainer, state, ds, what: str, card: str) -> dict:
@@ -2305,14 +2312,12 @@ def input_ab(trainer, state, ds, what: str, card: str) -> dict:
         trainer.train_step = timed
         if variant != "prefetch":
             trainer.prefetch = _InlineInput
-        if variant == "sync":
-            trainer.stage = _Pageable
         state.step, state.epoch, state.num_updates, state.mini_step = pos
         t0 = time.perf_counter()
         try:
             state = trainer.fit(ds, state=state, max_updates=pos[2] + INPUT_AB_UPDATES, log_fn=quiet)
         finally:
-            for name in ("train_step", "prefetch", "stage"):
+            for name in ("train_step", "prefetch"):
                 trainer.__dict__.pop(name, None)
         fit_ms = (time.perf_counter() - t0) * 1e3
         if len(timer.times) != INPUT_AB_UPDATES:
@@ -2338,10 +2343,11 @@ def input_ab(trainer, state, ds, what: str, card: str) -> dict:
 
 
 def phase_input_ab(seed: int, card: str):
-    """``input_ab`` on the canonical node run (the ``train`` phase's
-    config and discussions) and on contrastive pre-training (the
-    ``contrastive`` phase's config, on a ``hateful_discussions`` directory
-    of contrastive discussions)."""
+    """``input_ab`` on contrastive pre-training (the ``contrastive``
+    phase's config, on a ``hateful_discussions`` directory of contrastive
+    discussions): the lazy npz path, where the input costs more than an
+    update. The canonical node run's in-memory input is timed by the
+    ``train`` phase (its input wait per update)."""
     import tempfile
 
     import torch
@@ -2350,27 +2356,18 @@ def phase_input_ab(seed: int, card: str):
     from multimodaldiscussiontransformer_tpu_torch.train.launch import build_parser, config_from_args
 
     registry.populate()
-    rows = {}
     with tempfile.TemporaryDirectory() as tmp:
-        data = os.path.join(tmp, "data")
-        write_hateful_discussions(data, seed + 2, contrastive=True)
-        for what, extra, load in (
-                ("canonical", ["--synthetic"], dict(seed=seed + 1, seq_len=TEXT_LEN, num_graphs=TRAIN_GRAPHS,
-                                                    min_nodes=8, max_nodes=32, image_prob=0.25,
-                                                    image_shape=IMAGE_SHAPE)),
-                ("contrastive", ["--task", "contrastive_learning", "--data-root", data],
-                 dict(root=data, split=0, seed=seed + 2))):
-            cfg = config_from_args(build_parser().parse_args(
-                [*CANONICAL_FLAGS, *extra, "--seed", str(load["seed"]), "--no-save", "--save-dir", tmp]))
-            task = registry.TASKS.get(cfg.task)(cfg)
-            if what == "canonical":
-                load["vocab_size"] = cfg.model.text_tower.vocab_size
-            ds = task.load_dataset(**load)
-            trainer = task.build_trainer(image_shape=IMAGE_SHAPE, device="cuda")
-            rows[what] = input_ab(trainer, trainer.init_state(), ds, what, card)
-            del trainer, ds, task
-            torch.cuda.empty_cache()
-    return rows
+        data, _ = shared_discussions(seed + 2, contrastive=True)
+        cfg = config_from_args(build_parser().parse_args(
+            [*CANONICAL_FLAGS, "--task", "contrastive_learning", "--data-root", data, "--seed", str(seed + 2),
+             "--no-save", "--save-dir", tmp]))
+        task = registry.TASKS.get(cfg.task)(cfg)
+        ds = task.load_dataset(root=data, split=0, seed=seed + 2)
+        trainer = task.build_trainer(image_shape=IMAGE_SHAPE, device="cuda")
+        row = input_ab(trainer, trainer.init_state(), ds, "contrastive", card)
+        del trainer, ds, task
+        torch.cuda.empty_cache()
+    return row
 
 
 REMAT_UPDATES = 2
@@ -2713,6 +2710,33 @@ def write_hateful_discussions(root: str, seed: int, contrastive: bool = False, g
             "bytes": sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root))}
 
 
+
+_SHARED = {}  # "root": the run's shared data directory; (seed, contrastive): (path, numbers) of one written in it
+
+
+def shared_discussions(seed: int, contrastive: bool = False):
+    """(directory, its numbers): ``write_hateful_discussions(..., seed,
+    contrastive)`` with the default discussions, written once a run and
+    read by each phase that asks for it (a run writes nothing into its data
+    root); the numbers of a directory written earlier carry ``"reused":
+    True``. ``drop_shared_discussions`` removes them."""
+    key = (seed, contrastive)
+    if key in _SHARED:
+        path, numbers = _SHARED[key]
+        return path, {**numbers, "reused": True}
+    if "root" not in _SHARED:
+        _SHARED["root"] = tempfile.mkdtemp(prefix="mdt_shared_")
+    path = os.path.join(_SHARED["root"], f"data-{seed}-{int(contrastive)}")
+    _SHARED[key] = (path, write_hateful_discussions(path, seed, contrastive=contrastive))
+    return _SHARED[key]
+
+
+def drop_shared_discussions() -> None:
+    root = _SHARED.get("root")
+    _SHARED.clear()
+    if root is not None:
+        shutil.rmtree(root, ignore_errors=True)
+
 class _RecordedUpdates:
     """Patches ``Trainer.train_step`` and ``Trainer.train_microstep`` (every
     trainer in this process) to record each step's wall time (synchronised),
@@ -2867,8 +2891,7 @@ def phase_checkpoint(seed: int, card: str = ""):
     root = tempfile.mkdtemp(prefix="mdt_checkpoint_")
     procs = []
     try:
-        data = os.path.join(root, "data")
-        dataset = write_hateful_discussions(data, seed + 1)
+        data, dataset = shared_discussions(seed + 1)
         dirs = {name: os.path.join(root, name)
                 for name in ("whole", "in_flight", "stop_save", "copy", "sync", "scan", "pred")}
         # the canonical run_train.sh 8 4 5 2 2 0 flags, bf16, 4 updates
@@ -2894,13 +2917,13 @@ def phase_checkpoint(seed: int, card: str = ""):
         # - "in_flight" saves after every update, so the signal lands while
         #   the asynchronous save of step 1 is still being written (~2-4 s):
         #   its file is newer than the signal; the stop comes at update 1
-        #   (the signal came during that save's snapshot) or 2; it runs
-        #   beside the uninterrupted run;
+        #   (the signal came during that save's snapshot) or 2;
         # - "stop_save" makes no interval or validation save, so only the
         #   stop branch can save: the stop comes at update 2 (an update
         #   takes ~0.6 s) and its asynchronous save, waited for before the
-        #   process exits, is the run's only step on disk; it runs beside
-        #   the first one's relaunch (two trainings on the card at a time)
+        #   process exits, is the run's only step on disk.
+        # Both start together and run beside the uninterrupted run (three
+        # trainings on the card at a time)
         env = {**os.environ, "PYTHONUNBUFFERED": "1", "PYTHONFAULTHANDLER": "1"}
         preempted = {"in_flight": ["--save-interval-updates", "1"], "stop_save": []}
 
@@ -2927,7 +2950,7 @@ def phase_checkpoint(seed: int, card: str = ""):
             watcher.start()
             return {"proc": proc, "log": log_path, "sent": sent, "watcher": watcher}
 
-        runs = {"in_flight": start_preempted("in_flight")}
+        runs = {name: start_preempted(name) for name in preempted}
 
         _zero_counts()
         with _RecordedUpdates(mc) as whole:
@@ -2947,8 +2970,6 @@ def phase_checkpoint(seed: int, card: str = ""):
             run = runs[name]
             rc = run["proc"].wait(timeout=600)
             run["watcher"].join(timeout=10)
-            if name == "in_flight":
-                runs["stop_save"] = start_preempted("stop_save")
             sent = run["sent"]
             with open(run["log"]) as f:
                 log_text = f.read()
@@ -3237,8 +3258,7 @@ def phase_contrastive(seed: int):
                      "update_freq 3, dropout 0.4/0.3/0.3), bfloat16 compute"}
     try:
         # 1. contrastive pre-training: the backward now reaches every graph layer
-        data = os.path.join(root, "data")
-        row["dataset"] = write_hateful_discussions(data, seed + 2, contrastive=True)
+        data, row["dataset"] = shared_discussions(seed + 2, contrastive=True)
         pre = os.path.join(root, "pre")
         mark("data")
         out, rec, launches = run(CANONICAL_FLAGS + [
@@ -3350,6 +3370,7 @@ def phase_contrastive(seed: int):
 
 # ingest and weights_in: data and weights from outside the port, at full width
 INGEST_UPDATES = 4
+INGEST_TREES, INGEST_BIG_TREES = 60, 2  # the raw corpus (240 and 4 before the workflows phase)
 # the update after a restore, from the converted JAX layout against the
 # port's own checkpoint (both on the card, the same dropout bits): as
 # train_cpu_agreement's parameters
@@ -3405,7 +3426,7 @@ def phase_ingest(seed: int, card: str, root: str) -> dict:
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     raw, vocab = os.path.join(root, "pruned-with-images.json"), os.path.join(root, "vocab.txt")
-    made = synthetic_raw_corpus(raw, root, seed=seed + 5)
+    made = synthetic_raw_corpus(raw, root, num_trees=INGEST_TREES, big_trees=INGEST_BIG_TREES, seed=seed + 5)
     row = {"phase": "ingest", "card": card, "corpus": made, "vocab_size": build_vocab(raw, vocab),
            "corpus_seconds": time.perf_counter() - t_phase}
     env = {**os.environ, "MDT_BERT_VOCAB": vocab}
@@ -3671,14 +3692,21 @@ def phase_weights_in(seed: int, card: str, root: str, ingest_run: dict) -> dict:
     pcfg = config_from_args(build_parser().parse_args(flags))
     ds = create_hatespeech_dataset(root=ingest_run["data"])
     trainer = NodePredictionTask(pcfg).build_trainer(image_shape=IMAGE_SHAPE, device="cuda")
-    restored = ckpt.Checkpointer(own_dir).restore(step=step)
-    state = ckpt.restore_params_into_state(trainer, trainer.init_state(params=restored["params"]), restored,
-                                           reset_optimizer=False)
-    del restored
+
+    def own_state():
+        restored = ckpt.Checkpointer(own_dir).restore(step=step)
+        return ckpt.restore_params_into_state(trainer, trainer.init_state(params=restored["params"]), restored,
+                                              reset_optimizer=False)
+
+    state = own_state()
     counters = (state.step, state.num_updates, state.epoch)
     t = time.perf_counter()
     ckpt.save_flax_npz(npz, state)
     npz_s = time.perf_counter() - t
+    # off the card during the restored run, whose big discussions take ~70 GB
+    # at their peak (``ingest``); built again from the same checkpoint after
+    del state
+    torch.cuda.empty_cache()
     mark("own_and_npz")
 
     first = {}  # of the restored run's first update: generators, counters and moments before it, params after
@@ -3713,6 +3741,7 @@ def phase_weights_in(seed: int, card: str, root: str, ingest_run: dict) -> dict:
     mark("restore_run")
 
     # the same update from the port's own checkpoint, with the restored run's generators
+    state = own_state()
     opt = state.optimizer.state
     if any(count != step or not torch.equal(opt[p]["exp_avg"], m) or not torch.equal(opt[p]["exp_avg_sq"], v)
            for p, (count, m, v) in zip(state.trainable, first.pop("adam"))):
@@ -3767,6 +3796,11 @@ PARALLEL_SIGN_AGREEMENT = 0.95
 PARALLEL_LR = ["--lr", "1e-4", "--warmup-updates", "1"]
 TINY_UPDATES = 2
 PARALLEL_GRAPHS = 240  # 192 train graphs: 16 global batches of 12
+# with one card the ranks' collectives go through the host over gloo (a tp=2
+# update of 3 microbatches took ~17 s), so there the canonical runs take one
+# microbatch an update (--update-freq 1) over fewer discussions: 48 train
+# graphs, 4 global batches of 12 an epoch (the stop run's 12 updates in 3)
+PARALLEL_GRAPHS_ONE_CARD = 60
 PARALLEL_RANK_TIMEOUT = 420  # seconds for one rank's whole plan
 NO_DROPOUT = ["--dropout", "0", "--attention-dropout", "0", "--act-dropout", "0"]
 TINY_FLAGS = ["--synthetic", "--tiny", "--lr", "1e-3", "--warmup-updates", "2", "--total-num-update", "20", "--update-freq", "3",
@@ -3781,6 +3815,69 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def _digest(t) -> list:
+    """Sum, sum of |x| and a position-weighted sum of a tensor, in float64."""
+    import torch
+
+    d = t.detach().double().flatten()
+    if d.numel() == 0:
+        return [0.0, 0.0, 0.0]
+    w = torch.arange(d.numel(), device=d.device, dtype=torch.float64).remainder_(7).add_(1)
+    return [float(d.sum()), float(d.abs().sum()), float((d * w).sum())]
+
+
+class _RankRecorder:
+    """Patches ``Trainer.train_step`` in a rank process (one launch) to
+    record what the rank starts from: the first group it trains on (its
+    ``idx`` and a digest of each field) and the logging outputs of update
+    1."""
+
+    def __init__(self):
+        self.rec = {"group": {}, "update1": {}}
+
+    def __enter__(self):
+        import torch
+
+        from multimodaldiscussiontransformer_tpu_torch.train.trainer import Trainer
+
+        rec = self.rec
+        self._orig = train_step = Trainer.train_step
+
+        def patched_step(trainer, state, group, **k):
+            if not rec["update1"]:
+                rec["group"] = {key: _digest(torch.as_tensor(v)) for key, v in group.items()}
+                rec["group"]["idx_values"] = torch.as_tensor(group["idx"]).cpu().flatten().tolist()
+            sums = train_step(trainer, state, group, **k)
+            if not rec["update1"]:
+                rec["update1"] = {key: float(v) for key, v in sums.items()
+                                  if isinstance(v, torch.Tensor) and v.numel() == 1}
+            return sums
+
+        Trainer.train_step = patched_step
+        return self
+
+    def __exit__(self, *exc):
+        from multimodaldiscussiontransformer_tpu_torch.train.trainer import Trainer
+
+        Trainer.train_step = self._orig
+        return False
+
+
+def _rel(a, b) -> float:
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b)) if a else 0.0
+
+
+def rank_divergence(got: dict, want: dict, rtol: float = 1e-6) -> dict:
+    """Where one rank's ``_RankRecorder`` record parts from another run's
+    same rank: the first-group fields whose digests differ (relative
+    difference above ``rtol``), whether the group's idx agree, and update
+    1's logging outputs."""
+    return {"update1": got["update1"], "update1_reference": want["update1"],
+            "same_group": got["group"].get("idx_values") == want["group"].get("idx_values"),
+            "group_differs": [k for k in want["group"] if k != "idx_values"
+                              and _rel(got["group"].get(k, [0, 0, 0]), want["group"][k]) > rtol]}
 
 
 def parallel_rank_worker(plan_path: str, rank: int, out_path: str) -> int:
@@ -3811,16 +3908,19 @@ def parallel_rank_worker(plan_path: str, rank: int, out_path: str) -> int:
         buf = io.StringIO()
         t = time.perf_counter()
         result = None
+        record = None
         with contextlib.redirect_stdout(buf):
             if "call" in item:  # a function of this script over a group of its own
                 rc, result = 0, SP_RANK_CALLS[item["call"]](rank, **item["kwargs"])
             else:
-                rc = launch.main([a.replace("{rank}", str(rank)) for a in item["argv"]])
+                with _RankRecorder() as recorder:
+                    rc = launch.main([a.replace("{rank}", str(rank)) for a in item["argv"]])
+                record = recorder.rec
         seconds = time.perf_counter() - t
         counts = dict(zip(KERNEL_NAMES, _counts()))
         results.append({"name": item["name"], "rc": rc, "seconds": seconds, "counts": counts,
                         "peak_gb": torch.cuda.max_memory_allocated() / 2**30, "stdout": buf.getvalue()[-4000:],
-                        "result": result})
+                        "result": result, "record": record})
         with open(out_path + ".tmp", "w") as f:
             json.dump(results, f)
         os.replace(out_path + ".tmp", out_path)
@@ -4114,12 +4214,14 @@ def phase_parallel(seed: int, card: str = ""):
     - the one-process runs every parallel run is held against, in this
       process: canonical bf16 with dropout 0 (3 updates, a save), the tiny
       float32 node and contrastive runs (2 updates, a save after each);
-      and the bf16 noise witness: the canonical run in one rank's
-      microbatches, reported beside the checks;
+      and, with 2 or more cards, the bf16 noise witness: the canonical run
+      in one rank's microbatches, reported beside the checks;
     - NCCL at world size 1 (this process): dp, fsdp and tp, each the tiny
       float32 run against the unwrapped one;
     - with one card, 2 ranks on card 0 over gloo: dp=2 and tp=2 canonical
-      against the one-process run, ``--eval-only --predict-output`` at
+      (one microbatch an update, PARALLEL_GRAPHS_ONE_CARD discussions; the
+      one-process runs the same) against the one-process run,
+      ``--eval-only --predict-output`` at
       dp=2 against one process, the tiny float32 node and contrastive runs
       at dp=2, and a SIGTERM to rank 1 alone during a dp=2 run with
       dropout as in the recipe (both ranks save at the same update and
@@ -4157,7 +4259,9 @@ def phase_parallel(seed: int, card: str = ""):
         # the image ladder tops out at 128 so that a rank's slice of a
         # global batch fits its share (128 / ranks): 3 of these discussions
         # hold up to 18 images, over the 64 / 4 that the default ladder gives
-        canon = ["--synthetic", "--synthetic-graphs", str(PARALLEL_GRAPHS), "--seed", str(seed + 1), *CANONICAL_FLAGS,
+        update_freq = 3 if cards >= 2 else 1
+        canon = ["--synthetic", "--synthetic-graphs", str(PARALLEL_GRAPHS if cards >= 2 else PARALLEL_GRAPHS_ONE_CARD),
+                 "--seed", str(seed + 1), *CANONICAL_FLAGS, "--update-freq", str(update_freq),
                  "--image-capacity-buckets", "0,8,16,32,64,128",
                  "--max-updates", str(PARALLEL_UPDATES), "--max-epoch", "1"]
         agree = NO_DROPOUT + PARALLEL_LR
@@ -4171,11 +4275,12 @@ def phase_parallel(seed: int, card: str = ""):
             raise AssertionError(f"one-process canonical run exited {rc}:\n{out[-2000:]}")
         one = {"seconds": seconds, "ms_per_update": _ms_per_update(d["one"]), "peak_gb": peak, "launches": counts}
         init = _init_trainable(one_argv)
-        witness_argv = one_argv + ["--batch-size", str(12 // n), "--update-freq", str(3 * n),
-                                   "--save-dir", d["witness"]]
-        rc, out, _, _, _ = _launch_in_process(witness_argv)
-        if rc != 0:
-            raise AssertionError(f"one-process witness run exited {rc}:\n{out[-2000:]}")
+        if cards >= 2:  # the witness: beside the NCCL runs only, to keep the one-card run short
+            witness_argv = one_argv + ["--batch-size", str(12 // n), "--update-freq", str(3 * n),
+                                       "--save-dir", d["witness"]]
+            rc, out, _, _, _ = _launch_in_process(witness_argv)
+            if rc != 0:
+                raise AssertionError(f"one-process witness run exited {rc}:\n{out[-2000:]}")
         tiny_node = TINY_FLAGS + ["--max-updates", str(TINY_UPDATES), "--max-epoch", "1",
                                   "--save-interval-updates", "1"]
         tiny_contrastive = tiny_node + ["--task", "contrastive_learning", "--criterion", "contrastive_loss"]
@@ -4287,7 +4392,7 @@ def phase_parallel(seed: int, card: str = ""):
         for name, per_rank in runs.items():
             if any(r["rc"] != 0 for r in per_rank):
                 raise AssertionError(f"parallel run {name}: rcs {[r['rc'] for r in per_rank]}")
-        graphs = 12 * 3
+        graphs = 12 * update_freq
         result.update(
             ranks=n, one_process=one,
             runs={name: {"ms_per_update": timing.get(name), "discussions_per_s":
@@ -4300,9 +4405,14 @@ def phase_parallel(seed: int, card: str = ""):
         )
         if "stop_dropout" in timing:
             result["runs"]["stop"]["ms_per_update"] = timing["stop_dropout"]
+        # rank by rank against dp (the same slices): the first group and update 1
+        result["ranks_vs_dp"] = {name: [rank_divergence(r["record"], d_["record"])
+                                        for r, d_ in zip(runs[name], runs["dp"])]
+                                 for name in ("fsdp", "slices") if name in runs}
         # not held: the canonical run in one rank's microbatches against the
         # one-process run, the distance bf16 rounding alone puts between them
-        result["noise_witness"] = _agreement(d["witness"], d["one"], init, PARALLEL_UPDATES, False)
+        if cards >= 2:
+            result["noise_witness"] = _agreement(d["witness"], d["one"], init, PARALLEL_UPDATES, False)
         try:
             result["checks"] = run_checks()
             _hold(result["checks"])
@@ -4334,10 +4444,12 @@ def phase_parallel(seed: int, card: str = ""):
 
 SP_RING_S = 2048  # the node ladder's top S here (trees of up to 2047 nodes): a multiple of 2 and 4
 SP_MIN_NODES, SP_MAX_NODES = 1500, 1800  # the discussions sp trains and scores
-SP_GRAPHS = 23  # 18 train: 9 microbatches of 2, 3 updates of 3
+SP_GRAPHS = 16  # 12 train: 6 microbatches of 2, 2 updates of 3 (23 and 3 updates before the workflows phase)
+# with one card (gloo through the host): one microbatch of 2 an update, 6 train graphs
+SP_GRAPHS_ONE_CARD = 8
 SP_TEXT_LEN = 32  # tokens per comment (the collator's smallest text bucket)
 SP_IMAGE_PROB = 0.01
-SP_UPDATES = 3
+SP_UPDATES = 2
 SP_DATA_FLAGS = ["--node-buckets", str(SP_RING_S - 1), "--node-capacity-buckets", "2048,4096",
                  "--image-capacity-buckets", "0,32,64,128", "--label-capacity-buckets", "2048,4096"]
 
@@ -4520,13 +4632,13 @@ def phase_sequence_parallel(seed: int, card: str = ""):
     """Sequence parallelism at ``ModelConfig()`` width (8 fusion layers,
     frozen towers, bf16 compute, H 12, dh 64) on discussions of
     SP_MIN_NODES .. SP_MAX_NODES nodes (S = SP_RING_S, the largest one
-    process trains here: 2 per microbatch x 3), each rank holding a strip
+    process trains here: 2 per microbatch x 3, x 1 with one card), each rank holding a strip
     of the node axis and the graph attention a ring over the sp group
     through the tensor-core tree kernels:
     - in this process: the one-process runs every sp run is held against
-      (the big discussions through the launcher, 3 updates at lr 1e-4 with
-      dropout 0; the bf16 noise witness, the same run one discussion per
-      microbatch; the tiny float32 run, 2 updates, and its
+      (the big discussions through the launcher, SP_UPDATES updates at lr 1e-4 with
+      dropout 0; with 2 or more cards the bf16 noise witness, the same run
+      one discussion per microbatch; the tiny float32 run, 2 updates, and its
       ``--eval-only --predict-output``; the one-process scorer);
     - with one card, 2 ranks on card 0 over gloo, sp=2: the ring alone
       (``sp_ring_op``), ``DiscussionScorer(mesh=...)`` (``sp_score``), the
@@ -4563,21 +4675,24 @@ def phase_sequence_parallel(seed: int, card: str = ""):
         d = {name: os.path.join(root, name) for name in
              ("data", "one", "witness", "one_tiny", "pred_one_tiny", "sp", "dp2_sp2", "tiny_sp", "tiny_dp2_sp2",
               "tiny_tp2_sp2", "pred_tiny_sp")}
-        result["dataset"] = write_hateful_discussions(d["data"], seed + 3, graphs=SP_GRAPHS, min_nodes=SP_MIN_NODES,
-                                                      max_nodes=SP_MAX_NODES, image_prob=SP_IMAGE_PROB,
-                                                      seq_len=SP_TEXT_LEN)
+        result["dataset"] = write_hateful_discussions(d["data"], seed + 3, graphs=SP_GRAPHS if nccl else SP_GRAPHS_ONE_CARD,
+                                                      min_nodes=SP_MIN_NODES, max_nodes=SP_MAX_NODES,
+                                                      image_prob=SP_IMAGE_PROB, seq_len=SP_TEXT_LEN)
         lap("data")
-        big = ["--data-root", d["data"], "--seed", str(seed + 1), *CANONICAL_FLAGS, *SP_DATA_FLAGS,
-               "--batch-size", "2", "--max-updates", str(SP_UPDATES), "--max-epoch", "1", *NO_DROPOUT, *PARALLEL_LR]
+        update_freq = 3 if nccl else 1  # microbatches an update on each rank
+        big = ["--data-root", d["data"], "--seed", str(seed + 1), *CANONICAL_FLAGS, "--update-freq", str(update_freq),
+               *SP_DATA_FLAGS, "--batch-size", "2", "--max-updates", str(SP_UPDATES), "--max-epoch", "1", *NO_DROPOUT,
+               *PARALLEL_LR]
         rc, out, seconds, counts, peak = _launch_in_process(big + ["--save-dir", d["one"]])
         if rc != 0:
             raise AssertionError(f"one-process big run exited {rc}:\n{out[-2000:]}")
         one = {"seconds": seconds, "ms_per_update": _ms_per_update(d["one"]), "peak_gb": peak, "launches": counts}
         init = _init_trainable(big + ["--save-dir", d["one"]])
-        rc, out, _, _, _ = _launch_in_process(big + ["--batch-size", "1", "--update-freq", "6",
-                                                     "--save-dir", d["witness"]])
-        if rc != 0:
-            raise AssertionError(f"one-process witness run exited {rc}:\n{out[-2000:]}")
+        if nccl:  # the witness: beside the NCCL runs only, to keep the one-card run short
+            rc, out, _, _, _ = _launch_in_process(big + ["--batch-size", "1", "--update-freq", "6",
+                                                         "--save-dir", d["witness"]])
+            if rc != 0:
+                raise AssertionError(f"one-process witness run exited {rc}:\n{out[-2000:]}")
         tiny = TINY_FLAGS + ["--max-updates", str(TINY_UPDATES), "--max-epoch", "1", "--save-interval-updates", "1",
                              "--batch-size", "8"]
         rc, out, _, _, _ = _launch_in_process(tiny + ["--save-dir", d["one_tiny"]])
@@ -4655,7 +4770,7 @@ def phase_sequence_parallel(seed: int, card: str = ""):
         for name in big_runs:
             checks[name] = _agreement(d[name], d["one"], init, SP_UPDATES, False)
             sp_size = n if name == "sp" else 2
-            k = 3  # microbatches an update on each rank
+            k = update_freq
             want = {"tree_attention_bwd_dq_fused": 8 * sp_size * k * SP_UPDATES,
                     "tree_attention_bwd_dkv_fused": 8 * sp_size * k * SP_UPDATES}
             got = [{key: r["counts"][key] for key in want} for r in runs[name]]
@@ -4683,7 +4798,7 @@ def phase_sequence_parallel(seed: int, card: str = ""):
                              for r in per_rank]}
                   for name, per_rank in runs.items() if name in big_runs},
             peak_gb_one_process=one["peak_gb"],
-            noise_witness=_agreement(d["witness"], d["one"], init, SP_UPDATES, False),
+            noise_witness=_agreement(d["witness"], d["one"], init, SP_UPDATES, False) if nccl else None,
             checks=checks, step_seconds=steps,
         )
         result["launches"] = {key: sum(r["counts"][key] for per_rank in runs.values() for r in per_rank)
@@ -4773,14 +4888,400 @@ def _worst_pair(rows, outputs):
                for name in ("float32", "bfloat16_pair") if name in r[k] for o in outputs)
 
 
+
+# ---------------------------------------------------------------------------
+# the workflows: the two-stage rehearsal, the context ablation, the
+# readiness gate, the launch scripts and the comment-only baseline
+# ---------------------------------------------------------------------------
+
+WF_TWO_STAGE = dict(n_trees=60, stage1_updates=4, stage2_updates=12)
+# per arm: the F1s are printed, not held (on the card the full arm reached
+# F1 1.0 at 600 updates, 0.950 at 400, 0.897 at 300, and stayed at the
+# all-positive 0.804 at 100: no count the run's time limit leaves room for
+# lets an arm learn, so the phase drives both arms and keeps them short)
+WF_ABLATION_UPDATES = 30
+# the scripts' mini corpus: > 24 train trees for stage 1's 2 contrastive
+# updates of 12 (``--update-freq 1``; stage 2 keeps batch 12 x 3)
+WF_SCRIPT_TREES = 40
+WF_BERT_STEPS = 20  # comment-only steps at BERT-base width, one evaluation at the last
+WF_BERT_TRAIN, WF_BERT_VALID = 480, 96
+# comment-only on the card against the CPU: BERT-base width at 2 layers,
+# every dropout 0, float32, 4 steps of 8 comments (3 updates: the first
+# step's lr is 0, optax's count), 12 valid comments (a padded last batch).
+# Held: the change of the parameters (relative L2 of the card's minus the
+# CPU's change; AdamW's first steps move a parameter by ~lr whatever its
+# gradient's size, so a gradient at rounding level may flip its sign) and
+# the valid logits (max abs error over max |logit|). The attention key
+# biases are held apart, element by element, to 2.05 x the summed lr: their
+# exact gradient is 0 (softmax is shift-invariant), so both devices walk
+# them on rounding noise, as tests/test_torch_comment_only.py holds them
+WF_BERT_CHECK = dict(layers=2, steps=4, batch=8, tokens=32, train=24, valid=12)
+WF_BERT_UPDATE_RTOL, WF_BERT_LOGIT_RTOL = 1e-2, 1e-3
+
+
+class _WorkflowUpdates(_RecordedUpdates):
+    """``_RecordedUpdates`` whose expected launches follow each step's own
+    trainer (its model config and task), for workflows that train several
+    configurations in one call; each record carries its task."""
+
+    def __init__(self):
+        super().__init__(None)
+
+    def _wrap(self, orig, micro: bool):
+        step = super()._wrap(orig, micro)
+
+        def outer(trainer, state, group, **kw):
+            self.mc, self.contrastive = trainer.cfg.model, trainer.contrastive
+            logs = step(trainer, state, group, **kw)
+            self.records[-1]["task"] = "contrastive" if trainer.contrastive else "node"
+            return logs
+
+        return outer
+
+    def take(self) -> list:
+        out, self.records, self.before = self.records, [], None
+        return out
+
+
+def _stage_numbers(records: list, what: str) -> dict:
+    """ms per update (median, after the first) and the tree-kernel launches
+    of a stage's steps; raises if a step launched other than its config
+    expects."""
+    import numpy as np
+
+    bad = [(r["launches"], r["want"]) for r in records if r["launches"] != r["want"]]
+    if not records or bad:
+        raise AssertionError(f"workflows {what}: {len(records)} steps; launches (got, expected) {bad[:3]}")
+    ms = [r["ms"] for r in records]
+    tree = {n: sum(dict(zip(KERNEL_NAMES, r["launches"]))[n] for r in records) for n in KERNEL_NAMES
+            if n.startswith("tree_attention")}
+    return {"updates": len(records), "ms_per_update_median": float(np.median(ms[1:] or ms)),
+            "ms_first_update": ms[0], "peak_gb": max(r["peak_gb"] for r in records),
+            "tree_launches": {n: c for n, c in tree.items() if c}}
+
+
+def _contrastive_dir_from_ingest(data_root: str, communities: list, out: str, seed: int) -> dict:
+    """A contrastive ``hateful_discussions`` directory of an ingested corpus:
+    one graph per tree (``two_stage.contrastive_dataset_from_ingest``: y
+    the community, hard_y the polar one) written by the ingest's writer,
+    with the dataset's train and test indices."""
+    from multimodaldiscussiontransformer_tpu_torch.experiments.hateful_discussions import ingest
+    from multimodaldiscussiontransformer_tpu_torch.experiments.hateful_discussions.two_stage import (
+        contrastive_dataset_from_ingest,
+    )
+
+    ds = contrastive_dataset_from_ingest(data_root, communities, seed=seed)
+    os.makedirs(out, exist_ok=True)
+    for k in range(len(ds)):
+        ingest.save_graph_npz(os.path.join(out, f"graph-{k}.npz"), ds.get(k))
+    for name, idx in (("train-idx-many.txt", ds.train_idx), ("test-idx-many.txt", ds.test_idx)):
+        with open(os.path.join(out, name), "w") as f:
+            f.write("".join(f"{int(i)}\n" for i in idx))
+    return {"graphs": len(ds), "train": len(ds.train_idx), "test": len(ds.test_idx)}
+
+
+def _bert_comments(n: int, seed: int, tokenizer, max_length: int) -> dict:
+    """``n`` synthetic comments in the two-stage generator's words (hateful
+    ones from its hate lexicon, 30%), tokenized by the port's WordPiece,
+    with their labels."""
+    import numpy as np
+
+    from multimodaldiscussiontransformer_tpu_torch.experiments.hateful_discussions.two_stage import _sentence
+
+    rng = np.random.RandomState(seed)
+    labels = (rng.rand(n) < 0.3).astype(np.int32)
+    texts = [_sentence(rng, int(rng.randint(0, 4)), bool(y), n_words=int(rng.randint(6, 30))) for y in labels]
+    toks = tokenizer(texts, max_length=max_length)
+    return {**toks, "label": labels}
+
+
+def _comment_only_card_vs_cpu(tok, seed: int) -> dict:
+    """``text_bert.train`` at WF_BERT_CHECK on the card and on the CPU from
+    the same initial weights and batches: the relative L2 of the card's
+    parameter change minus the CPU's (the key biases apart), and the valid
+    logits' max abs error over max |logit|; raises past the tolerances of
+    WF_BERT_CHECK's comment."""
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.core.config import BertTowerConfig
+    from multimodaldiscussiontransformer_tpu_torch.experiments.comment_only import text_bert
+
+    c = WF_BERT_CHECK
+    tower = BertTowerConfig(num_hidden_layers=c["layers"], hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    cfg = text_bert.TextBertConfig(max_steps=c["steps"], eval_steps=c["steps"], warmup_steps=1, lr=1e-4,
+                                   batch_size=c["batch"], max_length=c["tokens"], seed=seed, tower=tower)
+    train_data = _bert_comments(c["train"], seed + 2, tok, c["tokens"])
+    valid_data = _bert_comments(c["valid"], seed + 3, tok, c["tokens"])
+    init = text_bert.BertTextClassifier(cfg).state_dict()  # train's own init: a generator seeded cfg.seed
+    out = {dev: text_bert.train(cfg, train_data, valid_data, log_fn=lambda _: None, device=dev)
+           for dev in ("cuda", "cpu")}
+    (p_card, _, l_card), (p_cpu, _, l_cpu) = out["cuda"], out["cpu"]
+    key_bias = [k for k in init if k.endswith("attention.key.bias")]
+    rest = [k for k in init if k not in key_bias]
+    diff = math.sqrt(sum(float((p_card[k].double() - p_cpu[k].double()).square().sum()) for k in rest))
+    moved = math.sqrt(sum(float((p_cpu[k].double() - init[k].double()).square().sum()) for k in rest))
+    update_rel = diff / moved
+    key_bias_err = max(float((p_card[k] - p_cpu[k]).abs().max()) for k in key_bias)
+    key_bias_tol = 2.05 * sum(text_bert.lr_at(cfg, n) for n in range(c["steps"]))
+    logit_rel = float(abs(l_card - l_cpu).max() / abs(l_cpu).max())
+    row = {"config": f"BERT-base width, {c['layers']} layers, every dropout 0, float32, {c['steps']} steps of "
+                     f"{c['batch']} x {c['tokens']} tokens, {c['valid']} valid comments",
+           "update_rel_l2": update_rel, "key_bias_max_abs_err": key_bias_err, "logit_max_abs_err_rel": logit_rel,
+           "change_l2_cpu": moved,
+           "tolerance": {"update_rel_l2": WF_BERT_UPDATE_RTOL, "key_bias_abs": key_bias_tol,
+                         "logit_rel": WF_BERT_LOGIT_RTOL}}
+    if not (moved > 0 and len(key_bias) == c["layers"] and update_rel <= WF_BERT_UPDATE_RTOL
+            and key_bias_err <= key_bias_tol and logit_rel <= WF_BERT_LOGIT_RTOL):
+        raise AssertionError(f"comment_only: card and CPU disagree: {row}")
+    return row
+
+
+def phase_workflows(seed: int, card: str = "") -> dict:
+    """The last workflows of the port, on one card, in order:
+    1. two_stage: ``two_stage.run`` on a generated corpus of
+       WF_TWO_STAGE["n_trees"] trees (4 contrastive, 12 node updates, the
+       module's hidden-64 geometry: the CUDA-core tree kernels): its TEST
+       line, ms per update of each stage, the tree launches;
+    2. context_ablation: ``context_ablation.run`` at 300 trees,
+       WF_ABLATION_UPDATES updates per arm: the full and the blind F1 and
+       the margin;
+    3. readiness: ``readiness.main --full-model --smoke-updates 2`` on
+       stand-in assets the port's generator writes (224 px images), with
+       ``transformers`` unimportable: rc 0 and "optional, absent";
+    4. the scripts: ``sample_run.sh`` through bash at ``ModelConfig()``
+       width on a mini corpus of WF_SCRIPT_TREES trees ingested at the
+       canonical geometry (100 tokens, 224 px): 2 contrastive updates
+       (``--task contrastive_learning --update-freq 1`` on the ingest's
+       contrastive directory), then ``RESTORE_FILE=<stage 1>`` 2 node
+       updates at batch 12 x 3 (``--restore-file --reset-optimizer``);
+       each stage's launcher argv, as the script builds it (a ``python``
+       first on ``PATH`` records it), runs in this process; ms per update
+       and the test metrics;
+    5. comment_only: ``text_bert.train`` at BERT-base width (12 layers,
+       768, 100 tokens, batch 48) for WF_BERT_STEPS steps with one
+       evaluation, on synthetic comments tokenized by the port's WordPiece:
+       ms per step, peak memory, the metrics; then WF_BERT_CHECK's
+       dropout-free steps on the card and on the CPU from the same weights,
+       held to WF_BERT_UPDATE_RTOL and WF_BERT_LOGIT_RTOL.
+    Images are PNG where PIL is installed, else ``.npy`` arrays (asked for
+    by name). Every failure raises."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.data.tokenizer import BertWordPieceTokenizer
+    from multimodaldiscussiontransformer_tpu_torch.data_prep.splits import make_splits
+    from multimodaldiscussiontransformer_tpu_torch.experiments.comment_only import text_bert
+    from multimodaldiscussiontransformer_tpu_torch.experiments.hateful_discussions import (
+        context_ablation,
+        ingest,
+        readiness,
+        two_stage,
+    )
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="mdt_workflows_")
+    pil = importlib.util.find_spec("PIL") is not None
+    image_format = "png" if pil else "npy"
+    result = {"phase": "workflows", "card": card, "pil": pil, "image_format": image_format,
+              "transformers": importlib.util.find_spec("transformers") is not None}
+    steps, launches = {}, {}
+    t_step = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        steps[name], t_step[0] = now - t_step[0], now
+
+    def quiet(fn, *a, **k):
+        import contextlib
+        import io
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn(*a, **k)
+        return out, buf.getvalue()
+
+    try:
+        # 1. the two-stage rehearsal
+        torch.cuda.empty_cache()
+        _zero_counts()
+        with _WorkflowUpdates() as rec:
+            res, out = quiet(two_stage.run, os.path.join(root, "two_stage"), seed=seed, device="cuda",
+                             image_format=image_format, **WF_TWO_STAGE)
+        launches["two_stage"] = dict(zip(KERNEL_NAMES, _counts()))
+        records = rec.take()
+        test_line = [ln for ln in out.splitlines() if ln.startswith("[two_stage] TEST ")]
+        if len(test_line) != 1 or json.loads(test_line[0].split("TEST ", 1)[1]) != res:
+            raise AssertionError(f"two_stage: TEST line {test_line}")
+        print(test_line[0], flush=True)
+        if not (np.isfinite(res["loss"]) and 0.0 <= res["f1"] <= 1.0):
+            raise AssertionError(f"two_stage: test metrics {res}")
+        result["two_stage"] = {
+            "test": res,
+            "contrastive": _stage_numbers([r for r in records if r["task"] == "contrastive"], "two_stage stage 1"),
+            "node": _stage_numbers([r for r in records if r["task"] == "node"], "two_stage stage 2"),
+            "launches": launches["two_stage"]}
+        lap("two_stage")
+
+        # 2. the context ablation
+        torch.cuda.empty_cache()
+        _zero_counts()
+        with _WorkflowUpdates() as rec:
+            res, out = quiet(context_ablation.run, os.path.join(root, "ablation"), n_trees=300, seed=seed,
+                             updates=WF_ABLATION_UPDATES, device="cuda")
+        launches["context_ablation"] = dict(zip(KERNEL_NAMES, _counts()))
+        records = rec.take()
+        n = WF_ABLATION_UPDATES
+        if len(records) != 2 * n or not all(np.isfinite([res["f1_full"], res["f1_context_blind"]])):
+            raise AssertionError(f"context_ablation: {len(records)} steps, result {res}")
+        result["context_ablation"] = {
+            **res, "full": _stage_numbers(records[:n], "context_ablation full"),
+            "blind": _stage_numbers(records[n:], "context_ablation blind"),
+            "launches": launches["context_ablation"]}
+        print(json.dumps({"context_ablation": {k: res[k] for k in ("f1_full", "f1_context_blind", "margin")},
+                          "card": card}), flush=True)
+        lap("context_ablation")
+
+        # 3. the readiness gate on stand-in assets, transformers absent
+        assets = os.path.join(root, "assets")
+        paths = two_stage.generate_mini_corpus(assets, n_trees=10, seed=seed, image_px=224, image_prob=0.3,
+                                               image_format=image_format)
+        os.rename(paths["raw"], os.path.join(assets, "pruned-with-images.json"))
+        torch.cuda.empty_cache()
+        _zero_counts()
+        saved = sys.modules.get("transformers", False)
+        sys.modules["transformers"] = None  # unimportable, as on a machine without it
+        try:
+            with _WorkflowUpdates() as rec:
+                rc, out = quiet(readiness.main, ["--assets", assets, "--out", os.path.join(root, "smoke"),
+                                                 "--full-model", "--smoke-updates", "2"])
+        finally:
+            if saved is False:
+                sys.modules.pop("transformers", None)
+            else:
+                sys.modules["transformers"] = saved
+        launches["readiness"] = dict(zip(KERNEL_NAMES, _counts()))
+        verdict = json.loads(out.strip().splitlines()[-1])
+        hf = [verdict["checks"][k]["detail"] for k in ("hf_text", "hf_image")]
+        if rc != 0 or not verdict["ok"] or not all(d.startswith("optional, absent") for d in hf):
+            raise AssertionError(f"readiness: rc {rc}, verdict {verdict}")
+        result["readiness"] = {"rc": rc, "checks": {k: v["ok"] for k, v in verdict["checks"].items()},
+                               "hf_text": hf[0], "smoke": verdict["checks"]["smoke"]["detail"],
+                               "smoke_updates": _stage_numbers(rec.take(), "readiness smoke"),
+                               "launches": launches["readiness"]}
+        lap("readiness")
+
+        # 4. sample_run.sh at canonical width: contrastive, then the transfer
+        corpus = os.path.join(root, "scripts")
+        paths = two_stage.generate_mini_corpus(corpus, n_trees=WF_SCRIPT_TREES, seed=seed + 1, image_px=224,
+                                               image_format=image_format)
+        make_splits(paths["raw"], os.path.join(corpus, "splits"), n_splits=1, seed=seed)
+        os.environ["MDT_BERT_VOCAB"] = paths["vocab"]
+        try:
+            t = time.perf_counter()
+            copies = ingest.process(paths["raw"], os.path.join(corpus, "data"),
+                                    train_idx_file=os.path.join(corpus, "splits", "train-idx.txt"),
+                                    test_idx_file=os.path.join(corpus, "splits", "test-idx.txt"),
+                                    image_root=corpus, log_every=0)
+            ingest_s = time.perf_counter() - t
+        finally:
+            os.environ.pop("MDT_BERT_VOCAB", None)
+        with open(paths["communities"]) as f:
+            contr = _contrastive_dir_from_ingest(os.path.join(corpus, "data"), json.load(f),
+                                                 os.path.join(corpus, "contrastive"), seed)
+        here = os.path.dirname(os.path.abspath(__file__))
+        # the script's ``python`` records the launcher argv that
+        # sample_run.sh builds, which then runs in this process (a launcher
+        # process spends ~30 s outside its 2 updates)
+        argv_path = os.path.join(root, "script_argv.json")
+        os.makedirs(os.path.join(root, "bin"))
+        with open(os.path.join(root, "bin", "python"), "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" -c \'import json, sys; json.dump(sys.argv[2:], '
+                    f'open(sys.argv[1], "w"))\' "{argv_path}" "$@"\n')
+        os.chmod(os.path.join(root, "bin", "python"), 0o755)
+        script = os.path.join(here, "multimodaldiscussiontransformer_tpu_torch", "experiments",
+                              "hateful_discussions", "sample_run.sh")
+        runs = {}
+        for name, extra_env, args in (
+                ("contrastive", {}, ["--task", "contrastive_learning", "--criterion", "contrastive_loss",
+                                     "--update-freq", "1", "--data-root", os.path.join(corpus, "contrastive")]),
+                ("node", {"RESTORE_FILE": os.path.join(root, "stage_contrastive")},
+                 ["--data-root", os.path.join(corpus, "data"), "--no-save"])):
+            save = os.path.join(root, f"stage_{name}")
+            env = {**os.environ, "PATH": os.path.join(root, "bin") + os.pathsep + os.environ.get("PATH", ""),
+                   "PYTHONUNBUFFERED": "1", "SAVE_DIR": save, **extra_env}
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            proc = subprocess.run(["bash", script, *args, "--max-updates", "2", "--log-interval", "1",
+                                   "--seed", str(seed + 2)],
+                                  cwd=here, env=env, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"sample_run.sh ({name}) exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                                     f"{proc.stderr[-3000:]}")
+            with open(argv_path) as f:
+                argv = json.load(f)
+            if argv[:2] != ["-m", "multimodaldiscussiontransformer_tpu_torch.train.launch"]:
+                raise AssertionError(f"sample_run.sh ({name}) ran python {argv[:2]}")
+            rc, stdout, _, counts, _ = _launch_in_process(argv[2:])
+            seconds = time.perf_counter() - t
+            if rc != 0 or not all(counts[k] for k in (
+                    "tree_attention_fwd_fused", "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused")):
+                raise AssertionError(f"sample_run.sh ({name}): rc {rc}, launches {counts}\n{stdout[-2000:]}")
+            launches[f"sample_run_{name}"] = counts
+            runs[name] = {"seconds": seconds, "ms_per_update": _ms_per_update(save),
+                          "losses": [r["loss"] for _, r in sorted(_train_records(save).items())],
+                          "test": _test_metrics(stdout), "launches": counts}
+        if "restored from" not in stdout:
+            raise AssertionError(f"sample_run.sh (node): no restore in\n{stdout[-2000:]}")
+        result["sample_run"] = {"ingest": {"trees": WF_SCRIPT_TREES, "copies": copies, "seconds": ingest_s},
+                                "contrastive_dir": contr, **runs}
+        print(json.dumps({"sample_run_ms_per_update": {k: v["ms_per_update"] for k, v in runs.items()},
+                          "test": runs["node"]["test"], "card": card}), flush=True)
+        lap("sample_run")
+
+        # 5. the comment-only BERT baseline at BERT-base width
+        tok = BertWordPieceTokenizer(paths["vocab"])
+        cfg = text_bert.TextBertConfig(max_steps=WF_BERT_STEPS, eval_steps=WF_BERT_STEPS, warmup_steps=4,
+                                       lr=1e-4, seed=seed)
+        train_data = _bert_comments(WF_BERT_TRAIN, seed, tok, cfg.max_length)
+        valid_data = _bert_comments(WF_BERT_VALID, seed + 1, tok, cfg.max_length)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        timings, logs = {}, []
+        _, best, logits = text_bert.train(cfg, train_data, valid_data, log_fn=logs.append, device="cuda",
+                                          timings=timings)
+        launches["comment_only"] = dict(zip(KERNEL_NAMES, _counts()))
+        if logits.shape != (WF_BERT_VALID, 2) or not np.isfinite(logits).all() or len(timings["eval"]) != 1:
+            raise AssertionError(f"comment_only: logits {logits.shape}, evaluations {len(timings.get('eval', []))}")
+        result["comment_only"] = {
+            "config": "BERT-base (12 layers, 768, 12 heads), 100 tokens, batch 48, float32 (TF32 off)",
+            "steps": WF_BERT_STEPS, "ms_per_step_median": float(np.median(timings["step"][1:]) * 1e3),
+            "ms_first_step": timings["step"][0] * 1e3, "eval_seconds": timings["eval"][0],
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30, "best": best, "log": logs,
+            "launches": launches["comment_only"],
+            "card_vs_cpu": _comment_only_card_vs_cpu(tok, seed)}
+        lap("comment_only")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    result["launches"] = {k: sum(c[k] for c in launches.values()) for k in KERNEL_NAMES}
+    result["launches_by_run"] = {run: {k: v for k, v in c.items() if v} for run, c in launches.items()}
+    result["step_seconds"] = steps
+    result["seconds"] = time.perf_counter() - t_phase
+    emit(result)
+    return result
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--only", choices=("parallel", "sequence_parallel"), default=None,
+    p.add_argument("--only", choices=("parallel", "sequence_parallel", "workflows"), default=None,
                    help="build, then only this phase (for iterating on it; the kernels' summary is not printed)")
     p.add_argument("--parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--parallel-plan", default=None, help=argparse.SUPPRESS)
     p.add_argument("--parallel-out", default=None, help=argparse.SUPPRESS)
+    argv = sys.argv[1:] if argv is None else argv
     args = p.parse_args(argv)
 
     import torch
@@ -4793,51 +5294,72 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    card = phase_build()
+    clock, t_run = {}, time.perf_counter()
+
+    def clocked(name, fn, *a, **k):
+        """``fn(*a, **k)``, its wall seconds kept in ``clock[name]``."""
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            clock[name] = time.perf_counter() - t
+
+    card = clocked("build", phase_build)
     if args.only is not None:
-        {"parallel": phase_parallel, "sequence_parallel": phase_sequence_parallel}[args.only](args.seed, card)
+        {"parallel": phase_parallel, "sequence_parallel": phase_sequence_parallel,
+         "workflows": phase_workflows}[args.only](args.seed, card)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
-    rows = phase_kernel(args.seed)
-    train_rows = phase_kernel_train(args.seed)
-    masked_rows = phase_masked(args.seed)
-    biased_rows = phase_biased(args.seed)
-    scorer, scoring, rng, unfused = phase_scoring(args.seed)
-    scoring_fused = phase_scoring_fused(unfused)
-    phase_latency(scorer, rng)
-    del scorer, unfused
-    torch.cuda.empty_cache()
-    train = run_train(args.seed, "train", batch_size=12, fused=False, timed_updates=TIMED_UPDATES, trace=True,
-                      dataset_kw=dict(num_graphs=TRAIN_GRAPHS, min_nodes=8, max_nodes=32, image_prob=0.25), card=card)
-    train_fused = run_train(args.seed, "train_fused", batch_size=12, fused=True, timed_updates=TIMED_UPDATES,
-                            trace=False, dataset_kw=dict(num_graphs=TRAIN_GRAPHS, min_nodes=8, max_nodes=32, image_prob=0.25),
-                            card=card)
-    train_big = run_train(args.seed, "train_big", batch_size=1, fused=True, timed_updates=BIG_TIMED_UPDATES, trace=True,
-                          dataset_kw=dict(num_graphs=BIG_GRAPHS, min_nodes=520, max_nodes=1000, image_prob=0.05),
-                          card=card)
-    phase_input_ab(args.seed, card)
-    workers = phase_workers(args.seed, card)
-    remat = phase_remat(args.seed, card)
-    agree_remat = {p: phase_train_cpu_agreement(args.seed, fused=True, variant=f"remat_{p}", card=card)
-                   for p in REMAT_POLICIES}
-    agree = phase_train_cpu_agreement(args.seed, fused=False)  # float32: the CUDA-core tree forward's path
-    agree_fused = phase_train_cpu_agreement(args.seed, fused=True)  # float32: the pair's path
-    agree_variants = {v: phase_train_cpu_agreement(args.seed, fused=False, variant=v)
-                      for v in ("contrastive", "multisteps", "bf16_adam")}
-    dense = phase_dense_graph(args.seed)
-    phase_launch()
-    profile = phase_profile(args.seed, card)
-    phase_checkpoint(args.seed, card)
-    contrastive = phase_contrastive(args.seed)
-    outside = tempfile.mkdtemp(prefix="mdt_outside_")
     try:
-        ingest = phase_ingest(args.seed, card, outside)
-        weights_in = phase_weights_in(args.seed, card, outside, ingest)
+        rows = clocked("kernel", phase_kernel, args.seed)
+        train_rows = clocked("kernel_train", phase_kernel_train, args.seed)
+        masked_rows = clocked("masked", phase_masked, args.seed)
+        biased_rows = clocked("biased", phase_biased, args.seed)
+        scorer, scoring, rng, unfused = clocked("scoring", phase_scoring, args.seed)
+        scoring_fused = clocked("scoring_fused", phase_scoring_fused, unfused)
+        clocked("latency", phase_latency, scorer, rng)
+        del scorer, unfused
+        torch.cuda.empty_cache()
+        train = clocked("train", run_train, args.seed, "train", batch_size=12, fused=False,
+                        timed_updates=TIMED_UPDATES, trace=True, card=card,
+                        dataset_kw=dict(num_graphs=TRAIN_GRAPHS, min_nodes=8, max_nodes=32, image_prob=0.25))
+        train_fused = clocked("train_fused", run_train, args.seed, "train_fused", batch_size=12, fused=True,
+                              timed_updates=TIMED_UPDATES, trace=False, card=card,
+                              dataset_kw=dict(num_graphs=TRAIN_GRAPHS, min_nodes=8, max_nodes=32, image_prob=0.25))
+        train_big = clocked("train_big", run_train, args.seed, "train_big", batch_size=1, fused=True,
+                            timed_updates=BIG_TIMED_UPDATES, trace=True, card=card,
+                            dataset_kw=dict(num_graphs=BIG_GRAPHS, min_nodes=520, max_nodes=1000, image_prob=0.05))
+        clocked("input_ab", phase_input_ab, args.seed, card)
+        workers = clocked("runtime_workers", phase_workers, args.seed, card)
+        remat = clocked("runtime_remat", phase_remat, args.seed, card)
+        agree_remat = {p: clocked(f"train_cpu_agreement_fused_remat_{p}", phase_train_cpu_agreement, args.seed,
+                                  fused=True, variant=f"remat_{p}", card=card)
+                       for p in REMAT_POLICIES}
+        # float32: the CUDA-core tree forward's path, then the pair's
+        agree = clocked("train_cpu_agreement", phase_train_cpu_agreement, args.seed, fused=False)
+        agree_fused = clocked("train_cpu_agreement_fused", phase_train_cpu_agreement, args.seed, fused=True)
+        agree_variants = {v: clocked(f"train_cpu_agreement_{v}", phase_train_cpu_agreement, args.seed, fused=False,
+                                     variant=v)
+                          for v in ("contrastive", "multisteps", "bf16_adam")}
+        dense = clocked("dense_graph", phase_dense_graph, args.seed)
+        clocked("launch", phase_launch)
+        profile = clocked("runtime_profile", phase_profile, args.seed, card)
+        clocked("checkpoint", phase_checkpoint, args.seed, card)
+        contrastive = clocked("contrastive", phase_contrastive, args.seed)
+        outside = tempfile.mkdtemp(prefix="mdt_outside_")
+        try:
+            ingest = clocked("ingest", phase_ingest, args.seed, card, outside)
+            weights_in = clocked("weights_in", phase_weights_in, args.seed, card, outside, ingest)
+        finally:
+            shutil.rmtree(outside, ignore_errors=True)
+        parallel = clocked("parallel", phase_parallel, args.seed, card)
+        sequence_parallel = clocked("sequence_parallel", phase_sequence_parallel, args.seed, card)
+        workflows = clocked("workflows", phase_workflows, args.seed, card)
     finally:
-        shutil.rmtree(outside, ignore_errors=True)
-    parallel = phase_parallel(args.seed, card)
-    sequence_parallel = phase_sequence_parallel(args.seed, card)
+        drop_shared_discussions()
+        emit({"phase": "seconds_by_phase", "card": card, "seconds": clock,
+              "total_seconds": time.perf_counter() - t_run})
 
     serve_row = rows[0]  # S=33, B=16: the canonical serving shape
     train_row = train_rows[0]  # S=33, B=12: the canonical training shape
@@ -4857,7 +5379,8 @@ def main(argv=None) -> int:
                "ingest": ingest["launches"], "weights_in_orbax_restore": weights_in,
                "parallel": parallel["launches"], "parallel_tp_h6": parallel["launches_tp_h6"],
                "sequence_parallel": sequence_parallel["launches"],
-               "sequence_parallel_ring_tiles": sequence_parallel["launches_ring_tiles"]}
+               "sequence_parallel_ring_tiles": sequence_parallel["launches_ring_tiles"],
+               "workflows": workflows["launches"]}
 
     def paths(name, extra=None):
         out = {path: counts[name] for path, counts in by_path.items()}

@@ -105,7 +105,23 @@ def initialize(layout: RankLayout, device: str = "cuda", backend: Optional[str] 
             backend=choose_backend(device, backend), init_method=layout.init_method,
             world_size=layout.world_size, rank=layout.rank,
         )
+        if choose_backend(device, backend) == "nccl":
+            start_communicator(dev)
     return dev
+
+
+def start_communicator(device: torch.device) -> None:
+    """Start the NCCL communicator of the default group now, with one
+    all-reduce on ``device`` from its current stream: the eager start that
+    ``init_process_group(device_id=...)`` would give, without binding the
+    group to a device (a bound group makes DeviceMesh split its
+    communicator). Left lazy, an ``--fsdp`` run starts it inside FSDP2's
+    first all-gather, on FSDP2's own streams, and on four H100s such a run
+    came out off from one process from update 1 (by 10.5% in one call);
+    with the start here fsdp=4's update 1 equalled dp=4's on every rank in
+    one four-card call. A mitigation: the cause inside FSDP2 and NCCL is
+    not known (ROADMAP Queue 3)."""
+    dist.all_reduce(torch.zeros(1, device=device))
 
 
 def shutdown() -> None:

@@ -99,6 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--encoder-embed-dim", type=int, default=768)
     p.add_argument("--encoder-ffn-embed-dim", type=int, default=768)
     p.add_argument("--encoder-attention-heads", type=int, default=12)
+    # vestigial, as in the reference and JAX: run_train.sh passes it, nothing reads it
+    p.add_argument("--encoder-layers", type=int, default=12)
     p.add_argument("--activation-fn", default=None)
     p.add_argument("--pre-layernorm", action="store_true", default=None)
     p.add_argument("--encoder-normalize-before", action="store_true", default=None)

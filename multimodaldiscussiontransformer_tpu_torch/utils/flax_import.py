@@ -11,6 +11,11 @@ change:
   tables, ``spatial_pos_encoder``, ``graph_token_virtual_distance``,
   ``cls_token``, ``position_embeddings``) are copied as they are.
 
+The same mapping carries the comment-only classifier
+(``experiments/comment_only/text_bert.py::BertTextClassifier``), whose
+modules are named as the JAX bundle's: ``params/bert/...`` (the whole BERT
+tower), ``pooler/dense`` and ``classifier``.
+
 A tree in the scan layout (``ModelConfig.scan_layers``: ``scan_pairs`` and
 each tower's ``scan_layers`` stacked on a leading axis) is unstacked first
 (``utils/scan_params.py::to_unrolled``); ``to_flax_params`` emits the scan

@@ -52,6 +52,9 @@ def test_port_imports_nothing_of_jax():
     lines = dict(ln.split(" ", 1) for ln in proc.stdout.splitlines() if ln.startswith(("IMPORTED", "LEAKED", "NAMES")))
     assert int(lines["IMPORTED"]) >= 15, proc.stdout
     for module in ("experiments.hateful_discussions.dataset", "experiments.hateful_discussions.ingest",
+                   "experiments.hateful_discussions.two_stage", "experiments.hateful_discussions.context_ablation",
+                   "experiments.hateful_discussions.readiness", "experiments.comment_only",
+                   "experiments.comment_only.text_bert", "experiments.comment_only.trainval",
                    "utils.checkpoints", "utils.average_checkpoints"):
         assert f"multimodaldiscussiontransformer_tpu_torch.{module}" in lines["NAMES"].split(), module
     assert lines["LEAKED"] == "[]", proc.stdout
