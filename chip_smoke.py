@@ -6,9 +6,9 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: compile every kernel library from ``csrc/`` with nvcc (sm_90a;
-   one nvcc per source, all ten in parallel: the tree-attention forwards
-   (CUDA-core and tensor-core) and backward pairs (CUDA-core K2/K3 and
-   tensor-core), the masked (tower) attention's
+   one nvcc per source, all eleven in parallel: the tree-attention forwards
+   (CUDA-core and tensor-core) and backward pairs (CUDA-core K2/K3,
+   tensor-core bf16 and 3xTF32 float32), the masked (tower) attention's
    two forwards (CUDA-core and tensor-core), its CUDA-core backward pair
    and its one-pass tensor-core backward, the dense-bias attention's two
    forwards (CUDA-core and tensor-core)), report each library's registers
@@ -31,16 +31,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    LSE output and the backward pair against the plain version's forward
    and autograd gradients at S=33 (B=12), 129 (B=4), 257 (B=2) and the
    streaming sizes S=601 and 1025 (B=1), at rate 0.3 and 0, in float32
-   (the "cuda_core" route: K1, K2, K3) and bfloat16 (the "tensor_core"
-   route: the tensor-core forward and pair; K1's bf16 output and K2/K3's
-   bf16 gradients beside them); the adjoint identity in v on both routes;
-   times of each kernel (both forwards and both pairs on the same bf16
-   inputs), the plain version and SDPA (on the permuted bias and on a
-   contiguous copy); K1 and K2/K3 again on float32 inputs beside SDPA in
-   float32 and the float32 bounds. Then dropout_mask: the CUDA-core forward's mask read
-   back in float32 at S=33, the tensor-core forward's and both kernels of
-   the tensor-core pair's in bf16 at S=601 (ten tiles) equal the plain
-   Philox, and their kept fractions.
+   (the "tf32" route: K1 and the 3xTF32 pair; K2/K3's float32 gradients
+   beside them) and bfloat16 (the "tensor_core" route: the tensor-core
+   forward and pair; K1's bf16 output and K2/K3's bf16 gradients beside
+   them); the adjoint identity in v on both routes; times of each kernel
+   (both forwards and the bf16 pairs on the same bf16 inputs), the plain
+   version and SDPA (on the permuted bias and on a contiguous copy); K1,
+   the 3xTF32 pair and K2/K3 again on float32 inputs beside SDPA in
+   float32, the float32 bound and the 3xTF32 one. Then dropout_mask: the
+   CUDA-core forward's mask read back in float32 at S=33, the tensor-core
+   forward's and both kernels of the tensor-core pair's in bf16 and both
+   kernels of the 3xTF32 pair's in float32 at S=601 (ten tiles) equal the
+   plain Philox, and their kept fractions. Then kernel_vs_plain_train_dh16
+   at the workflows' width (S=33, B=12, H=4, DH 16): the float32 route
+   against the plain version and K2/K3, the bf16 route (K1, K2/K3)
+   against the plain version, and the float32 times.
 4. masked_vs_plain: the tower (masked) attention forward and backward
    kernels against their plain version at the tower shapes (text bottom
    B=256 S=100, text fusion B=256 S=104, ViT fusion B=64 S=201 without a
@@ -128,8 +133,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 10. train_cpu_agreement, train_cpu_agreement_fused: one scan update of the
    tiny config with every dropout at 0 in float32, on the card and on the
    CPU, without and with fused towers: gradients and updated parameters
-   agree (float32 runs the CUDA-core tree forward and pair K2/K3, and the
-   fused towers' CUDA-core forward and pair).
+   agree (float32 runs the CUDA-core tree forward and the 3xTF32 pair, and
+   the fused towers' CUDA-core forward and pair).
 11. dense_graph: the dense-bias slice at ``ModelConfig()`` width
     (GraphNodeFeature -> dense GraphAttnBias -> 5 graph stacks of 2
     layers, ``use_pallas_attention``, bf16 compute): scoring forwards at
@@ -303,7 +308,9 @@ import time
 
 # published H100 SXM peaks (NVIDIA data sheet; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# "3xtf32": a float32 product as three dense TF32 products (495 TFLOP/s, the
+# data sheet's 494.7): a third of the TF32 rate per float32 operation
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "3xtf32": 494.7e12 / 3}
 # kernel vs plain version, float32 with TF32 off: the two differ only in
 # the order of f32 sums over dh=64 and S keys (~1e-6 here); 1e-4 leaves
 # two orders of margin
@@ -331,6 +338,7 @@ KERNEL_SOURCE = f"{PKG}/csrc/tree_attention_fwd.cu"
 KERNEL_MMA_SOURCE = f"{PKG}/csrc/tree_attention_fwd_mma.cu"
 BWD_SOURCE = f"{PKG}/csrc/tree_attention_bwd.cu"
 BWD_MMA_SOURCE = f"{PKG}/csrc/tree_attention_bwd_mma.cu"
+BWD_TF32_SOURCE = f"{PKG}/csrc/tree_attention_bwd_tf32.cu"
 MASKED_FWD_SOURCE = f"{PKG}/csrc/masked_attention_fwd.cu"
 MASKED_FWD_MMA_SOURCE = f"{PKG}/csrc/masked_attention_fwd_mma.cu"
 MASKED_BWD_SOURCE = f"{PKG}/csrc/masked_attention_bwd.cu"
@@ -461,10 +469,18 @@ def _all_kernels():
 
 KERNEL_NAMES = (
     "tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv", "tree_attention_fwd_fused",
-    "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused",
+    "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused", "tree_attention_bwd_dq_tf32",
+    "tree_attention_bwd_dkv_tf32",
     "masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv", "masked_attention_bwd_fused",
     "masked_attention_fwd_fused", "biased_attention_fwd", "biased_attention_fwd_fused",
 )
+
+
+# the tree kernels of the bf16 route (DH 64), and those no bf16 path at DH
+# 64 may launch: K1, K2/K3 and the 3xTF32 pair
+TREE_TENSOR_CORE = ("tree_attention_fwd_fused", "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused")
+TREE_NOT_BF16 = ("tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv", "tree_attention_bwd_dq_tf32",
+                 "tree_attention_bwd_dkv_tf32")
 
 
 def _counts():
@@ -980,12 +996,14 @@ def _errors(got, want, names, tol, floor: float = 0.0) -> dict:
 
 
 def phase_kernel_train(seed: int):
-    """The routed kernels (float32: the CUDA-core K1, K2 and K3; bf16: the
-    tensor-core forward and backward pair) against the plain version's
-    forward and autograd gradients at rate 0.3 and 0, K1's bf16 output and
-    K2/K3's bf16 gradients beside them; the adjoint identity in v on both
-    routes; the forwards' and the tensor-core pair's masks read back
-    against the plain Philox; times."""
+    """The routed kernels (float32: the CUDA-core K1 and the 3xTF32 pair;
+    bf16: the tensor-core forward and backward pair) against the plain
+    version's forward and autograd gradients at rate 0.3 and 0, K2/K3's
+    float32 gradients, K1's bf16 output and K2/K3's bf16 gradients beside
+    them; the adjoint identity in v on both routes; the forwards' and both
+    tensor-core pairs' masks read back against the plain Philox; times;
+    then the DH-16 shape (``kernel_train_dh16``). Returns (rows, the DH-16
+    row)."""
     import torch
     import torch.nn.functional as F
 
@@ -1009,6 +1027,14 @@ def phase_kernel_train(seed: int):
                 tol = TRAIN_F32_REL if name == "float32" else TRAIN_BF16_REL
                 row[key][name] = _check_errors(got, want, ("out", "dq", "dk", "dv", "dlut"), tol,
                                                f"training kernels disagree at S={s} rate {rate} {name}")
+                if name == "float32":
+                    # the route took K1 and the 3xTF32 pair; K2/K3 on the
+                    # same inputs from K1's LSE, called directly
+                    k23 = cuda_core_pair(ta, qq, kk, vv, template, ids, lut, gg, scale, rate, dseed,
+                                         fwd=ta.tree_attention_fwd)
+                    torch.cuda.synchronize()
+                    row[key]["float32_cuda_core_pair"] = _check_errors(
+                        k23, want[1:], ("dq", "dk", "dv", "dlut"), tol, f"K2/K3 disagree at S={s} rate {rate} f32")
                 if name == "bfloat16":
                     # K1 on the same bf16 inputs, through its own wrapper
                     k1 = ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, rate, dseed)[0]
@@ -1049,10 +1075,13 @@ def phase_kernel_train(seed: int):
         dense = ta.assemble_bias(template, ids, lut, True).to(torch.bfloat16)
         dense_c = dense.contiguous()  # assemble_bias's layout is (B, S, S, H)
 
-        def plain_bwd():
-            leaves = [x.detach().requires_grad_(True) for x in (qq, kk, vv, lut)]
-            o = ta.tree_attention_dropout_reference(leaves[0], leaves[1], leaves[2], template, ids, leaves[3], dseed, TRAIN_RATE, scale)
-            o.backward(gg)
+        def plain_bwd_of(q_, k_, v_, g_):
+            def run():
+                leaves = [x.detach().requires_grad_(True) for x in (q_, k_, v_, lut)]
+                o = ta.tree_attention_dropout_reference(leaves[0], leaves[1], leaves[2], template, ids, leaves[3], dseed,
+                                                        TRAIN_RATE, scale)
+                o.backward(g_)
+            return run
 
         def sdpa_fwd_bwd(bias, q_=qq, k_=kk, v_=vv, g_=gg):
             def run():
@@ -1073,7 +1102,7 @@ def phase_kernel_train(seed: int):
             "dkv_cuda_core": lambda: ta.tree_attention_bwd_dkv(qq, kk, vv, gg, template, ids, lut, lse, delta, scale, True,
                                                                TRAIN_RATE, dseed),
             "plain_fwd": lambda: ta.tree_attention_dropout_reference(qq, kk, vv, template, ids, lut, dseed, TRAIN_RATE, scale),
-            "plain_fwd_bwd": plain_bwd,
+            "plain_fwd_bwd": plain_bwd_of(qq, kk, vv, gg),
             "library_fwd": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=dense, dropout_p=TRAIN_RATE, scale=scale),
             "library_fwd_bwd": sdpa_fwd_bwd(dense),
             "library_contiguous_fwd": lambda: F.scaled_dot_product_attention(
@@ -1089,13 +1118,18 @@ def phase_kernel_train(seed: int):
         row["pair_vs_cuda_core"] = row["ms"]["pair_cuda_core"] / row["ms"]["pair"]
         row["pair_vs_library_contiguous_fwd_bwd"] = row["ms"]["pair"] / row["ms"]["library_contiguous_fwd_bwd"]
         row["fwd_vs_library_contiguous"] = row["ms"]["fwd"] / row["ms"]["library_contiguous_fwd"]
-        # the float32 route (K1, K2, K3) on float32 inputs, SDPA on the same
-        # inputs with a contiguous float32 bias, and the float32 bounds
+        # the float32 route (K1, then the 3xTF32 pair) on float32 inputs,
+        # K2/K3 on the same inputs, SDPA on them with a contiguous float32
+        # bias, and the bounds: float32 on CUDA cores, and 3xTF32
         out32, lse32 = ta.tree_attention_fwd(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
         _, _, delta32 = ta.tree_attention_bwd_dq(q, k, v, out32, g, template, ids, lut, lse32, scale, True, TRAIN_RATE,
                                                  dseed)
         dense32 = ta.assemble_bias(template, ids, lut, True).contiguous()
         calls32 = {
+            "dq_tf32": lambda: ta.tree_attention_bwd_dq_tf32(q, k, v, out32, g, template, ids, lut, lse32, scale, True,
+                                                             TRAIN_RATE, dseed),
+            "dkv_tf32": lambda: ta.tree_attention_bwd_dkv_tf32(q, k, v, g, template, ids, lut, lse32, delta32, scale,
+                                                               True, TRAIN_RATE, dseed),
             "fwd_cuda_core": lambda: ta.tree_attention_fwd(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed,
                                                            True),
             "dq_cuda_core": lambda: ta.tree_attention_bwd_dq(q, k, v, out32, g, template, ids, lut, lse32, scale, True,
@@ -1106,8 +1140,20 @@ def phase_kernel_train(seed: int):
                 q, k, v, attn_mask=dense32, dropout_p=TRAIN_RATE, scale=scale),
             "library_contiguous_fwd_bwd": sdpa_fwd_bwd(dense32, q, k, v, g),
         }
+        if (s, b) == TRAIN_SHAPES[0]:  # the plain version in float32 at the canonical shape
+            calls32["plain_fwd"] = lambda: ta.tree_attention_dropout_reference(q, k, v, template, ids, lut, dseed,
+                                                                               TRAIN_RATE, scale)
+            calls32["plain_fwd_bwd"] = plain_bwd_of(q, k, v, g)
         row["float32"] = {"ms": {name: timed_ms(fn) for name, fn in calls32.items()},
-                          "bound": work_bounds(b, h, s, dh, "float32", 2 * b * s * s * 4 + 32 * h * 4)}
+                          "bound": work_bounds(b, h, s, dh, "float32", 2 * b * s * s * 4 + 32 * h * 4),
+                          "bound_3xtf32": work_bounds(b, h, s, dh, "3xtf32", 2 * b * s * s * 4 + 32 * h * 4)}
+        f32ms = row["float32"]["ms"]
+        f32ms["pair_tf32"] = f32ms["dq_tf32"] + f32ms["dkv_tf32"]
+        f32ms["pair_cuda_core"] = f32ms["dq_cuda_core"] + f32ms["dkv_cuda_core"]
+        if "plain_fwd_bwd" in f32ms:
+            f32ms["plain_bwd"] = f32ms["plain_fwd_bwd"] - f32ms["plain_fwd"]
+        row["float32"]["pair_tf32_vs_cuda_core"] = f32ms["pair_cuda_core"] / f32ms["pair_tf32"]
+        row["float32"]["pair_tf32_vs_library_contiguous_fwd_bwd"] = f32ms["pair_tf32"] / f32ms["library_contiguous_fwd_bwd"]
         emit({"phase": "kernel_vs_plain_train", **row})
         rows.append(row)
 
@@ -1151,12 +1197,21 @@ def phase_kernel_train(seed: int):
     want_bwd = ta.dropout_keep_mask(seed + 97, b_mma, h, s_mma, TRAIN_RATE, "cuda")
     same_bwd = {"dkv_kernel": bool(torch.equal(by_dv, want_bwd)), "dq_kernel": bool(torch.equal(by_dq, want_bwd))}
     kept_bwd = by_dv.float().mean().item()
+    # the 3xTF32 pair's, both kernels, in float32 on the same chunks
+    c0 = _counts()
+    by_dv, by_dq = read_back_tree_bwd_masks(ta, b_mma, h, s_mma, TRAIN_RATE, seed + 96, "float32")
+    launched_tf32 = dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, _counts()))))
+    want_tf32 = ta.dropout_keep_mask(seed + 96, b_mma, h, s_mma, TRAIN_RATE, "cuda")
+    same_tf32 = {"dkv_kernel": bool(torch.equal(by_dv, want_tf32)), "dq_kernel": bool(torch.equal(by_dq, want_tf32))}
+    kept_tf32 = by_dv.float().mean().item()
     emit({"phase": "dropout_mask", "S": s, "B": b, "H": h, "rate": TRAIN_RATE, "kept_fraction": kept,
           "equals_plain_philox": same,
           "tensor_core_bf16": {"S": s_mma, "B": b_mma, "kept_fraction": kept_mma, "equals_plain_philox": same_mma,
                                "launches": launched},
           "tensor_core_bwd_bf16": {"S": s_mma, "B": b_mma, "kept_fraction": kept_bwd, "equals_plain_philox": same_bwd,
-                                   "launches": launched_bwd}})
+                                   "launches": launched_bwd},
+          "tf32_bwd_float32": {"S": s_mma, "B": b_mma, "kept_fraction": kept_tf32, "equals_plain_philox": same_tf32,
+                               "launches": launched_tf32}})
     if not same or abs(kept - (1 - TRAIN_RATE)) > 0.02:
         raise AssertionError(f"kernel mask: equals plain {same}, kept fraction {kept}")
     if not same_mma or abs(kept_mma - (1 - TRAIN_RATE)) > 0.02 or launched["tree_attention_fwd_fused"] != len(chunks) \
@@ -1167,23 +1222,116 @@ def phase_kernel_train(seed: int):
             or (launched_bwd["tree_attention_bwd_dq_fused"], launched_bwd["tree_attention_bwd_dkv_fused"]) != (n_bwd, n_bwd) \
             or launched_bwd["tree_attention_bwd_dq"] or launched_bwd["tree_attention_bwd_dkv"]:
         raise AssertionError(f"tensor-core backward masks: equal plain {same_bwd}, kept fraction {kept_bwd}, {launched_bwd}")
-    return rows
+    if not all(same_tf32.values()) or abs(kept_tf32 - (1 - TRAIN_RATE)) > 0.02 \
+            or (launched_tf32["tree_attention_bwd_dq_tf32"], launched_tf32["tree_attention_bwd_dkv_tf32"]) != (n_bwd, n_bwd) \
+            or launched_tf32["tree_attention_bwd_dq"] or launched_tf32["tree_attention_bwd_dkv"]:
+        raise AssertionError(f"3xTF32 backward masks: equal plain {same_tf32}, kept fraction {kept_tf32}, {launched_tf32}")
+    return rows, kernel_train_dh16(ta, seed)
 
 
-def cuda_core_pair(ta, q, k, v, template, ids, lut, g, scale, rate, seed):
-    """dq, dk, dv, dlut of K2/K3 called directly on bf16 inputs (the route
-    sends bf16 to the tensor-core pair), from the tensor-core forward's
-    LSE."""
-    out, lse = ta.tree_attention_fwd_fused(q, k, v, template, ids, lut, scale, True, rate, seed, with_lse=True)
+# the workflows' graph attention (hidden 64 over 4 heads) at the canonical
+# bucket: float32 takes K1 and the 3xTF32 pair there, bf16 K1 and K2/K3
+DH16_SHAPE = {"S": 33, "B": 12, "H": 4, "dh": 16}
+
+
+def kernel_train_dh16(ta, seed: int) -> dict:
+    """The tree kernels at DH 16 (``DH16_SHAPE``, rate 0.3 and 0): float32
+    through ``tree_attention`` (K1, the 3xTF32 pair) against the plain
+    version and, from K1's LSE, against K2/K3 called directly; bf16 through
+    ``tree_attention`` (K1 and K2/K3: the "cuda_core" route) against the
+    plain version, its launches counted as the bf16 DH-16 path's; times of
+    the 3xTF32 pair, K2/K3 and SDPA in float32 beside both bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    s, b, h, dh = (DH16_SHAPE[n] for n in ("S", "B", "H", "dh"))
+    scale = dh ** -0.5
+    template, ids, lut = (t.cuda() for t in compact_inputs(s, b, h, seed + 16))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    q, k, v, g = (torch.randn(b, h, s, dh, device="cuda", generator=gen) for _ in range(4))
+    dseed = seed * 1000003 + 16
+    row = {"phase": "kernel_vs_plain_train_dh16", **DH16_SHAPE, "rate": TRAIN_RATE, "errors": {}, "errors_rate0": {}}
+    for rate, key in ((TRAIN_RATE, "errors"), (0.0, "errors_rate0")):
+        c0 = _counts()
+        got = _fwd_and_grads(ta.tree_attention, q, k, v, template, ids, lut, g, rate=rate, seed=dseed)
+        launched = dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, _counts()))))
+        want = _fwd_and_grads(ta.tree_attention_dropout_reference, q, k, v, template, ids, lut, g, rate=rate, seed=dseed)
+        k23 = cuda_core_pair(ta, q, k, v, template, ids, lut, g, scale, rate, dseed, fwd=ta.tree_attention_fwd)
+        torch.cuda.synchronize()
+        names = ("out", "dq", "dk", "dv", "dlut")
+        row[key]["float32"] = _check_errors(got, want, names, TRAIN_F32_REL, f"DH-16 float32 route at rate {rate}")
+        row[key]["float32_vs_cuda_core_pair"] = _check_errors(got[1:], k23, names[1:], TRAIN_F32_REL,
+                                                              f"DH-16 3xTF32 pair against K2/K3 at rate {rate}")
+        row[key]["float32_cuda_core_pair"] = _check_errors(k23, want[1:], names[1:], TRAIN_F32_REL,
+                                                           f"DH-16 K2/K3 at rate {rate}")
+        want_launch = {"tree_attention_fwd": 1, "tree_attention_bwd_dq_tf32": 1, "tree_attention_bwd_dkv_tf32": 1}
+        if launched != {n: want_launch.get(n, 0) for n in KERNEL_NAMES}:
+            raise AssertionError(f"DH-16 float32 route launched {launched}")
+        qq, kk, vv, gg = (x.to(torch.bfloat16) for x in (q, k, v, g))
+        _zero_counts()
+        got = _fwd_and_grads(ta.tree_attention, qq, kk, vv, template, ids, lut, gg, rate=rate, seed=dseed)
+        launched = dict(zip(KERNEL_NAMES, _counts()))
+        want = _fwd_and_grads(ta.tree_attention_dropout_reference, qq, kk, vv, template, ids, lut, gg, rate=rate,
+                              seed=dseed)
+        torch.cuda.synchronize()
+        row[key]["bfloat16"] = _check_errors(got, want, names, TRAIN_BF16_REL, f"DH-16 bf16 route at rate {rate}")
+        want_launch = {"tree_attention_fwd": 1, "tree_attention_bwd_dq": 1, "tree_attention_bwd_dkv": 1}
+        if launched != {n: want_launch.get(n, 0) for n in KERNEL_NAMES}:
+            raise AssertionError(f"DH-16 bf16 route launched {launched}")
+        row.setdefault("launches_bfloat16", launched)  # the rate-0.3 call's
+
+    out, lse = ta.tree_attention_fwd(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
+    _, _, delta = ta.tree_attention_bwd_dq_tf32(q, k, v, out, g, template, ids, lut, lse, scale, True, TRAIN_RATE, dseed)
+    dense = ta.assemble_bias(template, ids, lut, True).contiguous()
+
+    def sdpa_fwd_bwd():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v, dense)]
+        F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=scale).backward(g)
+
+    def plain_fwd_bwd():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v, lut)]
+        ta.tree_attention_dropout_reference(leaves[0], leaves[1], leaves[2], template, ids, leaves[3], dseed,
+                                            TRAIN_RATE, scale).backward(g)
+
+    calls = {
+        "dq_tf32": lambda: ta.tree_attention_bwd_dq_tf32(q, k, v, out, g, template, ids, lut, lse, scale, True,
+                                                         TRAIN_RATE, dseed),
+        "dkv_tf32": lambda: ta.tree_attention_bwd_dkv_tf32(q, k, v, g, template, ids, lut, lse, delta, scale, True,
+                                                           TRAIN_RATE, dseed),
+        "dq_cuda_core": lambda: ta.tree_attention_bwd_dq(q, k, v, out, g, template, ids, lut, lse, scale, True,
+                                                         TRAIN_RATE, dseed),
+        "dkv_cuda_core": lambda: ta.tree_attention_bwd_dkv(q, k, v, g, template, ids, lut, lse, delta, scale, True,
+                                                           TRAIN_RATE, dseed),
+        "plain_fwd": lambda: ta.tree_attention_dropout_reference(q, k, v, template, ids, lut, dseed, TRAIN_RATE, scale),
+        "plain_fwd_bwd": plain_fwd_bwd,
+        "library_contiguous_fwd_bwd": sdpa_fwd_bwd,
+    }
+    row["ms"] = {name: timed_ms(fn) for name, fn in calls.items()}
+    row["ms"]["plain_bwd"] = row["ms"]["plain_fwd_bwd"] - row["ms"]["plain_fwd"]
+    row["ms"]["pair_tf32"] = row["ms"]["dq_tf32"] + row["ms"]["dkv_tf32"]
+    row["ms"]["pair_cuda_core"] = row["ms"]["dq_cuda_core"] + row["ms"]["dkv_cuda_core"]
+    shared = 2 * b * s * s * 4 + 32 * h * 4
+    row["bound"] = work_bounds(b, h, s, dh, "float32", shared)
+    row["bound_3xtf32"] = work_bounds(b, h, s, dh, "3xtf32", shared)
+    emit(row)
+    return row
+
+
+def cuda_core_pair(ta, q, k, v, template, ids, lut, g, scale, rate, seed, fwd=None):
+    """dq, dk, dv, dlut of K2/K3 called directly (the route sends bf16 at
+    DH 64 to the tensor-core pair and float32 to the 3xTF32 one), from the
+    LSE of ``fwd`` (the tensor-core forward unless given)."""
+    fwd = ta.tree_attention_fwd_fused if fwd is None else fwd
+    out, lse = fwd(q, k, v, template, ids, lut, scale, True, rate, seed, with_lse=True)
     dq, dlut, delta = ta.tree_attention_bwd_dq(q, k, v, out, g, template, ids, lut, lse, scale, True, rate, seed)
     dk, dv = ta.tree_attention_bwd_dkv(q, k, v, g, template, ids, lut, lse, delta, scale, True, rate, seed)
     return [dq, dk, dv, dlut]
 
 
-def read_back_tree_bwd_masks(ta, b, h, s, rate, seed):
-    """The tensor-core backward pair's keep masks, read back in bf16 with q
-    = 0 and no bias (every weight 1/S), one 64-row or 64-key chunk c at a
-    time:
+def read_back_tree_bwd_masks(ta, b, h, s, rate, seed, dtype_name: str = "bfloat16"):
+    """The routed backward pair's keep masks (bf16: the tensor-core pair;
+    float32: the 3xTF32 pair), read back in ``dtype_name`` with q = 0 and no
+    bias (every weight 1/S), one 64-row or 64-key chunk c at a time:
     - the dk/dv kernel's, through dv: with g one-hot in rows c*64 ..
       c*64+63, dv[j, d] = keep[c*64 + d, j] / (S (1 - rate));
     - the dq kernel's, through dq: with v and g = e_0 on every row, ds_ij =
@@ -1193,7 +1341,8 @@ def read_back_tree_bwd_masks(ta, b, h, s, rate, seed):
     import torch
 
     dh = 64
-    zeros = torch.zeros(b, h, s, dh, device="cuda", dtype=torch.bfloat16)
+    dt = getattr(torch, dtype_name)
+    zeros = torch.zeros(b, h, s, dh, device="cuda", dtype=dt)
     template = torch.zeros(b, s, s, device="cuda")
     ids = torch.zeros(b, s, s, dtype=torch.int32, device="cuda")
     lut = torch.zeros(ta.LUT_SIZE, h, device="cuda")
@@ -1203,7 +1352,7 @@ def read_back_tree_bwd_masks(ta, b, h, s, rate, seed):
     for c in range(-(-s // dh)):
         onehot = torch.zeros(s + dh, dh, device="cuda")
         onehot[c * dh: (c + 1) * dh] = torch.eye(dh, device="cuda")
-        onehot = onehot[:s].to(torch.bfloat16).expand(b, h, s, dh).contiguous()
+        onehot = onehot[:s].to(dt).expand(b, h, s, dh).contiguous()
         v = zeros.clone().requires_grad_(True)
         ta.tree_attention(zeros, zeros, v, template, ids, lut, rate=rate, seed=seed).backward(onehot)
         by_dv.append(v.grad.float().transpose(-1, -2) != 0)
@@ -1916,10 +2065,12 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int, cont
     from multimodaldiscussiontransformer_tpu_torch.ops.masked_attention import kernel_route
 
     fwd, bwd = graph_layers(mc, contrastive)
-    tensor_core = ta.kernel_route(getattr(torch, mc.dtype), mc.encoder_embed_dim // mc.encoder_attention_heads) == "tensor_core"
+    route = ta.kernel_route(getattr(torch, mc.dtype), mc.encoder_embed_dim // mc.encoder_attention_heads)
     recompute = bwd if mc.remat else 0
-    route = [k * (fwd + recompute), k * bwd, k * bwd]  # forward, dq, dk/dv of the route
-    tree = [0, 0, 0] + route if tensor_core else route + [0, 0, 0]
+    f, d = k * (fwd + recompute), k * bwd  # forwards; dq and dk/dv each
+    # (CUDA-core fwd, dq, dkv; tensor-core fwd, dq, dkv; 3xTF32 dq, dkv)
+    tree = {"tensor_core": [0, 0, 0, f, d, d, 0, 0], "tf32": [f, 0, 0, 0, 0, 0, d, d],
+            "cuda_core": [f, d, d, 0, 0, 0, 0, 0]}[route]
     if not fused:
         return tree + [0, 0, 0, 0, 0, 0, 0]
     _, _, text_bwd, vit_bwd = tower_launches(mc)
@@ -2066,9 +2217,7 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
     if bad or launches != total_want:
         raise AssertionError(f"{phase}: kernel launches per update (got, expected) {bad}; run {launches} vs {total_want}")
     by_name = dict(zip(KERNEL_NAMES, launches))
-    tree_cuda_core = ("tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv")
-    tree_tensor_core = ("tree_attention_fwd_fused", "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused")
-    if any(by_name[n] for n in tree_cuda_core) or not all(by_name[n] for n in tree_tensor_core):
+    if any(by_name[n] for n in TREE_NOT_BF16) or not all(by_name[n] for n in TREE_TENSOR_CORE):
         raise AssertionError(f"{phase}: bf16 graph layers must take the tensor-core tree kernels only: {by_name}")
     if fused and not (by_name["masked_attention_fwd_fused"] and by_name["masked_attention_bwd_fused"]):
         raise AssertionError(f"{phase}: a tensor-core tower kernel never launched: {by_name}")
@@ -2470,7 +2619,7 @@ def phase_profile(seed: int, card: str):
 
     mc = config_from_args(build_parser().parse_args(["--synthetic", *CANONICAL_FLAGS])).model
     # every canonical update launches the same tree kernels (k = 3, the tail padded)
-    per_update = sum(expected_launches(mc, False, 3, False, TEXT_LEN)[:6])
+    per_update = sum(expected_launches(mc, False, 3, False, TEXT_LEN)[:8])
     with tempfile.TemporaryDirectory() as d:
         trace_dir = os.path.join(d, "trace")
         _zero_counts()
@@ -2803,10 +2952,9 @@ class _RecordedUpdates:
         """Every step launched what the config expects, and the graph
         layers only the tensor-core tree kernels."""
         bad = [(r["launches"], r["want"]) for r in self.records if r["launches"] != r["want"]]
-        cuda_core = [launches[n] for n in ("tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv")]
-        tensor_core = [launches[n] for n in ("tree_attention_fwd_fused", "tree_attention_bwd_dq_fused",
-                                             "tree_attention_bwd_dkv_fused")]
-        if not self.records or bad or any(cuda_core) or not all(tensor_core):
+        other = [launches[n] for n in TREE_NOT_BF16]
+        tensor_core = [launches[n] for n in TREE_TENSOR_CORE]
+        if not self.records or bad or any(other) or not all(tensor_core):
             raise AssertionError(f"{what}: tree launches per step (got, expected) {bad[:3]}; run {launches}")
 
 
@@ -5313,7 +5461,7 @@ def main(argv=None) -> int:
         return 0
     try:
         rows = clocked("kernel", phase_kernel, args.seed)
-        train_rows = clocked("kernel_train", phase_kernel_train, args.seed)
+        train_rows, dh16_row = clocked("kernel_train", phase_kernel_train, args.seed)
         masked_rows = clocked("masked", phase_masked, args.seed)
         biased_rows = clocked("biased", phase_biased, args.seed)
         scorer, scoring, rng, unfused = clocked("scoring", phase_scoring, args.seed)
@@ -5380,7 +5528,8 @@ def main(argv=None) -> int:
                "parallel": parallel["launches"], "parallel_tp_h6": parallel["launches_tp_h6"],
                "sequence_parallel": sequence_parallel["launches"],
                "sequence_parallel_ring_tiles": sequence_parallel["launches_ring_tiles"],
-               "workflows": workflows["launches"]}
+               "workflows": workflows["launches"],
+               "kernel_vs_plain_train_dh16_bfloat16": dh16_row["launches_bfloat16"]}
 
     def paths(name, extra=None):
         out = {path: counts[name] for path, counts in by_path.items()}
@@ -5399,10 +5548,33 @@ def main(argv=None) -> int:
     tree_bwd_dkv_replaces = [f"{TPU_KERNELS}:1007", f"{TPU_KERNELS}:558"]
 
     def k23_worst(outputs):
-        """K2/K3's largest max-abs error of ``outputs``: their float32
-        checks and their bf16 checks, every training shape, both rates."""
-        return max(r[k][name][o]["max_abs_err"] for r in train_rows for k in ("errors", "errors_rate0")
-                   for name in ("float32", "bfloat16_cuda_core_pair") for o in outputs)
+        """K2/K3's largest max-abs error of ``outputs``: their float32 and
+        bf16 checks (called directly) at every training shape and their
+        checks at DH 16, both rates."""
+        return max([r[k][name][o]["max_abs_err"] for r in train_rows for k in ("errors", "errors_rate0")
+                    for name in ("float32_cuda_core_pair", "bfloat16_cuda_core_pair") for o in outputs]
+                   + [dh16_row[k][name][o]["max_abs_err"] for k in ("errors", "errors_rate0")
+                      for name in ("float32_cuda_core_pair", "bfloat16") for o in outputs])
+
+    def tf32_worst(outputs):
+        """The 3xTF32 pair's largest max-abs error of ``outputs`` against the
+        plain version: the float32 route at every training shape and at DH
+        16, both rates."""
+        return max(r[k]["float32"][o]["max_abs_err"] for r in train_rows + [dh16_row]
+                   for k in ("errors", "errors_rate0") for o in outputs)
+
+    f32_row = train_row["float32"]  # S=33, B=12 on float32 inputs
+    tf32_shapes = [{"S": r["S"], "B": r["B"], "pair_ms": r["float32"]["ms"]["pair_tf32"],
+                    "dq_ms": r["float32"]["ms"]["dq_tf32"], "dkv_ms": r["float32"]["ms"]["dkv_tf32"],
+                    "cuda_core_pair_ms": r["float32"]["ms"]["pair_cuda_core"],
+                    "library_ms": r["float32"]["ms"]["library_contiguous_fwd_bwd"],
+                    "bound_f32_ms": r["float32"]["bound"]["dq"][0] + r["float32"]["bound"]["dkv"][0],
+                    "bound_3xtf32_ms": r["float32"]["bound_3xtf32"]["dq"][0] + r["float32"]["bound_3xtf32"]["dkv"][0]}
+                   for r in train_rows]
+    tf32_dh16 = {**DH16_SHAPE, "pair_ms": dh16_row["ms"]["pair_tf32"], "cuda_core_pair_ms": dh16_row["ms"]["pair_cuda_core"],
+                 "library_ms": dh16_row["ms"]["library_contiguous_fwd_bwd"], "plain_bwd_ms": dh16_row["ms"]["plain_bwd"],
+                 "bound_f32_ms": dh16_row["bound"]["dq"][0] + dh16_row["bound"]["dkv"][0],
+                 "bound_3xtf32_ms": dh16_row["bound_3xtf32"]["dq"][0] + dh16_row["bound_3xtf32"]["dkv"][0]}
 
     def h6(op, ms_key, bound_key, errs):
         """A kernel's numbers at H = 6 (a tp=2 rank's heads) from
@@ -5449,22 +5621,45 @@ def main(argv=None) -> int:
                  "over every training shape and both rates"},
         {**_kernel_entry(
             "tree_attention_bwd_dq", BWD_SOURCE, f"{TPU_KERNELS}:1148", tree_bwd_dq_replaces,
-            agree["tree_attention_bwd_dq"], train_row, k23_worst(("dq", "dlut")), "dq_cuda_core",
-            ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dq"),
+            dh16_row["launches_bfloat16"]["tree_attention_bwd_dq"], train_row, k23_worst(("dq", "dlut")),
+            "dq_cuda_core", ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dq"),
          "launches_by_path": paths("tree_attention_bwd_dq"),
          "float32": _float32_numbers(train_row, "dq_cuda_core", "library_contiguous_fwd_bwd", "dq"),
-         "note": "K2, the float32 route (and DH 16, 32, 128): launches from train_cpu_agreement, 0 on the bf16 "
-                 "paths; times on bf16 inputs at S=33, B=12, rate 0.3; plain_ms is the plain version's whole "
-                 "autograd backward (dq, dk, dv, dlut); library_ms is SDPA forward + backward at rate 0 on a "
-                 "contiguous copy of the dense bias; max_abs_err over its float32 checks and its bf16 checks "
-                 "(called directly) at every training shape and both rates"},
+         "note": "K2, the bf16 route at DH 16, 32, 128 (the float32 route's backward is the 3xTF32 pair): "
+                 "launches from the bf16 DH-16 call through tree_attention (kernel_vs_plain_train_dh16), "
+                 "0 on every other path; times on bf16 inputs at S=33, B=12, rate 0.3 (float32: on float32 "
+                 "inputs); plain_ms is the plain version's whole autograd backward (dq, dk, dv, dlut); library_ms "
+                 "is SDPA forward + backward at rate 0 on a contiguous copy of the dense bias; max_abs_err over "
+                 "its checks called directly (float32, bf16) at every training shape and at DH 16, both rates"},
         {**_kernel_entry(
             "tree_attention_bwd_dkv", BWD_SOURCE, f"{TPU_KERNELS}:1148", tree_bwd_dkv_replaces,
-            agree["tree_attention_bwd_dkv"], train_row, k23_worst(("dk", "dv")), "dkv_cuda_core",
-            ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dkv"),
+            dh16_row["launches_bfloat16"]["tree_attention_bwd_dkv"], train_row, k23_worst(("dk", "dv")),
+            "dkv_cuda_core", ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dkv"),
          "launches_by_path": paths("tree_attention_bwd_dkv"),
          "float32": _float32_numbers(train_row, "dkv_cuda_core", "library_contiguous_fwd_bwd", "dkv"),
          "note": "K3; launches, times, plain_ms, library_ms and max_abs_err as for tree_attention_bwd_dq"},
+        {**_kernel_entry(
+            "tree_attention_bwd_dq_tf32", BWD_TF32_SOURCE, f"{TPU_KERNELS}:1148", tree_bwd_dq_replaces,
+            agree["tree_attention_bwd_dq_tf32"], f32_row, tf32_worst(("dq", "dlut")), "dq_tf32",
+            f32_row["ms"]["plain_bwd"], f32_row["ms"]["library_contiguous_fwd_bwd"], "dq"),
+         "launches_by_path": paths("tree_attention_bwd_dq_tf32"),
+         "bound_3xtf32_ms": f32_row["bound_3xtf32"]["dq"][0], "cuda_core_ms": f32_row["ms"]["dq_cuda_core"],
+         "shapes": tf32_shapes, "dh16": tf32_dh16,
+         "note": "the float32 route's backward (any DH), 3xTF32 on mma.sync: launches from train_cpu_agreement, "
+                 "0 on the bf16 paths; times on float32 inputs at S=33, B=12, H=12, DH 64, rate 0.3; cuda_core_ms is "
+                 "K2 on the same inputs; bound_ms is the float32 bound (67 TFLOP/s), bound_3xtf32_ms three TF32 "
+                 "products per float32 one at 494.7 TFLOP/s; plain_ms is the plain version's whole autograd backward "
+                 "in float32; library_ms is SDPA forward + backward in float32 at rate 0 on a contiguous bias; "
+                 "max_abs_err is the worst float32 error of dq and dlut over every training shape, DH 16 and both "
+                 "rates; shapes: the pair (dq + dk/dv) at every training shape"},
+        {**_kernel_entry(
+            "tree_attention_bwd_dkv_tf32", BWD_TF32_SOURCE, f"{TPU_KERNELS}:1148", tree_bwd_dkv_replaces,
+            agree["tree_attention_bwd_dkv_tf32"], f32_row, tf32_worst(("dk", "dv")), "dkv_tf32",
+            f32_row["ms"]["plain_bwd"], f32_row["ms"]["library_contiguous_fwd_bwd"], "dkv"),
+         "launches_by_path": paths("tree_attention_bwd_dkv_tf32"),
+         "bound_3xtf32_ms": f32_row["bound_3xtf32"]["dkv"][0], "cuda_core_ms": f32_row["ms"]["dkv_cuda_core"],
+         "note": "the 3xTF32 dk/dv kernel; launches, times, bounds, plain_ms, library_ms as for "
+                 "tree_attention_bwd_dq_tf32 (max_abs_err: dk and dv)"},
         {**_kernel_entry(
             "tree_attention_bwd_dq_fused", BWD_MMA_SOURCE, f"{TPU_KERNELS}:1148", tree_bwd_dq_replaces,
             train_big["tree_attention_bwd_dq_fused"], train_row, _worst(train_rows, ("dq", "dlut")), "dq",

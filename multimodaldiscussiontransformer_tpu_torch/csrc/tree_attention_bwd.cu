@@ -1,4 +1,8 @@
-// Compact-bias tree attention, backward, for Hopper (sm_90a): two kernels.
+// Compact-bias tree attention, backward, for Hopper (sm_90a): two kernels
+// on CUDA cores, K2 and K3. The route (ops/tree_attention.py::kernel_route)
+// sends them bf16 at DH 16, 32 and 128; bf16 at DH 64 takes the tensor-core
+// pair of tree_attention_bwd_mma.cu and float32 the 3xTF32 pair of
+// tree_attention_bwd_tf32.cu. They take float32 and every DH still.
 //
 // Replaces the Pallas backward kernels of the JAX package
 // (multimodaldiscussiontransformer_tpu/ops/tree_attention.py)
@@ -34,8 +38,12 @@
 // What bounds them: at S = 33, B = 12, H = 12, DH = 64 the pair reads q, k,
 // v, g, out (bf16) and the head-shared tpl/ids and writes dq, dk, dv (~3.5
 // MB, ~1 us of HBM time) for ~10 B H S^2 DH = 100 MFLOP; bound by memory and
-// launch overhead. Like the forward they run on CUDA cores with f32
-// accumulation; tensor cores are left for a later change.
+// launch overhead. In float32 at S = 1025, B = 1, H = 12 the pair does 14 B
+// H S^2 DH = 11.3 GFLOP, 169 us at the 67 TFLOP/s of float32 on CUDA cores:
+// bound by FFMA issue. Like the forward they run on CUDA cores with f32
+// accumulation; the
+// tensor-core pairs are tree_attention_bwd_mma.cu (bf16) and
+// tree_attention_bwd_tf32.cu (float32 in 3xTF32).
 
 #include "tree_attention_common.cuh"
 

@@ -32,6 +32,7 @@ SOURCES = {
     "tree_fwd_mma": CSRC / "tree_attention_fwd_mma.cu",
     "tree_bwd": CSRC / "tree_attention_bwd.cu",
     "tree_bwd_mma": CSRC / "tree_attention_bwd_mma.cu",
+    "tree_bwd_tf32": CSRC / "tree_attention_bwd_tf32.cu",
     "masked_fwd": CSRC / "masked_attention_fwd.cu",
     "masked_fwd_mma": CSRC / "masked_attention_fwd_mma.cu",
     "masked_bwd": CSRC / "masked_attention_bwd.cu",
@@ -58,6 +59,8 @@ ENTRY_POINTS = {
     "tree_bwd": {"tree_attention_bwd_dq": [_P] * 12 + _TREE_TAIL, "tree_attention_bwd_dkv": [_P] * 11 + _TREE_TAIL},
     "tree_bwd_mma": {"tree_attention_bwd_dq_mma": [_P] * 12 + _TREE_TAIL,
                      "tree_attention_bwd_dkv_mma": [_P] * 11 + _TREE_TAIL},
+    "tree_bwd_tf32": {"tree_attention_bwd_dq_tf32": [_P] * 12 + _TREE_TAIL,
+                      "tree_attention_bwd_dkv_tf32": [_P] * 11 + _TREE_TAIL},
     "masked_fwd": {"masked_attention_fwd": [_P] * 6 + _MASKED_TAIL},
     "masked_fwd_mma": {"masked_attention_fwd_mma": [_P] * 6 + _MASKED_TAIL},
     "masked_bwd": {"masked_attention_bwd_dq": [_P] * 9 + _MASKED_TAIL, "masked_attention_bwd_dkv": [_P] * 9 + _MASKED_TAIL},
@@ -71,6 +74,7 @@ ERROR_STRINGS = {
     "tree_fwd_mma": "tree_attention_fwd_mma_error_string",
     "tree_bwd": "tree_attention_bwd_error_string",
     "tree_bwd_mma": "tree_attention_bwd_mma_error_string",
+    "tree_bwd_tf32": "tree_attention_bwd_tf32_error_string",
     "masked_fwd": "masked_attention_fwd_error_string",
     "masked_fwd_mma": "masked_attention_fwd_mma_error_string",
     "masked_bwd": "masked_attention_bwd_error_string",

@@ -29,7 +29,8 @@ over the data and sp axes).
 Tiles go to the port's tree kernels (``ops/tree_attention.py``): on CUDA
 tensors the route ``ta.kernel_route`` names (bf16 at dh 64: the tensor-core
 forward with LSE and the tensor-core dq and dk/dv kernels; float32: the
-CUDA-core K1 and K2/K3), which raise if a launch fails; on CPU tensors the
+CUDA-core K1 and the 3xTF32 dq and dk/dv kernels), which raise if a launch
+fails; on CPU tensors the
 plain versions of the same three tile functions (``tile_forward_plain``,
 ``tile_dq_plain``, ``tile_dkv_plain``). The JAX ring is XLA-level, not
 Pallas, and so is the merge here: torch ops.
@@ -200,8 +201,11 @@ def tile_ops(q: torch.Tensor):
         return tile_forward_plain, tile_dq_plain, tile_dkv_plain
     if q.device.type != "cuda":
         raise ValueError(f"ring tree attention runs on cpu or cuda, not {q.device}")
-    if ta.kernel_route(q.dtype, q.shape[-1]) == "tensor_core":
+    route = ta.kernel_route(q.dtype, q.shape[-1])
+    if route == "tensor_core":
         fwd, dq, dkv = ta.tree_attention_fwd_fused, ta.tree_attention_bwd_dq_fused, ta.tree_attention_bwd_dkv_fused
+    elif route == "tf32":
+        fwd, dq, dkv = ta.tree_attention_fwd, ta.tree_attention_bwd_dq_tf32, ta.tree_attention_bwd_dkv_tf32
     else:
         fwd, dq, dkv = ta.tree_attention_fwd, ta.tree_attention_bwd_dq, ta.tree_attention_bwd_dkv
 
@@ -209,12 +213,6 @@ def tile_ops(q: torch.Tensor):
         return fwd(q_, k_, v_, t_, i_, l_, scale, double_add, rate, seed, with_lse=True)
 
     return forward, dq, dkv
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned (the tensor-core kernels' copies)."""
-    t = t.contiguous()
-    return t.clone() if t.data_ptr() % 16 else t
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +236,7 @@ class RingTreeAttention(torch.autograd.Function):
         for t in range(n):
             src = (rank - t) % n
             cols = slice(src * c, (src + 1) * c)
-            o_t, lse_t = fwd(q, _aligned(kv[0]), _aligned(kv[1]), template[:, :, cols].contiguous(),
+            o_t, lse_t = fwd(q, ta.aligned16(kv[0]), ta.aligned16(kv[1]), template[:, :, cols].contiguous(),
                              ids[:, :, cols].contiguous(), lut, scale, double_add, rate,
                              tile_seed(seed, shard, rank, src, n))
             if out is None:
@@ -261,7 +259,7 @@ class RingTreeAttention(torch.autograd.Function):
         n, rank = dist.get_world_size(group), dist.get_rank(group)
         c = q.shape[2]
         _, dq_tile, dkv_tile = tile_ops(q)
-        g = _aligned(g)
+        q, out, g = (ta.aligned16(x) for x in (q, out, g))
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         dlut = torch.zeros(lut.shape, dtype=torch.float32, device=q.device)
         kv = torch.stack([k, v])
@@ -269,7 +267,7 @@ class RingTreeAttention(torch.autograd.Function):
         for t in range(n):
             src = (rank - t) % n
             cols = slice(src * c, (src + 1) * c)
-            kb, vb = _aligned(kv[0]), _aligned(kv[1])
+            kb, vb = ta.aligned16(kv[0]), ta.aligned16(kv[1])
             tpl_t, ids_t = template[:, :, cols].contiguous(), ids[:, :, cols].contiguous()
             sd = tile_seed(seed, shard, rank, src, n)
             dq_t, dlut_t, delta = dq_tile(q, kb, vb, out, g, tpl_t, ids_t, lut, lse, scale, double_add, rate, sd)

@@ -30,12 +30,17 @@ dtype and head dim:
   The forward is ``csrc/tree_attention_fwd_mma.cu`` and the backward pair
   ``csrc/tree_attention_bwd_mma.cu``, all on mma.sync with bf16 operands,
   streaming over S in tiles;
-- "cuda_core": float32 and DH 16, 32 and 128. The forward is
+- "tf32": float32 at DH 16, 32, 64 and 128 (the card-vs-CPU steps, the
+  tiny configs). The forward is ``csrc/tree_attention_fwd.cu`` (f32 on
+  CUDA cores) and the backward pair ``csrc/tree_attention_bwd_tf32.cu``,
+  every product on mma.sync in 3xTF32 (each operand split into two TF32
+  parts, the three larger cross products summed in f32), which holds the
+  float32 tolerances that one TF32 or bf16 product would break;
+- "cuda_core": bf16 at DH 16, 32 and 128. The forward is
   ``csrc/tree_attention_fwd.cu`` and the backward pair
-  ``csrc/tree_attention_bwd.cu`` (f32 arithmetic on CUDA cores), which hold
-  the float32 tolerances that bf16 rounding of p and ds would break.
+  ``csrc/tree_attention_bwd.cu`` (f32 arithmetic on CUDA cores).
 Both forwards compute one function, draw one dropout mask and write one
-LSE, and both backward pairs read it, so either forward feeds either pair.
+LSE, and every backward pair reads it, so either forward feeds any pair.
 The kernels are built and bound by ``ops/cuda_lib.py`` at their first use;
 on a CUDA tensor the wrapper launches them or raises.
 """
@@ -274,8 +279,8 @@ def tree_attention_fwd(
     q, k, v, template, ids, lut, scale: float, double_add: bool = True,
     rate: float = 0.0, seed: int = 0, with_lse: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch the CUDA-core forward kernel, the "cuda_core" route's (it takes
-    bf16 and every DH of _HEAD_DIMS too): (out, lse or None).
+    """Launch the CUDA-core forward kernel, the forward of the "tf32" and
+    "cuda_core" routes (it takes bf16 at DH 64 too): (out, lse or None).
     ``launches`` counts launches."""
     _check_cuda_inputs(q, k, v, template, ids, lut)
     return _launch_forward(tree_attention_fwd, ("tree_fwd", "tree_attention_fwd"), q, k, v, template, ids, lut, scale,
@@ -305,33 +310,50 @@ def _launch_forward(wrapper, entry: Tuple[str, str], q, k, v, template, ids, lut
 # the tensor-core kernels take these; see ``kernel_route``
 TENSOR_CORE_DTYPE = torch.bfloat16
 TENSOR_CORE_HEAD_DIM = 64
+# the 3xTF32 backward pair takes this, at every DH of _HEAD_DIMS
+TF32_DTYPE = torch.float32
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernels the CUDA path launches, in both directions, for q of
-    this dtype and head dim: "tensor_core" for bf16 at DH = 64
-    (``tree_attention_fwd_fused``, then ``tree_attention_bwd_dq_fused`` and
-    ``tree_attention_bwd_dkv_fused``, any S), else "cuda_core"
-    (``tree_attention_fwd``, then ``tree_attention_bwd_dq`` and
-    ``tree_attention_bwd_dkv``, f32 arithmetic on CUDA cores). A choice
-    between kernels, not a fallback: each raises if it fails."""
+    this dtype and head dim:
+    - "tensor_core" for bf16 at DH = 64: ``tree_attention_fwd_fused``, then
+      ``tree_attention_bwd_dq_fused`` and ``tree_attention_bwd_dkv_fused``
+      (any S);
+    - "tf32" for float32 (any DH of _HEAD_DIMS): ``tree_attention_fwd``
+      (f32 on CUDA cores), then ``tree_attention_bwd_dq_tf32`` and
+      ``tree_attention_bwd_dkv_tf32`` (3xTF32 on tensor cores, any S);
+    - "cuda_core" for bf16 at DH 16, 32 and 128: ``tree_attention_fwd``,
+      then ``tree_attention_bwd_dq`` and ``tree_attention_bwd_dkv`` (f32
+      arithmetic on CUDA cores).
+    A choice between kernels, not a fallback: each raises if it fails."""
+    if dtype == TF32_DTYPE:
+        return "tf32"
     tensor_core = dtype == TENSOR_CORE_DTYPE and head_dim == TENSOR_CORE_HEAD_DIM
     return "tensor_core" if tensor_core else "cuda_core"
 
 
-def _check_tensor_core_inputs(kernel: str, q, *tensors) -> None:
+def _check_tensor_core_inputs(kernel: str, q, *tensors, route: str = "tensor_core") -> None:
     """What the tensor-core kernels take besides ``_check_cuda_inputs``: the
-    "tensor_core" route's dtype and head dim, q and ``tensors`` (k, v and g,
-    out) 16-byte aligned for their 16-byte copies, and CUDA tensors."""
+    dtype (and, for "tensor_core", the head dim) of their ``route``, q and
+    ``tensors`` (k, v and g, out) 16-byte aligned for their 16-byte copies,
+    and CUDA tensors."""
     dh = q.shape[-1]
-    if kernel_route(q.dtype, dh) != "tensor_core":
-        raise ValueError(
-            f"the tensor-core tree {kernel} takes {TENSOR_CORE_DTYPE} at DH={TENSOR_CORE_HEAD_DIM}, got {q.dtype} DH={dh}"
-        )
+    name, takes = (("3xTF32", f"{TF32_DTYPE}") if route == "tf32"
+                   else ("tensor-core", f"{TENSOR_CORE_DTYPE} at DH={TENSOR_CORE_HEAD_DIM}"))
+    if kernel_route(q.dtype, dh) != route:
+        raise ValueError(f"the {name} tree {kernel} takes {takes}, got {q.dtype} DH={dh}")
     if any(t.data_ptr() % 16 for t in (q, *tensors)):
-        raise ValueError(f"the tensor-core tree {kernel} takes 16-byte aligned q, k, v (and g, out)")
+        raise ValueError(f"the {name} tree {kernel} takes 16-byte aligned q, k, v (and g, out)")
     if q.device.type != "cuda":
-        raise ValueError(f"the tensor-core tree {kernel} runs on cuda, not {q.device}")
+        raise ValueError(f"the {name} tree {kernel} runs on cuda, not {q.device}")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the tensor-core kernels'
+    16-byte copies): itself, or a copy of the same values."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def tree_attention_fwd_fused(
@@ -393,8 +415,9 @@ def tree_attention_bwd_dq(
     q, k, v, out, g, template, ids, lut, lse, scale: float, double_add: bool = True,
     rate: float = 0.0, seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the CUDA-core q-major backward kernel, the "cuda_core" route's
-    (it takes bf16 and every DH of _HEAD_DIMS too): (dq, dlut f32 (32, H),
+    """Launch the CUDA-core q-major backward kernel K2, the "cuda_core"
+    route's (it takes float32 and bf16 at every DH of _HEAD_DIMS; the route
+    sends it bf16 at DH 16, 32 and 128): (dq, dlut f32 (32, H),
     delta f32 (B, H, S), the per-row g . out that ``tree_attention_bwd_dkv``
     takes). It reads the LSE of either forward."""
     _check_cuda_inputs(q, k, v, template, ids, lut, out=out, g=g, lse=lse)
@@ -439,8 +462,36 @@ def tree_attention_bwd_dkv_fused(
                        template, ids, lut, lse, delta, scale, double_add, rate, seed)
 
 
+def tree_attention_bwd_dq_tf32(
+    q, k, v, out, g, template, ids, lut, lse, scale: float, double_add: bool = True,
+    rate: float = 0.0, seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the 3xTF32 q-major backward kernel: (dq, dlut, delta), as
+    ``tree_attention_bwd_dq`` returns them, from the LSE of either forward.
+    Takes float32 CUDA tensors (the "tf32" route, any DH of _HEAD_DIMS),
+    with q, k, v, g and out 16-byte aligned."""
+    _check_cuda_inputs(q, k, v, template, ids, lut, out=out, g=g, lse=lse)
+    _check_tensor_core_inputs("backward", q, k, v, g, out, route="tf32")
+    return _launch_dq(tree_attention_bwd_dq_tf32, ("tree_bwd_tf32", "tree_attention_bwd_dq_tf32"), q, k, v, out, g,
+                      template, ids, lut, lse, scale, double_add, rate, seed)
+
+
+def tree_attention_bwd_dkv_tf32(
+    q, k, v, g, template, ids, lut, lse, delta, scale: float, double_add: bool = True,
+    rate: float = 0.0, seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the 3xTF32 k-major backward kernel: (dk, dv), from the
+    ``delta`` of any dq kernel. The input rules of
+    ``tree_attention_bwd_dq_tf32`` (q, k, v and g 16-byte aligned)."""
+    _check_cuda_inputs(q, k, v, template, ids, lut, g=g, lse=lse, delta=delta)
+    _check_tensor_core_inputs("backward", q, k, v, g, route="tf32")
+    return _launch_dkv(tree_attention_bwd_dkv_tf32, ("tree_bwd_tf32", "tree_attention_bwd_dkv_tf32"), q, k, v, g,
+                       template, ids, lut, lse, delta, scale, double_add, rate, seed)
+
+
 KERNELS = (tree_attention_fwd, tree_attention_bwd_dq, tree_attention_bwd_dkv, tree_attention_fwd_fused,
-           tree_attention_bwd_dq_fused, tree_attention_bwd_dkv_fused)
+           tree_attention_bwd_dq_fused, tree_attention_bwd_dkv_fused, tree_attention_bwd_dq_tf32,
+           tree_attention_bwd_dkv_tf32)
 for _fn in KERNELS:
     _fn.launches = 0
 
@@ -467,12 +518,18 @@ class TreeAttention(torch.autograd.Function):
         q, k, v, template, ids, lut, out, lse = ctx.saved_tensors
         scale, double_add, rate, seed = ctx.args
         g = g.contiguous()
-        if kernel_route(q.dtype, q.shape[-1]) == "tensor_core":
-            if g.data_ptr() % 16:  # a view off a 16-byte boundary: the kernels copy g in 16-byte pieces
-                g = g.clone()
-            bwd_dq, bwd_dkv = tree_attention_bwd_dq_fused, tree_attention_bwd_dkv_fused
-        else:
+        route = kernel_route(q.dtype, q.shape[-1])
+        if route == "cuda_core":
             bwd_dq, bwd_dkv = tree_attention_bwd_dq, tree_attention_bwd_dkv
+        else:
+            # the tensor-core pairs copy in 16-byte pieces: a view off a
+            # 16-byte boundary (g, or what K1 was given) goes as an aligned copy
+            g = aligned16(g)
+            if route == "tf32":
+                q, k, v, out = (aligned16(x) for x in (q, k, v, out))
+                bwd_dq, bwd_dkv = tree_attention_bwd_dq_tf32, tree_attention_bwd_dkv_tf32
+            else:
+                bwd_dq, bwd_dkv = tree_attention_bwd_dq_fused, tree_attention_bwd_dkv_fused
         dq, dlut, delta = bwd_dq(q, k, v, out, g, template, ids, lut, lse, scale, double_add, rate, seed)
         dk, dv = bwd_dkv(q, k, v, g, template, ids, lut, lse, delta, scale, double_add, rate, seed)
         return dq, dk, dv, None, None, dlut if ctx.needs_input_grad[5] else None, None, None, None, None

@@ -115,13 +115,37 @@ def start_communicator(device: torch.device) -> None:
     all-reduce on ``device`` from its current stream: the eager start that
     ``init_process_group(device_id=...)`` would give, without binding the
     group to a device (a bound group makes DeviceMesh split its
-    communicator). Left lazy, an ``--fsdp`` run starts it inside FSDP2's
-    first all-gather, on FSDP2's own streams, and on four H100s such a run
-    came out off from one process from update 1 (by 10.5% in one call);
-    with the start here fsdp=4's update 1 equalled dp=4's on every rank in
-    one four-card call. A mitigation: the cause inside FSDP2 and NCCL is
-    not known (ROADMAP Queue 3)."""
+    communicator). The groups of a mesh have communicators of their own,
+    which ``make_mesh`` starts with ``start_communicators``: a communicator
+    left to start inside FSDP2's first all-gather, on FSDP2's own streams,
+    went with fsdp=4 and HSDP runs on four H100s that came out off from
+    one process from update 1 (ROADMAP Queue 3)."""
     dist.all_reduce(torch.zeros(1, device=device))
+
+
+def start_communicators(device: torch.device, groups) -> None:
+    """Start the NCCL communicator of each of ``groups`` (the process
+    groups a mesh holds; ``None`` and repeats skipped, groups of another
+    backend too) now, with one all-reduce on ``device`` from its current
+    stream, in the order given: every rank calls it with its own groups of
+    the same dims in the same order. A group that DeviceMesh or
+    ``new_subgroups_by_enumeration`` makes has a communicator of its own,
+    which ``start_communicator``'s start of the default group does not
+    start: left lazy, FSDP2's first all-gather starts it on FSDP2's own
+    streams, and on four H100s fsdp=4 (and HSDP) came out off from dp=4
+    from update 1's forward (ROADMAP Queue 3)."""
+    seen = []
+    for group in groups:
+        if group is None or any(group is g for g in seen):
+            continue
+        seen.append(group)
+        if is_nccl(group):
+            dist.all_reduce(torch.zeros(1, device=device), group=group)
+
+
+def is_nccl(group) -> bool:
+    """Whether ``group`` runs on NCCL."""
+    return dist.get_backend(group) == "nccl"
 
 
 def shutdown() -> None:

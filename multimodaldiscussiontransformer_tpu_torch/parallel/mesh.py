@@ -42,6 +42,11 @@ The layout reads JAX's ``param_sharding`` rules as they stand:
   data axes with one bucketed ``all_reduce`` per update
   (``Layout.all_reduce_grads``).
 
+On NCCL, ``make_mesh`` starts the communicator of every group the mesh
+holds (its dims, the data and batch groups, an sp run's FSDP mesh) with one
+all-reduce each before it returns (``distributed.start_communicators``), so
+that none starts inside FSDP2's first all-gather on FSDP2's own streams.
+
 ``Layout`` turns tensors between the rank-local layout and the full
 tensors the port's checkpoints hold (``full`` / ``local``), and computes
 the global gradient norm over shards.
@@ -58,6 +63,7 @@ import torch.distributed as dist
 from torch import nn
 
 from multimodaldiscussiontransformer_tpu_torch.parallel.comm import all_reduce_, gather_dim
+from multimodaldiscussiontransformer_tpu_torch.parallel.distributed import start_communicators
 
 DP_AXIS = "dp"
 TP_AXIS = "tp"
@@ -185,12 +191,16 @@ def make_mesh(dp_size: int = -1, tp_size: int = 1, sp_size: int = 1, num_slices:
         return Mesh(shape, coords, None, None, None, None)
     from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+    device = torch.device(device_type, torch.cuda.current_device()) if device_type == "cuda" else torch.device(device_type)
     dm = init_device_mesh(device_type, tuple(shape.values()), mesh_dim_names=tuple(shape))
+    dim_groups = [dm.get_group(axis) for axis in shape]
     if sp_size == 1:
         # the joint data group: every rank with this rank's tp index
         groups = [[r for r in range(world) if r % tp_size == t] for t in range(tp_size)]
         data_group = dm.get_group(DP_AXIS) if num_slices <= 1 else dist.new_subgroups_by_enumeration(groups)[0]
+        # the FSDP mesh's groups are dims of dm (a slice keeps its parent's)
         fsdp_mesh = dm[(DCN_AXIS, DP_AXIS)] if num_slices > 1 else dm[DP_AXIS]
+        start_communicators(device, dim_groups + [data_group])
         return Mesh(shape, coords, dm, data_group, dm.get_group(TP_AXIS), fsdp_mesh, None, data_group)
     grid = torch.arange(world).view(tuple(shape.values()))
     dims = list(shape)
@@ -209,8 +219,11 @@ def make_mesh(dp_size: int = -1, tp_size: int = 1, sp_size: int = 1, num_slices:
 
     def fsdp_mesh():
         meshes = [DeviceMesh(device_type, fsdp_grid[t], mesh_dim_names=("replicate", "shard")) for t in range(tp_size)]
-        return meshes[coords[TP_AXIS]]
+        mine = meshes[coords[TP_AXIS]]
+        start_communicators(device, [mine.get_group("replicate"), mine.get_group("shard")])
+        return mine
 
+    start_communicators(device, dim_groups + [data_group, batch_group])
     return Mesh(shape, coords, dm, data_group, dm.get_group(TP_AXIS), fsdp_mesh, dm.get_group(SP_AXIS), batch_group)
 
 

@@ -44,15 +44,18 @@ ROUTE_CASES = [
     (torch.bfloat16, 16, "cuda_core"),
     (torch.bfloat16, 32, "cuda_core"),
     (torch.bfloat16, 128, "cuda_core"),
-    (torch.float32, 16, "cuda_core"),
-    (torch.float32, 32, "cuda_core"),
-    (torch.float32, 64, "cuda_core"),  # f32: the card-vs-CPU steps' tolerances
-    (torch.float32, 128, "cuda_core"),
+    (torch.float32, 16, "tf32"),
+    (torch.float32, 32, "tf32"),
+    (torch.float32, 64, "tf32"),  # f32: the card-vs-CPU steps' tolerances
+    (torch.float32, 128, "tf32"),
 ]
 # the stand-ins each route calls for one forward and backward
-ROUTE_CALLS = {"tensor_core": ["fwd_fused", "dq_fused", "dkv_fused"], "cuda_core": ["fwd", "dq", "dkv"]}
-# launches of ta.KERNELS (CUDA-core fwd, dq, dkv; tensor-core fwd, dq, dkv)
-ROUTE_LAUNCHES = {"tensor_core": [0, 0, 0, 1, 1, 1], "cuda_core": [1, 1, 1, 0, 0, 0]}
+ROUTE_CALLS = {"tensor_core": ["fwd_fused", "dq_fused", "dkv_fused"], "tf32": ["fwd", "dq_tf32", "dkv_tf32"],
+               "cuda_core": ["fwd", "dq", "dkv"]}
+# launches of ta.KERNELS (CUDA-core fwd, dq, dkv; tensor-core fwd, dq, dkv;
+# 3xTF32 dq, dkv)
+ROUTE_LAUNCHES = {"tensor_core": [0, 0, 0, 1, 1, 1, 0, 0], "tf32": [1, 0, 0, 0, 0, 0, 1, 1],
+                  "cuda_core": [1, 1, 1, 0, 0, 0, 0, 0]}
 
 
 def _inputs(seed, b, h, s, dh, id_low=0, id_high=ta.LUT_SIZE):
@@ -121,6 +124,7 @@ def _stub_kernels(monkeypatch, calls, seen=None):
         "tree_attention_fwd": fwd("fwd"), "tree_attention_fwd_fused": fwd("fwd_fused"),
         "tree_attention_bwd_dq": dq("dq"), "tree_attention_bwd_dkv": dkv("dkv"),
         "tree_attention_bwd_dq_fused": dq("dq_fused"), "tree_attention_bwd_dkv_fused": dkv("dkv_fused"),
+        "tree_attention_bwd_dq_tf32": dq("dq_tf32"), "tree_attention_bwd_dkv_tf32": dkv("dkv_tf32"),
     }
     for name, fn in stand_ins.items():
         monkeypatch.setattr(ta, name, fn)
@@ -129,10 +133,11 @@ def _stub_kernels(monkeypatch, calls, seen=None):
 
 @pytest.mark.parametrize("dtype, dh, route", ROUTE_CASES)
 def test_kernel_route_picks_both_directions(monkeypatch, dtype, dh, route):
-    """``kernel_route`` names the tensor-core pair for bf16 at DH 64 and
-    K2/K3 for every other case, and ``TreeAttention`` calls the route's
-    forward and then its dq and dk/dv kernels, never the other pair's. The
-    kernels are stood in for on CPU tensors."""
+    """``kernel_route`` names the tensor-core pair for bf16 at DH 64, the
+    3xTF32 pair for float32 and K2/K3 for bf16 at DH 16, 32 and 128, and
+    ``TreeAttention`` calls the route's forward and then its dq and dk/dv
+    kernels, never another pair's. The kernels are stood in for on CPU
+    tensors."""
     assert ta.kernel_route(dtype, dh) == route
     calls = []
     _stub_kernels(monkeypatch, calls)

@@ -83,19 +83,20 @@ def forward_and_grads(fn, q, k, v, template, ids, lut, g, **kw):
     return [out.detach()] + [x.grad for x in leaves]
 
 
-# launches of ta.KERNELS (CUDA-core fwd, dq, dkv; tensor-core fwd, dq, dkv)
-# for one forward and backward, by route
-ROUTE_LAUNCHES = {"tensor_core": [0, 0, 0, 1, 1, 1], "cuda_core": [1, 1, 1, 0, 0, 0]}
+# launches of ta.KERNELS (CUDA-core fwd, dq, dkv; tensor-core fwd, dq, dkv;
+# 3xTF32 dq, dkv) for one forward and backward, by route
+ROUTE_LAUNCHES = {"tensor_core": [0, 0, 0, 1, 1, 1, 0, 0], "tf32": [1, 0, 0, 0, 0, 0, 1, 1],
+                  "cuda_core": [1, 1, 1, 0, 0, 0, 0, 0]}
 
 ROUTE_CASES = [
     (torch.bfloat16, 64, "tensor_core"),  # every graph layer of the model
     (torch.bfloat16, 16, "cuda_core"),
     (torch.bfloat16, 32, "cuda_core"),
     (torch.bfloat16, 128, "cuda_core"),
-    (torch.float32, 16, "cuda_core"),
-    (torch.float32, 32, "cuda_core"),
-    (torch.float32, 64, "cuda_core"),  # f32: the card-vs-CPU steps' tolerances
-    (torch.float32, 128, "cuda_core"),
+    (torch.float32, 16, "tf32"),
+    (torch.float32, 32, "tf32"),
+    (torch.float32, 64, "tf32"),  # f32: the card-vs-CPU steps' tolerances
+    (torch.float32, 128, "tf32"),
 ]
 
 
@@ -106,14 +107,15 @@ def test_kernel_route(dtype, dh, route):
 
 def test_model_graph_layers_route_to_tensor_cores():
     """``ModelConfig()``'s graph layers (bf16, d = 768 over 12 heads) take
-    the tensor-core forward; its float32 twin takes the CUDA-core one."""
+    the tensor-core forward; its float32 twin takes the "tf32" route, whose
+    forward is the CUDA-core one."""
     from multimodaldiscussiontransformer_tpu_torch.core.config import ModelConfig
 
     mc = ModelConfig()
     dh = mc.encoder_embed_dim // mc.encoder_attention_heads
     assert (mc.dtype, dh) == ("bfloat16", 64)
     assert ta.kernel_route(getattr(torch, mc.dtype), dh) == "tensor_core"
-    assert ta.kernel_route(torch.float32, dh) == "cuda_core"
+    assert ta.kernel_route(torch.float32, dh) == "tf32"
 
 
 def test_build_tables_name_the_tensor_core_forward():
@@ -155,7 +157,9 @@ def _stub_kernels(monkeypatch, calls, asked=None):
     for name, fn in (("tree_attention_fwd", fwd("fwd")), ("tree_attention_fwd_fused", fwd("fwd_fused")),
                      ("tree_attention_bwd_dq", fake_dq("dq")), ("tree_attention_bwd_dkv", fake_dkv("dkv")),
                      ("tree_attention_bwd_dq_fused", fake_dq("dq_fused")),
-                     ("tree_attention_bwd_dkv_fused", fake_dkv("dkv_fused"))):
+                     ("tree_attention_bwd_dkv_fused", fake_dkv("dkv_fused")),
+                     ("tree_attention_bwd_dq_tf32", fake_dq("dq_tf32")),
+                     ("tree_attention_bwd_dkv_tf32", fake_dkv("dkv_tf32"))):
         monkeypatch.setattr(ta, name, fn)
 
 
@@ -178,13 +182,13 @@ def test_forward_launches_the_routed_kernel(monkeypatch, dtype, dh, route, with_
 def test_both_forwards_feed_one_backward(monkeypatch, dtype):
     """Each forward's LSE goes to the backward pair of its route: the
     tensor-core forward's to the tensor-core dq and dk/dv kernels, the
-    CUDA-core forward's to the CUDA-core pair."""
+    CUDA-core forward's (float32) to the 3xTF32 pair."""
     calls = []
     _stub_kernels(monkeypatch, calls)
     q, k, v, template, ids, lut = (torch.from_numpy(a) for a in _inputs(4, 2, 2, 9, 64))
     q, k, v = (x.to(dtype).requires_grad_(True) for x in (q, k, v))
     ta.TreeAttention.apply(q, k, v, template, ids, lut, 5, 0.2, 0.125, True).float().sum().backward()
-    want = ["fwd_fused", "dq_fused", "dkv_fused"] if dtype == torch.bfloat16 else ["fwd", "dq", "dkv"]
+    want = ["fwd_fused", "dq_fused", "dkv_fused"] if dtype == torch.bfloat16 else ["fwd", "dq_tf32", "dkv_tf32"]
     assert calls == want
     assert q.grad.dtype == dtype and k.grad.shape == k.shape
 
@@ -257,7 +261,7 @@ def test_fused_forward_matches_plain_on_card(rate, s):
     q, k, v, template, ids, lut = _card_inputs(s, b, 12, s)
     before = [fn.launches for fn in ta.KERNELS]
     out, lse = ta.tree_attention_fwd_fused(q, k, v, template, ids, lut, 0.125, True, rate, 4321, with_lse=True)
-    assert [fn.launches for fn in ta.KERNELS] == [n + d for n, d in zip(before, [0, 0, 0, 1, 0, 0])]
+    assert [fn.launches for fn in ta.KERNELS] == [n + d for n, d in zip(before, [0, 0, 0, 1, 0, 0, 0, 0])]
     want = ta.tree_attention_dropout_reference(q, k, v, template, ids, lut, 4321, rate, 0.125)
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
     assert max_err_of_max(out, want) <= BF16_RTOL_OF_MAX, max_err_of_max(out, want)

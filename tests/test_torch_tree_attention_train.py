@@ -13,7 +13,8 @@ in float32 on the CPU.
 
 Tolerance: 1e-5 (rtol and atol) on the outputs; gradients 2e-5 x their
 largest magnitude, since XLA and PyTorch sum the (S, S) products in other
-orders.
+orders. The same at DH 8, 16 and 128 (the plain backward that the float32
+route's kernels are held to on the card, against JAX's ``_bwd``).
 """
 
 import jax
@@ -62,6 +63,10 @@ def _assert_close(got, want):
         ("batched", 3, 2, 17, 8),  # s_pad 24 <= 128
         ("per_bh", 1, 2, 137, 8),  # s_pad 144
         ("flash", 1, 2, 40, 8),  # forced: the streaming forward and backward
+        # the head dims of the float32 route's kernels beside DH 64: the
+        # workflows' 16 and the largest, 128
+        ("batched", 2, 2, 17, 16),
+        ("batched", 1, 2, 33, 128),
     ],
 )
 def test_rate_zero_forward_and_grads_match_jax(monkeypatch, regime, b, h, s, dh):
