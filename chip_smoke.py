@@ -2,14 +2,16 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --only kernels   # the build and phases 2-5 alone
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: compile every kernel library from ``csrc/`` with nvcc (sm_90a;
-   one nvcc per source, all eleven in parallel: the tree-attention forwards
-   (CUDA-core and tensor-core) and backward pairs (CUDA-core K2/K3,
-   tensor-core bf16 and 3xTF32 float32), the masked (tower) attention's
-   two forwards (CUDA-core and tensor-core), its CUDA-core backward pair
+   one nvcc per source, all thirteen in parallel: the tree-attention
+   forwards (CUDA-core K1, tensor-core bf16 and 3xTF32 float32) and
+   backward pairs (CUDA-core K2/K3, tensor-core bf16 and 3xTF32 float32),
+   the masked (tower) attention's three forwards (CUDA-core, tensor-core
+   bf16 and 3xTF32 float32), its CUDA-core backward pair
    and its one-pass tensor-core backward, the dense-bias attention's two
    forwards (CUDA-core and tensor-core)), report each library's registers
    and any ptxas spill, and print the card's name and power limit as
@@ -18,53 +20,60 @@ Phases, each printing one JSON line; any failure exits non-zero:
    plain PyTorch version on the card, at H=12, dh=64, double_add, with
    templates/ids collated from synthetic trees: S=33 (B=16), S=129 and
    S=257 (B=2), S=601 (B=1): float32 (TF32 off) through the route (the
-   CUDA-core forward), bfloat16 through the route (the tensor-core
+   3xTF32 forward), bfloat16 through the route (the tensor-core
    forward, within 1e-2 of max |ref|) and through the CUDA-core forward's
    own wrapper (within one bf16 step elementwise). Each shape also gets
    times for both forwards on the same bf16 inputs, the plain version and
    one library call on the assembled dense bias
    (``F.scaled_dot_product_attention``, a yardstick the port never calls),
    beside the least time the card could take; and the float32 route's
-   time (the CUDA-core forward) on float32 inputs beside SDPA on the same
-   inputs and the float32 bound.
+   time (the 3xTF32 forward) on float32 inputs beside K1 and SDPA on the
+   same inputs, the float32 bound and the 3xTF32 one.
 3. kernel_vs_plain_train: the tree-attention forward with dropout and the
    LSE output and the backward pair against the plain version's forward
    and autograd gradients at S=33 (B=12), 129 (B=4), 257 (B=2) and the
    streaming sizes S=601 and 1025 (B=1), at rate 0.3 and 0, in float32
-   (the "tf32" route: K1 and the 3xTF32 pair; K2/K3's float32 gradients
-   beside them) and bfloat16 (the "tensor_core" route: the tensor-core
+   (the "tf32" route: the 3xTF32 forward and pair; K1's output and LSE
+   and K2/K3's float32 gradients beside them) and bfloat16 (the
+   "tensor_core" route: the tensor-core
    forward and pair; K1's bf16 output and K2/K3's bf16 gradients beside
    them); the adjoint identity in v on both routes; times of each kernel
    (both forwards and the bf16 pairs on the same bf16 inputs), the plain
-   version and SDPA (on the permuted bias and on a contiguous copy); K1,
-   the 3xTF32 pair and K2/K3 again on float32 inputs beside SDPA in
-   float32, the float32 bound and the 3xTF32 one. Then dropout_mask: the
-   CUDA-core forward's mask read back in float32 at S=33, the tensor-core
-   forward's and both kernels of the tensor-core pair's in bf16 and both
-   kernels of the 3xTF32 pair's in float32 at S=601 (ten tiles) equal the
-   plain Philox, and their kept fractions. Then kernel_vs_plain_train_dh16
-   at the workflows' width (S=33, B=12, H=4, DH 16): the float32 route
-   against the plain version and K2/K3, the bf16 route (K1, K2/K3)
-   against the plain version, and the float32 times.
+   version and SDPA (on the permuted bias and on a contiguous copy); the
+   3xTF32 forward and pair, K1 and K2/K3 again on float32 inputs beside
+   SDPA in float32, the float32 bound and the 3xTF32 one. Then
+   dropout_mask: the 3xTF32 forward's mask read back in float32 at S=33
+   and S=601 (ten tiles), the tensor-core forward's and both kernels of
+   the tensor-core pair's in bf16 and both kernels of the 3xTF32 pair's
+   in float32 at S=601 equal the plain Philox, and their kept fractions.
+   Then kernel_vs_plain_train_dh16 at the workflows' width (S=33, B=12,
+   H=4, DH 16): the float32 route against the plain version, K2/K3 and
+   K1's LSE, the bf16 route (K1, K2/K3) against the plain version, and
+   the float32 times.
 4. masked_vs_plain: the tower (masked) attention forward and backward
    kernels against their plain version at the tower shapes (text bottom
    B=256 S=100, text fusion B=256 S=104, ViT fusion B=64 S=201 without a
-   key bias) and at ragged S = 1 .. 256 (B=8), with capacity-padding rows
-   (every key masked) in the key bias, rate 0.3 and 0, float32 (the
-   "cuda_core" route: the CUDA-core forward and backward pair) and
-   bfloat16 (the "tensor_core" route: the tensor-core forward and the
-   one-pass backward), plus the CUDA-core kernels' bf16 errors at the
-   tower shapes; the masks read back (q = k = 0, v = I) against the plain
-   Philox: the CUDA-core forward's in float32, the tensor-core forward's
-   in bf16 at dh=64 and the one-pass backward's (through dv); the adjoint
+   key bias), at ragged S = 1 .. 256 (B=8) and at S=300 (B=8), with
+   capacity-padding rows (every key masked) in the key bias, rate 0.3 and
+   0, float32 (the "tf32" route: the 3xTF32 forward and the CUDA-core
+   backward pair) and bfloat16 (the "tensor_core" route: the tensor-core
+   forward and the one-pass backward; at S=300 the "cuda_core" route),
+   each call's launches held to its route, plus the CUDA-core kernels'
+   bf16 errors at the tower shapes, the 3xTF32 forward's statistics
+   against the plain ones and the CUDA-core forward's float32 output
+   against the plain version at every shape; the masks read back (q = k =
+   0, v = I) against the plain Philox: the 3xTF32 forward's in float32
+   (S=104, 201, 300), the tensor-core forward's in bf16 at dh=64 and the
+   one-pass backward's (through dv); the adjoint
    identity; times of each kernel (the tensor-core forward beside the
    CUDA-core one, the one-pass backward beside the pair), the plain
    version, the towers' unfused path (matmul + f32 softmax + FastDropout +
    matmul) and SDPA with the key-padding mask (forward at dropout 0.3;
    forward + backward at rate 0 and 0.3), at a ragged S only the
    tensor-core forward and one-pass backward; at the tower shapes the
-   CUDA-core forward and pair again on float32 inputs beside SDPA in
-   float32 and the float32 bounds.
+   3xTF32 forward, the CUDA-core forward and pair and the plain forward
+   again on float32 inputs beside SDPA in float32, the float32 bounds and
+   the 3xTF32 forward's.
 5. biased_vs_plain: the dense-bias attention's routed forward kernel and
    the Function's gradients (dq, dk, dv, dbias) against the plain version
    at H=12, dh=64: S=33 (B=16, 12), 129 (B=12), 257 (B=4), 601 and 1025
@@ -133,8 +142,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 10. train_cpu_agreement, train_cpu_agreement_fused: one scan update of the
    tiny config with every dropout at 0 in float32, on the card and on the
    CPU, without and with fused towers: gradients and updated parameters
-   agree (float32 runs the CUDA-core tree forward and the 3xTF32 pair, and
-   the fused towers' CUDA-core forward and pair).
+   agree (float32 runs the 3xTF32 tree forward and pair, and the fused
+   towers' 3xTF32 forward and CUDA-core pair).
 11. dense_graph: the dense-bias slice at ``ModelConfig()`` width
     (GraphNodeFeature -> dense GraphAttnBias -> 5 graph stacks of 2
     layers, ``use_pallas_attention``, bf16 compute): scoring forwards at
@@ -179,7 +188,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
     per update.
 
 14. train_cpu_agreement_contrastive, _multisteps, _bf16_adam: as 10 (float32,
-    tiny, the CUDA-core tree kernels), for one scan update of the
+    tiny, the 3xTF32 tree kernels), for one scan update of the
     contrastive task (every graph layer's backward runs), one MultiSteps
     update (three ``train_microstep`` calls; the mean each ``.grad`` holds
     after the third) and one scan update with bf16 Adam moments.
@@ -270,7 +279,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 23. sequence_parallel: see ``phase_sequence_parallel``.
 24. workflows: the last workflows of the port on one card
     (``phase_workflows``): ``two_stage.run`` (its TEST line, ms per update
-    of each stage, the CUDA-core tree kernels of its hidden-64 model),
+    of each stage, the 3xTF32 tree kernels of its hidden-64 model),
     ``context_ablation.run`` at 300 trees, WF_ABLATION_UPDATES per arm
     (the full and the context-blind F1), ``readiness.main --full-model`` on stand-in assets with
     ``transformers`` unimportable ("optional, absent"),
@@ -287,7 +296,7 @@ checkpoint; input_ab and contrastive) read one directory, written once.
 
 After the phases, ``seconds_by_phase`` (each phase's wall seconds, also
 printed when a phase fails) and the card's name and power limit; the last
-two lines are the kernels' summary (thirteen kernels) and
+two lines are the kernels' summary (seventeen kernels) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -339,8 +348,10 @@ KERNEL_MMA_SOURCE = f"{PKG}/csrc/tree_attention_fwd_mma.cu"
 BWD_SOURCE = f"{PKG}/csrc/tree_attention_bwd.cu"
 BWD_MMA_SOURCE = f"{PKG}/csrc/tree_attention_bwd_mma.cu"
 BWD_TF32_SOURCE = f"{PKG}/csrc/tree_attention_bwd_tf32.cu"
+KERNEL_TF32_SOURCE = f"{PKG}/csrc/tree_attention_fwd_tf32.cu"
 MASKED_FWD_SOURCE = f"{PKG}/csrc/masked_attention_fwd.cu"
 MASKED_FWD_MMA_SOURCE = f"{PKG}/csrc/masked_attention_fwd_mma.cu"
+MASKED_FWD_TF32_SOURCE = f"{PKG}/csrc/masked_attention_fwd_tf32.cu"
 MASKED_BWD_SOURCE = f"{PKG}/csrc/masked_attention_bwd.cu"
 MASKED_BWD_MMA_SOURCE = f"{PKG}/csrc/masked_attention_bwd_mma.cu"
 BIASED_FWD_SOURCE = f"{PKG}/csrc/biased_attention_fwd.cu"
@@ -470,17 +481,17 @@ def _all_kernels():
 KERNEL_NAMES = (
     "tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv", "tree_attention_fwd_fused",
     "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused", "tree_attention_bwd_dq_tf32",
-    "tree_attention_bwd_dkv_tf32",
+    "tree_attention_bwd_dkv_tf32", "tree_attention_fwd_tf32",
     "masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv", "masked_attention_bwd_fused",
-    "masked_attention_fwd_fused", "biased_attention_fwd", "biased_attention_fwd_fused",
+    "masked_attention_fwd_fused", "masked_attention_fwd_tf32", "biased_attention_fwd", "biased_attention_fwd_fused",
 )
 
 
 # the tree kernels of the bf16 route (DH 64), and those no bf16 path at DH
-# 64 may launch: K1, K2/K3 and the 3xTF32 pair
+# 64 may launch: K1, K2/K3 and the 3xTF32 forward and pair
 TREE_TENSOR_CORE = ("tree_attention_fwd_fused", "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused")
 TREE_NOT_BF16 = ("tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv", "tree_attention_bwd_dq_tf32",
-                 "tree_attention_bwd_dkv_tf32")
+                 "tree_attention_bwd_dkv_tf32", "tree_attention_fwd_tf32")
 
 
 def _counts():
@@ -549,11 +560,12 @@ def phase_kernel(seed: int):
             got = ta.tree_attention(qq, kk, vv, template, ids, lut)  # the route's forward
             torch.cuda.synchronize()
             launched = dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, _counts()))))
-            fused = ta.kernel_route(dt, dh) == "tensor_core"
-            if (launched["tree_attention_fwd"], launched["tree_attention_fwd_fused"]) != ((0, 1) if fused else (1, 0)):
+            forwards = ("tree_attention_fwd", "tree_attention_fwd_fused", "tree_attention_fwd_tf32")
+            want_fwd = {"tensor_core": (0, 1, 0), "tf32": (0, 0, 1)}[ta.kernel_route(dt, dh)]
+            if tuple(launched[n] for n in forwards) != want_fwd:
                 raise AssertionError(f"{name} at S={s} took the wrong forward: {launched}")
             err = (got.float() - want).abs()
-            if name == "float32":  # the CUDA-core forward
+            if name == "float32":  # the 3xTF32 forward
                 ok = bool((err <= F32_ATOL).all())
             else:  # the tensor-core forward, its bf16 P included
                 ok = err.max().item() <= TRAIN_BF16_REL * want.abs().max().item()
@@ -591,16 +603,20 @@ def phase_kernel(seed: int):
             row[prefix + "device_ms"] = device_ms(fn)
             row[prefix + "ms"] = row[prefix + "device_ms"] or row[prefix + "call_ms"]
         row["bound_ms"], row["bound_by"] = bound(b, h, s, dh, "bfloat16", 2 * b * s * s * 4 + 32 * h * 4)
-        # the float32 route (the CUDA-core forward) on float32 inputs, SDPA
-        # on the same inputs with a contiguous float32 bias, and the float32
-        # bound
+        # the float32 route (the 3xTF32 forward) on float32 inputs, K1 (the
+        # CUDA-core forward it replaces there) and SDPA on the same inputs
+        # with a contiguous float32 bias, and the bounds: float32 on CUDA
+        # cores, and 3xTF32
         dense32 = ta.assemble_bias(template, ids, lut, True).contiguous()
         row["float32"] = {
+            "ms": timed_ms(lambda: ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, dh ** -0.5)),
             "cuda_core_ms": timed_ms(lambda: ta.tree_attention_fwd(q, k, v, template, ids, lut, dh ** -0.5)),
             "library_contiguous_ms": timed_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=dense32, scale=dh ** -0.5)),
         }
-        row["float32"]["bound_ms"], row["float32"]["bound_by"] = bound(b, h, s, dh, "float32", 2 * b * s * s * 4 + 32 * h * 4)
+        shared = 2 * b * s * s * 4 + 32 * h * 4
+        row["float32"]["bound_ms"], row["float32"]["bound_by"] = bound(b, h, s, dh, "float32", shared)
+        row["float32"]["bound_3xtf32_ms"], row["float32"]["bound_3xtf32_by"] = bound(b, h, s, dh, "3xtf32", shared)
         row["tolerance"] = {"float32_atol": F32_ATOL, "bfloat16_rel_of_max": TRAIN_BF16_REL,
                             "bfloat16_cuda_core_rtol": BF16_RTOL, "bfloat16_cuda_core_atol": BF16_ATOL}
         emit({"phase": "kernel_vs_plain", **row})
@@ -631,7 +647,7 @@ def make_discussion(rng, n: int, image_prob: float, seq_len: int = TEXT_LEN, voc
 
 def tower_forward_routes(mc, text_len: int, images: bool):
     """Masked-attention forward launches of one forward by kernel:
-    (CUDA-core, tensor-core). Each tower layer takes the kernel
+    (CUDA-core, tensor-core, 3xTF32). Each tower layer takes the kernel
     ``kernel_route`` names for the compute dtype, the tower's head dim and
     the layer's length (bottom layers: the tokens; fusion layers: the
     tokens and the bottleneck tokens); the ViT runs only where the batch
@@ -645,11 +661,11 @@ def tower_forward_routes(mc, text_len: int, images: bool):
     towers = [(mc.text_tower, text_len, mc.num_bottom_text_layers)]
     if images:
         towers.append((mc.image_tower, mc.image_tower.seq_len, mc.num_bottom_image_layers))
-    n = {"cuda_core": 0, "tensor_core": 0}
+    n = {"cuda_core": 0, "tensor_core": 0, "tf32": 0}
     for tower, s, bottom in towers:
         n[kernel_route(dtype, tower.head_dim, s)] += bottom
         n[kernel_route(dtype, tower.head_dim, s + mc.num_bottleneck_tokens)] += fusion
-    return n["cuda_core"], n["tensor_core"]
+    return n["cuda_core"], n["tensor_core"], n["tf32"]
 
 
 def tower_launches(mc):
@@ -791,7 +807,7 @@ def phase_scoring_fused(unfused):
             p = scorer.score(d)
             seconds.append(time.perf_counter() - t)
             forwards += 1
-            cuda_core, tensor_core = tower_forward_routes(cfg, TEXT_LEN, len(d.images) > 0)
+            cuda_core, tensor_core, _ = tower_forward_routes(cfg, TEXT_LEN, len(d.images) > 0)
             want_cuda_core += cuda_core
             want_tensor_core += tensor_core
             if p.shape != ref.shape or not np.isfinite(p).all() or np.abs(p.sum(-1) - 1.0).max() > 1e-5:
@@ -995,12 +1011,30 @@ def _errors(got, want, names, tol, floor: float = 0.0) -> dict:
     return errs
 
 
+# an LSE or a row-statistics plane against another's on the same inputs,
+# elementwise: both are f32 sums of products taken in other orders
+STAT_RTOL = 1e-4
+
+
+def _check_stat(got, want, what: str) -> dict:
+    """{max abs error, max |ref|}; raise unless finite and within STAT_RTOL
+    x max(1, |ref|) elementwise."""
+    import torch
+
+    err = (got - want).abs()
+    out = {"max_abs_err": err.max().item(), "max_abs_ref": want.abs().max().item(), "rtol": STAT_RTOL}
+    if not (torch.isfinite(got).all() and bool((err <= STAT_RTOL * want.abs().clamp_min(1.0)).all())):
+        raise AssertionError(f"{what}: {out}")
+    return out
+
+
 def phase_kernel_train(seed: int):
-    """The routed kernels (float32: the CUDA-core K1 and the 3xTF32 pair;
-    bf16: the tensor-core forward and backward pair) against the plain
-    version's forward and autograd gradients at rate 0.3 and 0, K2/K3's
-    float32 gradients, K1's bf16 output and K2/K3's bf16 gradients beside
-    them; the adjoint identity in v on both routes; the forwards' and both
+    """The routed kernels (float32: the 3xTF32 forward and pair; bf16: the
+    tensor-core forward and backward pair) against the plain version's
+    forward and autograd gradients at rate 0.3 and 0, K1's float32 output
+    and LSE (the 3xTF32 forward's LSE held against it) and K2/K3's float32
+    gradients, K1's bf16 output and K2/K3's bf16 gradients beside them; the
+    adjoint identity in v on both routes; the forwards' and both
     tensor-core pairs' masks read back against the plain Philox; times;
     then the DH-16 shape (``kernel_train_dh16``). Returns (rows, the DH-16
     row)."""
@@ -1028,13 +1062,20 @@ def phase_kernel_train(seed: int):
                 row[key][name] = _check_errors(got, want, ("out", "dq", "dk", "dv", "dlut"), tol,
                                                f"training kernels disagree at S={s} rate {rate} {name}")
                 if name == "float32":
-                    # the route took K1 and the 3xTF32 pair; K2/K3 on the
-                    # same inputs from K1's LSE, called directly
+                    # the route took the 3xTF32 forward and pair; K1 and
+                    # K2/K3 on the same inputs (from K1's LSE), called
+                    # directly, and the 3xTF32 forward's LSE against K1's
                     k23 = cuda_core_pair(ta, qq, kk, vv, template, ids, lut, gg, scale, rate, dseed,
                                          fwd=ta.tree_attention_fwd)
+                    k1, lse_k1 = ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, rate, dseed, True)
+                    _, lse_tf32 = ta.tree_attention_fwd_tf32(qq, kk, vv, template, ids, lut, scale, True, rate, dseed,
+                                                             True)
                     torch.cuda.synchronize()
                     row[key]["float32_cuda_core_pair"] = _check_errors(
                         k23, want[1:], ("dq", "dk", "dv", "dlut"), tol, f"K2/K3 disagree at S={s} rate {rate} f32")
+                    row[key]["float32_k1"] = _check_errors(
+                        [k1], want[:1], ("out",), tol, f"K1 disagrees at S={s} rate {rate} f32")
+                    row[key]["float32_lse_vs_k1"] = _check_stat(lse_tf32, lse_k1, f"3xTF32 LSE against K1's at S={s}")
                 if name == "bfloat16":
                     # K1 on the same bf16 inputs, through its own wrapper
                     k1 = ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, rate, dseed)[0]
@@ -1118,14 +1159,17 @@ def phase_kernel_train(seed: int):
         row["pair_vs_cuda_core"] = row["ms"]["pair_cuda_core"] / row["ms"]["pair"]
         row["pair_vs_library_contiguous_fwd_bwd"] = row["ms"]["pair"] / row["ms"]["library_contiguous_fwd_bwd"]
         row["fwd_vs_library_contiguous"] = row["ms"]["fwd"] / row["ms"]["library_contiguous_fwd"]
-        # the float32 route (K1, then the 3xTF32 pair) on float32 inputs,
-        # K2/K3 on the same inputs, SDPA on them with a contiguous float32
-        # bias, and the bounds: float32 on CUDA cores, and 3xTF32
-        out32, lse32 = ta.tree_attention_fwd(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
+        # the float32 route (the 3xTF32 forward, then the 3xTF32 pair) on
+        # float32 inputs, K1 and K2/K3 on the same inputs, SDPA on them with
+        # a contiguous float32 bias, and the bounds: float32 on CUDA cores,
+        # and 3xTF32
+        out32, lse32 = ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
         _, _, delta32 = ta.tree_attention_bwd_dq(q, k, v, out32, g, template, ids, lut, lse32, scale, True, TRAIN_RATE,
                                                  dseed)
         dense32 = ta.assemble_bias(template, ids, lut, True).contiguous()
         calls32 = {
+            "fwd_tf32": lambda: ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed,
+                                                           True),
             "dq_tf32": lambda: ta.tree_attention_bwd_dq_tf32(q, k, v, out32, g, template, ids, lut, lse32, scale, True,
                                                              TRAIN_RATE, dseed),
             "dkv_tf32": lambda: ta.tree_attention_bwd_dkv_tf32(q, k, v, g, template, ids, lut, lse32, delta32, scale,
@@ -1153,6 +1197,8 @@ def phase_kernel_train(seed: int):
         if "plain_fwd_bwd" in f32ms:
             f32ms["plain_bwd"] = f32ms["plain_fwd_bwd"] - f32ms["plain_fwd"]
         row["float32"]["pair_tf32_vs_cuda_core"] = f32ms["pair_cuda_core"] / f32ms["pair_tf32"]
+        row["float32"]["fwd_tf32_vs_cuda_core"] = f32ms["fwd_cuda_core"] / f32ms["fwd_tf32"]
+        row["float32"]["fwd_tf32_vs_library_contiguous"] = f32ms["fwd_tf32"] / f32ms["library_contiguous_fwd"]
         row["float32"]["pair_tf32_vs_library_contiguous_fwd_bwd"] = f32ms["pair_tf32"] / f32ms["library_contiguous_fwd_bwd"]
         emit({"phase": "kernel_vs_plain_train", **row})
         rows.append(row)
@@ -1189,6 +1235,23 @@ def phase_kernel_train(seed: int):
     mask_mma = torch.cat(chunks, dim=-1)[..., :s_mma]
     same_mma = bool(torch.equal(mask_mma, ta.dropout_keep_mask(seed + 98, b_mma, h, s_mma, TRAIN_RATE, "cuda")))
     kept_mma = mask_mma.float().mean().item()
+    # the 3xTF32 forward's mask in float32 on the same chunks
+    zeros = torch.zeros(b_mma, h, s_mma, dh, device="cuda")
+    c0, chunks32 = _counts(), []
+    for c in range(-(-s_mma // dh)):
+        v1 = torch.zeros(s_mma + dh, dh, device="cuda")
+        v1[c * dh: (c + 1) * dh] = torch.eye(dh, device="cuda")
+        out = ta.tree_attention(
+            zeros, zeros, v1[:s_mma].expand(b_mma, h, s_mma, dh).contiguous(),
+            torch.zeros(b_mma, s_mma, s_mma, device="cuda"),
+            torch.zeros(b_mma, s_mma, s_mma, dtype=torch.int32, device="cuda"),
+            torch.zeros(ta.LUT_SIZE, h, device="cuda"), rate=TRAIN_RATE, seed=seed + 95,
+        )
+        chunks32.append((out * s_mma * (1 - TRAIN_RATE)).round() > 0.5)
+    launched_tf32_fwd = dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, _counts()))))
+    mask_tf32 = torch.cat(chunks32, dim=-1)[..., :s_mma]
+    same_tf32_fwd = bool(torch.equal(mask_tf32, ta.dropout_keep_mask(seed + 95, b_mma, h, s_mma, TRAIN_RATE, "cuda")))
+    kept_tf32_fwd = mask_tf32.float().mean().item()
     # the tensor-core backward pair's masks, both kernels, over ten 64-row
     # and 64-key chunks
     c0 = _counts()
@@ -1210,6 +1273,8 @@ def phase_kernel_train(seed: int):
                                "launches": launched},
           "tensor_core_bwd_bf16": {"S": s_mma, "B": b_mma, "kept_fraction": kept_bwd, "equals_plain_philox": same_bwd,
                                    "launches": launched_bwd},
+          "tf32_fwd_float32": {"S": s_mma, "B": b_mma, "kept_fraction": kept_tf32_fwd,
+                               "equals_plain_philox": same_tf32_fwd, "launches": launched_tf32_fwd},
           "tf32_bwd_float32": {"S": s_mma, "B": b_mma, "kept_fraction": kept_tf32, "equals_plain_philox": same_tf32,
                                "launches": launched_tf32}})
     if not same or abs(kept - (1 - TRAIN_RATE)) > 0.02:
@@ -1217,6 +1282,10 @@ def phase_kernel_train(seed: int):
     if not same_mma or abs(kept_mma - (1 - TRAIN_RATE)) > 0.02 or launched["tree_attention_fwd_fused"] != len(chunks) \
             or launched["tree_attention_fwd"]:
         raise AssertionError(f"tensor-core forward mask: equals plain {same_mma}, kept fraction {kept_mma}, {launched}")
+    if not same_tf32_fwd or abs(kept_tf32_fwd - (1 - TRAIN_RATE)) > 0.02 \
+            or launched_tf32_fwd["tree_attention_fwd_tf32"] != len(chunks32) or launched_tf32_fwd["tree_attention_fwd"]:
+        raise AssertionError(f"3xTF32 forward mask: equals plain {same_tf32_fwd}, kept fraction {kept_tf32_fwd}, "
+                             f"{launched_tf32_fwd}")
     n_bwd = 2 * -(-s_mma // dh)  # two backward calls a chunk
     if not all(same_bwd.values()) or abs(kept_bwd - (1 - TRAIN_RATE)) > 0.02 \
             or (launched_bwd["tree_attention_bwd_dq_fused"], launched_bwd["tree_attention_bwd_dkv_fused"]) != (n_bwd, n_bwd) \
@@ -1230,17 +1299,18 @@ def phase_kernel_train(seed: int):
 
 
 # the workflows' graph attention (hidden 64 over 4 heads) at the canonical
-# bucket: float32 takes K1 and the 3xTF32 pair there, bf16 K1 and K2/K3
+# bucket: float32 takes the 3xTF32 forward and pair there, bf16 K1 and K2/K3
 DH16_SHAPE = {"S": 33, "B": 12, "H": 4, "dh": 16}
 
 
 def kernel_train_dh16(ta, seed: int) -> dict:
     """The tree kernels at DH 16 (``DH16_SHAPE``, rate 0.3 and 0): float32
-    through ``tree_attention`` (K1, the 3xTF32 pair) against the plain
-    version and, from K1's LSE, against K2/K3 called directly; bf16 through
-    ``tree_attention`` (K1 and K2/K3: the "cuda_core" route) against the
-    plain version, its launches counted as the bf16 DH-16 path's; times of
-    the 3xTF32 pair, K2/K3 and SDPA in float32 beside both bounds."""
+    through ``tree_attention`` (the 3xTF32 forward and pair) against the
+    plain version and, from K1's LSE, against K2/K3 called directly, the
+    3xTF32 forward's LSE against K1's; bf16 through ``tree_attention`` (K1
+    and K2/K3: the "cuda_core" route) against the plain version, its
+    launches counted as the bf16 DH-16 path's; times of the 3xTF32 forward
+    and pair, K1, K2/K3 and SDPA in float32 beside both bounds."""
     import torch
     import torch.nn.functional as F
 
@@ -1264,7 +1334,10 @@ def kernel_train_dh16(ta, seed: int) -> dict:
                                                               f"DH-16 3xTF32 pair against K2/K3 at rate {rate}")
         row[key]["float32_cuda_core_pair"] = _check_errors(k23, want[1:], names[1:], TRAIN_F32_REL,
                                                            f"DH-16 K2/K3 at rate {rate}")
-        want_launch = {"tree_attention_fwd": 1, "tree_attention_bwd_dq_tf32": 1, "tree_attention_bwd_dkv_tf32": 1}
+        _, lse_k1 = ta.tree_attention_fwd(q, k, v, template, ids, lut, scale, True, rate, dseed, True)
+        _, lse_tf32 = ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, scale, True, rate, dseed, True)
+        row[key]["float32_lse_vs_k1"] = _check_stat(lse_tf32, lse_k1, f"DH-16 3xTF32 LSE against K1's at rate {rate}")
+        want_launch = {"tree_attention_fwd_tf32": 1, "tree_attention_bwd_dq_tf32": 1, "tree_attention_bwd_dkv_tf32": 1}
         if launched != {n: want_launch.get(n, 0) for n in KERNEL_NAMES}:
             raise AssertionError(f"DH-16 float32 route launched {launched}")
         qq, kk, vv, gg = (x.to(torch.bfloat16) for x in (q, k, v, g))
@@ -1280,7 +1353,7 @@ def kernel_train_dh16(ta, seed: int) -> dict:
             raise AssertionError(f"DH-16 bf16 route launched {launched}")
         row.setdefault("launches_bfloat16", launched)  # the rate-0.3 call's
 
-    out, lse = ta.tree_attention_fwd(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
+    out, lse = ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
     _, _, delta = ta.tree_attention_bwd_dq_tf32(q, k, v, out, g, template, ids, lut, lse, scale, True, TRAIN_RATE, dseed)
     dense = ta.assemble_bias(template, ids, lut, True).contiguous()
 
@@ -1294,6 +1367,12 @@ def kernel_train_dh16(ta, seed: int) -> dict:
                                             TRAIN_RATE, scale).backward(g)
 
     calls = {
+        "fwd_tf32": lambda: ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed,
+                                                       True),
+        "fwd_cuda_core": lambda: ta.tree_attention_fwd(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed,
+                                                       True),
+        "library_contiguous_fwd": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=dense, dropout_p=TRAIN_RATE,
+                                                                         scale=scale),
         "dq_tf32": lambda: ta.tree_attention_bwd_dq_tf32(q, k, v, out, g, template, ids, lut, lse, scale, True,
                                                          TRAIN_RATE, dseed),
         "dkv_tf32": lambda: ta.tree_attention_bwd_dkv_tf32(q, k, v, g, template, ids, lut, lse, delta, scale, True,
@@ -1373,7 +1452,16 @@ MASKED_SHAPES = (("text_bottom", 256, 100, True), ("text_fusion", 256, 104, True
 # tiles and 8-/16-warp blocks
 RAGGED_S = (1, 16, 17, 36, 100, 104, 127, 128, 129, 197, 201, 256)
 RAGGED_B = 8
+# past the tensor-core route's S <= 256: float32 takes the 3xTF32 forward
+# there, bf16 the CUDA-core forward (checked, not timed)
+MASKED_LONG = ("long_300", 8, 300, True)
 MASKED_RATE = 0.3
+# the launches of one masked_attention forward and backward, by route
+MASKED_ROUTE_LAUNCHES = {
+    "tf32": {"masked_attention_fwd_tf32": 1, "masked_attention_bwd_dq": 1, "masked_attention_bwd_dkv": 1},
+    "tensor_core": {"masked_attention_fwd_fused": 1, "masked_attention_bwd_fused": 1},
+    "cuda_core": {"masked_attention_fwd": 1, "masked_attention_bwd_dq": 1, "masked_attention_bwd_dkv": 1},
+}
 
 
 def tower_key_bias(b: int, s: int, bottleneck: int, gen):
@@ -1432,6 +1520,20 @@ def read_back_bwd_mask(ma, b, h, s, dh, rate, seed):
     return torch.cat(chunks, dim=-2)[..., :s, :]
 
 
+def plain_tower_stats(q, k, bias, scale):
+    """(row max clamped at -1e9, log of the clamped undropped row sum), f32
+    (2, B, H, S), as the tower forwards store them."""
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.ops.masked_attention import MASK_BIAS
+
+    s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
+    if bias is not None:
+        s = s + bias.float().clamp_min(MASK_BIAS)[:, None, None, :]
+    m = s.amax(-1).clamp_min(MASK_BIAS)
+    return torch.stack([m, torch.exp(s - m[..., None]).sum(-1).clamp_min(1e-30).log()])
+
+
 def pair_outputs(ma, q, k, v, bias, g, scale, rate, seed):
     """out, dq, dk, dv from the CUDA-core forward and backward pair, called
     directly (the route sends bf16 to the tensor-core kernels)."""
@@ -1442,8 +1544,10 @@ def pair_outputs(ma, q, k, v, bias, g, scale, rate, seed):
 
 
 def phase_masked(seed: int):
-    """The tower kernels against their plain version; the masks read back;
-    the adjoint identity; times beside the unfused path and SDPA."""
+    """The tower kernels against their plain version, each call's launches
+    against its route; the 3xTF32 forward's statistics against the plain
+    ones; the masks read back; the adjoint identity; times beside the
+    unfused path and SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -1455,6 +1559,7 @@ def phase_masked(seed: int):
     scale = dh ** -0.5
     rows = []
     shapes = [(*shape, True) for shape in MASKED_SHAPES] + [(f"ragged_{s}", RAGGED_B, s, True, False) for s in RAGGED_S]
+    shapes.append((*MASKED_LONG, False))
     for label, b, s, with_bias, tower in shapes:
         gen = torch.Generator(device="cuda").manual_seed(seed + 31 * s + b)
         q, k, v, g = (torch.randn(b, h, s, dh, device="cuda", generator=gen) for _ in range(4))
@@ -1475,9 +1580,16 @@ def phase_masked(seed: int):
                     o.backward(gg)
                     return [o.detach()] + [x.grad for x in leaves]
 
+                c0 = _counts()
                 got = fwd_bwd(ma.masked_attention)
+                launched = {n: y - x for n, x, y in zip(KERNEL_NAMES, c0, _counts()) if y != x}
+                row.setdefault("launches", {})[f"{name}_rate{rate}"] = launched
+                if launched != MASKED_ROUTE_LAUNCHES[row["kernel_route"][name]]:
+                    raise AssertionError(f"masked kernels at {label} {name} launched {launched}")
                 want = fwd_bwd(ma.masked_attention_dropout_reference)
                 torch.cuda.synchronize()
+                if name == "float32" and rate == MASKED_RATE:
+                    want_out32 = want[0]
                 tol = TRAIN_F32_REL if name == "float32" else TRAIN_BF16_REL
                 # at S = 1 dq and dk are 0 in exact arithmetic (softmax over
                 # one key has no gradient): what remains is the rounding of
@@ -1493,6 +1605,22 @@ def phase_masked(seed: int):
                     torch.cuda.synchronize()
                     row[key]["bfloat16_pair"] = _check_errors(pair, want, ("out", "dq", "dk", "dv"), tol,
                                                               f"masked pair disagrees at {label} rate {rate} bf16")
+        # the 3xTF32 forward's statistics (float32) against the plain ones
+        # (a capacity-padding row's max is -1e9 exactly), and the CUDA-core
+        # forward it replaces there, called directly, against the plain
+        # version and the 3xTF32 statistics
+        _, stats32 = ma.masked_attention_fwd_tf32(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True)
+        cc_out, cc_stats = ma.masked_attention_fwd(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True)
+        ref = plain_tower_stats(q, k, bias, scale)
+        row["stats_float32"] = {"row_max": _check_stat(stats32[0], ref[0], f"3xTF32 row max at {label}"),
+                                "log_sum": _check_stat(stats32[1], ref[1], f"3xTF32 log-sum at {label}"),
+                                "vs_cuda_core": _check_stat(stats32, cc_stats, f"3xTF32 against CUDA-core stats at {label}")}
+        padding = ref[0] <= ma.MASK_BIAS
+        if not torch.equal(stats32[0][padding], ref[0][padding]):
+            raise AssertionError(f"3xTF32 row max of the padding rows at {label}")
+        row["float32_cuda_core_fwd"] = _check_errors([cc_out], [want_out32], ("out",), TRAIN_F32_REL,
+                                                     f"CUDA-core forward disagrees at {label} f32")
+        del ref, cc_out, cc_stats, want_out32
         if label == "text_fusion":
             # the adjoint identity in v, float32, on 16 of the rows
             q16, k16, v16, g16 = (x[:16].contiguous() for x in (q, k, v, g))
@@ -1504,6 +1632,11 @@ def phase_masked(seed: int):
             row["adjoint"] = {"lhs": lhs, "rhs": rhs, "rel_err": abs(lhs - rhs) / max(abs(lhs), 1.0), "rel_tol": ADJOINT_REL}
             if not abs(lhs - rhs) <= ADJOINT_REL * max(abs(lhs), 1.0):
                 raise AssertionError(f"masked adjoint identity fails: {row['adjoint']}")
+
+        if s > ma.TENSOR_CORE_MAX_S:  # past the tensor-core kernels: checked above, not timed
+            emit({"phase": "masked_vs_plain", **row})
+            rows.append(row)
+            continue
 
         # times in the main path's type
         qq, kk, vv, gg = (x.to(torch.bfloat16).contiguous() for x in (q, k, v, g))
@@ -1561,9 +1694,11 @@ def phase_masked(seed: int):
         row["fused_vs_pair"] = row["ms"]["pair"] / row["ms"]["bwd_fused"]
         row["fwd_fused_vs_cuda_core"] = row["ms"]["fwd"] / row["ms"]["fwd_fused"]
         row["fwd_fused_vs_library"] = row["ms"]["fwd_fused"] / row["ms"]["library_fwd"]
-        # the float32 route (the CUDA-core forward and pair) on float32
-        # inputs, SDPA on the same inputs, and the float32 bounds
-        out32, stats32 = ma.masked_attention_fwd(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True)
+        # the float32 route (the 3xTF32 forward, then the CUDA-core pair) on
+        # float32 inputs, the CUDA-core forward it replaces there and SDPA
+        # on the same inputs, and the bounds: float32 on CUDA cores, and
+        # 3xTF32
+        out32, stats32 = ma.masked_attention_fwd_tf32(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True)
         _, delta32 = ma.masked_attention_bwd_dq(q, k, v, out32, g, bias, stats32, scale, MASKED_RATE, dseed)
         bias4_32 = None if bias is None else bias[:, None, None, :]
 
@@ -1574,7 +1709,9 @@ def phase_masked(seed: int):
             return run
 
         calls32 = {
+            "fwd_tf32": lambda: ma.masked_attention_fwd_tf32(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True),
             "fwd": lambda: ma.masked_attention_fwd(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True),
+            "plain_fwd": lambda: ma.masked_attention_dropout_reference(q, k, v, bias, dseed, MASKED_RATE, scale),
             "dq": lambda: ma.masked_attention_bwd_dq(q, k, v, out32, g, bias, stats32, scale, MASKED_RATE, dseed),
             "dkv": lambda: ma.masked_attention_bwd_dkv(q, k, v, g, bias, stats32, delta32, scale, MASKED_RATE, dseed),
             "library_fwd": lambda: F.scaled_dot_product_attention(
@@ -1583,13 +1720,18 @@ def phase_masked(seed: int):
             "library_fwd_bwd_rate": sdpa32(MASKED_RATE),
         }
         row["float32"] = {"ms": {name: timed_ms(fn) for name, fn in calls32.items()},
-                          "bound": work_bounds(b, h, s, dh, "float32", 0 if bias is None else b * s * 4, stat_planes=2)}
+                          "bound": work_bounds(b, h, s, dh, "float32", 0 if bias is None else b * s * 4, stat_planes=2),
+                          "bound_3xtf32": work_bounds(b, h, s, dh, "3xtf32", 0 if bias is None else b * s * 4,
+                                                      stat_planes=2)}
+        f32ms = row["float32"]["ms"]
+        row["float32"]["fwd_tf32_vs_cuda_core"] = f32ms["fwd"] / f32ms["fwd_tf32"]
+        row["float32"]["fwd_tf32_vs_library"] = f32ms["fwd_tf32"] / f32ms["library_fwd"]
         emit({"phase": "masked_vs_plain", **row})
         rows.append(row)
 
     # each forward kernel's mask, and the one-pass backward's, read back
-    # against the plain Philox: float32 routes to the CUDA-core forward,
-    # bf16 at dh=64 to the tensor-core one (the launch counts show which ran)
+    # against the plain Philox: float32 routes to the 3xTF32 forward, bf16
+    # at dh=64 to the tensor-core one (the launch counts show which ran)
     masks = {}
     for s, b in ((104, 8), (201, 2)):
         plain = ta.dropout_keep_mask(seed + 101, b, h, s, MASKED_RATE, "cuda")
@@ -1605,14 +1747,25 @@ def phase_masked(seed: int):
                          "launches_float32": dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, c1)))),
                          "launches_bfloat16": dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c1, c2)))),
                          "kept_fraction": mask.float().mean().item()}
+    # and the 3xTF32 forward's past S = 256
+    s, b = MASKED_LONG[2], 2
+    c0 = _counts()
+    mask = read_back_mask(ma, b, h, s, dh, MASKED_RATE, seed + 102, torch.float32)
+    masks[str(s)] = {"B": b, "equals_plain_philox": bool(torch.equal(mask, ta.dropout_keep_mask(
+                         seed + 102, b, h, s, MASKED_RATE, "cuda"))),
+                     "launches_float32": dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, _counts())))),
+                     "kept_fraction": mask.float().mean().item()}
     emit({"phase": "masked_dropout_mask", "H": h, "rate": MASKED_RATE, "by_S": masks})
-    chunks = {str(s): -(-s // dh) for s in (104, 201)}
+    forwards = ("masked_attention_fwd", "masked_attention_fwd_fused", "masked_attention_fwd_tf32")
     for s, m in masks.items():
-        read = (m["launches_float32"]["masked_attention_fwd"], m["launches_float32"]["masked_attention_fwd_fused"],
-                m["launches_bfloat16"]["masked_attention_fwd"], m["launches_bfloat16"]["masked_attention_fwd_fused"])
-        if read != (chunks[s], 0, 0, chunks[s]):
+        chunks = -(-int(s) // dh)
+        read = tuple(m["launches_float32"][n] for n in forwards)
+        if "launches_bfloat16" in m:
+            read += tuple(m["launches_bfloat16"][n] for n in forwards)
+        if read != ((0, 0, chunks) + ((0, chunks, 0) if "launches_bfloat16" in m else ())):
             raise AssertionError(f"masked mask read-back took the wrong forward kernel: {masks}")
-        if not (m["equals_plain_philox"] and m["fwd_fused_equals_plain_philox"] and m["bwd_fused_equals_plain_philox"]) \
+        if not all(m.get(key, True) for key in ("equals_plain_philox", "fwd_fused_equals_plain_philox",
+                                                 "bwd_fused_equals_plain_philox")) \
                 or abs(m["kept_fraction"] - (1 - MASKED_RATE)) > 0.02:
             raise AssertionError(f"masked kernel mask: {masks}")
     return rows
@@ -2050,13 +2203,14 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int, cont
     """Launches of every kernel (KERNEL_NAMES order) in one update of k
     microbatches of ``text_len``-token text, from the config (the
     contrastive loss's backward reaches every graph layer). Each tower
-    layer's forward takes the tensor-core or the CUDA-core kernel, and each
-    tower's backward the one-pass kernel or the pair, as ``kernel_route``
-    says for the compute dtype, the tower's head dim and the layer's length
-    (the backward runs in the fusion layers: tokens + bottleneck). The
-    graph layers take the tensor-core or the CUDA-core tree forward and
-    backward pair as the tree attention's ``kernel_route`` says for the
-    compute dtype and the graph head dim. Under ``mc.remat`` the backward
+    layer's forward takes the tensor-core, the 3xTF32 or the CUDA-core
+    kernel, and each tower's backward the one-pass kernel or the pair, as
+    ``kernel_route`` says for the compute dtype, the tower's head dim and
+    the layer's length (the backward runs in the fusion layers: tokens +
+    bottleneck). The graph layers take the tensor-core, the 3xTF32 or the
+    CUDA-core tree forward and backward pair as the tree attention's
+    ``kernel_route`` says for the compute dtype and the graph head dim.
+    Under ``mc.remat`` the backward
     reruns the forward of every graph layer whose backward runs and of
     every fusion layer's towers (the bottom towers stay outside remat)."""
     import torch
@@ -2068,19 +2222,18 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int, cont
     route = ta.kernel_route(getattr(torch, mc.dtype), mc.encoder_embed_dim // mc.encoder_attention_heads)
     recompute = bwd if mc.remat else 0
     f, d = k * (fwd + recompute), k * bwd  # forwards; dq and dk/dv each
-    # (CUDA-core fwd, dq, dkv; tensor-core fwd, dq, dkv; 3xTF32 dq, dkv)
-    tree = {"tensor_core": [0, 0, 0, f, d, d, 0, 0], "tf32": [f, 0, 0, 0, 0, 0, d, d],
-            "cuda_core": [f, d, d, 0, 0, 0, 0, 0]}[route]
+    # (CUDA-core fwd, dq, dkv; tensor-core fwd, dq, dkv; 3xTF32 dq, dkv, fwd)
+    tree = {"tensor_core": [0, 0, 0, f, d, d, 0, 0, 0], "tf32": [0, 0, 0, 0, 0, 0, d, d, f],
+            "cuda_core": [f, d, d, 0, 0, 0, 0, 0, 0]}[route]
     if not fused:
-        return tree + [0, 0, 0, 0, 0, 0, 0]
+        return tree + [0, 0, 0, 0, 0, 0, 0, 0]
     _, _, text_bwd, vit_bwd = tower_launches(mc)
-    cuda_core_fwd, tensor_core_fwd = (k * n for n in tower_forward_routes(mc, text_len, images))
+    tower_fwd = dict(zip(("cuda_core", "tensor_core", "tf32"),
+                         (k * n for n in tower_forward_routes(mc, text_len, images))))
     if mc.remat:
         for tower, s in ((mc.text_tower, text_len), (mc.image_tower, mc.image_tower.seq_len))[:2 if images else 1]:
-            if kernel_route(getattr(torch, mc.dtype), tower.head_dim, s + mc.num_bottleneck_tokens) == "tensor_core":
-                tensor_core_fwd += k * (mc.num_fusion_layers + 1)
-            else:
-                cuda_core_fwd += k * (mc.num_fusion_layers + 1)
+            tower_fwd[kernel_route(getattr(torch, mc.dtype), tower.head_dim, s + mc.num_bottleneck_tokens)] += \
+                k * (mc.num_fusion_layers + 1)
     pair = one_pass = 0
     extra = mc.num_bottleneck_tokens
     for n, tower, s in ((text_bwd, mc.text_tower, text_len + extra),
@@ -2090,7 +2243,7 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int, cont
         else:
             pair += k * n
     # MDTModel never takes the dense-bias branch
-    return tree + [cuda_core_fwd, pair, pair, one_pass, tensor_core_fwd, 0, 0]
+    return tree + [tower_fwd["cuda_core"], pair, pair, one_pass, tower_fwd["tensor_core"], tower_fwd["tf32"], 0, 0]
 
 
 TRACE_UPDATES = 2
@@ -2619,7 +2772,7 @@ def phase_profile(seed: int, card: str):
 
     mc = config_from_args(build_parser().parse_args(["--synthetic", *CANONICAL_FLAGS])).model
     # every canonical update launches the same tree kernels (k = 3, the tail padded)
-    per_update = sum(expected_launches(mc, False, 3, False, TEXT_LEN)[:8])
+    per_update = sum(expected_launches(mc, False, 3, False, TEXT_LEN)[:9])
     with tempfile.TemporaryDirectory() as d:
         trace_dir = os.path.join(d, "trace")
         _zero_counts()
@@ -5188,7 +5341,7 @@ def phase_workflows(seed: int, card: str = "") -> dict:
     """The last workflows of the port, on one card, in order:
     1. two_stage: ``two_stage.run`` on a generated corpus of
        WF_TWO_STAGE["n_trees"] trees (4 contrastive, 12 node updates, the
-       module's hidden-64 geometry: the CUDA-core tree kernels): its TEST
+       module's hidden-64 geometry, float32: the 3xTF32 tree kernels): its TEST
        line, ms per update of each stage, the tree launches;
     2. context_ablation: ``context_ablation.run`` at 300 trees,
        WF_ABLATION_UPDATES updates per arm: the full and the blind F1 and
@@ -5424,8 +5577,10 @@ def phase_workflows(seed: int, card: str = "") -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--only", choices=("parallel", "sequence_parallel", "workflows"), default=None,
-                   help="build, then only this phase (for iterating on it; the kernels' summary is not printed)")
+    p.add_argument("--only", choices=("kernels", "parallel", "sequence_parallel", "workflows"), default=None,
+                   help="build, then only this phase (for iterating on it; the kernels' summary is not printed); "
+                        "kernels: the phases that hold every kernel against its plain version (kernel_vs_plain, "
+                        "kernel_vs_plain_train, masked_vs_plain, biased_vs_plain)")
     p.add_argument("--parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--parallel-plan", default=None, help=argparse.SUPPRESS)
     p.add_argument("--parallel-out", default=None, help=argparse.SUPPRESS)
@@ -5454,7 +5609,14 @@ def main(argv=None) -> int:
 
     card = clocked("build", phase_build)
     if args.only is not None:
-        {"parallel": phase_parallel, "sequence_parallel": phase_sequence_parallel,
+        def kernels(seed, card):
+            for name, fn in (("kernel", phase_kernel), ("kernel_train", phase_kernel_train), ("masked", phase_masked),
+                             ("biased", phase_biased)):
+                clocked(name, fn, seed)
+            emit({"phase": "seconds_by_phase", "card": card, "seconds": clock,
+                  "total_seconds": time.perf_counter() - t_run})
+
+        {"kernels": kernels, "parallel": phase_parallel, "sequence_parallel": phase_sequence_parallel,
          "workflows": phase_workflows}[args.only](args.seed, card)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -5484,7 +5646,8 @@ def main(argv=None) -> int:
         agree_remat = {p: clocked(f"train_cpu_agreement_fused_remat_{p}", phase_train_cpu_agreement, args.seed,
                                   fused=True, variant=f"remat_{p}", card=card)
                        for p in REMAT_POLICIES}
-        # float32: the CUDA-core tree forward's path, then the pair's
+        # float32: the 3xTF32 tree forward and pair, the fused towers' 3xTF32
+        # forward and CUDA-core pair
         agree = clocked("train_cpu_agreement", phase_train_cpu_agreement, args.seed, fused=False)
         agree_fused = clocked("train_cpu_agreement_fused", phase_train_cpu_agreement, args.seed, fused=True)
         agree_variants = {v: clocked(f"train_cpu_agreement_{v}", phase_train_cpu_agreement, args.seed, fused=False,
@@ -5514,6 +5677,7 @@ def main(argv=None) -> int:
     big_rows = [r for r in train_rows if r["S"] >= 513]
     bf16 = train_row["errors"]["bfloat16"]
     ms = train_row["ms"]
+    long_row = next(r for r in masked_rows if r["shape"] == MASKED_LONG[0])  # bf16 there: the CUDA-core forward
     by_path = {"scoring": scoring, "train": train, "train_fused": train_fused, "train_big": train_big,
                "scoring_fused": scoring_fused, "train_cpu_agreement": agree, "train_cpu_agreement_fused": agree_fused,
                "dense_graph": dense["scoring"], "dense_graph_train": dense["training"],
@@ -5529,7 +5693,9 @@ def main(argv=None) -> int:
                "sequence_parallel": sequence_parallel["launches"],
                "sequence_parallel_ring_tiles": sequence_parallel["launches_ring_tiles"],
                "workflows": workflows["launches"],
-               "kernel_vs_plain_train_dh16_bfloat16": dh16_row["launches_bfloat16"]}
+               "kernel_vs_plain_train_dh16_bfloat16": dh16_row["launches_bfloat16"],
+               "masked_vs_plain_long_300_bfloat16": {
+                   n: long_row["launches"][f"bfloat16_rate{MASKED_RATE}"].get(n, 0) for n in KERNEL_NAMES}}
 
     def paths(name, extra=None):
         out = {path: counts[name] for path, counts in by_path.items()}
@@ -5537,7 +5703,8 @@ def main(argv=None) -> int:
 
     streaming = [{k: r[k] for k in ("S", "B", "ms", "bound")} for r in big_rows]
     k1_worst = max(r[k][name]["out"]["max_abs_err"] for r in train_rows for k in ("errors", "errors_rate0")
-                   for name in ("float32", "bfloat16_cuda_core"))
+                   for name in ("float32_k1", "bfloat16_cuda_core"))
+    fused_rows = [r for r in masked_rows if r["kernel_route"]["bfloat16"] == "tensor_core"]
     fusion_row = next(r for r in masked_rows if r["shape"] == "text_fusion")
     vit_row = next(r for r in masked_rows if r["shape"] == "vit_fusion")
     mms = fusion_row["ms"]
@@ -5563,7 +5730,27 @@ def main(argv=None) -> int:
         return max(r[k]["float32"][o]["max_abs_err"] for r in train_rows + [dh16_row]
                    for k in ("errors", "errors_rate0") for o in outputs)
 
+    def tf32_fwd_worst():
+        """The 3xTF32 tree forward's largest max-abs error of out against the
+        plain version: the float32 route at every training shape and at DH
+        16 (both rates) and at the scoring shapes (rate 0)."""
+        return max([r[k]["float32"]["out"]["max_abs_err"] for r in train_rows + [dh16_row]
+                    for k in ("errors", "errors_rate0")] + [r["max_abs_err_float32"] for r in rows])
+
     f32_row = train_row["float32"]  # S=33, B=12 on float32 inputs
+    tf32_fwd_shapes = [{"S": r["S"], "B": r["B"], "ms": r["float32"]["ms"]["fwd_tf32"],
+                        "cuda_core_ms": r["float32"]["ms"]["fwd_cuda_core"],
+                        "library_ms": r["float32"]["ms"]["library_contiguous_fwd"],
+                        "bound_f32_ms": r["float32"]["bound"]["fwd"][0],
+                        "bound_3xtf32_ms": r["float32"]["bound_3xtf32"]["fwd"][0],
+                        "lse_vs_k1_max_abs_err": r["errors"]["float32_lse_vs_k1"]["max_abs_err"]}
+                       for r in train_rows]
+    tf32_fwd_scoring = [{"S": r["S"], "B": r["B"], "ms": r["float32"]["ms"], "cuda_core_ms": r["float32"]["cuda_core_ms"],
+                         "library_ms": r["float32"]["library_contiguous_ms"], "bound_f32_ms": r["float32"]["bound_ms"],
+                         "bound_3xtf32_ms": r["float32"]["bound_3xtf32_ms"]} for r in rows]
+    tf32_fwd_dh16 = {**DH16_SHAPE, "ms": dh16_row["ms"]["fwd_tf32"], "cuda_core_ms": dh16_row["ms"]["fwd_cuda_core"],
+                     "library_ms": dh16_row["ms"]["library_contiguous_fwd"],
+                     "bound_f32_ms": dh16_row["bound"]["fwd"][0], "bound_3xtf32_ms": dh16_row["bound_3xtf32"]["fwd"][0]}
     tf32_shapes = [{"S": r["S"], "B": r["B"], "pair_ms": r["float32"]["ms"]["pair_tf32"],
                     "dq_ms": r["float32"]["ms"]["dq_tf32"], "dkv_ms": r["float32"]["ms"]["dkv_tf32"],
                     "cuda_core_pair_ms": r["float32"]["ms"]["pair_cuda_core"],
@@ -5587,10 +5774,10 @@ def main(argv=None) -> int:
 
     tree_fwd_replaces = [f"{TPU_KERNELS}:973", f"{TPU_KERNELS}:103", f"{TPU_KERNELS}:66", f"{TPU_KERNELS}:228",
                          f"{TPU_KERNELS}:418 (the LSE the forward saves)"]
-    emit({"kernels": [
+    kernels = [
         {**_kernel_entry(
             "tree_attention_fwd", KERNEL_SOURCE, f"{TPU_KERNELS}:1096", tree_fwd_replaces,
-            agree["tree_attention_fwd"], train_row, k1_worst, "fwd_cuda_core", ms["plain_fwd"],
+            dh16_row["launches_bfloat16"]["tree_attention_fwd"], train_row, k1_worst, "fwd_cuda_core", ms["plain_fwd"],
             ms["library_contiguous_fwd"], "fwd"),
          "launches_by_path": paths("tree_attention_fwd"),
          "serving_rate0": {"S": serve_row["S"], "B": serve_row["B"], "ms": serve_row["cuda_core_ms"],
@@ -5598,11 +5785,12 @@ def main(argv=None) -> int:
                            "bound_ms": serve_row["bound_ms"],
                            "max_abs_err_bfloat16": serve_row["max_abs_err_bfloat16_cuda_core"]},
          "float32": _float32_numbers(train_row, "fwd_cuda_core", "library_contiguous_fwd", "fwd"),
-         "note": "the float32 route (and DH 16, 32, 128): launches from train_cpu_agreement, 0 on the bf16 paths; "
-                 "times on bf16 inputs at S=33, B=12, rate 0.3 with the LSE (float32: the same on float32 inputs, "
-                 "beside SDPA in float32 and the float32 bound); library_ms is SDPA at dropout 0.3 on a "
-                 "contiguous copy of the dense bias; max_abs_err over its float32 checks and its bf16 outputs "
-                 "at every training shape and both rates"},
+         "note": "K1, the bf16 route at DH 16, 32, 128 (the float32 route's forward is the 3xTF32 one): launches "
+                 "from the bf16 DH-16 call through tree_attention (kernel_vs_plain_train_dh16), 0 on every other "
+                 "path; times on bf16 inputs at S=33, B=12, rate 0.3 with the LSE (float32: the same on float32 "
+                 "inputs, called directly, beside SDPA in float32 and the float32 bound); library_ms is SDPA at "
+                 "dropout 0.3 on a contiguous copy of the dense bias; max_abs_err over its float32 and bf16 checks "
+                 "called directly at every training shape and both rates"},
         {**_kernel_entry(
             "tree_attention_fwd_fused", KERNEL_MMA_SOURCE, f"{TPU_KERNELS}:1096", tree_fwd_replaces,
             train["tree_attention_fwd_fused"], train_row, _worst(train_rows, ("out",)), "fwd", ms["plain_fwd"],
@@ -5661,6 +5849,20 @@ def main(argv=None) -> int:
          "note": "the 3xTF32 dk/dv kernel; launches, times, bounds, plain_ms, library_ms as for "
                  "tree_attention_bwd_dq_tf32 (max_abs_err: dk and dv)"},
         {**_kernel_entry(
+            "tree_attention_fwd_tf32", KERNEL_TF32_SOURCE, f"{TPU_KERNELS}:1096", tree_fwd_replaces,
+            agree["tree_attention_fwd_tf32"], f32_row, tf32_fwd_worst(), "fwd_tf32", f32_row["ms"]["plain_fwd"],
+            f32_row["ms"]["library_contiguous_fwd"], "fwd"),
+         "launches_by_path": paths("tree_attention_fwd_tf32"),
+         "bound_3xtf32_ms": f32_row["bound_3xtf32"]["fwd"][0], "cuda_core_ms": f32_row["ms"]["fwd_cuda_core"],
+         "shapes": tf32_fwd_shapes, "scoring_rate0": tf32_fwd_scoring, "dh16": tf32_fwd_dh16,
+         "note": "the float32 route's forward (any DH, any S), 3xTF32 on mma.sync: launches from "
+                 "train_cpu_agreement, 0 on the bf16 paths; times on float32 inputs at S=33, B=12, H=12, DH 64, "
+                 "rate 0.3 with the LSE; cuda_core_ms is K1 on the same inputs; bound_ms is the float32 bound "
+                 "(67 TFLOP/s), bound_3xtf32_ms three TF32 products per float32 one at 494.7 TFLOP/s; plain_ms is "
+                 "the plain version in float32; library_ms is SDPA in float32 at dropout 0.3 on a contiguous bias; "
+                 "max_abs_err is the worst float32 error of out over every training shape, DH 16, both rates and "
+                 "the scoring shapes; shapes: the same at every training shape, with the LSE against K1's"},
+        {**_kernel_entry(
             "tree_attention_bwd_dq_fused", BWD_MMA_SOURCE, f"{TPU_KERNELS}:1148", tree_bwd_dq_replaces,
             train_big["tree_attention_bwd_dq_fused"], train_row, _worst(train_rows, ("dq", "dlut")), "dq",
             ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dq"),
@@ -5686,17 +5888,24 @@ def main(argv=None) -> int:
          "note": "the bf16 route: launches from train_big; cuda_core_ms is K3 on the same inputs; times, plain_ms, "
                  "library_ms and max_abs_err as for tree_attention_bwd_dq_fused (dk and dv)"},
         {**_kernel_entry(
-            "masked_attention_fwd", MASKED_FWD_SOURCE, f"{TPU_MASKED}:86", [], agree_fused["masked_attention_fwd"],
-            fusion_row, _worst_pair(masked_rows, ("out",)), "fwd", mms["plain_fwd"], mms["library_fwd"], "fwd"),
+            "masked_attention_fwd", MASKED_FWD_SOURCE, f"{TPU_MASKED}:86", [],
+            long_row["launches"][f"bfloat16_rate{MASKED_RATE}"]["masked_attention_fwd"], fusion_row,
+            max([r["float32_cuda_core_fwd"]["out"]["max_abs_err"] for r in masked_rows]
+                + [r[k]["bfloat16_pair"]["out"]["max_abs_err"] for r in masked_rows for k in ("errors", "errors_rate0")
+                   if "bfloat16_pair" in r[k]]
+                + [long_row[k]["bfloat16"]["out"]["max_abs_err"] for k in ("errors", "errors_rate0")]),
+            "fwd", mms["plain_fwd"], mms["library_fwd"], "fwd"),
          "launches_by_path": paths("masked_attention_fwd"),
          "float32": _float32_numbers(fusion_row, "fwd", "library_fwd", "fwd"),
-         "note": "the float32 route (and other DH, S > 256): launches from train_cpu_agreement_fused, 0 on the bf16 "
-                 "paths; times on bf16 inputs at the text-fusion shape (B=256, S=104), rate 0.3 with the row "
-                 "statistics; library_ms is SDPA with the key-padding bias and dropout 0.3; max_abs_err over its "
-                 "float32 checks and its bf16 checks at the tower shapes"},
+         "note": "the bf16 route at other DH and S > 256 (the float32 route's forward is the 3xTF32 one): launches "
+                 "from the bf16 check at S=300 (masked_vs_plain long_300, rate 0.3), 0 on every other path; times "
+                 "on bf16 inputs at the text-fusion shape (B=256, S=104), rate 0.3 with the row statistics "
+                 "(float32: the same on float32 inputs, called directly); library_ms is SDPA with the key-padding "
+                 "bias and dropout 0.3; max_abs_err over its float32 checks called directly at every shape, its "
+                 "bf16 checks at the tower shapes and at S=300"},
         {**_kernel_entry(
             "masked_attention_fwd_fused", MASKED_FWD_MMA_SOURCE, f"{TPU_MASKED}:86", [],
-            train_big["masked_attention_fwd_fused"], fusion_row, _worst(masked_rows, ("out",)), "fwd_fused",
+            train_big["masked_attention_fwd_fused"], fusion_row, _worst(fused_rows, ("out",)), "fwd_fused",
             mms["plain_fwd"], mms["library_fwd"], "fwd"),
          "launches_by_path": paths("masked_attention_fwd_fused"),
          "tp_h6": h6("tower", "fwd", "fwd", ("out",)),
@@ -5709,8 +5918,31 @@ def main(argv=None) -> int:
          "note": "the bf16 route (DH 64, S <= 256): launches from train_big; times at the text-fusion shape "
                  "(B=256, S=104), rate 0.3 with the row statistics; cuda_core_ms is the CUDA-core forward on the "
                  "same inputs; library_ms is SDPA with the key-padding bias and dropout 0.3; max_abs_err is the "
-                 "worst bf16 error of out over every shape and both rates",
+                 "worst bf16 error of out over every shape it takes and both rates",
          "shapes": masked_rows},
+        {**_kernel_entry(
+            "masked_attention_fwd_tf32", MASKED_FWD_TF32_SOURCE, f"{TPU_MASKED}:86", [],
+            agree_fused["masked_attention_fwd_tf32"], fusion_row["float32"],
+            max(r[k]["float32"]["out"]["max_abs_err"] for r in masked_rows for k in ("errors", "errors_rate0")),
+            "fwd_tf32", fusion_row["float32"]["ms"]["plain_fwd"], fusion_row["float32"]["ms"]["library_fwd"], "fwd"),
+         "launches_by_path": paths("masked_attention_fwd_tf32"),
+         "bound_3xtf32_ms": fusion_row["float32"]["bound_3xtf32"]["fwd"][0],
+         "cuda_core_ms": fusion_row["float32"]["ms"]["fwd"],
+         "tower_shapes": {r["shape"]: {"B": r["B"], "S": r["S"], "ms": r["float32"]["ms"]["fwd_tf32"],
+                                       "cuda_core_ms": r["float32"]["ms"]["fwd"],
+                                       "plain_ms": r["float32"]["ms"]["plain_fwd"],
+                                       "library_ms": r["float32"]["ms"]["library_fwd"],
+                                       "bound_f32_ms": r["float32"]["bound"]["fwd"][0],
+                                       "bound_3xtf32_ms": r["float32"]["bound_3xtf32"]["fwd"][0],
+                                       "stats": r["stats_float32"]}
+                          for r in masked_rows if r["shape"] in {m[0] for m in MASKED_SHAPES}},
+         "note": "the float32 route's forward (any DH, any S), 3xTF32 on mma.sync, before the CUDA-core pair: "
+                 "launches from train_cpu_agreement_fused, 0 on the bf16 paths; times on float32 inputs at the "
+                 "text-fusion shape (B=256, S=104), rate 0.3 with the row statistics; cuda_core_ms is the CUDA-core "
+                 "forward on the same inputs; bound_ms is the float32 bound (67 TFLOP/s), bound_3xtf32_ms three "
+                 "TF32 products per float32 one at 494.7 TFLOP/s; plain_ms is the plain version in float32; "
+                 "library_ms is SDPA in float32 with the key-padding bias and dropout 0.3; max_abs_err is the "
+                 "worst float32 error of out over every shape (S=300 included) and both rates"},
         {**_kernel_entry(
             "masked_attention_bwd_dq", MASKED_BWD_SOURCE, f"{TPU_MASKED}:134", [], agree_fused["masked_attention_bwd_dq"],
             fusion_row, _worst_pair(masked_rows, ("dq",)), "dq", mms["plain_bwd"], mms["library_fwd_bwd"], "dq"),
@@ -5729,7 +5961,7 @@ def main(argv=None) -> int:
          "note": "as for masked_attention_bwd_dq"},
         {**_kernel_entry(
             "masked_attention_bwd_fused", MASKED_BWD_MMA_SOURCE, f"{TPU_MASKED}:134", [],
-            train_big["masked_attention_bwd_fused"], fusion_row, _worst(masked_rows, ("dq", "dk", "dv")), "bwd_fused",
+            train_big["masked_attention_bwd_fused"], fusion_row, _worst(fused_rows, ("dq", "dk", "dv")), "bwd_fused",
             mms["plain_bwd"], mms["library_fwd_bwd_rate"], "bwd_fused"),
          "launches_by_path": paths("masked_attention_bwd_fused"),
          "tp_h6": {**h6("tower", "fwd_bwd", "bwd_fused", ("dq", "dk", "dv")),
@@ -5770,7 +6002,13 @@ def main(argv=None) -> int:
                  "library_ms is SDPA with the combined bias as a float mask; max_abs_err is the worst bf16 forward "
                  "error over every shape and bias kind",
          "shapes": biased_rows},
-    ]})
+    ]
+    # every kernel launched on a path of this run (the checks that call a
+    # kernel directly aside)
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels launched on no path of this run: {idle}")
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

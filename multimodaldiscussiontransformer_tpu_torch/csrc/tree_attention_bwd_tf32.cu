@@ -24,15 +24,11 @@
 //   dq_i  = scale sum_j ds_ij k_j,
 //   dlut[id, h] += sum_{i,j : ids[b,i,j] = id} ds_ij  for 1 <= id < 32.
 //
-// Precision, 3xTF32: every product runs on
-// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 with each float32
-// operand x split as big = cvt.rna.tf32(x), small = cvt.rna.tf32(x - big),
-// and a b = big_a big_b + big_a small_b + small_a big_b (small_a small_b,
-// ~2^-22 of the product, is dropped), all summed in f32 accumulators: the
-// float32 route's 1e-4 tolerances hold, which one TF32 product (~2^-11)
-// would break. p, pd and ds stay f32 in registers and are split like any
-// operand. PyTorch's memory-efficient attention runs its float32 GEMMs the
-// same way (OpMultiplyAddFastF32).
+// Precision, 3xTF32 (tf32_common.cuh): every product runs on
+// mma.sync.m16n8k8 with each float32 operand split into two TF32 parts and
+// the three larger cross products summed in f32. p, pd and ds stay f32 in
+// registers and are split like any operand. PyTorch's memory-efficient
+// attention runs its float32 GEMMs the same way (OpMultiplyAddFastF32).
 //
 // What bounds them: at S = 1025, B = 1, H = 12, DH = 64 the pair reads q, k,
 // v, g, out, the LSE and the head-shared tpl/ids (8.4 MB, read by every head
@@ -41,17 +37,10 @@
 // float32 on CUDA cores and, as three TF32 products each, 69 us at the 495
 // TFLOP/s of dense TF32: bound by operations.
 //
-// Layout: a float32 tile is staged row-major with DH + 4 floats a row, so
-// that the A fragment (row grp, column tq) and the B fragment (n grp, k tq)
-// of a row-major tile touch 32 distinct banks, and so do the B fragments
-// of a product over the tile's rows (k) read as (row 2 tq, column grp).
-// The accumulator fragment of one 8-column n-tile holds (row grp, columns
-// 2 tq, 2 tq + 1) where an A fragment wants (row grp, columns tq, tq + 4);
-// a product sums over its k index in any order, so the second product
-// takes the k index permuted (logical column tq = physical 2 tq, tq + 4 =
-// 2 tq + 1): the accumulator registers become the A fragment as they are,
-// and the B fragment reads rows 2 tq and 2 tq + 1. No shuffles, no trip
-// through shared memory.
+// Layout (tf32_common.cuh): a float32 tile is staged row-major with DH + 4
+// floats a row, which serves every fragment free of bank conflicts without
+// ldmatrix; the accumulator of S or dS is the A operand of the next
+// product as it is, through a permuted k index.
 //
 // tree_attention_bwd_dq_tf32_kernel (q-major), one block per (head, 32-row q
 // tile, graph), 4 warps: two 16-row tiles x two key groups, the layout of
@@ -96,11 +85,13 @@
 // subtraction per element and use.
 
 #include "mma_common.cuh"
+#include "tf32_common.cuh"
 #include "tree_attention_common.cuh"
 
 namespace {
 
 using namespace tree_attention;
+using namespace tf32_mma;
 using tower_mma::chunk_keep_bits;
 using tower_mma::cp_async16;
 using tower_mma::cp_async4;
@@ -157,100 +148,6 @@ struct KvShape {
                     sizeof(float) * 2 * kStages * kRows * kLd,
                 "the row groups' dK and dV partials fit the Q and G rings");
 };
-
-__device__ __forceinline__ unsigned to_tf32(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small, each a tf32 (small carries the next 11 bits of x)
-__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-// c += a b for one m16n8k8 tile: tf32 operands, f32 accumulators
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// An operand of one m16n8k8 product, split: A (4 registers) or B (2)
-template <int N>
-struct Frag {
-  unsigned big[N], small[N];
-};
-
-// c += a b in 3xTF32: the small cross terms first, then big x big
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Frag<4>& a, const Frag<2>& b) {
-  mma_tf32(c, a.small, b.big[0], b.big[1]);
-  mma_tf32(c, a.big, b.small[0], b.small[1]);
-  mma_tf32(c, a.big, b.big[0], b.big[1]);
-}
-
-// c[t] += term t of a b in 3xTF32 (small x big, big x small, big x big),
-// each in an accumulator of its own: a long sum over k then keeps three
-// independent mma chains in flight instead of one chain three times as long.
-// The product is c[2] + (c[0] + c[1]) (``terms_sum``).
-__device__ __forceinline__ void mma_3xtf32_terms(float (&c)[3][4], const Frag<4>& a, const Frag<2>& b) {
-  mma_tf32(c[0], a.small, b.big[0], b.big[1]);
-  mma_tf32(c[1], a.big, b.small[0], b.small[1]);
-  mma_tf32(c[2], a.big, b.big[0], b.big[1]);
-}
-
-__device__ __forceinline__ float terms_sum(const float (&c)[3][4], int i) { return c[2][i] + (c[0][i] + c[1][i]); }
-
-// The A fragment of rows r0 .. r0 + 15, columns k0 .. k0 + 7 of a row-major
-// tile of LD floats a row (grp = lane / 4, tq = lane % 4):
-// (grp, tq), (grp + 8, tq), (grp, tq + 4), (grp + 8, tq + 4)
-template <int LD>
-__device__ __forceinline__ Frag<4> load_a(const float* tile, int r0, int k0, int lane) {
-  const float* p = tile + (r0 + (lane >> 2)) * LD + k0 + (lane & 3);
-  Frag<4> f;
-  split_tf32(p[0], f.big[0], f.small[0]);
-  split_tf32(p[8 * LD], f.big[1], f.small[1]);
-  split_tf32(p[4], f.big[2], f.small[2]);
-  split_tf32(p[8 * LD + 4], f.big[3], f.small[3]);
-  return f;
-}
-
-// The B fragment of a product over the tile's columns (B[k][n] = tile[n0 +
-// n][k0 + k]): (n grp, k tq), (n grp, k tq + 4)
-template <int LD>
-__device__ __forceinline__ Frag<2> load_b_cols(const float* tile, int n0, int k0, int lane) {
-  const float* p = tile + (n0 + (lane >> 2)) * LD + k0 + (lane & 3);
-  Frag<2> f;
-  split_tf32(p[0], f.big[0], f.small[0]);
-  split_tf32(p[4], f.big[1], f.small[1]);
-  return f;
-}
-
-// The B fragment of a product over the tile's rows (B[k][n] = tile[k0 +
-// k][n0 + n]) with the permuted k of the accumulator-as-A operand: logical
-// k tq is row k0 + 2 tq, logical k tq + 4 is row k0 + 2 tq + 1
-template <int LD>
-__device__ __forceinline__ Frag<2> load_b_rows(const float* tile, int k0, int n0, int lane) {
-  const float* p = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
-  Frag<2> f;
-  split_tf32(p[0], f.big[0], f.small[0]);
-  split_tf32(p[LD], f.big[1], f.small[1]);
-  return f;
-}
-
-// The accumulator fragment c of one 16 x 8 tile as the A operand of a
-// product over its 8 columns, k permuted as load_b_rows reads it
-__device__ __forceinline__ Frag<4> acc_as_a(const float (&c)[4]) {
-  Frag<4> f;
-  split_tf32(c[0], f.big[0], f.small[0]);
-  split_tf32(c[2], f.big[1], f.small[1]);
-  split_tf32(c[1], f.big[2], f.small[2]);
-  split_tf32(c[3], f.big[3], f.small[3]);
-  return f;
-}
 
 template <int DH>
 __global__ void __launch_bounds__(kDqThreads)

@@ -30,17 +30,19 @@ CSRC = _PACKAGE / "csrc"
 SOURCES = {
     "tree_fwd": CSRC / "tree_attention_fwd.cu",
     "tree_fwd_mma": CSRC / "tree_attention_fwd_mma.cu",
+    "tree_fwd_tf32": CSRC / "tree_attention_fwd_tf32.cu",
     "tree_bwd": CSRC / "tree_attention_bwd.cu",
     "tree_bwd_mma": CSRC / "tree_attention_bwd_mma.cu",
     "tree_bwd_tf32": CSRC / "tree_attention_bwd_tf32.cu",
     "masked_fwd": CSRC / "masked_attention_fwd.cu",
     "masked_fwd_mma": CSRC / "masked_attention_fwd_mma.cu",
+    "masked_fwd_tf32": CSRC / "masked_attention_fwd_tf32.cu",
     "masked_bwd": CSRC / "masked_attention_bwd.cu",
     "masked_bwd_mma": CSRC / "masked_attention_bwd_mma.cu",
     "biased_fwd": CSRC / "biased_attention_fwd.cu",
     "biased_fwd_mma": CSRC / "biased_attention_fwd_mma.cu",
 }
-HEADERS = (CSRC / "tree_attention_common.cuh", CSRC / "mma_common.cuh")
+HEADERS = (CSRC / "tree_attention_common.cuh", CSRC / "mma_common.cuh", CSRC / "tf32_common.cuh")
 BUILD_DIR = _PACKAGE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -56,6 +58,7 @@ _MASKED_TAIL = [_I] * 4 + [_F] + [_U] * 3 + [_F, _I, _P]
 ENTRY_POINTS = {
     "tree_fwd": {"tree_attention_fwd": [_P] * 8 + _TREE_TAIL},
     "tree_fwd_mma": {"tree_attention_fwd_mma": [_P] * 8 + _TREE_TAIL},
+    "tree_fwd_tf32": {"tree_attention_fwd_tf32": [_P] * 8 + _TREE_TAIL},
     "tree_bwd": {"tree_attention_bwd_dq": [_P] * 12 + _TREE_TAIL, "tree_attention_bwd_dkv": [_P] * 11 + _TREE_TAIL},
     "tree_bwd_mma": {"tree_attention_bwd_dq_mma": [_P] * 12 + _TREE_TAIL,
                      "tree_attention_bwd_dkv_mma": [_P] * 11 + _TREE_TAIL},
@@ -63,6 +66,7 @@ ENTRY_POINTS = {
                       "tree_attention_bwd_dkv_tf32": [_P] * 11 + _TREE_TAIL},
     "masked_fwd": {"masked_attention_fwd": [_P] * 6 + _MASKED_TAIL},
     "masked_fwd_mma": {"masked_attention_fwd_mma": [_P] * 6 + _MASKED_TAIL},
+    "masked_fwd_tf32": {"masked_attention_fwd_tf32": [_P] * 6 + _MASKED_TAIL},
     "masked_bwd": {"masked_attention_bwd_dq": [_P] * 9 + _MASKED_TAIL, "masked_attention_bwd_dkv": [_P] * 9 + _MASKED_TAIL},
     "masked_bwd_mma": {"masked_attention_bwd_mma": [_P] * 10 + _MASKED_TAIL},
     # (q, k, v, bias, pad, out, B, H, S, DH, bias_heads, scale, dtype, bias_dtype, stream)
@@ -72,11 +76,13 @@ ENTRY_POINTS = {
 ERROR_STRINGS = {
     "tree_fwd": "tree_attention_error_string",
     "tree_fwd_mma": "tree_attention_fwd_mma_error_string",
+    "tree_fwd_tf32": "tree_attention_fwd_tf32_error_string",
     "tree_bwd": "tree_attention_bwd_error_string",
     "tree_bwd_mma": "tree_attention_bwd_mma_error_string",
     "tree_bwd_tf32": "tree_attention_bwd_tf32_error_string",
     "masked_fwd": "masked_attention_fwd_error_string",
     "masked_fwd_mma": "masked_attention_fwd_mma_error_string",
+    "masked_fwd_tf32": "masked_attention_fwd_tf32_error_string",
     "masked_bwd": "masked_attention_bwd_error_string",
     "masked_bwd_mma": "masked_attention_bwd_mma_error_string",
     "biased_fwd": "biased_attention_fwd_error_string",

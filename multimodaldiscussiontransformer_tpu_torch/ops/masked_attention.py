@@ -23,11 +23,15 @@ them cannot drift apart:
   model. The forward is ``csrc/masked_attention_fwd_mma.cu`` and the
   backward ``csrc/masked_attention_bwd_mma.cu`` (dq, dk and dv in one
   pass), both on mma.sync with bf16 operands;
-- "cuda_core": float32, other DH and longer S. The forward is
-  ``csrc/masked_attention_fwd.cu`` and the backward the two kernels of
-  ``csrc/masked_attention_bwd.cu`` (dq, then dk and dv), whose f32
-  products hold the float32 tolerances that bf16 rounding of p and ds
-  would break.
+- "tf32": float32 at every DH and S (the card-vs-CPU steps, the tiny
+  configs). The forward is ``csrc/masked_attention_fwd_tf32.cu``, every
+  product on mma.sync in 3xTF32 (each operand split into two TF32 parts,
+  the three larger cross products summed in f32), and the backward the
+  two kernels of ``csrc/masked_attention_bwd.cu`` (dq, then dk and dv) on
+  CUDA cores, whose f32 products hold the float32 tolerances that bf16
+  rounding of p and ds would break;
+- "cuda_core": bf16 at other DH and longer S. The forward is
+  ``csrc/masked_attention_fwd.cu`` and the backward the same pair.
 The kernels are built and bound by ``ops/cuda_lib.py``; on a CUDA tensor
 the wrapper launches them or raises.
 
@@ -45,6 +49,7 @@ from multimodaldiscussiontransformer_tpu_torch.ops import cuda_lib
 from multimodaldiscussiontransformer_tpu_torch.ops.tree_attention import (
     DTYPE_CODES,
     MASK_BIAS,
+    aligned16,
     check_kernel_inputs,
     check_rate,
     count_launch,
@@ -109,34 +114,41 @@ def _check_cuda_inputs(q, k, v, key_bias, **extra) -> None:
 TENSOR_CORE_DTYPE = torch.bfloat16
 TENSOR_CORE_HEAD_DIM = 64
 TENSOR_CORE_MAX_S = 256
+# the 3xTF32 forward takes this, at every DH and S
+TF32_DTYPE = torch.float32
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int, s: int) -> str:
     """Which kernels the CUDA path launches, in both directions, for q of
-    this dtype, head dim and length: "tensor_core" for bf16 at DH = 64 and
-    S <= 256 (``masked_attention_fwd_fused``, then
-    ``masked_attention_bwd_fused``), else "cuda_core"
-    (``masked_attention_fwd``, then ``masked_attention_bwd_dq`` and
-    ``masked_attention_bwd_dkv``, f32 arithmetic on CUDA cores). A choice
-    between kernels, not a fallback: each raises if it fails."""
+    this dtype, head dim and length:
+    - "tensor_core" for bf16 at DH = 64 and S <= 256
+      (``masked_attention_fwd_fused``, then ``masked_attention_bwd_fused``);
+    - "tf32" for float32 (``masked_attention_fwd_tf32``, 3xTF32 on tensor
+      cores, then ``masked_attention_bwd_dq`` and ``masked_attention_bwd_dkv``,
+      f32 arithmetic on CUDA cores);
+    - "cuda_core" for bf16 at other DH or longer S (``masked_attention_fwd``,
+      then the same pair).
+    A choice between kernels, not a fallback: each raises if it fails."""
+    if dtype == TF32_DTYPE:
+        return "tf32"
     tensor_core = dtype == TENSOR_CORE_DTYPE and head_dim == TENSOR_CORE_HEAD_DIM and 1 <= s <= TENSOR_CORE_MAX_S
     return "tensor_core" if tensor_core else "cuda_core"
 
 
-def _check_tensor_core_inputs(kernel: str, q, *tensors) -> None:
-    """What the tensor-core kernels take besides ``_check_cuda_inputs``:
-    the "tensor_core" route's dtype and shape, CUDA tensors, and q, k, v
-    (and g, out) 16-byte aligned for their 16-byte copies."""
+def _check_tensor_core_inputs(kernel: str, q, *tensors, route: str = "tensor_core") -> None:
+    """What the tensor-core kernels take besides ``_check_cuda_inputs``: the
+    dtype (and, for "tensor_core", the head dim and length) of their
+    ``route``, CUDA tensors, and q, k, v (and g, out) 16-byte aligned for
+    their 16-byte copies."""
     _, _, s, dh = q.shape
-    if kernel_route(q.dtype, dh, s) != "tensor_core":
-        raise ValueError(
-            f"the {kernel} takes {TENSOR_CORE_DTYPE} at DH={TENSOR_CORE_HEAD_DIM} and S <= {TENSOR_CORE_MAX_S}, "
-            f"got {q.dtype} DH={dh} S={s}"
-        )
-    if q.device.type != "cuda":
-        raise ValueError(f"the {kernel} runs on cuda, not {q.device}")
+    if kernel_route(q.dtype, dh, s) != route:
+        takes = (f"{TF32_DTYPE}" if route == "tf32"
+                 else f"{TENSOR_CORE_DTYPE} at DH={TENSOR_CORE_HEAD_DIM} and S <= {TENSOR_CORE_MAX_S}")
+        raise ValueError(f"the {kernel} takes {takes}, got {q.dtype} DH={dh} S={s}")
     if any(t.data_ptr() % 16 for t in (q, *tensors)):
         raise ValueError(f"the {kernel} takes 16-byte aligned q, k, v, g and out")
+    if q.device.type != "cuda":
+        raise ValueError(f"the {kernel} runs on cuda, not {q.device}")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -147,7 +159,7 @@ def masked_attention_fwd(
     q, k, v, key_bias, scale: float, rate: float = 0.0, seed: int = 0, with_stats: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the CUDA-core forward kernel, the "cuda_core" route's (it takes
-    bf16 too): (out, stats or None), stats f32 (2, B, H, S) holding each
+    float32 too): (out, stats or None), stats f32 (2, B, H, S) holding each
     row's max and the log of its (undropped) sum, for the backward.
     ``launches`` counts launches."""
     _check_cuda_inputs(q, k, v, key_bias)
@@ -184,6 +196,28 @@ def masked_attention_fwd_fused(
         b, h, s, dh, float(scale), *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
     )
     count_launch(masked_attention_fwd_fused)
+    return out, stats
+
+
+def masked_attention_fwd_tf32(
+    q, k, v, key_bias, scale: float, rate: float = 0.0, seed: int = 0, with_stats: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the 3xTF32 forward kernel: (out, stats or None), as
+    ``masked_attention_fwd`` returns them. Takes float32 CUDA tensors (the
+    "tf32" route, any DH and S), with q, k and v 16-byte aligned."""
+    _check_cuda_inputs(q, k, v, key_bias)
+    _check_tensor_core_inputs("3xTF32 forward", q, k, v, route="tf32")
+    b, h, s, dh = q.shape
+    out = torch.empty_like(q)
+    stats = torch.empty(2, b, h, s, dtype=torch.float32, device=q.device) if with_stats else None
+    if out.numel() == 0:
+        return out, stats
+    cuda_lib.launch(
+        "masked_fwd_tf32", "masked_attention_fwd_tf32", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_bias), out.data_ptr(), _ptr(stats),
+        b, h, s, dh, float(scale), *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
+    )
+    count_launch(masked_attention_fwd_tf32)
     return out, stats
 
 
@@ -250,7 +284,7 @@ def masked_attention_bwd_fused(
 
 KERNELS = (
     masked_attention_fwd, masked_attention_bwd_dq, masked_attention_bwd_dkv, masked_attention_bwd_fused,
-    masked_attention_fwd_fused,
+    masked_attention_fwd_fused, masked_attention_fwd_tf32,
 )
 for _fn in KERNELS:
     _fn.launches = 0
@@ -266,8 +300,13 @@ class MaskedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, key_bias, seed: int, rate: float, scale: float):
         need = any(ctx.needs_input_grad[:3])
-        tensor_core = kernel_route(q.dtype, q.shape[-1], q.shape[2]) == "tensor_core"
-        fwd = masked_attention_fwd_fused if tensor_core else masked_attention_fwd
+        route = kernel_route(q.dtype, q.shape[-1], q.shape[2])
+        if route == "tf32":
+            # the 3xTF32 forward copies in 16-byte pieces: a view off a
+            # 16-byte boundary goes as an aligned copy (and is saved as one)
+            q, k, v = (aligned16(x) for x in (q, k, v))
+        forwards = {"tensor_core": masked_attention_fwd_fused, "tf32": masked_attention_fwd_tf32}
+        fwd = forwards.get(route, masked_attention_fwd)
         out, stats = fwd(q, k, v, key_bias, scale, rate, seed, with_stats=need)
         if need:
             ctx.save_for_backward(q, k, v, key_bias, out, stats)

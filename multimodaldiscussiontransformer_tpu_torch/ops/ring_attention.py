@@ -29,7 +29,7 @@ over the data and sp axes).
 Tiles go to the port's tree kernels (``ops/tree_attention.py``): on CUDA
 tensors the route ``ta.kernel_route`` names (bf16 at dh 64: the tensor-core
 forward with LSE and the tensor-core dq and dk/dv kernels; float32: the
-CUDA-core K1 and the 3xTF32 dq and dk/dv kernels), which raise if a launch
+3xTF32 forward and the 3xTF32 dq and dk/dv kernels), which raise if a launch
 fails; on CPU tensors the
 plain versions of the same three tile functions (``tile_forward_plain``,
 ``tile_dq_plain``, ``tile_dkv_plain``). The JAX ring is XLA-level, not
@@ -205,7 +205,7 @@ def tile_ops(q: torch.Tensor):
     if route == "tensor_core":
         fwd, dq, dkv = ta.tree_attention_fwd_fused, ta.tree_attention_bwd_dq_fused, ta.tree_attention_bwd_dkv_fused
     elif route == "tf32":
-        fwd, dq, dkv = ta.tree_attention_fwd, ta.tree_attention_bwd_dq_tf32, ta.tree_attention_bwd_dkv_tf32
+        fwd, dq, dkv = ta.tree_attention_fwd_tf32, ta.tree_attention_bwd_dq_tf32, ta.tree_attention_bwd_dkv_tf32
     else:
         fwd, dq, dkv = ta.tree_attention_fwd, ta.tree_attention_bwd_dq, ta.tree_attention_bwd_dkv
 
@@ -231,12 +231,13 @@ class RingTreeAttention(torch.autograd.Function):
         n, rank = dist.get_world_size(group), dist.get_rank(group)
         c = q.shape[2]
         fwd, _, _ = tile_ops(q)
+        qa = ta.aligned16(q)  # the tensor-core kernels copy in 16-byte pieces
         kv = torch.stack([k, v])
         out = lse = None
         for t in range(n):
             src = (rank - t) % n
             cols = slice(src * c, (src + 1) * c)
-            o_t, lse_t = fwd(q, ta.aligned16(kv[0]), ta.aligned16(kv[1]), template[:, :, cols].contiguous(),
+            o_t, lse_t = fwd(qa, ta.aligned16(kv[0]), ta.aligned16(kv[1]), template[:, :, cols].contiguous(),
                              ids[:, :, cols].contiguous(), lut, scale, double_add, rate,
                              tile_seed(seed, shard, rank, src, n))
             if out is None:

@@ -31,16 +31,16 @@ dtype and head dim:
   ``csrc/tree_attention_bwd_mma.cu``, all on mma.sync with bf16 operands,
   streaming over S in tiles;
 - "tf32": float32 at DH 16, 32, 64 and 128 (the card-vs-CPU steps, the
-  tiny configs). The forward is ``csrc/tree_attention_fwd.cu`` (f32 on
-  CUDA cores) and the backward pair ``csrc/tree_attention_bwd_tf32.cu``,
-  every product on mma.sync in 3xTF32 (each operand split into two TF32
-  parts, the three larger cross products summed in f32), which holds the
-  float32 tolerances that one TF32 or bf16 product would break;
+  tiny configs). The forward is ``csrc/tree_attention_fwd_tf32.cu`` and
+  the backward pair ``csrc/tree_attention_bwd_tf32.cu``, every product on
+  mma.sync in 3xTF32 (each operand split into two TF32 parts, the three
+  larger cross products summed in f32), which holds the float32
+  tolerances that one TF32 or bf16 product would break;
 - "cuda_core": bf16 at DH 16, 32 and 128. The forward is
   ``csrc/tree_attention_fwd.cu`` and the backward pair
   ``csrc/tree_attention_bwd.cu`` (f32 arithmetic on CUDA cores).
-Both forwards compute one function, draw one dropout mask and write one
-LSE, and every backward pair reads it, so either forward feeds any pair.
+Every forward computes one function, draws one dropout mask and writes one
+LSE, and every backward pair reads it, so any forward feeds any pair.
 The kernels are built and bound by ``ops/cuda_lib.py`` at their first use;
 on a CUDA tensor the wrapper launches them or raises.
 """
@@ -279,9 +279,10 @@ def tree_attention_fwd(
     q, k, v, template, ids, lut, scale: float, double_add: bool = True,
     rate: float = 0.0, seed: int = 0, with_lse: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch the CUDA-core forward kernel, the forward of the "tf32" and
-    "cuda_core" routes (it takes bf16 at DH 64 too): (out, lse or None).
-    ``launches`` counts launches."""
+    """Launch the CUDA-core forward kernel K1, the "cuda_core" route's (it
+    takes float32 and bf16 at every DH of _HEAD_DIMS; the route sends it
+    bf16 at DH 16, 32 and 128): (out, lse or None). ``launches`` counts
+    launches."""
     _check_cuda_inputs(q, k, v, template, ids, lut)
     return _launch_forward(tree_attention_fwd, ("tree_fwd", "tree_attention_fwd"), q, k, v, template, ids, lut, scale,
                            double_add, rate, seed, with_lse)
@@ -310,7 +311,7 @@ def _launch_forward(wrapper, entry: Tuple[str, str], q, k, v, template, ids, lut
 # the tensor-core kernels take these; see ``kernel_route``
 TENSOR_CORE_DTYPE = torch.bfloat16
 TENSOR_CORE_HEAD_DIM = 64
-# the 3xTF32 backward pair takes this, at every DH of _HEAD_DIMS
+# the 3xTF32 forward and backward pair take this, at every DH of _HEAD_DIMS
 TF32_DTYPE = torch.float32
 
 
@@ -320,9 +321,9 @@ def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     - "tensor_core" for bf16 at DH = 64: ``tree_attention_fwd_fused``, then
       ``tree_attention_bwd_dq_fused`` and ``tree_attention_bwd_dkv_fused``
       (any S);
-    - "tf32" for float32 (any DH of _HEAD_DIMS): ``tree_attention_fwd``
-      (f32 on CUDA cores), then ``tree_attention_bwd_dq_tf32`` and
-      ``tree_attention_bwd_dkv_tf32`` (3xTF32 on tensor cores, any S);
+    - "tf32" for float32 (any DH of _HEAD_DIMS): ``tree_attention_fwd_tf32``,
+      then ``tree_attention_bwd_dq_tf32`` and ``tree_attention_bwd_dkv_tf32``
+      (3xTF32 on tensor cores, any S);
     - "cuda_core" for bf16 at DH 16, 32 and 128: ``tree_attention_fwd``,
       then ``tree_attention_bwd_dq`` and ``tree_attention_bwd_dkv`` (f32
       arithmetic on CUDA cores).
@@ -368,6 +369,19 @@ def tree_attention_fwd_fused(
     _check_tensor_core_inputs("forward", q, k, v)
     return _launch_forward(tree_attention_fwd_fused, ("tree_fwd_mma", "tree_attention_fwd_mma"), q, k, v, template, ids,
                            lut, scale, double_add, rate, seed, with_lse)
+
+
+def tree_attention_fwd_tf32(
+    q, k, v, template, ids, lut, scale: float, double_add: bool = True,
+    rate: float = 0.0, seed: int = 0, with_lse: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the 3xTF32 forward kernel: (out, lse or None), as
+    ``tree_attention_fwd`` returns them. Takes float32 CUDA tensors (the
+    "tf32" route, any DH of _HEAD_DIMS), with q, k and v 16-byte aligned."""
+    _check_cuda_inputs(q, k, v, template, ids, lut)
+    _check_tensor_core_inputs("forward", q, k, v, route="tf32")
+    return _launch_forward(tree_attention_fwd_tf32, ("tree_fwd_tf32", "tree_attention_fwd_tf32"), q, k, v, template,
+                           ids, lut, scale, double_add, rate, seed, with_lse)
 
 
 def _launch_dq(wrapper, entry: Tuple[str, str], q, k, v, out, g, template, ids, lut, lse, scale, double_add, rate,
@@ -491,7 +505,7 @@ def tree_attention_bwd_dkv_tf32(
 
 KERNELS = (tree_attention_fwd, tree_attention_bwd_dq, tree_attention_bwd_dkv, tree_attention_fwd_fused,
            tree_attention_bwd_dq_fused, tree_attention_bwd_dkv_fused, tree_attention_bwd_dq_tf32,
-           tree_attention_bwd_dkv_tf32)
+           tree_attention_bwd_dkv_tf32, tree_attention_fwd_tf32)
 for _fn in KERNELS:
     _fn.launches = 0
 
@@ -505,8 +519,13 @@ class TreeAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, template, ids, lut, seed: int, rate: float, scale: float, double_add: bool):
         need = any(ctx.needs_input_grad[i] for i in (0, 1, 2, 5))
-        tensor_core = kernel_route(q.dtype, q.shape[-1]) == "tensor_core"
-        fwd = tree_attention_fwd_fused if tensor_core else tree_attention_fwd
+        route = kernel_route(q.dtype, q.shape[-1])
+        if route == "tf32":
+            # the 3xTF32 kernels copy in 16-byte pieces: a view off a 16-byte
+            # boundary goes as an aligned copy (and is saved as one)
+            q, k, v = (aligned16(x) for x in (q, k, v))
+        forwards = {"tensor_core": tree_attention_fwd_fused, "tf32": tree_attention_fwd_tf32}
+        fwd = forwards.get(route, tree_attention_fwd)
         out, lse = fwd(q, k, v, template, ids, lut, scale, double_add, rate, seed, with_lse=need)
         if need:
             ctx.save_for_backward(q, k, v, template, ids, lut, out, lse)
@@ -523,10 +542,9 @@ class TreeAttention(torch.autograd.Function):
             bwd_dq, bwd_dkv = tree_attention_bwd_dq, tree_attention_bwd_dkv
         else:
             # the tensor-core pairs copy in 16-byte pieces: a view off a
-            # 16-byte boundary (g, or what K1 was given) goes as an aligned copy
+            # 16-byte boundary (g) goes as an aligned copy
             g = aligned16(g)
             if route == "tf32":
-                q, k, v, out = (aligned16(x) for x in (q, k, v, out))
                 bwd_dq, bwd_dkv = tree_attention_bwd_dq_tf32, tree_attention_bwd_dkv_tf32
             else:
                 bwd_dq, bwd_dkv = tree_attention_bwd_dq_fused, tree_attention_bwd_dkv_fused

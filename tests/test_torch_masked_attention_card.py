@@ -80,8 +80,10 @@ def max_err_of_max(got, want, floor=1e-30):
 
 
 # launches of ma.KERNELS (CUDA-core fwd, dq, dkv, one-pass bwd, tensor-core
-# fwd) for one forward and backward, by route
-ROUTE_LAUNCHES = {"tensor_core": [0, 0, 0, 1, 1], "cuda_core": [1, 1, 1, 0, 0]}
+# fwd, 3xTF32 fwd) for one forward and backward, by route
+ROUTE_LAUNCHES = {"tensor_core": [0, 0, 0, 1, 1, 0], "cuda_core": [1, 1, 1, 0, 0, 0], "tf32": [0, 1, 1, 0, 0, 1]}
+# the forward stand-in each route calls
+ROUTE_FORWARD = {"tensor_core": "fwd_fused", "cuda_core": "fwd", "tf32": "fwd_tf32"}
 
 
 def expected_launches(dtype, s, dh=64):
@@ -177,7 +179,7 @@ ROUTE_CASES = [
     (torch.bfloat16, 64, 257, "cuda_core"),  # longer S
     (torch.bfloat16, 32, 104, "cuda_core"),  # other DH
     (torch.bfloat16, 128, 104, "cuda_core"),
-    (torch.float32, 64, 104, "cuda_core"),  # f32: the card-vs-CPU steps' tolerances
+    (torch.float32, 64, 104, "tf32"),  # f32: the card-vs-CPU steps' tolerances
 ]
 
 
@@ -215,6 +217,7 @@ def _stub_kernels(monkeypatch, calls, asked=None):
         return torch.zeros_like(k), torch.zeros_like(v)
 
     for name, fn in (("masked_attention_fwd", fwd("fwd")), ("masked_attention_fwd_fused", fwd("fwd_fused")),
+                     ("masked_attention_fwd_tf32", fwd("fwd_tf32")),
                      ("masked_attention_bwd_fused", fake_fused), ("masked_attention_bwd_dq", fake_dq),
                      ("masked_attention_bwd_dkv", fake_dkv)):
         monkeypatch.setattr(ma, name, fn)
@@ -231,7 +234,7 @@ def test_forward_launches_the_routed_kernel(monkeypatch, dtype, dh, s, route, wi
     q, k, v, bias = (torch.from_numpy(x) for x in _inputs(11, 1, 2, s, dh))
     q, k, v = (x.to(dtype).requires_grad_(with_grad) for x in (q, k, v))
     ma.MaskedAttention.apply(q, k, v, bias, 3, 0.2, dh ** -0.5)
-    assert calls == ["fwd_fused" if route == "tensor_core" else "fwd"]
+    assert calls == [ROUTE_FORWARD[route]]
     assert asked == [with_grad]
 
 
@@ -256,16 +259,16 @@ def test_every_tower_shape_routes_to_tensor_cores():
 @pytest.mark.parametrize("dtype, dh, s", [(torch.bfloat16, 64, 104), (torch.float32, 64, 104), (torch.bfloat16, 32, 40)])
 def test_backward_launches_the_routed_kernels(monkeypatch, dtype, dh, s):
     """``MaskedAttention`` calls the tensor-core forward and the one-pass
-    backward, or the CUDA-core forward and the pair, as ``kernel_route``
-    says, the backward with the forward's saved tensors. The kernels are
-    stood in for on CPU tensors."""
+    backward, or the 3xTF32 or the CUDA-core forward and the pair, as
+    ``kernel_route`` says, the backward with the forward's saved tensors.
+    The kernels are stood in for on CPU tensors."""
     calls = []
     _stub_kernels(monkeypatch, calls)
     q, k, v, bias = (torch.from_numpy(x) for x in _inputs(6, 2, 2, s, dh))
     q, k, v = (x.to(dtype).requires_grad_(True) for x in (q, k, v))
     ma.MaskedAttention.apply(q, k, v, bias, 3, 0.2, dh ** -0.5).float().sum().backward()
-    tensor_core = ma.kernel_route(dtype, dh, s) == "tensor_core"
-    assert calls == (["fwd_fused", "fused"] if tensor_core else ["fwd", "dq", "dkv"])
+    route = ma.kernel_route(dtype, dh, s)
+    assert calls == (["fwd_fused", "fused"] if route == "tensor_core" else [ROUTE_FORWARD[route], "dq", "dkv"])
     assert q.grad.dtype == dtype and k.grad.shape == k.shape
 
 
@@ -496,7 +499,7 @@ def test_fused_forward_matches_plain_on_card(rate, s):
     before = [fn.launches for fn in ma.KERNELS]
     out, stats = ma.masked_attention_fwd_fused(q, k, v, bias, dh ** -0.5, rate, 99 + s, with_stats=True)
     torch.cuda.synchronize()
-    assert [fn.launches - n for fn, n in zip(ma.KERNELS, before)] == [0, 0, 0, 0, 1]
+    assert [fn.launches - n for fn, n in zip(ma.KERNELS, before)] == [0, 0, 0, 0, 1, 0]
     want = ma.masked_attention_dropout_reference(q, k, v, bias, 99 + s, rate, dh ** -0.5)
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
     assert max_err_of_max(out, want) <= BF16_RTOL_OF_MAX, max_err_of_max(out, want)

@@ -50,12 +50,12 @@ ROUTE_CASES = [
     (torch.float32, 128, "tf32"),
 ]
 # the stand-ins each route calls for one forward and backward
-ROUTE_CALLS = {"tensor_core": ["fwd_fused", "dq_fused", "dkv_fused"], "tf32": ["fwd", "dq_tf32", "dkv_tf32"],
+ROUTE_CALLS = {"tensor_core": ["fwd_fused", "dq_fused", "dkv_fused"], "tf32": ["fwd_tf32", "dq_tf32", "dkv_tf32"],
                "cuda_core": ["fwd", "dq", "dkv"]}
 # launches of ta.KERNELS (CUDA-core fwd, dq, dkv; tensor-core fwd, dq, dkv;
-# 3xTF32 dq, dkv)
-ROUTE_LAUNCHES = {"tensor_core": [0, 0, 0, 1, 1, 1, 0, 0], "tf32": [1, 0, 0, 0, 0, 0, 1, 1],
-                  "cuda_core": [1, 1, 1, 0, 0, 0, 0, 0]}
+# 3xTF32 dq, dkv; 3xTF32 fwd)
+ROUTE_LAUNCHES = {"tensor_core": [0, 0, 0, 1, 1, 1, 0, 0, 0], "tf32": [0, 0, 0, 0, 0, 0, 1, 1, 1],
+                  "cuda_core": [1, 1, 1, 0, 0, 0, 0, 0, 0]}
 
 
 def _inputs(seed, b, h, s, dh, id_low=0, id_high=ta.LUT_SIZE):
@@ -90,9 +90,9 @@ def _stub_kernels(monkeypatch, calls, seen=None):
     """Stand-ins on CPU tensors for every kernel wrapper of ``ta``: each
     records its name in ``calls``. The forwards return the plain version's
     output and an LSE filled with a marker of their own (7 for the
-    CUDA-core forward, 8 for the tensor-core one); the backward stand-ins
-    record (name, LSE marker, g) in ``seen``."""
-    markers = {"fwd": 7.0, "fwd_fused": 8.0}
+    CUDA-core forward, 8 for the tensor-core one, 9 for the 3xTF32 one);
+    the backward stand-ins record (name, LSE marker, g) in ``seen``."""
+    markers = {"fwd": 7.0, "fwd_fused": 8.0, "fwd_tf32": 9.0}
 
     def fwd(name):
         def run(q, k, v, template, ids, lut, scale, double_add, rate, seed, with_lse):
@@ -122,7 +122,7 @@ def _stub_kernels(monkeypatch, calls, seen=None):
 
     stand_ins = {
         "tree_attention_fwd": fwd("fwd"), "tree_attention_fwd_fused": fwd("fwd_fused"),
-        "tree_attention_bwd_dq": dq("dq"), "tree_attention_bwd_dkv": dkv("dkv"),
+        "tree_attention_fwd_tf32": fwd("fwd_tf32"), "tree_attention_bwd_dq": dq("dq"), "tree_attention_bwd_dkv": dkv("dkv"),
         "tree_attention_bwd_dq_fused": dq("dq_fused"), "tree_attention_bwd_dkv_fused": dkv("dkv_fused"),
         "tree_attention_bwd_dq_tf32": dq("dq_tf32"), "tree_attention_bwd_dkv_tf32": dkv("dkv_tf32"),
     }
@@ -134,7 +134,7 @@ def _stub_kernels(monkeypatch, calls, seen=None):
 @pytest.mark.parametrize("dtype, dh, route", ROUTE_CASES)
 def test_kernel_route_picks_both_directions(monkeypatch, dtype, dh, route):
     """``kernel_route`` names the tensor-core pair for bf16 at DH 64, the
-    3xTF32 pair for float32 and K2/K3 for bf16 at DH 16, 32 and 128, and
+    3xTF32 forward and pair for float32 and K2/K3 for bf16 at DH 16, 32 and 128, and
     ``TreeAttention`` calls the route's forward and then its dq and dk/dv
     kernels, never another pair's. The kernels are stood in for on CPU
     tensors."""

@@ -106,7 +106,7 @@ def _stub_kernels(monkeypatch, calls, seen):
 
     stand_ins = {
         "tree_attention_fwd": fwd("fwd"), "tree_attention_fwd_fused": fwd("fwd_fused"),
-        "tree_attention_bwd_dq": dq("dq"), "tree_attention_bwd_dkv": dkv("dkv"),
+        "tree_attention_fwd_tf32": fwd("fwd_tf32"), "tree_attention_bwd_dq": dq("dq"), "tree_attention_bwd_dkv": dkv("dkv"),
         "tree_attention_bwd_dq_fused": dq("dq_fused"), "tree_attention_bwd_dkv_fused": dkv("dkv_fused"),
         "tree_attention_bwd_dq_tf32": dq("dq_tf32"), "tree_attention_bwd_dkv_tf32": dkv("dkv_tf32"),
     }
@@ -114,14 +114,14 @@ def _stub_kernels(monkeypatch, calls, seen):
         monkeypatch.setattr(ta, name, fn)
 
 
-ROUTE_CALLS = {"tf32": ["fwd", "dq_tf32", "dkv_tf32"], "tensor_core": ["fwd_fused", "dq_fused", "dkv_fused"],
+ROUTE_CALLS = {"tf32": ["fwd_tf32", "dq_tf32", "dkv_tf32"], "tensor_core": ["fwd_fused", "dq_fused", "dkv_fused"],
                "cuda_core": ["fwd", "dq", "dkv"]}
 
 
 @pytest.mark.parametrize("dtype, dh, route", ROUTE_CASES)
 def test_route_sends_float32_backward_to_the_tf32_pair(monkeypatch, dtype, dh, route):
     """``kernel_route`` for every (dtype, DH): float32 takes the 3xTF32 pair
-    (after the CUDA-core forward), bf16 at DH 64 the tensor-core kernels and
+    (after the 3xTF32 forward), bf16 at DH 64 the tensor-core kernels and
     bf16 at DH 16, 32, 128 K2/K3; ``TreeAttention`` calls exactly those."""
     assert ta.kernel_route(dtype, dh) == route
     calls, seen = [], []
@@ -133,8 +133,9 @@ def test_route_sends_float32_backward_to_the_tf32_pair(monkeypatch, dtype, dh, r
 
 
 def test_misaligned_views_reach_the_tf32_pair_as_aligned_copies(monkeypatch):
-    """q, k, v (which K1 takes as they are) and g off a 16-byte boundary
-    reach the 3xTF32 pair as 16-byte aligned copies of the same values."""
+    """q, k, v and g off a 16-byte boundary reach the 3xTF32 pair as
+    16-byte aligned copies of the same values (the forward aligned q, k and
+    v for itself, and saved what it took)."""
     calls, seen = [], []
     _stub_kernels(monkeypatch, calls, seen)
     q, k, v, template, ids, lut = _cpu_inputs(5, 1, 2, 9, 16)
@@ -142,7 +143,7 @@ def test_misaligned_views_reach_the_tf32_pair_as_aligned_copies(monkeypatch):
     out = ta.TreeAttention.apply(q, k, v, template, ids, lut, 5, 0.3, 0.25, True)
     g = torch.randn(out.shape)
     out.backward(_misaligned(g))
-    assert calls == ["fwd", "dq_tf32", "dkv_tf32"]
+    assert calls == ["fwd_tf32", "dq_tf32", "dkv_tf32"]
     for _, q_got, g_got, out_got in seen:
         for t in (q_got, g_got) + ((out_got,) if out_got is not None else ()):
             assert t.data_ptr() % 16 == 0 and t.is_contiguous()
@@ -314,16 +315,16 @@ def _pair(q, k, v, template, ids, lut, g, rate, seed, tf32: bool):
 @pytest.mark.parametrize("dh", [16, 32, 64, 128])
 @pytest.mark.parametrize("s", TF32_S)
 def test_tf32_pair_matches_plain_on_card(s, dh, rate):
-    """float32 through ``tree_attention``: K1, then the 3xTF32 pair, against
-    the plain version's forward and autograd gradients on the same inputs;
-    K2/K3 launch no time."""
+    """float32 through ``tree_attention``: the 3xTF32 forward, then the
+    3xTF32 pair, against the plain version's forward and autograd gradients
+    on the same inputs; K1 and K2/K3 launch no time."""
     _card()
     b = 2 if s <= 257 else 1
     q, k, v, template, ids, lut, g = _card_inputs(s + dh, b, 4, s, dh)
     before = [fn.launches for fn in ta.KERNELS]
     got = forward_and_grads(ta.tree_attention, q, k, v, template, ids, lut, g, rate=rate, seed=2468)
     torch.cuda.synchronize()
-    assert [fn.launches - n for fn, n in zip(ta.KERNELS, before)] == [1, 0, 0, 0, 0, 0, 1, 1]
+    assert [fn.launches - n for fn, n in zip(ta.KERNELS, before)] == [0, 0, 0, 0, 0, 0, 1, 1, 1]
     want = forward_and_grads(ta.tree_attention_dropout_reference, q, k, v, template, ids, lut, g, rate=rate, seed=2468)
     _assert_close_of_max(got[:1] + got[3:4], want[:1] + want[3:4], ("out", "dv"))
     # at S = 1 dq, dk and dlut are 0 in exact arithmetic (softmax over one
@@ -383,7 +384,7 @@ def test_tf32_pair_masked_rows_and_ids_on_card(s, dh):
 @pytest.mark.parametrize("dh", [16, 64])
 @pytest.mark.parametrize("s, b", [(33, 4), (257, 1), (601, 1)])
 def test_tf32_pair_adjoint_identity_in_v(s, b, dh):
-    """<g, f(v2)> = <vjp_v(g), v2> through K1 and the 3xTF32 pair: it holds
+    """<g, f(v2)> = <vjp_v(g), v2> through the 3xTF32 forward and pair: it holds
     only if the backward regenerates the forward's mask (relative 1e-4)."""
     _card()
     q, k, v, template, ids, lut, g = _card_inputs(s + 1, b, 12, s, dh)
@@ -439,7 +440,7 @@ def test_tf32_pair_mask_is_the_plain_philox(s, dh):
     before = [fn.launches for fn in ta.KERNELS]
     by_dv, by_dq = read_back_tf32_masks(b, h, s, dh, rate, 99)
     chunks = -(-s // dh)
-    assert [fn.launches - n for fn, n in zip(ta.KERNELS, before)] == [2 * chunks * d for d in (1, 0, 0, 0, 0, 0, 1, 1)]
+    assert [fn.launches - n for fn, n in zip(ta.KERNELS, before)] == [2 * chunks * d for d in (0, 0, 0, 0, 0, 0, 1, 1, 1)]
     want = ta.dropout_keep_mask(99, b, h, s, rate, "cuda")
     assert torch.equal(by_dv, want)
     assert torch.equal(by_dq, want)

@@ -84,9 +84,11 @@ def forward_and_grads(fn, q, k, v, template, ids, lut, g, **kw):
 
 
 # launches of ta.KERNELS (CUDA-core fwd, dq, dkv; tensor-core fwd, dq, dkv;
-# 3xTF32 dq, dkv) for one forward and backward, by route
-ROUTE_LAUNCHES = {"tensor_core": [0, 0, 0, 1, 1, 1, 0, 0], "tf32": [1, 0, 0, 0, 0, 0, 1, 1],
-                  "cuda_core": [1, 1, 1, 0, 0, 0, 0, 0]}
+# 3xTF32 dq, dkv; 3xTF32 fwd) for one forward and backward, by route
+ROUTE_LAUNCHES = {"tensor_core": [0, 0, 0, 1, 1, 1, 0, 0, 0], "tf32": [0, 0, 0, 0, 0, 0, 1, 1, 1],
+                  "cuda_core": [1, 1, 1, 0, 0, 0, 0, 0, 0]}
+# the forward stand-in each route calls
+ROUTE_FORWARD = {"tensor_core": "fwd_fused", "tf32": "fwd_tf32", "cuda_core": "fwd"}
 
 ROUTE_CASES = [
     (torch.bfloat16, 64, "tensor_core"),  # every graph layer of the model
@@ -108,7 +110,7 @@ def test_kernel_route(dtype, dh, route):
 def test_model_graph_layers_route_to_tensor_cores():
     """``ModelConfig()``'s graph layers (bf16, d = 768 over 12 heads) take
     the tensor-core forward; its float32 twin takes the "tf32" route, whose
-    forward is the CUDA-core one."""
+    forward is the 3xTF32 one."""
     from multimodaldiscussiontransformer_tpu_torch.core.config import ModelConfig
 
     mc = ModelConfig()
@@ -155,7 +157,7 @@ def _stub_kernels(monkeypatch, calls, asked=None):
         return run
 
     for name, fn in (("tree_attention_fwd", fwd("fwd")), ("tree_attention_fwd_fused", fwd("fwd_fused")),
-                     ("tree_attention_bwd_dq", fake_dq("dq")), ("tree_attention_bwd_dkv", fake_dkv("dkv")),
+                     ("tree_attention_fwd_tf32", fwd("fwd_tf32")), ("tree_attention_bwd_dq", fake_dq("dq")), ("tree_attention_bwd_dkv", fake_dkv("dkv")),
                      ("tree_attention_bwd_dq_fused", fake_dq("dq_fused")),
                      ("tree_attention_bwd_dkv_fused", fake_dkv("dkv_fused")),
                      ("tree_attention_bwd_dq_tf32", fake_dq("dq_tf32")),
@@ -174,7 +176,7 @@ def test_forward_launches_the_routed_kernel(monkeypatch, dtype, dh, route, with_
     q, k, v, template, ids, lut = (torch.from_numpy(a) for a in _inputs(3, 1, 2, 9, dh))
     q, k, v = (x.to(dtype).requires_grad_(with_grad) for x in (q, k, v))
     ta.TreeAttention.apply(q, k, v, template, ids, lut, 5, 0.2, dh ** -0.5, True)
-    assert calls == ["fwd_fused" if route == "tensor_core" else "fwd"]
+    assert calls == [ROUTE_FORWARD[route]]
     assert asked == [with_grad]
 
 
@@ -182,13 +184,13 @@ def test_forward_launches_the_routed_kernel(monkeypatch, dtype, dh, route, with_
 def test_both_forwards_feed_one_backward(monkeypatch, dtype):
     """Each forward's LSE goes to the backward pair of its route: the
     tensor-core forward's to the tensor-core dq and dk/dv kernels, the
-    CUDA-core forward's (float32) to the 3xTF32 pair."""
+    3xTF32 forward's (float32) to the 3xTF32 pair."""
     calls = []
     _stub_kernels(monkeypatch, calls)
     q, k, v, template, ids, lut = (torch.from_numpy(a) for a in _inputs(4, 2, 2, 9, 64))
     q, k, v = (x.to(dtype).requires_grad_(True) for x in (q, k, v))
     ta.TreeAttention.apply(q, k, v, template, ids, lut, 5, 0.2, 0.125, True).float().sum().backward()
-    want = ["fwd_fused", "dq_fused", "dkv_fused"] if dtype == torch.bfloat16 else ["fwd", "dq_tf32", "dkv_tf32"]
+    want = ["fwd_fused", "dq_fused", "dkv_fused"] if dtype == torch.bfloat16 else ["fwd_tf32", "dq_tf32", "dkv_tf32"]
     assert calls == want
     assert q.grad.dtype == dtype and k.grad.shape == k.shape
 
@@ -261,7 +263,7 @@ def test_fused_forward_matches_plain_on_card(rate, s):
     q, k, v, template, ids, lut = _card_inputs(s, b, 12, s)
     before = [fn.launches for fn in ta.KERNELS]
     out, lse = ta.tree_attention_fwd_fused(q, k, v, template, ids, lut, 0.125, True, rate, 4321, with_lse=True)
-    assert [fn.launches for fn in ta.KERNELS] == [n + d for n, d in zip(before, [0, 0, 0, 1, 0, 0, 0, 0])]
+    assert [fn.launches for fn in ta.KERNELS] == [n + d for n, d in zip(before, [0, 0, 0, 1, 0, 0, 0, 0, 0])]
     want = ta.tree_attention_dropout_reference(q, k, v, template, ids, lut, 4321, rate, 0.125)
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
     assert max_err_of_max(out, want) <= BF16_RTOL_OF_MAX, max_err_of_max(out, want)

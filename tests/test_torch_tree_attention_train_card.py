@@ -97,10 +97,10 @@ def test_kernels_match_plain_on_card(dtype, rate, s, b):
     g = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(s), device=dev).to(dt)
     before = [fn.launches for fn in ta.KERNELS]
     got = forward_and_grads(ta.tree_attention, q, k, v, template, ids, lut, g, rate=rate, seed=1234)
-    # (CUDA-core fwd, dq, dkv; tensor-core fwd, dq, dkv; 3xTF32 dq, dkv):
-    # bf16 at DH 64 takes the tensor-core kernels both ways, float32 the
-    # CUDA-core forward and the 3xTF32 pair
-    fwd = [0, 0, 0, 1, 1, 1, 0, 0] if ta.kernel_route(dt, 64) == "tensor_core" else [1, 0, 0, 0, 0, 0, 1, 1]
+    # (CUDA-core fwd, dq, dkv; tensor-core fwd, dq, dkv; 3xTF32 dq, dkv;
+    # 3xTF32 fwd): bf16 at DH 64 takes the tensor-core kernels both ways,
+    # float32 the 3xTF32 forward and pair
+    fwd = [0, 0, 0, 1, 1, 1, 0, 0, 0] if ta.kernel_route(dt, 64) == "tensor_core" else [0, 0, 0, 0, 0, 0, 1, 1, 1]
     assert [fn.launches for fn in ta.KERNELS] == [n + d for n, d in zip(before, fwd)]
     want = forward_and_grads(ta.tree_attention_dropout_reference, q, k, v, template, ids, lut, g, rate=rate, seed=1234)
     tol = F32_RTOL_OF_MAX if dtype == "float32" else BF16_RTOL_OF_MAX
