@@ -7,13 +7,14 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: compile every kernel library from ``csrc/`` with nvcc (sm_90a;
-   one nvcc per source, all thirteen in parallel: the tree-attention
+   one nvcc per source, all fifteen in parallel: the tree-attention
    forwards (CUDA-core K1, tensor-core bf16 and 3xTF32 float32) and
    backward pairs (CUDA-core K2/K3, tensor-core bf16 and 3xTF32 float32),
    the masked (tower) attention's three forwards (CUDA-core, tensor-core
-   bf16 and 3xTF32 float32), its CUDA-core backward pair
-   and its one-pass tensor-core backward, the dense-bias attention's two
-   forwards (CUDA-core and tensor-core)), report each library's registers
+   bf16 and 3xTF32 float32), its CUDA-core and 3xTF32 float32 backward
+   pairs and its one-pass tensor-core backward, the dense-bias attention's
+   three forwards (CUDA-core, tensor-core bf16 and 3xTF32 float32)),
+   report each library's registers
    and any ptxas spill, and print the card's name and power limit as
    nvidia-smi reports them.
 2. kernel_vs_plain: the tree-attention forwards at rate 0 against their
@@ -55,38 +56,45 @@ Phases, each printing one JSON line; any failure exits non-zero:
    B=256 S=100, text fusion B=256 S=104, ViT fusion B=64 S=201 without a
    key bias), at ragged S = 1 .. 256 (B=8) and at S=300 (B=8), with
    capacity-padding rows (every key masked) in the key bias, rate 0.3 and
-   0, float32 (the "tf32" route: the 3xTF32 forward and the CUDA-core
-   backward pair) and bfloat16 (the "tensor_core" route: the tensor-core
-   forward and the one-pass backward; at S=300 the "cuda_core" route),
-   each call's launches held to its route, plus the CUDA-core kernels'
-   bf16 errors at the tower shapes, the 3xTF32 forward's statistics
-   against the plain ones and the CUDA-core forward's float32 output
-   against the plain version at every shape; the masks read back (q = k =
-   0, v = I) against the plain Philox: the 3xTF32 forward's in float32
-   (S=104, 201, 300), the tensor-core forward's in bf16 at dh=64 and the
-   one-pass backward's (through dv); the adjoint
+   0, float32 (the "tf32" route: the 3xTF32 forward and backward pair)
+   and bfloat16 (the "tensor_core" route: the tensor-core forward and the
+   one-pass backward; at S=300 the "cuda_core" route), each call's
+   launches held to its route, plus the CUDA-core kernels' bf16 errors at
+   the tower shapes and float32 errors at every shape (called directly),
+   the 3xTF32 forward's statistics against the plain ones and the
+   CUDA-core forward's float32 output against the plain version at every
+   shape; the masks read back (q = k = 0, v = I) against the plain
+   Philox: the 3xTF32 forward's in float32 (S=104, 201, 300), the
+   tensor-core forward's in bf16 at dh=64, the one-pass backward's
+   (through dv) and both kernels of the 3xTF32 pair's in float32 (through
+   dv and dq, S=104 and 201); the adjoint
    identity; times of each kernel (the tensor-core forward beside the
    CUDA-core one, the one-pass backward beside the pair), the plain
    version, the towers' unfused path (matmul + f32 softmax + FastDropout +
    matmul) and SDPA with the key-padding mask (forward at dropout 0.3;
    forward + backward at rate 0 and 0.3), at a ragged S only the
    tensor-core forward and one-pass backward; at the tower shapes the
-   3xTF32 forward, the CUDA-core forward and pair and the plain forward
-   again on float32 inputs beside SDPA in float32, the float32 bounds and
-   the 3xTF32 forward's.
+   3xTF32 forward and pair, the CUDA-core forward and pair and the plain
+   forward and backward again on float32 inputs beside SDPA in float32
+   (forward at rate 0.3, forward + backward at rate 0 and 0.3), the
+   float32 bounds and the 3xTF32 ones.
 5. biased_vs_plain: the dense-bias attention's routed forward kernel and
    the Function's gradients (dq, dk, dv, dbias) against the plain version
    at H=12, dh=64: S=33 (B=16, 12), 129 (B=12), 257 (B=4), 601 and 1025
    (B=1), with biases from the port's ``GraphAttnBias.forward`` on
    collated trees (-inf entries), per-head, head-shared and none, with the
-   key-padding mask: float32 through the CUDA-core forward (within 1e-4),
+   key-padding mask: float32 through the 3xTF32 forward (within 1e-4),
    bfloat16 through the tensor-core forward (within 1e-2 of max |ref|,
-   also with the per-head bias in float32) and the CUDA-core forward's own
-   wrapper on the same bf16 inputs (within one bf16 step elementwise);
-   times of both kernels on the same bf16 inputs, the plain version, the
-   graph layer's unfused dense branch and SDPA on the combined bias,
-   beside the least time the card could take; the CUDA-core kernel and
-   SDPA again on float32 inputs beside the float32 bound.
+   also with the per-head bias in float32), and the CUDA-core forward's
+   own wrapper on the same inputs (within 1e-4 in float32, one bf16 step
+   elementwise in bf16); times of the bf16 kernels on the same bf16
+   inputs, the plain version, the graph layer's unfused dense branch and
+   SDPA on the combined bias, beside the least time the card could take;
+   the 3xTF32 and the CUDA-core kernel and SDPA again on float32 inputs
+   beside the float32 bound and the 3xTF32 one. Then
+   biased_vs_plain_dh16: bf16 at DH 16 (S=33, B=12) through
+   ``biased_attention``, every bias kind: the "cuda_core" route, the CUDA-
+   core forward's one path, against the plain version.
 6. scoring: the canonical ``ModelConfig()`` at full width with random
    weights from a seeded ``torch.Generator``, scored through
    ``BatchingScorer`` from 4 threads (discussions of ~20, ~100 and 600
@@ -143,7 +151,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    tiny config with every dropout at 0 in float32, on the card and on the
    CPU, without and with fused towers: gradients and updated parameters
    agree (float32 runs the 3xTF32 tree forward and pair, and the fused
-   towers' 3xTF32 forward and CUDA-core pair).
+   towers' 3xTF32 forward and pair).
 11. dense_graph: the dense-bias slice at ``ModelConfig()`` width
     (GraphNodeFeature -> dense GraphAttnBias -> 5 graph stacks of 2
     layers, ``use_pallas_attention``, bf16 compute): scoring forwards at
@@ -152,7 +160,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
     bf16 and equal to the CPU in float32; AdamW training steps (attention
     dropout 0, dropout 0.4 / 0.3) at S=33 B=12 and the 900-node discussion
     with ms per step, peak memory and gradients reaching the bias tables
-    through dbias; one tiny float32 step, card (the CUDA-core dense-bias
+    through dbias; one tiny float32 step, card (the 3xTF32 dense-bias
     forward) against CPU.
 12. launch: ``train.launch.main`` with ``--synthetic --max-updates 2`` on
     the card returns 0.
@@ -296,7 +304,7 @@ checkpoint; input_ab and contrastive) read one directory, written once.
 
 After the phases, ``seconds_by_phase`` (each phase's wall seconds, also
 printed when a phase fails) and the card's name and power limit; the last
-two lines are the kernels' summary (seventeen kernels) and
+two lines are the kernels' summary (twenty kernels) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -354,8 +362,10 @@ MASKED_FWD_MMA_SOURCE = f"{PKG}/csrc/masked_attention_fwd_mma.cu"
 MASKED_FWD_TF32_SOURCE = f"{PKG}/csrc/masked_attention_fwd_tf32.cu"
 MASKED_BWD_SOURCE = f"{PKG}/csrc/masked_attention_bwd.cu"
 MASKED_BWD_MMA_SOURCE = f"{PKG}/csrc/masked_attention_bwd_mma.cu"
+MASKED_BWD_TF32_SOURCE = f"{PKG}/csrc/masked_attention_bwd_tf32.cu"
 BIASED_FWD_SOURCE = f"{PKG}/csrc/biased_attention_fwd.cu"
 BIASED_FWD_MMA_SOURCE = f"{PKG}/csrc/biased_attention_fwd_mma.cu"
+BIASED_FWD_TF32_SOURCE = f"{PKG}/csrc/biased_attention_fwd_tf32.cu"
 TPU_KERNELS = "multimodaldiscussiontransformer_tpu/ops/tree_attention.py"
 TPU_MASKED = "multimodaldiscussiontransformer_tpu/ops/masked_attention.py"
 TPU_BIASED = "multimodaldiscussiontransformer_tpu/ops/biased_attention.py"
@@ -483,7 +493,8 @@ KERNEL_NAMES = (
     "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused", "tree_attention_bwd_dq_tf32",
     "tree_attention_bwd_dkv_tf32", "tree_attention_fwd_tf32",
     "masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv", "masked_attention_bwd_fused",
-    "masked_attention_fwd_fused", "masked_attention_fwd_tf32", "biased_attention_fwd", "biased_attention_fwd_fused",
+    "masked_attention_fwd_fused", "masked_attention_fwd_tf32", "masked_attention_bwd_dq_tf32",
+    "masked_attention_bwd_dkv_tf32", "biased_attention_fwd", "biased_attention_fwd_fused", "biased_attention_fwd_tf32",
 )
 
 
@@ -1458,7 +1469,7 @@ MASKED_LONG = ("long_300", 8, 300, True)
 MASKED_RATE = 0.3
 # the launches of one masked_attention forward and backward, by route
 MASKED_ROUTE_LAUNCHES = {
-    "tf32": {"masked_attention_fwd_tf32": 1, "masked_attention_bwd_dq": 1, "masked_attention_bwd_dkv": 1},
+    "tf32": {"masked_attention_fwd_tf32": 1, "masked_attention_bwd_dq_tf32": 1, "masked_attention_bwd_dkv_tf32": 1},
     "tensor_core": {"masked_attention_fwd_fused": 1, "masked_attention_bwd_fused": 1},
     "cuda_core": {"masked_attention_fwd": 1, "masked_attention_bwd_dq": 1, "masked_attention_bwd_dkv": 1},
 }
@@ -1518,6 +1529,33 @@ def read_back_bwd_mask(ma, b, h, s, dh, rate, seed):
             g[:s].to(torch.bfloat16).expand(b, h, s, dh).contiguous())
         chunks.append(v.grad.float().transpose(-1, -2) != 0)
     return torch.cat(chunks, dim=-2)[..., :s, :]
+
+
+def read_back_tf32_pair_masks(ma, b, h, s, dh, rate, seed):
+    """The 3xTF32 tower pair's keep masks (float32), read back with q = 0
+    and no bias (every weight 1/S), one dh-row or dh-key chunk c at a time:
+    the dk/dv kernel's through dv (g one-hot in rows c*dh .. c*dh+dh-1:
+    dv[j, d] = keep[c*dh + d, j] / (S (1 - rate))); the dq kernel's through
+    dq (v = g = e_0 on every row: ds_ij = (keep_ij / (1 - rate) - D_i) / S,
+    positive exactly where kept unless a row keeps every key; k one-hot in
+    keys c*dh .. c*dh+dh-1: dq[i, d] = scale ds[i, c*dh + d])."""
+    import torch
+
+    zeros = torch.zeros(b, h, s, dh, device="cuda")
+    e0 = zeros.clone()
+    e0[..., 0] = 1.0
+    by_dv, by_dq = [], []
+    for c in range(-(-s // dh)):
+        onehot = torch.zeros(s + dh, dh, device="cuda")
+        onehot[c * dh: (c + 1) * dh] = torch.eye(dh, device="cuda")
+        onehot = onehot[:s].expand(b, h, s, dh).contiguous()
+        v = zeros.clone().requires_grad_(True)
+        ma.masked_attention(zeros, zeros, v, None, seed=seed, rate=rate).backward(onehot)
+        by_dv.append(v.grad.transpose(-1, -2) != 0)
+        q = zeros.clone().requires_grad_(True)
+        ma.masked_attention(q, onehot, e0, None, seed=seed, rate=rate).backward(e0)
+        by_dq.append(q.grad > 0)
+    return torch.cat(by_dv, dim=-2)[..., :s, :], torch.cat(by_dq, dim=-1)[..., :s]
 
 
 def plain_tower_stats(q, k, bias, scale):
@@ -1597,14 +1635,16 @@ def phase_masked(seed: int):
                 floor = want[3].float().abs().max().item() if s == 1 else 0.0
                 row[key][name] = _check_errors(got, want, ("out", "dq", "dk", "dv"), tol,
                                                f"masked kernels disagree at {label} rate {rate} {name}", floor)
-                if tower and name == "bfloat16":
-                    # the CUDA-core kernels in bf16 on the same inputs: what
-                    # the tensor-core kernels' bf16 P and dS cost beside
-                    # their f32
+                if name == "float32" or tower:
+                    # the CUDA-core kernels on the same inputs, called
+                    # directly: in float32 the kernels the 3xTF32 ones
+                    # replace, in bf16 what the tensor-core kernels' bf16 P
+                    # and dS cost beside their f32
                     pair = pair_outputs(ma, qq, kk, vv, bias, gg, scale, rate, dseed)
                     torch.cuda.synchronize()
-                    row[key]["bfloat16_pair"] = _check_errors(pair, want, ("out", "dq", "dk", "dv"), tol,
-                                                              f"masked pair disagrees at {label} rate {rate} bf16")
+                    row[key][f"{name}_pair"] = _check_errors(pair, want, ("out", "dq", "dk", "dv"), tol,
+                                                             f"masked pair disagrees at {label} rate {rate} {name}",
+                                                             floor)
         # the 3xTF32 forward's statistics (float32) against the plain ones
         # (a capacity-padding row's max is -1e9 exactly), and the CUDA-core
         # forward it replaces there, called directly, against the plain
@@ -1694,26 +1734,36 @@ def phase_masked(seed: int):
         row["fused_vs_pair"] = row["ms"]["pair"] / row["ms"]["bwd_fused"]
         row["fwd_fused_vs_cuda_core"] = row["ms"]["fwd"] / row["ms"]["fwd_fused"]
         row["fwd_fused_vs_library"] = row["ms"]["fwd_fused"] / row["ms"]["library_fwd"]
-        # the float32 route (the 3xTF32 forward, then the CUDA-core pair) on
-        # float32 inputs, the CUDA-core forward it replaces there and SDPA
+        # the float32 route (the 3xTF32 forward, then the 3xTF32 pair) on
+        # float32 inputs, the CUDA-core kernels it replaces there and SDPA
         # on the same inputs, and the bounds: float32 on CUDA cores, and
         # 3xTF32
         out32, stats32 = ma.masked_attention_fwd_tf32(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True)
-        _, delta32 = ma.masked_attention_bwd_dq(q, k, v, out32, g, bias, stats32, scale, MASKED_RATE, dseed)
+        _, delta32 = ma.masked_attention_bwd_dq_tf32(q, k, v, out32, g, bias, stats32, scale, MASKED_RATE, dseed)
         bias4_32 = None if bias is None else bias[:, None, None, :]
 
-        def sdpa32(rate):
+        def with_grad32(fn):
             def run():
                 leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-                F.scaled_dot_product_attention(*leaves, attn_mask=bias4_32, dropout_p=rate, scale=scale).backward(g)
+                fn(*leaves).backward(g)
             return run
+
+        def sdpa32(rate):
+            return with_grad32(lambda q_, k_, v_: F.scaled_dot_product_attention(
+                q_, k_, v_, attn_mask=bias4_32, dropout_p=rate, scale=scale))
 
         calls32 = {
             "fwd_tf32": lambda: ma.masked_attention_fwd_tf32(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True),
             "fwd": lambda: ma.masked_attention_fwd(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True),
             "plain_fwd": lambda: ma.masked_attention_dropout_reference(q, k, v, bias, dseed, MASKED_RATE, scale),
+            "dq_tf32": lambda: ma.masked_attention_bwd_dq_tf32(q, k, v, out32, g, bias, stats32, scale, MASKED_RATE,
+                                                               dseed),
+            "dkv_tf32": lambda: ma.masked_attention_bwd_dkv_tf32(q, k, v, g, bias, stats32, delta32, scale,
+                                                                 MASKED_RATE, dseed),
             "dq": lambda: ma.masked_attention_bwd_dq(q, k, v, out32, g, bias, stats32, scale, MASKED_RATE, dseed),
             "dkv": lambda: ma.masked_attention_bwd_dkv(q, k, v, g, bias, stats32, delta32, scale, MASKED_RATE, dseed),
+            "plain_fwd_bwd": with_grad32(lambda q_, k_, v_: ma.masked_attention_dropout_reference(
+                q_, k_, v_, bias, dseed, MASKED_RATE, scale)),
             "library_fwd": lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=bias4_32, dropout_p=MASKED_RATE, scale=scale),
             "library_fwd_bwd": sdpa32(0.0),
@@ -1724,8 +1774,18 @@ def phase_masked(seed: int):
                           "bound_3xtf32": work_bounds(b, h, s, dh, "3xtf32", 0 if bias is None else b * s * 4,
                                                       stat_planes=2)}
         f32ms = row["float32"]["ms"]
+        f32ms["plain_bwd"] = f32ms["plain_fwd_bwd"] - f32ms["plain_fwd"]
+        f32ms["pair_tf32"] = f32ms["dq_tf32"] + f32ms["dkv_tf32"]
+        f32ms["pair"] = f32ms["dq"] + f32ms["dkv"]
+        f32ms["fwd_pair_tf32"] = f32ms["fwd_tf32"] + f32ms["pair_tf32"]
         row["float32"]["fwd_tf32_vs_cuda_core"] = f32ms["fwd"] / f32ms["fwd_tf32"]
         row["float32"]["fwd_tf32_vs_library"] = f32ms["fwd_tf32"] / f32ms["library_fwd"]
+        row["float32"]["pair_tf32_vs_cuda_core"] = f32ms["pair"] / f32ms["pair_tf32"]
+        # the pair alone against SDPA's forward and backward at rate 0.3,
+        # and the route's forward and pair against the same
+        row["float32"]["pair_tf32_vs_library_fwd_bwd_rate"] = f32ms["pair_tf32"] / f32ms["library_fwd_bwd_rate"]
+        row["float32"]["fwd_pair_tf32_vs_library_fwd_bwd_rate"] = \
+            f32ms["fwd_pair_tf32"] / f32ms["library_fwd_bwd_rate"]
         emit({"phase": "masked_vs_plain", **row})
         rows.append(row)
 
@@ -1741,11 +1801,16 @@ def phase_masked(seed: int):
         fwd_fused_mask = read_back_mask(ma, b, h, s, dh, MASKED_RATE, seed + 101, torch.bfloat16)
         c2 = _counts()
         bwd_mask = read_back_bwd_mask(ma, b, h, s, dh, MASKED_RATE, seed + 101)
+        c3 = _counts()
+        by_dv, by_dq = read_back_tf32_pair_masks(ma, b, h, s, dh, MASKED_RATE, seed + 101)
         masks[str(s)] = {"B": b, "equals_plain_philox": bool(torch.equal(mask, plain)),
                          "fwd_fused_equals_plain_philox": bool(torch.equal(fwd_fused_mask, plain)),
                          "bwd_fused_equals_plain_philox": bool(torch.equal(bwd_mask, plain)),
+                         "tf32_pair_equals_plain_philox": {"dkv_kernel": bool(torch.equal(by_dv, plain)),
+                                                           "dq_kernel": bool(torch.equal(by_dq, plain))},
                          "launches_float32": dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, c1)))),
                          "launches_bfloat16": dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c1, c2)))),
+                         "launches_tf32_pair": dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c3, _counts())))),
                          "kept_fraction": mask.float().mean().item()}
     # and the 3xTF32 forward's past S = 256
     s, b = MASKED_LONG[2], 2
@@ -1766,8 +1831,13 @@ def phase_masked(seed: int):
             raise AssertionError(f"masked mask read-back took the wrong forward kernel: {masks}")
         if not all(m.get(key, True) for key in ("equals_plain_philox", "fwd_fused_equals_plain_philox",
                                                  "bwd_fused_equals_plain_philox")) \
+                or not all(m.get("tf32_pair_equals_plain_philox", {}).values()) \
                 or abs(m["kept_fraction"] - (1 - MASKED_RATE)) > 0.02:
             raise AssertionError(f"masked kernel mask: {masks}")
+        if "launches_tf32_pair" in m and any(
+                m["launches_tf32_pair"][n] != (2 * chunks if n in MASKED_ROUTE_LAUNCHES["tf32"] else 0)
+                for n in KERNEL_NAMES):
+            raise AssertionError(f"masked 3xTF32 pair mask read-back took the wrong kernels: {masks}")
     return rows
 
 
@@ -1803,18 +1873,25 @@ def dense_biases(batch, dt, seed: int):
     return {"head": dense, "shared": dense[:, :1].contiguous(), "none": None}
 
 
+# the forward kernel each dense-bias route launches
+BIASED_ROUTE_KERNEL = {"tensor_core": "biased_attention_fwd_fused", "tf32": "biased_attention_fwd_tf32",
+                       "cuda_core": "biased_attention_fwd"}
+
+
 def phase_biased(seed: int):
     """The routed dense-bias forward kernels and the Function's gradients
-    against the plain version, the CUDA-core kernel's bf16 output beside
-    the tensor-core one's; times of both kernels beside the unfused dense
-    branch and SDPA, in bf16 and (the CUDA-core kernel) in float32."""
+    against the plain version, the CUDA-core kernel's output beside the
+    routed one's (bf16 and float32), and a bf16 DH-16 call through the
+    CUDA-core route; times of the three kernels beside the unfused dense
+    branch and SDPA, in bf16 and (the 3xTF32 and the CUDA-core kernel) in
+    float32."""
     import torch
     import torch.nn.functional as F
 
     from multimodaldiscussiontransformer_tpu_torch.data.collator import to_tensors
     from multimodaldiscussiontransformer_tpu_torch.ops.biased_attention import (
-        MASK_BIAS, biased_attention, biased_attention_fwd, biased_attention_fwd_fused, biased_attention_reference,
-        combined_bias, kernel_route,
+        MASK_BIAS, biased_attention, biased_attention_fwd, biased_attention_fwd_fused, biased_attention_fwd_tf32,
+        biased_attention_reference, combined_bias, kernel_route,
     )
 
     h, dh = 12, 64
@@ -1834,13 +1911,13 @@ def phase_biased(seed: int):
         q, k, v, g = (torch.randn(b, h, s, dh, device="cuda", generator=gen) for _ in range(4))
         row = {"S": s, "B": b, "H": h, "dh": dh, "padded_keys": int(kpm.sum()),
                "kernel_route": {n: kernel_route(getattr(torch, n), dh) for n in ("float32", "bfloat16")},
-               "errors": {"float32": {}, "bfloat16": {}, "bfloat16_cuda_core": {}}}
+               "errors": {"float32": {}, "bfloat16": {}, "float32_cuda_core": {}, "bfloat16_cuda_core": {}}}
         for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             biases = dense_biases(batch, dt, seed + s)
             if name == "bfloat16":  # the tensor-core kernel reads a float32 bias too
                 biases["head_float32_bias"] = biases["head"].float()
             qq, kk, vv, gg = (x.to(dt).contiguous() for x in (q, k, v, g))
-            routed = "biased_attention_fwd_fused" if row["kernel_route"][name] == "tensor_core" else "biased_attention_fwd"
+            routed = BIASED_ROUTE_KERNEL[row["kernel_route"][name]]
             for kind, bias in biases.items():
                 c0 = _counts()
                 got = fwd_and_grads(biased_attention, qq, kk, vv, bias, kpm, gg)
@@ -1852,7 +1929,7 @@ def phase_biased(seed: int):
                     raise AssertionError(f"{what}: launched {launched}, expected one {routed}")
                 err = (got[0].float() - want[0].float()).abs()
                 ref_max = want[0].float().abs().max().item()
-                if name == "float32":  # the CUDA-core kernel
+                if name == "float32":  # the 3xTF32 kernel
                     ok = bool((err <= F32_ATOL).all())
                 else:  # the tensor-core kernel, its bf16 P included
                     ok = err.max().item() <= TRAIN_BF16_REL * ref_max
@@ -1862,18 +1939,17 @@ def phase_biased(seed: int):
                 errs = _check_errors([a for _, a, _ in pairs], [w for _, _, w in pairs], [n for n, _, _ in pairs],
                                      TRAIN_F32_REL if name == "float32" else TRAIN_BF16_REL, what)
                 row["errors"][name][kind] = {"out": err.max().item(), "out_max_abs_ref": ref_max, **errs}
-                if name == "bfloat16":
-                    # the CUDA-core kernel on the same bf16 inputs, through
-                    # its own wrapper: f32 arithmetic, so within one bf16
-                    # step elementwise
-                    cuda_core = biased_attention_fwd(qq, kk, vv, bias, kpm, scale)
-                    torch.cuda.synchronize()
-                    err = (cuda_core.float() - want[0].float()).abs()
-                    if not (bool((err <= BF16_ATOL + BF16_RTOL * want[0].float().abs()).all())
-                            and torch.isfinite(cuda_core).all()):
-                        raise AssertionError(f"CUDA-core dense-bias kernel disagrees at S={s} B={b} {kind} bias bf16: "
-                                             f"max err {err.max().item()}")
-                    row["errors"]["bfloat16_cuda_core"][kind] = {"out": err.max().item()}
+                # the CUDA-core kernel on the same inputs, through its own
+                # wrapper: f32 arithmetic, so within F32_ATOL in float32
+                # and within one bf16 step elementwise in bf16
+                cuda_core = biased_attention_fwd(qq, kk, vv, bias, kpm, scale)
+                torch.cuda.synchronize()
+                err = (cuda_core.float() - want[0].float()).abs()
+                tol = F32_ATOL if name == "float32" else BF16_ATOL + BF16_RTOL * want[0].float().abs()
+                if not (bool((err <= tol).all()) and torch.isfinite(cuda_core).all()):
+                    raise AssertionError(f"CUDA-core dense-bias kernel disagrees at S={s} B={b} {kind} bias {name}: "
+                                         f"max err {err.max().item()}")
+                row["errors"][f"{name}_cuda_core"][kind] = {"out": err.max().item()}
 
         # times in the main path's type, with the per-head bias the graph
         # layers give
@@ -1918,22 +1994,57 @@ def phase_biased(seed: int):
         row["bound_shared_ms"] = bound(b, h, s, dh, "bfloat16", b * s * s * 2 + b * s)[0]
         row["fwd_vs_cuda_core"] = row["ms"]["fwd_cuda_core"] / row["ms"]["fwd"]
         row["fwd_vs_library"] = row["ms"]["fwd"] / row["ms"]["library_fwd"]
-        # the float32 route (the CUDA-core kernel) on float32 inputs with the
-        # float32 per-head bias, SDPA on the same inputs and the float32
-        # bound
+        # the float32 route (the 3xTF32 kernel) on float32 inputs with the
+        # float32 per-head bias, the CUDA-core kernel it replaces there and
+        # SDPA on the same inputs, and the bounds: float32 on CUDA cores,
+        # and 3xTF32
         combined32 = combined_bias(q, bias32, kpm)
         row["float32"] = {"ms": {
+            "fwd_tf32": timed_ms(lambda: biased_attention_fwd_tf32(q, k, v, bias32, kpm, scale)),
             "fwd_cuda_core": timed_ms(lambda: biased_attention_fwd(q, k, v, bias32, kpm, scale)),
             "plain_fwd": timed_ms(lambda: biased_attention_reference(q, k, v, bias32, kpm, scale)),
             "library_fwd": timed_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=combined32, scale=scale)),
         }}
         row["float32"]["bound"] = {"fwd": bound(b, h, s, dh, "float32", b * h * s * s * 4 + b * s)}
+        row["float32"]["bound_3xtf32"] = {"fwd": bound(b, h, s, dh, "3xtf32", b * h * s * s * 4 + b * s)}
+        f32ms = row["float32"]["ms"]
+        row["float32"]["fwd_tf32_vs_cuda_core"] = f32ms["fwd_cuda_core"] / f32ms["fwd_tf32"]
+        row["float32"]["fwd_tf32_vs_library"] = f32ms["fwd_tf32"] / f32ms["library_fwd"]
         row["tolerance"] = {"float32_atol": F32_ATOL, "bfloat16_rel_of_max": TRAIN_BF16_REL,
                             "bfloat16_cuda_core_rtol": BF16_RTOL, "bfloat16_cuda_core_atol": BF16_ATOL,
                             "grad_rel_float32": TRAIN_F32_REL, "grad_rel_bfloat16": TRAIN_BF16_REL}
         emit({"phase": "biased_vs_plain", **row})
         rows.append(row)
-    return rows
+
+    # bf16 at DH 16 through biased_attention: the "cuda_core" route, the one
+    # path that launches the CUDA-core forward (at the canonical training
+    # shape, every bias kind)
+    s, b, dh16 = BIASED_SHAPES[1][0], BIASED_SHAPES[1][1], 16
+    batch = to_tensors(graph_batch(s, b, seed + 7), "cuda")
+    kpm = key_padding_mask(batch)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    q, k, v, g = (torch.randn(b, h, s, dh16, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(4))
+    dh16_row = {"S": s, "B": b, "H": h, "dh": dh16, "dtype": "bfloat16", "kernel_route": kernel_route(torch.bfloat16, dh16),
+                "errors": {}, "launches": dict.fromkeys(KERNEL_NAMES, 0)}
+    for kind, bias in dense_biases(batch, torch.bfloat16, seed + 16).items():
+        c0 = _counts()
+        got = fwd_and_grads(biased_attention, q, k, v, bias, kpm, g)
+        for n, x, y in zip(KERNEL_NAMES, c0, _counts()):
+            dh16_row["launches"][n] += y - x
+        want = fwd_and_grads(biased_attention_reference, q, k, v, bias, kpm, g)
+        torch.cuda.synchronize()
+        err = (got[0].float() - want[0].float()).abs()
+        if not (bool((err <= BF16_ATOL + BF16_RTOL * want[0].float().abs()).all()) and torch.isfinite(got[0]).all()):
+            raise AssertionError(f"dense-bias DH-16 bf16 call disagrees with {kind} bias: max err {err.max().item()}")
+        pairs = [(n, a, w) for n, a, w in zip(("dq", "dk", "dv", "dbias"), got[1:], want[1:]) if w is not None]
+        dh16_row["errors"][kind] = {"out": err.max().item(), **_check_errors(
+            [a for _, a, _ in pairs], [w for _, _, w in pairs], [n for n, _, _ in pairs], TRAIN_BF16_REL,
+            f"dense-bias DH-16 bf16 gradients with {kind} bias")}
+    want_launches = {**dict.fromkeys(KERNEL_NAMES, 0), "biased_attention_fwd": 3}
+    emit({"phase": "biased_vs_plain_dh16", **dh16_row})
+    if dh16_row["kernel_route"] != "cuda_core" or dh16_row["launches"] != want_launches:
+        raise AssertionError(f"dense-bias DH-16 bf16 calls launched {dh16_row['launches']}, expected {want_launches}")
+    return rows, dh16_row
 
 
 def dense_graph_path(cfg, generator=None):
@@ -2181,8 +2292,8 @@ def phase_dense_graph(seed: int):
                             "max_abs_grad": max(g.abs().max().item() for g in tiny_grads["cpu"].values()),
                             "card_launches": tiny_launches["cuda"],
                             "cpu_launches": sum(tiny_launches["cpu"].values())}})
-    # float32: the CUDA-core forward in every graph layer, nothing else
-    want_tiny = {**dict.fromkeys(KERNEL_NAMES, 0), "biased_attention_fwd": tiny_layers}
+    # float32: the 3xTF32 forward in every graph layer, nothing else
+    want_tiny = {**dict.fromkeys(KERNEL_NAMES, 0), "biased_attention_fwd_tf32": tiny_layers}
     if bad or tiny_launches["cuda"] != want_tiny or any(tiny_launches["cpu"].values()):
         raise AssertionError(f"tiny dense-graph step: card and CPU gradients disagree {bad[:5]}; launches {tiny_launches}")
     return {"scoring": counts, "training": train_counts, "float32_step": tiny_launches["cuda"]}
@@ -2226,7 +2337,7 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int, cont
     tree = {"tensor_core": [0, 0, 0, f, d, d, 0, 0, 0], "tf32": [0, 0, 0, 0, 0, 0, d, d, f],
             "cuda_core": [f, d, d, 0, 0, 0, 0, 0, 0]}[route]
     if not fused:
-        return tree + [0, 0, 0, 0, 0, 0, 0, 0]
+        return tree + [0] * 11
     _, _, text_bwd, vit_bwd = tower_launches(mc)
     tower_fwd = dict(zip(("cuda_core", "tensor_core", "tf32"),
                          (k * n for n in tower_forward_routes(mc, text_len, images))))
@@ -2234,16 +2345,15 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int, cont
         for tower, s in ((mc.text_tower, text_len), (mc.image_tower, mc.image_tower.seq_len))[:2 if images else 1]:
             tower_fwd[kernel_route(getattr(torch, mc.dtype), tower.head_dim, s + mc.num_bottleneck_tokens)] += \
                 k * (mc.num_fusion_layers + 1)
-    pair = one_pass = 0
+    tower_bwd = dict.fromkeys(("cuda_core", "tensor_core", "tf32"), 0)  # the pairs' dq and dk/dv each, or one pass
     extra = mc.num_bottleneck_tokens
     for n, tower, s in ((text_bwd, mc.text_tower, text_len + extra),
                         (vit_bwd if images else 0, mc.image_tower, mc.image_tower.seq_len + extra)):
-        if kernel_route(getattr(torch, mc.dtype), tower.head_dim, s) == "tensor_core":
-            one_pass += k * n
-        else:
-            pair += k * n
+        tower_bwd[kernel_route(getattr(torch, mc.dtype), tower.head_dim, s)] += k * n
+    pair, tf32_pair = tower_bwd["cuda_core"], tower_bwd["tf32"]
     # MDTModel never takes the dense-bias branch
-    return tree + [tower_fwd["cuda_core"], pair, pair, one_pass, tower_fwd["tensor_core"], tower_fwd["tf32"], 0, 0]
+    return tree + [tower_fwd["cuda_core"], pair, pair, tower_bwd["tensor_core"], tower_fwd["tensor_core"],
+                   tower_fwd["tf32"], tf32_pair, tf32_pair, 0, 0, 0]
 
 
 TRACE_UPDATES = 2
@@ -5183,10 +5293,18 @@ def _worst(rows, outputs):
 
 def _worst_pair(rows, outputs):
     """The CUDA-core pair's largest max-abs error of ``outputs``: its
-    float32 checks at every shape and its bf16 checks at the tower shapes,
-    both rates."""
-    return max(r[k][name][o]["max_abs_err"] for r in rows for k in ("errors", "errors_rate0")
-               for name in ("float32", "bfloat16_pair") if name in r[k] for o in outputs)
+    float32 checks called directly at every shape, its bf16 checks at the
+    tower shapes and its bf16 route past S = 256, both rates."""
+    return max([r[k][name][o]["max_abs_err"] for r in rows for k in ("errors", "errors_rate0")
+                for name in ("float32_pair", "bfloat16_pair") if name in r[k] for o in outputs]
+               + [r[k]["bfloat16"][o]["max_abs_err"] for r in rows if r["kernel_route"]["bfloat16"] == "cuda_core"
+                  for k in ("errors", "errors_rate0") for o in outputs])
+
+
+def _worst_tf32_pair(rows, outputs):
+    """The 3xTF32 pair's largest max-abs error of ``outputs``: the float32
+    route at every shape (S = 300 included), both rates."""
+    return max(r[k]["float32"][o]["max_abs_err"] for r in rows for k in ("errors", "errors_rate0") for o in outputs)
 
 
 
@@ -5625,7 +5743,7 @@ def main(argv=None) -> int:
         rows = clocked("kernel", phase_kernel, args.seed)
         train_rows, dh16_row = clocked("kernel_train", phase_kernel_train, args.seed)
         masked_rows = clocked("masked", phase_masked, args.seed)
-        biased_rows = clocked("biased", phase_biased, args.seed)
+        biased_rows, biased_dh16 = clocked("biased", phase_biased, args.seed)
         scorer, scoring, rng, unfused = clocked("scoring", phase_scoring, args.seed)
         scoring_fused = clocked("scoring_fused", phase_scoring_fused, unfused)
         clocked("latency", phase_latency, scorer, rng)
@@ -5647,7 +5765,7 @@ def main(argv=None) -> int:
                                   fused=True, variant=f"remat_{p}", card=card)
                        for p in REMAT_POLICIES}
         # float32: the 3xTF32 tree forward and pair, the fused towers' 3xTF32
-        # forward and CUDA-core pair
+        # forward and pair
         agree = clocked("train_cpu_agreement", phase_train_cpu_agreement, args.seed, fused=False)
         agree_fused = clocked("train_cpu_agreement_fused", phase_train_cpu_agreement, args.seed, fused=True)
         agree_variants = {v: clocked(f"train_cpu_agreement_{v}", phase_train_cpu_agreement, args.seed, fused=False,
@@ -5695,7 +5813,8 @@ def main(argv=None) -> int:
                "workflows": workflows["launches"],
                "kernel_vs_plain_train_dh16_bfloat16": dh16_row["launches_bfloat16"],
                "masked_vs_plain_long_300_bfloat16": {
-                   n: long_row["launches"][f"bfloat16_rate{MASKED_RATE}"].get(n, 0) for n in KERNEL_NAMES}}
+                   n: long_row["launches"][f"bfloat16_rate{MASKED_RATE}"].get(n, 0) for n in KERNEL_NAMES},
+               "biased_vs_plain_dh16_bfloat16": biased_dh16["launches"]}
 
     def paths(name, extra=None):
         out = {path: counts[name] for path, counts in by_path.items()}
@@ -5936,7 +6055,7 @@ def main(argv=None) -> int:
                                        "bound_3xtf32_ms": r["float32"]["bound_3xtf32"]["fwd"][0],
                                        "stats": r["stats_float32"]}
                           for r in masked_rows if r["shape"] in {m[0] for m in MASKED_SHAPES}},
-         "note": "the float32 route's forward (any DH, any S), 3xTF32 on mma.sync, before the CUDA-core pair: "
+         "note": "the float32 route's forward (any DH, any S), 3xTF32 on mma.sync, before the 3xTF32 pair: "
                  "launches from train_cpu_agreement_fused, 0 on the bf16 paths; times on float32 inputs at the "
                  "text-fusion shape (B=256, S=104), rate 0.3 with the row statistics; cuda_core_ms is the CUDA-core "
                  "forward on the same inputs; bound_ms is the float32 bound (67 TFLOP/s), bound_3xtf32_ms three "
@@ -5944,21 +6063,65 @@ def main(argv=None) -> int:
                  "library_ms is SDPA in float32 with the key-padding bias and dropout 0.3; max_abs_err is the "
                  "worst float32 error of out over every shape (S=300 included) and both rates"},
         {**_kernel_entry(
-            "masked_attention_bwd_dq", MASKED_BWD_SOURCE, f"{TPU_MASKED}:134", [], agree_fused["masked_attention_bwd_dq"],
+            "masked_attention_bwd_dq", MASKED_BWD_SOURCE, f"{TPU_MASKED}:134", [],
+            long_row["launches"][f"bfloat16_rate{MASKED_RATE}"]["masked_attention_bwd_dq"],
             fusion_row, _worst_pair(masked_rows, ("dq",)), "dq", mms["plain_bwd"], mms["library_fwd_bwd"], "dq"),
          "launches_by_path": paths("masked_attention_bwd_dq"),
          "float32": _float32_numbers(fusion_row, "dq", "library_fwd_bwd", "dq"),
-         "note": "the float32 route (and other DH, S > 256): launches from train_cpu_agreement_fused, 0 on the bf16 "
-                 "paths; times on bf16 inputs at the text-fusion shape; plain_ms is the plain version's whole "
-                 "autograd backward (dq, dk, dv); library_ms is SDPA forward + backward at rate 0 with the "
-                 "key-padding bias; max_abs_err over its float32 checks and its bf16 checks at the tower shapes"},
+         "note": "the bf16 route at other DH and S > 256 (the float32 route's backward is the 3xTF32 pair): "
+                 "launches from the bf16 check at S=300 (masked_vs_plain long_300, rate 0.3), 0 on every other "
+                 "path; times on bf16 inputs at the text-fusion shape (float32: on float32 inputs, called "
+                 "directly); plain_ms is the plain version's whole autograd backward (dq, dk, dv); library_ms is "
+                 "SDPA forward + backward at rate 0 with the key-padding bias; max_abs_err over its float32 checks "
+                 "called directly at every shape, its bf16 checks at the tower shapes and at S=300"},
         {**_kernel_entry(
-            "masked_attention_bwd_dkv", MASKED_BWD_SOURCE, f"{TPU_MASKED}:134", [], agree_fused["masked_attention_bwd_dkv"],
+            "masked_attention_bwd_dkv", MASKED_BWD_SOURCE, f"{TPU_MASKED}:134", [],
+            long_row["launches"][f"bfloat16_rate{MASKED_RATE}"]["masked_attention_bwd_dkv"],
             fusion_row, _worst_pair(masked_rows, ("dk", "dv")), "dkv", mms["plain_bwd"], mms["library_fwd_bwd"],
             "dkv"),
          "launches_by_path": paths("masked_attention_bwd_dkv"),
          "float32": _float32_numbers(fusion_row, "dkv", "library_fwd_bwd", "dkv"),
          "note": "as for masked_attention_bwd_dq"},
+        {**_kernel_entry(
+            "masked_attention_bwd_dq_tf32", MASKED_BWD_TF32_SOURCE, f"{TPU_MASKED}:134", [],
+            agree_fused["masked_attention_bwd_dq_tf32"], fusion_row["float32"],
+            _worst_tf32_pair(masked_rows, ("dq",)), "dq_tf32", fusion_row["float32"]["ms"]["plain_bwd"],
+            fusion_row["float32"]["ms"]["library_fwd_bwd_rate"], "dq"),
+         "launches_by_path": paths("masked_attention_bwd_dq_tf32"),
+         "bound_3xtf32_ms": fusion_row["float32"]["bound_3xtf32"]["dq"][0],
+         "cuda_core_ms": fusion_row["float32"]["ms"]["dq"],
+         "tower_shapes": {r["shape"]: {"B": r["B"], "S": r["S"], "dq_ms": r["float32"]["ms"]["dq_tf32"],
+                                       "dkv_ms": r["float32"]["ms"]["dkv_tf32"],
+                                       "pair_ms": r["float32"]["ms"]["pair_tf32"],
+                                       "cuda_core_dq_ms": r["float32"]["ms"]["dq"],
+                                       "cuda_core_dkv_ms": r["float32"]["ms"]["dkv"],
+                                       "cuda_core_pair_ms": r["float32"]["ms"]["pair"],
+                                       "fwd_tf32_ms": r["float32"]["ms"]["fwd_tf32"],
+                                       "plain_bwd_ms": r["float32"]["ms"]["plain_bwd"],
+                                       "library_fwd_bwd_rate_ms": r["float32"]["ms"]["library_fwd_bwd_rate"],
+                                       "library_fwd_bwd_ms": r["float32"]["ms"]["library_fwd_bwd"],
+                                       "bound_f32_ms": [r["float32"]["bound"][n][0] for n in ("dq", "dkv")],
+                                       "bound_3xtf32_ms": [r["float32"]["bound_3xtf32"][n][0] for n in ("dq", "dkv")],
+                                       "bound_3xtf32_by": [r["float32"]["bound_3xtf32"][n][1] for n in ("dq", "dkv")]}
+                          for r in masked_rows if r["shape"] in {m[0] for m in MASKED_SHAPES}},
+         "note": "the float32 route's backward (any DH, any S), 3xTF32 on mma.sync: launches from "
+                 "train_cpu_agreement_fused, 0 on the bf16 paths; times on float32 inputs at the text-fusion shape "
+                 "(B=256, S=104), rate 0.3; cuda_core_ms is the CUDA-core dq kernel on the same inputs; bound_ms "
+                 "is the float32 bound (67 TFLOP/s), bound_3xtf32_ms three TF32 products per float32 one at 494.7 "
+                 "TFLOP/s; plain_ms is the plain version's whole autograd backward in float32; library_ms is SDPA "
+                 "forward + backward in float32 at rate 0.3 with the key-padding bias; max_abs_err is the worst "
+                 "float32 error of dq over every shape (S=300 included) and both rates; tower_shapes: the pair at "
+                 "the three tower shapes"},
+        {**_kernel_entry(
+            "masked_attention_bwd_dkv_tf32", MASKED_BWD_TF32_SOURCE, f"{TPU_MASKED}:134", [],
+            agree_fused["masked_attention_bwd_dkv_tf32"], fusion_row["float32"],
+            _worst_tf32_pair(masked_rows, ("dk", "dv")), "dkv_tf32", fusion_row["float32"]["ms"]["plain_bwd"],
+            fusion_row["float32"]["ms"]["library_fwd_bwd_rate"], "dkv"),
+         "launches_by_path": paths("masked_attention_bwd_dkv_tf32"),
+         "bound_3xtf32_ms": fusion_row["float32"]["bound_3xtf32"]["dkv"][0],
+         "cuda_core_ms": fusion_row["float32"]["ms"]["dkv"],
+         "note": "the 3xTF32 dk/dv kernel; launches, times, bounds, plain_ms and library_ms as for "
+                 "masked_attention_bwd_dq_tf32 (max_abs_err: dk and dv)"},
         {**_kernel_entry(
             "masked_attention_bwd_fused", MASKED_BWD_MMA_SOURCE, f"{TPU_MASKED}:134", [],
             train_big["masked_attention_bwd_fused"], fusion_row, _worst(fused_rows, ("dq", "dk", "dv")), "bwd_fused",
@@ -5973,20 +6136,23 @@ def main(argv=None) -> int:
                  "library_ms is SDPA forward + backward at rate 0.3 with the key-padding bias; max_abs_err is the "
                  "worst bf16 error of dq, dk, dv over every shape and both rates"},
         {"name": "biased_attention_fwd", "route": "cuda", "source": BIASED_FWD_SOURCE, "replaces": f"{TPU_BIASED}:61",
-         "also_replaces": [], "launches": dense["float32_step"]["biased_attention_fwd"],
-         "max_abs_err": max(e["out"] for r in biased_rows for n in ("float32", "bfloat16_cuda_core")
-                            for e in r["errors"][n].values()),
+         "also_replaces": [], "launches": biased_dh16["launches"]["biased_attention_fwd"],
+         "max_abs_err": max([e["out"] for r in biased_rows for n in ("float32_cuda_core", "bfloat16_cuda_core")
+                             for e in r["errors"][n].values()] + [e["out"] for e in biased_dh16["errors"].values()]),
          "ms": bms["fwd_cuda_core"], "plain_ms": bms["plain_fwd"], "bound_ms": serve_biased["bound_ms"],
          "bound_by": serve_biased["bound_by"], "library_ms": bms["library_fwd"],
          "launches_by_path": paths("biased_attention_fwd"),
          "float32": {**_float32_numbers(serve_biased, "fwd_cuda_core", "library_fwd", "fwd"),
                      "plain_ms": serve_biased["float32"]["ms"]["plain_fwd"]},
-         "note": "the float32 route (and DH 16, 32, 128): launches from the dense_graph float32 card step (its 2 "
-                 "graph layers), 0 on the bf16 paths; times on bf16 inputs at S=33, B=16, per-head (B, H, S, S) "
-                 "bias from GraphAttnBias with the key-padding mask, beside the tensor-core kernel on the same "
-                 "inputs (float32: the same on float32 inputs and a float32 bias, beside SDPA in float32 and the "
-                 "float32 bound); library_ms is SDPA with the combined bias as a float mask; max_abs_err is the "
-                 "worst forward error of its float32 checks and its bf16 checks over every shape and bias kind"},
+         "dh16_bfloat16": biased_dh16,
+         "note": "the bf16 route at DH 16, 32, 128 (the float32 route's forward is the 3xTF32 one): launches from "
+                 "the bf16 DH-16 calls through biased_attention (biased_vs_plain_dh16: S=33, B=12, one per bias "
+                 "kind), 0 on every other path; times on bf16 inputs at S=33, B=16, per-head (B, H, S, S) bias "
+                 "from GraphAttnBias with the key-padding mask, beside the tensor-core kernel on the same inputs "
+                 "(float32: the same on float32 inputs and a float32 bias, called directly, beside SDPA in float32 "
+                 "and the float32 bound); library_ms is SDPA with the combined bias as a float mask; max_abs_err is "
+                 "the worst forward error of its float32 and bf16 checks called directly over every shape and bias "
+                 "kind and of the DH-16 calls"},
         {"name": "biased_attention_fwd_fused", "route": "cuda", "source": BIASED_FWD_MMA_SOURCE,
          "replaces": f"{TPU_BIASED}:61", "also_replaces": [], "launches": dense["scoring"]["biased_attention_fwd_fused"],
          "max_abs_err": max(e["out"] for r in biased_rows for e in r["errors"]["bfloat16"].values()),
@@ -6002,6 +6168,28 @@ def main(argv=None) -> int:
                  "library_ms is SDPA with the combined bias as a float mask; max_abs_err is the worst bf16 forward "
                  "error over every shape and bias kind",
          "shapes": biased_rows},
+        {"name": "biased_attention_fwd_tf32", "route": "cuda", "source": BIASED_FWD_TF32_SOURCE,
+         "replaces": f"{TPU_BIASED}:61", "also_replaces": [],
+         "launches": dense["float32_step"]["biased_attention_fwd_tf32"],
+         "max_abs_err": max(e["out"] for r in biased_rows for e in r["errors"]["float32"].values()),
+         **_float32_numbers(serve_biased, "fwd_tf32", "library_fwd", "fwd"),
+         "plain_ms": serve_biased["float32"]["ms"]["plain_fwd"],
+         "launches_by_path": paths("biased_attention_fwd_tf32"),
+         "bound_3xtf32_ms": serve_biased["float32"]["bound_3xtf32"]["fwd"][0],
+         "cuda_core_ms": serve_biased["float32"]["ms"]["fwd_cuda_core"],
+         "by_shape": [{"S": r["S"], "B": r["B"], "ms": r["float32"]["ms"]["fwd_tf32"],
+                       "cuda_core_ms": r["float32"]["ms"]["fwd_cuda_core"],
+                       "plain_ms": r["float32"]["ms"]["plain_fwd"], "library_ms": r["float32"]["ms"]["library_fwd"],
+                       "bound_f32_ms": r["float32"]["bound"]["fwd"][0],
+                       "bound_3xtf32_ms": r["float32"]["bound_3xtf32"]["fwd"][0],
+                       "bound_3xtf32_by": r["float32"]["bound_3xtf32"]["fwd"][1]} for r in biased_rows],
+         "note": "the float32 route (any DH, any S, either bias dtype), 3xTF32 on mma.sync: launches from the "
+                 "dense_graph float32 card step (its 2 graph layers), 0 on the bf16 paths; times on float32 inputs "
+                 "at S=33, B=16 with a float32 per-head (B, H, S, S) bias from GraphAttnBias and the key-padding "
+                 "mask; cuda_core_ms is the CUDA-core kernel on the same inputs; bound_ms is the float32 bound (67 "
+                 "TFLOP/s), bound_3xtf32_ms three TF32 products per float32 one at 494.7 TFLOP/s; plain_ms is the "
+                 "plain version in float32; library_ms is SDPA in float32 with the combined bias as a float mask; "
+                 "max_abs_err is the worst float32 forward error over every shape and bias kind"},
     ]
     # every kernel launched on a path of this run (the checks that call a
     # kernel directly aside)

@@ -8,7 +8,7 @@
 // route, as masked_attention_fwd_mma.cu does on the bf16 one. It takes the
 // float32 forward over from the CUDA-core kernel masked_attention_fwd.cu,
 // which now serves bf16 at other DH and at S > 256 only. Its statistics
-// feed the CUDA-core backward pair masked_attention_bwd.cu unchanged.
+// feed the 3xTF32 backward pair masked_attention_bwd_tf32.cu.
 //
 // Function, that of masked_attention_fwd.cu, for each (b, h, i):
 //   s_ij  = (scale q_i) . k_j + max(kb[b, j], -1e9)     (q scaled in f32;

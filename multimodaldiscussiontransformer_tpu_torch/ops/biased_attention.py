@@ -15,16 +15,21 @@ Pallas kernel's function (``_fused_kernel`` with ``_combine_bias``).
 
 ``biased_attention`` is the one entry point. It runs ``BiasedAttention``,
 an autograd Function whose forward runs the plain version
-``biased_attention_reference`` on CPU tensors and launches one of two
+``biased_attention_reference`` on CPU tensors and launches one of three
 kernels on CUDA tensors, chosen by ``kernel_route``:
 - "tensor_core": bf16 at DH = 64, any S (every graph layer of the model),
   ``csrc/biased_attention_fwd_mma.cu`` on mma.sync with bf16 operands
   (``biased_attention_fwd_fused``), which rounds P to bf16 before P V;
-- "cuda_core": float32 and DH 16, 32 and 128, ``csrc/biased_attention_fwd.cu``
+- "tf32": float32 at every DH, any S (the card-vs-CPU steps),
+  ``csrc/biased_attention_fwd_tf32.cu`` on mma.sync in 3xTF32
+  (``biased_attention_fwd_tf32``: each operand split into two TF32 parts,
+  the three larger cross products summed in f32, P kept in f32);
+- "cuda_core": bf16 at DH 16, 32 and 128, ``csrc/biased_attention_fwd.cu``
   in f32 arithmetic (``biased_attention_fwd``).
-A choice between kernels, not a fallback: each raises if it fails. Both
-read the bias in its own dtype (head stride 0 when shared) and the pad
-mask, and fold them in registers: the combined bias is never materialized.
+A choice between kernels, not a fallback: each raises if it fails. All
+three read the bias in its own dtype (float32 or bf16 with any q; head
+stride 0 when shared) and the pad mask, and fold them in registers: the
+combined bias is never materialized.
 The Function's backward is the port of JAX's XLA backward
 (``_bwd``): the probabilities are recomputed from the clamped combined bias
 in float32 with torch ops, giving dq, dk, dv and a dbias of the bias's
@@ -46,6 +51,7 @@ from multimodaldiscussiontransformer_tpu_torch.ops import cuda_lib
 from multimodaldiscussiontransformer_tpu_torch.ops.tree_attention import (
     DTYPE_CODES,
     MASK_BIAS,
+    aligned16,
     check_kernel_inputs,
     count_launch,
     dropped_softmax_attention,
@@ -121,42 +127,50 @@ def _launch(wrapper, library: str, function: str, q, k, v, bias, key_padding_mas
 
 def biased_attention_fwd(q, k, v, bias, key_padding_mask, scale: float) -> torch.Tensor:
     """Launch the CUDA-core forward kernel, the "cuda_core" route's (it
-    takes bf16 and every DH of _HEAD_DIMS too). ``launches`` counts
+    takes float32 and every DH of _HEAD_DIMS too). ``launches`` counts
     launches."""
     _check_cuda_inputs(q, k, v, bias, key_padding_mask)
     return _launch(biased_attention_fwd, "biased_fwd", "biased_attention_fwd", q, k, v, bias, key_padding_mask,
                    scale)
 
 
-# the tensor-core kernel takes these; see ``kernel_route``
+# the tensor-core kernel takes these, the 3xTF32 one float32 at every DH;
+# see ``kernel_route``
 TENSOR_CORE_DTYPE = torch.bfloat16
 TENSOR_CORE_HEAD_DIM = 64
+TF32_DTYPE = torch.float32
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which forward kernel the CUDA path launches for q of this dtype and
     head dim: "tensor_core" for bf16 at DH = 64 (``biased_attention_fwd_fused``,
-    any S, either bias dtype), else "cuda_core" (``biased_attention_fwd``,
-    f32 arithmetic on CUDA cores). A choice between kernels, not a fallback:
+    any S, either bias dtype), "tf32" for float32
+    (``biased_attention_fwd_tf32``, 3xTF32 on tensor cores, any DH and S,
+    either bias dtype), else "cuda_core" (``biased_attention_fwd``, f32
+    arithmetic on CUDA cores). A choice between kernels, not a fallback:
     each raises if it fails."""
+    if dtype == TF32_DTYPE:
+        return "tf32"
     tensor_core = dtype == TENSOR_CORE_DTYPE and head_dim == TENSOR_CORE_HEAD_DIM
     return "tensor_core" if tensor_core else "cuda_core"
 
 
-def _check_tensor_core_inputs(q, k, v, bias, key_padding_mask) -> None:
-    """What the tensor-core kernel takes besides ``_check_cuda_inputs``: the
-    "tensor_core" route's dtype and head dim, q, k, v, the bias and the pad
-    mask 16-byte aligned for its 16-byte copies, and CUDA tensors."""
+def _check_tensor_core_inputs(q, k, v, bias, key_padding_mask, route: str = "tensor_core") -> None:
+    """What the tensor-core kernels take besides ``_check_cuda_inputs``: the
+    dtype (and, for "tensor_core", the head dim) of their ``route``, CUDA
+    tensors, and the tensors they copy in 16-byte pieces 16-byte aligned:
+    q, k and v, and for "tensor_core" the bias and the pad mask too."""
     dh = q.shape[-1]
-    if kernel_route(q.dtype, dh) != "tensor_core":
-        raise ValueError(
-            f"the tensor-core dense-bias forward takes {TENSOR_CORE_DTYPE} at DH={TENSOR_CORE_HEAD_DIM}, "
-            f"got {q.dtype} DH={dh}"
-        )
-    if any(t is not None and t.data_ptr() % 16 for t in (q, k, v, bias, key_padding_mask)):
-        raise ValueError("the tensor-core dense-bias forward takes 16-byte aligned q, k, v, bias and key_padding_mask")
+    kernel = "3xTF32 dense-bias forward" if route == "tf32" else "tensor-core dense-bias forward"
+    if kernel_route(q.dtype, dh) != route:
+        takes = f"{TF32_DTYPE}" if route == "tf32" else f"{TENSOR_CORE_DTYPE} at DH={TENSOR_CORE_HEAD_DIM}"
+        raise ValueError(f"the {kernel} takes {takes}, got {q.dtype} DH={dh}")
+    copied = (q, k, v) if route == "tf32" else (q, k, v, bias, key_padding_mask)
+    if any(t is not None and t.data_ptr() % 16 for t in copied):
+        names = "q, k and v" if route == "tf32" else "q, k, v, bias and key_padding_mask"
+        raise ValueError(f"the {kernel} takes 16-byte aligned {names}")
     if q.device.type != "cuda":
-        raise ValueError(f"the tensor-core dense-bias forward runs on cuda, not {q.device}")
+        raise ValueError(f"the {kernel} runs on cuda, not {q.device}")
 
 
 def biased_attention_fwd_fused(q, k, v, bias, key_padding_mask, scale: float) -> torch.Tensor:
@@ -169,9 +183,31 @@ def biased_attention_fwd_fused(q, k, v, bias, key_padding_mask, scale: float) ->
                    key_padding_mask, scale)
 
 
-biased_attention_fwd.launches = 0
-biased_attention_fwd_fused.launches = 0
-KERNELS = (biased_attention_fwd, biased_attention_fwd_fused)
+def biased_attention_fwd_tf32(q, k, v, bias, key_padding_mask, scale: float) -> torch.Tensor:
+    """Launch the 3xTF32 forward kernel: out, as ``biased_attention_fwd``
+    returns it. Takes float32 CUDA tensors (the "tf32" route, any DH and S)
+    with q, k and v 16-byte aligned, and a float32 or bf16 bias."""
+    _check_cuda_inputs(q, k, v, bias, key_padding_mask)
+    _check_tensor_core_inputs(q, k, v, bias, key_padding_mask, route="tf32")
+    return _launch(biased_attention_fwd_tf32, "biased_fwd_tf32", "biased_attention_fwd_tf32", q, k, v, bias,
+                   key_padding_mask, scale)
+
+
+KERNELS = (biased_attention_fwd, biased_attention_fwd_fused, biased_attention_fwd_tf32)
+for _fn in KERNELS:
+    _fn.launches = 0
+FORWARDS = {"tensor_core": biased_attention_fwd_fused, "tf32": biased_attention_fwd_tf32,
+            "cuda_core": biased_attention_fwd}
+
+
+def routed_forward(q, k, v, bias, key_padding_mask, scale: float) -> torch.Tensor:
+    """Launch the forward kernel ``kernel_route`` names for q. The 3xTF32
+    forward copies q, k and v in 16-byte pieces: a view off a 16-byte
+    boundary goes to it as an aligned copy."""
+    route = kernel_route(q.dtype, q.shape[-1])
+    if route == "tf32":
+        q, k, v = (aligned16(x) for x in (q, k, v))
+    return FORWARDS[route](q, k, v, bias, key_padding_mask, scale)
 
 
 class BiasedAttention(torch.autograd.Function):
@@ -182,9 +218,7 @@ class BiasedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, key_padding_mask, scale: float):
         if q.device.type == "cuda":
-            tensor_core = kernel_route(q.dtype, q.shape[-1]) == "tensor_core"
-            fwd = biased_attention_fwd_fused if tensor_core else biased_attention_fwd
-            out = fwd(q, k, v, bias, key_padding_mask, scale)
+            out = routed_forward(q, k, v, bias, key_padding_mask, scale)
         else:
             out = biased_attention_reference(q, k, v, bias, key_padding_mask, scale)
         if any(ctx.needs_input_grad[:4]):

@@ -39,8 +39,10 @@ SOURCES = {
     "masked_fwd_tf32": CSRC / "masked_attention_fwd_tf32.cu",
     "masked_bwd": CSRC / "masked_attention_bwd.cu",
     "masked_bwd_mma": CSRC / "masked_attention_bwd_mma.cu",
+    "masked_bwd_tf32": CSRC / "masked_attention_bwd_tf32.cu",
     "biased_fwd": CSRC / "biased_attention_fwd.cu",
     "biased_fwd_mma": CSRC / "biased_attention_fwd_mma.cu",
+    "biased_fwd_tf32": CSRC / "biased_attention_fwd_tf32.cu",
 }
 HEADERS = (CSRC / "tree_attention_common.cuh", CSRC / "mma_common.cuh", CSRC / "tf32_common.cuh")
 BUILD_DIR = _PACKAGE / "_build"
@@ -53,6 +55,7 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # (B, H, S, DH, scale, [tpl_coef,] seed_lo, seed_hi, thr, keep_scale, dtype, stream)
 _TREE_TAIL = [_I] * 4 + [_F] * 2 + [_U] * 3 + [_F, _I, _P]
 _MASKED_TAIL = [_I] * 4 + [_F] + [_U] * 3 + [_F, _I, _P]
+_BIASED_ARGS = [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P]
 # library -> {C function: argument types}; every function returns a
 # cudaError_t as int, and each library has one "<...>_error_string"
 ENTRY_POINTS = {
@@ -69,9 +72,12 @@ ENTRY_POINTS = {
     "masked_fwd_tf32": {"masked_attention_fwd_tf32": [_P] * 6 + _MASKED_TAIL},
     "masked_bwd": {"masked_attention_bwd_dq": [_P] * 9 + _MASKED_TAIL, "masked_attention_bwd_dkv": [_P] * 9 + _MASKED_TAIL},
     "masked_bwd_mma": {"masked_attention_bwd_mma": [_P] * 10 + _MASKED_TAIL},
+    "masked_bwd_tf32": {"masked_attention_bwd_dq_tf32": [_P] * 9 + _MASKED_TAIL,
+                        "masked_attention_bwd_dkv_tf32": [_P] * 9 + _MASKED_TAIL},
     # (q, k, v, bias, pad, out, B, H, S, DH, bias_heads, scale, dtype, bias_dtype, stream)
-    "biased_fwd": {"biased_attention_fwd": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P]},
-    "biased_fwd_mma": {"biased_attention_fwd_mma": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P]},
+    "biased_fwd": {"biased_attention_fwd": _BIASED_ARGS},
+    "biased_fwd_mma": {"biased_attention_fwd_mma": _BIASED_ARGS},
+    "biased_fwd_tf32": {"biased_attention_fwd_tf32": _BIASED_ARGS},
 }
 ERROR_STRINGS = {
     "tree_fwd": "tree_attention_error_string",
@@ -85,8 +91,10 @@ ERROR_STRINGS = {
     "masked_fwd_tf32": "masked_attention_fwd_tf32_error_string",
     "masked_bwd": "masked_attention_bwd_error_string",
     "masked_bwd_mma": "masked_attention_bwd_mma_error_string",
+    "masked_bwd_tf32": "masked_attention_bwd_tf32_error_string",
     "biased_fwd": "biased_attention_fwd_error_string",
     "biased_fwd_mma": "biased_attention_fwd_mma_error_string",
+    "biased_fwd_tf32": "biased_attention_fwd_tf32_error_string",
 }
 
 _libs: Optional[Dict[str, ctypes.CDLL]] = None

@@ -24,14 +24,14 @@ them cannot drift apart:
   backward ``csrc/masked_attention_bwd_mma.cu`` (dq, dk and dv in one
   pass), both on mma.sync with bf16 operands;
 - "tf32": float32 at every DH and S (the card-vs-CPU steps, the tiny
-  configs). The forward is ``csrc/masked_attention_fwd_tf32.cu``, every
-  product on mma.sync in 3xTF32 (each operand split into two TF32 parts,
-  the three larger cross products summed in f32), and the backward the
-  two kernels of ``csrc/masked_attention_bwd.cu`` (dq, then dk and dv) on
-  CUDA cores, whose f32 products hold the float32 tolerances that bf16
-  rounding of p and ds would break;
+  configs). The forward is ``csrc/masked_attention_fwd_tf32.cu`` and the
+  backward the two kernels of ``csrc/masked_attention_bwd_tf32.cu`` (dq,
+  then dk and dv), every product on mma.sync in 3xTF32 (each operand split
+  into two TF32 parts, the three larger cross products summed in f32), which
+  holds the float32 tolerances that bf16 rounding of p and ds would break;
 - "cuda_core": bf16 at other DH and longer S. The forward is
-  ``csrc/masked_attention_fwd.cu`` and the backward the same pair.
+  ``csrc/masked_attention_fwd.cu`` and the backward the two kernels of
+  ``csrc/masked_attention_bwd.cu`` (dq, then dk and dv) on CUDA cores.
 The kernels are built and bound by ``ops/cuda_lib.py``; on a CUDA tensor
 the wrapper launches them or raises.
 
@@ -114,7 +114,7 @@ def _check_cuda_inputs(q, k, v, key_bias, **extra) -> None:
 TENSOR_CORE_DTYPE = torch.bfloat16
 TENSOR_CORE_HEAD_DIM = 64
 TENSOR_CORE_MAX_S = 256
-# the 3xTF32 forward takes this, at every DH and S
+# the 3xTF32 forward and backward pair take this, at every DH and S
 TF32_DTYPE = torch.float32
 
 
@@ -123,11 +123,12 @@ def kernel_route(dtype: torch.dtype, head_dim: int, s: int) -> str:
     this dtype, head dim and length:
     - "tensor_core" for bf16 at DH = 64 and S <= 256
       (``masked_attention_fwd_fused``, then ``masked_attention_bwd_fused``);
-    - "tf32" for float32 (``masked_attention_fwd_tf32``, 3xTF32 on tensor
-      cores, then ``masked_attention_bwd_dq`` and ``masked_attention_bwd_dkv``,
-      f32 arithmetic on CUDA cores);
+    - "tf32" for float32 (``masked_attention_fwd_tf32``, then
+      ``masked_attention_bwd_dq_tf32`` and ``masked_attention_bwd_dkv_tf32``,
+      3xTF32 on tensor cores, any DH and S);
     - "cuda_core" for bf16 at other DH or longer S (``masked_attention_fwd``,
-      then the same pair).
+      then ``masked_attention_bwd_dq`` and ``masked_attention_bwd_dkv``, f32
+      arithmetic on CUDA cores).
     A choice between kernels, not a fallback: each raises if it fails."""
     if dtype == TF32_DTYPE:
         return "tf32"
@@ -221,44 +222,85 @@ def masked_attention_fwd_tf32(
     return out, stats
 
 
-def masked_attention_bwd_dq(
-    q, k, v, out, g, key_bias, stats, scale: float, rate: float = 0.0, seed: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the q-major backward kernel: (dq, delta f32 (B, H, S), the
-    per-row g . out that ``masked_attention_bwd_dkv`` takes)."""
-    _check_cuda_inputs(q, k, v, key_bias, out=out, g=g, stats=stats)
+def _launch_dq(wrapper, entry: Tuple[str, str], q, k, v, out, g, key_bias, stats, scale, rate, seed):
+    """Allocate dq and delta, launch the q-major ``entry`` (library, C
+    function; both pairs take one signature) and count the launch on
+    ``wrapper``."""
     b, h, s, dh = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq, delta
     cuda_lib.launch(
-        "masked_bwd", "masked_attention_bwd_dq", q.device,
+        *entry, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(), _ptr(key_bias),
         stats.data_ptr(), dq.data_ptr(), delta.data_ptr(),
         b, h, s, dh, float(scale), *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
     )
-    count_launch(masked_attention_bwd_dq)
+    count_launch(wrapper)
     return dq, delta
 
 
-def masked_attention_bwd_dkv(
-    q, k, v, g, key_bias, stats, delta, scale: float, rate: float = 0.0, seed: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the k-major backward kernel: (dk, dv)."""
-    _check_cuda_inputs(q, k, v, key_bias, g=g, stats=stats, delta=delta)
+def _launch_dkv(wrapper, entry: Tuple[str, str], q, k, v, g, key_bias, stats, delta, scale, rate, seed):
+    """Allocate dk and dv, launch the k-major ``entry`` and count the launch
+    on ``wrapper``."""
     b, h, s, dh = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
     cuda_lib.launch(
-        "masked_bwd", "masked_attention_bwd_dkv", q.device,
+        *entry, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _ptr(key_bias), stats.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, h, s, dh, float(scale), *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
     )
-    count_launch(masked_attention_bwd_dkv)
+    count_launch(wrapper)
     return dk, dv
+
+
+def masked_attention_bwd_dq(
+    q, k, v, out, g, key_bias, stats, scale: float, rate: float = 0.0, seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA-core q-major backward kernel, the "cuda_core"
+    route's (it takes float32 too): (dq, delta f32 (B, H, S), the per-row g
+    . out that ``masked_attention_bwd_dkv`` takes)."""
+    _check_cuda_inputs(q, k, v, key_bias, out=out, g=g, stats=stats)
+    return _launch_dq(masked_attention_bwd_dq, ("masked_bwd", "masked_attention_bwd_dq"), q, k, v, out, g,
+                      key_bias, stats, scale, rate, seed)
+
+
+def masked_attention_bwd_dkv(
+    q, k, v, g, key_bias, stats, delta, scale: float, rate: float = 0.0, seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA-core k-major backward kernel: (dk, dv)."""
+    _check_cuda_inputs(q, k, v, key_bias, g=g, stats=stats, delta=delta)
+    return _launch_dkv(masked_attention_bwd_dkv, ("masked_bwd", "masked_attention_bwd_dkv"), q, k, v, g, key_bias,
+                       stats, delta, scale, rate, seed)
+
+
+def masked_attention_bwd_dq_tf32(
+    q, k, v, out, g, key_bias, stats, scale: float, rate: float = 0.0, seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the 3xTF32 q-major backward kernel: (dq, delta), as
+    ``masked_attention_bwd_dq`` returns them. Takes float32 CUDA tensors
+    (the "tf32" route, any DH and S), with q, k, v, out and g 16-byte
+    aligned."""
+    _check_cuda_inputs(q, k, v, key_bias, out=out, g=g, stats=stats)
+    _check_tensor_core_inputs("3xTF32 backward", q, k, v, out, g, route="tf32")
+    return _launch_dq(masked_attention_bwd_dq_tf32, ("masked_bwd_tf32", "masked_attention_bwd_dq_tf32"), q, k, v,
+                      out, g, key_bias, stats, scale, rate, seed)
+
+
+def masked_attention_bwd_dkv_tf32(
+    q, k, v, g, key_bias, stats, delta, scale: float, rate: float = 0.0, seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the 3xTF32 k-major backward kernel: (dk, dv), from the delta
+    of ``masked_attention_bwd_dq_tf32``. Takes float32 CUDA tensors, with q,
+    k, v and g 16-byte aligned."""
+    _check_cuda_inputs(q, k, v, key_bias, g=g, stats=stats, delta=delta)
+    _check_tensor_core_inputs("3xTF32 backward", q, k, v, g, route="tf32")
+    return _launch_dkv(masked_attention_bwd_dkv_tf32, ("masked_bwd_tf32", "masked_attention_bwd_dkv_tf32"), q, k,
+                       v, g, key_bias, stats, delta, scale, rate, seed)
 
 
 def masked_attention_bwd_fused(
@@ -284,7 +326,8 @@ def masked_attention_bwd_fused(
 
 KERNELS = (
     masked_attention_fwd, masked_attention_bwd_dq, masked_attention_bwd_dkv, masked_attention_bwd_fused,
-    masked_attention_fwd_fused, masked_attention_fwd_tf32,
+    masked_attention_fwd_fused, masked_attention_fwd_tf32, masked_attention_bwd_dq_tf32,
+    masked_attention_bwd_dkv_tf32,
 )
 for _fn in KERNELS:
     _fn.launches = 0
@@ -318,11 +361,19 @@ class MaskedAttention(torch.autograd.Function):
         q, k, v, key_bias, out, stats = ctx.saved_tensors
         scale, rate, seed = ctx.args
         g = g.contiguous()
-        if kernel_route(q.dtype, q.shape[-1], q.shape[2]) == "tensor_core":
+        route = kernel_route(q.dtype, q.shape[-1], q.shape[2])
+        if route == "tensor_core":
             dq, dk, dv = masked_attention_bwd_fused(q, k, v, out, g, key_bias, stats, scale, rate, seed)
+            return dq, dk, dv, None, None, None, None
+        if route == "tf32":
+            # the 3xTF32 pair copies in 16-byte pieces: a cotangent (or an
+            # output) off a 16-byte boundary goes as an aligned copy
+            g, out = aligned16(g), aligned16(out)
+            bwd_dq, bwd_dkv = masked_attention_bwd_dq_tf32, masked_attention_bwd_dkv_tf32
         else:
-            dq, delta = masked_attention_bwd_dq(q, k, v, out, g, key_bias, stats, scale, rate, seed)
-            dk, dv = masked_attention_bwd_dkv(q, k, v, g, key_bias, stats, delta, scale, rate, seed)
+            bwd_dq, bwd_dkv = masked_attention_bwd_dq, masked_attention_bwd_dkv
+        dq, delta = bwd_dq(q, k, v, out, g, key_bias, stats, scale, rate, seed)
+        dk, dv = bwd_dkv(q, k, v, g, key_bias, stats, delta, scale, rate, seed)
         return dq, dk, dv, None, None, None, None
 
 

@@ -12,7 +12,7 @@ package are in ``test_torch_biased_attention.py``.
 
 Tolerances: on the CPU, the Function's backward against autograd of the
 plain version within 1e-5 x max|ref| (float32, sums in other orders). On
-the card, the forward in float32 (TF32 off, the CUDA-core kernel) within
+the card, the forward in float32 (TF32 off, the 3xTF32 kernel) within
 1e-4 absolute (sums over dh and S in other orders, ~1e-6 here); in bfloat16
 the routed tensor-core kernel within 1e-2 x max|ref| (it rounds P to bf16
 before P V, about one more bf16 step) and the CUDA-core kernel, called
@@ -171,7 +171,7 @@ def test_kernel_and_gradients_match_plain_on_card(dtype, kind, s, b):
     g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(s), device="cuda").to(dt)
     before = [fn.launches for fn in ba.KERNELS]
     got = forward_and_grads(ba.biased_attention, q, k, v, bias, mask, g)
-    routed = ba.biased_attention_fwd_fused if ba.kernel_route(dt, 64) == "tensor_core" else ba.biased_attention_fwd
+    routed = ba.FORWARDS[ba.kernel_route(dt, 64)]
     assert [fn.launches for fn in ba.KERNELS] == [n + (fn is routed) for n, fn in zip(before, ba.KERNELS)]
     want = forward_and_grads(ba.biased_attention_reference, q, k, v, bias, mask, g)
     torch.cuda.synchronize()

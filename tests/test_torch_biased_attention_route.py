@@ -1,6 +1,7 @@
-"""The dense-bias attention's two forward kernels: the route between them,
-the tensor-core forward's wrapper contract, and the tensor-core forward
-against the plain version on the card.
+"""The dense-bias attention's forward kernels: the route between them, the
+tensor-core forward's wrapper contract, and the tensor-core forward against
+the plain version on the card (the 3xTF32 forward's are in
+``test_torch_tf32_tower_bwd_dense_fwd_card.py``).
 
 This file imports neither JAX nor the JAX package, so that it runs on a
 machine with a card and no JAX:
@@ -14,8 +15,9 @@ Tolerances on the card (the plain version in f32 on the same inputs): the
 tensor-core forward and the gradients behind it within 1e-2 x max|ref| in
 bf16, as for the other bf16 kernels (the kernel rounds P to bf16 before P V,
 about one more bf16 step, and the output to bf16); float32 through the
-CUDA-core forward within 1e-4 absolute (sums in other orders, TF32 off) and
-its gradients within 1e-4 x max|ref|.
+3xTF32 forward within 1e-4 absolute (sums in other orders, TF32 off for
+PyTorch's products, ~2^-22 of each product dropped) and its gradients
+within 1e-4 x max|ref|.
 """
 
 import importlib
@@ -58,18 +60,19 @@ def _launches():
     return [fn.launches for fn in ba.KERNELS]
 
 
-# launches of ba.KERNELS (CUDA-core, tensor-core) for one forward, by route
-ROUTE_LAUNCHES = {"cuda_core": [1, 0], "tensor_core": [0, 1]}
+# launches of ba.KERNELS (CUDA-core, tensor-core, 3xTF32) for one forward,
+# by route
+ROUTE_LAUNCHES = {"cuda_core": [1, 0, 0], "tensor_core": [0, 1, 0], "tf32": [0, 0, 1]}
 
 ROUTE_CASES = [
     (torch.bfloat16, 64, "tensor_core"),  # every graph layer of the model
     (torch.bfloat16, 16, "cuda_core"),
     (torch.bfloat16, 32, "cuda_core"),
     (torch.bfloat16, 128, "cuda_core"),
-    (torch.float32, 16, "cuda_core"),
-    (torch.float32, 32, "cuda_core"),
-    (torch.float32, 64, "cuda_core"),  # f32: the card-vs-CPU steps' tolerances
-    (torch.float32, 128, "cuda_core"),
+    (torch.float32, 16, "tf32"),
+    (torch.float32, 32, "tf32"),
+    (torch.float32, 64, "tf32"),  # f32: the card-vs-CPU steps' tolerances
+    (torch.float32, 128, "tf32"),
 ]
 
 
@@ -80,14 +83,14 @@ def test_kernel_route(dtype, dh, route):
 
 def test_model_graph_layers_route_to_tensor_cores():
     """``ModelConfig()``'s graph layers (bf16, d = 768 over 12 heads) take
-    the tensor-core forward; their float32 twin the CUDA-core one."""
+    the tensor-core forward; their float32 twin the 3xTF32 one."""
     from multimodaldiscussiontransformer_tpu_torch.core.config import ModelConfig
 
     mc = ModelConfig()
     dh = mc.encoder_embed_dim // mc.encoder_attention_heads
     assert (mc.dtype, dh) == ("bfloat16", 64)
     assert ba.kernel_route(getattr(torch, mc.dtype), dh) == "tensor_core"
-    assert ba.kernel_route(torch.float32, dh) == "cuda_core"
+    assert ba.kernel_route(torch.float32, dh) == "tf32"
 
 
 def test_build_tables_name_the_tensor_core_forward():
@@ -96,7 +99,7 @@ def test_build_tables_name_the_tensor_core_forward():
         "biased_attention_fwd_mma": cuda_lib.ENTRY_POINTS["biased_fwd"]["biased_attention_fwd"]}
     assert cuda_lib.ERROR_STRINGS["biased_fwd_mma"] == "biased_attention_fwd_mma_error_string"
     assert "biased_fwd_mma" in cuda_lib.library_paths()
-    assert ba.KERNELS == (ba.biased_attention_fwd, ba.biased_attention_fwd_fused)
+    assert ba.KERNELS == (ba.biased_attention_fwd, ba.biased_attention_fwd_fused, ba.biased_attention_fwd_tf32)
 
 
 @pytest.mark.parametrize("kind, bias_dtype", BIASES)
@@ -237,7 +240,7 @@ def test_fused_forward_masked_rows_on_card(s, bias_dtype):
 @pytest.mark.parametrize("s, b", [(33, 4), (257, 2), (1025, 1)])
 def test_function_routes_and_gradients_on_card(s, b, kind, dtype):
     """``biased_attention`` on the card: bf16 launches the tensor-core
-    forward once and the CUDA-core one never, float32 the other way round;
+    forward once, float32 the 3xTF32 one, and neither the CUDA-core one;
     the output and the gradients (the unchanged torch-ops backward) agree
     with autograd of the plain version."""
     dev = _card()
@@ -246,7 +249,7 @@ def test_function_routes_and_gradients_on_card(s, b, kind, dtype):
     before = _launches()
     got = forward_and_grads(ba.biased_attention, q, k, v, bias, mask, g)
     route = ba.kernel_route(dtype, 64)
-    assert route == ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
+    assert route == ("tensor_core" if dtype == torch.bfloat16 else "tf32")
     assert _launches() == [n + d for n, d in zip(before, ROUTE_LAUNCHES[route])]
     want = forward_and_grads(ba.biased_attention_reference, q, k, v, bias, mask, g)
     if dtype == torch.float32:

@@ -44,7 +44,7 @@ TOWER_ROUTES = [
     (torch.bfloat16, 64, 104, "tensor_core"), (torch.bfloat16, 64, 300, "cuda_core"),
     (torch.bfloat16, 32, 104, "cuda_core"),
 ]
-TOWER_CALLS = {"tf32": ["fwd_tf32", "dq", "dkv"], "tensor_core": ["fwd_fused", "bwd_fused"],
+TOWER_CALLS = {"tf32": ["fwd_tf32", "dq_tf32", "dkv_tf32"], "tensor_core": ["fwd_fused", "bwd_fused"],
                "cuda_core": ["fwd", "dq", "dkv"]}
 
 
@@ -107,17 +107,22 @@ def _stub_tower(monkeypatch, calls, seen):
         calls.append("bwd_fused")
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
 
-    def dq(q, k, v, out, g, key_bias, stats, scale, rate, seed):
-        calls.append("dq")
-        return torch.zeros_like(q), torch.zeros(q.shape[:3])
+    def dq(name):
+        def run(q, k, v, out, g, key_bias, stats, scale, rate, seed):
+            calls.append(name)
+            return torch.zeros_like(q), torch.zeros(q.shape[:3])
+        return run
 
-    def dkv(q, k, v, g, key_bias, stats, delta, scale, rate, seed):
-        calls.append("dkv")
-        return torch.zeros_like(k), torch.zeros_like(v)
+    def dkv(name):
+        def run(q, k, v, g, key_bias, stats, delta, scale, rate, seed):
+            calls.append(name)
+            return torch.zeros_like(k), torch.zeros_like(v)
+        return run
 
     for name, fn in (("masked_attention_fwd", fwd("fwd")), ("masked_attention_fwd_fused", fwd("fwd_fused")),
                      ("masked_attention_fwd_tf32", fwd("fwd_tf32")), ("masked_attention_bwd_fused", bwd_fused),
-                     ("masked_attention_bwd_dq", dq), ("masked_attention_bwd_dkv", dkv)):
+                     ("masked_attention_bwd_dq", dq("dq")), ("masked_attention_bwd_dkv", dkv("dkv")),
+                     ("masked_attention_bwd_dq_tf32", dq("dq_tf32")), ("masked_attention_bwd_dkv_tf32", dkv("dkv_tf32"))):
         monkeypatch.setattr(ma, name, fn)
 
 
@@ -142,9 +147,9 @@ def test_tree_route_sends_float32_to_the_tf32_forward(monkeypatch, dtype, dh, ro
 
 @pytest.mark.parametrize("dtype, dh, s, route", TOWER_ROUTES)
 def test_tower_route_sends_float32_to_the_tf32_forward(monkeypatch, dtype, dh, s, route):
-    """float32 at every DH and S takes the 3xTF32 forward, then the
-    CUDA-core pair; bf16 the tensor-core kernels or the CUDA-core forward
-    and pair as before."""
+    """float32 at every DH and S takes the 3xTF32 forward, then the 3xTF32
+    pair; bf16 the tensor-core kernels or the CUDA-core forward and pair as
+    before."""
     assert ma.kernel_route(dtype, dh, s) == route
     calls, seen = [], []
     _stub_tower(monkeypatch, calls, seen)

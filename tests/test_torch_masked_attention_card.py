@@ -80,10 +80,12 @@ def max_err_of_max(got, want, floor=1e-30):
 
 
 # launches of ma.KERNELS (CUDA-core fwd, dq, dkv, one-pass bwd, tensor-core
-# fwd, 3xTF32 fwd) for one forward and backward, by route
-ROUTE_LAUNCHES = {"tensor_core": [0, 0, 0, 1, 1, 0], "cuda_core": [1, 1, 1, 0, 0, 0], "tf32": [0, 1, 1, 0, 0, 1]}
-# the forward stand-in each route calls
+# fwd, 3xTF32 fwd, dq, dkv) for one forward and backward, by route
+ROUTE_LAUNCHES = {"tensor_core": [0, 0, 0, 1, 1, 0, 0, 0], "cuda_core": [1, 1, 1, 0, 0, 0, 0, 0],
+                  "tf32": [0, 0, 0, 0, 0, 1, 1, 1]}
+# the forward and backward stand-ins each route calls
 ROUTE_FORWARD = {"tensor_core": "fwd_fused", "cuda_core": "fwd", "tf32": "fwd_tf32"}
+ROUTE_BACKWARD = {"tensor_core": ["fused"], "cuda_core": ["dq", "dkv"], "tf32": ["dq_tf32", "dkv_tf32"]}
 
 
 def expected_launches(dtype, s, dh=64):
@@ -208,18 +210,24 @@ def _stub_kernels(monkeypatch, calls, asked=None):
         calls.append("fused")
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
 
-    def fake_dq(q, k, v, out, g, key_bias, stats, scale, rate, seed):
-        calls.append("dq")
-        return torch.zeros_like(q), torch.zeros(q.shape[:3])
+    def fake_dq(name):
+        def run(q, k, v, out, g, key_bias, stats, scale, rate, seed):
+            calls.append(name)
+            return torch.zeros_like(q), torch.zeros(q.shape[:3])
+        return run
 
-    def fake_dkv(q, k, v, g, key_bias, stats, delta, scale, rate, seed):
-        calls.append("dkv")
-        return torch.zeros_like(k), torch.zeros_like(v)
+    def fake_dkv(name):
+        def run(q, k, v, g, key_bias, stats, delta, scale, rate, seed):
+            calls.append(name)
+            return torch.zeros_like(k), torch.zeros_like(v)
+        return run
 
     for name, fn in (("masked_attention_fwd", fwd("fwd")), ("masked_attention_fwd_fused", fwd("fwd_fused")),
                      ("masked_attention_fwd_tf32", fwd("fwd_tf32")),
-                     ("masked_attention_bwd_fused", fake_fused), ("masked_attention_bwd_dq", fake_dq),
-                     ("masked_attention_bwd_dkv", fake_dkv)):
+                     ("masked_attention_bwd_fused", fake_fused), ("masked_attention_bwd_dq", fake_dq("dq")),
+                     ("masked_attention_bwd_dkv", fake_dkv("dkv")),
+                     ("masked_attention_bwd_dq_tf32", fake_dq("dq_tf32")),
+                     ("masked_attention_bwd_dkv_tf32", fake_dkv("dkv_tf32"))):
         monkeypatch.setattr(ma, name, fn)
 
 
@@ -259,8 +267,9 @@ def test_every_tower_shape_routes_to_tensor_cores():
 @pytest.mark.parametrize("dtype, dh, s", [(torch.bfloat16, 64, 104), (torch.float32, 64, 104), (torch.bfloat16, 32, 40)])
 def test_backward_launches_the_routed_kernels(monkeypatch, dtype, dh, s):
     """``MaskedAttention`` calls the tensor-core forward and the one-pass
-    backward, or the 3xTF32 or the CUDA-core forward and the pair, as
-    ``kernel_route`` says, the backward with the forward's saved tensors.
+    backward, the 3xTF32 forward and pair, or the CUDA-core forward and
+    pair, as ``kernel_route`` says, the backward with the forward's saved
+    tensors.
     The kernels are stood in for on CPU tensors."""
     calls = []
     _stub_kernels(monkeypatch, calls)
@@ -268,7 +277,7 @@ def test_backward_launches_the_routed_kernels(monkeypatch, dtype, dh, s):
     q, k, v = (x.to(dtype).requires_grad_(True) for x in (q, k, v))
     ma.MaskedAttention.apply(q, k, v, bias, 3, 0.2, dh ** -0.5).float().sum().backward()
     route = ma.kernel_route(dtype, dh, s)
-    assert calls == (["fwd_fused", "fused"] if route == "tensor_core" else [ROUTE_FORWARD[route], "dq", "dkv"])
+    assert calls == [ROUTE_FORWARD[route]] + ROUTE_BACKWARD[route]
     assert q.grad.dtype == dtype and k.grad.shape == k.shape
 
 
@@ -499,7 +508,7 @@ def test_fused_forward_matches_plain_on_card(rate, s):
     before = [fn.launches for fn in ma.KERNELS]
     out, stats = ma.masked_attention_fwd_fused(q, k, v, bias, dh ** -0.5, rate, 99 + s, with_stats=True)
     torch.cuda.synchronize()
-    assert [fn.launches - n for fn, n in zip(ma.KERNELS, before)] == [0, 0, 0, 0, 1, 0]
+    assert [fn.launches - n for fn, n in zip(ma.KERNELS, before)] == [0, 0, 0, 0, 1, 0, 0, 0]
     want = ma.masked_attention_dropout_reference(q, k, v, bias, 99 + s, rate, dh ** -0.5)
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
     assert max_err_of_max(out, want) <= BF16_RTOL_OF_MAX, max_err_of_max(out, want)
