@@ -265,7 +265,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
     model of no weights: scores of the scoring phase's first request batch
     bit-equal to the source's; HF-named BERT-base and ViT-base state dicts
     at their published shapes imported (every mapped tensor equal to its
-    source, every other one kept) and scored; the ingest run's checkpoint
+    source, every other one kept) and scored; the same state dicts written
+    as files in an HF cache (``write_hf_cache``: a gamma/beta
+    ``model.safetensors`` BERT, a ``pytorch_model.bin`` ViT classifier)
+    and read back by ``--hf-init``'s reader (read seconds and GB/s): the
+    imported state and the scores bit-equal to the in-memory route's (which
+    takes the classifier the reader drew), and ``--hf-init`` of a name in
+    no cache exiting non-zero, naming it; the ingest run's checkpoint
     (update 4) written again in ``tools/orbax_to_npz.py``'s layout (params,
     AdamW moments, counters), restored with ``--restore-file X.npz`` into a
     run to update 6: moments equal to the checkpoint's, and its first
@@ -290,9 +296,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
     of each stage, the 3xTF32 tree kernels of its hidden-64 model),
     ``context_ablation.run`` at 300 trees, WF_ABLATION_UPDATES per arm
     (the full and the context-blind F1), ``readiness.main --full-model`` on stand-in assets with
-    ``transformers`` unimportable ("optional, absent"),
-    ``sample_run.sh`` through bash at ``ModelConfig()`` width on an
-    ingested mini corpus (2 contrastive updates, then 2 node updates
+    ``transformers`` unimportable (its HF checks ok on an HF cache of the
+    published checkpoints' files), ``sample_run.sh`` through bash at
+    ``ModelConfig()`` width on an ingested mini corpus (2 contrastive
+    updates from towers read by ``--hf-init`` (``HF_INIT=1``) from that
+    cache, then 2 node updates
     restored with ``--reset-optimizer``; the launcher argv the script
     builds for each runs in this process) and
     ``text_bert.train`` at BERT-base width (20 steps, one evaluation: ms per
@@ -1403,6 +1411,29 @@ def kernel_train_dh16(ta, seed: int) -> dict:
     shared = 2 * b * s * s * 4 + 32 * h * 4
     row["bound"] = work_bounds(b, h, s, dh, "float32", shared)
     row["bound_3xtf32"] = work_bounds(b, h, s, dh, "3xtf32", shared)
+    # bf16, the route K1 and K2/K3 take now: their times beside SDPA in
+    # bf16 (contiguous bias) and the bf16 bound
+    qq, kk, vv, gg = (x.to(torch.bfloat16) for x in (q, k, v, g))
+    out16, lse16 = ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
+    _, _, delta16 = ta.tree_attention_bwd_dq(qq, kk, vv, out16, gg, template, ids, lut, lse16, scale, True,
+                                             TRAIN_RATE, dseed)
+    dense16 = dense.to(torch.bfloat16)
+
+    def sdpa16_fwd_bwd():
+        leaves = [x.detach().requires_grad_(True) for x in (qq, kk, vv)]
+        F.scaled_dot_product_attention(*leaves, attn_mask=dense16, dropout_p=TRAIN_RATE, scale=scale).backward(gg)
+
+    row["bfloat16_cuda_core"] = {"ms": {
+        "fwd": timed_ms(lambda: ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed,
+                                                      True)),
+        "dq": timed_ms(lambda: ta.tree_attention_bwd_dq(qq, kk, vv, out16, gg, template, ids, lut, lse16, scale, True,
+                                                        TRAIN_RATE, dseed)),
+        "dkv": timed_ms(lambda: ta.tree_attention_bwd_dkv(qq, kk, vv, gg, template, ids, lut, lse16, delta16, scale,
+                                                          True, TRAIN_RATE, dseed)),
+        "library_fwd": timed_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=dense16,
+                                                                       dropout_p=TRAIN_RATE, scale=scale)),
+        "library_fwd_bwd": timed_ms(sdpa16_fwd_bwd)},
+        "bound": work_bounds(b, h, s, dh, "bfloat16", shared)}
     emit(row)
     return row
 
@@ -1673,7 +1704,30 @@ def phase_masked(seed: int):
             if not abs(lhs - rhs) <= ADJOINT_REL * max(abs(lhs), 1.0):
                 raise AssertionError(f"masked adjoint identity fails: {row['adjoint']}")
 
-        if s > ma.TENSOR_CORE_MAX_S:  # past the tensor-core kernels: checked above, not timed
+        if s > ma.TENSOR_CORE_MAX_S:
+            # past the tensor-core kernels: bf16 takes the CUDA-core forward
+            # and pair here, timed beside SDPA in bf16 and the bf16 bound
+            qq, kk, vv, gg = (x.to(torch.bfloat16).contiguous() for x in (q, k, v, g))
+            out, stats = ma.masked_attention_fwd(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True)
+            bias4 = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
+
+            def pair_long():
+                _, delta_ = ma.masked_attention_bwd_dq(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed)
+                ma.masked_attention_bwd_dkv(qq, kk, vv, gg, bias, stats, delta_, scale, MASKED_RATE, dseed)
+
+            def sdpa_long():
+                leaves = [x.detach().requires_grad_(True) for x in (qq, kk, vv)]
+                F.scaled_dot_product_attention(*leaves, attn_mask=bias4, dropout_p=MASKED_RATE,
+                                               scale=scale).backward(gg)
+
+            row["bfloat16_cuda_core"] = {
+                "ms": {"fwd": timed_ms(lambda: ma.masked_attention_fwd(qq, kk, vv, bias, scale, MASKED_RATE, dseed,
+                                                                       with_stats=True)),
+                       "pair": timed_ms(pair_long),
+                       "library_fwd": timed_ms(lambda: F.scaled_dot_product_attention(
+                           qq, kk, vv, attn_mask=bias4, dropout_p=MASKED_RATE, scale=scale)),
+                       "library_fwd_bwd": timed_ms(sdpa_long)},
+                "bound": work_bounds(b, h, s, dh, "bfloat16", 0 if bias is None else b * s * 4, stat_planes=2)}
             emit({"phase": "masked_vs_plain", **row})
             rows.append(row)
             continue
@@ -2041,6 +2095,14 @@ def phase_biased(seed: int):
             [a for _, a, _ in pairs], [w for _, _, w in pairs], [n for n, _, _ in pairs], TRAIN_BF16_REL,
             f"dense-bias DH-16 bf16 gradients with {kind} bias")}
     want_launches = {**dict.fromkeys(KERNEL_NAMES, 0), "biased_attention_fwd": 3}
+    # the CUDA-core forward's one route now, timed beside SDPA in bf16 (the
+    # per-head bias with the pad mask folded in) and the bf16 bound
+    bias = dense_biases(batch, torch.bfloat16, seed + 16)["head"]
+    mask = combined_bias(q, bias, kpm).to(torch.bfloat16)
+    dh16_row["ms"] = {
+        "fwd_cuda_core": timed_ms(lambda: biased_attention_fwd(q, k, v, bias, kpm, dh16 ** -0.5)),
+        "library_fwd": timed_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=dh16 ** -0.5))}
+    dh16_row["bound"] = bound(b, h, s, dh16, "bfloat16", bias.numel() * bias.element_size() + kpm.numel())
     emit({"phase": "biased_vs_plain_dh16", **dh16_row})
     if dh16_row["kernel_route"] != "cuda_core" or dh16_row["launches"] != want_launches:
         raise AssertionError(f"dense-bias DH-16 bf16 calls launched {dh16_row['launches']}, expected {want_launches}")
@@ -4010,11 +4072,96 @@ def hf_published_state_dicts(cfg, seed: int):
     return sds[0], sds[1], names
 
 
+HF_SNAPSHOT = "0123456789abcdef0123456789abcdef01234567"  # the cache's revision (any 40 hex digits)
+HF_TEXT, HF_IMAGE = "bert-base-uncased", "google/vit-base-patch16-224"
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """``tensors`` (name -> CPU tensor) as a safetensors file, written by
+    hand (8 bytes of little-endian header length, the JSON header, the raw
+    bytes; the header padded to 8 bytes); its size in bytes."""
+    import torch
+
+    codes = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16", torch.int64: "I64"}
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.uint8).numpy().data if t.numel() else b"")
+    return os.path.getsize(path)
+
+
+def write_hf_cache(cache: str, cfg, seed: int):
+    """An HF hub cache at ``cache`` holding ``hf_published_state_dicts`` as
+    the published checkpoints are stored: ``models--bert-base-uncased``, a
+    ``BertForPreTraining`` ``model.safetensors`` with the TF-era
+    ``LayerNorm.gamma`` / ``.beta`` names and the ``cls.*`` pretraining
+    heads (no classifier, no tied decoder weight), and
+    ``models--google--vit-base-patch16-224``, a ``ViTForImageClassification``
+    ``pytorch_model.bin`` with a 1000-label classifier (no pooler), each
+    with its ``config.json`` and ``refs/main``. Returns (bert_sd, vit_sd,
+    names, bytes written)."""
+    import torch
+
+    bert_sd, vit_sd, names = hf_published_state_dicts(cfg, seed)
+    t, v = cfg.text_tower, cfg.image_tower
+    d, gen = t.hidden_size, torch.Generator().manual_seed(seed + 1)
+
+    def snapshot(name):
+        repo = os.path.join(cache, "models--" + name.replace("/", "--"))
+        os.makedirs(os.path.join(repo, "refs"), exist_ok=True)
+        with open(os.path.join(repo, "refs", "main"), "w") as f:
+            f.write(HF_SNAPSHOT)
+        path = os.path.join(repo, "snapshots", HF_SNAPSHOT)
+        os.makedirs(path, exist_ok=True)
+        return path
+
+    text = {k.replace("LayerNorm.weight", "LayerNorm.gamma").replace("LayerNorm.bias", "LayerNorm.beta"): x
+            for k, x in bert_sd.items() if not k.startswith("classifier.")}
+    heads = {"cls.predictions.bias": (t.vocab_size,), "cls.predictions.transform.dense.weight": (d, d),
+             "cls.predictions.transform.dense.bias": (d,), "cls.predictions.transform.LayerNorm.gamma": (d,),
+             "cls.predictions.transform.LayerNorm.beta": (d,), "cls.seq_relationship.weight": (2, d),
+             "cls.seq_relationship.bias": (2,)}
+    text.update({k: torch.randn(shape, generator=gen) * 0.02 for k, shape in heads.items()})
+    path = snapshot(HF_TEXT)
+    nbytes = write_safetensors(os.path.join(path, "model.safetensors"), text)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"architectures": ["BertForPreTraining"], "model_type": "bert", "vocab_size": t.vocab_size,
+                   "hidden_size": d, "num_hidden_layers": t.num_hidden_layers,
+                   "num_attention_heads": t.num_attention_heads, "intermediate_size": t.intermediate_size,
+                   "max_position_embeddings": t.max_position_embeddings, "type_vocab_size": t.type_vocab_size,
+                   "hidden_act": "gelu", "initializer_range": 0.02, "layer_norm_eps": 1e-12,
+                   "hidden_dropout_prob": 0.1, "attention_probs_dropout_prob": 0.1, "pad_token_id": 0}, f)
+    image = {k: x for k, x in vit_sd.items() if not k.startswith("vit.pooler.")}
+    image["classifier.weight"] = torch.randn(1000, d, generator=gen) * 0.02
+    image["classifier.bias"] = torch.zeros(1000)
+    path = snapshot(HF_IMAGE)
+    torch.save(image, os.path.join(path, "pytorch_model.bin"))
+    nbytes += os.path.getsize(os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"architectures": ["ViTForImageClassification"], "model_type": "vit", "hidden_size": d,
+                   "num_hidden_layers": v.num_hidden_layers, "num_attention_heads": v.num_attention_heads,
+                   "intermediate_size": v.intermediate_size, "image_size": v.image_size, "patch_size": v.patch_size,
+                   "num_channels": v.num_channels, "qkv_bias": True, "hidden_act": "gelu", "layer_norm_eps": 1e-12,
+                   "initializer_range": 0.02, "id2label": {str(i): f"LABEL_{i}" for i in range(1000)}}, f)
+    return bert_sd, vit_sd, names, nbytes
+
+
 def phase_weights_in(seed: int, card: str, root: str, ingest_run: dict) -> dict:
     """Weights from outside the port into the canonical model on the card:
     the reference's (FairSeq) state dict with one legacy fused qkv, HF
     BERT-base and ViT-base state dicts, and a JAX Orbax step in the layout
     ``tools/orbax_to_npz.py`` writes, restored with ``--restore-file``."""
+    import contextlib
+    import io
+
     import numpy as np
     import torch
 
@@ -4080,18 +4227,60 @@ def phase_weights_in(seed: int, card: str, root: str, ingest_run: dict) -> dict:
     del ref, imported
     mark("reference")
 
-    # the HF route: BERT-base and ViT-base at their published shapes
-    bert_sd, vit_sd, names = hf_published_state_dicts(cfg, seed + 6)
+    # the HF route: BERT-base and ViT-base at their published shapes, in
+    # memory and as files in an HF cache read back by --hf-init's reader
+    cache = os.path.join(root, "hf_cache")
+    bert_sd, vit_sd, names, nbytes = write_hf_cache(cache, cfg, seed + 6)
+    mark("hf_write")
+    saved_env = os.environ.get("HF_HUB_CACHE")
+    os.environ["HF_HUB_CACHE"] = cache
+    try:
+        t = time.perf_counter()
+        file_bert, file_vit = hfi.state_dicts_from_pretrained(HF_TEXT, HF_IMAGE, seed=seed)
+        read_s = time.perf_counter() - t
+        # a name that is in no cache: the launcher exits non-zero, naming it
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            missing_rc, _ = _main_quiet(["--synthetic", "--hf-init", "--text-encoder", "no-such-org/no-bert",
+                                         "--no-save", "--max-updates", "1"])
+        missing_out = err.getvalue()
+    finally:
+        if saved_env is None:
+            os.environ.pop("HF_HUB_CACHE", None)
+        else:
+            os.environ["HF_HUB_CACHE"] = saved_env
+    if missing_rc == 0 or "models--no-such-org--no-bert" not in missing_out:
+        raise AssertionError(f"weights_in: --hf-init of a missing name returned {missing_rc}:\n{missing_out[-1500:]}")
+    classifier = {k: torch.from_numpy(file_bert[k]) for k in ("classifier.weight", "classifier.bias")}
+    if (classifier["classifier.weight"].shape != (2, cfg.text_tower.hidden_size)
+            or classifier["classifier.bias"].any()):
+        raise AssertionError("weights_in: the drawn classifier's shape or bias")
+    unequal = [k for k, x in [*bert_sd.items(), *vit_sd.items()] if not k.startswith(("classifier.", "vit.pooler."))
+               and not torch.equal(torch.from_numpy((file_bert if k in file_bert else file_vit)[k]), x)]
+    extra = sorted(set(file_bert) - set(bert_sd)) + sorted(set(file_vit) - set(vit_sd))
+    if unequal or extra or any(k.startswith("vit.pooler.") for k in file_vit):
+        raise AssertionError(f"weights_in: the files read back differ at {unequal[:4]}, extra {extra[:4]}")
+    bert_sd.update(classifier)  # the in-memory route takes the classifier the reader drew
     imported = hfi.import_towers(src, cfg, bert_sd, vit_sd)
     bad = [(w, k) for (w, k), port in names.items() if not torch.equal(imported[port], (bert_sd, vit_sd)[w][k])]
     mapped = set(names.values())
     kept = [k for k in src if k not in mapped and not torch.equal(imported[k], src[k])]
     if bad or kept:
         raise AssertionError(f"weights_in: HF tensors not carried {bad[:4]}, others changed {kept[:4]}")
+    from_files = hfi.import_towers(src, cfg, file_bert, file_vit)
+    state_differs = [k for k in imported if not torch.equal(imported[k], from_files[k])]
     hf_probs = score(imported)
+    file_probs = score(from_files)
+    if state_differs or not all(np.array_equal(a, b) for a, b in zip(hf_probs, file_probs)):
+        raise AssertionError(f"weights_in: the files' import differs from the in-memory one at {state_differs[:4]} "
+                             "or in its scores")
     hf = {"bert_tensors": len(bert_sd), "vit_tensors": len(vit_sd), "mapped": len(names), "transposed": 0,
-          "probabilities_finite": True, "differ_from_source": not all(np.array_equal(a, b) for a, b in zip(hf_probs, want))}
-    del bert_sd, vit_sd, imported
+          "probabilities_finite": True, "differ_from_source": not all(np.array_equal(a, b) for a, b in zip(hf_probs, want)),
+          "files": {"bytes": nbytes, "read_seconds": read_s, "read_gb_per_s": nbytes / read_s / 1e9,
+                    "state_bit_equal": True, "scores_bit_equal": True, "missing_name_rc": missing_rc}}
+    print(json.dumps({"weights_in_hf_files": hf["files"], "card": card}), flush=True)
+    del bert_sd, vit_sd, file_bert, file_vit, imported, from_files
+    shutil.rmtree(cache, ignore_errors=True)
     mark("hf")
 
     # the Orbax route: the ingest run's own checkpoint (update 4) restored
@@ -4612,7 +4801,10 @@ def parallel_h6_kernels(seed: int) -> dict:
                                       10),
                "plain_fwd_bwd": time_cuda(lambda: tower(ma.masked_attention_dropout_reference, q, k, v), 5),
                "library_fwd": time_cuda(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4,
-                                                                              dropout_p=MASKED_RATE), 20)},
+                                                                              dropout_p=MASKED_RATE), 20),
+               "library_fwd_bwd": time_cuda(lambda: tower(lambda q_, k_, v_, m_, seed, rate, scale: (
+                   F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask4, dropout_p=rate, scale=scale)),
+                   q, k, v), 20)},
         "bound": work_bounds(b, H6, s, dh, "bfloat16", b * s * 4, stat_planes=2),
     }
     return out
@@ -4889,6 +5081,7 @@ def sp_ring_op(rank: int, world: int, init_method: str, backend: str, seed: int)
     timed on rank 0 while the others wait."""
     import torch
     import torch.distributed as dist
+    import torch.nn.functional as F
 
     from multimodaldiscussiontransformer_tpu_torch.ops import ring_attention as ra
     from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
@@ -4956,6 +5149,16 @@ def sp_ring_op(rank: int, world: int, init_method: str, backend: str, seed: int)
 
             out["ms"]["one_process_fwd"] = time_cuda(lambda: ta.tree_attention(q, k, v, template, ids, lut), 10)
             out["ms"]["one_process_fwd_bwd"] = time_cuda(one_fwd_bwd, 5)
+            # SDPA on one card at the whole S, on the contiguous bias (the
+            # library column of the ring's kernel-table row)
+            dense = ta.assemble_bias(template, ids, lut, True).to(torch.bfloat16).contiguous()
+
+            def library_fwd_bwd():
+                F.scaled_dot_product_attention(*one, attn_mask=dense).backward(cot)
+
+            out["ms"]["library_fwd"] = time_cuda(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=dense), 10)
+            out["ms"]["library_fwd_bwd"] = time_cuda(library_fwd_bwd, 5)
+            del dense
         dist.barrier()
         shared = template.numel() * 4 + ids.numel() * 4 + lut.numel() * 4
         tile = work_bounds(b, h, c, dh, "bfloat16", shared // (world * world))
@@ -5466,12 +5669,16 @@ def phase_workflows(seed: int, card: str = "") -> dict:
        the margin;
     3. readiness: ``readiness.main --full-model --smoke-updates 2`` on
        stand-in assets the port's generator writes (224 px images), with
-       ``transformers`` unimportable: rc 0 and "optional, absent";
+       ``transformers`` unimportable, its HF checks given the published
+       names in an HF cache that ``write_hf_cache`` fills (``$HF_HUB_CACHE``
+       for the rest of the phase): rc 0 and both HF checks ok;
     4. the scripts: ``sample_run.sh`` through bash at ``ModelConfig()``
        width on a mini corpus of WF_SCRIPT_TREES trees ingested at the
        canonical geometry (100 tokens, 224 px): 2 contrastive updates
-       (``--task contrastive_learning --update-freq 1`` on the ingest's
-       contrastive directory), then ``RESTORE_FILE=<stage 1>`` 2 node
+       (``HF_INIT=1``: ``--hf-init``, the towers from the cache;
+       ``--task contrastive_learning --update-freq 1`` on the ingest's
+       contrastive directory; the tree launches of rows 7 and 8 as the
+       config says), then ``RESTORE_FILE=<stage 1>`` 2 node
        updates at batch 12 x 3 (``--restore-file --reset-optimizer``);
        each stage's launcher argv, as the script builds it (a ``python``
        first on ``PATH`` records it), runs in this process; ms per update
@@ -5498,6 +5705,8 @@ def phase_workflows(seed: int, card: str = "") -> dict:
         readiness,
         two_stage,
     )
+    from multimodaldiscussiontransformer_tpu_torch.core.config import ModelConfig
+    from multimodaldiscussiontransformer_tpu_torch.train.launch import build_parser, config_from_args
 
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="mdt_workflows_")
@@ -5562,7 +5771,15 @@ def phase_workflows(seed: int, card: str = "") -> dict:
                           "card": card}), flush=True)
         lap("context_ablation")
 
-        # 3. the readiness gate on stand-in assets, transformers absent
+        # 3. the readiness gate on stand-in assets, transformers absent; its
+        # HF checks on an HF cache holding the published checkpoints' files
+        # at their shapes (random weights), the cache sample_run.sh's
+        # contrastive stage starts its towers from
+        t_cache = time.perf_counter()
+        cache = os.path.join(root, "hf_cache")
+        cache_bytes = write_hf_cache(cache, ModelConfig(), seed + 7)[3]
+        result["hf_cache"] = {"bytes": cache_bytes, "write_seconds": time.perf_counter() - t_cache}
+        os.environ["HF_HUB_CACHE"] = cache
         assets = os.path.join(root, "assets")
         paths = two_stage.generate_mini_corpus(assets, n_trees=10, seed=seed, image_px=224, image_prob=0.3,
                                                image_format=image_format)
@@ -5574,7 +5791,8 @@ def phase_workflows(seed: int, card: str = "") -> dict:
         try:
             with _WorkflowUpdates() as rec:
                 rc, out = quiet(readiness.main, ["--assets", assets, "--out", os.path.join(root, "smoke"),
-                                                 "--full-model", "--smoke-updates", "2"])
+                                                 "--full-model", "--smoke-updates", "2", "--text-ckpt", HF_TEXT,
+                                                 "--image-ckpt", HF_IMAGE])
         finally:
             if saved is False:
                 sys.modules.pop("transformers", None)
@@ -5583,7 +5801,7 @@ def phase_workflows(seed: int, card: str = "") -> dict:
         launches["readiness"] = dict(zip(KERNEL_NAMES, _counts()))
         verdict = json.loads(out.strip().splitlines()[-1])
         hf = [verdict["checks"][k]["detail"] for k in ("hf_text", "hf_image")]
-        if rc != 0 or not verdict["ok"] or not all(d.startswith("optional, absent") for d in hf):
+        if rc != 0 or not verdict["ok"] or not all(verdict["checks"][k]["ok"] for k in ("hf_text", "hf_image")):
             raise AssertionError(f"readiness: rc {rc}, verdict {verdict}")
         result["readiness"] = {"rc": rc, "checks": {k: v["ok"] for k, v in verdict["checks"].items()},
                                "hf_text": hf[0], "smoke": verdict["checks"]["smoke"]["detail"],
@@ -5623,8 +5841,9 @@ def phase_workflows(seed: int, card: str = "") -> dict:
                               "hateful_discussions", "sample_run.sh")
         runs = {}
         for name, extra_env, args in (
-                ("contrastive", {}, ["--task", "contrastive_learning", "--criterion", "contrastive_loss",
-                                     "--update-freq", "1", "--data-root", os.path.join(corpus, "contrastive")]),
+                ("contrastive", {"HF_INIT": "1"},
+                 ["--task", "contrastive_learning", "--criterion", "contrastive_loss",
+                  "--update-freq", "1", "--data-root", os.path.join(corpus, "contrastive")]),
                 ("node", {"RESTORE_FILE": os.path.join(root, "stage_contrastive")},
                  ["--data-root", os.path.join(corpus, "data"), "--no-save"])):
             save = os.path.join(root, f"stage_{name}")
@@ -5642,15 +5861,32 @@ def phase_workflows(seed: int, card: str = "") -> dict:
                 argv = json.load(f)
             if argv[:2] != ["-m", "multimodaldiscussiontransformer_tpu_torch.train.launch"]:
                 raise AssertionError(f"sample_run.sh ({name}) ran python {argv[:2]}")
+            if ("--hf-init" in argv) != (name == "contrastive"):
+                raise AssertionError(f"sample_run.sh ({name}): HF_INIT={extra_env.get('HF_INIT')} gave {argv}")
             rc, stdout, _, counts, _ = _launch_in_process(argv[2:])
             seconds = time.perf_counter() - t
             if rc != 0 or not all(counts[k] for k in (
                     "tree_attention_fwd_fused", "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused")):
                 raise AssertionError(f"sample_run.sh ({name}): rc {rc}, launches {counts}\n{stdout[-2000:]}")
+            losses = [r["loss"] for _, r in sorted(_train_records(save).items())]
+            if name == "contrastive":
+                # the towers from the cache; rows 7 and 8 launched as the
+                # config says for 2 updates of one microbatch (every graph
+                # layer's backward under the contrastive loss), plus whole
+                # scoring forwards in the test evaluation
+                mc = config_from_args(build_parser().parse_args(argv[2:])).model
+                per_update = dict(zip(KERNEL_NAMES, expected_launches(mc, fused=False, k=1, images=True,
+                                                                      text_len=TEXT_LEN, contrastive=True)))
+                eval_fwd = counts["tree_attention_fwd_fused"] - 2 * per_update["tree_attention_fwd_fused"]
+                if ("initialized towers from HF checkpoints" not in stdout or not np.isfinite(losses).all()
+                        or len(losses) != 2 or eval_fwd <= 0 or eval_fwd % LAUNCHES_PER_FORWARD
+                        or any(counts[k] != 2 * per_update[k] for k in
+                               ("tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused"))):
+                    raise AssertionError(f"sample_run.sh --hf-init: losses {losses}, launches {counts} (per update "
+                                         f"{per_update})\n{stdout[-2000:]}")
             launches[f"sample_run_{name}"] = counts
-            runs[name] = {"seconds": seconds, "ms_per_update": _ms_per_update(save),
-                          "losses": [r["loss"] for _, r in sorted(_train_records(save).items())],
-                          "test": _test_metrics(stdout), "launches": counts}
+            runs[name] = {"seconds": seconds, "ms_per_update": _ms_per_update(save), "losses": losses,
+                          "test": _test_metrics(stdout), "launches": counts, "hf_init": "--hf-init" in argv}
         if "restored from" not in stdout:
             raise AssertionError(f"sample_run.sh (node): no restore in\n{stdout[-2000:]}")
         result["sample_run"] = {"ingest": {"trees": WF_SCRIPT_TREES, "copies": copies, "seconds": ingest_s},
@@ -5683,6 +5919,7 @@ def phase_workflows(seed: int, card: str = "") -> dict:
             "card_vs_cpu": _comment_only_card_vs_cpu(tok, seed)}
         lap("comment_only")
     finally:
+        os.environ.pop("HF_HUB_CACHE", None)
         shutil.rmtree(root, ignore_errors=True)
     result["launches"] = {k: sum(c[k] for c in launches.values()) for k in KERNEL_NAMES}
     result["launches_by_run"] = {run: {k: v for k, v in c.items() if v} for run, c in launches.items()}
@@ -6191,6 +6428,20 @@ def main(argv=None) -> int:
                  "plain version in float32; library_ms is SDPA in float32 with the combined bias as a float mask; "
                  "max_abs_err is the worst float32 forward error over every shape and bias kind"},
     ]
+    # the CUDA-core routes at the bf16 shapes they serve now, beside SDPA in
+    # bf16 and the bf16 bound: the tree's at DH 16, the tower's at S = 300
+    tree16, long16 = dh16_row["bfloat16_cuda_core"], long_row["bfloat16_cuda_core"]
+    at_route = {
+        "tree_attention_fwd": {**DH16_SHAPE, **tree16, "ms_key": "fwd"},
+        "tree_attention_bwd_dq": {**DH16_SHAPE, **tree16, "ms_key": "dq"},
+        "tree_attention_bwd_dkv": {**DH16_SHAPE, **tree16, "ms_key": "dkv"},
+        "masked_attention_fwd": {"S": long_row["S"], "B": long_row["B"], **long16, "ms_key": "fwd"},
+        "masked_attention_bwd_dq": {"S": long_row["S"], "B": long_row["B"], **long16, "ms_key": "pair"},
+        "masked_attention_bwd_dkv": {"S": long_row["S"], "B": long_row["B"], **long16, "ms_key": "pair"},
+    }
+    for k in kernels:
+        if k["name"] in at_route:
+            k["bfloat16_at_its_route"] = at_route[k["name"]]
     # every kernel launched on a path of this run (the checks that call a
     # kernel directly aside)
     idle = [k["name"] for k in kernels if not k["launches"]]

@@ -7,8 +7,11 @@ Experiments/trainval.py:5-41 and run.sh:1-3):
 
 Trains on the card unless ``--device cpu``. The tokenizer is the offline
 WordPiece over ``$MDT_BERT_VOCAB`` (``ingest.make_tokenizer``).
-``--hf-init`` (the pretrained BERT weights) exits 2 and names what is
-missing, as the launcher's ``--hf-init`` does.
+``--hf-init`` starts the classifier from the pretrained
+``bert-base-uncased`` (a name in the HF cache, ``$HF_HUB_CACHE`` or
+``$HF_HOME/hub``), read without ``transformers`` and never downloaded
+(``utils/hf_import.py``); a checkpoint that is not there exits 1 naming
+where it was looked for.
 """
 
 from __future__ import annotations
@@ -33,10 +36,14 @@ def main(argv=None) -> int:
     p.add_argument("--hf-init", action="store_true", default=False)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.hf_init:
-        from multimodaldiscussiontransformer_tpu_torch.train.launch import UNPORTED
+    hf_sd = None
+    if args.hf_init:  # before any work, as the launcher's --hf-init
+        from multimodaldiscussiontransformer_tpu_torch.utils.hf_import import state_dicts_from_pretrained
 
-        p.exit(2, f"error: --hf-init is not available yet: it needs {UNPORTED['--hf-init'][1]}\n")
+        try:
+            hf_sd, _ = state_dicts_from_pretrained()
+        except (OSError, ValueError) as e:
+            p.exit(1, f"error: --hf-init: {e}\n")
 
     from multimodaldiscussiontransformer_tpu_torch.experiments.comment_only import text_bert
     from multimodaldiscussiontransformer_tpu_torch.experiments.hateful_discussions.ingest import make_tokenizer
@@ -55,7 +62,7 @@ def main(argv=None) -> int:
     tokenizer = make_tokenizer("bert-base-uncased")
     train_data = text_bert.tokenize_frame(train_df, tokenizer, cfg.max_length)
     valid_data = text_bert.tokenize_frame(valid_df, tokenizer, cfg.max_length)
-    _, best, logits = text_bert.train(cfg, train_data, valid_data, device=args.device)
+    _, best, logits = text_bert.train(cfg, train_data, valid_data, hf_state_dict=hf_sd, device=args.device)
     text_bert.save_predictions(output_dir, logits, valid_data["label"])
     print("best valid:", json.dumps(best))
     return 0

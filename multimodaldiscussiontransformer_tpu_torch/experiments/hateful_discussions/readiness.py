@@ -24,8 +24,9 @@ Asset layout under ``--assets DIR`` (each overridable by a flag):
 
 Exit code 0 iff every REQUIRED check passes (vocab, trees, smoke). The HF
 checkpoints are optional: the smoke runs random-init towers. Their check
-needs ``transformers``; where it is not installed the check reports
-"optional, absent" and the gate goes on.
+resolves each as ``--hf-init`` does (a directory, or a name in the HF
+cache; ``--text-ckpt bert-base-uncased``), without ``transformers``: ok
+when a config and weights are found, else not ok, naming what is missing.
 """
 
 from __future__ import annotations
@@ -83,23 +84,17 @@ def check_trees(path: Optional[str]) -> Dict[str, object]:
 
 
 def check_hf_checkpoint(path_or_name: str, kind: str) -> Dict[str, object]:
-    """A loadable local HF checkpoint (no network). Optional: random-init
-    towers still smoke-test the pipeline. Without ``transformers`` the
-    verdict is "optional, absent"."""
+    """A loadable local HF checkpoint (no network): a directory, or a name
+    in the HF cache, with a ``config.json`` and weights, resolved as
+    ``--hf-init`` resolves it (``utils/hf_import.py``, no
+    ``transformers``). Optional: random-init towers still smoke-test the
+    pipeline; the real run wants --hf-init."""
+    from multimodaldiscussiontransformer_tpu_torch.utils.hf_import import check_pretrained
+
     try:
-        from transformers import AutoConfig
-    except ImportError as e:
-        return _check(False, f"optional, absent: the {kind} checkpoint check needs transformers ({e!r})")
-    try:
-        cfg = AutoConfig.from_pretrained(path_or_name, local_files_only=True)
-        has_weights = True
-        if os.path.isdir(path_or_name):
-            has_weights = any(glob.glob(os.path.join(path_or_name, pat)) for pat in ("*.safetensors", "*.bin"))
-        if not has_weights:
-            return _check(False, f"{path_or_name}: config only, no weights")
-        return _check(True, f"{path_or_name}: {cfg.model_type} config + weights")
-    except Exception as e:
-        return _check(False, f"{kind} checkpoint unavailable: {repr(e)[:200]}")
+        return _check(True, check_pretrained(path_or_name))
+    except (OSError, ValueError) as e:
+        return _check(False, f"{kind} checkpoint unavailable: {str(e)[:300]}")
 
 
 def check_images(root: Optional[str], trees_path: Optional[str]) -> Dict[str, object]:
@@ -205,9 +200,10 @@ def main(argv=None) -> int:
     p.add_argument("--vocab", default=None, help="override vocab.txt path")
     p.add_argument("--trees", default=None, help="override pruned-with-images*.json path")
     p.add_argument("--image-root", default=None)
-    p.add_argument("--text-ckpt", default=None, help="local HF text checkpoint dir (default ASSETS/bert-base-uncased)")
+    p.add_argument("--text-ckpt", default=None,
+                   help="local HF text checkpoint dir or cache name (default ASSETS/bert-base-uncased)")
     p.add_argument("--image-ckpt", default=None,
-                   help="local HF image checkpoint dir (default ASSETS/vit-base-patch16-224)")
+                   help="local HF image checkpoint dir or cache name (default ASSETS/vit-base-patch16-224)")
     p.add_argument("--smoke-trees", type=int, default=10)
     p.add_argument("--smoke-updates", type=int, default=3)
     p.add_argument("--full-model", action="store_true", default=False,

@@ -11,8 +11,10 @@
 # transfer, run_train.sh:57-63).
 #
 # One difference from the JAX package's copy: --hf-init (the pretrained
-# BERT/ViT towers) is passed only with HF_INIT=1. The port's launcher
-# refuses it with exit 2 until those weights are in the repository.
+# BERT/ViT towers) is passed only with HF_INIT=1, since the pretrained
+# weights are not in the repository. With HF_INIT=1 and HF_HOME (or
+# HF_HUB_CACHE) pointing at a cache that holds bert-base-uncased and
+# google/vit-base-patch16-224, the launcher gets the JAX copy's argv.
 set -euo pipefail
 
 FUSION=${1:-8}

@@ -53,8 +53,12 @@ card pass ``--distributed-backend gloo``. Rank 0 logs, writes the metrics,
 the checkpoints and the predictions; a SIGTERM to any rank stops every rank
 at the same update, after a save.
 
-Flags whose machinery belongs to a later slice of the port exit with code 2
-and a message naming that slice (``UNPORTED``).
+``--hf-init`` starts the towers from pretrained BERT and ViT checkpoints
+(``--text-encoder`` / ``--image-encoder``: a local directory, or a name in
+the HF cache, ``$HF_HUB_CACHE`` or ``$HF_HOME/hub``), read without
+``transformers`` and never downloaded; a checkpoint that is not there exits
+1 naming where it was looked for. ``--tiny`` ignores the flag, as the JAX
+launcher does; ``--restore-file`` and a resume override the towers.
 """
 
 from __future__ import annotations
@@ -65,16 +69,6 @@ import json
 import os
 import signal
 import sys
-
-# flag -> (is it set?, what brings it)
-UNPORTED = {
-    "--hf-init": (
-        lambda a: a.hf_init,
-        "the pretrained BERT/ViT weights, once they are in the repository (ROADMAP Queue 1 item 4); "
-        "the state-dict mapping they go through exists (utils/hf_import.py)",
-    ),
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -207,13 +201,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic-graphs", type=int, default=None)
     p.add_argument("--tiny", action="store_true", default=False)
     return p
-
-
-def reject_unported(args, parser: argparse.ArgumentParser) -> None:
-    """Exit 2 for a flag whose machinery the port does not have yet."""
-    for flag, (is_set, slice_) in UNPORTED.items():
-        if is_set(args):
-            parser.error(f"{flag} is not ported yet: it comes with {slice_}")
 
 
 def config_from_args(args):
@@ -363,7 +350,6 @@ def config_from_args(args):
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    reject_unported(args, parser)
     from multimodaldiscussiontransformer_tpu_torch.parallel import distributed
 
     # the process group (and the rank's card) before anything touches a card
@@ -392,6 +378,16 @@ def _run(args, device, is_main: bool) -> int:
         )
         return 2
     cfg = config_from_args(args)
+    hf_init = hf_init_requested(args)
+    if hf_init:  # before any work: a checkpoint that is not there is never replaced by random towers
+        from multimodaldiscussiontransformer_tpu_torch.utils.hf_import import check_pretrained
+
+        try:
+            for name in (cfg.model.text_encoder_name, cfg.model.image_encoder_name):
+                check_pretrained(name)
+        except (OSError, ValueError) as e:
+            print(f"error: --hf-init: {e}", file=sys.stderr)
+            return 1
 
     from multimodaldiscussiontransformer_tpu_torch.core import registry
     from multimodaldiscussiontransformer_tpu_torch.train.metrics import MetricsWriter
@@ -437,8 +433,18 @@ def _run(args, device, is_main: bool) -> int:
         return evaluate_checkpoint(args, cfg, trainer, dataset, say, is_main)
 
     ckpt = None if args.no_save else Checkpointer(cfg.save_dir, writer=is_main)
+
+    def fresh_state():
+        # JAX's order: the towers go into the fresh state, which a restore
+        # then overrides
+        if not hf_init:
+            return trainer.init_state()
+        state = hf_init_state(trainer, cfg)
+        say("initialized towers from HF checkpoints")
+        return state
+
     if cfg.restore_file:
-        state = trainer.init_state()
+        state = fresh_state()
         restored = restore_file(cfg.restore_file, state)
         if restored is not None:
             if cfg.task == "node_prediction" and cfg.reset_optimizer:  # a transfer: the head starts afresh
@@ -450,7 +456,7 @@ def _run(args, device, is_main: bool) -> int:
         state = restore_params_into_state(trainer, trainer.init_state(params=restored["params"]), restored, False)
         say(f"auto-resumed from step {ckpt.latest_step()}")
     else:
-        state = trainer.init_state()
+        state = fresh_state()
 
     writer = MetricsWriter(cfg.save_dir, wandb_project=args.wandb_project, config=dataclasses.asdict(cfg),
                            tensorboard_logdir=args.tensorboard_logdir) if is_main else None
@@ -487,6 +493,28 @@ def _run(args, device, is_main: bool) -> int:
     if writer is not None:
         writer.close()
     return 0
+
+
+def hf_init_requested(args) -> bool:
+    """``--hf-init`` applies, as in the JAX launcher, unless ``--tiny``
+    (whose towers no published checkpoint fits)."""
+    return args.hf_init and not args.tiny
+
+
+def hf_init_state(trainer, cfg):
+    """``--hf-init``: the trainer's fresh state with the towers, the fusion
+    layers, the text pooler and the classifier read from
+    ``cfg.model.text_encoder_name`` / ``image_encoder_name``
+    (``utils/hf_import.py``), written into the full params on the host
+    before the trainer lays them out over its mesh (FSDP2 shards them
+    there); every other tensor is the random init of a run without the
+    flag."""
+    from multimodaldiscussiontransformer_tpu_torch.utils import hf_import
+
+    bert_sd, vit_sd = hf_import.state_dicts_from_pretrained(
+        cfg.model.text_encoder_name, cfg.model.image_encoder_name,
+        attention_dropout=cfg.model.attention_dropout, hidden_dropout=cfg.model.act_dropout, seed=cfg.seed)
+    return trainer.init_state(edit=lambda sd: hf_import.import_towers(sd, cfg.model, bert_sd, vit_sd))
 
 
 def evaluate_checkpoint(args, cfg, trainer, dataset, say=print, is_main: bool = True) -> int:

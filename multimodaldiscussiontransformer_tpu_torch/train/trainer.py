@@ -236,12 +236,16 @@ class Trainer:
 
     # -- state ---------------------------------------------------------------
 
-    def init_state(self, seed: Optional[int] = None, params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
+    def init_state(self, seed: Optional[int] = None, params: Optional[Dict[str, torch.Tensor]] = None,
+                   edit: Optional[Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]] = None) -> TrainState:
         """A fresh model (random init from a CPU generator seeded with
         ``seed``, default ``cfg.seed``; or the model given to the trainer),
         freeze, AdamW, and the dropout generators. With ``params`` (a full
         state_dict) a new model is built on the meta device and takes them:
-        no random init, and the host generator is not advanced by one."""
+        no random init, and the host generator is not advanced by one. With
+        ``edit``, the fresh model takes ``edit(its full state_dict)`` on the
+        host, before it moves to the device and is laid out over the mesh
+        (``--hf-init``'s pretrained towers)."""
         seed = self.cfg.seed if seed is None else seed
         host = torch.Generator().manual_seed(seed)
         if params is not None:
@@ -250,6 +254,9 @@ class Trainer:
             model.load_state_dict(unrolled_state_dict(params, self.cfg.model), strict=True, assign=True)
         else:
             model = self.model if self.model is not None else MDTModel(self.cfg.model, generator=host)
+            if edit is not None:
+                with torch.no_grad():
+                    model.load_state_dict(edit(model.state_dict()), strict=True)
         model = model.to(self.device)
         trainable = apply_freeze(model, self.cfg.model.freeze_initial_encoders)
         layout = None

@@ -13,8 +13,8 @@ layers):
   of a query's row, so their exact gradient is 0 and both packages move
   them by AdamW steps on rounding noise; they are held to the bound of two
   such walks, 2.05 x the summed lr;
-- ``trainval.main`` on parquet splits in a temporary directory, and
-  ``--hf-init`` exiting 2."""
+- ``trainval.main`` on parquet splits in a temporary directory (its
+  ``--hf-init``: ``tests/test_torch_hf_init.py``)."""
 
 import os
 
@@ -150,13 +150,6 @@ def test_trainval_main_on_parquet_splits(tmp_path, monkeypatch):
     frame = pd.read_parquet(out / "predictions.parquet")
     assert len(frame) == 6 and list(frame.columns) == ["y_pred", "y_true"]
     assert np.isfinite(np.stack(frame["y_pred"].to_numpy())).all()
-
-
-def test_trainval_hf_init_exits_2(capsys):
-    with pytest.raises(SystemExit) as e:
-        trainval.main(["--hf-init", "--device", "cpu"])
-    assert e.value.code == 2
-    assert "pretrained BERT/ViT weights" in capsys.readouterr().err
 
 
 def test_parquet_helpers_name_pandas_where_it_is_missing(monkeypatch):

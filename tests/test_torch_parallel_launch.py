@@ -1,5 +1,5 @@
-"""The launcher across ranks: what stays unported (``--hf-init``; ``--sp-size``
-on too few ranks is refused by the mesh), the rank layout from the
+"""The launcher across ranks: ``--sp-size`` on too few ranks is refused by
+the mesh, the rank layout from the
 FairSeq flags and from ``torchrun``'s environment, the backend a device
 picks, and the parallel flags' TrainConfig against the JAX launcher."""
 
@@ -12,29 +12,14 @@ from multimodaldiscussiontransformer_tpu_torch.parallel import distributed
 from multimodaldiscussiontransformer_tpu_torch.train import launch
 
 
-def test_unported_names_only_hf_init_and_sequence_parallelism():
-    """Sequence parallelism is ported: ``--hf-init`` is what stays."""
-    assert sorted(launch.UNPORTED) == ["--hf-init"]
-    assert "item 4" in launch.UNPORTED["--hf-init"][1]
-
-
 @pytest.mark.parametrize("flags, names", [(["--sp-size", "2"], "1 devices not divisible by tp=1 x sp=2"),
-                                          (["--sp-size", "2", "--dp-size", "2"], "needs 4 devices, have 1"),
-                                          (["--hf-init"], "item 4")])
-def test_unported_flags_exit_2_naming_what_brings_them(flags, names, capsys):
-    """``--hf-init`` exits 2 naming the ROADMAP item; ``--sp-size 2`` runs,
-    and on one process the mesh refuses it for too few ranks (ValueError,
-    as JAX's ``make_mesh``)."""
+                                          (["--sp-size", "2", "--dp-size", "2"], "needs 4 devices, have 1")])
+def test_unported_flags_exit_2_naming_what_brings_them(flags, names):
+    """``--sp-size 2`` runs, and on one process the mesh refuses it for too
+    few ranks (ValueError, as JAX's ``make_mesh``)."""
     argv = ["--synthetic", "--tiny", "--device", "cpu", "--no-save"] + flags
-    if "--hf-init" not in flags:
-        with pytest.raises(ValueError, match=names):
-            launch.main(argv)
-        return
-    with pytest.raises(SystemExit) as e:
+    with pytest.raises(ValueError, match=names):
         launch.main(argv)
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and names in err
 
 
 @pytest.mark.parametrize("rank", [0, 3])

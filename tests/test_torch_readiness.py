@@ -5,8 +5,9 @@ covering vocab):
 
 - it passes (rc 0, the verdict last on stdout) with a 2-update smoke;
 - it fails loudly with no assets, and rejects malformed trees;
-- with ``transformers`` made unimportable, the HF checks report "optional,
-  absent" and the gate still passes."""
+- with ``transformers`` made unimportable, the HF checks resolve the
+  checkpoints as ``--hf-init`` does and report each missing one (not ok,
+  naming it), and the gate still passes."""
 
 import json
 import os
@@ -45,8 +46,9 @@ def test_gate_passes_on_stand_in_assets(tmp_path, capsys, monkeypatch, no_transf
     c = v["checks"]
     assert c["vocab"]["ok"] and c["trees"]["ok"] and c["images"]["ok"] and c["smoke"]["ok"]
     assert "2 updates" in c["smoke"]["detail"]
-    for kind in ("hf_text", "hf_image"):
-        assert not c[kind]["ok"] and c[kind]["detail"].startswith("optional, absent"), c[kind]
+    for kind, name in (("hf_text", "bert-base-uncased"), ("hf_image", "vit-base-patch16-224")):
+        assert not c[kind]["ok"] and c[kind]["detail"].startswith(f"{kind[3:]} checkpoint unavailable"), c[kind]
+        assert name in c[kind]["detail"], c[kind]
 
 
 def test_gate_fails_loudly_without_assets(tmp_path, capsys):
@@ -71,6 +73,9 @@ def test_gate_rejects_malformed_trees(tmp_path, capsys):
 
 
 def test_hf_check_without_transformers_is_optional_absent(tmp_path, no_transformers):
+    """Without ``transformers`` the check still runs (the port reads the
+    files itself): a directory with no config is not ok, naming what is
+    missing."""
     got = readiness.check_hf_checkpoint(str(tmp_path), "text")
-    assert got == {"ok": False, "detail": got["detail"]} and got["detail"].startswith("optional, absent")
-    assert "transformers" in got["detail"]
+    assert got == {"ok": False, "detail": got["detail"]} and got["detail"].startswith("text checkpoint unavailable")
+    assert "no config.json" in got["detail"] and str(tmp_path) in got["detail"]
