@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --only kernels   # the build and phases 2-5 alone
+    python3 chip_smoke.py --only long_text # the build and long_text_fused alone
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -10,9 +11,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    one nvcc per source, all fifteen in parallel: the tree-attention
    forwards (CUDA-core K1, tensor-core bf16 and 3xTF32 float32) and
    backward pairs (CUDA-core K2/K3, tensor-core bf16 and 3xTF32 float32),
-   the masked (tower) attention's three forwards (CUDA-core, tensor-core
-   bf16 and 3xTF32 float32), its CUDA-core and 3xTF32 float32 backward
-   pairs and its one-pass tensor-core backward, the dense-bias attention's
+   the masked (tower) attention's three forwards (one-pass tensor-core
+   bf16, tiled tensor-core bf16 and 3xTF32 float32), its tiled bf16 and
+   3xTF32 float32 backward pairs and its one-pass tensor-core backward,
+   the dense-bias attention's
    three forwards (CUDA-core, tensor-core bf16 and 3xTF32 float32)),
    report each library's registers
    and any ptxas spill, and print the card's name and power limit as
@@ -58,26 +60,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
    capacity-padding rows (every key masked) in the key bias, rate 0.3 and
    0, float32 (the "tf32" route: the 3xTF32 forward and backward pair)
    and bfloat16 (the "tensor_core" route: the tensor-core forward and the
-   one-pass backward; at S=300 the "cuda_core" route), each call's
-   launches held to its route, plus the CUDA-core kernels' bf16 errors at
-   the tower shapes and float32 errors at every shape (called directly),
-   the 3xTF32 forward's statistics against the plain ones and the
-   CUDA-core forward's float32 output against the plain version at every
-   shape; the masks read back (q = k = 0, v = I) against the plain
-   Philox: the 3xTF32 forward's in float32 (S=104, 201, 300), the
-   tensor-core forward's in bf16 at dh=64, the one-pass backward's
-   (through dv) and both kernels of the 3xTF32 pair's in float32 (through
-   dv and dq, S=104 and 201); the adjoint
-   identity; times of each kernel (the tensor-core forward beside the
-   CUDA-core one, the one-pass backward beside the pair), the plain
-   version, the towers' unfused path (matmul + f32 softmax + FastDropout +
-   matmul) and SDPA with the key-padding mask (forward at dropout 0.3;
-   forward + backward at rate 0 and 0.3), at a ragged S only the
-   tensor-core forward and one-pass backward; at the tower shapes the
-   3xTF32 forward and pair, the CUDA-core forward and pair and the plain
-   forward and backward again on float32 inputs beside SDPA in float32
-   (forward at rate 0.3, forward + backward at rate 0 and 0.3), the
-   float32 bounds and the 3xTF32 ones.
+   one-pass backward; at S=300 the "tensor_core_tiled" route), each
+   call's launches held to its route, plus the tiled kernels' bf16 errors
+   at the tower shapes (called directly), the 3xTF32 forward's statistics
+   against the plain ones at every shape; the masks read back (q = k = 0,
+   v = I) against the plain Philox: the 3xTF32 forward's in float32
+   (S=104, 201, 300), the tensor-core forward's in bf16 at dh=64, the
+   one-pass backward's (through dv) and both kernels of the 3xTF32 pair's
+   in float32 (through dv and dq, S=104 and 201), the tiled forward's and
+   both tiled pair kernels' in bf16 at S=300; the adjoint identity; times
+   of each kernel (the one-pass forward and backward beside the tiled
+   forward and pair on the same inputs), the plain version, the towers'
+   unfused path (matmul + f32 softmax + FastDropout + matmul) and SDPA
+   with the key-padding mask (forward at dropout 0.3; forward + backward
+   at rate 0 and 0.3), at a ragged S only the tensor-core forward and
+   one-pass backward; at the tower shapes the 3xTF32 forward and pair and
+   the plain forward and backward again on float32 inputs beside SDPA in
+   float32 (forward at rate 0.3, forward + backward at rate 0 and 0.3),
+   the float32 bounds and the 3xTF32 ones. Then masked_vs_plain_tiled:
+   the tiled route's shapes in bf16 (DH 64: S=300 B=8, a text tower at 512
+   positions B=64 with capacity rows, its fusion layers at 516, S=1024
+   B=8; DH 16, 32, 128 at S=104 and 300, B=8) through ``masked_attention``
+   at both rates against the plain version within 1e-2 of max |ref|, each
+   call's launches held to the route; the adjoint identity in bf16 at
+   S=300; times of the tiled forward, dq and dk/dv kernels beside their
+   bounds and SDPA, and beside the plain version at S=300.
 5. biased_vs_plain: the dense-bias attention's routed forward kernel and
    the Function's gradients (dq, dk, dv, dbias) against the plain version
    at H=12, dh=64: S=33 (B=16, 12), 129 (B=12), 257 (B=4), 601 and 1025
@@ -108,9 +115,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    discussions through ``DiscussionScorer``: finite probabilities summing
    to 1, equal to the unfused scorer's (bfloat16 tolerance), exact
    masked-attention launches per forward (every tower layer through the
-   tensor-core forward, the CUDA-core forward at 0), no backward launch;
+   tensor-core forward, the tiled forward at 0), no backward launch;
    in float32 on one small discussion equal to the unfused CPU scores
-   within 1e-4.
+   within 1e-4. Then long_text_fused: the same config with text of 512
+   tokens (``DataConfig(max_text_len=512)``): a few discussions scored
+   through ``DiscussionScorer`` against the unfused scorer on the same
+   weights (bfloat16 tolerance), and one ``Trainer.train_step`` (batch 2
+   x 1, every dropout 0) fused and unfused from the same weights, the
+   losses within 1e-2 relative; every text layer through the tiled
+   forward (and the trained ones through the tiled pair), each run's
+   launches exact.
 8. latency: per-request-batch scoring latency at batch 1, 4 and 16, and
    the device time of a batch-4 forward (``torch.profiler``) against its
    wall time, beside the host's time to collate that batch and copy it to
@@ -137,8 +151,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    only the global embedding;
    masked attention: every tower layer forward through the tensor-core
    forward and the 9 trainable fusion layers of each tower backward
-   through the one-pass kernel in bf16 (the CUDA-core forward and the pair
-   at 0), the ViT only where the microbatch has image slots), frozen
+   through the one-pass kernel in bf16 (the tiled forward and pair at 0),
+   the ViT only where the microbatch has image slots), frozen
    towers unchanged and every tensor with a nonzero
    gradient changed; prints ms per update, discussions/s, MFU against 989
    TFLOP/s, each update's peak memory (statistics reset before every
@@ -167,8 +181,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 13. checkpoint: the train phase's discussions written by the port's ingest
     writers as a ``hateful_discussions`` directory (192 train, 48 test; a
     few graphs as stubs naming a shared tree file). The canonical flags
-    (bf16, frozen towers, batch 12 x update_freq 3) run 4 updates through
-    ``train.launch.main`` in this process with saves at 2 and 4; beside
+    (bf16, frozen towers, batch 12 x update_freq 3) run 3 updates through
+    ``train.launch.main`` in this process with saves at 2 and 3; beside
     it, the same command runs twice more, together, each in a process of
     its own that gets SIGTERM once its log shows update 1: one saving after every
     update (the signal lands while the asynchronous save of step 1 is
@@ -176,13 +190,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
     at update 1 or 2), one with no interval save (it must stop at update 2,
     and the stop branch's own save must be its only step). Each must exit 0
     with "preempted: checkpoint saved at step <it>", and its relaunch (in
-    this process) must auto-resume and run to 4.
-    At step 4 each resumed run's generator states are byte-equal to the
+    this process) must auto-resume and run to 3.
+    At step 3 each resumed run's generator states are byte-equal to the
     uninterrupted run's, its losses after the stop within 1e-2 relative
-    and every parameter within 1e-2 of the largest change the 4 updates
+    and every parameter within 1e-2 of the largest change the 3 updates
     made; every update launches only the
     tensor-core tree kernels, as many as the config gives. The
-    uninterrupted run's step 4, restored into a new state, saves and loads
+    uninterrupted run's step 3, restored into a new state, saves and loads
     back byte-exact (bytes on disk against f32 params + two AdamW moments
     of the trainable elements); ``--eval-only --load-best`` and
     ``--eval-only --average-last 2 --predict-output`` run, with one row
@@ -225,9 +239,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 16. input_ab: contrastive pre-training (a ``hateful_discussions``
     directory of contrastive discussions: lazy npz items) through
     ``Trainer.fit`` for 2 updates
-    from one position on each input path, twice in mirrored order: the
-    prefetch thread (the default) and the prefetcher's staging without its
-    thread: ms per update, ms per cycle (update end to update end) and the
+    from one position on each input path, once each: the prefetch thread
+    (the default) and the prefetcher's staging without its thread: ms per update, ms per cycle (update end to update end) and the
     training thread's ms on each update's input.
 17. runtime_workers: the canonical run with ``--num-workers 4`` (collation
     in 4 spawned processes), 4 updates: ms per update, the groups' ``idx``
@@ -365,10 +378,10 @@ BWD_SOURCE = f"{PKG}/csrc/tree_attention_bwd.cu"
 BWD_MMA_SOURCE = f"{PKG}/csrc/tree_attention_bwd_mma.cu"
 BWD_TF32_SOURCE = f"{PKG}/csrc/tree_attention_bwd_tf32.cu"
 KERNEL_TF32_SOURCE = f"{PKG}/csrc/tree_attention_fwd_tf32.cu"
-MASKED_FWD_SOURCE = f"{PKG}/csrc/masked_attention_fwd.cu"
+MASKED_FWD_TILED_SOURCE = f"{PKG}/csrc/masked_attention_fwd_tiled.cu"
 MASKED_FWD_MMA_SOURCE = f"{PKG}/csrc/masked_attention_fwd_mma.cu"
 MASKED_FWD_TF32_SOURCE = f"{PKG}/csrc/masked_attention_fwd_tf32.cu"
-MASKED_BWD_SOURCE = f"{PKG}/csrc/masked_attention_bwd.cu"
+MASKED_BWD_TILED_SOURCE = f"{PKG}/csrc/masked_attention_bwd_tiled.cu"
 MASKED_BWD_MMA_SOURCE = f"{PKG}/csrc/masked_attention_bwd_mma.cu"
 MASKED_BWD_TF32_SOURCE = f"{PKG}/csrc/masked_attention_bwd_tf32.cu"
 BIASED_FWD_SOURCE = f"{PKG}/csrc/biased_attention_fwd.cu"
@@ -474,6 +487,9 @@ def ptxas_report(libs):
 def phase_build():
     from multimodaldiscussiontransformer_tpu_torch.ops import cuda_lib
 
+    names = tuple(fn.__name__ for fn in _all_kernels())
+    if names != KERNEL_NAMES:
+        raise AssertionError(f"KERNEL_NAMES is not the order of the ops modules' KERNELS: {names}")
     t0 = time.perf_counter()
     libs = cuda_lib.build()  # one nvcc per source, in parallel
     seconds = time.perf_counter() - t0
@@ -500,10 +516,13 @@ KERNEL_NAMES = (
     "tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv", "tree_attention_fwd_fused",
     "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused", "tree_attention_bwd_dq_tf32",
     "tree_attention_bwd_dkv_tf32", "tree_attention_fwd_tf32",
-    "masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv", "masked_attention_bwd_fused",
-    "masked_attention_fwd_fused", "masked_attention_fwd_tf32", "masked_attention_bwd_dq_tf32",
-    "masked_attention_bwd_dkv_tf32", "biased_attention_fwd", "biased_attention_fwd_fused", "biased_attention_fwd_tf32",
+    "masked_attention_bwd_fused", "masked_attention_fwd_fused", "masked_attention_fwd_tf32",
+    "masked_attention_bwd_dq_tf32", "masked_attention_bwd_dkv_tf32", "masked_attention_fwd_tiled",
+    "masked_attention_bwd_dq_tiled", "masked_attention_bwd_dkv_tiled",
+    "biased_attention_fwd", "biased_attention_fwd_fused", "biased_attention_fwd_tf32",
 )
+# the tiled tower kernels: bf16 at other DH and S > 256 only
+MASKED_TILED = ("masked_attention_fwd_tiled", "masked_attention_bwd_dq_tiled", "masked_attention_bwd_dkv_tiled")
 
 
 # the tree kernels of the bf16 route (DH 64), and those no bf16 path at DH
@@ -666,7 +685,7 @@ def make_discussion(rng, n: int, image_prob: float, seq_len: int = TEXT_LEN, voc
 
 def tower_forward_routes(mc, text_len: int, images: bool):
     """Masked-attention forward launches of one forward by kernel:
-    (CUDA-core, tensor-core, 3xTF32). Each tower layer takes the kernel
+    (tiled tensor-core, tensor-core, 3xTF32). Each tower layer takes the kernel
     ``kernel_route`` names for the compute dtype, the tower's head dim and
     the layer's length (bottom layers: the tokens; fusion layers: the
     tokens and the bottleneck tokens); the ViT runs only where the batch
@@ -680,11 +699,11 @@ def tower_forward_routes(mc, text_len: int, images: bool):
     towers = [(mc.text_tower, text_len, mc.num_bottom_text_layers)]
     if images:
         towers.append((mc.image_tower, mc.image_tower.seq_len, mc.num_bottom_image_layers))
-    n = {"cuda_core": 0, "tensor_core": 0, "tf32": 0}
+    n = {"tensor_core_tiled": 0, "tensor_core": 0, "tf32": 0}
     for tower, s, bottom in towers:
         n[kernel_route(dtype, tower.head_dim, s)] += bottom
         n[kernel_route(dtype, tower.head_dim, s + mc.num_bottleneck_tokens)] += fusion
-    return n["cuda_core"], n["tensor_core"], n["tf32"]
+    return n["tensor_core_tiled"], n["tensor_core"], n["tf32"]
 
 
 def tower_launches(mc):
@@ -818,7 +837,7 @@ def phase_scoring_fused(unfused):
     torch.cuda.synchronize()
 
     _zero_counts()
-    want_cuda_core, want_tensor_core, errs, forwards, seconds = 0, 0, {}, 0, []
+    want_tiled, want_tensor_core, errs, forwards, seconds = 0, 0, {}, 0, []
     for name, ds in unfused["requests"].items():
         errs[name] = []
         for d, ref in zip(ds, unfused["results"][name]):
@@ -826,8 +845,8 @@ def phase_scoring_fused(unfused):
             p = scorer.score(d)
             seconds.append(time.perf_counter() - t)
             forwards += 1
-            cuda_core, tensor_core, _ = tower_forward_routes(cfg, TEXT_LEN, len(d.images) > 0)
-            want_cuda_core += cuda_core
+            tiled, tensor_core, _ = tower_forward_routes(cfg, TEXT_LEN, len(d.images) > 0)
+            want_tiled += tiled
             want_tensor_core += tensor_core
             if p.shape != ref.shape or not np.isfinite(p).all() or np.abs(p.sum(-1) - 1.0).max() > 1e-5:
                 raise AssertionError(f"{name}: bad fused probabilities {p.shape}")
@@ -835,7 +854,7 @@ def phase_scoring_fused(unfused):
     counts = dict(zip(KERNEL_NAMES, _counts()))
     want = dict.fromkeys(KERNEL_NAMES, 0)
     want["tree_attention_fwd_fused"] = LAUNCHES_PER_FORWARD * forwards
-    want["masked_attention_fwd"] = want_cuda_core
+    want["masked_attention_fwd_tiled"] = want_tiled
     want["masked_attention_fwd_fused"] = want_tensor_core
     worst = max(max(e) for e in errs.values())
 
@@ -857,7 +876,7 @@ def phase_scoring_fused(unfused):
           "forward_seconds": seconds})
     if counts != want:
         raise AssertionError(f"fused scoring launches {counts}, expected {want}")
-    if counts["masked_attention_fwd"] or not counts["masked_attention_fwd_fused"]:
+    if counts["masked_attention_fwd_tiled"] or not counts["masked_attention_fwd_fused"]:
         raise AssertionError(f"bf16 fused scoring must take the tensor-core forward only: {counts}")
     if not worst <= FUSED_BF16_ATOL:
         raise AssertionError(f"fused bf16 scores differ from the unfused ones by {worst}")
@@ -865,6 +884,138 @@ def phase_scoring_fused(unfused):
         raise AssertionError(f"fused float32 scores differ from the unfused CPU ones by {err32}")
     del scorer, model, m32
     return counts
+
+
+# the long-text model path: a text tower at BERT's 512 positions (a
+# ``DataConfig`` whose text ladder ends at 512), where the fused towers
+# take the tiled tensor-core kernels in every text layer
+LONG_TEXT_LEN = 512
+LONG_TEXT_BUCKETS = (32, 64, 100, 256, 512)
+LONG_TEXT_DISCUSSIONS = 3
+# the fused and the unfused update's loss on the same batch and weights
+LONG_TEXT_LOSS_RTOL = 1e-2
+
+
+def phase_long_text(seed: int, card: str = "") -> dict:
+    """``ModelConfig()`` at full width with both towers fused and text of
+    512 tokens, bf16, through the entry points a user calls:
+    ``DiscussionScorer(..., data_cfg=...)`` scores a few discussions, within
+    ``FUSED_BF16_ATOL`` of the unfused scorer on the same weights; then one
+    ``Trainer.train_step`` (batch 2 x 1, every dropout 0) fused and unfused
+    from the same weights on the same batch, the losses within 1e-2
+    relative. Every count is set to 0 before each fused run and read after
+    it: the tiled forward in every text layer (and the pair in the trained
+    ones), the one-pass kernels where the ViT runs, nothing else."""
+    import numpy as np
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.core.config import DataConfig, ModelConfig
+    from multimodaldiscussiontransformer_tpu_torch.data.loader import stack_microbatches
+    from multimodaldiscussiontransformer_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
+    from multimodaldiscussiontransformer_tpu_torch.serve.incremental import DiscussionScorer
+    from multimodaldiscussiontransformer_tpu_torch.train.launch import build_parser, config_from_args
+    from multimodaldiscussiontransformer_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfg = ModelConfig()
+    fused_cfg = fused_towers(cfg)
+    data_cfg = DataConfig(batch_size=1, max_text_len=LONG_TEXT_LEN, text_len_buckets=LONG_TEXT_BUCKETS)
+    model = MDTModel(cfg, generator=torch.Generator().manual_seed(seed + 5))
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(seed + 7)
+    discussions = [make_discussion(rng, int(rng.integers(8, 17)), 0.3 if i == 0 else 0.0, seq_len=LONG_TEXT_LEN)
+                   for i in range(LONG_TEXT_DISCUSSIONS)]
+
+    # scoring: unfused, then fused on the same weights
+    unfused = DiscussionScorer(model, device="cuda", data_cfg=data_cfg, image_shape=IMAGE_SHAPE)
+    want_p = [unfused.score(d) for d in discussions]
+    with torch.device("meta"):
+        fused_model = MDTModel(fused_cfg)
+    fused_model.load_state_dict(model.state_dict(), strict=True, assign=True)
+    scorer = DiscussionScorer(fused_model, device="cuda", data_cfg=data_cfg, image_shape=IMAGE_SHAPE)
+    scorer.score(discussions[-1])  # warm-up, outside the counted run
+    torch.cuda.synchronize()
+    _zero_counts()
+    got_p = [scorer.score(d) for d in discussions]
+    torch.cuda.synchronize()
+    score_counts = dict(zip(KERNEL_NAMES, _counts()))
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["tree_attention_fwd_fused"] = LAUNCHES_PER_FORWARD * len(discussions)
+    for d in discussions:
+        tiled, tensor_core, _ = tower_forward_routes(fused_cfg, LONG_TEXT_LEN, len(d.images) > 0)
+        want["masked_attention_fwd_tiled"] += tiled
+        want["masked_attention_fwd_fused"] += tensor_core
+    errs = []
+    for p, ref in zip(got_p, want_p):
+        if p.shape != ref.shape or not np.isfinite(p).all() or np.abs(p.sum(-1) - 1.0).max() > 1e-5:
+            raise AssertionError(f"long-text fused scoring: bad probabilities {p.shape}")
+        errs.append(float(np.abs(p - ref).max()))
+    del unfused, scorer, fused_model, model
+    torch.cuda.empty_cache()
+
+    # one update, fused and unfused, from the same weights on the same batch
+    args = build_parser().parse_args(["--synthetic", *CANONICAL_FLAGS, "--batch-size", "2", "--update-freq", "1",
+                                      "--seed", str(seed + 1), "--no-save"])
+    tcfg = config_from_args(args)
+    no_drop = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    m = tcfg.model.replace(dropout=0.0, attention_dropout=0.0, act_dropout=0.0,
+                           text_tower=dataclasses.replace(tcfg.model.text_tower, **no_drop),
+                           image_tower=dataclasses.replace(tcfg.model.image_tower, **no_drop))
+    tcfg = dataclasses.replace(tcfg, data=dataclasses.replace(tcfg.data, batch_size=2, max_text_len=LONG_TEXT_LEN,
+                                                              text_len_buckets=LONG_TEXT_BUCKETS))
+    ds = synthetic_dataset(num_graphs=10, seed=seed + 3, seq_len=LONG_TEXT_LEN, vocab_size=m.text_tower.vocab_size,
+                           image_shape=IMAGE_SHAPE, min_nodes=8, max_nodes=16, image_prob=0.2)
+    group = None
+    train = {}
+    for fused in (False, True):
+        mc = fused_towers(m) if fused else m
+        trainer = Trainer(dataclasses.replace(tcfg, model=mc), image_shape=IMAGE_SHAPE, device="cuda")
+        if group is None:
+            group = next(iter(stack_microbatches(trainer.train_batches(ds, 1), 1)))
+        text_len = group["input_ids"].shape[2]
+        if text_len != LONG_TEXT_LEN:
+            raise AssertionError(f"long-text batch collated to {text_len} tokens, expected {LONG_TEXT_LEN}")
+        state = trainer.init_state(params={k: v.clone() for k, v in params.items()})
+        torch.cuda.synchronize()
+        _zero_counts()
+        t = time.perf_counter()
+        logs = trainer.train_step(state, group)
+        torch.cuda.synchronize()
+        train["fused" if fused else "unfused"] = {
+            "loss": float(logs["loss"]), "ms": (time.perf_counter() - t) * 1e3,
+            "launches": dict(zip(KERNEL_NAMES, _counts())),
+            "expected_launches": dict(zip(KERNEL_NAMES, expected_launches(
+                mc, fused, 1, group["images"].shape[1] > 0, text_len)))}
+        del state, trainer
+        torch.cuda.empty_cache()
+    loss_rel = abs(train["fused"]["loss"] - train["unfused"]["loss"]) / abs(train["unfused"]["loss"])
+    row = {"phase": "long_text_fused", "card": card,
+           "config": "ModelConfig() with both towers fused, bfloat16, text of 512 tokens",
+           "data_cfg": {"max_text_len": LONG_TEXT_LEN, "text_len_buckets": list(LONG_TEXT_BUCKETS)},
+           "scoring": {"discussions": len(discussions), "nodes": [d.num_nodes for d in discussions],
+                       "with_images": [len(d.images) > 0 for d in discussions], "launches": score_counts,
+                       "expected_launches": want, "max_abs_err_vs_unfused_bf16": errs,
+                       "bf16_atol": FUSED_BF16_ATOL},
+           "train_step": {**train, "batch": "2 discussions x 1 microbatch, every dropout 0",
+                          "images": int(group["images"].shape[1]), "loss_rel_diff": loss_rel,
+                          "loss_rtol": LONG_TEXT_LOSS_RTOL},
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    if score_counts != want:
+        raise AssertionError(f"long-text fused scoring launched {score_counts}, expected {want}")
+    for name, run in train.items():
+        if run["launches"] != run["expected_launches"]:
+            raise AssertionError(f"long-text {name} update launched {run['launches']}, "
+                                 f"expected {run['expected_launches']}")
+    if not all(score_counts[n] for n in ("masked_attention_fwd_tiled",)) or \
+            not all(train["fused"]["launches"][n] for n in MASKED_TILED):
+        raise AssertionError(f"long-text fused path never launched a tiled kernel: {row}")
+    if not max(errs) <= FUSED_BF16_ATOL:
+        raise AssertionError(f"long-text fused bf16 scores differ from the unfused ones by {max(errs)}")
+    if not loss_rel <= LONG_TEXT_LOSS_RTOL:
+        raise AssertionError(f"long-text fused update's loss differs from the unfused one by {loss_rel}")
+    return {"scoring": score_counts, "train": train["fused"]["launches"]}
 
 
 def phase_latency(scorer, rng):
@@ -1495,15 +1646,25 @@ MASKED_SHAPES = (("text_bottom", 256, 100, True), ("text_fusion", 256, 104, True
 RAGGED_S = (1, 16, 17, 36, 100, 104, 127, 128, 129, 197, 201, 256)
 RAGGED_B = 8
 # past the tensor-core route's S <= 256: float32 takes the 3xTF32 forward
-# there, bf16 the CUDA-core forward (checked, not timed)
+# and pair there, bf16 the tiled tensor-core ones
 MASKED_LONG = ("long_300", 8, 300, True)
 MASKED_RATE = 0.3
 # the launches of one masked_attention forward and backward, by route
 MASKED_ROUTE_LAUNCHES = {
     "tf32": {"masked_attention_fwd_tf32": 1, "masked_attention_bwd_dq_tf32": 1, "masked_attention_bwd_dkv_tf32": 1},
     "tensor_core": {"masked_attention_fwd_fused": 1, "masked_attention_bwd_fused": 1},
-    "cuda_core": {"masked_attention_fwd": 1, "masked_attention_bwd_dq": 1, "masked_attention_bwd_dkv": 1},
+    "tensor_core_tiled": dict.fromkeys(MASKED_TILED, 1),
 }
+# the tiled tensor-core route's shapes in bf16: (label, B, S, DH, bottleneck
+# tokens). DH 64 at H = 12: S = 300; a text tower at BERT's 512 positions
+# (B = 64 rows, the last eighth capacity padding); its fusion layers (512 +
+# 4 bottleneck tokens); the JAX package's whole-S limit, 1,024. DH 16, 32
+# and 128 at S = 104 and 300, H = 768 / DH capped at 12
+TILED_SHAPES = (("long_300", 8, 300, 64, 0), ("text_512", 64, 512, 64, 0), ("fusion_516", 64, 516, 64, 4),
+                ("s_1024", 8, 1024, 64, 0),
+                *((f"dh{dh}_{s}", 8, s, dh, 0) for dh in (16, 32, 128) for s in (104, 300)))
+# the tiled shape timed beside the plain version too
+TILED_PLAIN_SHAPE = "long_300"
 
 
 def tower_key_bias(b: int, s: int, bottleneck: int, gen):
@@ -1562,30 +1723,32 @@ def read_back_bwd_mask(ma, b, h, s, dh, rate, seed):
     return torch.cat(chunks, dim=-2)[..., :s, :]
 
 
-def read_back_tf32_pair_masks(ma, b, h, s, dh, rate, seed):
-    """The 3xTF32 tower pair's keep masks (float32), read back with q = 0
-    and no bias (every weight 1/S), one dh-row or dh-key chunk c at a time:
-    the dk/dv kernel's through dv (g one-hot in rows c*dh .. c*dh+dh-1:
-    dv[j, d] = keep[c*dh + d, j] / (S (1 - rate))); the dq kernel's through
-    dq (v = g = e_0 on every row: ds_ij = (keep_ij / (1 - rate) - D_i) / S,
-    positive exactly where kept unless a row keeps every key; k one-hot in
-    keys c*dh .. c*dh+dh-1: dq[i, d] = scale ds[i, c*dh + d])."""
+def read_back_pair_masks(ma, b, h, s, dh, rate, seed, dtype):
+    """The keep masks of the backward pair ``dtype`` routes to (float32:
+    the 3xTF32 pair; bf16 outside the one-pass range: the tiled pair), read
+    back with q = 0 and no bias (every weight 1/S), one dh-row or dh-key
+    chunk c at a time: the dk/dv kernel's through dv (g one-hot in rows
+    c*dh .. c*dh+dh-1: dv[j, d] = keep[c*dh + d, j] / (S (1 - rate))); the
+    dq kernel's through dq (v = g = e_0 on every row: ds_ij = (keep_ij /
+    (1 - rate) - D_i) / S, positive exactly where kept unless a row keeps
+    every key; k one-hot in keys c*dh .. c*dh+dh-1: dq[i, d] = scale ds[i,
+    c*dh + d])."""
     import torch
 
-    zeros = torch.zeros(b, h, s, dh, device="cuda")
+    zeros = torch.zeros(b, h, s, dh, device="cuda", dtype=dtype)
     e0 = zeros.clone()
     e0[..., 0] = 1.0
     by_dv, by_dq = [], []
     for c in range(-(-s // dh)):
         onehot = torch.zeros(s + dh, dh, device="cuda")
         onehot[c * dh: (c + 1) * dh] = torch.eye(dh, device="cuda")
-        onehot = onehot[:s].expand(b, h, s, dh).contiguous()
+        onehot = onehot[:s].to(dtype).expand(b, h, s, dh).contiguous()
         v = zeros.clone().requires_grad_(True)
         ma.masked_attention(zeros, zeros, v, None, seed=seed, rate=rate).backward(onehot)
-        by_dv.append(v.grad.transpose(-1, -2) != 0)
+        by_dv.append(v.grad.float().transpose(-1, -2) != 0)
         q = zeros.clone().requires_grad_(True)
         ma.masked_attention(q, onehot, e0, None, seed=seed, rate=rate).backward(e0)
-        by_dq.append(q.grad > 0)
+        by_dq.append(q.grad.float() > 0)
     return torch.cat(by_dv, dim=-2)[..., :s, :], torch.cat(by_dq, dim=-1)[..., :s]
 
 
@@ -1603,20 +1766,24 @@ def plain_tower_stats(q, k, bias, scale):
     return torch.stack([m, torch.exp(s - m[..., None]).sum(-1).clamp_min(1e-30).log()])
 
 
-def pair_outputs(ma, q, k, v, bias, g, scale, rate, seed):
-    """out, dq, dk, dv from the CUDA-core forward and backward pair, called
-    directly (the route sends bf16 to the tensor-core kernels)."""
-    out, stats = ma.masked_attention_fwd(q, k, v, bias, scale, rate, seed, with_stats=True)
-    dq, delta = ma.masked_attention_bwd_dq(q, k, v, out, g, bias, stats, scale, rate, seed)
-    dk, dv = ma.masked_attention_bwd_dkv(q, k, v, g, bias, stats, delta, scale, rate, seed)
+def tiled_outputs(ma, q, k, v, bias, g, scale, rate, seed):
+    """out, dq, dk, dv from the tiled tensor-core forward and pair, called
+    directly (at the tower shapes the route takes the one-pass kernels)."""
+    out, stats = ma.masked_attention_fwd_tiled(q, k, v, bias, scale, rate, seed, with_stats=True)
+    dq, delta = ma.masked_attention_bwd_dq_tiled(q, k, v, out, g, bias, stats, scale, rate, seed)
+    dk, dv = ma.masked_attention_bwd_dkv_tiled(q, k, v, g, bias, stats, delta, scale, rate, seed)
     return [out, dq, dk, dv]
+
+
+def _masked_launches(c0) -> dict:
+    return {n: y - x for n, x, y in zip(KERNEL_NAMES, c0, _counts()) if y != x}
 
 
 def phase_masked(seed: int):
     """The tower kernels against their plain version, each call's launches
-    against its route; the 3xTF32 forward's statistics against the plain
-    ones; the masks read back; the adjoint identity; times beside the
-    unfused path and SDPA."""
+    against its route; the forwards' statistics against the plain ones;
+    the masks read back; the adjoint identity; times beside the unfused
+    path and SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -1651,14 +1818,12 @@ def phase_masked(seed: int):
 
                 c0 = _counts()
                 got = fwd_bwd(ma.masked_attention)
-                launched = {n: y - x for n, x, y in zip(KERNEL_NAMES, c0, _counts()) if y != x}
+                launched = _masked_launches(c0)
                 row.setdefault("launches", {})[f"{name}_rate{rate}"] = launched
                 if launched != MASKED_ROUTE_LAUNCHES[row["kernel_route"][name]]:
                     raise AssertionError(f"masked kernels at {label} {name} launched {launched}")
                 want = fwd_bwd(ma.masked_attention_dropout_reference)
                 torch.cuda.synchronize()
-                if name == "float32" and rate == MASKED_RATE:
-                    want_out32 = want[0]
                 tol = TRAIN_F32_REL if name == "float32" else TRAIN_BF16_REL
                 # at S = 1 dq and dk are 0 in exact arithmetic (softmax over
                 # one key has no gradient): what remains is the rounding of
@@ -1666,32 +1831,23 @@ def phase_masked(seed: int):
                 floor = want[3].float().abs().max().item() if s == 1 else 0.0
                 row[key][name] = _check_errors(got, want, ("out", "dq", "dk", "dv"), tol,
                                                f"masked kernels disagree at {label} rate {rate} {name}", floor)
-                if name == "float32" or tower:
-                    # the CUDA-core kernels on the same inputs, called
-                    # directly: in float32 the kernels the 3xTF32 ones
-                    # replace, in bf16 what the tensor-core kernels' bf16 P
-                    # and dS cost beside their f32
-                    pair = pair_outputs(ma, qq, kk, vv, bias, gg, scale, rate, dseed)
+                if name == "bfloat16" and tower:
+                    # the tiled kernels on the same bf16 inputs, called
+                    # directly: the tower shapes' other bf16 route
+                    tiled = tiled_outputs(ma, qq, kk, vv, bias, gg, scale, rate, dseed)
                     torch.cuda.synchronize()
-                    row[key][f"{name}_pair"] = _check_errors(pair, want, ("out", "dq", "dk", "dv"), tol,
-                                                             f"masked pair disagrees at {label} rate {rate} {name}",
-                                                             floor)
+                    row[key]["bfloat16_tiled"] = _check_errors(tiled, want, ("out", "dq", "dk", "dv"), tol,
+                                                               f"tiled kernels disagree at {label} rate {rate}")
         # the 3xTF32 forward's statistics (float32) against the plain ones
-        # (a capacity-padding row's max is -1e9 exactly), and the CUDA-core
-        # forward it replaces there, called directly, against the plain
-        # version and the 3xTF32 statistics
+        # (a capacity-padding row's max is -1e9 exactly)
         _, stats32 = ma.masked_attention_fwd_tf32(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True)
-        cc_out, cc_stats = ma.masked_attention_fwd(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True)
         ref = plain_tower_stats(q, k, bias, scale)
         row["stats_float32"] = {"row_max": _check_stat(stats32[0], ref[0], f"3xTF32 row max at {label}"),
-                                "log_sum": _check_stat(stats32[1], ref[1], f"3xTF32 log-sum at {label}"),
-                                "vs_cuda_core": _check_stat(stats32, cc_stats, f"3xTF32 against CUDA-core stats at {label}")}
+                                "log_sum": _check_stat(stats32[1], ref[1], f"3xTF32 log-sum at {label}")}
         padding = ref[0] <= ma.MASK_BIAS
         if not torch.equal(stats32[0][padding], ref[0][padding]):
             raise AssertionError(f"3xTF32 row max of the padding rows at {label}")
-        row["float32_cuda_core_fwd"] = _check_errors([cc_out], [want_out32], ("out",), TRAIN_F32_REL,
-                                                     f"CUDA-core forward disagrees at {label} f32")
-        del ref, cc_out, cc_stats, want_out32
+        del ref
         if label == "text_fusion":
             # the adjoint identity in v, float32, on 16 of the rows
             q16, k16, v16, g16 = (x[:16].contiguous() for x in (q, k, v, g))
@@ -1705,29 +1861,8 @@ def phase_masked(seed: int):
                 raise AssertionError(f"masked adjoint identity fails: {row['adjoint']}")
 
         if s > ma.TENSOR_CORE_MAX_S:
-            # past the tensor-core kernels: bf16 takes the CUDA-core forward
-            # and pair here, timed beside SDPA in bf16 and the bf16 bound
-            qq, kk, vv, gg = (x.to(torch.bfloat16).contiguous() for x in (q, k, v, g))
-            out, stats = ma.masked_attention_fwd(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True)
-            bias4 = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
-
-            def pair_long():
-                _, delta_ = ma.masked_attention_bwd_dq(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed)
-                ma.masked_attention_bwd_dkv(qq, kk, vv, gg, bias, stats, delta_, scale, MASKED_RATE, dseed)
-
-            def sdpa_long():
-                leaves = [x.detach().requires_grad_(True) for x in (qq, kk, vv)]
-                F.scaled_dot_product_attention(*leaves, attn_mask=bias4, dropout_p=MASKED_RATE,
-                                               scale=scale).backward(gg)
-
-            row["bfloat16_cuda_core"] = {
-                "ms": {"fwd": timed_ms(lambda: ma.masked_attention_fwd(qq, kk, vv, bias, scale, MASKED_RATE, dseed,
-                                                                       with_stats=True)),
-                       "pair": timed_ms(pair_long),
-                       "library_fwd": timed_ms(lambda: F.scaled_dot_product_attention(
-                           qq, kk, vv, attn_mask=bias4, dropout_p=MASKED_RATE, scale=scale)),
-                       "library_fwd_bwd": timed_ms(sdpa_long)},
-                "bound": work_bounds(b, h, s, dh, "bfloat16", 0 if bias is None else b * s * 4, stat_planes=2)}
+            # past the one-pass kernels: bf16 takes the tiled ones here,
+            # timed in phase_masked_tiled
             emit({"phase": "masked_vs_plain", **row})
             rows.append(row)
             continue
@@ -1735,7 +1870,6 @@ def phase_masked(seed: int):
         # times in the main path's type
         qq, kk, vv, gg = (x.to(torch.bfloat16).contiguous() for x in (q, k, v, g))
         out, stats = ma.masked_attention_fwd_fused(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True)
-        _, delta = ma.masked_attention_bwd_dq(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed)
         bias4 = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
         drop_gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -1753,10 +1887,6 @@ def phase_masked(seed: int):
                 fn(*leaves).backward(gg)
             return run
 
-        def pair():
-            _, delta_ = ma.masked_attention_bwd_dq(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed)
-            ma.masked_attention_bwd_dkv(qq, kk, vv, gg, bias, stats, delta_, scale, MASKED_RATE, dseed)
-
         calls = {
             "fwd_fused": lambda: ma.masked_attention_fwd_fused(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True),
             "bwd_fused": lambda: ma.masked_attention_bwd_fused(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed),
@@ -1766,32 +1896,46 @@ def phase_masked(seed: int):
             emit({"phase": "masked_vs_plain", **row})
             rows.append(row)
             continue
+        # the tiled forward and pair on the same inputs, in the same call
+        # (each pair kernel from the tiled forward's statistics)
+        out_t, stats_t = ma.masked_attention_fwd_tiled(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True)
+        _, delta_t = ma.masked_attention_bwd_dq_tiled(qq, kk, vv, out_t, gg, bias, stats_t, scale, MASKED_RATE, dseed)
+
+        def pair_tiled():
+            _, delta_ = ma.masked_attention_bwd_dq_tiled(qq, kk, vv, out_t, gg, bias, stats_t, scale, MASKED_RATE,
+                                                         dseed)
+            ma.masked_attention_bwd_dkv_tiled(qq, kk, vv, gg, bias, stats_t, delta_, scale, MASKED_RATE, dseed)
+
         calls.update({
             "fwd_fused_rate0": lambda: ma.masked_attention_fwd_fused(qq, kk, vv, bias, scale),
-            "fwd": lambda: ma.masked_attention_fwd(qq, kk, vv, bias, scale, MASKED_RATE, dseed, with_stats=True),
-            "pair": pair,
+            "fwd_tiled": lambda: ma.masked_attention_fwd_tiled(qq, kk, vv, bias, scale, MASKED_RATE, dseed,
+                                                               with_stats=True),
+            "pair_tiled": pair_tiled,
+            "dq_tiled": lambda: ma.masked_attention_bwd_dq_tiled(qq, kk, vv, out_t, gg, bias, stats_t, scale,
+                                                                 MASKED_RATE, dseed),
+            "dkv_tiled": lambda: ma.masked_attention_bwd_dkv_tiled(qq, kk, vv, gg, bias, stats_t, delta_t, scale,
+                                                                   MASKED_RATE, dseed),
             "plain_fwd": lambda: ma.masked_attention_dropout_reference(qq, kk, vv, bias, dseed, MASKED_RATE, scale),
             "library_fwd": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bias4, dropout_p=MASKED_RATE, scale=scale),
             "plain_fwd_bwd": with_grad(lambda q_, k_, v_: ma.masked_attention_dropout_reference(q_, k_, v_, bias, dseed, MASKED_RATE, scale)),
             "library_fwd_bwd_rate": with_grad(lambda q_, k_, v_: F.scaled_dot_product_attention(
                 q_, k_, v_, attn_mask=bias4, dropout_p=MASKED_RATE, scale=scale)),
-            "fwd_rate0": lambda: ma.masked_attention_fwd(qq, kk, vv, bias, scale),
-            "dq": lambda: ma.masked_attention_bwd_dq(qq, kk, vv, out, gg, bias, stats, scale, MASKED_RATE, dseed),
-            "dkv": lambda: ma.masked_attention_bwd_dkv(qq, kk, vv, gg, bias, stats, delta, scale, MASKED_RATE, dseed),
             "unfused_fwd": lambda: unfused(qq, kk, vv),
             "unfused_fwd_bwd": with_grad(unfused),
             "library_fwd_bwd": with_grad(lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=bias4, scale=scale)),
         })
         row["ms"] = {name: timed_ms(fn) for name, fn in calls.items()}
         row["ms"]["plain_bwd"] = row["ms"]["plain_fwd_bwd"] - row["ms"]["plain_fwd"]
+        row["ms"]["fwd_pair_tiled"] = row["ms"]["fwd_tiled"] + row["ms"]["pair_tiled"]
+        row["ms"]["fwd_bwd_fused"] = row["ms"]["fwd_fused"] + row["ms"]["bwd_fused"]
         row["bound"] = work_bounds(b, h, s, dh, "bfloat16", 0 if bias is None else b * s * 4, stat_planes=2)
-        row["fused_vs_pair"] = row["ms"]["pair"] / row["ms"]["bwd_fused"]
-        row["fwd_fused_vs_cuda_core"] = row["ms"]["fwd"] / row["ms"]["fwd_fused"]
+        row["tiled_vs_one_pass"] = {"fwd": row["ms"]["fwd_tiled"] / row["ms"]["fwd_fused"],
+                                    "bwd": row["ms"]["pair_tiled"] / row["ms"]["bwd_fused"]}
         row["fwd_fused_vs_library"] = row["ms"]["fwd_fused"] / row["ms"]["library_fwd"]
+        row["fwd_tiled_vs_library"] = row["ms"]["fwd_tiled"] / row["ms"]["library_fwd"]
         # the float32 route (the 3xTF32 forward, then the 3xTF32 pair) on
-        # float32 inputs, the CUDA-core kernels it replaces there and SDPA
-        # on the same inputs, and the bounds: float32 on CUDA cores, and
-        # 3xTF32
+        # float32 inputs and SDPA on the same inputs, and the bounds:
+        # float32 on CUDA cores, and 3xTF32
         out32, stats32 = ma.masked_attention_fwd_tf32(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True)
         _, delta32 = ma.masked_attention_bwd_dq_tf32(q, k, v, out32, g, bias, stats32, scale, MASKED_RATE, dseed)
         bias4_32 = None if bias is None else bias[:, None, None, :]
@@ -1808,14 +1952,11 @@ def phase_masked(seed: int):
 
         calls32 = {
             "fwd_tf32": lambda: ma.masked_attention_fwd_tf32(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True),
-            "fwd": lambda: ma.masked_attention_fwd(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True),
             "plain_fwd": lambda: ma.masked_attention_dropout_reference(q, k, v, bias, dseed, MASKED_RATE, scale),
             "dq_tf32": lambda: ma.masked_attention_bwd_dq_tf32(q, k, v, out32, g, bias, stats32, scale, MASKED_RATE,
                                                                dseed),
             "dkv_tf32": lambda: ma.masked_attention_bwd_dkv_tf32(q, k, v, g, bias, stats32, delta32, scale,
                                                                  MASKED_RATE, dseed),
-            "dq": lambda: ma.masked_attention_bwd_dq(q, k, v, out32, g, bias, stats32, scale, MASKED_RATE, dseed),
-            "dkv": lambda: ma.masked_attention_bwd_dkv(q, k, v, g, bias, stats32, delta32, scale, MASKED_RATE, dseed),
             "plain_fwd_bwd": with_grad32(lambda q_, k_, v_: ma.masked_attention_dropout_reference(
                 q_, k_, v_, bias, dseed, MASKED_RATE, scale)),
             "library_fwd": lambda: F.scaled_dot_product_attention(
@@ -1830,11 +1971,8 @@ def phase_masked(seed: int):
         f32ms = row["float32"]["ms"]
         f32ms["plain_bwd"] = f32ms["plain_fwd_bwd"] - f32ms["plain_fwd"]
         f32ms["pair_tf32"] = f32ms["dq_tf32"] + f32ms["dkv_tf32"]
-        f32ms["pair"] = f32ms["dq"] + f32ms["dkv"]
         f32ms["fwd_pair_tf32"] = f32ms["fwd_tf32"] + f32ms["pair_tf32"]
-        row["float32"]["fwd_tf32_vs_cuda_core"] = f32ms["fwd"] / f32ms["fwd_tf32"]
         row["float32"]["fwd_tf32_vs_library"] = f32ms["fwd_tf32"] / f32ms["library_fwd"]
-        row["float32"]["pair_tf32_vs_cuda_core"] = f32ms["pair"] / f32ms["pair_tf32"]
         # the pair alone against SDPA's forward and backward at rate 0.3,
         # and the route's forward and pair against the same
         row["float32"]["pair_tf32_vs_library_fwd_bwd_rate"] = f32ms["pair_tf32"] / f32ms["library_fwd_bwd_rate"]
@@ -1856,7 +1994,7 @@ def phase_masked(seed: int):
         c2 = _counts()
         bwd_mask = read_back_bwd_mask(ma, b, h, s, dh, MASKED_RATE, seed + 101)
         c3 = _counts()
-        by_dv, by_dq = read_back_tf32_pair_masks(ma, b, h, s, dh, MASKED_RATE, seed + 101)
+        by_dv, by_dq = read_back_pair_masks(ma, b, h, s, dh, MASKED_RATE, seed + 101, torch.float32)
         masks[str(s)] = {"B": b, "equals_plain_philox": bool(torch.equal(mask, plain)),
                          "fwd_fused_equals_plain_philox": bool(torch.equal(fwd_fused_mask, plain)),
                          "bwd_fused_equals_plain_philox": bool(torch.equal(bwd_mask, plain)),
@@ -1866,32 +2004,143 @@ def phase_masked(seed: int):
                          "launches_bfloat16": dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c1, c2)))),
                          "launches_tf32_pair": dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c3, _counts())))),
                          "kept_fraction": mask.float().mean().item()}
-    # and the 3xTF32 forward's past S = 256
+    # and past S = 256: the 3xTF32 forward's in float32, the tiled
+    # forward's and both tiled pair kernels' in bf16
     s, b = MASKED_LONG[2], 2
+    plain = ta.dropout_keep_mask(seed + 102, b, h, s, MASKED_RATE, "cuda")
     c0 = _counts()
     mask = read_back_mask(ma, b, h, s, dh, MASKED_RATE, seed + 102, torch.float32)
-    masks[str(s)] = {"B": b, "equals_plain_philox": bool(torch.equal(mask, ta.dropout_keep_mask(
-                         seed + 102, b, h, s, MASKED_RATE, "cuda"))),
-                     "launches_float32": dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, _counts())))),
+    c1 = _counts()
+    tiled_mask = read_back_mask(ma, b, h, s, dh, MASKED_RATE, seed + 102, torch.bfloat16)
+    c2 = _counts()
+    by_dv, by_dq = read_back_pair_masks(ma, b, h, s, dh, MASKED_RATE, seed + 102, torch.bfloat16)
+    masks[str(s)] = {"B": b, "equals_plain_philox": bool(torch.equal(mask, plain)),
+                     "fwd_tiled_equals_plain_philox": bool(torch.equal(tiled_mask, plain)),
+                     "tiled_pair_equals_plain_philox": {"dkv_kernel": bool(torch.equal(by_dv, plain)),
+                                                        "dq_kernel": bool(torch.equal(by_dq, plain))},
+                     "launches_float32": dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, c1)))),
+                     "launches_bfloat16": dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c1, c2)))),
+                     "launches_tiled_pair": dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c2, _counts())))),
                      "kept_fraction": mask.float().mean().item()}
     emit({"phase": "masked_dropout_mask", "H": h, "rate": MASKED_RATE, "by_S": masks})
-    forwards = ("masked_attention_fwd", "masked_attention_fwd_fused", "masked_attention_fwd_tf32")
+    forwards = ("masked_attention_fwd_tiled", "masked_attention_fwd_fused", "masked_attention_fwd_tf32")
     for s, m in masks.items():
         chunks = -(-int(s) // dh)
-        read = tuple(m["launches_float32"][n] for n in forwards)
-        if "launches_bfloat16" in m:
-            read += tuple(m["launches_bfloat16"][n] for n in forwards)
-        if read != ((0, 0, chunks) + ((0, chunks, 0) if "launches_bfloat16" in m else ())):
+        read = tuple(m["launches_float32"][n] for n in forwards) + tuple(m["launches_bfloat16"][n] for n in forwards)
+        bf16_forward = (chunks, 0, 0) if int(s) > ma.TENSOR_CORE_MAX_S else (0, chunks, 0)
+        if read != (0, 0, chunks) + bf16_forward:
             raise AssertionError(f"masked mask read-back took the wrong forward kernel: {masks}")
         if not all(m.get(key, True) for key in ("equals_plain_philox", "fwd_fused_equals_plain_philox",
-                                                 "bwd_fused_equals_plain_philox")) \
+                                                 "bwd_fused_equals_plain_philox", "fwd_tiled_equals_plain_philox")) \
                 or not all(m.get("tf32_pair_equals_plain_philox", {}).values()) \
+                or not all(m.get("tiled_pair_equals_plain_philox", {}).values()) \
                 or abs(m["kept_fraction"] - (1 - MASKED_RATE)) > 0.02:
             raise AssertionError(f"masked kernel mask: {masks}")
-        if "launches_tf32_pair" in m and any(
-                m["launches_tf32_pair"][n] != (2 * chunks if n in MASKED_ROUTE_LAUNCHES["tf32"] else 0)
-                for n in KERNEL_NAMES):
-            raise AssertionError(f"masked 3xTF32 pair mask read-back took the wrong kernels: {masks}")
+        for key, route in (("launches_tf32_pair", "tf32"), ("launches_tiled_pair", "tensor_core_tiled")):
+            if key in m and any(m[key][n] != (2 * chunks if n in MASKED_ROUTE_LAUNCHES[route] else 0)
+                                for n in KERNEL_NAMES):
+                raise AssertionError(f"masked {route} pair mask read-back took the wrong kernels: {masks}")
+    return rows
+
+
+def phase_masked_tiled(seed: int):
+    """The tiled tensor-core route's shapes (``TILED_SHAPES``) in bf16:
+    through ``masked_attention`` at rate 0.3 and 0 against the plain
+    version (each call's launches held to the route), within 1e-2 of max
+    |ref|; the adjoint identity at S = 300; times of the tiled forward, dq
+    and dk/dv kernels beside their bounds and SDPA with the key-padding
+    mask (forward at rate 0.3; forward + backward at 0 and 0.3), and beside
+    the plain version at ``TILED_PLAIN_SHAPE``."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodaldiscussiontransformer_tpu_torch.ops import masked_attention as ma
+
+    rows = []
+    for label, b, s, dh, bottleneck in TILED_SHAPES:
+        h = min(12, 768 // dh)
+        scale = dh ** -0.5
+        gen = torch.Generator(device="cuda").manual_seed(seed + 37 * s + dh + b)
+        q, k, v, g = (torch.randn(b, h, s, dh, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(4))
+        bias = tower_key_bias(b, s, bottleneck, gen)
+        dseed = seed * 1000033 + 11 * s + dh + b
+        route = ma.kernel_route(torch.bfloat16, dh, s)
+        row = {"shape": label, "B": b, "S": s, "H": h, "dh": dh, "key_bias": True, "rate": MASKED_RATE,
+               "fully_masked_rows": int((bias <= ma.MASK_BIAS).all(dim=1).sum()),
+               "kernel_route": {"bfloat16": route}, "errors": {}, "errors_rate0": {}}
+        if route != "tensor_core_tiled":
+            raise AssertionError(f"{label}: bf16 at DH {dh}, S {s} routes to {route}")
+        for rate, key in ((MASKED_RATE, "errors"), (0.0, "errors_rate0")):
+            def fwd_bwd(fn):
+                leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+                o = fn(*leaves, bias, seed=dseed, rate=rate)
+                o.backward(g)
+                return [o.detach()] + [x.grad for x in leaves]
+
+            c0 = _counts()
+            got = fwd_bwd(ma.masked_attention)
+            launched = _masked_launches(c0)
+            row.setdefault("launches", {})[f"bfloat16_rate{rate}"] = launched
+            if launched != MASKED_ROUTE_LAUNCHES[route]:
+                raise AssertionError(f"masked kernels at {label} launched {launched}")
+            want = fwd_bwd(ma.masked_attention_dropout_reference)
+            torch.cuda.synchronize()
+            row[key]["bfloat16"] = _check_errors(got, want, ("out", "dq", "dk", "dv"), TRAIN_BF16_REL,
+                                                 f"tiled kernels disagree at {label} rate {rate}")
+            del got, want
+        if label == TILED_PLAIN_SHAPE:
+            # the adjoint identity in v through the tiled forward and dk/dv
+            # kernel in bf16, g = f(v2) (as for the tree's bf16 route)
+            v2 = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+            fv2 = ma.masked_attention(q, k, v2, bias, seed=dseed, rate=MASKED_RATE)
+            vv = v.clone().requires_grad_(True)
+            ma.masked_attention(q, k, vv, bias, seed=dseed, rate=MASKED_RATE).backward(fv2)
+            lhs = (fv2.double() * fv2.double()).sum().item()
+            rhs = (vv.grad.double() * v2.double()).sum().item()
+            row["adjoint_bfloat16"] = {"lhs": lhs, "rhs": rhs, "rel_err": abs(lhs - rhs) / abs(lhs),
+                                       "rel_tol": BF16_ADJOINT_REL}
+            if not abs(lhs - rhs) <= BF16_ADJOINT_REL * abs(lhs):
+                raise AssertionError(f"tiled adjoint identity fails at {label}: {row['adjoint_bfloat16']}")
+
+        out, stats = ma.masked_attention_fwd_tiled(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True)
+        _, delta = ma.masked_attention_bwd_dq_tiled(q, k, v, out, g, bias, stats, scale, MASKED_RATE, dseed)
+        bias4 = bias[:, None, None, :].to(torch.bfloat16)
+
+        def sdpa_fwd_bwd(rate):
+            def run():
+                leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+                F.scaled_dot_product_attention(*leaves, attn_mask=bias4, dropout_p=rate, scale=scale).backward(g)
+            return run
+
+        calls = {
+            "fwd": lambda: ma.masked_attention_fwd_tiled(q, k, v, bias, scale, MASKED_RATE, dseed, with_stats=True),
+            "dq": lambda: ma.masked_attention_bwd_dq_tiled(q, k, v, out, g, bias, stats, scale, MASKED_RATE, dseed),
+            "dkv": lambda: ma.masked_attention_bwd_dkv_tiled(q, k, v, g, bias, stats, delta, scale, MASKED_RATE,
+                                                             dseed),
+            "library_fwd": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias4, dropout_p=MASKED_RATE,
+                                                                  scale=scale),
+            "library_fwd_bwd": sdpa_fwd_bwd(0.0),
+            "library_fwd_bwd_rate": sdpa_fwd_bwd(MASKED_RATE),
+        }
+        if label == TILED_PLAIN_SHAPE:
+            def plain_fwd_bwd():
+                leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+                ma.masked_attention_dropout_reference(*leaves, bias, dseed, MASKED_RATE, scale).backward(g)
+
+            calls["plain_fwd"] = lambda: ma.masked_attention_dropout_reference(q, k, v, bias, dseed, MASKED_RATE, scale)
+            calls["plain_fwd_bwd"] = plain_fwd_bwd
+        row["ms"] = {name: timed_ms(fn) for name, fn in calls.items()}
+        ms = row["ms"]
+        ms["pair"] = ms["dq"] + ms["dkv"]
+        ms["fwd_pair"] = ms["fwd"] + ms["pair"]
+        if "plain_fwd_bwd" in ms:
+            ms["plain_bwd"] = ms["plain_fwd_bwd"] - ms["plain_fwd"]
+        row["bound"] = work_bounds(b, h, s, dh, "bfloat16", b * s * 4, stat_planes=2)
+        row["fwd_vs_library"] = ms["fwd"] / ms["library_fwd"]
+        row["fwd_pair_vs_library_fwd_bwd_rate"] = ms["fwd_pair"] / ms["library_fwd_bwd_rate"]
+        del out, stats, delta
+        emit({"phase": "masked_vs_plain_tiled", **row})
+        rows.append(row)
     return rows
 
 
@@ -2376,8 +2625,9 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int, cont
     """Launches of every kernel (KERNEL_NAMES order) in one update of k
     microbatches of ``text_len``-token text, from the config (the
     contrastive loss's backward reaches every graph layer). Each tower
-    layer's forward takes the tensor-core, the 3xTF32 or the CUDA-core
-    kernel, and each tower's backward the one-pass kernel or the pair, as
+    layer's forward takes the tensor-core, the 3xTF32 or the tiled
+    tensor-core kernel, and each tower's backward the one-pass kernel or a
+    pair, as
     ``kernel_route`` says for the compute dtype, the tower's head dim and
     the layer's length (the backward runs in the fusion layers: tokens +
     bottleneck). The graph layers take the tensor-core, the 3xTF32 or the
@@ -2401,21 +2651,21 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int, cont
     if not fused:
         return tree + [0] * 11
     _, _, text_bwd, vit_bwd = tower_launches(mc)
-    tower_fwd = dict(zip(("cuda_core", "tensor_core", "tf32"),
+    tower_fwd = dict(zip(("tensor_core_tiled", "tensor_core", "tf32"),
                          (k * n for n in tower_forward_routes(mc, text_len, images))))
     if mc.remat:
         for tower, s in ((mc.text_tower, text_len), (mc.image_tower, mc.image_tower.seq_len))[:2 if images else 1]:
             tower_fwd[kernel_route(getattr(torch, mc.dtype), tower.head_dim, s + mc.num_bottleneck_tokens)] += \
                 k * (mc.num_fusion_layers + 1)
-    tower_bwd = dict.fromkeys(("cuda_core", "tensor_core", "tf32"), 0)  # the pairs' dq and dk/dv each, or one pass
+    tower_bwd = dict.fromkeys(("tensor_core_tiled", "tensor_core", "tf32"), 0)  # the pairs' dq and dk/dv each, or one pass
     extra = mc.num_bottleneck_tokens
     for n, tower, s in ((text_bwd, mc.text_tower, text_len + extra),
                         (vit_bwd if images else 0, mc.image_tower, mc.image_tower.seq_len + extra)):
         tower_bwd[kernel_route(getattr(torch, mc.dtype), tower.head_dim, s)] += k * n
-    pair, tf32_pair = tower_bwd["cuda_core"], tower_bwd["tf32"]
+    tiled_pair, tf32_pair = tower_bwd["tensor_core_tiled"], tower_bwd["tf32"]
     # MDTModel never takes the dense-bias branch
-    return tree + [tower_fwd["cuda_core"], pair, pair, tower_bwd["tensor_core"], tower_fwd["tensor_core"],
-                   tower_fwd["tf32"], tf32_pair, tf32_pair, 0, 0, 0]
+    return tree + [tower_bwd["tensor_core"], tower_fwd["tensor_core"], tower_fwd["tf32"], tf32_pair, tf32_pair,
+                   tower_fwd["tensor_core_tiled"], tiled_pair, tiled_pair, 0, 0, 0]
 
 
 TRACE_UPDATES = 2
@@ -2546,9 +2796,9 @@ def run_train(seed: int, phase: str, *, batch_size: int, fused: bool, dataset_kw
         raise AssertionError(f"{phase}: bf16 graph layers must take the tensor-core tree kernels only: {by_name}")
     if fused and not (by_name["masked_attention_fwd_fused"] and by_name["masked_attention_bwd_fused"]):
         raise AssertionError(f"{phase}: a tensor-core tower kernel never launched: {by_name}")
-    cuda_core = {n: by_name[n] for n in ("masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv")}
-    if any(cuda_core.values()):  # bf16 at the tower shapes: the "tensor_core" route only
-        raise AssertionError(f"{phase}: a CUDA-core tower kernel launched in bf16: {cuda_core}")
+    tiled = {n: by_name[n] for n in MASKED_TILED}
+    if any(tiled.values()):  # bf16 at the tower shapes: the "tensor_core" route only
+        raise AssertionError(f"{phase}: a tiled tower kernel launched at the tower shapes: {tiled}")
     losses = [r["loss"] for r in records]
     if not all(np.isfinite(losses)) or len(set(losses)) < 2:
         raise AssertionError(f"{phase}: loss series not finite or constant: {losses}")
@@ -2718,11 +2968,11 @@ def phase_workers(seed: int, card: str):
 
 
 INPUT_AB_UPDATES = 2  # fewer than the 4 it took before sequence_parallel, to keep the whole run short
-# each input path twice, in mirrored order, from one position on the same
-# batches: prefetch (the default) and sync_staged (collation and the
-# pinned, bf16 staging on the training thread: the prefetcher's work
-# without its thread)
-INPUT_AB_ORDER = ("prefetch", "sync_staged", "sync_staged", "prefetch")
+# each input path once, from one position on the same batches: prefetch
+# (the default) and sync_staged (collation and the pinned, bf16 staging on
+# the training thread: the prefetcher's work without its thread); the run's
+# time limit leaves no room for a mirrored repeat
+INPUT_AB_ORDER = ("prefetch", "sync_staged")
 
 
 class _InlineInput:
@@ -3340,6 +3590,12 @@ def _train_losses(save_dir: str) -> dict:
         return {r["step"]: r["loss"] for r in map(json.loads, f) if r["split"] == "train"}
 
 
+# the checkpoint phase's updates: saves at 2 and at the end, a validation
+# at 2, preempted runs stopping at 1 or 2 and resumed to the end; the run's
+# time limit keeps it short
+CKPT_UPDATES = 3
+
+
 def phase_checkpoint(seed: int, card: str = ""):
     """Save, preempt, resume, evaluate, predict and serve from checkpoints at
     full width, through the launcher, on a ``hateful_discussions``
@@ -3367,11 +3623,11 @@ def phase_checkpoint(seed: int, card: str = ""):
         data, dataset = shared_discussions(seed + 1)
         dirs = {name: os.path.join(root, name)
                 for name in ("whole", "in_flight", "stop_save", "copy", "sync", "scan", "pred")}
-        # the canonical run_train.sh 8 4 5 2 2 0 flags, bf16, 4 updates
+        # the canonical run_train.sh 8 4 5 2 2 0 flags, bf16, CKPT_UPDATES updates
         flags = ["--num-fusion-layers", "8", "--num-bottleneck-tokens", "4", "--spatial-pos-max", "5",
                  "--num-graph-stack", "2", "--num-fusion-stack", "2", "--freeze-initial-encoders",
                  "--batch-size", "12", "--update-freq", "3", "--positive-weight", "1.5", "--seed", str(seed + 1),
-                 "--data-root", data, "--max-updates", "4", "--log-interval", "1"]
+                 "--data-root", data, "--max-updates", str(CKPT_UPDATES), "--log-interval", "1"]
         saves = ["--save-interval-updates", "2", "--validate-interval-updates", "2"]
         cfg = config_from_args(build_parser().parse_args(flags))
         mc = cfg.model
@@ -3394,11 +3650,15 @@ def phase_checkpoint(seed: int, card: str = ""):
         # - "stop_save" makes no interval or validation save, so only the
         #   stop branch can save: the stop comes at update 2 (an update
         #   takes ~0.6 s) and its asynchronous save, waited for before the
-        #   process exits, is the run's only step on disk.
+        #   process exits, is the run's only step on disk. Its signal goes
+        #   0.2 s after the log shows update 1: the loop logs an update just
+        #   before it looks for a stop, and a signal landing in between (a
+        #   busy host) would stop it at update 1.
         # Both start together and run beside the uninterrupted run (three
         # trainings on the card at a time)
         env = {**os.environ, "PYTHONUNBUFFERED": "1", "PYTHONFAULTHANDLER": "1"}
         preempted = {"in_flight": ["--save-interval-updates", "1"], "stop_save": []}
+        signal_delay_s = {"in_flight": 0.0, "stop_save": 0.2}
 
         def start_preempted(name):
             log_path = os.path.join(root, f"{name}.log")
@@ -3414,6 +3674,7 @@ def phase_checkpoint(seed: int, card: str = ""):
                 while proc.poll() is None:
                     with open(log_path) as f:
                         if re.search(r"update 1: ", f.read()):
+                            time.sleep(signal_delay_s[name])
                             proc.send_signal(signal.SIGTERM)
                             sent["after_s"], sent["wall"] = time.perf_counter() - t0, time.time()
                             return
@@ -3431,11 +3692,11 @@ def phase_checkpoint(seed: int, card: str = ""):
         whole_launches = dict(zip(KERNEL_NAMES, _counts()))
         if rc != 0:
             raise AssertionError(f"checkpoint: the uninterrupted run returned {rc}:\n{out_whole[-2000:]}")
-        if [r["update"] for r in whole.records] != [1, 2, 3, 4]:
+        if [r["update"] for r in whole.records] != list(range(1, CKPT_UPDATES + 1)):
             raise AssertionError(f"checkpoint: uninterrupted updates {[r['update'] for r in whole.records]}")
         whole.check_launches("checkpoint: the uninterrupted run", whole_launches)
         mark("uninterrupted")
-        a = ckpt.Checkpointer(dirs["whole"]).restore(step=4)
+        a = ckpt.Checkpointer(dirs["whole"]).restore(step=CKPT_UPDATES)
         la = _train_losses(dirs["whole"])
         moved = max(float((a["params"][k].float() - v).abs().max()) for k, v in whole.before.items())
         preempt_rows = {}
@@ -3461,7 +3722,7 @@ def phase_checkpoint(seed: int, card: str = ""):
                                      f"{steps}, step 1 in flight at the signal {in_flight}) did not save at its "
                                      f"stop:\n{log_text[-3000:]}")
 
-            # the relaunch: auto-resume from the stop, run to 4
+            # the relaunch: auto-resume from the stop, run to the end
             _zero_counts()
             with _RecordedUpdates(mc) as resumed:
                 rc, out_resumed = _main_quiet(flags + saves + ["--save-dir", dirs[name]])
@@ -3469,13 +3730,13 @@ def phase_checkpoint(seed: int, card: str = ""):
             if rc != 0 or f"auto-resumed from step {stop_at}" not in out_resumed:
                 raise AssertionError(f"checkpoint: the {name} relaunch returned {rc} without resuming:\n"
                                      f"{out_resumed[-2000:]}")
-            resumed_updates = list(range(stop_at + 1, 5))
+            resumed_updates = list(range(stop_at + 1, CKPT_UPDATES + 1))
             if [r["update"] for r in resumed.records] != resumed_updates:
                 raise AssertionError(f"checkpoint: the {name} relaunch ran {[r['update'] for r in resumed.records]}")
             resumed.check_launches(f"checkpoint: the {name} resumed run", resumed_launches)
 
-            # the preempted + resumed run against the uninterrupted one, at step 4
-            b = ckpt.Checkpointer(dirs[name]).restore(step=4)
+            # the preempted + resumed run against the uninterrupted one, at the end
+            b = ckpt.Checkpointer(dirs[name]).restore(step=CKPT_UPDATES)
             rng_equal = {k: _bytes_equal(a[k], b[k]) for k in ("host_rng", "device_rng")}
             lb = _train_losses(dirs[name])
             loss_rel = {n: abs(lb[n] - la[n]) / abs(la[n]) for n in resumed_updates}
@@ -3485,7 +3746,7 @@ def phase_checkpoint(seed: int, card: str = ""):
             if not all(rng_equal.values()) or max(loss_rel.values()) > RESUME_LOSS_RTOL \
                     or diffs[0][0] > RESUME_PARAM_FRACTION * moved:
                 raise AssertionError(f"checkpoint: {name} resumed vs uninterrupted: generators equal {rng_equal}, "
-                                     f"loss rel {loss_rel}, largest param diffs {diffs[:5]} against the 4 updates' "
+                                     f"loss rel {loss_rel}, largest param diffs {diffs[:5]} against the updates' "
                                      f"{moved}")
             resumed_ms = [r["ms"] for r in resumed.records]
             preempt_rows[name] = {
@@ -3498,7 +3759,7 @@ def phase_checkpoint(seed: int, card: str = ""):
             del b
             mark(f"{name}_relaunch_and_compare")
 
-        # the round trip: the uninterrupted run's step 4 in memory, saved, loaded
+        # the round trip: the uninterrupted run's last step in memory, saved, loaded
         task = NodePredictionTask(cfg)
         trainer = task.build_trainer(image_shape=IMAGE_SHAPE, device="cuda")
         state = ckpt.restore_params_into_state(trainer, trainer.init_state(params=a["params"]), a, reset_optimizer=False)
@@ -3632,7 +3893,7 @@ def phase_checkpoint(seed: int, card: str = ""):
         row = {
             "phase": "checkpoint", "card": card,
             "config": "ModelConfig() (launch flags: run_train.sh 8 4 5 2 2 0, --freeze-initial-encoders, batch 12 x "
-                      "update_freq 3), bfloat16 compute, float32 params, 4 updates",
+                      f"update_freq 3), bfloat16 compute, float32 params, {CKPT_UPDATES} updates",
             "dataset": dataset, "preempted": preempt_rows,
             "checkpoint_bytes": ckpt_bytes, "expected_bytes": whole.expected_bytes, "sync_checkpoint_bytes": sync_bytes,
             "save_stall_ms": save_ms, "save_durable_ms": durable_ms, "sync_save_ms": sync_save_ms,
@@ -3640,7 +3901,7 @@ def phase_checkpoint(seed: int, card: str = ""):
             "update_ms_after_a_save": [r["ms"] for r in whole.records if r["update"] == 3],
             "scan_layout_bit_equal": scan_equal, "scan_layout_stacked_tensors": scan_tensors,
             "uninterrupted_update_ms_beside_the_preempted_runs": [r["ms"] for r in whole.records],
-            "loss_uninterrupted": la, "param_max_change_4_updates": moved,
+            "loss_uninterrupted": la, "param_max_change": moved,
             "param_elements": sum(v.numel() for v in whole.before.values()),
             "round_trip_byte_exact": True, "from_checkpoint_bit_equal": True, "server_bit_equal": True,
             "server_post_ms": post_ms, "eval_only_seconds": eval_s, "prediction_rows": int(m.group(1)),
@@ -4375,7 +4636,7 @@ def phase_weights_in(seed: int, card: str, root: str, ingest_run: dict) -> dict:
 
 
 # parallel: training across ranks through the launcher (one process per
-# rank, FairSeq's flags). The canonical bf16 runs (3 updates at lr 1e-4 from
+# rank, FairSeq's flags). The canonical bf16 runs (1 update at lr 1e-4 from
 # the first update: every step far above a float32 ulp) are held to the
 # one-process run: losses and gradient norms of every update within
 # RESUME_LOSS_RTOL, and the direction of the params' change: AdamW's step is
@@ -4391,7 +4652,7 @@ def phase_weights_in(seed: int, card: str, root: str, ingest_run: dict) -> dict:
 # within rtol 2e-4, the params after the first update in its two-tier check.
 # The gradient norm is what sees the scale of a reduction (a mean where a sum
 # belongs): AdamW's first step is about lr * sign(g) whatever that scale.
-PARALLEL_UPDATES = 3
+PARALLEL_UPDATES = 1  # the run's time limit keeps it short
 PARALLEL_SIGN_AGREEMENT = 0.95
 PARALLEL_LR = ["--lr", "1e-4", "--warmup-updates", "1"]
 TINY_UPDATES = 2
@@ -4815,7 +5076,7 @@ def phase_parallel(seed: int, card: str = ""):
     width on the canonical setting (frozen towers, global batch 12 x 3):
     - the kernels at H = 6 (a tp=2 rank's heads) against their plain versions;
     - the one-process runs every parallel run is held against, in this
-      process: canonical bf16 with dropout 0 (3 updates, a save), the tiny
+      process: canonical bf16 with dropout 0 (1 update, a save), the tiny
       float32 node and contrastive runs (2 updates, a save after each);
       and, with 2 or more cards, the bf16 noise witness: the canonical run
       in one rank's microbatches, reported beside the checks;
@@ -5047,12 +5308,12 @@ def phase_parallel(seed: int, card: str = ""):
 
 SP_RING_S = 2048  # the node ladder's top S here (trees of up to 2047 nodes): a multiple of 2 and 4
 SP_MIN_NODES, SP_MAX_NODES = 1500, 1800  # the discussions sp trains and scores
-SP_GRAPHS = 16  # 12 train: 6 microbatches of 2, 2 updates of 3 (23 and 3 updates before the workflows phase)
+SP_GRAPHS = 16  # 12 train: 6 microbatches of 2
 # with one card (gloo through the host): one microbatch of 2 an update, 6 train graphs
 SP_GRAPHS_ONE_CARD = 8
 SP_TEXT_LEN = 32  # tokens per comment (the collator's smallest text bucket)
 SP_IMAGE_PROB = 0.01
-SP_UPDATES = 2
+SP_UPDATES = 1  # the run's time limit keeps it short
 SP_DATA_FLAGS = ["--node-buckets", str(SP_RING_S - 1), "--node-capacity-buckets", "2048,4096",
                  "--image-capacity-buckets", "0,32,64,128", "--label-capacity-buckets", "2048,4096"]
 
@@ -5494,13 +5755,16 @@ def _worst(rows, outputs):
     return max(r[k]["bfloat16"][o]["max_abs_err"] for r in rows for k in ("errors", "errors_rate0") for o in outputs)
 
 
-def _worst_pair(rows, outputs):
-    """The CUDA-core pair's largest max-abs error of ``outputs``: its
-    float32 checks called directly at every shape, its bf16 checks at the
-    tower shapes and its bf16 route past S = 256, both rates."""
-    return max([r[k][name][o]["max_abs_err"] for r in rows for k in ("errors", "errors_rate0")
-                for name in ("float32_pair", "bfloat16_pair") if name in r[k] for o in outputs]
-               + [r[k]["bfloat16"][o]["max_abs_err"] for r in rows if r["kernel_route"]["bfloat16"] == "cuda_core"
+def _worst_tiled(tiled_rows, masked_rows, outputs):
+    """The tiled kernels' largest bf16 max-abs error of ``outputs``: every
+    shape of masked_vs_plain_tiled, their direct calls at the tower shapes
+    and the bf16 route past S = 256 in masked_vs_plain, both rates."""
+    return max([r[k]["bfloat16"][o]["max_abs_err"] for r in tiled_rows for k in ("errors", "errors_rate0")
+                for o in outputs]
+               + [r[k][name][o]["max_abs_err"] for r in masked_rows for k in ("errors", "errors_rate0")
+                  for name in ("bfloat16_tiled",) if name in r[k] for o in outputs]
+               + [r[k]["bfloat16"][o]["max_abs_err"] for r in masked_rows
+                  if r["kernel_route"]["bfloat16"] == "tensor_core_tiled"
                   for k in ("errors", "errors_rate0") for o in outputs])
 
 
@@ -5521,7 +5785,7 @@ WF_TWO_STAGE = dict(n_trees=60, stage1_updates=4, stage2_updates=12)
 # F1 1.0 at 600 updates, 0.950 at 400, 0.897 at 300, and stayed at the
 # all-positive 0.804 at 100: no count the run's time limit leaves room for
 # lets an arm learn, so the phase drives both arms and keeps them short)
-WF_ABLATION_UPDATES = 30
+WF_ABLATION_UPDATES = 15
 # the scripts' mini corpus: > 24 train trees for stage 1's 2 contrastive
 # updates of 12 (``--update-freq 1``; stage 2 keeps batch 12 x 3)
 WF_SCRIPT_TREES = 40
@@ -5932,7 +6196,8 @@ def phase_workflows(seed: int, card: str = "") -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--only", choices=("kernels", "parallel", "sequence_parallel", "workflows"), default=None,
+    p.add_argument("--only", choices=("kernels", "long_text", "parallel", "sequence_parallel", "workflows"),
+                   default=None,
                    help="build, then only this phase (for iterating on it; the kernels' summary is not printed); "
                         "kernels: the phases that hold every kernel against its plain version (kernel_vs_plain, "
                         "kernel_vs_plain_train, masked_vs_plain, biased_vs_plain)")
@@ -5966,13 +6231,13 @@ def main(argv=None) -> int:
     if args.only is not None:
         def kernels(seed, card):
             for name, fn in (("kernel", phase_kernel), ("kernel_train", phase_kernel_train), ("masked", phase_masked),
-                             ("biased", phase_biased)):
+                             ("masked_tiled", phase_masked_tiled), ("biased", phase_biased)):
                 clocked(name, fn, seed)
             emit({"phase": "seconds_by_phase", "card": card, "seconds": clock,
                   "total_seconds": time.perf_counter() - t_run})
 
-        {"kernels": kernels, "parallel": phase_parallel, "sequence_parallel": phase_sequence_parallel,
-         "workflows": phase_workflows}[args.only](args.seed, card)
+        {"kernels": kernels, "long_text": phase_long_text, "parallel": phase_parallel,
+         "sequence_parallel": phase_sequence_parallel, "workflows": phase_workflows}[args.only](args.seed, card)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
@@ -5980,9 +6245,11 @@ def main(argv=None) -> int:
         rows = clocked("kernel", phase_kernel, args.seed)
         train_rows, dh16_row = clocked("kernel_train", phase_kernel_train, args.seed)
         masked_rows = clocked("masked", phase_masked, args.seed)
+        tiled_rows = clocked("masked_tiled", phase_masked_tiled, args.seed)
         biased_rows, biased_dh16 = clocked("biased", phase_biased, args.seed)
         scorer, scoring, rng, unfused = clocked("scoring", phase_scoring, args.seed)
         scoring_fused = clocked("scoring_fused", phase_scoring_fused, unfused)
+        long_text = clocked("long_text_fused", phase_long_text, args.seed, card)
         clocked("latency", phase_latency, scorer, rng)
         del scorer, unfused
         torch.cuda.empty_cache()
@@ -6032,7 +6299,8 @@ def main(argv=None) -> int:
     big_rows = [r for r in train_rows if r["S"] >= 513]
     bf16 = train_row["errors"]["bfloat16"]
     ms = train_row["ms"]
-    long_row = next(r for r in masked_rows if r["shape"] == MASKED_LONG[0])  # bf16 there: the CUDA-core forward
+    long_row = next(r for r in masked_rows if r["shape"] == MASKED_LONG[0])  # bf16 there: the tiled kernels
+    tiled_plain = next(r for r in tiled_rows if r["shape"] == TILED_PLAIN_SHAPE)
     by_path = {"scoring": scoring, "train": train, "train_fused": train_fused, "train_big": train_big,
                "scoring_fused": scoring_fused, "train_cpu_agreement": agree, "train_cpu_agreement_fused": agree_fused,
                "dense_graph": dense["scoring"], "dense_graph_train": dense["training"],
@@ -6051,6 +6319,7 @@ def main(argv=None) -> int:
                "kernel_vs_plain_train_dh16_bfloat16": dh16_row["launches_bfloat16"],
                "masked_vs_plain_long_300_bfloat16": {
                    n: long_row["launches"][f"bfloat16_rate{MASKED_RATE}"].get(n, 0) for n in KERNEL_NAMES},
+               "long_text_fused_scoring": long_text["scoring"], "long_text_fused_train": long_text["train"],
                "biased_vs_plain_dh16_bfloat16": biased_dh16["launches"]}
 
     def paths(name, extra=None):
@@ -6244,36 +6513,38 @@ def main(argv=None) -> int:
          "note": "the bf16 route: launches from train_big; cuda_core_ms is K3 on the same inputs; times, plain_ms, "
                  "library_ms and max_abs_err as for tree_attention_bwd_dq_fused (dk and dv)"},
         {**_kernel_entry(
-            "masked_attention_fwd", MASKED_FWD_SOURCE, f"{TPU_MASKED}:86", [],
-            long_row["launches"][f"bfloat16_rate{MASKED_RATE}"]["masked_attention_fwd"], fusion_row,
-            max([r["float32_cuda_core_fwd"]["out"]["max_abs_err"] for r in masked_rows]
-                + [r[k]["bfloat16_pair"]["out"]["max_abs_err"] for r in masked_rows for k in ("errors", "errors_rate0")
-                   if "bfloat16_pair" in r[k]]
-                + [long_row[k]["bfloat16"]["out"]["max_abs_err"] for k in ("errors", "errors_rate0")]),
-            "fwd", mms["plain_fwd"], mms["library_fwd"], "fwd"),
-         "launches_by_path": paths("masked_attention_fwd"),
-         "float32": _float32_numbers(fusion_row, "fwd", "library_fwd", "fwd"),
-         "note": "the bf16 route at other DH and S > 256 (the float32 route's forward is the 3xTF32 one): launches "
-                 "from the bf16 check at S=300 (masked_vs_plain long_300, rate 0.3), 0 on every other path; times "
-                 "on bf16 inputs at the text-fusion shape (B=256, S=104), rate 0.3 with the row statistics "
-                 "(float32: the same on float32 inputs, called directly); library_ms is SDPA with the key-padding "
-                 "bias and dropout 0.3; max_abs_err over its float32 checks called directly at every shape, its "
-                 "bf16 checks at the tower shapes and at S=300"},
+            "masked_attention_fwd_tiled", MASKED_FWD_TILED_SOURCE, f"{TPU_MASKED}:86", [],
+            long_text["train"]["masked_attention_fwd_tiled"], tiled_plain, _worst_tiled(tiled_rows, masked_rows, ("out",)),
+            "fwd", tiled_plain["ms"]["plain_fwd"], tiled_plain["ms"]["library_fwd"], "fwd"),
+         "launches_by_path": paths("masked_attention_fwd_tiled"),
+         "by_shape": [{"shape": r["shape"], "B": r["B"], "S": r["S"], "H": r["H"], "dh": r["dh"], "ms": r["ms"]["fwd"],
+                       "library_ms": r["ms"]["library_fwd"], "bound_ms": r["bound"]["fwd"][0],
+                       "bound_by": r["bound"]["fwd"][1]} for r in tiled_rows],
+         "at_tower_shapes": {r["shape"]: {"B": r["B"], "S": r["S"], "ms": r["ms"]["fwd_tiled"],
+                                          "one_pass_ms": r["ms"]["fwd_fused"], "library_ms": r["ms"]["library_fwd"],
+                                          "bound_ms": r["bound"]["fwd"][0]}
+                             for r in masked_rows if r["shape"] in {m[0] for m in MASKED_SHAPES}},
+         "note": f"the bf16 route at DH 16, 32, 128 and S > 256 (tensor cores, K and V streamed): launches from the "
+                 f"long_text_fused update (ModelConfig() fused, text of {LONG_TEXT_LEN} tokens), 0 on the canonical "
+                 f"paths; times at {TILED_PLAIN_SHAPE} (B=8, S=300, H=12, DH 64), rate 0.3 with the row "
+                 f"statistics; library_ms is SDPA with the key-padding bias and dropout 0.3; by_shape: every "
+                 f"shape of masked_vs_plain_tiled; at_tower_shapes: called directly in the same call as the "
+                 f"one-pass forward; max_abs_err is the worst bf16 error of out over every shape it took, both rates"},
         {**_kernel_entry(
             "masked_attention_fwd_fused", MASKED_FWD_MMA_SOURCE, f"{TPU_MASKED}:86", [],
             train_big["masked_attention_fwd_fused"], fusion_row, _worst(fused_rows, ("out",)), "fwd_fused",
             mms["plain_fwd"], mms["library_fwd"], "fwd"),
          "launches_by_path": paths("masked_attention_fwd_fused"),
          "tp_h6": h6("tower", "fwd", "fwd", ("out",)),
-         "cuda_core_ms": mms["fwd"],
+         "tiled_ms": mms["fwd_tiled"],
          "tower_shapes": {r["shape"]: {"B": r["B"], "S": r["S"], "ms": r["ms"]["fwd_fused"],
-                                       "ms_rate0": r["ms"]["fwd_fused_rate0"], "cuda_core_ms": r["ms"]["fwd"],
+                                       "ms_rate0": r["ms"]["fwd_fused_rate0"], "tiled_ms": r["ms"]["fwd_tiled"],
                                        "plain_ms": r["ms"]["plain_fwd"], "library_ms": r["ms"]["library_fwd"],
                                        "bound_ms": r["bound"]["fwd"][0]}
                           for r in masked_rows if r["shape"] in {m[0] for m in MASKED_SHAPES}},
          "note": "the bf16 route (DH 64, S <= 256): launches from train_big; times at the text-fusion shape "
-                 "(B=256, S=104), rate 0.3 with the row statistics; cuda_core_ms is the CUDA-core forward on the "
-                 "same inputs; library_ms is SDPA with the key-padding bias and dropout 0.3; max_abs_err is the "
+                 "(B=256, S=104), rate 0.3 with the row statistics; tiled_ms is the tiled tensor-core forward on "
+                 "the same inputs; library_ms is SDPA with the key-padding bias and dropout 0.3; max_abs_err is the "
                  "worst bf16 error of out over every shape it takes and both rates",
          "shapes": masked_rows},
         {**_kernel_entry(
@@ -6283,9 +6554,7 @@ def main(argv=None) -> int:
             "fwd_tf32", fusion_row["float32"]["ms"]["plain_fwd"], fusion_row["float32"]["ms"]["library_fwd"], "fwd"),
          "launches_by_path": paths("masked_attention_fwd_tf32"),
          "bound_3xtf32_ms": fusion_row["float32"]["bound_3xtf32"]["fwd"][0],
-         "cuda_core_ms": fusion_row["float32"]["ms"]["fwd"],
          "tower_shapes": {r["shape"]: {"B": r["B"], "S": r["S"], "ms": r["float32"]["ms"]["fwd_tf32"],
-                                       "cuda_core_ms": r["float32"]["ms"]["fwd"],
                                        "plain_ms": r["float32"]["ms"]["plain_fwd"],
                                        "library_ms": r["float32"]["ms"]["library_fwd"],
                                        "bound_f32_ms": r["float32"]["bound"]["fwd"][0],
@@ -6294,31 +6563,40 @@ def main(argv=None) -> int:
                           for r in masked_rows if r["shape"] in {m[0] for m in MASKED_SHAPES}},
          "note": "the float32 route's forward (any DH, any S), 3xTF32 on mma.sync, before the 3xTF32 pair: "
                  "launches from train_cpu_agreement_fused, 0 on the bf16 paths; times on float32 inputs at the "
-                 "text-fusion shape (B=256, S=104), rate 0.3 with the row statistics; cuda_core_ms is the CUDA-core "
-                 "forward on the same inputs; bound_ms is the float32 bound (67 TFLOP/s), bound_3xtf32_ms three "
+                 "text-fusion shape (B=256, S=104), rate 0.3 with the row statistics; bound_ms is the float32 bound (67 TFLOP/s), bound_3xtf32_ms three "
                  "TF32 products per float32 one at 494.7 TFLOP/s; plain_ms is the plain version in float32; "
                  "library_ms is SDPA in float32 with the key-padding bias and dropout 0.3; max_abs_err is the "
                  "worst float32 error of out over every shape (S=300 included) and both rates"},
         {**_kernel_entry(
-            "masked_attention_bwd_dq", MASKED_BWD_SOURCE, f"{TPU_MASKED}:134", [],
-            long_row["launches"][f"bfloat16_rate{MASKED_RATE}"]["masked_attention_bwd_dq"],
-            fusion_row, _worst_pair(masked_rows, ("dq",)), "dq", mms["plain_bwd"], mms["library_fwd_bwd"], "dq"),
-         "launches_by_path": paths("masked_attention_bwd_dq"),
-         "float32": _float32_numbers(fusion_row, "dq", "library_fwd_bwd", "dq"),
-         "note": "the bf16 route at other DH and S > 256 (the float32 route's backward is the 3xTF32 pair): "
-                 "launches from the bf16 check at S=300 (masked_vs_plain long_300, rate 0.3), 0 on every other "
-                 "path; times on bf16 inputs at the text-fusion shape (float32: on float32 inputs, called "
-                 "directly); plain_ms is the plain version's whole autograd backward (dq, dk, dv); library_ms is "
-                 "SDPA forward + backward at rate 0 with the key-padding bias; max_abs_err over its float32 checks "
-                 "called directly at every shape, its bf16 checks at the tower shapes and at S=300"},
+            "masked_attention_bwd_dq_tiled", MASKED_BWD_TILED_SOURCE, f"{TPU_MASKED}:134", [],
+            long_text["train"]["masked_attention_bwd_dq_tiled"], tiled_plain,
+            _worst_tiled(tiled_rows, masked_rows, ("dq",)), "dq", tiled_plain["ms"]["plain_bwd"],
+            tiled_plain["ms"]["library_fwd_bwd"], "dq"),
+         "launches_by_path": paths("masked_attention_bwd_dq_tiled"),
+         "by_shape": [{"shape": r["shape"], "B": r["B"], "S": r["S"], "H": r["H"], "dh": r["dh"],
+                       "dq_ms": r["ms"]["dq"], "dkv_ms": r["ms"]["dkv"], "pair_ms": r["ms"]["pair"],
+                       "fwd_pair_ms": r["ms"]["fwd_pair"], "library_fwd_bwd_ms": r["ms"]["library_fwd_bwd"],
+                       "library_fwd_bwd_rate_ms": r["ms"]["library_fwd_bwd_rate"],
+                       "bound_ms": [r["bound"][n][0] for n in ("dq", "dkv")],
+                       "bound_by": [r["bound"][n][1] for n in ("dq", "dkv")]} for r in tiled_rows],
+         "at_tower_shapes": {r["shape"]: {"B": r["B"], "S": r["S"], "dq_ms": r["ms"]["dq_tiled"],
+                                          "dkv_ms": r["ms"]["dkv_tiled"], "pair_ms": r["ms"]["pair_tiled"],
+                                          "one_pass_ms": r["ms"]["bwd_fused"],
+                                          "library_fwd_bwd_rate_ms": r["ms"]["library_fwd_bwd_rate"]}
+                             for r in masked_rows if r["shape"] in {m[0] for m in MASKED_SHAPES}},
+         "note": "the tiled pair's q-major kernel (dq and D = g . out): launches from the long_text_fused update, 0 "
+                 "on the canonical paths; times at the shape of masked_attention_fwd_tiled's, rate 0.3; plain_ms "
+                 "is the plain version's whole autograd backward (dq, dk, dv); library_ms is SDPA forward + "
+                 "backward at rate 0 with the key-padding bias; max_abs_err is the worst bf16 error of dq over "
+                 "every shape it took, both rates"},
         {**_kernel_entry(
-            "masked_attention_bwd_dkv", MASKED_BWD_SOURCE, f"{TPU_MASKED}:134", [],
-            long_row["launches"][f"bfloat16_rate{MASKED_RATE}"]["masked_attention_bwd_dkv"],
-            fusion_row, _worst_pair(masked_rows, ("dk", "dv")), "dkv", mms["plain_bwd"], mms["library_fwd_bwd"],
-            "dkv"),
-         "launches_by_path": paths("masked_attention_bwd_dkv"),
-         "float32": _float32_numbers(fusion_row, "dkv", "library_fwd_bwd", "dkv"),
-         "note": "as for masked_attention_bwd_dq"},
+            "masked_attention_bwd_dkv_tiled", MASKED_BWD_TILED_SOURCE, f"{TPU_MASKED}:134", [],
+            long_text["train"]["masked_attention_bwd_dkv_tiled"], tiled_plain,
+            _worst_tiled(tiled_rows, masked_rows, ("dk", "dv")), "dkv", tiled_plain["ms"]["plain_bwd"],
+            tiled_plain["ms"]["library_fwd_bwd"], "dkv"),
+         "launches_by_path": paths("masked_attention_bwd_dkv_tiled"),
+         "note": "the tiled pair's k-major kernel (dk, dv): as for masked_attention_bwd_dq_tiled (max_abs_err: dk "
+                 "and dv; by_shape there)"},
         {**_kernel_entry(
             "masked_attention_bwd_dq_tf32", MASKED_BWD_TF32_SOURCE, f"{TPU_MASKED}:134", [],
             agree_fused["masked_attention_bwd_dq_tf32"], fusion_row["float32"],
@@ -6326,13 +6604,9 @@ def main(argv=None) -> int:
             fusion_row["float32"]["ms"]["library_fwd_bwd_rate"], "dq"),
          "launches_by_path": paths("masked_attention_bwd_dq_tf32"),
          "bound_3xtf32_ms": fusion_row["float32"]["bound_3xtf32"]["dq"][0],
-         "cuda_core_ms": fusion_row["float32"]["ms"]["dq"],
          "tower_shapes": {r["shape"]: {"B": r["B"], "S": r["S"], "dq_ms": r["float32"]["ms"]["dq_tf32"],
                                        "dkv_ms": r["float32"]["ms"]["dkv_tf32"],
                                        "pair_ms": r["float32"]["ms"]["pair_tf32"],
-                                       "cuda_core_dq_ms": r["float32"]["ms"]["dq"],
-                                       "cuda_core_dkv_ms": r["float32"]["ms"]["dkv"],
-                                       "cuda_core_pair_ms": r["float32"]["ms"]["pair"],
                                        "fwd_tf32_ms": r["float32"]["ms"]["fwd_tf32"],
                                        "plain_bwd_ms": r["float32"]["ms"]["plain_bwd"],
                                        "library_fwd_bwd_rate_ms": r["float32"]["ms"]["library_fwd_bwd_rate"],
@@ -6343,8 +6617,7 @@ def main(argv=None) -> int:
                           for r in masked_rows if r["shape"] in {m[0] for m in MASKED_SHAPES}},
          "note": "the float32 route's backward (any DH, any S), 3xTF32 on mma.sync: launches from "
                  "train_cpu_agreement_fused, 0 on the bf16 paths; times on float32 inputs at the text-fusion shape "
-                 "(B=256, S=104), rate 0.3; cuda_core_ms is the CUDA-core dq kernel on the same inputs; bound_ms "
-                 "is the float32 bound (67 TFLOP/s), bound_3xtf32_ms three TF32 products per float32 one at 494.7 "
+                 "(B=256, S=104), rate 0.3; bound_ms is the float32 bound (67 TFLOP/s), bound_3xtf32_ms three TF32 products per float32 one at 494.7 "
                  "TFLOP/s; plain_ms is the plain version's whole autograd backward in float32; library_ms is SDPA "
                  "forward + backward in float32 at rate 0.3 with the key-padding bias; max_abs_err is the worst "
                  "float32 error of dq over every shape (S=300 included) and both rates; tower_shapes: the pair at "
@@ -6356,7 +6629,6 @@ def main(argv=None) -> int:
             fusion_row["float32"]["ms"]["library_fwd_bwd_rate"], "dkv"),
          "launches_by_path": paths("masked_attention_bwd_dkv_tf32"),
          "bound_3xtf32_ms": fusion_row["float32"]["bound_3xtf32"]["dkv"][0],
-         "cuda_core_ms": fusion_row["float32"]["ms"]["dkv"],
          "note": "the 3xTF32 dk/dv kernel; launches, times, bounds, plain_ms and library_ms as for "
                  "masked_attention_bwd_dq_tf32 (max_abs_err: dk and dv)"},
         {**_kernel_entry(
@@ -6366,10 +6638,10 @@ def main(argv=None) -> int:
          "launches_by_path": paths("masked_attention_bwd_fused"),
          "tp_h6": {**h6("tower", "fwd_bwd", "bwd_fused", ("dq", "dk", "dv")),
                    "note": "ms and plain_ms: forward + backward at H = 6; bound_ms: the one-pass backward's"},
-         "pair_ms": mms["pair"],
+         "tiled_pair_ms": mms["pair_tiled"],
          "vit_fusion": {k: vit_row[k] for k in ("B", "S", "ms", "bound")},
          "note": "the bf16 route (DH 64, S <= 256): launches from train_big; times at the text-fusion shape "
-                 "(B=256, S=104), rate 0.3; pair_ms is the CUDA-core pair (dq + dk/dv) on the same inputs; "
+                 "(B=256, S=104), rate 0.3; tiled_pair_ms is the tiled pair (dq + dk/dv) on the same inputs; "
                  "library_ms is SDPA forward + backward at rate 0.3 with the key-padding bias; max_abs_err is the "
                  "worst bf16 error of dq, dk, dv over every shape and both rates"},
         {"name": "biased_attention_fwd", "route": "cuda", "source": BIASED_FWD_SOURCE, "replaces": f"{TPU_BIASED}:61",
@@ -6428,16 +6700,13 @@ def main(argv=None) -> int:
                  "plain version in float32; library_ms is SDPA in float32 with the combined bias as a float mask; "
                  "max_abs_err is the worst float32 forward error over every shape and bias kind"},
     ]
-    # the CUDA-core routes at the bf16 shapes they serve now, beside SDPA in
-    # bf16 and the bf16 bound: the tree's at DH 16, the tower's at S = 300
-    tree16, long16 = dh16_row["bfloat16_cuda_core"], long_row["bfloat16_cuda_core"]
+    # the CUDA-core tree route at the bf16 shapes it serves now, beside
+    # SDPA in bf16 and the bf16 bound: DH 16
+    tree16 = dh16_row["bfloat16_cuda_core"]
     at_route = {
         "tree_attention_fwd": {**DH16_SHAPE, **tree16, "ms_key": "fwd"},
         "tree_attention_bwd_dq": {**DH16_SHAPE, **tree16, "ms_key": "dq"},
         "tree_attention_bwd_dkv": {**DH16_SHAPE, **tree16, "ms_key": "dkv"},
-        "masked_attention_fwd": {"S": long_row["S"], "B": long_row["B"], **long16, "ms_key": "fwd"},
-        "masked_attention_bwd_dq": {"S": long_row["S"], "B": long_row["B"], **long16, "ms_key": "pair"},
-        "masked_attention_bwd_dkv": {"S": long_row["S"], "B": long_row["B"], **long16, "ms_key": "pair"},
     }
     for k in kernels:
         if k["name"] in at_route:

@@ -29,8 +29,8 @@
 // HBM time against 3.3 us. Bytes bound it on the card; on CUDA cores (this
 // design, 67 TFLOP/s at most: 48 us at S = 1025) arithmetic does.
 //
-// Design: the tower forward (masked_attention_fwd.cu) with its 64-key bias
-// vector replaced by the (S, S) bias plane. One block per (64-row q tile,
+// Design: the first port's CUDA-core tower forward (retired since) with its
+// 64-key bias vector replaced by the (S, S) bias plane. One block per (64-row q tile,
 // head, batch row), 8 warps of 8 rows each; the block loops over 64-key
 // tiles of K and V staged in shared memory as f32 (K transposed with a
 // padded row) with the tile's 64 pad terms beside them. Each lane scores 2

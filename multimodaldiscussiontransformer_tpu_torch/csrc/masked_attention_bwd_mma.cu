@@ -3,9 +3,10 @@
 //
 // Replaces the Pallas kernel `_make_bwd_kernel` of the JAX package
 // (multimodaldiscussiontransformer_tpu/ops/masked_attention.py:134), which
-// computes dq, dk and dv in one pass over whole-S blocks. The function is
-// that of masked_attention_bwd.cu (the CUDA-core pair that still serves
-// float32, other DH and longer S): with the forward's row statistics m and
+// computes dq, dk and dv in one pass over whole-S blocks, at the tower
+// shapes of the model; the pair of masked_attention_bwd_tiled.cu serves
+// bf16 at other DH and longer S, that of masked_attention_bwd_tf32.cu
+// float32. With the forward's row statistics m and
 // log l, D_i = g_i . out_i and the forward's Philox keep mask,
 //   p_ij  = exp(((s_ij + max(kb_j, -1e9)) - m_i) - log l_i),  s = scale q.k
 //   pd_ij = keep_ij p_ij / (1 - rate)
@@ -44,8 +45,8 @@
 // - Shared tiles are 128-byte rows with the 16-byte chunk index XORed by
 //   (row % 8), so ldmatrix and the dS stores are free of bank conflicts.
 //
-// What this does about each limit of the CUDA-core pair
-// (masked_attention_bwd.cu): (1) every product runs on tensor cores; (2) an
+// What this does about each limit of the first port's CUDA-core pair
+// (retired since): (1) every product runs on tensor cores; (2) an
 // ldmatrix.x4 feeds 2-4 mma of 16x8x16 instead of one shared load per FMA,
 // and no shuffles carry operands; (3) bf16 stays bf16 in shared memory
 // (16-byte cp.async, no transposed scalar stores), ~91 KB a block; (4) the

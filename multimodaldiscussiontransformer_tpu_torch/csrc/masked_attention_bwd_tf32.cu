@@ -4,12 +4,10 @@
 //
 // Replaces the Pallas kernel `_make_bwd_kernel` of the JAX package
 // (multimodaldiscussiontransformer_tpu/ops/masked_attention.py:134) on the
-// float32 route, as masked_attention_bwd_mma.cu does on the bf16 one. It
-// takes the float32 backward over from the CUDA-core pair
-// masked_attention_bwd.cu, which now serves bf16 at other DH and at S > 256
-// only.
+// float32 route, as masked_attention_bwd_mma.cu and the pair of
+// masked_attention_bwd_tiled.cu do on the bf16 one.
 //
-// Function, that of masked_attention_bwd.cu: with the row statistics m_i
+// Function, that of masked_attention_bwd_mma.cu: with the row statistics m_i
 // and log l_i that either tower forward stores (stats (2, B, H, S)), D_i =
 // g_i . out_i and the forwards' Philox keep mask (counter (j / 4, i, h, b) of
 // tree_attention_common.cuh, regenerated bit for bit),

@@ -3,9 +3,9 @@
 //
 // Replaces the Pallas kernel `_make_fwd_kernel` of the JAX package
 // (multimodaldiscussiontransformer_tpu/ops/masked_attention.py:86), the fused
-// self-attention of the BERT and ViT tower layers. The function is that of
-// masked_attention_fwd.cu (the CUDA-core kernel that still serves float32,
-// other DH and longer S). For each (b, h, i):
+// self-attention of the BERT and ViT tower layers, at the tower shapes of
+// the model; masked_attention_fwd_tiled.cu serves bf16 at other DH and
+// longer S, and masked_attention_fwd_tf32.cu float32. For each (b, h, i):
 //   s_ij  = (q_i . k_j) * scale + max(kb[b, j], -1e9)    (kb = 0 when null)
 //   m_i   = max(-1e9, max_j s_ij)
 //   l_i   = max(sum_j exp(s_ij - m_i), 1e-30)            (the UNDROPPED sum, f32)
@@ -50,8 +50,8 @@
 // - The output tile is written once in bf16: staged through the warp's own
 //   (no longer needed) Q rows, then stored with 16-byte coalesced writes.
 //
-// What this does about each limit of the CUDA-core kernel
-// (masked_attention_fwd.cu): (1) K and V stay bf16 in shared memory, staged
+// What this does about each limit of the first port's CUDA-core kernel
+// (retired since): (1) K and V stay bf16 in shared memory, staged
 // by 16-byte cp.async, with no transposed scalar stores (K^T comes from
 // ldmatrix); (2) every product runs on tensor cores, an ldmatrix.x4 feeding
 // two mma of 16x8x16 instead of one shared load per FMA; (3) no shuffle

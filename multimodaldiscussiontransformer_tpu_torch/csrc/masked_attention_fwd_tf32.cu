@@ -5,12 +5,11 @@
 // Replaces the Pallas kernel `_make_fwd_kernel` of the JAX package
 // (multimodaldiscussiontransformer_tpu/ops/masked_attention.py:86), the
 // fused self-attention of the BERT and ViT tower layers, on the float32
-// route, as masked_attention_fwd_mma.cu does on the bf16 one. It takes the
-// float32 forward over from the CUDA-core kernel masked_attention_fwd.cu,
-// which now serves bf16 at other DH and at S > 256 only. Its statistics
-// feed the 3xTF32 backward pair masked_attention_bwd_tf32.cu.
+// route, as masked_attention_fwd_mma.cu and masked_attention_fwd_tiled.cu
+// do on the bf16 one. Its statistics feed the 3xTF32 backward pair
+// masked_attention_bwd_tf32.cu.
 //
-// Function, that of masked_attention_fwd.cu, for each (b, h, i):
+// Function, that of masked_attention_fwd_mma.cu, for each (b, h, i):
 //   s_ij  = (scale q_i) . k_j + max(kb[b, j], -1e9)     (q scaled in f32;
 //                                                         kb = 0 when null;
 //                                                         keys >= S: -inf)

@@ -34,12 +34,12 @@ SOURCES = {
     "tree_bwd": CSRC / "tree_attention_bwd.cu",
     "tree_bwd_mma": CSRC / "tree_attention_bwd_mma.cu",
     "tree_bwd_tf32": CSRC / "tree_attention_bwd_tf32.cu",
-    "masked_fwd": CSRC / "masked_attention_fwd.cu",
     "masked_fwd_mma": CSRC / "masked_attention_fwd_mma.cu",
     "masked_fwd_tf32": CSRC / "masked_attention_fwd_tf32.cu",
-    "masked_bwd": CSRC / "masked_attention_bwd.cu",
+    "masked_fwd_tiled": CSRC / "masked_attention_fwd_tiled.cu",
     "masked_bwd_mma": CSRC / "masked_attention_bwd_mma.cu",
     "masked_bwd_tf32": CSRC / "masked_attention_bwd_tf32.cu",
+    "masked_bwd_tiled": CSRC / "masked_attention_bwd_tiled.cu",
     "biased_fwd": CSRC / "biased_attention_fwd.cu",
     "biased_fwd_mma": CSRC / "biased_attention_fwd_mma.cu",
     "biased_fwd_tf32": CSRC / "biased_attention_fwd_tf32.cu",
@@ -67,13 +67,14 @@ ENTRY_POINTS = {
                      "tree_attention_bwd_dkv_mma": [_P] * 11 + _TREE_TAIL},
     "tree_bwd_tf32": {"tree_attention_bwd_dq_tf32": [_P] * 12 + _TREE_TAIL,
                       "tree_attention_bwd_dkv_tf32": [_P] * 11 + _TREE_TAIL},
-    "masked_fwd": {"masked_attention_fwd": [_P] * 6 + _MASKED_TAIL},
     "masked_fwd_mma": {"masked_attention_fwd_mma": [_P] * 6 + _MASKED_TAIL},
     "masked_fwd_tf32": {"masked_attention_fwd_tf32": [_P] * 6 + _MASKED_TAIL},
-    "masked_bwd": {"masked_attention_bwd_dq": [_P] * 9 + _MASKED_TAIL, "masked_attention_bwd_dkv": [_P] * 9 + _MASKED_TAIL},
+    "masked_fwd_tiled": {"masked_attention_fwd_tiled": [_P] * 6 + _MASKED_TAIL},
     "masked_bwd_mma": {"masked_attention_bwd_mma": [_P] * 10 + _MASKED_TAIL},
     "masked_bwd_tf32": {"masked_attention_bwd_dq_tf32": [_P] * 9 + _MASKED_TAIL,
                         "masked_attention_bwd_dkv_tf32": [_P] * 9 + _MASKED_TAIL},
+    "masked_bwd_tiled": {"masked_attention_bwd_dq_tiled": [_P] * 9 + _MASKED_TAIL,
+                         "masked_attention_bwd_dkv_tiled": [_P] * 9 + _MASKED_TAIL},
     # (q, k, v, bias, pad, out, B, H, S, DH, bias_heads, scale, dtype, bias_dtype, stream)
     "biased_fwd": {"biased_attention_fwd": _BIASED_ARGS},
     "biased_fwd_mma": {"biased_attention_fwd_mma": _BIASED_ARGS},
@@ -86,12 +87,12 @@ ERROR_STRINGS = {
     "tree_bwd": "tree_attention_bwd_error_string",
     "tree_bwd_mma": "tree_attention_bwd_mma_error_string",
     "tree_bwd_tf32": "tree_attention_bwd_tf32_error_string",
-    "masked_fwd": "masked_attention_fwd_error_string",
     "masked_fwd_mma": "masked_attention_fwd_mma_error_string",
     "masked_fwd_tf32": "masked_attention_fwd_tf32_error_string",
-    "masked_bwd": "masked_attention_bwd_error_string",
+    "masked_fwd_tiled": "masked_attention_fwd_tiled_error_string",
     "masked_bwd_mma": "masked_attention_bwd_mma_error_string",
     "masked_bwd_tf32": "masked_attention_bwd_tf32_error_string",
+    "masked_bwd_tiled": "masked_attention_bwd_tiled_error_string",
     "biased_fwd": "biased_attention_fwd_error_string",
     "biased_fwd_mma": "biased_attention_fwd_mma_error_string",
     "biased_fwd_tf32": "biased_attention_fwd_tf32_error_string",

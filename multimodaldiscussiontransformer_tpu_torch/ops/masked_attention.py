@@ -29,9 +29,12 @@ them cannot drift apart:
   then dk and dv), every product on mma.sync in 3xTF32 (each operand split
   into two TF32 parts, the three larger cross products summed in f32), which
   holds the float32 tolerances that bf16 rounding of p and ds would break;
-- "cuda_core": bf16 at other DH and longer S. The forward is
-  ``csrc/masked_attention_fwd.cu`` and the backward the two kernels of
-  ``csrc/masked_attention_bwd.cu`` (dq, then dk and dv) on CUDA cores.
+- "tensor_core_tiled": bf16 at other DH and longer S (a text tower at 512
+  positions, DH 16, 32, 128). The forward is
+  ``csrc/masked_attention_fwd_tiled.cu`` and the backward the two kernels of
+  ``csrc/masked_attention_bwd_tiled.cu`` (dq, then dk and dv), on mma.sync
+  with bf16 operands, K and V (or Q and G) streamed in tiles, so shared
+  memory does not grow with S.
 The kernels are built and bound by ``ops/cuda_lib.py``; on a CUDA tensor
 the wrapper launches them or raises.
 
@@ -116,6 +119,8 @@ TENSOR_CORE_HEAD_DIM = 64
 TENSOR_CORE_MAX_S = 256
 # the 3xTF32 forward and backward pair take this, at every DH and S
 TF32_DTYPE = torch.float32
+# the tiled tensor-core forward and backward pair take this, at every DH and S
+TILED_DTYPE = torch.bfloat16
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int, s: int) -> str:
@@ -126,25 +131,30 @@ def kernel_route(dtype: torch.dtype, head_dim: int, s: int) -> str:
     - "tf32" for float32 (``masked_attention_fwd_tf32``, then
       ``masked_attention_bwd_dq_tf32`` and ``masked_attention_bwd_dkv_tf32``,
       3xTF32 on tensor cores, any DH and S);
-    - "cuda_core" for bf16 at other DH or longer S (``masked_attention_fwd``,
-      then ``masked_attention_bwd_dq`` and ``masked_attention_bwd_dkv``, f32
-      arithmetic on CUDA cores).
+    - "tensor_core_tiled" for bf16 at other DH or longer S
+      (``masked_attention_fwd_tiled``, then ``masked_attention_bwd_dq_tiled``
+      and ``masked_attention_bwd_dkv_tiled``, bf16 on tensor cores with K
+      and V streamed in tiles).
     A choice between kernels, not a fallback: each raises if it fails."""
     if dtype == TF32_DTYPE:
         return "tf32"
     tensor_core = dtype == TENSOR_CORE_DTYPE and head_dim == TENSOR_CORE_HEAD_DIM and 1 <= s <= TENSOR_CORE_MAX_S
-    return "tensor_core" if tensor_core else "cuda_core"
+    return "tensor_core" if tensor_core else "tensor_core_tiled"
 
 
 def _check_tensor_core_inputs(kernel: str, q, *tensors, route: str = "tensor_core") -> None:
     """What the tensor-core kernels take besides ``_check_cuda_inputs``: the
-    dtype (and, for "tensor_core", the head dim and length) of their
-    ``route``, CUDA tensors, and q, k, v (and g, out) 16-byte aligned for
-    their 16-byte copies."""
+    dtype of their ``route`` (for "tensor_core" also its head dim and
+    length; the tiled kernels take bf16 at every DH and S), CUDA tensors,
+    and q, k, v (and g, out) 16-byte aligned for their 16-byte copies."""
     _, _, s, dh = q.shape
-    if kernel_route(q.dtype, dh, s) != route:
+    if route == "tensor_core_tiled":
+        ok, takes = q.dtype == TILED_DTYPE, f"{TILED_DTYPE}"
+    else:
+        ok = kernel_route(q.dtype, dh, s) == route
         takes = (f"{TF32_DTYPE}" if route == "tf32"
                  else f"{TENSOR_CORE_DTYPE} at DH={TENSOR_CORE_HEAD_DIM} and S <= {TENSOR_CORE_MAX_S}")
+    if not ok:
         raise ValueError(f"the {kernel} takes {takes}, got {q.dtype} DH={dh} S={s}")
     if any(t.data_ptr() % 16 for t in (q, *tensors)):
         raise ValueError(f"the {kernel} takes 16-byte aligned q, k, v, g and out")
@@ -156,70 +166,61 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def masked_attention_fwd(
-    q, k, v, key_bias, scale: float, rate: float = 0.0, seed: int = 0, with_stats: bool = False,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch the CUDA-core forward kernel, the "cuda_core" route's (it takes
-    float32 too): (out, stats or None), stats f32 (2, B, H, S) holding each
-    row's max and the log of its (undropped) sum, for the backward.
-    ``launches`` counts launches."""
-    _check_cuda_inputs(q, k, v, key_bias)
+def _launch_fwd(wrapper, entry: Tuple[str, str], q, k, v, key_bias, scale, rate, seed, with_stats):
+    """Allocate out (and the statistics when asked), launch the forward
+    ``entry`` (library, C function; every forward takes one signature) and
+    count the launch on ``wrapper``."""
     b, h, s, dh = q.shape
     out = torch.empty_like(q)
     stats = torch.empty(2, b, h, s, dtype=torch.float32, device=q.device) if with_stats else None
     if out.numel() == 0:
         return out, stats
     cuda_lib.launch(
-        "masked_fwd", "masked_attention_fwd", q.device,
+        *entry, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_bias), out.data_ptr(), _ptr(stats),
         b, h, s, dh, float(scale), *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
     )
-    count_launch(masked_attention_fwd)
+    count_launch(wrapper)
     return out, stats
 
 
 def masked_attention_fwd_fused(
     q, k, v, key_bias, scale: float, rate: float = 0.0, seed: int = 0, with_stats: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch the tensor-core forward kernel: (out, stats or None), as
-    ``masked_attention_fwd`` returns them. Takes CUDA tensors that
-    ``kernel_route`` sends to "tensor_core" only."""
+    """Launch the tensor-core forward kernel: (out, stats or None), stats f32
+    (2, B, H, S) holding each row's max and the log of its (undropped) sum,
+    for the backward. Takes CUDA tensors that ``kernel_route`` sends to
+    "tensor_core" only. ``launches`` counts launches, here and on every
+    wrapper of ``KERNELS``."""
     _check_cuda_inputs(q, k, v, key_bias)
     _check_tensor_core_inputs("tensor-core forward", q, k, v)
-    b, h, s, dh = q.shape
-    out = torch.empty_like(q)
-    stats = torch.empty(2, b, h, s, dtype=torch.float32, device=q.device) if with_stats else None
-    if out.numel() == 0:
-        return out, stats
-    cuda_lib.launch(
-        "masked_fwd_mma", "masked_attention_fwd_mma", q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_bias), out.data_ptr(), _ptr(stats),
-        b, h, s, dh, float(scale), *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
-    )
-    count_launch(masked_attention_fwd_fused)
-    return out, stats
+    return _launch_fwd(masked_attention_fwd_fused, ("masked_fwd_mma", "masked_attention_fwd_mma"), q, k, v,
+                       key_bias, scale, rate, seed, with_stats)
 
 
 def masked_attention_fwd_tf32(
     q, k, v, key_bias, scale: float, rate: float = 0.0, seed: int = 0, with_stats: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the 3xTF32 forward kernel: (out, stats or None), as
-    ``masked_attention_fwd`` returns them. Takes float32 CUDA tensors (the
-    "tf32" route, any DH and S), with q, k and v 16-byte aligned."""
+    ``masked_attention_fwd_fused`` returns them. Takes float32 CUDA tensors
+    (the "tf32" route, any DH and S), with q, k and v 16-byte aligned."""
     _check_cuda_inputs(q, k, v, key_bias)
     _check_tensor_core_inputs("3xTF32 forward", q, k, v, route="tf32")
-    b, h, s, dh = q.shape
-    out = torch.empty_like(q)
-    stats = torch.empty(2, b, h, s, dtype=torch.float32, device=q.device) if with_stats else None
-    if out.numel() == 0:
-        return out, stats
-    cuda_lib.launch(
-        "masked_fwd_tf32", "masked_attention_fwd_tf32", q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_bias), out.data_ptr(), _ptr(stats),
-        b, h, s, dh, float(scale), *dropout_args(seed, rate), DTYPE_CODES[q.dtype],
-    )
-    count_launch(masked_attention_fwd_tf32)
-    return out, stats
+    return _launch_fwd(masked_attention_fwd_tf32, ("masked_fwd_tf32", "masked_attention_fwd_tf32"), q, k, v,
+                       key_bias, scale, rate, seed, with_stats)
+
+
+def masked_attention_fwd_tiled(
+    q, k, v, key_bias, scale: float, rate: float = 0.0, seed: int = 0, with_stats: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the tiled tensor-core forward kernel: (out, stats or None), as
+    ``masked_attention_fwd_fused`` returns them. Takes bf16 CUDA tensors at
+    any DH and S (the route sends it bf16 outside the one-pass kernel's
+    range), with q, k and v 16-byte aligned."""
+    _check_cuda_inputs(q, k, v, key_bias)
+    _check_tensor_core_inputs("tiled tensor-core forward", q, k, v, route="tensor_core_tiled")
+    return _launch_fwd(masked_attention_fwd_tiled, ("masked_fwd_tiled", "masked_attention_fwd_tiled"), q, k, v,
+                       key_bias, scale, rate, seed, with_stats)
 
 
 def _launch_dq(wrapper, entry: Tuple[str, str], q, k, v, out, g, key_bias, stats, scale, rate, seed):
@@ -258,33 +259,13 @@ def _launch_dkv(wrapper, entry: Tuple[str, str], q, k, v, g, key_bias, stats, de
     return dk, dv
 
 
-def masked_attention_bwd_dq(
-    q, k, v, out, g, key_bias, stats, scale: float, rate: float = 0.0, seed: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA-core q-major backward kernel, the "cuda_core"
-    route's (it takes float32 too): (dq, delta f32 (B, H, S), the per-row g
-    . out that ``masked_attention_bwd_dkv`` takes)."""
-    _check_cuda_inputs(q, k, v, key_bias, out=out, g=g, stats=stats)
-    return _launch_dq(masked_attention_bwd_dq, ("masked_bwd", "masked_attention_bwd_dq"), q, k, v, out, g,
-                      key_bias, stats, scale, rate, seed)
-
-
-def masked_attention_bwd_dkv(
-    q, k, v, g, key_bias, stats, delta, scale: float, rate: float = 0.0, seed: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA-core k-major backward kernel: (dk, dv)."""
-    _check_cuda_inputs(q, k, v, key_bias, g=g, stats=stats, delta=delta)
-    return _launch_dkv(masked_attention_bwd_dkv, ("masked_bwd", "masked_attention_bwd_dkv"), q, k, v, g, key_bias,
-                       stats, delta, scale, rate, seed)
-
-
 def masked_attention_bwd_dq_tf32(
     q, k, v, out, g, key_bias, stats, scale: float, rate: float = 0.0, seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the 3xTF32 q-major backward kernel: (dq, delta), as
-    ``masked_attention_bwd_dq`` returns them. Takes float32 CUDA tensors
-    (the "tf32" route, any DH and S), with q, k, v, out and g 16-byte
-    aligned."""
+    """Launch the 3xTF32 q-major backward kernel: (dq, delta f32 (B, H, S),
+    the per-row g . out that ``masked_attention_bwd_dkv_tf32`` takes). Takes
+    float32 CUDA tensors (the "tf32" route, any DH and S), with q, k, v, out
+    and g 16-byte aligned."""
     _check_cuda_inputs(q, k, v, key_bias, out=out, g=g, stats=stats)
     _check_tensor_core_inputs("3xTF32 backward", q, k, v, out, g, route="tf32")
     return _launch_dq(masked_attention_bwd_dq_tf32, ("masked_bwd_tf32", "masked_attention_bwd_dq_tf32"), q, k, v,
@@ -301,6 +282,31 @@ def masked_attention_bwd_dkv_tf32(
     _check_tensor_core_inputs("3xTF32 backward", q, k, v, g, route="tf32")
     return _launch_dkv(masked_attention_bwd_dkv_tf32, ("masked_bwd_tf32", "masked_attention_bwd_dkv_tf32"), q, k,
                        v, g, key_bias, stats, delta, scale, rate, seed)
+
+
+def masked_attention_bwd_dq_tiled(
+    q, k, v, out, g, key_bias, stats, scale: float, rate: float = 0.0, seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the tiled tensor-core q-major backward kernel: (dq, delta f32
+    (B, H, S), the per-row g . out that ``masked_attention_bwd_dkv_tiled``
+    takes). Takes bf16 CUDA tensors at any DH and S, with q, k, v, out and g
+    16-byte aligned, and the statistics of ``masked_attention_fwd_tiled``."""
+    _check_cuda_inputs(q, k, v, key_bias, out=out, g=g, stats=stats)
+    _check_tensor_core_inputs("tiled tensor-core backward", q, k, v, out, g, route="tensor_core_tiled")
+    return _launch_dq(masked_attention_bwd_dq_tiled, ("masked_bwd_tiled", "masked_attention_bwd_dq_tiled"), q, k,
+                      v, out, g, key_bias, stats, scale, rate, seed)
+
+
+def masked_attention_bwd_dkv_tiled(
+    q, k, v, g, key_bias, stats, delta, scale: float, rate: float = 0.0, seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the tiled tensor-core k-major backward kernel: (dk, dv), from
+    the delta of ``masked_attention_bwd_dq_tiled``. Takes bf16 CUDA tensors,
+    with q, k, v and g 16-byte aligned."""
+    _check_cuda_inputs(q, k, v, key_bias, g=g, stats=stats, delta=delta)
+    _check_tensor_core_inputs("tiled tensor-core backward", q, k, v, g, route="tensor_core_tiled")
+    return _launch_dkv(masked_attention_bwd_dkv_tiled, ("masked_bwd_tiled", "masked_attention_bwd_dkv_tiled"), q,
+                       k, v, g, key_bias, stats, delta, scale, rate, seed)
 
 
 def masked_attention_bwd_fused(
@@ -325,9 +331,9 @@ def masked_attention_bwd_fused(
 
 
 KERNELS = (
-    masked_attention_fwd, masked_attention_bwd_dq, masked_attention_bwd_dkv, masked_attention_bwd_fused,
-    masked_attention_fwd_fused, masked_attention_fwd_tf32, masked_attention_bwd_dq_tf32,
-    masked_attention_bwd_dkv_tf32,
+    masked_attention_bwd_fused, masked_attention_fwd_fused, masked_attention_fwd_tf32, masked_attention_bwd_dq_tf32,
+    masked_attention_bwd_dkv_tf32, masked_attention_fwd_tiled, masked_attention_bwd_dq_tiled,
+    masked_attention_bwd_dkv_tiled,
 )
 for _fn in KERNELS:
     _fn.launches = 0
@@ -344,12 +350,12 @@ class MaskedAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, key_bias, seed: int, rate: float, scale: float):
         need = any(ctx.needs_input_grad[:3])
         route = kernel_route(q.dtype, q.shape[-1], q.shape[2])
-        if route == "tf32":
-            # the 3xTF32 forward copies in 16-byte pieces: a view off a
-            # 16-byte boundary goes as an aligned copy (and is saved as one)
+        if route != "tensor_core":
+            # the 3xTF32 and tiled forwards copy in 16-byte pieces: a view
+            # off a 16-byte boundary goes as an aligned copy (and is saved as one)
             q, k, v = (aligned16(x) for x in (q, k, v))
-        forwards = {"tensor_core": masked_attention_fwd_fused, "tf32": masked_attention_fwd_tf32}
-        fwd = forwards.get(route, masked_attention_fwd)
+        fwd = {"tensor_core": masked_attention_fwd_fused, "tf32": masked_attention_fwd_tf32,
+               "tensor_core_tiled": masked_attention_fwd_tiled}[route]
         out, stats = fwd(q, k, v, key_bias, scale, rate, seed, with_stats=need)
         if need:
             ctx.save_for_backward(q, k, v, key_bias, out, stats)
@@ -365,13 +371,11 @@ class MaskedAttention(torch.autograd.Function):
         if route == "tensor_core":
             dq, dk, dv = masked_attention_bwd_fused(q, k, v, out, g, key_bias, stats, scale, rate, seed)
             return dq, dk, dv, None, None, None, None
-        if route == "tf32":
-            # the 3xTF32 pair copies in 16-byte pieces: a cotangent (or an
-            # output) off a 16-byte boundary goes as an aligned copy
-            g, out = aligned16(g), aligned16(out)
-            bwd_dq, bwd_dkv = masked_attention_bwd_dq_tf32, masked_attention_bwd_dkv_tf32
-        else:
-            bwd_dq, bwd_dkv = masked_attention_bwd_dq, masked_attention_bwd_dkv
+        # the 3xTF32 and tiled pairs copy in 16-byte pieces: a cotangent (or
+        # an output) off a 16-byte boundary goes as an aligned copy
+        g, out = aligned16(g), aligned16(out)
+        bwd_dq, bwd_dkv = {"tf32": (masked_attention_bwd_dq_tf32, masked_attention_bwd_dkv_tf32),
+                           "tensor_core_tiled": (masked_attention_bwd_dq_tiled, masked_attention_bwd_dkv_tiled)}[route]
         dq, delta = bwd_dq(q, k, v, out, g, key_bias, stats, scale, rate, seed)
         dk, dv = bwd_dkv(q, k, v, g, key_bias, stats, delta, scale, rate, seed)
         return dq, dk, dv, None, None, None, None

@@ -83,8 +83,11 @@ def test_plain_forward_matches_jax_kernel(s, kind, dtype):
 def test_function_grads_match_jax_custom_vjp(kind):
     arrays = make_inputs(40, 2, 3, 17, 8, kind)
     g = np.random.default_rng(41).standard_normal(arrays[0].shape).astype(np.float32)
-    out, vjp = jax.vjp(lambda q, k, v, b: _jax_fused(q, k, v, b, arrays[4]), *map(jnp.asarray, arrays[:4]))
-    want = [out, *vjp(jnp.asarray(g))]
+    def run(q, k, v, b, g_):  # one jit: the eager vjp compiles op by op
+        out, vjp = jax.vjp(lambda *a: _jax_fused(*a, arrays[4]), q, k, v, b)
+        return (out, *vjp(g_))
+
+    want = jax.jit(run)(*map(jnp.asarray, arrays[:4]), jnp.asarray(g))
     got = forward_and_grads(ba.biased_attention, *to_torch(arrays), torch.from_numpy(g))
     for name, a, w in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
         assert a.shape == w.shape, name
@@ -150,7 +153,7 @@ def test_biased_multihead_attention_fused_matches_jax(kind, monkeypatch):
     jcfg = jax_tiny_config(use_pallas_attention=True)
     mod = jgraph.BiasedMultiheadAttention(jcfg)
     jargs = (jnp.asarray(x), None if bias is None else jnp.asarray(bias), jnp.asarray(inp["kpm"]))
-    params = perturbed(mod.init(jax.random.PRNGKey(0), *jargs))
+    params = perturbed(jax.jit(lambda r: mod.init(r, *jargs))(jax.random.PRNGKey(0)))  # jitted: see above
     want = np.asarray(jax.jit(mod.apply)(params, *jargs))
     port = graphormer.BiasedMultiheadAttention(tiny_model_config(use_pallas_attention=True), torch.float32)
     port.load_state_dict(flax_to_state_dict(params), strict=True)
@@ -221,10 +224,16 @@ def test_dense_path_forward_and_grads_match_jax(monkeypatch):
     jcfg = jax_tiny_config(use_pallas_attention=True, dropout=0.0, act_dropout=0.0)
     mod = JaxDensePath(jcfg, 2)
     jargs = [jnp.asarray(inp[n]) for n in names]
-    params = perturbed(mod.init(jax.random.PRNGKey(0), *jargs))
-    cot = np.random.default_rng(12).standard_normal(mod.apply(params, *jargs).shape).astype(np.float32)
-    want, jvjp = jax.vjp(lambda p: mod.apply(p, *jargs), params)
-    jgrads = flax_to_state_dict(jax.device_get(jvjp(jnp.asarray(cot))[0]))
+    # jitted init and vjp: eagerly each op compiles on its own
+    params = perturbed(jax.jit(mod.init)(jax.random.PRNGKey(0), *jargs))
+    cot = np.random.default_rng(12).standard_normal(jax.eval_shape(mod.apply, params, *jargs).shape).astype(np.float32)
+
+    def run(p, c):
+        out, jvjp = jax.vjp(lambda p_: mod.apply(p_, *jargs), p)
+        return out, jvjp(c)[0]
+
+    want, jgrad_tree = jax.jit(run)(params, jnp.asarray(cot))
+    jgrads = flax_to_state_dict(jax.device_get(jgrad_tree))
 
     pcfg = tiny_model_config(use_pallas_attention=True, dropout=0.0, act_dropout=0.0)
     port = DensePath(pcfg, 2)

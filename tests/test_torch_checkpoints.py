@@ -598,6 +598,7 @@ def _launch_cmd(save_dir, max_updates):
 def _run_env():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONUNBUFFERED"] = "1"
+    env["OMP_NUM_THREADS"] = "2"  # as this process's torch threads: the suite runs beside other workers
     return env
 
 

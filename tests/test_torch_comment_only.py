@@ -64,7 +64,7 @@ def test_classifier_logits_match_jax_flax_bundle():
     assert set(params["params"]) == {"bert", "pooler", "classifier"}
     jm = jtb.BertTextClassifier(jtb.TextBertConfig(tower=JTower(**TOWER)))
     b = _data(5, 0)
-    want = np.asarray(jm.module.apply(params, *(jnp.asarray(b[k]) for k in KEYS)))
+    want = np.asarray(jax.jit(jm.module.apply)(params, *(jnp.asarray(b[k]) for k in KEYS)))  # one compile
     other = ptb.BertTextClassifier(ptb.TextBertConfig(tower=PTower(**TOWER)), generator=torch.Generator().manual_seed(4))
     load_flax_params(other, params)
     with torch.no_grad():

@@ -72,8 +72,8 @@ def test_contrastive_loss_matches_jax(pads, weights):
         return jloss.contrastive_loss(e, jnp.asarray(y), jnp.asarray(hard_y), **weights,
                                       valid=None if valid_arg is None else jnp.asarray(valid_arg))
 
-    want = jfn(jnp.asarray(emb))
-    want_grad = jax.grad(lambda e: jfn(e)[0])(jnp.asarray(emb))
+    want = jax.jit(jfn)(jnp.asarray(emb))  # jitted: eagerly each op compiles on its own
+    want_grad = jax.jit(jax.grad(lambda e: jfn(e)[0]))(jnp.asarray(emb))
     e = torch.from_numpy(emb.copy()).requires_grad_(True)
     got = ploss.contrastive_loss(e, torch.from_numpy(y), torch.from_numpy(hard_y), **weights,
                                  valid=None if valid_arg is None else torch.from_numpy(valid_arg))

@@ -28,8 +28,12 @@ IMG = (3, 32, 32)
 def params():
     items = jax_items(2, seed=0, seq_len=12, vocab_size=128, image_shape=IMG, max_nodes=6, image_prob=0.5)
     batch = {k: jnp.asarray(v) for k, v in jax_collate(items, image_shape=IMG).asdict().items()}
-    init = jax.jit(lambda r, b: JaxMDTModel(jax_tiny_config()).init(r, b, deterministic=True))
-    return jax.device_get(init(jax.random.PRNGKey(0), batch))
+    # the tree of a JAX init, traced without compiling it (``eval_shape``),
+    # every leaf filled with seeded normal values
+    shapes = jax.eval_shape(lambda r, b: JaxMDTModel(jax_tiny_config()).init(r, b, deterministic=True),
+                            jax.random.PRNGKey(0), batch)
+    rng = np.random.default_rng(0)
+    return jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(x.dtype), shapes)
 
 
 def _leaves(tree, prefix=()):

@@ -41,11 +41,11 @@ TREE_FORWARD = {"tf32": "fwd_tf32", "tensor_core": "fwd_fused", "cuda_core": "fw
 TOWER_ROUTES = [
     (torch.float32, 16, 104, "tf32"), (torch.float32, 32, 104, "tf32"), (torch.float32, 64, 104, "tf32"),
     (torch.float32, 128, 104, "tf32"), (torch.float32, 64, 300, "tf32"),
-    (torch.bfloat16, 64, 104, "tensor_core"), (torch.bfloat16, 64, 300, "cuda_core"),
-    (torch.bfloat16, 32, 104, "cuda_core"),
+    (torch.bfloat16, 64, 104, "tensor_core"), (torch.bfloat16, 64, 300, "tensor_core_tiled"),
+    (torch.bfloat16, 32, 104, "tensor_core_tiled"),
 ]
 TOWER_CALLS = {"tf32": ["fwd_tf32", "dq_tf32", "dkv_tf32"], "tensor_core": ["fwd_fused", "bwd_fused"],
-               "cuda_core": ["fwd", "dq", "dkv"]}
+               "tensor_core_tiled": ["fwd_tiled", "dq_tiled", "dkv_tiled"]}
 
 
 def _tower_inputs(seed, b, h, s, dh):
@@ -119,9 +119,9 @@ def _stub_tower(monkeypatch, calls, seen):
             return torch.zeros_like(k), torch.zeros_like(v)
         return run
 
-    for name, fn in (("masked_attention_fwd", fwd("fwd")), ("masked_attention_fwd_fused", fwd("fwd_fused")),
+    for name, fn in (("masked_attention_fwd_tiled", fwd("fwd_tiled")), ("masked_attention_fwd_fused", fwd("fwd_fused")),
                      ("masked_attention_fwd_tf32", fwd("fwd_tf32")), ("masked_attention_bwd_fused", bwd_fused),
-                     ("masked_attention_bwd_dq", dq("dq")), ("masked_attention_bwd_dkv", dkv("dkv")),
+                     ("masked_attention_bwd_dq_tiled", dq("dq_tiled")), ("masked_attention_bwd_dkv_tiled", dkv("dkv_tiled")),
                      ("masked_attention_bwd_dq_tf32", dq("dq_tf32")), ("masked_attention_bwd_dkv_tf32", dkv("dkv_tf32"))):
         monkeypatch.setattr(ma, name, fn)
 
@@ -148,8 +148,8 @@ def test_tree_route_sends_float32_to_the_tf32_forward(monkeypatch, dtype, dh, ro
 @pytest.mark.parametrize("dtype, dh, s, route", TOWER_ROUTES)
 def test_tower_route_sends_float32_to_the_tf32_forward(monkeypatch, dtype, dh, s, route):
     """float32 at every DH and S takes the 3xTF32 forward, then the 3xTF32
-    pair; bf16 the tensor-core kernels or the CUDA-core forward and pair as
-    before."""
+    pair; bf16 the one-pass tensor-core kernels or the tiled tensor-core
+    forward and pair."""
     assert ma.kernel_route(dtype, dh, s) == route
     calls, seen = [], []
     _stub_tower(monkeypatch, calls, seen)
@@ -196,27 +196,30 @@ def test_misaligned_views_reach_the_tf32_forward_as_aligned_copies(monkeypatch, 
 @pytest.mark.parametrize("op", ["tree", "tower"])
 def test_tf32_forward_passes_the_replaced_kernels_arguments(monkeypatch, op):
     """Each wrapper launches its library's C function with the arguments
-    the CUDA-core forward's wrapper passes, in its order (the outputs it
-    allocates aside), and counts one launch. The device check is stood in
-    for, so that CPU tensors reach the launch."""
+    the other route's forward passes (the tree's CUDA-core K1, the tower's
+    tiled tensor-core forward), in its order (the outputs it allocates
+    aside), and counts one launch. The device check is stood in for, so
+    that CPU tensors reach the launch."""
     launched = []
     monkeypatch.setattr(cuda_lib, "launch", lambda lib, fn, dev, *args: launched.append((lib, fn, args)))
     if op == "tree":
         monkeypatch.setattr(ta, "_check_tensor_core_inputs", lambda *a, **kw: None)
         q, k, v, template, ids, lut = _cpu_inputs(6, 2, 3, 9, 32)
         args = (q, k, v, template, ids, lut, 32 ** -0.5, True, 0.3, 11, True)
-        wrapper, old, lib, outputs = ta.tree_attention_fwd_tf32, ta.tree_attention_fwd, "tree_fwd", (6, 7)
+        wrapper, old, outputs = ta.tree_attention_fwd_tf32, ta.tree_attention_fwd, (6, 7)
+        names = ("tree_fwd_tf32", "tree_attention_fwd_tf32"), ("tree_fwd", "tree_attention_fwd")
     else:
         monkeypatch.setattr(ma, "_check_tensor_core_inputs", lambda *a, **kw: None)
         q, k, v, bias = (torch.from_numpy(x) for x in _tower_inputs(6, 2, 3, 9, 32))
         args = (q, k, v, bias, 32 ** -0.5, 0.3, 11, True)
-        wrapper, old, lib, outputs = ma.masked_attention_fwd_tf32, ma.masked_attention_fwd, "masked_fwd", (4, 5)
+        wrapper, old, outputs = ma.masked_attention_fwd_tf32, ma.masked_attention_fwd_tiled, (4, 5)
+        names = ("masked_fwd_tf32", "masked_attention_fwd_tf32"), ("masked_fwd_tiled", "masked_attention_fwd_tiled")
     before, before_old = wrapper.launches, old.launches
     got = wrapper(*args)
     old(*args)
     assert wrapper.launches == before + 1 and old.launches == before_old + 1
     (lib_t, fn_t, mine), (lib_o, fn_o, theirs) = launched
-    assert (lib_t, fn_t) == (f"{lib}_tf32", f"{fn_o}_tf32") and lib_o == lib
+    assert ((lib_t, fn_t), (lib_o, fn_o)) == names
     assert len(mine) + 1 == len(cuda_lib.ENTRY_POINTS[lib_t][fn_t])  # + the stream
     assert [x for i, x in enumerate(mine) if i not in outputs] == [x for i, x in enumerate(theirs) if i not in outputs]
     assert [mine[i] for i in outputs] == [t.data_ptr() for t in got]
@@ -295,7 +298,7 @@ def test_build_tables_name_the_tf32_forwards():
     change rebuilds every library), and the backward pair takes its
     helpers from it."""
     tables = (("tree_fwd_tf32", "tree_attention_fwd_tf32", "tree_fwd", "tree_attention_fwd"),
-              ("masked_fwd_tf32", "masked_attention_fwd_tf32", "masked_fwd", "masked_attention_fwd"))
+              ("masked_fwd_tf32", "masked_attention_fwd_tf32", "masked_fwd_tiled", "masked_attention_fwd_tiled"))
     for lib, fn, old_lib, old_fn in tables:
         assert cuda_lib.SOURCES[lib] == cuda_lib.CSRC / f"{fn}.cu" and cuda_lib.SOURCES[lib].is_file()
         assert cuda_lib.ENTRY_POINTS[lib] == {fn: cuda_lib.ENTRY_POINTS[old_lib][old_fn]}

@@ -1,9 +1,9 @@
 """The float32 forwards on tensor cores in 3xTF32, on the card: the tree
 attention's ``tree_attention_fwd_tf32`` and the tower attention's
-``masked_attention_fwd_tf32`` against their plain versions, against the
-CUDA-core kernels they replace on the float32 route (K1 and
-``masked_attention_fwd``), their masks read back, and the gradients that
-the backward kernels compute from what they save.
+``masked_attention_fwd_tf32`` against their plain versions, the tree's
+against the CUDA-core kernel K1 it replaces on the float32 route, their
+masks read back, and the gradients that the backward kernels compute from
+what they save.
 
 This file imports neither JAX nor the JAX package, so that it runs on a
 machine with a card and no JAX:
@@ -221,15 +221,16 @@ def test_tree_gradients_through_the_tf32_forward(s, b, dh, rate):
 @pytest.mark.parametrize("s", TOWER_S)
 def test_tower_forward_matches_plain_on_card(s, dh, rate):
     """The 3xTF32 tower forward alone, with its statistics, against the
-    plain version and the CUDA-core forward on the same float32 inputs (a
-    key bias with a capacity-padding row)."""
+    plain version on the same float32 inputs (a key bias with a
+    capacity-padding row)."""
     _card()
     q, k, v, bias = _tower_inputs(s + dh, 3, 4, s, dh)
     scale = dh ** -0.5
     before = [fn.launches for fn in ma.KERNELS]
     out, stats = ma.masked_attention_fwd_tf32(q, k, v, bias, scale, rate, 2468, with_stats=True)
     torch.cuda.synchronize()
-    assert [fn.launches - n for fn, n in zip(ma.KERNELS, before)] == [0, 0, 0, 0, 0, 1, 0, 0]
+    assert [fn.launches - n for fn, n in zip(ma.KERNELS, before)] == [int(fn is ma.masked_attention_fwd_tf32)
+                                                                      for fn in ma.KERNELS]
     want = ma.masked_attention_dropout_reference(q, k, v, bias, 2468, rate, scale)
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
     assert max_err_of_max(out, want) <= F32_RTOL_OF_MAX, max_err_of_max(out, want)
@@ -237,9 +238,6 @@ def test_tower_forward_matches_plain_on_card(s, dh, rate):
     torch.testing.assert_close(stats[0], ref[0], rtol=STAT_RTOL, atol=STAT_RTOL)
     torch.testing.assert_close(stats[1], ref[1], rtol=0.0, atol=STAT_RTOL)
     assert torch.equal(stats[0, -1], torch.full_like(stats[0, -1], ta.MASK_BIAS))  # the padding row
-    cc_out, cc_stats = ma.masked_attention_fwd(q, k, v, bias, scale, rate, 2468, with_stats=True)
-    assert max_err_of_max(out, cc_out) <= F32_RTOL_OF_MAX
-    torch.testing.assert_close(stats, cc_stats, rtol=STAT_RTOL, atol=STAT_RTOL)
 
 
 @pytest.mark.gpu
@@ -284,8 +282,8 @@ def test_tower_forward_mask_is_the_plain_philox(s, dh):
 def test_tower_gradients_through_the_tf32_forward(s, dh, rate):
     """float32 through ``masked_attention``: the 3xTF32 forward, then the
     3xTF32 pair reading its statistics, against the plain version's forward
-    and autograd gradients (a capacity-padding row included); the CUDA-core
-    kernels launch no time."""
+    and autograd gradients (a capacity-padding row included); no other
+    tower kernel launches."""
     dev = _card()
     q, k, v, bias = _tower_inputs(7 * s + dh, 3, 4, s, dh)
     g = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(s), device=dev)
@@ -295,7 +293,7 @@ def test_tower_gradients_through_the_tf32_forward(s, dh, rate):
     out.backward(g)
     got = [out.detach()] + [x.grad for x in leaves]
     torch.cuda.synchronize()
-    assert [fn.launches - n for fn, n in zip(ma.KERNELS, before)] == [0, 0, 0, 0, 0, 1, 1, 1]
+    assert [fn.launches - n for fn, n in zip(ma.KERNELS, before)] == [0, 0, 1, 1, 1, 0, 0, 0]
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     ref = ma.masked_attention_dropout_reference(*leaves, bias, 1234, rate)
     ref.backward(g)

@@ -46,7 +46,7 @@ from multimodaldiscussiontransformer_tpu_torch.models import bert
 from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
 from multimodaldiscussiontransformer_tpu_torch.ops import masked_attention as ma
 from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
-from multimodaldiscussiontransformer_tpu_torch.utils.flax_import import flax_to_state_dict, load_flax_params
+from multimodaldiscussiontransformer_tpu_torch.utils.flax_import import flax_to_state_dict, load_flax_params, to_flax_params
 from test_torch_masked_attention_card import _inputs, forward_and_grads, read_back_mask
 from test_torch_models import IMG, batch_pair, perturbed
 from test_torch_train import assert_scan_step_matches_jax, train_cfg
@@ -66,8 +66,14 @@ def fused_towers(model_cfg):
 
 
 def _jax_grads(fn, q, k, v, g):
-    out, vjp = jax.vjp(fn, *(jnp.asarray(x) for x in (q, k, v)))
-    return [np.asarray(out)] + [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    """fn's output and its vjp of g, in one jit (eagerly each op compiles
+    on its own)."""
+
+    def run(q_, k_, v_, g_):
+        out, vjp = jax.vjp(fn, q_, k_, v_)
+        return (out, *vjp(g_))
+
+    return [np.asarray(x) for x in jax.jit(run)(*(jnp.asarray(x) for x in (q, k, v, g)))]
 
 
 def _port_grads(q, k, v, bias, g, **kw):
@@ -131,8 +137,9 @@ def test_self_attention_fused_matches_jax(monkeypatch):
     mask[:, 0] = 1.0
     jbias = jbert.attention_mask_bias(jnp.asarray(mask), jnp.float32)
     mod = jbert.SelfAttention(d, h, 0.0, use_pallas=True)
-    params = jax.device_get(mod.init(jax.random.PRNGKey(0), jnp.asarray(hidden), jbias))
-    want = np.asarray(mod.apply(params, jnp.asarray(hidden), jbias, deterministic=True))
+    # jitted: eagerly each op (the interpret-mode kernel's too) compiles on its own
+    params = jax.device_get(jax.jit(lambda r: mod.init(r, jnp.asarray(hidden), jbias))(jax.random.PRNGKey(0)))
+    want = np.asarray(jax.jit(lambda p: mod.apply(p, jnp.asarray(hidden), jbias, deterministic=True))(params))
     port = bert.SelfAttention(d, h, torch.float32, 0.0, use_pallas=True)
     port.load_state_dict(flax_to_state_dict(params), strict=True)
     before = [fn.launches for fn in ma.KERNELS]
@@ -185,8 +192,9 @@ def test_mdt_model_with_fused_towers_matches_jax(monkeypatch):
     jb, pb = batch_pair(7, num_graphs=3, image_prob=0.5)
     assert pb.images.shape[0] > 0
     jx = {k: jnp.asarray(v) for k, v in jb.asdict().items()}
-    params = perturbed(jax.jit(lambda r, b: JaxMDTModel(jconfig.tiny_model_config()).init(r, b, deterministic=True))(
-        jax.random.PRNGKey(0), jx))
+    # the weights from the port's init (JAX's eager init would run the
+    # interpret-mode kernels once more), perturbed as the JAX-init ones are
+    params = perturbed(to_flax_params(MDTModel(pconfig.tiny_model_config(), generator=torch.Generator().manual_seed(0))))
     want = jax.jit(lambda p, b: JaxMDTModel(fused_towers(jconfig.tiny_model_config())).apply(p, b, deterministic=True))(
         params, jx)
     port = MDTModel(fused_towers(pconfig.tiny_model_config()))

@@ -79,13 +79,14 @@ def max_err_of_max(got, want, floor=1e-30):
     return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(floor)).item()
 
 
-# launches of ma.KERNELS (CUDA-core fwd, dq, dkv, one-pass bwd, tensor-core
-# fwd, 3xTF32 fwd, dq, dkv) for one forward and backward, by route
-ROUTE_LAUNCHES = {"tensor_core": [0, 0, 0, 1, 1, 0, 0, 0], "cuda_core": [1, 1, 1, 0, 0, 0, 0, 0],
-                  "tf32": [0, 0, 0, 0, 0, 1, 1, 1]}
+# launches of ma.KERNELS (one-pass bwd, tensor-core fwd, 3xTF32 fwd, dq,
+# dkv, tiled fwd, dq, dkv) for one forward and backward, by route
+ROUTE_LAUNCHES = {"tensor_core": [1, 1, 0, 0, 0, 0, 0, 0], "tf32": [0, 0, 1, 1, 1, 0, 0, 0],
+                  "tensor_core_tiled": [0, 0, 0, 0, 0, 1, 1, 1]}
 # the forward and backward stand-ins each route calls
-ROUTE_FORWARD = {"tensor_core": "fwd_fused", "cuda_core": "fwd", "tf32": "fwd_tf32"}
-ROUTE_BACKWARD = {"tensor_core": ["fused"], "cuda_core": ["dq", "dkv"], "tf32": ["dq_tf32", "dkv_tf32"]}
+ROUTE_FORWARD = {"tensor_core": "fwd_fused", "tensor_core_tiled": "fwd_tiled", "tf32": "fwd_tf32"}
+ROUTE_BACKWARD = {"tensor_core": ["fused"], "tensor_core_tiled": ["dq_tiled", "dkv_tiled"],
+                  "tf32": ["dq_tf32", "dkv_tf32"]}
 
 
 def expected_launches(dtype, s, dh=64):
@@ -178,9 +179,9 @@ ROUTE_CASES = [
     (torch.bfloat16, 64, 201, "tensor_core"),  # ViT fusion
     (torch.bfloat16, 64, 1, "tensor_core"),
     (torch.bfloat16, 64, 256, "tensor_core"),
-    (torch.bfloat16, 64, 257, "cuda_core"),  # longer S
-    (torch.bfloat16, 32, 104, "cuda_core"),  # other DH
-    (torch.bfloat16, 128, 104, "cuda_core"),
+    (torch.bfloat16, 64, 257, "tensor_core_tiled"),  # longer S
+    (torch.bfloat16, 32, 104, "tensor_core_tiled"),  # other DH
+    (torch.bfloat16, 128, 104, "tensor_core_tiled"),
     (torch.float32, 64, 104, "tf32"),  # f32: the card-vs-CPU steps' tolerances
 ]
 
@@ -222,10 +223,10 @@ def _stub_kernels(monkeypatch, calls, asked=None):
             return torch.zeros_like(k), torch.zeros_like(v)
         return run
 
-    for name, fn in (("masked_attention_fwd", fwd("fwd")), ("masked_attention_fwd_fused", fwd("fwd_fused")),
+    for name, fn in (("masked_attention_fwd_tiled", fwd("fwd_tiled")), ("masked_attention_fwd_fused", fwd("fwd_fused")),
                      ("masked_attention_fwd_tf32", fwd("fwd_tf32")),
-                     ("masked_attention_bwd_fused", fake_fused), ("masked_attention_bwd_dq", fake_dq("dq")),
-                     ("masked_attention_bwd_dkv", fake_dkv("dkv")),
+                     ("masked_attention_bwd_fused", fake_fused), ("masked_attention_bwd_dq_tiled", fake_dq("dq_tiled")),
+                     ("masked_attention_bwd_dkv_tiled", fake_dkv("dkv_tiled")),
                      ("masked_attention_bwd_dq_tf32", fake_dq("dq_tf32")),
                      ("masked_attention_bwd_dkv_tf32", fake_dkv("dkv_tf32"))):
         monkeypatch.setattr(ma, name, fn)
@@ -267,9 +268,9 @@ def test_every_tower_shape_routes_to_tensor_cores():
 @pytest.mark.parametrize("dtype, dh, s", [(torch.bfloat16, 64, 104), (torch.float32, 64, 104), (torch.bfloat16, 32, 40)])
 def test_backward_launches_the_routed_kernels(monkeypatch, dtype, dh, s):
     """``MaskedAttention`` calls the tensor-core forward and the one-pass
-    backward, the 3xTF32 forward and pair, or the CUDA-core forward and
-    pair, as ``kernel_route`` says, the backward with the forward's saved
-    tensors.
+    backward, the 3xTF32 forward and pair, or the tiled tensor-core
+    forward and pair, as ``kernel_route`` says, the backward with the
+    forward's saved tensors.
     The kernels are stood in for on CPU tensors."""
     calls = []
     _stub_kernels(monkeypatch, calls)
@@ -508,7 +509,8 @@ def test_fused_forward_matches_plain_on_card(rate, s):
     before = [fn.launches for fn in ma.KERNELS]
     out, stats = ma.masked_attention_fwd_fused(q, k, v, bias, dh ** -0.5, rate, 99 + s, with_stats=True)
     torch.cuda.synchronize()
-    assert [fn.launches - n for fn, n in zip(ma.KERNELS, before)] == [0, 0, 0, 0, 1, 0, 0, 0]
+    assert [fn.launches - n for fn, n in zip(ma.KERNELS, before)] == [int(fn is ma.masked_attention_fwd_fused)
+                                                                      for fn in ma.KERNELS]
     want = ma.masked_attention_dropout_reference(q, k, v, bias, 99 + s, rate, dh ** -0.5)
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
     assert max_err_of_max(out, want) <= BF16_RTOL_OF_MAX, max_err_of_max(out, want)
@@ -539,9 +541,9 @@ def test_fused_forward_mask_is_the_plain_philox(s):
 @pytest.mark.parametrize("s", [36, 104, 201])
 def test_fused_forward_stats_drive_both_backwards(s):
     """The tensor-core forward's output and statistics fed to the one-pass
-    backward and to the CUDA-core pair, both called directly on bf16
-    inputs: each gives the plain version's gradients within 1e-2 of
-    max |ref| (rate 0.3, a fully masked last row)."""
+    backward and to the tiled pair, both called directly on bf16 inputs:
+    each gives the plain version's gradients within 1e-2 of max |ref| (rate
+    0.3, a fully masked last row)."""
     dev = _card()
     b, h, dh, rate, seed = 3, 12, 64, 0.3, 4000 + s
     scale = dh ** -0.5
@@ -551,8 +553,8 @@ def test_fused_forward_stats_drive_both_backwards(s):
     g = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(s), device=dev).to(torch.bfloat16)
     out, stats = ma.masked_attention_fwd_fused(q, k, v, bias, scale, rate, seed, with_stats=True)
     one_pass = ma.masked_attention_bwd_fused(q, k, v, out, g, bias, stats, scale, rate, seed)
-    dq, delta = ma.masked_attention_bwd_dq(q, k, v, out, g, bias, stats, scale, rate, seed)
-    pair = (dq, *ma.masked_attention_bwd_dkv(q, k, v, g, bias, stats, delta, scale, rate, seed))
+    dq, delta = ma.masked_attention_bwd_dq_tiled(q, k, v, out, g, bias, stats, scale, rate, seed)
+    pair = (dq, *ma.masked_attention_bwd_dkv_tiled(q, k, v, g, bias, stats, delta, scale, rate, seed))
     torch.cuda.synchronize()
     want = forward_and_grads(ma.masked_attention_dropout_reference, q, k, v, bias, g, rate=rate, seed=seed)[1:]
     for route, got in (("one_pass", one_pass), ("pair", pair)):

@@ -34,6 +34,7 @@ from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
 from multimodaldiscussiontransformer_tpu_torch.utils.flax_import import (
     flax_to_state_dict,
     load_flax_params,
+    to_flax_params,
 )
 
 torch.set_num_threads(2)
@@ -50,6 +51,17 @@ def perturbed(params, seed=0):
         lambda x: np.asarray(x) + 0.05 * rng.standard_normal(np.shape(x)).astype(np.float32),
         jax.device_get(params),
     )
+
+
+def jit_init(mod, key, *args, **kw):
+    """``mod.init`` in one jit (eagerly each op compiles on its own); the
+    arguments are closed over, so ``None`` and ``method`` stay static."""
+    return jax.jit(lambda r: mod.init(r, *args, **kw))(key)
+
+
+def jit_apply(mod, params, *args, **kw):
+    """``mod.apply`` in one jit, as ``jit_init``."""
+    return jax.jit(lambda p: mod.apply(p, *args, **kw))(params)
 
 
 def ported(module, params):
@@ -84,8 +96,8 @@ def test_bert_layer():
     mask[:, 0] = 1
     jbias = jbert.attention_mask_bias(jnp.asarray(mask), jnp.float32)
     mod = jbert.BertLayer(cfg)
-    params = perturbed(mod.init(jax.random.PRNGKey(0), jnp.asarray(hidden), jbias))
-    want = mod.apply(params, jnp.asarray(hidden), jbias)
+    params = perturbed(jit_init(mod, jax.random.PRNGKey(0), jnp.asarray(hidden), jbias))
+    want = jit_apply(mod, params, jnp.asarray(hidden), jbias)
     port = ported(bert.BertLayer(tiny_model_config().text_tower, F32), params)
     with torch.no_grad():
         got = port(t(hidden), bert.attention_mask_bias(t(mask), F32))
@@ -100,8 +112,8 @@ def test_vit_embeddings(num_images):
     rng = np.random.default_rng(2)
     pixels = rng.standard_normal((num_images,) + IMG).astype(np.float32)
     mod = jvit.ViTEmbeddings(cfg)
-    params = perturbed(mod.init(jax.random.PRNGKey(0), jnp.zeros((1,) + IMG)))
-    want = np.asarray(mod.apply(params, jnp.asarray(pixels)))
+    params = perturbed(jit_init(mod, jax.random.PRNGKey(0), jnp.zeros((1,) + IMG)))
+    want = np.asarray(jit_apply(mod, params, jnp.asarray(pixels)))
     port = ported(vit.ViTEmbeddings(tiny_model_config().image_tower, F32), params)
     with torch.no_grad():
         got = port(t(pixels)).numpy()
@@ -113,8 +125,8 @@ def test_vit_layer():
     cfg = jax_tiny_config().image_tower
     hidden = np.random.default_rng(3).standard_normal((3, cfg.seq_len, 64)).astype(np.float32)
     mod = jvit.ViTLayer(cfg)
-    params = perturbed(mod.init(jax.random.PRNGKey(0), jnp.asarray(hidden)))
-    want = mod.apply(params, jnp.asarray(hidden))
+    params = perturbed(jit_init(mod, jax.random.PRNGKey(0), jnp.asarray(hidden)))
+    want = jit_apply(mod, params, jnp.asarray(hidden))
     port = ported(vit.ViTLayer(tiny_model_config().image_tower, F32), params)
     with torch.no_grad():
         got = port(t(hidden))
@@ -129,9 +141,9 @@ def _graph_inputs(seed):
 def test_graph_attn_bias_dense_and_compact():
     template, spatial = _graph_inputs(4)
     mod = jgraph.GraphAttnBias(jax_tiny_config())
-    params = perturbed(mod.init(jax.random.PRNGKey(0), jnp.asarray(template), jnp.asarray(spatial)))
-    dense = np.asarray(mod.apply(params, jnp.asarray(template), jnp.asarray(spatial)))
-    compact = mod.apply(params, jnp.asarray(template), jnp.asarray(spatial), method=jgraph.GraphAttnBias.compact_inputs)
+    params = perturbed(jit_init(mod, jax.random.PRNGKey(0), jnp.asarray(template), jnp.asarray(spatial)))
+    dense = np.asarray(jit_apply(mod, params, jnp.asarray(template), jnp.asarray(spatial)))
+    compact = jit_apply(mod, params, jnp.asarray(template), jnp.asarray(spatial), method=jgraph.GraphAttnBias.compact_inputs)
     port = ported(graphormer.GraphAttnBias(tiny_model_config(), F32), params)
     with torch.no_grad():
         got_dense = port(t(template), t(spatial).long()).numpy()
@@ -156,15 +168,15 @@ def test_biased_multihead_attention(pallas, compact):
     x, template, spatial = _attention_inputs(5)
     jcfg = jax_tiny_config(use_pallas_attention=compact)
     jbias_mod = jgraph.GraphAttnBias(jcfg)
-    bparams = perturbed(jbias_mod.init(jax.random.PRNGKey(1), jnp.asarray(template), jnp.asarray(spatial)), 1)
+    bparams = perturbed(jit_init(jbias_mod, jax.random.PRNGKey(1), jnp.asarray(template), jnp.asarray(spatial)), 1)
     if compact:
-        jbias = jbias_mod.apply(bparams, jnp.asarray(template), jnp.asarray(spatial), method=jgraph.GraphAttnBias.compact_inputs)
+        jbias = jit_apply(jbias_mod, bparams, jnp.asarray(template), jnp.asarray(spatial), method=jgraph.GraphAttnBias.compact_inputs)
     else:
-        jbias = jbias_mod.apply(bparams, jnp.asarray(template), jnp.asarray(spatial))
+        jbias = jit_apply(jbias_mod, bparams, jnp.asarray(template), jnp.asarray(spatial))
     grid_mask = np.any(spatial > 0, axis=-1)
     kpm = np.concatenate([np.zeros((x.shape[0], 1), bool), ~grid_mask], axis=1)
     mod = jgraph.BiasedMultiheadAttention(jcfg)
-    params = perturbed(mod.init(jax.random.PRNGKey(0), jnp.asarray(x), jbias, jnp.asarray(kpm)))
+    params = perturbed(jit_init(mod, jax.random.PRNGKey(0), jnp.asarray(x), jbias, jnp.asarray(kpm)))
     want = np.asarray(jax.jit(mod.apply)(params, jnp.asarray(x), jbias, jnp.asarray(kpm)))
 
     pcfg = tiny_model_config(use_pallas_attention=compact)
@@ -181,10 +193,10 @@ def test_graph_encoder_stack(pallas):
     x, template, spatial = _attention_inputs(6)
     jcfg = jax_tiny_config()
     jbias_mod = jgraph.GraphAttnBias(jcfg)
-    bparams = perturbed(jbias_mod.init(jax.random.PRNGKey(1), jnp.asarray(template), jnp.asarray(spatial)), 1)
-    jbias = jbias_mod.apply(bparams, jnp.asarray(template), jnp.asarray(spatial), method=jgraph.GraphAttnBias.compact_inputs)
+    bparams = perturbed(jit_init(jbias_mod, jax.random.PRNGKey(1), jnp.asarray(template), jnp.asarray(spatial)), 1)
+    jbias = jit_apply(jbias_mod, bparams, jnp.asarray(template), jnp.asarray(spatial), method=jgraph.GraphAttnBias.compact_inputs)
     mod = jgraph.GraphEncoderStack(jcfg, 2)
-    params = perturbed(mod.init(jax.random.PRNGKey(0), jnp.asarray(x), jbias, None))
+    params = perturbed(jit_init(mod, jax.random.PRNGKey(0), jnp.asarray(x), jbias, None))
     want = np.asarray(jax.jit(mod.apply)(params, jnp.asarray(x), jbias, None))
     port = ported(graphormer.GraphEncoderStack(tiny_model_config(), 2, F32), params)
     pbias = ported(graphormer.GraphAttnBias(tiny_model_config(), F32), bparams)
@@ -206,10 +218,9 @@ def test_masked_embed_saturates_and_zeroes_padding():
 def models():
     """A JAX MDTModel's params on tiny_model_config, and the port model
     carrying them."""
-    jb, _ = batch_pair(0)
-    jx = {k: jnp.asarray(v) for k, v in jb.asdict().items()}
-    init = jax.jit(lambda r, b: JaxMDTModel(jax_tiny_config()).init(r, b, deterministic=True))
-    params = perturbed(init(jax.random.PRNGKey(0), jx))
+    # the port's init carried to the Flax layout (a jitted Flax init costs
+    # ~15 s here), perturbed as a JAX init would be
+    params = perturbed(to_flax_params(MDTModel(tiny_model_config(), generator=torch.Generator().manual_seed(0))))
     port = MDTModel(tiny_model_config())
     load_flax_params(port, params)
     return params, port.eval()

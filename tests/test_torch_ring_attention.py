@@ -47,8 +47,14 @@ def _torch_grads(fn, q, k, v, lut, cot):
 
 
 def _jax_grads(fn, q, k, v, lut, cot):
-    out, vjp = jax.vjp(fn, *(jnp.asarray(x) for x in (q, k, v, lut)))
-    return [np.asarray(out)] + [np.asarray(g) for g in vjp(jnp.asarray(cot))]
+    """fn's output and its vjp of cot, in one jit (one compile, where the
+    eager vjp compiles op by op)."""
+
+    def run(q_, k_, v_, lut_, cot_):
+        out, vjp = jax.vjp(fn, q_, k_, v_, lut_)
+        return (out, *vjp(cot_))
+
+    return [np.asarray(x) for x in jax.jit(run)(*(jnp.asarray(x) for x in (q, k, v, lut, cot)))]
 
 
 @pytest.mark.parametrize("n", [2, 4])

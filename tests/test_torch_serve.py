@@ -18,7 +18,6 @@ import torch
 
 from multimodaldiscussiontransformer_tpu.core.config import DataConfig as JaxDataConfig
 from multimodaldiscussiontransformer_tpu.core.config import tiny_model_config as jax_tiny_config
-from multimodaldiscussiontransformer_tpu.data.collator import collate as jax_collate
 from multimodaldiscussiontransformer_tpu.models.mdt import MDTModel as JaxMDTModel
 from multimodaldiscussiontransformer_tpu.serve import incremental as jserve
 from multimodaldiscussiontransformer_tpu_torch.core.config import DataConfig, tiny_model_config
@@ -30,7 +29,7 @@ from multimodaldiscussiontransformer_tpu_torch.serve.incremental import (
     _batch_bucket,
 )
 from multimodaldiscussiontransformer_tpu_torch.serve.server import BatchingScorer, ScoreServer
-from multimodaldiscussiontransformer_tpu_torch.utils.flax_import import load_flax_params
+from multimodaldiscussiontransformer_tpu_torch.utils.flax_import import to_flax_params
 
 torch.set_num_threads(2)
 IMG = (3, 32, 32)
@@ -70,14 +69,12 @@ def scorer():
 def test_scorer_matches_jax_as_discussion_grows():
     """Same weights, same discussions: a root, then replies, then a reply
     with an image."""
-    jd = jserve.Discussion()
-    jd.add_node(-1, np.arange(1, 13, dtype=np.int32))
-    batch = {k: jnp.asarray(v) for k, v in jax_collate([jd.to_item()], image_shape=IMG).asdict().items()}
-    model = JaxMDTModel(jax_tiny_config())
-    params = jax.device_get(jax.jit(lambda r, b: model.init(r, b, deterministic=True))(jax.random.PRNGKey(2), batch))
-    jax_scorer = jserve.DiscussionScorer(model, params, JaxDataConfig(**BUCKETS), image_shape=IMG)
-    port = MDTModel(tiny_model_config())
-    load_flax_params(port, params)
+    # the port's init carried to the Flax layout (a jitted Flax init costs
+    # seconds here)
+    port = MDTModel(tiny_model_config(), generator=torch.Generator().manual_seed(2))
+    params = jax.tree.map(jnp.asarray, to_flax_params(port))
+    jax_scorer = jserve.DiscussionScorer(JaxMDTModel(jax_tiny_config()), params, JaxDataConfig(**BUCKETS),
+                                         image_shape=IMG)
     port_scorer = DiscussionScorer(port, device="cpu", data_cfg=DataConfig(**BUCKETS), image_shape=IMG)
 
     rng = np.random.default_rng(0)

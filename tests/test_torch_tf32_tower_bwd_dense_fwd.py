@@ -53,7 +53,7 @@ ROUTE_CASES = [
     ("tower", torch.float32, 16, 104, "tf32"), ("tower", torch.float32, 32, 36, "tf32"),
     ("tower", torch.float32, 64, 104, "tf32"), ("tower", torch.float32, 128, 17, "tf32"),
     ("tower", torch.float32, 64, 300, "tf32"), ("tower", torch.bfloat16, 64, 104, "tensor_core"),
-    ("tower", torch.bfloat16, 64, 300, "cuda_core"), ("tower", torch.bfloat16, 16, 104, "cuda_core"),
+    ("tower", torch.bfloat16, 64, 300, "tensor_core_tiled"), ("tower", torch.bfloat16, 16, 104, "tensor_core_tiled"),
     ("dense", torch.float32, 16, 33, "tf32"), ("dense", torch.float32, 32, 129, "tf32"),
     ("dense", torch.float32, 64, 33, "tf32"), ("dense", torch.float32, 128, 601, "tf32"),
     ("dense", torch.bfloat16, 64, 33, "tensor_core"), ("dense", torch.bfloat16, 16, 33, "cuda_core"),
@@ -163,7 +163,8 @@ def _tower_args(seed, which):
 @pytest.mark.parametrize("which", ["dq", "dkv", "dense"])
 def test_tf32_kernels_pass_the_cuda_core_arguments(monkeypatch, which):
     """Each wrapper launches its library's C function with the arguments
-    the CUDA-core kernel's wrapper passes, in its order (the outputs it
+    the other route's kernel passes (the tower's tiled tensor-core pair, the
+    dense-bias op's CUDA-core forward), in its order (the outputs it
     allocates aside), and counts one launch. The device check is stood in
     for, so that CPU tensors reach the launch."""
     launched = []
@@ -172,18 +173,21 @@ def test_tf32_kernels_pass_the_cuda_core_arguments(monkeypatch, which):
         monkeypatch.setattr(ba, "_check_tensor_core_inputs", lambda *a, **kw: None)
         q, k, v, bias, mask = to_torch(make_inputs(8, 2, 3, 9, 32))
         args = (q, k, v, bias, mask, 32 ** -0.5)
-        wrapper, old, lib, outputs = ba.biased_attention_fwd_tf32, ba.biased_attention_fwd, "biased_fwd", (5,)
+        wrapper, old, outputs = ba.biased_attention_fwd_tf32, ba.biased_attention_fwd, (5,)
+        names = ("biased_fwd_tf32", "biased_attention_fwd_tf32"), ("biased_fwd", "biased_attention_fwd")
     else:
         monkeypatch.setattr(ma, "_check_tensor_core_inputs", lambda *a, **kw: None)
         args = _tower_args(9, which)
         wrapper = getattr(ma, f"masked_attention_bwd_{which}_tf32")
-        old, lib, outputs = getattr(ma, f"masked_attention_bwd_{which}"), "masked_bwd", (7, 8)
+        old, outputs = getattr(ma, f"masked_attention_bwd_{which}_tiled"), (7, 8)
+        names = (("masked_bwd_tf32", f"masked_attention_bwd_{which}_tf32"),
+                 ("masked_bwd_tiled", f"masked_attention_bwd_{which}_tiled"))
     before, before_old = wrapper.launches, old.launches
     got = wrapper(*args)
     old(*args)
     assert wrapper.launches == before + 1 and old.launches == before_old + 1
     (lib_t, fn_t, mine), (lib_o, fn_o, theirs) = launched
-    assert (lib_t, fn_t) == (f"{lib}_tf32", f"{fn_o}_tf32") and lib_o == lib
+    assert ((lib_t, fn_t), (lib_o, fn_o)) == names
     assert len(mine) + 1 == len(cuda_lib.ENTRY_POINTS[lib_t][fn_t])  # + the stream
     assert [x for i, x in enumerate(mine) if i not in outputs] == [x for i, x in enumerate(theirs) if i not in outputs]
     got = (got,) if which == "dense" else got
@@ -247,12 +251,13 @@ def test_tf32_kernel_input_checks(monkeypatch, fault):
 def test_build_tables_name_the_new_libraries():
     """``ops/cuda_lib.py`` builds the 3xTF32 tower pair and the 3xTF32
     dense-bias forward each as a library of its own in the one parallel
-    nvcc pass, whose C functions take the CUDA-core kernels' arguments; both
+    nvcc pass, whose C functions take the arguments of the other route's
+    kernels (the tiled tensor-core tower pair, the CUDA-core dense forward); both
     take their helpers from the shared 3xTF32 header, and their wrappers
     count launches."""
-    tables = (("masked_bwd_tf32", "masked_attention_bwd_tf32", "masked_bwd",
-               {"masked_attention_bwd_dq_tf32": "masked_attention_bwd_dq",
-                "masked_attention_bwd_dkv_tf32": "masked_attention_bwd_dkv"}),
+    tables = (("masked_bwd_tf32", "masked_attention_bwd_tf32", "masked_bwd_tiled",
+               {"masked_attention_bwd_dq_tf32": "masked_attention_bwd_dq_tiled",
+                "masked_attention_bwd_dkv_tf32": "masked_attention_bwd_dkv_tiled"}),
               ("biased_fwd_tf32", "biased_attention_fwd_tf32", "biased_fwd",
                {"biased_attention_fwd_tf32": "biased_attention_fwd"}))
     for lib, source, old_lib, functions in tables:
@@ -263,7 +268,7 @@ def test_build_tables_name_the_new_libraries():
         assert '#include "tf32_common.cuh"' in text and "cvt.rna.tf32" not in text
         assert all(f'extern "C" int {fn}(' in text for fn in functions)
         assert lib in cuda_lib.library_paths()
-    assert ma.KERNELS[-2:] == (ma.masked_attention_bwd_dq_tf32, ma.masked_attention_bwd_dkv_tf32)
+    assert ma.masked_attention_bwd_dq_tf32 in ma.KERNELS and ma.masked_attention_bwd_dkv_tf32 in ma.KERNELS
     assert ba.KERNELS[-1] is ba.biased_attention_fwd_tf32 and ba.FORWARDS["tf32"] is ba.biased_attention_fwd_tf32
 
 
@@ -332,9 +337,11 @@ def test_emulated_3xtf32_tower_backward_matches_jax(monkeypatch, s, dh, kernel):
         monkeypatch.setattr(jma, "FORCE_KERNEL", True)
         q, k, v, bias = (x[:-1] for x in (q, k, v, bias))
     g = np.random.default_rng(s).standard_normal(q.shape).astype(np.float32)
-    out, vjp = jax.vjp(lambda q_, k_, v_: jma.masked_attention(q_, k_, v_, jnp.asarray(bias)),
-                       *(jnp.asarray(x) for x in (q, k, v)))
-    want = [out, *vjp(jnp.asarray(g))]
+    def run(q_, k_, v_, g_):  # one jit: the eager vjp compiles op by op
+        out, vjp = jax.vjp(lambda *a: jma.masked_attention(*a, jnp.asarray(bias)), q_, k_, v_)
+        return (out, *vjp(g_))
+
+    want = jax.jit(run)(*(jnp.asarray(x) for x in (q, k, v, g)))
     got = emulated_tower_backward(*(torch.from_numpy(x) for x in (q, k, v, bias, g)), dh ** -0.5)
     for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
         _assert_within_of_max(a.numpy(), np.asarray(w), name)

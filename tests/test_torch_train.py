@@ -29,7 +29,7 @@ from multimodaldiscussiontransformer_tpu_torch.train import launch
 from multimodaldiscussiontransformer_tpu_torch.train import optimizer as poptim
 from multimodaldiscussiontransformer_tpu_torch.train.trainer import Trainer
 from multimodaldiscussiontransformer_tpu_torch.utils import flops as pflops
-from multimodaldiscussiontransformer_tpu_torch.utils.flax_import import flax_to_state_dict, to_flax_params
+from multimodaldiscussiontransformer_tpu_torch.utils.flax_import import to_flax_params
 
 torch.set_num_threads(2)
 IMG = (3, 32, 32)
@@ -146,13 +146,13 @@ def test_scan_step_matches_jax():
 def assert_scan_step_matches_jax(jcfg, pcfg):
     """The body of ``test_scan_step_matches_jax`` for any pair of equal
     TrainConfigs (both with every dropout at 0)."""
+    from test_torch_contrastive import jax_state  # the JAX state from the port's weights: no eager Flax init
+
     jtrainer = JaxTrainer(jcfg, mesh=make_mesh(1, 1), image_shape=IMG)
     jbatches = list(jtrainer.train_batches(jax_synthetic_dataset(num_graphs=40, seed=0, **SYN), epoch=1))[:3]
-    jstate = jtrainer.init_state(jbatches[0].asdict())
-    params = jax.device_get(jstate.params)
-
     ptrainer = Trainer(pcfg, image_shape=IMG, device="cpu")
-    pstate = ptrainer.load_params(ptrainer.init_state(), flax_to_state_dict(params))
+    pstate = ptrainer.init_state()
+    jstate = jax_state(jtrainer, to_flax_params(pstate.model))
     pbatches = list(ptrainer.train_batches(synthetic_dataset(num_graphs=40, seed=0, **SYN), epoch=1))[:3]
     for a, b in zip(pbatches, jbatches):
         for k, v in b.asdict().items():

@@ -46,8 +46,12 @@ def _port_grads(arrays, g, **kw):
 
 def _jax_grads(fn, arrays, g):
     q, k, v, template, ids, lut = (jnp.asarray(a) for a in arrays)
-    out, vjp = jax.vjp(lambda q_, k_, v_, l_: fn(q_, k_, v_, template, ids, l_), q, k, v, lut)
-    return [np.asarray(out)] + [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+    def run(q_, k_, v_, l_, g_):  # one jit: the eager vjp compiles op by op
+        out, vjp = jax.vjp(lambda *a: fn(*a[:3], template, ids, a[3]), q_, k_, v_, l_)
+        return (out, *vjp(g_))
+
+    return [np.asarray(x) for x in jax.jit(run)(q, k, v, lut, jnp.asarray(g))]
 
 
 def _assert_close(got, want):
@@ -145,7 +149,8 @@ def test_compact_attention_layer_with_dropout_matches_jax_oracle():
     lut[0] = 0.0
     mod = jgraph.BiasedMultiheadAttention(jcfg)
     jbias = tuple(jnp.asarray(a) for a in (template, ids, lut))
-    params = jax.device_get(mod.init(jax.random.PRNGKey(0), jnp.asarray(x), jbias, None))
+    # jitted: eagerly each op of the init compiles on its own
+    params = jax.device_get(jax.jit(lambda r: mod.init(r, jnp.asarray(x), jbias, None))(jax.random.PRNGKey(0)))
 
     port = graphormer.BiasedMultiheadAttention(tiny_model_config(attention_dropout=0.3), torch.float32)
     port.load_state_dict(flax_to_state_dict(params), strict=True)
