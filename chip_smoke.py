@@ -4,13 +4,14 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --only kernels   # the build and phases 2-5 alone
     python3 chip_smoke.py --only long_text # the build and long_text_fused alone
+    python3 chip_smoke.py --only graph_heads # the build and graph_heads alone
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: compile every kernel library from ``csrc/`` with nvcc (sm_90a;
-   one nvcc per source, all fifteen in parallel: the tree-attention
-   forwards (CUDA-core K1, tensor-core bf16 and 3xTF32 float32) and
-   backward pairs (CUDA-core K2/K3, tensor-core bf16 and 3xTF32 float32),
+   one nvcc per source, all thirteen in parallel: the tree-attention
+   forwards (tensor-core bf16 at DH 16-128 and 3xTF32 float32) and
+   backward pairs (tensor-core bf16 and 3xTF32 float32),
    the masked (tower) attention's three forwards (one-pass tensor-core
    bf16, tiled tensor-core bf16 and 3xTF32 float32), its tiled bf16 and
    3xTF32 float32 backward pairs and its one-pass tensor-core backward,
@@ -24,35 +25,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
    templates/ids collated from synthetic trees: S=33 (B=16), S=129 and
    S=257 (B=2), S=601 (B=1): float32 (TF32 off) through the route (the
    3xTF32 forward), bfloat16 through the route (the tensor-core
-   forward, within 1e-2 of max |ref|) and through the CUDA-core forward's
-   own wrapper (within one bf16 step elementwise). Each shape also gets
-   times for both forwards on the same bf16 inputs, the plain version and
-   one library call on the assembled dense bias
-   (``F.scaled_dot_product_attention``, a yardstick the port never calls),
-   beside the least time the card could take; and the float32 route's
-   time (the 3xTF32 forward) on float32 inputs beside K1 and SDPA on the
-   same inputs, the float32 bound and the 3xTF32 one.
+   forward, within 1e-2 of max |ref|). Each shape also gets times for the
+   tensor-core forward, the plain version and one library call on the
+   assembled dense bias (``F.scaled_dot_product_attention``, a yardstick
+   the port never calls), beside the least time the card could take; and
+   the float32 route's time (the 3xTF32 forward) on float32 inputs beside
+   SDPA on the same inputs, the float32 bound and the 3xTF32 one.
 3. kernel_vs_plain_train: the tree-attention forward with dropout and the
    LSE output and the backward pair against the plain version's forward
    and autograd gradients at S=33 (B=12), 129 (B=4), 257 (B=2) and the
    streaming sizes S=601 and 1025 (B=1), at rate 0.3 and 0, in float32
-   (the "tf32" route: the 3xTF32 forward and pair; K1's output and LSE
-   and K2/K3's float32 gradients beside them) and bfloat16 (the
-   "tensor_core" route: the tensor-core
-   forward and pair; K1's bf16 output and K2/K3's bf16 gradients beside
-   them); the adjoint identity in v on both routes; times of each kernel
-   (both forwards and the bf16 pairs on the same bf16 inputs), the plain
-   version and SDPA (on the permuted bias and on a contiguous copy); the
-   3xTF32 forward and pair, K1 and K2/K3 again on float32 inputs beside
-   SDPA in float32, the float32 bound and the 3xTF32 one. Then
+   (the "tf32" route: the 3xTF32 forward and pair) and bfloat16 (the
+   "tensor_core" route: the tensor-core forward and pair), each route's
+   LSE against the plain one; the adjoint identity in v on both routes;
+   times of each bf16 kernel, the plain version and SDPA (on the permuted
+   bias and on a contiguous copy); the 3xTF32 forward and pair again on
+   float32 inputs beside SDPA in float32, the float32 bound and the 3xTF32
+   one. Then
    dropout_mask: the 3xTF32 forward's mask read back in float32 at S=33
    and S=601 (ten tiles), the tensor-core forward's and both kernels of
    the tensor-core pair's in bf16 and both kernels of the 3xTF32 pair's
    in float32 at S=601 equal the plain Philox, and their kept fractions.
-   Then kernel_vs_plain_train_dh16 at the workflows' width (S=33, B=12,
-   H=4, DH 16): the float32 route against the plain version, K2/K3 and
-   K1's LSE, the bf16 route (K1, K2/K3) against the plain version, and
-   the float32 times.
+   Then kernel_vs_plain_dh: the bf16 route (the tensor-core forward and
+   pair) at the head dims other graph head counts give at d = 768 (DH 16
+   x 48 heads, 32 x 24, 128 x 6), each at S=33 (B=12) and S=601 (B=1), and
+   at the workflows' width (S=33, B=12, H=4, DH 16), through
+   ``tree_attention`` at rate 0.3 and 0: every output within 1e-2 of max
+   |ref| of the plain version, the LSE against the plain one, the
+   launches; a row the template masks whole and ids outside [0, 32); the
+   forward's and both pair kernels' masks against the plain Philox; the
+   bf16 adjoint identity; times of the forward, dq and dk/dv beside their
+   bounds, the plain version and SDPA (forward and forward + backward, on
+   the permuted bias and a contiguous copy); at H=4 also the float32
+   route against the plain version, with its times.
 4. masked_vs_plain: the tower (masked) attention forward and backward
    kernels against their plain version at the tower shapes (text bottom
    B=256 S=100, text fusion B=256 S=104, ViT fusion B=64 S=201 without a
@@ -107,8 +112,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``BatchingScorer`` from 4 threads (discussions of ~20, ~100 and 600
    nodes, 100-token text, some nodes with a 3x224x224 image). Checks finite
    probabilities that sum to 1, exactly 10 launches of the tensor-core
-   tree forward per forward (the CUDA-core forward at 0) and no backward
-   launch, and agreement with the same model on the CPU (float32) on one
+   tree forward per forward and no other launch, and agreement with the same model on the CPU (float32) on one
    small discussion.
 7. scoring_fused: the same weights with both towers fused
    (``use_pallas_attention`` in the tower configs) score the same
@@ -124,7 +128,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    x 1, every dropout 0) fused and unfused from the same weights, the
    losses within 1e-2 relative; every text layer through the tiled
    forward (and the trained ones through the tiled pair), each run's
-   launches exact.
+   launches exact. Then graph_heads: ``run_train.sh 8 4 5 2 2 0``'s flags
+   with ``--encoder-attention-heads`` 6 (graph DH 128) and 24 (DH 32)
+   through the launcher's flag resolution and the Trainer API: one
+   canonical update (batch 12 x 3, rate 0.3) with its launches counted (30
+   tensor-core tree forwards, 24 + 24 backward, nothing else), then
+   ``DiscussionScorer`` forwards of 3 discussions (10 tree forwards each)
+   whose bf16 scores lie within 2e-2 of the float32 CPU port's on the same
+   weights; ms per update and per scoring forward.
 8. latency: per-request-batch scoring latency at batch 1, 4 and 16, and
    the device time of a batch-4 forward (``torch.profiler``) against its
    wall time, beside the host's time to collate that batch and copy it to
@@ -147,7 +158,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    Each checks a finite, changing loss, the exact launches of every kernel
    in every update (tree attention: 10 graph layers forward through the
    tensor-core forward and 8 backward through the tensor-core pair per
-   microbatch, the CUDA-core kernels at 0, the last graph stack feeding
+   microbatch, the 3xTF32 kernels at 0, the last graph stack feeding
    only the global embedding;
    masked attention: every tower layer forward through the tensor-core
    forward and the 9 trainable fusion layers of each tower backward
@@ -325,7 +336,7 @@ checkpoint; input_ab and contrastive) read one directory, written once.
 
 After the phases, ``seconds_by_phase`` (each phase's wall seconds, also
 printed when a phase fails) and the card's name and power limit; the last
-two lines are the kernels' summary (twenty kernels) and
+two lines are the kernels' summary (seventeen kernels) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -372,9 +383,7 @@ LAUNCHES_PER_FORWARD = 10
 IMAGE_SHAPE = (3, 224, 224)
 
 PKG = "multimodaldiscussiontransformer_tpu_torch"
-KERNEL_SOURCE = f"{PKG}/csrc/tree_attention_fwd.cu"
 KERNEL_MMA_SOURCE = f"{PKG}/csrc/tree_attention_fwd_mma.cu"
-BWD_SOURCE = f"{PKG}/csrc/tree_attention_bwd.cu"
 BWD_MMA_SOURCE = f"{PKG}/csrc/tree_attention_bwd_mma.cu"
 BWD_TF32_SOURCE = f"{PKG}/csrc/tree_attention_bwd_tf32.cu"
 KERNEL_TF32_SOURCE = f"{PKG}/csrc/tree_attention_fwd_tf32.cu"
@@ -413,25 +422,34 @@ def time_cuda(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20):
+def device_ms(fn, iters: int = 20, sessions: int = 3):
     """Milliseconds of device time per call: the CUDA kernels' self time
     from ``torch.profiler`` over ``iters`` calls (None if the profiler saw
-    no device time)."""
+    no device time). The profiler drops some launches at times: every call
+    launches the same kernels, so a session that saw a kernel a number of
+    times that ``iters`` does not divide lost some, and is run again, up to
+    ``sessions`` in all (then None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return total_us / iters / 1e3 if total_us > 0 else None
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        if not seen:
+            return None
+        if all(e.count % iters == 0 for e in seen):
+            return sum(e.self_device_time_total for e in seen) / iters / 1e3
+    return None
 
 
 def timed_ms(fn, iters: int = 20) -> float:
-    """Device ms per call where the profiler gives it, else CUDA-event ms."""
+    """Device ms per call where the profiler gives it whole, else CUDA-event
+    ms."""
     dev = device_ms(fn, iters)
     return dev if dev is not None else time_cuda(fn, iters)
 
@@ -513,9 +531,8 @@ def _all_kernels():
 
 
 KERNEL_NAMES = (
-    "tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv", "tree_attention_fwd_fused",
-    "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused", "tree_attention_bwd_dq_tf32",
-    "tree_attention_bwd_dkv_tf32", "tree_attention_fwd_tf32",
+    "tree_attention_fwd_fused", "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused",
+    "tree_attention_bwd_dq_tf32", "tree_attention_bwd_dkv_tf32", "tree_attention_fwd_tf32",
     "masked_attention_bwd_fused", "masked_attention_fwd_fused", "masked_attention_fwd_tf32",
     "masked_attention_bwd_dq_tf32", "masked_attention_bwd_dkv_tf32", "masked_attention_fwd_tiled",
     "masked_attention_bwd_dq_tiled", "masked_attention_bwd_dkv_tiled",
@@ -525,11 +542,10 @@ KERNEL_NAMES = (
 MASKED_TILED = ("masked_attention_fwd_tiled", "masked_attention_bwd_dq_tiled", "masked_attention_bwd_dkv_tiled")
 
 
-# the tree kernels of the bf16 route (DH 64), and those no bf16 path at DH
-# 64 may launch: K1, K2/K3 and the 3xTF32 forward and pair
+# the tree kernels of the bf16 route (any DH), and those no bf16 path may
+# launch: the 3xTF32 forward and pair
 TREE_TENSOR_CORE = ("tree_attention_fwd_fused", "tree_attention_bwd_dq_fused", "tree_attention_bwd_dkv_fused")
-TREE_NOT_BF16 = ("tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv", "tree_attention_bwd_dq_tf32",
-                 "tree_attention_bwd_dkv_tf32", "tree_attention_fwd_tf32")
+TREE_NOT_BF16 = ("tree_attention_bwd_dq_tf32", "tree_attention_bwd_dkv_tf32", "tree_attention_fwd_tf32")
 
 
 def _counts():
@@ -598,8 +614,8 @@ def phase_kernel(seed: int):
             got = ta.tree_attention(qq, kk, vv, template, ids, lut)  # the route's forward
             torch.cuda.synchronize()
             launched = dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, _counts()))))
-            forwards = ("tree_attention_fwd", "tree_attention_fwd_fused", "tree_attention_fwd_tf32")
-            want_fwd = {"tensor_core": (0, 1, 0), "tf32": (0, 0, 1)}[ta.kernel_route(dt, dh)]
+            forwards = ("tree_attention_fwd_fused", "tree_attention_fwd_tf32")
+            want_fwd = {"tensor_core": (1, 0), "tf32": (0, 1)}[ta.kernel_route(dt, dh)]
             if tuple(launched[n] for n in forwards) != want_fwd:
                 raise AssertionError(f"{name} at S={s} took the wrong forward: {launched}")
             err = (got.float() - want).abs()
@@ -610,22 +626,12 @@ def phase_kernel(seed: int):
             if not (ok and torch.isfinite(got).all()):
                 raise AssertionError(f"kernel disagrees with plain version at S={s} B={b} {name}: max err {err.max().item()}")
             row[f"max_abs_err_{name}"] = err.max().item()
-            if name == "bfloat16":
-                # the CUDA-core forward in bf16 through its own wrapper: f32
-                # arithmetic, so within one bf16 step elementwise
-                got = ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, dh ** -0.5)[0]
-                torch.cuda.synchronize()
-                err = (got.float() - want).abs()
-                if not (bool((err <= BF16_ATOL + BF16_RTOL * want.abs()).all()) and torch.isfinite(got).all()):
-                    raise AssertionError(f"CUDA-core forward disagrees at S={s} B={b} bf16: max err {err.max().item()}")
-                row["max_abs_err_bfloat16_cuda_core"] = err.max().item()
         # times in the main path's type
         qq, kk, vv = (x.to(torch.bfloat16).contiguous() for x in (q, k, v))
         dense = ta.assemble_bias(template, ids, lut, True).to(torch.bfloat16)
         dense_c = dense.contiguous()
         calls = {
             "": lambda: ta.tree_attention(qq, kk, vv, template, ids, lut),  # the tensor-core forward
-            "cuda_core_": lambda: ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, dh ** -0.5),
             "plain_": lambda: ta.tree_attention_reference(qq, kk, vv, template, ids, lut),
             "library_": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=dense, scale=dh ** -0.5),
             # assemble_bias returns the (B, H, S, S) bias in a (B, S, S, H)
@@ -641,22 +647,19 @@ def phase_kernel(seed: int):
             row[prefix + "device_ms"] = device_ms(fn)
             row[prefix + "ms"] = row[prefix + "device_ms"] or row[prefix + "call_ms"]
         row["bound_ms"], row["bound_by"] = bound(b, h, s, dh, "bfloat16", 2 * b * s * s * 4 + 32 * h * 4)
-        # the float32 route (the 3xTF32 forward) on float32 inputs, K1 (the
-        # CUDA-core forward it replaces there) and SDPA on the same inputs
-        # with a contiguous float32 bias, and the bounds: float32 on CUDA
-        # cores, and 3xTF32
+        # the float32 route (the 3xTF32 forward) on float32 inputs and SDPA
+        # on the same inputs with a contiguous float32 bias, and the bounds:
+        # float32 on CUDA cores, and 3xTF32
         dense32 = ta.assemble_bias(template, ids, lut, True).contiguous()
         row["float32"] = {
             "ms": timed_ms(lambda: ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, dh ** -0.5)),
-            "cuda_core_ms": timed_ms(lambda: ta.tree_attention_fwd(q, k, v, template, ids, lut, dh ** -0.5)),
             "library_contiguous_ms": timed_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=dense32, scale=dh ** -0.5)),
         }
         shared = 2 * b * s * s * 4 + 32 * h * 4
         row["float32"]["bound_ms"], row["float32"]["bound_by"] = bound(b, h, s, dh, "float32", shared)
         row["float32"]["bound_3xtf32_ms"], row["float32"]["bound_3xtf32_by"] = bound(b, h, s, dh, "3xtf32", shared)
-        row["tolerance"] = {"float32_atol": F32_ATOL, "bfloat16_rel_of_max": TRAIN_BF16_REL,
-                            "bfloat16_cuda_core_rtol": BF16_RTOL, "bfloat16_cuda_core_atol": BF16_ATOL}
+        row["tolerance"] = {"float32_atol": F32_ATOL, "bfloat16_rel_of_max": TRAIN_BF16_REL}
         emit({"phase": "kernel_vs_plain", **row})
         rows.append(row)
     return rows
@@ -1018,6 +1021,126 @@ def phase_long_text(seed: int, card: str = "") -> dict:
     return {"scoring": score_counts, "train": train["fused"]["launches"]}
 
 
+# graph_heads: ModelConfig() at full width with other graph head counts
+# (--encoder-attention-heads): 6 gives graph DH 128 (the reference's
+# multi_graphormer base architecture, 1024 over 8 heads), 24 gives DH 32;
+# bf16 takes the tensor-core tree kernels at both
+GRAPH_HEADS = (6, 24)
+GRAPH_HEADS_GRAPHS = 60  # 48 train graphs: one update of 12 x 3 and more
+GRAPH_HEADS_DISCUSSIONS = 3
+
+
+def phase_graph_heads(seed: int, card: str = "") -> dict:
+    """``run_train.sh 8 4 5 2 2 0``'s flags with ``--encoder-attention-heads``
+    6 and then 24 through the launcher's flag resolution and the Trainer
+    API (``ModelConfig()`` width: BERT-base and ViT-base towers, 8 fusion
+    layers, bf16 over f32 params): one canonical update (batch 12 x 3,
+    dropout 0.4 / 0.3 / 0.3), its tree launches counted (30 forward, 24 +
+    24 backward, every other kernel 0: ``expected_launches``), then
+    ``DiscussionScorer`` forwards of 3 discussions (10 tree forwards each)
+    on the updated weights, their bf16 scores within FUSED_BF16_ATOL of the
+    float32 CPU port's on the same weights. Counts are set to 0 before each
+    counted run and read after it. Prints ms per update and per scoring
+    forward."""
+    import numpy as np
+    import torch
+
+    from multimodaldiscussiontransformer_tpu_torch.data.loader import stack_microbatches
+    from multimodaldiscussiontransformer_tpu_torch.data.synthetic import synthetic_dataset
+    from multimodaldiscussiontransformer_tpu_torch.models.mdt import MDTModel
+    from multimodaldiscussiontransformer_tpu_torch.serve.incremental import DiscussionScorer
+    from multimodaldiscussiontransformer_tpu_torch.train.launch import build_parser, config_from_args
+    from multimodaldiscussiontransformer_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    for heads in GRAPH_HEADS:
+        t0 = time.perf_counter()
+        args = build_parser().parse_args(["--synthetic", *CANONICAL_FLAGS, "--encoder-attention-heads", str(heads),
+                                          "--seed", str(seed + heads), "--no-save"])
+        cfg = config_from_args(args)
+        mc = cfg.model
+        dh = mc.encoder_embed_dim // mc.encoder_attention_heads
+        if mc.dtype != "bfloat16" or graph_layers(mc)[0] != LAUNCHES_PER_FORWARD:
+            raise AssertionError(f"{heads} graph heads: dtype {mc.dtype}, {graph_layers(mc)[0]} graph layers")
+        laps = {}
+
+        def lap(name, t=[t0]):
+            now = time.perf_counter()
+            laps[name], t[0] = now - t[0], now
+
+        trainer = Trainer(cfg, image_shape=IMAGE_SHAPE, device="cuda")
+        lap("trainer")
+        ds = synthetic_dataset(num_graphs=GRAPH_HEADS_GRAPHS, seed=seed + heads, seq_len=TEXT_LEN,
+                               vocab_size=mc.text_tower.vocab_size, image_shape=IMAGE_SHAPE, min_nodes=8, max_nodes=32,
+                               image_prob=0.25)
+        groups = stack_microbatches(trainer.train_batches(ds, 1), cfg.optim.update_freq)
+        group = next(iter(groups))
+        lap("data")
+        state = trainer.init_state()
+        lap("init")
+        trainer.train_step(state, group)  # warm-up, outside the counted run
+        torch.cuda.synchronize()
+        _zero_counts()
+        t = time.perf_counter()
+        logs = trainer.train_step(state, group)
+        torch.cuda.synchronize()
+        update_ms = (time.perf_counter() - t) * 1e3
+        train = dict(zip(KERNEL_NAMES, _counts()))
+        k = group["idx"].shape[0]
+        want_train = dict(zip(KERNEL_NAMES, expected_launches(mc, False, k, group["images"].shape[1] > 0,
+                                                              group["input_ids"].shape[2])))
+        loss = float(logs["loss"]) / max(float(logs["sample_size"]), 1.0)
+        lap("train")
+
+        # scoring on the updated weights, then the same weights in float32
+        # on the CPU
+        rng = np.random.default_rng(seed + heads)
+        discussions = [make_discussion(rng, int(rng.integers(8, 13)), 0.15) for _ in range(GRAPH_HEADS_DISCUSSIONS)]
+        weights = {n: p.detach().cpu().clone() for n, p in state.model.state_dict().items()}
+        del state, trainer
+        torch.cuda.empty_cache()
+        with torch.device("meta"):  # no init: the weights come next
+            model, cpu_model = MDTModel(mc), MDTModel(mc.replace(dtype="float32"))
+        model.load_state_dict(weights, strict=True, assign=True)
+        scorer = DiscussionScorer(model, device="cuda", image_shape=IMAGE_SHAPE)
+        scorer.score(discussions[0])  # warm-up, outside the counted run
+        torch.cuda.synchronize()
+        _zero_counts()
+        t = time.perf_counter()
+        got = [scorer.score(d) for d in discussions]  # each ends in a copy to the host
+        score_ms = (time.perf_counter() - t) * 1e3 / len(discussions)
+        scoring = dict(zip(KERNEL_NAMES, _counts()))
+        want_scoring = {n: LAUNCHES_PER_FORWARD * len(discussions) if n == "tree_attention_fwd_fused" else 0
+                        for n in KERNEL_NAMES}
+        del scorer, model
+        torch.cuda.empty_cache()
+        lap("score")
+        cpu_model.load_state_dict(weights, strict=True, assign=True)
+        cpu = DiscussionScorer(cpu_model, device="cpu", image_shape=IMAGE_SHAPE)
+        want_p = [cpu.score(d) for d in discussions]
+        errs = [float(np.abs(p - w).max()) for p, w in zip(got, want_p)]
+        lap("cpu_agreement")
+        row = {"phase": "graph_heads", "card": card, "encoder_attention_heads": heads, "graph_head_dim": dh,
+               "tree_route": "tensor_core", "update_ms": update_ms, "loss": loss,
+               "train": {"launches": train, "expected_launches": want_train,
+                         "batch": f"{cfg.data.batch_size} x {k}, images {int(group['images'].shape[1])}"},
+               "scoring_forward_ms": score_ms,
+               "scoring": {"discussions": len(discussions), "nodes": [d.num_nodes for d in discussions],
+                           "launches": scoring, "max_abs_err_vs_cpu_f32": errs, "atol": FUSED_BF16_ATOL},
+               "seconds": time.perf_counter() - t0, "seconds_by_part": laps}
+        emit(row)
+        if train != want_train or scoring != want_scoring:
+            raise AssertionError(f"{heads} graph heads launched {train} per update (expected {want_train}) and "
+                                 f"{scoring} scoring (expected {want_scoring})")
+        if not np.isfinite(loss) or not all(np.isfinite(p).all() and np.abs(p.sum(-1) - 1.0).max() <= 1e-5
+                                            for p in got):
+            raise AssertionError(f"{heads} graph heads: loss {loss} or probabilities not finite or not summing to 1")
+        if not max(errs) <= FUSED_BF16_ATOL:
+            raise AssertionError(f"{heads} graph heads: bf16 card scores differ from the CPU's by {max(errs)}")
+        out[heads] = {"train": train, "scoring": scoring}
+    return out
+
+
 def phase_latency(scorer, rng):
     import numpy as np
     import torch
@@ -1201,13 +1324,10 @@ def _check_stat(got, want, what: str) -> dict:
 def phase_kernel_train(seed: int):
     """The routed kernels (float32: the 3xTF32 forward and pair; bf16: the
     tensor-core forward and backward pair) against the plain version's
-    forward and autograd gradients at rate 0.3 and 0, K1's float32 output
-    and LSE (the 3xTF32 forward's LSE held against it) and K2/K3's float32
-    gradients, K1's bf16 output and K2/K3's bf16 gradients beside them; the
-    adjoint identity in v on both routes; the forwards' and both
-    tensor-core pairs' masks read back against the plain Philox; times;
-    then the DH-16 shape (``kernel_train_dh16``). Returns (rows, the DH-16
-    row)."""
+    forward and autograd gradients at rate 0.3 and 0, each route's LSE
+    against the plain one; the adjoint identity in v on both routes; the
+    forwards' and both pairs' masks read back against the plain Philox;
+    times. Returns the rows."""
     import torch
     import torch.nn.functional as F
 
@@ -1231,31 +1351,11 @@ def phase_kernel_train(seed: int):
                 tol = TRAIN_F32_REL if name == "float32" else TRAIN_BF16_REL
                 row[key][name] = _check_errors(got, want, ("out", "dq", "dk", "dv", "dlut"), tol,
                                                f"training kernels disagree at S={s} rate {rate} {name}")
-                if name == "float32":
-                    # the route took the 3xTF32 forward and pair; K1 and
-                    # K2/K3 on the same inputs (from K1's LSE), called
-                    # directly, and the 3xTF32 forward's LSE against K1's
-                    k23 = cuda_core_pair(ta, qq, kk, vv, template, ids, lut, gg, scale, rate, dseed,
-                                         fwd=ta.tree_attention_fwd)
-                    k1, lse_k1 = ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, rate, dseed, True)
-                    _, lse_tf32 = ta.tree_attention_fwd_tf32(qq, kk, vv, template, ids, lut, scale, True, rate, dseed,
-                                                             True)
-                    torch.cuda.synchronize()
-                    row[key]["float32_cuda_core_pair"] = _check_errors(
-                        k23, want[1:], ("dq", "dk", "dv", "dlut"), tol, f"K2/K3 disagree at S={s} rate {rate} f32")
-                    row[key]["float32_k1"] = _check_errors(
-                        [k1], want[:1], ("out",), tol, f"K1 disagrees at S={s} rate {rate} f32")
-                    row[key]["float32_lse_vs_k1"] = _check_stat(lse_tf32, lse_k1, f"3xTF32 LSE against K1's at S={s}")
-                if name == "bfloat16":
-                    # K1 on the same bf16 inputs, through its own wrapper
-                    k1 = ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, rate, dseed)[0]
-                    # and K2/K3 from the tensor-core forward's LSE
-                    k23 = cuda_core_pair(ta, qq, kk, vv, template, ids, lut, gg, scale, rate, dseed)
-                    torch.cuda.synchronize()
-                    row[key]["bfloat16_cuda_core"] = _check_errors(
-                        [k1], want[:1], ("out",), tol, f"the CUDA-core forward disagrees at S={s} rate {rate} bf16")
-                    row[key]["bfloat16_cuda_core_pair"] = _check_errors(
-                        k23, want[1:], ("dq", "dk", "dv", "dlut"), tol, f"K2/K3 disagree at S={s} rate {rate} bf16")
+                # the route's forward LSE against the plain one
+                fwd = ta.tree_attention_fwd_tf32 if name == "float32" else ta.tree_attention_fwd_fused
+                lse = fwd(qq, kk, vv, template, ids, lut, scale, True, rate, dseed, True)[1]
+                row[key][f"{name}_lse"] = _check_stat(lse, plain_tree_lse(ta, qq, kk, template, ids, lut, scale),
+                                                      f"{name} LSE against the plain one at S={s} rate {rate}")
         # the adjoint identity in v: exact only if the backward regenerates
         # the forward's mask
         v2 = torch.randn(b, h, s, dh, device="cuda", generator=gen)
@@ -1302,16 +1402,10 @@ def phase_kernel_train(seed: int):
 
         calls = {
             "fwd": lambda: ta.tree_attention_fwd_fused(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed, True),
-            "fwd_cuda_core": lambda: ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed,
-                                                           True),
             "dq": lambda: ta.tree_attention_bwd_dq_fused(qq, kk, vv, out, gg, template, ids, lut, lse, scale, True, TRAIN_RATE,
                                                          dseed),
             "dkv": lambda: ta.tree_attention_bwd_dkv_fused(qq, kk, vv, gg, template, ids, lut, lse, delta, scale, True,
                                                            TRAIN_RATE, dseed),
-            "dq_cuda_core": lambda: ta.tree_attention_bwd_dq(qq, kk, vv, out, gg, template, ids, lut, lse, scale, True,
-                                                             TRAIN_RATE, dseed),
-            "dkv_cuda_core": lambda: ta.tree_attention_bwd_dkv(qq, kk, vv, gg, template, ids, lut, lse, delta, scale, True,
-                                                               TRAIN_RATE, dseed),
             "plain_fwd": lambda: ta.tree_attention_dropout_reference(qq, kk, vv, template, ids, lut, dseed, TRAIN_RATE, scale),
             "plain_fwd_bwd": plain_bwd_of(qq, kk, vv, gg),
             "library_fwd": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=dense, dropout_p=TRAIN_RATE, scale=scale),
@@ -1323,19 +1417,15 @@ def phase_kernel_train(seed: int):
         row["ms"] = {name: timed_ms(fn) for name, fn in calls.items()}
         row["ms"]["plain_bwd"] = row["ms"]["plain_fwd_bwd"] - row["ms"]["plain_fwd"]
         row["bound"] = work_bounds(b, h, s, dh, "bfloat16", 2 * b * s * s * 4 + 32 * h * 4)
-        row["fwd_vs_cuda_core"] = row["ms"]["fwd_cuda_core"] / row["ms"]["fwd"]
         row["ms"]["pair"] = row["ms"]["dq"] + row["ms"]["dkv"]
-        row["ms"]["pair_cuda_core"] = row["ms"]["dq_cuda_core"] + row["ms"]["dkv_cuda_core"]
-        row["pair_vs_cuda_core"] = row["ms"]["pair_cuda_core"] / row["ms"]["pair"]
         row["pair_vs_library_contiguous_fwd_bwd"] = row["ms"]["pair"] / row["ms"]["library_contiguous_fwd_bwd"]
         row["fwd_vs_library_contiguous"] = row["ms"]["fwd"] / row["ms"]["library_contiguous_fwd"]
         # the float32 route (the 3xTF32 forward, then the 3xTF32 pair) on
-        # float32 inputs, K1 and K2/K3 on the same inputs, SDPA on them with
-        # a contiguous float32 bias, and the bounds: float32 on CUDA cores,
-        # and 3xTF32
+        # float32 inputs, SDPA on them with a contiguous float32 bias, and
+        # the bounds: float32 on CUDA cores, and 3xTF32
         out32, lse32 = ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
-        _, _, delta32 = ta.tree_attention_bwd_dq(q, k, v, out32, g, template, ids, lut, lse32, scale, True, TRAIN_RATE,
-                                                 dseed)
+        _, _, delta32 = ta.tree_attention_bwd_dq_tf32(q, k, v, out32, g, template, ids, lut, lse32, scale, True,
+                                                      TRAIN_RATE, dseed)
         dense32 = ta.assemble_bias(template, ids, lut, True).contiguous()
         calls32 = {
             "fwd_tf32": lambda: ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed,
@@ -1344,12 +1434,6 @@ def phase_kernel_train(seed: int):
                                                              TRAIN_RATE, dseed),
             "dkv_tf32": lambda: ta.tree_attention_bwd_dkv_tf32(q, k, v, g, template, ids, lut, lse32, delta32, scale,
                                                                True, TRAIN_RATE, dseed),
-            "fwd_cuda_core": lambda: ta.tree_attention_fwd(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed,
-                                                           True),
-            "dq_cuda_core": lambda: ta.tree_attention_bwd_dq(q, k, v, out32, g, template, ids, lut, lse32, scale, True,
-                                                             TRAIN_RATE, dseed),
-            "dkv_cuda_core": lambda: ta.tree_attention_bwd_dkv(q, k, v, g, template, ids, lut, lse32, delta32, scale, True,
-                                                               TRAIN_RATE, dseed),
             "library_contiguous_fwd": lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=dense32, dropout_p=TRAIN_RATE, scale=scale),
             "library_contiguous_fwd_bwd": sdpa_fwd_bwd(dense32, q, k, v, g),
@@ -1363,63 +1447,30 @@ def phase_kernel_train(seed: int):
                           "bound_3xtf32": work_bounds(b, h, s, dh, "3xtf32", 2 * b * s * s * 4 + 32 * h * 4)}
         f32ms = row["float32"]["ms"]
         f32ms["pair_tf32"] = f32ms["dq_tf32"] + f32ms["dkv_tf32"]
-        f32ms["pair_cuda_core"] = f32ms["dq_cuda_core"] + f32ms["dkv_cuda_core"]
         if "plain_fwd_bwd" in f32ms:
             f32ms["plain_bwd"] = f32ms["plain_fwd_bwd"] - f32ms["plain_fwd"]
-        row["float32"]["pair_tf32_vs_cuda_core"] = f32ms["pair_cuda_core"] / f32ms["pair_tf32"]
-        row["float32"]["fwd_tf32_vs_cuda_core"] = f32ms["fwd_cuda_core"] / f32ms["fwd_tf32"]
         row["float32"]["fwd_tf32_vs_library_contiguous"] = f32ms["fwd_tf32"] / f32ms["library_contiguous_fwd"]
         row["float32"]["pair_tf32_vs_library_contiguous_fwd_bwd"] = f32ms["pair_tf32"] / f32ms["library_contiguous_fwd_bwd"]
         emit({"phase": "kernel_vs_plain_train", **row})
         rows.append(row)
 
-    # the kernel's mask read back (q = k = 0, no bias, v = the identity:
-    # out = keep / (S (1 - rate))) against the plain Philox, at S = 33
+    # the forwards' masks read back against the plain Philox: the 3xTF32
+    # forward's in float32 at S = 33, the tensor-core forward's in bf16 and
+    # the 3xTF32 one's in float32 over ten key tiles at S = 601
     s, b = 33, 12
-    zeros = torch.zeros(b, h, s, dh, device="cuda")
-    eye = torch.eye(s, dh, device="cuda").expand(b, h, s, dh).contiguous()
-    out = ta.tree_attention(
-        zeros, zeros, eye, torch.zeros(b, s, s, device="cuda"), torch.zeros(b, s, s, dtype=torch.int32, device="cuda"),
-        torch.zeros(ta.LUT_SIZE, h, device="cuda"), rate=TRAIN_RATE, seed=seed + 99,
-    )
-    mask = (out[..., :s] * s * (1 - TRAIN_RATE)).round() > 0.5
+    mask = read_back_tree_fwd_mask(ta, b, h, s, dh, TRAIN_RATE, seed + 99, "float32")
     same = bool(torch.equal(mask, ta.dropout_keep_mask(seed + 99, b, h, s, TRAIN_RATE, "cuda")))
     kept = mask.float().mean().item()
-    # the tensor-core forward's mask in bf16 over ten key tiles: v one-hot
-    # in keys c*dh .. c*dh+dh-1 reads keep / (S (1 - rate)) there, within a
-    # bf16 step of it
     s_mma, b_mma = 601, 1
-    zeros = torch.zeros(b_mma, h, s_mma, dh, device="cuda", dtype=torch.bfloat16)
-    c0, chunks = _counts(), []
-    for c in range(-(-s_mma // dh)):
-        v1 = torch.zeros(s_mma + dh, dh, device="cuda")
-        v1[c * dh: (c + 1) * dh] = torch.eye(dh, device="cuda")
-        out = ta.tree_attention(
-            zeros, zeros, v1[:s_mma].to(torch.bfloat16).expand(b_mma, h, s_mma, dh).contiguous(),
-            torch.zeros(b_mma, s_mma, s_mma, device="cuda"),
-            torch.zeros(b_mma, s_mma, s_mma, dtype=torch.int32, device="cuda"),
-            torch.zeros(ta.LUT_SIZE, h, device="cuda"), rate=TRAIN_RATE, seed=seed + 98,
-        )
-        chunks.append((out.float() * s_mma * (1 - TRAIN_RATE)).round() > 0.5)
+    n_chunks = -(-s_mma // dh)
+    c0 = _counts()
+    mask_mma = read_back_tree_fwd_mask(ta, b_mma, h, s_mma, dh, TRAIN_RATE, seed + 98)
     launched = dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, _counts()))))
-    mask_mma = torch.cat(chunks, dim=-1)[..., :s_mma]
     same_mma = bool(torch.equal(mask_mma, ta.dropout_keep_mask(seed + 98, b_mma, h, s_mma, TRAIN_RATE, "cuda")))
     kept_mma = mask_mma.float().mean().item()
-    # the 3xTF32 forward's mask in float32 on the same chunks
-    zeros = torch.zeros(b_mma, h, s_mma, dh, device="cuda")
-    c0, chunks32 = _counts(), []
-    for c in range(-(-s_mma // dh)):
-        v1 = torch.zeros(s_mma + dh, dh, device="cuda")
-        v1[c * dh: (c + 1) * dh] = torch.eye(dh, device="cuda")
-        out = ta.tree_attention(
-            zeros, zeros, v1[:s_mma].expand(b_mma, h, s_mma, dh).contiguous(),
-            torch.zeros(b_mma, s_mma, s_mma, device="cuda"),
-            torch.zeros(b_mma, s_mma, s_mma, dtype=torch.int32, device="cuda"),
-            torch.zeros(ta.LUT_SIZE, h, device="cuda"), rate=TRAIN_RATE, seed=seed + 95,
-        )
-        chunks32.append((out * s_mma * (1 - TRAIN_RATE)).round() > 0.5)
+    c0 = _counts()
+    mask_tf32 = read_back_tree_fwd_mask(ta, b_mma, h, s_mma, dh, TRAIN_RATE, seed + 95, "float32")
     launched_tf32_fwd = dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, _counts()))))
-    mask_tf32 = torch.cat(chunks32, dim=-1)[..., :s_mma]
     same_tf32_fwd = bool(torch.equal(mask_tf32, ta.dropout_keep_mask(seed + 95, b_mma, h, s_mma, TRAIN_RATE, "cuda")))
     kept_tf32_fwd = mask_tf32.float().mean().item()
     # the tensor-core backward pair's masks, both kernels, over ten 64-row
@@ -1449,170 +1500,260 @@ def phase_kernel_train(seed: int):
                                "launches": launched_tf32}})
     if not same or abs(kept - (1 - TRAIN_RATE)) > 0.02:
         raise AssertionError(f"kernel mask: equals plain {same}, kept fraction {kept}")
-    if not same_mma or abs(kept_mma - (1 - TRAIN_RATE)) > 0.02 or launched["tree_attention_fwd_fused"] != len(chunks) \
-            or launched["tree_attention_fwd"]:
+    if not same_mma or abs(kept_mma - (1 - TRAIN_RATE)) > 0.02 or launched["tree_attention_fwd_fused"] != n_chunks \
+            or launched["tree_attention_fwd_tf32"]:
         raise AssertionError(f"tensor-core forward mask: equals plain {same_mma}, kept fraction {kept_mma}, {launched}")
     if not same_tf32_fwd or abs(kept_tf32_fwd - (1 - TRAIN_RATE)) > 0.02 \
-            or launched_tf32_fwd["tree_attention_fwd_tf32"] != len(chunks32) or launched_tf32_fwd["tree_attention_fwd"]:
+            or launched_tf32_fwd["tree_attention_fwd_tf32"] != n_chunks or launched_tf32_fwd["tree_attention_fwd_fused"]:
         raise AssertionError(f"3xTF32 forward mask: equals plain {same_tf32_fwd}, kept fraction {kept_tf32_fwd}, "
                              f"{launched_tf32_fwd}")
-    n_bwd = 2 * -(-s_mma // dh)  # two backward calls a chunk
+    n_bwd = 2 * n_chunks  # two backward calls a chunk
     if not all(same_bwd.values()) or abs(kept_bwd - (1 - TRAIN_RATE)) > 0.02 \
             or (launched_bwd["tree_attention_bwd_dq_fused"], launched_bwd["tree_attention_bwd_dkv_fused"]) != (n_bwd, n_bwd) \
-            or launched_bwd["tree_attention_bwd_dq"] or launched_bwd["tree_attention_bwd_dkv"]:
+            or launched_bwd["tree_attention_bwd_dq_tf32"] or launched_bwd["tree_attention_bwd_dkv_tf32"]:
         raise AssertionError(f"tensor-core backward masks: equal plain {same_bwd}, kept fraction {kept_bwd}, {launched_bwd}")
     if not all(same_tf32.values()) or abs(kept_tf32 - (1 - TRAIN_RATE)) > 0.02 \
             or (launched_tf32["tree_attention_bwd_dq_tf32"], launched_tf32["tree_attention_bwd_dkv_tf32"]) != (n_bwd, n_bwd) \
-            or launched_tf32["tree_attention_bwd_dq"] or launched_tf32["tree_attention_bwd_dkv"]:
+            or launched_tf32["tree_attention_bwd_dq_fused"] or launched_tf32["tree_attention_bwd_dkv_fused"]:
         raise AssertionError(f"3xTF32 backward masks: equal plain {same_tf32}, kept fraction {kept_tf32}, {launched_tf32}")
-    return rows, kernel_train_dh16(ta, seed)
+    return rows
 
 
-# the workflows' graph attention (hidden 64 over 4 heads) at the canonical
-# bucket: float32 takes the 3xTF32 forward and pair there, bf16 K1 and K2/K3
-DH16_SHAPE = {"S": 33, "B": 12, "H": 4, "dh": 16}
+def plain_tree_lse(ta, q, k, template, ids, lut, scale):
+    """The LSE the tree forwards store, in f32 from the plain pieces: the
+    row max clamped at -1e9 plus the log of the undropped row sum clamped
+    at 1e-30."""
+    import torch
+
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float()) + ta.assemble_bias(template, ids, lut, True)
+    m = s.amax(-1).clamp_min(ta.MASK_BIAS)
+    return m + torch.exp(s - m[..., None]).sum(-1).clamp_min(1e-30).log()
 
 
-def kernel_train_dh16(ta, seed: int) -> dict:
-    """The tree kernels at DH 16 (``DH16_SHAPE``, rate 0.3 and 0): float32
-    through ``tree_attention`` (the 3xTF32 forward and pair) against the
-    plain version and, from K1's LSE, against K2/K3 called directly, the
-    3xTF32 forward's LSE against K1's; bf16 through ``tree_attention`` (K1
-    and K2/K3: the "cuda_core" route) against the plain version, its
-    launches counted as the bf16 DH-16 path's; times of the 3xTF32 forward
-    and pair, K1, K2/K3 and SDPA in float32 beside both bounds."""
+# kernel_vs_plain_dh: (dh, H, S, B) of the bf16 tree kernels at the head
+# dims that other graph head counts give at d = 768 (--encoder-attention-heads
+# 48, 24, 6), each at the canonical bucket and a 600-node discussion; and
+# the workflows' graph attention (hidden 64 over 4 heads), DH16_SHAPE, also
+# on the float32 route
+DH16_SHAPE = (16, 4, 33, 12)
+DH_SHAPES = ((16, 48, 33, 12), (16, 48, 601, 1), (32, 24, 33, 12), (32, 24, 601, 1), (128, 6, 33, 12),
+             (128, 6, 601, 1), DH16_SHAPE)
+
+
+def read_back_tree_fwd_mask(ta, b, h, s, dh, rate, seed, dtype_name: str = "bfloat16"):
+    """The routed forward's keep mask, read back in ``dtype_name``: with q =
+    k = 0 and no bias every row weighs its keys equally, so with v one-hot
+    in keys c*dh .. c*dh+dh-1, out = keep / (S (1 - rate)) there (within a
+    bf16 step of it)."""
+    import torch
+
+    dt = getattr(torch, dtype_name)
+    zeros = torch.zeros(b, h, s, dh, device="cuda", dtype=dt)
+    template = torch.zeros(b, s, s, device="cuda")
+    ids = torch.zeros(b, s, s, dtype=torch.int32, device="cuda")
+    lut = torch.zeros(ta.LUT_SIZE, h, device="cuda")
+    chunks = []
+    for c in range(-(-s // dh)):
+        v1 = torch.zeros(s + dh, dh, device="cuda")
+        v1[c * dh: (c + 1) * dh] = torch.eye(dh, device="cuda")
+        out = ta.tree_attention(zeros, zeros, v1[:s].to(dt).expand(b, h, s, dh).contiguous(), template, ids, lut,
+                                rate=rate, seed=seed)
+        chunks.append((out.float() * s * (1 - rate)).round() > 0.5)
+    return torch.cat(chunks, dim=-1)[..., :s]
+
+
+def phase_kernel_dh(seed: int):
+    """The bf16 tree kernels (the tensor-core forward and pair, the route
+    of every DH) at ``DH_SHAPES``, through ``tree_attention``, rate 0.3 and
+    0: out, dq, dk, dv and dlut against the plain version within 1e-2 of
+    max |ref| and the forward's LSE against the plain one, each call's
+    launches held to the route; a row the template masks whole and ids
+    outside [0, 32) (zeros, LUT row 0 without gradient, against the plain
+    version); the forward's and both pair kernels' masks read back against
+    the plain Philox; the bf16 adjoint identity in v; times of the forward
+    (at rate 0 too), dq and dk/dv kernels beside the bound, the plain
+    version (at S = 33) and SDPA (forward and forward + backward, on the
+    permuted dense bias and on a contiguous copy). At DH16_SHAPE also the float32 route (the 3xTF32
+    forward and pair) against the plain version, with times beside SDPA in
+    float32 and both float32 bounds."""
     import torch
     import torch.nn.functional as F
 
-    s, b, h, dh = (DH16_SHAPE[n] for n in ("S", "B", "H", "dh"))
-    scale = dh ** -0.5
-    template, ids, lut = (t.cuda() for t in compact_inputs(s, b, h, seed + 16))
-    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
-    q, k, v, g = (torch.randn(b, h, s, dh, device="cuda", generator=gen) for _ in range(4))
-    dseed = seed * 1000003 + 16
-    row = {"phase": "kernel_vs_plain_train_dh16", **DH16_SHAPE, "rate": TRAIN_RATE, "errors": {}, "errors_rate0": {}}
-    for rate, key in ((TRAIN_RATE, "errors"), (0.0, "errors_rate0")):
-        c0 = _counts()
-        got = _fwd_and_grads(ta.tree_attention, q, k, v, template, ids, lut, g, rate=rate, seed=dseed)
-        launched = dict(zip(KERNEL_NAMES, (y - x for x, y in zip(c0, _counts()))))
-        want = _fwd_and_grads(ta.tree_attention_dropout_reference, q, k, v, template, ids, lut, g, rate=rate, seed=dseed)
-        k23 = cuda_core_pair(ta, q, k, v, template, ids, lut, g, scale, rate, dseed, fwd=ta.tree_attention_fwd)
-        torch.cuda.synchronize()
-        names = ("out", "dq", "dk", "dv", "dlut")
-        row[key]["float32"] = _check_errors(got, want, names, TRAIN_F32_REL, f"DH-16 float32 route at rate {rate}")
-        row[key]["float32_vs_cuda_core_pair"] = _check_errors(got[1:], k23, names[1:], TRAIN_F32_REL,
-                                                              f"DH-16 3xTF32 pair against K2/K3 at rate {rate}")
-        row[key]["float32_cuda_core_pair"] = _check_errors(k23, want[1:], names[1:], TRAIN_F32_REL,
-                                                           f"DH-16 K2/K3 at rate {rate}")
-        _, lse_k1 = ta.tree_attention_fwd(q, k, v, template, ids, lut, scale, True, rate, dseed, True)
-        _, lse_tf32 = ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, scale, True, rate, dseed, True)
-        row[key]["float32_lse_vs_k1"] = _check_stat(lse_tf32, lse_k1, f"DH-16 3xTF32 LSE against K1's at rate {rate}")
-        want_launch = {"tree_attention_fwd_tf32": 1, "tree_attention_bwd_dq_tf32": 1, "tree_attention_bwd_dkv_tf32": 1}
-        if launched != {n: want_launch.get(n, 0) for n in KERNEL_NAMES}:
-            raise AssertionError(f"DH-16 float32 route launched {launched}")
-        qq, kk, vv, gg = (x.to(torch.bfloat16) for x in (q, k, v, g))
-        _zero_counts()
-        got = _fwd_and_grads(ta.tree_attention, qq, kk, vv, template, ids, lut, gg, rate=rate, seed=dseed)
-        launched = dict(zip(KERNEL_NAMES, _counts()))
-        want = _fwd_and_grads(ta.tree_attention_dropout_reference, qq, kk, vv, template, ids, lut, gg, rate=rate,
+    from multimodaldiscussiontransformer_tpu_torch.ops import tree_attention as ta
+
+    names = ("out", "dq", "dk", "dv", "dlut")
+    tensor_core = {n: int(n in TREE_TENSOR_CORE) for n in KERNEL_NAMES}
+    rows = []
+    for dh, h, s, b in DH_SHAPES:
+        t0 = time.perf_counter()
+        scale = dh ** -0.5
+        template, ids, lut = (t.cuda() for t in compact_inputs(s, b, h, seed + 3 * s + dh))
+        gen = torch.Generator(device="cuda").manual_seed(seed + s + dh)
+        q, k, v, g, v2 = (torch.randn(b, h, s, dh, device="cuda", generator=gen) for _ in range(5))
+        qq, kk, vv, gg, vv2 = (x.to(torch.bfloat16) for x in (q, k, v, g, v2))
+        dseed = seed * 1000003 + 7 * s + dh
+        row = {"S": s, "B": b, "H": h, "dh": dh, "rate": TRAIN_RATE, "errors": {}, "errors_rate0": {}}
+        for rate, key in ((TRAIN_RATE, "errors"), (0.0, "errors_rate0")):
+            _zero_counts()
+            got = _fwd_and_grads(ta.tree_attention, qq, kk, vv, template, ids, lut, gg, rate=rate, seed=dseed)
+            launched = dict(zip(KERNEL_NAMES, _counts()))
+            want = _fwd_and_grads(ta.tree_attention_dropout_reference, qq, kk, vv, template, ids, lut, gg, rate=rate,
+                                  seed=dseed)
+            torch.cuda.synchronize()
+            if launched != tensor_core:
+                raise AssertionError(f"DH {dh} bf16 at S={s} launched {launched}")
+            row[key]["bfloat16"] = _check_errors(got, want, names, TRAIN_BF16_REL,
+                                                 f"DH-{dh} bf16 kernels at S={s} rate {rate}")
+            lse = ta.tree_attention_fwd_fused(qq, kk, vv, template, ids, lut, scale, True, rate, dseed, True)[1]
+            row[key]["bfloat16_lse"] = _check_stat(lse, plain_tree_lse(ta, qq, kk, template, ids, lut, scale),
+                                                   f"DH-{dh} LSE at S={s} rate {rate}")
+        row["launches_bfloat16"] = launched  # the rate-0 call's, through tree_attention
+
+        # a row the template masks whole (column 0 too) and ids outside
+        # [0, 32): zeros there, no LUT row 0 gradient, the rest as the plain
+        # version's
+        t2, i2 = template.clone(), torch.randint(-40, 3 * ta.LUT_SIZE, ids.shape, device="cuda", dtype=torch.int32,
+                                                generator=gen)
+        t2[0, s // 2] = ta.MASK_BIAS
+        got = _fwd_and_grads(ta.tree_attention, qq, kk, vv, t2, i2, lut, gg, rate=TRAIN_RATE, seed=dseed)
+        want = _fwd_and_grads(ta.tree_attention_dropout_reference, qq, kk, vv, t2, i2, lut, gg, rate=TRAIN_RATE,
                               seed=dseed)
-        torch.cuda.synchronize()
-        row[key]["bfloat16"] = _check_errors(got, want, names, TRAIN_BF16_REL, f"DH-16 bf16 route at rate {rate}")
-        want_launch = {"tree_attention_fwd": 1, "tree_attention_bwd_dq": 1, "tree_attention_bwd_dkv": 1}
-        if launched != {n: want_launch.get(n, 0) for n in KERNEL_NAMES}:
-            raise AssertionError(f"DH-16 bf16 route launched {launched}")
-        row.setdefault("launches_bfloat16", launched)  # the rate-0.3 call's
+        row["masked_row_and_ids"] = _check_errors(got, want, names, TRAIN_BF16_REL, f"DH-{dh} edge rows at S={s}")
+        if got[0][0, :, s // 2].any() or got[1][0, :, s // 2].any() or got[4][0].any():
+            raise AssertionError(f"DH {dh} S={s}: a masked row's out or dq, or LUT row 0's gradient, is not zero")
 
-    out, lse = ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
-    _, _, delta = ta.tree_attention_bwd_dq_tf32(q, k, v, out, g, template, ids, lut, lse, scale, True, TRAIN_RATE, dseed)
-    dense = ta.assemble_bias(template, ids, lut, True).contiguous()
+        t_checks = time.perf_counter()
+        # the masks: the forward's, and both pair kernels' (bwd_route)
+        mask = read_back_tree_fwd_mask(ta, b, h, s, dh, TRAIN_RATE, dseed + 1)
+        by_dv, by_dq = read_back_tree_bwd_masks(ta, b, h, s, TRAIN_RATE, dseed + 2, dh=dh)
+        row["masks_equal_plain_philox"] = {
+            "fwd": bool(torch.equal(mask, ta.dropout_keep_mask(dseed + 1, b, h, s, TRAIN_RATE, "cuda"))),
+            "dkv_kernel": bool(torch.equal(by_dv, ta.dropout_keep_mask(dseed + 2, b, h, s, TRAIN_RATE, "cuda"))),
+            "dq_kernel": bool(torch.equal(by_dq, ta.dropout_keep_mask(dseed + 2, b, h, s, TRAIN_RATE, "cuda")))}
+        if not all(row["masks_equal_plain_philox"].values()):
+            raise AssertionError(f"DH {dh} S={s}: masks {row['masks_equal_plain_philox']}")
 
-    def sdpa_fwd_bwd():
-        leaves = [x.detach().requires_grad_(True) for x in (q, k, v, dense)]
-        F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=scale).backward(g)
+        # the adjoint identity in v, g = f(v2)
+        fv2 = ta.tree_attention(qq, kk, vv2, template, ids, lut, rate=TRAIN_RATE, seed=dseed)
+        vg = vv.clone().requires_grad_(True)
+        ta.tree_attention(qq, kk, vg, template, ids, lut, rate=TRAIN_RATE, seed=dseed).backward(fv2)
+        lhs = (fv2.double() * fv2.double()).sum().item()
+        rhs = (vg.grad.double() * vv2.double()).sum().item()
+        row["adjoint_bfloat16"] = {"lhs": lhs, "rhs": rhs, "rel_err": abs(lhs - rhs) / abs(lhs),
+                                   "rel_tol": BF16_ADJOINT_REL}
+        if not abs(lhs - rhs) <= BF16_ADJOINT_REL * abs(lhs):
+            raise AssertionError(f"DH {dh} S={s}: bf16 adjoint identity {row['adjoint_bfloat16']}")
 
-    def plain_fwd_bwd():
-        leaves = [x.detach().requires_grad_(True) for x in (q, k, v, lut)]
-        ta.tree_attention_dropout_reference(leaves[0], leaves[1], leaves[2], template, ids, leaves[3], dseed,
-                                            TRAIN_RATE, scale).backward(g)
+        # times, rate 0.3
+        t_masks = time.perf_counter()
+        out, lse = ta.tree_attention_fwd_fused(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
+        _, _, delta = ta.tree_attention_bwd_dq_fused(qq, kk, vv, out, gg, template, ids, lut, lse, scale, True,
+                                                     TRAIN_RATE, dseed)
+        dense = ta.assemble_bias(template, ids, lut, True).to(torch.bfloat16)
+        dense_c = dense.contiguous()  # assemble_bias's layout is (B, S, S, H)
 
-    calls = {
-        "fwd_tf32": lambda: ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed,
+        def plain_fwd_bwd(q_=qq, k_=kk, v_=vv, g_=gg):
+            leaves = [x.detach().requires_grad_(True) for x in (q_, k_, v_, lut)]
+            ta.tree_attention_dropout_reference(leaves[0], leaves[1], leaves[2], template, ids, leaves[3], dseed,
+                                                TRAIN_RATE, scale).backward(g_)
+
+        def sdpa_fwd_bwd(bias, q_=qq, k_=kk, v_=vv, g_=gg):
+            def run():
+                leaves = [x.detach().requires_grad_(True) for x in (q_, k_, v_)]
+                F.scaled_dot_product_attention(*leaves, attn_mask=bias, scale=scale).backward(g_)
+            return run
+
+        calls = {
+            "fwd": lambda: ta.tree_attention_fwd_fused(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed,
                                                        True),
-        "fwd_cuda_core": lambda: ta.tree_attention_fwd(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed,
-                                                       True),
-        "library_contiguous_fwd": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=dense, dropout_p=TRAIN_RATE,
-                                                                         scale=scale),
-        "dq_tf32": lambda: ta.tree_attention_bwd_dq_tf32(q, k, v, out, g, template, ids, lut, lse, scale, True,
+            # at rate 0: the share of the Philox mask
+            "fwd_rate0": lambda: ta.tree_attention_fwd_fused(qq, kk, vv, template, ids, lut, scale, True, 0.0, dseed,
+                                                             True),
+            "dq": lambda: ta.tree_attention_bwd_dq_fused(qq, kk, vv, out, gg, template, ids, lut, lse, scale, True,
                                                          TRAIN_RATE, dseed),
-        "dkv_tf32": lambda: ta.tree_attention_bwd_dkv_tf32(q, k, v, g, template, ids, lut, lse, delta, scale, True,
+            "dkv": lambda: ta.tree_attention_bwd_dkv_fused(qq, kk, vv, gg, template, ids, lut, lse, delta, scale, True,
                                                            TRAIN_RATE, dseed),
-        "dq_cuda_core": lambda: ta.tree_attention_bwd_dq(q, k, v, out, g, template, ids, lut, lse, scale, True,
-                                                         TRAIN_RATE, dseed),
-        "dkv_cuda_core": lambda: ta.tree_attention_bwd_dkv(q, k, v, g, template, ids, lut, lse, delta, scale, True,
-                                                           TRAIN_RATE, dseed),
-        "plain_fwd": lambda: ta.tree_attention_dropout_reference(q, k, v, template, ids, lut, dseed, TRAIN_RATE, scale),
-        "plain_fwd_bwd": plain_fwd_bwd,
-        "library_contiguous_fwd_bwd": sdpa_fwd_bwd,
-    }
-    row["ms"] = {name: timed_ms(fn) for name, fn in calls.items()}
-    row["ms"]["plain_bwd"] = row["ms"]["plain_fwd_bwd"] - row["ms"]["plain_fwd"]
-    row["ms"]["pair_tf32"] = row["ms"]["dq_tf32"] + row["ms"]["dkv_tf32"]
-    row["ms"]["pair_cuda_core"] = row["ms"]["dq_cuda_core"] + row["ms"]["dkv_cuda_core"]
-    shared = 2 * b * s * s * 4 + 32 * h * 4
-    row["bound"] = work_bounds(b, h, s, dh, "float32", shared)
-    row["bound_3xtf32"] = work_bounds(b, h, s, dh, "3xtf32", shared)
-    # bf16, the route K1 and K2/K3 take now: their times beside SDPA in
-    # bf16 (contiguous bias) and the bf16 bound
-    qq, kk, vv, gg = (x.to(torch.bfloat16) for x in (q, k, v, g))
-    out16, lse16 = ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
-    _, _, delta16 = ta.tree_attention_bwd_dq(qq, kk, vv, out16, gg, template, ids, lut, lse16, scale, True,
-                                             TRAIN_RATE, dseed)
-    dense16 = dense.to(torch.bfloat16)
+            "library_fwd": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=dense, dropout_p=TRAIN_RATE,
+                                                                  scale=scale),
+            "library_fwd_bwd": sdpa_fwd_bwd(dense),
+            "library_contiguous_fwd": lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=dense_c,
+                                                                             dropout_p=TRAIN_RATE, scale=scale),
+            "library_contiguous_fwd_bwd": sdpa_fwd_bwd(dense_c),
+        }
+        row["ms"] = {name: timed_ms(fn) for name, fn in calls.items()}
+        if s <= 257:  # the plain version at the canonical bucket, over 3 calls: it launches ~10^3 kernels a call
+            row["ms"]["plain_fwd"] = timed_ms(lambda: ta.tree_attention_dropout_reference(
+                qq, kk, vv, template, ids, lut, dseed, TRAIN_RATE, scale), 3)
+            row["ms"]["plain_fwd_bwd"] = timed_ms(plain_fwd_bwd, 3)
+            row["ms"]["plain_bwd"] = row["ms"]["plain_fwd_bwd"] - row["ms"]["plain_fwd"]
+        row["ms"]["pair"] = row["ms"]["dq"] + row["ms"]["dkv"]
+        row["ms"]["fwd_pair"] = row["ms"]["fwd"] + row["ms"]["pair"]
+        shared = 2 * b * s * s * 4 + 32 * h * 4
+        row["bound"] = work_bounds(b, h, s, dh, "bfloat16", shared)
+        # the aim: the forward no slower than SDPA's forward, forward + pair
+        # no slower than SDPA's forward + backward (contiguous bias)
+        row["fwd_vs_library_contiguous"] = row["ms"]["fwd"] / row["ms"]["library_contiguous_fwd"]
+        row["fwd_pair_vs_library_contiguous_fwd_bwd"] = row["ms"]["fwd_pair"] / row["ms"]["library_contiguous_fwd_bwd"]
 
-    def sdpa16_fwd_bwd():
-        leaves = [x.detach().requires_grad_(True) for x in (qq, kk, vv)]
-        F.scaled_dot_product_attention(*leaves, attn_mask=dense16, dropout_p=TRAIN_RATE, scale=scale).backward(gg)
+        if (dh, h, s, b) == DH16_SHAPE:  # the float32 route at the workflows' shape
+            f32 = {"errors": {}, "errors_rate0": {}}
+            for rate, key in ((TRAIN_RATE, "errors"), (0.0, "errors_rate0")):
+                _zero_counts()
+                got = _fwd_and_grads(ta.tree_attention, q, k, v, template, ids, lut, g, rate=rate, seed=dseed)
+                launched = dict(zip(KERNEL_NAMES, _counts()))
+                want = _fwd_and_grads(ta.tree_attention_dropout_reference, q, k, v, template, ids, lut, g, rate=rate,
+                                      seed=dseed)
+                if launched != {n: int(n in TREE_NOT_BF16) for n in KERNEL_NAMES}:
+                    raise AssertionError(f"DH-16 float32 route launched {launched}")
+                f32[key]["float32"] = _check_errors(got, want, names, TRAIN_F32_REL, f"DH-16 float32 at rate {rate}")
+                lse32 = ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, scale, True, rate, dseed, True)[1]
+                f32[key]["float32_lse"] = _check_stat(lse32, plain_tree_lse(ta, q, k, template, ids, lut, scale),
+                                                      f"DH-16 float32 LSE at rate {rate}")
+            out32, lse32 = ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, scale, True, TRAIN_RATE, dseed, True)
+            _, _, delta32 = ta.tree_attention_bwd_dq_tf32(q, k, v, out32, g, template, ids, lut, lse32, scale, True,
+                                                          TRAIN_RATE, dseed)
+            dense32 = ta.assemble_bias(template, ids, lut, True).contiguous()
+            calls32 = {
+                "fwd_tf32": lambda: ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, scale, True, TRAIN_RATE,
+                                                               dseed, True),
+                "dq_tf32": lambda: ta.tree_attention_bwd_dq_tf32(q, k, v, out32, g, template, ids, lut, lse32, scale,
+                                                                 True, TRAIN_RATE, dseed),
+                "dkv_tf32": lambda: ta.tree_attention_bwd_dkv_tf32(q, k, v, g, template, ids, lut, lse32, delta32,
+                                                                   scale, True, TRAIN_RATE, dseed),
+                "library_contiguous_fwd": lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=dense32, dropout_p=TRAIN_RATE, scale=scale),
+                "library_contiguous_fwd_bwd": sdpa_fwd_bwd(dense32, q, k, v, g),
+            }
+            f32["ms"] = {name: timed_ms(fn) for name, fn in calls32.items()}
+            f32["ms"]["plain_fwd"] = timed_ms(lambda: ta.tree_attention_dropout_reference(
+                q, k, v, template, ids, lut, dseed, TRAIN_RATE, scale), 3)
+            f32["ms"]["plain_fwd_bwd"] = timed_ms(lambda: plain_fwd_bwd(q, k, v, g), 3)
+            f32["ms"]["pair_tf32"] = f32["ms"]["dq_tf32"] + f32["ms"]["dkv_tf32"]
+            f32["ms"]["plain_bwd"] = f32["ms"]["plain_fwd_bwd"] - f32["ms"]["plain_fwd"]
+            f32["bound"] = work_bounds(b, h, s, dh, "float32", shared)
+            f32["bound_3xtf32"] = work_bounds(b, h, s, dh, "3xtf32", shared)
+            row["float32"] = f32
+        t_end = time.perf_counter()
+        row["seconds_by_part"] = {"checks": t_checks - t0, "masks_adjoint": t_masks - t_checks,
+                                  "times": t_end - t_masks}
+        emit({"phase": "kernel_vs_plain_dh", **row})
+        rows.append(row)
+    return rows
 
-    row["bfloat16_cuda_core"] = {"ms": {
-        "fwd": timed_ms(lambda: ta.tree_attention_fwd(qq, kk, vv, template, ids, lut, scale, True, TRAIN_RATE, dseed,
-                                                      True)),
-        "dq": timed_ms(lambda: ta.tree_attention_bwd_dq(qq, kk, vv, out16, gg, template, ids, lut, lse16, scale, True,
-                                                        TRAIN_RATE, dseed)),
-        "dkv": timed_ms(lambda: ta.tree_attention_bwd_dkv(qq, kk, vv, gg, template, ids, lut, lse16, delta16, scale,
-                                                          True, TRAIN_RATE, dseed)),
-        "library_fwd": timed_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=dense16,
-                                                                       dropout_p=TRAIN_RATE, scale=scale)),
-        "library_fwd_bwd": timed_ms(sdpa16_fwd_bwd)},
-        "bound": work_bounds(b, h, s, dh, "bfloat16", shared)}
-    emit(row)
-    return row
 
-
-def cuda_core_pair(ta, q, k, v, template, ids, lut, g, scale, rate, seed, fwd=None):
-    """dq, dk, dv, dlut of K2/K3 called directly (the route sends bf16 at
-    DH 64 to the tensor-core pair and float32 to the 3xTF32 one), from the
-    LSE of ``fwd`` (the tensor-core forward unless given)."""
-    fwd = ta.tree_attention_fwd_fused if fwd is None else fwd
-    out, lse = fwd(q, k, v, template, ids, lut, scale, True, rate, seed, with_lse=True)
-    dq, dlut, delta = ta.tree_attention_bwd_dq(q, k, v, out, g, template, ids, lut, lse, scale, True, rate, seed)
-    dk, dv = ta.tree_attention_bwd_dkv(q, k, v, g, template, ids, lut, lse, delta, scale, True, rate, seed)
-    return [dq, dk, dv, dlut]
-
-
-def read_back_tree_bwd_masks(ta, b, h, s, rate, seed, dtype_name: str = "bfloat16"):
+def read_back_tree_bwd_masks(ta, b, h, s, rate, seed, dtype_name: str = "bfloat16", dh: int = 64):
     """The routed backward pair's keep masks (bf16: the tensor-core pair;
     float32: the 3xTF32 pair), read back in ``dtype_name`` with q = 0 and no
-    bias (every weight 1/S), one 64-row or 64-key chunk c at a time:
-    - the dk/dv kernel's, through dv: with g one-hot in rows c*64 ..
-      c*64+63, dv[j, d] = keep[c*64 + d, j] / (S (1 - rate));
+    bias (every weight 1/S), one dh-row or dh-key chunk c at a time:
+    - the dk/dv kernel's, through dv: with g one-hot in rows c*dh ..
+      c*dh+dh-1, dv[j, d] = keep[c*dh + d, j] / (S (1 - rate));
     - the dq kernel's, through dq: with v and g = e_0 on every row, ds_ij =
       (keep_ij / (1 - rate) - D_i) / S where D_i, the kept share over 1 -
       rate, is below 1 / (1 - rate), so ds > 0 exactly where kept; with k
-      one-hot in keys c*64 .. c*64+63, dq[i, d] = ds[i, c*64 + d] / 8."""
+      one-hot in keys c*dh .. c*dh+dh-1, dq[i, d] = ds[i, c*dh + d] /
+      sqrt(dh)."""
     import torch
 
-    dh = 64
     dt = getattr(torch, dtype_name)
     zeros = torch.zeros(b, h, s, dh, device="cuda", dtype=dt)
     template = torch.zeros(b, s, s, device="cuda")
@@ -2630,9 +2771,9 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int, cont
     pair, as
     ``kernel_route`` says for the compute dtype, the tower's head dim and
     the layer's length (the backward runs in the fusion layers: tokens +
-    bottleneck). The graph layers take the tensor-core, the 3xTF32 or the
-    CUDA-core tree forward and backward pair as the tree attention's
-    ``kernel_route`` says for the compute dtype and the graph head dim.
+    bottleneck). The graph layers take the tensor-core or the 3xTF32 tree
+    forward and backward pair as the tree attention's ``kernel_route`` says
+    for the compute dtype and the graph head dim.
     Under ``mc.remat`` the backward
     reruns the forward of every graph layer whose backward runs and of
     every fusion layer's towers (the bottom towers stay outside remat)."""
@@ -2645,9 +2786,8 @@ def expected_launches(mc, fused: bool, k: int, images: bool, text_len: int, cont
     route = ta.kernel_route(getattr(torch, mc.dtype), mc.encoder_embed_dim // mc.encoder_attention_heads)
     recompute = bwd if mc.remat else 0
     f, d = k * (fwd + recompute), k * bwd  # forwards; dq and dk/dv each
-    # (CUDA-core fwd, dq, dkv; tensor-core fwd, dq, dkv; 3xTF32 dq, dkv, fwd)
-    tree = {"tensor_core": [0, 0, 0, f, d, d, 0, 0, 0], "tf32": [0, 0, 0, 0, 0, 0, d, d, f],
-            "cuda_core": [f, d, d, 0, 0, 0, 0, 0, 0]}[route]
+    # (tensor-core fwd, dq, dkv; 3xTF32 dq, dkv, fwd)
+    tree = {"tensor_core": [f, d, d, 0, 0, 0], "tf32": [0, 0, 0, d, d, f]}[route]
     if not fused:
         return tree + [0] * 11
     _, _, text_bwd, vit_bwd = tower_launches(mc)
@@ -3855,7 +3995,7 @@ def phase_checkpoint(seed: int, card: str = ""):
             raise AssertionError(f"checkpoint: {m.group(1)} prediction rows ({file_rows} in {pred_path}), "
                                  f"{dataset['test_nodes']} real test nodes")
         eval_launches = dict(zip(KERNEL_NAMES, _counts()))
-        if eval_launches["tree_attention_fwd"] or not eval_launches["tree_attention_fwd_fused"]:
+        if eval_launches["tree_attention_fwd_tf32"] or not eval_launches["tree_attention_fwd_fused"]:
             raise AssertionError(f"checkpoint: --eval-only tree launches {eval_launches}")
 
         mark("eval_only")
@@ -6196,11 +6336,12 @@ def phase_workflows(seed: int, card: str = "") -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--only", choices=("kernels", "long_text", "parallel", "sequence_parallel", "workflows"),
+    p.add_argument("--only", choices=("kernels", "long_text", "graph_heads", "parallel", "sequence_parallel",
+                                      "workflows"),
                    default=None,
                    help="build, then only this phase (for iterating on it; the kernels' summary is not printed); "
                         "kernels: the phases that hold every kernel against its plain version (kernel_vs_plain, "
-                        "kernel_vs_plain_train, masked_vs_plain, biased_vs_plain)")
+                        "kernel_vs_plain_train, kernel_vs_plain_dh, masked_vs_plain, biased_vs_plain)")
     p.add_argument("--parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--parallel-plan", default=None, help=argparse.SUPPRESS)
     p.add_argument("--parallel-out", default=None, help=argparse.SUPPRESS)
@@ -6230,26 +6371,28 @@ def main(argv=None) -> int:
     card = clocked("build", phase_build)
     if args.only is not None:
         def kernels(seed, card):
-            for name, fn in (("kernel", phase_kernel), ("kernel_train", phase_kernel_train), ("masked", phase_masked),
-                             ("masked_tiled", phase_masked_tiled), ("biased", phase_biased)):
+            for name, fn in (("kernel", phase_kernel), ("kernel_train", phase_kernel_train), ("kernel_dh", phase_kernel_dh),
+                             ("masked", phase_masked), ("masked_tiled", phase_masked_tiled), ("biased", phase_biased)):
                 clocked(name, fn, seed)
             emit({"phase": "seconds_by_phase", "card": card, "seconds": clock,
                   "total_seconds": time.perf_counter() - t_run})
 
-        {"kernels": kernels, "long_text": phase_long_text, "parallel": phase_parallel,
+        {"kernels": kernels, "long_text": phase_long_text, "graph_heads": phase_graph_heads, "parallel": phase_parallel,
          "sequence_parallel": phase_sequence_parallel, "workflows": phase_workflows}[args.only](args.seed, card)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
     try:
         rows = clocked("kernel", phase_kernel, args.seed)
-        train_rows, dh16_row = clocked("kernel_train", phase_kernel_train, args.seed)
+        train_rows = clocked("kernel_train", phase_kernel_train, args.seed)
+        dh_rows = clocked("kernel_dh", phase_kernel_dh, args.seed)
         masked_rows = clocked("masked", phase_masked, args.seed)
         tiled_rows = clocked("masked_tiled", phase_masked_tiled, args.seed)
         biased_rows, biased_dh16 = clocked("biased", phase_biased, args.seed)
         scorer, scoring, rng, unfused = clocked("scoring", phase_scoring, args.seed)
         scoring_fused = clocked("scoring_fused", phase_scoring_fused, unfused)
         long_text = clocked("long_text_fused", phase_long_text, args.seed, card)
+        graph_heads = clocked("graph_heads", phase_graph_heads, args.seed, card)
         clocked("latency", phase_latency, scorer, rng)
         del scorer, unfused
         torch.cuda.empty_cache()
@@ -6316,7 +6459,8 @@ def main(argv=None) -> int:
                "sequence_parallel": sequence_parallel["launches"],
                "sequence_parallel_ring_tiles": sequence_parallel["launches_ring_tiles"],
                "workflows": workflows["launches"],
-               "kernel_vs_plain_train_dh16_bfloat16": dh16_row["launches_bfloat16"],
+               **{f"graph_heads_{h}_{part}": counts[part] for h, counts in graph_heads.items()
+                  for part in ("train", "scoring")},
                "masked_vs_plain_long_300_bfloat16": {
                    n: long_row["launches"][f"bfloat16_rate{MASKED_RATE}"].get(n, 0) for n in KERNEL_NAMES},
                "long_text_fused_scoring": long_text["scoring"], "long_text_fused_train": long_text["train"],
@@ -6327,8 +6471,6 @@ def main(argv=None) -> int:
         return {**out, **(extra or {})}
 
     streaming = [{k: r[k] for k in ("S", "B", "ms", "bound")} for r in big_rows]
-    k1_worst = max(r[k][name]["out"]["max_abs_err"] for r in train_rows for k in ("errors", "errors_rate0")
-                   for name in ("float32_k1", "bfloat16_cuda_core"))
     fused_rows = [r for r in masked_rows if r["kernel_route"]["bfloat16"] == "tensor_core"]
     fusion_row = next(r for r in masked_rows if r["shape"] == "text_fusion")
     vit_row = next(r for r in masked_rows if r["shape"] == "vit_fusion")
@@ -6339,54 +6481,59 @@ def main(argv=None) -> int:
     tree_bwd_dq_replaces = [f"{TPU_KERNELS}:1007", f"{TPU_KERNELS}:468"]
     tree_bwd_dkv_replaces = [f"{TPU_KERNELS}:1007", f"{TPU_KERNELS}:558"]
 
-    def k23_worst(outputs):
-        """K2/K3's largest max-abs error of ``outputs``: their float32 and
-        bf16 checks (called directly) at every training shape and their
-        checks at DH 16, both rates."""
-        return max([r[k][name][o]["max_abs_err"] for r in train_rows for k in ("errors", "errors_rate0")
-                    for name in ("float32_cuda_core_pair", "bfloat16_cuda_core_pair") for o in outputs]
-                   + [dh16_row[k][name][o]["max_abs_err"] for k in ("errors", "errors_rate0")
-                      for name in ("float32_cuda_core_pair", "bfloat16") for o in outputs])
+    dh16 = next(r for r in dh_rows if (r["dh"], r["H"], r["S"], r["B"]) == DH16_SHAPE)["float32"]
 
     def tf32_worst(outputs):
         """The 3xTF32 pair's largest max-abs error of ``outputs`` against the
         plain version: the float32 route at every training shape and at DH
         16, both rates."""
-        return max(r[k]["float32"][o]["max_abs_err"] for r in train_rows + [dh16_row]
-                   for k in ("errors", "errors_rate0") for o in outputs)
+        return max(e["float32"][o]["max_abs_err"] for e in [r[k] for r in train_rows for k in ("errors", "errors_rate0")]
+                   + [dh16["errors"], dh16["errors_rate0"]] for o in outputs)
 
     def tf32_fwd_worst():
         """The 3xTF32 tree forward's largest max-abs error of out against the
         plain version: the float32 route at every training shape and at DH
         16 (both rates) and at the scoring shapes (rate 0)."""
-        return max([r[k]["float32"]["out"]["max_abs_err"] for r in train_rows + [dh16_row]
-                    for k in ("errors", "errors_rate0")] + [r["max_abs_err_float32"] for r in rows])
+        return max([tf32_worst(("out",))] + [r["max_abs_err_float32"] for r in rows])
+
+    def dh_worst(outputs):
+        """The tensor-core tree kernels' largest bf16 max-abs error of
+        ``outputs`` at the other head dims (kernel_vs_plain_dh: both rates
+        and the masked-row check)."""
+        return max(e[o]["max_abs_err"] for r in dh_rows for e in (r["errors"]["bfloat16"], r["errors_rate0"]["bfloat16"],
+                                                                   r["masked_row_and_ids"]) for o in outputs)
+
+    by_head_dim = [{"dh": r["dh"], "H": r["H"], "S": r["S"], "B": r["B"], "ms": {n: r["ms"].get(n) for n in (
+        "fwd", "fwd_rate0", "dq", "dkv", "pair", "fwd_pair", "plain_fwd", "plain_bwd", "library_fwd",
+        "library_fwd_bwd", "library_contiguous_fwd", "library_contiguous_fwd_bwd")},
+        "bound_ms": {n: r["bound"][n][0] for n in ("fwd", "dq", "dkv")},
+        "bound_by": {n: r["bound"][n][1] for n in ("fwd", "dq", "dkv")},
+        "fwd_vs_library_contiguous": r["fwd_vs_library_contiguous"],
+        "fwd_pair_vs_library_contiguous_fwd_bwd": r["fwd_pair_vs_library_contiguous_fwd_bwd"]} for r in dh_rows]
 
     f32_row = train_row["float32"]  # S=33, B=12 on float32 inputs
     tf32_fwd_shapes = [{"S": r["S"], "B": r["B"], "ms": r["float32"]["ms"]["fwd_tf32"],
-                        "cuda_core_ms": r["float32"]["ms"]["fwd_cuda_core"],
                         "library_ms": r["float32"]["ms"]["library_contiguous_fwd"],
                         "bound_f32_ms": r["float32"]["bound"]["fwd"][0],
                         "bound_3xtf32_ms": r["float32"]["bound_3xtf32"]["fwd"][0],
-                        "lse_vs_k1_max_abs_err": r["errors"]["float32_lse_vs_k1"]["max_abs_err"]}
+                        "lse_max_abs_err": r["errors"]["float32_lse"]["max_abs_err"]}
                        for r in train_rows]
-    tf32_fwd_scoring = [{"S": r["S"], "B": r["B"], "ms": r["float32"]["ms"], "cuda_core_ms": r["float32"]["cuda_core_ms"],
+    tf32_fwd_scoring = [{"S": r["S"], "B": r["B"], "ms": r["float32"]["ms"],
                          "library_ms": r["float32"]["library_contiguous_ms"], "bound_f32_ms": r["float32"]["bound_ms"],
                          "bound_3xtf32_ms": r["float32"]["bound_3xtf32_ms"]} for r in rows]
-    tf32_fwd_dh16 = {**DH16_SHAPE, "ms": dh16_row["ms"]["fwd_tf32"], "cuda_core_ms": dh16_row["ms"]["fwd_cuda_core"],
-                     "library_ms": dh16_row["ms"]["library_contiguous_fwd"],
-                     "bound_f32_ms": dh16_row["bound"]["fwd"][0], "bound_3xtf32_ms": dh16_row["bound_3xtf32"]["fwd"][0]}
+    dh16_shape = dict(zip(("dh", "H", "S", "B"), DH16_SHAPE))
+    tf32_fwd_dh16 = {**dh16_shape, "ms": dh16["ms"]["fwd_tf32"], "library_ms": dh16["ms"]["library_contiguous_fwd"],
+                     "bound_f32_ms": dh16["bound"]["fwd"][0], "bound_3xtf32_ms": dh16["bound_3xtf32"]["fwd"][0]}
     tf32_shapes = [{"S": r["S"], "B": r["B"], "pair_ms": r["float32"]["ms"]["pair_tf32"],
                     "dq_ms": r["float32"]["ms"]["dq_tf32"], "dkv_ms": r["float32"]["ms"]["dkv_tf32"],
-                    "cuda_core_pair_ms": r["float32"]["ms"]["pair_cuda_core"],
                     "library_ms": r["float32"]["ms"]["library_contiguous_fwd_bwd"],
                     "bound_f32_ms": r["float32"]["bound"]["dq"][0] + r["float32"]["bound"]["dkv"][0],
                     "bound_3xtf32_ms": r["float32"]["bound_3xtf32"]["dq"][0] + r["float32"]["bound_3xtf32"]["dkv"][0]}
                    for r in train_rows]
-    tf32_dh16 = {**DH16_SHAPE, "pair_ms": dh16_row["ms"]["pair_tf32"], "cuda_core_pair_ms": dh16_row["ms"]["pair_cuda_core"],
-                 "library_ms": dh16_row["ms"]["library_contiguous_fwd_bwd"], "plain_bwd_ms": dh16_row["ms"]["plain_bwd"],
-                 "bound_f32_ms": dh16_row["bound"]["dq"][0] + dh16_row["bound"]["dkv"][0],
-                 "bound_3xtf32_ms": dh16_row["bound_3xtf32"]["dq"][0] + dh16_row["bound_3xtf32"]["dkv"][0]}
+    tf32_dh16 = {**dh16_shape, "pair_ms": dh16["ms"]["pair_tf32"], "library_ms": dh16["ms"]["library_contiguous_fwd_bwd"],
+                 "plain_bwd_ms": dh16["ms"]["plain_bwd"],
+                 "bound_f32_ms": dh16["bound"]["dq"][0] + dh16["bound"]["dkv"][0],
+                 "bound_3xtf32_ms": dh16["bound_3xtf32"]["dq"][0] + dh16["bound_3xtf32"]["dkv"][0]}
 
     def h6(op, ms_key, bound_key, errs):
         """A kernel's numbers at H = 6 (a tp=2 rank's heads) from
@@ -6401,66 +6548,32 @@ def main(argv=None) -> int:
                          f"{TPU_KERNELS}:418 (the LSE the forward saves)"]
     kernels = [
         {**_kernel_entry(
-            "tree_attention_fwd", KERNEL_SOURCE, f"{TPU_KERNELS}:1096", tree_fwd_replaces,
-            dh16_row["launches_bfloat16"]["tree_attention_fwd"], train_row, k1_worst, "fwd_cuda_core", ms["plain_fwd"],
-            ms["library_contiguous_fwd"], "fwd"),
-         "launches_by_path": paths("tree_attention_fwd"),
-         "serving_rate0": {"S": serve_row["S"], "B": serve_row["B"], "ms": serve_row["cuda_core_ms"],
-                           "plain_ms": serve_row["plain_ms"], "library_ms": serve_row["library_contiguous_ms"],
-                           "bound_ms": serve_row["bound_ms"],
-                           "max_abs_err_bfloat16": serve_row["max_abs_err_bfloat16_cuda_core"]},
-         "float32": _float32_numbers(train_row, "fwd_cuda_core", "library_contiguous_fwd", "fwd"),
-         "note": "K1, the bf16 route at DH 16, 32, 128 (the float32 route's forward is the 3xTF32 one): launches "
-                 "from the bf16 DH-16 call through tree_attention (kernel_vs_plain_train_dh16), 0 on every other "
-                 "path; times on bf16 inputs at S=33, B=12, rate 0.3 with the LSE (float32: the same on float32 "
-                 "inputs, called directly, beside SDPA in float32 and the float32 bound); library_ms is SDPA at "
-                 "dropout 0.3 on a contiguous copy of the dense bias; max_abs_err over its float32 and bf16 checks "
-                 "called directly at every training shape and both rates"},
-        {**_kernel_entry(
             "tree_attention_fwd_fused", KERNEL_MMA_SOURCE, f"{TPU_KERNELS}:1096", tree_fwd_replaces,
             train["tree_attention_fwd_fused"], train_row, _worst(train_rows, ("out",)), "fwd", ms["plain_fwd"],
             ms["library_contiguous_fwd"], "fwd"),
          "launches_by_path": paths("tree_attention_fwd_fused"),
          "tp_h6": h6("tree", "fwd", "fwd", ("out",)),
-         "cuda_core_ms": ms["fwd_cuda_core"],
+         "by_head_dim": by_head_dim, "max_abs_err_by_head_dim": dh_worst(("out",)),
          "serving_rate0": {"S": serve_row["S"], "B": serve_row["B"], "ms": serve_row["ms"],
-                           "cuda_core_ms": serve_row["cuda_core_ms"], "plain_ms": serve_row["plain_ms"],
+                           "plain_ms": serve_row["plain_ms"],
                            "library_ms": serve_row["library_contiguous_ms"], "bound_ms": serve_row["bound_ms"],
                            "max_abs_err_bfloat16": serve_row["max_abs_err_bfloat16"]},
          "streaming": streaming, "scoring_shapes": rows, "shapes": train_rows,
-         "note": "the bf16 route (DH 64, any S): launches from the canonical train run; times at S=33, B=12, rate "
-                 "0.3 with the LSE; cuda_core_ms is the CUDA-core forward on the same inputs; library_ms is SDPA at "
-                 "dropout 0.3 on a contiguous copy of the dense bias; max_abs_err is the worst bf16 error of out "
-                 "over every training shape and both rates"},
-        {**_kernel_entry(
-            "tree_attention_bwd_dq", BWD_SOURCE, f"{TPU_KERNELS}:1148", tree_bwd_dq_replaces,
-            dh16_row["launches_bfloat16"]["tree_attention_bwd_dq"], train_row, k23_worst(("dq", "dlut")),
-            "dq_cuda_core", ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dq"),
-         "launches_by_path": paths("tree_attention_bwd_dq"),
-         "float32": _float32_numbers(train_row, "dq_cuda_core", "library_contiguous_fwd_bwd", "dq"),
-         "note": "K2, the bf16 route at DH 16, 32, 128 (the float32 route's backward is the 3xTF32 pair): "
-                 "launches from the bf16 DH-16 call through tree_attention (kernel_vs_plain_train_dh16), "
-                 "0 on every other path; times on bf16 inputs at S=33, B=12, rate 0.3 (float32: on float32 "
-                 "inputs); plain_ms is the plain version's whole autograd backward (dq, dk, dv, dlut); library_ms "
-                 "is SDPA forward + backward at rate 0 on a contiguous copy of the dense bias; max_abs_err over "
-                 "its checks called directly (float32, bf16) at every training shape and at DH 16, both rates"},
-        {**_kernel_entry(
-            "tree_attention_bwd_dkv", BWD_SOURCE, f"{TPU_KERNELS}:1148", tree_bwd_dkv_replaces,
-            dh16_row["launches_bfloat16"]["tree_attention_bwd_dkv"], train_row, k23_worst(("dk", "dv")),
-            "dkv_cuda_core", ms["plain_bwd"], ms["library_contiguous_fwd_bwd"], "dkv"),
-         "launches_by_path": paths("tree_attention_bwd_dkv"),
-         "float32": _float32_numbers(train_row, "dkv_cuda_core", "library_contiguous_fwd_bwd", "dkv"),
-         "note": "K3; launches, times, plain_ms, library_ms and max_abs_err as for tree_attention_bwd_dq"},
+         "note": "the bf16 route (DH 16, 32, 64, 128, any S): launches from the canonical train run (DH 64); "
+                 "times at S=33, B=12, H=12, DH 64, rate 0.3 with the LSE; library_ms is SDPA at dropout 0.3 on a "
+                 "contiguous copy of the dense bias; max_abs_err is the worst bf16 error of out over every training "
+                 "shape and both rates; by_head_dim: kernel_vs_plain_dh (DH 16 / 32 / 128 at d = 768, and H 4 at DH "
+                 "16), the forward (also at rate 0), dq and dk/dv beside their bounds, the plain version (S = 33) "
+                 "and SDPA; launches at DH 128 and 32 in launches_by_path's graph_heads_6 and graph_heads_24"},
         {**_kernel_entry(
             "tree_attention_bwd_dq_tf32", BWD_TF32_SOURCE, f"{TPU_KERNELS}:1148", tree_bwd_dq_replaces,
             agree["tree_attention_bwd_dq_tf32"], f32_row, tf32_worst(("dq", "dlut")), "dq_tf32",
             f32_row["ms"]["plain_bwd"], f32_row["ms"]["library_contiguous_fwd_bwd"], "dq"),
          "launches_by_path": paths("tree_attention_bwd_dq_tf32"),
-         "bound_3xtf32_ms": f32_row["bound_3xtf32"]["dq"][0], "cuda_core_ms": f32_row["ms"]["dq_cuda_core"],
+         "bound_3xtf32_ms": f32_row["bound_3xtf32"]["dq"][0],
          "shapes": tf32_shapes, "dh16": tf32_dh16,
          "note": "the float32 route's backward (any DH), 3xTF32 on mma.sync: launches from train_cpu_agreement, "
-                 "0 on the bf16 paths; times on float32 inputs at S=33, B=12, H=12, DH 64, rate 0.3; cuda_core_ms is "
-                 "K2 on the same inputs; bound_ms is the float32 bound (67 TFLOP/s), bound_3xtf32_ms three TF32 "
+                 "0 on the bf16 paths; times on float32 inputs at S=33, B=12, H=12, DH 64, rate 0.3; bound_ms is the float32 bound (67 TFLOP/s), bound_3xtf32_ms three TF32 "
                  "products per float32 one at 494.7 TFLOP/s; plain_ms is the plain version's whole autograd backward "
                  "in float32; library_ms is SDPA forward + backward in float32 at rate 0 on a contiguous bias; "
                  "max_abs_err is the worst float32 error of dq and dlut over every training shape, DH 16 and both "
@@ -6470,7 +6583,7 @@ def main(argv=None) -> int:
             agree["tree_attention_bwd_dkv_tf32"], f32_row, tf32_worst(("dk", "dv")), "dkv_tf32",
             f32_row["ms"]["plain_bwd"], f32_row["ms"]["library_contiguous_fwd_bwd"], "dkv"),
          "launches_by_path": paths("tree_attention_bwd_dkv_tf32"),
-         "bound_3xtf32_ms": f32_row["bound_3xtf32"]["dkv"][0], "cuda_core_ms": f32_row["ms"]["dkv_cuda_core"],
+         "bound_3xtf32_ms": f32_row["bound_3xtf32"]["dkv"][0],
          "note": "the 3xTF32 dk/dv kernel; launches, times, bounds, plain_ms, library_ms as for "
                  "tree_attention_bwd_dq_tf32 (max_abs_err: dk and dv)"},
         {**_kernel_entry(
@@ -6478,15 +6591,15 @@ def main(argv=None) -> int:
             agree["tree_attention_fwd_tf32"], f32_row, tf32_fwd_worst(), "fwd_tf32", f32_row["ms"]["plain_fwd"],
             f32_row["ms"]["library_contiguous_fwd"], "fwd"),
          "launches_by_path": paths("tree_attention_fwd_tf32"),
-         "bound_3xtf32_ms": f32_row["bound_3xtf32"]["fwd"][0], "cuda_core_ms": f32_row["ms"]["fwd_cuda_core"],
+         "bound_3xtf32_ms": f32_row["bound_3xtf32"]["fwd"][0],
          "shapes": tf32_fwd_shapes, "scoring_rate0": tf32_fwd_scoring, "dh16": tf32_fwd_dh16,
          "note": "the float32 route's forward (any DH, any S), 3xTF32 on mma.sync: launches from "
                  "train_cpu_agreement, 0 on the bf16 paths; times on float32 inputs at S=33, B=12, H=12, DH 64, "
-                 "rate 0.3 with the LSE; cuda_core_ms is K1 on the same inputs; bound_ms is the float32 bound "
+                 "rate 0.3 with the LSE; bound_ms is the float32 bound "
                  "(67 TFLOP/s), bound_3xtf32_ms three TF32 products per float32 one at 494.7 TFLOP/s; plain_ms is "
                  "the plain version in float32; library_ms is SDPA in float32 at dropout 0.3 on a contiguous bias; "
                  "max_abs_err is the worst float32 error of out over every training shape, DH 16, both rates and "
-                 "the scoring shapes; shapes: the same at every training shape, with the LSE against K1's"},
+                 "the scoring shapes; shapes: the same at every training shape, with the LSE against the plain one"},
         {**_kernel_entry(
             "tree_attention_bwd_dq_fused", BWD_MMA_SOURCE, f"{TPU_KERNELS}:1148", tree_bwd_dq_replaces,
             train_big["tree_attention_bwd_dq_fused"], train_row, _worst(train_rows, ("dq", "dlut")), "dq",
@@ -6494,14 +6607,15 @@ def main(argv=None) -> int:
          "launches_by_path": paths("tree_attention_bwd_dq_fused"),
          "tp_h6": {**h6("tree", "fwd_bwd", "dq", ("dq", "dlut")),
                    "note": "ms, plain_ms and library_ms: forward + backward at H = 6; bound_ms: dq's"},
-         "cuda_core_ms": ms["dq_cuda_core"],
-         "streaming": [{"S": r["S"], "B": r["B"], "pair_ms": r["ms"]["pair"], "cuda_core_ms": r["ms"]["pair_cuda_core"],
+         "max_abs_err_by_head_dim": dh_worst(("dq", "dlut")),
+         "streaming": [{"S": r["S"], "B": r["B"], "pair_ms": r["ms"]["pair"],
                         "library_ms": r["ms"]["library_contiguous_fwd_bwd"],
                         "bound_ms": r["bound"]["dq"][0] + r["bound"]["dkv"][0]} for r in big_rows],
-         "note": "the bf16 route (DH 64, any S): launches from train_big; times at S=33, B=12, rate 0.3; "
-                 "cuda_core_ms is K2 on the same inputs; plain_ms is the plain version's whole autograd backward; "
-                 "library_ms is SDPA forward + backward at rate 0 on a contiguous copy of the dense bias; "
-                 "max_abs_err is the worst bf16 error of dq and dlut over every training shape and both rates"},
+         "note": "the bf16 route (DH 16, 32, 64, 128, any S): launches from train_big (DH 64); times at S=33, "
+                 "B=12, H=12, DH 64, rate 0.3; plain_ms is the plain version's whole autograd backward; library_ms "
+                 "is SDPA forward + backward at rate 0 on a contiguous copy of the dense bias; max_abs_err is the "
+                 "worst bf16 error of dq and dlut over every training shape and both rates; the other head dims: "
+                 "tree_attention_fwd_fused's by_head_dim"},
         {**_kernel_entry(
             "tree_attention_bwd_dkv_fused", BWD_MMA_SOURCE, f"{TPU_KERNELS}:1148", tree_bwd_dkv_replaces,
             train_big["tree_attention_bwd_dkv_fused"], train_row, _worst(train_rows, ("dk", "dv")), "dkv",
@@ -6509,9 +6623,9 @@ def main(argv=None) -> int:
          "launches_by_path": paths("tree_attention_bwd_dkv_fused"),
          "tp_h6": {**h6("tree", "fwd_bwd", "dkv", ("dk", "dv")),
                    "note": "ms, plain_ms and library_ms: forward + backward at H = 6; bound_ms: dk/dv's"},
-         "cuda_core_ms": ms["dkv_cuda_core"],
-         "note": "the bf16 route: launches from train_big; cuda_core_ms is K3 on the same inputs; times, plain_ms, "
-                 "library_ms and max_abs_err as for tree_attention_bwd_dq_fused (dk and dv)"},
+         "max_abs_err_by_head_dim": dh_worst(("dk", "dv")),
+         "note": "the bf16 route: launches from train_big; times, plain_ms, library_ms and max_abs_err as for "
+                 "tree_attention_bwd_dq_fused (dk and dv)"},
         {**_kernel_entry(
             "masked_attention_fwd_tiled", MASKED_FWD_TILED_SOURCE, f"{TPU_MASKED}:86", [],
             long_text["train"]["masked_attention_fwd_tiled"], tiled_plain, _worst_tiled(tiled_rows, masked_rows, ("out",)),
@@ -6700,17 +6814,6 @@ def main(argv=None) -> int:
                  "plain version in float32; library_ms is SDPA in float32 with the combined bias as a float mask; "
                  "max_abs_err is the worst float32 forward error over every shape and bias kind"},
     ]
-    # the CUDA-core tree route at the bf16 shapes it serves now, beside
-    # SDPA in bf16 and the bf16 bound: DH 16
-    tree16 = dh16_row["bfloat16_cuda_core"]
-    at_route = {
-        "tree_attention_fwd": {**DH16_SHAPE, **tree16, "ms_key": "fwd"},
-        "tree_attention_bwd_dq": {**DH16_SHAPE, **tree16, "ms_key": "dq"},
-        "tree_attention_bwd_dkv": {**DH16_SHAPE, **tree16, "ms_key": "dkv"},
-    }
-    for k in kernels:
-        if k["name"] in at_route:
-            k["bfloat16_at_its_route"] = at_route[k["name"]]
     # every kernel launched on a path of this run (the checks that call a
     # kernel directly aside)
     idle = [k["name"] for k in kernels if not k["launches"]]

@@ -1,9 +1,11 @@
 // PTX helpers shared by the tensor-core kernels (masked_attention_fwd_mma.cu,
-// masked_attention_bwd_mma.cu, tree_attention_fwd_mma.cu,
-// tree_attention_bwd_mma.cu, biased_attention_fwd_mma.cu): the swizzled shared-memory layout of a
-// [rows][64] bf16 tile, 16- and 4-byte cp.async copies, ldmatrix (plain and
-// transposed), mma.sync.m16n8k16 with bf16 operands and f32 accumulators, a
-// dot product of 8 bf16 pairs, and the dropout keep bits in the C-fragment
+// masked_attention_bwd_mma.cu, the tiled tower forward and pair,
+// tree_attention_fwd_mma.cu, tree_attention_bwd_mma.cu,
+// biased_attention_fwd_mma.cu): the swizzled shared-memory layout of a
+// [rows][64] bf16 tile (and the tree kernels' layout at any DH), 16- and
+// 4-byte cp.async copies, ldmatrix (plain and transposed),
+// mma.sync.m16n8k16 with bf16 operands and f32 accumulators, a dot product
+// of 8 bf16 pairs, and the dropout keep bits in the C-fragment
 // layouts: row-major (S = Q K^T, one definition for the forwards and the
 // tree's dq kernel) and key-major (S^T = K Q^T, for the backwards that
 // accumulate dK and dV).
@@ -35,6 +37,23 @@ constexpr int kKeyChunk = 64;  // keys per online-softmax step of the forwards
 // stores of 8 rows hit 8 distinct chunks (no bank conflicts)
 __device__ __forceinline__ int swz(int row, int col) {
   return row * kDh + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
+}
+
+// bf16 values per staged row of a [rows][DH] tile of the tree kernels
+// (tree_attention_fwd_mma.cu, tree_attention_bwd_mma.cu), and the element
+// offset of (row, col) in it: the swizzled 64-wide rows of swz at DH 64,
+// rows of DH + 8 values (16 bytes of padding) at DH 16, 32 and 128. Either
+// way the 8 rows of an ldmatrix (and of a fragment store) start in 8
+// distinct 16-byte bank groups.
+template <int DH>
+constexpr int tile_ld() {
+  return DH == kDh ? kDh : DH + 8;
+}
+
+template <int DH>
+__device__ __forceinline__ int tile_at(int row, int col) {
+  if constexpr (DH == kDh) return swz(row, col);
+  else return row * (DH + 8) + col;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {

@@ -9,10 +9,8 @@
 //   _make_kernel_flash_dkv            (:558, dk and dv),
 //   _make_dropout_bwd_kernel          (:1007, padded S < 513),
 //   _make_dropout_bwd_kernel_batched  (:1148, padded S <= 128).
-// It takes the float32 backward over from the CUDA-core pair K2/K3
-// (tree_attention_bwd.cu), which now serves bf16 at DH 16, 32 and 128 only.
 //
-// Function, that of tree_attention_bwd.cu: with the LSE that either forward
+// Function, that of tree_attention_bwd_mma.cu: with the LSE that either forward
 // writes, D_i = g_i . out_i and the forwards' Philox keep mask (counter
 // (j / 4, i, h, b) of tree_attention_common.cuh, regenerated bit for bit),
 //   s_ij  = scale q_i . k_j + c max(tpl[b,i,j], -1e9) + lut[ids[b,i,j], h]

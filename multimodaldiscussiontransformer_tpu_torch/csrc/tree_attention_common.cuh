@@ -1,6 +1,6 @@
-// Shared pieces of the compact-bias tree-attention kernels
-// (tree_attention_fwd.cu, tree_attention_bwd.cu): tiling constants, type
-// conversion, the bias assembled on the fly, and the dropout bits.
+// Shared pieces of the attention kernels: the CUDA-core tiling constants
+// and type conversion (biased_attention_fwd.cu), the tree kernels' bias
+// assembled on the fly, and the dropout bits that every kernel draws.
 //
 // Dropout bits: Philox4x32-10 (Salmon et al., "Parallel random numbers: as
 // easy as 1, 2, 3", SC 2011), keyed by the 64-bit seed, with the counter
@@ -57,31 +57,6 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
     c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
   }
   return c;
-}
-
-__device__ __forceinline__ unsigned word_of(const uint4& w, int i) {
-  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
-}
-
-// Keep flags of keys k0 + lane and k0 + lane + 32 in row `row` (k0 is a
-// multiple of kTile; all 32 lanes must call it). Lane l draws the four
-// words of key group k0/4 + (l % 16); two shuffles hand each lane its own.
-__device__ __forceinline__ void keep_pair(uint2 key, unsigned thr, int b, int h, int row, int k0,
-                                          int lane, bool& keep0, bool& keep1) {
-  if (thr == 0u) {
-    keep0 = keep1 = true;
-    return;
-  }
-  const uint4 w = philox4x32_10(
-      make_uint4((unsigned)(k0 >> 2) + (unsigned)(lane & 15), (unsigned)row, (unsigned)h,
-                 (unsigned)b),
-      key);
-  const unsigned nib = (w.x >= thr ? 1u : 0u) | (w.y >= thr ? 2u : 0u) | (w.z >= thr ? 4u : 0u) |
-                       (w.w >= thr ? 8u : 0u);
-  const unsigned n0 = __shfl_sync(kFull, nib, lane >> 2);
-  const unsigned n1 = __shfl_sync(kFull, nib, 8 + (lane >> 2));
-  keep0 = (n0 >> (lane & 3)) & 1u;
-  keep1 = (n1 >> (lane & 3)) & 1u;
 }
 
 }  // namespace tree_attention

@@ -1,11 +1,9 @@
 // Compact-bias tree attention, forward, for Hopper (sm_90a): one pass on
-// tensor cores for bf16 at DH = 64, any S >= 1, K and V streamed in 64-key
-// tiles.
+// tensor cores for bf16 at DH = 16, 32, 64 and 128, any S >= 1, K and V
+// streamed in 64-key tiles.
 //
 // Replaces the forward Pallas kernels of the JAX package
-// (multimodaldiscussiontransformer_tpu/ops/tree_attention.py), as
-// tree_attention_fwd.cu (the CUDA-core kernel that still serves float32 and
-// DH 16, 32 and 128) does:
+// (multimodaldiscussiontransformer_tpu/ops/tree_attention.py) for bf16:
 //   _make_kernel_batched              (:103, rate 0, padded S <= 128),
 //   _make_kernel                      (:66, rate 0, 128 < padded S < 513),
 //   _make_kernel_flash                (:228, padded S >= 513, with the
@@ -14,8 +12,9 @@
 //   _make_kernel_flash_lse            (:418, the LSE for the backward),
 //   _make_dropout_fwd_kernel_batched  (:1096, dropout, padded S <= 128),
 //   _make_dropout_fwd_kernel          (:973, dropout, 128 < padded S < 513).
+// (float32 takes the 3xTF32 forward, tree_attention_fwd_tf32.cu.)
 //
-// Function, that of tree_attention_fwd.cu, for each (b, h, i):
+// Function, for each (b, h, i):
 //   s_ij  = scale * q_i . k_j + c * max(tpl[b,i,j], -1e9) + lut[ids[b,i,j], h]
 //           (ids 0 and ids outside [0, 32) add nothing; keys >= S score -inf)
 //   m_i   = max(-1e9, max_j s_ij),  e_ij = exp(s_ij - m_i)
@@ -23,27 +22,32 @@
 //   out_i = sum_j keep_ij e_ij v_j / ((1 - rate) l_i)
 //   lse_i = m_i + log(l_i)                          (optional, f32 (B, H, S))
 // keep_ij is the Philox mask of tree_attention_common.cuh, counter (j / 4,
-// i, h, b), so the backward kernels of tree_attention_bwd.cu regenerate it
-// bit for bit and read this kernel's LSE. A row whose every key is masked
-// by the template (c = 2: s = -2e9) gets e = 0, l = 1e-30 and zeros, as
-// from tree_attention_fwd.cu.
+// i, h, b), so the backward pair of tree_attention_bwd_mma.cu regenerates
+// it bit for bit and reads this kernel's LSE. A row whose every key is
+// masked by the template (c = 2: s = -2e9) gets e = 0, l = 1e-30 and zeros.
 //
-// What bounds it: at S = 1025, B = 1, H = 12 the call reads q, k, v and the
-// head-shared tpl/ids (8.4 MB, read by every head) and writes out, ~14.7 MB
-// or ~4.4 us at 3.35 TB/s, against 4 B H S^2 DH = 3.2 GFLOP of products,
-// ~3.3 us at the bf16 tensor-core peak: bytes bound it, barely. With
-// dropout each (row, 4-key group) also costs one Philox4x32-10 block.
+// What bounds it: at S = 1025, B = 1, H = 12, DH 64 the call reads q, k, v
+// and the head-shared tpl/ids (8.4 MB, read by every head) and writes out,
+// ~14.7 MB or ~4.4 us at 3.35 TB/s, against 4 B H S^2 DH = 3.2 GFLOP of
+// products, ~3.3 us at the bf16 tensor-core peak: bytes bound it, barely.
+// At a fixed width H DH the bound does not depend on DH; the work per (row,
+// key) that does not shrink with DH (the tpl/ids tile, the bias, the
+// Philox draw) grows with H, 4x from 12 heads of 64 to 48 heads of 16.
 //
 // Design, one block per (head, 32-row q tile, graph): 4 warps, two 16-row
 // tiles x two key groups. The head is blockIdx.x, so the H blocks that read
 // the same (graph, q tile) rows of tpl and ids run together and L2 serves
 // the H - 1 re-reads.
-// - Q's tile is staged once in XOR-swizzled bf16 shared memory (16-byte
-//   cp.async, rows past S zero-filled) and each warp keeps its 16 rows as
-//   A fragments in registers (4 ldmatrix.x4).
-// - K and V stream through a double-buffered ring of swizzled bf16 64-key
-//   tiles (16-byte cp.async, keys past S zero-filled): tile t + 1 lands
-//   while tile t is scored. Nothing is staged whole, so S has no cap.
+// - Q's tile is staged once in bf16 shared memory (16-byte cp.async, rows
+//   past S zero-filled) and each warp keeps its 16 rows as A fragments in
+//   registers (DH / 16 ldmatrix.x4).
+// - K and V stream through a double-buffered ring of bf16 64-key tiles
+//   (16-byte cp.async, keys past S zero-filled): tile t + 1 lands while
+//   tile t is scored. Nothing is staged whole, so S has no cap.
+// - Staged rows are XOR-swizzled 64-wide rows at DH 64 and rows of DH + 8
+//   values at DH 16, 32 and 128 (tile_at of mma_common.cuh): ldmatrix is
+//   free of bank conflicts at every DH, and DH 64 keeps 71 KB, three
+//   blocks an SM (padded rows would take 78 KB, two).
 // - The (32 rows x 64 keys) tile of tpl and of ids rides in the same ring,
 //   copied by 4-byte cp.async (coalesced along a row): rows of tpl and ids
 //   start at 4 S bytes, which is not 16-byte aligned for odd S (S = N + 1
@@ -71,17 +75,19 @@
 // - The output tile is written once in bf16: staged through the warp's own
 //   (no longer needed) Q rows, then stored with 16-byte writes; the LSE
 //   when asked.
+// - Registers: the output accumulator holds DH / 2 f32 a lane and Q's
+//   fragments DH / 8 registers; DH 128 is capped for two blocks an SM (its
+//   113 KB of shared memory allow no more), the others for four.
 // Slower on an H100 in a one-off comparison (chip_smoke.py times only this
 // design): tpl/ids loaded straight from device memory in the fragment
 // layout (L2 round trips on every tile's critical path), 64-row blocks of
 // one key group, and 16-key groups (four a row tile).
 //
 // Precision: the products run on bf16 operands in f32 accumulators; P is
-// rounded to bf16 before P V (tree_attention_fwd.cu keeps it in f32) while
-// l sums the f32 values, as in masked_attention_fwd_mma.cu. At DH = 64 the
-// scale 0.125 is a power of two, so acc * scale equals the backward's
-// (q * scale) . k up to the order of summation, and the LSE stays
-// consistent with the backward's recomputed p. The exponentials are expf.
+// rounded to bf16 before P V while l sums the f32 values, as in
+// masked_attention_fwd_mma.cu. The backward pair forms the score the same
+// way (acc * scale + bias on the f32 accumulator), so the LSE stays
+// consistent with its recomputed p at every DH. The exponentials are expf.
 
 #include "mma_common.cuh"
 #include "tree_attention_common.cuh"
@@ -101,27 +107,41 @@ constexpr int kGroupKeys = kKeys / kKeyGroups;  // keys per warp and tile
 constexpr int kGroupNt = kGroupKeys / 8;        // 8-key n-tiles per warp and tile
 constexpr int kBiasStride = kKeys + 4;          // entries per staged tpl/ids row
 constexpr int kStages = 2;                      // the ring's depth
-constexpr int kPartial = 8 * 4 + 4;             // a lane's o, m and l
 
-// Q, the K and V rings, the tpl and ids rings: 71 KB, three blocks an SM
-constexpr size_t kSmemBytes = sizeof(bf16) * (size_t)(kRows * kDh + 2 * kStages * kKeys * kDh) +
-                              (sizeof(float) + sizeof(int)) * (size_t)(kStages * kRows * kBiasStride);
-static_assert(sizeof(float) * (kKeyGroups - 1) * kRowWarps * kPartial * 32 <=
-                  kSmemBytes - sizeof(bf16) * kRows * kDh,
-              "the key groups' partial rows meet in the rings");
+template <int DH>
+struct Shape {
+  static constexpr int kLd = tile_ld<DH>();       // bf16 values per staged row
+  static constexpr int kChunks = DH / 8;          // 16-byte chunks per row
+  static constexpr int kChunkShift = DH == 16 ? 1 : DH == 32 ? 2 : DH == 64 ? 3 : 4;  // log2 kChunks
+  static_assert(1 << kChunkShift == kChunks, "DH is 16, 32, 64 or 128");
+  static constexpr int kPartial = DH / 2 + 4;     // a lane's o, m and l
+  static constexpr int kMinBlocks = DH == 128 ? 2 : 4;
+  // Q, the K and V rings, the tpl and ids rings (DH 64: 71 KB, three
+  // blocks an SM; DH 128: 113 KB, two)
+  static constexpr size_t kSmem = sizeof(bf16) * (size_t)(kRows * kLd + 2 * kStages * kKeys * kLd) +
+                                  (sizeof(float) + sizeof(int)) * (size_t)(kStages * kRows * kBiasStride);
+  static_assert(sizeof(float) * (kKeyGroups - 1) * kRowWarps * kPartial * 32 <= kSmem - sizeof(bf16) * kRows * kLd,
+                "the key groups' partial rows meet in the rings");
+};
 
-__global__ void __launch_bounds__(kMmaThreads, 4)
+template <int DH>
+__global__ void __launch_bounds__(kMmaThreads, Shape<DH>::kMinBlocks)
 tree_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const float* __restrict__ tpl,
                               const int* __restrict__ ids, const float* __restrict__ lut,
                               bf16* __restrict__ out, float* __restrict__ lse, int H, int S,
                               float scale, float tpl_coef, uint2 seed, unsigned thr,
                               float keep_scale) {
+  constexpr int LD = Shape<DH>::kLd;
+  constexpr int CH = Shape<DH>::kChunks;
+  constexpr int CSHIFT = Shape<DH>::kChunkShift;
+  constexpr int KS = DH / 16;  // 16-dim k steps of S = Q K^T, 16-dim n pairs of O
+  constexpr int kPartial = Shape<DH>::kPartial;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);                 // [kRows][64]; then the output tile
-  bf16* k_s = q_s + kRows * kDh;                                 // [kStages][kKeys][64]
-  bf16* v_s = k_s + kStages * kKeys * kDh;                       // [kStages][kKeys][64]
-  float* tpl_s = reinterpret_cast<float*>(v_s + kStages * kKeys * kDh);  // [kStages][kRows][kBiasStride]
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);                 // [kRows][LD]; then the output tile
+  bf16* k_s = q_s + kRows * LD;                                  // [kStages][kKeys][LD]
+  bf16* v_s = k_s + kStages * kKeys * LD;                        // [kStages][kKeys][LD]
+  float* tpl_s = reinterpret_cast<float*>(v_s + kStages * kKeys * LD);  // [kStages][kRows][kBiasStride]
   int* ids_s = reinterpret_cast<int*>(tpl_s + kStages * kRows * kBiasStride);
   __shared__ float lut_s[kLutSize];
 
@@ -136,7 +156,7 @@ tree_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
   const int rw = warp % kRowWarps;  // this warp's 16-row tile
   const int kg = warp / kRowWarps;  // and its key group: keys kGroupKeys kg .. of every tile
   const long long bh = (long long)b * H + h;
-  const long long base = bh * S * kDh;
+  const long long base = bh * S * DH;
   const int kp = (S + 15) & ~15;  // keys padded to 16
   const int n_tiles = (S + kKeys - 1) / kKeys;
   const int r0 = q0 + 16 * rw;    // this warp's first row
@@ -149,15 +169,15 @@ tree_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
   auto load_tile = [&](int t) {
     const int k0 = t * kKeys;
     const int st = t % kStages;
-    bf16* kd = k_s + st * kKeys * kDh;
-    bf16* vd = v_s + st * kKeys * kDh;
-    for (int c = tid; c < kKeys * 8; c += kMmaThreads) {
-      const int row = c >> 3;
-      const int col = (c & 7) << 3;
+    bf16* kd = k_s + st * kKeys * LD;
+    bf16* vd = v_s + st * kKeys * LD;
+    for (int c = tid; c < kKeys * CH; c += kMmaThreads) {
+      const int row = c >> CSHIFT;
+      const int col = (c & (CH - 1)) << 3;
       const bool ok = k0 + row < S;
-      const long long src = base + (long long)(ok ? k0 + row : 0) * kDh + col;
-      cp_async16(kd + swz(row, col), k + src, ok);
-      cp_async16(vd + swz(row, col), v + src, ok);
+      const long long src = base + (long long)(ok ? k0 + row : 0) * DH + col;
+      cp_async16(kd + tile_at<DH>(row, col), k + src, ok);
+      cp_async16(vd + tile_at<DH>(row, col), v + src, ok);
     }
     float* td = tpl_s + st * kRows * kBiasStride;
     int* idd = ids_s + st * kRows * kBiasStride;
@@ -170,11 +190,11 @@ tree_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
     }
   };
 
-  for (int c = tid; c < kRows * 8; c += kMmaThreads) {
-    const int row = c >> 3;
-    const int col = (c & 7) << 3;
+  for (int c = tid; c < kRows * CH; c += kMmaThreads) {
+    const int row = c >> CSHIFT;
+    const int col = (c & (CH - 1)) << 3;
     const bool ok = q0 + row < S;
-    cp_async16(q_s + swz(row, col), q + base + (long long)(ok ? q0 + row : 0) * kDh + col, ok);
+    cp_async16(q_s + tile_at<DH>(row, col), q + base + (long long)(ok ? q0 + row : 0) * DH + col, ok);
   }
   load_tile(0);
   cp_async_commit();
@@ -188,14 +208,14 @@ tree_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
   const int off_a = (16 * rw + grp) * kBiasStride + kGroupKeys * kg + 2 * tq;
   const int off_b = off_a + 8 * kBiasStride;
 
-  unsigned qa[4][4];  // A fragments of the warp's Q rows, k = 64 dims
+  unsigned qa[KS][4];  // A fragments of the warp's Q rows, k = DH dims
   // m and l of rows grp and grp + 8 over the warp's keys; l is this lane's
   // share of the row sum until the end
   float m[2] = {kMaskBias, kMaskBias};
   float l[2] = {0.f, 0.f};
-  float o[8][4];
+  float o[2 * KS][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < 2 * KS; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
 
@@ -212,17 +232,17 @@ tree_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
     const int pairs = active ? max(0, min(kGroupKeys, kp - kw)) >> 4 : 0;
     if (t == 0 && active) {
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        ldsm_x4(q_s + swz(16 * rw + (lane & 15), 16 * ks + ((lane >> 4) << 3)), qa[ks]);
+      for (int ks = 0; ks < KS; ++ks)
+        ldsm_x4(q_s + tile_at<DH>(16 * rw + (lane & 15), 16 * ks + ((lane >> 4) << 3)), qa[ks]);
     }
     if (pairs > 0) {
       const int st = t % kStages;
-      const bf16* kt = k_s + st * kKeys * kDh + kGroupKeys * kg * kDh;  // the warp's keys
-      const bf16* vt = v_s + st * kKeys * kDh + kGroupKeys * kg * kDh;
+      const bf16* kt = k_s + (st * kKeys + kGroupKeys * kg) * LD;  // the warp's keys
+      const bf16* vt = v_s + (st * kKeys + kGroupKeys * kg) * LD;
       const float* tt = tpl_s + st * kRows * kBiasStride;
       const int* it = ids_s + st * kRows * kBiasStride;
 
-      // S = Q K^T: 16 rows x the warp's 32 keys, k = 64 dims
+      // S = Q K^T: 16 rows x the warp's 32 keys, k = DH dims
       float sc[kGroupNt][4];
 #pragma unroll
       for (int n = 0; n < kGroupNt; ++n)
@@ -232,9 +252,10 @@ tree_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
       for (int np = 0; np < kGroupNt / 2; ++np) {
         if (np < pairs) {
 #pragma unroll
-          for (int ks = 0; ks < 4; ++ks) {
+          for (int ks = 0; ks < KS; ++ks) {
             unsigned bk[4];
-            ldsm_x4(kt + swz(16 * np + (lane & 7) + ((lane >> 4) << 3), 16 * ks + (((lane >> 3) & 1) << 3)), bk);
+            ldsm_x4(kt + tile_at<DH>(16 * np + (lane & 7) + ((lane >> 4) << 3), 16 * ks + (((lane >> 3) & 1) << 3)),
+                    bk);
             mma(sc[2 * np], qa[ks], bk[0], bk[1]);
             mma(sc[2 * np + 1], qa[ks], bk[2], bk[3]);
           }
@@ -276,7 +297,7 @@ tree_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
         m[hi] = m_new;
         l[hi] *= alpha;
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
+        for (int n = 0; n < 2 * KS; ++n) {
           o[n][2 * hi] *= alpha;
           o[n][2 * hi + 1] *= alpha;
         }
@@ -301,11 +322,11 @@ tree_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
             pa[2 * jj] = pack_bf16(p[0], p[1]);
             pa[2 * jj + 1] = pack_bf16(p[2], p[3]);
           }
-          // k = the pair's 16 keys, n = 64 dims
+          // k = the pair's 16 keys, n = DH dims
 #pragma unroll
-          for (int dp = 0; dp < 4; ++dp) {
+          for (int dp = 0; dp < KS; ++dp) {
             unsigned bv[4];
-            ldsm_x4_t(vt + swz(16 * np + (lane & 15), 16 * dp + ((lane >> 4) << 3)), bv);
+            ldsm_x4_t(vt + tile_at<DH>(16 * np + (lane & 15), 16 * dp + ((lane >> 4) << 3)), bv);
             mma(o[2 * dp], pa, bv[0], bv[1]);
             mma(o[2 * dp + 1], pa, bv[2], bv[3]);
           }
@@ -322,13 +343,13 @@ tree_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
   if (kg > 0 && active) {
     float* partial = partials + ((kg - 1) * kRowWarps + rw) * kPartial * 32 + lane;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < 2 * KS; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) partial[(4 * n + c) * 32] = o[n][c];
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
-      partial[(32 + hi) * 32] = m[hi];
-      partial[(34 + hi) * 32] = l[hi];
+      partial[(DH / 2 + hi) * 32] = m[hi];
+      partial[(DH / 2 + 2 + hi) * 32] = l[hi];
     }
   }
   __syncthreads();
@@ -337,14 +358,14 @@ tree_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
     const float* partial = partials + ((g - 1) * kRowWarps + rw) * kPartial * 32 + lane;
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
-      const float m1 = partial[(32 + hi) * 32];
+      const float m1 = partial[(DH / 2 + hi) * 32];
       const float m_new = fmaxf(m[hi], m1);
       const float a0 = expf(m[hi] - m_new);
       const float a1 = expf(m1 - m_new);
       m[hi] = m_new;
-      l[hi] = l[hi] * a0 + partial[(34 + hi) * 32] * a1;
+      l[hi] = l[hi] * a0 + partial[(DH / 2 + 2 + hi) * 32] * a1;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < 2 * KS; ++n) {
         o[n][2 * hi] = o[n][2 * hi] * a0 + partial[(4 * n + 2 * hi) * 32] * a1;
         o[n][2 * hi + 1] = o[n][2 * hi + 1] * a0 + partial[(4 * n + 2 * hi + 1) * 32] * a1;
       }
@@ -363,19 +384,21 @@ tree_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
   // the warp's Q rows are free: both key groups took their fragments at tile 0
   const int w0 = 16 * rw;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    *reinterpret_cast<unsigned*>(q_s + swz(w0 + grp, 8 * n + 2 * tq)) = pack_bf16(o[n][0] * f[0], o[n][1] * f[0]);
-    *reinterpret_cast<unsigned*>(q_s + swz(w0 + grp + 8, 8 * n + 2 * tq)) = pack_bf16(o[n][2] * f[1], o[n][3] * f[1]);
+  for (int n = 0; n < 2 * KS; ++n) {
+    *reinterpret_cast<unsigned*>(q_s + tile_at<DH>(w0 + grp, 8 * n + 2 * tq)) =
+        pack_bf16(o[n][0] * f[0], o[n][1] * f[0]);
+    *reinterpret_cast<unsigned*>(q_s + tile_at<DH>(w0 + grp + 8, 8 * n + 2 * tq)) =
+        pack_bf16(o[n][2] * f[1], o[n][3] * f[1]);
   }
   __syncwarp();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 16 * CH / 32; ++i) {
     const int c = lane + 32 * i;
-    const int row = w0 + (c >> 3);
-    const int col = (c & 7) << 3;
+    const int row = w0 + (c >> CSHIFT);
+    const int col = (c & (CH - 1)) << 3;
     if (q0 + row < S)
-      *reinterpret_cast<uint4*>(out + base + (long long)(q0 + row) * kDh + col) =
-          *reinterpret_cast<const uint4*>(q_s + swz(row, col));
+      *reinterpret_cast<uint4*>(out + base + (long long)(q0 + row) * DH + col) =
+          *reinterpret_cast<const uint4*>(q_s + tile_at<DH>(row, col));
   }
   if (lse != nullptr && tq == 0) {
     if (ok_a) lse[bh * S + row_a] = m[0] + logf(denom[0]);
@@ -383,32 +406,48 @@ tree_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
   }
 }
 
+template <int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* tpl, const void* ids,
+                   const void* lut, void* out, void* lse, int B, int H, int S, float scale, float tpl_coef,
+                   uint2 seed, unsigned thr, float keep_scale, cudaStream_t stream) {
+  constexpr size_t smem = Shape<DH>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(tree_attention_fwd_mma_kernel<DH>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, (S + kRows - 1) / kRows, B);
+  tree_attention_fwd_mma_kernel<DH><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(tpl), static_cast<const int*>(ids), static_cast<const float*>(lut),
+      static_cast<bf16*>(out), static_cast<float*>(lse), H, S, scale, tpl_coef, seed, thr, keep_scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype 1 (bfloat16) at DH = 64 only; anything else returns
+// dtype 1 (bfloat16) at DH = 16, 32, 64 or 128; anything else returns
 // cudaErrorInvalidValue. q, k, v and out must be 16-byte aligned (the
-// wrapper checks q, k and v and allocates out). lse may be null. The dropout mask is keyed by (seed_hi
-// << 32 | seed_lo); thr = 0 keeps every key, and keep_scale is 1 / (1 -
-// rate). Returns a cudaError_t (0 on success).
+// wrapper checks q, k and v and allocates out). lse may be null. The
+// dropout mask is keyed by (seed_hi << 32 | seed_lo); thr = 0 keeps every
+// key, and keep_scale is 1 / (1 - rate). Returns a cudaError_t (0 on
+// success).
 extern "C" int tree_attention_fwd_mma(const void* q, const void* k, const void* v,
                                       const void* tpl, const void* ids, const void* lut,
                                       void* out, void* lse, int B, int H, int S, int DH,
                                       float scale, float tpl_coef, unsigned seed_lo,
                                       unsigned seed_hi, unsigned thr, float keep_scale, int dtype,
                                       void* stream) {
-  if (dtype != 1 || DH != kDh || B <= 0 || H <= 0 || S <= 0 || B > 65535 ||
-      (S + kRows - 1) / kRows > 65535)
+  if (dtype != 1 || B <= 0 || H <= 0 || S <= 0 || B > 65535 || (S + kRows - 1) / kRows > 65535)
     return cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(tree_attention_fwd_mma_kernel,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(H, (S + kRows - 1) / kRows, B);
-  tree_attention_fwd_mma_kernel<<<grid, kMmaThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(tpl), static_cast<const int*>(ids), static_cast<const float*>(lut),
-      static_cast<bf16*>(out), static_cast<float*>(lse), H, S, scale, tpl_coef,
-      make_uint2(seed_lo, seed_hi), thr, keep_scale);
-  return cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint2 seed = make_uint2(seed_lo, seed_hi);
+  switch (DH) {
+    case 16: return launch<16>(q, k, v, tpl, ids, lut, out, lse, B, H, S, scale, tpl_coef, seed, thr, keep_scale, st);
+    case 32: return launch<32>(q, k, v, tpl, ids, lut, out, lse, B, H, S, scale, tpl_coef, seed, thr, keep_scale, st);
+    case 64: return launch<64>(q, k, v, tpl, ids, lut, out, lse, B, H, S, scale, tpl_coef, seed, thr, keep_scale, st);
+    case 128:
+      return launch<128>(q, k, v, tpl, ids, lut, out, lse, B, H, S, scale, tpl_coef, seed, thr, keep_scale, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* tree_attention_fwd_mma_error_string(int err) {

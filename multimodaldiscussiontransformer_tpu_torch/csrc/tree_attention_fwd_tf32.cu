@@ -13,10 +13,8 @@
 //   _make_kernel_flash_lse            (:418, the LSE for the backward),
 //   _make_dropout_fwd_kernel_batched  (:1096, dropout, padded S <= 128),
 //   _make_dropout_fwd_kernel          (:973, dropout, 128 < padded S < 513).
-// It takes the float32 forward over from the CUDA-core kernel K1
-// (tree_attention_fwd.cu), which now serves bf16 at DH 16, 32 and 128 only.
 //
-// Function, that of tree_attention_fwd.cu, for each (b, h, i):
+// Function, that of tree_attention_fwd_mma.cu, for each (b, h, i):
 //   s_ij  = (scale q_i) . k_j + c max(tpl[b,i,j], -1e9) + lut[ids[b,i,j], h]
 //           (q scaled in f32; c = 2 with the reference's double-added bias,
 //            else 1; ids 0 and ids outside [0, 32) add nothing; keys >= S
@@ -28,7 +26,7 @@
 // keep_ij is the Philox mask of tree_attention_common.cuh, counter (j / 4,
 // i, h, b), so every backward pair regenerates it bit for bit and reads this
 // kernel's LSE. A row whose every key the template masks (c = 2: s = -2e9)
-// gets e = 0, l = 1e-30, zeros and the LSE -1e9 + log(1e-30), as from K1.
+// gets e = 0, l = 1e-30, zeros and the LSE -1e9 + log(1e-30).
 //
 // Precision, 3xTF32 (tf32_common.cuh): S = Q K^T and O += P V run on
 // mma.sync.m16n8k8 with each float32 operand split into two TF32 parts and
@@ -216,7 +214,7 @@ tree_attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restr
     const unsigned keep = thr != 0u && active ? chunk_keep_bits<NT>(r0, kw, h, b, seed, thr, lane) : ~0u;
     cp_async_wait<1>();
     __syncthreads();
-    if (t == 0) {  // q in f32 times scale, as K1 forms it
+    if (t == 0) {  // q in f32 times scale, as the plain version forms it
       for (int e = tid; e < kRows * DH; e += kFwdThreads) q_s[(e / DH) * LD + e % DH] *= scale;
       __syncthreads();
     }

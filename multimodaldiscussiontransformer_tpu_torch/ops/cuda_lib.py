@@ -28,10 +28,8 @@ _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
 # one shared library per source, built in parallel
 SOURCES = {
-    "tree_fwd": CSRC / "tree_attention_fwd.cu",
     "tree_fwd_mma": CSRC / "tree_attention_fwd_mma.cu",
     "tree_fwd_tf32": CSRC / "tree_attention_fwd_tf32.cu",
-    "tree_bwd": CSRC / "tree_attention_bwd.cu",
     "tree_bwd_mma": CSRC / "tree_attention_bwd_mma.cu",
     "tree_bwd_tf32": CSRC / "tree_attention_bwd_tf32.cu",
     "masked_fwd_mma": CSRC / "masked_attention_fwd_mma.cu",
@@ -59,10 +57,8 @@ _BIASED_ARGS = [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P]
 # library -> {C function: argument types}; every function returns a
 # cudaError_t as int, and each library has one "<...>_error_string"
 ENTRY_POINTS = {
-    "tree_fwd": {"tree_attention_fwd": [_P] * 8 + _TREE_TAIL},
     "tree_fwd_mma": {"tree_attention_fwd_mma": [_P] * 8 + _TREE_TAIL},
     "tree_fwd_tf32": {"tree_attention_fwd_tf32": [_P] * 8 + _TREE_TAIL},
-    "tree_bwd": {"tree_attention_bwd_dq": [_P] * 12 + _TREE_TAIL, "tree_attention_bwd_dkv": [_P] * 11 + _TREE_TAIL},
     "tree_bwd_mma": {"tree_attention_bwd_dq_mma": [_P] * 12 + _TREE_TAIL,
                      "tree_attention_bwd_dkv_mma": [_P] * 11 + _TREE_TAIL},
     "tree_bwd_tf32": {"tree_attention_bwd_dq_tf32": [_P] * 12 + _TREE_TAIL,
@@ -81,10 +77,8 @@ ENTRY_POINTS = {
     "biased_fwd_tf32": {"biased_attention_fwd_tf32": _BIASED_ARGS},
 }
 ERROR_STRINGS = {
-    "tree_fwd": "tree_attention_error_string",
     "tree_fwd_mma": "tree_attention_fwd_mma_error_string",
     "tree_fwd_tf32": "tree_attention_fwd_tf32_error_string",
-    "tree_bwd": "tree_attention_bwd_error_string",
     "tree_bwd_mma": "tree_attention_bwd_mma_error_string",
     "tree_bwd_tf32": "tree_attention_bwd_tf32_error_string",
     "masked_fwd_mma": "masked_attention_fwd_mma_error_string",
@@ -144,21 +138,27 @@ def build() -> Dict[str, Path]:
     return paths
 
 
+def bind(paths: Dict[str, Path]) -> Dict[str, ctypes.CDLL]:
+    """Load the libraries ``{library: path}`` with their entry points'
+    argument types."""
+    libs = {name: ctypes.CDLL(str(path)) for name, path in paths.items()}
+    for name, lib in libs.items():
+        for fn_name, argtypes in ENTRY_POINTS[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        err_fn = getattr(lib, ERROR_STRINGS[name])
+        err_fn.argtypes = [ctypes.c_int]
+        err_fn.restype = ctypes.c_char_p
+    return libs
+
+
 def load_library() -> Dict[str, ctypes.CDLL]:
     """Build (if needed) and bind every kernel library, once per process."""
     global _libs
     with _lib_lock:
         if _libs is None:
-            libs = {name: ctypes.CDLL(str(path)) for name, path in build().items()}
-            for name, lib in libs.items():
-                for fn_name, argtypes in ENTRY_POINTS[name].items():
-                    fn = getattr(lib, fn_name)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-                err_fn = getattr(lib, ERROR_STRINGS[name])
-                err_fn.argtypes = [ctypes.c_int]
-                err_fn.restype = ctypes.c_char_p
-            _libs = libs
+            _libs = bind(build())
         return _libs
 
 

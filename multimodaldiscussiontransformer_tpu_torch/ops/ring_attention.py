@@ -27,7 +27,7 @@ with the other replicated parameters' gradients (the trainer's all-reduce
 over the data and sp axes).
 
 Tiles go to the port's tree kernels (``ops/tree_attention.py``): on CUDA
-tensors the route ``ta.kernel_route`` names (bf16 at dh 64: the tensor-core
+tensors the route ``ta.kernel_route`` names (bf16 at any dh: the tensor-core
 forward with LSE and the tensor-core dq and dk/dv kernels; float32: the
 3xTF32 forward and the 3xTF32 dq and dk/dv kernels), which raise if a launch
 fails; on CPU tensors the
@@ -201,13 +201,10 @@ def tile_ops(q: torch.Tensor):
         return tile_forward_plain, tile_dq_plain, tile_dkv_plain
     if q.device.type != "cuda":
         raise ValueError(f"ring tree attention runs on cpu or cuda, not {q.device}")
-    route = ta.kernel_route(q.dtype, q.shape[-1])
-    if route == "tensor_core":
-        fwd, dq, dkv = ta.tree_attention_fwd_fused, ta.tree_attention_bwd_dq_fused, ta.tree_attention_bwd_dkv_fused
-    elif route == "tf32":
+    if ta.kernel_route(q.dtype, q.shape[-1]) == "tf32":
         fwd, dq, dkv = ta.tree_attention_fwd_tf32, ta.tree_attention_bwd_dq_tf32, ta.tree_attention_bwd_dkv_tf32
     else:
-        fwd, dq, dkv = ta.tree_attention_fwd, ta.tree_attention_bwd_dq, ta.tree_attention_bwd_dkv
+        fwd, dq, dkv = ta.tree_attention_fwd_fused, ta.tree_attention_bwd_dq_fused, ta.tree_attention_bwd_dkv_fused
 
     def forward(q_, k_, v_, t_, i_, l_, scale, double_add, rate, seed):
         return fwd(q_, k_, v_, t_, i_, l_, scale, double_add, rate, seed, with_lse=True)

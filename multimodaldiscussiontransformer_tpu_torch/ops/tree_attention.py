@@ -25,20 +25,18 @@ log-sum-exp) and whose backward launches a pair of hand-written backward
 kernels: dq with the LUT gradient (and the per-row g . out), then dk and
 dv. It does so for rate 0 too, so evaluation and training share one path.
 One predicate, ``kernel_route``, picks the kernels of both directions by
-dtype and head dim:
-- "tensor_core": bf16 at DH = 64, every graph layer of the model, at any S.
-  The forward is ``csrc/tree_attention_fwd_mma.cu`` and the backward pair
+dtype, at every head dim of ``_HEAD_DIMS`` (16, 32, 64, 128):
+- "tensor_core": bf16, every graph layer of the model (DH 64 at
+  ``ModelConfig()``, DH 128 and 32 with 6 and 24 heads), at any S. The
+  forward is ``csrc/tree_attention_fwd_mma.cu`` and the backward pair
   ``csrc/tree_attention_bwd_mma.cu``, all on mma.sync with bf16 operands,
   streaming over S in tiles;
-- "tf32": float32 at DH 16, 32, 64 and 128 (the card-vs-CPU steps, the
-  tiny configs). The forward is ``csrc/tree_attention_fwd_tf32.cu`` and
-  the backward pair ``csrc/tree_attention_bwd_tf32.cu``, every product on
-  mma.sync in 3xTF32 (each operand split into two TF32 parts, the three
-  larger cross products summed in f32), which holds the float32
-  tolerances that one TF32 or bf16 product would break;
-- "cuda_core": bf16 at DH 16, 32 and 128. The forward is
-  ``csrc/tree_attention_fwd.cu`` and the backward pair
-  ``csrc/tree_attention_bwd.cu`` (f32 arithmetic on CUDA cores).
+- "tf32": float32 (the card-vs-CPU steps, the tiny configs). The forward is
+  ``csrc/tree_attention_fwd_tf32.cu`` and the backward pair
+  ``csrc/tree_attention_bwd_tf32.cu``, every product on mma.sync in 3xTF32
+  (each operand split into two TF32 parts, the three larger cross products
+  summed in f32), which holds the float32 tolerances that one TF32 or bf16
+  product would break.
 Every forward computes one function, draws one dropout mask and writes one
 LSE, and every backward pair reads it, so any forward feeds any pair.
 The kernels are built and bound by ``ops/cuda_lib.py`` at their first use;
@@ -275,19 +273,6 @@ def count_launch(fn) -> None:
         fn.launches += 1
 
 
-def tree_attention_fwd(
-    q, k, v, template, ids, lut, scale: float, double_add: bool = True,
-    rate: float = 0.0, seed: int = 0, with_lse: bool = False,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch the CUDA-core forward kernel K1, the "cuda_core" route's (it
-    takes float32 and bf16 at every DH of _HEAD_DIMS; the route sends it
-    bf16 at DH 16, 32 and 128): (out, lse or None). ``launches`` counts
-    launches."""
-    _check_cuda_inputs(q, k, v, template, ids, lut)
-    return _launch_forward(tree_attention_fwd, ("tree_fwd", "tree_attention_fwd"), q, k, v, template, ids, lut, scale,
-                           double_add, rate, seed, with_lse)
-
-
 def _launch_forward(wrapper, entry: Tuple[str, str], q, k, v, template, ids, lut, scale, double_add, rate, seed,
                     with_lse):
     """Allocate out (and the LSE), launch the forward ``entry`` (library, C
@@ -308,40 +293,35 @@ def _launch_forward(wrapper, entry: Tuple[str, str], q, k, v, template, ids, lut
     return out, lse
 
 
-# the tensor-core kernels take these; see ``kernel_route``
+# the tensor-core kernels take this, the 3xTF32 forward and backward pair
+# that, each at every DH of _HEAD_DIMS; see ``kernel_route``
 TENSOR_CORE_DTYPE = torch.bfloat16
-TENSOR_CORE_HEAD_DIM = 64
-# the 3xTF32 forward and backward pair take this, at every DH of _HEAD_DIMS
 TF32_DTYPE = torch.float32
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernels the CUDA path launches, in both directions, for q of
-    this dtype and head dim:
-    - "tensor_core" for bf16 at DH = 64: ``tree_attention_fwd_fused``, then
-      ``tree_attention_bwd_dq_fused`` and ``tree_attention_bwd_dkv_fused``
-      (any S);
-    - "tf32" for float32 (any DH of _HEAD_DIMS): ``tree_attention_fwd_tf32``,
-      then ``tree_attention_bwd_dq_tf32`` and ``tree_attention_bwd_dkv_tf32``
-      (3xTF32 on tensor cores, any S);
-    - "cuda_core" for bf16 at DH 16, 32 and 128: ``tree_attention_fwd``,
-      then ``tree_attention_bwd_dq`` and ``tree_attention_bwd_dkv`` (f32
-      arithmetic on CUDA cores).
-    A choice between kernels, not a fallback: each raises if it fails."""
-    if dtype == TF32_DTYPE:
-        return "tf32"
-    tensor_core = dtype == TENSOR_CORE_DTYPE and head_dim == TENSOR_CORE_HEAD_DIM
-    return "tensor_core" if tensor_core else "cuda_core"
+    this dtype and head dim (any S):
+    - "tensor_core" for bf16: ``tree_attention_fwd_fused``, then
+      ``tree_attention_bwd_dq_fused`` and ``tree_attention_bwd_dkv_fused``;
+    - "tf32" for float32: ``tree_attention_fwd_tf32``, then
+      ``tree_attention_bwd_dq_tf32`` and ``tree_attention_bwd_dkv_tf32``
+      (3xTF32 on tensor cores).
+    Both take every DH of _HEAD_DIMS; another dtype or head dim raises. A
+    choice between kernels, not a fallback: each raises if it fails."""
+    if dtype not in (TENSOR_CORE_DTYPE, TF32_DTYPE):
+        raise TypeError(f"the tree attention kernels take float32 or bfloat16, got {dtype}")
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} not in {_HEAD_DIMS}")
+    return "tf32" if dtype == TF32_DTYPE else "tensor_core"
 
 
 def _check_tensor_core_inputs(kernel: str, q, *tensors, route: str = "tensor_core") -> None:
     """What the tensor-core kernels take besides ``_check_cuda_inputs``: the
-    dtype (and, for "tensor_core", the head dim) of their ``route``, q and
-    ``tensors`` (k, v and g, out) 16-byte aligned for their 16-byte copies,
-    and CUDA tensors."""
+    dtype of their ``route``, q and ``tensors`` (k, v and g, out) 16-byte
+    aligned for their 16-byte copies, and CUDA tensors."""
     dh = q.shape[-1]
-    name, takes = (("3xTF32", f"{TF32_DTYPE}") if route == "tf32"
-                   else ("tensor-core", f"{TENSOR_CORE_DTYPE} at DH={TENSOR_CORE_HEAD_DIM}"))
+    name, takes = ("3xTF32", TF32_DTYPE) if route == "tf32" else ("tensor-core", TENSOR_CORE_DTYPE)
     if kernel_route(q.dtype, dh) != route:
         raise ValueError(f"the {name} tree {kernel} takes {takes}, got {q.dtype} DH={dh}")
     if any(t.data_ptr() % 16 for t in (q, *tensors)):
@@ -361,10 +341,10 @@ def tree_attention_fwd_fused(
     q, k, v, template, ids, lut, scale: float, double_add: bool = True,
     rate: float = 0.0, seed: int = 0, with_lse: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch the tensor-core forward kernel: (out, lse or None), as
-    ``tree_attention_fwd`` returns them. Takes CUDA tensors that
-    ``kernel_route`` sends to "tensor_core" only, with q, k and v 16-byte
-    aligned for the kernel's 16-byte copies."""
+    """Launch the tensor-core forward kernel: (out, lse or None; the LSE
+    f32 (B, H, S) when ``with_lse``). Takes bf16 CUDA tensors at any DH of
+    _HEAD_DIMS (the "tensor_core" route), with q, k and v 16-byte aligned
+    for the kernel's 16-byte copies. ``launches`` counts launches."""
     _check_cuda_inputs(q, k, v, template, ids, lut)
     _check_tensor_core_inputs("forward", q, k, v)
     return _launch_forward(tree_attention_fwd_fused, ("tree_fwd_mma", "tree_attention_fwd_mma"), q, k, v, template, ids,
@@ -376,7 +356,7 @@ def tree_attention_fwd_tf32(
     rate: float = 0.0, seed: int = 0, with_lse: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the 3xTF32 forward kernel: (out, lse or None), as
-    ``tree_attention_fwd`` returns them. Takes float32 CUDA tensors (the
+    ``tree_attention_fwd_fused`` returns them. Takes float32 CUDA tensors (the
     "tf32" route, any DH of _HEAD_DIMS), with q, k and v 16-byte aligned."""
     _check_cuda_inputs(q, k, v, template, ids, lut)
     _check_tensor_core_inputs("forward", q, k, v, route="tf32")
@@ -425,38 +405,15 @@ def _launch_dkv(wrapper, entry: Tuple[str, str], q, k, v, g, template, ids, lut,
     return dk, dv
 
 
-def tree_attention_bwd_dq(
-    q, k, v, out, g, template, ids, lut, lse, scale: float, double_add: bool = True,
-    rate: float = 0.0, seed: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the CUDA-core q-major backward kernel K2, the "cuda_core"
-    route's (it takes float32 and bf16 at every DH of _HEAD_DIMS; the route
-    sends it bf16 at DH 16, 32 and 128): (dq, dlut f32 (32, H),
-    delta f32 (B, H, S), the per-row g . out that ``tree_attention_bwd_dkv``
-    takes). It reads the LSE of either forward."""
-    _check_cuda_inputs(q, k, v, template, ids, lut, out=out, g=g, lse=lse)
-    return _launch_dq(tree_attention_bwd_dq, ("tree_bwd", "tree_attention_bwd_dq"), q, k, v, out, g, template, ids, lut,
-                      lse, scale, double_add, rate, seed)
-
-
-def tree_attention_bwd_dkv(
-    q, k, v, g, template, ids, lut, lse, delta, scale: float, double_add: bool = True,
-    rate: float = 0.0, seed: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA-core k-major backward kernel: (dk, dv)."""
-    _check_cuda_inputs(q, k, v, template, ids, lut, g=g, lse=lse, delta=delta)
-    return _launch_dkv(tree_attention_bwd_dkv, ("tree_bwd", "tree_attention_bwd_dkv"), q, k, v, g, template, ids, lut,
-                       lse, delta, scale, double_add, rate, seed)
-
-
 def tree_attention_bwd_dq_fused(
     q, k, v, out, g, template, ids, lut, lse, scale: float, double_add: bool = True,
     rate: float = 0.0, seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the tensor-core q-major backward kernel: (dq, dlut, delta), as
-    ``tree_attention_bwd_dq`` returns them, from the LSE of either forward.
-    Takes CUDA tensors that ``kernel_route`` sends to "tensor_core" only,
-    with q, k, v, g and out 16-byte aligned."""
+    """Launch the tensor-core q-major backward kernel: (dq, dlut f32 (32,
+    H), delta f32 (B, H, S), the per-row g . out that
+    ``tree_attention_bwd_dkv_fused`` takes), from the LSE of either forward.
+    Takes bf16 CUDA tensors at any DH of _HEAD_DIMS (the "tensor_core"
+    route), with q, k, v, g and out 16-byte aligned."""
     _check_cuda_inputs(q, k, v, template, ids, lut, out=out, g=g, lse=lse)
     _check_tensor_core_inputs("backward", q, k, v, g, out)
     return _launch_dq(tree_attention_bwd_dq_fused, ("tree_bwd_mma", "tree_attention_bwd_dq_mma"), q, k, v, out, g,
@@ -481,7 +438,7 @@ def tree_attention_bwd_dq_tf32(
     rate: float = 0.0, seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the 3xTF32 q-major backward kernel: (dq, dlut, delta), as
-    ``tree_attention_bwd_dq`` returns them, from the LSE of either forward.
+    ``tree_attention_bwd_dq_fused`` returns them, from the LSE of either forward.
     Takes float32 CUDA tensors (the "tf32" route, any DH of _HEAD_DIMS),
     with q, k, v, g and out 16-byte aligned."""
     _check_cuda_inputs(q, k, v, template, ids, lut, out=out, g=g, lse=lse)
@@ -503,9 +460,8 @@ def tree_attention_bwd_dkv_tf32(
                        template, ids, lut, lse, delta, scale, double_add, rate, seed)
 
 
-KERNELS = (tree_attention_fwd, tree_attention_bwd_dq, tree_attention_bwd_dkv, tree_attention_fwd_fused,
-           tree_attention_bwd_dq_fused, tree_attention_bwd_dkv_fused, tree_attention_bwd_dq_tf32,
-           tree_attention_bwd_dkv_tf32, tree_attention_fwd_tf32)
+KERNELS = (tree_attention_fwd_fused, tree_attention_bwd_dq_fused, tree_attention_bwd_dkv_fused,
+           tree_attention_bwd_dq_tf32, tree_attention_bwd_dkv_tf32, tree_attention_fwd_tf32)
 for _fn in KERNELS:
     _fn.launches = 0
 
@@ -519,13 +475,10 @@ class TreeAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, template, ids, lut, seed: int, rate: float, scale: float, double_add: bool):
         need = any(ctx.needs_input_grad[i] for i in (0, 1, 2, 5))
-        route = kernel_route(q.dtype, q.shape[-1])
-        if route == "tf32":
-            # the 3xTF32 kernels copy in 16-byte pieces: a view off a 16-byte
-            # boundary goes as an aligned copy (and is saved as one)
-            q, k, v = (aligned16(x) for x in (q, k, v))
-        forwards = {"tensor_core": tree_attention_fwd_fused, "tf32": tree_attention_fwd_tf32}
-        fwd = forwards.get(route, tree_attention_fwd)
+        # both forwards copy in 16-byte pieces: a view off a 16-byte
+        # boundary goes as an aligned copy (and is saved as one)
+        q, k, v = (aligned16(x) for x in (q, k, v))
+        fwd = tree_attention_fwd_tf32 if kernel_route(q.dtype, q.shape[-1]) == "tf32" else tree_attention_fwd_fused
         out, lse = fwd(q, k, v, template, ids, lut, scale, double_add, rate, seed, with_lse=need)
         if need:
             ctx.save_for_backward(q, k, v, template, ids, lut, out, lse)
@@ -536,18 +489,12 @@ class TreeAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, template, ids, lut, out, lse = ctx.saved_tensors
         scale, double_add, rate, seed = ctx.args
-        g = g.contiguous()
-        route = kernel_route(q.dtype, q.shape[-1])
-        if route == "cuda_core":
-            bwd_dq, bwd_dkv = tree_attention_bwd_dq, tree_attention_bwd_dkv
+        # so do both pairs: g goes as an aligned copy too
+        g = aligned16(g)
+        if kernel_route(q.dtype, q.shape[-1]) == "tf32":
+            bwd_dq, bwd_dkv = tree_attention_bwd_dq_tf32, tree_attention_bwd_dkv_tf32
         else:
-            # the tensor-core pairs copy in 16-byte pieces: a view off a
-            # 16-byte boundary (g) goes as an aligned copy
-            g = aligned16(g)
-            if route == "tf32":
-                bwd_dq, bwd_dkv = tree_attention_bwd_dq_tf32, tree_attention_bwd_dkv_tf32
-            else:
-                bwd_dq, bwd_dkv = tree_attention_bwd_dq_fused, tree_attention_bwd_dkv_fused
+            bwd_dq, bwd_dkv = tree_attention_bwd_dq_fused, tree_attention_bwd_dkv_fused
         dq, dlut, delta = bwd_dq(q, k, v, out, g, template, ids, lut, lse, scale, double_add, rate, seed)
         dk, dv = bwd_dkv(q, k, v, g, template, ids, lut, lse, delta, scale, double_add, rate, seed)
         return dq, dk, dv, None, None, dlut if ctx.needs_input_grad[5] else None, None, None, None, None

@@ -34,10 +34,10 @@ F32_RTOL_OF_MAX = 1e-4
 TREE_ROUTES = [
     (torch.float32, 16, "tf32"), (torch.float32, 32, "tf32"), (torch.float32, 64, "tf32"),
     (torch.float32, 128, "tf32"),
-    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
-    (torch.bfloat16, 128, "cuda_core"),
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 16, "tensor_core"), (torch.bfloat16, 32, "tensor_core"),
+    (torch.bfloat16, 128, "tensor_core"),
 ]
-TREE_FORWARD = {"tf32": "fwd_tf32", "tensor_core": "fwd_fused", "cuda_core": "fwd"}
+TREE_FORWARD = {"tf32": "fwd_tf32", "tensor_core": "fwd_fused"}
 TOWER_ROUTES = [
     (torch.float32, 16, 104, "tf32"), (torch.float32, 32, 104, "tf32"), (torch.float32, 64, 104, "tf32"),
     (torch.float32, 128, 104, "tf32"), (torch.float32, 64, 300, "tf32"),
@@ -83,9 +83,8 @@ def _stub_tree(monkeypatch, calls, seen):
             return torch.zeros_like(k), torch.zeros_like(v)
         return run
 
-    for name, fn in (("tree_attention_fwd", fwd("fwd")), ("tree_attention_fwd_fused", fwd("fwd_fused")),
-                     ("tree_attention_fwd_tf32", fwd("fwd_tf32")), ("tree_attention_bwd_dq", dq("dq")),
-                     ("tree_attention_bwd_dkv", dkv("dkv")), ("tree_attention_bwd_dq_fused", dq("dq_fused")),
+    for name, fn in (("tree_attention_fwd_fused", fwd("fwd_fused")), ("tree_attention_fwd_tf32", fwd("fwd_tf32")),
+                     ("tree_attention_bwd_dq_fused", dq("dq_fused")),
                      ("tree_attention_bwd_dkv_fused", dkv("dkv_fused")), ("tree_attention_bwd_dq_tf32", dq("dq_tf32")),
                      ("tree_attention_bwd_dkv_tf32", dkv("dkv_tf32"))):
         monkeypatch.setattr(ta, name, fn)
@@ -134,14 +133,14 @@ def _stub_tower(monkeypatch, calls, seen):
 @pytest.mark.parametrize("dtype, dh, route", TREE_ROUTES)
 def test_tree_route_sends_float32_to_the_tf32_forward(monkeypatch, dtype, dh, route):
     """float32 at every DH takes the 3xTF32 forward (then the 3xTF32 pair);
-    bf16 the tensor-core or the CUDA-core forward as before."""
+    bf16 the tensor-core forward (then the tensor-core pair) at every DH."""
     assert ta.kernel_route(dtype, dh) == route
     calls, seen = [], []
     _stub_tree(monkeypatch, calls, seen)
     q, k, v, template, ids, lut = _cpu_inputs(3, 1, 2, 9, dh, dtype)
     q, k, v = (x.requires_grad_(True) for x in (q, k, v))
     ta.TreeAttention.apply(q, k, v, template, ids, lut, 5, 0.2, dh ** -0.5, True).float().sum().backward()
-    pair = {"tf32": ["dq_tf32", "dkv_tf32"], "tensor_core": ["dq_fused", "dkv_fused"], "cuda_core": ["dq", "dkv"]}
+    pair = {"tf32": ["dq_tf32", "dkv_tf32"], "tensor_core": ["dq_fused", "dkv_fused"]}
     assert calls == [TREE_FORWARD[route]] + pair[route]
 
 
@@ -196,8 +195,8 @@ def test_misaligned_views_reach_the_tf32_forward_as_aligned_copies(monkeypatch, 
 @pytest.mark.parametrize("op", ["tree", "tower"])
 def test_tf32_forward_passes_the_replaced_kernels_arguments(monkeypatch, op):
     """Each wrapper launches its library's C function with the arguments
-    the other route's forward passes (the tree's CUDA-core K1, the tower's
-    tiled tensor-core forward), in its order (the outputs it allocates
+    the other route's forward passes (the tree's tensor-core forward, the
+    tower's tiled tensor-core forward), in its order (the outputs it allocates
     aside), and counts one launch. The device check is stood in for, so
     that CPU tensors reach the launch."""
     launched = []
@@ -206,8 +205,8 @@ def test_tf32_forward_passes_the_replaced_kernels_arguments(monkeypatch, op):
         monkeypatch.setattr(ta, "_check_tensor_core_inputs", lambda *a, **kw: None)
         q, k, v, template, ids, lut = _cpu_inputs(6, 2, 3, 9, 32)
         args = (q, k, v, template, ids, lut, 32 ** -0.5, True, 0.3, 11, True)
-        wrapper, old, outputs = ta.tree_attention_fwd_tf32, ta.tree_attention_fwd, (6, 7)
-        names = ("tree_fwd_tf32", "tree_attention_fwd_tf32"), ("tree_fwd", "tree_attention_fwd")
+        wrapper, old, outputs = ta.tree_attention_fwd_tf32, ta.tree_attention_fwd_fused, (6, 7)
+        names = ("tree_fwd_tf32", "tree_attention_fwd_tf32"), ("tree_fwd_mma", "tree_attention_fwd_mma")
     else:
         monkeypatch.setattr(ma, "_check_tensor_core_inputs", lambda *a, **kw: None)
         q, k, v, bias = (torch.from_numpy(x) for x in _tower_inputs(6, 2, 3, 9, 32))
@@ -297,7 +296,7 @@ def test_build_tables_name_the_tf32_forwards():
     kernel's arguments; the shared 3xTF32 header is in ``HEADERS`` (its
     change rebuilds every library), and the backward pair takes its
     helpers from it."""
-    tables = (("tree_fwd_tf32", "tree_attention_fwd_tf32", "tree_fwd", "tree_attention_fwd"),
+    tables = (("tree_fwd_tf32", "tree_attention_fwd_tf32", "tree_fwd_mma", "tree_attention_fwd_mma"),
               ("masked_fwd_tf32", "masked_attention_fwd_tf32", "masked_fwd_tiled", "masked_attention_fwd_tiled"))
     for lib, fn, old_lib, old_fn in tables:
         assert cuda_lib.SOURCES[lib] == cuda_lib.CSRC / f"{fn}.cu" and cuda_lib.SOURCES[lib].is_file()

@@ -1,7 +1,6 @@
 """The float32 forwards on tensor cores in 3xTF32, on the card: the tree
 attention's ``tree_attention_fwd_tf32`` and the tower attention's
-``masked_attention_fwd_tf32`` against their plain versions, the tree's
-against the CUDA-core kernel K1 it replaces on the float32 route, their
+``masked_attention_fwd_tf32`` against their plain versions, their
 masks read back, and the gradients that the backward kernels compute from
 what they save.
 
@@ -113,7 +112,7 @@ def plain_stats(q, k, bias, scale):
 @pytest.mark.parametrize("s", TREE_S)
 def test_tree_forward_matches_plain_on_card(s, dh, rate):
     """The 3xTF32 tree forward alone, with its LSE, against the plain
-    version and against K1 on the same float32 inputs."""
+    version on the same float32 inputs."""
     _card()
     b = 2 if s <= 257 else 1
     q, k, v, template, ids, lut = _tree_inputs(s + 3 * dh, b, 4, s, dh)
@@ -121,15 +120,12 @@ def test_tree_forward_matches_plain_on_card(s, dh, rate):
     before = [fn.launches for fn in ta.KERNELS]
     out, lse = ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, scale, True, rate, 4321, with_lse=True)
     torch.cuda.synchronize()
-    assert [fn.launches - n for fn, n in zip(ta.KERNELS, before)] == [0, 0, 0, 0, 0, 0, 0, 0, 1]
+    assert [fn.launches - n for fn, n in zip(ta.KERNELS, before)] == [0, 0, 0, 0, 0, 1]
     want = ta.tree_attention_dropout_reference(q, k, v, template, ids, lut, 4321, rate, scale)
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
     assert max_err_of_max(out, want) <= F32_RTOL_OF_MAX, max_err_of_max(out, want)
     ref = plain_lse(q, k, template, ids, lut, scale)
     torch.testing.assert_close(lse, ref, rtol=STAT_RTOL, atol=STAT_RTOL)
-    k1_out, k1_lse = ta.tree_attention_fwd(q, k, v, template, ids, lut, scale, True, rate, 4321, with_lse=True)
-    assert max_err_of_max(out, k1_out) <= F32_RTOL_OF_MAX
-    torch.testing.assert_close(lse, k1_lse, rtol=STAT_RTOL, atol=STAT_RTOL)
 
 
 @pytest.mark.gpu
@@ -137,7 +133,7 @@ def test_tree_forward_matches_plain_on_card(s, dh, rate):
 @pytest.mark.parametrize("s", [33, 601])
 def test_tree_forward_masked_rows_and_ids_on_card(s, dh):
     """A row whose every key the template masks gives zeros and the LSE
-    -1e9 + log 1e-30, as K1 gives; ids outside [0, 32) and LUT row 0 add
+    -1e9 + log 1e-30; ids outside [0, 32) and LUT row 0 add
     nothing, bit for bit."""
     _card()
     q, k, v, template, ids, lut = _tree_inputs(s + 7, 2, 4, s, dh, id_low=-40, id_high=3 * ta.LUT_SIZE)
@@ -177,7 +173,7 @@ def test_tree_forward_mask_is_the_plain_philox(s, dh):
         out = ta.tree_attention(zeros, zeros, v[:s].expand(b, h, s, dh).contiguous(), template, ids, lut,
                                 rate=rate, seed=99)
         chunks.append((out * s * (1 - rate)).round() > 0.5)
-    assert [fn.launches - n for fn, n in zip(ta.KERNELS, before)] == [0] * 8 + [len(chunks)]
+    assert [fn.launches - n for fn, n in zip(ta.KERNELS, before)] == [0] * 5 + [len(chunks)]
     mask = torch.cat(chunks, dim=-1)[..., :s]
     assert torch.equal(mask, ta.dropout_keep_mask(99, b, h, s, rate, dev))
     assert abs(mask.float().mean().item() - (1 - rate)) < 0.05
@@ -190,7 +186,8 @@ def test_tree_forward_mask_is_the_plain_philox(s, dh):
 def test_tree_gradients_through_the_tf32_forward(s, b, dh, rate):
     """float32 through ``tree_attention``: the 3xTF32 forward, then the
     3xTF32 pair reading its LSE and regenerating its mask, against the plain
-    version's forward and autograd gradients; K1 launches no time."""
+    version's forward and autograd gradients; the tensor-core kernels
+    launch no time."""
     dev = _card()
     q, k, v, template, ids, lut = _tree_inputs(5 * s + dh, b, 4, s, dh)
     g = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(s), device=dev)
@@ -200,7 +197,7 @@ def test_tree_gradients_through_the_tf32_forward(s, b, dh, rate):
     out.backward(g)
     got = [out.detach()] + [x.grad for x in leaves]
     torch.cuda.synchronize()
-    assert [fn.launches - n for fn, n in zip(ta.KERNELS, before)] == [0, 0, 0, 0, 0, 0, 1, 1, 1]
+    assert [fn.launches - n for fn, n in zip(ta.KERNELS, before)] == [0, 0, 0, 1, 1, 1]
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v, lut)]
     ref = ta.tree_attention_dropout_reference(leaves[0], leaves[1], leaves[2], template, ids, leaves[3], 1234, rate)
     ref.backward(g)

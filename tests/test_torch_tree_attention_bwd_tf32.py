@@ -1,6 +1,6 @@
 """The tree attention's 3xTF32 backward pair (the float32 route): the route
-to it, its wrappers' contract, and the pair against the plain version and
-against K2/K3 on the card.
+to it, its wrappers' contract, and the pair against the plain version on
+the card.
 
 This file imports neither JAX nor the JAX package, so that it runs on a
 machine with a card and no JAX:
@@ -13,13 +13,15 @@ against the JAX package's ``_bwd`` in ``test_torch_tree_attention_train.py``
 
 Tolerances on the card (float32 inputs, TF32 off for PyTorch's own
 products): dq, dk, dv and dlut within 1e-4 x max|ref| of the plain version
-on the same inputs, as for K2/K3. 3xTF32 drops the small x small term of
+on the same inputs. 3xTF32 drops the small x small term of
 each product (~2^-22 of it) and the tensor cores sum in another order than
 the plain version, a few float32 roundings per product; dlut's atomics add
-in an order that changes between runs. The pair against K2/K3 on the same
-inputs and LSE likewise. The adjoint identity in v within 1e-4 relative,
-as K2/K3's. The masks read back bit for bit.
+in an order that changes between runs. The pair called directly, from
+the 3xTF32 forward's LSE, likewise. The adjoint identity in v within 1e-4
+relative. The masks read back bit for bit.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -43,11 +45,18 @@ ROUTE_CASES = [
     (torch.float32, 32, "tf32"),
     (torch.float32, 64, "tf32"),  # the full-width float32 card steps
     (torch.float32, 128, "tf32"),
-    (torch.bfloat16, 64, "tensor_core"),  # every graph layer of the model
-    (torch.bfloat16, 16, "cuda_core"),
-    (torch.bfloat16, 32, "cuda_core"),
-    (torch.bfloat16, 128, "cuda_core"),
+    (torch.bfloat16, 64, "tensor_core"),  # every graph layer of ModelConfig()
+    (torch.bfloat16, 16, "tensor_core"),
+    (torch.bfloat16, 32, "tensor_core"),
+    (torch.bfloat16, 128, "tensor_core"),
 ]
+# the C functions' arguments of both pairs: the pointers (dq: q, k, v, out,
+# g, template, ids, lut, lse, dq, dlut, delta; dk/dv: q, k, v, g, template,
+# ids, lut, lse, delta, dk, dv), then B, H, S, DH; scale, tpl_coef;
+# seed_lo, seed_hi, thr; keep_scale, dtype, stream
+_TAIL = ([ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_uint] * 3
+         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+PAIR_ARGS = {"dq": [ctypes.c_void_p] * 12 + _TAIL, "dkv": [ctypes.c_void_p] * 11 + _TAIL}
 
 
 def _inputs(seed, b, h, s, dh, id_low=0, id_high=ta.LUT_SIZE):
@@ -105,8 +114,7 @@ def _stub_kernels(monkeypatch, calls, seen):
         return run
 
     stand_ins = {
-        "tree_attention_fwd": fwd("fwd"), "tree_attention_fwd_fused": fwd("fwd_fused"),
-        "tree_attention_fwd_tf32": fwd("fwd_tf32"), "tree_attention_bwd_dq": dq("dq"), "tree_attention_bwd_dkv": dkv("dkv"),
+        "tree_attention_fwd_fused": fwd("fwd_fused"), "tree_attention_fwd_tf32": fwd("fwd_tf32"),
         "tree_attention_bwd_dq_fused": dq("dq_fused"), "tree_attention_bwd_dkv_fused": dkv("dkv_fused"),
         "tree_attention_bwd_dq_tf32": dq("dq_tf32"), "tree_attention_bwd_dkv_tf32": dkv("dkv_tf32"),
     }
@@ -114,15 +122,14 @@ def _stub_kernels(monkeypatch, calls, seen):
         monkeypatch.setattr(ta, name, fn)
 
 
-ROUTE_CALLS = {"tf32": ["fwd_tf32", "dq_tf32", "dkv_tf32"], "tensor_core": ["fwd_fused", "dq_fused", "dkv_fused"],
-               "cuda_core": ["fwd", "dq", "dkv"]}
+ROUTE_CALLS = {"tf32": ["fwd_tf32", "dq_tf32", "dkv_tf32"], "tensor_core": ["fwd_fused", "dq_fused", "dkv_fused"]}
 
 
 @pytest.mark.parametrize("dtype, dh, route", ROUTE_CASES)
 def test_route_sends_float32_backward_to_the_tf32_pair(monkeypatch, dtype, dh, route):
     """``kernel_route`` for every (dtype, DH): float32 takes the 3xTF32 pair
-    (after the 3xTF32 forward), bf16 at DH 64 the tensor-core kernels and
-    bf16 at DH 16, 32, 128 K2/K3; ``TreeAttention`` calls exactly those."""
+    (after the 3xTF32 forward), bf16 the tensor-core kernels at every DH;
+    ``TreeAttention`` calls exactly those."""
     assert ta.kernel_route(dtype, dh) == route
     calls, seen = [], []
     _stub_kernels(monkeypatch, calls, seen)
@@ -152,12 +159,12 @@ def test_misaligned_views_reach_the_tf32_pair_as_aligned_copies(monkeypatch):
 
 def test_build_tables_name_the_tf32_backward():
     """``ops/cuda_lib.py`` builds the pair as its own library in the one
-    parallel nvcc pass, whose C functions take K2's and K3's arguments."""
+    parallel nvcc pass, whose C functions take the arguments of
+    ``PAIR_ARGS``, as the tensor-core pair's do."""
     assert cuda_lib.SOURCES["tree_bwd_tf32"] == cuda_lib.CSRC / "tree_attention_bwd_tf32.cu"
     assert cuda_lib.SOURCES["tree_bwd_tf32"].is_file()
     assert cuda_lib.ENTRY_POINTS["tree_bwd_tf32"] == {
-        "tree_attention_bwd_dq_tf32": cuda_lib.ENTRY_POINTS["tree_bwd"]["tree_attention_bwd_dq"],
-        "tree_attention_bwd_dkv_tf32": cuda_lib.ENTRY_POINTS["tree_bwd"]["tree_attention_bwd_dkv"],
+        "tree_attention_bwd_dq_tf32": PAIR_ARGS["dq"], "tree_attention_bwd_dkv_tf32": PAIR_ARGS["dkv"],
     }
     assert cuda_lib.ERROR_STRINGS["tree_bwd_tf32"] == "tree_attention_bwd_tf32_error_string"
     assert cuda_lib.library_paths()["tree_bwd_tf32"].parent == cuda_lib.BUILD_DIR
@@ -166,10 +173,12 @@ def test_build_tables_name_the_tf32_backward():
 
 @pytest.mark.parametrize("which", ["dq", "dkv"])
 def test_tf32_pair_passes_k2_k3_arguments(monkeypatch, which):
-    """Each wrapper launches its library's C function with the arguments
-    K2 / K3's wrapper passes, in K2 / K3's order (the outputs it allocates
-    aside), and counts one launch. The device check is stood in for, so
-    that CPU tensors reach the launch."""
+    """Each wrapper launches its library's C function with the argument
+    list of ``PAIR_ARGS`` (the layout the retired CUDA-core pair K2 / K3
+    took, and the tensor-core pair takes): the inputs' pointers, the
+    outputs it allocates, the shape, the scale and the dropout words, and
+    counts one launch. The device check is stood in for, so that CPU
+    tensors reach the launch."""
     launched = []
     monkeypatch.setattr(ta, "_check_tensor_core_inputs", lambda *a, **kw: None)
     monkeypatch.setattr(cuda_lib, "launch", lambda lib, fn, dev, *args: launched.append((lib, fn, args)))
@@ -177,25 +186,21 @@ def test_tf32_pair_passes_k2_k3_arguments(monkeypatch, which):
     lse, delta = torch.randn(2, 3, 9), torch.randn(2, 3, 9)
     g, out = torch.randn(q.shape), torch.randn(q.shape)
     if which == "dq":
-        args = (q, k, v, out, g, template, ids, lut, lse, 32 ** -0.5, True, 0.3, 11)
-        wrapper, k2 = ta.tree_attention_bwd_dq_tf32, ta.tree_attention_bwd_dq
-        outputs = slice(9, 12)  # dq, dlut, delta
+        inputs = (q, k, v, out, g, template, ids, lut, lse)
+        wrapper = ta.tree_attention_bwd_dq_tf32
     else:
-        args = (q, k, v, g, template, ids, lut, lse, delta, 32 ** -0.5, True, 0.3, 11)
-        wrapper, k2 = ta.tree_attention_bwd_dkv_tf32, ta.tree_attention_bwd_dkv
-        outputs = slice(9, 11)  # dk, dv
+        inputs = (q, k, v, g, template, ids, lut, lse, delta)
+        wrapper = ta.tree_attention_bwd_dkv_tf32
     before = wrapper.launches
-    got = wrapper(*args)
-    k2(*args)
+    got = wrapper(*inputs, 32 ** -0.5, True, 0.3, 11)
     assert wrapper.launches == before + 1
-    (lib, fn, mine), (lib2, fn2, theirs) = launched
+    (lib, fn, mine), = launched
     assert (lib, fn) == ("tree_bwd_tf32", f"tree_attention_bwd_{which}_tf32")
-    assert (lib2, fn2) == ("tree_bwd", f"tree_attention_bwd_{which}")
-    assert len(mine) + 1 == len(cuda_lib.ENTRY_POINTS[lib][fn])  # + the stream
-    assert [x for i, x in enumerate(mine) if i not in range(outputs.start, outputs.stop)] == \
-           [x for i, x in enumerate(theirs) if i not in range(outputs.start, outputs.stop)]
-    assert list(mine[outputs]) == [t.data_ptr() for t in got]
-    assert mine[-1] == ta.DTYPE_CODES[torch.float32] and mine[-11:-7] == (2, 3, 9, 32)
+    assert cuda_lib.ENTRY_POINTS[lib][fn] == PAIR_ARGS[which]
+    assert len(mine) + 1 == len(PAIR_ARGS[which])  # + the stream
+    want = ([t.data_ptr() for t in inputs + tuple(got)] + [2, 3, 9, 32, 32 ** -0.5, 2.0]
+            + list(ta.dropout_args(11, 0.3)) + [ta.DTYPE_CODES[torch.float32]])
+    assert list(mine) == want
     if which == "dq":
         assert got[0].shape == q.shape and got[0].dtype == torch.float32
         assert got[1].shape == (ta.LUT_SIZE, 3) and not got[1].any() and got[2].shape == (2, 3, 9)
@@ -299,14 +304,13 @@ def _assert_close_of_max(got, want, names, floor=1e-30):
         assert err <= F32_RTOL_OF_MAX, (name, err)
 
 
-def _pair(q, k, v, template, ids, lut, g, rate, seed, tf32: bool):
-    """dq, dk, dv, dlut of one backward pair from K1's LSE and output."""
+def _pair(q, k, v, template, ids, lut, g, rate, seed):
+    """dq, dk, dv, dlut of the 3xTF32 pair called directly, from the 3xTF32
+    forward's LSE and output."""
     scale = q.shape[-1] ** -0.5
-    out, lse = ta.tree_attention_fwd(q, k, v, template, ids, lut, scale, True, rate, seed, with_lse=True)
-    dq_fn, dkv_fn = ((ta.tree_attention_bwd_dq_tf32, ta.tree_attention_bwd_dkv_tf32) if tf32
-                     else (ta.tree_attention_bwd_dq, ta.tree_attention_bwd_dkv))
-    dq, dlut, delta = dq_fn(q, k, v, out, g, template, ids, lut, lse, scale, True, rate, seed)
-    dk, dv = dkv_fn(q, k, v, g, template, ids, lut, lse, delta, scale, True, rate, seed)
+    out, lse = ta.tree_attention_fwd_tf32(q, k, v, template, ids, lut, scale, True, rate, seed, with_lse=True)
+    dq, dlut, delta = ta.tree_attention_bwd_dq_tf32(q, k, v, out, g, template, ids, lut, lse, scale, True, rate, seed)
+    dk, dv = ta.tree_attention_bwd_dkv_tf32(q, k, v, g, template, ids, lut, lse, delta, scale, True, rate, seed)
     return [dq, dk, dv, dlut]
 
 
@@ -317,14 +321,14 @@ def _pair(q, k, v, template, ids, lut, g, rate, seed, tf32: bool):
 def test_tf32_pair_matches_plain_on_card(s, dh, rate):
     """float32 through ``tree_attention``: the 3xTF32 forward, then the
     3xTF32 pair, against the plain version's forward and autograd gradients
-    on the same inputs; K1 and K2/K3 launch no time."""
+    on the same inputs; the tensor-core kernels launch no time."""
     _card()
     b = 2 if s <= 257 else 1
     q, k, v, template, ids, lut, g = _card_inputs(s + dh, b, 4, s, dh)
     before = [fn.launches for fn in ta.KERNELS]
     got = forward_and_grads(ta.tree_attention, q, k, v, template, ids, lut, g, rate=rate, seed=2468)
     torch.cuda.synchronize()
-    assert [fn.launches - n for fn, n in zip(ta.KERNELS, before)] == [0, 0, 0, 0, 0, 0, 1, 1, 1]
+    assert [fn.launches - n for fn, n in zip(ta.KERNELS, before)] == [0, 0, 0, 1, 1, 1]
     want = forward_and_grads(ta.tree_attention_dropout_reference, q, k, v, template, ids, lut, g, rate=rate, seed=2468)
     _assert_close_of_max(got[:1] + got[3:4], want[:1] + want[3:4], ("out", "dv"))
     # at S = 1 dq, dk and dlut are 0 in exact arithmetic (softmax over one
@@ -339,13 +343,13 @@ def test_tf32_pair_matches_plain_on_card(s, dh, rate):
 @pytest.mark.parametrize("dh", [16, 64, 128])
 @pytest.mark.parametrize("s, b", [(33, 12), (129, 4), (601, 1)])
 def test_tf32_pair_matches_k2_k3_on_card(s, b, dh):
-    """The 3xTF32 pair against K2/K3 on the same float32 inputs, from one
-    K1 LSE."""
+    """The 3xTF32 pair called directly, from the 3xTF32 forward's LSE,
+    against the plain version's autograd gradients on the same float32
+    inputs."""
     _card()
     q, k, v, template, ids, lut, g = _card_inputs(3 * s + dh, b, 4, s, dh)
-    tf32 = _pair(q, k, v, template, ids, lut, g, 0.3, 77, tf32=True)
-    k23 = _pair(q, k, v, template, ids, lut, g, 0.3, 77, tf32=False)
-    _assert_close_of_max(tf32, k23, ("dq", "dk", "dv", "dlut"))
+    want = forward_and_grads(ta.tree_attention_dropout_reference, q, k, v, template, ids, lut, g, rate=0.3, seed=77)
+    _assert_close_of_max(_pair(q, k, v, template, ids, lut, g, 0.3, 77), want[1:], ("dq", "dk", "dv", "dlut"))
 
 
 @pytest.mark.gpu
@@ -359,7 +363,7 @@ def test_tf32_pair_masked_rows_and_ids_on_card(s, dh):
     _card()
     q, k, v, template, ids, lut, g = _card_inputs(s + 5, 2, 4, s, dh, id_low=-40, id_high=3 * ta.LUT_SIZE)
     template[0, s // 2] = ta.MASK_BIAS  # one row fully masked, column 0 included
-    got = _pair(q, k, v, template, ids, lut, g, 0.3, 9, tf32=True)
+    got = _pair(q, k, v, template, ids, lut, g, 0.3, 9)
     assert torch.equal(got[0][0, :, s // 2], torch.zeros_like(got[0][0, :, s // 2]))
     assert torch.equal(got[3][0], torch.zeros_like(got[3][0]))
     want = forward_and_grads(ta.tree_attention_dropout_reference, q, k, v, template, ids, lut, g, rate=0.3, seed=9)
@@ -367,14 +371,14 @@ def test_tf32_pair_masked_rows_and_ids_on_card(s, dh):
     # the masked row's g changes nothing else
     g2 = g.clone()
     g2[0, :, s // 2] = 100.0
-    again = _pair(q, k, v, template, ids, lut, g2, 0.3, 9, tf32=True)
+    again = _pair(q, k, v, template, ids, lut, g2, 0.3, 9)
     for a, w in zip(again[:3], got[:3]):
         assert torch.equal(a, w)
     torch.testing.assert_close(again[3], got[3], rtol=1e-5, atol=1e-6)
     clean = torch.where((ids >= 0) & (ids < ta.LUT_SIZE), ids, 0).to(torch.int32).contiguous()
     dirty_lut = lut.clone()
     dirty_lut[0] = 7.0
-    again = _pair(q, k, v, template, clean, dirty_lut, g, 0.3, 9, tf32=True)
+    again = _pair(q, k, v, template, clean, dirty_lut, g, 0.3, 9)
     for a, w in zip(again[:3], got[:3]):
         assert torch.equal(a, w)
     torch.testing.assert_close(again[3], got[3], rtol=1e-5, atol=1e-6)
@@ -440,7 +444,7 @@ def test_tf32_pair_mask_is_the_plain_philox(s, dh):
     before = [fn.launches for fn in ta.KERNELS]
     by_dv, by_dq = read_back_tf32_masks(b, h, s, dh, rate, 99)
     chunks = -(-s // dh)
-    assert [fn.launches - n for fn, n in zip(ta.KERNELS, before)] == [2 * chunks * d for d in (0, 0, 0, 0, 0, 0, 1, 1, 1)]
+    assert [fn.launches - n for fn, n in zip(ta.KERNELS, before)] == [2 * chunks * d for d in (0, 0, 0, 1, 1, 1)]
     want = ta.dropout_keep_mask(99, b, h, s, rate, "cuda")
     assert torch.equal(by_dv, want)
     assert torch.equal(by_dq, want)

@@ -1,5 +1,6 @@
-"""The tree-attention wrapper's contract, and the CUDA kernel against its
-plain version on the card.
+"""The tree-attention wrapper's contract (the tensor-core forward's input
+checks, the CPU path, the build), and the forwards against their plain
+version on the card.
 
 This file imports neither JAX nor the JAX package, so that it runs on a
 machine with a card and no JAX:
@@ -48,12 +49,18 @@ def test_lut_row_zero_is_ignored():
 
 
 def test_cpu_path_never_builds_or_counts(monkeypatch):
+    """bf16 at DH 128 (which the card sends to the tensor-core forward)
+    and float32 at DH 8 (which no kernel takes) on the CPU: the plain
+    version, no build, no launch."""
     def no_build():
         raise AssertionError("the CPU path must not build the kernel")
 
     monkeypatch.setattr(cuda_lib, "build", no_build)
     before = [fn.launches for fn in ta.KERNELS]
     _port(_inputs(15, 1, 2, 9, 8))
+    bf16 = [torch.from_numpy(a) for a in _inputs(15, 1, 2, 9, 128)]
+    bf16[:3] = [x.bfloat16() for x in bf16[:3]]
+    assert torch.isfinite(ta.tree_attention(*bf16).float()).all()
     assert [fn.launches for fn in ta.KERNELS] == before
 
 
@@ -71,15 +78,26 @@ def test_other_devices_raise():
         ta.tree_attention(q, q, q, q, q, q)
 
 
-@pytest.mark.parametrize("fault", ["dtype", "head_dim", "ids_dtype", "layout", "requires_grad"])
-def test_kernel_input_checks(fault):
-    """What the CUDA path refuses, checked on CPU tensors."""
+# each fault of the tensor-core forward's inputs: the error and its words
+KERNEL_FAULTS = {"dtype": (TypeError, "float32 or bfloat16"), "head_dim": (ValueError, "head dim 48"),
+                 "ids_dtype": (ValueError, "ids"), "layout": (ValueError, "contiguous"),
+                 "requires_grad": (ValueError, "runs on cuda")}
+
+
+@pytest.mark.parametrize("fault", list(KERNEL_FAULTS))
+def test_kernel_input_checks(monkeypatch, fault):
+    """What the tensor-core forward refuses, checked on CPU tensors before
+    any build: float16, a head dim outside (16, 32, 64, 128), int64 ids, a
+    non-contiguous q. Inputs that want a gradient are taken (the backward
+    kernels give it): with them, only the CPU device is refused."""
+
+    def no_build():
+        raise AssertionError("an input check must raise before the build")
+
+    monkeypatch.setattr(cuda_lib, "build", no_build)
     q, k, v, template, ids, lut = (torch.from_numpy(a) for a in _inputs(16, 1, 2, 9, 64))
-    expected = ValueError
-    if fault == "dtype":
-        q, k, v = q.half(), k.half(), v.half()
-        expected = TypeError
-    elif fault == "head_dim":
+    q, k, v = (x.to(torch.half if fault == "dtype" else torch.bfloat16) for x in (q, k, v))
+    if fault == "head_dim":
         q, k, v = q[..., :48], k[..., :48], v[..., :48]
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     elif fault == "ids_dtype":
@@ -87,39 +105,36 @@ def test_kernel_input_checks(fault):
     elif fault == "layout":
         q = q.transpose(1, 2).contiguous().transpose(1, 2)
     elif fault == "requires_grad":
-        # inputs that want a gradient are taken: the backward kernels give it
         q.requires_grad_(True)
-        ta._check_cuda_inputs(q, k, v, template, ids, lut)
-        return
-    with pytest.raises(expected):
-        ta._check_cuda_inputs(q, k, v, template, ids, lut)
+    error, words = KERNEL_FAULTS[fault]
+    with pytest.raises(error, match=words):
+        ta.tree_attention_fwd_fused(q, k, v, template, ids, lut, 0.125)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("s, b", [(33, 4), (129, 2), (601, 1)])
-def test_kernel_matches_plain_on_card(dtype, s, b):
-    """The CUDA-core kernel against its plain version on the card (float32
-    with TF32 off at atol 1e-4, through the route; bfloat16, which the route
-    sends to the tensor-core forward, through its own wrapper, within one
-    bf16 rounding step)."""
+def test_kernel_matches_plain_on_card(dtype, s, b, dh):
+    """The routed forward against its plain version on the card, at 768 //
+    dh heads: float32 (the 3xTF32 forward) with TF32 off at atol 1e-4;
+    bfloat16 (the tensor-core forward, which rounds p to bf16 before P V)
+    within 1e-2 of max |ref|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = getattr(torch, dtype)
-    q, k, v, template, ids, lut = (torch.from_numpy(a).cuda() for a in _inputs(17, b, 12, s, 64))
+    q, k, v, template, ids, lut = (torch.from_numpy(a).cuda() for a in _inputs(17, b, 768 // dh, s, dh))
     q, k, v = q.to(dt), k.to(dt), v.to(dt)
-    before = ta.tree_attention_fwd.launches
-    if dtype == "float32":
-        got = ta.tree_attention(q, k, v, template, ids, lut).float()
-    else:
-        got = ta.tree_attention_fwd(q, k, v, template, ids, lut, 64 ** -0.5)[0].float()
-    assert ta.tree_attention_fwd.launches == before + 1
+    fwd = ta.tree_attention_fwd_tf32 if dtype == "float32" else ta.tree_attention_fwd_fused
+    before = fwd.launches
+    got = ta.tree_attention(q, k, v, template, ids, lut).float()
+    assert fwd.launches == before + 1
     want = ta.tree_attention_reference(q, k, v, template, ids, lut).float()
     if dtype == "float32":
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
     else:
-        torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=1e-5)
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-2
 
 
 @pytest.mark.gpu

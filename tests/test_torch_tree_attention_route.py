@@ -1,6 +1,6 @@
 """The tree attention's two forward kernels: the route between them, the
 tensor-core forward's wrapper contract, and the tensor-core forward against
-the plain version on the card.
+the plain version on the card at DH 16, 32, 64 and 128.
 
 This file imports neither JAX nor the JAX package, so that it runs on a
 machine with a card and no JAX:
@@ -19,6 +19,8 @@ the LSE within 1e-4 x max(1, |ref|) elementwise (both sum exact bf16
 products in f32, in other orders).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,8 @@ LSE_RTOL = 1e-4
 # the ends of the route's S range and the edges of its 16-key steps, 64-key
 # tiles and 64-row blocks, the canonical buckets and the streaming sizes
 FUSED_S = (1, 2, 17, 33, 63, 64, 65, 129, 257, 601, 1025)
+# the head dims the tensor-core kernels take, each at the heads of d = 768
+HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _inputs(seed, b, h, s, dh, id_low=0, id_high=ta.LUT_SIZE):
@@ -49,9 +53,9 @@ def _inputs(seed, b, h, s, dh, id_low=0, id_high=ta.LUT_SIZE):
     return q, k, v, template, ids, lut
 
 
-def _card_inputs(seed, b, h, s, **kw):
-    """The inputs on the card, q, k and v in bf16 at DH = 64."""
-    q, k, v, template, ids, lut = (torch.from_numpy(a).cuda() for a in _inputs(seed, b, h, s, 64, **kw))
+def _card_inputs(seed, b, s, dh, **kw):
+    """The inputs on the card, q, k and v in bf16, at 768 // dh heads."""
+    q, k, v, template, ids, lut = (torch.from_numpy(a).cuda() for a in _inputs(seed, b, 768 // dh, s, dh, **kw))
     return q.bfloat16(), k.bfloat16(), v.bfloat16(), template, ids, lut
 
 
@@ -83,18 +87,17 @@ def forward_and_grads(fn, q, k, v, template, ids, lut, g, **kw):
     return [out.detach()] + [x.grad for x in leaves]
 
 
-# launches of ta.KERNELS (CUDA-core fwd, dq, dkv; tensor-core fwd, dq, dkv;
-# 3xTF32 dq, dkv; 3xTF32 fwd) for one forward and backward, by route
-ROUTE_LAUNCHES = {"tensor_core": [0, 0, 0, 1, 1, 1, 0, 0, 0], "tf32": [0, 0, 0, 0, 0, 0, 1, 1, 1],
-                  "cuda_core": [1, 1, 1, 0, 0, 0, 0, 0, 0]}
+# launches of ta.KERNELS (tensor-core fwd, dq, dkv; 3xTF32 dq, dkv; 3xTF32
+# fwd) for one forward and backward, by route
+ROUTE_LAUNCHES = {"tensor_core": [1, 1, 1, 0, 0, 0], "tf32": [0, 0, 0, 1, 1, 1]}
 # the forward stand-in each route calls
-ROUTE_FORWARD = {"tensor_core": "fwd_fused", "tf32": "fwd_tf32", "cuda_core": "fwd"}
+ROUTE_FORWARD = {"tensor_core": "fwd_fused", "tf32": "fwd_tf32"}
 
 ROUTE_CASES = [
-    (torch.bfloat16, 64, "tensor_core"),  # every graph layer of the model
-    (torch.bfloat16, 16, "cuda_core"),
-    (torch.bfloat16, 32, "cuda_core"),
-    (torch.bfloat16, 128, "cuda_core"),
+    (torch.bfloat16, 64, "tensor_core"),  # every graph layer of ModelConfig()
+    (torch.bfloat16, 16, "tensor_core"),
+    (torch.bfloat16, 32, "tensor_core"),  # --encoder-attention-heads 24
+    (torch.bfloat16, 128, "tensor_core"),  # --encoder-attention-heads 6
     (torch.float32, 16, "tf32"),
     (torch.float32, 32, "tf32"),
     (torch.float32, 64, "tf32"),  # f32: the card-vs-CPU steps' tolerances
@@ -120,10 +123,19 @@ def test_model_graph_layers_route_to_tensor_cores():
     assert ta.kernel_route(torch.float32, dh) == "tf32"
 
 
+# the C forward's arguments: q, k, v, template, ids, lut, out, lse; B, H,
+# S, DH; scale, tpl_coef; seed_lo, seed_hi, thr; keep_scale, dtype, stream
+FORWARD_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_uint] * 3
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
 def test_build_tables_name_the_tensor_core_forward():
     assert cuda_lib.SOURCES["tree_fwd_mma"] == cuda_lib.CSRC / "tree_attention_fwd_mma.cu"
-    assert cuda_lib.ENTRY_POINTS["tree_fwd_mma"] == {"tree_attention_fwd_mma": cuda_lib.ENTRY_POINTS["tree_fwd"]["tree_attention_fwd"]}
+    assert cuda_lib.ENTRY_POINTS["tree_fwd_mma"] == {"tree_attention_fwd_mma": FORWARD_ARGS}
     assert cuda_lib.ERROR_STRINGS["tree_fwd_mma"] == "tree_attention_fwd_mma_error_string"
+    # the CUDA-core tree kernels are gone: nothing builds or binds them
+    assert not {"tree_fwd", "tree_bwd"} & set(cuda_lib.SOURCES)
+    assert not (cuda_lib.CSRC / "tree_attention_fwd.cu").exists()
 
 
 def _stub_kernels(monkeypatch, calls, asked=None):
@@ -156,8 +168,7 @@ def _stub_kernels(monkeypatch, calls, asked=None):
             return torch.zeros_like(k), torch.zeros_like(v)
         return run
 
-    for name, fn in (("tree_attention_fwd", fwd("fwd")), ("tree_attention_fwd_fused", fwd("fwd_fused")),
-                     ("tree_attention_fwd_tf32", fwd("fwd_tf32")), ("tree_attention_bwd_dq", fake_dq("dq")), ("tree_attention_bwd_dkv", fake_dkv("dkv")),
+    for name, fn in (("tree_attention_fwd_fused", fwd("fwd_fused")), ("tree_attention_fwd_tf32", fwd("fwd_tf32")),
                      ("tree_attention_bwd_dq_fused", fake_dq("dq_fused")),
                      ("tree_attention_bwd_dkv_fused", fake_dkv("dkv_fused")),
                      ("tree_attention_bwd_dq_tf32", fake_dq("dq_tf32")),
@@ -206,21 +217,22 @@ def _misaligned(t):
 
 
 # each fault of the tensor-core forward's inputs and the words of its error
-FUSED_FAULTS = {"float32": "tensor-core", "head_dim": "tensor-core", "ids_dtype": "ids", "k_shape": "k must",
+FUSED_FAULTS = {"float32": "tensor-core", "head_dim": "head dim", "ids_dtype": "ids", "k_shape": "k must",
                 "misaligned_q": "aligned", "misaligned_v": "aligned", "cpu": "runs on cuda"}
 
 
 @pytest.mark.parametrize("fault", list(FUSED_FAULTS))
 def test_fused_forward_input_checks(monkeypatch, fault):
-    """What ``tree_attention_fwd_fused`` refuses: anything but bf16 at DH
-    64, malformed ids or k, q, k or v off a 16-byte boundary, and tensors
-    off the card. It raises before any build."""
+    """What ``tree_attention_fwd_fused`` refuses: anything but bf16, a head
+    dim outside (16, 32, 64, 128), malformed ids or k, q, k or v off a
+    16-byte boundary, and tensors off the card. It raises before any
+    build."""
 
     def no_build():
         raise AssertionError("an input check must raise before the build")
 
     monkeypatch.setattr(cuda_lib, "build", no_build)
-    dh = 32 if fault == "head_dim" else 64
+    dh = 48 if fault == "head_dim" else 32
     q, k, v, template, ids, lut = (torch.from_numpy(a) for a in _inputs(8, 2, 2, 9, dh))
     dt = torch.float32 if fault == "float32" else torch.bfloat16
     q, k, v = q.to(dt), k.to(dt), v.to(dt)
@@ -236,16 +248,17 @@ def test_fused_forward_input_checks(monkeypatch, fault):
         ta.tree_attention_fwd_fused(q, k, v, template, ids, lut, dh ** -0.5, True, 0.3, 1, with_lse=True)
 
 
-def test_cpu_path_never_builds_the_fused_forward(monkeypatch):
-    """bf16 at DH = 64 on the CPU: the plain version and autograd, no build
-    and no launch, although the card would take the tensor-core forward."""
+@pytest.mark.parametrize("dh", [64, 128])
+def test_cpu_path_never_builds_the_fused_forward(monkeypatch, dh):
+    """bf16 on the CPU: the plain version and autograd, no build and no
+    launch, although the card would take the tensor-core forward."""
 
     def no_build():
         raise AssertionError("the CPU path must not build the kernels")
 
     monkeypatch.setattr(cuda_lib, "build", no_build)
     before = [fn.launches for fn in ta.KERNELS]
-    q, k, v, template, ids, lut = (torch.from_numpy(a) for a in _inputs(9, 1, 2, 17, 64))
+    q, k, v, template, ids, lut = (torch.from_numpy(a) for a in _inputs(9, 1, 2, 17, dh))
     q, k, v = (x.to(torch.bfloat16).requires_grad_(True) for x in (q, k, v))
     ta.tree_attention(q, k, v, template, ids, lut, rate=0.2, seed=3).float().sum().backward()
     assert torch.isfinite(q.grad.float()).all()
@@ -253,54 +266,57 @@ def test_cpu_path_never_builds_the_fused_forward(monkeypatch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 @pytest.mark.parametrize("s", FUSED_S)
-def test_fused_forward_matches_plain_on_card(rate, s):
+def test_fused_forward_matches_plain_on_card(rate, s, dh):
     """The tensor-core forward alone, with its LSE, against the plain
     version on the same bf16 inputs."""
     _card()
     b = 2 if s <= 257 else 1
-    q, k, v, template, ids, lut = _card_inputs(s, b, 12, s)
+    q, k, v, template, ids, lut = _card_inputs(s, b, s, dh)
     before = [fn.launches for fn in ta.KERNELS]
-    out, lse = ta.tree_attention_fwd_fused(q, k, v, template, ids, lut, 0.125, True, rate, 4321, with_lse=True)
-    assert [fn.launches for fn in ta.KERNELS] == [n + d for n, d in zip(before, [0, 0, 0, 1, 0, 0, 0, 0, 0])]
-    want = ta.tree_attention_dropout_reference(q, k, v, template, ids, lut, 4321, rate, 0.125)
+    out, lse = ta.tree_attention_fwd_fused(q, k, v, template, ids, lut, dh ** -0.5, True, rate, 4321, with_lse=True)
+    assert [fn.launches for fn in ta.KERNELS] == [n + d for n, d in zip(before, [1, 0, 0, 0, 0, 0])]
+    want = ta.tree_attention_dropout_reference(q, k, v, template, ids, lut, 4321, rate, dh ** -0.5)
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
     assert max_err_of_max(out, want) <= BF16_RTOL_OF_MAX, max_err_of_max(out, want)
-    ref = plain_lse(q, k, template, ids, lut, 0.125)
+    ref = plain_lse(q, k, template, ids, lut, dh ** -0.5)
     torch.testing.assert_close(lse, ref, rtol=LSE_RTOL, atol=LSE_RTOL)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("s", [33, 601])
-def test_fused_forward_masked_rows_and_ids_on_card(s):
+def test_fused_forward_masked_rows_and_ids_on_card(s, dh):
     """A row whose every key the template masks gives zeros (and the LSE
     -1e9 + log 1e-30), not equal weights; ids outside [0, 32) and LUT row 0
     add nothing, bit for bit."""
     _card()
-    q, k, v, template, ids, lut = _card_inputs(s + 3, 2, 12, s, id_low=-40, id_high=3 * ta.LUT_SIZE)
+    q, k, v, template, ids, lut = _card_inputs(s + 3, 2, s, dh, id_low=-40, id_high=3 * ta.LUT_SIZE)
     template[0, s // 2] = ta.MASK_BIAS  # one row fully masked, column 0 included
-    out, lse = ta.tree_attention_fwd_fused(q, k, v, template, ids, lut, 0.125, True, 0.3, 9, with_lse=True)
+    out, lse = ta.tree_attention_fwd_fused(q, k, v, template, ids, lut, dh ** -0.5, True, 0.3, 9, with_lse=True)
     assert torch.equal(out[0, :, s // 2].float(), torch.zeros_like(out[0, :, s // 2].float()))
     torch.testing.assert_close(lse[0, :, s // 2], torch.full_like(lse[0, :, s // 2], ta.MASK_BIAS + np.log(1e-30)))
-    want = ta.tree_attention_dropout_reference(q, k, v, template, ids, lut, 9, 0.3, 0.125)
+    want = ta.tree_attention_dropout_reference(q, k, v, template, ids, lut, 9, 0.3, dh ** -0.5)
     assert max_err_of_max(out, want) <= BF16_RTOL_OF_MAX
     clean = torch.where((ids >= 0) & (ids < ta.LUT_SIZE), ids, 0).to(torch.int32).contiguous()
     dirty_lut = lut.clone()
     dirty_lut[0] = 7.0
-    again, _ = ta.tree_attention_fwd_fused(q, k, v, template, clean, dirty_lut, 0.125, True, 0.3, 9)
+    again, _ = ta.tree_attention_fwd_fused(q, k, v, template, clean, dirty_lut, dh ** -0.5, True, 0.3, 9)
     assert torch.equal(again, out)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 @pytest.mark.parametrize("s, b", [(33, 4), (129, 2), (601, 1), (1025, 1)])
-def test_gradients_through_the_fused_forward_lse(rate, s, b):
+def test_gradients_through_the_fused_forward_lse(rate, s, b, dh):
     """bf16 through ``tree_attention``: the tensor-core forward, then the
     backward kernels reading its LSE and regenerating its mask, against the
     plain version's forward and autograd gradients."""
     dev = _card()
-    q, k, v, template, ids, lut = _card_inputs(7 * s, b, 12, s)
+    q, k, v, template, ids, lut = _card_inputs(7 * s, b, s, dh)
     g = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(s), device=dev).bfloat16()
     before = [fn.launches for fn in ta.KERNELS]
     got = forward_and_grads(ta.tree_attention, q, k, v, template, ids, lut, g, rate=rate, seed=1234)
@@ -313,15 +329,16 @@ def test_gradients_through_the_fused_forward_lse(rate, s, b):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("s", [33, 601])
-def test_fused_forward_mask_is_the_plain_philox(s):
+def test_fused_forward_mask_is_the_plain_philox(s, dh):
     """With q = k = 0 and no bias every row weighs its keys equally, so with
-    v holding one-hot columns for keys c*64 .. c*64+63, out = keep / (S (1 -
+    v holding one-hot columns for keys c*dh .. c*dh+dh-1, out = keep / (S (1 -
     rate)) there (within a bf16 step, far from the 0.5 the rounding cuts
     at): the tensor-core forward's mask, read back over several key tiles,
     equals the plain Philox bit for bit."""
     dev = _card()
-    b, h, dh, rate = 1, 3, 64, 0.3
+    b, h, rate = 1, 3, 0.3
     zeros = torch.zeros(b, h, s, dh, device=dev, dtype=torch.bfloat16)
     template = torch.zeros(b, s, s, device=dev)
     ids = torch.zeros(b, s, s, dtype=torch.int32, device=dev)

@@ -86,21 +86,22 @@ def test_backward_inputs_checked(name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 @pytest.mark.parametrize("s, b", [(33, 4), (129, 2), (257, 1), (601, 1)])  # 601: the streaming sizes
-def test_kernels_match_plain_on_card(dtype, rate, s, b):
+def test_kernels_match_plain_on_card(dtype, rate, s, b, dh):
     dev = _card()
     dt = getattr(torch, dtype)
-    q, k, v, template, ids, lut = (torch.from_numpy(a).to(dev) for a in _inputs(s, b, 12, s, 64))
+    q, k, v, template, ids, lut = (torch.from_numpy(a).to(dev) for a in _inputs(s, b, 768 // dh, s, dh))
     q, k, v = q.to(dt), k.to(dt), v.to(dt)
     g = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(s), device=dev).to(dt)
     before = [fn.launches for fn in ta.KERNELS]
     got = forward_and_grads(ta.tree_attention, q, k, v, template, ids, lut, g, rate=rate, seed=1234)
-    # (CUDA-core fwd, dq, dkv; tensor-core fwd, dq, dkv; 3xTF32 dq, dkv;
-    # 3xTF32 fwd): bf16 at DH 64 takes the tensor-core kernels both ways,
-    # float32 the 3xTF32 forward and pair
-    fwd = [0, 0, 0, 1, 1, 1, 0, 0, 0] if ta.kernel_route(dt, 64) == "tensor_core" else [0, 0, 0, 0, 0, 0, 1, 1, 1]
+    # (tensor-core fwd, dq, dkv; 3xTF32 dq, dkv; 3xTF32 fwd): bf16 takes
+    # the tensor-core kernels both ways at every DH, float32 the 3xTF32
+    # forward and pair
+    fwd = [1, 1, 1, 0, 0, 0] if ta.kernel_route(dt, dh) == "tensor_core" else [0, 0, 0, 1, 1, 1]
     assert [fn.launches for fn in ta.KERNELS] == [n + d for n, d in zip(before, fwd)]
     want = forward_and_grads(ta.tree_attention_dropout_reference, q, k, v, template, ids, lut, g, rate=rate, seed=1234)
     tol = F32_RTOL_OF_MAX if dtype == "float32" else BF16_RTOL_OF_MAX
@@ -146,8 +147,9 @@ def test_adjoint_identity_in_v(s, b):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dh", [16, 64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])  # both forward routes
-def test_cuda_path_never_calls_the_plain_version(monkeypatch, dtype):
+def test_cuda_path_never_calls_the_plain_version(monkeypatch, dtype, dh):
     dev = _card()
 
     def no_plain(*a, **kw):
@@ -155,7 +157,7 @@ def test_cuda_path_never_calls_the_plain_version(monkeypatch, dtype):
 
     for name in ("tree_attention_dropout_reference", "tree_attention_reference", "dropout_keep_mask", "philox4x32"):
         monkeypatch.setattr(ta, name, no_plain)
-    q, k, v, template, ids, lut = (torch.from_numpy(a).to(dev) for a in _inputs(7, 2, 12, 33, 64))
+    q, k, v, template, ids, lut = (torch.from_numpy(a).to(dev) for a in _inputs(7, 2, 768 // dh, 33, dh))
     q, k, v = (x.to(getattr(torch, dtype)) for x in (q, k, v))
     got = forward_and_grads(ta.tree_attention, q, k, v, template, ids, lut, torch.ones_like(q), rate=0.3, seed=5)
     torch.cuda.synchronize()
